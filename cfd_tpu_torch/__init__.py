@@ -1,0 +1,24 @@
+"""cfd_tpu_torch — the PyTorch and CUDA port of cfd_tpu.
+
+The JAX package ``cfd_tpu`` stays the reference; this package mirrors its
+module paths (``cfd_tpu/ops/pallas/X.py`` → ``cfd_tpu_torch/ops/kernels/X.py``)
+so each counterpart is easy to find.  It imports torch and numpy only —
+never jax or cfd_tpu.
+
+The first slice is the main path: the 3D Chorin projection step with the
+exact spectral pressure solve (`solvers.ns.projection.make_projection_step`),
+whose two mega kernels run as hand-written CUDA for Hopper
+(``csrc/projection_kernels.cu``) and as plain PyTorch on the CPU.
+
+Every constructor takes an explicit ``device``; there is no global device
+state.  CUDA kernels are compiled with ``nvcc`` at first use, never at
+import, so every module imports on a machine without a GPU or a compiler.
+"""
+
+from . import config
+from .core import CFDError, FlowField, Grid, Status
+
+__version__ = "0.1.0"
+
+__all__ = ["config", "CFDError", "FlowField", "Grid", "Status",
+           "__version__"]

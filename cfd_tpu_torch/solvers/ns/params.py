@@ -1,0 +1,97 @@
+"""Navier-Stokes parameters and per-step results (counterpart of
+`cfd_tpu/solvers/ns/params.py`).
+
+``NSParams`` keeps the reference's fields and defaults one for one, so a
+test can carry a parameter set across with ``NSParams.from_fields``.
+``StepResult`` holds 0-d tensors on the field's device: reading one is the
+caller's choice of when to synchronise.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Optional, Tuple
+
+import torch
+
+from ...core.status import Status
+
+DEFAULT_TIME_STEP = 0.001
+DEFAULT_CFL_NUMBER = 0.2
+DEFAULT_GAMMA = 1.4
+DEFAULT_VISCOSITY = 0.01
+DEFAULT_THERMAL_CONDUCTIVITY = 0.0242
+DEFAULT_MAX_ITERATIONS = 100
+DEFAULT_TOLERANCE = 1e-6
+DEFAULT_SOURCE_AMPLITUDE_U = 0.1
+DEFAULT_SOURCE_AMPLITUDE_V = 0.05
+DEFAULT_SOURCE_DECAY_RATE = 0.1
+DEFAULT_PRESSURE_COUPLING = 0.1
+
+# Projection velocity clamp (`solver_projection.c:40`).
+PROJ_MAX_VELOCITY = 100.0
+
+
+@dataclasses.dataclass(frozen=True)
+class NSParams:
+    """Mirrors the reference's ``NSParams`` (same fields, same defaults).
+    ``thermal_bc`` is held as given: the energy equation is not ported yet,
+    and the projection step refuses any configuration that would read it.
+    """
+
+    dt: float = DEFAULT_TIME_STEP
+    cfl: float = DEFAULT_CFL_NUMBER
+    gamma: float = DEFAULT_GAMMA
+    mu: float = DEFAULT_VISCOSITY
+    k: float = DEFAULT_THERMAL_CONDUCTIVITY
+    max_iter: int = DEFAULT_MAX_ITERATIONS
+    tolerance: float = DEFAULT_TOLERANCE
+    source_amplitude_u: float = DEFAULT_SOURCE_AMPLITUDE_U
+    source_amplitude_v: float = DEFAULT_SOURCE_AMPLITUDE_V
+    source_decay_rate: float = DEFAULT_SOURCE_DECAY_RATE
+    pressure_coupling: float = DEFAULT_PRESSURE_COUPLING
+    source_func: Optional[Callable] = None
+    alpha: float = 0.0
+    beta: float = 0.0
+    T_ref: float = 0.0
+    gravity: Tuple[float, float, float] = (0.0, 0.0, 0.0)
+    heat_source_func: Optional[Callable] = None
+    thermal_bc: Any = None
+    nonuniform_scheme: str = "parity"
+
+    def __post_init__(self):
+        if self.nonuniform_scheme not in ("parity", "consistent"):
+            raise ValueError(
+                f"nonuniform_scheme must be 'parity' or 'consistent', "
+                f"got {self.nonuniform_scheme!r}")
+
+    @classmethod
+    def from_fields(cls, other) -> "NSParams":
+        """Copy every field of the same name from ``other`` (e.g. the
+        reference package's NSParams)."""
+        return cls(**{f.name: getattr(other, f.name)
+                      for f in dataclasses.fields(cls)})
+
+    @property
+    def energy_enabled(self) -> bool:
+        return self.alpha > 0.0
+
+    @property
+    def buoyancy_enabled(self) -> bool:
+        return self.beta != 0.0
+
+
+@dataclasses.dataclass(frozen=True)
+class StepResult:
+    """Per-step diagnostics as 0-d device tensors."""
+
+    iterations: torch.Tensor     # int32: steps applied
+    status: torch.Tensor         # int32 Status code (0, −6, −7)
+    residual: torch.Tensor
+    max_velocity: torch.Tensor
+    max_pressure: torch.Tensor
+    max_temperature: torch.Tensor
+
+    @property
+    def diverged(self) -> torch.Tensor:
+        return self.status == int(Status.ERROR_DIVERGED)

@@ -1,0 +1,143 @@
+"""Chorin projection step (counterpart of `cfd_tpu/solvers/ns/projection.py`,
+the DST-fused single-device branch, `:544-657`).
+
+One step is the reference's two-kernel spectral projection:
+
+* A1 (`ProjectionKernels.predictor_poisson_input`): predictor
+  u* = clamp(u + dt(−u·∇u + ν∇²u + f)) with caller shells passed through,
+  b̃ = face_coeff·p − (ρ/dt)∇·u*, forward xy DST and the Thomas forward
+  sweep along z;
+* A2 (`ProjectionKernels.corrector_bwd_diag`): Thomas back substitution,
+  inverse xy DST to the pressure (mirror shells), corrector
+  u = clamp(u* − (dt/ρ)∇p), and the diagnostics' interior maxima;
+
+then two z-shell face maxima complete max|u|², max p and max|p| exactly
+as `field_status_and_diagnostics` would over the whole field.  ρ is taken
+from the first grid point, floored at 1e-10 → 1.0.  The step never reads a
+device value on the host: dt, the decayed source amplitudes, ρ and every
+diagnostic stay 0-d device tensors.
+
+Anything outside this slice raises ``CFDError(ERROR_UNSUPPORTED)``; each
+exclusion is a later slice in ROADMAP.md.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ...config import resolve_dtype
+from ...core.field import FlowField
+from ...core.grid import Grid
+from ...core.status import CFDError, Status
+from ...ops.kernels.projection_kernels import ProjectionKernels
+from ..poisson.base import Method, PoissonProblem
+from ..poisson.spectral import make_dst_fused_pieces
+from .common import validate_grid_for_solver
+from .params import NSParams, StepResult
+
+
+def _unsupported(what: str):
+    raise CFDError(Status.ERROR_UNSUPPORTED,
+                   f"projection step: {what} is not ported yet")
+
+
+def _check_slice(grid: Grid, params: NSParams, poisson_method,
+                 spectral_precision, differentiable, bc_refresh,
+                 dtype, device):
+    if Method(poisson_method) != Method.FFT_DIRECT:
+        _unsupported(f"poisson_method {Method(poisson_method).name}")
+    if grid.nz == 1:
+        _unsupported("the 2D step")
+    if grid.nz < 4:
+        _unsupported("nz < 4 (the three-pass form)")
+    if not grid.is_uniform():
+        _unsupported("a stretched grid")
+    if params.nonuniform_scheme == "consistent":
+        _unsupported("the consistent nonuniform scheme")
+    if params.energy_enabled or params.heat_source_func is not None:
+        _unsupported("the energy equation")
+    if params.buoyancy_enabled:
+        _unsupported("Boussinesq buoyancy")
+    if params.source_func is not None:
+        _unsupported("a custom source_func")
+    if bc_refresh is not None:
+        _unsupported("bc_refresh")
+    if differentiable:
+        _unsupported("the differentiable step")
+    if spectral_precision not in (None, "highest"):
+        _unsupported(f"spectral_precision={spectral_precision!r} "
+                     f"(only 'highest', IEEE fp32, is ported)")
+    if torch.device(device).type == "cuda" and dtype != torch.float32:
+        _unsupported(f"{dtype} on CUDA (the kernels are float32)")
+
+
+def make_projection_step(grid: Grid, params: NSParams, dtype=None,
+                         poisson_method: Method = Method.FFT_DIRECT,
+                         device="cpu", spectral_precision=None,
+                         differentiable: bool = False, bc_refresh=None,
+                         plain: bool = False):
+    """Build ``step(field, dt, iter_idx) -> (field, StepResult)``.
+
+    On ``device="cuda"`` the step launches the hand-written kernels; on
+    the CPU the same wrappers run their plain PyTorch versions.
+
+    ``plain=True`` is a reference switch for checks on the card only: it
+    runs the plain versions on a CUDA device too, so ``chip_smoke.py`` can
+    hold the kernel step against them and time both.  On the CPU both
+    settings run the same code; callers leave it False.
+    """
+    dtype = resolve_dtype(dtype, device)
+    _check_slice(grid, params, poisson_method, spectral_precision,
+                 differentiable, bc_refresh, dtype, device)
+    validate_grid_for_solver(grid, grid.shape)
+
+    problem = PoissonProblem(grid.nx, grid.ny, grid.nz, grid.dx0,
+                             grid.dy0, grid.dz0)
+    mats, tdma_fwd = make_dst_fused_pieces(problem, dtype, device)
+    pk = ProjectionKernels(
+        grid.nz, grid.ny, grid.nx, grid.dx0, grid.dy0, grid.dz0,
+        grid.xmin, grid.ymin, params.mu, mats, tdma_fwd,
+        with_sources=(params.source_amplitude_u != 0.0
+                      or params.source_amplitude_v != 0.0),
+        plain=plain)
+    decay_rate = params.source_decay_rate
+    amp_u, amp_v = params.source_amplitude_u, params.source_amplitude_v
+
+    def step(field: FlowField, dt, iter_idx):
+        # a fill, not a host-to-device copy (which would synchronise)
+        dt = (dt.to(dtype) if torch.is_tensor(dt)
+              else torch.full((), dt, dtype=dtype, device=field.device))
+        decay = torch.exp((-decay_rate * iter_idx) * dt)
+        su, sv = amp_u * decay, amp_v * decay
+        rho0 = field.rho[0, 0, 0]
+        rho0 = torch.where(rho0 < 1e-10, torch.ones_like(rho0), rho0)
+
+        us, vs, ws, d, t = pk.predictor_poisson_input(
+            field.u, field.v, field.w, field.p, dt, su, sv, rho0 / dt)
+        u, v, w, p, m2i, pmaxi, pabsi = pk.corrector_bwd_diag(
+            us, vs, ws, d, t, dt / rho0)
+        new_field = field.replace(u=u, v=v, w=w, p=p)
+
+        # the kernels' maxima cover planes 1..nz−2; fold in the z-shells
+        def m2_face(k):
+            return torch.amax(u[k] ** 2 + v[k] ** 2 + w[k] ** 2)
+
+        faces = (0, -1)
+        m2 = torch.maximum(m2i, torch.maximum(*map(m2_face, faces)))
+        pmax = torch.maximum(pmaxi, torch.maximum(
+            *(torch.amax(p[k]) for k in faces)))
+        pabs = torch.maximum(pabsi, torch.maximum(
+            *(torch.amax(torch.abs(p[k])) for k in faces)))
+        finite = torch.isfinite(m2) & torch.isfinite(pabs)
+        status = torch.where(
+            finite, torch.zeros((), dtype=torch.int32, device=u.device),
+            torch.full((), int(Status.ERROR_DIVERGED), dtype=torch.int32,
+                       device=u.device))
+        return new_field, StepResult(
+            iterations=torch.ones((), dtype=torch.int32, device=u.device),
+            status=status, residual=torch.zeros((), dtype=dtype,
+                                                device=u.device),
+            max_velocity=torch.sqrt(m2), max_pressure=pmax,
+            max_temperature=torch.amax(field.T))
+
+    return step

@@ -1,0 +1,182 @@
+"""Package-level properties of the port: it never loads JAX, every module
+imports without nvcc or triton, configurations outside the ported slice
+raise, and state and parameters carry across from the reference."""
+
+import dataclasses
+import os
+import pkgutil
+import subprocess
+import sys
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import cfd_tpu_torch
+from cfd_tpu import FlowField as JField
+from cfd_tpu import Grid as JGrid
+from cfd_tpu.solvers.ns import NSParams as JParams
+from cfd_tpu.solvers.ns.common import z_constants as j_z_constants
+from cfd_tpu_torch import CFDError, FlowField, Grid, Status
+from cfd_tpu_torch.config import resolve_dtype
+from cfd_tpu_torch.interop import field_from_numpy, field_to_numpy
+from cfd_tpu_torch.solvers.ns.common import z_constants
+from cfd_tpu_torch.solvers.ns.params import NSParams
+from cfd_tpu_torch.solvers.ns.projection import make_projection_step
+from cfd_tpu_torch.solvers.poisson.base import Method
+
+torch.set_num_threads(min(2, torch.get_num_threads()))
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+MODULES = sorted(m.name for m in pkgutil.walk_packages(
+    cfd_tpu_torch.__path__, "cfd_tpu_torch."))
+
+
+def _run_isolated(code: str) -> str:
+    """Run ``code`` in a fresh interpreter with only the repo on the path."""
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("PYTHONPATH", "XLA_FLAGS")}
+    env["PYTHONPATH"] = REPO
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    return proc.stdout
+
+
+def test_import_loads_no_jax():
+    out = _run_isolated(
+        "import sys, cfd_tpu_torch, cfd_tpu_torch.entry\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'cfd_tpu'))\n"
+        "print('LOADED', bad)\n")
+    assert "LOADED []" in out
+
+
+def test_every_module_imports_without_nvcc_or_triton():
+    """Importing every module neither starts a process (nvcc) nor loads
+    triton, and leaves the CUDA library unbuilt."""
+    out = _run_isolated(
+        "import importlib, subprocess, sys\n"
+        "def refuse(*a, **k):\n"
+        "    raise AssertionError('process started during import')\n"
+        "subprocess.Popen = refuse\n"
+        f"for name in {MODULES!r}:\n"
+        "    importlib.import_module(name)\n"
+        "from cfd_tpu_torch.ops.kernels import native\n"
+        "print('TRITON', 'triton' in sys.modules, 'LIB', native._lib)\n")
+    assert "TRITON False LIB None" in out
+    assert "cfd_tpu_torch.ops.kernels.projection_kernels" in MODULES
+
+
+def _grid(nx=128, ny=16, nz=8):
+    return Grid.uniform(nx, ny, nz, zmin=0.0, zmax=1.0)
+
+
+def _stretched_grid():
+    g = _grid()
+    x = g.x.copy()
+    x[1] += 0.3 * (x[2] - x[1])
+    return dataclasses.replace(g, x=x, dx=np.diff(x))
+
+
+UNSUPPORTED = {
+    "cg": dict(poisson_method=Method.CG),
+    "multigrid": dict(poisson_method=Method.MULTIGRID),
+    "nz3": dict(grid=_grid(nz=3)),
+    "2d": dict(grid=Grid.uniform(128, 16)),
+    "stretched": dict(grid=_stretched_grid()),
+    "consistent": dict(params=NSParams(nonuniform_scheme="consistent")),
+    "energy": dict(params=NSParams(alpha=1e-3)),
+    "buoyancy": dict(params=NSParams(beta=0.05)),
+    "source_func": dict(params=NSParams(
+        source_func=lambda X, Y, Z, t: (0.0, 0.0, 0.0))),
+    "bc_refresh": dict(bc_refresh=lambda u, v, w, t: (u, v, w)),
+    "differentiable": dict(differentiable=True),
+    "precision_high": dict(spectral_precision="high"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(UNSUPPORTED))
+def test_unsupported_configurations_raise(case):
+    kw = dict(UNSUPPORTED[case])
+    grid = kw.pop("grid", _grid())
+    params = kw.pop("params", NSParams())
+    with pytest.raises(CFDError) as err:
+        make_projection_step(grid, params, dtype=torch.float32, **kw)
+    assert err.value.status == Status.ERROR_UNSUPPORTED
+
+
+def test_float64_on_cuda_is_refused():
+    """The kernels are float32; the check runs before any device use."""
+    with pytest.raises(CFDError) as err:
+        make_projection_step(_grid(), NSParams(), dtype=torch.float64,
+                             device="cuda")
+    assert err.value.status == Status.ERROR_UNSUPPORTED
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_field_numpy_round_trip(dtype):
+    rng = np.random.default_rng(2)
+    arrays = {n: rng.normal(size=(4, 5, 6)) for n in
+              ("u", "v", "w", "p", "rho", "T")}
+    f = field_from_numpy(arrays, "cpu", dtype)
+    assert f.dtype == dtype and f.shape == (4, 5, 6)
+    back = field_to_numpy(f)
+    for n, a in arrays.items():
+        np.testing.assert_array_equal(back[n], a.astype(back[n].dtype))
+    again = field_from_numpy(back, "cpu", dtype)
+    for n in arrays:
+        assert torch.equal(getattr(again, n), getattr(f, n))
+
+
+def test_field_from_reference_arrays():
+    """A reference FlowField converts through np.array (its buffers are
+    read-only views under np.asarray) and matches FlowField.initialize."""
+    jg = JGrid.uniform(24, 20, 10, zmin=0.0, zmax=1.0)
+    jf = JField.initialize(jg, dtype=jnp.float64)
+    tf = field_from_numpy({n: getattr(jf, n) for n in
+                           ("u", "v", "w", "p", "rho", "T")},
+                          "cpu", torch.float64)
+    ref = FlowField.initialize(Grid.uniform(24, 20, 10, zmin=0.0, zmax=1.0),
+                               dtype=torch.float64)
+    for n in ("u", "v", "w", "p", "rho", "T"):
+        assert torch.equal(getattr(tf, n), getattr(ref, n)), n
+
+
+def test_grid_matches_reference():
+    g = Grid.uniform(24, 20, 10, xmin=-1.0, xmax=2.0, zmin=0.0, zmax=0.5)
+    jg = JGrid.uniform(24, 20, 10, xmin=-1.0, xmax=2.0, zmin=0.0, zmax=0.5)
+    for a in ("x", "y", "z", "dx", "dy", "dz"):
+        np.testing.assert_array_equal(getattr(g, a), getattr(jg, a))
+    assert (g.shape, g.dx0, g.dy0, g.dz0, g.inv_dz2) == (
+        jg.shape, jg.dx0, jg.dy0, jg.dz0, jg.inv_dz2)
+    assert z_constants(g) == j_z_constants(jg)
+    X, Y, Z = g.coordinate_arrays(torch.float64)
+    jX, jY, jZ = jg.coordinate_arrays(jnp.float64)
+    for a, b in ((X, jX), (Y, jY), (Z, jZ)):
+        np.testing.assert_array_equal(a.numpy(), b)
+    with pytest.raises(CFDError):
+        Grid.uniform(8, 8, 4, zmin=1.0, zmax=1.0)
+
+
+def test_params_carry_across():
+    """NSParams keeps the reference's fields and defaults one for one."""
+    names = [f.name for f in dataclasses.fields(NSParams)]
+    assert names == [f.name for f in dataclasses.fields(JParams)]
+    jp = JParams(mu=0.02, source_amplitude_u=0.3, gravity=(0.0, -9.8, 0.0))
+    tp = NSParams.from_fields(jp)
+    for n in names:
+        if n != "thermal_bc":
+            assert getattr(tp, n) == getattr(jp, n), n
+    assert tp.thermal_bc is jp.thermal_bc
+    for n in names:
+        if n != "thermal_bc":
+            assert getattr(NSParams(), n) == getattr(JParams(), n), n
+
+
+def test_dtype_resolution():
+    assert resolve_dtype(None, "cuda") == torch.float32
+    assert resolve_dtype(None, "cpu") == torch.get_default_dtype()
+    assert resolve_dtype("float64", "cuda") == torch.float64
+    assert resolve_dtype(np.float32, "cpu") == torch.float32

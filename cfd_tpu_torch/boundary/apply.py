@@ -1,0 +1,48 @@
+"""Boundary conditions on (nz, ny, nx) tensors (counterpart of
+`cfd_tpu/boundary/apply.py`, restricted to the lid cavity's scalar BCs).
+
+Each function returns a new tensor and leaves its argument as it was, as
+the reference's functional updates do.  Faces are written in the
+reference's order — x-faces, then y-faces, then z-faces (3D only) — so the
+last writer owns each corner, as there.  A plain (ny, nx) tensor is taken
+as one plane.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .types import DirichletValues
+
+
+def _planes(f: torch.Tensor) -> torch.Tensor:
+    out = f.clone()
+    return out[None] if out.dim() == 2 else out
+
+
+def apply_neumann_scalar(f: torch.Tensor) -> torch.Tensor:
+    """Zero gradient: each boundary face takes the adjacent interior
+    values."""
+    g = _planes(f)
+    g[:, :, 0] = g[:, :, 1]
+    g[:, :, -1] = g[:, :, -2]
+    g[:, 0, :] = g[:, 1, :]
+    g[:, -1, :] = g[:, -2, :]
+    if g.shape[0] > 1:
+        g[0] = g[1]
+        g[-1] = g[-2]
+    return g.view_as(f)
+
+
+def apply_dirichlet_scalar(f: torch.Tensor,
+                           values: DirichletValues = DirichletValues()):
+    """Fixed value on each boundary face."""
+    g = _planes(f)
+    g[:, :, 0] = values.left
+    g[:, :, -1] = values.right
+    g[:, 0, :] = values.bottom
+    g[:, -1, :] = values.top
+    if g.shape[0] > 1:
+        g[0] = values.back
+        g[-1] = values.front
+    return g.view_as(f)

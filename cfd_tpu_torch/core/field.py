@@ -1,7 +1,8 @@
 """Flow field state (counterpart of `cfd_tpu/core/field.py`).
 
 Six ``(nz, ny, nx)`` tensors (u, v, w, p, rho, T) in a frozen dataclass,
-the JAX layout with x last.  ``w`` is always allocated (zero in 2D).
+the JAX layout with x last; a 2D field is one plane (nz == 1).  ``w`` is
+always allocated, in 2D too.
 """
 
 from __future__ import annotations
@@ -57,6 +58,22 @@ class FlowField:
 
     def replace(self, **kwargs) -> "FlowField":
         return dataclasses.replace(self, **kwargs)
+
+    @classmethod
+    def quiescent(cls, nx: int, ny: int, nz: int = 1, dtype=None,
+                  device=None, pressure: float = INIT_PRESSURE,
+                  density: float = INIT_DENSITY,
+                  temperature: float = INIT_TEMP) -> "FlowField":
+        """Zero velocity with physical rest-state scalars (the lid
+        cavity's start)."""
+        dt = resolve_dtype(dtype, device)
+        shape = (nz, ny, nx)
+
+        def full(value):
+            return torch.full(shape, value, dtype=dt, device=device)
+
+        return cls(u=full(0.0), v=full(0.0), w=full(0.0), p=full(pressure),
+                   rho=full(density), T=full(temperature))
 
     @classmethod
     def initialize(cls, grid: Grid, dtype=None, device=None) -> "FlowField":

@@ -1,7 +1,8 @@
 """Build, load and launch the hand-written CUDA kernels.
 
 The sources under ``cfd_tpu_torch/csrc/`` are compiled with ``nvcc`` for
-Hopper (``sm_90a``) into one shared library with a plain C interface, at
+Hopper (``sm_90a``), one ``nvcc`` process per source, all started
+together, and linked into one shared library with a plain C interface, at
 first use, into ``cfd_tpu_torch/_build/`` (listed in ``.gitignore``).  The
 library is loaded with ``ctypes``; every entry point takes raw device
 pointers and the current CUDA stream and returns ``cudaGetLastError()``,
@@ -31,13 +32,14 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ["-std=c++17", "-O3", "-fmad=false", "-Xptxas", "-v",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-Xcompiler", "-fPIC"]
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
 
 # argument types of each C entry point, stream last
 SIGNATURES = {
+    # projection_kernels.cu (3D step, and the SGEMM both steps use)
     "cfd_pred_star": [_P] * 7 + [_I] * 3 + [_F] * 11 + [_I, _P],
     "cfd_poisson_input": [_P] * 6 + [_I] * 3 + [_F] * 6 + [_P],
     "cfd_sgemm_batched": [_I] * 3 + [_P, _L, _L, _P, _L, _L, _P, _L, _L]
@@ -45,6 +47,10 @@ SIGNATURES = {
     "cfd_tdma_fwd": [_P, _P, _F, _P, _P, _I, _L, _P],
     "cfd_tdma_bwd": [_P, _P, _P, _I, _L, _P],
     "cfd_corrector": [_P] * 10 + [_I] * 3 + [_F] * 3 + [_P],
+    # projection2d_kernels.cu (2D step)
+    "cfd_pred_star_2d": [_P] * 7 + [_I] * 2 + [_F] * 9 + [_I, _P],
+    "cfd_poisson_input_2d": [_P] * 5 + [_I] * 2 + [_F] * 4 + [_P],
+    "cfd_corrector_2d": [_P] * 6 + [_I] * 2 + [_F] * 2 + [_P],
 }
 
 _lib = None
@@ -75,21 +81,44 @@ def library_path() -> Path:
 
 
 def build() -> Path:
-    """Compile the sources if the keyed library is missing; the command
-    and nvcc's output (ptxas' register and spill report) go to
+    """Compile the sources if the keyed library is missing: one ``nvcc -c``
+    per source, all running at once, then one link.  The commands and
+    nvcc's output (ptxas' register and spill report) go to
     ``_build/build.log``."""
     target = library_path()
     if target.exists():
         return target
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = target.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *ARCH_FLAGS, *NVCC_FLAGS, "-o", str(tmp),
-           *(str(s) for s in CSRC.glob("*.cu"))]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    log = proc.stdout + proc.stderr
-    (BUILD_DIR / "build.log").write_text(" ".join(cmd) + "\n" + log)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+    nvcc, tag = _nvcc(), f"{os.getpid()}.tmp"
+    jobs = []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = BUILD_DIR / f"{src.stem}.{tag}.o"
+        cmd = [nvcc, *ARCH_FLAGS, *NVCC_FLAGS, "-c", "-o", str(obj),
+               str(src)]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    log, failed = [], []
+    for cmd, _, proc in jobs:
+        out, _ = proc.communicate()
+        log += [" ".join(cmd), out]
+        if proc.returncode != 0:
+            failed.append(f"{Path(cmd[-1]).name} ({proc.returncode})")
+    tmp = target.with_suffix(f".{tag}")
+    if not failed:
+        cmd = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),
+               *(str(obj) for _, obj, _ in jobs)]
+        proc = subprocess.run(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+        log += [" ".join(cmd), proc.stdout]
+        if proc.returncode != 0:
+            failed.append(f"link ({proc.returncode})")
+    for _, obj, _ in jobs:
+        obj.unlink(missing_ok=True)
+    text = "\n".join(log)
+    (BUILD_DIR / "build.log").write_text(text)
+    if failed:
+        raise RuntimeError(f"nvcc failed: {', '.join(failed)}\n{text}")
     os.replace(tmp, target)
     return target
 
@@ -135,13 +164,19 @@ def on_cpu(t: torch.Tensor) -> bool:
     return t.device.type == "cpu"
 
 
-def check_cuda(*tensors: torch.Tensor) -> None:
-    """The kernels take contiguous float32 tensors on one CUDA device."""
+def check_cuda(*tensors: torch.Tensor, rows: bool = False) -> None:
+    """The kernels take contiguous float32 tensors on one CUDA device.
+    ``rows=True`` also admits a 2D view whose rows are contiguous (unit
+    column stride, any row stride ≥ its width): the SGEMM reads such a
+    matrix through its leading dimension."""
     dev = tensors[0].device
     for t in tensors:
         if t.device != dev or t.device.type != "cuda":
             raise ValueError("kernel inputs must share one CUDA device")
         if t.dtype != torch.float32:
             raise TypeError(f"kernel inputs must be float32, got {t.dtype}")
+        if rows and t.dim() == 2 and t.stride(1) == 1 \
+                and t.stride(0) >= t.shape[1]:
+            continue
         if not t.is_contiguous():
             raise ValueError("kernel inputs must be contiguous")

@@ -55,7 +55,7 @@ from .tdma import (tdma_z_bwd, tdma_z_bwd_reference, tdma_z_fwd,
 class StencilConsts:
     """Compile-time constants of one uniform grid (the reference bakes the
     same Python floats into its kernels; the CUDA kernels take them as
-    float32 arguments)."""
+    float32 arguments).  On a 2D grid (nz == 1) the z constants are 0."""
 
     nz: int
     ny: int
@@ -78,7 +78,7 @@ class StencilConsts:
 
     @property
     def inv_2dz(self):
-        return 1.0 / (2.0 * self.dz)
+        return 1.0 / (2.0 * self.dz) if self.nz > 1 else 0.0
 
     @property
     def inv_dx2(self):
@@ -90,7 +90,7 @@ class StencilConsts:
 
     @property
     def inv_dz2(self):
-        return 1.0 / (self.dz * self.dz)
+        return 1.0 / (self.dz * self.dz) if self.nz > 1 else 0.0
 
     def derivs(self):
         return (self.inv_2dx, self.inv_2dy, self.inv_2dz,
@@ -111,7 +111,9 @@ def _check(c: StencilConsts, fields, scalars):
 def predictor_star_plain(u, v, w, scal, c: StencilConsts):
     """u* = clamp(u + dt(−u·∇u + ν∇²u + src)) on the interior, shells
     passed through; ``scal`` = [dt, su, sv] (source amplitudes with the
-    decay folded in)."""
+    decay folded in).  Also the plain version of the 2D predictor: on a
+    one-plane field the z terms vanish (the reference's inv_dz2 = 0
+    idiom), leaving its 2D operation order."""
     dt, su, sv = scal[0], scal[1], scal[2]
     i2x, i2y, i2z, ix2, iy2, iz2 = c.derivs()
     uc, vc, wc = interior(u), interior(v), interior(w)
@@ -149,7 +151,7 @@ def predictor_star(u, v, w, scal, c: StencilConsts):
 
 def face_coeff(c: StencilConsts, dtype, device):
     """(nz, ny, nx) Neumann-mirror face coefficients, in the reference
-    kernel's summation order ((x + y) + z)."""
+    kernel's summation order ((x + y) + z; the z term is 0 in 2D)."""
     def face(n, inv_d2):
         k = torch.arange(n, device=device)
         return inv_d2 * ((k == 1).to(dtype) + (k == n - 2).to(dtype))

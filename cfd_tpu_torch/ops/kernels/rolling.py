@@ -1,4 +1,5 @@
-"""The xy-DST plane product (counterpart of `cfd_tpu/ops/pallas/rolling.py`).
+"""The DST products (counterpart of `cfd_tpu/ops/pallas/rolling.py`):
+the 3D xy-DST plane product, and the one-sided products of the 2D step.
 
 The reference's manual-DMA z-marching engine (`make_rolling_stencil`) is
 not ported as an engine: each kernel that rode it is a CUDA kernel of its
@@ -78,4 +79,67 @@ def plane_dot(x: torch.Tensor, right: torch.Tensor,
     return out
 
 
+# ---- one-sided products (the 2D step) ---------------------------------------
+#
+# The 2D step's x-DST pair is one product per field, ``x · right`` on every
+# row (the reference's in-kernel `block_dot`, `projection2d.py:97-106`), and
+# its dense low-mode rescue multiplies a thin column slice from the left
+# (`spectral.py:299-303`, jnp matmuls at HIGHEST in the reference).  Each
+# wrapper is one `sgemm_kernel` launch; `left_dot` reads and writes column
+# slices in place through the SGEMM's leading dimensions.
+
+def right_dot_plain(x: torch.Tensor, right: torch.Tensor) -> torch.Tensor:
+    with ieee_fp32_matmul():
+        return torch.matmul(x, right)
+
+
+def right_dot(x: torch.Tensor, right: torch.Tensor) -> torch.Tensor:
+    """``x · right`` for the (…, k) tensor ``x`` (every row times the
+    (k, n) matrix ``right``); ``right_dot.launches`` counts SGEMM
+    launches."""
+    if native.on_cpu(x):
+        return right_dot_plain(x, right)
+    native.check_cuda(x, right)
+    if right.dim() != 2 or x.shape[-1] != right.shape[0]:
+        raise ValueError(f"right_dot: {tuple(x.shape)} · "
+                         f"{tuple(right.shape)}")
+    k, n = right.shape
+    out = torch.empty(x.shape[:-1] + (n,), dtype=x.dtype, device=x.device)
+    native.launch("cfd_sgemm_batched", x.device, x.numel() // k, n, k,
+                  native.ptr(x), k, 0, native.ptr(right), n, 0,
+                  native.ptr(out), n, 0, 1)
+    right_dot.launches += 1
+    return out
+
+
+def left_dot_plain(left: torch.Tensor, x: torch.Tensor, out=None):
+    with ieee_fp32_matmul():
+        res = torch.matmul(left, x)
+    return res if out is None else out.copy_(res)
+
+
+def left_dot(left: torch.Tensor, x: torch.Tensor, out=None) -> torch.Tensor:
+    """``left · x`` for a contiguous (m, k) ``left`` and a (k, n) ``x``
+    whose rows are contiguous (a column slice of a wider matrix will do);
+    written into ``out`` (an (m, n) row view, in place) when given.
+    ``left_dot.launches`` counts SGEMM launches."""
+    if native.on_cpu(x):
+        return left_dot_plain(left, x, out)
+    (m, k), n = left.shape, x.shape[1]
+    if out is None:
+        out = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    native.check_cuda(left, x, out, rows=True)
+    if x.shape[0] != k or tuple(out.shape) != (m, n) \
+            or not left.is_contiguous():
+        raise ValueError(f"left_dot: {tuple(left.shape)} · "
+                         f"{tuple(x.shape)} -> {tuple(out.shape)}")
+    native.launch("cfd_sgemm_batched", x.device, m, n, k,
+                  native.ptr(left), k, 0, native.ptr(x), x.stride(0), 0,
+                  native.ptr(out), out.stride(0), 0, 1)
+    left_dot.launches += 1
+    return out
+
+
 plane_dot.launches = 0
+right_dot.launches = 0
+left_dot.launches = 0

@@ -1,5 +1,6 @@
-"""z-line Thomas solves of the spectral pressure path (counterpart of
-`cfd_tpu/ops/pallas/tdma.py`).
+"""Line Thomas solves of the spectral pressure paths (counterpart of
+`cfd_tpu/ops/pallas/tdma.py`): z-lines in 3D, and y-lines in 2D on the
+same kernels (at the end).
 
 After the xy DST the pressure system splits into one tridiagonal per
 (y, x) mode along z:
@@ -102,6 +103,32 @@ def tdma_z_bwd(d: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
                   native.ptr(x), nz, ny * nx)
     tdma_z_bwd.launches += 1
     return x
+
+
+# ---- y-lines of the 2D step --------------------------------------------------
+#
+# After the forward x-DST the 2D pressure system splits into one
+# tridiagonal per x-mode m along y (`make_tdma_y_2d`, `tdma.py:434-523`):
+#
+#     (mu_m + 2w)·x_j − w·(x_{j−1} + x_{j+1}) = r_j,   j = 1..ny−2,
+#     x_0 = x_{ny−1} = 0,   w = 1/dy²,   mu_m = λx_m > 0,
+#
+# the 3D recurrence with rows in place of planes: an (ny, nx) rhs is an
+# (ny, 1, nx) stack of one-row planes, so the z-line kernels solve it.
+
+def tdma_y_2d_reference(r: torch.Tensor, mu: torch.Tensor, w: float):
+    """Both sweeps of the (ny, mx) zero-shell rhs ``r`` with ``mu`` (mx,):
+    x with mirror y-shells; plain loops over rows, any dtype."""
+    return tdma_z_reference(r[:, None, :], mu[None, :], w)[:, 0, :]
+
+
+def tdma_y_2d(r: torch.Tensor, mu: torch.Tensor, w: float) -> torch.Tensor:
+    """The y-line solve through :func:`tdma_z_fwd` and :func:`tdma_z_bwd`
+    (``tdma_fwd_kernel``, ``tdma_bwd_kernel`` on CUDA, which count the
+    launches)."""
+    if tuple(mu.shape) != (r.shape[-1],) or r.dim() != 2 or r.shape[0] < 3:
+        raise ValueError("tdma_y_2d: r must be (ny >= 3, nx) and mu (nx,)")
+    return tdma_z_bwd(*tdma_z_fwd(r[:, None, :], mu[None, :], w))[:, 0, :]
 
 
 tdma_z_fwd.launches = 0

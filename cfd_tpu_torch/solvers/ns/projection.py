@@ -1,7 +1,7 @@
 """Chorin projection step (counterpart of `cfd_tpu/solvers/ns/projection.py`,
-the DST-fused single-device branch, `:544-657`).
+the DST-fused single-device branches: 3D `:544-657`, 2D `:659-717`).
 
-One step is the reference's two-kernel spectral projection:
+A 3D step is the reference's two-kernel spectral projection:
 
 * A1 (`ProjectionKernels.predictor_poisson_input`): predictor
   u* = clamp(u + dt(−u·∇u + ν∇²u + f)) with caller shells passed through,
@@ -12,10 +12,18 @@ One step is the reference's two-kernel spectral projection:
   u = clamp(u* − (dt/ρ)∇p), and the diagnostics' interior maxima;
 
 then two z-shell face maxima complete max|u|², max p and max|p| exactly
-as `field_status_and_diagnostics` would over the whole field.  ρ is taken
-from the first grid point, floored at 1e-10 → 1.0.  The step never reads a
-device value on the host: dt, the decayed source amplitudes, ρ and every
-diagnostic stay 0-d device tensors.
+as `field_status_and_diagnostics` would over the whole field.
+
+A 2D step (nz == 1) is the reference's DST-fused 2D form on every grid:
+`Projection2DKernels.predictor_and_poisson_input` (predictor and b̃·FxT),
+the y-line solve of `make_dst2d_fused_pieces` (Thomas + dense low-mode
+rescue), `Projection2DKernels.corrector` (p = x̂·GxT, corrector); w = w*,
+and the diagnostics come from `field_status_and_diagnostics` over the new
+field, as the reference's 2D step does.
+
+ρ is taken from the first grid point, floored at 1e-10 → 1.0.  The step
+never reads a device value on the host: dt, the decayed source
+amplitudes, ρ and every diagnostic stay 0-d device tensors.
 
 Anything outside this slice raises ``CFDError(ERROR_UNSUPPORTED)``; each
 exclusion is a later slice in ROADMAP.md.
@@ -29,10 +37,11 @@ from ...config import resolve_dtype
 from ...core.field import FlowField
 from ...core.grid import Grid
 from ...core.status import CFDError, Status
+from ...ops.kernels.projection2d import Projection2DKernels
 from ...ops.kernels.projection_kernels import ProjectionKernels
 from ..poisson.base import Method, PoissonProblem
-from ..poisson.spectral import make_dst_fused_pieces
-from .common import validate_grid_for_solver
+from ..poisson.spectral import make_dst2d_fused_pieces, make_dst_fused_pieces
+from .common import field_status_and_diagnostics, validate_grid_for_solver
 from .params import NSParams, StepResult
 
 
@@ -46,9 +55,7 @@ def _check_slice(grid: Grid, params: NSParams, poisson_method,
                  dtype, device):
     if Method(poisson_method) != Method.FFT_DIRECT:
         _unsupported(f"poisson_method {Method(poisson_method).name}")
-    if grid.nz == 1:
-        _unsupported("the 2D step")
-    if grid.nz < 4:
+    if 1 < grid.nz < 4:
         _unsupported("nz < 4 (the three-pass form)")
     if not grid.is_uniform():
         _unsupported("a stretched grid")
@@ -71,12 +78,28 @@ def _check_slice(grid: Grid, params: NSParams, poisson_method,
         _unsupported(f"{dtype} on CUDA (the kernels are float32)")
 
 
+def _result(finite, vmax, pmax, tmax) -> StepResult:
+    """StepResult of a direct-solve step: status 0, or −6 (DIVERGED) when
+    a field is not finite."""
+    dev = vmax.device
+    status = torch.where(
+        finite, torch.zeros((), dtype=torch.int32, device=dev),
+        torch.full((), int(Status.ERROR_DIVERGED), dtype=torch.int32,
+                   device=dev))
+    return StepResult(
+        iterations=torch.ones((), dtype=torch.int32, device=dev),
+        status=status, residual=torch.zeros((), dtype=vmax.dtype,
+                                            device=dev),
+        max_velocity=vmax, max_pressure=pmax, max_temperature=tmax)
+
+
 def make_projection_step(grid: Grid, params: NSParams, dtype=None,
                          poisson_method: Method = Method.FFT_DIRECT,
                          device="cpu", spectral_precision=None,
                          differentiable: bool = False, bc_refresh=None,
                          plain: bool = False):
-    """Build ``step(field, dt, iter_idx) -> (field, StepResult)``.
+    """Build ``step(field, dt, iter_idx) -> (field, StepResult)`` for a 3D
+    (nz ≥ 4) or 2D (nz == 1) uniform grid.
 
     On ``device="cuda"`` the step launches the hand-written kernels; on
     the CPU the same wrappers run their plain PyTorch versions.
@@ -93,25 +116,48 @@ def make_projection_step(grid: Grid, params: NSParams, dtype=None,
 
     problem = PoissonProblem(grid.nx, grid.ny, grid.nz, grid.dx0,
                              grid.dy0, grid.dz0)
-    mats, tdma_fwd = make_dst_fused_pieces(problem, dtype, device)
-    pk = ProjectionKernels(
-        grid.nz, grid.ny, grid.nx, grid.dx0, grid.dy0, grid.dz0,
-        grid.xmin, grid.ymin, params.mu, mats, tdma_fwd,
-        with_sources=(params.source_amplitude_u != 0.0
-                      or params.source_amplitude_v != 0.0),
-        plain=plain)
+    with_sources = (params.source_amplitude_u != 0.0
+                    or params.source_amplitude_v != 0.0)
     decay_rate = params.source_decay_rate
     amp_u, amp_v = params.source_amplitude_u, params.source_amplitude_v
 
-    def step(field: FlowField, dt, iter_idx):
+    def scalars(field: FlowField, dt, iter_idx):
+        """(dt, su, sv, ρ) as 0-d tensors on the field's device."""
         # a fill, not a host-to-device copy (which would synchronise)
         dt = (dt.to(dtype) if torch.is_tensor(dt)
               else torch.full((), dt, dtype=dtype, device=field.device))
         decay = torch.exp((-decay_rate * iter_idx) * dt)
-        su, sv = amp_u * decay, amp_v * decay
         rho0 = field.rho[0, 0, 0]
         rho0 = torch.where(rho0 < 1e-10, torch.ones_like(rho0), rho0)
+        return dt, amp_u * decay, amp_v * decay, rho0
 
+    if grid.nz == 1:
+        fxt, gxt, ysolve = make_dst2d_fused_pieces(problem, dtype, device,
+                                                   plain=plain)
+        pk2 = Projection2DKernels(
+            grid.ny, grid.nx, grid.dx0, grid.dy0, grid.xmin, grid.ymin,
+            params.mu, (fxt, gxt), with_sources=with_sources, plain=plain)
+
+        def step_2d(field: FlowField, dt, iter_idx):
+            dt, su, sv, rho0 = scalars(field, dt, iter_idx)
+            us, vs, ws, bt_x = pk2.predictor_and_poisson_input(
+                field.u, field.v, field.w, field.p, dt, su, sv, rho0 / dt)
+            u, v, p = pk2.corrector(us, vs, ysolve(bt_x), dt / rho0)
+            # the w-correction is identically zero in 2D (inv_dz2 = 0)
+            new_field = field.replace(u=u, v=v, w=ws, p=p)
+            return new_field, _result(
+                *field_status_and_diagnostics(new_field))
+
+        return step_2d
+
+    mats, tdma_fwd = make_dst_fused_pieces(problem, dtype, device)
+    pk = ProjectionKernels(
+        grid.nz, grid.ny, grid.nx, grid.dx0, grid.dy0, grid.dz0,
+        grid.xmin, grid.ymin, params.mu, mats, tdma_fwd,
+        with_sources=with_sources, plain=plain)
+
+    def step(field: FlowField, dt, iter_idx):
+        dt, su, sv, rho0 = scalars(field, dt, iter_idx)
         us, vs, ws, d, t = pk.predictor_poisson_input(
             field.u, field.v, field.w, field.p, dt, su, sv, rho0 / dt)
         u, v, w, p, m2i, pmaxi, pabsi = pk.corrector_bwd_diag(
@@ -129,15 +175,7 @@ def make_projection_step(grid: Grid, params: NSParams, dtype=None,
         pabs = torch.maximum(pabsi, torch.maximum(
             *(torch.amax(torch.abs(p[k])) for k in faces)))
         finite = torch.isfinite(m2) & torch.isfinite(pabs)
-        status = torch.where(
-            finite, torch.zeros((), dtype=torch.int32, device=u.device),
-            torch.full((), int(Status.ERROR_DIVERGED), dtype=torch.int32,
-                       device=u.device))
-        return new_field, StepResult(
-            iterations=torch.ones((), dtype=torch.int32, device=u.device),
-            status=status, residual=torch.zeros((), dtype=dtype,
-                                                device=u.device),
-            max_velocity=torch.sqrt(m2), max_pressure=pmax,
-            max_temperature=torch.amax(field.T))
+        return new_field, _result(finite, torch.sqrt(m2), pmax,
+                                  torch.amax(field.T))
 
     return step

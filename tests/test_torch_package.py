@@ -84,7 +84,15 @@ UNSUPPORTED = {
     "cg": dict(poisson_method=Method.CG),
     "multigrid": dict(poisson_method=Method.MULTIGRID),
     "nz3": dict(grid=_grid(nz=3)),
-    "2d": dict(grid=Grid.uniform(128, 16)),
+    "2d_buoyancy": dict(grid=Grid.uniform(128, 16),
+                        params=NSParams(beta=0.05)),
+    "2d_energy": dict(grid=Grid.uniform(128, 16),
+                      params=NSParams(alpha=1e-3)),
+    "2d_bc_refresh": dict(grid=Grid.uniform(128, 16),
+                          bc_refresh=lambda u, v, w, t: (u, v, w)),
+    "2d_cg": dict(grid=Grid.uniform(128, 16), poisson_method=Method.CG),
+    "2d_precision_high": dict(grid=Grid.uniform(128, 16),
+                              spectral_precision="high"),
     "stretched": dict(grid=_stretched_grid()),
     "consistent": dict(params=NSParams(nonuniform_scheme="consistent")),
     "energy": dict(params=NSParams(alpha=1e-3)),

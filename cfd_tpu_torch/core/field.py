@@ -2,7 +2,8 @@
 
 Six ``(nz, ny, nx)`` tensors (u, v, w, p, rho, T) in a frozen dataclass,
 the JAX layout with x last; a 2D field is one plane (nz == 1).  ``w`` is
-always allocated, in 2D too.
+always allocated, in 2D too.  The constructors put the field on the card
+unless the caller passes ``device`` (`config.resolve_device`).
 """
 
 from __future__ import annotations
@@ -12,7 +13,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..config import resolve_dtype
+from ..config import resolve_device, resolve_dtype
 from .grid import Grid
 
 # Initial condition constants (`solver_explicit_euler.c:30-44`).
@@ -65,7 +66,8 @@ class FlowField:
                   density: float = INIT_DENSITY,
                   temperature: float = INIT_TEMP) -> "FlowField":
         """Zero velocity with physical rest-state scalars (the lid
-        cavity's start)."""
+        cavity's start), on the card unless ``device`` says otherwise."""
+        device = resolve_device(device)
         dt = resolve_dtype(dtype, device)
         shape = (nz, ny, nx)
 
@@ -81,7 +83,9 @@ class FlowField:
         u = 1 + 0.1 sin(πy), v = 0.05 sin(2πx), w = 0, p = 1, rho = 1,
         T = 300, plus a Gaussian pressure bump at (1, 0.5) with a matched
         velocity perturbation inside radius 0.2.  Built in float64 on the
-        host, as the reference does, then cast once."""
+        host, as the reference does, then cast once, on the card unless
+        ``device`` says otherwise."""
+        device = resolve_device(device)
         dt = resolve_dtype(dtype, device)
         nz, ny, nx = grid.shape
         X = np.broadcast_to(np.asarray(grid.x)[None, None, :], (nz, ny, nx))

@@ -8,6 +8,7 @@ tensor (0 ok, −6 diverged, −7 max-iter) reads the same in both packages.
 from __future__ import annotations
 
 import enum
+import threading
 
 
 class Status(enum.IntEnum):
@@ -50,3 +51,21 @@ class CFDError(Exception):
     def __init__(self, status: Status, message: str = ""):
         self.status = Status(status)
         super().__init__(message or get_error_string(status))
+
+
+# Thread-local last-error record (the reference's TLS error state); the
+# registry sets it when it returns None for a name.
+_tls = threading.local()
+
+
+def set_error(status: Status, message: str) -> None:
+    _tls.status = Status(status)
+    _tls.message = message
+
+
+def get_last_error() -> str:
+    return getattr(_tls, "message", "")
+
+
+def get_last_status() -> Status:
+    return getattr(_tls, "status", Status.SUCCESS)

@@ -1,0 +1,201 @@
+// Hand-written CUDA kernel for the explicit Euler step on Hopper.
+//
+// It replaces two TPU kernels of the reference:
+//
+//   make_euler_fused    (cfd_tpu/ops/pallas/euler_kernels.py, compute
+//       :240-351 on the rolling engine)  the whole 3D step
+//       -> euler_kernel<true> + reduce_max4_kernel
+//   make_euler2d_fused  (cfd_tpu/ops/pallas/euler2d.py, compute :101-260
+//       on the marching engine; the y-face wrap rows in the step wrapper,
+//       cfd_tpu/solvers/ns/euler.py:280-311)  the whole 2D step
+//       -> euler_kernel<false> + reduce_max4_kernel
+//
+// Both launch through cfd_euler_step, which picks the instantiation from
+// nz (1: the 2D kernel).
+//
+// Per interior point (uniform grid, no energy, no buoyancy; the 2D
+// instantiation drops every z term, the reference's inv_dz2 = 0 idiom):
+// derivatives clamped to +-100 and each second-derivative term to +-1000
+// before the sum, du = cdt * (-u.grad u - dp_x / rho + nu lap u + src),
+// u' = clamp(u + clamp(du, 1), 100), p' = p + clamp(-c cdt rho
+// clamp(div, 10), 1), all kept at their old values where rho <= 1e-10.
+// Velocity shells pass through from the input; p, rho and T take the
+// periodic wrap x -> y -> z of the updated field.
+//
+// Design.  The TPU kernel streamed planes through a VMEM ring and took the
+// z faces from the engine's shell snapshots.  Here one thread owns one
+// point and reads its neighbours from device memory through L1/L2: a
+// stencil at ~60 flops per 40 bytes moved is bound by HBM bandwidth
+// (6 fields in, 6 out).  The wrap reads updated values at other points:
+// a face point's p is the update at its wrap source (corner (0, 0) that
+// of (ny-2, nx-2), a z face the wrapped plane nz-2 or 1).  Rather than a
+// grid-wide barrier and a second launch, every thread computes the update
+// at its own wrap source, which is itself for an interior point; only the
+// shell threads (2-3% at 256^3) recompute a neighbour's update.  The step
+// maxima of |u|^2, p, |p| and T over the whole output are folded per
+// block and then by one block (reduce_max4_kernel); they keep NaN, so a
+// NaN anywhere makes the step report DIVERGED.
+//
+// Built with -fmad=false: every multiply and add rounds separately, in
+// the operation order of the plain version
+// (cfd_tpu_torch/ops/kernels/euler_kernels.py:euler_step_plain).  Every
+// entry point returns cudaGetLastError().
+
+#include "explicit_common.cuh"
+
+namespace {
+
+struct Coefs {
+  float mu, coef, c2x, c2y, c2z, cx2, cy2, cz2;
+};
+
+struct Update {
+  float u, v, w, p;
+};
+
+// The step's update at interior point c = (k, j, i).
+template <bool k3D>
+__device__ __forceinline__ Update euler_update(
+    const float* __restrict__ u, const float* __restrict__ v,
+    const float* __restrict__ w, const float* __restrict__ p,
+    const float* __restrict__ rho, const float* __restrict__ syv,
+    const float* __restrict__ sxv, const float* __restrict__ scal,
+    long long c, long long sy, long long sz, int j, int i, const Coefs& k) {
+  const float uc = u[c], vc = v[c], wc = w[c], pc = p[c], r = rho[c];
+  Update o = {uc, vc, wc, pc};
+  if (!(r > kRhoMin)) return o;  // per-point guard (NaN rho too)
+  const float cdt = scal[0], su_eff = scal[1], sv_eff = scal[2];
+
+  auto d1x = [&](const float* f) {
+    return clampv((f[c + 1] - f[c - 1]) * k.c2x, kD1);
+  };
+  auto d1y = [&](const float* f) {
+    return clampv((f[c + sy] - f[c - sy]) * k.c2y, kD1);
+  };
+  auto d1z = [&](const float* f) {
+    return clampv((f[c + sz] - f[c - sz]) * k.c2z, kD1);
+  };
+  auto lap = [&](const float* f, float fc) {
+    const float c2 = 2.0f * fc;
+    float l = clampv(((f[c + 1] - c2) + f[c - 1]) * k.cx2, kD2) +
+              clampv(((f[c + sy] - c2) + f[c - sy]) * k.cy2, kD2);
+    if (k3D) l = l + clampv(((f[c + sz] - c2) + f[c - sz]) * k.cz2, kD2);
+    return l;
+  };
+
+  const float du_dx = d1x(u), du_dy = d1y(u);
+  const float dv_dx = d1x(v), dv_dy = d1y(v);
+  const float dw_dx = d1x(w), dw_dy = d1y(w);
+  const float dp_dx = d1x(p), dp_dy = d1y(p);
+  const float nu = viscosity(k.mu, r);
+  const float su = su_eff * syv[j], sv = sv_eff * sxv[i];
+
+  float tu = -uc * du_dx - vc * du_dy;
+  float tv = -uc * dv_dx - vc * dv_dy;
+  float tw = -uc * dw_dx - vc * dw_dy;
+  float div = du_dx + dv_dy;
+  if (k3D) {
+    const float du_dz = d1z(u), dv_dz = d1z(v), dw_dz = d1z(w);
+    tu = tu - wc * du_dz;
+    tv = tv - wc * dv_dz;
+    tw = (tw - wc * dw_dz) - d1z(p) / r;
+    div = div + dw_dz;
+  }
+  const float du = cdt * (((tu - dp_dx / r) + nu * lap(u, uc)) + su);
+  const float dv = cdt * (((tv - dp_dy / r) + nu * lap(v, vc)) + sv);
+  const float dw = cdt * (tw + nu * lap(w, wc));
+
+  o.u = clampv(uc + clampv(du, kUpdate), kVel);
+  o.v = clampv(vc + clampv(dv, kUpdate), kVel);
+  o.w = clampv(wc + clampv(dw, kUpdate), kVel);
+  o.p = pc + clampv(((-k.coef * cdt) * r) * clampv(div, kDiv), kUpdate);
+  return o;
+}
+
+template <bool k3D>
+__global__ void __launch_bounds__(kTileX * kTileY) euler_kernel(
+    const float* __restrict__ u, const float* __restrict__ v,
+    const float* __restrict__ w, const float* __restrict__ p,
+    const float* __restrict__ T, const float* __restrict__ rho,
+    const float* __restrict__ syv, const float* __restrict__ sxv,
+    const float* __restrict__ scal, float* __restrict__ uo,
+    float* __restrict__ vo, float* __restrict__ wo, float* __restrict__ po,
+    float* __restrict__ rhoo, float* __restrict__ To,
+    float* __restrict__ partials, int nz, int ny, int nx, Coefs coefs) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const int j = blockIdx.y * blockDim.y + threadIdx.y;
+  const int k = blockIdx.z;
+  float m[4] = {-INFINITY, -INFINITY, -INFINITY, -INFINITY};
+  if (i < nx && j < ny) {
+    const long long sy = nx, sz = (long long)ny * nx;
+    const long long c = k * sz + j * sy + i;
+    const int ks = k3D ? wrap_src(k, nz) : 0;
+    const int js = wrap_src(j, ny), is = wrap_src(i, nx);
+    const long long cs = ks * sz + js * sy + is;
+    const bool interior = cs == c;  // interior points are their own source
+    const Update e = euler_update<k3D>(u, v, w, p, rho, syv, sxv, scal, cs,
+                                       sy, sz, js, is, coefs);
+    const float ou = interior ? e.u : u[c];
+    const float ov = interior ? e.v : v[c];
+    const float ow = interior ? e.w : w[c];
+    const float ot = T[cs];
+    uo[c] = ou;
+    vo[c] = ov;
+    wo[c] = ow;
+    po[c] = e.p;
+    rhoo[c] = rho[cs];
+    To[c] = ot;
+    m[0] = (ou * ou + ov * ov) + ow * ow;
+    m[1] = e.p;
+    m[2] = fabsf(e.p);
+    m[3] = ot;
+  }
+  block_max4(m, partials);
+}
+
+template <bool k3D>
+int launch_euler(const float* u, const float* v, const float* w,
+                 const float* p, const float* T, const float* rho,
+                 const float* syv, const float* sxv, const float* scal,
+                 float* uo, float* vo, float* wo, float* po, float* rhoo,
+                 float* To, float* partials, float* out, int nz, int ny,
+                 int nx, Coefs coefs, cudaStream_t stream) {
+  euler_kernel<k3D><<<grid_of(nz, ny, nx), dim3(kTileX, kTileY), 0,
+                      stream>>>(u, v, w, p, T, rho, syv, sxv, scal, uo, vo,
+                                wo, po, rhoo, To, partials, nz, ny, nx,
+                                coefs);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  reduce_max4_kernel<<<1, kReduceThreads, 0, stream>>>(
+      partials, blocks_of(nz, ny, nx), out);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// Blocks of every explicit kernel's launch: the length / 4 of partials.
+long long cfd_explicit_partials(int nz, int ny, int nx) {
+  return blocks_of(nz, ny, nx);
+}
+
+int cfd_euler_step(const float* u, const float* v, const float* w,
+                   const float* p, const float* T, const float* rho,
+                   const float* syv, const float* sxv, const float* scal,
+                   float* uo, float* vo, float* wo, float* po, float* rhoo,
+                   float* To, float* partials, float* out, int nz, int ny,
+                   int nx, float mu, float coef, float c2x, float c2y,
+                   float c2z, float cx2, float cy2, float cz2,
+                   cudaStream_t stream) {
+  const Coefs coefs = {mu, coef, c2x, c2y, c2z, cx2, cy2, cz2};
+  if (nz > 1)
+    return launch_euler<true>(u, v, w, p, T, rho, syv, sxv, scal, uo, vo,
+                              wo, po, rhoo, To, partials, out, nz, ny, nx,
+                              coefs, stream);
+  return launch_euler<false>(u, v, w, p, T, rho, syv, sxv, scal, uo, vo, wo,
+                             po, rhoo, To, partials, out, 1, ny, nx, coefs,
+                             stream);
+}
+
+}  // extern "C"

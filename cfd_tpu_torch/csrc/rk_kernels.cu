@@ -1,0 +1,224 @@
+// Hand-written CUDA kernel for one RK2 / RK4 stage on Hopper.
+//
+// It replaces two TPU kernels of the reference:
+//
+//   make_rk_stage    (cfd_tpu/ops/pallas/rk_kernels.py, compute :186-359 on
+//       the rolling engine)  one 3D stage, mid or final
+//       -> rk_kernel<true, false> / rk_kernel<true, true> +
+//          reduce_max4_kernel
+//   make_rk2d_stage  (cfd_tpu/ops/pallas/rk2d.py, compute :116-298 on the
+//       marching engine; the y-face wrap rows in the step wrapper,
+//       cfd_tpu/solvers/ns/rk.py:243-246)  one 2D stage
+//       -> rk_kernel<false, false> / rk_kernel<false, true> + the same
+//
+// Both launch through cfd_rk_stage, which picks the instantiation from nz
+// (1: the 2D kernel) and the stage kind.
+//
+// One stage, with (factor, acc_mix, weight) choosing the Butcher position:
+//
+//   k    = RHS(stage state)    periodic-interior stencils: i == 1 reads
+//                              nx - 2, i == nx - 2 reads 1, likewise in y
+//                              and z (ns_momentum_rhs_scalar.h:78-90);
+//                              zero on the shell and where rho <= 1e-10
+//   next = clamp(q0 + factor * (acc_mix * acc + k))   velocities +-100
+//   acc' = acc + weight * k
+//
+// A mid stage writes (next, acc') at every point.  The final stage writes
+// the finished state: next, rho and T with the periodic wrap x -> y -> z
+// (velocities too: RK wraps everything), and the step maxima of |u|^2,
+// p, |p| and T.  A null accumulator reads as zero (the first stage).
+//
+// Design.  The TPU kernel took the z-wrap neighbours (planes nz - 2 and 1)
+// from pinned inputs because its streaming window could not see the far
+// end of the array.  Here one thread owns one point and the wrap is an
+// index map, so no pins.  Each stage reads ~13 fields and writes 8 (mid)
+// or 6 (final): bound by HBM bandwidth.  The final stage's face points
+// take updated values from their wrap sources; as in euler_kernels.cu
+// every thread evaluates the stage at its own wrap source (itself for an
+// interior point), so no second launch or grid-wide barrier is needed.
+//
+// Built with -fmad=false, in the operation order of the plain version
+// (cfd_tpu_torch/ops/kernels/rk_kernels.py:rk_stage_plain).  Every entry
+// point returns cudaGetLastError().
+
+#include "explicit_common.cuh"
+
+namespace {
+
+struct Coefs {
+  float mu, coef, c2x, c2y, c2z, cx2, cy2, cz2;
+};
+
+struct Fields {
+  const float *u, *v, *w, *p;          // stage state
+  const float *q0u, *q0v, *q0w, *q0p;  // step-start state
+  const float *rho, *T;
+  const float *au, *av, *aw, *ap;      // accumulator, or all null
+  const float *syv, *sxv;              // sin(pi y), sin(2 pi x)
+  const float* scal;  // factor, acc_mix, weight, su_eff, sv_eff
+};
+
+struct Outs {
+  float* o[8];  // mid: next u, v, w, p, acc u, v, w, p; final: u, v, w, p,
+                // rho, T
+};
+
+struct Rhs {
+  float u, v, w, p;
+};
+
+// k = RHS(stage state) at interior point c = (k, j, i).
+template <bool k3D>
+__device__ __forceinline__ Rhs rk_rhs(const Fields& f, long long c,
+                                      long long sy, long long sz, int k,
+                                      int j, int i, int nz, int ny, int nx,
+                                      const Coefs& q) {
+  const long long xl = i == 1 ? c + (nx - 3) : c - 1;
+  const long long xr = i == nx - 2 ? c - (nx - 3) : c + 1;
+  const long long yd = j == 1 ? c + (ny - 3) * sy : c - sy;
+  const long long yu = j == ny - 2 ? c - (ny - 3) * sy : c + sy;
+  const long long zb = k == 1 ? c + (nz - 3) * sz : c - sz;
+  const long long zf = k == nz - 2 ? c - (nz - 3) * sz : c + sz;
+
+  auto d1x = [&](const float* g) {
+    return clampv((g[xr] - g[xl]) * q.c2x, kD1);
+  };
+  auto d1y = [&](const float* g) {
+    return clampv((g[yu] - g[yd]) * q.c2y, kD1);
+  };
+  auto d1z = [&](const float* g) {
+    return clampv((g[zf] - g[zb]) * q.c2z, kD1);
+  };
+  auto lap = [&](const float* g, float gc) {
+    const float c2 = 2.0f * gc;
+    float l = clampv(((g[xr] - c2) + g[xl]) * q.cx2, kD2) +
+              clampv(((g[yu] - c2) + g[yd]) * q.cy2, kD2);
+    if (k3D) l = l + clampv(((g[zf] - c2) + g[zb]) * q.cz2, kD2);
+    return l;
+  };
+
+  const float uc = f.u[c], vc = f.v[c], wc = f.w[c], r = f.rho[c];
+  const float du_dx = d1x(f.u), du_dy = d1y(f.u);
+  const float dv_dx = d1x(f.v), dv_dy = d1y(f.v);
+  const float dw_dx = d1x(f.w), dw_dy = d1y(f.w);
+  const float dp_dx = d1x(f.p), dp_dy = d1y(f.p);
+  const float nu = viscosity(q.mu, r);
+  const float su = f.scal[3] * f.syv[j], sv = f.scal[4] * f.sxv[i];
+
+  float tu = -uc * du_dx - vc * du_dy;
+  float tv = -uc * dv_dx - vc * dv_dy;
+  float tw = -uc * dw_dx - vc * dw_dy;
+  float div = du_dx + dv_dy;
+  if (k3D) {
+    const float du_dz = d1z(f.u), dv_dz = d1z(f.v), dw_dz = d1z(f.w);
+    tu = tu - wc * du_dz;
+    tv = tv - wc * dv_dz;
+    tw = (tw - wc * dw_dz) - d1z(f.p) / r;
+    div = div + dw_dz;
+  }
+  const float ok = r > kRhoMin ? 1.0f : 0.0f;  // guard (NaN rho too)
+  Rhs o;
+  o.u = (((tu - dp_dx / r) + nu * lap(f.u, uc)) + su) * ok;
+  o.v = (((tv - dp_dy / r) + nu * lap(f.v, vc)) + sv) * ok;
+  o.w = (tw + nu * lap(f.w, wc)) * ok;
+  o.p = ((-q.coef * r) * clampv(div, kDiv)) * ok;
+  return o;
+}
+
+template <bool k3D, bool kFinal>
+__global__ void __launch_bounds__(kTileX * kTileY) rk_kernel(
+    Fields f, Outs out, float* __restrict__ partials, int nz, int ny,
+    int nx, Coefs coefs) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const int j = blockIdx.y * blockDim.y + threadIdx.y;
+  const int k = blockIdx.z;
+  float m[4] = {-INFINITY, -INFINITY, -INFINITY, -INFINITY};
+  if (i < nx && j < ny) {
+    const long long sy = nx, sz = (long long)ny * nx;
+    const long long c = k * sz + j * sy + i;
+    const int ks = k3D ? wrap_src(k, nz) : 0;
+    const int js = wrap_src(j, ny), is = wrap_src(i, nx);
+    const long long cs = ks * sz + js * sy + is;
+    // the final stage evaluates each point's wrap source; a mid stage
+    // evaluates the point itself, with k = 0 on the shell
+    const long long e = kFinal ? cs : c;
+    Rhs r = {0.0f, 0.0f, 0.0f, 0.0f};
+    if (kFinal || cs == c)
+      r = rk_rhs<k3D>(f, e, sy, sz, ks, js, is, nz, ny, nx, coefs);
+    const float factor = f.scal[0], acc_mix = f.scal[1];
+    const bool acc = f.au != nullptr;
+    const float au = acc ? f.au[e] : 0.0f, av = acc ? f.av[e] : 0.0f;
+    const float aw = acc ? f.aw[e] : 0.0f, ap = acc ? f.ap[e] : 0.0f;
+    const float un = clampv(f.q0u[e] + factor * (acc_mix * au + r.u), kVel);
+    const float vn = clampv(f.q0v[e] + factor * (acc_mix * av + r.v), kVel);
+    const float wn = clampv(f.q0w[e] + factor * (acc_mix * aw + r.w), kVel);
+    const float pn = f.q0p[e] + factor * (acc_mix * ap + r.p);
+    out.o[0][c] = un;
+    out.o[1][c] = vn;
+    out.o[2][c] = wn;
+    out.o[3][c] = pn;
+    if (kFinal) {
+      const float ot = f.T[cs];
+      out.o[4][c] = f.rho[cs];
+      out.o[5][c] = ot;
+      m[0] = (un * un + vn * vn) + wn * wn;
+      m[1] = pn;
+      m[2] = fabsf(pn);
+      m[3] = ot;
+    } else {
+      const float weight = f.scal[2];
+      out.o[4][c] = au + weight * r.u;
+      out.o[5][c] = av + weight * r.v;
+      out.o[6][c] = aw + weight * r.w;
+      out.o[7][c] = ap + weight * r.p;
+    }
+  }
+  if (kFinal) block_max4(m, partials);
+}
+
+template <bool k3D>
+int launch_rk(const Fields& f, const Outs& o, float* partials, float* out,
+              int nz, int ny, int nx, const Coefs& coefs, int final_stage,
+              cudaStream_t stream) {
+  const dim3 grid = grid_of(nz, ny, nx), block(kTileX, kTileY);
+  if (!final_stage) {
+    rk_kernel<k3D, false><<<grid, block, 0, stream>>>(f, o, partials, nz, ny,
+                                                      nx, coefs);
+    return (int)cudaGetLastError();
+  }
+  rk_kernel<k3D, true><<<grid, block, 0, stream>>>(f, o, partials, nz, ny,
+                                                   nx, coefs);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  reduce_max4_kernel<<<1, kReduceThreads, 0, stream>>>(
+      partials, blocks_of(nz, ny, nx), out);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// in[] = u, v, w, p, q0u, q0v, q0w, q0p, rho, T, acc u, v, w, p (the
+// accumulator pointers all null for a zero accumulator), sin(pi y),
+// sin(2 pi x), scal; outs[] as Outs.  partials and out (4 maxima) are read
+// only by the final stage.
+int cfd_rk_stage(const float* const* in, float* const* outs,
+                 float* partials, float* out, int nz, int ny, int nx,
+                 float mu, float coef, float c2x, float c2y, float c2z,
+                 float cx2, float cy2, float cz2, int final_stage,
+                 cudaStream_t stream) {
+  const Fields f = {in[0], in[1], in[2],  in[3],  in[4],  in[5],
+                    in[6], in[7], in[8],  in[9],  in[10], in[11],
+                    in[12], in[13], in[14], in[15], in[16]};
+  Outs o;
+  for (int q = 0; q < 8; ++q) o.o[q] = outs[q];
+  const Coefs coefs = {mu, coef, c2x, c2y, c2z, cx2, cy2, cz2};
+  if (nz > 1)
+    return launch_rk<true>(f, o, partials, out, nz, ny, nx, coefs,
+                           final_stage, stream);
+  return launch_rk<false>(f, o, partials, out, 1, ny, nx, coefs,
+                          final_stage, stream);
+}
+
+}  // extern "C"

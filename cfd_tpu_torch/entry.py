@@ -3,8 +3,9 @@
 
 ``entry(device)`` builds the flagship configuration — the 3D spectral
 projection step, float32, default ``NSParams`` (sources on) — at the same
-128×64×16 grid, and returns ``(step, (field, dt, iter_idx))``.  On
-``device="cuda"`` the step runs the hand-written kernels.
+128×64×16 grid, and returns ``(step, (field, dt, iter_idx))``.  By
+default it targets the card and runs the hand-written kernels;
+``device="cpu"`` runs their plain versions.
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ from .solvers.ns.projection import make_projection_step
 from .solvers.poisson.base import Method
 
 
-def entry(device="cpu"):
+def entry(device=None):
     grid = Grid.uniform(128, 64, 16, zmin=0.0, zmax=1.0)
     step = make_projection_step(grid, NSParams(), dtype=torch.float32,
                                 poisson_method=Method.FFT_DIRECT,

@@ -12,13 +12,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .config import resolve_dtype
+from .config import resolve_device, resolve_dtype
 from .core.field import FIELD_NAMES, FlowField
 
 
 def field_from_numpy(arrays: dict, device=None, dtype=None) -> FlowField:
     """``arrays`` maps each of u, v, w, p, rho, T to an (nz, ny, nx)
-    array."""
+    array; ``device`` defaults to the card."""
+    device = resolve_device(device)
     dt = resolve_dtype(dtype, device)
     return FlowField(*(torch.tensor(np.array(arrays[n]), dtype=dt,
                                     device=device) for n in FIELD_NAMES))

@@ -51,6 +51,9 @@ SIGNATURES = {
     "cfd_pred_star_2d": [_P] * 7 + [_I] * 2 + [_F] * 9 + [_I, _P],
     "cfd_poisson_input_2d": [_P] * 5 + [_I] * 2 + [_F] * 4 + [_P],
     "cfd_corrector_2d": [_P] * 6 + [_I] * 2 + [_F] * 2 + [_P],
+    # euler_kernels.cu, rk_kernels.cu (explicit steps, 3D and 2D)
+    "cfd_euler_step": [_P] * 17 + [_I] * 3 + [_F] * 8 + [_P],
+    "cfd_rk_stage": [_P] * 4 + [_I] * 3 + [_F] * 8 + [_I, _P],
 }
 
 _lib = None
@@ -133,8 +136,9 @@ def library():
             fn.restype = ctypes.c_int
         lib.cfd_error_string.argtypes = [ctypes.c_int]
         lib.cfd_error_string.restype = ctypes.c_char_p
-        lib.cfd_corrector_partials.argtypes = [_I] * 3
-        lib.cfd_corrector_partials.restype = ctypes.c_longlong
+        for name in ("cfd_corrector_partials", "cfd_explicit_partials"):
+            getattr(lib, name).argtypes = [_I] * 3
+            getattr(lib, name).restype = ctypes.c_longlong
         _lib = lib
     return _lib
 

@@ -1,5 +1,5 @@
-"""O(h²) central differences on the interior (counterpart of
-`cfd_tpu/ops/stencils.py`, restricted to what the projection steps read).
+"""O(h²) central differences (counterpart of `cfd_tpu/ops/stencils.py`,
+restricted to what the projection and explicit steps read).
 
 The reference forms each operator over the whole array with circular
 ``jnp.roll`` shifts and discards the wrapped boundary entries.  Here each
@@ -16,6 +16,13 @@ difference ``(f[+1] − f[−1])·inv_2d``, second difference
 ``((f[+1] − 2f) + f[−1])·inv_d2``, summed x, then y, then z), so the plain
 versions built on these agree with the CUDA kernels to the last bit where
 no transcendental is involved.
+
+The explicit integrators' plain bodies use the reference's full-array
+form instead: circular shifts (``sx_m`` … ``sz_p``, ``torch.roll``), the
+periodic-interior shifts that wrap past the ghost layer (i == 1 reads
+nx − 2, i == nx − 2 reads 1; `ns_momentum_rhs_scalar.h:78-90`), and
+``interior_mask``.  Their boundary entries hold wrapped values that every
+caller discards.
 """
 
 from __future__ import annotations
@@ -72,3 +79,80 @@ def set_interior(dst: torch.Tensor, src_interior: torch.Tensor):
     out = dst.clone()
     out[_zi(dst), _I, _I] = src_interior
     return out
+
+
+# ---- full-array shifts (the explicit steps' plain bodies) -----------------
+# sx_p(f)[..., i] == f[..., i+1], circular at the edge.
+
+def sx_p(f):
+    return torch.roll(f, -1, dims=-1)
+
+
+def sx_m(f):
+    return torch.roll(f, 1, dims=-1)
+
+
+def sy_p(f):
+    return torch.roll(f, -1, dims=-2)
+
+
+def sy_m(f):
+    return torch.roll(f, 1, dims=-2)
+
+
+def sz_p(f):
+    return torch.roll(f, -1, dims=-3)
+
+
+def sz_m(f):
+    return torch.roll(f, 1, dims=-3)
+
+
+def _with(g, index, src):
+    g[index] = src
+    return g
+
+
+def sx_m_periodic_interior(f):
+    return _with(sx_m(f), (..., 1), f[..., -2])
+
+
+def sx_p_periodic_interior(f):
+    return _with(sx_p(f), (..., -2), f[..., 1])
+
+
+def sy_m_periodic_interior(f):
+    return _with(sy_m(f), (..., 1, slice(None)), f[..., -2, :])
+
+
+def sy_p_periodic_interior(f):
+    return _with(sy_p(f), (..., -2, slice(None)), f[..., 1, :])
+
+
+def sz_m_periodic_interior(f):
+    """The field itself on a 2D field (z-neighbours collapse)."""
+    if f.shape[-3] <= 1:
+        return f
+    return _with(sz_m(f), (1,), f[-2])
+
+
+def sz_p_periodic_interior(f):
+    if f.shape[-3] <= 1:
+        return f
+    return _with(sz_p(f), (-2,), f[1])
+
+
+def d2dz2(f, inv_dz2):
+    """Zero on a 2D field."""
+    if f.shape[-3] <= 1:
+        return torch.zeros_like(f)
+    return ((sz_p(f) - 2.0 * f) + sz_m(f)) * inv_dz2
+
+
+def interior_mask(shape, dtype=torch.float32, device=None):
+    """1 on interior points, 0 on the boundary shell (the z-shell only
+    when nz > 1)."""
+    nz, ny, nx = shape
+    m = torch.zeros(shape, dtype=dtype, device=device)
+    m[slice(1, -1) if nz > 1 else slice(None), 1:-1, 1:-1] = 1
+    return m

@@ -1,0 +1,133 @@
+"""Explicit Euler integrator (counterpart of `cfd_tpu/solvers/ns/euler.py`).
+
+One step is one kernel launch: the fused Euler step
+(`ops.kernels.euler_kernels.euler_step` in 3D, `ops.kernels.euler2d.
+euler2d_step` in 2D) with the reference's semantics
+(`cpu/solver_explicit_euler.c:337-582`):
+
+* the conservative dt cap ``min(dt, 1e-4)``;
+* derivative / update / velocity clamps (±100, ±1000, ±1, ±100);
+* the artificial pressure coupling dp = −0.1·dt·ρ·clamp(div);
+* per-point ρ ≤ 1e-10 guards that keep the old values;
+* the boundary dance: periodic wrap of p, ρ and T (x → y → z), the
+  caller's velocity shells kept.
+
+The step is `_make_fused_euler_step` / `_make_fused_euler2d_step` of the
+reference (`euler.py:226-320`) with both wraps inside the kernel.  It
+never reads a device value on the host: the capped dt, the decayed
+source amplitudes and the diagnostics stay 0-d device tensors.
+
+Anything outside this slice raises ``CFDError(ERROR_UNSUPPORTED)``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ...config import device_of, resolve_device, resolve_dtype
+from ...core.field import FlowField
+from ...core.grid import Grid
+from ...core.status import CFDError, Status
+from ...ops.kernels.euler2d import euler2d_step
+from ...ops.kernels.euler_kernels import (ExplicitConsts, euler_step,
+                                          euler_step_plain)
+from .common import (iterate_with_divergence_guard, source_basis,
+                     step_result, stretch_gate, validate_grid_for_solver)
+from .params import DT_CONSERVATIVE_LIMIT, NSParams, source_amplitudes
+
+
+def check_explicit_slice(name: str, grid: Grid, params: NSParams,
+                         differentiable: bool, dtype, device) -> None:
+    """Raise ``CFDError(ERROR_UNSUPPORTED)`` outside the explicit
+    integrators' ported slice; each exclusion is a later slice in
+    ROADMAP.md."""
+    def unsupported(what):
+        raise CFDError(Status.ERROR_UNSUPPORTED,
+                       f"{name} step: {what} is not ported yet")
+
+    reason = stretch_gate(grid)
+    if reason is not None:
+        unsupported(reason)
+    if params.nonuniform_scheme == "consistent":
+        unsupported("the consistent nonuniform scheme")
+    if params.energy_enabled or params.heat_source_func is not None:
+        unsupported("the energy equation")
+    if params.buoyancy_enabled:
+        unsupported("Boussinesq buoyancy")
+    if params.source_func is not None:
+        unsupported("a custom source_func")
+    if differentiable:
+        unsupported("the differentiable step")
+    if device.type == "cuda" and dtype != torch.float32:
+        unsupported(f"{dtype} on CUDA (the kernels are float32)")
+
+
+def explicit_setup(name: str, grid: Grid, params: NSParams, dtype, device,
+                   differentiable: bool):
+    """Checks shared by the explicit step builders; returns (dtype,
+    device, kernel constants, (sin πy, sin 2πx))."""
+    device = device_of(device)
+    dtype = resolve_dtype(dtype, device)
+    check_explicit_slice(name, grid, params, differentiable, dtype, device)
+    validate_grid_for_solver(grid, grid.shape)
+    device = resolve_device(device)
+    consts = ExplicitConsts(grid.nz, grid.ny, grid.nx, grid.dx0, grid.dy0,
+                            grid.dz0, float(params.mu),
+                            float(params.pressure_coupling))
+    return dtype, device, consts, source_basis(grid, dtype, device)
+
+
+def as_scalar(dt, dtype, device) -> torch.Tensor:
+    """``dt`` as a 0-d tensor on the field's device (a fill, not a
+    host-to-device copy, which would synchronise)."""
+    if torch.is_tensor(dt):
+        return dt.to(dtype)
+    return torch.full((), dt, dtype=dtype, device=device)
+
+
+def explicit_result(m2, pmax, pabs, tmax):
+    """StepResult from a kernel's four maxima over the new field."""
+    finite = torch.isfinite(m2) & torch.isfinite(pabs)
+    return step_result(finite, torch.sqrt(m2), pmax, tmax)
+
+
+def make_euler_step(grid: Grid, params: NSParams, dtype=None, device=None,
+                    differentiable: bool = False, plain: bool = False):
+    """Build ``step(field, dt, iter_idx) -> (field, StepResult)`` on a
+    uniform 3D (nz ≥ 3) or 2D (nz == 1) grid.
+
+    On the card (the default) the step launches the fused Euler kernel;
+    with ``device="cpu"`` the same wrapper runs its plain version.
+    ``plain=True`` is a reference switch for checks on the card only: it
+    runs the plain version on a CUDA device too, so ``chip_smoke.py`` can
+    hold the kernel step against it and time both.
+    """
+    dtype, device, consts, (sy, sx) = explicit_setup(
+        "explicit Euler", grid, params, dtype, device, differentiable)
+    if plain:
+        fused = euler_step_plain
+    else:
+        fused = euler_step if grid.nz > 1 else euler2d_step
+
+    def step(field: FlowField, dt, iter_idx):
+        cdt = torch.clamp_max(as_scalar(dt, dtype, field.device),
+                              DT_CONSERVATIVE_LIMIT)
+        su, sv = source_amplitudes(params, iter_idx * cdt)
+        u, v, w, p, rho, T, m2, pmax, pabs, tmax = fused(
+            field.u, field.v, field.w, field.p, field.T, field.rho, sy, sx,
+            torch.stack([cdt, su, sv]), consts)
+        return (FlowField(u, v, w, p, rho, T),
+                explicit_result(m2, pmax, pabs, tmax))
+
+    return step
+
+
+def make_euler_solve(grid: Grid, params: NSParams, dtype=None, device=None):
+    """``solve(field, dt)``: ``params.max_iter`` steps with the divergence
+    guard (explicit_euler_impl's iteration loop)."""
+    step = make_euler_step(grid, params, dtype, device)
+
+    def solve(field: FlowField, dt):
+        return iterate_with_divergence_guard(step, field, dt, params.max_iter)
+
+    return solve

@@ -4,7 +4,8 @@
 ``NSParams`` keeps the reference's fields and defaults one for one, so a
 test can carry a parameter set across with ``NSParams.from_fields``.
 ``StepResult`` holds 0-d tensors on the field's device: reading one is the
-caller's choice of when to synchronise.
+caller's choice of when to synchronise; ``NSStats`` is the host-side
+record the ``NSSolver`` facade reads from it.
 """
 
 from __future__ import annotations
@@ -27,6 +28,19 @@ DEFAULT_SOURCE_AMPLITUDE_U = 0.1
 DEFAULT_SOURCE_AMPLITUDE_V = 0.05
 DEFAULT_SOURCE_DECAY_RATE = 0.1
 DEFAULT_PRESSURE_COUPLING = 0.1
+
+# Stability limits of the explicit integrators
+# (`solver_explicit_euler.c:24-55`).
+MAX_DERIVATIVE_LIMIT = 100.0
+MAX_SECOND_DERIVATIVE_LIMIT = 1000.0
+MAX_VELOCITY_LIMIT = 100.0
+MAX_DIVERGENCE_LIMIT = 10.0
+UPDATE_LIMIT = 1.0
+DT_MAX_LIMIT = 0.01
+DT_MIN_LIMIT = 1e-6
+DT_CONSERVATIVE_LIMIT = 1e-4
+VELOCITY_EPSILON = 1e-20
+SPEED_EPSILON = 1e-10
 
 # Projection velocity clamp (`solver_projection.c:40`).
 PROJ_MAX_VELOCITY = 100.0
@@ -65,6 +79,9 @@ class NSParams:
                 f"nonuniform_scheme must be 'parity' or 'consistent', "
                 f"got {self.nonuniform_scheme!r}")
 
+    def replace(self, **kw) -> "NSParams":
+        return dataclasses.replace(self, **kw)
+
     @classmethod
     def from_fields(cls, other) -> "NSParams":
         """Copy every field of the same name from ``other`` (e.g. the
@@ -79,6 +96,30 @@ class NSParams:
     @property
     def buoyancy_enabled(self) -> bool:
         return self.beta != 0.0
+
+
+def source_amplitudes(params: NSParams, t):
+    """The default source's decayed amplitudes (su, sv) at time ``t`` (a
+    0-d tensor): amplitude · exp(−rate·t), the scalars the explicit
+    kernels multiply by sin(πy) and sin(2πx) (`params.py:144-151`, in
+    the fused kernels' order)."""
+    decay = torch.exp(-params.source_decay_rate * t)
+    return params.source_amplitude_u * decay, \
+        params.source_amplitude_v * decay
+
+
+@dataclasses.dataclass
+class NSStats:
+    """Mirrors ns_solver_stats_t (`navier_stokes_solver.h:198-207`)."""
+
+    iterations: int = 0
+    residual: float = 0.0
+    max_velocity: float = 0.0
+    max_pressure: float = 0.0
+    max_temperature: float = 0.0
+    cfl_number: float = 0.0
+    elapsed_time_ms: float = 0.0
+    status: Status = Status.SUCCESS
 
 
 @dataclasses.dataclass(frozen=True)

@@ -33,7 +33,7 @@ from __future__ import annotations
 
 import torch
 
-from ...config import resolve_dtype
+from ...config import device_of, resolve_device, resolve_dtype
 from ...core.field import FlowField
 from ...core.grid import Grid
 from ...core.status import CFDError, Status
@@ -41,8 +41,9 @@ from ...ops.kernels.projection2d import Projection2DKernels
 from ...ops.kernels.projection_kernels import ProjectionKernels
 from ..poisson.base import Method, PoissonProblem
 from ..poisson.spectral import make_dst2d_fused_pieces, make_dst_fused_pieces
-from .common import field_status_and_diagnostics, validate_grid_for_solver
-from .params import NSParams, StepResult
+from .common import (field_status_and_diagnostics, step_result,
+                     validate_grid_for_solver)
+from .params import NSParams
 
 
 def _unsupported(what: str):
@@ -74,45 +75,34 @@ def _check_slice(grid: Grid, params: NSParams, poisson_method,
     if spectral_precision not in (None, "highest"):
         _unsupported(f"spectral_precision={spectral_precision!r} "
                      f"(only 'highest', IEEE fp32, is ported)")
-    if torch.device(device).type == "cuda" and dtype != torch.float32:
+    if device.type == "cuda" and dtype != torch.float32:
         _unsupported(f"{dtype} on CUDA (the kernels are float32)")
-
-
-def _result(finite, vmax, pmax, tmax) -> StepResult:
-    """StepResult of a direct-solve step: status 0, or −6 (DIVERGED) when
-    a field is not finite."""
-    dev = vmax.device
-    status = torch.where(
-        finite, torch.zeros((), dtype=torch.int32, device=dev),
-        torch.full((), int(Status.ERROR_DIVERGED), dtype=torch.int32,
-                   device=dev))
-    return StepResult(
-        iterations=torch.ones((), dtype=torch.int32, device=dev),
-        status=status, residual=torch.zeros((), dtype=vmax.dtype,
-                                            device=dev),
-        max_velocity=vmax, max_pressure=pmax, max_temperature=tmax)
 
 
 def make_projection_step(grid: Grid, params: NSParams, dtype=None,
                          poisson_method: Method = Method.FFT_DIRECT,
-                         device="cpu", spectral_precision=None,
+                         device=None, spectral_precision=None,
                          differentiable: bool = False, bc_refresh=None,
                          plain: bool = False):
     """Build ``step(field, dt, iter_idx) -> (field, StepResult)`` for a 3D
     (nz ≥ 4) or 2D (nz == 1) uniform grid.
 
-    On ``device="cuda"`` the step launches the hand-written kernels; on
-    the CPU the same wrappers run their plain PyTorch versions.
+    On the card (the default, ``device=None``) the step launches the
+    hand-written kernels; with ``device="cpu"`` the same wrappers run
+    their plain PyTorch versions.  Without a CUDA device the default
+    raises (`config.resolve_device`).
 
     ``plain=True`` is a reference switch for checks on the card only: it
     runs the plain versions on a CUDA device too, so ``chip_smoke.py`` can
     hold the kernel step against them and time both.  On the CPU both
     settings run the same code; callers leave it False.
     """
+    device = device_of(device)
     dtype = resolve_dtype(dtype, device)
     _check_slice(grid, params, poisson_method, spectral_precision,
                  differentiable, bc_refresh, dtype, device)
     validate_grid_for_solver(grid, grid.shape)
+    device = resolve_device(device)
 
     problem = PoissonProblem(grid.nx, grid.ny, grid.nz, grid.dx0,
                              grid.dy0, grid.dz0)
@@ -145,7 +135,7 @@ def make_projection_step(grid: Grid, params: NSParams, dtype=None,
             u, v, p = pk2.corrector(us, vs, ysolve(bt_x), dt / rho0)
             # the w-correction is identically zero in 2D (inv_dz2 = 0)
             new_field = field.replace(u=u, v=v, w=ws, p=p)
-            return new_field, _result(
+            return new_field, step_result(
                 *field_status_and_diagnostics(new_field))
 
         return step_2d
@@ -175,7 +165,7 @@ def make_projection_step(grid: Grid, params: NSParams, dtype=None,
         pabs = torch.maximum(pabsi, torch.maximum(
             *(torch.amax(torch.abs(p[k])) for k in faces)))
         finite = torch.isfinite(m2) & torch.isfinite(pabs)
-        return new_field, _result(finite, torch.sqrt(m2), pmax,
+        return new_field, step_result(finite, torch.sqrt(m2), pmax,
                                   torch.amax(field.T))
 
     return step

@@ -19,18 +19,34 @@ paths on the kernel path and the plain path:
 
 and the lid-driven cavity at Re = 100 on 128² for 20000 steps on the
 kernel path, graded against Ghia's table (``bench.py:905-907``: RMS of u
-and v on the centerlines below 0.10).  It checks status, finiteness,
-launch counters (set to 0 just before each main path and read just
-after) and kernel-vs-plain agreement; any failure exits non-zero.  The
-line before the last is a JSON object describing each kernel; the last
-line is ``{"ok": true, "device": {...}}``.  It imports nothing of JAX.
+and v on the centerlines below 0.10).  Then the explicit integrators:
+
+* phase 9: the fused Euler kernel (3D and 2D) and the RK stage kernel
+  (3D and 2D; first, mid and final stage) against their plain versions
+  at 37×23×11 / 37×23 and at 256³ / 2048², with the clamps and the ρ
+  guard engaged;
+* phase 10: ``bench.py``'s explicit configurations on the kernel path
+  and the plain path — Euler at 256³ (10 steps) and 2048² (20 steps),
+  RK2 and RK4 at 256³ and 2048² (10 steps each), each run once to warm
+  up and once timed with CUDA events;
+* phase 11: ``Simulation.create(100, 50)`` with the default solver for
+  2000 ``step()``s on the card, against the same steps on the plain path.
+
+It checks status, finiteness, launch counters (set to 0 just before each
+main path and read just after) and kernel-vs-plain agreement; any
+failure exits non-zero.  The line before the last is a JSON object
+describing each kernel (its time, its plain version's, the bound from
+this run's bytes and operations, and a library call's time where one
+PyTorch call computes the same function); the last line is
+``{"ok": true, "device": {...}}``.  It imports nothing of JAX.
 
     python3 chip_smoke.py --profile
 
-adds phase 5: 3 more kernel-path steps at 512³ and at 2048² under
-``torch.profiler``, printing the device time per kernel, the device busy
-time against the CUDA-event span and host wall time of those steps (the
-device's idle share).
+adds phase 5: 3 more kernel-path steps of the 512³ and 2048² projection
+steps and of each phase-10 configuration under ``torch.profiler``,
+printing the device time per kernel, the device busy time against the
+CUDA-event span and host wall time of those steps (the device's idle
+share).
 
     python3 chip_smoke.py --ghia1000
 
@@ -63,7 +79,27 @@ C2 = "cfd_tpu/ops/pallas/projection2d.py:252"         # corr_compute
 DOT2 = "cfd_tpu/ops/pallas/projection2d.py:97"        # block_dot
 TDMA2 = "cfd_tpu/ops/pallas/tdma.py:434"              # make_tdma_y_2d
 RESCUE = "cfd_tpu/solvers/poisson/spectral.py:299"    # rescue matmuls
+SRC_E = "cfd_tpu_torch/csrc/euler_kernels.cu"
+SRC_RK = "cfd_tpu_torch/csrc/rk_kernels.cu"
+E3 = "cfd_tpu/ops/pallas/euler_kernels.py:67"         # make_euler_fused
+E2 = "cfd_tpu/ops/pallas/euler2d.py:46"               # make_euler2d_fused
+RK3 = "cfd_tpu/ops/pallas/rk_kernels.py:61"           # make_rk_stage
+RK2 = "cfd_tpu/ops/pallas/rk2d.py:56"                 # make_rk2d_stage
 GHIA = Path(__file__).resolve().parent / "tests/validation/ghia_data.py"
+N_EXPL = 256           # bench.py:run_euler_3d / run_rk_3d, 256³
+EXPL_DT = 1e-5         # bench.py's explicit configurations
+FACADE_STEPS = 2000
+
+# The card's peaks for a kernel's bound (H100 SXM data sheet, at 700 W):
+# device memory 3.35 TB/s, float32 outside the tensor cores 67 TFLOP/s.
+# A bound is the larger of (bytes in + bytes out) / rate and flops / peak.
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOPS = 67e12
+# float32 operations per grid point, counted from the kernels' sources
+# (adds, multiplies, divides and compares of one point's update)
+FLOPS_PER_POINT = {"predictor_star": 90, "poisson_input": 12,
+                   "corrector": 20, "tdma_fwd": 7, "tdma_bwd": 2,
+                   "euler": 130, "rk_stage": 150}
 
 # Tolerances, kernel against plain version on identical inputs, float32:
 #  * fields (u*, v*, w*, u, v, w): atol 2e-5, the reference's own
@@ -76,7 +112,10 @@ GHIA = Path(__file__).resolve().parent / "tests/validation/ghia_data.py"
 #    another order than cuBLAS, so the bound scales with the magnitude —
 #    2e-5 of max|ref| (≈ sqrt(512) ulps of headroom over a 512-term fp32
 #    sum);
-#  * max|u|²: rtol 1e-6 (tests/math/test_mega_kernels.py:63-66).
+#  * max|u|²: rtol 1e-6 (tests/math/test_mega_kernels.py:63-66);
+#  * the explicit kernels (Euler step, RK stage): same operation order,
+#    -fmad=false and the same source vectors, so expected bit-equal; held
+#    at TOL_EXACT of max|ref| (the fields and their maxima alike).
 TOL_FIELD = 2e-5
 TOL_EXACT = 1e-6
 TOL_GEMM = 2e-5
@@ -140,17 +179,25 @@ def main() -> int:
         return 2
 
     from cfd_tpu_torch import FlowField, Grid
+    from cfd_tpu_torch.api import Simulation
     from cfd_tpu_torch.boundary import (DirichletValues,
                                         apply_dirichlet_scalar,
                                         apply_neumann_scalar)
     from cfd_tpu_torch.entry import entry
+    from cfd_tpu_torch.ops.kernels import euler2d as e2m
+    from cfd_tpu_torch.ops.kernels import euler_kernels as ekm
     from cfd_tpu_torch.ops.kernels import native
     from cfd_tpu_torch.ops.kernels import projection2d as pk2m
     from cfd_tpu_torch.ops.kernels import projection_kernels as pkm
+    from cfd_tpu_torch.ops.kernels import rk2d as rk2m
+    from cfd_tpu_torch.ops.kernels import rk_kernels as rkm
     from cfd_tpu_torch.ops.kernels import rolling, tdma
-    from cfd_tpu_torch.solvers.ns.common import field_status_and_diagnostics
+    from cfd_tpu_torch.solvers.ns.common import (field_status_and_diagnostics,
+                                                 source_basis)
+    from cfd_tpu_torch.solvers.ns.euler import make_euler_step
     from cfd_tpu_torch.solvers.ns.params import NSParams
     from cfd_tpu_torch.solvers.ns.projection import make_projection_step
+    from cfd_tpu_torch.solvers.ns.rk import make_rk2_step, make_rk4_step
     from cfd_tpu_torch.solvers.ns.rollout import run_steps
     from cfd_tpu_torch.solvers.poisson.base import Method, PoissonProblem
     from cfd_tpu_torch.solvers.poisson.spectral import (
@@ -216,12 +263,28 @@ def main() -> int:
             fail(f"{tag} {name}: error {err:.3e} above bound {bound:.3e}")
         return err, rel
 
+    def nbytes(ts):
+        return sum(t.numel() * t.element_size() for t in ts
+                   if torch.is_tensor(t))
+
+    def bound(n_bytes, flops):
+        """(ms, "bytes" or "operations"): the least time the card could
+        take to move ``n_bytes`` and do ``flops`` float32 operations."""
+        t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / FP32_FLOPS * 1e3
+        return (t_bytes, "bytes") if t_bytes >= t_ops else \
+            (t_ops, "operations")
+
     def check(path, tag, timed, wrapper, replaces, source, kernel, plain,
-              outs, tols):
+              outs, tols, work=None, library=None):
         """Run ``kernel`` (the wrapper) and ``plain`` on the same inputs,
-        compare each output; time both when ``timed``.  ``path`` ("3d" or
-        "2d") names the main path whose launch count the record takes:
-        the Thomas and SGEMM wrappers serve both."""
+        compare each output; time both when ``timed``.  ``path`` names the
+        main path whose launch count the record takes (the Thomas and
+        SGEMM wrappers serve "3d" and "2d").  ``work`` = (input tensors,
+        flops) gives the bound, with every input read once and every
+        output written once; ``library`` is one PyTorch call computing the
+        same function, timed beside the kernel (the port never calls
+        it)."""
         name = wrapper.__name__
         got = kernel()
         ref = plain()
@@ -238,9 +301,26 @@ def main() -> int:
         if timed:
             rec["ms"] = cuda_ms(kernel)
             rec["plain_ms"] = cuda_ms(plain)
+            rec["library_ms"] = None if library is None else \
+                cuda_ms(library)
+            ins, flops = work
+            rec["bound_ms"], rec["bound_by"] = bound(
+                nbytes(ins) + nbytes(got), flops)
             print(f"  {tag} {name}: kernel {rec['ms']:.3f} ms, plain "
-                  f"{rec['plain_ms']:.3f} ms", flush=True)
+                  f"{rec['plain_ms']:.3f} ms, library "
+                  f"{rec['library_ms']} ms, bound {rec['bound_ms']:.3f} "
+                  f"ms ({rec['bound_by']})", flush=True)
         return ref
+
+    def gemm_flops(m, n, k, batch=1):
+        return 2.0 * m * n * k * batch
+
+    def ieee_matmul(fn):
+        """``fn`` run with TF32 off (IEEE fp32, as the SGEMM)."""
+        def run():
+            with rolling.ieee_fp32_matmul():
+                return fn()
+        return run
 
     fld = (TOL_FIELD, False)
     exact = (TOL_EXACT, True)
@@ -277,42 +357,63 @@ def main() -> int:
                             torch.full((), 0.05, device=dev)])
         rod = 1.0 / dt
         s = dt / 1.0
+        cells = f.u.numel()
+        nz_, ny_, nx_ = shape
+
+        def dot_work(x, right, left):
+            return ((x, right, left),
+                    gemm_flops(nz_ * ny_, nx_, nx_)
+                    + gemm_flops(ny_, nx_, ny_, nz_))
+
+        def dot_library(x, right, left):
+            # one call: left · x[k] · right on every plane
+            return ieee_matmul(lambda: torch.einsum("ij,kjl,lm->kim", left,
+                                                    x, right))
 
         us, vs, ws = check(
             "3d", tag, big, pkm.predictor_star, A1, SRC,
             lambda: pkm.predictor_star(f.u, f.v, f.w, scal, c),
             lambda: pkm.predictor_star_plain(f.u, f.v, f.w, scal, c),
-            ("u*", "v*", "w*"), (fld,) * 3)
+            ("u*", "v*", "w*"), (fld,) * 3,
+            work=((f.u, f.v, f.w, scal),
+                  FLOPS_PER_POINT["predictor_star"] * cells))
         bt = check(
             "3d", tag, big, pkm.poisson_input, A1, SRC,
             lambda: pkm.poisson_input(us, vs, ws, f.p, rod, c),
             lambda: pkm.poisson_input_plain(us, vs, ws, f.p, rod, c),
-            ("b~",), (exact,))[0]
+            ("b~",), (exact,),
+            work=((us, vs, ws, f.p), FLOPS_PER_POINT["poisson_input"]
+                  * cells))[0]
         bhat = check(
             "3d", tag, big, rolling.plane_dot, DOT, SRC,
             lambda: rolling.plane_dot(bt, fxt, fy),
             lambda: rolling.plane_dot_plain(bt, fxt, fy),
-            ("forward",), (gemm,))[0]
+            ("forward",), (gemm,), work=dot_work(bt, fxt, fy),
+            library=dot_library(bt, fxt, fy))[0]
         d, t = check(
             "3d", tag, big, tdma.tdma_z_fwd, A1, SRC,
             lambda: tdma.tdma_z_fwd(bhat, mu, w),
             lambda: tdma.tdma_z_fwd_reference(bhat, mu, w),
-            ("d'", "t"), (exact, exact))
+            ("d'", "t"), (exact, exact),
+            work=((bhat, mu), FLOPS_PER_POINT["tdma_fwd"] * cells))
         xhat = check(
             "3d", tag, big, tdma.tdma_z_bwd, A2, SRC,
             lambda: tdma.tdma_z_bwd(d, t),
             lambda: tdma.tdma_z_bwd_reference(d, t),
-            ("x^",), (exact,))[0]
+            ("x^",), (exact,),
+            work=((d, t), FLOPS_PER_POINT["tdma_bwd"] * cells))[0]
         p = check(
             "3d", tag, big, rolling.plane_dot, DOT, SRC,
             lambda: rolling.plane_dot(xhat, gxt, gy),
             lambda: rolling.plane_dot_plain(xhat, gxt, gy),
-            ("inverse",), (gemm,))[0]
+            ("inverse",), (gemm,), work=dot_work(xhat, gxt, gy),
+            library=dot_library(xhat, gxt, gy))[0]
         check("3d", tag, big, pkm.corrector, A2, SRC,
               lambda: pkm.corrector(us, vs, ws, p, s, c),
               lambda: pkm.corrector_plain(us, vs, ws, p, s, c),
               ("u", "v", "w", "max|u|^2", "max p", "max|p|"),
-              (fld,) * 3 + ((TOL_DIAG, True), gemm, gemm))
+              (fld,) * 3 + ((TOL_DIAG, True), gemm, gemm),
+              work=((us, vs, ws, p), FLOPS_PER_POINT["corrector"] * cells))
 
         # the two mega kernels as the step calls them
         kern = pkm.ProjectionKernels(*shape, c.dx, c.dy, c.dz, c.xmin,
@@ -360,22 +461,29 @@ def main() -> int:
         scal = torch.stack([dt, torch.full((), 0.1, device=dev),
                             torch.full((), 0.05, device=dev)])
         rod, s = 1.0 / dt, dt / 1.0
+        cells = f.u.numel()
 
         us, vs, ws = check(
             "2d", tag, big, pk2m.predictor_star_2d, P2, SRC_2D,
             lambda: pk2m.predictor_star_2d(f.u, f.v, f.w, scal, c),
             lambda: pkm.predictor_star_plain(f.u, f.v, f.w, scal, c),
-            ("u*", "v*", "w*"), (fld,) * 3)
+            ("u*", "v*", "w*"), (fld,) * 3,
+            work=((f.u, f.v, f.w, scal),
+                  FLOPS_PER_POINT["predictor_star"] * cells))
         bt = check(
             "2d", tag, big, pk2m.poisson_input_2d, P2, SRC_2D,
             lambda: pk2m.poisson_input_2d(us, vs, f.p, rod, c),
             lambda: pk2m.poisson_input_2d_plain(us, vs, f.p, rod, c),
-            ("b~",), (exact,))[0]
+            ("b~",), (exact,),
+            work=((us, vs, f.p), FLOPS_PER_POINT["poisson_input"]
+                  * cells))[0]
         bhat = check(
             "2d", tag, big, rolling.right_dot, DOT2, SRC,
             lambda: rolling.right_dot(bt, fxt),
             lambda: rolling.right_dot_plain(bt, fxt),
-            ("forward",), (gemm,))[0]
+            ("forward",), (gemm,),
+            work=((bt, fxt), gemm_flops(ny, fxt.shape[1], nx)),
+            library=ieee_matmul(lambda: torch.matmul(bt, fxt)))[0]
         a = bhat[0]
         # the y-lines as one-row planes: (ny, 1, nx), μ (1, nx)
         d, t = check(
@@ -383,24 +491,33 @@ def main() -> int:
             lambda: tdma.tdma_z_fwd(a[:, None, :], mu[None, :], w),
             lambda: tdma.tdma_z_fwd_reference(a[:, None, :], mu[None, :],
                                               w),
-            ("d'", "t"), (exact, exact))
+            ("d'", "t"), (exact, exact),
+            work=((a, mu), FLOPS_PER_POINT["tdma_fwd"] * a.numel()))
         xline = check(
             "2d", tag, big, tdma.tdma_z_bwd, TDMA2, SRC,
             lambda: tdma.tdma_z_bwd(d, t),
             lambda: tdma.tdma_z_bwd_reference(d, t),
-            ("x^",), (exact,))[0][:, 0, :]
+            ("x^",), (exact,),
+            work=((d, t), FLOPS_PER_POINT["tdma_bwd"] * d.numel()))[0][
+                :, 0, :]
         srhs = check(
             "2d", tag, big, rolling.left_dot, RESCUE, SRC,
             lambda: rolling.left_dot(fyp, a[:, :k_res]),
             lambda: rolling.left_dot_plain(fyp, a[:, :k_res]),
-            ("Fy·a[:, :K]",), (gemm,))[0]
+            ("Fy·a[:, :K]",), (gemm,),
+            work=((fyp, a[:, :k_res]),
+                  gemm_flops(fyp.shape[0], k_res, fyp.shape[1])),
+            library=ieee_matmul(lambda: torch.matmul(fyp, a[:, :k_res])))[0]
         # the second rescue product writes x^'s first K columns in place
         outk, outp = xline.clone(), xline.clone()
         check("2d", tag, big, rolling.left_dot, RESCUE, SRC,
               lambda: rolling.left_dot(gyp, srhs, out=outk[:, :k_res]),
               lambda: rolling.left_dot_plain(gyp, srhs,
                                              out=outp[:, :k_res]),
-              ("Gy·s",), (gemm,))
+              ("Gy·s",), (gemm,),
+              work=((gyp, srhs),
+                    gemm_flops(gyp.shape[0], k_res, gyp.shape[1])),
+              library=ieee_matmul(lambda: torch.matmul(gyp, srhs)))
         compare(tag, "left_dot.untouched columns", outk[:, k_res:],
                 outp[:, k_res:], *exact)
         xk = ysolve(bhat)
@@ -411,11 +528,14 @@ def main() -> int:
             "2d", tag, big, rolling.right_dot, DOT2, SRC,
             lambda: rolling.right_dot(xp, gxt),
             lambda: rolling.right_dot_plain(xp, gxt),
-            ("inverse",), (gemm,))[0]
+            ("inverse",), (gemm,),
+            work=((xp, gxt), gemm_flops(ny, gxt.shape[1], gxt.shape[0])),
+            library=ieee_matmul(lambda: torch.matmul(xp, gxt)))[0]
         check("2d", tag, big, pk2m.corrector_2d, C2, SRC_2D,
               lambda: pk2m.corrector_2d(us, vs, p, s, c),
               lambda: pk2m.corrector_2d_plain(us, vs, p, s, c),
-              ("u", "v"), (fld,) * 2)
+              ("u", "v"), (fld,) * 2,
+              work=((us, vs, p), FLOPS_PER_POINT["corrector"] * cells))
 
         # the two fused kernels as the step calls them
         kern = pk2m.Projection2DKernels(ny, nx, c.dx, c.dy, c.xmin, c.ymin,
@@ -644,17 +764,216 @@ def main() -> int:
     if do_ghia1000:
         ghia_gate("phase 8", 512, 1000, 4e-4, 150000, 0.01)
 
-    counts = {"3d": counts3, "2d": counts2}
-    kernels = [{"name": name, "path": path, "route": "cuda",
-                "source": rec["source"], "replaces": rec["replaces"],
-                "launches": counts[path][name],
-                "max_abs_err": rec["max_abs_err"],
-                "max_rel_err": rec["max_rel_err"], "ms": rec["ms"],
-                "plain_ms": rec["plain_ms"]}
-               for (path, name), rec in records.items()]
+    # ---- phase 9: the explicit kernels against their plain versions --------
+    names6 = ("u", "v", "w", "p", "rho", "T")
+    maxima4 = ("max|u|^2", "max p", "max|p|", "max T")
+
+    def uniform_grid(shape):
+        nz, ny, nx = shape
+        if nz > 1:
+            return Grid.uniform(nx, ny, nz, zmin=0.0, zmax=1.0)
+        return Grid.uniform(nx, ny)
+
+    for shape in ((11, 23, 37), (N_EXPL,) * 3, (1, 23, 37), (1, N_2D, N_2D)):
+        nz, ny, nx = shape
+        three_d = nz > 1
+        big = nx in (N_EXPL, N_2D)
+        tag = "x".join(map(str, shape[::-1] if three_d else shape[:0:-1]))
+        print(f"phase 9 explicit kernels vs plain at {tag}", flush=True)
+        grid = uniform_grid(shape)
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+
+        def rnd(scale, shape=shape, gen=gen):
+            return scale * torch.randn(shape, generator=gen, device=dev)
+
+        f = FlowField.initialize(grid, dtype=torch.float32, device=dev)
+        u = f.u + rnd(0.3)
+        u[nz // 2, ny // 3, nx // 3] = 150.0     # the clamps
+        rho = f.rho + rnd(0.01)
+        rho[nz // 2, ny // 2, nx // 2] = 1e-12   # the per-point ρ guard
+        f = FlowField(u=u, v=f.v + rnd(0.3), w=rnd(0.3), p=f.p + rnd(0.3),
+                      rho=rho, T=f.T + rnd(1.0))
+        c = ekm.ExplicitConsts(nz, ny, nx, grid.dx0, grid.dy0, grid.dz0,
+                               0.01, 0.1)
+        sy, sx = source_basis(grid, torch.float32, dev)
+        cells = f.u.numel()
+
+        ew = ekm.euler_step if three_d else e2m.euler2d_step
+        ins = (f.u, f.v, f.w, f.p, f.T, f.rho, sy, sx,
+               torch.tensor([1e-4, 0.08, 0.04], device=dev))
+        check("euler3d" if three_d else "euler2d", tag, big, ew,
+              E3 if three_d else E2, SRC_E, lambda: ew(*ins, c),
+              lambda: ekm.euler_step_plain(*ins, c), names6 + maxima4,
+              (exact,) * 10, work=(ins, FLOPS_PER_POINT["euler"] * cells))
+
+        sw = rkm.rk_stage if three_d else rk2m.rk2d_stage
+        q0 = (f.u, f.v, f.w, f.p)
+        st = tuple(x + rnd(0.01) for x in q0)
+        acc = tuple(rnd(5.0) for _ in range(4))
+        # (stage, accumulator, final, factor, acc_mix, weight): RK4's
+        # first and second stages and its final stage
+        for label, a, final, fac, mix, wgt in (
+                ("first", None, False, 5e-5, 0.0, 1.0),
+                ("mid", acc, False, 5e-5, 0.0, 2.0),
+                ("final", acc, True, 1e-4 / 6.0, 1.0, 0.0)):
+            sc = torch.tensor([fac, mix, wgt, 0.08, 0.04], device=dev)
+            read = (*st, *q0, f.rho, *(a or ()), sy, sx, sc) + (
+                (f.T,) if final else ())
+            outs = (names6 + maxima4 if final else
+                    tuple(f"next {n}" for n in "uvwp")
+                    + tuple(f"acc {n}" for n in "uvwp"))
+            check("rk3d" if three_d else "rk2d", f"{tag} {label}",
+                  big and label == "mid", sw, RK3 if three_d else RK2,
+                  SRC_RK,
+                  lambda: sw(st, q0, f.rho, f.T, a, sy, sx, sc, c, final),
+                  lambda: rkm.rk_stage_plain(st, q0, f.rho, f.T, a, sy, sx,
+                                             sc, c, final),
+                  outs, (exact,) * len(outs),
+                  work=(read, FLOPS_PER_POINT["rk_stage"] * cells))
+        del f, u, rho, ins, q0, st, acc
+        torch.cuda.empty_cache()
+
+    # ---- phase 10: the explicit main paths (bench.py's configurations) ----
+    makers = {"euler": make_euler_step, "rk2": make_rk2_step,
+              "rk4": make_rk4_step}
+    launch_counts = {"3d": counts3, "2d": counts2}
+    explicit_ms = {}
+
+    def explicit_path(method, shape, n_steps, path_key, wrapper):
+        """bench.py:run_euler_3d / run_euler_2d / run_rk_3d / run_rk_2d:
+        the Taylor-Green field, sources off, ν = 0.01, dt = 1e-5, on the
+        kernel path and the plain path — one step from the start, then
+        ``n_steps`` once to warm up and once timed with CUDA events.
+        Kernel and plain are held against each other after the first
+        step and after the timed steps.  The launch counter is set to 0
+        just before the kernel path and read just after it."""
+        nz, ny, nx = shape
+        grid = uniform_grid(shape)
+        params = NSParams(source_amplitude_u=0.0, source_amplitude_v=0.0,
+                          mu=0.01)
+        size = f"{nx}^3" if nz > 1 else f"{nx}^2"
+        label = f"phase 10 {method} {size}"
+        cells = nx * ny * nz
+        firsts, finals, ms = {}, {}, {}
+        for path in ("kernel", "plain"):
+            if path == "kernel":
+                wrapper.launches = 0
+            stepf = makers[method](grid, params, torch.float32, dev,
+                                   plain=path == "plain")
+            firsts[path] = stepf(tg_field(shape), EXPL_DT, 0)[0]
+            f0 = tg_field(shape)
+            run_steps(stepf, f0, EXPL_DT, n_steps)
+            sync()
+            torch.cuda.reset_peak_memory_stats(dev)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            f2, r2 = run_steps(stepf, f0, EXPL_DT, n_steps)
+            end.record()
+            sync()
+            ms[path] = start.elapsed_time(end) / n_steps
+            peak_gib = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+            print(f"{label} {path} path: {ms[path]:.4f} ms/step, "
+                  f"{cells / (ms[path] * 1e-3) / 1e6:.1f} MLUPS, peak "
+                  f"device memory {peak_gib:.2f} GiB, status "
+                  f"{int(r2.status)}, max|u| {float(r2.max_velocity):.6f}, "
+                  f"max p {float(r2.max_pressure):.6f}", flush=True)
+            if int(r2.status) != 0 or not bool(f2.is_finite()):
+                fail(f"{label} {path} path: nonzero status or non-finite "
+                     f"fields")
+            if not float(r2.max_velocity) < 100.0:
+                fail(f"{label} {path} path: max|u| reached the clamp")
+            if path == "kernel":
+                n_launch = wrapper.launches
+                print(f"{label} launch counts over the main path: "
+                      f"{{'{wrapper.__name__}': {n_launch}}} "
+                      f"({n_launch / (2 * n_steps + 1):g} a step)",
+                      flush=True)
+                if n_launch <= 0:
+                    fail(f"{wrapper.__name__} not launched on the main path")
+                counts = launch_counts.setdefault(path_key, {})
+                counts[wrapper.__name__] = (counts.get(wrapper.__name__, 0)
+                                            + n_launch)
+                if do_profile:
+                    profile_steps(torch, f"phase 5 {method} {size}",
+                                  lambda: run_steps(stepf, f2, EXPL_DT,
+                                                    PROFILED_STEPS,
+                                                    start_iter=n_steps),
+                                  PROFILED_STEPS)
+            finals[path] = f2
+            del f0
+        for name in names6:
+            compare(f"{label} first step", name,
+                    getattr(firsts["kernel"], name),
+                    getattr(firsts["plain"], name), TOL_EXACT, True)
+        # 2048² is past the explicit viscous limit (8·ν·dt/dx² = 3.35): a
+        # grid-scale mode grows until the ±1000 second-derivative clamps
+        # hold it, and it would amplify any rounding difference, so after
+        # the timed steps the bar there is looser (1e-3 of max|ref|)
+        tol_n = TOL_EXACT if nz > 1 else 1e-3
+        for name in names6:
+            compare(f"{label} {n_steps + 1} steps", name,
+                    getattr(finals["kernel"], name),
+                    getattr(finals["plain"], name), tol_n, True)
+        explicit_ms[f"{method} {size}"] = ms
+
+    n3, n2e = (N_EXPL,) * 3, (1, N_2D, N_2D)
+    explicit_path("euler", n3, 10, "euler3d", ekm.euler_step)
+    explicit_path("euler", n2e, 20, "euler2d", e2m.euler2d_step)
+    for order in ("rk2", "rk4"):
+        explicit_path(order, n3, 10, "rk3d", rkm.rk_stage)
+        explicit_path(order, n2e, 10, "rk2d", rk2m.rk2d_stage)
+    torch.cuda.empty_cache()
+
+    # ---- phase 11: the facade (Simulation.create, default solver) ---------
+    e2m.euler2d_step.launches = 0
+    sim = Simulation.create(100, 50, device=dev)
+    start_field = sim.field
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(FACADE_STEPS):
+        status = sim.step()
+        if status != 0:
+            fail(f"phase 11 facade: step returned status {int(status)}")
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    n_launch = e2m.euler2d_step.launches
+    stats = sim.get_stats()
+    print(f"phase 11 Simulation.create(100, 50) solver "
+          f"{sim.solver.name}: {FACADE_STEPS} step()s in {wall_ms:.1f} ms "
+          f"host wall ({wall_ms / FACADE_STEPS:.4f} ms a step, each "
+          f"waiting for the card), time {sim.current_time:.4f}, max|u| "
+          f"{stats.max_velocity:.6f}, max p {stats.max_pressure:.6f}, "
+          f"euler2d_step launches {n_launch}", flush=True)
+    if sim.solver.name != "explicit_euler" or n_launch != FACADE_STEPS:
+        fail("phase 11 facade: not the fused Euler kernel once a step")
+    launch_counts["facade"] = {"euler2d_step": n_launch}
+    plain_step = make_euler_step(sim.grid, sim.params, torch.float32, dev,
+                                 plain=True)
+    fp = start_field
+    for _ in range(FACADE_STEPS):
+        fp, rp = plain_step(fp, 0.005, 0)      # Simulation.step's dt, iter
+    sync()
+    for name in names6:
+        compare(f"phase 11 facade {FACADE_STEPS} steps", name,
+                getattr(sim.field, name), getattr(fp, name), TOL_EXACT,
+                True)
+
+    kernels = []
+    for (path, name), rec in records.items():
+        launches = launch_counts.get(path, {}).get(name)
+        if launches is None:
+            fail(f"{name}: no main path of {path} counted its launches")
+        kernels.append({
+            "name": name, "path": path, "route": "cuda",
+            "source": rec["source"], "replaces": rec["replaces"],
+            "launches": launches, "max_abs_err": rec["max_abs_err"],
+            "max_rel_err": rec["max_rel_err"], "ms": rec["ms"],
+            "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+            "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]})
     print(json.dumps({"kernels": kernels, "step_ms": ms3,
                       "grid": f"{n}x{n}x{n}", "step_ms_2d": ms2,
-                      "grid_2d": f"{n2}x{n2}", "card": card}), flush=True)
+                      "grid_2d": f"{n2}x{n2}", "explicit_step_ms":
+                      explicit_ms, "card": card}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

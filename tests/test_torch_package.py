@@ -19,11 +19,16 @@ from cfd_tpu import Grid as JGrid
 from cfd_tpu.solvers.ns import NSParams as JParams
 from cfd_tpu.solvers.ns.common import z_constants as j_z_constants
 from cfd_tpu_torch import CFDError, FlowField, Grid, Status
-from cfd_tpu_torch.config import resolve_dtype
+from cfd_tpu_torch.api import Simulation
+from cfd_tpu_torch.config import device_of, resolve_dtype
+from cfd_tpu_torch.entry import entry
 from cfd_tpu_torch.interop import field_from_numpy, field_to_numpy
 from cfd_tpu_torch.solvers.ns.common import z_constants
+from cfd_tpu_torch.solvers.ns.euler import make_euler_step
 from cfd_tpu_torch.solvers.ns.params import NSParams
 from cfd_tpu_torch.solvers.ns.projection import make_projection_step
+from cfd_tpu_torch.solvers.ns.rk import make_rk2_step, make_rk4_step
+from cfd_tpu_torch.solvers.ns.solver import NSSolver
 from cfd_tpu_torch.solvers.poisson.base import Method
 
 torch.set_num_threads(min(2, torch.get_num_threads()))
@@ -45,12 +50,21 @@ def _run_isolated(code: str) -> str:
 
 
 def test_import_loads_no_jax():
+    """Importing every module of the port, the facade and the explicit
+    integrators included, loads neither JAX nor the JAX package."""
     out = _run_isolated(
-        "import sys, cfd_tpu_torch, cfd_tpu_torch.entry\n"
+        "import importlib, sys\n"
+        f"for name in {MODULES!r}:\n"
+        "    importlib.import_module(name)\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'cfd_tpu'))\n"
         "print('LOADED', bad)\n")
     assert "LOADED []" in out
+    for name in ("cfd_tpu_torch.api.simulation", "cfd_tpu_torch.entry",
+                 "cfd_tpu_torch.solvers.ns.euler",
+                 "cfd_tpu_torch.solvers.ns.rk",
+                 "cfd_tpu_torch.solvers.ns.solver"):
+        assert name in MODULES, name
 
 
 def test_every_module_imports_without_nvcc_or_triton():
@@ -111,8 +125,74 @@ def test_unsupported_configurations_raise(case):
     grid = kw.pop("grid", _grid())
     params = kw.pop("params", NSParams())
     with pytest.raises(CFDError) as err:
-        make_projection_step(grid, params, dtype=torch.float32, **kw)
+        make_projection_step(grid, params, dtype=torch.float32,
+                             device="cpu", **kw)
     assert err.value.status == Status.ERROR_UNSUPPORTED
+
+
+EXPLICIT_UNSUPPORTED = {
+    "stretched": dict(grid=_stretched_grid()),
+    "consistent": dict(params=NSParams(nonuniform_scheme="consistent")),
+    "energy": dict(params=NSParams(alpha=1e-3)),
+    "buoyancy": dict(params=NSParams(beta=0.05)),
+    "2d_energy": dict(grid=Grid.uniform(128, 16),
+                      params=NSParams(alpha=1e-3)),
+    "source_func": dict(params=NSParams(
+        source_func=lambda X, Y, Z, t: (0.0, 0.0, 0.0))),
+    "differentiable": dict(differentiable=True),
+    "float64_on_cuda": dict(dtype=torch.float64, device="cuda"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(EXPLICIT_UNSUPPORTED))
+@pytest.mark.parametrize("builder", [make_euler_step, make_rk2_step,
+                                     make_rk4_step],
+                         ids=["euler", "rk2", "rk4"])
+def test_explicit_unsupported_configurations_raise(builder, case):
+    """Outside the explicit integrators' slice the builders raise, before
+    any device use."""
+    kw = dict(EXPLICIT_UNSUPPORTED[case])
+    grid = kw.pop("grid", _grid())
+    params = kw.pop("params", NSParams())
+    kw.setdefault("dtype", torch.float32)
+    kw.setdefault("device", "cpu")
+    with pytest.raises(CFDError) as err:
+        builder(grid, params, **kw)
+    assert err.value.status == Status.ERROR_UNSUPPORTED
+
+
+def _g2():
+    return Grid.uniform(32, 16)
+
+
+# every entry point called without ``device``
+DEFAULT_DEVICE_CALLS = {
+    "entry": lambda: entry(),
+    "make_projection_step": lambda: make_projection_step(_grid(),
+                                                         NSParams()),
+    "make_euler_step": lambda: make_euler_step(_g2(), NSParams()),
+    "make_rk2_step": lambda: make_rk2_step(_grid(), NSParams()),
+    "make_rk4_step": lambda: make_rk4_step(_g2(), NSParams()),
+    "NSSolver.init": lambda: NSSolver(name="rk4", method="rk4").init(
+        _g2(), NSParams()),
+    "Simulation.create": lambda: Simulation.create(32, 16),
+    "FlowField.initialize": lambda: FlowField.initialize(_g2()),
+    "FlowField.quiescent": lambda: FlowField.quiescent(8, 8),
+    "field_from_numpy": lambda: field_from_numpy(
+        {n: np.zeros((1, 4, 4)) for n in ("u", "v", "w", "p", "rho", "T")}),
+}
+
+
+@pytest.mark.parametrize("call", sorted(DEFAULT_DEVICE_CALLS))
+def test_entry_points_default_to_cuda(call):
+    """Without ``device`` an entry point targets the card: it builds there
+    when CUDA is present, and raises (no CPU fallback) when it is not."""
+    assert device_of(None) == torch.device("cuda")
+    if torch.cuda.is_available():
+        DEFAULT_DEVICE_CALLS[call]()
+        return
+    with pytest.raises(RuntimeError, match="cuda"):
+        DEFAULT_DEVICE_CALLS[call]()
 
 
 def test_float64_on_cuda_is_refused():
@@ -147,7 +227,7 @@ def test_field_from_reference_arrays():
                            ("u", "v", "w", "p", "rho", "T")},
                           "cpu", torch.float64)
     ref = FlowField.initialize(Grid.uniform(24, 20, 10, zmin=0.0, zmax=1.0),
-                               dtype=torch.float64)
+                               dtype=torch.float64, device="cpu")
     for n in ("u", "v", "w", "p", "rho", "T"):
         assert torch.equal(getattr(tf, n), getattr(ref, n)), n
 

@@ -151,7 +151,7 @@ def _run_both(shape, np_dt, jnp_kwargs, dt=DT, n_steps=3, seed=0):
                                 **jnp_kwargs))
     jf = JField(**{n: jnp.asarray(a) for n, a in arrays.items()})
     step = make_projection_step(Grid.uniform(nx, ny), NSParams(**params),
-                                dtype=tdt)
+                                dtype=tdt, device="cpu")
     tf = field_from_numpy(arrays, "cpu", tdt)
     out = []
     for i in range(n_steps):
@@ -272,7 +272,7 @@ def test_taylor_green_viscous_limit_matches_jnp_step_f64(number, grows):
                                 use_pallas=False))
     jf = JField(**{k: jnp.asarray(a) for k, a in arrays.items()})
     step = make_projection_step(Grid.uniform(n, n), NSParams(**kw),
-                                dtype=torch.float64)
+                                dtype=torch.float64, device="cpu")
     tf = field_from_numpy(arrays, "cpu", torch.float64)
     for i in range(steps):
         jf, jr = jstep(jf, dt, i)
@@ -290,7 +290,7 @@ def _step_128x32(sources=False):
     amp = dict(source_amplitude_u=0.0, source_amplitude_v=0.0)
     return make_projection_step(Grid.uniform(128, 32),
                                 NSParams(**({} if sources else amp)),
-                                dtype=torch.float32)
+                                dtype=torch.float32, device="cpu")
 
 
 def test_shell_passthrough_and_clamp():
@@ -354,7 +354,8 @@ def test_field_numpy_round_trip_2d(dtype):
 
 
 def test_quiescent_matches_reference():
-    tf = FlowField.quiescent(9, 7, pressure=0.0, dtype=torch.float64)
+    tf = FlowField.quiescent(9, 7, pressure=0.0, dtype=torch.float64,
+                             device="cpu")
     jf = JField.quiescent(9, 7, pressure=0.0, dtype=jnp.float64)
     for n in ("u", "v", "w", "p", "rho", "T"):
         np.testing.assert_array_equal(getattr(tf, n).numpy(),
@@ -395,9 +396,11 @@ def test_ghia_re100_projection():
     params = NSParams(dt=dt, cfl=0.5, mu=1.0 / re, k=0.0, max_iter=1,
                       source_amplitude_u=0.0, source_amplitude_v=0.0,
                       source_decay_rate=0.0)
-    step = make_projection_step(grid, params, dtype=torch.float32)
+    step = make_projection_step(grid, params, dtype=torch.float32,
+                                device="cpu")
     lid, wall = DirichletValues(top=1.0), DirichletValues()
-    field = FlowField.quiescent(n, n, pressure=0.0, dtype=torch.float32)
+    field = FlowField.quiescent(n, n, pressure=0.0, dtype=torch.float32,
+                                device="cpu")
     worst = 0
     for i in range(steps):
         field = field.replace(u=apply_dirichlet_scalar(field.u, lid),

@@ -53,7 +53,8 @@ def _run_both(shape, np_dt, jnp_kwargs, n_steps=3, seed=0):
     jf = JField(**{n: jnp.asarray(a) for n, a in arrays.items()})
     step = make_projection_step(Grid.uniform(nx, ny, nz, zmin=0.0,
                                              zmax=1.0),
-                                NSParams(**params), dtype=tdt)
+                                NSParams(**params), dtype=tdt,
+                                device="cpu")
     tf = field_from_numpy(arrays, "cpu", tdt)
     out = []
     for i in range(n_steps):
@@ -124,7 +125,8 @@ def _default_step(shape=(8, 16, 128)):
     nz, ny, nx = shape
     grid = Grid.uniform(nx, ny, nz, zmin=0.0, zmax=1.0)
     params = NSParams(source_amplitude_u=0.0, source_amplitude_v=0.0)
-    return make_projection_step(grid, params, dtype=torch.float32)
+    return make_projection_step(grid, params, dtype=torch.float32,
+                                device="cpu")
 
 
 @pytest.mark.nan_injection

@@ -4,10 +4,11 @@
 The same 18 names register: the reference's 16 and the two extensions
 ``projection_spectral`` and ``projection_multigrid``.  The backend is
 inferred from the name's suffix; ``create_checked`` refuses a CUDA-tagged
-name when no CUDA device is present.  Every name creates a solver; one
-whose path is not ported (the CG ``projection`` family,
-``projection_multigrid``) raises ``CFDError(ERROR_UNSUPPORTED)`` at
-``init``.
+name when no CUDA device is present.  Every name creates a solver; the
+``projection`` family (``projection``, ``_optimized``, ``_omp``,
+``_gpu``) runs the CG pressure solve, ``projection_spectral`` the
+spectral one, and ``projection_multigrid``, not ported yet, raises
+``CFDError(ERROR_UNSUPPORTED)`` at ``init``.
 """
 
 from __future__ import annotations

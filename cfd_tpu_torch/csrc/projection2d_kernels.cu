@@ -103,12 +103,13 @@ __global__ void pred_star_2d_kernel(
 }
 
 // b~ = face_coeff * p - (rho/dt) div u* on the interior, 0 on the shell
-// (projection2d.py:186-191).
+// (projection2d.py:186-191); with emit_rhs the iterative solvers' rhs =
+// (rho/dt) div u* instead (projection2d.py:196-197; p is not read).
 __global__ void poisson_input_2d_kernel(
     const float* __restrict__ us, const float* __restrict__ vs,
     const float* __restrict__ p, float* __restrict__ bt,
     const float* __restrict__ rod_ptr, int ny, int nx, float inv_2dx,
-    float inv_2dy, float inv_dx2, float inv_dy2) {
+    float inv_2dy, float inv_dx2, float inv_dy2, int emit_rhs) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const int j = blockIdx.y * blockDim.y + threadIdx.y;
   if (i >= nx || j >= ny) return;
@@ -119,6 +120,10 @@ __global__ void poisson_input_2d_kernel(
   }
   const float div = (us[c + 1] - us[c - 1]) * inv_2dx
                     + (vs[c + nx] - vs[c - nx]) * inv_2dy;
+  if (emit_rhs) {
+    bt[c] = (*rod_ptr) * div;
+    return;
+  }
   const float cx = inv_dx2 * (float)((i == 1) + (i == nx - 2));
   const float cy = inv_dy2 * (float)((j == 1) + (j == ny - 2));
   bt[c] = (cx + cy) * p[c] - (*rod_ptr) * div;
@@ -169,10 +174,12 @@ int cfd_pred_star_2d(const float* u, const float* v, const float* w,
 int cfd_poisson_input_2d(const float* us, const float* vs, const float* p,
                          float* bt, const float* rod, int ny, int nx,
                          float inv_2dx, float inv_2dy, float inv_dx2,
-                         float inv_dy2, cudaStream_t stream) {
+                         float inv_dy2, int emit_rhs,
+                         cudaStream_t stream) {
   poisson_input_2d_kernel<<<stencil_grid_2d(ny, nx), dim3(kTileX, kTileY),
                             0, stream>>>(us, vs, p, bt, rod, ny, nx, inv_2dx,
-                                         inv_2dy, inv_dx2, inv_dy2);
+                                         inv_2dy, inv_dx2, inv_dy2,
+                                         emit_rhs);
   return (int)cudaGetLastError();
 }
 

@@ -6,7 +6,8 @@
 //   A1  ProjectionKernels.pred_bt   (pred_bt_compute)   predictor, b~,
 //       forward xy DST, Thomas forward sweep
 //       -> pred_star_kernel, poisson_input_kernel, sgemm_kernel (x2),
-//          tdma_fwd_kernel
+//          tdma_fwd_kernel; with emit="rhs" (the CG step) only the first
+//          two, poisson_input_kernel emitting (rho/dt) div u*
 //   A2  ProjectionKernels.corr_bwd  (corr_bwd_compute)  Thomas back
 //       substitution, inverse xy DST, corrector, three max reductions
 //       -> tdma_bwd_kernel, sgemm_kernel (x2), corrector_kernel,
@@ -119,13 +120,15 @@ __global__ void pred_star_kernel(
                inv_2dz, inv_dx2, inv_dy2, inv_dz2);
 }
 
-// b~ = face_coeff * p - (rho/dt) div u* on the interior, 0 on the shell.
+// b~ = face_coeff * p - (rho/dt) div u* on the interior, 0 on the shell;
+// with emit_rhs the iterative solvers' rhs = (rho/dt) div u* instead
+// (projection_kernels.py:699-701: no face term, no minus; p is not read).
 __global__ void poisson_input_kernel(
     const float* __restrict__ us, const float* __restrict__ vs,
     const float* __restrict__ ws, const float* __restrict__ p,
     float* __restrict__ bt, const float* __restrict__ rod_ptr, int nz,
     int ny, int nx, float inv_2dx, float inv_2dy, float inv_2dz,
-    float inv_dx2, float inv_dy2, float inv_dz2) {
+    float inv_dx2, float inv_dy2, float inv_dz2, int emit_rhs) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const int j = blockIdx.y * blockDim.y + threadIdx.y;
   const int k = blockIdx.z;
@@ -140,6 +143,10 @@ __global__ void poisson_input_kernel(
   const float div = ((us[c + 1] - us[c - 1]) * inv_2dx
                      + (vs[c + sy] - vs[c - sy]) * inv_2dy)
                     + (ws[c + sz] - ws[c - sz]) * inv_2dz;
+  if (emit_rhs) {
+    bt[c] = (*rod_ptr) * div;
+    return;
+  }
   const float cx = inv_dx2 * (float)((i == 1) + (i == nx - 2));
   const float cy = inv_dy2 * (float)((j == 1) + (j == ny - 2));
   const float cz = inv_dz2 * (float)((k == 1) + (k == nz - 2));
@@ -400,11 +407,11 @@ int cfd_poisson_input(const float* us, const float* vs, const float* ws,
                       const float* p, float* bt, const float* rod, int nz,
                       int ny, int nx, float inv_2dx, float inv_2dy,
                       float inv_2dz, float inv_dx2, float inv_dy2,
-                      float inv_dz2, cudaStream_t stream) {
+                      float inv_dz2, int emit_rhs, cudaStream_t stream) {
   poisson_input_kernel<<<stencil_grid(nz, ny, nx), dim3(kTileX, kTileY), 0,
                          stream>>>(us, vs, ws, p, bt, rod, nz, ny, nx,
                                    inv_2dx, inv_2dy, inv_2dz, inv_dx2,
-                                   inv_dy2, inv_dz2);
+                                   inv_dy2, inv_dz2, emit_rhs);
   return (int)cudaGetLastError();
 }
 

@@ -41,7 +41,7 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
 SIGNATURES = {
     # projection_kernels.cu (3D step, and the SGEMM both steps use)
     "cfd_pred_star": [_P] * 7 + [_I] * 3 + [_F] * 11 + [_I, _P],
-    "cfd_poisson_input": [_P] * 6 + [_I] * 3 + [_F] * 6 + [_P],
+    "cfd_poisson_input": [_P] * 6 + [_I] * 3 + [_F] * 6 + [_I, _P],
     "cfd_sgemm_batched": [_I] * 3 + [_P, _L, _L, _P, _L, _L, _P, _L, _L]
     + [_I, _P],
     "cfd_tdma_fwd": [_P, _P, _F, _P, _P, _I, _L, _P],
@@ -49,12 +49,20 @@ SIGNATURES = {
     "cfd_corrector": [_P] * 10 + [_I] * 3 + [_F] * 3 + [_P],
     # projection2d_kernels.cu (2D step)
     "cfd_pred_star_2d": [_P] * 7 + [_I] * 2 + [_F] * 9 + [_I, _P],
-    "cfd_poisson_input_2d": [_P] * 5 + [_I] * 2 + [_F] * 4 + [_P],
+    "cfd_poisson_input_2d": [_P] * 5 + [_I] * 2 + [_F] * 4 + [_I, _P],
     "cfd_corrector_2d": [_P] * 6 + [_I] * 2 + [_F] * 2 + [_P],
     # euler_kernels.cu, rk_kernels.cu (explicit steps, 3D and 2D)
     "cfd_euler_step": [_P] * 17 + [_I] * 3 + [_F] * 8 + [_P],
     "cfd_rk_stage": [_P] * 4 + [_I] * 3 + [_F] * 8 + [_I, _P],
+    # cg_kernels.cu (the CG pressure solve)
+    "cfd_cg_lap_dot": [_P] * 6 + [_I] * 3 + [_F] * 4 + [_P],
+    "cfd_cg_update": [_P] * 6 + [_I] * 3 + [_F, _I, _P],
+    "cfd_cg_solve": [_P] * 8 + [_I] * 3 + [_F] * 6 + [_I] * 2 + [_P],
 }
+
+# block-count queries: (nz, ny, nx) -> long long
+COUNTS = ("cfd_corrector_partials", "cfd_explicit_partials",
+          "cfd_cg_partials", "cfd_cg_solve_blocks")
 
 _lib = None
 
@@ -136,7 +144,7 @@ def library():
             fn.restype = ctypes.c_int
         lib.cfd_error_string.argtypes = [ctypes.c_int]
         lib.cfd_error_string.restype = ctypes.c_char_p
-        for name in ("cfd_corrector_partials", "cfd_explicit_partials"):
+        for name in COUNTS:
             getattr(lib, name).argtypes = [_I] * 3
             getattr(lib, name).restype = ctypes.c_longlong
         _lib = lib

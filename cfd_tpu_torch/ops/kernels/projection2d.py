@@ -21,6 +21,11 @@ The y-line solve between them (`solvers.poisson.spectral.
 make_dst2d_fused_pieces`) runs `tdma.tdma_y_2d` (the 3D z-line Thomas
 kernels on one-row planes) and the rescue products.
 
+The CG step (``emit="rhs"``) runs pred_bt's rhs form,
+:func:`predictor_star_2d` → :func:`poisson_rhs_2d` ((ρ/dt)∇·u*, the b̃
+kernel with its emit flag set), and the non-DST ``corr``
+(:func:`corrector_2d` on a physical p).
+
 Every wrapper below launches its CUDA kernel on a CUDA tensor and runs its
 plain PyTorch version (``*_plain``) on a CPU tensor; its ``launches``
 attribute counts kernel launches.  Fields are (1, ny, nx).  The CUDA
@@ -99,9 +104,31 @@ def poisson_input_2d(us, vs, p, rod, c: StencilConsts):
     bt = torch.empty_like(p)
     native.launch("cfd_poisson_input_2d", p.device, *map(native.ptr, (
         us, vs, p, bt, rod)), c.ny, c.nx, c.inv_2dx, c.inv_2dy, c.inv_dx2,
-        c.inv_dy2)
+        c.inv_dy2, 0)
     poisson_input_2d.launches += 1
     return bt
+
+
+# ---- pred_bt (b), emit="rhs": the iterative solvers' right-hand side ----
+
+def poisson_rhs_2d_plain(us, vs, rod, c: StencilConsts):
+    """rhs = (ρ/dt)∇·u* on the interior, zero shell
+    (`projection2d.py:196-197`)."""
+    div = ddx(us, c.inv_2dx) + ddy(vs, c.inv_2dy)
+    return set_interior(torch.zeros_like(us), rod * div)
+
+
+def poisson_rhs_2d(us, vs, rod, c: StencilConsts):
+    """rhs — ``poisson_input_2d_kernel`` in its emit-rhs form on CUDA."""
+    if native.on_cpu(us):
+        return poisson_rhs_2d_plain(us, vs, rod, c)
+    _check(c, (us, vs), (rod,))
+    rhs = torch.empty_like(us)
+    native.launch("cfd_poisson_input_2d", us.device, *map(native.ptr, (
+        us, vs, us, rhs, rod)), c.ny, c.nx, c.inv_2dx, c.inv_2dy,
+        c.inv_dx2, c.inv_dy2, 1)
+    poisson_rhs_2d.launches += 1
+    return rhs
 
 
 # ---- corr: corrector ------------------------------------------------------
@@ -128,55 +155,73 @@ def corrector_2d(us, vs, p, s, c: StencilConsts):
 
 predictor_star_2d.launches = 0
 poisson_input_2d.launches = 0
+poisson_rhs_2d.launches = 0
 corrector_2d.launches = 0
 
 # every wrapper that launches a kernel on the 2D main path, for counters
 WRAPPERS = (predictor_star_2d, poisson_input_2d, right_dot, tdma_z_fwd,
             tdma_z_bwd, left_dot, corrector_2d)
+# ... and on the 2D CG step's path (the whole-solve kernel counts in
+# vmem_small)
+WRAPPERS_RHS = (predictor_star_2d, poisson_rhs_2d, corrector_2d)
 
 
 def reset_launch_counts() -> None:
-    for fn in WRAPPERS:
+    for fn in WRAPPERS + WRAPPERS_RHS:
         fn.launches = 0
 
 
 class Projection2DKernels:
     """The two fused kernels for one (uniform 2D grid, dtype, device).
 
-    ``dst_mats`` = (FxT, GxT) from
-    `solvers.poisson.spectral.make_dst2d_fused_pieces`.  The default runs
-    the wrappers (kernels on CUDA, plain versions on CPU).  ``plain=True``
-    is a reference switch for checks on the card only: it runs the plain
-    PyTorch versions on a CUDA device too, so ``chip_smoke.py`` can hold
-    the kernels against them and time both.
+    ``emit="btilde"`` (the spectral step): ``dst_mats`` = (FxT, GxT) from
+    `solvers.poisson.spectral.make_dst2d_fused_pieces`.  ``emit="rhs"``
+    (the iterative solvers): pred_bt emits the Poisson right-hand side and
+    ``corr`` takes a physical p.  The default runs the wrappers (kernels
+    on CUDA, plain versions on CPU).  ``plain=True`` is a reference switch
+    for checks on the card only: it runs the plain PyTorch versions on a
+    CUDA device too, so ``chip_smoke.py`` can hold the kernels against
+    them and time both.
     """
 
-    def __init__(self, ny, nx, dx, dy, xmin, ymin, nu, dst_mats,
-                 with_sources=True, plain=False):
+    def __init__(self, ny, nx, dx, dy, xmin, ymin, nu, dst_mats=None,
+                 with_sources=True, plain=False, emit="btilde"):
+        if emit not in ("btilde", "rhs"):
+            raise ValueError(f"emit must be 'btilde' or 'rhs', got {emit!r}")
+        self.emit = emit
         self.consts = StencilConsts(1, ny, nx, dx, dy, 0.0, xmin, ymin,
                                     float(nu), bool(with_sources))
-        self.fxt, self.gxt = dst_mats
+        if emit == "btilde":
+            self.fxt, self.gxt = dst_mats
         if plain:
             self._star, self._bt = (predictor_star_plain,
                                     poisson_input_2d_plain)
             self._dot, self._corr = right_dot_plain, corrector_2d_plain
+            self._rhs = poisson_rhs_2d_plain
         else:
             self._star, self._bt = predictor_star_2d, poisson_input_2d
             self._dot, self._corr = right_dot, corrector_2d
+            self._rhs = poisson_rhs_2d
 
     def predictor_and_poisson_input(self, u, v, w, p, dt, su, sv,
                                     rho_over_dt):
-        """pred_bt: (u*, v*, w*, b̃·FxT), each (1, ny, nx).  ``dt``, ``su``,
-        ``sv`` and ``rho_over_dt`` are 0-d tensors on the field's
-        device."""
+        """pred_bt: (u*, v*, w*, b̃·FxT), or (u*, v*, w*, rhs) with
+        ``emit="rhs"``; each (1, ny, nx).  ``dt``, ``su``, ``sv`` and
+        ``rho_over_dt`` are 0-d tensors on the field's device."""
         c = self.consts
         us, vs, ws = self._star(u, v, w, torch.stack([dt, su, sv]), c)
+        if self.emit == "rhs":
+            return us, vs, ws, self._rhs(us, vs, rho_over_dt, c)
         bt = self._bt(us, vs, p, rho_over_dt, c)
         return us, vs, ws, self._dot(bt, self.fxt)
 
     def corrector(self, us, vs, xhat, dt_over_rho):
         """corr: (u, v, p) from the y-line solve's x̂ (transform space);
-        p = x̂·GxT is the physical pressure with its mirror x-shells."""
+        p = x̂·GxT is the physical pressure with its mirror x-shells.  With
+        ``emit="rhs"`` the non-DST ``corr`` (`projection2d.py:252-270`):
+        ``xhat`` is the physical p, and (u, v) come back."""
+        if self.emit == "rhs":
+            return self._corr(us, vs, xhat, dt_over_rho, self.consts)
         p = self._dot(xhat, self.gxt)
         u, v = self._corr(us, vs, p, dt_over_rho, self.consts)
         return u, v, p

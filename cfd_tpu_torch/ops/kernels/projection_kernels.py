@@ -17,6 +17,13 @@ kernels become two chains of CUDA kernels that meet in device memory:
   :func:`corrector`.  Returns (u, v, w, p, max|u|², max p, max|p|), the
   maxima over planes 1..nz−2 (the step folds in the two z-shell planes).
 
+The CG step (``emit="rhs"``, nz ≥ 3) runs A1's rhs form,
+:func:`predictor_star` → :func:`poisson_rhs` ((ρ/dt)∇·u*, the same kernel
+as b̃ with its emit flag set), and A5's non-DST ``corr_all``
+(`projection_kernels.py:724-756`) →
+:meth:`ProjectionKernels.corrector_diag`, which is :func:`corrector` on a
+physical p.
+
 Every wrapper below launches its CUDA kernel on a CUDA tensor and runs its
 plain PyTorch version (``*_plain``) on a CPU tensor; its ``launches``
 attribute counts kernel launches.  The CUDA sources are in
@@ -162,11 +169,9 @@ def face_coeff(c: StencilConsts, dtype, device):
 
 def poisson_input_plain(us, vs, ws, p, rod, c: StencilConsts):
     """b̃ = face_coeff·p − (ρ/dt)∇·u* on the interior, zero shell."""
-    i2x, i2y, i2z = c.inv_2dx, c.inv_2dy, c.inv_2dz
-    div = (ddx(us, i2x) + ddy(vs, i2y)) + ddz(ws, i2z)
     coeff = interior(face_coeff(c, p.dtype, p.device))
-    return set_interior(torch.zeros_like(p),
-                        coeff * interior(p) - rod * div)
+    return set_interior(torch.zeros_like(p), coeff * interior(p)
+                        - rod * divergence_star(us, vs, ws, c))
 
 
 def poisson_input(us, vs, ws, p, rod, c: StencilConsts):
@@ -176,9 +181,35 @@ def poisson_input(us, vs, ws, p, rod, c: StencilConsts):
     _check(c, (us, vs, ws, p), (rod,))
     bt = torch.empty_like(p)
     native.launch("cfd_poisson_input", p.device, *map(native.ptr, (
-        us, vs, ws, p, bt, rod)), c.nz, c.ny, c.nx, *c.derivs())
+        us, vs, ws, p, bt, rod)), c.nz, c.ny, c.nx, *c.derivs(), 0)
     poisson_input.launches += 1
     return bt
+
+
+# ---- A1 (b), emit="rhs": the iterative solvers' right-hand side ----------
+
+def divergence_star(us, vs, ws, c: StencilConsts):
+    """∇·u* on the interior, in the kernels' order ((x + y) + z)."""
+    return (ddx(us, c.inv_2dx) + ddy(vs, c.inv_2dy)) + ddz(ws, c.inv_2dz)
+
+
+def poisson_rhs_plain(us, vs, ws, rod, c: StencilConsts):
+    """rhs = (ρ/dt)∇·u* on the interior, zero shell
+    (`projection_kernels.py:699-701`: no face term, no minus)."""
+    return set_interior(torch.zeros_like(us),
+                        rod * divergence_star(us, vs, ws, c))
+
+
+def poisson_rhs(us, vs, ws, rod, c: StencilConsts):
+    """rhs — ``poisson_input_kernel`` in its emit-rhs form on CUDA."""
+    if native.on_cpu(us):
+        return poisson_rhs_plain(us, vs, ws, rod, c)
+    _check(c, (us, vs, ws), (rod,))
+    rhs = torch.empty_like(us)
+    native.launch("cfd_poisson_input", us.device, *map(native.ptr, (
+        us, vs, ws, us, rhs, rod)), c.nz, c.ny, c.nx, *c.derivs(), 1)
+    poisson_rhs.launches += 1
+    return rhs
 
 
 # ---- A2 (e): corrector + diagnostics --------------------------------------
@@ -214,57 +245,81 @@ def corrector(us, vs, ws, p, s, c: StencilConsts):
 
 predictor_star.launches = 0
 poisson_input.launches = 0
+poisson_rhs.launches = 0
 corrector.launches = 0
 
 # every wrapper that launches a kernel on the main path, for counters
 WRAPPERS = (predictor_star, poisson_input, plane_dot, tdma_z_fwd,
             tdma_z_bwd, corrector)
+# ... and on the CG step's path (the CG kernels count in cg_kernels)
+WRAPPERS_RHS = (predictor_star, poisson_rhs, corrector)
 
 
 def reset_launch_counts() -> None:
-    for fn in WRAPPERS:
+    for fn in WRAPPERS + WRAPPERS_RHS:
         fn.launches = 0
 
 
 class ProjectionKernels:
     """The two mega kernels for one (uniform grid, dtype, device).
 
-    ``dst_mats`` = (FxT, Fy, GxT, Gy) and ``tdma_fwd`` = (mu plane, w)
-    from `solvers.poisson.spectral.make_dst_fused_pieces`.  The default
-    runs the wrappers (kernels on CUDA, plain versions on CPU).
+    ``emit="btilde"`` (the spectral step): ``dst_mats`` = (FxT, Fy, GxT,
+    Gy) and ``tdma_fwd`` = (mu plane, w) from
+    `solvers.poisson.spectral.make_dst_fused_pieces`; needs nz ≥ 4 (the
+    reverse march).  ``emit="rhs"`` (the iterative solvers, nz ≥ 3):
+    A1 emits the Poisson right-hand side and the corrector takes a
+    physical p (:meth:`corrector_diag`, the non-DST ``corr_all``).  The
+    default runs the wrappers (kernels on CUDA, plain versions on CPU).
     ``plain=True`` is a reference switch for checks on the card only: it
     runs the plain PyTorch versions on a CUDA device too, so
     ``chip_smoke.py`` can hold the kernels against them and time both.
     """
 
     def __init__(self, nz, ny, nx, dx, dy, dz, xmin, ymin, nu,
-                 dst_mats, tdma_fwd, with_sources=True, plain=False):
-        if nz < 4:
-            raise ValueError("the reverse-march corrector needs nz >= 4")
+                 dst_mats=None, tdma_fwd=None, with_sources=True,
+                 plain=False, emit="btilde"):
+        self.emit = emit
+        if emit == "btilde":
+            if nz < 4:
+                raise ValueError("the reverse-march corrector needs nz >= 4")
+            self.fxt, self.fy, self.gxt, self.gy = dst_mats
+            self.mu, self.w = tdma_fwd
+        elif emit != "rhs":
+            raise ValueError(f"emit must be 'btilde' or 'rhs', got {emit!r}")
         self.consts = StencilConsts(nz, ny, nx, dx, dy, dz, xmin, ymin,
                                     float(nu), bool(with_sources))
-        self.fxt, self.fy, self.gxt, self.gy = dst_mats
-        self.mu, self.w = tdma_fwd
         if plain:
             self._star, self._bt, self._dot = (
                 predictor_star_plain, poisson_input_plain, plane_dot_plain)
             self._fwd, self._bwd, self._corr = (
                 tdma_z_fwd_reference, tdma_z_bwd_reference, corrector_plain)
+            self._rhs = poisson_rhs_plain
         else:
             self._star, self._bt, self._dot = (
                 predictor_star, poisson_input, plane_dot)
             self._fwd, self._bwd, self._corr = (
                 tdma_z_fwd, tdma_z_bwd, corrector)
+            self._rhs = poisson_rhs
 
     def predictor_poisson_input(self, u, v, w, p, dt, su, sv, rho_over_dt):
-        """A1: (u*, v*, w*, d′, t).  ``dt``, ``su``, ``sv`` and
-        ``rho_over_dt`` are 0-d tensors on the field's device."""
+        """A1: (u*, v*, w*, d′, t), or (u*, v*, w*, rhs) with
+        ``emit="rhs"``.  ``dt``, ``su``, ``sv`` and ``rho_over_dt`` are 0-d
+        tensors on the field's device."""
         c = self.consts
         scal = torch.stack([dt, su, sv])
         us, vs, ws = self._star(u, v, w, scal, c)
+        if self.emit == "rhs":
+            return us, vs, ws, self._rhs(us, vs, ws, rho_over_dt, c)
         bt = self._bt(us, vs, ws, p, rho_over_dt, c)
         d, t = self._fwd(self._dot(bt, self.fxt, self.fy), self.mu, self.w)
         return us, vs, ws, d, t
+
+    def corrector_diag(self, us, vs, ws, p, dt_over_rho):
+        """A5 ``corr_all``, non-DST single-chip form
+        (`projection_kernels.py:724-756`): the corrector with the maxima
+        on a physical p — (u, v, w, max|u|², max p, max|p|), maxima over
+        planes 1..nz−2."""
+        return self._corr(us, vs, ws, p, dt_over_rho, self.consts)
 
     def corrector_bwd_diag(self, us, vs, ws, d, t, dt_over_rho):
         """A2: (u, v, w, p, max|u|², max p, max|p|) from the predictor's

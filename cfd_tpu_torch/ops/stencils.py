@@ -40,8 +40,13 @@ def _zi(f: torch.Tensor) -> slice:
     return slice(None) if f.shape[0] == 1 else _I
 
 
+def interior_index(f: torch.Tensor):
+    """The index of the interior block, for assignment."""
+    return _zi(f), _I, _I
+
+
 def interior(f: torch.Tensor) -> torch.Tensor:
-    return f[_zi(f), _I, _I]
+    return f[interior_index(f)]
 
 
 def ddx(f, inv_2dx):

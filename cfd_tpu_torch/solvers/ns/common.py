@@ -70,19 +70,28 @@ def field_status_and_diagnostics(field: FlowField):
     return finite, torch.sqrt(m2), pmax, tmax
 
 
-def step_result(finite, vmax, pmax, tmax) -> StepResult:
-    """StepResult of a one-pass step: one iteration, status 0, or −6
-    (DIVERGED) when a field is not finite; residual 0."""
+def step_result(finite, vmax, pmax, tmax, residual=None,
+                poisson_ok=None) -> StepResult:
+    """StepResult of one step: one iteration; status 0, −6 (DIVERGED)
+    when a field is not finite, else −7 (MAX_ITER) when the pressure solve
+    did not converge (``poisson_ok`` False, `projection.py:651-653`);
+    ``residual`` the solve's final residual (0 for a direct solve or a
+    one-pass step)."""
     dev = vmax.device
-    status = torch.where(
-        finite, torch.zeros((), dtype=torch.int32, device=dev),
-        torch.full((), int(Status.ERROR_DIVERGED), dtype=torch.int32,
-                   device=dev))
+
+    def code(s):
+        return torch.full((), int(s), dtype=torch.int32, device=dev)
+
+    ok = code(Status.SUCCESS)
+    if poisson_ok is not None:
+        ok = torch.where(poisson_ok, ok, code(Status.ERROR_MAX_ITER))
+    status = torch.where(finite, ok, code(Status.ERROR_DIVERGED))
+    if residual is None:
+        residual = torch.zeros((), dtype=vmax.dtype, device=dev)
     return StepResult(
         iterations=torch.ones((), dtype=torch.int32, device=dev),
-        status=status, residual=torch.zeros((), dtype=vmax.dtype,
-                                            device=dev),
-        max_velocity=vmax, max_pressure=pmax, max_temperature=tmax)
+        status=status, residual=residual, max_velocity=vmax,
+        max_pressure=pmax, max_temperature=tmax)
 
 
 def source_basis(grid: Grid, dtype, device):

@@ -1,7 +1,10 @@
 """Chorin projection step (counterpart of `cfd_tpu/solvers/ns/projection.py`,
-the DST-fused single-device branches: 3D `:544-657`, 2D `:659-717`).
+the fused single-device branches: 3D `:544-657`, 2D `:659-717`).
 
-A 3D step is the reference's two-kernel spectral projection:
+The pressure solve is the reference's default CG (`solver_projection.c:
+217-218`) or the exact spectral solve (``Method.FFT_DIRECT``).
+
+A 3D spectral step is the reference's two-kernel spectral projection:
 
 * A1 (`ProjectionKernels.predictor_poisson_input`): predictor
   u* = clamp(u + dt(−u·∇u + ν∇²u + f)) with caller shells passed through,
@@ -14,16 +17,26 @@ A 3D step is the reference's two-kernel spectral projection:
 then two z-shell face maxima complete max|u|², max p and max|p| exactly
 as `field_status_and_diagnostics` would over the whole field.
 
-A 2D step (nz == 1) is the reference's DST-fused 2D form on every grid:
-`Projection2DKernels.predictor_and_poisson_input` (predictor and b̃·FxT),
-the y-line solve of `make_dst2d_fused_pieces` (Thomas + dense low-mode
-rescue), `Projection2DKernels.corrector` (p = x̂·GxT, corrector); w = w*,
-and the diagnostics come from `field_status_and_diagnostics` over the new
-field, as the reference's 2D step does.
+A 3D CG step (`:600-621`, nz ≥ 3) is the predictor, A1's rhs form
+(ρ/dt)∇·u*, the CG solve on the fused passes warm-started from p
+(`poisson.krylov.make_cg_fused`), the corrector with its maxima on the
+physical p (`ProjectionKernels.corrector_diag`) and the same face fold.
 
-ρ is taken from the first grid point, floored at 1e-10 → 1.0.  The step
-never reads a device value on the host: dt, the decayed source
-amplitudes, ρ and every diagnostic stay 0-d device tensors.
+A 2D step (nz == 1) is the reference's fused 2D form on every grid.
+Spectral: `Projection2DKernels.predictor_and_poisson_input` (predictor
+and b̃·FxT), the y-line solve of `make_dst2d_fused_pieces` (Thomas + dense
+low-mode rescue), `Projection2DKernels.corrector` (p = x̂·GxT,
+corrector).  CG (`:693-698`): predictor and rhs, the whole-solve CG
+kernel (`poisson.krylov.make_cg_vmem`), the corrector on the physical p.
+In both, w = w* and the diagnostics come from
+`field_status_and_diagnostics` over the new field.
+
+ρ is taken from the first grid point, floored at 1e-10 → 1.0.  dt, the
+decayed source amplitudes, ρ and every diagnostic stay 0-d device
+tensors; a step reports −7 (MAX_ITER) when its CG solve did not converge,
+with the solve's final residual.  The spectral step never reads a device
+value on the host; the CG step's 3D solve reads its running flag once
+per chunk of iterations (`poisson.krylov`), its 2D solve nothing.
 
 Anything outside this slice raises ``CFDError(ERROR_UNSUPPORTED)``; each
 exclusion is a later slice in ROADMAP.md.
@@ -39,7 +52,8 @@ from ...core.grid import Grid
 from ...core.status import CFDError, Status
 from ...ops.kernels.projection2d import Projection2DKernels
 from ...ops.kernels.projection_kernels import ProjectionKernels
-from ..poisson.base import Method, PoissonProblem
+from ..poisson.base import Method, PoissonParams, PoissonProblem
+from ..poisson.krylov import make_cg_fused, make_cg_vmem
 from ..poisson.spectral import make_dst2d_fused_pieces, make_dst_fused_pieces
 from .common import (field_status_and_diagnostics, step_result,
                      validate_grid_for_solver)
@@ -54,10 +68,11 @@ def _unsupported(what: str):
 def _check_slice(grid: Grid, params: NSParams, poisson_method,
                  spectral_precision, differentiable, bc_refresh,
                  dtype, device):
-    if Method(poisson_method) != Method.FFT_DIRECT:
-        _unsupported(f"poisson_method {Method(poisson_method).name}")
-    if 1 < grid.nz < 4:
-        _unsupported("nz < 4 (the three-pass form)")
+    method = Method(poisson_method)
+    if method not in (Method.FFT_DIRECT, Method.CG):
+        _unsupported(f"poisson_method {method.name}")
+    if method == Method.FFT_DIRECT and 1 < grid.nz < 4:
+        _unsupported("nz < 4 with FFT_DIRECT (the three-pass form)")
     if not grid.is_uniform():
         _unsupported("a stretched grid")
     if params.nonuniform_scheme == "consistent":
@@ -72,7 +87,8 @@ def _check_slice(grid: Grid, params: NSParams, poisson_method,
         _unsupported("bc_refresh")
     if differentiable:
         _unsupported("the differentiable step")
-    if spectral_precision not in (None, "highest"):
+    if method == Method.FFT_DIRECT and spectral_precision not in (
+            None, "highest"):
         _unsupported(f"spectral_precision={spectral_precision!r} "
                      f"(only 'highest', IEEE fp32, is ported)")
     if device.type == "cuda" and dtype != torch.float32:
@@ -80,12 +96,18 @@ def _check_slice(grid: Grid, params: NSParams, poisson_method,
 
 
 def make_projection_step(grid: Grid, params: NSParams, dtype=None,
-                         poisson_method: Method = Method.FFT_DIRECT,
+                         poisson_method: Method = Method.CG,
+                         poisson_params: PoissonParams = None,
                          device=None, spectral_precision=None,
                          differentiable: bool = False, bc_refresh=None,
                          plain: bool = False):
     """Build ``step(field, dt, iter_idx) -> (field, StepResult)`` for a 3D
-    (nz ≥ 4) or 2D (nz == 1) uniform grid.
+    (nz ≥ 3; nz ≥ 4 with ``FFT_DIRECT``) or 2D (nz == 1) uniform grid.
+
+    ``poisson_method`` is ``Method.CG`` by default, as in the reference,
+    with ``poisson_params`` (default ``PoissonParams()``); ``FFT_DIRECT``
+    is the exact spectral solve.  ``spectral_precision`` applies to the
+    spectral solve only.
 
     On the card (the default, ``device=None``) the step launches the
     hand-written kernels; with ``device="cpu"`` the same wrappers run
@@ -121,6 +143,31 @@ def make_projection_step(grid: Grid, params: NSParams, dtype=None,
         rho0 = torch.where(rho0 < 1e-10, torch.ones_like(rho0), rho0)
         return dt, amp_u * decay, amp_v * decay, rho0
 
+    def folded_result(field, u, v, w, p, m2i, pmaxi, pabsi, **solve):
+        """The kernels' maxima cover planes 1..nz−2; fold in the
+        z-shells."""
+        def m2_face(k):
+            return torch.amax(u[k] ** 2 + v[k] ** 2 + w[k] ** 2)
+
+        faces = (0, -1)
+        m2 = torch.maximum(m2i, torch.maximum(*map(m2_face, faces)))
+        pmax = torch.maximum(pmaxi, torch.maximum(
+            *(torch.amax(p[k]) for k in faces)))
+        pabs = torch.maximum(pabsi, torch.maximum(
+            *(torch.amax(torch.abs(p[k])) for k in faces)))
+        finite = torch.isfinite(m2) & torch.isfinite(pabs)
+        return step_result(finite, torch.sqrt(m2), pmax,
+                           torch.amax(field.T), **solve)
+
+    if Method(poisson_method) == Method.CG:
+        pparams = poisson_params or PoissonParams()
+        if grid.nz == 1:
+            return _make_cg_step_2d(grid, params, problem, pparams, dtype,
+                                    device, plain, with_sources, scalars)
+        return _make_cg_step_3d(grid, params, problem, pparams, dtype,
+                                device, plain, with_sources, scalars,
+                                folded_result)
+
     if grid.nz == 1:
         fxt, gxt, ysolve = make_dst2d_fused_pieces(problem, dtype, device,
                                                    plain=plain)
@@ -152,20 +199,60 @@ def make_projection_step(grid: Grid, params: NSParams, dtype=None,
             field.u, field.v, field.w, field.p, dt, su, sv, rho0 / dt)
         u, v, w, p, m2i, pmaxi, pabsi = pk.corrector_bwd_diag(
             us, vs, ws, d, t, dt / rho0)
-        new_field = field.replace(u=u, v=v, w=w, p=p)
+        return (field.replace(u=u, v=v, w=w, p=p),
+                folded_result(field, u, v, w, p, m2i, pmaxi, pabsi))
 
-        # the kernels' maxima cover planes 1..nz−2; fold in the z-shells
-        def m2_face(k):
-            return torch.amax(u[k] ** 2 + v[k] ** 2 + w[k] ** 2)
+    return step
 
-        faces = (0, -1)
-        m2 = torch.maximum(m2i, torch.maximum(*map(m2_face, faces)))
-        pmax = torch.maximum(pmaxi, torch.maximum(
-            *(torch.amax(p[k]) for k in faces)))
-        pabs = torch.maximum(pabsi, torch.maximum(
-            *(torch.amax(torch.abs(p[k])) for k in faces)))
-        finite = torch.isfinite(m2) & torch.isfinite(pabs)
-        return new_field, step_result(finite, torch.sqrt(m2), pmax,
-                                  torch.amax(field.T))
 
+def _make_cg_step_3d(grid, params, problem, pparams, dtype, device, plain,
+                     with_sources, scalars, folded_result):
+    """Predictor → rhs → CG warm-started from p → corrector with maxima →
+    z-shell face fold (`projection.py:600-621`).  ``step.poisson_solve``
+    is the solve; ``step.last_poisson`` holds the last step's
+    PoissonResult (0-d device tensors: iterations, residuals, status)."""
+    pk = ProjectionKernels(
+        grid.nz, grid.ny, grid.nx, grid.dx0, grid.dy0, grid.dz0,
+        grid.xmin, grid.ymin, params.mu, with_sources=with_sources,
+        plain=plain, emit="rhs")
+    solve = make_cg_fused(problem, pparams, dtype, device, plain=plain)
+
+    def step(field: FlowField, dt, iter_idx):
+        dt, su, sv, rho0 = scalars(field, dt, iter_idx)
+        us, vs, ws, rhs = pk.predictor_poisson_input(
+            field.u, field.v, field.w, field.p, dt, su, sv, rho0 / dt)
+        pres = step.last_poisson = solve(field.p, rhs)
+        u, v, w, m2i, pmaxi, pabsi = pk.corrector_diag(us, vs, ws, pres.x,
+                                                       dt / rho0)
+        return (field.replace(u=u, v=v, w=w, p=pres.x),
+                folded_result(field, u, v, w, pres.x, m2i, pmaxi, pabsi,
+                              residual=pres.final_residual,
+                              poisson_ok=pres.status == 0))
+
+    step.poisson_solve, step.last_poisson = solve, None
+    return step
+
+
+def _make_cg_step_2d(grid, params, problem, pparams, dtype, device, plain,
+                     with_sources, scalars):
+    """Predictor → rhs → whole-solve CG → corrector, w = w*
+    (`projection.py:693-698`); ``poisson_solve`` and ``last_poisson`` as
+    in 3D."""
+    pk2 = Projection2DKernels(
+        grid.ny, grid.nx, grid.dx0, grid.dy0, grid.xmin, grid.ymin,
+        params.mu, with_sources=with_sources, plain=plain, emit="rhs")
+    solve = make_cg_vmem(problem, pparams, dtype, device, plain=plain)
+
+    def step(field: FlowField, dt, iter_idx):
+        dt, su, sv, rho0 = scalars(field, dt, iter_idx)
+        us, vs, ws, rhs = pk2.predictor_and_poisson_input(
+            field.u, field.v, field.w, field.p, dt, su, sv, rho0 / dt)
+        pres = step.last_poisson = solve(field.p, rhs)
+        u, v = pk2.corrector(us, vs, pres.x, dt / rho0)
+        new_field = field.replace(u=u, v=v, w=ws, p=pres.x)
+        return new_field, step_result(
+            *field_status_and_diagnostics(new_field),
+            residual=pres.final_residual, poisson_ok=pres.status == 0)
+
+    step.poisson_solve, step.last_poisson = solve, None
     return step

@@ -5,9 +5,10 @@ One class whose ``init`` builds the step and solve closures for a
 (grid, params) pair on the solver's ``device`` (the card unless set), with
 the reference's lifecycle (create → init → step/solve) and stats.
 Methods: ``explicit_euler``, ``rk2``, ``rk4`` and ``projection``; the
-projection accepts only the spectral direct solve (``FFT_DIRECT``), and
-anything else raises ``CFDError(ERROR_UNSUPPORTED)`` at ``init``.  There
-is no ``mesh``: sharding is a later slice.
+projection's pressure solve is CG (the default, with ``poisson_params``)
+or the spectral direct solve (``FFT_DIRECT``), and any other method raises
+``CFDError(ERROR_UNSUPPORTED)`` at ``init``.  There is no ``mesh``:
+sharding is a later slice.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ from ...core.field import FlowField
 from ...core.grid import Grid
 from ...core.status import CFDError, Status
 from ..poisson.base import Method as PoissonMethod
+from ..poisson.base import PoissonParams
 from .common import compute_dt as _compute_dt
 from .common import iterate_with_divergence_guard
 from .euler import make_euler_step
@@ -72,6 +74,7 @@ class NSSolver:
                                 | Capability.TRANSIENT | Capability.SIMD
                                 | Capability.PARALLEL)
     poisson_method: PoissonMethod = PoissonMethod.CG
+    poisson_params: Optional[PoissonParams] = None
     spectral_precision: Optional[object] = None
     device: Optional[object] = None
     dtype: Optional[torch.dtype] = None
@@ -86,15 +89,16 @@ class NSSolver:
         """Build the step/solve closures (mirrors solver_init); raises
         ``CFDError`` outside the ported slice."""
         if self.method == "projection":
-            if PoissonMethod(self.poisson_method) != PoissonMethod.FFT_DIRECT:
+            method = PoissonMethod(self.poisson_method)
+            if method not in (PoissonMethod.CG, PoissonMethod.FFT_DIRECT):
                 raise CFDError(
                     Status.ERROR_UNSUPPORTED,
-                    f"solver '{self.name}': the "
-                    f"{PoissonMethod(self.poisson_method).name} pressure "
+                    f"solver '{self.name}': the {method.name} pressure "
                     f"solve is not ported yet")
             step = make_projection_step(
                 grid, params, dtype=self.dtype,
-                poisson_method=self.poisson_method, device=self.device,
+                poisson_method=self.poisson_method,
+                poisson_params=self.poisson_params, device=self.device,
                 spectral_precision=self.spectral_precision)
         else:
             step = _STEP_BUILDERS[self.method](grid, params, self.dtype,

@@ -32,6 +32,26 @@ and v on the centerlines below 0.10).  Then the explicit integrators:
 * phase 11: ``Simulation.create(100, 50)`` with the default solver for
   2000 ``step()``s on the card, against the same steps on the plain path.
 
+Then the CG pressure solve, the reference's default projection solver:
+
+* phase 12: the fused CG passes (``lap_dot``, ``cg_update``), A1's rhs
+  form and the non-DST corrector against their plain versions at
+  37×23×11 and 512³, the 2D rhs form at 37×23 and 100×50, and the
+  whole-solve CG kernel (``cg_solve``) against ``make_cg`` at 100×100
+  (plain and Jacobi) and 512²;
+* phase 13: ``bench.py``'s ``cg_512`` solve (512³, tol 1e-6,
+  ``check_interval`` 10) on the kernel path, timed, with its iteration
+  count, host syncs and float64 true residual, and 20 fixed iterations
+  against the plain path;
+* phase 14: the 3D CG projection step at 256³ (``bench.py:run_3d``'s
+  parameters), 3 warm-up and 3 timed steps on both paths;
+* phase 15: ``Simulation.create(100, 50, solver_type="projection")`` for
+  2000 ``step()``s, the whole-solve kernel once a step, the first 10
+  held against the plain path (the facade's dt = 0.005 is past the
+  viscous limit there, so the clamps are reached near step 40);
+* phase 16: Ghia Re = 100 at 128² with the CG pressure solve (20000
+  steps, about 45 s on an H100).
+
 It checks status, finiteness, launch counters (set to 0 just before each
 main path and read just after) and kernel-vs-plain agreement; any
 failure exits non-zero.  The line before the last is a JSON object
@@ -85,10 +105,26 @@ E3 = "cfd_tpu/ops/pallas/euler_kernels.py:67"         # make_euler_fused
 E2 = "cfd_tpu/ops/pallas/euler2d.py:46"               # make_euler2d_fused
 RK3 = "cfd_tpu/ops/pallas/rk_kernels.py:61"           # make_rk_stage
 RK2 = "cfd_tpu/ops/pallas/rk2d.py:56"                 # make_rk2d_stage
+SRC_CG = "cfd_tpu_torch/csrc/cg_kernels.cu"
+LAP_DOT = "cfd_tpu/ops/pallas/cg_kernels.py:75"       # make_lap_dot_rolling
+CG_UPD = "cfd_tpu/ops/pallas/cg_kernels.py:360"       # make_cg_update
+CG_VMEM = "cfd_tpu/ops/pallas/vmem_small.py:243"      # make_cg_vmem_solve
+A1_RHS = "cfd_tpu/ops/pallas/projection_kernels.py:699"   # emit="rhs"
+A5_CORR = "cfd_tpu/ops/pallas/projection_kernels.py:724"  # corr_all
+P2_RHS = "cfd_tpu/ops/pallas/projection2d.py:196"     # emit="rhs"
 GHIA = Path(__file__).resolve().parent / "tests/validation/ghia_data.py"
 N_EXPL = 256           # bench.py:run_euler_3d / run_rk_3d, 256³
 EXPL_DT = 1e-5         # bench.py's explicit configurations
 FACADE_STEPS = 2000
+N_CG = 256             # the CG projection step, bench.py:run_3d's parameters
+CG_512_ITERS = 1221    # the reference's cg_512 record (BENCH_r05.json:44-47)
+CG_STEPS = 3           # CG step: 3 warm-up and 3 timed steps a path
+# Simulation.step's fixed dt = 0.005 puts the 100×50 projection past the
+# explicit viscous limit (2ν·dt·(1/dx² + 1/dy²) = 1.22 > 1): a grid-scale
+# mode grows ~1.44× a step and meets the ±100 clamps near step 40, in the
+# reference's float64 step too, so kernel and plain are held against each
+# other after 10 steps, before the growth amplifies their rounding.
+FACADE_CHECK = 10
 
 # The card's peaks for a kernel's bound (H100 SXM data sheet, at 700 W):
 # device memory 3.35 TB/s, float32 outside the tensor cores 67 TFLOP/s.
@@ -99,7 +135,11 @@ FP32_FLOPS = 67e12
 # (adds, multiplies, divides and compares of one point's update)
 FLOPS_PER_POINT = {"predictor_star": 90, "poisson_input": 12,
                    "corrector": 20, "tdma_fwd": 7, "tdma_bwd": 2,
-                   "euler": 130, "rk_stage": 150}
+                   "euler": 130, "rk_stage": 150, "poisson_rhs": 8,
+                   "lap_dot": 18, "cg_update": 6,
+                   # one whole-solve CG iteration: Ap, ⟨p,Ap⟩, the two
+                   # α-updates, ⟨r,r⟩ and the p update
+                   "cg_iter": 24}
 
 # Tolerances, kernel against plain version on identical inputs, float32:
 #  * fields (u*, v*, w*, u, v, w): atol 2e-5, the reference's own
@@ -120,6 +160,15 @@ TOL_FIELD = 2e-5
 TOL_EXACT = 1e-6
 TOL_GEMM = 2e-5
 TOL_DIAG = 1e-6
+# The CG kernels: fields in the plain versions' operation order
+# (TOL_EXACT); the dots fold their partials in another order than
+# torch.sum, 1e-5 relative; the whole solves (K3, the CG step) are held
+# at the reference's own bars — ±2 iterations and x within 1e-5·max|x|
+# (tests/math/test_vmem_small.py:105-120), u, v, w within atol 1e-4
+# (:198-199) and p within rtol 1e-3 / atol 1e-4·max|p|
+# (tests/math/test_pallas_kernels.py:118-120).
+TOL_DOT = 1e-5
+TOL_CG_UVW = 1e-4
 
 
 PROFILED_STEPS = 3
@@ -184,6 +233,7 @@ def main() -> int:
                                         apply_dirichlet_scalar,
                                         apply_neumann_scalar)
     from cfd_tpu_torch.entry import entry
+    from cfd_tpu_torch.ops.kernels import cg_kernels as cgk
     from cfd_tpu_torch.ops.kernels import euler2d as e2m
     from cfd_tpu_torch.ops.kernels import euler_kernels as ekm
     from cfd_tpu_torch.ops.kernels import native
@@ -191,7 +241,7 @@ def main() -> int:
     from cfd_tpu_torch.ops.kernels import projection_kernels as pkm
     from cfd_tpu_torch.ops.kernels import rk2d as rk2m
     from cfd_tpu_torch.ops.kernels import rk_kernels as rkm
-    from cfd_tpu_torch.ops.kernels import rolling, tdma
+    from cfd_tpu_torch.ops.kernels import rolling, tdma, vmem_small
     from cfd_tpu_torch.solvers.ns.common import (field_status_and_diagnostics,
                                                  source_basis)
     from cfd_tpu_torch.solvers.ns.euler import make_euler_step
@@ -199,7 +249,10 @@ def main() -> int:
     from cfd_tpu_torch.solvers.ns.projection import make_projection_step
     from cfd_tpu_torch.solvers.ns.rk import make_rk2_step, make_rk4_step
     from cfd_tpu_torch.solvers.ns.rollout import run_steps
-    from cfd_tpu_torch.solvers.poisson.base import Method, PoissonProblem
+    from cfd_tpu_torch.solvers.poisson import krylov
+    from cfd_tpu_torch.solvers.poisson.base import (Method, PoissonParams,
+                                                    PoissonProblem,
+                                                    PoissonStatus, Precond)
     from cfd_tpu_torch.solvers.poisson.spectral import (
         make_dst2d_fused_pieces, make_dst_fused_pieces)
 
@@ -276,7 +329,7 @@ def main() -> int:
             (t_ops, "operations")
 
     def check(path, tag, timed, wrapper, replaces, source, kernel, plain,
-              outs, tols, work=None, library=None):
+              outs, tols, work=None, library=None, time_fn=None):
         """Run ``kernel`` (the wrapper) and ``plain`` on the same inputs,
         compare each output; time both when ``timed``.  ``path`` names the
         main path whose launch count the record takes (the Thomas and
@@ -284,7 +337,8 @@ def main() -> int:
         flops) gives the bound, with every input read once and every
         output written once; ``library`` is one PyTorch call computing the
         same function, timed beside the kernel (the port never calls
-        it)."""
+        it); ``time_fn``, when given, is what is timed for the kernel (the
+        launch as the main path makes it)."""
         name = wrapper.__name__
         got = kernel()
         ref = plain()
@@ -299,7 +353,7 @@ def main() -> int:
             rec["max_abs_err"] = max(rec["max_abs_err"], err)
             rec["max_rel_err"] = max(rec["max_rel_err"], rel)
         if timed:
-            rec["ms"] = cuda_ms(kernel)
+            rec["ms"] = cuda_ms(time_fn or kernel)
             rec["plain_ms"] = cuda_ms(plain)
             rec["library_ms"] = None if library is None else \
                 cuda_ms(library)
@@ -715,16 +769,17 @@ def main() -> int:
     ghia = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(ghia)           # numpy only
 
-    def ghia_gate(label, nc, re, dt, steps, bar):
+    def ghia_gate(label, nc, re, dt, steps, bar, method=Method.FFT_DIRECT):
         """bench.py:615-702 on the kernel path: quiescent start, p = 0;
         each step first applies the lid (u = 1 on top), no-slip v and a
-        Neumann p, then one projection step.  Status must be 0 on every
-        step (folded on the device, read once)."""
+        Neumann p, then one projection step with the ``method`` pressure
+        solve.  Status must be 0 on every step (folded on the device,
+        read once)."""
         gridc = Grid.uniform(nc, nc)
         stepc = make_projection_step(
             gridc, NSParams(source_amplitude_u=0.0, source_amplitude_v=0.0,
                             mu=1.0 / re),
-            torch.float32, Method.FFT_DIRECT, device=dev)
+            torch.float32, method, device=dev)
         lid, wall = DirichletValues(top=1.0), DirichletValues()
         fc = FlowField.quiescent(nc, nc, pressure=0.0, dtype=torch.float32,
                                  device=dev)
@@ -751,7 +806,8 @@ def main() -> int:
                                        ghia.U_TABLES[re])
         rms_v = ghia.profile_rms_error(gridc.x, v_prof, ghia.X_COORDS,
                                        ghia.V_TABLES[re])
-        print(f"{label} Ghia Re={re} {nc}^2 dt={dt} {steps} steps: "
+        print(f"{label} Ghia Re={re} {nc}^2 dt={dt} {Method(method).name} "
+              f"{steps} steps: "
               f"rms_u {rms_u:.5f} rms_v {rms_v:.5f} (bar {bar}), worst "
               f"status {int(worst)}, {ms_step:.4f} ms/step host wall",
               flush=True)
@@ -958,6 +1014,320 @@ def main() -> int:
                 getattr(sim.field, name), getattr(fp, name), TOL_EXACT,
                 True)
 
+    # ---- phase 12: the CG kernels against their plain versions ------------
+    dot = (TOL_DOT, True)
+
+    def cg_problem(shape):
+        nz, ny, nx = shape
+        grid = uniform_grid(shape)
+        return grid, PoissonProblem(nx, ny, nz, grid.dx0, grid.dy0,
+                                    grid.dz0)
+
+    for shape in ((11, 23, 37), (N_BIG,) * 3):
+        big = shape[0] == N_BIG
+        tag = "x".join(map(str, shape[::-1]))
+        print(f"phase 12 CG kernels vs plain at {tag}", flush=True)
+        grid, prob = cg_problem(shape)
+        c = cgk.CGConsts(*shape, prob.inv_dx2, prob.inv_dy2, prob.inv_dz2)
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        r, p, x = (torch.randn(shape, generator=gen, device=dev)
+                   for _ in range(3))
+        beta = torch.full((), 0.37, device=dev)
+        alpha = torch.full((), 0.61, device=dev)
+        cells = r.numel()
+        # timed as the solve launches them: in place on the solver's
+        # buffers, scalars in a running state that never stops
+        passes = cgk.CGPasses(c, dev)
+        one = torch.ones((), device=dev)
+        st = cgk.new_state(one, one, 0 * one, 0 * one, one > 0)
+        st[cgk.BETA], st[cgk.ALPHA] = beta, alpha
+        pn_t, ap_t = torch.empty_like(r), torch.empty_like(r)
+        pn, ap, _ = check(
+            "cg3d", tag, big, cgk.lap_dot, LAP_DOT, SRC_CG,
+            lambda: cgk.lap_dot(r, p, beta, c),
+            lambda: cgk.lap_dot_plain(r, p, beta, c),
+            ("p'", "Ap'", "<p',Ap'>"), (exact, exact, dot),
+            work=((r, p), FLOPS_PER_POINT["lap_dot"] * cells),
+            time_fn=lambda: passes.lap_dot(r, p, pn_t, ap_t, st))
+        x_t, r_t = x.clone(), r.clone()
+        check("cg3d", tag, big, cgk.cg_update, CG_UPD, SRC_CG,
+              lambda: cgk.cg_update(x, r, pn, ap, alpha, c),
+              lambda: cgk.cg_update_plain(x, r, pn, ap, alpha, c),
+              ("x'", "r'", "<r',r'>"), (exact, exact, dot),
+              work=((x, r, pn, ap), FLOPS_PER_POINT["cg_update"] * cells),
+              time_fn=lambda: passes.update(x_t, r_t, pn, ap, st))
+        del pn, ap, pn_t, ap_t, x_t, r_t
+        # A1's rhs form and the non-DST corr_all on the CG step's path
+        sc = pkm.StencilConsts(*shape, grid.dx0, grid.dy0, grid.dz0,
+                               grid.xmin, grid.ymin, 0.01, False)
+        rod, s = torch.full((), 1e4, device=dev), torch.full((), 1e-4,
+                                                               device=dev)
+        check("cg3d", tag, big, pkm.poisson_rhs, A1_RHS, SRC,
+              lambda: pkm.poisson_rhs(r, p, x, rod, sc),
+              lambda: pkm.poisson_rhs_plain(r, p, x, rod, sc),
+              ("rhs",), (exact,),
+              work=((r, p, x), FLOPS_PER_POINT["poisson_rhs"] * cells))
+        check("cg3d", tag, big, pkm.corrector, A5_CORR, SRC,
+              lambda: pkm.corrector(r, p, x, r, s, sc),
+              lambda: pkm.corrector_plain(r, p, x, r, s, sc),
+              ("u", "v", "w", "max|u|^2", "max p", "max|p|"),
+              (fld,) * 3 + ((TOL_DIAG, True),) * 3,
+              work=((r, p, x, r), FLOPS_PER_POINT["corrector"] * cells))
+        del r, p, x
+        torch.cuda.empty_cache()
+
+    for shape in ((1, 23, 37), (1, 50, 100)):
+        tag = f"{shape[2]}x{shape[1]}"
+        grid, _ = cg_problem(shape)
+        sc = pkm.StencilConsts(*shape, grid.dx0, grid.dy0, 0.0, grid.xmin,
+                               grid.ymin, 0.01, False)
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        us, vs = (torch.randn(shape, generator=gen, device=dev)
+                  for _ in range(2))
+        rod = torch.full((), 200.0, device=dev)
+        check("cg2d", tag, shape[2] == 100, pk2m.poisson_rhs_2d, P2_RHS,
+              SRC_2D, lambda: pk2m.poisson_rhs_2d(us, vs, rod, sc),
+              lambda: pk2m.poisson_rhs_2d_plain(us, vs, rod, sc),
+              ("rhs",), (exact,),
+              work=((us, vs), FLOPS_PER_POINT["poisson_rhs"] * us.numel()))
+
+    # K3, the whole-solve CG, against make_cg (the reference's jnp loop
+    # as plain tensor code), random right-hand side from seed 0, tol 1e-5
+    def cg_results_agree(tag, got, ref):
+        it, it_ref = int(got.iterations), int(ref.iterations)
+        st, st_ref = int(got.status), int(ref.status)
+        print(f"  {tag}: iterations {it} vs {it_ref}, status {st} vs "
+              f"{st_ref}, residual {float(got.final_residual):.4e} vs "
+              f"{float(ref.final_residual):.4e}", flush=True)
+        if abs(it - it_ref) > 2 or st != st_ref:
+            fail(f"{tag}: iterations or status differ")
+        return compare(tag, "x", got.x, ref.x, TOL_DOT, True)
+
+    for shape, pc in (((1, 100, 100), Precond.NONE),
+                      ((1, 100, 100), Precond.JACOBI),
+                      ((1, 512, 512), Precond.NONE)):
+        big = shape[1] == 512
+        tag = f"{shape[2]}x{shape[1]} {pc.name}"
+        print(f"phase 12 cg_solve (K3) vs make_cg at {tag}", flush=True)
+        _, prob = cg_problem(shape)
+        pp = PoissonParams(tolerance=1e-5, preconditioner=pc)
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        rhs = torch.randn(shape, generator=gen, device=dev)
+        x0 = torch.zeros_like(rhs)
+        kern = krylov.make_cg_vmem(prob, pp, device=dev)
+        plain = krylov.make_cg_vmem(prob, pp, device=dev, plain=True)
+        got = kern(x0, rhs)
+        ref = krylov.make_cg(prob, pp)(x0, rhs)
+        err, rel = cg_results_agree(f"{tag} cg_solve", got, ref)
+        rec = records.setdefault(("cg2d", "cg_solve"), {
+            "replaces": CG_VMEM, "source": SRC_CG, "max_abs_err": 0.0,
+            "max_rel_err": 0.0})
+        rec["max_abs_err"] = max(rec["max_abs_err"], err)
+        rec["max_rel_err"] = max(rec["max_rel_err"], rel)
+        ms_k = cuda_ms(lambda: kern(x0, rhs))
+        n_it = int(got.iterations)
+        print(f"  {tag} cg_solve: {ms_k:.3f} ms a solve, "
+              f"{ms_k / max(n_it, 1) * 1e3:.2f} us an iteration, "
+              f"{3 * n_it + 2} grid barriers", flush=True)
+        if big:
+            interior = (shape[1] - 2) * (shape[2] - 2)
+            rec["ms"], rec["plain_ms"] = ms_k, cuda_ms(lambda: plain(x0,
+                                                                     rhs))
+            rec["library_ms"] = None
+            rec["bound_ms"], rec["bound_by"] = bound(
+                nbytes((x0, rhs, got.x)),
+                n_it * FLOPS_PER_POINT["cg_iter"] * interior)
+            # its passes move 11 fields an iteration (Ap: p in, Ap out;
+            # updates: x, r, p, Ap in, x, r out; p: r, p in, p out)
+            pass_gb = 11 * n_it * 4 * shape[1] * shape[2] / 1e9
+            print(f"  {tag} cg_solve: plain {rec['plain_ms']:.3f} ms, "
+                  f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}); "
+                  f"its passes move {pass_gb:.3f} GB (L2-resident)",
+                  flush=True)
+
+    # ---- phase 13: the 512³ CG Poisson solve (bench.py's cg_512) -------
+    n = N_BIG
+    _, prob = cg_problem((n, n, n))
+    pp = PoissonParams(tolerance=1e-6, max_iterations=2000,
+                       check_interval=10)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    rhs = prob.zero_boundary(torch.randn((n, n, n), generator=gen,
+                                         device=dev))
+    x0 = torch.zeros_like(rhs)
+    solve = krylov.make_cg_fused(prob, pp, device=dev)
+    solve(x0, rhs)                              # warm-up, same pattern
+    sync()
+    cgk.lap_dot.launches = cgk.cg_update.launches = 0
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    res = solve(x0, rhs)
+    end.record()
+    sync()
+    ms_solve = start.elapsed_time(end)
+    n_it, syncs = int(res.iterations), solve.host_syncs
+    # the true residual of the system the loop solved (its shell is the
+    # start's, zero), in float64
+    xd, rd = prob.zero_boundary(res.x.double()), rhs.double()
+    true_rel = float(prob.interior(prob.laplacian(xd) - rd).norm()
+                     / prob.interior(rd).norm())
+    del xd, rd
+    print(f"phase 13 cg_512 (512^3, tol 1e-6, check_interval 10): "
+          f"{n_it} iterations, status {int(res.status)}, {ms_solve:.1f} ms "
+          f"a solve, {ms_solve / n_it:.4f} ms an iteration, {syncs} host "
+          f"syncs (bar {-(-n_it // krylov.CHUNK) + 2}), recursion residual "
+          f"{float(res.final_residual):.4e} of {float(res.initial_residual):.4e}"
+          f", true relative residual {true_rel:.4e}; lap_dot "
+          f"{cgk.lap_dot.launches} and cg_update {cgk.cg_update.launches} "
+          f"launches", flush=True)
+    if int(res.status) != PoissonStatus.CONVERGED or not true_rel <= 1e-3:
+        fail("cg_512: not converged, or true residual above 1e-3")
+    if abs(n_it - CG_512_ITERS) > 0.1 * CG_512_ITERS:
+        fail(f"cg_512: {n_it} iterations, outside {CG_512_ITERS} ± 10%")
+    if syncs > -(-n_it // krylov.CHUNK) + 2:
+        fail("cg_512: more host syncs than one a chunk")
+    # a fixed budget of 20 iterations, kernel path against plain path
+    pp20 = PoissonParams(tolerance=0.0, max_iterations=20,
+                         check_interval=10)
+    fixed = {}
+    for path in ("kernel", "plain"):
+        fs = krylov.make_cg_fused(prob, pp20, device=dev,
+                                  plain=path == "plain")
+        fixed[path] = fs(x0, rhs)
+        fixed[path + "_ms"] = cuda_ms(lambda: fs(x0, rhs), reps=1)
+    print(f"phase 13 cg_512, 20 iterations: kernel "
+          f"{fixed['kernel_ms'] / 20:.4f} ms, plain "
+          f"{fixed['plain_ms'] / 20:.4f} ms an iteration", flush=True)
+    for name in ("iterations", "status"):
+        if int(getattr(fixed["kernel"], name)) != int(
+                getattr(fixed["plain"], name)):
+            fail(f"cg_512 20 iterations: {name} differs")
+    compare("cg_512 20 iterations", "x", fixed["kernel"].x,
+            fixed["plain"].x, TOL_DOT, True)
+    compare("cg_512 20 iterations", "residual",
+            fixed["kernel"].final_residual, fixed["plain"].final_residual,
+            TOL_DOT, True)
+    cg512 = {"iterations": n_it, "ms": ms_solve, "host_syncs": syncs,
+             "true_rel_residual": true_rel}
+    del rhs, x0, res, fixed, solve
+    torch.cuda.empty_cache()
+
+    # ---- phase 14: the 3D CG projection step at 256³ ---------------------
+    def close_p(tag, got, ref):
+        """p within rtol 1e-3 / atol 1e-4·max|p|."""
+        got, ref = got.double(), ref.double()
+        scale = float(ref.abs().max())
+        excess = float(((got - ref).abs() - 1e-3 * ref.abs()).max())
+        print(f"  {tag} p: max_abs={float((got - ref).abs().max()):.3e} "
+              f"excess over rtol 1e-3 {excess:.3e}, atol bar "
+              f"{1e-4 * scale:.3e}", flush=True)
+        if not excess <= 1e-4 * scale:
+            fail(f"{tag} p: beyond rtol 1e-3 / atol 1e-4·max|p|")
+
+    shape = (N_CG,) * 3
+    grid_cg = uniform_grid(shape)
+    params_cg = NSParams(source_amplitude_u=0.0, source_amplitude_v=0.0,
+                         mu=0.01)
+    finals, cg_ms = {}, {}
+    for path in ("kernel", "plain"):
+        stepf = make_projection_step(grid_cg, params_cg, torch.float32,
+                                     device=dev, plain=path == "plain")
+        f0 = tg_field(shape)
+        run_steps(stepf, f0, 1e-4, CG_STEPS)
+        sync()
+        if path == "kernel":
+            pkm.reset_launch_counts()
+            cgk.lap_dot.launches = cgk.cg_update.launches = 0
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        f, its, worst = f0, [], 0
+        for i in range(CG_STEPS):
+            f, r = stepf(f, 1e-4, i)
+            its.append(stepf.last_poisson.iterations)
+            worst = torch.maximum(torch.as_tensor(worst, device=dev),
+                                  r.status.abs())
+        end.record()
+        sync()
+        cg_ms[path] = start.elapsed_time(end) / CG_STEPS
+        its = [int(t) for t in its]
+        print(f"phase 14 CG step 256^3 {path} path: {cg_ms[path]:.3f} "
+              f"ms/step, {N_CG ** 3 / (cg_ms[path] * 1e-3) / 1e6:.1f} "
+              f"MLUPS, CG iterations a step {its}, "
+              f"{cg_ms[path] / (sum(its) / CG_STEPS):.4f} ms an iteration, "
+              f"host syncs of the last solve "
+              f"{stepf.poisson_solve.host_syncs}, worst status "
+              f"{int(worst)}, max|u| {float(r.max_velocity):.6f}",
+              flush=True)
+        if int(worst) != 0 or not bool(f.is_finite()):
+            fail(f"phase 14 {path} path: nonzero status or non-finite")
+        if path == "kernel":
+            counts = {fn.__name__: fn.launches for fn in
+                      pkm.WRAPPERS_RHS + cgk.WRAPPERS}
+            print(f"phase 14 launch counts over the main path: {counts}",
+                  flush=True)
+            if any(v <= 0 for v in counts.values()):
+                fail(f"phase 14: kernels not launched: {counts}")
+            launch_counts["cg3d"] = counts
+        finals[path] = f
+        del f0
+    for name in "uvw":
+        compare(f"phase 14 {CG_STEPS} steps", name,
+                getattr(finals["kernel"], name),
+                getattr(finals["plain"], name), TOL_CG_UVW, False)
+    close_p(f"phase 14 {CG_STEPS} steps", finals["kernel"].p,
+            finals["plain"].p)
+    del finals
+    torch.cuda.empty_cache()
+
+    # ---- phase 15: the facade with the reference's default projection ---
+    pk2m.reset_launch_counts()
+    vmem_small.cg_solve.launches = 0
+    sim = Simulation.create(100, 50, solver_type="projection", device=dev)
+    start_field, checked, clamped = sim.field, None, None
+    sync()
+    t0 = time.perf_counter()
+    for i in range(FACADE_STEPS):
+        status = sim.step()
+        if status != 0:
+            fail(f"phase 15 facade: step returned status {int(status)}")
+        if i + 1 == FACADE_CHECK:
+            checked = sim.field
+        if clamped is None and sim.get_stats().max_velocity >= 100.0:
+            clamped = i + 1
+    wall_cg = (time.perf_counter() - t0) * 1e3
+    n_launch = vmem_small.cg_solve.launches
+    stats = sim.get_stats()
+    print(f"phase 15 Simulation.create(100, 50, solver_type='projection'): "
+          f"{FACADE_STEPS} step()s in {wall_cg:.1f} ms host wall "
+          f"({wall_cg / FACADE_STEPS:.4f} ms a step, each waiting for the "
+          f"card), last CG iterations "
+          f"{int(sim.solver._step_fn.last_poisson.iterations)}, max|u| "
+          f"{stats.max_velocity:.6f} (the ±100 clamps reached at step "
+          f"{clamped}), max p {stats.max_pressure:.6f}, cg_solve launches "
+          f"{n_launch}", flush=True)
+    if n_launch != FACADE_STEPS:
+        fail("phase 15 facade: not the whole-solve CG kernel once a step")
+    launch_counts["cg2d"] = {"cg_solve": n_launch,
+                             "poisson_rhs_2d": pk2m.poisson_rhs_2d.launches}
+    plain_cg = make_projection_step(sim.grid, sim.params, torch.float32,
+                                    Method.CG, device=dev, plain=True)
+    fp = start_field
+    for _ in range(FACADE_CHECK):
+        fp, rp = plain_cg(fp, 0.005, 0)        # Simulation.step's dt, iter
+    sync()
+    for name in "uv":
+        compare(f"phase 15 facade {FACADE_CHECK} steps", name,
+                getattr(checked, name), getattr(fp, name), TOL_CG_UVW,
+                False)
+    close_p(f"phase 15 facade {FACADE_CHECK} steps", checked.p, fp.p)
+
+    # ---- phase 16: Ghia Re = 100 through the CG pressure solve -----------
+    vmem_small.cg_solve.launches = 0
+    ghia_gate("phase 16", 128, 100, 5e-4, 20000, 0.10, Method.CG)
+    print(f"phase 16 cg_solve launches {vmem_small.cg_solve.launches}",
+          flush=True)
+
     kernels = []
     for (path, name), rec in records.items():
         launches = launch_counts.get(path, {}).get(name)
@@ -971,9 +1341,11 @@ def main() -> int:
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]})
     print(json.dumps({"kernels": kernels, "step_ms": ms3,
-                      "grid": f"{n}x{n}x{n}", "step_ms_2d": ms2,
+                      "grid": f"{N_BIG}x{N_BIG}x{N_BIG}", "step_ms_2d": ms2,
                       "grid_2d": f"{n2}x{n2}", "explicit_step_ms":
-                      explicit_ms, "card": card}), flush=True)
+                      explicit_ms, "cg_512": cg512, "cg_step_ms_256": cg_ms,
+                      "facade_projection_ms": wall_cg / FACADE_STEPS,
+                      "card": card}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

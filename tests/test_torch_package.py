@@ -29,7 +29,8 @@ from cfd_tpu_torch.solvers.ns.params import NSParams
 from cfd_tpu_torch.solvers.ns.projection import make_projection_step
 from cfd_tpu_torch.solvers.ns.rk import make_rk2_step, make_rk4_step
 from cfd_tpu_torch.solvers.ns.solver import NSSolver
-from cfd_tpu_torch.solvers.poisson.base import Method
+from cfd_tpu_torch.solvers.poisson.base import (Method, PoissonParams,
+                                                Precond)
 
 torch.set_num_threads(min(2, torch.get_num_threads()))
 
@@ -94,19 +95,21 @@ def _stretched_grid():
     return dataclasses.replace(g, x=x, dx=np.diff(x))
 
 
+SPECTRAL = dict(poisson_method=Method.FFT_DIRECT)
 UNSUPPORTED = {
-    "cg": dict(poisson_method=Method.CG),
+    "bicgstab": dict(poisson_method=Method.BICGSTAB),
     "multigrid": dict(poisson_method=Method.MULTIGRID),
-    "nz3": dict(grid=_grid(nz=3)),
+    "nz3": dict(grid=_grid(nz=3), **SPECTRAL),
     "2d_buoyancy": dict(grid=Grid.uniform(128, 16),
                         params=NSParams(beta=0.05)),
     "2d_energy": dict(grid=Grid.uniform(128, 16),
                       params=NSParams(alpha=1e-3)),
     "2d_bc_refresh": dict(grid=Grid.uniform(128, 16),
                           bc_refresh=lambda u, v, w, t: (u, v, w)),
-    "2d_cg": dict(grid=Grid.uniform(128, 16), poisson_method=Method.CG),
+    "2d_redblack_sor": dict(grid=Grid.uniform(128, 16),
+                            poisson_method=Method.REDBLACK_SOR),
     "2d_precision_high": dict(grid=Grid.uniform(128, 16),
-                              spectral_precision="high"),
+                              spectral_precision="high", **SPECTRAL),
     "stretched": dict(grid=_stretched_grid()),
     "consistent": dict(params=NSParams(nonuniform_scheme="consistent")),
     "energy": dict(params=NSParams(alpha=1e-3)),
@@ -115,7 +118,9 @@ UNSUPPORTED = {
         source_func=lambda X, Y, Z, t: (0.0, 0.0, 0.0))),
     "bc_refresh": dict(bc_refresh=lambda u, v, w, t: (u, v, w)),
     "differentiable": dict(differentiable=True),
-    "precision_high": dict(spectral_precision="high"),
+    "precision_high": dict(spectral_precision="high", **SPECTRAL),
+    "cg_multigrid_preconditioner": dict(poisson_params=PoissonParams(
+        preconditioner=Precond.MULTIGRID)),
 }
 
 
@@ -193,6 +198,26 @@ def test_entry_points_default_to_cuda(call):
         return
     with pytest.raises(RuntimeError, match="cuda"):
         DEFAULT_DEVICE_CALLS[call]()
+
+
+def test_default_poisson_method_is_cg_in_both_packages():
+    """``make_projection_step`` builds the same solver in both packages
+    when the caller names no method: CG, the reference C library's choice
+    (`solver_projection.c:217-218`)."""
+    import inspect
+
+    from cfd_tpu.solvers.ns.projection import \
+        make_projection_step as j_make_step
+    from cfd_tpu.solvers.poisson.base import Method as JMethod
+
+    ours = inspect.signature(make_projection_step).parameters
+    theirs = inspect.signature(j_make_step).parameters
+    assert ours["poisson_method"].default == Method.CG
+    assert theirs["poisson_method"].default == JMethod.CG
+    assert int(ours["poisson_method"].default) == int(
+        theirs["poisson_method"].default)
+    assert ours["poisson_params"].default is None
+    assert theirs["poisson_params"].default is None
 
 
 def test_float64_on_cuda_is_refused():

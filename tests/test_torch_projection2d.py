@@ -40,7 +40,7 @@ from cfd_tpu_torch.ops.kernels.projection_kernels import StencilConsts
 from cfd_tpu_torch.solvers.ns.params import NSParams
 from cfd_tpu_torch.solvers.ns.projection import make_projection_step
 from cfd_tpu_torch.solvers.ns.rollout import run_steps
-from cfd_tpu_torch.solvers.poisson.base import PoissonProblem
+from cfd_tpu_torch.solvers.poisson.base import Method, PoissonProblem
 from cfd_tpu_torch.solvers.poisson.spectral import make_dst2d_fused_pieces
 
 torch.set_num_threads(min(2, torch.get_num_threads()))
@@ -151,7 +151,8 @@ def _run_both(shape, np_dt, jnp_kwargs, dt=DT, n_steps=3, seed=0):
                                 **jnp_kwargs))
     jf = JField(**{n: jnp.asarray(a) for n, a in arrays.items()})
     step = make_projection_step(Grid.uniform(nx, ny), NSParams(**params),
-                                dtype=tdt, device="cpu")
+                                dtype=tdt, poisson_method=Method.FFT_DIRECT,
+                                device="cpu")
     tf = field_from_numpy(arrays, "cpu", tdt)
     out = []
     for i in range(n_steps):
@@ -272,7 +273,9 @@ def test_taylor_green_viscous_limit_matches_jnp_step_f64(number, grows):
                                 use_pallas=False))
     jf = JField(**{k: jnp.asarray(a) for k, a in arrays.items()})
     step = make_projection_step(Grid.uniform(n, n), NSParams(**kw),
-                                dtype=torch.float64, device="cpu")
+                                dtype=torch.float64,
+                                poisson_method=Method.FFT_DIRECT,
+                                device="cpu")
     tf = field_from_numpy(arrays, "cpu", torch.float64)
     for i in range(steps):
         jf, jr = jstep(jf, dt, i)
@@ -290,7 +293,9 @@ def _step_128x32(sources=False):
     amp = dict(source_amplitude_u=0.0, source_amplitude_v=0.0)
     return make_projection_step(Grid.uniform(128, 32),
                                 NSParams(**({} if sources else amp)),
-                                dtype=torch.float32, device="cpu")
+                                dtype=torch.float32,
+                                poisson_method=Method.FFT_DIRECT,
+                                device="cpu")
 
 
 def test_shell_passthrough_and_clamp():
@@ -397,6 +402,7 @@ def test_ghia_re100_projection():
                       source_amplitude_u=0.0, source_amplitude_v=0.0,
                       source_decay_rate=0.0)
     step = make_projection_step(grid, params, dtype=torch.float32,
+                                poisson_method=Method.FFT_DIRECT,
                                 device="cpu")
     lid, wall = DirichletValues(top=1.0), DirichletValues()
     field = FlowField.quiescent(n, n, pressure=0.0, dtype=torch.float32,

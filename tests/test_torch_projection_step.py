@@ -24,6 +24,7 @@ from cfd_tpu_torch.solvers.ns.common import field_status_and_diagnostics
 from cfd_tpu_torch.solvers.ns.params import NSParams
 from cfd_tpu_torch.solvers.ns.projection import make_projection_step
 from cfd_tpu_torch.solvers.ns.rollout import run_steps
+from cfd_tpu_torch.solvers.poisson.base import Method
 
 torch.set_num_threads(min(2, torch.get_num_threads()))
 
@@ -54,6 +55,7 @@ def _run_both(shape, np_dt, jnp_kwargs, n_steps=3, seed=0):
     step = make_projection_step(Grid.uniform(nx, ny, nz, zmin=0.0,
                                              zmax=1.0),
                                 NSParams(**params), dtype=tdt,
+                                poisson_method=Method.FFT_DIRECT,
                                 device="cpu")
     tf = field_from_numpy(arrays, "cpu", tdt)
     out = []
@@ -126,6 +128,7 @@ def _default_step(shape=(8, 16, 128)):
     grid = Grid.uniform(nx, ny, nz, zmin=0.0, zmax=1.0)
     params = NSParams(source_amplitude_u=0.0, source_amplitude_v=0.0)
     return make_projection_step(grid, params, dtype=torch.float32,
+                                poisson_method=Method.FFT_DIRECT,
                                 device="cpu")
 
 

@@ -6,8 +6,9 @@ the reference's (`cfd_tpu.api`), in float64 on the CPU.
   ``step()``s each and one ``solve()``, fields, stats and time against
   the reference's session;
 * every registered name: the same list, backends and descriptions; the
-  names whose path is not ported create a solver whose ``init`` raises
-  ``CFDError(ERROR_UNSUPPORTED)``;
+  CG ``projection`` family runs a session like the other ported names;
+  ``projection_multigrid``, not ported, creates a solver whose ``init``
+  raises ``CFDError(ERROR_UNSUPPORTED)``;
 * the divergence guard of ``solve`` on a field with a NaN.
 """
 
@@ -38,8 +39,7 @@ from cfd_tpu_torch.solvers.ns.solver import NSSolver
 torch.set_num_threads(min(2, torch.get_num_threads()))
 
 NAMES = ("u", "v", "w", "p", "rho", "T")
-UNPORTED = ("projection", "projection_optimized", "projection_omp",
-            "projection_gpu", "projection_multigrid")
+UNPORTED = ("projection_multigrid",)
 
 
 def _session(nx=32, ny=16, **kw):
@@ -83,7 +83,9 @@ def test_default_session_then_rk4_then_spectral():
 
 @pytest.mark.parametrize("name", ["explicit_euler", "rk2", "rk4",
                                   "projection_spectral", "rk2_omp",
-                                  "explicit_euler_optimized"])
+                                  "explicit_euler_optimized", "projection",
+                                  "projection_optimized", "projection_omp",
+                                  "projection_gpu"])
 def test_session_per_solver(name):
     """Each ported name from ``create``, 3D as well (nz = 6), with
     ``max_iter = 3`` so ``solve()`` runs the guarded loop."""
@@ -97,6 +99,35 @@ def test_session_per_solver(name):
     assert sim.solve() == jsim.solve()
     _assert_sessions_close(sim, jsim)
     assert sim.get_stats().iterations == 3
+
+
+def test_projection_session_2d():
+    """The reference's default projection solver (CG) through the facade
+    at its published small grid: ``Simulation.create(100, 50,
+    solver_type="projection")``, ten ``step()``s and a ``solve()``."""
+    sim = _session(100, 50, solver_type="projection")
+    jsim = JSimulation.create(100, 50, solver_type="projection")
+    assert sim.solver.poisson_params is None
+    _run_both(sim, jsim, 10)
+    _assert_sessions_close(sim, jsim)
+    assert sim.solve() == jsim.solve() == Status.SUCCESS
+    _assert_sessions_close(sim, jsim)
+
+
+def test_projection_facade_growth_matches_reference():
+    """The facade's fixed dt = 0.005 is past the explicit viscous limit
+    of the 100×50 projection (2ν·dt·(1/dx² + 1/dy²) = 1.22 > 1): a
+    grid-scale mode grows about 1.44× a step, in the reference too.  The
+    port follows the reference's growth over 30 steps (max|u| from 1.10
+    to ~40)."""
+    sim = _session(100, 50, solver_type="projection")
+    jsim = JSimulation.create(100, 50, solver_type="projection")
+    _run_both(sim, jsim, 30)
+    vmax = sim.get_stats().max_velocity
+    assert vmax > 10.0
+    assert vmax == pytest.approx(jsim.get_stats().max_velocity, rel=1e-9)
+    np.testing.assert_allclose(sim.field.u.numpy(), np.asarray(jsim.field.u),
+                               rtol=0, atol=1e-9 * vmax)
 
 
 def test_registry_matches_reference():

@@ -7,8 +7,9 @@ inferred from the name's suffix; ``create_checked`` refuses a CUDA-tagged
 name when no CUDA device is present.  Every name creates a solver; the
 ``projection`` family (``projection``, ``_optimized``, ``_omp``,
 ``_gpu``) runs the CG pressure solve, ``projection_spectral`` the
-spectral one, and ``projection_multigrid``, not ported yet, raises
-``CFDError(ERROR_UNSUPPORTED)`` at ``init``.
+spectral one and ``projection_multigrid`` the multigrid one (2^k+1
+grids; another grid raises ``CFDError(ERROR_UNSUPPORTED)`` at
+``init``).
 """
 
 from __future__ import annotations

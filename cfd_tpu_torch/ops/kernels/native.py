@@ -58,11 +58,15 @@ SIGNATURES = {
     "cfd_cg_lap_dot": [_P] * 6 + [_I] * 3 + [_F] * 4 + [_P],
     "cfd_cg_update": [_P] * 6 + [_I] * 3 + [_F, _I, _P],
     "cfd_cg_solve": [_P] * 8 + [_I] * 3 + [_F] * 6 + [_I] * 2 + [_P],
+    # mg_kernels.cu, mg_solve.cu (the multigrid pressure solve; the
+    # level dims and coefficients of cfd_mg_solve are host arrays)
+    "cfd_mg_rb_sweep": [_P] * 3 + [_I] * 3 + [_F] * 4 + [_I, _P],
+    "cfd_mg_solve": [_P] * 6 + [_I, _P, _P] + [_F] * 2 + [_I] * 4 + [_P],
 }
 
 # block-count queries: (nz, ny, nx) -> long long
 COUNTS = ("cfd_corrector_partials", "cfd_explicit_partials",
-          "cfd_cg_partials", "cfd_cg_solve_blocks")
+          "cfd_cg_partials", "cfd_cg_solve_blocks", "cfd_mg_solve_blocks")
 
 _lib = None
 

@@ -161,3 +161,14 @@ def interior_mask(shape, dtype=torch.float32, device=None):
     m = torch.zeros(shape, dtype=dtype, device=device)
     m[slice(1, -1) if nz > 1 else slice(None), 1:-1, 1:-1] = 1
     return m
+
+
+def checkerboard_mask(shape, parity, device=None):
+    """The interior points with (i + j + k) % 2 == parity (k = 0 on a 2D
+    field), as a bool tensor: red is parity 0, black parity 1."""
+    nz, ny, nx = shape
+    k = torch.arange(nz, device=device)[:, None, None] if nz > 1 else 0
+    j = torch.arange(ny, device=device)[None, :, None]
+    i = torch.arange(nx, device=device)[None, None, :]
+    color = ((i + j + k) % 2) == parity
+    return color & interior_mask(shape, torch.bool, device)

@@ -2,7 +2,8 @@
 the fused single-device branches: 3D `:544-657`, 2D `:659-717`).
 
 The pressure solve is the reference's default CG (`solver_projection.c:
-217-218`) or the exact spectral solve (``Method.FFT_DIRECT``).
+217-218`), multigrid (``Method.MULTIGRID``) or the exact spectral solve
+(``Method.FFT_DIRECT``).
 
 A 3D spectral step is the reference's two-kernel spectral projection:
 
@@ -21,6 +22,11 @@ A 3D CG step (`:600-621`, nz ≥ 3) is the predictor, A1's rhs form
 (ρ/dt)∇·u*, the CG solve on the fused passes warm-started from p
 (`poisson.krylov.make_cg_fused`), the corrector with its maxima on the
 physical p (`ProjectionKernels.corrector_diag`) and the same face fold.
+A 3D multigrid step (`:609-621` around `_make_multigrid` `:46-48`) is the
+same step with the V-cycle iteration (`poisson.multigrid.make_multigrid`,
+the sweep kernel on every level) in place of CG.  On its 2^k+1 grids the
+reference runs its jnp body (its kernels' ``nx % 128`` gate, a TPU one,
+fails there); the port keeps its kernels, as for CG.
 
 A 2D step (nz == 1) is the reference's fused 2D form on every grid.
 Spectral: `Projection2DKernels.predictor_and_poisson_input` (predictor
@@ -28,15 +34,21 @@ and b̃·FxT), the y-line solve of `make_dst2d_fused_pieces` (Thomas + dense
 low-mode rescue), `Projection2DKernels.corrector` (p = x̂·GxT,
 corrector).  CG (`:693-698`): predictor and rhs, the whole-solve CG
 kernel (`poisson.krylov.make_cg_vmem`), the corrector on the physical p.
+Multigrid (`:694-698`): the same with the whole-solve multigrid kernel
+(`poisson.multigrid.make_multigrid_vmem`), which computes the reference's
+jnp ``make_multigrid`` by design.  A multigrid grid that cannot be
+coarsened raises ``ERROR_UNSUPPORTED``, as the reference's.
 In both, w = w* and the diagnostics come from
 `field_status_and_diagnostics` over the new field.
 
 ρ is taken from the first grid point, floored at 1e-10 → 1.0.  dt, the
 decayed source amplitudes, ρ and every diagnostic stay 0-d device
-tensors; a step reports −7 (MAX_ITER) when its CG solve did not converge,
-with the solve's final residual.  The spectral step never reads a device
-value on the host; the CG step's 3D solve reads its running flag once
-per chunk of iterations (`poisson.krylov`), its 2D solve nothing.
+tensors; a step reports −7 (MAX_ITER) when its iterative solve did not
+converge, with the solve's final residual.  The spectral step never reads
+a device value on the host; the CG step's 3D solve reads its running flag
+once per chunk of iterations (`poisson.krylov`), the multigrid step's 3D
+solve its residual once per check (`poisson.multigrid`), their 2D solves
+nothing.
 
 Anything outside this slice raises ``CFDError(ERROR_UNSUPPORTED)``; each
 exclusion is a later slice in ROADMAP.md.
@@ -54,6 +66,8 @@ from ...ops.kernels.projection2d import Projection2DKernels
 from ...ops.kernels.projection_kernels import ProjectionKernels
 from ..poisson.base import Method, PoissonParams, PoissonProblem
 from ..poisson.krylov import make_cg_fused, make_cg_vmem
+from ..poisson.multigrid import (make_multigrid, make_multigrid_vmem,
+                                 raise_not_coarsenable)
 from ..poisson.spectral import make_dst2d_fused_pieces, make_dst_fused_pieces
 from .common import (field_status_and_diagnostics, step_result,
                      validate_grid_for_solver)
@@ -69,7 +83,7 @@ def _check_slice(grid: Grid, params: NSParams, poisson_method,
                  spectral_precision, differentiable, bc_refresh,
                  dtype, device):
     method = Method(poisson_method)
-    if method not in (Method.FFT_DIRECT, Method.CG):
+    if method not in (Method.FFT_DIRECT, Method.CG, Method.MULTIGRID):
         _unsupported(f"poisson_method {method.name}")
     if method == Method.FFT_DIRECT and 1 < grid.nz < 4:
         _unsupported("nz < 4 with FFT_DIRECT (the three-pass form)")
@@ -105,9 +119,10 @@ def make_projection_step(grid: Grid, params: NSParams, dtype=None,
     (nz ≥ 3; nz ≥ 4 with ``FFT_DIRECT``) or 2D (nz == 1) uniform grid.
 
     ``poisson_method`` is ``Method.CG`` by default, as in the reference,
-    with ``poisson_params`` (default ``PoissonParams()``); ``FFT_DIRECT``
-    is the exact spectral solve.  ``spectral_precision`` applies to the
-    spectral solve only.
+    or ``Method.MULTIGRID`` (2^k+1 grids), with ``poisson_params``
+    (default ``PoissonParams()``; CG ignores ``Precond.MULTIGRID``, as the
+    reference's step does); ``FFT_DIRECT`` is the exact spectral solve.
+    ``spectral_precision`` applies to the spectral solve only.
 
     On the card (the default, ``device=None``) the step launches the
     hand-written kernels; with ``device="cpu"`` the same wrappers run
@@ -159,14 +174,22 @@ def make_projection_step(grid: Grid, params: NSParams, dtype=None,
         return step_result(finite, torch.sqrt(m2), pmax,
                            torch.amax(field.T), **solve)
 
-    if Method(poisson_method) == Method.CG:
+    method = Method(poisson_method)
+    if method in (Method.CG, Method.MULTIGRID):
         pparams = poisson_params or PoissonParams()
+        maker = {(Method.CG, True): make_cg_vmem,
+                 (Method.CG, False): make_cg_fused,
+                 (Method.MULTIGRID, True): make_multigrid_vmem,
+                 (Method.MULTIGRID, False): make_multigrid}[
+                     method, grid.nz == 1]
+        solve = maker(problem, pparams, dtype, device, plain=plain)
+        if solve is None:
+            raise_not_coarsenable("multigrid")
         if grid.nz == 1:
-            return _make_cg_step_2d(grid, params, problem, pparams, dtype,
-                                    device, plain, with_sources, scalars)
-        return _make_cg_step_3d(grid, params, problem, pparams, dtype,
-                                device, plain, with_sources, scalars,
-                                folded_result)
+            return _make_iterative_step_2d(grid, params, solve, plain,
+                                           with_sources, scalars)
+        return _make_iterative_step_3d(grid, params, solve, plain,
+                                       with_sources, scalars, folded_result)
 
     if grid.nz == 1:
         fxt, gxt, ysolve = make_dst2d_fused_pieces(problem, dtype, device,
@@ -205,17 +228,17 @@ def make_projection_step(grid: Grid, params: NSParams, dtype=None,
     return step
 
 
-def _make_cg_step_3d(grid, params, problem, pparams, dtype, device, plain,
-                     with_sources, scalars, folded_result):
-    """Predictor → rhs → CG warm-started from p → corrector with maxima →
-    z-shell face fold (`projection.py:600-621`).  ``step.poisson_solve``
-    is the solve; ``step.last_poisson`` holds the last step's
-    PoissonResult (0-d device tensors: iterations, residuals, status)."""
+def _make_iterative_step_3d(grid, params, solve, plain, with_sources,
+                            scalars, folded_result):
+    """Predictor → rhs → the iterative ``solve`` (CG or multigrid)
+    warm-started from p → corrector with maxima → z-shell face fold
+    (`projection.py:600-621`).  ``step.poisson_solve`` is the solve;
+    ``step.last_poisson`` holds the last step's PoissonResult (0-d device
+    tensors: iterations, residuals, status)."""
     pk = ProjectionKernels(
         grid.nz, grid.ny, grid.nx, grid.dx0, grid.dy0, grid.dz0,
         grid.xmin, grid.ymin, params.mu, with_sources=with_sources,
         plain=plain, emit="rhs")
-    solve = make_cg_fused(problem, pparams, dtype, device, plain=plain)
 
     def step(field: FlowField, dt, iter_idx):
         dt, su, sv, rho0 = scalars(field, dt, iter_idx)
@@ -233,15 +256,14 @@ def _make_cg_step_3d(grid, params, problem, pparams, dtype, device, plain,
     return step
 
 
-def _make_cg_step_2d(grid, params, problem, pparams, dtype, device, plain,
-                     with_sources, scalars):
-    """Predictor → rhs → whole-solve CG → corrector, w = w*
-    (`projection.py:693-698`); ``poisson_solve`` and ``last_poisson`` as
-    in 3D."""
+def _make_iterative_step_2d(grid, params, solve, plain, with_sources,
+                            scalars):
+    """Predictor → rhs → the whole-solve ``solve`` (CG or multigrid) →
+    corrector, w = w* (`projection.py:693-698`); ``poisson_solve`` and
+    ``last_poisson`` as in 3D."""
     pk2 = Projection2DKernels(
         grid.ny, grid.nx, grid.dx0, grid.dy0, grid.xmin, grid.ymin,
         params.mu, with_sources=with_sources, plain=plain, emit="rhs")
-    solve = make_cg_vmem(problem, pparams, dtype, device, plain=plain)
 
     def step(field: FlowField, dt, iter_idx):
         dt, su, sv, rho0 = scalars(field, dt, iter_idx)

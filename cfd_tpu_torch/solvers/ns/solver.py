@@ -5,8 +5,9 @@ One class whose ``init`` builds the step and solve closures for a
 (grid, params) pair on the solver's ``device`` (the card unless set), with
 the reference's lifecycle (create → init → step/solve) and stats.
 Methods: ``explicit_euler``, ``rk2``, ``rk4`` and ``projection``; the
-projection's pressure solve is CG (the default, with ``poisson_params``)
-or the spectral direct solve (``FFT_DIRECT``), and any other method raises
+projection's pressure solve is CG (the default, with ``poisson_params``),
+multigrid (``MULTIGRID``, the registry's ``projection_multigrid``) or the
+spectral direct solve (``FFT_DIRECT``), and any other method raises
 ``CFDError(ERROR_UNSUPPORTED)`` at ``init``.  There is no ``mesh``:
 sharding is a later slice.
 """
@@ -90,7 +91,8 @@ class NSSolver:
         ``CFDError`` outside the ported slice."""
         if self.method == "projection":
             method = PoissonMethod(self.poisson_method)
-            if method not in (PoissonMethod.CG, PoissonMethod.FFT_DIRECT):
+            if method not in (PoissonMethod.CG, PoissonMethod.MULTIGRID,
+                              PoissonMethod.FFT_DIRECT):
                 raise CFDError(
                     Status.ERROR_UNSUPPORTED,
                     f"solver '{self.name}': the {method.name} pressure "

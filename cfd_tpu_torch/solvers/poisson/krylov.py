@@ -29,7 +29,12 @@ fused loop runs on the host, but its scalars stay on the card (see
 reads the running flag of the chunk before the last one, so the card
 never waits for the host and the host waits at most once per chunk.
 Iterations queued past the stop are no-ops.  ``solve.host_syncs`` holds
-the count of the last solve.  ``Precond.MULTIGRID`` raises unsupported.
+the count of the last solve.
+
+``Precond.MULTIGRID`` runs plain (unpreconditioned) CG in all three
+makers, as the reference's do (`krylov.py:37`, `:136-137`; its
+``make_cg_vmem`` falls back to ``make_cg``): only the Poisson front end
+turns it into ``multigrid.make_mg_cg``.
 """
 
 from __future__ import annotations
@@ -44,12 +49,6 @@ from .base import (PoissonParams, PoissonProblem, PoissonResult,
 
 BREAKDOWN = cgk.BREAKDOWN
 CHUNK = 16  # iterations queued between two reads of the running flag
-
-
-def _check_precond(params: PoissonParams):
-    if params.preconditioner == Precond.MULTIGRID:
-        raise CFDError(Status.ERROR_UNSUPPORTED,
-                       "CG: the multigrid preconditioner is not ported yet")
 
 
 def _scale(problem: PoissonProblem, params: PoissonParams) -> float:
@@ -84,7 +83,6 @@ def make_cg(problem: PoissonProblem, params: PoissonParams, dtype=None,
     (`krylov.py:36-117`) step for step; reads the stop flag on the host
     once per iteration.  It has no kernel: ``dtype``, ``device`` and
     ``plain`` are accepted for the makers' common signature."""
-    _check_precond(params)
     use_precond = params.preconditioner == Precond.JACOBI
     diag_inv = problem.inv_factor
     ci = max(1, int(params.check_interval))
@@ -148,7 +146,6 @@ def make_cg_fused(problem: PoissonProblem, params: PoissonParams,
     the operator pass.  3D grids (nz ≥ 3).  On a CUDA device the passes
     launch the kernels; on the CPU, or with ``plain=True`` on the card,
     their plain versions run in the same loop."""
-    _check_precond(params)
     nz, ny, nx = problem.shape
     if nz < 3:
         raise CFDError(Status.ERROR_INVALID,
@@ -211,7 +208,6 @@ def make_cg_vmem(problem: PoissonProblem, params: PoissonParams,
     """The whole CG/PCG solve in one kernel launch
     (`krylov.py:206-244`), for 2D grids (and any nz ≥ 3).  ``plain=True``
     runs its plain version on the card too."""
-    _check_precond(params)
     nz, ny, nx = problem.shape
     fn = make_cg_vmem_solve(nz, ny, nx, problem.inv_dx2, problem.inv_dy2,
                             problem.inv_dz2, _scale(problem, params),

@@ -52,6 +52,29 @@ Then the CG pressure solve, the reference's default projection solver:
 * phase 16: Ghia Re = 100 at 128² with the CG pressure solve (20000
   steps, about 45 s on an H100).
 
+Then the multigrid pressure solve:
+
+* phase 17: the red-black sweep (``rb_sweep``: red-first, red-first with
+  the residual field, black-first) against its plain version at
+  17×33×9 and 513³, and the whole-solve 2D multigrid (``mg_solve``)
+  against its plain version at 33² and 129²;
+* phase 18: ``bench.py``'s ``multigrid_513`` solve (513³, tol 1e-6,
+  ``check_interval`` 10) on both paths, timed, with its V-cycles, host
+  syncs, float64 true residual and each level's sweep time against its
+  bound;
+* phase 19: MG-preconditioned CG at 513³ through the Poisson front end,
+  on both paths;
+* phase 20: the 3D multigrid projection step at 257³ (``run_3d``'s
+  physics), 3 warm-up and 3 timed steps on both paths, at a relative
+  tolerance of 1e-3: first the float32 residual floor of its first
+  solve, which lies above the default 1e-6; then the CG step on the
+  same grid at the same tolerance, timed on the kernel path;
+* phase 21: ``bench.py:run_mg2d_vmem(129)``'s solve, Ghia Re = 100 at
+  129² with the multigrid solve (20000 steps), and 100 steps of
+  ``Simulation.create(65, 65, solver_type="projection_multigrid")``
+  with its solver at a tolerance above the printed float32 floor, held
+  against the plain path at step 10.
+
 It checks status, finiteness, launch counters (set to 0 just before each
 main path and read just after) and kernel-vs-plain agreement; any
 failure exits non-zero.  The line before the last is a JSON object
@@ -112,6 +135,28 @@ CG_VMEM = "cfd_tpu/ops/pallas/vmem_small.py:243"      # make_cg_vmem_solve
 A1_RHS = "cfd_tpu/ops/pallas/projection_kernels.py:699"   # emit="rhs"
 A5_CORR = "cfd_tpu/ops/pallas/projection_kernels.py:724"  # corr_all
 P2_RHS = "cfd_tpu/ops/pallas/projection2d.py:196"     # emit="rhs"
+SRC_MG = "cfd_tpu_torch/csrc/mg_kernels.cu"
+SRC_MGS = "cfd_tpu_torch/csrc/mg_solve.cu"
+MG_SWEEP = "cfd_tpu/ops/pallas/mg_kernels.py:50"      # make_mg_rb_sweep
+MG_VMEM = "cfd_tpu/ops/pallas/vmem_mg.py:114"         # make_mg_vmem_solve
+N_MG = 513             # bench.py's multigrid_513
+MG_513_ITERS = 11      # the reference's V-cycles there (BENCH_r05.json)
+MG2D_ITERS = 5         # ... and run_mg2d_vmem(129)'s
+N_MG_STEP = 257        # the MG projection step, run_3d's physics
+# A multigrid solve recomputes its residual from x each V-cycle, so in
+# float32 it stalls at a floor of about eps·‖A‖·‖e‖; from bench.py's
+# Taylor-Green start at 257³ that floor lies above the default relative
+# tolerance 1e-6 (phase 20 prints it), and such a solve would run its
+# 5000 V-cycles and report −7.  The step runs at a tolerance above it.
+MG_STEP_TOL = 1e-3
+MG_FLOOR_CYCLES = 30   # V-cycles of the floor measurement
+# Simulation.create(65, 65, "projection_multigrid"): at the default 1e-6
+# the facade's first float32 solves stall at that floor (about 1.6e-6;
+# status −7 after 5000 V-cycles), in the reference's float32 facade too,
+# so its solver gets a tolerance above the floor (phase 21 prints it)
+MG_FACADE = 65
+MG_FACADE_TOL = 1e-5
+MG_FACADE_STEPS = 100
 GHIA = Path(__file__).resolve().parent / "tests/validation/ghia_data.py"
 N_EXPL = 256           # bench.py:run_euler_3d / run_rk_3d, 256³
 EXPL_DT = 1e-5         # bench.py's explicit configurations
@@ -139,7 +184,16 @@ FLOPS_PER_POINT = {"predictor_star": 90, "poisson_input": 12,
                    "lap_dot": 18, "cg_update": 6,
                    # one whole-solve CG iteration: Ap, ⟨p,Ap⟩, the two
                    # α-updates, ⟨r,r⟩ and the p update
-                   "cg_iter": 24}
+                   "cg_iter": 24,
+                   # a 3D red-black sweep (each interior point updated
+                   # once), the 3D residual field
+                   "rb_sweep": 10, "mg_residual": 13,
+                   # the 2D whole solve (mg_solve.cu), per interior point:
+                   # a sweep, the residual, restriction per coarse point,
+                   # prolongation and add per fine point (1, 3, 3 or 7 by
+                   # parity), and each iteration's b0, E update and norm
+                   "mg2d_sweep": 7, "mg2d_residual": 9, "mg2d_restrict": 20,
+                   "mg2d_prolong": 3.5, "mg2d_iter": 21}
 
 # Tolerances, kernel against plain version on identical inputs, float32:
 #  * fields (u*, v*, w*, u, v, w): atol 2e-5, the reference's own
@@ -236,12 +290,13 @@ def main() -> int:
     from cfd_tpu_torch.ops.kernels import cg_kernels as cgk
     from cfd_tpu_torch.ops.kernels import euler2d as e2m
     from cfd_tpu_torch.ops.kernels import euler_kernels as ekm
+    from cfd_tpu_torch.ops.kernels import mg_kernels as mgk
     from cfd_tpu_torch.ops.kernels import native
     from cfd_tpu_torch.ops.kernels import projection2d as pk2m
     from cfd_tpu_torch.ops.kernels import projection_kernels as pkm
     from cfd_tpu_torch.ops.kernels import rk2d as rk2m
     from cfd_tpu_torch.ops.kernels import rk_kernels as rkm
-    from cfd_tpu_torch.ops.kernels import rolling, tdma, vmem_small
+    from cfd_tpu_torch.ops.kernels import rolling, tdma, vmem_mg, vmem_small
     from cfd_tpu_torch.solvers.ns.common import (field_status_and_diagnostics,
                                                  source_basis)
     from cfd_tpu_torch.solvers.ns.euler import make_euler_step
@@ -249,7 +304,8 @@ def main() -> int:
     from cfd_tpu_torch.solvers.ns.projection import make_projection_step
     from cfd_tpu_torch.solvers.ns.rk import make_rk2_step, make_rk4_step
     from cfd_tpu_torch.solvers.ns.rollout import run_steps
-    from cfd_tpu_torch.solvers.poisson import krylov
+    from cfd_tpu_torch.solvers.poisson import frontend, krylov
+    from cfd_tpu_torch.solvers.poisson import multigrid as mgs
     from cfd_tpu_torch.solvers.poisson.base import (Method, PoissonParams,
                                                     PoissonProblem,
                                                     PoissonStatus, Precond)
@@ -1328,6 +1384,384 @@ def main() -> int:
     print(f"phase 16 cg_solve launches {vmem_small.cg_solve.launches}",
           flush=True)
 
+    # ---- phase 17: the multigrid kernels against their plain versions ----
+    def mg_levels(shape):
+        return mgs._build_levels(cg_problem(shape)[1])
+
+    def interior(shape):
+        """The points a sweep or a residual updates."""
+        n = 1
+        for s in shape:
+            n *= max(s - 2, 1)
+        return n
+
+    def vcycle_flops_2d(levels, pre, post):
+        """One 2D V-cycle's float32 operations on the interior points
+        (counted from mg_solve.cu)."""
+        fpp = FLOPS_PER_POINT
+        f = mgk.COARSE_SWEEPS * fpp["mg2d_sweep"] * interior(
+            levels[-1].shape)
+        for lv, coarse in zip(levels, levels[1:]):
+            f += ((pre + post) * fpp["mg2d_sweep"] + fpp["mg2d_residual"]
+                  + fpp["mg2d_prolong"]) * interior(lv.shape)
+            f += fpp["mg2d_restrict"] * interior(coarse.shape)
+        return f
+
+    # the record keeps the last variant timed: the red-first sweep
+    variants = (("red", True), ("black", False), ("red", False))
+    for shape in ((9, 33, 17), (N_MG,) * 3):
+        big = shape[0] == N_MG
+        tag = "x".join(map(str, shape[::-1]))
+        print(f"phase 17 rb_sweep vs plain at {tag}", flush=True)
+        lv = mg_levels(shape)[0]
+        _, prob = cg_problem(shape)
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        x = prob.zero_boundary(torch.randn(shape, generator=gen,
+                                           device=dev))
+        b = torch.randn(shape, generator=gen, device=dev)
+        cells = interior(shape)
+        xt, rt = x.clone(), torch.empty_like(x)
+        for first, emit in variants:
+            def run(sweep, first=first, emit=emit):
+                xo = x.clone()
+                ro = torch.empty_like(x) if emit else None
+                sweep(xo, b, lv, first, ro)
+                return (xo, ro) if emit else xo
+
+            outs = ("x", "r") if emit else ("x",)
+            flops = (FLOPS_PER_POINT["rb_sweep"]
+                     + (FLOPS_PER_POINT["mg_residual"] if emit else 0))
+            check("mg3d", f"{tag} {first}-first{' +r' if emit else ''}",
+                  big, mgk.rb_sweep, MG_SWEEP, SRC_MG,
+                  lambda run=run: run(mgk.rb_sweep),
+                  lambda run=run: run(mgk.rb_sweep_inplace_plain),
+                  outs, (exact,) * len(outs),
+                  work=((x, b), flops * cells),
+                  time_fn=lambda first=first, emit=emit: mgk.rb_sweep(
+                      xt, b, lv, first, rt if emit else None))
+        del x, b, xt, rt
+        torch.cuda.empty_cache()
+
+    def mg_agree(tag, got, ref, tol_it=1):
+        it, it_ref = int(got.iterations), int(ref.iterations)
+        st, st_ref = int(got.status), int(ref.status)
+        print(f"  {tag}: V-cycles {it} vs {it_ref}, status {st} vs "
+              f"{st_ref}, residual {float(got.final_residual):.4e} vs "
+              f"{float(ref.final_residual):.4e}", flush=True)
+        if abs(it - it_ref) > tol_it or st != st_ref \
+                or st != PoissonStatus.CONVERGED:
+            fail(f"{tag}: V-cycles or status differ, or not converged")
+        return compare(tag, "x", got.x, ref.x, TOL_DOT, True)
+
+    for n in (33, 129):
+        shape = (1, n, n)
+        tag = f"{n}^2"
+        print(f"phase 17 mg_solve vs plain at {tag}", flush=True)
+        levels = mg_levels(shape)
+        _, prob = cg_problem(shape)
+        pp = PoissonParams(tolerance=1e-6, max_iterations=60)
+        gen = torch.Generator(device=dev).manual_seed(7)
+        rhs = torch.randn(shape, generator=gen, device=dev)
+        x0 = torch.zeros_like(rhs)
+        kern = mgs.make_multigrid_vmem(prob, pp, device=dev)
+        plain = mgs.make_multigrid_vmem(prob, pp, device=dev, plain=True)
+        got, ref = kern(x0, rhs), plain(x0, rhs)
+        err, rel = mg_agree(f"{tag} mg_solve", got, ref)
+        rec = records.setdefault(("mg2d", "mg_solve"), {
+            "replaces": MG_VMEM, "source": SRC_MGS, "max_abs_err": 0.0,
+            "max_rel_err": 0.0})
+        rec["max_abs_err"] = max(rec["max_abs_err"], err)
+        rec["max_rel_err"] = max(rec["max_rel_err"], rel)
+        ms_k = cuda_ms(lambda: kern(x0, rhs))
+        n_it = int(got.iterations)
+        print(f"  {tag} mg_solve: {ms_k:.4f} ms a solve, "
+              f"{ms_k / max(n_it, 1) * 1e3:.2f} us a V-cycle "
+              f"({len(levels)} levels)", flush=True)
+        if n == 129:
+            rec["ms"], rec["plain_ms"] = ms_k, cuda_ms(lambda: plain(x0,
+                                                                     rhs))
+            rec["library_ms"] = None
+            rec["bound_ms"], rec["bound_by"] = bound(
+                nbytes((x0, rhs, got.x)),
+                n_it * (vcycle_flops_2d(levels, 2, 2)
+                        + FLOPS_PER_POINT["mg2d_iter"] * interior(shape)))
+            mg2d = {"iterations": n_it, "ms": ms_k,
+                    "plain_ms": rec["plain_ms"]}
+            print(f"  {tag} mg_solve: plain {rec['plain_ms']:.3f} ms, bound "
+                  f"{rec['bound_ms']:.5f} ms ({rec['bound_by']})",
+                  flush=True)
+
+    # ---- phase 18: bench.py's multigrid_513 --------------------------------
+    n = N_MG
+    _, prob = cg_problem((n, n, n))
+    levels = mg_levels((n, n, n))
+    pp = PoissonParams(tolerance=1e-6, max_iterations=2000,
+                       check_interval=10)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    rhs = prob.zero_boundary(torch.randn((n, n, n), generator=gen,
+                                         device=dev))
+    x0 = torch.zeros_like(rhs)
+    solve = mgs.make_multigrid(prob, pp, device=dev)
+    solve(x0, rhs)                              # warm-up, same pattern
+    sync()
+    mgk.rb_sweep.launches = 0
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    res = solve(x0, rhs)
+    end.record()
+    sync()
+    ms_mg = start.elapsed_time(end)
+    n_it, syncs, n_sweeps = int(res.iterations), solve.host_syncs, \
+        mgk.rb_sweep.launches
+    xd, rd = prob.zero_boundary(res.x.double()), rhs.double()
+    true_rel = float(prob.interior(prob.laplacian(xd) - rd).norm()
+                     / prob.interior(rd).norm())
+    del xd, rd
+    print(f"phase 18 multigrid_513 (513^3, tol 1e-6, check_interval 10): "
+          f"{n_it} V-cycles (reference {MG_513_ITERS}), status "
+          f"{int(res.status)}, {ms_mg:.1f} ms a solve, "
+          f"{ms_mg / n_it:.3f} ms a V-cycle, {syncs} host syncs, "
+          f"{n_sweeps} rb_sweep launches ({len(levels)} levels), residual "
+          f"{float(res.final_residual):.4e} of "
+          f"{float(res.initial_residual):.4e}, true relative residual "
+          f"{true_rel:.4e}", flush=True)
+    if int(res.status) != PoissonStatus.CONVERGED or not true_rel <= 1e-3:
+        fail("multigrid_513: not converged, or true residual above 1e-3")
+    if abs(n_it - MG_513_ITERS) > 1 or n_sweeps <= 0:
+        fail(f"multigrid_513: {n_it} V-cycles, outside {MG_513_ITERS} ± 1, "
+             f"or no sweep launched")
+    plain_solve = mgs.make_multigrid(prob, pp, device=dev, plain=True)
+    sync()
+    t0 = time.perf_counter()
+    res_p = plain_solve(x0, rhs)
+    sync()
+    ms_mg_plain = (time.perf_counter() - t0) * 1e3
+    print(f"phase 18 multigrid_513 plain path: {ms_mg_plain:.1f} ms",
+          flush=True)
+    mg_agree("multigrid_513 kernel vs plain", res, res_p, tol_it=0)
+    del res, res_p
+    for lv in levels:
+        xs = torch.randn(lv.shape, generator=gen, device=dev)
+        bs = torch.randn(lv.shape, generator=gen, device=dev)
+        rs = torch.empty_like(xs)
+        t_s = cuda_ms(lambda: mgk.rb_sweep(xs, bs, lv))
+        t_r = cuda_ms(lambda: mgk.rb_sweep(xs, bs, lv, residual=rs))
+        b_s = bound(3 * nbytes((xs,)), FLOPS_PER_POINT["rb_sweep"]
+                    * interior(lv.shape))[0]
+        b_r = bound(4 * nbytes((xs,)), (FLOPS_PER_POINT["rb_sweep"]
+                                        + FLOPS_PER_POINT["mg_residual"])
+                    * interior(lv.shape))[0]
+        print(f"  level {lv.shape[2]}^3: sweep {t_s:.4f} ms (bound "
+              f"{b_s:.4f}), with residual {t_r:.4f} ms (bound {b_r:.4f})",
+              flush=True)
+        del xs, bs, rs
+    mg513 = {"iterations": n_it, "ms": ms_mg, "plain_ms": ms_mg_plain,
+             "host_syncs": syncs, "true_rel_residual": true_rel}
+
+    # ---- phase 19: MG-preconditioned CG at 513³ through the front end ---
+    pp_mgcg = PoissonParams(tolerance=1e-6, max_iterations=2000,
+                            preconditioner=Precond.MULTIGRID)
+    mgcg = {}
+    for path in ("kernel", "plain"):
+        ps = frontend.create_solver(Method.CG, pp_mgcg, device=dev,
+                                    plain=path == "plain")
+        ps.init(n, n, n, prob.dx, prob.dy, prob.dz)
+        if path == "kernel":
+            ps.solve_result(x0, rhs)            # warm-up
+            sync()
+            mgk.rb_sweep.launches = 0
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        mgcg[path] = ps.solve_result(x0, rhs)
+        end.record()
+        sync()
+        mgcg[path + "_ms"] = start.elapsed_time(end)
+        if path == "kernel":
+            mgcg["launches"] = mgk.rb_sweep.launches
+    r_k = mgcg["kernel"]
+    it_k = int(r_k.iterations)
+    print(f"phase 19 MG-CG 513^3 (tol 1e-6, check_interval 1, one "
+          f"symmetric V-cycle a preconditioner): {it_k} iterations, "
+          f"{mgcg['kernel_ms']:.1f} ms a solve "
+          f"({mgcg['kernel_ms'] / max(it_k, 1):.3f} ms an iteration), "
+          f"plain {mgcg['plain_ms']:.1f} ms, {mgcg['launches']} rb_sweep "
+          f"launches; beside cg_512's {cg512['iterations']} iterations and "
+          f"{cg512['ms']:.1f} ms (phase 13; the grids differ: 513^3 here, "
+          f"512^3 there)", flush=True)
+    if mgcg["launches"] <= 0:
+        fail("MG-CG: the sweep kernel was not launched")
+    mg_agree("MG-CG 513^3 kernel vs plain", r_k, mgcg["plain"], tol_it=0)
+    mgcg_rec = {"iterations": it_k, "ms": mgcg["kernel_ms"],
+                "plain_ms": mgcg["plain_ms"]}
+    del rhs, x0, mgcg, r_k, solve, plain_solve
+    torch.cuda.empty_cache()
+
+    # ---- phase 20: the 3D multigrid projection step at 257³ ---------------
+    shape = (N_MG_STEP,) * 3
+    grid_mg = uniform_grid(shape)
+    floor_step = make_projection_step(
+        grid_mg, params_cg, torch.float32, Method.MULTIGRID, device=dev,
+        poisson_params=PoissonParams(tolerance=0.0,
+                                     max_iterations=MG_FLOOR_CYCLES))
+    floor_step(tg_field(shape), 1e-4, 0)
+    lp = floor_step.last_poisson
+    mg_floor = float(lp.final_residual) / float(lp.initial_residual)
+    print(f"phase 20 float32 residual floor of the first step's solve: "
+          f"{mg_floor:.3e} relative after {MG_FLOOR_CYCLES} V-cycles; the "
+          f"step runs at tolerance {MG_STEP_TOL:g}", flush=True)
+    if not mg_floor < MG_STEP_TOL:
+        fail("phase 20: the residual floor is above the step's tolerance")
+    del floor_step, lp
+    finals, mg_ms = {}, {}
+    for path in ("kernel", "plain"):
+        stepf = make_projection_step(
+            grid_mg, params_cg, torch.float32, Method.MULTIGRID, device=dev,
+            poisson_params=PoissonParams(tolerance=MG_STEP_TOL),
+            plain=path == "plain")
+        f0 = tg_field(shape)
+        run_steps(stepf, f0, 1e-4, CG_STEPS)
+        sync()
+        if path == "kernel":
+            pkm.reset_launch_counts()
+            mgk.rb_sweep.launches = 0
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        f, its, worst = f0, [], 0
+        for i in range(CG_STEPS):
+            f, r = stepf(f, 1e-4, i)
+            its.append(stepf.last_poisson.iterations)
+            worst = torch.maximum(torch.as_tensor(worst, device=dev),
+                                  r.status.abs())
+        end.record()
+        sync()
+        mg_ms[path] = start.elapsed_time(end) / CG_STEPS
+        its = [int(t) for t in its]
+        print(f"phase 20 MG step 257^3 (tolerance {MG_STEP_TOL:g}) {path} "
+              f"path: {mg_ms[path]:.3f} "
+              f"ms/step, {N_MG_STEP ** 3 / (mg_ms[path] * 1e-3) / 1e6:.1f} "
+              f"MLUPS, V-cycles a step {its}, host syncs of the last solve "
+              f"{stepf.poisson_solve.host_syncs}, worst status "
+              f"{int(worst)}, max|u| {float(r.max_velocity):.6f}",
+              flush=True)
+        if int(worst) != 0 or not bool(f.is_finite()):
+            fail(f"phase 20 {path} path: nonzero status or non-finite")
+        if path == "kernel":
+            counts = {fn.__name__: fn.launches for fn in
+                      pkm.WRAPPERS_RHS + mgk.WRAPPERS}
+            print(f"phase 20 launch counts over the main path: {counts}",
+                  flush=True)
+            if any(v <= 0 for v in counts.values()):
+                fail(f"phase 20: kernels not launched: {counts}")
+            launch_counts["mg3d"] = {"rb_sweep": counts["rb_sweep"]}
+        finals[path] = f
+        del f0
+    for name in "uvw":
+        compare(f"phase 20 {CG_STEPS} steps", name,
+                getattr(finals["kernel"], name),
+                getattr(finals["plain"], name), TOL_CG_UVW, False)
+    close_p(f"phase 20 {CG_STEPS} steps", finals["kernel"].p,
+            finals["plain"].p)
+    del finals
+    # the CG step on the same grid at the same tolerance, for a like for
+    # like comparison of the two solves (kernel path, not a main path)
+    stepf = make_projection_step(
+        grid_mg, params_cg, torch.float32, device=dev,
+        poisson_params=PoissonParams(tolerance=MG_STEP_TOL))
+    f0 = tg_field(shape)
+    run_steps(stepf, f0, 1e-4, CG_STEPS)
+    sync()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    f, its, worst = f0, [], 0
+    for i in range(CG_STEPS):
+        f, r = stepf(f, 1e-4, i)
+        its.append(stepf.last_poisson.iterations)
+        worst = torch.maximum(torch.as_tensor(worst, device=dev),
+                              r.status.abs())
+    end.record()
+    sync()
+    mg_ms["cg_same_tolerance"] = start.elapsed_time(end) / CG_STEPS
+    print(f"phase 20 CG step 257^3 (tolerance {MG_STEP_TOL:g}) kernel path: "
+          f"{mg_ms['cg_same_tolerance']:.3f} ms/step, CG iterations a step "
+          f"{[int(t) for t in its]}, against the MG step's "
+          f"{mg_ms['kernel']:.3f}", flush=True)
+    if int(worst) != 0 or not bool(f.is_finite()):
+        fail("phase 20 CG step: nonzero status or non-finite")
+    del stepf, f0, f
+    torch.cuda.empty_cache()
+
+    # ---- phase 21: 2D — run_mg2d_vmem(129), Ghia with MG, the facade -----
+    print(f"phase 21 run_mg2d_vmem(129): {mg2d['iterations']} V-cycles "
+          f"(reference {MG2D_ITERS}), {mg2d['ms']:.4f} ms a solve, plain "
+          f"{mg2d['plain_ms']:.3f} ms (phase 17)", flush=True)
+    if abs(mg2d["iterations"] - MG2D_ITERS) > 1:
+        fail(f"run_mg2d_vmem(129): outside {MG2D_ITERS} ± 1 V-cycles")
+    vmem_mg.mg_solve.launches = 0
+    ghia_gate("phase 21", 129, 100, 5e-4, 20000, 0.10, Method.MULTIGRID)
+    print(f"phase 21 mg_solve launches {vmem_mg.mg_solve.launches}",
+          flush=True)
+    sim = Simulation.create(MG_FACADE, MG_FACADE,
+                            solver_type="projection_multigrid", device=dev)
+    floor_step = make_projection_step(
+        sim.grid, sim.params, torch.float32, Method.MULTIGRID, device=dev,
+        poisson_params=PoissonParams(tolerance=0.0,
+                                     max_iterations=MG_FLOOR_CYCLES))
+    floor_step(sim.field, 0.005, 0)             # Simulation.step's dt, iter
+    lp = floor_step.last_poisson
+    facade_floor = float(lp.final_residual) / float(lp.initial_residual)
+    print(f"phase 21 facade {MG_FACADE}^2: float32 residual floor of the "
+          f"first step's solve {facade_floor:.3e} relative after "
+          f"{MG_FLOOR_CYCLES} V-cycles; the solver runs at tolerance "
+          f"{MG_FACADE_TOL:g}", flush=True)
+    if not facade_floor < MG_FACADE_TOL:
+        fail("phase 21 facade: the residual floor is above the tolerance")
+    del floor_step, lp
+    facade_pp = PoissonParams(tolerance=MG_FACADE_TOL)
+    solver = sim.registry.create("projection_multigrid")
+    solver.poisson_params = facade_pp
+    sim.set_solver(solver)
+    pk2m.reset_launch_counts()
+    vmem_mg.mg_solve.launches = 0
+    start_field, checked = sim.field, None
+    sync()
+    t0 = time.perf_counter()
+    for i in range(MG_FACADE_STEPS):
+        status = sim.step()
+        if status != 0:
+            fail(f"phase 21 facade: step returned status {int(status)}")
+        if i + 1 == FACADE_CHECK:
+            checked = sim.field
+    wall_mg = (time.perf_counter() - t0) * 1e3
+    n_launch = vmem_mg.mg_solve.launches
+    stats = sim.get_stats()
+    print(f"phase 21 Simulation.create({MG_FACADE}, {MG_FACADE}, "
+          f"solver_type='projection_multigrid'), tolerance "
+          f"{MG_FACADE_TOL:g}: {MG_FACADE_STEPS} step()s "
+          f"in {wall_mg:.1f} ms host wall ({wall_mg / MG_FACADE_STEPS:.4f} "
+          f"ms a step), last V-cycles "
+          f"{int(sim.solver._step_fn.last_poisson.iterations)}, max|u| "
+          f"{stats.max_velocity:.6f}, max p {stats.max_pressure:.6f}, "
+          f"mg_solve launches {n_launch}", flush=True)
+    if n_launch != MG_FACADE_STEPS:
+        fail("phase 21 facade: not the whole-solve multigrid once a step")
+    launch_counts["mg2d"] = {"mg_solve": n_launch}
+    plain_mg = make_projection_step(sim.grid, sim.params, torch.float32,
+                                    Method.MULTIGRID, device=dev,
+                                    poisson_params=facade_pp, plain=True)
+    fp = start_field
+    for _ in range(FACADE_CHECK):
+        fp, rp = plain_mg(fp, 0.005, 0)        # Simulation.step's dt, iter
+    sync()
+    for name in "uv":
+        compare(f"phase 21 facade {FACADE_CHECK} steps", name,
+                getattr(checked, name), getattr(fp, name), TOL_CG_UVW,
+                False)
+    close_p(f"phase 21 facade {FACADE_CHECK} steps", checked.p, fp.p)
+
     kernels = []
     for (path, name), rec in records.items():
         launches = launch_counts.get(path, {}).get(name)
@@ -1345,6 +1779,11 @@ def main() -> int:
                       "grid_2d": f"{n2}x{n2}", "explicit_step_ms":
                       explicit_ms, "cg_512": cg512, "cg_step_ms_256": cg_ms,
                       "facade_projection_ms": wall_cg / FACADE_STEPS,
+                      "multigrid_513": mg513, "mg_cg_513": mgcg_rec,
+                      "mg_step_ms_257": dict(mg_ms, tolerance=MG_STEP_TOL,
+                                            floor=mg_floor), "mg2d_129": mg2d,
+                      "facade_multigrid_ms": wall_mg / MG_FACADE_STEPS,
+                      "facade_multigrid_floor": facade_floor,
                       "card": card}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -31,7 +31,6 @@ from cfd_tpu.solvers.poisson import krylov as jkrylov
 from cfd_tpu.solvers.poisson.base import PoissonParams as JParams
 from cfd_tpu.solvers.poisson.base import PoissonProblem as JProblem
 from cfd_tpu.solvers.poisson.base import Precond as JPrecond
-from cfd_tpu_torch import CFDError, Status
 from cfd_tpu_torch.ops.kernels import cg_kernels as cgk
 from cfd_tpu_torch.ops.kernels import vmem_small
 from cfd_tpu_torch.solvers.poisson import krylov
@@ -278,11 +277,33 @@ def test_solvers_leave_their_inputs_alone():
 
 
 def test_multigrid_preconditioner_is_unsupported():
-    prob, _ = _problems((8, 8, 8))
+    """The CG makers do not apply the multigrid preconditioner: with
+    ``Precond.MULTIGRID`` they run unpreconditioned CG, as the
+    reference's do (`krylov.py:37`, `:136-137`; its ``make_cg_vmem``
+    falls back to ``make_cg``) — the iterations and x of
+    ``Precond.NONE``, and ``make_cg`` those of the reference's jnp one in
+    float64. Only the Poisson front end turns it into MG-CG."""
+    shape = (8, 8, 8)
+    prob, jprob = _problems(shape)
+    rhs = _rhs("random", shape)
+    x0 = np.zeros(shape)
+    mg_params = PoissonParams(preconditioner=Precond.MULTIGRID,
+                              max_iterations=60)
     for maker in (krylov.make_cg, krylov.make_cg_fused, krylov.make_cg_vmem):
-        with pytest.raises(CFDError) as err:
-            maker(prob, PoissonParams(preconditioner=Precond.MULTIGRID))
-        assert err.value.status == Status.ERROR_UNSUPPORTED
+        got = maker(prob, mg_params)(torch.tensor(x0), torch.tensor(rhs))
+        ref = maker(prob, PoissonParams(max_iterations=60))(
+            torch.tensor(x0), torch.tensor(rhs))
+        assert int(got.iterations) == int(ref.iterations) > 0
+        assert int(got.status) == int(ref.status) == PoissonStatus.CONVERGED
+        assert torch.equal(got.x, ref.x)
+    jres = jkrylov.make_cg(jprob, JParams(preconditioner=JPrecond.MULTIGRID,
+                                          max_iterations=60))(
+        jnp.asarray(x0), jnp.asarray(rhs))
+    res = krylov.make_cg(prob, mg_params)(torch.tensor(x0),
+                                          torch.tensor(rhs))
+    assert int(res.iterations) == int(jres.iterations)
+    np.testing.assert_allclose(res.x.numpy(), np.asarray(jres.x), rtol=0,
+                               atol=1e-10)
 
 
 def test_vmem_solve_returns_the_reference_tuple():

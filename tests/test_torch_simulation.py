@@ -7,8 +7,8 @@ the reference's (`cfd_tpu.api`), in float64 on the CPU.
   the reference's session;
 * every registered name: the same list, backends and descriptions; the
   CG ``projection`` family runs a session like the other ported names;
-  ``projection_multigrid``, not ported, creates a solver whose ``init``
-  raises ``CFDError(ERROR_UNSUPPORTED)``;
+  each of the 18 names inits and steps; ``projection_multigrid`` runs a
+  2D session on a 2^k+1 grid;
 * the divergence guard of ``solve`` on a field with a NaN.
 """
 
@@ -39,7 +39,6 @@ from cfd_tpu_torch.solvers.ns.solver import NSSolver
 torch.set_num_threads(min(2, torch.get_num_threads()))
 
 NAMES = ("u", "v", "w", "p", "rho", "T")
-UNPORTED = ("projection_multigrid",)
 
 
 def _session(nx=32, ny=16, **kw):
@@ -166,16 +165,45 @@ def test_unknown_name_and_checked_create():
     assert SolverRegistry().list() == []
 
 
-@pytest.mark.parametrize("name", UNPORTED)
-def test_unported_names_raise_at_init(name):
-    """The name creates a solver; its init raises unsupported."""
-    solver = create_registry(device="cpu").create(name)
+@pytest.mark.parametrize("name", create_registry().list())
+def test_every_name_inits_and_steps(name):
+    """Each of the 18 registered names inits on a 2^k+1 grid (which
+    multigrid needs) and takes a step on the CPU, as the reference's."""
+    solver = create_registry(device="cpu", dtype=torch.float64).create(name)
+    jsolver = j_create_registry().create(name)
+    grid, jgrid = Grid.uniform(17, 17), JGrid.uniform(17, 17)
+    assert solver.init(grid, NSParams()) == Status.SUCCESS
+    jsolver.init(jgrid, JParams())
+    f = FlowField.initialize(grid, dtype=torch.float64, device="cpu")
+    out, stats = solver.step(f)
+    jout, jstats = jsolver.step(JField.initialize(jgrid))
+    assert stats.status == jstats.status == Status.SUCCESS
+    np.testing.assert_allclose(field_to_numpy(out)["u"],
+                               np.asarray(jout.u), rtol=0, atol=1e-10)
+
+
+def test_projection_multigrid_session():
+    """``Simulation.create(33, 33, solver_type="projection_multigrid")``:
+    ten ``step()``s and a ``solve()`` against the reference's session
+    (the facade's dt = 0.005 is inside the viscous limit at 33²)."""
+    sim = _session(33, 33, solver_type="projection_multigrid")
+    jsim = JSimulation.create(33, 33, solver_type="projection_multigrid")
+    _run_both(sim, jsim, 10)
+    _assert_sessions_close(sim, jsim)
+    assert sim.solve() == jsim.solve() == Status.SUCCESS
+    _assert_sessions_close(sim, jsim)
+
+
+def test_projection_multigrid_needs_a_coarsenable_grid():
+    """On a grid that cannot be coarsened the name creates a solver whose
+    init raises unsupported, as the reference's."""
+    solver = create_registry(device="cpu").create("projection_multigrid")
     assert solver is not None and solver.method == "projection"
     with pytest.raises(CFDError) as err:
         solver.init(Grid.uniform(32, 16), NSParams())
     assert err.value.status == Status.ERROR_UNSUPPORTED
     with pytest.raises(CFDError):
-        _session(solver_type=name)
+        _session(solver_type="projection_multigrid")
 
 
 @pytest.mark.parametrize("call", [

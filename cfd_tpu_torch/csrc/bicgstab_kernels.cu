@@ -1,0 +1,550 @@
+// Hand-written CUDA kernels for the BiCGSTAB pressure solve on Hopper.
+//
+// They replace the TPU kernels of the reference's BiCGSTAB solve:
+//
+//   B1  bicg_pv_kernel + bicg_pv_finalize, bicg_st_kernel +
+//       bicg_st_finalize, bicg_xr_kernel + bicg_xr_finalize
+//       <- BiCGSTABKernels.pass_pv / pass_st / pass_xr
+//          (cfd_tpu/ops/pallas/bicgstab_kernels.py:147-156, built at
+//          :94-143), three passes an iteration in the Dirichlet-0
+//          correction space (zero shells):
+//            pv: p' = r + beta (p - omega v), v' = -lap p', <rhat, v'>
+//            st: s = r - alpha v', t = -lap s, <s, s>, <t, s>, <t, t>
+//            xr: x += alpha p' + omega s, r = s - omega t (x's shell kept),
+//                <r, r>, <rhat, r> (the next iteration's rho)
+//          The finalize blocks carry the scalar recurrence of
+//          make_bicgstab_fused (cfd_tpu/solvers/poisson/krylov.py:328-361):
+//          beta, alpha with the rhv breakdown, omega with the early s-exit
+//          and the tt breakdown, the effective alpha and omega (zeroed on
+//          breakdown or early exit), the residual, convergence, the omega
+//          breakdown, stagnation and the running flag.
+//   B2  bicg_solve_kernel
+//       <- make_bicgstab_vmem_solve (cfd_tpu/ops/pallas/vmem_small.py:326):
+//          the whole un-rotated BiCGSTAB loop (:364-404) in one cooperative
+//          launch, with the early s-exit, breakdowns 1-4, stagnation and
+//          the stats rules of :411-416.
+//
+// What bounds them on an H100, and what the design does:
+//
+// * B1 is three passes over the field an iteration, a few flops per byte:
+//   bound by device-memory bandwidth, 17 fields an iteration (pv 4 in and
+//   2 out, st 2 and 2, xr 5 and 2).  One thread per point, as the CG
+//   passes (cg_kernels.cu): pv forms p' at the six neighbours from r, p
+//   and v, st forms s from r and v' (L1/L2 hits), so p', v', s and t go to
+//   buffers of their own.  The TPU kernels march z-planes and carry the
+//   dots in scratch; here each block writes its partial sums and a
+//   one-block finalize folds them in a fixed order, no float atomics.
+// * Every dot is accumulated in float64 (a product of two floats is exact
+//   there) and rounded to float once, in the plain versions too.  In
+//   float32 sums, rho = <rhat, r> falls below the sum's rounding once r is
+//   nearly orthogonal to rhat = r0 — from a Taylor-Green start on grids
+//   of 80^3 and more, within 90-140 iterations — and the solve stops on
+//   the rho breakdown far from its tolerance (the reference's float32
+//   algorithm does the same); accumulated in float64 it converges.
+// * The loop runs on the host, but its scalars stay on the card in a state
+//   vector (bicgstab_kernels.py holds the slot layout).  Once the running
+//   flag drops every kernel returns at once, so iterations the host queued
+//   past the stop are no-ops.
+// * B2 is for small grids (2D planes, small volumes): latency bounds it.
+//   One cooperative launch sized by the occupancy API, grid-stride loops
+//   over the interior in one fixed point-to-thread mapping (so pointwise
+//   in-place updates need no barrier), five grid barriers an iteration
+//   (after the p update, then one per dot group).  Each dot group is a
+//   per-block partial, a barrier, then every block folds the partials in
+//   one order, so all blocks agree on every scalar and leave the loop
+//   together.  The next rho = <rhat, r> is folded with the x/r update, the
+//   value the un-rotated loop forms at the top of the next iteration.
+//
+// Built with -fmad=false in the plain versions' operation order, so the
+// pass fields match them bit for bit on identical scalars; the dots differ
+// in summation order.  Every entry point returns cudaGetLastError().
+
+#include <cooperative_groups.h>
+#include <cuda_runtime.h>
+#include <math.h>
+
+#include "block_reduce.cuh"
+#include "volume.cuh"
+
+namespace cg = cooperative_groups;
+
+namespace {
+
+constexpr int kTileX = 32, kTileY = 8;  // B1: 256-thread tiles
+constexpr int kThreads = kTileX * kTileY;
+constexpr int kFoldThreads = 1024;      // the finalize blocks
+constexpr float kBreakdown = 1e-30f;    // krylov.BREAKDOWN
+
+// slots of the solver state vector (bicgstab_kernels.py: RHO_PREV ...)
+enum {
+  kRhoPrev = 0, kRho, kAlpha, kOmega, kBeta, kIt, kRes, kRunning,
+  kStagnated, kTol, kAbsTol, kBd1, kRhv, kAlphaNew, kBd, kSS, kTS, kTT,
+  kEarly, kBd3, kOmegaNew, kAlphaEff, kOmegaEff, kRR, kRhatR
+};
+
+__device__ __forceinline__ bool inside(int k, int j, int i, int nz, int ny,
+                                       int nx) {
+  return k > 0 && k < nz - 1 && j > 0 && j < ny - 1 && i > 0 && i < nx - 1;
+}
+
+__device__ __forceinline__ long long tile_block() {
+  return ((long long)blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x +
+         blockIdx.x;
+}
+
+__device__ __forceinline__ float flag(bool b) { return b ? 1.0f : 0.0f; }
+
+// beta = (rho / rho_prev) (alpha / omega), each divisor 1 on breakdown
+__device__ __forceinline__ float bicg_beta(float rho, float rho_prev,
+                                           float alpha, float omega) {
+  return (rho / (fabsf(rho) < kBreakdown ? 1.0f : rho_prev)) *
+         (alpha / (fabsf(omega) < kBreakdown ? 1.0f : omega));
+}
+
+// 7-point Laplacian of a field g given pointwise (0 on the shell), at the
+// interior point (k, j, i): the plain version's order
+template <typename G>
+__device__ __forceinline__ float lap7(G g, long long c, int k, int j, int i,
+                                      int nz, int ny, int nx, long long sy,
+                                      long long sz, float inv_dx2,
+                                      float inv_dy2, float inv_dz2,
+                                      float gc) {
+  const float c2 = 2.0f * gc;
+  return (((g(c + 1, i < nx - 2) - c2) + g(c - 1, i > 1)) * inv_dx2 +
+          ((g(c + sy, j < ny - 2) - c2) + g(c - sy, j > 1)) * inv_dy2) +
+         ((g(c + sz, k < nz - 2) - c2) + g(c - sz, k > 1)) * inv_dz2;
+}
+
+// ---- B1 pv: p', v', <rhat, v'> ---------------------------------------------
+
+__global__ void __launch_bounds__(kThreads) bicg_pv_kernel(
+    const float* __restrict__ r, const float* __restrict__ p,
+    const float* __restrict__ v, const float* __restrict__ rhat,
+    float* __restrict__ pn, float* __restrict__ vn,
+    const float* __restrict__ st, double* __restrict__ part, int nz, int ny,
+    int nx, float inv_dx2, float inv_dy2, float inv_dz2) {
+  if (st[kRunning] == 0.0f) return;  // uniform: the whole grid returns
+  const int i = blockIdx.x * kTileX + threadIdx.x;
+  const int j = blockIdx.y * kTileY + threadIdx.y;
+  const int k = blockIdx.z;
+  double acc = 0.0;
+  if (i < nx && j < ny) {
+    const long long sy = nx, sz = (long long)ny * nx;
+    const long long c = k * sz + j * sy + i;
+    if (inside(k, j, i, nz, ny, nx)) {
+      const float beta = st[kBeta], omega = st[kOmega];
+      // p' at a neighbour: 0 on the shell (the correction space)
+      auto pp = [&](long long q, bool in) {
+        return in ? r[q] + beta * (p[q] - omega * v[q]) : 0.0f;
+      };
+      const float pc = pp(c, true);
+      const float a = -lap7(pp, c, k, j, i, nz, ny, nx, sy, sz, inv_dx2,
+                            inv_dy2, inv_dz2, pc);
+      pn[c] = pc;
+      vn[c] = a;
+      acc = (double)rhat[c] * a;
+    } else {
+      pn[c] = 0.0f;
+      vn[c] = 0.0f;
+    }
+  }
+  const double s =
+      block_sum_d<kThreads>(acc, threadIdx.y * kTileX + threadIdx.x);
+  if (threadIdx.x == 0 && threadIdx.y == 0) part[tile_block()] = s;
+}
+
+// <rhat, v'>, the rho and rhv breakdowns, alpha = rho / <rhat, v'>
+__global__ void __launch_bounds__(kFoldThreads) bicg_pv_finalize(
+    const double* __restrict__ part, long long n, float* __restrict__ st) {
+  if (st[kRunning] == 0.0f) return;
+  const float rhv = (float)fold_d<kFoldThreads>(part, n, threadIdx.x);
+  if (threadIdx.x == 0) {
+    const float rho = st[kRho];
+    const bool bd1 = fabsf(rho) < kBreakdown;
+    const bool bd2 = fabsf(rhv) < kBreakdown;
+    st[kRhv] = rhv;
+    st[kBd1] = flag(bd1);
+    st[kAlphaNew] = rho / (bd2 ? 1.0f : rhv);
+    st[kBd] = flag(bd1 || bd2);
+  }
+}
+
+// ---- B1 st: s, t, <s, s>, <t, s>, <t, t> ------------------------------------
+
+__global__ void __launch_bounds__(kThreads) bicg_st_kernel(
+    const float* __restrict__ r, const float* __restrict__ vn,
+    float* __restrict__ s, float* __restrict__ t,
+    const float* __restrict__ st, double* __restrict__ part, int nz, int ny,
+    int nx, float inv_dx2, float inv_dy2, float inv_dz2) {
+  if (st[kRunning] == 0.0f) return;
+  const int i = blockIdx.x * kTileX + threadIdx.x;
+  const int j = blockIdx.y * kTileY + threadIdx.y;
+  const int k = blockIdx.z;
+  double ss = 0.0, ts = 0.0, tt = 0.0;
+  if (i < nx && j < ny) {
+    const long long sy = nx, sz = (long long)ny * nx;
+    const long long c = k * sz + j * sy + i;
+    if (inside(k, j, i, nz, ny, nx)) {
+      const float alpha = st[kAlphaNew];
+      auto sv = [&](long long q, bool in) {
+        return in ? r[q] - alpha * vn[q] : 0.0f;
+      };
+      const float sc = sv(c, true);
+      const float tv = -lap7(sv, c, k, j, i, nz, ny, nx, sy, sz, inv_dx2,
+                             inv_dy2, inv_dz2, sc);
+      s[c] = sc;
+      t[c] = tv;
+      ss = (double)sc * sc;
+      ts = (double)tv * sc;
+      tt = (double)tv * tv;
+    } else {
+      s[c] = 0.0f;
+      t[c] = 0.0f;
+    }
+  }
+  const int tid = threadIdx.y * kTileX + threadIdx.x;
+  const long long nb = (long long)gridDim.x * gridDim.y * gridDim.z;
+  const long long b = tile_block();
+  ss = block_sum_d<kThreads>(ss, tid);
+  ts = block_sum_d<kThreads>(ts, tid);
+  tt = block_sum_d<kThreads>(tt, tid);
+  if (tid == 0) {
+    part[b] = ss;
+    part[nb + b] = ts;
+    part[2 * nb + b] = tt;
+  }
+}
+
+// omega = <t, s> / <t, t> with the tt breakdown, the early s-exit, and the
+// alpha and omega the x/r pass applies
+__global__ void __launch_bounds__(kFoldThreads) bicg_st_finalize(
+    const double* __restrict__ part, long long n, float* __restrict__ st) {
+  if (st[kRunning] == 0.0f) return;
+  const float ss = (float)fold_d<kFoldThreads>(part, n, threadIdx.x);
+  const float ts = (float)fold_d<kFoldThreads>(part + n, n, threadIdx.x);
+  const float tt = (float)fold_d<kFoldThreads>(part + 2 * n, n, threadIdx.x);
+  if (threadIdx.x == 0) {
+    const float s_norm = sqrtf(ss);
+    const bool early = s_norm < st[kTol] || s_norm < st[kAbsTol];
+    const bool bd3 = fabsf(tt) < kBreakdown;
+    const float omega_new = ts / (bd3 ? 1.0f : tt);
+    const bool bd = st[kBd] != 0.0f;
+    st[kSS] = ss;
+    st[kTS] = ts;
+    st[kTT] = tt;
+    st[kEarly] = flag(early);
+    st[kBd3] = flag(bd3);
+    st[kOmegaNew] = omega_new;
+    st[kAlphaEff] = bd ? 0.0f : st[kAlphaNew];
+    st[kOmegaEff] = (bd || early || bd3) ? 0.0f : omega_new;
+  }
+}
+
+// ---- B1 xr: x', r', <r', r'>, <rhat, r'> ------------------------------------
+
+__global__ void __launch_bounds__(kThreads) bicg_xr_kernel(
+    float* __restrict__ x, float* __restrict__ r,
+    const float* __restrict__ pn, const float* __restrict__ s,
+    const float* __restrict__ t, const float* __restrict__ rhat,
+    const float* __restrict__ st, double* __restrict__ part, int nz, int ny,
+    int nx) {
+  if (st[kRunning] == 0.0f) return;
+  const int i = blockIdx.x * kTileX + threadIdx.x;
+  const int j = blockIdx.y * kTileY + threadIdx.y;
+  const int k = blockIdx.z;
+  double rr = 0.0, rh = 0.0;
+  if (i < nx && j < ny && inside(k, j, i, nz, ny, nx)) {
+    const long long c = (k * (long long)ny + j) * nx + i;
+    const float alpha = st[kAlphaEff], omega = st[kOmegaEff];
+    const float x2 = (x[c] + alpha * pn[c]) + omega * s[c];
+    const float r2 = s[c] - omega * t[c];
+    x[c] = x2;
+    r[c] = r2;
+    rr = (double)r2 * r2;
+    rh = (double)rhat[c] * r2;
+  }
+  const int tid = threadIdx.y * kTileX + threadIdx.x;
+  const long long nb = (long long)gridDim.x * gridDim.y * gridDim.z;
+  const long long b = tile_block();
+  rr = block_sum_d<kThreads>(rr, tid);
+  rh = block_sum_d<kThreads>(rh, tid);
+  if (tid == 0) {
+    part[b] = rr;
+    part[nb + b] = rh;
+  }
+}
+
+// The rest of the iteration (krylov.py:352-361): residual, convergence
+// every ci iterations, the omega breakdown, stagnation, the running flag,
+// the carried scalars, and the next iteration's beta.
+__global__ void __launch_bounds__(kFoldThreads) bicg_xr_finalize(
+    const double* __restrict__ part, long long n, float* __restrict__ st,
+    int ci) {
+  if (st[kRunning] == 0.0f) return;
+  const float rr = (float)fold_d<kFoldThreads>(part, n, threadIdx.x);
+  const float rh = (float)fold_d<kFoldThreads>(part + n, n, threadIdx.x);
+  if (threadIdx.x == 0) {
+    const bool bd = st[kBd] != 0.0f, early = st[kEarly] != 0.0f;
+    const bool bd3 = st[kBd3] != 0.0f;
+    const float res_new = bd ? st[kRes] : sqrtf(rr);
+    const int it = (int)st[kIt];
+    const bool conv =
+        early || ((it % ci) == 0 &&
+                  (res_new < st[kTol] || res_new < st[kAbsTol]));
+    const float omega_new = st[kOmegaNew];
+    const bool bd4 = fabsf(omega_new) < kBreakdown;
+    const bool stagnated = bd || bd3 || (bd4 && !conv);
+    const float rho_prev = st[kRho], alpha = st[kAlphaNew];
+    st[kRR] = rr;
+    st[kRhatR] = rh;
+    st[kRhoPrev] = rho_prev;
+    st[kRho] = rh;
+    st[kAlpha] = alpha;
+    st[kOmega] = omega_new;
+    st[kBeta] = bicg_beta(rh, rho_prev, alpha, omega_new);
+    st[kIt] = (float)(it + 1);
+    st[kRes] = res_new;
+    st[kStagnated] = flag(stagnated);
+    st[kRunning] = flag(!(stagnated || conv));
+  }
+}
+
+// ---- B2: the whole solve ----------------------------------------------------
+
+__global__ void __launch_bounds__(kThreads) bicg_solve_kernel(
+    const float* __restrict__ x0, const float* __restrict__ rhs, float* x,
+    float* r, float* rhat, float* p, float* v, float* s, float* t,
+    double* part, float* stats, int nz, int ny, int nx, float inv_dx2,
+    float inv_dy2, float inv_dz2, float tolerance, float abs_tol,
+    int max_iter, int ci) {
+  cg::grid_group grid = cg::this_grid();
+  const int tid = threadIdx.x, nblk = gridDim.x;
+  const Volume vol(nz, ny, nx);
+  const long long stride = (long long)nblk * kThreads;
+  const long long first = (long long)blockIdx.x * kThreads + tid;
+  int group = 0;
+
+  // up to three dots: per-block partials, a grid barrier, then every block
+  // folds them in one order.  Two partial regions alternate, so a block
+  // racing ahead never overwrites a partial another block has to read.
+  auto dots = [&](int n_dots, double a0, double a1, double a2, float* out) {
+    double* reg = part + (group & 1) * 3 * nblk;
+    ++group;
+    const double vals[3] = {a0, a1, a2};
+    for (int q = 0; q < n_dots; ++q) {
+      const double b = block_sum_d<kThreads>(vals[q], tid);
+      if (tid == 0) reg[q * nblk + blockIdx.x] = b;
+    }
+    grid.sync();
+    for (int q = 0; q < n_dots; ++q)
+      out[q] = (float)fold_d<kThreads>(reg + q * nblk, nblk, tid);
+  };
+  auto lap = [&](const float* f, long long c) {
+    return vol.lap(f, c, inv_dx2, inv_dy2, inv_dz2);
+  };
+
+  // x = mirror(x0); p and v start at zero; p and s keep zero shells for
+  // the whole solve (the Laplacians read them)
+  for (long long c = first; c < vol.n; c += stride) {
+    x[c] = x0[vol.mirror(c)];
+    p[c] = 0.0f;
+    v[c] = 0.0f;
+    s[c] = 0.0f;
+  }
+  grid.sync();
+  // r0 = lap x - rhs on the interior, rhat = r0, <r0, r0>
+  double acc = 0.0;
+  for (long long m = first; m < vol.n_in; m += stride) {
+    const long long c = vol.interior_point(m);
+    const float rv = lap(x, c) - rhs[c];
+    r[c] = rv;
+    rhat[c] = rv;
+    acc += (double)rv * rv;
+  }
+  float got[3];
+  dots(1, acc, 0.0, 0.0, got);
+  const float rr0 = got[0];
+  const float init_res = sqrtf(rr0);
+  const float tl = tolerance * init_res;
+  const float tol = (tl > abs_tol || tl != tl) ? tl : abs_tol;  // NaN kept
+  const bool already = init_res < abs_tol;
+  // <rhat, r> of the first iteration is <r0, r0>
+  float rho = 1.0f, alpha = 1.0f, omega = 1.0f, res = init_res;
+  float rho_new = rr0;
+  int it = 0;
+  bool running = !already, stagnated = false;
+
+  while (running && it < max_iter) {
+    const bool bd1 = fabsf(rho_new) < kBreakdown;
+    const float beta = bicg_beta(rho_new, rho, alpha, omega);
+    for (long long m = first; m < vol.n_in; m += stride) {
+      const long long c = vol.interior_point(m);
+      p[c] = r[c] + beta * (p[c] - omega * v[c]);
+    }
+    grid.sync();
+    // v = A p, <rhat, v>
+    acc = 0.0;
+    for (long long m = first; m < vol.n_in; m += stride) {
+      const long long c = vol.interior_point(m);
+      const float a = -lap(p, c);
+      v[c] = a;
+      acc += (double)rhat[c] * a;
+    }
+    dots(1, acc, 0.0, 0.0, got);
+    const float rhv = got[0];
+    const bool bd2 = fabsf(rhv) < kBreakdown;
+    const float alpha_new = rho_new / (bd2 ? 1.0f : rhv);
+    // s = r - alpha v, <s, s>
+    acc = 0.0;
+    for (long long m = first; m < vol.n_in; m += stride) {
+      const long long c = vol.interior_point(m);
+      const float sv = r[c] - alpha_new * v[c];
+      s[c] = sv;
+      acc += (double)sv * sv;
+    }
+    dots(1, acc, 0.0, 0.0, got);
+    const float s_norm = sqrtf(got[0]);
+    const bool early = s_norm < tol || s_norm < abs_tol;
+    // t = A s, <t, s>, <t, t>
+    double ts = 0.0, tt = 0.0;
+    for (long long m = first; m < vol.n_in; m += stride) {
+      const long long c = vol.interior_point(m);
+      const float tv = -lap(s, c);
+      t[c] = tv;
+      ts += (double)tv * s[c];
+      tt += (double)tv * tv;
+    }
+    dots(2, ts, tt, 0.0, got);
+    const bool bd3 = fabsf(got[1]) < kBreakdown;
+    const float omega_new = got[0] / (bd3 ? 1.0f : got[1]);
+    // x and r by the reference's selections (:391-393); <r_full, r_full>
+    // and <rhat, r_full> (the next rho whenever the loop goes on)
+    const bool bd = bd1 || bd2, partial = early || bd3;
+    double rr = 0.0, rh = 0.0;
+    for (long long m = first; m < vol.n_in; m += stride) {
+      const long long c = vol.interior_point(m);
+      const float xa = x[c] + alpha_new * p[c];
+      const float rf = s[c] - omega_new * t[c];
+      if (!bd) x[c] = partial ? xa : xa + omega_new * s[c];
+      if (!(bd || partial)) r[c] = rf;
+      rr += (double)rf * rf;
+      rh += (double)rhat[c] * rf;
+    }
+    dots(2, rr, rh, 0.0, got);
+    const float res_full = sqrtf(got[0]);
+    res = bd ? res : (partial ? s_norm : res_full);
+    const bool conv =
+        early || ((it % ci) == 0 && (res_full < tol || res_full < abs_tol));
+    const bool bd4 = fabsf(omega_new) < kBreakdown;
+    stagnated = bd || bd3 || (bd4 && !conv);
+    running = !(stagnated || conv);
+    rho = rho_new;
+    rho_new = got[1];
+    alpha = alpha_new;
+    omega = omega_new;
+    ++it;
+  }
+
+  // the Neumann mirror of the result: shell points read interior ones,
+  // whose last writes came before the last barrier
+  for (long long c = first; c < vol.n; c += stride) {
+    const long long src = vol.mirror(c);
+    if (src != c) x[c] = x[src];
+  }
+  if (blockIdx.x == 0 && tid == 0) {
+    stats[0] = init_res;
+    stats[1] = already ? init_res : res;
+    stats[2] = already ? 0.0f : (float)it;
+    stats[3] = flag(stagnated);
+  }
+}
+
+dim3 tile_grid(int nz, int ny, int nx) {
+  return dim3((nx + kTileX - 1) / kTileX, (ny + kTileY - 1) / kTileY, nz);
+}
+
+}  // namespace
+
+extern "C" {
+
+long long cfd_bicg_partials(int nz, int ny, int nx) {
+  const dim3 g = tile_grid(nz, ny, nx);
+  return (long long)g.x * g.y * g.z;
+}
+
+int cfd_bicg_pv(const float* r, const float* p, const float* v,
+                const float* rhat, float* pn, float* vn, float* st,
+                double* part, int nz, int ny, int nx, float inv_dx2,
+                float inv_dy2, float inv_dz2, cudaStream_t stream) {
+  bicg_pv_kernel<<<tile_grid(nz, ny, nx), dim3(kTileX, kTileY), 0, stream>>>(
+      r, p, v, rhat, pn, vn, st, part, nz, ny, nx, inv_dx2, inv_dy2,
+      inv_dz2);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  bicg_pv_finalize<<<1, kFoldThreads, 0, stream>>>(
+      part, cfd_bicg_partials(nz, ny, nx), st);
+  return (int)cudaGetLastError();
+}
+
+int cfd_bicg_st(const float* r, const float* vn, float* s, float* t,
+                float* st, double* part, int nz, int ny, int nx, float inv_dx2,
+                float inv_dy2, float inv_dz2, cudaStream_t stream) {
+  bicg_st_kernel<<<tile_grid(nz, ny, nx), dim3(kTileX, kTileY), 0, stream>>>(
+      r, vn, s, t, st, part, nz, ny, nx, inv_dx2, inv_dy2, inv_dz2);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  bicg_st_finalize<<<1, kFoldThreads, 0, stream>>>(
+      part, cfd_bicg_partials(nz, ny, nx), st);
+  return (int)cudaGetLastError();
+}
+
+int cfd_bicg_xr(float* x, float* r, const float* pn, const float* s,
+                const float* t, const float* rhat, float* st, double* part,
+                int nz, int ny, int nx, int ci, cudaStream_t stream) {
+  bicg_xr_kernel<<<tile_grid(nz, ny, nx), dim3(kTileX, kTileY), 0, stream>>>(
+      x, r, pn, s, t, rhat, st, part, nz, ny, nx);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  bicg_xr_finalize<<<1, kFoldThreads, 0, stream>>>(
+      part, cfd_bicg_partials(nz, ny, nx), st, ci);
+  return (int)cudaGetLastError();
+}
+
+// B2's grid: as many blocks as fit on the card at once (a cooperative
+// launch needs every block resident), and no more than the points need.
+long long cfd_bicg_solve_blocks(int nz, int ny, int nx) {
+  static int resident = 0;
+  if (resident == 0) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, bicg_solve_kernel,
+                                                  kThreads, 0);
+    resident = sms * per_sm;
+  }
+  const long long want =
+      ((long long)nz * ny * nx + kThreads - 1) / kThreads;
+  return want < resident ? want : resident;
+}
+
+int cfd_bicg_solve(const float* x0, const float* rhs, float* x, float* r,
+                   float* rhat, float* p, float* v, float* s, float* t,
+                   double* part, float* stats, int nz, int ny, int nx,
+                   float inv_dx2, float inv_dy2, float inv_dz2,
+                   float tolerance, float abs_tol, int max_iter, int ci,
+                   cudaStream_t stream) {
+  const long long nblk = cfd_bicg_solve_blocks(nz, ny, nx);
+  if (nblk < 1) return (int)cudaErrorInvalidConfiguration;
+  void* args[] = {&x0,      &rhs,      &x,        &r,       &rhat,
+                  &p,       &v,        &s,        &t,       &part,
+                  &stats,   &nz,       &ny,       &nx,      &inv_dx2,
+                  &inv_dy2, &inv_dz2,  &tolerance, &abs_tol, &max_iter,
+                  &ci};
+  cudaError_t err = cudaLaunchCooperativeKernel(
+      (const void*)bicg_solve_kernel, dim3((unsigned int)nblk),
+      dim3(kThreads), args, 0, stream);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

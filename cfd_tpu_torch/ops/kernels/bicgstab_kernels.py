@@ -1,0 +1,323 @@
+"""The BiCGSTAB solve's three fused passes (counterpart of
+`cfd_tpu/ops/pallas/bicgstab_kernels.py`, ``BiCGSTABKernels.pass_pv`` /
+``pass_st`` / ``pass_xr`` `:147-156`, built at `:94-143`).
+
+One iteration is three passes over the field, all in the Dirichlet-0
+correction space (zero shells):
+
+* ``pass_pv``: p′ = r + β(p − ωv) on the interior, v′ = −∇²p′ and
+  ⟨r̂, v′⟩ → ``bicg_pv_kernel`` plus a one-block finalize;
+* ``pass_st``: s = r − αv′, t = −∇²s, and ⟨s,s⟩, ⟨t,s⟩, ⟨t,t⟩ →
+  ``bicg_st_kernel`` plus its finalize;
+* ``pass_xr``: x += αp′ + ωs (x keeps its shell), r = s − ωt, and ⟨r,r⟩,
+  ⟨r̂,r⟩ — the next iteration's ρ → ``bicg_xr_kernel`` plus its finalize.
+
+Operation order is the reference's, with the Laplacian of `ops.stencils`
+(``((f₊ − 2f) + f₋)`` per axis, x, then y, then z).  The functional
+forms (and their plain versions) serve the tests and the checks on the
+card; the solver loop (`solvers.poisson.krylov.make_bicgstab_fused`) runs
+:class:`BiCGSTABPasses` instead, in place on its buffers, with the
+iteration's scalars in a state tensor on the device (slots below): the
+kernels read β, ω and α from it, and the finalize blocks write the rest of
+the recurrence of `krylov.py:328-361`, so the host never reads a scalar
+inside the loop.  Once the running flag is 0 every pass is a no-op.  The
+CUDA source is ``cfd_tpu_torch/csrc/bicgstab_kernels.cu``.
+
+The sharded ``global_nz`` / ``global_ny`` modes (`:51-91`) are later work,
+with the distributed step; ``bicgstab_kernels_supported`` and its
+``nx % 128`` gate are TPU gates, left out.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from .. import stencils
+from . import native
+
+BREAKDOWN = 1e-30  # krylov.BREAKDOWN
+
+# slots of the solver state (the kernels' enum in bicgstab_kernels.cu)
+(RHO_PREV, RHO, ALPHA, OMEGA, BETA, IT, RES, RUNNING, STAGNATED, TOL,
+ ABS_TOL, BD1, RHV, ALPHA_NEW, BD, SS, TS, TT, EARLY, BD3, OMEGA_NEW,
+ ALPHA_EFF, OMEGA_EFF, RR, RHAT_R) = range(25)
+STATE_LEN = 25
+
+
+@dataclasses.dataclass(frozen=True)
+class BiCGConsts:
+    """One problem's constants: (nz, ny, nx) fields, the Laplacian's
+    coefficients and the check interval."""
+
+    nz: int
+    ny: int
+    nx: int
+    inv_dx2: float
+    inv_dy2: float
+    inv_dz2: float
+    check_interval: int = 1
+
+    @property
+    def shape(self):
+        return (self.nz, self.ny, self.nx)
+
+
+def beta_of(rho, rho_prev, alpha, omega):
+    """β = (ρ / ρ_prev)(α / ω), each divisor 1 on breakdown
+    (`krylov.py:332-333`)."""
+    one = torch.ones_like(rho)
+    return ((rho / torch.where(rho.abs() < BREAKDOWN, one, rho_prev))
+            * (alpha / torch.where(omega.abs() < BREAKDOWN, one, omega)))
+
+
+def new_state(rho, res, tol, abs_tol, running) -> torch.Tensor:
+    """The state at the start of the loop, from 0-d tensors: ρ_prev = α =
+    ω = 1, ρ = ⟨r̂, r₀⟩, iteration 0 (`krylov.py:363-364`)."""
+    one, z = torch.ones_like(rho), torch.zeros_like(rho)
+    slots = {RHO_PREV: one, RHO: rho, ALPHA: one, OMEGA: one,
+             BETA: beta_of(rho, one, one, one), RES: res, TOL: tol,
+             ABS_TOL: abs_tol, RUNNING: running.to(rho.dtype)}
+    return torch.stack([slots.get(k, z) for k in range(STATE_LEN)])
+
+
+def _check(c: BiCGConsts, *fields):
+    native.check_cuda(*fields)
+    if c.nz < 3:
+        raise ValueError("the BiCGSTAB passes need a 3D grid (nz >= 3)")
+    for f in fields:
+        if tuple(f.shape) != c.shape:
+            raise ValueError(f"expected fields of shape {c.shape}, got "
+                             f"{tuple(f.shape)}")
+
+
+def _partials(c: BiCGConsts, like: torch.Tensor) -> torch.Tensor:
+    """Room for three float64 per-block partials of each pass."""
+    n = native.library().cfd_bicg_partials(c.nz, c.ny, c.nx)
+    return torch.empty(3 * n, dtype=torch.float64, device=like.device)
+
+
+def _launch_pv(r, p, v, rhat, pn, vn, st, part, c: BiCGConsts):
+    native.launch("cfd_bicg_pv", r.device, *map(native.ptr, (
+        r, p, v, rhat, pn, vn, st, part)), c.nz, c.ny, c.nx, c.inv_dx2,
+        c.inv_dy2, c.inv_dz2)
+    pass_pv.launches += 1
+
+
+def _launch_st(r, vn, s, t, st, part, c: BiCGConsts):
+    native.launch("cfd_bicg_st", r.device, *map(native.ptr, (
+        r, vn, s, t, st, part)), c.nz, c.ny, c.nx, c.inv_dx2, c.inv_dy2,
+        c.inv_dz2)
+    pass_st.launches += 1
+
+
+def _launch_xr(x, r, pn, s, t, rhat, st, part, c: BiCGConsts):
+    native.launch("cfd_bicg_xr", x.device, *map(native.ptr, (
+        x, r, pn, s, t, rhat, st, part)), c.nz, c.ny, c.nx,
+        max(1, int(c.check_interval)))
+    pass_xr.launches += 1
+
+
+def _one_shot_state(like, slots):
+    """A running state for one pass, ``slots`` ({slot: value}) set."""
+    st = torch.zeros(STATE_LEN, dtype=like.dtype, device=like.device)
+    st[RUNNING] = 1.0
+    for slot, value in slots.items():
+        st[slot] = value
+    return st
+
+
+def dot(a, b):
+    """⟨a, b⟩ over the interior, accumulated in float64 and rounded to a's
+    dtype once, as the kernels' dots: in float32 sums ρ = ⟨r̂, r⟩ falls
+    below the sum's rounding on large grids and the solve breaks down (see
+    ``csrc/bicgstab_kernels.cu``)."""
+    return torch.sum(stencils.interior(a).double()
+                     * stencils.interior(b).double()).to(a.dtype)
+
+
+def _minus_lap(f, c: BiCGConsts):
+    """−∇²f on the interior, 0 on the shell."""
+    out = torch.zeros_like(f)
+    out[stencils.interior_index(f)] = -stencils.laplacian(
+        f, c.inv_dx2, c.inv_dy2, c.inv_dz2)
+    return out
+
+
+# ---- pv ------------------------------------------------------------------
+
+def pass_pv_plain(r, p, v, rhat, beta, omega, c: BiCGConsts):
+    """(p′, v′, ⟨r̂, v′⟩) with zero shells on p′ and v′."""
+    mask = stencils.interior_mask(c.shape, torch.bool, r.device)
+    pn = torch.where(mask, r + beta * (p - omega * v), torch.zeros_like(r))
+    vn = _minus_lap(pn, c)
+    return pn, vn, dot(rhat, vn)
+
+
+def pass_pv(r, p, v, rhat, beta, omega, c: BiCGConsts):
+    """(p′, v′, ⟨r̂, v′⟩) — ``bicg_pv_kernel`` and its finalize on CUDA;
+    ``beta`` and ``omega`` floats or 0-d tensors."""
+    if native.on_cpu(r):
+        return pass_pv_plain(r, p, v, rhat, beta, omega, c)
+    _check(c, r, p, v, rhat)
+    pn, vn = torch.empty_like(r), torch.empty_like(r)
+    st = _one_shot_state(r, {BETA: beta, OMEGA: omega, RHO: 1.0})
+    _launch_pv(r, p, v, rhat, pn, vn, st, _partials(c, r), c)
+    return pn, vn, st[RHV]
+
+
+# ---- st ------------------------------------------------------------------
+
+def pass_st_plain(r, vn, alpha, c: BiCGConsts):
+    """(s, t, ⟨s,s⟩, ⟨t,s⟩, ⟨t,t⟩) with zero shells on s and t."""
+    mask = stencils.interior_mask(c.shape, torch.bool, r.device)
+    s = torch.where(mask, r - alpha * vn, torch.zeros_like(r))
+    t = _minus_lap(s, c)
+    return s, t, dot(s, s), dot(t, s), dot(t, t)
+
+
+def pass_st(r, vn, alpha, c: BiCGConsts):
+    """(s, t, ⟨s,s⟩, ⟨t,s⟩, ⟨t,t⟩) — ``bicg_st_kernel`` and its finalize
+    on CUDA."""
+    if native.on_cpu(r):
+        return pass_st_plain(r, vn, alpha, c)
+    _check(c, r, vn)
+    s, t = torch.empty_like(r), torch.empty_like(r)
+    st = _one_shot_state(r, {ALPHA_NEW: alpha})
+    _launch_st(r, vn, s, t, st, _partials(c, r), c)
+    return s, t, st[SS], st[TS], st[TT]
+
+
+# ---- xr ------------------------------------------------------------------
+
+def pass_xr_plain(x, pn, s, t, rhat, alpha, omega, c: BiCGConsts):
+    """(x′, r′, ⟨r′,r′⟩, ⟨r̂,r′⟩): x′ on the interior with x's shell, r′
+    with a zero shell."""
+    ix = stencils.interior_index(x)
+    x2, r2 = x.clone(), torch.zeros_like(s)
+    x2[ix] = x[ix] + alpha * pn[ix] + omega * s[ix]
+    r2[ix] = s[ix] - omega * t[ix]
+    return x2, r2, dot(r2, r2), dot(rhat, r2)
+
+
+def pass_xr(x, pn, s, t, rhat, alpha, omega, c: BiCGConsts):
+    """(x′, r′, ⟨r′,r′⟩, ⟨r̂,r′⟩) — ``bicg_xr_kernel`` and its finalize
+    on CUDA (x′ on a copy of x)."""
+    if native.on_cpu(x):
+        return pass_xr_plain(x, pn, s, t, rhat, alpha, omega, c)
+    _check(c, x, pn, s, t, rhat)
+    x2, r2 = x.clone(), torch.zeros_like(s)
+    st = _one_shot_state(x, {ALPHA_EFF: alpha, OMEGA_EFF: omega})
+    _launch_xr(x2, r2, pn, s, t, rhat, st, _partials(c, x), c)
+    return x2, r2, st[RR], st[RHAT_R]
+
+
+pass_pv.launches = 0
+pass_st.launches = 0
+pass_xr.launches = 0
+WRAPPERS = (pass_pv, pass_st, pass_xr)
+
+
+# ---- the solver loop's passes ----------------------------------------------
+
+class BiCGSTABPasses:
+    """B1's three passes with their finalize blocks, in place on the
+    solver's buffers and its state tensor (:func:`new_state`).
+
+    On a CUDA device the kernels run; on the CPU, or with ``plain=True``
+    (a reference switch for checks on the card), the plain versions run
+    with the finalize recurrence as 0-d tensor operations, x, r and the
+    state selected by the running flag so a pass after the stop changes
+    nothing the result reads."""
+
+    def __init__(self, c: BiCGConsts, device, plain: bool = False):
+        self.c = c
+        self.plain = plain or torch.device(device).type == "cpu"
+        self._part = None
+
+    def _partials(self, like):
+        if self._part is None:
+            self._part = _partials(self.c, like)
+        return self._part
+
+    @staticmethod
+    def _commit(st, new):
+        st.copy_(torch.where(st[RUNNING] > 0, new, st))
+
+    def pv(self, r, p, v, rhat, pn, vn, st):
+        """pn ← p′, vn ← v′; state: ⟨r̂, v′⟩, breakdowns 1 and 2, α."""
+        if not self.plain:
+            _check(self.c, r, p, v, rhat, pn, vn)
+            _launch_pv(r, p, v, rhat, pn, vn, st, self._partials(r), self.c)
+            return
+        pn_, vn_, rhv = pass_pv_plain(r, p, v, rhat, st[BETA], st[OMEGA],
+                                      self.c)
+        pn.copy_(pn_)
+        vn.copy_(vn_)
+        bd1 = st[RHO].abs() < BREAKDOWN
+        bd2 = rhv.abs() < BREAKDOWN
+        new = st.clone()
+        new[RHV] = rhv
+        new[BD1] = bd1.to(st.dtype)
+        new[ALPHA_NEW] = st[RHO] / torch.where(bd2, torch.ones_like(rhv),
+                                               rhv)
+        new[BD] = (bd1 | bd2).to(st.dtype)
+        self._commit(st, new)
+
+    def st(self, r, vn, s, t, st):
+        """s, t ← the st pass; state: the dots, the early s-exit,
+        breakdown 3, ω and the α, ω the x/r pass applies."""
+        if not self.plain:
+            _check(self.c, r, vn, s, t)
+            _launch_st(r, vn, s, t, st, self._partials(r), self.c)
+            return
+        s_, t_, ss, ts, tt = pass_st_plain(r, vn, st[ALPHA_NEW], self.c)
+        s.copy_(s_)
+        t.copy_(t_)
+        s_norm = torch.sqrt(ss)
+        early = (s_norm < st[TOL]) | (s_norm < st[ABS_TOL])
+        bd3 = tt.abs() < BREAKDOWN
+        omega_new = ts / torch.where(bd3, torch.ones_like(tt), tt)
+        bd = st[BD] > 0
+        zero = torch.zeros_like(ss)
+        new = st.clone()
+        new[SS], new[TS], new[TT] = ss, ts, tt
+        new[EARLY] = early.to(st.dtype)
+        new[BD3] = bd3.to(st.dtype)
+        new[OMEGA_NEW] = omega_new
+        new[ALPHA_EFF] = torch.where(bd, zero, st[ALPHA_NEW])
+        new[OMEGA_EFF] = torch.where(bd | early | bd3, zero, omega_new)
+        self._commit(st, new)
+
+    def xr(self, x, r, pn, s, t, rhat, st):
+        """x, r ← the update; state: the residual, the convergence check,
+        breakdown 4, stagnation, the running flag and the carried
+        scalars (`krylov.py:350-361`)."""
+        c = self.c
+        if not self.plain:
+            _check(c, x, r, pn, s, t, rhat)
+            _launch_xr(x, r, pn, s, t, rhat, st, self._partials(x), c)
+            return
+        run = st[RUNNING] > 0
+        x2, r2, rr, rh = pass_xr_plain(x, pn, s, t, rhat, st[ALPHA_EFF],
+                                       st[OMEGA_EFF], c)
+        x.copy_(torch.where(run, x2, x))
+        r.copy_(torch.where(run, r2, r))
+        bd, early, bd3 = st[BD] > 0, st[EARLY] > 0, st[BD3] > 0
+        res_new = torch.where(bd, st[RES], torch.sqrt(rr))
+        check = torch.remainder(st[IT], max(1, int(c.check_interval))) == 0
+        conv = early | (check & ((res_new < st[TOL])
+                                 | (res_new < st[ABS_TOL])))
+        bd4 = st[OMEGA_NEW].abs() < BREAKDOWN
+        stagnated = bd | bd3 | (bd4 & ~conv)
+        new = st.clone()
+        new[RR], new[RHAT_R] = rr, rh
+        new[RHO_PREV], new[RHO] = st[RHO], rh
+        new[ALPHA], new[OMEGA] = st[ALPHA_NEW], st[OMEGA_NEW]
+        new[BETA] = beta_of(rh, st[RHO], st[ALPHA_NEW], st[OMEGA_NEW])
+        new[IT] = st[IT] + 1
+        new[RES] = res_new
+        new[STAGNATED] = stagnated.to(st.dtype)
+        new[RUNNING] = (~(stagnated | conv)).to(st.dtype)
+        self._commit(st, new)

@@ -62,11 +62,22 @@ SIGNATURES = {
     # level dims and coefficients of cfd_mg_solve are host arrays)
     "cfd_mg_rb_sweep": [_P] * 3 + [_I] * 3 + [_F] * 4 + [_I, _P],
     "cfd_mg_solve": [_P] * 6 + [_I, _P, _P] + [_F] * 2 + [_I] * 4 + [_P],
+    # bicgstab_kernels.cu (the BiCGSTAB pressure solve)
+    "cfd_bicg_pv": [_P] * 8 + [_I] * 3 + [_F] * 3 + [_P],
+    "cfd_bicg_st": [_P] * 6 + [_I] * 3 + [_F] * 3 + [_P],
+    "cfd_bicg_xr": [_P] * 8 + [_I] * 4 + [_P],
+    "cfd_bicg_solve": [_P] * 11 + [_I] * 3 + [_F] * 5 + [_I] * 2 + [_P],
+    # rbsor_kernels.cu (the Red-Black SOR and Jacobi pressure solves)
+    "cfd_rbsor_sweep": [_P] * 4 + [_I] * 3 + [_F] * 5 + [_I] * 2 + [_P],
+    "cfd_stationary_solve": [_P] * 6 + [_I] * 3 + [_F] * 7 + [_I] * 3
+    + [_P],
 }
 
 # block-count queries: (nz, ny, nx) -> long long
 COUNTS = ("cfd_corrector_partials", "cfd_explicit_partials",
-          "cfd_cg_partials", "cfd_cg_solve_blocks", "cfd_mg_solve_blocks")
+          "cfd_cg_partials", "cfd_cg_solve_blocks", "cfd_mg_solve_blocks",
+          "cfd_bicg_partials", "cfd_bicg_solve_blocks", "cfd_rbsor_partials",
+          "cfd_stationary_solve_blocks")
 
 _lib = None
 

@@ -1,28 +1,42 @@
-"""The whole-solve CG kernel for small grids (counterpart of
-`cfd_tpu/ops/pallas/vmem_small.py`'s ``make_cg_vmem_solve``, `:243-323`).
+"""The whole-solve kernels for small grids (counterpart of
+`cfd_tpu/ops/pallas/vmem_small.py`: ``make_cg_vmem_solve`` `:243-323`,
+``make_bicgstab_vmem_solve`` `:326-427`, ``make_rbsor_vmem_solve``
+`:167-240` and ``make_jacobi_vmem_solve`` `:430-501`).
 
-The reference runs the entire CG/PCG ``while_loop`` inside one Pallas
+The reference runs each solve's entire ``while_loop`` inside one Pallas
 kernel with the vectors in VMEM: grids that small (a 100² plane is 40 KB)
 are launch latency, not bandwidth, if each pass is its own device call.
-Here the loop is one cooperative CUDA launch, ``cg_solve_kernel``
-(``cfd_tpu_torch/csrc/cg_kernels.cu``): grid-stride passes over the
+Here each loop is one cooperative CUDA launch: grid-stride passes over the
 interior with grid barriers between them, the vectors in device memory
-(in the 50 MB L2 at these sizes), every dot a per-block partial folded in
-one order by every block.  The host launches once per solve and reads
-nothing.
+(in the 50 MB L2 at these sizes), every dot or maximum a per-block partial
+folded in one order by every block.  The host launches once per solve and
+reads nothing.
 
-The TPU layout workarounds are left out: the power-of-two row padding and
-the 128-lane padding (`vmem_small.py:17-23`, `:51-65`), the iota-rebuilt
-masks and the VMEM budget gate (`:46`); every (nz, ny, nx) with nz == 1 or
-nz ≥ 3 runs.
+* :func:`cg_solve` → ``cg_solve_kernel`` (``csrc/cg_kernels.cu``): the
+  CG/PCG recursion, un-rotated (`:265-305`); the Jacobi preconditioner
+  enters as the scalar ``scale``; the L2 norm of the recursion residual,
+  checked every ``check_interval`` iterations; breakdown at 1e-30 stops
+  the loop.  Returns (x, r0, res, iterations, running).
+* :func:`bicgstab_solve` → ``bicg_solve_kernel``
+  (``csrc/bicgstab_kernels.cu``): the un-rotated BiCGSTAB loop
+  (`:364-404`) with the early s-exit, breakdowns 1–4 and stagnation.
+  Returns (x, r0, res, iterations, stagnated); res and iterations follow
+  the stats rules of `:411-416` (the initial residual and 0 when the start
+  has converged).
+* :func:`rbsor_solve` and :func:`jacobi_solve` →
+  ``stationary_solve_kernel<false / true>`` (``csrc/rbsor_kernels.cu``),
+  one loop templated on the sweep: ``check_interval`` chunks of
+  min(ci, max_iter − it) sweeps, each followed by the Neumann mirror, the
+  ∞-norm residual at the end of a chunk.  Returns (x, r0, res,
+  iterations, converged) by the rules of `:226-229` / `:487-490`.
 
-The recursion is the reference kernel's, un-rotated (`:265-305`): the
-Jacobi preconditioner enters as the scalar ``scale``, the residual is the
-L2 norm of the recursion residual, checked every ``check_interval``
-iterations, breakdown at 1e-30 stops the loop, and x gets the Neumann
-mirror before and after.  :func:`cg_solve` returns (x, initial residual,
-final residual, iterations, running) as 0-d tensors, the reference's
-tuple; `solvers.poisson.krylov.make_cg_vmem` turns it into a status.
+The Krylov solves mirror x before and after; the stationary ones start
+from x as given.  The TPU layout workarounds are left out: the
+power-of-two row padding and the 128-lane padding (`:17-23`, `:51-65`),
+the iota-rebuilt masks and the VMEM budget gate (`:46`); every
+(nz, ny, nx) with nz == 1 or nz ≥ 3 runs.  The plain versions are the
+reference's loops as tensor code, reading the stop flag on the host once
+per iteration (once per chunk for the stationary ones).
 """
 
 from __future__ import annotations
@@ -32,7 +46,11 @@ import torch
 from ...boundary.apply import apply_neumann_scalar
 from .. import stencils
 from . import native
+from .bicgstab_kernels import BiCGConsts
+from .bicgstab_kernels import dot as bicgstab_dot
 from .cg_kernels import BREAKDOWN, CGConsts
+from .rbsor_kernels import (SORConsts, jacobi_sweep_plain, rb_sweep_plain,
+                            residual_inf)
 
 
 def cg_solve_plain(x0, rhs, c: CGConsts, tolerance, abs_tol, max_iter):
@@ -108,7 +126,240 @@ def cg_solve(x0, rhs, c: CGConsts, tolerance, abs_tol, max_iter):
 
 
 cg_solve.launches = 0
-WRAPPERS = (cg_solve,)
+
+
+def _check_shapes(c, *fields):
+    native.check_cuda(*fields)
+    for f in fields:
+        if tuple(f.shape) != c.shape:
+            raise ValueError(f"expected fields of shape {c.shape}, got "
+                             f"{tuple(f.shape)}")
+
+
+def _count(n, like):
+    return torch.tensor(n, dtype=torch.int32, device=like.device)
+
+
+# ---- BiCGSTAB ------------------------------------------------------------------
+
+def bicgstab_solve_plain(x0, rhs, c: BiCGConsts, tolerance, abs_tol,
+                         max_iter):
+    """The reference's BiCGSTAB loop (`krylov.py:392-460`,
+    `vmem_small.py:349-416`) as plain tensor code."""
+    ix = stencils.interior_index(x0)
+
+    def A(q):
+        out = torch.zeros_like(q)
+        out[ix] = -stencils.laplacian(q, c.inv_dx2, c.inv_dy2, c.inv_dz2)
+        return out
+
+    dot = bicgstab_dot
+
+    x = apply_neumann_scalar(x0)
+    r = torch.zeros_like(x)
+    r[ix] = stencils.laplacian(x, c.inv_dx2, c.inv_dy2, c.inv_dz2) - rhs[ix]
+    r_hat = r
+    v = p = torch.zeros_like(r)
+    init_res = torch.sqrt(dot(r, r))
+    tol = torch.clamp_min(tolerance * init_res, abs_tol)
+    already = bool(init_res < abs_tol)
+    one = torch.ones_like(init_res)
+    rho = alpha = omega = one
+    res, it, running = init_res, 0, not already
+    stagnated = torch.zeros((), dtype=torch.bool, device=x0.device)
+    ci = max(1, int(c.check_interval))
+    while running and it < max_iter:
+        rho_new = dot(r_hat, r)
+        bd1 = rho_new.abs() < BREAKDOWN
+        beta = ((rho_new / torch.where(bd1, one, rho))
+                * (alpha / torch.where(omega.abs() < BREAKDOWN, one, omega)))
+        p_new = r + beta * (p - omega * v)
+        v_new = A(p_new)
+        rhv = dot(r_hat, v_new)
+        bd2 = rhv.abs() < BREAKDOWN
+        alpha_new = rho_new / torch.where(bd2, one, rhv)
+        s = r - alpha_new * v_new
+        s_norm = torch.sqrt(dot(s, s))
+        early = (s_norm < tol) | (s_norm < abs_tol)
+        t = A(s)
+        tds, tdt = dot(t, s), dot(t, t)
+        bd3 = tdt.abs() < BREAKDOWN
+        omega_new = tds / torch.where(bd3, one, tdt)
+        x_full = x + alpha_new * p_new + omega_new * s
+        r_full = s - omega_new * t
+        res_full = torch.sqrt(dot(r_full, r_full))
+        x_early = x + alpha_new * p_new
+        bd = bd1 | bd2
+        x = torch.where(bd, x, torch.where(early | bd3, x_early, x_full))
+        r = torch.where(bd | early | bd3, r, r_full)
+        res = torch.where(bd, res,
+                          torch.where(early | bd3, s_norm, res_full))
+        converged = early | ((it % ci == 0)
+                             & ((res_full < tol) | (res_full < abs_tol)))
+        bd4 = omega_new.abs() < BREAKDOWN
+        stagnated = bd | bd3 | (bd4 & ~converged)
+        p, v, rho, alpha, omega = p_new, v_new, rho_new, alpha_new, omega_new
+        it += 1
+        running = not bool(stagnated | converged)
+    return (apply_neumann_scalar(x), init_res,
+            init_res if already else res,
+            _count(0 if already else it, x0), stagnated)
+
+
+def bicgstab_solve(x0, rhs, c: BiCGConsts, tolerance, abs_tol, max_iter):
+    """(x, r0, res, iterations, stagnated) — ``bicg_solve_kernel``, one
+    cooperative launch, on CUDA.  x0 and rhs are left as they were."""
+    if native.on_cpu(x0):
+        return bicgstab_solve_plain(x0, rhs, c, tolerance, abs_tol, max_iter)
+    _check_shapes(c, x0, rhs)
+    x, r, rhat, p, v, s, t = (torch.empty_like(x0) for _ in range(7))
+    nblk = native.library().cfd_bicg_solve_blocks(c.nz, c.ny, c.nx)
+    part = torch.empty(6 * nblk, dtype=torch.float64, device=x0.device)
+    stats = torch.empty(4, dtype=x0.dtype, device=x0.device)
+    native.launch("cfd_bicg_solve", x0.device, *map(native.ptr, (
+        x0, rhs, x, r, rhat, p, v, s, t, part, stats)), c.nz, c.ny, c.nx,
+        c.inv_dx2, c.inv_dy2, c.inv_dz2, tolerance, abs_tol, int(max_iter),
+        max(1, int(c.check_interval)))
+    bicgstab_solve.launches += 1
+    return x, stats[0], stats[1], stats[2].to(torch.int32), stats[3] > 0
+
+
+bicgstab_solve.launches = 0
+
+
+def make_bicgstab_vmem_solve(nz, ny, nx, inv_dx2, inv_dy2, inv_dz2,
+                             tolerance, abs_tol, max_iterations,
+                             check_interval, plain: bool = False):
+    """fn(x, rhs) -> (x, r0, res, iterations, stagnated): the whole
+    BiCGSTAB solve (nz == 1 or nz ≥ 3).  ``plain=True`` runs the plain
+    version on a CUDA device too (a reference switch for checks on the
+    card)."""
+    if nz != 1 and nz < 3:
+        raise ValueError("the whole-solve BiCGSTAB needs nz == 1 or nz >= 3")
+    c = BiCGConsts(nz, ny, nx, inv_dx2, inv_dy2, inv_dz2, check_interval)
+    run = bicgstab_solve_plain if plain else bicgstab_solve
+
+    def solve(x, rhs):
+        return run(x, rhs, c, tolerance, abs_tol, max_iterations)
+
+    return solve
+
+
+# ---- Red-Black SOR and Jacobi --------------------------------------------------
+
+_SWEEPS = {"rbsor": rb_sweep_plain, "jacobi": jacobi_sweep_plain}
+
+
+def stationary_solve_plain(x0, rhs, c: SORConsts, kind, tolerance, abs_tol,
+                           max_iter):
+    """The reference's common solve loop (`stationary.py:35-76`, the
+    kernels' `vmem_small.py:197-229`) with the ``kind`` sweep ("rbsor" or
+    "jacobi"), as plain tensor code: the ∞-norm residual of x as given,
+    then ``check_interval`` chunks of sweeps until it falls below
+    max(tolerance·r0, abs_tol)."""
+    sweep = _SWEEPS[kind]
+    ci = max(1, int(c.check_interval))
+    r0 = residual_inf(x0, rhs, c)
+    tol = torch.clamp_min(tolerance * r0, abs_tol)
+    already = bool(r0 < abs_tol)
+    x, it, res, conv = x0.clone(), 0, r0, already
+    while it < max_iter and not conv:
+        n = min(ci, max_iter - it)
+        for _ in range(n):
+            x = sweep(x, rhs, c)
+        res = residual_inf(x, rhs, c)
+        conv = bool((res < tol) | (res < abs_tol))
+        it += n
+    return (x, r0, r0 if already else res, _count(0 if already else it, x0),
+            torch.tensor(conv, device=x0.device))
+
+
+def _stationary_solve(x0, rhs, c: SORConsts, kind, tolerance, abs_tol,
+                      max_iter):
+    """``stationary_solve_kernel`` of ``kind``, one cooperative launch."""
+    _check_shapes(c, x0, rhs)
+    x = torch.empty_like(x0)
+    xb = torch.empty_like(x0) if kind == "jacobi" else None
+    nblk = native.library().cfd_stationary_solve_blocks(c.nz, c.ny, c.nx)
+    part = torch.empty(2 * nblk, dtype=x0.dtype, device=x0.device)
+    stats = torch.empty(4, dtype=x0.dtype, device=x0.device)
+    native.launch("cfd_stationary_solve", x0.device, native.ptr(x0),
+                  native.ptr(rhs), native.ptr(x),
+                  None if xb is None else native.ptr(xb), native.ptr(part),
+                  native.ptr(stats), c.nz, c.ny, c.nx, c.inv_dx2, c.inv_dy2,
+                  c.inv_dz2, c.inv_factor, c.omega, tolerance, abs_tol,
+                  int(max_iter), max(1, int(c.check_interval)),
+                  int(kind == "jacobi"))
+    return x, stats[0], stats[1], stats[2].to(torch.int32), stats[3] > 0
+
+
+def rbsor_solve(x0, rhs, c: SORConsts, tolerance, abs_tol, max_iter):
+    """(x, r0, res, iterations, converged) of the whole Red-Black SOR
+    solve — ``stationary_solve_kernel<false>`` on CUDA."""
+    if native.on_cpu(x0):
+        return stationary_solve_plain(x0, rhs, c, "rbsor", tolerance,
+                                      abs_tol, max_iter)
+    out = _stationary_solve(x0, rhs, c, "rbsor", tolerance, abs_tol,
+                            max_iter)
+    rbsor_solve.launches += 1
+    return out
+
+
+def jacobi_solve(x0, rhs, c: SORConsts, tolerance, abs_tol, max_iter):
+    """(x, r0, res, iterations, converged) of the whole Jacobi solve —
+    ``stationary_solve_kernel<true>`` on CUDA."""
+    if native.on_cpu(x0):
+        return stationary_solve_plain(x0, rhs, c, "jacobi", tolerance,
+                                      abs_tol, max_iter)
+    out = _stationary_solve(x0, rhs, c, "jacobi", tolerance, abs_tol,
+                            max_iter)
+    jacobi_solve.launches += 1
+    return out
+
+
+rbsor_solve.launches = 0
+jacobi_solve.launches = 0
+WRAPPERS = (cg_solve, bicgstab_solve, rbsor_solve, jacobi_solve)
+
+
+def _make_stationary(kind, nz, ny, nx, inv_dx2, inv_dy2, inv_dz2,
+                     inv_factor, omega, tolerance, abs_tol, max_iterations,
+                     check_interval, plain):
+    if nz != 1 and nz < 3:
+        raise ValueError("the whole stationary solves need nz == 1 or "
+                         "nz >= 3")
+    c = SORConsts(nz, ny, nx, inv_dx2, inv_dy2, inv_dz2, inv_factor, omega,
+                  check_interval, max_iterations)
+    kernel = rbsor_solve if kind == "rbsor" else jacobi_solve
+
+    def solve(x, rhs):
+        if plain:
+            return stationary_solve_plain(x, rhs, c, kind, tolerance,
+                                          abs_tol, max_iterations)
+        return kernel(x, rhs, c, tolerance, abs_tol, max_iterations)
+
+    return solve
+
+
+def make_rbsor_vmem_solve(nz, ny, nx, inv_dx2, inv_dy2, inv_dz2, inv_factor,
+                          omega, tolerance, abs_tol, max_iterations,
+                          check_interval, plain: bool = False):
+    """fn(x, rhs) -> (x, r0, res, iterations, converged): the whole
+    Red-Black SOR solve (nz == 1 or nz ≥ 3).  ``plain=True`` runs the
+    plain version on a CUDA device too."""
+    return _make_stationary("rbsor", nz, ny, nx, inv_dx2, inv_dy2, inv_dz2,
+                            inv_factor, omega, tolerance, abs_tol,
+                            max_iterations, check_interval, plain)
+
+
+def make_jacobi_vmem_solve(nz, ny, nx, inv_dx2, inv_dy2, inv_dz2,
+                           inv_factor, tolerance, abs_tol, max_iterations,
+                           check_interval, plain: bool = False):
+    """fn(x, rhs) -> (x, r0, res, iterations, converged): the whole Jacobi
+    solve (nz == 1 or nz ≥ 3).  ``plain=True`` as above."""
+    return _make_stationary("jacobi", nz, ny, nx, inv_dx2, inv_dy2,
+                            inv_dz2, inv_factor, 1.0, tolerance, abs_tol,
+                            max_iterations, check_interval, plain)
 
 
 def make_cg_vmem_solve(nz, ny, nx, inv_dx2, inv_dy2, inv_dz2, scale,

@@ -78,6 +78,18 @@ def laplacian(f, inv_dx2, inv_dy2, inv_dz2=0.0):
     return lap + ((f[_P, _I, _I] - c2) + f[_M, _I, _I]) * inv_dz2
 
 
+def neighbour_sum(f, inv_dx2, inv_dy2, inv_dz2=0.0):
+    """The stationary sweeps' weighted neighbour sum on the interior,
+    ``(f[i+1] + f[i−1])·inv_dx2 + (f[j+1] + f[j−1])·inv_dy2``, then
+    ``+ (f[k+1] + f[k−1])·inv_dz2`` in 3D (`stationary.py:89-92`)."""
+    z = _zi(f)
+    nb = ((f[z, _I, _P] + f[z, _I, _M]) * inv_dx2
+          + (f[z, _P, _I] + f[z, _M, _I]) * inv_dy2)
+    if f.shape[0] == 1:
+        return nb
+    return nb + (f[_P, _I, _I] + f[_M, _I, _I]) * inv_dz2
+
+
 def set_interior(dst: torch.Tensor, src_interior: torch.Tensor):
     """A copy of ``dst`` whose interior is ``src_interior`` (the shell
     keeps ``dst``'s values — the reference's save/restore idiom)."""

@@ -2,8 +2,8 @@
 the fused single-device branches: 3D `:544-657`, 2D `:659-717`).
 
 The pressure solve is the reference's default CG (`solver_projection.c:
-217-218`), multigrid (``Method.MULTIGRID``) or the exact spectral solve
-(``Method.FFT_DIRECT``).
+217-218`), BiCGSTAB, Red-Black SOR, Jacobi, multigrid
+(``Method.MULTIGRID``) or the exact spectral solve (``Method.FFT_DIRECT``).
 
 A 3D spectral step is the reference's two-kernel spectral projection:
 
@@ -24,7 +24,11 @@ A 3D CG step (`:600-621`, nz ≥ 3) is the predictor, A1's rhs form
 physical p (`ProjectionKernels.corrector_diag`) and the same face fold.
 A 3D multigrid step (`:609-621` around `_make_multigrid` `:46-48`) is the
 same step with the V-cycle iteration (`poisson.multigrid.make_multigrid`,
-the sweep kernel on every level) in place of CG.  On its 2^k+1 grids the
+the sweep kernel on every level) in place of CG; so are the BiCGSTAB step
+(the three fused passes, `poisson.krylov.make_bicgstab_fused`), the
+Red-Black SOR step (the sweep kernel, `poisson.stationary.
+make_redblack_sor_fused`) and the Jacobi step (the whole-solve kernel,
+`poisson.stationary.make_jacobi_vmem`).  On its 2^k+1 grids the
 reference runs its jnp body (its kernels' ``nx % 128`` gate, a TPU one,
 fails there); the port keeps its kernels, as for CG.
 
@@ -33,7 +37,12 @@ Spectral: `Projection2DKernels.predictor_and_poisson_input` (predictor
 and b̃·FxT), the y-line solve of `make_dst2d_fused_pieces` (Thomas + dense
 low-mode rescue), `Projection2DKernels.corrector` (p = x̂·GxT,
 corrector).  CG (`:693-698`): predictor and rhs, the whole-solve CG
-kernel (`poisson.krylov.make_cg_vmem`), the corrector on the physical p.
+kernel (`poisson.krylov.make_cg_vmem`), the corrector on the physical p;
+BiCGSTAB, Red-Black SOR and Jacobi the same with their whole-solve
+kernels.  The reference's step runs those kernels only on grids that fit
+VMEM (`:260-271`), its jnp makers otherwise, and never the fused
+BiCGSTAB passes or the Red-Black SOR sweep; the port keeps its kernels on
+every size, as for CG and multigrid: the arithmetic is the same.
 Multigrid (`:694-698`): the same with the whole-solve multigrid kernel
 (`poisson.multigrid.make_multigrid_vmem`), which computes the reference's
 jnp ``make_multigrid`` by design.  A multigrid grid that cannot be
@@ -45,10 +54,10 @@ In both, w = w* and the diagnostics come from
 decayed source amplitudes, ρ and every diagnostic stay 0-d device
 tensors; a step reports −7 (MAX_ITER) when its iterative solve did not
 converge, with the solve's final residual.  The spectral step never reads
-a device value on the host; the CG step's 3D solve reads its running flag
-once per chunk of iterations (`poisson.krylov`), the multigrid step's 3D
-solve its residual once per check (`poisson.multigrid`), their 2D solves
-nothing.
+a device value on the host; the CG, BiCGSTAB and Red-Black SOR steps' 3D
+solves read their running flag once per chunk of iterations
+(`poisson.krylov.run_chunked`), the multigrid step's 3D solve its residual
+once per check (`poisson.multigrid`), the whole solves nothing.
 
 Anything outside this slice raises ``CFDError(ERROR_UNSUPPORTED)``; each
 exclusion is a later slice in ROADMAP.md.
@@ -65,13 +74,34 @@ from ...core.status import CFDError, Status
 from ...ops.kernels.projection2d import Projection2DKernels
 from ...ops.kernels.projection_kernels import ProjectionKernels
 from ..poisson.base import Method, PoissonParams, PoissonProblem
-from ..poisson.krylov import make_cg_fused, make_cg_vmem
+from ..poisson.krylov import (make_bicgstab_fused, make_bicgstab_vmem,
+                              make_cg_fused, make_cg_vmem)
 from ..poisson.multigrid import (make_multigrid, make_multigrid_vmem,
                                  raise_not_coarsenable)
+from ..poisson.stationary import (make_jacobi_vmem, make_redblack_sor_fused,
+                                  make_redblack_sor_vmem)
 from ..poisson.spectral import make_dst2d_fused_pieces, make_dst_fused_pieces
 from .common import (field_status_and_diagnostics, step_result,
                      validate_grid_for_solver)
 from .params import NSParams
+
+
+# the iterative solve of each method: (method, 2D) -> maker.  The
+# reference's step runs its whole-solve kernels only on grids that fit
+# VMEM and otherwise its jnp makers (`projection.py:260-284`); the port
+# keeps its kernels on every size, with the same arithmetic.
+_ITERATIVE = {
+    (Method.CG, True): make_cg_vmem,
+    (Method.CG, False): make_cg_fused,
+    (Method.BICGSTAB, True): make_bicgstab_vmem,
+    (Method.BICGSTAB, False): make_bicgstab_fused,
+    (Method.REDBLACK_SOR, True): make_redblack_sor_vmem,
+    (Method.REDBLACK_SOR, False): make_redblack_sor_fused,
+    (Method.JACOBI, True): make_jacobi_vmem,
+    (Method.JACOBI, False): make_jacobi_vmem,
+    (Method.MULTIGRID, True): make_multigrid_vmem,
+    (Method.MULTIGRID, False): make_multigrid,
+}
 
 
 def _unsupported(what: str):
@@ -83,7 +113,7 @@ def _check_slice(grid: Grid, params: NSParams, poisson_method,
                  spectral_precision, differentiable, bc_refresh,
                  dtype, device):
     method = Method(poisson_method)
-    if method not in (Method.FFT_DIRECT, Method.CG, Method.MULTIGRID):
+    if method != Method.FFT_DIRECT and (method, True) not in _ITERATIVE:
         _unsupported(f"poisson_method {method.name}")
     if method == Method.FFT_DIRECT and 1 < grid.nz < 4:
         _unsupported("nz < 4 with FFT_DIRECT (the three-pass form)")
@@ -119,8 +149,9 @@ def make_projection_step(grid: Grid, params: NSParams, dtype=None,
     (nz ≥ 3; nz ≥ 4 with ``FFT_DIRECT``) or 2D (nz == 1) uniform grid.
 
     ``poisson_method`` is ``Method.CG`` by default, as in the reference,
-    or ``Method.MULTIGRID`` (2^k+1 grids), with ``poisson_params``
-    (default ``PoissonParams()``; CG ignores ``Precond.MULTIGRID``, as the
+    or ``BICGSTAB``, ``REDBLACK_SOR``, ``JACOBI`` or ``MULTIGRID`` (2^k+1
+    grids), with ``poisson_params`` (default ``PoissonParams()``, as
+    given — no factory defaults; CG ignores ``Precond.MULTIGRID``, as the
     reference's step does); ``FFT_DIRECT`` is the exact spectral solve.
     ``spectral_precision`` applies to the spectral solve only.
 
@@ -175,14 +206,12 @@ def make_projection_step(grid: Grid, params: NSParams, dtype=None,
                            torch.amax(field.T), **solve)
 
     method = Method(poisson_method)
-    if method in (Method.CG, Method.MULTIGRID):
+    if method != Method.FFT_DIRECT:
+        # poisson_params as given: no factory defaults (Jacobi's are the
+        # front end's), as in the reference's step
         pparams = poisson_params or PoissonParams()
-        maker = {(Method.CG, True): make_cg_vmem,
-                 (Method.CG, False): make_cg_fused,
-                 (Method.MULTIGRID, True): make_multigrid_vmem,
-                 (Method.MULTIGRID, False): make_multigrid}[
-                     method, grid.nz == 1]
-        solve = maker(problem, pparams, dtype, device, plain=plain)
+        solve = _ITERATIVE[method, grid.nz == 1](problem, pparams, dtype,
+                                                 device, plain=plain)
         if solve is None:
             raise_not_coarsenable("multigrid")
         if grid.nz == 1:
@@ -230,7 +259,7 @@ def make_projection_step(grid: Grid, params: NSParams, dtype=None,
 
 def _make_iterative_step_3d(grid, params, solve, plain, with_sources,
                             scalars, folded_result):
-    """Predictor → rhs → the iterative ``solve`` (CG or multigrid)
+    """Predictor → rhs → the iterative ``solve`` (any but FFT_DIRECT)
     warm-started from p → corrector with maxima → z-shell face fold
     (`projection.py:600-621`).  ``step.poisson_solve`` is the solve;
     ``step.last_poisson`` holds the last step's PoissonResult (0-d device
@@ -258,7 +287,7 @@ def _make_iterative_step_3d(grid, params, solve, plain, with_sources,
 
 def _make_iterative_step_2d(grid, params, solve, plain, with_sources,
                             scalars):
-    """Predictor → rhs → the whole-solve ``solve`` (CG or multigrid) →
+    """Predictor → rhs → the whole-solve ``solve`` (any but FFT_DIRECT) →
     corrector, w = w* (`projection.py:693-698`); ``poisson_solve`` and
     ``last_poisson`` as in 3D."""
     pk2 = Projection2DKernels(

@@ -19,6 +19,7 @@ from __future__ import annotations
 import dataclasses
 import enum
 
+import numpy as np
 import torch
 
 from ...boundary.apply import apply_neumann_scalar
@@ -128,6 +129,24 @@ class PoissonProblem:
     def inv_factor(self) -> float:
         """1 / diag of the (negative) Laplacian."""
         return 1.0 / (2.0 * (self.inv_dx2 + self.inv_dy2 + self.inv_dz2))
+
+    def optimal_omega(self) -> float:
+        """The SOR relaxation factor from the Jacobi spectral radius
+        (`linear_solver_internal.h:184-203`), in numpy float64 as the
+        reference computes it."""
+        inv_dx2, inv_dy2, inv_dz2 = self.inv_dx2, self.inv_dy2, self.inv_dz2
+        num = (np.cos(np.pi / (self.nx - 1)) * inv_dx2
+               + np.cos(np.pi / (self.ny - 1)) * inv_dy2)
+        denom = inv_dx2 + inv_dy2
+        if self.nz > 1 and inv_dz2 > 0.0:
+            num += np.cos(np.pi / (self.nz - 1)) * inv_dz2
+            denom += inv_dz2
+        rho_j = num / denom
+        return float(2.0 / (1.0 + np.sqrt(1.0 - rho_j * rho_j)))
+
+    def resolve_omega(self, omega: float) -> float:
+        """``omega`` as given, or the optimal one when it is ≤ 0."""
+        return self.optimal_omega() if omega <= 0.0 else float(omega)
 
     # ---- device-side building blocks ---------------------------------------
 

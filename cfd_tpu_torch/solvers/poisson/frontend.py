@@ -4,15 +4,20 @@ frontend.py`).
 
 * ``create_solver(method)`` → a :class:`PoissonSolver`, bound to a
   geometry by ``init`` and run by ``solve`` / ``solve_result``;
-* CG (``Precond.MULTIGRID`` turns it into MG-preconditioned CG) and
-  multigrid are ported; every other method raises
-  ``CFDError(ERROR_UNSUPPORTED)`` at ``init`` until its slice — so does
-  the cached ``poisson_solve`` / ``poisson_solve_3d`` with its default
-  preset, which is Red-Black SOR;
+* Jacobi, Red-Black SOR, CG (``Precond.MULTIGRID`` turns it into
+  MG-preconditioned CG), BiCGSTAB and multigrid are ported; SOR,
+  Gauss-Seidel and FFT_DIRECT raise ``CFDError(ERROR_UNSUPPORTED)`` at
+  ``init`` until their slices;
+* Jacobi's factory defaults (``max_iterations=2000``,
+  ``check_interval=10``, `linear_solver_jacobi.c:146-147`) apply only
+  when the user gave no params, at ``create_solver`` or at ``init``;
+* the cached ``poisson_solve`` / ``poisson_solve_3d`` run a preset, by
+  default Red-Black SOR;
 * the reference's ``use_pallas`` becomes the port's ``device`` / ``plain``
-  convention: ``init`` builds the kernel solve for float32 inputs (the
-  whole-solve kernels in 2D, the fused CG passes or the multigrid sweeps
-  in 3D) beside the plain solve for other dtypes; on the CPU the kernel
+  convention: ``init`` builds the kernel solve for float32 inputs beside
+  the plain solve for other dtypes — the whole-solve kernels on 2D grids
+  (Jacobi on 3D ones too), the fused CG or BiCGSTAB passes, the Red-Black
+  SOR sweep or the multigrid sweeps on 3D ones; on the CPU the kernel
   wrappers run their plain versions.
 """
 
@@ -29,9 +34,12 @@ from ...config import device_of
 from ...core.status import CFDError, Status
 from .base import (Method, PoissonParams, PoissonProblem, PoissonResult,
                    PoissonStats, PoissonStatus, Precond, result_to_stats)
-from .krylov import make_cg, make_cg_fused, make_cg_vmem
+from .krylov import (make_bicgstab, make_bicgstab_fused, make_bicgstab_vmem,
+                     make_cg, make_cg_fused, make_cg_vmem)
 from .multigrid import (make_mg_cg, make_multigrid, make_multigrid_vmem,
                         raise_not_coarsenable)
+from .stationary import (make_jacobi, make_jacobi_vmem, make_redblack_sor,
+                         make_redblack_sor_fused, make_redblack_sor_vmem)
 
 
 def _make_cg_dispatch(problem, params, plain=True):
@@ -51,7 +59,10 @@ def _make_multigrid_dispatch(problem, params, plain=True):
 
 
 _MAKERS = {
+    Method.JACOBI: make_jacobi,
+    Method.REDBLACK_SOR: make_redblack_sor,
     Method.CG: _make_cg_dispatch,
+    Method.BICGSTAB: make_bicgstab,
     Method.MULTIGRID: _make_multigrid_dispatch,
 }
 
@@ -59,8 +70,19 @@ _MAKERS = {
 def _fused_maker(method: Method, problem: PoissonProblem,
                  params: PoissonParams, plain: bool):
     """The kernel solve of ``method`` (float32): the whole solve in one
-    launch on 2D grids, the fused passes or sweeps on 3D ones."""
+    launch on 2D grids, the fused passes or sweeps on 3D ones; Jacobi,
+    whose only kernel is the whole solve, takes it on both."""
     two_d = problem.nz == 1
+    if method == Method.JACOBI:
+        return make_jacobi_vmem(problem, params, plain=plain)
+    if method == Method.REDBLACK_SOR:
+        if two_d:
+            return make_redblack_sor_vmem(problem, params, plain=plain)
+        return make_redblack_sor_fused(problem, params, plain=plain)
+    if method == Method.BICGSTAB:
+        if two_d:
+            return make_bicgstab_vmem(problem, params, plain=plain)
+        return make_bicgstab_fused(problem, params, plain=plain)
     if method == Method.MULTIGRID:
         if two_d:
             return make_multigrid_vmem(problem, params, plain=plain)
@@ -129,6 +151,7 @@ class PoissonSolver:
     plain: bool = False
     _solve_fn: Optional[object] = None
     _fused_fn: Optional[object] = None
+    _params_user_set: bool = False
 
     @property
     def name(self) -> str:
@@ -147,6 +170,13 @@ class PoissonSolver:
         self.problem = PoissonProblem(nx, ny, nz, dx, dy, dz)
         if params is not None:
             self.params = params
+            self._params_user_set = True
+        elif self.method == Method.JACOBI and not self._params_user_set:
+            # Jacobi's factory defaults (`linear_solver.c:276-278`,
+            # `linear_solver_jacobi.c:146-147`)
+            self.params = dataclasses.replace(self.params,
+                                              max_iterations=2000,
+                                              check_interval=10)
         self._solve_fn = _MAKERS[self.method](self.problem, self.params)
         self._fused_fn = _fused_maker(self.method, self.problem,
                                       self.params, self.plain)
@@ -196,10 +226,11 @@ def create_solver(method: Method, params: Optional[PoissonParams] = None,
                   backend=None, device=None,
                   plain: bool = False) -> PoissonSolver:
     """Mirrors poisson_solver_create; ``backend`` is accepted for parity
-    and selects nothing."""
+    and selects nothing.  Params given here are never overridden by a
+    method's factory defaults."""
     return PoissonSolver(method=Method(method),
                          params=params or PoissonParams(), device=device,
-                         plain=plain)
+                         plain=plain, _params_user_set=params is not None)
 
 
 # ---------------------------------------------------------------------------
@@ -219,7 +250,8 @@ def poisson_solve_3d(p, rhs, nx: int, ny: int, nz: int,
     """Convenience solve with one cached solver per preset, recreated when
     the geometry changes (`linear_solver.c:589-705`); returns
     (p, iterations), iterations −1 on non-convergence.  The default preset
-    (Red-Black SOR) raises ``ERROR_UNSUPPORTED`` until its slice."""
+    is Red-Black SOR; the SOR presets raise ``ERROR_UNSUPPORTED`` until
+    their slice."""
     preset = SolverPreset(preset)
     solver = _cache.get(preset)
     prob = (nx, ny, nz, dx, dy, dz)

@@ -75,6 +75,26 @@ Then the multigrid pressure solve:
   with its solver at a tolerance above the printed float32 floor, held
   against the plain path at step 10.
 
+Then BiCGSTAB, Red-Black SOR and Jacobi:
+
+* phase 22: the three BiCGSTAB passes (``pass_pv``, ``pass_st``,
+  ``pass_xr``) and the RB-SOR sweep (``rbsor_sweep``) against their plain
+  versions at 37×23×11 and 512³ (fields bit-equal; a NaN in x gives a NaN
+  residual), and the whole solves (``bicgstab_solve``, ``rbsor_solve``,
+  ``jacobi_solve``) at 100², 64×96 and 33×17×9;
+* phase 23: ``bench.py:run_poisson_iters(100)`` through the Poisson front
+  end — RB-SOR 2000, CG 400 and BiCGSTAB 150 iterations a solve, the rate
+  Δiterations/Δtime between 5 and 105 solves;
+* phase 24: BiCGSTAB on ``cg_512``'s 512³ problem through the front end's
+  fused passes (tolerance 1e-6, else the first decade up that converges:
+  float32 BiCGSTAB may not reach 1e-6 there), and 200 RB-SOR sweeps;
+* phase 25: the BiCGSTAB step at 128³ beside the CG step there, the RB-SOR
+  step at 128³ (its float32 floor printed first) and the Jacobi step at
+  33³, on both paths;
+* phase 26: Ghia Re = 100 at 128² with the BiCGSTAB solve, the 128² cavity
+  for 50 steps with RB-SOR and with Jacobi above their printed floors,
+  and ``poisson_solve``'s default preset at 100², on both paths.
+
 It checks status, finiteness, launch counters (set to 0 just before each
 main path and read just after) and kernel-vs-plain agreement; any
 failure exits non-zero.  The line before the last is a JSON object
@@ -102,6 +122,7 @@ from __future__ import annotations
 
 import importlib.util
 import json
+import math
 import subprocess
 import sys
 import time
@@ -157,6 +178,29 @@ MG_FLOOR_CYCLES = 30   # V-cycles of the floor measurement
 MG_FACADE = 65
 MG_FACADE_TOL = 1e-5
 MG_FACADE_STEPS = 100
+SRC_BICG = "cfd_tpu_torch/csrc/bicgstab_kernels.cu"
+SRC_SOR = "cfd_tpu_torch/csrc/rbsor_kernels.cu"
+B1 = "cfd_tpu/ops/pallas/bicgstab_kernels.py:147"     # pass_pv/st/xr
+B2 = "cfd_tpu/ops/pallas/vmem_small.py:326"           # bicgstab vmem solve
+S1 = "cfd_tpu/ops/pallas/rbsor_kernels.py:53"         # make_rbsor_sweep
+S2_SOR = "cfd_tpu/ops/pallas/vmem_small.py:167"       # rbsor vmem solve
+S2_JAC = "cfd_tpu/ops/pallas/vmem_small.py:430"       # jacobi vmem solve
+# bench.py:run_poisson_iters(100): the budgets a solve, the two solve
+# counts whose difference gives the marginal rate
+POISSON_N = 100
+POISSON_BUDGETS = (("redblack_sor", 2000), ("cg", 400), ("bicgstab", 150))
+POISSON_PAIR = (5, 105)
+BICG_512_ITERS_MAX = 5000
+SOR_512_SWEEPS = 200
+# The BiCGSTAB projection step, run_3d's physics.  At phase 14's 256³ the
+# Taylor-Green start's first float32 solve stalls: on the ρ breakdown at 87
+# iterations with float32 dots, still at 2e-2 after 270 with float64 dots
+# (CPU runs of the plain path); at 128³ it converges (275 iterations).
+N_BICG_STEP = 128
+N_SOR_STEP = 128       # the RB-SOR projection step, run_3d's physics
+N_JAC_STEP = 33        # the Jacobi projection step
+SOR_FLOOR_SWEEPS = 2000  # sweeps of a stationary floor measurement
+CAVITY_STEPS = 50      # the stationary cavities, 128², Re = 100
 GHIA = Path(__file__).resolve().parent / "tests/validation/ghia_data.py"
 N_EXPL = 256           # bench.py:run_euler_3d / run_rk_3d, 256³
 EXPL_DT = 1e-5         # bench.py's explicit configurations
@@ -193,7 +237,20 @@ FLOPS_PER_POINT = {"predictor_star": 90, "poisson_input": 12,
                    # prolongation and add per fine point (1, 3, 3 or 7 by
                    # parity), and each iteration's b0, E update and norm
                    "mg2d_sweep": 7, "mg2d_residual": 9, "mg2d_restrict": 20,
-                   "mg2d_prolong": 3.5, "mg2d_iter": 21}
+                   "mg2d_prolong": 3.5, "mg2d_iter": 21,
+                   # the BiCGSTAB passes, a point of the interior: p' 3,
+                   # -lap 13, a dot 2; s 2, -lap 13, three dots 6; the x
+                   # and r updates 6, two dots 4
+                   "bicg_pv": 18, "bicg_st": 21, "bicg_xr": 10,
+                   # a red-black SOR sweep (nb 8, gs 3, update 3) and the
+                   # residual of the mirrored iterate (lap 13, sub, abs)
+                   "rbsor_sweep": 29,
+                   # the 2D whole solves, a point of the interior: one
+                   # BiCGSTAB iteration (p 3, v 9 and a dot 2, s 2 and a
+                   # dot 2, t 9 and two dots 4, x and r 6 and two dots 4);
+                   # a red-black SOR or a Jacobi sweep; a residual check
+                   "bicg_iter_2d": 41, "sor_sweep_2d": 11,
+                   "jacobi_sweep_2d": 8, "residual_2d": 10}
 
 # Tolerances, kernel against plain version on identical inputs, float32:
 #  * fields (u*, v*, w*, u, v, w): atol 2e-5, the reference's own
@@ -270,6 +327,7 @@ def profile_steps(torch, label, run, n_steps):
 
 
 def main() -> int:
+    import numpy as np
     import torch
 
     args = sys.argv[1:]
@@ -287,6 +345,7 @@ def main() -> int:
                                         apply_dirichlet_scalar,
                                         apply_neumann_scalar)
     from cfd_tpu_torch.entry import entry
+    from cfd_tpu_torch.ops.kernels import bicgstab_kernels as bk
     from cfd_tpu_torch.ops.kernels import cg_kernels as cgk
     from cfd_tpu_torch.ops.kernels import euler2d as e2m
     from cfd_tpu_torch.ops.kernels import euler_kernels as ekm
@@ -295,6 +354,7 @@ def main() -> int:
     from cfd_tpu_torch.ops.kernels import projection2d as pk2m
     from cfd_tpu_torch.ops.kernels import projection_kernels as pkm
     from cfd_tpu_torch.ops.kernels import rk2d as rk2m
+    from cfd_tpu_torch.ops.kernels import rbsor_kernels as sk
     from cfd_tpu_torch.ops.kernels import rk_kernels as rkm
     from cfd_tpu_torch.ops.kernels import rolling, tdma, vmem_mg, vmem_small
     from cfd_tpu_torch.solvers.ns.common import (field_status_and_diagnostics,
@@ -306,6 +366,7 @@ def main() -> int:
     from cfd_tpu_torch.solvers.ns.rollout import run_steps
     from cfd_tpu_torch.solvers.poisson import frontend, krylov
     from cfd_tpu_torch.solvers.poisson import multigrid as mgs
+    from cfd_tpu_torch.solvers.poisson import stationary
     from cfd_tpu_torch.solvers.poisson.base import (Method, PoissonParams,
                                                     PoissonProblem,
                                                     PoissonStatus, Precond)
@@ -1762,6 +1823,655 @@ def main() -> int:
                 False)
     close_p(f"phase 21 facade {FACADE_CHECK} steps", checked.p, fp.p)
 
+    # ---- phase 22: the BiCGSTAB and stationary kernels against plain -------
+    bit = (0.0, False)   # bit-equal
+
+    def bicg_timing_state(alpha, beta, omega):
+        """A running B1 state that never stops (tolerances 0), to time the
+        passes as the solve launches them."""
+        one = torch.ones((), device=dev)
+        st = bk.new_state(one, one, 0 * one, 0 * one, one > 0)
+        for slot, val in ((bk.BETA, beta), (bk.OMEGA, omega),
+                          (bk.ALPHA_NEW, alpha), (bk.ALPHA_EFF, alpha),
+                          (bk.OMEGA_EFF, omega), (bk.OMEGA_NEW, omega)):
+            st[slot] = val
+        return st
+
+    for shape in ((11, 23, 37), (N_BIG,) * 3):
+        big = shape[0] == N_BIG
+        tag = "x".join(map(str, shape[::-1]))
+        print(f"phase 22 BiCGSTAB passes and RB-SOR sweep vs plain at {tag}",
+              flush=True)
+        _, prob = cg_problem(shape)
+        c = bk.BiCGConsts(*shape, prob.inv_dx2, prob.inv_dy2, prob.inv_dz2)
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        r, p, v, rhat = (prob.zero_boundary(torch.randn(
+            shape, generator=gen, device=dev)) for _ in range(4))
+        alpha, beta, omega = (torch.full((), a, device=dev)
+                              for a in (0.61, 0.37, 0.29))
+        cells = interior(shape)
+        ops = bk.BiCGSTABPasses(c, dev)
+        st = bicg_timing_state(alpha, beta, omega)
+        pn_t, vn_t, s_t, t_t = (torch.empty_like(r) for _ in range(4))
+        pn, vn, _ = check(
+            "bicg3d", tag, big, bk.pass_pv, B1, SRC_BICG,
+            lambda: bk.pass_pv(r, p, v, rhat, beta, omega, c),
+            lambda: bk.pass_pv_plain(r, p, v, rhat, beta, omega, c),
+            ("p'", "v'", "<rhat,v'>"), (bit, bit, dot),
+            work=((r, p, v, rhat), FLOPS_PER_POINT["bicg_pv"] * cells),
+            time_fn=lambda: ops.pv(r, p, v, rhat, pn_t, vn_t, st))
+        s, t, _, _, _ = check(
+            "bicg3d", tag, big, bk.pass_st, B1, SRC_BICG,
+            lambda: bk.pass_st(r, vn, alpha, c),
+            lambda: bk.pass_st_plain(r, vn, alpha, c),
+            ("s", "t", "<s,s>", "<t,s>", "<t,t>"), (bit, bit) + (dot,) * 3,
+            work=((r, vn), FLOPS_PER_POINT["bicg_st"] * cells),
+            time_fn=lambda: ops.st(r, vn, s_t, t_t, st))
+        del s_t, t_t
+        x = torch.randn(shape, generator=gen, device=dev)
+        x_t, r_t = x.clone(), r.clone()
+        check("bicg3d", tag, big, bk.pass_xr, B1, SRC_BICG,
+              lambda: bk.pass_xr(x, pn, s, t, rhat, alpha, omega, c),
+              lambda: bk.pass_xr_plain(x, pn, s, t, rhat, alpha, omega, c),
+              ("x'", "r'", "<r',r'>", "<rhat,r'>"), (bit, bit, dot, dot),
+              work=((x, pn, s, t, rhat), FLOPS_PER_POINT["bicg_xr"] * cells),
+              time_fn=lambda: ops.xr(x_t, r_t, pn, s, t, rhat, st))
+        del p, v, rhat, pn, vn, s, t, pn_t, vn_t, x_t, r_t
+        torch.cuda.empty_cache()
+        # S1: one sweep, timed in place on a state that never stops
+        sc = sk.SORConsts(*shape, prob.inv_dx2, prob.inv_dy2, prob.inv_dz2,
+                          prob.inv_factor, prob.resolve_omega(0.0))
+        sor = sk.SORPasses(sc, dev)
+        zero = torch.zeros((), device=dev)
+        st_s = sk.new_state(zero, zero, zero, zero < 1)
+        x_t = x.clone()
+        check("sor3d", tag, big, sk.rbsor_sweep, S1, SRC_SOR,
+              lambda: sk.rbsor_sweep(x, r, sc),
+              lambda: sk.rbsor_sweep_plain(x, r, sc),
+              ("x", "residual"), (bit, bit),
+              work=((x, r), FLOPS_PER_POINT["rbsor_sweep"] * cells),
+              time_fn=lambda: sor.sweep(x_t, r, st_s))
+        x[shape[0] // 2, 3, 4] = float("nan")
+        res_k = sk.rbsor_sweep(x, r, sc)[1]
+        res_p = sk.rbsor_sweep_plain(x, r, sc)[1]
+        print(f"  {tag} rbsor_sweep with a NaN in x: residual {float(res_k)} "
+              f"(plain {float(res_p)})", flush=True)
+        if not (torch.isnan(res_k) and torch.isnan(res_p)):
+            fail("rbsor_sweep: a NaN in x did not give a NaN residual")
+        del x, x_t, r
+        torch.cuda.empty_cache()
+
+    def whole_solve_agree(tag, got, ref, tol_it, x_tol):
+        it, it_ref = int(got.iterations), int(ref.iterations)
+        st_k, st_p = int(got.status), int(ref.status)
+        print(f"  {tag}: iterations {it} vs {it_ref}, status {st_k} vs "
+              f"{st_p}, residual {float(got.final_residual):.4e} vs "
+              f"{float(ref.final_residual):.4e}", flush=True)
+        if abs(it - it_ref) > tol_it or st_k != st_p:
+            fail(f"{tag}: iterations or status differ")
+        return compare(tag, "x", got.x, ref.x, *x_tol)
+
+    def solve_record(path, name, replaces, source, err_rel):
+        rec = records.setdefault((path, name), {
+            "replaces": replaces, "source": source, "max_abs_err": 0.0,
+            "max_rel_err": 0.0})
+        rec["max_abs_err"] = max(rec["max_abs_err"], err_rel[0])
+        rec["max_rel_err"] = max(rec["max_rel_err"], err_rel[1])
+        return rec
+
+    # B2 against its plain version: the reference's BiCGSTAB bars (±3
+    # iterations, x within 1e-3·max|x|, tests/math/test_fused_solvers.py:
+    # 181-186) on a smooth rhs at tolerance 1e-2 — BiCGSTAB's float32
+    # trajectories under two summation orders part after 20–30
+    # iterations, and this solve converges in fewer — then, below, the
+    # reference's own whole-solve bars on a normal rhs at 1e-5; S2
+    # bit-equal (the same sweeps and residual folds)
+    whole = (("bicgstab_solve", krylov.make_bicgstab_vmem, "bicg2d", B2,
+              SRC_BICG, ((1, 100, 100), (1, 64, 96)),
+              PoissonParams(tolerance=1e-2, max_iterations=1000), 3,
+              (1e-3, True)),
+             ("rbsor_solve", stationary.make_redblack_sor_vmem, "sor2d",
+              S2_SOR, SRC_SOR, ((1, 100, 100), (9, 17, 33)),
+              PoissonParams(tolerance=1e-3, max_iterations=2000,
+                            check_interval=5), 0, bit),
+             ("jacobi_solve", stationary.make_jacobi_vmem, "sor2d", S2_JAC,
+              SRC_SOR, ((1, 100, 100), (9, 17, 33)),
+              PoissonParams(tolerance=1e-3, max_iterations=2000,
+                            check_interval=5), 0, bit))
+    for name, maker, path, replaces, source, shapes, pp, tol_it, x_tol \
+            in whole:
+        for shape in shapes:
+            tag = "x".join(map(str, shape[::-1])) + f" {name}"
+            _, prob = cg_problem(shape)
+            gen = torch.Generator(device=dev).manual_seed(SEED)
+            rhs = torch.randn(shape, generator=gen, device=dev)
+            x0 = 0.1 * torch.randn(shape, generator=gen, device=dev)
+            if name == "bicgstab_solve":
+                # sin·sin plus a little noise, zero start
+                yy = torch.linspace(0.0, 1.0, shape[1], device=dev)
+                xx = torch.linspace(0.0, 1.0, shape[2], device=dev)
+                rhs = (torch.sin(math.pi * yy)[:, None]
+                       * torch.sin(math.pi * xx)[None, :])[None] \
+                    + 0.005 * rhs
+                x0.zero_()
+            print(f"phase 22 {tag} vs plain", flush=True)
+            got = maker(prob, pp, device=dev)(x0, rhs)
+            ref = maker(prob, pp, device=dev, plain=True)(x0, rhs)
+            solve_record(path, name, replaces, source,
+                         whole_solve_agree(tag, got, ref, tol_it, x_tol))
+    # B2 on a normal rhs at 1e-5 (tests/math/test_vmem_small.py:141-162):
+    # both converged below tol·r0, at most twice the plain path's
+    # iterations, x within 5e-4
+    shape = (1, 100, 100)
+    _, prob = cg_problem(shape)
+    pp = PoissonParams(tolerance=1e-5, max_iterations=1000)
+    rhs = torch.randn(shape, generator=torch.Generator(
+        device=dev).manual_seed(SEED), device=dev)
+    x0 = torch.zeros_like(rhs)
+    got = krylov.make_bicgstab_vmem(prob, pp, device=dev)(x0, rhs)
+    ref = krylov.make_bicgstab_vmem(prob, pp, device=dev, plain=True)(x0,
+                                                                      rhs)
+    it, it_ref = int(got.iterations), int(ref.iterations)
+    print(f"  100x100 bicgstab_solve, normal rhs, tolerance 1e-5: "
+          f"iterations {it} vs {it_ref}, status {int(got.status)} vs "
+          f"{int(ref.status)}, residual {float(got.final_residual):.4e} "
+          f"(bar {1e-5 * float(got.initial_residual):.4e})", flush=True)
+    if not (int(got.status) == int(ref.status) == PoissonStatus.CONVERGED
+            and 0 < it <= 2 * it_ref and float(got.final_residual)
+            < 1e-5 * float(got.initial_residual)):
+        fail("100x100 bicgstab_solve: not converged as the plain path")
+    compare("100x100 bicgstab_solve, normal rhs", "x", got.x, ref.x, 5e-4,
+            False)
+
+    # ---- phase 23: bench.py:run_poisson_iters(100) ------------------------
+    n = POISSON_N
+    interior_2d = (n - 2) ** 2
+    rhs_p = torch.tensor(np.random.default_rng(0).normal(0.0, 1.0,
+                                                         (1, n, n)),
+                         dtype=torch.float32, device=dev)
+    rhs_p = rhs_p - rhs_p.mean()
+    x0_p = torch.zeros_like(rhs_p)
+    method_of = {"redblack_sor": Method.REDBLACK_SOR, "cg": Method.CG,
+                 "bicgstab": Method.BICGSTAB}
+    poisson_iters = {}
+    for name, budget in POISSON_BUDGETS:
+        pp = PoissonParams(tolerance=0.0, absolute_tolerance=0.0,
+                           max_iterations=budget, check_interval=budget)
+        solvers = {}
+        for path in ("kernel", "plain"):
+            solvers[path] = frontend.create_solver(
+                method_of[name], pp, device=dev,
+                plain=path == "plain").init(n, n, 1, 1.0 / (n - 1),
+                                            1.0 / (n - 1), 0.0)
+        fn = solvers["kernel"]._dispatch(x0_p)
+        one = {path: s.solve_result(x0_p, rhs_p)
+               for path, s in solvers.items()}
+        meas = {}
+        for count in POISSON_PAIR:
+            eps = torch.linspace(0.0, 1e-4, count, device=dev)
+            scaled = [rhs_p * (1.0 + e) for e in eps]
+            best = float("inf")
+            for _ in range(3):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                sync()
+                start.record()
+                its = [fn(x0_p, rs).iterations for rs in scaled]
+                end.record()
+                sync()
+                best = min(best, start.elapsed_time(end))
+            meas[count] = (sum(int(i) for i in its), best)
+        (i1, t1), (i2, t2) = meas[POISSON_PAIR[0]], meas[POISSON_PAIR[1]]
+        rate = (i2 - i1) / max((t2 - t1) * 1e-3, 1e-12)
+        k, pl = one["kernel"], one["plain"]
+        poisson_iters[name] = {
+            "iters_per_s": rate, "iterations": int(k.iterations),
+            "status": int(k.status), "ms_a_solve": t2 / POISSON_PAIR[1],
+            "plain_iterations": int(pl.iterations),
+            "plain_status": int(pl.status)}
+        print(f"phase 23 run_poisson_iters({n}) {name}: {rate:.1f} "
+              f"iterations/s (Δ{i2 - i1} iterations in Δ{t2 - t1:.3f} ms, "
+              f"{POISSON_PAIR} solves), {t2 / POISSON_PAIR[1]:.4f} ms a "
+              f"solve; one solve: kernel {int(k.iterations)} iterations, "
+              f"status {int(k.status)}, residual "
+              f"{float(k.final_residual):.4e} of "
+              f"{float(k.initial_residual):.4e}; plain "
+              f"{int(pl.iterations)} iterations, status {int(pl.status)}, "
+              f"residual {float(pl.final_residual):.4e}", flush=True)
+        if not bool(torch.isfinite(k.x).all()):
+            fail(f"run_poisson_iters {name}: non-finite solution")
+        # at tolerance 0 BiCGSTAB's float32 trajectory may break down at
+        # another iteration on the two paths (its dots differ in
+        # summation order); the other two must agree
+        if name != "bicgstab" and (int(k.status), int(k.iterations)) != (
+                int(pl.status), int(pl.iterations)):
+            fail(f"run_poisson_iters {name}: the kernel's status or "
+                 f"iterations differ from the plain path's")
+        if name == "redblack_sor":
+            compare(f"phase 23 {name}", "x", k.x, pl.x, *bit)
+        # the whole-solve kernels' records: this solve, timed
+        rec_name = {"redblack_sor": "rbsor_solve",
+                    "bicgstab": "bicgstab_solve"}.get(name)
+        if rec_name is not None:
+            rec = records[("sor2d" if name == "redblack_sor" else "bicg2d",
+                           rec_name)]
+            rec["ms"] = t2 / POISSON_PAIR[1]
+            rec["plain_ms"] = cuda_ms(
+                lambda: solvers["plain"].solve_result(x0_p, rhs_p), reps=1)
+            rec["library_ms"] = None
+            flops = (budget * FLOPS_PER_POINT["sor_sweep_2d"]
+                     + FLOPS_PER_POINT["residual_2d"]) * interior_2d \
+                if name == "redblack_sor" else \
+                budget * FLOPS_PER_POINT["bicg_iter_2d"] * interior_2d
+            rec["bound_ms"], rec["bound_by"] = bound(
+                3 * nbytes((rhs_p,)), flops)
+    # Jacobi's whole solve on the same 100² input, 2000 sweeps
+    pp_j = PoissonParams(tolerance=0.0, absolute_tolerance=0.0,
+                         max_iterations=2000, check_interval=2000)
+    jk_ = stationary.make_jacobi_vmem(cg_problem((1, n, n))[1], pp_j,
+                                      device=dev)
+    jp_ = stationary.make_jacobi_vmem(cg_problem((1, n, n))[1], pp_j,
+                                      device=dev, plain=True)
+    rec = records[("sor2d", "jacobi_solve")]
+    rec["ms"] = cuda_ms(lambda: jk_(x0_p, rhs_p))
+    rec["plain_ms"] = cuda_ms(lambda: jp_(x0_p, rhs_p), reps=1)
+    rec["library_ms"] = None
+    rec["bound_ms"], rec["bound_by"] = bound(
+        3 * nbytes((rhs_p,)), (2000 * FLOPS_PER_POINT["jacobi_sweep_2d"]
+                               + FLOPS_PER_POINT["residual_2d"])
+        * interior_2d)
+    print(f"phase 23 jacobi_solve 100^2, 2000 sweeps: {rec['ms']:.4f} ms, "
+          f"plain {rec['plain_ms']:.3f} ms", flush=True)
+    for name in ("bicgstab_solve", "rbsor_solve", "jacobi_solve"):
+        rec = records[("bicg2d" if name == "bicgstab_solve" else "sor2d",
+                       name)]
+        print(f"  {name}: bound {rec['bound_ms']:.6f} ms "
+              f"({rec['bound_by']})", flush=True)
+
+    # ---- phase 24: 512³ — BiCGSTAB on cg_512's problem, the RB-SOR sweep --
+    n = N_BIG
+    _, prob = cg_problem((n, n, n))
+    gen = torch.Generator(device=dev).manual_seed(7)
+    rhs = prob.zero_boundary(torch.randn((n, n, n), generator=gen,
+                                         device=dev))
+    x0 = torch.zeros_like(rhs)
+    # Float32 BiCGSTAB may not reach 1e-6 on this large rough problem: ρ =
+    # ⟨r̂, r⟩ shrinks against ‖r̂‖‖r‖ until r's own rounding sets it (with
+    # float32 dots the solve diverged after 1372 iterations, the plain
+    # path too).  The solve runs at 1e-6 first; where it does not
+    # converge it runs at the next decades up, and the first that
+    # converges is timed — the rule of the stationary floors.
+    def bicg_solver(tol):
+        return frontend.create_solver(Method.BICGSTAB, PoissonParams(
+            tolerance=tol, max_iterations=BICG_512_ITERS_MAX,
+            check_interval=10), device=dev).init(n, n, n, prob.dx, prob.dy,
+                                                 prob.dz)
+
+    for bicg_tol in (1e-6, 1e-5, 1e-4, 1e-3):
+        ps = bicg_solver(bicg_tol)
+        res = ps.solve_result(x0, rhs)          # also the timed run's warm-up
+        print(f"phase 24 BiCGSTAB 512^3 at tolerance {bicg_tol:g}: "
+              f"{int(res.iterations)} iterations, status {int(res.status)}, "
+              f"recursion residual {float(res.final_residual):.4e} of "
+              f"{float(res.initial_residual):.4e}", flush=True)
+        if int(res.status) == PoissonStatus.CONVERGED:
+            break
+    sync()
+    for w in bk.WRAPPERS:
+        w.launches = 0
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    res = ps.solve_result(x0, rhs)
+    end.record()
+    sync()
+    ms_solve = start.elapsed_time(end)
+    n_it, syncs = int(res.iterations), ps._fused_fn.host_syncs
+    xd, rd = prob.zero_boundary(res.x.double()), rhs.double()
+    true_rel = float(prob.interior(prob.laplacian(xd) - rd).norm()
+                     / prob.interior(rd).norm())
+    del xd, rd
+    print(f"phase 24 BiCGSTAB on cg_512's problem (512^3, tol {bicg_tol:g}, "
+          f"check_interval 10, the front end's fused passes): {n_it} "
+          f"iterations, status {int(res.status)}, {ms_solve:.1f} ms a solve, "
+          f"{ms_solve / max(n_it, 1):.4f} ms an iteration (bound 2.725), "
+          f"{syncs} host syncs (bar {-(-n_it // krylov.CHUNK) + 2}), "
+          f"recursion residual {float(res.final_residual):.4e} of "
+          f"{float(res.initial_residual):.4e}, true relative residual "
+          f"{true_rel:.4e}; launches pv {bk.pass_pv.launches}, st "
+          f"{bk.pass_st.launches}, xr {bk.pass_xr.launches}; beside cg_512's "
+          f"{cg512['iterations']} iterations and {cg512['ms']:.1f} ms at 1e-6 "
+          f"(phase 13)", flush=True)
+    if int(res.status) != PoissonStatus.CONVERGED or not true_rel <= 1e-3:
+        fail("BiCGSTAB 512^3: not converged, or true residual above 1e-3")
+    if syncs > -(-n_it // krylov.CHUNK) + 2:
+        fail("BiCGSTAB 512^3: more host syncs than one a chunk")
+    bicg512 = {"iterations": n_it, "ms": ms_solve, "host_syncs": syncs,
+               "true_rel_residual": true_rel, "tolerance": bicg_tol}
+    del res, ps
+    # a fixed budget, kernel path against plain path: 10 iterations, as
+    # BiCGSTAB's float32 trajectories under two summation orders part by
+    # ~1e-2 of max|x| within 20 iterations of a rough rhs (the port's
+    # float32 loop against the reference's on the CPU, 64³ and 96³: 1e-2
+    # and 3e-2 at 20, 4e-6 and 3e-7 at 10)
+    n_fix = 10
+    pp_fix = PoissonParams(tolerance=0.0, max_iterations=n_fix,
+                           check_interval=10)
+    fixed = {}
+    for path in ("kernel", "plain"):
+        fs = krylov.make_bicgstab_fused(prob, pp_fix, device=dev,
+                                        plain=path == "plain")
+        fixed[path] = fs(x0, rhs)
+        fixed[path + "_ms"] = cuda_ms(lambda: fs(x0, rhs), reps=1)
+    print(f"phase 24 BiCGSTAB 512^3, {n_fix} iterations: kernel "
+          f"{fixed['kernel_ms'] / n_fix:.4f} ms, plain "
+          f"{fixed['plain_ms'] / n_fix:.4f} ms an iteration", flush=True)
+    bicg512["plain_ms_an_iteration"] = fixed["plain_ms"] / n_fix
+    whole_solve_agree(f"BiCGSTAB 512^3 {n_fix} iterations", fixed["kernel"],
+                      fixed["plain"], 0, (1e-3, True))
+    del fixed
+    torch.cuda.empty_cache()
+    # the RB-SOR sweep: 200 sweeps, tolerance 0, through the front end
+    pp_s = PoissonParams(tolerance=0.0, max_iterations=SOR_512_SWEEPS,
+                         check_interval=10)
+    ss = frontend.create_solver(Method.REDBLACK_SOR, pp_s, device=dev).init(
+        n, n, n, prob.dx, prob.dy, prob.dz)
+    ss.solve_result(x0, rhs)                    # warm-up
+    sync()
+    sk.rbsor_sweep.launches = 0
+    start.record()
+    res = ss.solve_result(x0, rhs)
+    end.record()
+    sync()
+    ms_sor = start.elapsed_time(end)
+    print(f"phase 24 RB-SOR 512^3, {int(res.iterations)} sweeps (tolerance "
+          f"0, check_interval 10): {ms_sor:.1f} ms, "
+          f"{ms_sor / SOR_512_SWEEPS:.4f} ms a sweep (bound 0.481), "
+          f"infinity-norm residual {float(res.final_residual):.4e} of "
+          f"{float(res.initial_residual):.4e}, host syncs "
+          f"{ss._fused_fn.host_syncs}, rbsor_sweep launches "
+          f"{sk.rbsor_sweep.launches}", flush=True)
+    if int(res.iterations) != SOR_512_SWEEPS or sk.rbsor_sweep.launches \
+            < SOR_512_SWEEPS:
+        fail("RB-SOR 512^3: not the sweep kernel once a sweep")
+    sor512 = {"sweeps": SOR_512_SWEEPS, "ms": ms_sor,
+              "ms_a_sweep": ms_sor / SOR_512_SWEEPS,
+              "residual": float(res.final_residual)}
+    del res, ss
+    pp10 = PoissonParams(tolerance=0.0, max_iterations=10, check_interval=10)
+    ten = {path: stationary.make_redblack_sor_fused(
+        prob, pp10, device=dev, plain=path == "plain")(x0, rhs)
+        for path in ("kernel", "plain")}
+    whole_solve_agree("RB-SOR 512^3 10 sweeps", ten["kernel"], ten["plain"],
+                      0, bit)
+    compare("RB-SOR 512^3 10 sweeps", "residual",
+            ten["kernel"].final_residual, ten["plain"].final_residual, *bit)
+    del ten, rhs, x0
+    torch.cuda.empty_cache()
+
+    # ---- phase 25: the 3D BiCGSTAB, RB-SOR and Jacobi steps ----------------
+    def iterative_step_paths(label, shape, method, pparams, wrappers,
+                             steps=CG_STEPS, warm=CG_STEPS,
+                             paths=("kernel", "plain")):
+        """Kernel path, then plain path: ``warm`` steps from the Taylor-
+        Green start, then ``steps`` timed with CUDA events from the same
+        start (run_3d's physics, dt = 1e-4).  The launch counters are set
+        to 0 just before the kernel path's timed steps and read just
+        after.  Returns {path: (field, iterations, statuses)}, ms a step
+        and the counts."""
+        grid3 = uniform_grid(shape)
+        out, ms, counts = {}, {}, None
+        for path in paths:
+            stepf = make_projection_step(grid3, params_cg, torch.float32,
+                                         method, poisson_params=pparams,
+                                         device=dev, plain=path == "plain")
+            f0 = tg_field(shape)
+            if warm:
+                run_steps(stepf, f0, 1e-4, warm)
+            sync()
+            if path == "kernel":
+                pkm.reset_launch_counts()
+                for w in wrappers:
+                    w.launches = 0
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            f, its, stats = f0, [], []
+            for i in range(steps):
+                f, r = stepf(f, 1e-4, i)
+                its.append(stepf.last_poisson.iterations)
+                stats.append(r.status)
+            end.record()
+            sync()
+            ms[path] = start.elapsed_time(end) / steps
+            its, stats = [int(t) for t in its], [int(t) for t in stats]
+            print(f"{label} {path} path: {ms[path]:.3f} ms/step, iterations "
+                  f"a step {its}, statuses {stats}, host syncs of the last "
+                  f"solve {getattr(stepf.poisson_solve, 'host_syncs', 0)}, "
+                  f"max|u| {float(r.max_velocity):.6f}", flush=True)
+            if not bool(f.is_finite()):
+                fail(f"{label} {path} path: non-finite fields")
+            if path == "kernel":
+                counts = {fn.__name__: fn.launches
+                          for fn in pkm.WRAPPERS_RHS + tuple(wrappers)}
+                print(f"{label} launch counts over the main path: {counts}",
+                      flush=True)
+                if any(val <= 0 for val in counts.values()):
+                    fail(f"{label}: kernels not launched: {counts}")
+            out[path] = (f, its, stats)
+            del f0
+        return out, ms, counts
+
+    def hold_steps(label, out, exact_paths):
+        fk, fp = out["kernel"][0], out["plain"][0]
+        for name in "uvw":
+            compare(label, name, getattr(fk, name), getattr(fp, name),
+                    *(bit if exact_paths else (TOL_CG_UVW, False)))
+        if exact_paths:
+            compare(label, "p", fk.p, fp.p, *bit)
+        else:
+            close_p(label, fk.p, fp.p)
+
+    def stationary_floor(label, make_step, field, budget):
+        """The relative residual a stationary solve reaches in ``budget``
+        sweeps at tolerance 0 (its float32 floor, or the least it reaches
+        in its budget), on the kernel path."""
+        fstep = make_step(PoissonParams(tolerance=0.0,
+                                        max_iterations=budget))
+        fstep(field, 1e-4, 0)
+        lp = fstep.last_poisson
+        floor = float(lp.final_residual) / float(lp.initial_residual)
+        tol = 1e-6 if floor < 1e-6 else 10.0 ** math.ceil(math.log10(floor))
+        print(f"{label} float32 residual floor of the first step's solve: "
+              f"{floor:.3e} relative after {budget} sweeps; the step runs "
+              f"at tolerance {tol:g}"
+              + ("" if tol == 1e-6 else " (the smallest decade above the "
+                 "floor: 1e-6 is below it)"), flush=True)
+        return floor, tol
+
+    shape = (N_BICG_STEP,) * 3
+    # the first step's solve at 1e-6, else at the next decades up (phase
+    # 24: float32 BiCGSTAB may not reach 1e-6 on a large grid)
+    for bicg_step_tol in (1e-6, 1e-5, 1e-4, 1e-3):
+        probe = make_projection_step(
+            uniform_grid(shape), params_cg, torch.float32, Method.BICGSTAB,
+            poisson_params=PoissonParams(tolerance=bicg_step_tol),
+            device=dev)
+        probe(tg_field(shape), 1e-4, 0)
+        lp = probe.last_poisson
+        print(f"phase 25 BiCGSTAB step {N_BICG_STEP}^3, the first step's "
+              f"solve at tolerance {bicg_step_tol:g}: {int(lp.iterations)} "
+              f"iterations, status {int(lp.status)}", flush=True)
+        if int(lp.status) == PoissonStatus.CONVERGED:
+            break
+    del probe, lp
+    out, bicg_step_ms, counts = iterative_step_paths(
+        f"phase 25 BiCGSTAB step {N_BICG_STEP}^3 (tolerance "
+        f"{bicg_step_tol:g})",
+        shape, Method.BICGSTAB, PoissonParams(tolerance=bicg_step_tol),
+        list(bk.WRAPPERS))
+    for path in ("kernel", "plain"):
+        if any(s != 0 for s in out[path][2]):
+            fail(f"phase 25 BiCGSTAB step {path} path: nonzero status")
+    launch_counts["bicg3d"] = counts
+    hold_steps(f"phase 25 BiCGSTAB {CG_STEPS} steps", out, False)
+    del out
+    # the CG step on the same grid at the same tolerance, kernel path
+    cg_same = iterative_step_paths(
+        f"phase 25 CG step {N_BICG_STEP}^3 (tolerance {bicg_step_tol:g})",
+        shape, Method.CG, PoissonParams(tolerance=bicg_step_tol),
+        list(cgk.WRAPPERS), paths=("kernel",))
+    print(f"phase 25 BiCGSTAB step {N_BICG_STEP}^3: "
+          f"{bicg_step_ms['kernel']:.3f} ms a step, beside the CG step's "
+          f"{cg_same[1]['kernel']:.3f} ms there ({cg_same[0]['kernel'][1]} "
+          f"iterations) and {cg_ms['kernel']:.3f} ms at 256^3 (phase 14)",
+          flush=True)
+    bicg_step_ms["tolerance"] = bicg_step_tol
+    bicg_step_ms["cg_same_grid"] = cg_same[1]["kernel"]
+    del cg_same
+    torch.cuda.empty_cache()
+
+    shape = (N_SOR_STEP,) * 3
+
+    def sor_step(pp):
+        return make_projection_step(uniform_grid(shape), params_cg,
+                                    torch.float32, Method.REDBLACK_SOR,
+                                    poisson_params=pp, device=dev)
+
+    sor_floor, sor_tol = stationary_floor(
+        f"phase 25 RB-SOR step {N_SOR_STEP}^3", sor_step, tg_field(shape),
+        SOR_FLOOR_SWEEPS)
+    out, sor_step_ms, counts = iterative_step_paths(
+        f"phase 25 RB-SOR step {N_SOR_STEP}^3", shape, Method.REDBLACK_SOR,
+        PoissonParams(tolerance=sor_tol), [sk.rbsor_sweep])
+    if out["kernel"][1:] != out["plain"][1:]:
+        fail("phase 25 RB-SOR step: sweeps or statuses differ between paths")
+    launch_counts["sor3d"] = {"rbsor_sweep": counts["rbsor_sweep"]}
+    hold_steps(f"phase 25 RB-SOR {CG_STEPS} steps", out, False)
+    sor_step_rec = {"ms": sor_step_ms, "sweeps": out["kernel"][1],
+                    "statuses": out["kernel"][2], "floor": sor_floor,
+                    "tolerance": sor_tol}
+    del out
+    shape = (N_JAC_STEP,) * 3
+    out, jac_step_ms, counts = iterative_step_paths(
+        f"phase 25 Jacobi step {N_JAC_STEP}^3", shape, Method.JACOBI,
+        PoissonParams(), [vmem_small.jacobi_solve], warm=0)
+    if out["kernel"][1:] != out["plain"][1:]:
+        fail("phase 25 Jacobi step: iterations or statuses differ")
+    hold_steps(f"phase 25 Jacobi {CG_STEPS} steps", out, True)
+    jac_step_rec = {"ms": jac_step_ms, "sweeps": out["kernel"][1],
+                    "statuses": out["kernel"][2]}
+    del out
+    torch.cuda.empty_cache()
+
+    # ---- phase 26: 2D — Ghia with BiCGSTAB, the stationary cavities ------
+    vmem_small.bicgstab_solve.launches = 0
+    ghia_gate("phase 26", 128, 100, 5e-4, 20000, 0.10, Method.BICGSTAB)
+    launch_counts["bicg2d"] = {
+        "bicgstab_solve": vmem_small.bicgstab_solve.launches}
+    print(f"phase 26 bicgstab_solve launches "
+          f"{vmem_small.bicgstab_solve.launches}", flush=True)
+    if vmem_small.bicgstab_solve.launches != 20000:
+        fail("phase 26 Ghia: not the whole-solve BiCGSTAB once a step")
+
+    def cavity(method, pp, plain, steps=CAVITY_STEPS, nc=128):
+        """The lid cavity at Re = 100 (ghia_gate's loop), ``steps`` steps
+        with the ``method`` pressure solve; returns the field, the
+        statuses, the solves' iterations and relative residuals, and the
+        host ms a step."""
+        stepc = make_projection_step(
+            Grid.uniform(nc, nc), NSParams(source_amplitude_u=0.0,
+                                           source_amplitude_v=0.0,
+                                           mu=1.0 / 100),
+            torch.float32, method, poisson_params=pp, device=dev,
+            plain=plain)
+        lid, wall = DirichletValues(top=1.0), DirichletValues()
+        fc = FlowField.quiescent(nc, nc, pressure=0.0, dtype=torch.float32,
+                                 device=dev)
+        stats, its, rel = [], [], []
+        sync()
+        t0 = time.perf_counter()
+        for i in range(steps):
+            fc = fc.replace(u=apply_dirichlet_scalar(fc.u, lid),
+                            v=apply_dirichlet_scalar(fc.v, wall),
+                            p=apply_neumann_scalar(fc.p))
+            fc, rc = stepc(fc, 5e-4, i)
+            lp = stepc.last_poisson
+            stats.append(rc.status)
+            its.append(lp.iterations)
+            rel.append(lp.final_residual / lp.initial_residual)
+        sync()
+        ms_step = (time.perf_counter() - t0) * 1e3 / steps
+        return (fc, [int(s) for s in stats], [int(t) for t in its],
+                [float(r) for r in rel], ms_step)
+
+    cavities = {}
+    for method, name, ci in ((Method.REDBLACK_SOR, "rbsor_solve", 1),
+                             (Method.JACOBI, "jacobi_solve", 10)):
+        label = f"phase 26 cavity 128^2 {method.name}"
+        _, _, _, rel, _ = cavity(method, PoissonParams(
+            tolerance=0.0, max_iterations=SOR_FLOOR_SWEEPS,
+            check_interval=ci), False)
+        floor = max(rel)
+        tol = 1e-6 if floor < 1e-6 else 10.0 ** math.ceil(math.log10(floor))
+        print(f"{label}: float32 residual floor over {CAVITY_STEPS} steps "
+              f"{floor:.3e} relative (first step {rel[0]:.3e}) after "
+              f"{SOR_FLOOR_SWEEPS} sweeps at tolerance 0; the cavity runs "
+              f"at tolerance {tol:g}"
+              + ("" if tol == 1e-6 else " (the smallest decade above the "
+                 "floor: 1e-6 is below it)"), flush=True)
+        pp = PoissonParams(tolerance=tol, max_iterations=SOR_FLOOR_SWEEPS,
+                           check_interval=ci)
+        fn = getattr(vmem_small, name)
+        fn.launches = 0
+        fk, stats_k, its_k, _, ms_k = cavity(method, pp, False)
+        launches = fn.launches
+        fp, stats_p, its_p, _, ms_p = cavity(method, pp, True)
+        print(f"{label} at tolerance {tol:g}: kernel {ms_k:.3f} ms a step "
+              f"(host wall), plain {ms_p:.3f}; sweeps a step {its_k[:5]} .. "
+              f"{its_k[-5:]}, statuses {sorted(set(stats_k))} "
+              f"({stats_k.count(0)} of {CAVITY_STEPS} at 0); {name} "
+              f"launches {launches}", flush=True)
+        if (stats_k, its_k) != (stats_p, its_p):
+            fail(f"{label}: statuses or sweeps differ between paths")
+        if launches != CAVITY_STEPS:
+            fail(f"{label}: not the whole-solve kernel once a step")
+        for comp in "uv":
+            compare(f"{label} {CAVITY_STEPS} steps", comp,
+                    getattr(fk, comp), getattr(fp, comp), TOL_CG_UVW, False)
+        close_p(f"{label} {CAVITY_STEPS} steps", fk.p, fp.p)
+        launch_counts.setdefault("sor2d", {})[name] = launches
+        cavities[method.name] = {"floor": floor, "tolerance": tol,
+                                 "ms": ms_k, "plain_ms": ms_p,
+                                 "converged_steps": stats_k.count(0)}
+
+    # the cached poisson_solve with its default preset (Red-Black SOR) on
+    # the card against the plain path, 100², an interior-mean-free rhs
+    n = POISSON_N
+    rhs_c = torch.randn((n, n), generator=torch.Generator(
+        device=dev).manual_seed(SEED), device=dev)
+    rhs_c[1:-1, 1:-1] -= rhs_c[1:-1, 1:-1].mean()
+    x0_c = torch.zeros_like(rhs_c)
+    frontend.clear_cache()
+    vmem_small.rbsor_solve.launches = 0
+    xk, it_k = frontend.poisson_solve(x0_c, rhs_c, n, n, 1.0 / (n - 1),
+                                      1.0 / (n - 1), device=dev)
+    plain_s = frontend.create_solver(Method.REDBLACK_SOR, device=dev,
+                                     plain=True).init(
+        n, n, 1, 1.0 / (n - 1), 1.0 / (n - 1))
+    xp, st_p = plain_s.solve(x0_c, rhs_c)
+    it_p = st_p.iterations if st_p.status == PoissonStatus.CONVERGED else -1
+    print(f"phase 26 poisson_solve 100^2, default preset (REDBLACK_SIMD): "
+          f"iterations {it_k} (plain {it_p}; -1 is not converged; plain "
+          f"status {st_p.status.name} after {st_p.iterations} sweeps, "
+          f"residual {st_p.final_residual:.4e} of "
+          f"{st_p.initial_residual:.4e}), rbsor_solve launches "
+          f"{vmem_small.rbsor_solve.launches}", flush=True)
+    if it_k != it_p or vmem_small.rbsor_solve.launches != 1:
+        fail("poisson_solve: iterations differ, or not the whole-solve "
+             "kernel")
+    compare("phase 26 poisson_solve", "x", xk, xp, *bit)
+
     kernels = []
     for (path, name), rec in records.items():
         launches = launch_counts.get(path, {}).get(name)
@@ -1784,6 +2494,12 @@ def main() -> int:
                                             floor=mg_floor), "mg2d_129": mg2d,
                       "facade_multigrid_ms": wall_mg / MG_FACADE_STEPS,
                       "facade_multigrid_floor": facade_floor,
+                      "poisson_iters_100": poisson_iters,
+                      "bicgstab_512": bicg512, "rbsor_512": sor512,
+                      "bicgstab_step_ms_128": bicg_step_ms,
+                      "rbsor_step_128": sor_step_rec,
+                      "jacobi_step_33": jac_step_rec,
+                      "stationary_cavities_128": cavities,
                       "card": card}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

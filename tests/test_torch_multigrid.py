@@ -376,10 +376,11 @@ def test_non_coarsenable_grid_raises(method, kw):
 
 
 def test_unported_methods_and_default_preset_raise():
-    """The methods of later slices raise at ``init``; so does the cached
-    API with its default preset (Red-Black SOR)."""
-    for method in (Method.JACOBI, Method.SOR, Method.REDBLACK_SOR,
-                   Method.BICGSTAB, Method.FFT_DIRECT):
+    """The methods of later slices (SOR, Gauss-Seidel, FFT_DIRECT) raise
+    at ``init``; so does the cached API with an SOR preset.  (The default
+    preset, Red-Black SOR, runs: `tests/test_torch_stationary.py::
+    test_cached_presets_match_reference`.)"""
+    for method in (Method.SOR, Method.GAUSS_SEIDEL, Method.FFT_DIRECT):
         s = frontend.create_solver(method, device="cpu")
         assert s.name == j_create_solver(JMethod(int(method))).name
         with pytest.raises(CFDError) as err:
@@ -388,7 +389,9 @@ def test_unported_methods_and_default_preset_raise():
     frontend.clear_cache()
     with pytest.raises(CFDError) as err:
         frontend.poisson_solve(np.zeros((33, 33)), np.zeros((33, 33)), 33,
-                               33, 1 / 32, 1 / 32, device="cpu")
+                               33, 1 / 32, 1 / 32,
+                               frontend.SolverPreset.SOR_SCALAR,
+                               device="cpu")
     assert err.value.status == Status.ERROR_UNSUPPORTED
 
 

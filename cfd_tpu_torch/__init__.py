@@ -6,14 +6,16 @@ so each counterpart is easy to find.  It imports torch and numpy only —
 never jax or cfd_tpu.
 
 Ported so far: the Chorin projection step
-(`solvers.ns.projection.make_projection_step`) on uniform 3D and 2D
-grids with the reference's default CG pressure solve
-(`solvers.poisson.krylov`, ``csrc/cg_kernels.cu``) or the exact spectral
-one (``csrc/projection_kernels.cu``, ``csrc/projection2d_kernels.cu``),
-with the lid cavity's boundary conditions (`boundary`); the explicit
-integrators; the solver registry and the `Simulation` facade.  Its
-kernels run as hand-written CUDA for Hopper on a CUDA tensor and as plain
-PyTorch on the CPU.
+(`solvers.ns.projection.make_projection_step`) on uniform 3D (nz ≥ 3)
+and 2D grids with the reference's default CG pressure solve, BiCGSTAB,
+Red-Black SOR, Jacobi, multigrid, or the exact spectral one at
+``spectral_precision`` "highest" (IEEE fp32) or "high" (3xTF32), with the
+lid cavity's boundary conditions (`boundary`); every Poisson method
+through the front end (`solvers.poisson`: ``create_solver``,
+``poisson_solve``), the spectral solver API (`solvers.poisson.spectral`);
+the explicit integrators; the solver registry and the `Simulation`
+facade.  Its kernels (``csrc/``) run as hand-written CUDA for Hopper on a
+CUDA tensor and as plain PyTorch on the CPU.
 
 Every constructor takes an explicit ``device``; there is no global device
 state.  CUDA kernels are compiled with ``nvcc`` at first use, never at

@@ -12,6 +12,13 @@
 //       substitution, inverse xy DST, corrector, three max reductions
 //       -> tdma_bwd_kernel, sgemm_kernel (x2), corrector_kernel,
 //          reduce_max3_kernel
+//   A5  corr_all's DST form (the nz = 3 step): the same chain after the
+//       standalone back substitution (tdma.py's make_tdma_z_bwd)
+//
+// At spectral_precision=HIGH the DST products run on the 3xTF32
+// tensor-core GEMM (gemm_3xtf32.cu) instead of sgemm_kernel, the forward
+// sweep writes no t, and the back substitution rebuilds t analytically
+// (tdma_bwd_kernel<true>), as the reference's HIGH step does.
 //
 // The TPU kernels march z-planes through a ring of VMEM buffers so every
 // plane is read from HBM once and the DST dots hide under the streaming.
@@ -249,41 +256,64 @@ __global__ void __launch_bounds__(256) sgemm_kernel(
 
 // Thomas forward sweep along z for every (y, x) mode of the transformed
 // b~: rec = 1/(mu + 2w - w t), t = w rec, d' = (b^ + w d') rec for
-// k = 1..nz-2 from a zero carry; d' and t have zero z-shells.
+// k = 1..nz-2 from a zero carry; d' and t have zero z-shells.  With
+// write_t = 0 (the analytic back substitution rebuilds t) t is not
+// written and may be null: the sweep streams 2 fields, not 3.
 __global__ void tdma_fwd_kernel(const float* __restrict__ r,
                                 const float* __restrict__ mu, float w,
                                 float* __restrict__ d, float* __restrict__ t,
-                                int nz, long long plane) {
+                                int nz, long long plane, int write_t) {
   const long long m = blockIdx.x * (long long)blockDim.x + threadIdx.x;
   if (m >= plane) return;
   const float b = mu[m] + 2.0f * w;
   float tc = 0.0f, dc = 0.0f;
   d[m] = 0.0f;
-  t[m] = 0.0f;
+  if (write_t) t[m] = 0.0f;
   for (int k = 1; k < nz - 1; ++k) {
     const long long c = k * plane + m;
     const float rec = 1.0f / (b - w * tc);
     tc = w * rec;
     dc = (r[c] + w * dc) * rec;
     d[c] = dc;
-    t[c] = tc;
+    if (write_t) t[c] = tc;
   }
   d[(nz - 1) * plane + m] = 0.0f;
-  t[(nz - 1) * plane + m] = 0.0f;
+  if (write_t) t[(nz - 1) * plane + m] = 0.0f;
 }
 
 // Thomas back substitution x^ = d' + t x^ for k = nz-2 down to 1 from a
 // zero carry, with mirror z-shells x^[0] = x^[1], x^[nz-1] = x^[nz-2].
+// Stored form: t is read from the forward sweep's output.  Analytic form
+// (the counterpart of tdma.py's variant="analytic"): t is rebuilt from
+// the closed form t_k = sinh(k phi)/sinh((k+1) phi)
+//     = e^-phi * expm1(-2k phi) / expm1(-2(k+1) phi)
+// from two host-made (float64, rounded once) coefficient planes, coef =
+// [e^-phi | 2 phi]; expm1f avoids the e^-2k phi - 1 cancellation the TPU
+// kernel had to take (Mosaic lowers no expm1).  One read of d' and the
+// two planes, one write of x^.
+template <bool kAnalytic>
 __global__ void tdma_bwd_kernel(const float* __restrict__ d,
-                                const float* __restrict__ t,
+                                const float* __restrict__ t_or_coef,
                                 float* __restrict__ x, int nz,
                                 long long plane) {
   const long long m = blockIdx.x * (long long)blockDim.x + threadIdx.x;
   if (m >= plane) return;
+  float einv = 0.0f, p2 = 0.0f;
+  if (kAnalytic) {
+    einv = t_or_coef[m];
+    p2 = t_or_coef[plane + m];
+  }
   float xc = 0.0f;
   for (int k = nz - 2; k >= 1; --k) {
     const long long c = k * plane + m;
-    xc = d[c] + t[c] * xc;
+    float tk;
+    if (kAnalytic) {
+      const float kf = (float)k;
+      tk = einv * expm1f(-kf * p2) / expm1f(-(kf + 1.0f) * p2);
+    } else {
+      tk = t_or_coef[c];
+    }
+    xc = d[c] + tk * xc;
     x[c] = xc;
     if (k == nz - 2) x[(nz - 1) * plane + m] = xc;
   }
@@ -426,16 +456,24 @@ int cfd_sgemm_batched(int M, int N, int K, const float* A, long long lda,
 }
 
 int cfd_tdma_fwd(const float* r, const float* mu, float w, float* d,
-                 float* t, int nz, long long plane, cudaStream_t stream) {
+                 float* t, int nz, long long plane, int write_t,
+                 cudaStream_t stream) {
   tdma_fwd_kernel<<<mode_blocks(plane), 256, 0, stream>>>(r, mu, w, d, t, nz,
-                                                           plane);
+                                                           plane, write_t);
   return (int)cudaGetLastError();
 }
 
 int cfd_tdma_bwd(const float* d, const float* t, float* x, int nz,
                  long long plane, cudaStream_t stream) {
-  tdma_bwd_kernel<<<mode_blocks(plane), 256, 0, stream>>>(d, t, x, nz,
-                                                           plane);
+  tdma_bwd_kernel<false><<<mode_blocks(plane), 256, 0, stream>>>(
+      d, t, x, nz, plane);
+  return (int)cudaGetLastError();
+}
+
+int cfd_tdma_bwd_analytic(const float* d, const float* coef, float* x,
+                          int nz, long long plane, cudaStream_t stream) {
+  tdma_bwd_kernel<true><<<mode_blocks(plane), 256, 0, stream>>>(
+      d, coef, x, nz, plane);
   return (int)cudaGetLastError();
 }
 

@@ -44,9 +44,13 @@ SIGNATURES = {
     "cfd_poisson_input": [_P] * 6 + [_I] * 3 + [_F] * 6 + [_I, _P],
     "cfd_sgemm_batched": [_I] * 3 + [_P, _L, _L, _P, _L, _L, _P, _L, _L]
     + [_I, _P],
-    "cfd_tdma_fwd": [_P, _P, _F, _P, _P, _I, _L, _P],
+    "cfd_tdma_fwd": [_P, _P, _F, _P, _P, _I, _L, _I, _P],
     "cfd_tdma_bwd": [_P, _P, _P, _I, _L, _P],
+    "cfd_tdma_bwd_analytic": [_P, _P, _P, _I, _L, _P],
     "cfd_corrector": [_P] * 10 + [_I] * 3 + [_F] * 3 + [_P],
+    # gemm_3xtf32.cu (the DST products at spectral_precision="high")
+    "cfd_sgemm_3xtf32_batched": [_I] * 3 + [_P, _L, _L, _P, _L, _L, _P, _L,
+                                            _L] + [_I, _P],
     # projection2d_kernels.cu (2D step)
     "cfd_pred_star_2d": [_P] * 7 + [_I] * 2 + [_F] * 9 + [_I, _P],
     "cfd_poisson_input_2d": [_P] * 5 + [_I] * 2 + [_F] * 4 + [_I, _P],

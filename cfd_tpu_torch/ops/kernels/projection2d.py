@@ -19,7 +19,10 @@ of CUDA kernels that meet in device memory:
 
 The y-line solve between them (`solvers.poisson.spectral.
 make_dst2d_fused_pieces`) runs `tdma.tdma_y_2d` (the 3D z-line Thomas
-kernels on one-row planes) and the rescue products.
+kernels on one-row planes) and the rescue products.  ``precision`` sets
+the x-DST pair's: ``"highest"`` (the SGEMM) or ``"high"`` (the 3xTF32
+tensor-core GEMM), the reference's ``dst_precision``; the Thomas sweeps
+stay fp32.
 
 The CG step (``emit="rhs"``) runs pred_bt's rhs form,
 :func:`predictor_star_2d` → :func:`poisson_rhs_2d` ((ρ/dt)∇·u*, the b̃
@@ -51,7 +54,7 @@ import torch
 from ...solvers.ns.common import clamp
 from ...solvers.ns.params import PROJ_MAX_VELOCITY as CLAMP  # = kClamp
 from ..stencils import ddx, ddy, interior, set_interior
-from . import native
+from . import native, rolling
 from .projection_kernels import StencilConsts, face_coeff, \
     predictor_star_plain
 from .rolling import left_dot, right_dot, right_dot_plain
@@ -161,6 +164,10 @@ corrector_2d.launches = 0
 # every wrapper that launches a kernel on the 2D main path, for counters
 WRAPPERS = (predictor_star_2d, poisson_input_2d, right_dot, tdma_z_fwd,
             tdma_z_bwd, left_dot, corrector_2d)
+# ... on the HIGH path (right_dot and left_dot count their 3xTF32
+# launches in ``high_launches``)
+WRAPPERS_HIGH = (predictor_star_2d, poisson_input_2d, tdma_z_fwd,
+                 tdma_z_bwd, corrector_2d)
 # ... and on the 2D CG step's path (the whole-solve kernel counts in
 # vmem_small)
 WRAPPERS_RHS = (predictor_star_2d, poisson_rhs_2d, corrector_2d)
@@ -169,6 +176,7 @@ WRAPPERS_RHS = (predictor_star_2d, poisson_rhs_2d, corrector_2d)
 def reset_launch_counts() -> None:
     for fn in WRAPPERS + WRAPPERS_RHS:
         fn.launches = 0
+    rolling.reset_launch_counts()
 
 
 class Projection2DKernels:
@@ -185,10 +193,13 @@ class Projection2DKernels:
     """
 
     def __init__(self, ny, nx, dx, dy, xmin, ymin, nu, dst_mats=None,
-                 with_sources=True, plain=False, emit="btilde"):
+                 with_sources=True, plain=False, emit="btilde",
+                 precision="highest"):
         if emit not in ("btilde", "rhs"):
             raise ValueError(f"emit must be 'btilde' or 'rhs', got {emit!r}")
+        rolling._check_precision(precision)
         self.emit = emit
+        self.precision = precision
         self.consts = StencilConsts(1, ny, nx, dx, dy, 0.0, xmin, ymin,
                                     float(nu), bool(with_sources))
         if emit == "btilde":
@@ -213,7 +224,7 @@ class Projection2DKernels:
         if self.emit == "rhs":
             return us, vs, ws, self._rhs(us, vs, rho_over_dt, c)
         bt = self._bt(us, vs, p, rho_over_dt, c)
-        return us, vs, ws, self._dot(bt, self.fxt)
+        return us, vs, ws, self._dot(bt, self.fxt, self.precision)
 
     def corrector(self, us, vs, xhat, dt_over_rho):
         """corr: (u, v, p) from the y-line solve's x̂ (transform space);
@@ -222,6 +233,6 @@ class Projection2DKernels:
         ``xhat`` is the physical p, and (u, v) come back."""
         if self.emit == "rhs":
             return self._corr(us, vs, xhat, dt_over_rho, self.consts)
-        p = self._dot(xhat, self.gxt)
+        p = self._dot(xhat, self.gxt, self.precision)
         u, v = self._corr(us, vs, p, dt_over_rho, self.consts)
         return u, v, p

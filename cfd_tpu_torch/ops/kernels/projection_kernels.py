@@ -1,21 +1,36 @@
 """The projection step's two mega kernels (counterpart of
 `cfd_tpu/ops/pallas/projection_kernels.py`).
 
-Only the configuration the main path runs is ported: single device,
-uniform grid, DST-fused with the Thomas forward sweep in the predictor and
-the stored-t reverse-march corrector (``dst_mats`` + ``tdma_fwd``,
-``tdma_bwd="stored"``, nz ≥ 4, no buoyancy).  The reference's two TPU
-kernels become two chains of CUDA kernels that meet in device memory:
+Only the configurations the ported steps run are ported: single device,
+uniform grid, DST-fused with the Thomas forward sweep in the predictor
+(``dst_mats`` + ``tdma_fwd``, nz ≥ 3, no buoyancy).  The reference's two
+TPU kernels become two chains of CUDA kernels that meet in device memory:
 
 * **A1** ``ProjectionKernels.pred_bt`` (`projection_kernels.py:572-722`)
   → :meth:`ProjectionKernels.predictor_poisson_input`:
   :func:`predictor_star` → :func:`poisson_input` → `rolling.plane_dot`
-  (forward xy DST) → `tdma.tdma_z_fwd`.  Returns (u*, v*, w*, d′, t).
+  (forward xy DST) → `tdma.tdma_z_fwd`.  Returns (u*, v*, w*, d′, t),
+  t None with ``tdma_bwd="analytic"`` (`tdma.tdma_z_fwd_d`: no t is
+  written, the back substitution rebuilds it).
 * **A2** ``ProjectionKernels.corr_bwd`` (`projection_kernels.py:381-452`)
-  → :meth:`ProjectionKernels.corrector_bwd_diag`:
-  `tdma.tdma_z_bwd` → `rolling.plane_dot` (inverse xy DST) →
+  → :meth:`ProjectionKernels.corrector_bwd_diag`: `tdma.tdma_z_bwd` (or
+  `tdma.tdma_z_bwd_analytic`) → `rolling.plane_dot` (inverse xy DST) →
   :func:`corrector`.  Returns (u, v, w, p, max|u|², max p, max|p|), the
   maxima over planes 1..nz−2 (the step folds in the two z-shell planes).
+* **A5** ``corr_all``'s DST form (`projection_kernels.py:724-756` with
+  ``dst_mats``) → :meth:`ProjectionKernels.corrector_dst_diag`: the
+  inverse xy DST of x̂ → :func:`corrector`, the second half of A2.  The
+  reference has no reverse-march corrector at nz = 3
+  (`projection_kernels.py:453-456`), so there its step runs the
+  standalone back substitution (`tdma.make_tdma_z_bwd`, stored) and then
+  this form; the port's A2 is that same chain at every nz.
+
+``dst_precision`` (`:180-198`) sets the DST products' precision:
+``"highest"`` (IEEE fp32, the SGEMM) or ``"high"`` (3xTF32, the
+tensor-core GEMM of ``csrc/gemm_3xtf32.cu``).  ``tdma_bwd`` is
+``"stored"`` or ``"analytic"``; as in the reference, "analytic" applies
+only where the reverse-march corrector runs (nz ≥ 4) and is demoted to
+"stored" at nz = 3.  The Thomas sweeps are fp32 either way.
 
 The CG step (``emit="rhs"``, nz ≥ 3) runs A1's rhs form,
 :func:`predictor_star` → :func:`poisson_rhs` ((ρ/dt)∇·u*, the same kernel
@@ -27,7 +42,7 @@ physical p.
 Every wrapper below launches its CUDA kernel on a CUDA tensor and runs its
 plain PyTorch version (``*_plain``) on a CPU tensor; its ``launches``
 attribute counts kernel launches.  The CUDA sources are in
-``cfd_tpu_torch/csrc/projection_kernels.cu``.
+``cfd_tpu_torch/csrc/projection_kernels.cu`` and ``gemm_3xtf32.cu``.
 
 Kernel notes (what bounds each on an H100, and what the design does):
 
@@ -47,14 +62,17 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from ...solvers.ns.common import clamp
 from ...solvers.ns.params import PROJ_MAX_VELOCITY as CLAMP  # = kClamp
 from ..stencils import ddx, ddy, ddz, interior, laplacian, set_interior
-from . import native
+from . import native, rolling
 from .rolling import plane_dot, plane_dot_plain
-from .tdma import (tdma_z_bwd, tdma_z_bwd_reference, tdma_z_fwd,
+from .tdma import (_bwd_coeff_planes, tdma_z_bwd, tdma_z_bwd_analytic,
+                   tdma_z_bwd_analytic_reference, tdma_z_bwd_reference,
+                   tdma_z_fwd, tdma_z_fwd_d, tdma_z_fwd_d_reference,
                    tdma_z_fwd_reference)
 
 
@@ -248,16 +266,22 @@ poisson_input.launches = 0
 poisson_rhs.launches = 0
 corrector.launches = 0
 
-# every wrapper that launches a kernel on the main path, for counters
+# every wrapper that launches a kernel on the main path (plane_dot counts
+# its SGEMM launches), for counters
 WRAPPERS = (predictor_star, poisson_input, plane_dot, tdma_z_fwd,
             tdma_z_bwd, corrector)
+# ... on the HIGH path (plane_dot counts its 3xTF32 launches in
+# ``high_launches``)
+WRAPPERS_HIGH = (predictor_star, poisson_input, tdma_z_fwd_d,
+                 tdma_z_bwd_analytic, corrector)
 # ... and on the CG step's path (the CG kernels count in cg_kernels)
 WRAPPERS_RHS = (predictor_star, poisson_rhs, corrector)
 
 
 def reset_launch_counts() -> None:
-    for fn in WRAPPERS + WRAPPERS_RHS:
+    for fn in WRAPPERS + WRAPPERS_HIGH + WRAPPERS_RHS:
         fn.launches = 0
+    rolling.reset_launch_counts()
 
 
 class ProjectionKernels:
@@ -265,25 +289,45 @@ class ProjectionKernels:
 
     ``emit="btilde"`` (the spectral step): ``dst_mats`` = (FxT, Fy, GxT,
     Gy) and ``tdma_fwd`` = (mu plane, w) from
-    `solvers.poisson.spectral.make_dst_fused_pieces`; needs nz ≥ 4 (the
-    reverse march).  ``emit="rhs"`` (the iterative solvers, nz ≥ 3):
-    A1 emits the Poisson right-hand side and the corrector takes a
-    physical p (:meth:`corrector_diag`, the non-DST ``corr_all``).  The
-    default runs the wrappers (kernels on CUDA, plain versions on CPU).
-    ``plain=True`` is a reference switch for checks on the card only: it
-    runs the plain PyTorch versions on a CUDA device too, so
-    ``chip_smoke.py`` can hold the kernels against them and time both.
+    `solvers.poisson.spectral.make_dst_fused_pieces`; nz ≥ 3.
+    ``dst_precision`` is ``"highest"`` or ``"high"``; ``tdma_bwd``
+    ``"stored"`` or ``"analytic"`` (its coefficient planes built here
+    from the float32 mu plane in float64, as the reference builds
+    them, `projection_kernels.py:373-380`; "stored" at nz = 3).
+    ``emit="rhs"`` (the iterative solvers, nz ≥ 3): A1 emits the Poisson
+    right-hand side and the corrector takes a physical p
+    (:meth:`corrector_diag`, the non-DST ``corr_all``).  The default runs
+    the wrappers (kernels on CUDA, plain versions on CPU).  ``plain=True``
+    is a reference switch for checks on the card only: it runs the plain
+    PyTorch versions on a CUDA device too, so ``chip_smoke.py`` can hold
+    the kernels against them and time both.
     """
 
     def __init__(self, nz, ny, nx, dx, dy, dz, xmin, ymin, nu,
                  dst_mats=None, tdma_fwd=None, with_sources=True,
-                 plain=False, emit="btilde"):
+                 plain=False, emit="btilde", dst_precision="highest",
+                 tdma_bwd="stored"):
         self.emit = emit
+        rolling._check_precision(dst_precision)
+        if tdma_bwd not in ("stored", "analytic"):
+            raise ValueError(f"unknown tdma_bwd {tdma_bwd!r}")
+        self.precision = dst_precision
+        self.bwd_analytic = False
         if emit == "btilde":
-            if nz < 4:
-                raise ValueError("the reverse-march corrector needs nz >= 4")
+            if nz < 3:
+                raise ValueError("the spectral step needs nz >= 3")
             self.fxt, self.fy, self.gxt, self.gy = dst_mats
             self.mu, self.w = tdma_fwd
+            # the reference's reverse-march corrector, which alone
+            # rebuilds t, needs nz >= 4 (`projection_kernels.py:369`)
+            self.bwd_analytic = tdma_bwd == "analytic" and nz >= 4
+            if self.bwd_analytic:
+                mu64 = self.mu.detach().to("cpu", torch.float64).numpy()
+                np_dt = np.float64 if self.mu.dtype == torch.float64 \
+                    else np.float32
+                self.coef = torch.as_tensor(
+                    _bwd_coeff_planes(mu64, self.w, np_dt),
+                    device=self.mu.device)
         elif emit != "rhs":
             raise ValueError(f"emit must be 'btilde' or 'rhs', got {emit!r}")
         self.consts = StencilConsts(nz, ny, nx, dx, dy, dz, xmin, ymin,
@@ -293,26 +337,32 @@ class ProjectionKernels:
                 predictor_star_plain, poisson_input_plain, plane_dot_plain)
             self._fwd, self._bwd, self._corr = (
                 tdma_z_fwd_reference, tdma_z_bwd_reference, corrector_plain)
+            self._fwd_d, self._bwd_an = (tdma_z_fwd_d_reference,
+                                         tdma_z_bwd_analytic_reference)
             self._rhs = poisson_rhs_plain
         else:
             self._star, self._bt, self._dot = (
                 predictor_star, poisson_input, plane_dot)
             self._fwd, self._bwd, self._corr = (
                 tdma_z_fwd, tdma_z_bwd, corrector)
+            self._fwd_d, self._bwd_an = tdma_z_fwd_d, tdma_z_bwd_analytic
             self._rhs = poisson_rhs
 
     def predictor_poisson_input(self, u, v, w, p, dt, su, sv, rho_over_dt):
-        """A1: (u*, v*, w*, d′, t), or (u*, v*, w*, rhs) with
-        ``emit="rhs"``.  ``dt``, ``su``, ``sv`` and ``rho_over_dt`` are 0-d
-        tensors on the field's device."""
+        """A1: (u*, v*, w*, d′, t), t None with the analytic back
+        substitution; or (u*, v*, w*, rhs) with ``emit="rhs"``.
+        ``dt``, ``su``, ``sv`` and ``rho_over_dt`` are 0-d tensors on the
+        field's device."""
         c = self.consts
         scal = torch.stack([dt, su, sv])
         us, vs, ws = self._star(u, v, w, scal, c)
         if self.emit == "rhs":
             return us, vs, ws, self._rhs(us, vs, ws, rho_over_dt, c)
         bt = self._bt(us, vs, ws, p, rho_over_dt, c)
-        d, t = self._fwd(self._dot(bt, self.fxt, self.fy), self.mu, self.w)
-        return us, vs, ws, d, t
+        bhat = self._dot(bt, self.fxt, self.fy, self.precision)
+        if self.bwd_analytic:
+            return us, vs, ws, self._fwd_d(bhat, self.mu, self.w), None
+        return (us, vs, ws) + tuple(self._fwd(bhat, self.mu, self.w))
 
     def corrector_diag(self, us, vs, ws, p, dt_over_rho):
         """A5 ``corr_all``, non-DST single-chip form
@@ -321,11 +371,21 @@ class ProjectionKernels:
         planes 1..nz−2."""
         return self._corr(us, vs, ws, p, dt_over_rho, self.consts)
 
-    def corrector_bwd_diag(self, us, vs, ws, d, t, dt_over_rho):
-        """A2: (u, v, w, p, max|u|², max p, max|p|) from the predictor's
-        (d′, t); maxima over planes 1..nz−2."""
-        xhat = self._bwd(d, t)
-        p = self._dot(xhat, self.gxt, self.gy)
+    def corrector_dst_diag(self, us, vs, ws, xhat, dt_over_rho):
+        """A5 ``corr_all``, DST single-chip form: p = Gy·(x̂·GxT) on every
+        plane (mirror shells), then the corrector with the maxima —
+        (u, v, w, p, max|u|², max p, max|p|)."""
+        p = self._dot(xhat, self.gxt, self.gy, self.precision)
         u, v, w, m2, pmax, pabs = self._corr(us, vs, ws, p, dt_over_rho,
                                              self.consts)
         return u, v, w, p, m2, pmax, pabs
+
+    def corrector_bwd_diag(self, us, vs, ws, d, t, dt_over_rho):
+        """A2: (u, v, w, p, max|u|², max p, max|p|) from the predictor's
+        (d′, t) (t None with the analytic back substitution).  Maxima over
+        planes 1..nz−2."""
+        if self.bwd_analytic:
+            xhat = self._bwd_an(d, self.coef)
+        else:
+            xhat = self._bwd(d, t)
+        return self.corrector_dst_diag(us, vs, ws, xhat, dt_over_rho)

@@ -1,27 +1,48 @@
 """The DST products (counterpart of `cfd_tpu/ops/pallas/rolling.py`):
-the 3D xy-DST plane product, and the one-sided products of the 2D step.
+the 3D xy-DST plane product, and the one-sided products of the 2D step
+and of the spectral solver's eigen pipeline.
 
 The reference's manual-DMA z-marching engine (`make_rolling_stencil`) is
 not ported as an engine: each kernel that rode it is a CUDA kernel of its
 own (`projection_kernels.py`).  What survives here is :func:`plane_dot` —
 ``left · (x · right)`` on every z-plane, the DST stage pair the mega
-kernels ran in-kernel on the MXU (`plane_dot_rl` riding `hp_dot_general`
-at ``Precision.HIGHEST``, i.e. IEEE fp32).  On a CUDA tensor it launches
-the hand-written SGEMM of ``csrc/projection_kernels.cu`` twice; on a CPU
-tensor it runs the plain version.
+kernels ran in-kernel on the MXU (`plane_dot_rl` riding `hp_dot_general`)
+— and the one-sided :func:`right_dot` / :func:`left_dot`.  Every product
+takes a ``precision``, the counterpart of `hp_dot_general`'s
+(`rolling.py:42-70`):
+
+* ``"highest"`` — IEEE fp32 (``Precision.HIGHEST``): the hand-written
+  SGEMM of ``csrc/projection_kernels.cu`` on a CUDA tensor;
+* ``"high"`` — 3xTF32 (``Precision.HIGH``, bf16_3x on the TPU): the
+  hand-written tensor-core GEMM of ``csrc/gemm_3xtf32.cu``.
+
+On a CPU tensor each runs its plain version.  Each wrapper counts the
+SGEMM launches in ``launches`` and the 3xTF32 launches in
+``high_launches``.
 
 Neither ``plane_masks`` nor the wrapped ``shift_x``/``shift_y`` semantics
 are needed: the plain versions read neighbours by interior slices
 (`ops/stencils.py`) and the CUDA kernels read them only at interior
 points.
 
-Kernel note (`sgemm_kernel`, replaces the in-kernel MXU dots of
-`ProjectionKernels.pred_bt` / `corr_bwd`, `projection_kernels.py:226-238`):
-bound by the fp32 FMA rate of the CUDA cores — 2·n⁴ flops per product at
-n³, no tensor cores because TF32 would break the HIGHEST contract.  Its
-128×128 block tile with an 8×8 register tile per thread keeps operands in
-registers (16 shared-memory loads per 64 FMAs).  3xTF32 on the tensor
-cores is the later route for ``spectral_precision=HIGH``.
+Kernel notes (both replace the in-kernel MXU dots of
+`ProjectionKernels.pred_bt` / `corr_bwd`, `projection_kernels.py:226-250`,
+and the 2D `block_dot`, `projection2d.py:97-106`):
+
+* ``sgemm_kernel`` (``"highest"``): bound by the fp32 FMA rate of the
+  CUDA cores — 2·n⁴ flops per product at n³, no tensor cores because
+  TF32 would break the HIGHEST contract.  Its 128×128 block tile with an
+  8×8 register tile per thread keeps operands in registers (16
+  shared-memory loads per 64 FMAs).
+* ``gemm_3xtf32_kernel`` (``"high"``): bound by the TF32 tensor-core
+  rate — 3·2·n⁴ operations per product.  Each fp32 operand is split into
+  big = rna_tf32(a) and small = rna_tf32(a − big), and each 8-deep
+  k-step sums small·big, big·small, then big·big in fp32 (``mma.sync``
+  m16n8k8) into fresh registers, which one IEEE add takes into the
+  running sum (the tensor core's fp32 sums do not round to nearest):
+  fp32-class accuracy, about 2⁻²² relative, at three tensor-core
+  passes.  A 128×128 CTA tile, 2×4 warps of 64×32, two shared-memory
+  stages.
 """
 
 from __future__ import annotations
@@ -31,6 +52,10 @@ import contextlib
 import torch
 
 from . import native
+
+#: the spectral products' precisions, and the entry point of each
+_GEMM = {"highest": "cfd_sgemm_batched", "high": "cfd_sgemm_3xtf32_batched"}
+PRECISIONS = tuple(_GEMM)
 
 
 @contextlib.contextmanager
@@ -45,20 +70,61 @@ def ieee_fp32_matmul():
         torch.backends.cuda.matmul.allow_tf32 = prev
 
 
-def plane_dot_plain(x: torch.Tensor, right: torch.Tensor,
-                    left: torch.Tensor) -> torch.Tensor:
-    """Plain version: ``left @ (x[k] @ right)`` for every plane k."""
+def _check_precision(precision: str) -> None:
+    if precision not in _GEMM:
+        raise ValueError(f"precision must be one of {PRECISIONS}, got "
+                         f"{precision!r}")
+
+
+def tf32_rna(x: torch.Tensor) -> torch.Tensor:
+    """float32 ``x`` rounded to TF32 (10 mantissa bits), to nearest with
+    ties away from zero — ``cvt.rna.tf32.f32``: half a TF32 ulp added to
+    the magnitude bits, the 13 low bits cleared."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def matmul_plain(a: torch.Tensor, b: torch.Tensor,
+                 precision: str = "highest") -> torch.Tensor:
+    """Plain version of one product at ``precision``: IEEE fp32 for
+    ``"highest"``; for ``"high"`` the 3xTF32 split of the kernel, its
+    three products in IEEE fp32 summed as (small·big + big·small) +
+    big·big.  The split is fp32's: other dtypes take the plain product."""
+    _check_precision(precision)
     with ieee_fp32_matmul():
-        return torch.matmul(left, torch.matmul(x, right))
+        if precision == "highest" or a.dtype != torch.float32:
+            return torch.matmul(a, b)
+        a_big, b_big = tf32_rna(a), tf32_rna(b)
+        a_small, b_small = tf32_rna(a - a_big), tf32_rna(b - b_big)
+        return ((torch.matmul(a_small, b_big)
+                 + torch.matmul(a_big, b_small))
+                + torch.matmul(a_big, b_big))
 
 
-def plane_dot(x: torch.Tensor, right: torch.Tensor,
-              left: torch.Tensor) -> torch.Tensor:
+def _gemm(wrapper, precision, device, *args) -> None:
+    """Launch the GEMM of ``precision`` and count it on ``wrapper``."""
+    native.launch(_GEMM[precision], device, *args)
+    if precision == "high":
+        wrapper.high_launches += 1
+    else:
+        wrapper.launches += 1
+
+
+def plane_dot_plain(x: torch.Tensor, right: torch.Tensor,
+                    left: torch.Tensor,
+                    precision: str = "highest") -> torch.Tensor:
+    """Plain version: ``left @ (x[k] @ right)`` for every plane k."""
+    return matmul_plain(left, matmul_plain(x, right, precision), precision)
+
+
+def plane_dot(x: torch.Tensor, right: torch.Tensor, left: torch.Tensor,
+              precision: str = "highest") -> torch.Tensor:
     """``left · (x[k] · right)`` for every (ny, nx) plane of an
-    (nz, ny, nx) tensor; ``right`` (nx, nx), ``left`` (ny, ny).
-    ``plane_dot.launches`` counts SGEMM launches (two per call)."""
+    (nz, ny, nx) tensor; ``right`` (nx, nx), ``left`` (ny, ny).  Two GEMM
+    launches a call."""
+    _check_precision(precision)
     if native.on_cpu(x):
-        return plane_dot_plain(x, right, left)
+        return plane_dot_plain(x, right, left, precision)
     nz, ny, nx = x.shape
     native.check_cuda(x, right, left)
     if tuple(right.shape) != (nx, nx) or tuple(left.shape) != (ny, ny):
@@ -67,64 +133,64 @@ def plane_dot(x: torch.Tensor, right: torch.Tensor,
     t = torch.empty_like(x)
     out = torch.empty_like(x)
     # x · right as one (nz·ny, nx) × (nx, nx) product
-    native.launch("cfd_sgemm_batched", x.device, nz * ny, nx, nx,
-                  native.ptr(x), nx, 0, native.ptr(right), nx, 0,
-                  native.ptr(t), nx, 0, 1)
-    plane_dot.launches += 1
+    _gemm(plane_dot, precision, x.device, nz * ny, nx, nx,
+          native.ptr(x), nx, 0, native.ptr(right), nx, 0,
+          native.ptr(t), nx, 0, 1)
     # left · t[k] for every plane (left shared: batch stride 0)
-    native.launch("cfd_sgemm_batched", x.device, ny, nx, ny,
-                  native.ptr(left), ny, 0, native.ptr(t), nx, ny * nx,
-                  native.ptr(out), nx, ny * nx, nz)
-    plane_dot.launches += 1
+    _gemm(plane_dot, precision, x.device, ny, nx, ny,
+          native.ptr(left), ny, 0, native.ptr(t), nx, ny * nx,
+          native.ptr(out), nx, ny * nx, nz)
     return out
 
 
-# ---- one-sided products (the 2D step) ---------------------------------------
+# ---- one-sided products ------------------------------------------------------
 #
 # The 2D step's x-DST pair is one product per field, ``x · right`` on every
 # row (the reference's in-kernel `block_dot`, `projection2d.py:97-106`), and
 # its dense low-mode rescue multiplies a thin column slice from the left
-# (`spectral.py:299-303`, jnp matmuls at HIGHEST in the reference).  Each
-# wrapper is one `sgemm_kernel` launch; `left_dot` reads and writes column
-# slices in place through the SGEMM's leading dimensions.
+# (`spectral.py:299-303`, jnp matmuls at the step's precision in the
+# reference); the eigen pipeline's z-product is ``left · x`` on the
+# (nz, ny·nx) view.  Each wrapper is one GEMM launch; `left_dot` reads and
+# writes column slices in place through the GEMM's leading dimensions.
 
-def right_dot_plain(x: torch.Tensor, right: torch.Tensor) -> torch.Tensor:
-    with ieee_fp32_matmul():
-        return torch.matmul(x, right)
+def right_dot_plain(x: torch.Tensor, right: torch.Tensor,
+                    precision: str = "highest") -> torch.Tensor:
+    return matmul_plain(x, right, precision)
 
 
-def right_dot(x: torch.Tensor, right: torch.Tensor) -> torch.Tensor:
+def right_dot(x: torch.Tensor, right: torch.Tensor,
+              precision: str = "highest") -> torch.Tensor:
     """``x · right`` for the (…, k) tensor ``x`` (every row times the
-    (k, n) matrix ``right``); ``right_dot.launches`` counts SGEMM
-    launches."""
+    (k, n) matrix ``right``)."""
+    _check_precision(precision)
     if native.on_cpu(x):
-        return right_dot_plain(x, right)
+        return right_dot_plain(x, right, precision)
     native.check_cuda(x, right)
     if right.dim() != 2 or x.shape[-1] != right.shape[0]:
         raise ValueError(f"right_dot: {tuple(x.shape)} · "
                          f"{tuple(right.shape)}")
     k, n = right.shape
     out = torch.empty(x.shape[:-1] + (n,), dtype=x.dtype, device=x.device)
-    native.launch("cfd_sgemm_batched", x.device, x.numel() // k, n, k,
-                  native.ptr(x), k, 0, native.ptr(right), n, 0,
-                  native.ptr(out), n, 0, 1)
-    right_dot.launches += 1
+    _gemm(right_dot, precision, x.device, x.numel() // k, n, k,
+          native.ptr(x), k, 0, native.ptr(right), n, 0,
+          native.ptr(out), n, 0, 1)
     return out
 
 
-def left_dot_plain(left: torch.Tensor, x: torch.Tensor, out=None):
-    with ieee_fp32_matmul():
-        res = torch.matmul(left, x)
+def left_dot_plain(left: torch.Tensor, x: torch.Tensor, out=None,
+                   precision: str = "highest"):
+    res = matmul_plain(left, x, precision)
     return res if out is None else out.copy_(res)
 
 
-def left_dot(left: torch.Tensor, x: torch.Tensor, out=None) -> torch.Tensor:
+def left_dot(left: torch.Tensor, x: torch.Tensor, out=None,
+             precision: str = "highest") -> torch.Tensor:
     """``left · x`` for a contiguous (m, k) ``left`` and a (k, n) ``x``
     whose rows are contiguous (a column slice of a wider matrix will do);
-    written into ``out`` (an (m, n) row view, in place) when given.
-    ``left_dot.launches`` counts SGEMM launches."""
+    written into ``out`` (an (m, n) row view, in place) when given."""
+    _check_precision(precision)
     if native.on_cpu(x):
-        return left_dot_plain(left, x, out)
+        return left_dot_plain(left, x, out, precision)
     (m, k), n = left.shape, x.shape[1]
     if out is None:
         out = torch.empty((m, n), dtype=x.dtype, device=x.device)
@@ -133,13 +199,18 @@ def left_dot(left: torch.Tensor, x: torch.Tensor, out=None) -> torch.Tensor:
             or not left.is_contiguous():
         raise ValueError(f"left_dot: {tuple(left.shape)} · "
                          f"{tuple(x.shape)} -> {tuple(out.shape)}")
-    native.launch("cfd_sgemm_batched", x.device, m, n, k,
-                  native.ptr(left), k, 0, native.ptr(x), x.stride(0), 0,
-                  native.ptr(out), out.stride(0), 0, 1)
-    left_dot.launches += 1
+    _gemm(left_dot, precision, x.device, m, n, k,
+          native.ptr(left), k, 0, native.ptr(x), x.stride(0), 0,
+          native.ptr(out), out.stride(0), 0, 1)
     return out
 
 
-plane_dot.launches = 0
-right_dot.launches = 0
-left_dot.launches = 0
+WRAPPERS = (plane_dot, right_dot, left_dot)
+
+
+def reset_launch_counts() -> None:
+    for fn in WRAPPERS:
+        fn.launches = fn.high_launches = 0
+
+
+reset_launch_counts()

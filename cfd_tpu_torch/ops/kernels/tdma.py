@@ -11,25 +11,45 @@ After the xy DST the pressure system splits into one tridiagonal per
 Plain versions (plain loops over z, any dtype, any device):
 :func:`tdma_z_fwd_reference` (forward sweep → d′, t),
 :func:`tdma_z_bwd_reference` (back substitution, the twin of the
-reference's function of the same name) and :func:`tdma_z_reference`
-(both, the twin of the reference's full solve).  The wrappers
-:func:`tdma_z_fwd` and :func:`tdma_z_bwd` launch the CUDA kernels on a CUDA
-tensor and the plain versions on a CPU tensor.
+reference's function of the same name), :func:`tdma_z_reference` (both,
+the twin of the reference's full solve), and the analytic variant's
+:func:`tdma_z_bwd_analytic_reference`.  The wrappers :func:`tdma_z_fwd`,
+:func:`tdma_z_fwd_d` (no t), :func:`tdma_z_bwd` and
+:func:`tdma_z_bwd_analytic` launch the CUDA kernels on a CUDA tensor and
+the plain versions on a CPU tensor.  :func:`make_tdma_z` and
+:func:`make_tdma_z_bwd` are the counterparts of the reference's builders
+(`tdma.py:126`, `:265`), in its two variants:
+
+* ``"stored"``: the forward sweep writes t beside d′ and the back
+  substitution reads it — plain Thomas, bit-equal to the plain loops;
+* ``"analytic"``: the forward sweep writes d′ only, and the back
+  substitution rebuilds t_k = sinh(kφ)/sinh((k+1)φ), cosh φ = 1 + mu/(2w),
+  from the coefficient planes of :func:`_bwd_coeff_planes` (e^{−φ} and 2φ,
+  float64 on the host, rounded once) as e^{−φ}·expm1(−2kφ)/expm1(−2(k+1)φ).
+  The reference wrote (e^{−2kφ} − 1)/(e^{−2(k+1)φ} − 1), whose
+  cancellation at small kφ cost it ~4e-6 relative (Mosaic lowers no
+  expm1, `tdma.py:24-34`); ``expm1`` removes it, so the port is held to
+  the reference at tolerance, not bit for bit.
 
 The recurrence is the reference's, operation for operation and with the
 same coefficients: rec = 1/((mu + 2w) − w·t), t = w·rec,
 d′ = (r + w·d′)·rec from a zero carry at k = 1, then x = d′ + t·x from a
 zero carry at k = nz−2 (`projection_kernels.py:686-698`, `tdma.py:526`).
 
-Kernel note (`tdma_fwd_kernel`, `tdma_bwd_kernel`; they replace the Thomas
-carries of `ProjectionKernels.pred_bt` and `corr_bwd`): sequential in z,
-independent per mode, a handful of flops per 8–12 bytes — bound by memory
-bandwidth.  One thread per (y, x) mode marches every plane, so each plane
-access is one coalesced row of a warp; the carry lives in registers.
+Kernel note (`tdma_fwd_kernel`, `tdma_bwd_kernel<stored/analytic>`; they
+replace the Thomas carries of `ProjectionKernels.pred_bt` and
+`corr_bwd`, and `make_tdma_z` / `make_tdma_z_bwd` / `_build_bwd`,
+`tdma.py:126`, `:265`, `:299`): sequential in z, independent per mode, a
+handful of flops per 8–12 bytes — bound by memory bandwidth.  One thread
+per (y, x) mode marches every plane, so each plane access is one
+coalesced row of a warp; the carry lives in registers.  The analytic
+form streams 2 fields each way instead of 3 (two expm1f a point: still
+far under the card's arithmetic rate).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from . import native
@@ -73,20 +93,43 @@ def tdma_z_reference(r: torch.Tensor, mu: torch.Tensor, w: float):
     return tdma_z_bwd_reference(*tdma_z_fwd_reference(r, mu, w))
 
 
+def _check_fwd(r, mu):
+    native.check_cuda(r, mu)
+    if tuple(mu.shape) != tuple(r.shape[1:]):
+        raise ValueError("tdma_z_fwd: mu must be an (ny, nx) plane")
+
+
 def tdma_z_fwd(r: torch.Tensor, mu: torch.Tensor, w: float):
     """Forward sweep (d′, t) — ``tdma_fwd_kernel`` on CUDA."""
     if native.on_cpu(r):
         return tdma_z_fwd_reference(r, mu, w)
     nz, ny, nx = r.shape
-    native.check_cuda(r, mu)
-    if tuple(mu.shape) != (ny, nx):
-        raise ValueError("tdma_z_fwd: mu must be an (ny, nx) plane")
+    _check_fwd(r, mu)
     d = torch.empty_like(r)
     t = torch.empty_like(r)
     native.launch("cfd_tdma_fwd", r.device, native.ptr(r), native.ptr(mu),
-                  float(w), native.ptr(d), native.ptr(t), nz, ny * nx)
+                  float(w), native.ptr(d), native.ptr(t), nz, ny * nx, 1)
     tdma_z_fwd.launches += 1
     return d, t
+
+
+def tdma_z_fwd_d_reference(r: torch.Tensor, mu: torch.Tensor, w: float):
+    """Plain version of :func:`tdma_z_fwd_d`: the forward sweep's d′."""
+    return tdma_z_fwd_reference(r, mu, w)[0]
+
+
+def tdma_z_fwd_d(r: torch.Tensor, mu: torch.Tensor, w: float):
+    """Forward sweep d′ alone (the analytic variant's, which rebuilds t) —
+    ``tdma_fwd_kernel`` writing no t on CUDA."""
+    if native.on_cpu(r):
+        return tdma_z_fwd_d_reference(r, mu, w)
+    nz, ny, nx = r.shape
+    _check_fwd(r, mu)
+    d = torch.empty_like(r)
+    native.launch("cfd_tdma_fwd", r.device, native.ptr(r), native.ptr(mu),
+                  float(w), native.ptr(d), None, nz, ny * nx, 0)
+    tdma_z_fwd_d.launches += 1
+    return d
 
 
 def tdma_z_bwd(d: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
@@ -103,6 +146,117 @@ def tdma_z_bwd(d: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
                   native.ptr(x), nz, ny * nx)
     tdma_z_bwd.launches += 1
     return x
+
+
+# ---- the analytic variant ---------------------------------------------------
+
+def _bwd_coeff_planes(mu64, w64, np_dt=np.float32) -> np.ndarray:
+    """The analytic variant's (2, my, mx) coefficient planes [e^{−φ}, 2φ]
+    with cosh φ = 1 + mu/(2w), float64 on the host from the float64
+    ``mu64`` and rounded once to ``np_dt`` (`tdma.py:115-123`; the
+    reference stacks the same two planes as (2·my, mx) rows)."""
+    mu64 = np.asarray(mu64, np.float64)
+    s = mu64 / (2.0 * float(w64))
+    sh = np.sqrt(s * (2.0 + s))                  # sinh φ
+    einvphi = 1.0 / (1.0 + s + sh)               # e^{−φ}
+    phi2 = 2.0 * np.log1p(s + sh)                # 2φ
+    return np.stack([einvphi.astype(np_dt), phi2.astype(np_dt)])
+
+
+def tdma_z_bwd_analytic_reference(d: torch.Tensor,
+                                  coef: torch.Tensor) -> torch.Tensor:
+    """Back substitution with t rebuilt from ``coef`` = [e^{−φ}, 2φ]:
+    t_k = e^{−φ}·expm1(−k·2φ)/expm1(−(k+1)·2φ), x = d′ + t·x from
+    k = nz−2 down to 1; mirror z-shells."""
+    nz = d.shape[0]
+    einv, p2 = coef[0].to(d.dtype), coef[1].to(d.dtype)
+    x = torch.empty_like(d)
+    xc = torch.zeros_like(d[0])
+    for k in range(nz - 2, 0, -1):
+        kf = float(k)
+        t = einv * torch.expm1(-kf * p2) / torch.expm1(-(kf + 1.0) * p2)
+        xc = d[k] + t * xc
+        x[k] = xc
+    x[0] = x[1]
+    x[nz - 1] = x[nz - 2]
+    return x
+
+
+def tdma_z_bwd_analytic(d: torch.Tensor, coef: torch.Tensor) -> torch.Tensor:
+    """Back substitution with analytic t — ``tdma_bwd_kernel<true>`` on
+    CUDA; ``coef`` the (2, ny, nx) planes of :func:`_bwd_coeff_planes`."""
+    if native.on_cpu(d):
+        return tdma_z_bwd_analytic_reference(d, coef)
+    nz, ny, nx = d.shape
+    native.check_cuda(d, coef)
+    if tuple(coef.shape) != (2, ny, nx):
+        raise ValueError("tdma_z_bwd_analytic: coef must be (2, ny, nx)")
+    x = torch.empty_like(d)
+    native.launch("cfd_tdma_bwd_analytic", d.device, native.ptr(d),
+                  native.ptr(coef), native.ptr(x), nz, ny * nx)
+    tdma_z_bwd_analytic.launches += 1
+    return x
+
+
+# ---- the builders -------------------------------------------------------------
+
+_VARIANTS = ("stored", "analytic")
+
+
+def _build_planes(mu, w, variant, dtype, device):
+    if variant not in _VARIANTS:
+        raise ValueError(f"unknown tdma variant {variant!r}")
+    mu64 = np.asarray(mu, np.float64)
+    dtype = dtype or torch.float32
+    mu_t = torch.as_tensor(mu64, dtype=dtype, device=device)
+    coef = None
+    if variant == "analytic":
+        np_dt = np.float64 if dtype == torch.float64 else np.float32
+        coef = torch.as_tensor(_bwd_coeff_planes(mu64, w, np_dt),
+                               device=device)
+    return mu_t, coef
+
+
+def make_tdma_z(nz: int, my: int, mx: int, mu, w, dtype=None, device=None,
+                variant: str = "stored"):
+    """``run(r) → x`` for the z-line systems above on (nz, my, mx) arrays
+    (`tdma.py:126-262`): r with zero z-shells in, x with mirror z-shells
+    out.  ``mu`` is the (my, mx) float64 host plane (the coefficient
+    planes derive from it here), ``w`` = 1/dz².  The wrappers launch the
+    kernels on a CUDA tensor.  None when nz < 3 (no interior plane), as
+    the reference's builder returns for a shape it does not take."""
+    if nz < 3:
+        return None
+    mu_t, coef = _build_planes(mu, w, variant, dtype, device)
+    if tuple(mu_t.shape) != (my, mx):
+        raise ValueError("make_tdma_z: mu must be (my, mx)")
+
+    def run(r):
+        if variant == "stored":
+            return tdma_z_bwd(*tdma_z_fwd(r, mu_t, w))
+        return tdma_z_bwd_analytic(tdma_z_fwd_d(r, mu_t, w), coef)
+
+    return run
+
+
+def make_tdma_z_bwd(nz: int, my: int, mx: int, mu, w, dtype=None,
+                    device=None, variant: str = "stored"):
+    """The back-substitution twin of :func:`make_tdma_z`
+    (`tdma.py:265-296`) on pre-swept planes in the fused-predictor layout
+    (plane k at index k, zero z-shells): ``run(d, t)`` (stored) or
+    ``run(d)`` (analytic) → x with mirror z-shells.  None when nz < 3."""
+    if nz < 3:
+        return None
+    mu_t, coef = _build_planes(mu, w, variant, dtype, device)
+    if tuple(mu_t.shape) != (my, mx):
+        raise ValueError("make_tdma_z_bwd: mu must be (my, mx)")
+
+    def run(d, t=None):
+        if variant == "stored":
+            return tdma_z_bwd(d, t)
+        return tdma_z_bwd_analytic(d, coef)
+
+    return run
 
 
 # ---- y-lines of the 2D step --------------------------------------------------
@@ -132,4 +286,6 @@ def tdma_y_2d(r: torch.Tensor, mu: torch.Tensor, w: float) -> torch.Tensor:
 
 
 tdma_z_fwd.launches = 0
+tdma_z_fwd_d.launches = 0
 tdma_z_bwd.launches = 0
+tdma_z_bwd_analytic.launches = 0

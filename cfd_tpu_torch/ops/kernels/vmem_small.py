@@ -250,14 +250,13 @@ def make_bicgstab_vmem_solve(nz, ny, nx, inv_dx2, inv_dy2, inv_dz2,
 _SWEEPS = {"rbsor": rb_sweep_plain, "jacobi": jacobi_sweep_plain}
 
 
-def stationary_solve_plain(x0, rhs, c: SORConsts, kind, tolerance, abs_tol,
+def stationary_solve_plain(x0, rhs, c: SORConsts, sweep, tolerance, abs_tol,
                            max_iter):
     """The reference's common solve loop (`stationary.py:35-76`, the
-    kernels' `vmem_small.py:197-229`) with the ``kind`` sweep ("rbsor" or
-    "jacobi"), as plain tensor code: the ∞-norm residual of x as given,
-    then ``check_interval`` chunks of sweeps until it falls below
-    max(tolerance·r0, abs_tol)."""
-    sweep = _SWEEPS[kind]
+    kernels' `vmem_small.py:197-229`) with ``sweep(x, rhs, c)`` (a sweep
+    and the Neumann mirror, a new tensor), as plain tensor code: the
+    ∞-norm residual of x as given, then ``check_interval`` chunks of
+    sweeps until it falls below max(tolerance·r0, abs_tol)."""
     ci = max(1, int(c.check_interval))
     r0 = residual_inf(x0, rhs, c)
     tol = torch.clamp_min(tolerance * r0, abs_tol)
@@ -297,8 +296,8 @@ def rbsor_solve(x0, rhs, c: SORConsts, tolerance, abs_tol, max_iter):
     """(x, r0, res, iterations, converged) of the whole Red-Black SOR
     solve — ``stationary_solve_kernel<false>`` on CUDA."""
     if native.on_cpu(x0):
-        return stationary_solve_plain(x0, rhs, c, "rbsor", tolerance,
-                                      abs_tol, max_iter)
+        return stationary_solve_plain(x0, rhs, c, rb_sweep_plain,
+                                      tolerance, abs_tol, max_iter)
     out = _stationary_solve(x0, rhs, c, "rbsor", tolerance, abs_tol,
                             max_iter)
     rbsor_solve.launches += 1
@@ -309,8 +308,8 @@ def jacobi_solve(x0, rhs, c: SORConsts, tolerance, abs_tol, max_iter):
     """(x, r0, res, iterations, converged) of the whole Jacobi solve —
     ``stationary_solve_kernel<true>`` on CUDA."""
     if native.on_cpu(x0):
-        return stationary_solve_plain(x0, rhs, c, "jacobi", tolerance,
-                                      abs_tol, max_iter)
+        return stationary_solve_plain(x0, rhs, c, jacobi_sweep_plain,
+                                      tolerance, abs_tol, max_iter)
     out = _stationary_solve(x0, rhs, c, "jacobi", tolerance, abs_tol,
                             max_iter)
     jacobi_solve.launches += 1
@@ -334,8 +333,8 @@ def _make_stationary(kind, nz, ny, nx, inv_dx2, inv_dy2, inv_dz2,
 
     def solve(x, rhs):
         if plain:
-            return stationary_solve_plain(x, rhs, c, kind, tolerance,
-                                          abs_tol, max_iterations)
+            return stationary_solve_plain(x, rhs, c, _SWEEPS[kind],
+                                          tolerance, abs_tol, max_iterations)
         return kernel(x, rhs, c, tolerance, abs_tol, max_iterations)
 
     return solve

@@ -5,7 +5,8 @@ The pressure solve is the reference's default CG (`solver_projection.c:
 217-218`), BiCGSTAB, Red-Black SOR, Jacobi, multigrid
 (``Method.MULTIGRID``) or the exact spectral solve (``Method.FFT_DIRECT``).
 
-A 3D spectral step is the reference's two-kernel spectral projection:
+A 3D spectral step (nz ≥ 3) is the reference's two-kernel spectral
+projection:
 
 * A1 (`ProjectionKernels.predictor_poisson_input`): predictor
   u* = clamp(u + dt(−u·∇u + ν∇²u + f)) with caller shells passed through,
@@ -13,10 +14,20 @@ A 3D spectral step is the reference's two-kernel spectral projection:
   sweep along z;
 * A2 (`ProjectionKernels.corrector_bwd_diag`): Thomas back substitution,
   inverse xy DST to the pressure (mirror shells), corrector
-  u = clamp(u* − (dt/ρ)∇p), and the diagnostics' interior maxima;
+  u = clamp(u* − (dt/ρ)∇p), and the diagnostics' interior maxima (at
+  nz = 3, where the reference has no reverse-march corrector, its
+  standalone back substitution and ``corr_all``'s DST form: the same
+  chain);
 
 then two z-shell face maxima complete max|u|², max p and max|p| exactly
 as `field_status_and_diagnostics` would over the whole field.
+``spectral_precision`` is None or ``"highest"`` (IEEE fp32 DST
+products, stored t) or ``"high"`` (3xTF32 products on the tensor cores
+and, at nz ≥ 4, the analytic-t back substitution: the predictor writes
+no t), the reference's HIGHEST and HIGH (`projection.py:403-432`); the
+2D step takes it for its x-DST pair and its rescue products.
+``"default"`` (one TF32 pass, which the reference routes to its emit-b̃
+kernels) is not ported.
 
 A 3D CG step (`:600-621`, nz ≥ 3) is the predictor, A1's rhs form
 (ρ/dt)∇·u*, the CG solve on the fused passes warm-started from p
@@ -109,14 +120,16 @@ def _unsupported(what: str):
                    f"projection step: {what} is not ported yet")
 
 
+# spectral_precision → the DST products' precision (`ops.kernels.rolling`)
+_PRECISIONS = {None: "highest", "highest": "highest", "high": "high"}
+
+
 def _check_slice(grid: Grid, params: NSParams, poisson_method,
                  spectral_precision, differentiable, bc_refresh,
                  dtype, device):
     method = Method(poisson_method)
     if method != Method.FFT_DIRECT and (method, True) not in _ITERATIVE:
         _unsupported(f"poisson_method {method.name}")
-    if method == Method.FFT_DIRECT and 1 < grid.nz < 4:
-        _unsupported("nz < 4 with FFT_DIRECT (the three-pass form)")
     if not grid.is_uniform():
         _unsupported("a stretched grid")
     if params.nonuniform_scheme == "consistent":
@@ -131,10 +144,10 @@ def _check_slice(grid: Grid, params: NSParams, poisson_method,
         _unsupported("bc_refresh")
     if differentiable:
         _unsupported("the differentiable step")
-    if method == Method.FFT_DIRECT and spectral_precision not in (
-            None, "highest"):
-        _unsupported(f"spectral_precision={spectral_precision!r} "
-                     f"(only 'highest', IEEE fp32, is ported)")
+    if method == Method.FFT_DIRECT and spectral_precision not in _PRECISIONS:
+        _unsupported(f"spectral_precision={spectral_precision!r} (the "
+                     f"ported ones are 'highest', IEEE fp32, and 'high', "
+                     f"3xTF32)")
     if device.type == "cuda" and dtype != torch.float32:
         _unsupported(f"{dtype} on CUDA (the kernels are float32)")
 
@@ -146,14 +159,15 @@ def make_projection_step(grid: Grid, params: NSParams, dtype=None,
                          differentiable: bool = False, bc_refresh=None,
                          plain: bool = False):
     """Build ``step(field, dt, iter_idx) -> (field, StepResult)`` for a 3D
-    (nz ≥ 3; nz ≥ 4 with ``FFT_DIRECT``) or 2D (nz == 1) uniform grid.
+    (nz ≥ 3) or 2D (nz == 1) uniform grid.
 
     ``poisson_method`` is ``Method.CG`` by default, as in the reference,
     or ``BICGSTAB``, ``REDBLACK_SOR``, ``JACOBI`` or ``MULTIGRID`` (2^k+1
     grids), with ``poisson_params`` (default ``PoissonParams()``, as
     given — no factory defaults; CG ignores ``Precond.MULTIGRID``, as the
     reference's step does); ``FFT_DIRECT`` is the exact spectral solve.
-    ``spectral_precision`` applies to the spectral solve only.
+    ``spectral_precision`` (None or ``"highest"``, or ``"high"``)
+    applies to the spectral solve only.
 
     On the card (the default, ``device=None``) the step launches the
     hand-written kernels; with ``device="cpu"`` the same wrappers run
@@ -220,12 +234,14 @@ def make_projection_step(grid: Grid, params: NSParams, dtype=None,
         return _make_iterative_step_3d(grid, params, solve, plain,
                                        with_sources, scalars, folded_result)
 
+    precision = _PRECISIONS[spectral_precision]
     if grid.nz == 1:
-        fxt, gxt, ysolve = make_dst2d_fused_pieces(problem, dtype, device,
-                                                   plain=plain)
+        fxt, gxt, ysolve = make_dst2d_fused_pieces(
+            problem, dtype, device, plain=plain, precision=precision)
         pk2 = Projection2DKernels(
             grid.ny, grid.nx, grid.dx0, grid.dy0, grid.xmin, grid.ymin,
-            params.mu, (fxt, gxt), with_sources=with_sources, plain=plain)
+            params.mu, (fxt, gxt), with_sources=with_sources, plain=plain,
+            precision=precision)
 
         def step_2d(field: FlowField, dt, iter_idx):
             dt, su, sv, rho0 = scalars(field, dt, iter_idx)
@@ -239,11 +255,14 @@ def make_projection_step(grid: Grid, params: NSParams, dtype=None,
 
         return step_2d
 
+    # HIGH takes the analytic-t back substitution, HIGHEST the stored one
+    # (`projection.py:417-432`); ProjectionKernels keeps "stored" at nz = 3
     mats, tdma_fwd = make_dst_fused_pieces(problem, dtype, device)
     pk = ProjectionKernels(
         grid.nz, grid.ny, grid.nx, grid.dx0, grid.dy0, grid.dz0,
         grid.xmin, grid.ymin, params.mu, mats, tdma_fwd,
-        with_sources=with_sources, plain=plain)
+        with_sources=with_sources, plain=plain, dst_precision=precision,
+        tdma_bwd="analytic" if precision == "high" else "stored")
 
     def step(field: FlowField, dt, iter_idx):
         dt, su, sv, rho0 = scalars(field, dt, iter_idx)

@@ -4,10 +4,12 @@ frontend.py`).
 
 * ``create_solver(method)`` → a :class:`PoissonSolver`, bound to a
   geometry by ``init`` and run by ``solve`` / ``solve_result``;
-* Jacobi, Red-Black SOR, CG (``Precond.MULTIGRID`` turns it into
-  MG-preconditioned CG), BiCGSTAB and multigrid are ported; SOR,
-  Gauss-Seidel and FFT_DIRECT raise ``CFDError(ERROR_UNSUPPORTED)`` at
-  ``init`` until their slices;
+* every ``Method`` is ported: Jacobi, SOR and Gauss-Seidel (one maker,
+  ω resolved as the reference resolves it), Red-Black SOR, CG
+  (``Precond.MULTIGRID`` turns it into MG-preconditioned CG), BiCGSTAB,
+  multigrid and FFT_DIRECT (the exact spectral solve; a problem it does
+  not take — nz = 3 with dz = 0 — raises ``ERROR_UNSUPPORTED`` at
+  ``init``);
 * Jacobi's factory defaults (``max_iterations=2000``,
   ``check_interval=10``, `linear_solver_jacobi.c:146-147`) apply only
   when the user gave no params, at ``create_solver`` or at ``init``;
@@ -18,7 +20,11 @@ frontend.py`).
   the plain solve for other dtypes — the whole-solve kernels on 2D grids
   (Jacobi on 3D ones too), the fused CG or BiCGSTAB passes, the Red-Black
   SOR sweep or the multigrid sweeps on 3D ones; on the CPU the kernel
-  wrappers run their plain versions.
+  wrappers run their plain versions.  SOR and Gauss-Seidel have no kernel
+  solve, as in the reference (`frontend.py:80-82`).  FFT_DIRECT's kernel
+  solve is ``make_fft_direct`` with its products through the GEMM
+  wrappers of `ops.kernels.rolling` (the hand-written SGEMM on the card),
+  its plain solve the same maker on the plain products.
 """
 
 from __future__ import annotations
@@ -38,8 +44,10 @@ from .krylov import (make_bicgstab, make_bicgstab_fused, make_bicgstab_vmem,
                      make_cg, make_cg_fused, make_cg_vmem)
 from .multigrid import (make_mg_cg, make_multigrid, make_multigrid_vmem,
                         raise_not_coarsenable)
+from .spectral import make_fft_direct, spectral_supported
 from .stationary import (make_jacobi, make_jacobi_vmem, make_redblack_sor,
-                         make_redblack_sor_fused, make_redblack_sor_vmem)
+                         make_redblack_sor_fused, make_redblack_sor_vmem,
+                         make_sor)
 
 
 def _make_cg_dispatch(problem, params, plain=True):
@@ -51,6 +59,13 @@ def _make_cg_dispatch(problem, params, plain=True):
     return make_cg(problem, params)
 
 
+def _make_fft_dispatch(problem, params):
+    if not spectral_supported(problem):
+        raise CFDError(Status.ERROR_UNSUPPORTED,
+                       "fft_direct: needs nz==1 or (nz>=3 with dz>0)")
+    return make_fft_direct(problem, params, plain=True)
+
+
 def _make_multigrid_dispatch(problem, params, plain=True):
     fn = make_multigrid(problem, params, plain=plain)
     if fn is None:
@@ -60,10 +75,13 @@ def _make_multigrid_dispatch(problem, params, plain=True):
 
 _MAKERS = {
     Method.JACOBI: make_jacobi,
+    Method.SOR: make_sor,
+    Method.GAUSS_SEIDEL: make_sor,   # GS == SOR with omega resolved normally
     Method.REDBLACK_SOR: make_redblack_sor,
     Method.CG: _make_cg_dispatch,
     Method.BICGSTAB: make_bicgstab,
     Method.MULTIGRID: _make_multigrid_dispatch,
+    Method.FFT_DIRECT: _make_fft_dispatch,
 }
 
 
@@ -71,7 +89,13 @@ def _fused_maker(method: Method, problem: PoissonProblem,
                  params: PoissonParams, plain: bool):
     """The kernel solve of ``method`` (float32): the whole solve in one
     launch on 2D grids, the fused passes or sweeps on 3D ones; Jacobi,
-    whose only kernel is the whole solve, takes it on both."""
+    whose only kernel is the whole solve, takes it on both; FFT_DIRECT
+    its products as GEMM launches.  None for SOR and Gauss-Seidel, which
+    have none."""
+    if method in (Method.SOR, Method.GAUSS_SEIDEL):
+        return None
+    if method == Method.FFT_DIRECT:
+        return make_fft_direct(problem, params, plain=plain)
     two_d = problem.nz == 1
     if method == Method.JACOBI:
         return make_jacobi_vmem(problem, params, plain=plain)
@@ -161,12 +185,8 @@ class PoissonSolver:
              dx: float = 1.0, dy: float = 1.0, dz: float = 0.0,
              params: Optional[PoissonParams] = None) -> "PoissonSolver":
         """Bind to a problem geometry (mirrors poisson_solver_init);
-        raises ``ERROR_UNSUPPORTED`` for a method not ported yet or a
-        multigrid grid that cannot be coarsened."""
-        if self.method not in _MAKERS:
-            raise CFDError(Status.ERROR_UNSUPPORTED,
-                           f"Poisson method {self.method.name} is not "
-                           f"ported yet")
+        raises ``ERROR_UNSUPPORTED`` for a multigrid grid that cannot be
+        coarsened or a problem FFT_DIRECT does not take."""
         self.problem = PoissonProblem(nx, ny, nz, dx, dy, dz)
         if params is not None:
             self.params = params
@@ -250,8 +270,7 @@ def poisson_solve_3d(p, rhs, nx: int, ny: int, nz: int,
     """Convenience solve with one cached solver per preset, recreated when
     the geometry changes (`linear_solver.c:589-705`); returns
     (p, iterations), iterations −1 on non-convergence.  The default preset
-    is Red-Black SOR; the SOR presets raise ``ERROR_UNSUPPORTED`` until
-    their slice."""
+    is Red-Black SOR."""
     preset = SolverPreset(preset)
     solver = _cache.get(preset)
     prob = (nx, ny, nz, dx, dy, dz)

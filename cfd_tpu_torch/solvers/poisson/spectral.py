@@ -1,22 +1,43 @@
-"""Host-side factors of the DST-fused spectral pressure solves (counterpart
-of `cfd_tpu/solvers/poisson/spectral.py:56-85`, `:413-496` and, for 2D,
-`:119-130` and `:219-306`).
+"""The spectral (DST-I) Poisson solve: the direct solver, its transform
+pipelines, and the host-side factors of the DST-fused projection steps
+(counterpart of `cfd_tpu/solvers/poisson/spectral.py`).
 
 On a uniform grid the Dirichlet-0 interior Laplacian is diagonalized by
-the type-I sine transform in x and y; what remains per (y, x) mode is a
-tridiagonal system along z (`ops/kernels/tdma.py`).  The projection step's
-two mega kernels apply the forward transform Fy·(b̃·FxT) to each b̃ plane
-and the mirror-extended inverse Gy·(x̂·GxT) to each x̂ plane; these
-functions make those matrices and the per-mode eigenvalue plane μ in
-float64 numpy on the host.
+the type-I sine transform, so the pressure solve is direct and exact (to
+rounding).  The fixed point CG converges to is (−D)⁻¹(M x₀ − rhs), D the
+Dirichlet-0 Laplacian and M the Neumann mirror's face terms, so a solve
+is one fused pass b̃ = face_coeff·x − rhs (zero shell), then a transform
+pipeline b̃ → x_new whose inverse matrices are mirror-extended: the output
+carries its own Neumann shell.
 
-The reference pads the mode dims to multiples of (8, 128) for the TPU's
-tiles and runs only where that padding is a no-op.  Here the mode dims
-always equal the grid dims: the two spare modes per axis get zero F rows
-and zero G columns (their rhs is zero and they solve to zero), so the
-transformed planes keep the (ny, nx) shape on every grid.  Where the
-reference's gate holds (nx % 128 == 0, ny % 8 == 0) the matrices are the
-reference's, entry for entry.
+* :func:`make_fft_direct` (`:1158-1216`) — the front end's FFT_DIRECT:
+  b̃, the eigen pipeline, and the CG-convention true residual;
+* :func:`make_fft_btilde_solver` (`:853-899`) — the raw b̃ → x_new
+  transform, ``z_mode`` "eigen" (every axis a DST product and the
+  eigenvalue divide, `:771-850`), "tdma" (the last axis a Thomas
+  line solve: z in 3D, `:705-768`, y in 2D with the dense low-mode
+  rescue, `:133-216`) or "auto";
+* :func:`make_dst_fused_pieces`, :func:`make_dst2d_fused_pieces` — the
+  factors the projection steps' kernels take (`:413-496`, `:237-307`).
+
+The DST and z products run through `ops.kernels.rolling` at the caller's
+precision, ``"highest"`` (IEEE fp32) or ``"high"`` (3xTF32): on a CUDA
+tensor the hand-written SGEMM or 3xTF32 GEMM, on a CPU tensor the plain
+version.  (The reference computes the pipelines' products as jnp
+matmuls outside any Pallas kernel.)  The Thomas stages run the z-line
+kernels of `ops.kernels.tdma`.
+
+The reference pads the mode dims to multiples of (8, 128) — 1024 for the
+2D y-stage — for the TPU's tiles, and gates its Thomas stages on those
+shapes and on VMEM.  Here the mode dims always equal the grid dims: the
+two spare modes per axis get zero F rows and zero G columns (their rhs is
+zero and they solve to zero; their eigenvalue repeats the edge one, so
+the divide stays finite), so the transformed arrays keep the grid's shape
+on every grid, and only the geometric conditions gate the stages.  Where
+the reference's gate holds (nx % 128 == 0, ny % 8 == 0) the fused step's
+matrices are the reference's, entry for entry.  Matrices and eigenvalue
+arrays are built in float64 numpy and cast once, per input dtype and
+device on first use.
 """
 
 from __future__ import annotations
@@ -27,7 +48,7 @@ import torch
 from ...config import resolve_dtype
 from ...core.status import CFDError, Status
 from ...ops.kernels import rolling, tdma
-from .base import PoissonProblem
+from .base import PoissonParams, PoissonProblem, PoissonResult, PoissonStatus
 
 
 def _sine_matrix(m: int) -> np.ndarray:
@@ -50,6 +71,46 @@ def _dirichlet_eigenvalues(m: int, inv_d2: float) -> np.ndarray:
     return 4.0 * inv_d2 * np.sin(np.pi * i / (2.0 * (m + 1))) ** 2
 
 
+def _face_coeff(m: int, inv_d2: float) -> np.ndarray:
+    """Per-index mirror coefficient along one axis: inv_d2 at the two
+    interior faces (summed when m == 1), zero elsewhere."""
+    c = np.zeros(m)
+    c[0] += inv_d2
+    c[-1] += inv_d2
+    return c
+
+
+def spectral_supported(problem: PoissonProblem) -> bool:
+    """2D (nz == 1) or genuine 3D (nz ≥ 3 with dz > 0)."""
+    return problem.nz == 1 or (problem.nz >= 3 and problem.dz > 0.0)
+
+
+def tdma_z_supported(problem: PoissonProblem) -> bool:
+    """The Thomas z-stage applies: a genuine 3D problem (the reference's
+    lane, sublane and VMEM gates are TPU ones and are not kept)."""
+    return problem.nz >= 3 and problem.dz > 0.0
+
+
+def _padded_forward(m: int, n: int, np_dt) -> np.ndarray:
+    """(n, n) forward DST: rows :m the sines on columns 1..n−2, zero rows
+    for the two spare modes and zero boundary columns."""
+    F = np.zeros((n, n), np_dt)
+    F[:m, 1:n - 1] = _sine_matrix(m)
+    return F
+
+
+def _padded_inverse(m: int, n: int, scale: float, np_dt) -> np.ndarray:
+    """(n, n) mirror-extended inverse DST, zero columns for the spare
+    modes."""
+    G = np.zeros((n, n), np_dt)
+    G[:, :m] = _mirror_extended_inverse(m, scale)
+    return G
+
+
+def _edge_padded(v: np.ndarray, n: int) -> np.ndarray:
+    return np.pad(v, (0, n - v.shape[0]), mode="edge")
+
+
 def _dst_fused_mats(problem: PoissonProblem, np_dt):
     """``(mats, mu, w)``: ``mats = (FxT, Fy, GxT, Gy)`` host numpy
     matrices (forward = Fy·(plane·FxT), inverse = Gy·(plane·GxT), the xy
@@ -60,43 +121,42 @@ def _dst_fused_mats(problem: PoissonProblem, np_dt):
     mx, my = nx - 2, ny - 2
     lx = _dirichlet_eigenvalues(mx, problem.inv_dx2)
     ly = _dirichlet_eigenvalues(my, problem.inv_dy2)
-    w = float(problem.inv_dz2)
     scale = (2.0 / (mx + 1)) * (2.0 / (my + 1))
-    mu = (np.pad(ly, (0, ny - my), mode="edge")[:, None]
-          + np.pad(lx, (0, nx - mx), mode="edge")[None, :])
-
-    Fx = np.zeros((nx, nx), np_dt)
-    Fx[:mx, 1:nx - 1] = _sine_matrix(mx)
-    Fy = np.zeros((ny, ny), np_dt)
-    Fy[:my, 1:ny - 1] = _sine_matrix(my)
-    Gx = np.zeros((nx, nx), np_dt)
-    Gx[:, :mx] = _mirror_extended_inverse(mx, scale)
-    Gy = np.zeros((ny, ny), np_dt)
-    Gy[:, :my] = _mirror_extended_inverse(my, 1.0)
-    mats = (np.ascontiguousarray(Fx.T), Fy, np.ascontiguousarray(Gx.T), Gy)
-    return mats, mu, w
+    mu = _edge_padded(ly, ny)[:, None] + _edge_padded(lx, nx)[None, :]
+    mats = (np.ascontiguousarray(_padded_forward(mx, nx, np_dt).T),
+            _padded_forward(my, ny, np_dt),
+            np.ascontiguousarray(_padded_inverse(mx, nx, scale, np_dt).T),
+            _padded_inverse(my, ny, 1.0, np_dt))
+    return mats, mu, float(problem.inv_dz2)
 
 
-def make_dst_fused_pieces(problem: PoissonProblem, dtype=None, device=None):
-    """Pieces of the DST-fused projection step with the Thomas forward
-    sweep fused into the predictor (the reference's ``fuse_fwd=True``):
-    ``(mats, (mu, w))`` with ``mats`` the four (FxT, Fy, GxT, Gy) tensors
-    and ``mu`` the (ny, nx) eigenvalue plane on ``device`` in ``dtype``,
-    ``w = 1/dz²`` a Python float.
+def make_dst_fused_pieces(problem: PoissonProblem, dtype=None, device=None,
+                          fuse_fwd: bool = True):
+    """Pieces of the DST-fused projection step, on ``device`` in ``dtype``.
 
-    The reference also returns the standalone backward-substitution kernel;
-    on the main path (nz ≥ 4) the reverse-march corrector replaces it, so
-    the port's counterpart is `ops.kernels.tdma.tdma_z_bwd`, called by the
-    corrector itself.  The emit-b̃ + full-TDMA form (``fuse_fwd=False``) is
-    not ported yet.
+    With ``fuse_fwd=True`` (the Thomas forward sweep fused into the
+    predictor, the form the step runs): ``(mats, (mu, w))`` with
+    ``mats`` the four (FxT, Fy, GxT, Gy) tensors, ``mu`` the (ny, nx)
+    eigenvalue plane and ``w = 1/dz²`` a Python float.  The reference
+    also returns the standalone back substitution; the port's is
+    `ops.kernels.tdma.tdma_z_bwd` (or its analytic twin), which the
+    corrector calls itself.
+
+    With ``fuse_fwd=False`` (the emit-b̃ form, `spectral.py:477-496`):
+    ``(mats, zsolve)``, ``zsolve(bxy) → x̂`` the whole Thomas z-stage
+    (`ops.kernels.tdma.make_tdma_z`, stored) on (nz, ny, nx)
+    transform-space tensors, mirror z-shells on output.
     """
-    if not (problem.nz >= 3 and problem.dz > 0.0):
+    if not tdma_z_supported(problem):
         raise CFDError(Status.ERROR_UNSUPPORTED,
                        "the DST-fused pieces need a 3D problem")
     dt = resolve_dtype(dtype, device)
     np_dt = np.float64 if dt == torch.float64 else np.float32
     mats, mu, w = _dst_fused_mats(problem, np_dt)
     mats_t = tuple(torch.as_tensor(m, dtype=dt, device=device) for m in mats)
+    if not fuse_fwd:
+        return mats_t, tdma.make_tdma_z(problem.nz, problem.ny, problem.nx,
+                                        mu, w, dt, device)
     mu_t = torch.as_tensor(mu.astype(np_dt), dtype=dt, device=device)
     return mats_t, (mu_t, w)
 
@@ -123,8 +183,15 @@ def dst2d_fused_supported(problem: PoissonProblem) -> bool:
     return problem.nz == 1 and problem.nx >= 3 and problem.ny >= 3
 
 
+def tdma_y_supported(problem: PoissonProblem) -> bool:
+    """The 2D Thomas y-stage applies wherever the fused 2D pieces do (the
+    reference's 1024-wide mode padding and VMEM gate are not kept)."""
+    return dst2d_fused_supported(problem)
+
+
 def make_dst2d_fused_pieces(problem: PoissonProblem, dtype=None, device=None,
-                            plain: bool = False):
+                            plain: bool = False,
+                            precision: str = "highest"):
     """Pieces of the DST-fused 2D projection step (counterpart of
     `spectral.py:237-306`): ``(FxT, GxT, ysolve)``.
 
@@ -135,10 +202,11 @@ def make_dst2d_fused_pieces(problem: PoissonProblem, dtype=None, device=None,
     transform-space tensors (zero y-shell rows in, mirror-extended y-shell
     rows out): `tdma.tdma_y_2d` on every column, then the K lowest x-modes
     (:func:`_tdma2d_rescue_width`) re-solved densely through the y-DST
-    pair, s = Fyp·a[:, :K], s /= (λy ⊗ 1 + 1 ⊗ λx[:K]), x[:, :K] = Gyp·s.
-    Without the rescue, f32 Thomas loses about 3 digits on the smooth
-    modes.  When K == mx every column is rescued and the Thomas launch is
-    skipped (it would do no useful work).
+    pair, s = Fyp·a[:, :K], s /= (λy ⊗ 1 + 1 ⊗ λx[:K]), x[:, :K] = Gyp·s,
+    its two products at ``precision`` (the reference's jnp matmuls at the
+    step's precision).  Without the rescue, f32 Thomas loses about 3
+    digits on the smooth modes.  When K == mx every column is rescued and
+    the Thomas launch is skipped (it would do no useful work).
 
     ``plain=True`` runs the plain versions on a CUDA device too (the
     reference switch of `ops.kernels.projection2d.Projection2DKernels`).
@@ -149,6 +217,7 @@ def make_dst2d_fused_pieces(problem: PoissonProblem, dtype=None, device=None,
         raise CFDError(Status.ERROR_UNSUPPORTED,
                        "the DST-fused 2D pieces need a 2D problem with "
                        "nx, ny >= 3")
+    rolling._check_precision(precision)
     dt = resolve_dtype(dtype, device)
     np_dt = np.float64 if dt == torch.float64 else np.float32
     nx, ny = problem.nx, problem.ny
@@ -158,10 +227,6 @@ def make_dst2d_fused_pieces(problem: PoissonProblem, dtype=None, device=None,
     w = float(problem.inv_dy2)
     K = _tdma2d_rescue_width(mx, lx, w)
 
-    Fx = np.zeros((nx, nx), np_dt)
-    Fx[:mx, 1:nx - 1] = _sine_matrix(mx)
-    Gx = np.zeros((nx, nx), np_dt)
-    Gx[:, :mx] = _mirror_extended_inverse(mx, 2.0 / (mx + 1))
     Fyp = np.zeros((my, ny), np_dt)
     Fyp[:, 1:ny - 1] = _sine_matrix(my)
     Gyp = _mirror_extended_inverse(my, 2.0 / (my + 1)).astype(np_dt)
@@ -170,8 +235,10 @@ def make_dst2d_fused_pieces(problem: PoissonProblem, dtype=None, device=None,
         return torch.as_tensor(np.ascontiguousarray(a), dtype=dt,
                                device=device)
 
-    FxT, GxT, Fyp, Gyp = dev(Fx.T), dev(Gx.T), dev(Fyp), dev(Gyp)
-    mu = dev(np.pad(lx, (0, nx - mx), mode="edge").astype(np_dt))
+    FxT = dev(_padded_forward(mx, nx, np_dt).T)
+    GxT = dev(_padded_inverse(mx, nx, 2.0 / (mx + 1), np_dt).T)
+    Fyp, Gyp = dev(Fyp), dev(Gyp)
+    mu = dev(_edge_padded(lx, nx).astype(np_dt))
     lam = dev(ly)[:, None] + dev(lx[:K])[None, :]
     thomas = K < mx
     if plain:
@@ -182,10 +249,238 @@ def make_dst2d_fused_pieces(problem: PoissonProblem, dtype=None, device=None,
     def ysolve(bt_x):
         a = bt_x[0]                                        # (ny, nx)
         x = line(a, mu, w) if thomas else torch.zeros_like(a)
-        s = dot(Fyp, a[:, :K]) / lam                       # (my, K)
-        dot(Gyp, s, out=x[:, :K])                          # (ny, K)
+        s = dot(Fyp, a[:, :K], precision=precision) / lam  # (my, K)
+        dot(Gyp, s, out=x[:, :K], precision=precision)     # (ny, K)
         return x[None]
 
     # what the stages are called with, for checks of each stage alone
     ysolve.line, ysolve.rescue = (mu, w), (Fyp, Gyp, K)
     return FxT, GxT, ysolve
+
+
+# ---- the transform pipelines and the direct solver ---------------------------
+
+def _per_input(build):
+    """``get(t)``: ``build(dtype, device)`` for the input tensor ``t``,
+    built on first use and kept (the reference builds its matrices per
+    input dtype the same way)."""
+    built = {}
+
+    def get(t):
+        key = (t.dtype, t.device)
+        if key not in built:
+            built[key] = build(t.dtype, t.device)
+        return built[key]
+
+    return get
+
+
+def _products(plain: bool):
+    """The GEMM wrappers (plane_dot, right_dot, left_dot), or with
+    ``plain`` their plain versions, which also run on a CUDA tensor."""
+    if plain:
+        return (rolling.plane_dot_plain, rolling.right_dot_plain,
+                rolling.left_dot_plain)
+    return rolling.plane_dot, rolling.right_dot, rolling.left_dot
+
+
+def _make_btilde_pipeline(problem: PoissonProblem, precision: str,
+                          plain: bool = False):
+    """The eigen transform (`spectral.py:771-850`): full-shape zero-shell
+    b̃ → full-shape x_new.  Every axis is a DST product — x and y through
+    `rolling.plane_dot` (3D) or `right_dot` / `left_dot` (2D), z through
+    `left_dot` on the (nz, ny·nx) view — then the divide by the
+    eigenvalue sums, then the mirror-extended inverses in the reference's
+    order (x, y, z), all 1/(m+1) normalizations folded into Gx.  With
+    ``plain`` the products are the plain versions on any device."""
+    plane_dot, right_dot, left_dot = _products(plain)
+    is_3d = problem.nz > 1
+    nx, ny, nz = problem.nx, problem.ny, problem.nz
+    mx, my = nx - 2, ny - 2
+    mz = nz - 2 if is_3d else 1
+    lx = _dirichlet_eigenvalues(mx, problem.inv_dx2)
+    ly = _dirichlet_eigenvalues(my, problem.inv_dy2)
+    lz = _dirichlet_eigenvalues(mz, problem.inv_dz2) if is_3d else None
+    scale = (2.0 / (mx + 1)) * (2.0 / (my + 1))
+    if is_3d:
+        scale *= 2.0 / (mz + 1)
+
+    def build(dt, device):
+        np_dt = np.float64 if dt == torch.float64 else np.float32
+
+        def dev(a):
+            return torch.as_tensor(np.ascontiguousarray(a), dtype=dt,
+                                   device=device)
+
+        f = {"fxt": dev(_padded_forward(mx, nx, np_dt).T),
+             "fy": dev(_padded_forward(my, ny, np_dt)),
+             "gxt": dev(_padded_inverse(mx, nx, scale, np_dt).T),
+             "gy": dev(_padded_inverse(my, ny, 1.0, np_dt))}
+        vx = dev(_edge_padded(lx, nx).astype(np_dt))
+        vy = dev(_edge_padded(ly, ny).astype(np_dt))
+        if is_3d:
+            f["fz"] = dev(_padded_forward(mz, nz, np_dt))
+            f["gz"] = dev(_padded_inverse(mz, nz, 1.0, np_dt))
+            vz = dev(_edge_padded(lz, nz).astype(np_dt))
+            f["lam"] = (vz[:, None, None] + vy[None, :, None]) \
+                + vx[None, None, :]
+        else:
+            f["lam"] = vy[:, None] + vx[None, :]
+        return f
+
+    factors = _per_input(build)
+
+    def z_dot(m, a):
+        return left_dot(m, a.reshape(nz, -1),
+                        precision=precision).reshape(a.shape)
+
+    def pipeline(btilde):
+        f = factors(btilde)
+        if not is_3d:
+            a = right_dot(btilde[0], f["fxt"], precision)
+            a = left_dot(f["fy"], a, precision=precision)
+            a = left_dot(f["gy"], a / f["lam"], precision=precision)
+            return right_dot(a, f["gxt"], precision)[None]
+        a = z_dot(f["fz"], plane_dot(btilde, f["fxt"], f["fy"], precision))
+        a = plane_dot(a / f["lam"], f["gxt"], f["gy"], precision)
+        return z_dot(f["gz"], a)
+
+    return pipeline
+
+
+def _make_btilde_pipeline_tdma(problem: PoissonProblem, precision: str):
+    """The Thomas z-stage transform (`spectral.py:705-768`): the xy DST,
+    the z-line Thomas solve (`tdma.make_tdma_z`, stored), the inverse xy
+    DST — the pieces of :func:`make_dst_fused_pieces` with
+    ``fuse_fwd=False``."""
+    def build(dt, device):
+        return make_dst_fused_pieces(problem, dt, device, fuse_fwd=False)
+
+    pieces = _per_input(build)
+
+    def pipeline(btilde):
+        (fxt, fy, gxt, gy), zsolve = pieces(btilde)
+        x = zsolve(rolling.plane_dot(btilde, fxt, fy, precision))
+        return rolling.plane_dot(x, gxt, gy, precision)
+
+    return pipeline
+
+
+def _make_btilde_pipeline_tdma2d(problem: PoissonProblem, precision: str):
+    """The Thomas y-stage transform (`spectral.py:133-216`): the x DST,
+    the y-line Thomas solve with the dense low-mode rescue, the inverse x
+    DST — the pieces of :func:`make_dst2d_fused_pieces`."""
+    def build(dt, device):
+        return make_dst2d_fused_pieces(problem, dt, device,
+                                       precision=precision)
+
+    pieces = _per_input(build)
+
+    def pipeline(btilde):
+        fxt, gxt, ysolve = pieces(btilde)
+        x = ysolve(rolling.right_dot(btilde, fxt, precision))
+        return rolling.right_dot(x, gxt, precision)
+
+    return pipeline
+
+
+def make_fft_btilde_solver(problem: PoissonProblem,
+                           params: PoissonParams = None,
+                           precision: str = "highest",
+                           z_mode: str = "eigen"):
+    """The raw transform ``btilde → x_new`` for fused producers
+    (`spectral.py:853-899`).
+
+    ``z_mode``: "eigen" runs every axis as DST products; "tdma" replaces
+    the last axis by a Thomas line solve — z in 3D, y in 2D (with the
+    dense rescue of the ill-conditioned low modes); "auto" picks "tdma"
+    where it pays: always in 3D, and in 2D unless every x-mode's y-line
+    needs the rescue (strongly anisotropic grids, dy ≪ dx), where the
+    Thomas stage would do no useful work.  (The reference's second 2D
+    gate, that the 1024-wide mode padding stay under 2×, always holds
+    without the padding.)  ``params`` is accepted for parity and read by
+    nothing, as in the reference.
+    """
+    if not spectral_supported(problem):
+        raise ValueError("spectral solver needs nz==1 or (nz>=3, dz>0)")
+    rolling._check_precision(precision)
+    is_3d = problem.nz > 1
+    if z_mode == "auto":
+        if is_3d:
+            sup = tdma_z_supported(problem)
+        else:
+            mx = problem.nx - 2
+            lx = _dirichlet_eigenvalues(mx, problem.inv_dx2)
+            sup = tdma_y_supported(problem) and _tdma2d_rescue_width(
+                mx, lx, float(problem.inv_dy2)) < mx
+        z_mode = "tdma" if sup else "eigen"
+    if z_mode == "tdma":
+        if is_3d:
+            if not tdma_z_supported(problem):
+                raise ValueError("tdma z_mode unsupported for this problem")
+            return _make_btilde_pipeline_tdma(problem, precision)
+        if not tdma_y_supported(problem):
+            raise ValueError("tdma y-stage unsupported for this problem")
+        return _make_btilde_pipeline_tdma2d(problem, precision)
+    if z_mode != "eigen":
+        raise ValueError(f"unknown z_mode {z_mode!r}")
+    return _make_btilde_pipeline(problem, precision)
+
+
+def make_fft_direct(problem: PoissonProblem, params: PoissonParams,
+                    precision: str = "highest",
+                    compute_residuals: bool = True, plain: bool = False):
+    """The direct solve (`spectral.py:1158-1216`): ``solve(x0, rhs) →
+    PoissonResult`` with ``iterations = 1``, ``initial_residual = 0`` (a
+    direct method forms none) and ``status = CONVERGED`` — a drop-in for
+    ``make_cg``'s solve, with the same fixed point.
+
+    b̃ = face_coeff·x − rhs with a zero shell, then the eigen pipeline.
+    With ``compute_residuals`` the final residual is CG's convention: the
+    new interior inside the *initial* mirror shell (CG measures its
+    recursion residual before the post-loop Neumann refresh), its
+    Laplacian minus rhs, the interior L2 norm; without it, 0.
+    ``precision`` is the products' ("highest" or "high").  The products
+    go through the GEMM wrappers (the kernels on a float32 CUDA tensor),
+    or with ``plain`` through their plain versions on any device and
+    dtype — the front end's solve for other dtypes than float32, and its
+    reference switch.
+    """
+    if not spectral_supported(problem):
+        raise ValueError("spectral solver needs nz==1 or (nz>=3, dz>0)")
+    is_3d = problem.nz > 1
+    pipeline = _make_btilde_pipeline(problem, precision, plain)
+    fx = np.pad(_face_coeff(problem.nx - 2, problem.inv_dx2), 1)
+    fy = np.pad(_face_coeff(problem.ny - 2, problem.inv_dy2), 1)
+    fz = (np.pad(_face_coeff(problem.nz - 2, problem.inv_dz2), 1) if is_3d
+          else np.zeros(1))
+
+    def build(dt, device):
+        def dev(a):
+            return torch.as_tensor(a, dtype=dt, device=device)
+
+        return ((dev(fz)[:, None, None] + dev(fy)[None, :, None])
+                + dev(fx)[None, None, :])
+
+    face_coeff = _per_input(build)
+
+    def solve(x, rhs):
+        x_new = pipeline(problem.zero_boundary(face_coeff(x) * x - rhs))
+        if compute_residuals:
+            x_hybrid = problem.set_interior(problem.neumann_bc(x), x_new)
+            r_f = problem.zero_boundary(problem.laplacian(x_hybrid) - rhs)
+            final_res = torch.sqrt(problem.dot_interior(r_f, r_f))
+        else:
+            final_res = torch.zeros((), dtype=x.dtype, device=x.device)
+
+        def code(v):
+            return torch.full((), int(v), dtype=torch.int32,
+                              device=x.device)
+
+        return PoissonResult(
+            x=x_new, iterations=code(1),
+            initial_residual=torch.zeros((), dtype=x.dtype,
+                                         device=x.device),
+            final_residual=final_res, status=code(PoissonStatus.CONVERGED))
+
+    return solve

@@ -93,7 +93,28 @@ Then BiCGSTAB, Red-Black SOR and Jacobi:
   33³, on both paths;
 * phase 26: Ghia Re = 100 at 128² with the BiCGSTAB solve, the 128² cavity
   for 50 steps with RB-SOR and with Jacobi above their printed floors,
-  and ``poisson_solve``'s default preset at 100², on both paths.
+  and ``poisson_solve``'s default preset at 100², on both paths;
+* phase 27: ``spectral_precision="high"``'s kernels against their plain
+  versions: the 3xTF32 GEMM (``plane_dot`` at "high") at 37×23×11 and
+  512³, timed against its TF32 tensor-core bound and cuBLAS fp32, the
+  no-t forward sweep and the analytic back substitution at 512³, and the
+  2D step's 3xTF32 x-DST and rescue products at 2048²; the 3xTF32 GEMM
+  and the SGEMM against a float64 product at depths 512 and 2048;
+* phase 28: the 512³ step at HIGH (5 warm-up and 5 timed steps) and the
+  2048² step at HIGH (20 and 20), each on both paths and held against
+  its HIGHEST step after the first step at the reference's HIGH bars
+  (the launch counters show 3xTF32 launches and no SGEMM); the nz = 3
+  step at 512×512×3 on both paths at HIGHEST and at HIGH, and its
+  kernels against their plain versions there;
+* phase 29: Ghia Re = 100 at 128² at HIGH (RMS below 0.10, beside
+  phase 7's HIGHEST values);
+* phase 30: FFT_DIRECT through the Poisson front end on ``cg_512``'s
+  512³ problem (ms a solve, float64 true residual below 1e-3), held
+  against the plain solve on the card and beside the float64 one, and
+  the eigen z-product against its plain version; and SOR
+  (``poisson_solve``'s ``SOR_SCALAR`` preset) and Gauss-Seidel (the front
+  end) at 33² in float64 (plain torch on the card: sweeps and ms),
+  against the same SOR solve on the CPU.
 
 It checks status, finiteness, launch counters (set to 0 just before each
 main path and read just after) and kernel-vs-plain agreement; any
@@ -143,6 +164,7 @@ C2 = "cfd_tpu/ops/pallas/projection2d.py:252"         # corr_compute
 DOT2 = "cfd_tpu/ops/pallas/projection2d.py:97"        # block_dot
 TDMA2 = "cfd_tpu/ops/pallas/tdma.py:434"              # make_tdma_y_2d
 RESCUE = "cfd_tpu/solvers/poisson/spectral.py:299"    # rescue matmuls
+EIGEN_Z = "cfd_tpu/solvers/poisson/spectral.py:836"   # eigen z-product
 SRC_E = "cfd_tpu_torch/csrc/euler_kernels.cu"
 SRC_RK = "cfd_tpu_torch/csrc/rk_kernels.cu"
 E3 = "cfd_tpu/ops/pallas/euler_kernels.py:67"         # make_euler_fused
@@ -215,15 +237,36 @@ CG_STEPS = 3           # CG step: 3 warm-up and 3 timed steps a path
 # other after 10 steps, before the growth amplifies their rounding.
 FACADE_CHECK = 10
 
+SRC_GEMM = "cfd_tpu_torch/csrc/gemm_3xtf32.cu"
+HP_DOT = "cfd_tpu/ops/pallas/rolling.py:42"           # hp_dot_general, HIGH
+A2_ANALYTIC = "cfd_tpu/ops/pallas/projection_kernels.py:404"  # analytic t
+A4_BWD = "cfd_tpu/ops/pallas/tdma.py:265"              # make_tdma_z_bwd
+N_NZ3 = (3, N_BIG, N_BIG)   # the nz = 3 spectral step, run_3d's physics
+# spectral_precision=HIGH against HIGHEST after one step, the reference's
+# HIGH bars (tests/math/test_mega_kernels.py:134-137 in 3D,
+# tests/math/test_pallas2d.py:145-147 in 2D), absolute on fields of order
+# one there; a field larger than one (the Taylor-Green p here) is held to
+# the bar times its max|·|, and u, v, w also to what the p difference
+# passes on through the corrector, dt·|Δp|max/d (large where dt·p/dx is,
+# as in run_2d(2048): dt = 1e-5 and max|p| ≈ 1e4 after the first step)
+HIGH_P, HIGH_U, HIGH_U_2D = 2e-3, 1e-4, 1e-5
+SOR_N = 33                 # SOR and Gauss-Seidel through poisson_solve
+
 # The card's peaks for a kernel's bound (H100 SXM data sheet, at 700 W):
-# device memory 3.35 TB/s, float32 outside the tensor cores 67 TFLOP/s.
+# device memory 3.35 TB/s, float32 outside the tensor cores 67 TFLOP/s,
+# dense TF32 on the tensor cores 494.7 TFLOP/s (the 3xTF32 GEMM's rate).
 # A bound is the larger of (bytes in + bytes out) / rate and flops / peak.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
+TF32_TC_FLOPS = 494.7e12
 # float32 operations per grid point, counted from the kernels' sources
 # (adds, multiplies, divides and compares of one point's update)
 FLOPS_PER_POINT = {"predictor_star": 90, "poisson_input": 12,
                    "corrector": 20, "tdma_fwd": 7, "tdma_bwd": 2,
+                   # the analytic back substitution: two products and a
+                   # sum for the exponents, two expm1f (about 10 each),
+                   # a product and a quotient, the update's 2
+                   "tdma_bwd_analytic": 27,
                    "euler": 130, "rk_stage": 150, "poisson_rhs": 8,
                    "lap_dot": 18, "cg_update": 6,
                    # one whole-solve CG iteration: Ap, ⟨p,Ap⟩, the two
@@ -271,6 +314,12 @@ TOL_FIELD = 2e-5
 TOL_EXACT = 1e-6
 TOL_GEMM = 2e-5
 TOL_DIAG = 1e-6
+# The 3xTF32 GEMM against a float64 product of its fp32 inputs: at most
+# this multiple of the SGEMM's error there (3xTF32 drops the small·small
+# term, about 2⁻²² relative a product, where fp32 rounds at 2⁻²⁴)
+GEMM_VS_SGEMM = 2.0
+
+
 # The CG kernels: fields in the plain versions' operation order
 # (TOL_EXACT); the dots fold their partials in another order than
 # torch.sum, 1e-5 relative; the whole solves (K3, the CG step) are held
@@ -366,7 +415,7 @@ def main() -> int:
     from cfd_tpu_torch.solvers.ns.rollout import run_steps
     from cfd_tpu_torch.solvers.poisson import frontend, krylov
     from cfd_tpu_torch.solvers.poisson import multigrid as mgs
-    from cfd_tpu_torch.solvers.poisson import stationary
+    from cfd_tpu_torch.solvers.poisson import spectral, stationary
     from cfd_tpu_torch.solvers.poisson.base import (Method, PoissonParams,
                                                     PoissonProblem,
                                                     PoissonStatus, Precond)
@@ -437,16 +486,18 @@ def main() -> int:
         return sum(t.numel() * t.element_size() for t in ts
                    if torch.is_tensor(t))
 
-    def bound(n_bytes, flops):
+    def bound(n_bytes, flops, rate=FP32_FLOPS):
         """(ms, "bytes" or "operations"): the least time the card could
-        take to move ``n_bytes`` and do ``flops`` float32 operations."""
+        take to move ``n_bytes`` and do ``flops`` operations at ``rate``
+        (the fp32 CUDA-core peak, or the TF32 tensor-core one)."""
         t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-        t_ops = flops / FP32_FLOPS * 1e3
+        t_ops = flops / rate * 1e3
         return (t_bytes, "bytes") if t_bytes >= t_ops else \
             (t_ops, "operations")
 
     def check(path, tag, timed, wrapper, replaces, source, kernel, plain,
-              outs, tols, work=None, library=None, time_fn=None):
+              outs, tols, work=None, library=None, time_fn=None, name=None,
+              rate=FP32_FLOPS):
         """Run ``kernel`` (the wrapper) and ``plain`` on the same inputs,
         compare each output; time both when ``timed``.  ``path`` names the
         main path whose launch count the record takes (the Thomas and
@@ -455,8 +506,10 @@ def main() -> int:
         output written once; ``library`` is one PyTorch call computing the
         same function, timed beside the kernel (the port never calls
         it); ``time_fn``, when given, is what is timed for the kernel (the
-        launch as the main path makes it)."""
-        name = wrapper.__name__
+        launch as the main path makes it).  ``name`` keys the record where
+        the wrapper launches more than one kernel (the GEMMs at each
+        precision); ``rate`` is the operations' peak for the bound."""
+        name = name or wrapper.__name__
         got = kernel()
         ref = plain()
         sync()
@@ -476,7 +529,7 @@ def main() -> int:
                 cuda_ms(library)
             ins, flops = work
             rec["bound_ms"], rec["bound_by"] = bound(
-                nbytes(ins) + nbytes(got), flops)
+                nbytes(ins) + nbytes(got), flops, rate)
             print(f"  {tag} {name}: kernel {rec['ms']:.3f} ms, plain "
                   f"{rec['plain_ms']:.3f} ms, library "
                   f"{rec['library_ms']} ms, bound {rec['bound_ms']:.3f} "
@@ -778,7 +831,7 @@ def main() -> int:
                          T=torch.full(shape, 300.0, device=dev))
 
     def timed_paths(phase, size, grid, params, shape, dt, n_steps,
-                    wrappers, first_step_only=False):
+                    wrappers, first_step_only=False, precision=None):
         """Kernel path, then plain path: the first ``n_steps`` steps from
         the start field, as ``bench.py:_time_steps`` times them, once to
         warm up and once timed.  Both runs have one call pattern (the
@@ -786,8 +839,10 @@ def main() -> int:
         holds every block the timed steps need — a cudaMalloc inside the
         timed window costs tens of ms at 512³.  Kernel and plain are held
         against each other after the timed steps, or with
-        ``first_step_only`` after one step.  Returns (ms/step, launch
-        counts)."""
+        ``first_step_only`` after one step, p and what the corrector
+        passes on to u and v at ``TOL_GEMM`` (the GEMMs' bar).
+        ``precision`` is the step's ``spectral_precision``.  Returns
+        (ms/step, launch counts)."""
         label = f"phase {phase} {size}"
         finals, firsts, ms, counts = {}, {}, {}, {}
         cells = 1
@@ -796,7 +851,8 @@ def main() -> int:
         for path in ("kernel", "plain"):
             stepf = make_projection_step(grid, params, torch.float32,
                                          Method.FFT_DIRECT, device=dev,
-                                         plain=path == "plain")
+                                         plain=path == "plain",
+                                         spectral_precision=precision)
             if first_step_only:
                 firsts[path] = stepf(tg_field(shape), dt, 0)[0]
             f0 = tg_field(shape)
@@ -850,14 +906,18 @@ def main() -> int:
                     TOL_GEMM, True)
             return ms, counts
         # u = u* − (dt/ρ)(p₊ − p₋)·inv_2dx passes a p difference within
-        # the SGEMM bar on to u and v, at most 2·dt·inv_2dx·TOL_GEMM·max|p|
-        # (ρ = 1); w is not corrected in 2D
+        # the GEMMs' bar on to u and v, at most 2·dt·inv_2dx·TOL_GEMM·max|p|
+        # (ρ = 1), and to w by inv_2dz in 3D; w is not corrected in 2D
         fk, fp = firsts["kernel"], firsts["plain"]
-        inv_2dx = 1.0 / (2.0 * grid.dx0)
-        tol_uv = TOL_FIELD + (2.0 * dt * inv_2dx * TOL_GEMM
-                              * float(fp.p.abs().max()))
+        pmax = float(fp.p.abs().max())
+
+        def passed_on(d):
+            return TOL_FIELD + 2.0 * dt / (2.0 * d) * TOL_GEMM * pmax
+
+        tol_uv = passed_on(grid.dx0)
+        tol_w = passed_on(grid.dz0) if shape[0] > 1 else TOL_FIELD
         tag = f"{label} first step"
-        for name, tol in (("u", tol_uv), ("v", tol_uv), ("w", TOL_FIELD)):
+        for name, tol in (("u", tol_uv), ("v", tol_uv), ("w", tol_w)):
             compare(tag, name, getattr(fk, name), getattr(fp, name), tol,
                     False)
         compare(tag, "p", fk.p, fp.p, TOL_GEMM, True)
@@ -886,17 +946,19 @@ def main() -> int:
     ghia = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(ghia)           # numpy only
 
-    def ghia_gate(label, nc, re, dt, steps, bar, method=Method.FFT_DIRECT):
+    def ghia_gate(label, nc, re, dt, steps, bar, method=Method.FFT_DIRECT,
+                  precision=None):
         """bench.py:615-702 on the kernel path: quiescent start, p = 0;
         each step first applies the lid (u = 1 on top), no-slip v and a
         Neumann p, then one projection step with the ``method`` pressure
-        solve.  Status must be 0 on every step (folded on the device,
-        read once)."""
+        solve (its spectral products at ``precision``).  Status must be 0
+        on every step (folded on the device, read once).  Returns the two
+        centerline RMS errors."""
         gridc = Grid.uniform(nc, nc)
         stepc = make_projection_step(
             gridc, NSParams(source_amplitude_u=0.0, source_amplitude_v=0.0,
                             mu=1.0 / re),
-            torch.float32, method, device=dev)
+            torch.float32, method, device=dev, spectral_precision=precision)
         lid, wall = DirichletValues(top=1.0), DirichletValues()
         fc = FlowField.quiescent(nc, nc, pressure=0.0, dtype=torch.float32,
                                  device=dev)
@@ -932,8 +994,9 @@ def main() -> int:
             fail(f"Ghia Re={re}: a step returned a nonzero status")
         if not (rms_u < bar and rms_v < bar):
             fail(f"Ghia Re={re}: centerline RMS above {bar}")
+        return rms_u, rms_v
 
-    ghia_gate("phase 7", 128, 100, 5e-4, 20000, 0.10)
+    rms_highest = ghia_gate("phase 7", 128, 100, 5e-4, 20000, 0.10)
     if do_ghia1000:
         ghia_gate("phase 8", 512, 1000, 4e-4, 150000, 0.01)
 
@@ -2472,6 +2535,379 @@ def main() -> int:
              "kernel")
     compare("phase 26 poisson_solve", "x", xk, xp, *bit)
 
+    # ---- phase 27: the HIGH kernels against their plain versions -------
+    # the 3xTF32 GEMM (plane_dot at "high") at 37×23×11 and 512³, the
+    # no-t forward sweep and the analytic back substitution at 512³, and
+    # the 2D step's 3xTF32 products (x-DST, rescue) at 2048²; the 3xTF32
+    # GEMM and the SGEMM against a float64 product at depths 512 and 2048
+    gemm_truth = {}
+
+    def vs_float64(tag, a, b):
+        """``a · b`` by the 3xTF32 GEMM and by the SGEMM against the
+        float64 product of the same fp32 inputs, max error over
+        max|truth|; the 3xTF32 error held to GEMM_VS_SGEMM times the
+        SGEMM's."""
+        truth = a.double() @ b.double()
+        scale = float(truth.abs().max())
+        errs = {}
+        for prec in ("high", "highest"):
+            got = rolling.right_dot(a, b, prec)
+            errs[prec] = float((got.double() - truth).abs().max()) / scale
+            del got
+        print(f"  {tag} vs float64: 3xTF32 {errs['high']:.3e}, SGEMM "
+              f"{errs['highest']:.3e} of max|truth| (bar: 3xTF32 at most "
+              f"{GEMM_VS_SGEMM} x the SGEMM's)", flush=True)
+        if not errs["high"] <= GEMM_VS_SGEMM * errs["highest"]:
+            fail(f"{tag}: the 3xTF32 GEMM's error against float64 above "
+                 f"{GEMM_VS_SGEMM} x the SGEMM's")
+        gemm_truth[tag] = {"3xtf32": errs["high"], "sgemm": errs["highest"]}
+        del truth
+        torch.cuda.empty_cache()
+
+    for shape in ((11, 23, 37), (N_BIG,) * 3):
+        big = shape[0] == N_BIG
+        tag = "x".join(map(str, shape[::-1]))
+        print(f"phase 27 HIGH kernels vs plain at {tag}", flush=True)
+        f, (fxt, fy, gxt, gy), mu, w, c = make_inputs(shape, SEED)
+        nz_, ny_, nx_ = shape
+        x = f.p
+        dot_ops = 3 * (gemm_flops(nz_ * ny_, nx_, nx_)
+                       + gemm_flops(ny_, nx_, ny_, nz_))
+        bhat = check(
+            "3d-high", tag, big, rolling.plane_dot, HP_DOT, SRC_GEMM,
+            lambda: rolling.plane_dot(x, fxt, fy, "high"),
+            lambda: rolling.plane_dot_plain(x, fxt, fy, "high"),
+            ("forward",), (gemm,),
+            work=((x, fxt, fy), dot_ops),
+            library=ieee_matmul(lambda: torch.einsum("ij,kjl,lm->kim", fy,
+                                                     x, fxt)),
+            name="plane_dot[3xtf32]", rate=TF32_TC_FLOPS)[0]
+        if not big:
+            continue
+        vs_float64(f"phase 27 x·FxT at {tag} (depth {nx_})",
+                   x.view(-1, nx_), fxt)
+        cells = x.numel()
+        d = check(
+            "3d-high", tag, big, tdma.tdma_z_fwd_d, A1, SRC,
+            lambda: tdma.tdma_z_fwd_d(bhat, mu, w),
+            lambda: tdma.tdma_z_fwd_d_reference(bhat, mu, w),
+            ("d'",), (exact,),
+            work=((bhat, mu), FLOPS_PER_POINT["tdma_fwd"] * cells))[0]
+        coef = torch.as_tensor(tdma._bwd_coeff_planes(
+            mu.double().cpu().numpy(), w), device=dev)
+        check("3d-high", tag, big, tdma.tdma_z_bwd_analytic, A2_ANALYTIC,
+              SRC, lambda: tdma.tdma_z_bwd_analytic(d, coef),
+              lambda: tdma.tdma_z_bwd_analytic_reference(d, coef),
+              ("x^",), ((TOL_EXACT, True),),
+              work=((d, coef), FLOPS_PER_POINT["tdma_bwd_analytic"]
+                    * cells))
+        del f, x, bhat, d, coef
+        torch.cuda.empty_cache()
+    tag = f"{N_2D}x{N_2D}"
+    print(f"phase 27 2D HIGH products vs plain at {tag}", flush=True)
+    grid2 = Grid.uniform(N_2D, N_2D)
+    prob2 = PoissonProblem(N_2D, N_2D, 1, grid2.dx0, grid2.dy0)
+    fxt, _, ysolve = make_dst2d_fused_pieces(prob2, torch.float32, dev,
+                                             precision="high")
+    fyp, _, k_res = ysolve.rescue
+    bt = noisy(FlowField.initialize(grid2, dtype=torch.float32,
+                                    device=dev), SEED).p
+    a = check("2d-high", tag, True, rolling.right_dot, HP_DOT, SRC_GEMM,
+              lambda: rolling.right_dot(bt, fxt, "high"),
+              lambda: rolling.right_dot_plain(bt, fxt, "high"),
+              ("forward",), (gemm,),
+              work=((bt, fxt), 3 * gemm_flops(N_2D, N_2D, N_2D)),
+              library=ieee_matmul(lambda: torch.matmul(bt, fxt)),
+              name="right_dot[3xtf32]", rate=TF32_TC_FLOPS)[0][0]
+    vs_float64(f"phase 27 bt·FxT at {tag} (depth {N_2D})", bt, fxt)
+    check("2d-high", tag, True, rolling.left_dot, RESCUE, SRC_GEMM,
+          lambda: rolling.left_dot(fyp, a[:, :k_res], precision="high"),
+          lambda: rolling.left_dot_plain(fyp, a[:, :k_res],
+                                         precision="high"),
+          ("Fy·a[:, :K]",), (gemm,),
+          work=((fyp, a[:, :k_res]),
+                3 * gemm_flops(fyp.shape[0], k_res, fyp.shape[1])),
+          library=ieee_matmul(lambda: torch.matmul(fyp, a[:, :k_res])),
+          name="left_dot[3xtf32]", rate=TF32_TC_FLOPS)
+    del bt, a, fxt, fyp, ysolve
+    torch.cuda.empty_cache()
+
+    # ---- phase 28: the HIGH steps and the nz = 3 step ---------------------
+    def high_counts(label, wrappers, gemms):
+        """The HIGH path's counts: its wrappers', and the 3xTF32 launches
+        of the GEMM wrappers, which must launch no SGEMM there."""
+        counts = {fn.__name__: fn.launches for fn in wrappers}
+        counts.update({f"{g.__name__}[3xtf32]": g.high_launches
+                       for g in gemms})
+        sgemm = {g.__name__: g.launches for g in gemms}
+        print(f"{label} launch counts over the main path: {counts}; "
+              f"SGEMM launches {sgemm}", flush=True)
+        if min(counts.values()) <= 0 or max(sgemm.values()) != 0:
+            fail(f"{label}: a HIGH kernel not launched, or an SGEMM "
+                 f"launched")
+        return counts
+
+    def high_vs_highest(label, grid_h, params_h, shape, dt, u_bar):
+        """One kernel-path step at HIGH against one at HIGHEST from the
+        same start, at the reference's HIGH bars times max(1, max|·|),
+        u, v, w with what the measured max|Δp| passes on through the
+        corrector, (dt/ρ)·Δp/(2d)·2; returns max|Δp|."""
+        firsts = {}
+        for prec in ("high", None):
+            stepf = make_projection_step(grid_h, params_h, torch.float32,
+                                         Method.FFT_DIRECT, device=dev,
+                                         spectral_precision=prec)
+            firsts[prec] = stepf(tg_field(shape), dt, 0)[0]
+        sync()
+        tag = f"{label} HIGH vs HIGHEST first step"
+
+        def held(name, bar, passed=0.0):
+            ref = getattr(firsts[None], name)
+            scale = max(1.0, float(ref.abs().max()))
+            return compare(tag, name, getattr(firsts["high"], name), ref,
+                           bar * scale + passed, False)[0]
+
+        dp = held("p", HIGH_P)
+        held("u", u_bar, dt / grid_h.dx0 * dp)
+        held("v", u_bar, dt / grid_h.dy0 * dp)
+        held("w", u_bar, dt / grid_h.dz0 * dp if shape[0] > 1 else 0.0)
+        err = dp
+        del firsts
+        torch.cuda.empty_cache()
+        return err
+
+    n = N_BIG
+    # phase 4's configuration (bench.py:run_3d), and phase 6's in 2D
+    grid = Grid.uniform(n, n, n, zmin=0.0, zmax=1.0)
+    params = NSParams(source_amplitude_u=0.0, source_amplitude_v=0.0,
+                      mu=0.01)
+    pkm.reset_launch_counts()
+    # kernel and plain held after one step: each step's p difference (the
+    # 3xTF32 GEMM against three IEEE products) passes on into u, v and w,
+    # and later steps add to it
+    ms3h, _ = timed_paths(28, f"{n}^3 HIGH", grid, params, (n, n, n), 1e-4,
+                          TIMED_STEPS, pkm.WRAPPERS_HIGH,
+                          first_step_only=True, precision="high")
+    launch_counts["3d-high"] = high_counts(f"phase 28 {n}^3 HIGH",
+                                           pkm.WRAPPERS_HIGH,
+                                           (rolling.plane_dot,))
+    dp3 = high_vs_highest(f"phase 28 {n}^3", grid, params, (n, n, n), 1e-4,
+                          HIGH_U)
+    print(f"phase 28 {n}^3 HIGH {ms3h['kernel']:.3f} ms/step against "
+          f"HIGHEST {ms3['kernel']:.3f} (phase 4); first-step max|Δp| "
+          f"{dp3:.3e}", flush=True)
+    torch.cuda.empty_cache()
+    grid_2d = Grid.uniform(n2, n2)
+    pk2m.reset_launch_counts()
+    ms2h, _ = timed_paths(28, f"{n2}^2 HIGH", grid_2d, params, (1, n2, n2),
+                          1e-5, TIMED_STEPS_2D, pk2m.WRAPPERS_HIGH,
+                          first_step_only=True, precision="high")
+    launch_counts["2d-high"] = high_counts(
+        f"phase 28 {n2}^2 HIGH", pk2m.WRAPPERS_HIGH,
+        (rolling.right_dot, rolling.left_dot))
+    dp2 = high_vs_highest(f"phase 28 {n2}^2", grid_2d, params, (1, n2, n2),
+                          1e-5, HIGH_U_2D)
+    print(f"phase 28 {n2}^2 HIGH {ms2h['kernel']:.3f} ms/step against "
+          f"HIGHEST {ms2['kernel']:.3f} (phase 6); first-step max|Δp| "
+          f"{dp2:.3e}", flush=True)
+    # the nz = 3 step (one interior plane: the standalone back
+    # substitution and corr_all's DST form), both paths, then its kernels
+    # against their plain versions at that shape
+    tag3 = "x".join(map(str, N_NZ3[::-1]))
+    grid3 = uniform_grid(N_NZ3)
+    pkm.reset_launch_counts()
+    ms_nz3, counts_nz3 = timed_paths(28, tag3, grid3, params, N_NZ3, 1e-4,
+                                     TIMED_STEPS, pkm.WRAPPERS)
+    launch_counts["nz3"] = counts_nz3
+    # ... and at HIGH: the 3xTF32 DST products, the stored back
+    # substitution (the reference demotes the analytic one at nz = 3)
+    nz3_high = (pkm.predictor_star, pkm.poisson_input, tdma.tdma_z_fwd,
+                tdma.tdma_z_bwd, pkm.corrector)
+    pkm.reset_launch_counts()
+    ms_nz3h, _ = timed_paths(28, f"{tag3} HIGH", grid3, params, N_NZ3, 1e-4,
+                             TIMED_STEPS, nz3_high, precision="high")
+    launch_counts["nz3-high"] = high_counts(f"phase 28 {tag3} HIGH",
+                                            nz3_high, (rolling.plane_dot,))
+    f, (fxt, fy, gxt, gy), mu, w, c = make_inputs(N_NZ3, SEED)
+    cells = f.u.numel()
+    rod = torch.full((), 1e3, device=dev)
+    bt = pkm.poisson_input_plain(f.u, f.v, f.w, f.p, rod, c)
+    print(f"phase 28 nz=3 kernels vs plain at {tag3}", flush=True)
+    bhat = check(
+        "nz3", tag3, True, rolling.plane_dot, DOT, SRC,
+        lambda: rolling.plane_dot(bt, fxt, fy),
+        lambda: rolling.plane_dot_plain(bt, fxt, fy), ("forward",),
+        (gemm,), work=((bt, fxt, fy),
+                       gemm_flops(3 * n, n, n) + gemm_flops(n, n, n, 3)),
+        library=ieee_matmul(lambda: torch.einsum("ij,kjl,lm->kim", fy, bt,
+                                                 fxt)))[0]
+    check("nz3-high", tag3, True, rolling.plane_dot, HP_DOT, SRC_GEMM,
+          lambda: rolling.plane_dot(bt, fxt, fy, "high"),
+          lambda: rolling.plane_dot_plain(bt, fxt, fy, "high"),
+          ("forward",), (gemm,),
+          work=((bt, fxt, fy), 3 * (gemm_flops(3 * n, n, n)
+                                    + gemm_flops(n, n, n, 3))),
+          library=ieee_matmul(lambda: torch.einsum("ij,kjl,lm->kim", fy,
+                                                   bt, fxt)),
+          name="plane_dot[3xtf32]", rate=TF32_TC_FLOPS)
+    d, t = check(
+        "nz3", tag3, True, tdma.tdma_z_fwd, A1, SRC,
+        lambda: tdma.tdma_z_fwd(bhat, mu, w),
+        lambda: tdma.tdma_z_fwd_reference(bhat, mu, w), ("d'", "t"),
+        (exact, exact),
+        work=((bhat, mu), FLOPS_PER_POINT["tdma_fwd"] * cells))
+    xhat = check(
+        "nz3", tag3, True, tdma.tdma_z_bwd, A4_BWD, SRC,
+        lambda: tdma.tdma_z_bwd(d, t),
+        lambda: tdma.tdma_z_bwd_reference(d, t), ("x^",), (exact,),
+        work=((d, t), FLOPS_PER_POINT["tdma_bwd"] * cells))[0]
+    p3 = rolling.plane_dot_plain(xhat, gxt, gy)
+    s3 = torch.full((), 1e-3, device=dev)
+    check("nz3", tag3, True, pkm.corrector, A5_CORR, SRC,
+          lambda: pkm.corrector(f.u, f.v, f.w, p3, s3, c),
+          lambda: pkm.corrector_plain(f.u, f.v, f.w, p3, s3, c),
+          ("u", "v", "w", "max|u|^2", "max p", "max|p|"),
+          (fld,) * 3 + ((TOL_DIAG, True), gemm, gemm),
+          work=((f.u, f.v, f.w, p3), FLOPS_PER_POINT["corrector"] * cells))
+    del f, bt, bhat, d, t, xhat, p3
+    torch.cuda.empty_cache()
+
+    # ---- phase 29: Ghia Re = 100 at 128², HIGH ------------------------------
+    rolling.reset_launch_counts()
+    rms_high = ghia_gate("phase 29", 128, 100, 5e-4, 20000, 0.10,
+                         precision="high")
+    print(f"phase 29 Ghia at HIGH: rms_u {rms_high[0]:.5f} rms_v "
+          f"{rms_high[1]:.5f} against HIGHEST {rms_highest[0]:.5f} / "
+          f"{rms_highest[1]:.5f} (phase 7); 3xTF32 launches right_dot "
+          f"{rolling.right_dot.high_launches}, left_dot "
+          f"{rolling.left_dot.high_launches}; SGEMM launches "
+          f"{rolling.right_dot.launches + rolling.left_dot.launches}",
+          flush=True)
+    if rolling.right_dot.high_launches <= 0 or rolling.right_dot.launches:
+        fail("phase 29: the HIGH cavity did not run the 3xTF32 GEMM")
+
+    # ---- phase 30: FFT_DIRECT, SOR and Gauss-Seidel through the front end
+    # FFT_DIRECT on cg_512's problem: the kernel solve (float32, the
+    # SGEMM), held against the plain solve on the card (plain=True) and
+    # beside the float64 solve (the plain form, which float64 takes);
+    # then the eigen z-product's SGEMM against its plain version
+    n = N_BIG
+    _, prob = cg_problem((n, n, n))
+    gen = torch.Generator(device=dev).manual_seed(7)
+    rhs = prob.zero_boundary(torch.randn((n, n, n), generator=gen,
+                                         device=dev))
+    x0 = torch.zeros_like(rhs)
+    fft = frontend.create_solver(Method.FFT_DIRECT, device=dev).init(
+        n, n, n, prob.dx, prob.dy, prob.dz)
+    fft.solve_result(x0, rhs)                   # warm-up, same pattern
+    sync()
+    rolling.reset_launch_counts()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    res = fft.solve_result(x0, rhs)
+    end.record()
+    sync()
+    ms_fft = start.elapsed_time(end)
+    fft_counts = {"plane_dot": rolling.plane_dot.launches,
+                  "left_dot": rolling.left_dot.launches}
+    launch_counts["fft"] = fft_counts
+    # the true residual of the system the solve solved (the start's shell,
+    # zero), in float64, as phase 13's
+    xd, rd = prob.zero_boundary(res.x.double()), rhs.double()
+    true_fft = float(prob.interior(prob.laplacian(xd) - rd).norm()
+                     / prob.interior(rd).norm())
+    del xd, rd
+    print(f"phase 30 FFT_DIRECT on cg_512's problem (512^3) through the "
+          f"front end: status {int(res.status)}, {int(res.iterations)} "
+          f"iteration, {ms_fft:.3f} ms a solve (cg_512 {cg512['ms']:.1f} "
+          f"ms, phase 13), CG-convention residual "
+          f"{float(res.final_residual):.4e}, true relative residual "
+          f"{true_fft:.4e}; SGEMM launches {fft_counts}", flush=True)
+    if int(res.status) != PoissonStatus.CONVERGED or not true_fft < 1e-3:
+        fail("phase 30 FFT_DIRECT: not converged, or true residual above "
+             "1e-3")
+    if min(fft_counts.values()) <= 0:
+        fail("phase 30 FFT_DIRECT: the SGEMM did not run")
+    rolling.reset_launch_counts()
+    plain_fft = frontend.create_solver(Method.FFT_DIRECT, device=dev,
+                                       plain=True).init(
+        n, n, n, prob.dx, prob.dy, prob.dz)
+    x_plain = plain_fft.solve_result(x0, rhs).x
+    x_64 = fft.solve_result(x0.double(), rhs.double()).x
+    sync()
+    stray = rolling.plane_dot.launches + rolling.left_dot.launches
+    print(f"phase 30 FFT_DIRECT plain=True and float64 on the card: "
+          f"{stray} GEMM launches", flush=True)
+    if stray:
+        fail("phase 30 FFT_DIRECT: the plain or float64 solve launched a "
+             "GEMM")
+    scale64 = float(x_64.abs().max())
+    fft_err64 = {k: float((v.double() - x_64).abs().max()) / scale64
+                 for k, v in (("kernel", res.x), ("plain", x_plain))}
+    print(f"phase 30 FFT_DIRECT against the float64 solve, of max|x|: "
+          f"kernel {fft_err64['kernel']:.3e}, plain "
+          f"{fft_err64['plain']:.3e}", flush=True)
+    compare("phase 30 FFT_DIRECT kernel vs plain", "x", res.x, x_plain,
+            *gemm)
+    del x_plain, x_64, plain_fft
+    torch.cuda.empty_cache()
+    fz = torch.as_tensor(spectral._padded_forward(n - 2, n, np.float32),
+                         device=dev)
+    zin = res.x.view(n, -1)
+    print(f"phase 30 eigen z-product vs plain at {n}x{n * n}", flush=True)
+    check("fft", f"{n}x{n}x{n}", True, rolling.left_dot, EIGEN_Z, SRC,
+          lambda: rolling.left_dot(fz, zin),
+          lambda: rolling.left_dot_plain(fz, zin), ("Fz·x",), (gemm,),
+          work=((fz, zin), gemm_flops(n, n * n, n)),
+          library=ieee_matmul(lambda: torch.matmul(fz, zin)))
+    fft_rec = {"ms": ms_fft, "true_rel_residual": true_fft,
+               "launches": fft_counts, "vs_float64": fft_err64}
+    del rhs, x0, res, fft, zin
+    torch.cuda.empty_cache()
+    # SOR (an SOR preset of the cached API) and Gauss-Seidel (the front
+    # end) at 33² in float64: plain torch launches on the card (no kernel:
+    # none exists in the reference), ~6 s a solve, against the same SOR
+    # solve on the CPU
+    n = SOR_N
+    h = 1.0 / (n - 1)
+    rhs_c = torch.randn((n, n), generator=torch.Generator(
+        device=dev).manual_seed(SEED), device=dev, dtype=torch.float64)
+    rhs_c[1:-1, 1:-1] -= rhs_c[1:-1, 1:-1].mean()
+    x0_c = torch.zeros_like(rhs_c)
+    sor_rec = {}
+    for label, run in (
+            ("SOR_SCALAR", lambda: frontend.poisson_solve(
+                x0_c, rhs_c, n, n, h, h, frontend.SolverPreset.SOR_SCALAR,
+                device=dev)),
+            ("GAUSS_SEIDEL", lambda: frontend.create_solver(
+                Method.GAUSS_SEIDEL, device=dev).init(n, n, 1, h, h).solve(
+                x0_c, rhs_c))):
+        frontend.clear_cache()
+        sync()
+        t0 = time.perf_counter()
+        x_s, out = run()
+        sync()
+        if label == "SOR_SCALAR":
+            x_sor = x_s
+        ms_s = (time.perf_counter() - t0) * 1e3
+        sweeps = out if isinstance(out, int) else (
+            out.iterations if out.status == PoissonStatus.CONVERGED else -1)
+        sor_rec[label] = {"sweeps": sweeps, "ms": ms_s,
+                          "ms_a_sweep": ms_s / max(sweeps, 1)}
+        print(f"phase 30 {label} {n}^2 float64 on the card: {sweeps} "
+              f"sweeps (-1 is not converged), {ms_s:.1f} ms host wall, "
+              f"{ms_s / max(sweeps, 1):.3f} ms a sweep", flush=True)
+        if sweeps <= 0:
+            fail(f"phase 30 {label}: not converged")
+    xc, it_c = frontend.poisson_solve(x0_c.cpu(), rhs_c.cpu(), n, n, h, h,
+                                      frontend.SolverPreset.SOR_SCALAR,
+                                      device="cpu")
+    print(f"phase 30 SOR_SCALAR on the CPU: {it_c} sweeps", flush=True)
+    if it_c != sor_rec["SOR_SCALAR"]["sweeps"]:
+        fail("phase 30 SOR: sweeps differ between the card and the CPU")
+    compare("phase 30 SOR card vs CPU", "x", x_sor.cpu(), xc, 1e-12, True)
+
     kernels = []
     for (path, name), rec in records.items():
         launches = launch_counts.get(path, {}).get(name)
@@ -2500,6 +2936,11 @@ def main() -> int:
                       "rbsor_step_128": sor_step_rec,
                       "jacobi_step_33": jac_step_rec,
                       "stationary_cavities_128": cavities,
+                      "step_ms_high": ms3h, "step_ms_2d_high": ms2h,
+                      "step_ms_nz3": ms_nz3, "step_ms_nz3_high": ms_nz3h,
+                      "grid_nz3": tag3, "gemm_vs_float64": gemm_truth,
+                      "ghia_128_high_rms": rms_high,
+                      "fft_direct_512": fft_rec, "sor_33": sor_rec,
                       "card": card}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -376,22 +376,21 @@ def test_non_coarsenable_grid_raises(method, kw):
 
 
 def test_unported_methods_and_default_preset_raise():
-    """The methods of later slices (SOR, Gauss-Seidel, FFT_DIRECT) raise
-    at ``init``; so does the cached API with an SOR preset.  (The default
-    preset, Red-Black SOR, runs: `tests/test_torch_stationary.py::
-    test_cached_presets_match_reference`.)"""
+    """SOR, Gauss-Seidel and FFT_DIRECT, once of later slices, now init,
+    under the reference's names; what still raises at ``init`` is
+    FFT_DIRECT on a problem it does not take (nz = 3 with dz = 0), as the
+    reference's (`tests/solvers/test_spectral.py:54-59`).  The SOR
+    presets of the cached API run: `tests/test_torch_sor.py::
+    test_cached_sor_presets_match_reference`; the default preset,
+    Red-Black SOR: `tests/test_torch_stationary.py::
+    test_cached_presets_match_reference`."""
     for method in (Method.SOR, Method.GAUSS_SEIDEL, Method.FFT_DIRECT):
         s = frontend.create_solver(method, device="cpu")
         assert s.name == j_create_solver(JMethod(int(method))).name
-        with pytest.raises(CFDError) as err:
-            s.init(33, 33)
-        assert err.value.status == Status.ERROR_UNSUPPORTED
-    frontend.clear_cache()
+        assert s.init(33, 33, 1, 1 / 32, 1 / 32) is s
     with pytest.raises(CFDError) as err:
-        frontend.poisson_solve(np.zeros((33, 33)), np.zeros((33, 33)), 33,
-                               33, 1 / 32, 1 / 32,
-                               frontend.SolverPreset.SOR_SCALAR,
-                               device="cpu")
+        frontend.create_solver(Method.FFT_DIRECT, device="cpu").init(
+            9, 9, 3, 0.1, 0.1, 0.0)
     assert err.value.status == Status.ERROR_UNSUPPORTED
 
 

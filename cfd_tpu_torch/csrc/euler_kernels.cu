@@ -4,23 +4,29 @@
 //
 //   make_euler_fused    (cfd_tpu/ops/pallas/euler_kernels.py, compute
 //       :240-351 on the rolling engine)  the whole 3D step
-//       -> euler_kernel<true> + reduce_max4_kernel
+//       -> euler_kernel<true, *> + reduce_max4_kernel (the flag: buoyancy
+//          or energy on)
 //   make_euler2d_fused  (cfd_tpu/ops/pallas/euler2d.py, compute :101-260
 //       on the marching engine; the y-face wrap rows in the step wrapper,
 //       cfd_tpu/solvers/ns/euler.py:280-311)  the whole 2D step
-//       -> euler_kernel<false> + reduce_max4_kernel
+//       -> euler_kernel<false, *> + reduce_max4_kernel
 //
 // Both launch through cfd_euler_step, which picks the instantiation from
-// nz (1: the 2D kernel).
+// nz (1: the 2D kernel) and from whether buoyancy or energy is on.
 //
-// Per interior point (uniform grid, no energy, no buoyancy; the 2D
-// instantiation drops every z term, the reference's inv_dz2 = 0 idiom):
+// Per interior point (uniform grid; the 2D instantiation drops every z
+// term, the reference's inv_dz2 = 0 idiom):
 // derivatives clamped to +-100 and each second-derivative term to +-1000
 // before the sum, du = cdt * (-u.grad u - dp_x / rho + nu lap u + src),
 // u' = clamp(u + clamp(du, 1), 100), p' = p + clamp(-c cdt rho
 // clamp(div, 10), 1), all kept at their old values where rho <= 1e-10.
 // Velocity shells pass through from the input; p, rho and T take the
-// periodic wrap x -> y -> z of the updated field.
+// periodic wrap x -> y -> z of the updated field.  With Boussinesq
+// buoyancy every component's source takes ((-beta) g[c]) (T - T_ref).
+// With the energy equation T is advected by the UPDATED velocities and
+// diffused, interior only and unguarded, T' = T + cdt (-u.grad T +
+// alpha lap T); after the wrap come the thermal faces, left, right,
+// bottom, top, then back and front (euler_kernels.py:314-360).
 //
 // Design.  The TPU kernel streamed planes through a VMEM ring and took the
 // z faces from the engine's shell snapshots.  Here one thread owns one
@@ -31,7 +37,11 @@
 // of (ny-2, nx-2), a z face the wrapped plane nz-2 or 1).  Rather than a
 // grid-wide barrier and a second launch, every thread computes the update
 // at its own wrap source, which is itself for an interior point; only the
-// shell threads (2-3% at 256^3) recompute a neighbour's update.  The step
+// shell threads (2-3% at 256^3) recompute a neighbour's update.  The
+// thermal faces are the same kind of map (explicit_common.cuh:
+// thermal_source): a Neumann face copies its neighbour's updated T, so
+// its thread evaluates the step a second time at that point when it is
+// not the p wrap source.  The step
 // maxima of |u|^2, p, |p| and T over the whole output are folded per
 // block and then by one block (reduce_max4_kernel); they keep NaN, so a
 // NaN anywhere makes the step report DIVERGED.
@@ -53,14 +63,17 @@ struct Update {
   float u, v, w, p;
 };
 
-// The step's update at interior point c = (k, j, i).
-template <bool k3D>
+// The step's update at interior point c = (k, j, i).  kThermal
+// instantiates the buoyant and energy code; without it the kernel is the
+// plain step's, with its register footprint.
+template <bool k3D, bool kThermal>
 __device__ __forceinline__ Update euler_update(
     const float* __restrict__ u, const float* __restrict__ v,
     const float* __restrict__ w, const float* __restrict__ p,
-    const float* __restrict__ rho, const float* __restrict__ syv,
-    const float* __restrict__ sxv, const float* __restrict__ scal,
-    long long c, long long sy, long long sz, int j, int i, const Coefs& k) {
+    const float* __restrict__ rho, const float* __restrict__ T,
+    const float* __restrict__ syv, const float* __restrict__ sxv,
+    const float* __restrict__ scal, long long c, long long sy, long long sz,
+    int j, int i, const Coefs& k, const Thermal& th) {
   const float uc = u[c], vc = v[c], wc = w[c], pc = p[c], r = rho[c];
   Update o = {uc, vc, wc, pc};
   if (!(r > kRhoMin)) return o;  // per-point guard (NaN rho too)
@@ -88,7 +101,13 @@ __device__ __forceinline__ Update euler_update(
   const float dw_dx = d1x(w), dw_dy = d1y(w);
   const float dp_dx = d1x(p), dp_dy = d1y(p);
   const float nu = viscosity(k.mu, r);
-  const float su = su_eff * syv[j], sv = sv_eff * sxv[i];
+  float su = su_eff * syv[j], sv = sv_eff * sxv[i], sw = 0.0f;
+  if (kThermal && th.buoy) {
+    const float dT = T[c] - th.tref;
+    su = su + th.coef[0] * dT;
+    sv = sv + th.coef[1] * dT;
+    sw = th.coef[2] * dT;
+  }
 
   float tu = -uc * du_dx - vc * du_dy;
   float tv = -uc * dv_dx - vc * dv_dy;
@@ -103,7 +122,9 @@ __device__ __forceinline__ Update euler_update(
   }
   const float du = cdt * (((tu - dp_dx / r) + nu * lap(u, uc)) + su);
   const float dv = cdt * (((tv - dp_dy / r) + nu * lap(v, vc)) + sv);
-  const float dw = cdt * (tw + nu * lap(w, wc));
+  float rw = tw + nu * lap(w, wc);
+  if (kThermal && th.buoy) rw = rw + sw;
+  const float dw = cdt * rw;
 
   o.u = clampv(uc + clampv(du, kUpdate), kVel);
   o.v = clampv(vc + clampv(dv, kUpdate), kVel);
@@ -112,7 +133,7 @@ __device__ __forceinline__ Update euler_update(
   return o;
 }
 
-template <bool k3D>
+template <bool k3D, bool kThermal>
 __global__ void __launch_bounds__(kTileX * kTileY) euler_kernel(
     const float* __restrict__ u, const float* __restrict__ v,
     const float* __restrict__ w, const float* __restrict__ p,
@@ -121,7 +142,8 @@ __global__ void __launch_bounds__(kTileX * kTileY) euler_kernel(
     const float* __restrict__ scal, float* __restrict__ uo,
     float* __restrict__ vo, float* __restrict__ wo, float* __restrict__ po,
     float* __restrict__ rhoo, float* __restrict__ To,
-    float* __restrict__ partials, int nz, int ny, int nx, Coefs coefs) {
+    float* __restrict__ partials, int nz, int ny, int nx, Coefs coefs,
+    Thermal th) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const int j = blockIdx.y * blockDim.y + threadIdx.y;
   const int k = blockIdx.z;
@@ -133,12 +155,28 @@ __global__ void __launch_bounds__(kTileX * kTileY) euler_kernel(
     const int js = wrap_src(j, ny), is = wrap_src(i, nx);
     const long long cs = ks * sz + js * sy + is;
     const bool interior = cs == c;  // interior points are their own source
-    const Update e = euler_update<k3D>(u, v, w, p, rho, syv, sxv, scal, cs,
-                                       sy, sz, js, is, coefs);
+    const Update e = euler_update<k3D, kThermal>(
+        u, v, w, p, rho, T, syv, sxv, scal, cs, sy, sz, js, is, coefs, th);
     const float ou = interior ? e.u : u[c];
     const float ov = interior ? e.v : v[c];
     const float ow = interior ? e.w : w[c];
-    const float ot = T[cs];
+    float ot;
+    if (kThermal && th.energy) {
+      int kT, jT, iT;
+      if (!thermal_source<k3D>(th, k, j, i, nz, ny, nx, kT, jT, iT, ot)) {
+        const long long cT = kT * sz + jT * sy + iT;
+        const Update et =
+            cT == cs ? e
+                     : euler_update<k3D, kThermal>(u, v, w, p, rho, T, syv,
+                                                   sxv, scal, cT, sy, sz, jT,
+                                                   iT, coefs, th);
+        ot = energy_update<k3D>(T, cT, sy, sz, et.u, et.v, et.w, scal[0],
+                                th.alpha, coefs.c2x, coefs.c2y, coefs.c2z,
+                                coefs.cx2, coefs.cy2, coefs.cz2);
+      }
+    } else {
+      ot = T[cs];
+    }
     uo[c] = ou;
     vo[c] = ov;
     wo[c] = ow;
@@ -153,17 +191,19 @@ __global__ void __launch_bounds__(kTileX * kTileY) euler_kernel(
   block_max4(m, partials);
 }
 
-template <bool k3D>
+template <bool k3D, bool kThermal>
 int launch_euler(const float* u, const float* v, const float* w,
                  const float* p, const float* T, const float* rho,
                  const float* syv, const float* sxv, const float* scal,
                  float* uo, float* vo, float* wo, float* po, float* rhoo,
                  float* To, float* partials, float* out, int nz, int ny,
-                 int nx, Coefs coefs, cudaStream_t stream) {
-  euler_kernel<k3D><<<grid_of(nz, ny, nx), dim3(kTileX, kTileY), 0,
-                      stream>>>(u, v, w, p, T, rho, syv, sxv, scal, uo, vo,
-                                wo, po, rhoo, To, partials, nz, ny, nx,
-                                coefs);
+                 int nx, Coefs coefs, const Thermal& th,
+                 cudaStream_t stream) {
+  euler_kernel<k3D, kThermal><<<grid_of(nz, ny, nx), dim3(kTileX, kTileY),
+                                0, stream>>>(u, v, w, p, T, rho, syv, sxv,
+                                             scal, uo, vo, wo, po, rhoo, To,
+                                             partials, nz, ny, nx, coefs,
+                                             th);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   reduce_max4_kernel<<<1, kReduceThreads, 0, stream>>>(
@@ -180,6 +220,9 @@ long long cfd_explicit_partials(int nz, int ny, int nx) {
   return blocks_of(nz, ny, nx);
 }
 
+// thermal_f and thermal_i are host arrays (explicit_common.cuh:
+// thermal_from): alpha, (-beta) g, T_ref, the Dirichlet values; the
+// energy and buoyancy switches, the face types.
 int cfd_euler_step(const float* u, const float* v, const float* w,
                    const float* p, const float* T, const float* rho,
                    const float* syv, const float* sxv, const float* scal,
@@ -187,15 +230,18 @@ int cfd_euler_step(const float* u, const float* v, const float* w,
                    float* To, float* partials, float* out, int nz, int ny,
                    int nx, float mu, float coef, float c2x, float c2y,
                    float c2z, float cx2, float cy2, float cz2,
+                   const float* thermal_f, const int* thermal_i,
                    cudaStream_t stream) {
   const Coefs coefs = {mu, coef, c2x, c2y, c2z, cx2, cy2, cz2};
+  const Thermal th = thermal_from(thermal_f, thermal_i);
+  const bool thermal = th.energy || th.buoy;
   if (nz > 1)
-    return launch_euler<true>(u, v, w, p, T, rho, syv, sxv, scal, uo, vo,
-                              wo, po, rhoo, To, partials, out, nz, ny, nx,
-                              coefs, stream);
-  return launch_euler<false>(u, v, w, p, T, rho, syv, sxv, scal, uo, vo, wo,
-                             po, rhoo, To, partials, out, 1, ny, nx, coefs,
-                             stream);
+    return (thermal ? launch_euler<true, true> : launch_euler<true, false>)(
+        u, v, w, p, T, rho, syv, sxv, scal, uo, vo, wo, po, rhoo, To,
+        partials, out, nz, ny, nx, coefs, th, stream);
+  return (thermal ? launch_euler<false, true> : launch_euler<false, false>)(
+      u, v, w, p, T, rho, syv, sxv, scal, uo, vo, wo, po, rhoo, To, partials,
+      out, 1, ny, nx, coefs, th, stream);
 }
 
 }  // extern "C"

@@ -2,7 +2,8 @@
 // (euler_kernels.cu, rk_kernels.cu): the reference's clamp limits, clamps
 // and min/max written as selects that keep NaN (jnp.clip, jnp.maximum and
 // jnp.minimum propagate it; fminf/fmaxf would drop it), the launch
-// geometry, and the second pass of the four step maxima.
+// geometry, the second pass of the four step maxima, and the energy
+// equation with its thermal faces and the Boussinesq sources.
 //
 // Every kernel runs one thread per grid point in 32x8 blocks, one block row
 // of planes per blockIdx.z, and writes per-block maxima of
@@ -50,6 +51,107 @@ __device__ __forceinline__ float viscosity(float mu, float rho) {
 // composition of the three face copies is this map on each axis).
 __device__ __forceinline__ int wrap_src(int a, int n) {
   return a == 0 ? n - 2 : (a == n - 1 ? 1 : a);
+}
+
+// The energy equation and Boussinesq buoyancy (euler_kernels.py:286-351,
+// rk_kernels.py:292-344 of the reference).  face[] holds the thermal BC
+// of each face in the reference's order (left, right, bottom, top, back,
+// front) as BCType values, val[] the Dirichlet values; coef[c] is
+// (-beta) * g[c] rounded in float32 on the host.
+constexpr int kNeumann = 1, kDirichlet = 2;  // BCType (PERIODIC = 0)
+
+struct Thermal {
+  int energy, buoy;
+  float alpha, coef[3], tref;
+  int face[6];
+  float val[6];
+};
+
+// One axis of the map from an output point to the point its final T
+// comes from: the low face (a == 0) copies n - 2 when periodic (the wrap)
+// or 1 when Neumann, the high face 1 or n - 2; an interior index is its
+// own source.  A Dirichlet face returns true with its value instead.
+__device__ __forceinline__ bool thermal_axis(int a, int n, int lo, int hi,
+                                             float vlo, float vhi, int& src,
+                                             float& value) {
+  if (a == 0) {
+    if (lo == kDirichlet) {
+      value = vlo;
+      return true;
+    }
+    src = lo == kNeumann ? 1 : n - 2;
+  } else if (a == n - 1) {
+    if (hi == kDirichlet) {
+      value = vhi;
+      return true;
+    }
+    src = hi == kNeumann ? n - 2 : 1;
+  } else {
+    src = a;
+  }
+  return false;
+}
+
+// Where the final T of output point (k, j, i) comes from: the periodic
+// wrap x -> y -> z of the updated T, then the thermal faces in the order
+// left, right, bottom, top, back, front (energy_solver.c:246-331, the
+// face applied last owning a corner) compose to one source per axis,
+// taken z first, then y, then x: true with the value of the Dirichlet
+// face that owns the point, else the interior point (kT, jT, iT) whose
+// updated T it holds.  A Neumann face reads its neighbour's updated,
+// wrapped value, so a face thread evaluates the update at that point.
+template <bool k3D>
+__device__ __forceinline__ bool thermal_source(const Thermal& th, int k,
+                                               int j, int i, int nz, int ny,
+                                               int nx, int& kT, int& jT,
+                                               int& iT, float& value) {
+  kT = k;
+  if (k3D && thermal_axis(k, nz, th.face[4], th.face[5], th.val[4],
+                          th.val[5], kT, value))
+    return true;
+  if (thermal_axis(j, ny, th.face[2], th.face[3], th.val[2], th.val[3], jT,
+                   value))
+    return true;
+  return thermal_axis(i, nx, th.face[0], th.face[1], th.val[0], th.val[1],
+                      iT, value);
+}
+
+// T + cdt * (-(u T_x + v T_y + w T_z) + alpha lap T) at interior point c
+// with the updated velocities (uo, vo, wo) there; unclamped central
+// differences in the reference kernels' order (no z terms in 2D).
+template <bool k3D>
+__device__ __forceinline__ float energy_update(
+    const float* __restrict__ T, long long c, long long sy, long long sz,
+    float uo, float vo, float wo, float cdt, float alpha, float c2x,
+    float c2y, float c2z, float cx2, float cy2, float cz2) {
+  const float tc = T[c];
+  const float xm = T[c - 1], xp = T[c + 1];
+  const float ym = T[c - sy], yp = T[c + sy];
+  const float t2 = 2.0f * tc;
+  float lap = ((xp - t2) + xm) * cx2 + ((yp - t2) + ym) * cy2;
+  float adv = uo * ((xp - xm) * c2x) + vo * ((yp - ym) * c2y);
+  if (k3D) {
+    const float zm = T[c - sz], zp = T[c + sz];
+    lap = lap + ((zp - t2) + zm) * cz2;
+    adv = adv + wo * ((zp - zm) * c2z);
+  }
+  return tc + cdt * (-adv + alpha * lap);
+}
+
+// The host arrays of an entry point: f = alpha, coef[3], T_ref, the six
+// Dirichlet values; i = energy, buoyancy, the six face types.
+inline Thermal thermal_from(const float* f, const int* i) {
+  Thermal th;
+  th.energy = i[0];
+  th.buoy = i[1];
+  th.alpha = f[0];
+  for (int q = 0; q < 3; ++q) th.coef[q] = f[1 + q];
+  th.tref = f[4];
+  for (int q = 0; q < 6; ++q) {
+    th.face[q] = i[2 + q];
+    th.val[q] = f[5 + q];
+  }
+  return th;
 }
 
 inline dim3 grid_of(int nz, int ny, int nx) {

@@ -3,9 +3,13 @@
 // They replace the three TPU kernels of the reference's DST-fused 2D step:
 //
 //   Projection2DKernels.pred_bt   (cfd_tpu/ops/pallas/projection2d.py,
-//       pred_bt_compute)  predictor, b~, forward x-DST of each block
+//       pred_bt_compute)  predictor (Boussinesq buoyancy with T as one
+//       more input), b~, forward x-DST of each block
 //       -> pred_star_2d_kernel, poisson_input_2d_kernel, then the forward
 //          x-DST as one sgemm_kernel launch (projection_kernels.cu)
+//   Projection2DKernels.pred_only / bt_only  (the split pair the
+//       bc_refresh step runs, the caller's hook between them)
+//       -> the same two kernels: the port's pred_bt was already that chain
 //   make_tdma_y_2d                (cfd_tpu/ops/pallas/tdma.py)  both Thomas
 //       sweeps of the per-x-mode y-lines
 //       -> no kernel here: an (ny, nx) rhs is an (ny, 1, nx) stack of
@@ -70,13 +74,23 @@ __device__ __forceinline__ float star2(const float* __restrict__ f, int c,
   return clamp_keep_nan(fc + dt * ((-conv + nu * lap) + src));
 }
 
+// With buoyancy (buoy_mask bit c set where g[c] != 0), component c's
+// source also takes bcoef[c] * (T - T_ref), bcoef[c] = (-beta) * g[c]
+// rounded in float32 on the host (projection2d.py:166-176); T is read
+// only then and may be null.
+struct Buoyancy2 {
+  float coef[3], tref;
+  int mask;
+};
+
 __global__ void pred_star_2d_kernel(
     const float* __restrict__ u, const float* __restrict__ v,
     const float* __restrict__ w, float* __restrict__ us,
     float* __restrict__ vs, float* __restrict__ ws,
-    const float* __restrict__ scal, int ny, int nx, float nu, float inv_2dx,
-    float inv_2dy, float inv_dx2, float inv_dy2, float xmin, float ymin,
-    float dx, float dy, int with_sources) {
+    const float* __restrict__ scal, const float* __restrict__ T, int ny,
+    int nx, float nu, float inv_2dx, float inv_2dy, float inv_dx2,
+    float inv_dy2, float xmin, float ymin, float dx, float dy,
+    int with_sources, Buoyancy2 buoy) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const int j = blockIdx.y * blockDim.y + threadIdx.y;
   if (i >= nx || j >= ny) return;
@@ -89,16 +103,22 @@ __global__ void pred_star_2d_kernel(
   }
   const float dt = scal[0], su = scal[1], sv = scal[2];
   const float uc = u[c], vc = v[c];
-  float src_u = 0.0f, src_v = 0.0f;
+  float src_u = 0.0f, src_v = 0.0f, src_w = 0.0f;
   if (with_sources) {
     src_u = su * sinf(kPi * (ymin + (float)j * dy));
     src_v = sv * sinf(kTwoPi * (xmin + (float)i * dx));
+  }
+  if (buoy.mask) {
+    const float dT = T[c] - buoy.tref;
+    if (buoy.mask & 1) src_u = src_u + buoy.coef[0] * dT;
+    if (buoy.mask & 2) src_v = src_v + buoy.coef[1] * dT;
+    if (buoy.mask & 4) src_w = src_w + buoy.coef[2] * dT;
   }
   us[c] = star2(u, c, nx, uc, vc, src_u, dt, nu, inv_2dx, inv_2dy, inv_dx2,
                 inv_dy2);
   vs[c] = star2(v, c, nx, uc, vc, src_v, dt, nu, inv_2dx, inv_2dy, inv_dx2,
                 inv_dy2);
-  ws[c] = star2(w, c, nx, uc, vc, 0.0f, dt, nu, inv_2dx, inv_2dy, inv_dx2,
+  ws[c] = star2(w, c, nx, uc, vc, src_w, dt, nu, inv_2dx, inv_2dy, inv_dx2,
                 inv_dy2);
 }
 
@@ -160,14 +180,16 @@ extern "C" {
 
 int cfd_pred_star_2d(const float* u, const float* v, const float* w,
                      float* us, float* vs, float* ws, const float* scal,
-                     int ny, int nx, float nu, float inv_2dx, float inv_2dy,
-                     float inv_dx2, float inv_dy2, float xmin, float ymin,
-                     float dx, float dy, int with_sources,
+                     const float* T, int ny, int nx, float nu, float inv_2dx,
+                     float inv_2dy, float inv_dx2, float inv_dy2, float xmin,
+                     float ymin, float dx, float dy, int with_sources,
+                     float b0, float b1, float b2, float tref, int buoy_mask,
                      cudaStream_t stream) {
+  const Buoyancy2 buoy = {{b0, b1, b2}, tref, buoy_mask};
   pred_star_2d_kernel<<<stencil_grid_2d(ny, nx), dim3(kTileX, kTileY), 0,
-                        stream>>>(u, v, w, us, vs, ws, scal, ny, nx, nu,
+                        stream>>>(u, v, w, us, vs, ws, scal, T, ny, nx, nu,
                                   inv_2dx, inv_2dy, inv_dx2, inv_dy2, xmin,
-                                  ymin, dx, dy, with_sources);
+                                  ymin, dx, dy, with_sources, buoy);
   return (int)cudaGetLastError();
 }
 

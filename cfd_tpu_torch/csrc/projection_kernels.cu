@@ -4,10 +4,15 @@
 // (cfd_tpu/ops/pallas/projection_kernels.py):
 //
 //   A1  ProjectionKernels.pred_bt   (pred_bt_compute)   predictor, b~,
-//       forward xy DST, Thomas forward sweep
+//       forward xy DST, Thomas forward sweep; Boussinesq buoyancy with T
+//       as one more input
 //       -> pred_star_kernel, poisson_input_kernel, sgemm_kernel (x2),
 //          tdma_fwd_kernel; with emit="rhs" (the CG step) only the first
 //          two, poisson_input_kernel emitting (rho/dt) div u*
+//   A5  the per-component family the bc_refresh step runs
+//       (make_predictor -> pred_u/v/w, btilde_k, divergence): the same
+//       kernels, the caller's hook between pred_star_kernel and
+//       poisson_input_kernel
 //   A2  ProjectionKernels.corr_bwd  (corr_bwd_compute)  Thomas back
 //       substitution, inverse xy DST, corrector, three max reductions
 //       -> tdma_bwd_kernel, sgemm_kernel (x2), corrector_kernel,
@@ -91,14 +96,24 @@ __device__ __forceinline__ float star(const float* __restrict__ f,
   return clamp_keep_nan(fc + dt * ((-conv + nu * lap) + src));
 }
 
+// With buoyancy (buoy_mask bit c set where g[c] != 0), component c's
+// source also takes bcoef[c] * (T - T_ref), bcoef[c] = (-beta) * g[c]
+// rounded in float32 on the host: the reference kernels' term
+// ((-beta) * g[c]) * (T - T_ref) (projection_kernels.py:319-321), added
+// after the decaying sin source.  T is read only then and may be null.
+struct Buoyancy {
+  float coef[3], tref;
+  int mask;
+};
+
 __global__ void pred_star_kernel(
     const float* __restrict__ u, const float* __restrict__ v,
     const float* __restrict__ w, float* __restrict__ us,
     float* __restrict__ vs, float* __restrict__ ws,
-    const float* __restrict__ scal, int nz, int ny, int nx, float nu,
-    float inv_2dx, float inv_2dy, float inv_2dz, float inv_dx2,
-    float inv_dy2, float inv_dz2, float xmin, float ymin, float dx, float dy,
-    int with_sources) {
+    const float* __restrict__ scal, const float* __restrict__ T, int nz,
+    int ny, int nx, float nu, float inv_2dx, float inv_2dy, float inv_2dz,
+    float inv_dx2, float inv_dy2, float inv_dz2, float xmin, float ymin,
+    float dx, float dy, int with_sources, Buoyancy buoy) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const int j = blockIdx.y * blockDim.y + threadIdx.y;
   const int k = blockIdx.z;
@@ -114,16 +129,22 @@ __global__ void pred_star_kernel(
   }
   const float dt = scal[0], su = scal[1], sv = scal[2];
   const float uc = u[c], vc = v[c], wc = w[c];
-  float src_u = 0.0f, src_v = 0.0f;
+  float src_u = 0.0f, src_v = 0.0f, src_w = 0.0f;
   if (with_sources) {
     src_u = su * sinf(kPi * (ymin + (float)j * dy));
     src_v = sv * sinf(kTwoPi * (xmin + (float)i * dx));
+  }
+  if (buoy.mask) {
+    const float dT = T[c] - buoy.tref;
+    if (buoy.mask & 1) src_u = src_u + buoy.coef[0] * dT;
+    if (buoy.mask & 2) src_v = src_v + buoy.coef[1] * dT;
+    if (buoy.mask & 4) src_w = src_w + buoy.coef[2] * dT;
   }
   us[c] = star(u, c, sy, sz, uc, vc, wc, src_u, dt, nu, inv_2dx, inv_2dy,
                inv_2dz, inv_dx2, inv_dy2, inv_dz2);
   vs[c] = star(v, c, sy, sz, uc, vc, wc, src_v, dt, nu, inv_2dx, inv_2dy,
                inv_2dz, inv_dx2, inv_dy2, inv_dz2);
-  ws[c] = star(w, c, sy, sz, uc, vc, wc, 0.0f, dt, nu, inv_2dx, inv_2dy,
+  ws[c] = star(w, c, sy, sz, uc, vc, wc, src_w, dt, nu, inv_2dx, inv_2dy,
                inv_2dz, inv_dx2, inv_dy2, inv_dz2);
 }
 
@@ -421,15 +442,18 @@ const char* cfd_error_string(int code) {
 }
 
 int cfd_pred_star(const float* u, const float* v, const float* w, float* us,
-                  float* vs, float* ws, const float* scal, int nz, int ny,
-                  int nx, float nu, float inv_2dx, float inv_2dy,
-                  float inv_2dz, float inv_dx2, float inv_dy2, float inv_dz2,
-                  float xmin, float ymin, float dx, float dy,
-                  int with_sources, cudaStream_t stream) {
+                  float* vs, float* ws, const float* scal, const float* T,
+                  int nz, int ny, int nx, float nu, float inv_2dx,
+                  float inv_2dy, float inv_2dz, float inv_dx2, float inv_dy2,
+                  float inv_dz2, float xmin, float ymin, float dx, float dy,
+                  int with_sources, float b0, float b1, float b2, float tref,
+                  int buoy_mask, cudaStream_t stream) {
+  const Buoyancy buoy = {{b0, b1, b2}, tref, buoy_mask};
   pred_star_kernel<<<stencil_grid(nz, ny, nx), dim3(kTileX, kTileY), 0,
-                     stream>>>(u, v, w, us, vs, ws, scal, nz, ny, nx, nu,
+                     stream>>>(u, v, w, us, vs, ws, scal, T, nz, ny, nx, nu,
                                inv_2dx, inv_2dy, inv_2dz, inv_dx2, inv_dy2,
-                               inv_dz2, xmin, ymin, dx, dy, with_sources);
+                               inv_dz2, xmin, ymin, dx, dy, with_sources,
+                               buoy);
   return (int)cudaGetLastError();
 }
 

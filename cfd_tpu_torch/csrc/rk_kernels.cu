@@ -4,15 +4,17 @@
 //
 //   make_rk_stage    (cfd_tpu/ops/pallas/rk_kernels.py, compute :186-359 on
 //       the rolling engine)  one 3D stage, mid or final
-//       -> rk_kernel<true, false> / rk_kernel<true, true> +
-//          reduce_max4_kernel
+//       -> rk_kernel<true, false, *> / rk_kernel<true, true, *> +
+//          reduce_max4_kernel (the last flag: buoyancy or energy on)
 //   make_rk2d_stage  (cfd_tpu/ops/pallas/rk2d.py, compute :116-298 on the
 //       marching engine; the y-face wrap rows in the step wrapper,
 //       cfd_tpu/solvers/ns/rk.py:243-246)  one 2D stage
-//       -> rk_kernel<false, false> / rk_kernel<false, true> + the same
+//       -> rk_kernel<false, false, *> / rk_kernel<false, true, *> + the
+//          same
 //
 // Both launch through cfd_rk_stage, which picks the instantiation from nz
-// (1: the 2D kernel) and the stage kind.
+// (1: the 2D kernel), the stage kind and whether buoyancy or energy is
+// on.
 //
 // One stage, with (factor, acc_mix, weight) choosing the Butcher position:
 //
@@ -27,6 +29,10 @@
 // the finished state: next, rho and T with the periodic wrap x -> y -> z
 // (velocities too: RK wraps everything), and the step maxima of |u|^2,
 // p, |p| and T.  A null accumulator reads as zero (the first stage).
+// Boussinesq buoyancy joins every stage's sources with the step-start T
+// (rk_kernels.py:292).  The energy equation runs in the final stage: T
+// advected by the FINAL velocities, interior only, then the wrap and the
+// thermal faces (rk_kernels.py:325-360), as in euler_kernels.cu.
 //
 // Design.  The TPU kernel took the z-wrap neighbours (planes nz - 2 and 1)
 // from pinned inputs because its streaming window could not see the far
@@ -35,7 +41,9 @@
 // or 6 (final): bound by HBM bandwidth.  The final stage's face points
 // take updated values from their wrap sources; as in euler_kernels.cu
 // every thread evaluates the stage at its own wrap source (itself for an
-// interior point), so no second launch or grid-wide barrier is needed.
+// interior point), so no second launch or grid-wide barrier is needed;
+// a thermal face thread whose Neumann neighbour is not that source
+// evaluates the stage a second time there.
 //
 // Built with -fmad=false, in the operation order of the plain version
 // (cfd_tpu_torch/ops/kernels/rk_kernels.py:rk_stage_plain).  Every entry
@@ -55,7 +63,7 @@ struct Fields {
   const float *rho, *T;
   const float *au, *av, *aw, *ap;      // accumulator, or all null
   const float *syv, *sxv;              // sin(pi y), sin(2 pi x)
-  const float* scal;  // factor, acc_mix, weight, su_eff, sv_eff
+  const float* scal;  // factor, acc_mix, weight, su_eff, sv_eff, dt
 };
 
 struct Outs {
@@ -68,11 +76,11 @@ struct Rhs {
 };
 
 // k = RHS(stage state) at interior point c = (k, j, i).
-template <bool k3D>
+template <bool k3D, bool kThermal>
 __device__ __forceinline__ Rhs rk_rhs(const Fields& f, long long c,
                                       long long sy, long long sz, int k,
                                       int j, int i, int nz, int ny, int nx,
-                                      const Coefs& q) {
+                                      const Coefs& q, const Thermal& th) {
   const long long xl = i == 1 ? c + (nx - 3) : c - 1;
   const long long xr = i == nx - 2 ? c - (nx - 3) : c + 1;
   const long long yd = j == 1 ? c + (ny - 3) * sy : c - sy;
@@ -103,7 +111,13 @@ __device__ __forceinline__ Rhs rk_rhs(const Fields& f, long long c,
   const float dw_dx = d1x(f.w), dw_dy = d1y(f.w);
   const float dp_dx = d1x(f.p), dp_dy = d1y(f.p);
   const float nu = viscosity(q.mu, r);
-  const float su = f.scal[3] * f.syv[j], sv = f.scal[4] * f.sxv[i];
+  float su = f.scal[3] * f.syv[j], sv = f.scal[4] * f.sxv[i], sw = 0.0f;
+  if (kThermal && th.buoy) {
+    const float dT = f.T[c] - th.tref;
+    su = su + th.coef[0] * dT;
+    sv = sv + th.coef[1] * dT;
+    sw = th.coef[2] * dT;
+  }
 
   float tu = -uc * du_dx - vc * du_dy;
   float tv = -uc * dv_dx - vc * dv_dy;
@@ -120,15 +134,19 @@ __device__ __forceinline__ Rhs rk_rhs(const Fields& f, long long c,
   Rhs o;
   o.u = (((tu - dp_dx / r) + nu * lap(f.u, uc)) + su) * ok;
   o.v = (((tv - dp_dy / r) + nu * lap(f.v, vc)) + sv) * ok;
-  o.w = (tw + nu * lap(f.w, wc)) * ok;
+  float rw = tw + nu * lap(f.w, wc);
+  if (kThermal && th.buoy) rw = rw + sw;
+  o.w = rw * ok;
   o.p = ((-q.coef * r) * clampv(div, kDiv)) * ok;
   return o;
 }
 
-template <bool k3D, bool kFinal>
+// kThermal instantiates the buoyant and energy code; without it the
+// kernel is the plain stage's, with its register footprint.
+template <bool k3D, bool kFinal, bool kThermal>
 __global__ void __launch_bounds__(kTileX * kTileY) rk_kernel(
     Fields f, Outs out, float* __restrict__ partials, int nz, int ny,
-    int nx, Coefs coefs) {
+    int nx, Coefs coefs, Thermal th) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const int j = blockIdx.y * blockDim.y + threadIdx.y;
   const int k = blockIdx.z;
@@ -144,7 +162,8 @@ __global__ void __launch_bounds__(kTileX * kTileY) rk_kernel(
     const long long e = kFinal ? cs : c;
     Rhs r = {0.0f, 0.0f, 0.0f, 0.0f};
     if (kFinal || cs == c)
-      r = rk_rhs<k3D>(f, e, sy, sz, ks, js, is, nz, ny, nx, coefs);
+      r = rk_rhs<k3D, kThermal>(f, e, sy, sz, ks, js, is, nz, ny, nx, coefs,
+                                th);
     const float factor = f.scal[0], acc_mix = f.scal[1];
     const bool acc = f.au != nullptr;
     const float au = acc ? f.au[e] : 0.0f, av = acc ? f.av[e] : 0.0f;
@@ -158,7 +177,30 @@ __global__ void __launch_bounds__(kTileX * kTileY) rk_kernel(
     out.o[2][c] = wn;
     out.o[3][c] = pn;
     if (kFinal) {
-      const float ot = f.T[cs];
+      float ot;
+      if (kThermal && th.energy) {
+        int kT, jT, iT;
+        if (!thermal_source<k3D>(th, k, j, i, nz, ny, nx, kT, jT, iT,
+                                 ot)) {
+          const long long cT = kT * sz + jT * sy + iT;
+          float ut = un, vt = vn, wt = wn;
+          if (cT != cs) {  // the final velocities at the T source
+            const Rhs rt = rk_rhs<k3D, kThermal>(f, cT, sy, sz, kT, jT, iT,
+                                                 nz, ny, nx, coefs, th);
+            const float aut = acc ? f.au[cT] : 0.0f;
+            const float avt = acc ? f.av[cT] : 0.0f;
+            const float awt = acc ? f.aw[cT] : 0.0f;
+            ut = clampv(f.q0u[cT] + factor * (acc_mix * aut + rt.u), kVel);
+            vt = clampv(f.q0v[cT] + factor * (acc_mix * avt + rt.v), kVel);
+            wt = clampv(f.q0w[cT] + factor * (acc_mix * awt + rt.w), kVel);
+          }
+          ot = energy_update<k3D>(f.T, cT, sy, sz, ut, vt, wt, f.scal[5],
+                                  th.alpha, coefs.c2x, coefs.c2y, coefs.c2z,
+                                  coefs.cx2, coefs.cy2, coefs.cz2);
+        }
+      } else {
+        ot = f.T[cs];
+      }
       out.o[4][c] = f.rho[cs];
       out.o[5][c] = ot;
       m[0] = (un * un + vn * vn) + wn * wn;
@@ -176,18 +218,18 @@ __global__ void __launch_bounds__(kTileX * kTileY) rk_kernel(
   if (kFinal) block_max4(m, partials);
 }
 
-template <bool k3D>
+template <bool k3D, bool kThermal>
 int launch_rk(const Fields& f, const Outs& o, float* partials, float* out,
-              int nz, int ny, int nx, const Coefs& coefs, int final_stage,
-              cudaStream_t stream) {
+              int nz, int ny, int nx, const Coefs& coefs, const Thermal& th,
+              int final_stage, cudaStream_t stream) {
   const dim3 grid = grid_of(nz, ny, nx), block(kTileX, kTileY);
   if (!final_stage) {
-    rk_kernel<k3D, false><<<grid, block, 0, stream>>>(f, o, partials, nz, ny,
-                                                      nx, coefs);
+    rk_kernel<k3D, false, kThermal><<<grid, block, 0, stream>>>(
+        f, o, partials, nz, ny, nx, coefs, th);
     return (int)cudaGetLastError();
   }
-  rk_kernel<k3D, true><<<grid, block, 0, stream>>>(f, o, partials, nz, ny,
-                                                   nx, coefs);
+  rk_kernel<k3D, true, kThermal><<<grid, block, 0, stream>>>(
+      f, o, partials, nz, ny, nx, coefs, th);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   reduce_max4_kernel<<<1, kReduceThreads, 0, stream>>>(
@@ -202,11 +244,13 @@ extern "C" {
 // in[] = u, v, w, p, q0u, q0v, q0w, q0p, rho, T, acc u, v, w, p (the
 // accumulator pointers all null for a zero accumulator), sin(pi y),
 // sin(2 pi x), scal; outs[] as Outs.  partials and out (4 maxima) are read
-// only by the final stage.
+// only by the final stage.  thermal_f and thermal_i are host arrays
+// (explicit_common.cuh: thermal_from).
 int cfd_rk_stage(const float* const* in, float* const* outs,
                  float* partials, float* out, int nz, int ny, int nx,
                  float mu, float coef, float c2x, float c2y, float c2z,
                  float cx2, float cy2, float cz2, int final_stage,
+                 const float* thermal_f, const int* thermal_i,
                  cudaStream_t stream) {
   const Fields f = {in[0], in[1], in[2],  in[3],  in[4],  in[5],
                     in[6], in[7], in[8],  in[9],  in[10], in[11],
@@ -214,11 +258,13 @@ int cfd_rk_stage(const float* const* in, float* const* outs,
   Outs o;
   for (int q = 0; q < 8; ++q) o.o[q] = outs[q];
   const Coefs coefs = {mu, coef, c2x, c2y, c2z, cx2, cy2, cz2};
+  const Thermal th = thermal_from(thermal_f, thermal_i);
+  const bool thermal = th.energy || th.buoy;
   if (nz > 1)
-    return launch_rk<true>(f, o, partials, out, nz, ny, nx, coefs,
-                           final_stage, stream);
-  return launch_rk<false>(f, o, partials, out, 1, ny, nx, coefs,
-                          final_stage, stream);
+    return (thermal ? launch_rk<true, true> : launch_rk<true, false>)(
+        f, o, partials, out, nz, ny, nx, coefs, th, final_stage, stream);
+  return (thermal ? launch_rk<false, true> : launch_rk<false, false>)(
+      f, o, partials, out, 1, ny, nx, coefs, th, final_stage, stream);
 }
 
 }  // extern "C"

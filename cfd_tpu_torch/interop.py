@@ -2,7 +2,8 @@
 
 A test holds the port against the reference by feeding both the same
 numpy inputs: ``field_from_numpy({"u": ..., ...}, device, dtype)`` builds a
-:class:`FlowField`, ``field_to_numpy(field)`` reads one back.  A JAX array
+:class:`FlowField`, ``field_to_numpy(field)`` reads one back; ``thermal_bc_from(config)``
+converts another package's thermal BC configuration to the port's.  A JAX array
 should be converted with ``np.array`` (a copy), not ``np.asarray``: the
 latter is a read-only view of the JAX buffer.
 """
@@ -12,6 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .boundary.types import BCType, DirichletValues, ThermalBCConfig
 from .config import resolve_device, resolve_dtype
 from .core.field import FIELD_NAMES, FlowField
 
@@ -28,3 +30,18 @@ def field_from_numpy(arrays: dict, device=None, dtype=None) -> FlowField:
 def field_to_numpy(field: FlowField) -> dict:
     return {n: getattr(field, n).detach().cpu().numpy()
             for n in FIELD_NAMES}
+
+
+def thermal_bc_from(config) -> ThermalBCConfig:
+    """The port's ``ThermalBCConfig`` with the face types (by enum value)
+    and Dirichlet values (by field name) of ``config``, e.g. the
+    reference package's; duck-typed, so nothing of that package is
+    imported.  A port config is returned as it is."""
+    if isinstance(config, ThermalBCConfig):
+        return config
+    faces = ("left", "right", "bottom", "top", "front", "back")
+    values = config.dirichlet_values
+    return ThermalBCConfig(
+        **{f: BCType(int(getattr(config, f))) for f in faces},
+        dirichlet_values=DirichletValues(
+            **{f: float(getattr(values, f)) for f in faces}))

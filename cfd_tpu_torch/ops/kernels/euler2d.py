@@ -6,7 +6,7 @@ the y-face wrap rows of p, ρ and T to the step wrapper
 (`cfd_tpu/solvers/ns/euler.py:280-311`), because their sources can live in
 another block.  On the card the whole step, both wraps included, is the
 nz == 1 instantiation of `euler_kernels`' CUDA kernel
-(``euler_kernel<false>``, no z terms); its plain version is
+(``euler_kernel<false, *>``, no z terms); its plain version is
 `euler_kernels.euler_step_plain` on a one-plane field.  Fields are
 (1, ny, nx); velocity shells pass through, w's too (the TPU kernel's
 interior mask; the reference's jnp 2D step wraps w's shells instead).
@@ -19,7 +19,7 @@ from .euler_kernels import ExplicitConsts, euler_step_plain, launch_euler
 
 
 def euler2d_step(u, v, w, p, T, rho, sy, sx, scal, c: ExplicitConsts):
-    """E2, the whole 2D Euler step — ``euler_kernel<false>`` on CUDA."""
+    """E2, the whole 2D Euler step — ``euler_kernel<false, *>`` on CUDA."""
     if native.on_cpu(u):
         return euler_step_plain(u, v, w, p, T, rho, sy, sx, scal, c)
     if c.nz != 1:

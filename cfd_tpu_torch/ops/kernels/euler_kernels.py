@@ -1,15 +1,16 @@
 """The explicit Euler step's fused kernel (counterpart of
 `cfd_tpu/ops/pallas/euler_kernels.py`, E3 ``make_euler_fused``).
 
-Only the configuration the main path runs is ported: single device,
-uniform grid, the built-in decaying sources, no energy equation, no
-buoyancy.  The TPU kernel (one streaming pass on the rolling engine,
-compute `euler_kernels.py:240-351`) becomes one CUDA kernel plus a
-one-block reduction, ``cfd_euler_step`` in
+Single device, uniform grid, the built-in decaying sources, with or
+without Boussinesq buoyancy and the energy equation with its thermal
+faces (``ExplicitConsts.thermal``).  The TPU kernel (one streaming pass
+on the rolling engine, compute `euler_kernels.py:240-351`) becomes one
+CUDA kernel plus a one-block reduction, ``cfd_euler_step`` in
 ``cfd_tpu_torch/csrc/euler_kernels.cu``: one thread per point, each
 thread evaluating the update at its own periodic-wrap source so the p/ρ/T
-faces need no second pass.  The 2D form (`euler2d.py`) is the same
-kernel's nz == 1 instantiation.
+faces need no second pass; a thermal face thread evaluates it also at the
+point its T comes from (a Neumann face's neighbour).  The 2D form
+(`euler2d.py`) is the same kernel's nz == 1 instantiation.
 
 :func:`euler_step` launches the kernel on a CUDA tensor and runs
 :func:`euler_step_plain` on a CPU tensor; its ``launches`` attribute
@@ -25,11 +26,14 @@ NaN, as ``jnp.clip`` and ``jnp.max`` do.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 
 import torch
 
 from ...boundary.apply import apply_periodic_scalar
+from ...boundary.types import ThermalBCConfig
+from ...solvers.energy import apply_thermal_bcs, buoyancy_coefficients
 from ...solvers.ns.common import clamp
 from ...solvers.ns.params import (MAX_DERIVATIVE_LIMIT, MAX_DIVERGENCE_LIMIT,
                                   MAX_SECOND_DERIVATIVE_LIMIT,
@@ -37,6 +41,52 @@ from ...solvers.ns.params import (MAX_DERIVATIVE_LIMIT, MAX_DIVERGENCE_LIMIT,
 from ..stencils import (d2dz2, interior_mask, sx_m, sx_p, sy_m, sy_p, sz_m,
                         sz_p)
 from . import native
+
+
+@dataclasses.dataclass(frozen=True)
+class ThermalConsts:
+    """The energy equation and buoyancy of the explicit kernels: ``alpha``
+    (> 0 turns the energy update and the thermal ``faces`` on),
+    ``buoyancy`` = (((−β)·g[c] for c = x, y, z), T_ref) exact in the
+    field's dtype, or None.  The explicit kernels add the buoyant term to
+    all three components, as the reference's do
+    (`euler_kernels.py:286-290`)."""
+
+    alpha: float = 0.0
+    buoyancy: tuple = None
+    faces: ThermalBCConfig = ThermalBCConfig()
+
+    @property
+    def energy(self) -> bool:
+        return self.alpha > 0.0
+
+    @classmethod
+    def from_params(cls, params, dtype) -> "ThermalConsts":
+        """From an NSParams: α when the energy equation is on, the
+        buoyancy coefficients rounded to ``dtype`` when β ≠ 0."""
+        buoy = None
+        if params.buoyancy_enabled:
+            buoy = buoyancy_coefficients(params.beta, params.gravity,
+                                         params.T_ref, dtype)
+        return cls(float(params.alpha) if params.energy_enabled else 0.0,
+                   buoy, params.thermal_bc)
+
+    def kernel_args(self):
+        """The C entry points' two host arrays (explicit_common.cuh:
+        thermal_from): α, (−β)·g, T_ref and the Dirichlet values; the
+        energy and buoyancy switches and the face types (BCType
+        values)."""
+        coefs, tref = self.buoyancy or ((0.0, 0.0, 0.0), 0.0)
+        f = self.faces
+        v = f.dirichlet_values
+        floats = (ctypes.c_float * 11)(
+            self.alpha, *coefs, tref, v.left, v.right, v.bottom, v.top,
+            v.back, v.front)
+        ints = (ctypes.c_int * 8)(
+            int(self.energy), int(self.buoyancy is not None),
+            *(int(b) for b in (f.left, f.right, f.bottom, f.top, f.back,
+                               f.front)))
+        return floats, ints
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,6 +104,7 @@ class ExplicitConsts:
     dz: float
     mu: float
     pressure_coupling: float
+    thermal: ThermalConsts = ThermalConsts()
 
     def derivs(self):
         """(1/2dx, 1/2dy, 1/2dz, 1/dx², 1/dy², 1/dz²)."""
@@ -101,14 +152,52 @@ def maxima(u, v, w, p, T):
     return m2, torch.amax(p), torch.amax(torch.abs(p)), torch.amax(T)
 
 
+def buoyant_sources(su, sv, T, c: ExplicitConsts):
+    """(su, sv, sw) with the buoyant terms b[c]·(T − T_ref) added
+    (`euler_kernels.py:286-290`); sw None without buoyancy."""
+    if c.thermal.buoyancy is None:
+        return su, sv, None
+    (b0, b1, b2), tref = c.thermal.buoyancy
+    dT = T - tref
+    return su + b0 * dT, sv + b1 * dT, b2 * dT
+
+
+def energy_update_plain(T, uo, vo, wo, cdt, c: ExplicitConsts):
+    """T + cdt·(−(u·T_x + v·T_y + w·T_z) + α∇²T) on the interior with the
+    updated velocities, T on the shell; unclamped central differences in
+    the kernels' order (no z terms on a one-plane field)."""
+    i2x, i2y, i2z, ix2, iy2, iz2 = c.derivs()
+    xp, xm, yp, ym = sx_p(T), sx_m(T), sy_p(T), sy_m(T)
+    t2 = 2.0 * T
+    lap = ((xp - t2) + xm) * ix2 + ((yp - t2) + ym) * iy2
+    adv = uo * ((xp - xm) * i2x) + vo * ((yp - ym) * i2y)
+    if c.nz > 1:
+        zp, zm = sz_p(T), sz_m(T)
+        lap = lap + ((zp - t2) + zm) * iz2
+        adv = adv + wo * ((zp - zm) * i2z)
+    inner = interior_mask(T.shape, torch.bool, T.device)
+    return torch.where(inner, T + cdt * (-adv + c.thermal.alpha * lap), T)
+
+
+def thermal_output(T_upd, c: ExplicitConsts):
+    """The new T: the periodic wrap of the updated T, then, with the
+    energy equation on, the thermal faces (`euler.py:201-211`)."""
+    out = apply_periodic_scalar(T_upd)
+    if c.thermal.energy:
+        out = apply_thermal_bcs(out, c.thermal.faces)
+    return out
+
+
 def euler_step_plain(u, v, w, p, T, rho, sy, sx, scal, c: ExplicitConsts):
     """The Euler step in plain PyTorch: the reference's jnp body
     (`cfd_tpu/solvers/ns/euler.py:119-221`) in the kernel's operation
     order.  ``scal`` = [cdt, su, sv] (the decayed source amplitudes);
     ``sy`` = sin(πy), ``sx`` = sin(2πx).  Velocity shells pass through
     (the wrap-then-restore of the reference's boundary dance); p, ρ and T
-    take the periodic wrap of the updated field.  Also the plain version
-    of the 2D kernel: on a one-plane field every z term is dropped."""
+    take the periodic wrap of the updated field, T after the energy update
+    and before the thermal faces when ``c.thermal`` has them.  Also the
+    plain version of the 2D kernel: on a one-plane field every z term is
+    dropped."""
     cdt, su_eff, sv_eff = scal[0], scal[1], scal[2]
     i2x, i2y, i2z, ix2, iy2, iz2 = c.derivs()
     three_d = c.nz > 1
@@ -134,8 +223,8 @@ def euler_step_plain(u, v, w, p, T, rho, sy, sx, scal, c: ExplicitConsts):
     dw_dx, dw_dy, dw_dz = grads(w)
     dp_dx, dp_dy, dp_dz = grads(p)
     nu = viscosity(c.mu, rho)
-    su = su_eff * sy[None, :, None]
-    sv = sv_eff * sx[None, None, :]
+    su, sv, sw = buoyant_sources(su_eff * sy[None, :, None],
+                                 sv_eff * sx[None, None, :], T, c)
 
     tu = -u * du_dx - v * du_dy
     tv = -u * dv_dx - v * dv_dy
@@ -148,7 +237,8 @@ def euler_step_plain(u, v, w, p, T, rho, sy, sx, scal, c: ExplicitConsts):
         div = div + dw_dz
     du = cdt * (((tu - dp_dx / rho) + nu * lap(u)) + su)
     dv = cdt * (((tv - dp_dy / rho) + nu * lap(v)) + sv)
-    dw = cdt * (tw + nu * lap(w))
+    rw = tw + nu * lap(w)
+    dw = cdt * (rw if sw is None else rw + sw)
 
     upd = (interior_mask(u.shape, torch.bool, u.device)
            & (rho > 1e-10))     # interior, per-point ρ guard (NaN too)
@@ -161,7 +251,9 @@ def euler_step_plain(u, v, w, p, T, rho, sy, sx, scal, c: ExplicitConsts):
                * clamp(div, MAX_DIVERGENCE_LIMIT), UPDATE_LIMIT)
     uo, vo, wo = vel(u, du), vel(v, dv), vel(w, dw)
     po = apply_periodic_scalar(torch.where(upd, p + dp, p))
-    To = apply_periodic_scalar(T)
+    T_upd = (energy_update_plain(T, uo, vo, wo, cdt, c) if c.thermal.energy
+             else T)
+    To = thermal_output(T_upd, c)
     return (uo, vo, wo, po, apply_periodic_scalar(rho), To,
             *maxima(uo, vo, wo, po, To))
 
@@ -174,12 +266,12 @@ def launch_euler(c: ExplicitConsts, u, v, w, p, T, rho, sy, sx, scal):
     partials, red = maxima_buffers(c, u)
     native.launch("cfd_euler_step", u.device, *map(native.ptr, (
         u, v, w, p, T, rho, sy, sx, scal, *outs, partials, red)),
-        *c.kernel_args())
+        *c.kernel_args(), *c.thermal.kernel_args())
     return (*outs, red[0], red[1], red[2], red[3])
 
 
 def euler_step(u, v, w, p, T, rho, sy, sx, scal, c: ExplicitConsts):
-    """E3, the whole 3D Euler step — ``euler_kernel<true>`` on CUDA."""
+    """E3, the whole 3D Euler step — ``euler_kernel<true, *>`` on CUDA."""
     if native.on_cpu(u):
         return euler_step_plain(u, v, w, p, T, rho, sy, sx, scal, c)
     if c.nz < 3:

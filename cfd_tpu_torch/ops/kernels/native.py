@@ -40,7 +40,8 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
 # argument types of each C entry point, stream last
 SIGNATURES = {
     # projection_kernels.cu (3D step, and the SGEMM both steps use)
-    "cfd_pred_star": [_P] * 7 + [_I] * 3 + [_F] * 11 + [_I, _P],
+    "cfd_pred_star": [_P] * 8 + [_I] * 3 + [_F] * 11 + [_I] + [_F] * 4
+    + [_I, _P],
     "cfd_poisson_input": [_P] * 6 + [_I] * 3 + [_F] * 6 + [_I, _P],
     "cfd_sgemm_batched": [_I] * 3 + [_P, _L, _L, _P, _L, _L, _P, _L, _L]
     + [_I, _P],
@@ -52,12 +53,13 @@ SIGNATURES = {
     "cfd_sgemm_3xtf32_batched": [_I] * 3 + [_P, _L, _L, _P, _L, _L, _P, _L,
                                             _L] + [_I, _P],
     # projection2d_kernels.cu (2D step)
-    "cfd_pred_star_2d": [_P] * 7 + [_I] * 2 + [_F] * 9 + [_I, _P],
+    "cfd_pred_star_2d": [_P] * 8 + [_I] * 2 + [_F] * 9 + [_I] + [_F] * 4
+    + [_I, _P],
     "cfd_poisson_input_2d": [_P] * 5 + [_I] * 2 + [_F] * 4 + [_I, _P],
     "cfd_corrector_2d": [_P] * 6 + [_I] * 2 + [_F] * 2 + [_P],
     # euler_kernels.cu, rk_kernels.cu (explicit steps, 3D and 2D)
-    "cfd_euler_step": [_P] * 17 + [_I] * 3 + [_F] * 8 + [_P],
-    "cfd_rk_stage": [_P] * 4 + [_I] * 3 + [_F] * 8 + [_I, _P],
+    "cfd_euler_step": [_P] * 17 + [_I] * 3 + [_F] * 8 + [_P, _P, _P],
+    "cfd_rk_stage": [_P] * 4 + [_I] * 3 + [_F] * 8 + [_I, _P, _P, _P],
     # cg_kernels.cu (the CG pressure solve)
     "cfd_cg_lap_dot": [_P] * 6 + [_I] * 3 + [_F] * 4 + [_P],
     "cfd_cg_update": [_P] * 6 + [_I] * 3 + [_F, _I, _P],

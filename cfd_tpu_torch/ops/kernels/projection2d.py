@@ -1,17 +1,25 @@
 """The 2D projection step's two fused kernels (counterpart of
 `cfd_tpu/ops/pallas/projection2d.py`, the DST-fused single-device form).
 
-Only the configuration the main path runs is ported: single device,
-uniform grid, ``emit="btilde"`` with the x-DST pair (``dst_mats``), no
-buoyancy, no split (``bc_refresh``) kernels.  The reference's two TPU
-kernels on the block-marching engine (`marching2d.py`) become two chains
-of CUDA kernels that meet in device memory:
+Single device, uniform grid, ``emit="btilde"`` with the x-DST pair
+(``dst_mats``) or ``emit="rhs"``, with or without Boussinesq buoyancy.
+The reference's TPU kernels on the block-marching engine (`marching2d.py`)
+become chains of CUDA kernels that meet in device memory:
 
 * ``Projection2DKernels.pred_bt`` (`projection2d.py:200-216`)
   → :meth:`Projection2DKernels.predictor_and_poisson_input`:
   :func:`predictor_star_2d` → :func:`poisson_input_2d` →
   `rolling.right_dot` (b̃·FxT, the forward x-DST).  Returns
-  (u*, v*, w*, b̃·FxT).
+  (u*, v*, w*, b̃·FxT).  With buoyancy the predictor takes the
+  step-start T and adds ((−β)·g[c])·(T − T_ref) to component c's source
+  where g[c] ≠ 0 (`:166-176`).
+* The split pair the ``bc_refresh`` step runs, the caller's hook between
+  them (`projection2d.py:218-250`, `:311-326`): ``pred_only`` is
+  :meth:`Projection2DKernels.predictor` (:func:`predictor_star_2d`),
+  ``bt_only`` :meth:`Projection2DKernels.poisson_input`
+  (:func:`poisson_input_2d` → the forward x-DST, or
+  :func:`poisson_rhs_2d`).  pred_bt is ``poisson_input(predictor(...))``:
+  the port's pred_bt was already this chain.
 * ``Projection2DKernels.corr`` (`projection2d.py:252-282`)
   → :meth:`Projection2DKernels.corrector`: `rolling.right_dot`
   (p = x̂·GxT, the arrival hook's inverse x-DST) → :func:`corrector_2d`.
@@ -55,8 +63,9 @@ from ...solvers.ns.common import clamp
 from ...solvers.ns.params import PROJ_MAX_VELOCITY as CLAMP  # = kClamp
 from ..stencils import ddx, ddy, interior, set_interior
 from . import native, rolling
-from .projection_kernels import StencilConsts, face_coeff, \
-    predictor_star_plain
+from .projection_kernels import (StencilConsts, check_buoyancy_input,
+                                 face_coeff, predictor_star_plain,
+                                 stencil_consts)
 from .rolling import left_dot, right_dot, right_dot_plain
 from .tdma import tdma_z_bwd, tdma_z_fwd
 
@@ -72,20 +81,23 @@ def _check(c: StencilConsts, fields, scalars):
 
 # ---- pred_bt (a): predictor u*, v*, w* ----------------------------------
 
-def predictor_star_2d(u, v, w, scal, c: StencilConsts):
+def predictor_star_2d(u, v, w, scal, c: StencilConsts, T=None):
     """(u*, v*, w*) = clamp(f + dt(−(u∂x + v∂y)f + ν∇²f + src)) on the
     interior, shells passed through (w is predicted too, convected by u,
-    v) — ``pred_star_2d_kernel`` on CUDA.  Its plain version is the 3D
-    one, `projection_kernels.predictor_star_plain`, whose z terms vanish
-    on a one-plane field."""
+    v; with ``c.buoyancy`` ``T`` adds the buoyant sources) —
+    ``pred_star_2d_kernel`` on CUDA.  Its plain version is the 3D one,
+    `projection_kernels.predictor_star_plain`, whose z terms vanish on a
+    one-plane field."""
     if native.on_cpu(u):
-        return predictor_star_plain(u, v, w, scal, c)
+        return predictor_star_plain(u, v, w, scal, c, T)
     _check(c, (u, v, w), (scal,))
+    check_buoyancy_input(c, T, (1, c.ny, c.nx))
     us, vs, ws = (torch.empty_like(u) for _ in range(3))
+    t_ptr = None if c.buoyancy is None else native.ptr(T)
     native.launch("cfd_pred_star_2d", u.device, *map(native.ptr, (
-        u, v, w, us, vs, ws, scal)), c.ny, c.nx, c.nu, c.inv_2dx,
+        u, v, w, us, vs, ws, scal)), t_ptr, c.ny, c.nx, c.nu, c.inv_2dx,
         c.inv_2dy, c.inv_dx2, c.inv_dy2, c.xmin, c.ymin, c.dx, c.dy,
-        int(c.with_sources))
+        int(c.with_sources), *c.buoyancy_args())
     predictor_star_2d.launches += 1
     return us, vs, ws
 
@@ -183,7 +195,9 @@ class Projection2DKernels:
     """The two fused kernels for one (uniform 2D grid, dtype, device).
 
     ``emit="btilde"`` (the spectral step): ``dst_mats`` = (FxT, GxT) from
-    `solvers.poisson.spectral.make_dst2d_fused_pieces`.  ``emit="rhs"``
+    `solvers.poisson.spectral.make_dst2d_fused_pieces`.  ``params`` (an
+    NSParams) brings Boussinesq buoyancy when its β ≠ 0, the coefficients
+    rounded to ``dtype``.  ``emit="rhs"``
     (the iterative solvers): pred_bt emits the Poisson right-hand side and
     ``corr`` takes a physical p.  The default runs the wrappers (kernels
     on CUDA, plain versions on CPU).  ``plain=True`` is a reference switch
@@ -194,14 +208,14 @@ class Projection2DKernels:
 
     def __init__(self, ny, nx, dx, dy, xmin, ymin, nu, dst_mats=None,
                  with_sources=True, plain=False, emit="btilde",
-                 precision="highest"):
+                 precision="highest", params=None, dtype=torch.float32):
         if emit not in ("btilde", "rhs"):
             raise ValueError(f"emit must be 'btilde' or 'rhs', got {emit!r}")
         rolling._check_precision(precision)
         self.emit = emit
         self.precision = precision
-        self.consts = StencilConsts(1, ny, nx, dx, dy, 0.0, xmin, ymin,
-                                    float(nu), bool(with_sources))
+        self.consts = stencil_consts(1, ny, nx, dx, dy, 0.0, xmin, ymin, nu,
+                                     with_sources, params, dtype)
         if emit == "btilde":
             self.fxt, self.gxt = dst_mats
         if plain:
@@ -214,17 +228,28 @@ class Projection2DKernels:
             self._dot, self._corr = right_dot, corrector_2d
             self._rhs = poisson_rhs_2d
 
-    def predictor_and_poisson_input(self, u, v, w, p, dt, su, sv,
-                                    rho_over_dt):
-        """pred_bt: (u*, v*, w*, b̃·FxT), or (u*, v*, w*, rhs) with
-        ``emit="rhs"``; each (1, ny, nx).  ``dt``, ``su``, ``sv`` and
-        ``rho_over_dt`` are 0-d tensors on the field's device."""
+    def predictor(self, u, v, w, dt, su, sv, T=None):
+        """``pred_only``: (u*, v*, w*), each (1, ny, nx); ``T`` the
+        step-start temperature, read with buoyancy.  ``dt``, ``su`` and
+        ``sv`` are 0-d tensors on the field's device."""
+        return self._star(u, v, w, torch.stack([dt, su, sv]), self.consts,
+                          T)
+
+    def poisson_input(self, us, vs, p, rho_over_dt):
+        """``bt_only``: b̃·FxT (the x-transformed b̃), or the rhs
+        (ρ/dt)∇·u* with ``emit="rhs"``, from the (refreshed) u*, v*."""
         c = self.consts
-        us, vs, ws = self._star(u, v, w, torch.stack([dt, su, sv]), c)
         if self.emit == "rhs":
-            return us, vs, ws, self._rhs(us, vs, rho_over_dt, c)
+            return self._rhs(us, vs, rho_over_dt, c)
         bt = self._bt(us, vs, p, rho_over_dt, c)
-        return us, vs, ws, self._dot(bt, self.fxt, self.precision)
+        return self._dot(bt, self.fxt, self.precision)
+
+    def predictor_and_poisson_input(self, u, v, w, p, dt, su, sv,
+                                    rho_over_dt, T=None):
+        """pred_bt: ``poisson_input(predictor(...))`` — (u*, v*, w*,
+        b̃·FxT), or (u*, v*, w*, rhs) with ``emit="rhs"``."""
+        us, vs, ws = self.predictor(u, v, w, dt, su, sv, T)
+        return us, vs, ws, self.poisson_input(us, vs, p, rho_over_dt)
 
     def corrector(self, us, vs, xhat, dt_over_rho):
         """corr: (u, v, p) from the y-line solve's x̂ (transform space);

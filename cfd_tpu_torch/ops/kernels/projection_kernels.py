@@ -3,15 +3,27 @@
 
 Only the configurations the ported steps run are ported: single device,
 uniform grid, DST-fused with the Thomas forward sweep in the predictor
-(``dst_mats`` + ``tdma_fwd``, nz ≥ 3, no buoyancy).  The reference's two
-TPU kernels become two chains of CUDA kernels that meet in device memory:
+(``dst_mats`` + ``tdma_fwd``, nz ≥ 3), with or without Boussinesq
+buoyancy.  The reference's two TPU kernels become two chains of CUDA
+kernels that meet in device memory:
 
 * **A1** ``ProjectionKernels.pred_bt`` (`projection_kernels.py:572-722`)
   → :meth:`ProjectionKernels.predictor_poisson_input`:
   :func:`predictor_star` → :func:`poisson_input` → `rolling.plane_dot`
   (forward xy DST) → `tdma.tdma_z_fwd`.  Returns (u*, v*, w*, d′, t),
   t None with ``tdma_bwd="analytic"`` (`tdma.tdma_z_fwd_d`: no t is
-  written, the back substitution rebuilds it).
+  written, the back substitution rebuilds it).  With buoyancy the
+  predictor takes the step-start T and adds ((−β)·g[c])·(T − T_ref) to
+  component c's source where g[c] ≠ 0 (`:319-321`, `:630-650`).
+* **A5**, the per-component family the ``bc_refresh`` step runs
+  (`projection_kernels.py:297-351`, `:466-514`; the reference's hook sits
+  between them, `projection.py:562-579`): ``make_predictor`` →
+  ``pred_u/v/w`` is :meth:`ProjectionKernels.predictor`
+  (:func:`predictor_star`), ``btilde_k``'s DST + Thomas form is
+  :meth:`ProjectionKernels.btilde` (:func:`poisson_input` → the forward
+  xy DST → the Thomas forward sweep), ``divergence`` is
+  :meth:`ProjectionKernels.rhs` (:func:`poisson_rhs`).  A1 is
+  ``btilde(predictor(...))``: the port's A1 was already this chain.
 * **A2** ``ProjectionKernels.corr_bwd`` (`projection_kernels.py:381-452`)
   → :meth:`ProjectionKernels.corrector_bwd_diag`: `tdma.tdma_z_bwd` (or
   `tdma.tdma_z_bwd_analytic`) → `rolling.plane_dot` (inverse xy DST) →
@@ -65,6 +77,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from ...solvers.energy import buoyancy_coefficients
 from ...solvers.ns.common import clamp
 from ...solvers.ns.params import PROJ_MAX_VELOCITY as CLAMP  # = kClamp
 from ..stencils import ddx, ddy, ddz, interior, laplacian, set_interior
@@ -92,6 +105,10 @@ class StencilConsts:
     ymin: float
     nu: float
     with_sources: bool = True
+    # ((−β)·g[c] or None where g[c] = 0, for c = x, y, z), T_ref), exact
+    # in the field's dtype (`solvers.energy.buoyancy_coefficients`); None
+    # without buoyancy
+    buoyancy: tuple = None
 
     @property
     def inv_2dx(self):
@@ -121,6 +138,29 @@ class StencilConsts:
         return (self.inv_2dx, self.inv_2dy, self.inv_2dz,
                 self.inv_dx2, self.inv_dy2, self.inv_dz2)
 
+    def buoyancy_args(self):
+        """The predictor kernels' trailing (b0, b1, b2, T_ref, mask)."""
+        if self.buoyancy is None:
+            return 0.0, 0.0, 0.0, 0.0, 0
+        coefs, tref = self.buoyancy
+        mask = sum(1 << q for q, b in enumerate(coefs) if b is not None)
+        return (*(0.0 if b is None else b for b in coefs), tref, mask)
+
+
+def stencil_consts(nz, ny, nx, dx, dy, dz, xmin, ymin, nu, with_sources,
+                   params=None, dtype=torch.float32) -> StencilConsts:
+    """StencilConsts of one grid, with the buoyancy of ``params`` (an
+    NSParams; β ≠ 0) in ``dtype``: the components whose gravity is 0 get
+    no term, as in the reference's kernels."""
+    buoy = None
+    if params is not None and params.buoyancy_enabled:
+        coefs, tref = buoyancy_coefficients(params.beta, params.gravity,
+                                            params.T_ref, dtype)
+        buoy = (tuple(b if g != 0.0 else None
+                      for b, g in zip(coefs, params.gravity)), tref)
+    return StencilConsts(nz, ny, nx, dx, dy, dz, xmin, ymin, float(nu),
+                         bool(with_sources), buoy)
+
 
 def _check(c: StencilConsts, fields, scalars):
     """(nz, ny, nx) float32 fields and float32 scalars on one CUDA device."""
@@ -133,12 +173,13 @@ def _check(c: StencilConsts, fields, scalars):
 
 # ---- A1 (a): predictor u*, v*, w* ----------------------------------------
 
-def predictor_star_plain(u, v, w, scal, c: StencilConsts):
+def predictor_star_plain(u, v, w, scal, c: StencilConsts, T=None):
     """u* = clamp(u + dt(−u·∇u + ν∇²u + src)) on the interior, shells
     passed through; ``scal`` = [dt, su, sv] (source amplitudes with the
-    decay folded in).  Also the plain version of the 2D predictor: on a
-    one-plane field the z terms vanish (the reference's inv_dz2 = 0
-    idiom), leaving its 2D operation order."""
+    decay folded in); with ``c.buoyancy`` the step-start ``T`` adds
+    b[c]·(T − T_ref) to component c's source.  Also the plain version of
+    the 2D predictor: on a one-plane field the z terms vanish (the
+    reference's inv_dz2 = 0 idiom), leaving its 2D operation order."""
     dt, su, sv = scal[0], scal[1], scal[2]
     i2x, i2y, i2z, ix2, iy2, iz2 = c.derivs()
     uc, vc, wc = interior(u), interior(v), interior(w)
@@ -156,18 +197,40 @@ def predictor_star_plain(u, v, w, scal, c: StencilConsts):
         src_v = sv * torch.sin(2.0 * torch.pi * (c.xmin + ii * c.dx))[None]
     else:
         src_u = src_v = 0.0
-    return star(u, src_u), star(v, src_v), star(w, 0.0)
+    srcs = [src_u, src_v, 0.0]
+    if c.buoyancy is not None:
+        coefs, tref = c.buoyancy
+        dT = interior(T) - tref
+        srcs = [s if b is None else s + b * dT for s, b in zip(srcs, coefs)]
+    return star(u, srcs[0]), star(v, srcs[1]), star(w, srcs[2])
 
 
-def predictor_star(u, v, w, scal, c: StencilConsts):
-    """(u*, v*, w*) — ``pred_star_kernel`` on CUDA."""
+def check_buoyancy_input(c: StencilConsts, T, shape):
+    """With buoyancy the predictor kernels read T: a float32 CUDA field
+    of the grid's shape."""
+    if c.buoyancy is None:
+        return
+    if T is None:
+        raise ValueError("the buoyant predictor needs the temperature T")
+    native.check_cuda(T)
+    if tuple(T.shape) != shape:
+        raise ValueError(f"expected T of shape {shape}, got "
+                         f"{tuple(T.shape)}")
+
+
+def predictor_star(u, v, w, scal, c: StencilConsts, T=None):
+    """(u*, v*, w*) — ``pred_star_kernel`` on CUDA; ``T`` is read with
+    buoyancy only."""
     if native.on_cpu(u):
-        return predictor_star_plain(u, v, w, scal, c)
+        return predictor_star_plain(u, v, w, scal, c, T)
     _check(c, (u, v, w), (scal,))
+    check_buoyancy_input(c, T, (c.nz, c.ny, c.nx))
     us, vs, ws = (torch.empty_like(u) for _ in range(3))
+    t_ptr = None if c.buoyancy is None else native.ptr(T)
     native.launch("cfd_pred_star", u.device, *map(native.ptr, (
-        u, v, w, us, vs, ws, scal)), c.nz, c.ny, c.nx, c.nu, *c.derivs(),
-        c.xmin, c.ymin, c.dx, c.dy, int(c.with_sources))
+        u, v, w, us, vs, ws, scal)), t_ptr, c.nz, c.ny, c.nx, c.nu,
+        *c.derivs(), c.xmin, c.ymin, c.dx, c.dy, int(c.with_sources),
+        *c.buoyancy_args())
     predictor_star.launches += 1
     return us, vs, ws
 
@@ -287,6 +350,8 @@ def reset_launch_counts() -> None:
 class ProjectionKernels:
     """The two mega kernels for one (uniform grid, dtype, device).
 
+    ``params`` (an NSParams) brings Boussinesq buoyancy when its β ≠ 0,
+    with the coefficients rounded to ``dtype``.
     ``emit="btilde"`` (the spectral step): ``dst_mats`` = (FxT, Fy, GxT,
     Gy) and ``tdma_fwd`` = (mu plane, w) from
     `solvers.poisson.spectral.make_dst_fused_pieces`; nz ≥ 3.
@@ -306,7 +371,7 @@ class ProjectionKernels:
     def __init__(self, nz, ny, nx, dx, dy, dz, xmin, ymin, nu,
                  dst_mats=None, tdma_fwd=None, with_sources=True,
                  plain=False, emit="btilde", dst_precision="highest",
-                 tdma_bwd="stored"):
+                 tdma_bwd="stored", params=None, dtype=torch.float32):
         self.emit = emit
         rolling._check_precision(dst_precision)
         if tdma_bwd not in ("stored", "analytic"):
@@ -330,8 +395,8 @@ class ProjectionKernels:
                     device=self.mu.device)
         elif emit != "rhs":
             raise ValueError(f"emit must be 'btilde' or 'rhs', got {emit!r}")
-        self.consts = StencilConsts(nz, ny, nx, dx, dy, dz, xmin, ymin,
-                                    float(nu), bool(with_sources))
+        self.consts = stencil_consts(nz, ny, nx, dx, dy, dz, xmin, ymin, nu,
+                                     with_sources, params, dtype)
         if plain:
             self._star, self._bt, self._dot = (
                 predictor_star_plain, poisson_input_plain, plane_dot_plain)
@@ -348,21 +413,39 @@ class ProjectionKernels:
             self._fwd_d, self._bwd_an = tdma_z_fwd_d, tdma_z_bwd_analytic
             self._rhs = poisson_rhs
 
-    def predictor_poisson_input(self, u, v, w, p, dt, su, sv, rho_over_dt):
-        """A1: (u*, v*, w*, d′, t), t None with the analytic back
-        substitution; or (u*, v*, w*, rhs) with ``emit="rhs"``.
-        ``dt``, ``su``, ``sv`` and ``rho_over_dt`` are 0-d tensors on the
-        field's device."""
-        c = self.consts
-        scal = torch.stack([dt, su, sv])
-        us, vs, ws = self._star(u, v, w, scal, c)
-        if self.emit == "rhs":
-            return us, vs, ws, self._rhs(us, vs, ws, rho_over_dt, c)
-        bt = self._bt(us, vs, ws, p, rho_over_dt, c)
+    def predictor(self, u, v, w, dt, su, sv, T=None):
+        """A5 ``make_predictor`` → ``pred_u/v/w`` (`projection_kernels.py:
+        297-338`): (u*, v*, w*), the caller's shells passed through; ``T``
+        the step-start temperature, read with buoyancy.  ``dt``, ``su``
+        and ``sv`` are 0-d tensors on the field's device."""
+        return self._star(u, v, w, torch.stack([dt, su, sv]), self.consts,
+                          T)
+
+    def btilde(self, us, vs, ws, p, rho_over_dt):
+        """A5 ``btilde_k``, the DST + Thomas form (`:466-514`): b̃ =
+        face_coeff·p − (ρ/dt)∇·u*, its forward xy DST and the Thomas
+        forward sweep along z — (d′, t), t None with the analytic back
+        substitution."""
+        bt = self._bt(us, vs, ws, p, rho_over_dt, self.consts)
         bhat = self._dot(bt, self.fxt, self.fy, self.precision)
         if self.bwd_analytic:
-            return us, vs, ws, self._fwd_d(bhat, self.mu, self.w), None
-        return (us, vs, ws) + tuple(self._fwd(bhat, self.mu, self.w))
+            return self._fwd_d(bhat, self.mu, self.w), None
+        return tuple(self._fwd(bhat, self.mu, self.w))
+
+    def rhs(self, us, vs, ws, rho_over_dt):
+        """A5 ``divergence`` (`:340-351`): the iterative solvers'
+        right-hand side (ρ/dt)∇·u* on the interior, zero shell."""
+        return self._rhs(us, vs, ws, rho_over_dt, self.consts)
+
+    def predictor_poisson_input(self, u, v, w, p, dt, su, sv, rho_over_dt,
+                                T=None):
+        """A1: ``btilde(predictor(...))`` — (u*, v*, w*, d′, t), t None
+        with the analytic back substitution; or, with ``emit="rhs"``,
+        ``rhs(predictor(...))`` — (u*, v*, w*, rhs)."""
+        us, vs, ws = self.predictor(u, v, w, dt, su, sv, T)
+        if self.emit == "rhs":
+            return us, vs, ws, self.rhs(us, vs, ws, rho_over_dt)
+        return (us, vs, ws) + self.btilde(us, vs, ws, p, rho_over_dt)
 
     def corrector_diag(self, us, vs, ws, p, dt_over_rho):
         """A5 ``corr_all``, non-DST single-chip form

@@ -1,10 +1,11 @@
 """The RK2 / RK4 stage kernel (counterpart of
 `cfd_tpu/ops/pallas/rk_kernels.py`, RK3 ``make_rk_stage``).
 
-Only the configuration the main path runs is ported: single device,
-uniform grid, the built-in decaying sources, no energy equation, no
-buoyancy.  One stage, with (factor, acc_mix, weight) choosing its Butcher
-position:
+Single device, uniform grid, the built-in decaying sources, with or
+without Boussinesq buoyancy (every stage, with the step-start T) and the
+energy equation with its thermal faces (the final stage; T advected by
+the final velocities, `rk_kernels.py:325-360`).  One stage, with
+(factor, acc_mix, weight) choosing its Butcher position:
 
     k    = RHS(stage state)    periodic-interior stencils, zero on the
                                shell and where ρ ≤ 1e-10
@@ -46,15 +47,17 @@ from ..stencils import (interior_mask, sx_m_periodic_interior,
                         sy_p_periodic_interior, sz_m_periodic_interior,
                         sz_p_periodic_interior)
 from . import native
-from .euler_kernels import (ExplicitConsts, check_inputs, maxima,
-                            maxima_buffers, viscosity)
+from .euler_kernels import (ExplicitConsts, buoyant_sources, check_inputs,
+                            energy_update_plain, maxima, maxima_buffers,
+                            thermal_output, viscosity)
 
 
 def momentum_rhs_plain(u, v, w, p, rho, sy, sx, su_eff, sv_eff,
-                       c: ExplicitConsts):
+                       c: ExplicitConsts, T=None):
     """(k_u, k_v, k_w, k_p): the semi-discrete RHS with periodic-interior
     stencils (`cfd_tpu/solvers/ns/rk.py:52-116`) in the kernel's
-    operation order; zero on the shell, and ×0 where ρ ≤ 1e-10.  On a
+    operation order; zero on the shell, and ×0 where ρ ≤ 1e-10; with
+    buoyancy (``c.thermal``) ``T`` adds the buoyant sources.  On a
     one-plane field every z term is dropped."""
     i2x, i2y, i2z, ix2, iy2, iz2 = c.derivs()
     three_d = c.nz > 1
@@ -85,8 +88,8 @@ def momentum_rhs_plain(u, v, w, p, rho, sy, sx, su_eff, sv_eff,
     dw_dx, dw_dy, dw_dz, lap_w = terms(w)
     dp_dx, dp_dy, dp_dz, _ = terms(p)
     nu = viscosity(c.mu, rho)
-    su = su_eff * sy[None, :, None]
-    sv = sv_eff * sx[None, None, :]
+    su, sv, sw = buoyant_sources(su_eff * sy[None, :, None],
+                                 sv_eff * sx[None, None, :], T, c)
 
     tu = -u * du_dx - v * du_dy
     tv = -u * dv_dx - v * dv_dy
@@ -103,9 +106,10 @@ def momentum_rhs_plain(u, v, w, p, rho, sy, sx, su_eff, sv_eff,
     def on_interior(k):
         return torch.where(interior, k * ok, 0.0)
 
+    rw = tw + nu * lap_w
     return (on_interior(((tu - dp_dx / rho) + nu * lap_u) + su),
             on_interior(((tv - dp_dy / rho) + nu * lap_v) + sv),
-            on_interior(tw + nu * lap_w),
+            on_interior(rw if sw is None else rw + sw),
             on_interior((-c.pressure_coupling * rho)
                         * clamp(div, MAX_DIVERGENCE_LIMIT)))
 
@@ -114,17 +118,20 @@ def rk_stage_plain(state, q0, rho, T, acc, sy, sx, scal, c: ExplicitConsts,
                    final: bool):
     """One RK stage in plain PyTorch, in the kernel's operation order.
     ``state``, ``q0`` and ``acc`` are (u, v, w, p) tuples (``acc`` may be
-    None); ``scal`` = [factor, acc_mix, weight, su, sv].  Also the plain
-    version of the 2D kernel."""
+    None); ``scal`` = [factor, acc_mix, weight, su, sv, dt] (dt read by
+    the final stage's energy update only).  Also the plain version of the
+    2D kernel."""
     factor, acc_mix, weight = scal[0], scal[1], scal[2]
-    ks = momentum_rhs_plain(*state, rho, sy, sx, scal[3], scal[4], c)
+    ks = momentum_rhs_plain(*state, rho, sy, sx, scal[3], scal[4], c, T)
     accs = (0.0,) * 4 if acc is None else acc
     nxt = [q + factor * (acc_mix * a + k) for q, a, k in zip(q0, accs, ks)]
     nxt[:3] = [clamp(f, MAX_VELOCITY_LIMIT) for f in nxt[:3]]
     if not final:
         return (*nxt, *(a + weight * k for a, k in zip(accs, ks)))
-    uo, vo, wo, po, rho_o, T_o = (apply_periodic_scalar(f)
-                                  for f in (*nxt, rho, T))
+    T_upd = (energy_update_plain(T, *nxt[:3], scal[5], c)
+             if c.thermal.energy else T)
+    uo, vo, wo, po, rho_o = (apply_periodic_scalar(f) for f in (*nxt, rho))
+    T_o = thermal_output(T_upd, c)
     return (uo, vo, wo, po, rho_o, T_o, *maxima(uo, vo, wo, po, T_o))
 
 
@@ -133,6 +140,9 @@ def launch_rk(state, q0, rho, T, acc, sy, sx, scal, c: ExplicitConsts,
     """One ``cfd_rk_stage`` launch (3D or 2D instantiation, by ``c.nz``);
     returns the outputs in :func:`rk_stage_plain`'s order."""
     check_inputs(c, (*state, *q0, rho, T, *(acc or ())), sy, sx, scal)
+    if final and c.thermal.energy and scal.numel() < 6:
+        raise ValueError("the final stage's energy update reads dt, "
+                         "scal[5]")
     u = state[0]
     outs = [torch.empty_like(u) for _ in range(6 if final else 8)]
     partials, red = maxima_buffers(c, u) if final else (None, None)
@@ -146,7 +156,7 @@ def launch_rk(state, q0, rho, T, acc, sy, sx, scal, c: ExplicitConsts,
     native.launch("cfd_rk_stage", u.device, ins, out_arr,
                   None if partials is None else native.ptr(partials),
                   None if red is None else native.ptr(red),
-                  *c.kernel_args(), int(final))
+                  *c.kernel_args(), int(final), *c.thermal.kernel_args())
     if not final:
         return tuple(outs)
     return (*outs, red[0], red[1], red[2], red[3])
@@ -154,7 +164,7 @@ def launch_rk(state, q0, rho, T, acc, sy, sx, scal, c: ExplicitConsts,
 
 def rk_stage(state, q0, rho, T, acc, sy, sx, scal, c: ExplicitConsts,
              final: bool):
-    """RK3, one 3D stage — ``rk_kernel<true, final>`` on CUDA."""
+    """RK3, one 3D stage — ``rk_kernel<true, final, *>`` on CUDA."""
     if native.on_cpu(state[0]):
         return rk_stage_plain(state, q0, rho, T, acc, sy, sx, scal, c, final)
     if c.nz < 3:

@@ -9,6 +9,7 @@ import torch
 from ...core.field import FlowField
 from ...core.grid import Grid
 from ...core.status import CFDError, Status
+from ..energy import thermal_dt_limit  # noqa: F401  (re-exported)
 from .params import (DT_MAX_LIMIT, DT_MIN_LIMIT, SPEED_EPSILON,
                      VELOCITY_EPSILON, NSParams, StepResult)
 
@@ -104,15 +105,6 @@ def source_basis(grid: Grid, dtype, device):
 
     return (vec(np.sin(np.pi * np.asarray(grid.y))),
             vec(np.sin(2.0 * np.pi * np.asarray(grid.x))))
-
-
-def thermal_dt_limit(alpha: float, dmin: float, ndim: int,
-                     cfl: float) -> float:
-    """Thermal diffusion bound dt < dmin²/(2·α·ndim)·cfl
-    (`energy.py:200-205`, `solver_explicit_euler.c:214-219`)."""
-    if alpha <= 0.0:
-        return float("inf")
-    return (dmin * dmin) / (2.0 * alpha * ndim) * cfl
 
 
 def compute_dt(field: FlowField, grid: Grid, params: NSParams) -> float:

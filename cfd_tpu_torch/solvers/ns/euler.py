@@ -10,7 +10,11 @@ euler2d_step` in 2D) with the reference's semantics
 * the artificial pressure coupling dp = −0.1·dt·ρ·clamp(div);
 * per-point ρ ≤ 1e-10 guards that keep the old values;
 * the boundary dance: periodic wrap of p, ρ and T (x → y → z), the
-  caller's velocity shells kept.
+  caller's velocity shells kept;
+* with ``params.beta != 0`` the Boussinesq sources −β(T − T_ref)·g, with
+  ``params.alpha > 0`` the energy equation (T advected by the updated
+  velocities) and then the thermal faces of ``params.thermal_bc``, all in
+  the same kernel (`euler.py:176-221`).
 
 The step is `_make_fused_euler_step` / `_make_fused_euler2d_step` of the
 reference (`euler.py:226-320`) with both wraps inside the kernel.  It
@@ -29,8 +33,9 @@ from ...core.field import FlowField
 from ...core.grid import Grid
 from ...core.status import CFDError, Status
 from ...ops.kernels.euler2d import euler2d_step
-from ...ops.kernels.euler_kernels import (ExplicitConsts, euler_step,
-                                          euler_step_plain)
+from ...ops.kernels.euler_kernels import (ExplicitConsts, ThermalConsts,
+                                          euler_step, euler_step_plain)
+from ..energy import validate_thermal_bc
 from .common import (iterate_with_divergence_guard, source_basis,
                      step_result, stretch_gate, validate_grid_for_solver)
 from .params import DT_CONSERVATIVE_LIMIT, NSParams, source_amplitudes
@@ -50,10 +55,8 @@ def check_explicit_slice(name: str, grid: Grid, params: NSParams,
         unsupported(reason)
     if params.nonuniform_scheme == "consistent":
         unsupported("the consistent nonuniform scheme")
-    if params.energy_enabled or params.heat_source_func is not None:
-        unsupported("the energy equation")
-    if params.buoyancy_enabled:
-        unsupported("Boussinesq buoyancy")
+    if params.heat_source_func is not None:
+        unsupported("a heat_source_func")
     if params.source_func is not None:
         unsupported("a custom source_func")
     if differentiable:
@@ -70,10 +73,13 @@ def explicit_setup(name: str, grid: Grid, params: NSParams, dtype, device,
     dtype = resolve_dtype(dtype, device)
     check_explicit_slice(name, grid, params, differentiable, dtype, device)
     validate_grid_for_solver(grid, grid.shape)
+    if params.energy_enabled:
+        validate_thermal_bc(params.thermal_bc, grid)
     device = resolve_device(device)
     consts = ExplicitConsts(grid.nz, grid.ny, grid.nx, grid.dx0, grid.dy0,
                             grid.dz0, float(params.mu),
-                            float(params.pressure_coupling))
+                            float(params.pressure_coupling),
+                            ThermalConsts.from_params(params, dtype))
     return dtype, device, consts, source_basis(grid, dtype, device)
 
 

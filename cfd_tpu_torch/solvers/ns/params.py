@@ -2,7 +2,8 @@
 `cfd_tpu/solvers/ns/params.py`).
 
 ``NSParams`` keeps the reference's fields and defaults one for one, so a
-test can carry a parameter set across with ``NSParams.from_fields``.
+parameter set carries across with ``NSParams.from_fields`` (the thermal
+BC configuration converted to the port's own, `interop.thermal_bc_from`).
 ``StepResult`` holds 0-d tensors on the field's device: reading one is the
 caller's choice of when to synchronise; ``NSStats`` is the host-side
 record the ``NSSolver`` facade reads from it.
@@ -11,10 +12,11 @@ record the ``NSSolver`` facade reads from it.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
+from ...boundary.types import ThermalBCConfig
 from ...core.status import Status
 
 DEFAULT_TIME_STEP = 0.001
@@ -48,10 +50,10 @@ PROJ_MAX_VELOCITY = 100.0
 
 @dataclasses.dataclass(frozen=True)
 class NSParams:
-    """Mirrors the reference's ``NSParams`` (same fields, same defaults).
-    ``thermal_bc`` is held as given: the energy equation is not ported yet,
-    and the projection step refuses any configuration that would read it.
-    """
+    """Mirrors the reference's ``NSParams`` (same fields, same defaults):
+    ``thermal_bc`` defaults to the port's all-PERIODIC ``ThermalBCConfig()``
+    as the reference's does (`params.py:81`); ``alpha > 0`` turns the energy
+    equation on and ``beta != 0`` the Boussinesq buoyancy."""
 
     dt: float = DEFAULT_TIME_STEP
     cfl: float = DEFAULT_CFL_NUMBER
@@ -70,7 +72,7 @@ class NSParams:
     T_ref: float = 0.0
     gravity: Tuple[float, float, float] = (0.0, 0.0, 0.0)
     heat_source_func: Optional[Callable] = None
-    thermal_bc: Any = None
+    thermal_bc: ThermalBCConfig = ThermalBCConfig()
     nonuniform_scheme: str = "parity"
 
     def __post_init__(self):
@@ -85,9 +87,12 @@ class NSParams:
     @classmethod
     def from_fields(cls, other) -> "NSParams":
         """Copy every field of the same name from ``other`` (e.g. the
-        reference package's NSParams)."""
-        return cls(**{f.name: getattr(other, f.name)
-                      for f in dataclasses.fields(cls)})
+        reference package's NSParams); its ``thermal_bc`` is converted to
+        the port's ``ThermalBCConfig`` by enum value and field name."""
+        from ...interop import thermal_bc_from
+        kw = {f.name: getattr(other, f.name) for f in dataclasses.fields(cls)}
+        kw["thermal_bc"] = thermal_bc_from(kw["thermal_bc"])
+        return cls(**kw)
 
     @property
     def energy_enabled(self) -> bool:

@@ -8,8 +8,9 @@ The pressure solve is the reference's default CG (`solver_projection.c:
 A 3D spectral step (nz ≥ 3) is the reference's two-kernel spectral
 projection:
 
-* A1 (`ProjectionKernels.predictor_poisson_input`): predictor
-  u* = clamp(u + dt(−u·∇u + ν∇²u + f)) with caller shells passed through,
+* A1, run as its two halves (A5's ``pred_u/v/w`` and ``btilde_k``):
+  `ProjectionKernels.predictor`, u* = clamp(u + dt(−u·∇u + ν∇²u + f))
+  with caller shells passed through, then `ProjectionKernels.btilde`,
   b̃ = face_coeff·p − (ρ/dt)∇·u*, forward xy DST and the Thomas forward
   sweep along z;
 * A2 (`ProjectionKernels.corrector_bwd_diag`): Thomas back substitution,
@@ -29,10 +30,11 @@ no t), the reference's HIGHEST and HIGH (`projection.py:403-432`); the
 ``"default"`` (one TF32 pass, which the reference routes to its emit-b̃
 kernels) is not ported.
 
-A 3D CG step (`:600-621`, nz ≥ 3) is the predictor, A1's rhs form
-(ρ/dt)∇·u*, the CG solve on the fused passes warm-started from p
-(`poisson.krylov.make_cg_fused`), the corrector with its maxima on the
-physical p (`ProjectionKernels.corrector_diag`) and the same face fold.
+A 3D CG step (`:600-621`, nz ≥ 3) is the predictor, the rhs
+(ρ/dt)∇·u* (`ProjectionKernels.rhs`, A5's ``divergence``), the CG solve
+on the fused passes warm-started from p (`poisson.krylov.make_cg_fused`),
+the corrector with its maxima on the physical p
+(`ProjectionKernels.corrector_diag`) and the same face fold.
 A 3D multigrid step (`:609-621` around `_make_multigrid` `:46-48`) is the
 same step with the V-cycle iteration (`poisson.multigrid.make_multigrid`,
 the sweep kernel on every level) in place of CG; so are the BiCGSTAB step
@@ -44,11 +46,12 @@ reference runs its jnp body (its kernels' ``nx % 128`` gate, a TPU one,
 fails there); the port keeps its kernels, as for CG.
 
 A 2D step (nz == 1) is the reference's fused 2D form on every grid.
-Spectral: `Projection2DKernels.predictor_and_poisson_input` (predictor
-and b̃·FxT), the y-line solve of `make_dst2d_fused_pieces` (Thomas + dense
-low-mode rescue), `Projection2DKernels.corrector` (p = x̂·GxT,
-corrector).  CG (`:693-698`): predictor and rhs, the whole-solve CG
-kernel (`poisson.krylov.make_cg_vmem`), the corrector on the physical p;
+Spectral: `Projection2DKernels.predictor` then ``poisson_input`` (the
+predictor, then b̃·FxT: ``pred_only`` / ``bt_only``), the y-line solve
+of `make_dst2d_fused_pieces` (Thomas + dense low-mode rescue),
+`Projection2DKernels.corrector` (p = x̂·GxT, corrector).  CG
+(`:693-698`): predictor and rhs, the whole-solve CG kernel
+(`poisson.krylov.make_cg_vmem`), the corrector on the physical p;
 BiCGSTAB, Red-Black SOR and Jacobi the same with their whole-solve
 kernels.  The reference's step runs those kernels only on grids that fit
 VMEM (`:260-271`), its jnp makers otherwise, and never the fused
@@ -60,6 +63,17 @@ jnp ``make_multigrid`` by design.  A multigrid grid that cannot be
 coarsened raises ``ERROR_UNSUPPORTED``, as the reference's.
 In both, w = w* and the diagnostics come from
 `field_status_and_diagnostics` over the new field.
+
+Every branch runs the predictor on its own (A5's ``pred_u/v/w``, 2D
+``pred_only``), then the caller's ``bc_refresh`` hook when one is given
+(`projection.py:562-566`, `:671-679`), then b̃ or the rhs from the
+refreshed u*, v*, w* (A5's ``btilde_k`` / ``divergence``, 2D
+``bt_only``): without a hook that chain is A1.  Boussinesq buoyancy
+(β ≠ 0) rides the predictor kernels with the step-start T.  The energy
+equation (α > 0) runs after the corrector on the new velocities, in plain
+PyTorch as the reference's jnp post-step, then the thermal BCs of
+``params.thermal_bc`` (`projection.py:624-630`, `:702-708`); the
+diagnostics' max T is that of the new T.
 
 ρ is taken from the first grid point, floored at 1e-10 → 1.0.  dt, the
 decayed source amplitudes, ρ and every diagnostic stay 0-d device
@@ -92,6 +106,7 @@ from ..poisson.multigrid import (make_multigrid, make_multigrid_vmem,
 from ..poisson.stationary import (make_jacobi_vmem, make_redblack_sor_fused,
                                   make_redblack_sor_vmem)
 from ..poisson.spectral import make_dst2d_fused_pieces, make_dst_fused_pieces
+from ..energy import apply_thermal_bcs, make_energy_step, validate_thermal_bc
 from .common import (field_status_and_diagnostics, step_result,
                      validate_grid_for_solver)
 from .params import NSParams
@@ -125,8 +140,7 @@ _PRECISIONS = {None: "highest", "highest": "highest", "high": "high"}
 
 
 def _check_slice(grid: Grid, params: NSParams, poisson_method,
-                 spectral_precision, differentiable, bc_refresh,
-                 dtype, device):
+                 spectral_precision, differentiable, dtype, device):
     method = Method(poisson_method)
     if method != Method.FFT_DIRECT and (method, True) not in _ITERATIVE:
         _unsupported(f"poisson_method {method.name}")
@@ -134,14 +148,10 @@ def _check_slice(grid: Grid, params: NSParams, poisson_method,
         _unsupported("a stretched grid")
     if params.nonuniform_scheme == "consistent":
         _unsupported("the consistent nonuniform scheme")
-    if params.energy_enabled or params.heat_source_func is not None:
-        _unsupported("the energy equation")
-    if params.buoyancy_enabled:
-        _unsupported("Boussinesq buoyancy")
+    if params.heat_source_func is not None:
+        _unsupported("a heat_source_func")
     if params.source_func is not None:
         _unsupported("a custom source_func")
-    if bc_refresh is not None:
-        _unsupported("bc_refresh")
     if differentiable:
         _unsupported("the differentiable step")
     if method == Method.FFT_DIRECT and spectral_precision not in _PRECISIONS:
@@ -150,6 +160,23 @@ def _check_slice(grid: Grid, params: NSParams, poisson_method,
                      f"3xTF32)")
     if device.type == "cuda" and dtype != torch.float32:
         _unsupported(f"{dtype} on CUDA (the kernels are float32)")
+
+
+def thermal_post_step(grid: Grid, params: NSParams):
+    """``post(field, dt) -> field``: the energy step on the new field with
+    its new velocities, then the thermal BCs (`projection.py:624-630`,
+    `:702-708`); the field as it is when the energy equation is off."""
+    energy_step = make_energy_step(grid, params.alpha,
+                                   params.heat_source_func,
+                                   scheme=params.nonuniform_scheme)
+    if energy_step is None:
+        return lambda field, dt: field
+
+    def post(field, dt):
+        T = energy_step(field.T, field.u, field.v, field.w, dt)
+        return field.replace(T=apply_thermal_bcs(T, params.thermal_bc))
+
+    return post
 
 
 def make_projection_step(grid: Grid, params: NSParams, dtype=None,
@@ -169,6 +196,14 @@ def make_projection_step(grid: Grid, params: NSParams, dtype=None,
     ``spectral_precision`` (None or ``"highest"``, or ``"high"``)
     applies to the spectral solve only.
 
+    ``bc_refresh``: an optional ``fn(u*, v*, w*, t_next) -> (u*, v*, w*)``
+    run on the predictor's state before the pressure solve, with
+    ``t_next = (iter_idx + 1)·dt`` a 0-d tensor (`projection.py:102-122`):
+    the caller's boundary application, so the predictor's shell is
+    consistent with its interior.  ``params`` with α > 0 turns on the
+    energy equation (run after the corrector, then ``params.thermal_bc``),
+    with β ≠ 0 the Boussinesq buoyancy in the predictor.
+
     On the card (the default, ``device=None``) the step launches the
     hand-written kernels; with ``device="cpu"`` the same wrappers run
     their plain PyTorch versions.  Without a CUDA device the default
@@ -182,8 +217,10 @@ def make_projection_step(grid: Grid, params: NSParams, dtype=None,
     device = device_of(device)
     dtype = resolve_dtype(dtype, device)
     _check_slice(grid, params, poisson_method, spectral_precision,
-                 differentiable, bc_refresh, dtype, device)
+                 differentiable, dtype, device)
     validate_grid_for_solver(grid, grid.shape)
+    if params.energy_enabled:
+        validate_thermal_bc(params.thermal_bc, grid)
     device = resolve_device(device)
 
     problem = PoissonProblem(grid.nx, grid.ny, grid.nz, grid.dx0,
@@ -192,6 +229,9 @@ def make_projection_step(grid: Grid, params: NSParams, dtype=None,
                     or params.source_amplitude_v != 0.0)
     decay_rate = params.source_decay_rate
     amp_u, amp_v = params.source_amplitude_u, params.source_amplitude_v
+    post = thermal_post_step(grid, params)
+    kernel_kw = dict(with_sources=with_sources, plain=plain, params=params,
+                     dtype=dtype)
 
     def scalars(field: FlowField, dt, iter_idx):
         """(dt, su, sv, ρ) as 0-d tensors on the field's device."""
@@ -203,9 +243,19 @@ def make_projection_step(grid: Grid, params: NSParams, dtype=None,
         rho0 = torch.where(rho0 < 1e-10, torch.ones_like(rho0), rho0)
         return dt, amp_u * decay, amp_v * decay, rho0
 
-    def folded_result(field, u, v, w, p, m2i, pmaxi, pabsi, **solve):
+    def predict(pk, field, dt, su, sv, iter_idx):
+        """The predictor, then the caller's hook at t_next."""
+        us, vs, ws = pk.predictor(field.u, field.v, field.w, dt, su, sv,
+                                  field.T)
+        if bc_refresh is not None:
+            us, vs, ws = bc_refresh(us, vs, ws, (iter_idx + 1) * dt)
+        return us, vs, ws
+
+    def folded_result(field, m2i, pmaxi, pabsi, **solve):
         """The kernels' maxima cover planes 1..nz−2; fold in the
-        z-shells."""
+        z-shells of the new ``field``."""
+        u, v, w, p = field.u, field.v, field.w, field.p
+
         def m2_face(k):
             return torch.amax(u[k] ** 2 + v[k] ** 2 + w[k] ** 2)
 
@@ -219,6 +269,7 @@ def make_projection_step(grid: Grid, params: NSParams, dtype=None,
         return step_result(finite, torch.sqrt(m2), pmax,
                            torch.amax(field.T), **solve)
 
+    step_kw = dict(scalars=scalars, predict=predict, post=post)
     method = Method(poisson_method)
     if method != Method.FFT_DIRECT:
         # poisson_params as given: no factory defaults (Jacobi's are the
@@ -229,10 +280,10 @@ def make_projection_step(grid: Grid, params: NSParams, dtype=None,
         if solve is None:
             raise_not_coarsenable("multigrid")
         if grid.nz == 1:
-            return _make_iterative_step_2d(grid, params, solve, plain,
-                                           with_sources, scalars)
-        return _make_iterative_step_3d(grid, params, solve, plain,
-                                       with_sources, scalars, folded_result)
+            return _make_iterative_step_2d(grid, params, solve, kernel_kw,
+                                           **step_kw)
+        return _make_iterative_step_3d(grid, params, solve, kernel_kw,
+                                       folded_result, **step_kw)
 
     precision = _PRECISIONS[spectral_precision]
     if grid.nz == 1:
@@ -240,16 +291,15 @@ def make_projection_step(grid: Grid, params: NSParams, dtype=None,
             problem, dtype, device, plain=plain, precision=precision)
         pk2 = Projection2DKernels(
             grid.ny, grid.nx, grid.dx0, grid.dy0, grid.xmin, grid.ymin,
-            params.mu, (fxt, gxt), with_sources=with_sources, plain=plain,
-            precision=precision)
+            params.mu, (fxt, gxt), precision=precision, **kernel_kw)
 
         def step_2d(field: FlowField, dt, iter_idx):
             dt, su, sv, rho0 = scalars(field, dt, iter_idx)
-            us, vs, ws, bt_x = pk2.predictor_and_poisson_input(
-                field.u, field.v, field.w, field.p, dt, su, sv, rho0 / dt)
+            us, vs, ws = predict(pk2, field, dt, su, sv, iter_idx)
+            bt_x = pk2.poisson_input(us, vs, field.p, rho0 / dt)
             u, v, p = pk2.corrector(us, vs, ysolve(bt_x), dt / rho0)
             # the w-correction is identically zero in 2D (inv_dz2 = 0)
-            new_field = field.replace(u=u, v=v, w=ws, p=p)
+            new_field = post(field.replace(u=u, v=v, w=ws, p=p), dt)
             return new_field, step_result(
                 *field_status_and_diagnostics(new_field))
 
@@ -261,65 +311,65 @@ def make_projection_step(grid: Grid, params: NSParams, dtype=None,
     pk = ProjectionKernels(
         grid.nz, grid.ny, grid.nx, grid.dx0, grid.dy0, grid.dz0,
         grid.xmin, grid.ymin, params.mu, mats, tdma_fwd,
-        with_sources=with_sources, plain=plain, dst_precision=precision,
-        tdma_bwd="analytic" if precision == "high" else "stored")
+        dst_precision=precision,
+        tdma_bwd="analytic" if precision == "high" else "stored",
+        **kernel_kw)
 
     def step(field: FlowField, dt, iter_idx):
         dt, su, sv, rho0 = scalars(field, dt, iter_idx)
-        us, vs, ws, d, t = pk.predictor_poisson_input(
-            field.u, field.v, field.w, field.p, dt, su, sv, rho0 / dt)
+        us, vs, ws = predict(pk, field, dt, su, sv, iter_idx)
+        d, t = pk.btilde(us, vs, ws, field.p, rho0 / dt)
         u, v, w, p, m2i, pmaxi, pabsi = pk.corrector_bwd_diag(
             us, vs, ws, d, t, dt / rho0)
-        return (field.replace(u=u, v=v, w=w, p=p),
-                folded_result(field, u, v, w, p, m2i, pmaxi, pabsi))
+        new_field = post(field.replace(u=u, v=v, w=w, p=p), dt)
+        return new_field, folded_result(new_field, m2i, pmaxi, pabsi)
 
     return step
 
 
-def _make_iterative_step_3d(grid, params, solve, plain, with_sources,
-                            scalars, folded_result):
-    """Predictor → rhs → the iterative ``solve`` (any but FFT_DIRECT)
-    warm-started from p → corrector with maxima → z-shell face fold
-    (`projection.py:600-621`).  ``step.poisson_solve`` is the solve;
-    ``step.last_poisson`` holds the last step's PoissonResult (0-d device
-    tensors: iterations, residuals, status)."""
+def _make_iterative_step_3d(grid, params, solve, kernel_kw, folded_result,
+                            scalars, predict, post):
+    """Predictor → hook → rhs → the iterative ``solve`` (any but
+    FFT_DIRECT) warm-started from p → corrector with maxima → energy →
+    z-shell face fold (`projection.py:600-621`).  ``step.poisson_solve``
+    is the solve; ``step.last_poisson`` holds the last step's
+    PoissonResult (0-d device tensors: iterations, residuals, status)."""
     pk = ProjectionKernels(
         grid.nz, grid.ny, grid.nx, grid.dx0, grid.dy0, grid.dz0,
-        grid.xmin, grid.ymin, params.mu, with_sources=with_sources,
-        plain=plain, emit="rhs")
+        grid.xmin, grid.ymin, params.mu, emit="rhs", **kernel_kw)
 
     def step(field: FlowField, dt, iter_idx):
         dt, su, sv, rho0 = scalars(field, dt, iter_idx)
-        us, vs, ws, rhs = pk.predictor_poisson_input(
-            field.u, field.v, field.w, field.p, dt, su, sv, rho0 / dt)
+        us, vs, ws = predict(pk, field, dt, su, sv, iter_idx)
+        rhs = pk.rhs(us, vs, ws, rho0 / dt)
         pres = step.last_poisson = solve(field.p, rhs)
         u, v, w, m2i, pmaxi, pabsi = pk.corrector_diag(us, vs, ws, pres.x,
                                                        dt / rho0)
-        return (field.replace(u=u, v=v, w=w, p=pres.x),
-                folded_result(field, u, v, w, pres.x, m2i, pmaxi, pabsi,
-                              residual=pres.final_residual,
-                              poisson_ok=pres.status == 0))
+        new_field = post(field.replace(u=u, v=v, w=w, p=pres.x), dt)
+        return new_field, folded_result(
+            new_field, m2i, pmaxi, pabsi, residual=pres.final_residual,
+            poisson_ok=pres.status == 0)
 
     step.poisson_solve, step.last_poisson = solve, None
     return step
 
 
-def _make_iterative_step_2d(grid, params, solve, plain, with_sources,
-                            scalars):
-    """Predictor → rhs → the whole-solve ``solve`` (any but FFT_DIRECT) →
-    corrector, w = w* (`projection.py:693-698`); ``poisson_solve`` and
-    ``last_poisson`` as in 3D."""
+def _make_iterative_step_2d(grid, params, solve, kernel_kw, scalars,
+                            predict, post):
+    """Predictor → hook → rhs → the whole-solve ``solve`` (any but
+    FFT_DIRECT) → corrector, w = w* → energy (`projection.py:693-708`);
+    ``poisson_solve`` and ``last_poisson`` as in 3D."""
     pk2 = Projection2DKernels(
         grid.ny, grid.nx, grid.dx0, grid.dy0, grid.xmin, grid.ymin,
-        params.mu, with_sources=with_sources, plain=plain, emit="rhs")
+        params.mu, emit="rhs", **kernel_kw)
 
     def step(field: FlowField, dt, iter_idx):
         dt, su, sv, rho0 = scalars(field, dt, iter_idx)
-        us, vs, ws, rhs = pk2.predictor_and_poisson_input(
-            field.u, field.v, field.w, field.p, dt, su, sv, rho0 / dt)
+        us, vs, ws = predict(pk2, field, dt, su, sv, iter_idx)
+        rhs = pk2.poisson_input(us, vs, field.p, rho0 / dt)
         pres = step.last_poisson = solve(field.p, rhs)
         u, v = pk2.corrector(us, vs, pres.x, dt / rho0)
-        new_field = field.replace(u=u, v=v, w=ws, p=pres.x)
+        new_field = post(field.replace(u=u, v=v, w=ws, p=pres.x), dt)
         return new_field, step_result(
             *field_status_and_diagnostics(new_field),
             residual=pres.final_residual, poisson_ok=pres.status == 0)

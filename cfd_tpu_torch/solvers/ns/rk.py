@@ -13,8 +13,11 @@ in 3D, `ops.kernels.rk2d.rk2d_stage` in 2D) as the reference's
 
 The RHS uses periodic-interior stencils, no BCs are applied between
 stages, and the final stage emits the periodic wrap of every field and
-the step's maxima (`solver_rk2.c`, `solver_rk4.c`).  No dt cap.  The
-step never reads a device value on the host.
+the step's maxima (`solver_rk2.c`, `solver_rk4.c`).  Boussinesq buoyancy
+(β ≠ 0) joins every stage's sources with the step-start T; the energy
+equation (α > 0) runs in the final stage on the final velocities, then
+the thermal faces (`rk.py:119-186`).  No dt cap.  The step never reads a
+device value on the host.
 """
 
 from __future__ import annotations
@@ -48,7 +51,8 @@ def make_momentum_rhs(grid: Grid, params: NSParams, dtype=None,
     def rhs(u, v, w, p, rho, T, iter_idx, dt):
         dt = as_scalar(dt, dtype, u.device)
         su, sv = source_amplitudes(params, iter_idx * dt)
-        return momentum_rhs_plain(u, v, w, p, rho, sy, sx, su, sv, consts)
+        return momentum_rhs_plain(u, v, w, p, rho, sy, sx, su, sv, consts,
+                                  T)
 
     return rhs
 
@@ -71,7 +75,7 @@ def _make_rk_step(grid: Grid, params: NSParams, order: int, dtype, device,
         state, acc = q0, None
         for n, (div, acc_mix, weight) in enumerate(tableau):
             scal = torch.stack([dt / div, acc_mix * one, weight * one, su,
-                                sv])
+                                sv, dt])
             final = n == len(tableau) - 1
             outs = stage(state, q0, field.rho, field.T, acc, sy, sx, scal,
                          consts, final)

@@ -116,6 +116,32 @@ Then BiCGSTAB, Red-Black SOR and Jacobi:
   end) at 33² in float64 (plain torch on the card: sweeps and ms),
   against the same SOR solve on the CPU.
 
+Then the boundary conditions, ``bc_refresh``, buoyancy and the energy
+equation:
+
+* phase 31: the buoyant predictor (``predictor_star`` with T, 3D and 2D)
+  at 37×23×11, 512³, 37×23 and 2048², and the Euler kernel and the RK
+  stage with the energy update, buoyancy and two mixes of Dirichlet,
+  Neumann and periodic thermal faces at 37×23×11, 256³, 37×23 and 2048²,
+  against their plain versions (bit-equal);
+* phase 32: ``bench.py:run_bc_refresh``'s configurations (the driven-lid
+  hook) — the 512³ step at HIGHEST and HIGH and the 2048² step, on both
+  paths, held after one step (both are past the explicit viscous limit;
+  the 2048² status is reported), with the launch counts showing the
+  predictor and b̃ once a step around the hook; the 256³ CG step with the
+  hook; and ``examples/pulsatile_inlet_flow.py``'s channel at 1024×512
+  (sinusoidal inlet, no-slip walls, zero-gradient outlet, the same BCs as
+  the hook), 300 steps on both paths, status 0 on every step;
+* phase 33: the 512³ spectral step with buoyancy and the energy equation
+  (T linear in z, Dirichlet back and front, Neumann sides) on both paths,
+  with the energy post-step's ms and its share of the step; the Euler,
+  RK2 and RK4 steps at 256³ and the Euler and RK2 steps at 2048² with
+  energy, buoyancy and thermal faces on both paths;
+* phase 34: ``bench.py:dvd_gate``, de Vahl Davis Ra = 1e4 at 128² through
+  the buoyant 2D step, marched in chunks of 4000 steps to the
+  kinetic-energy steady state (at most 80000), u_max*, v_max* and Nu_avg
+  within 4% of 16.178, 19.617 and 2.238, status 0 on every step.
+
 It checks status, finiteness, launch counters (set to 0 just before each
 main path and read just after) and kernel-vs-plain agreement; any
 failure exits non-zero.  The line before the last is a JSON object
@@ -252,6 +278,32 @@ N_NZ3 = (3, N_BIG, N_BIG)   # the nz = 3 spectral step, run_3d's physics
 HIGH_P, HIGH_U, HIGH_U_2D = 2e-3, 1e-4, 1e-5
 SOR_N = 33                 # SOR and Gauss-Seidel through poisson_solve
 
+# Phases 31-34: buoyancy, the energy equation and bc_refresh
+T_HOT, T_COLD, T_REF = 310.0, 290.0, 300.0
+BETA = 3e-3            # the buoyant checks' and steps' expansion coefficient
+ALPHA_3D = 1e-3        # 512³ at dt = 1e-4: inside dx²/(6α)
+ALPHA_EXPL = 1e-3      # 2048² at dt = 1e-5: inside dx²/(4α)
+# thermal faces (left, right, bottom, top, back, front): each type on
+# each axis between the two mixes
+THERMAL_FACE_MIXES = {
+    "mixed": ("DIRICHLET", "DIRICHLET", "NEUMANN", "NEUMANN", "PERIODIC",
+              "PERIODIC"),
+    "neumann_periodic": ("NEUMANN", "PERIODIC", "DIRICHLET", "NEUMANN",
+                         "NEUMANN", "DIRICHLET")}
+A1_BUOY = "cfd_tpu/ops/pallas/projection_kernels.py:576"  # pred_bt, T halo
+P2_BUOY = "cfd_tpu/ops/pallas/projection2d.py:200"        # pred_bt, T halo
+# examples/pulsatile_inlet_flow.py's channel, 1024×512 (ν = 0.05: the
+# viscous number 2ν·dt·(1/dx² + 1/dy²) is 0.52 at dt = 1e-5)
+PULSE = (1024, 512)
+PULSE_DT = 1e-5
+PULSE_STEPS = 300
+# bench.py:dvd_gate: de Vahl Davis Ra = 1e4 at 128²
+N_DVD = 128
+DVD_BETA = 0.003333
+DVD_DT = 5e-4
+DVD_CHUNK = 4000
+DVD_MAX_STEPS = 80000
+
 # The card's peaks for a kernel's bound (H100 SXM data sheet, at 700 W):
 # device memory 3.35 TB/s, float32 outside the tensor cores 67 TFLOP/s,
 # dense TF32 on the tensor cores 494.7 TFLOP/s (the 3xTF32 GEMM's rate).
@@ -268,6 +320,11 @@ FLOPS_PER_POINT = {"predictor_star": 90, "poisson_input": 12,
                    # a product and a quotient, the update's 2
                    "tdma_bwd_analytic": 27,
                    "euler": 130, "rk_stage": 150, "poisson_rhs": 8,
+                   # buoyancy: T − T_ref and a product and a sum a
+                   # component; the energy update (the final RK stage):
+                   # ~28 (two second differences, three advection terms)
+                   "predictor_star_buoyant": 97, "euler_thermal": 165,
+                   "rk_stage_thermal": 185,
                    "lap_dot": 18, "cg_update": 6,
                    # one whole-solve CG iteration: Ap, ⟨p,Ap⟩, the two
                    # α-updates, ⟨r,r⟩ and the p update
@@ -390,7 +447,10 @@ def main() -> int:
 
     from cfd_tpu_torch import FlowField, Grid
     from cfd_tpu_torch.api import Simulation
-    from cfd_tpu_torch.boundary import (DirichletValues,
+    from cfd_tpu_torch.boundary import (BCType, DirichletValues, InletConfig,
+                                        OutletConfig, ThermalBCConfig,
+                                        apply_inlet, apply_noslip,
+                                        apply_outlet_velocity,
                                         apply_dirichlet_scalar,
                                         apply_neumann_scalar)
     from cfd_tpu_torch.entry import entry
@@ -410,7 +470,8 @@ def main() -> int:
                                                  source_basis)
     from cfd_tpu_torch.solvers.ns.euler import make_euler_step
     from cfd_tpu_torch.solvers.ns.params import NSParams
-    from cfd_tpu_torch.solvers.ns.projection import make_projection_step
+    from cfd_tpu_torch.solvers.ns.projection import (make_projection_step,
+                                                     thermal_post_step)
     from cfd_tpu_torch.solvers.ns.rk import make_rk2_step, make_rk4_step
     from cfd_tpu_torch.solvers.ns.rollout import run_steps
     from cfd_tpu_torch.solvers.poisson import frontend, krylov
@@ -831,7 +892,8 @@ def main() -> int:
                          T=torch.full(shape, 300.0, device=dev))
 
     def timed_paths(phase, size, grid, params, shape, dt, n_steps,
-                    wrappers, first_step_only=False, precision=None):
+                    wrappers, first_step_only=False, precision=None,
+                    field_fn=None, bc_refresh=None):
         """Kernel path, then plain path: the first ``n_steps`` steps from
         the start field, as ``bench.py:_time_steps`` times them, once to
         warm up and once timed.  Both runs have one call pattern (the
@@ -841,9 +903,11 @@ def main() -> int:
         against each other after the timed steps, or with
         ``first_step_only`` after one step, p and what the corrector
         passes on to u and v at ``TOL_GEMM`` (the GEMMs' bar).
-        ``precision`` is the step's ``spectral_precision``.  Returns
-        (ms/step, launch counts)."""
+        ``precision`` is the step's ``spectral_precision``,
+        ``bc_refresh`` its hook; ``field_fn(shape)`` makes the start field
+        (``tg_field`` by default).  Returns (ms/step, launch counts)."""
         label = f"phase {phase} {size}"
+        field_fn = field_fn or tg_field
         finals, firsts, ms, counts = {}, {}, {}, {}
         cells = 1
         for m in shape:
@@ -852,10 +916,11 @@ def main() -> int:
             stepf = make_projection_step(grid, params, torch.float32,
                                          Method.FFT_DIRECT, device=dev,
                                          plain=path == "plain",
-                                         spectral_precision=precision)
+                                         spectral_precision=precision,
+                                         bc_refresh=bc_refresh)
             if first_step_only:
-                firsts[path] = stepf(tg_field(shape), dt, 0)[0]
-            f0 = tg_field(shape)
+                firsts[path] = stepf(field_fn(shape), dt, 0)[0]
+            f0 = field_fn(shape)
             run_steps(stepf, f0, dt, n_steps)
             sync()
             torch.cuda.reset_peak_memory_stats(dev)
@@ -875,7 +940,7 @@ def main() -> int:
                   f"max|u| {float(r2.max_velocity):.6f} (full-field "
                   f"{float(vmax):.6f}), max p {float(r2.max_pressure):.6f} "
                   f"(full-field {float(pmax):.6f})", flush=True)
-            if int(r2.status) != 0 or not bool(finite):
+            if not bool(finite) or int(r2.status) != 0:
                 fail(f"{label} {path} path: nonzero status or non-finite "
                      f"fields")
             if path == "kernel":
@@ -904,6 +969,9 @@ def main() -> int:
                         getattr(finals["plain"], name), TOL_FIELD, False)
             compare(tag, "p", finals["kernel"].p, finals["plain"].p,
                     TOL_GEMM, True)
+            if params.energy_enabled:
+                compare(tag, "T", finals["kernel"].T, finals["plain"].T,
+                        TOL_EXACT, True)
             return ms, counts
         # u = u* − (dt/ρ)(p₊ − p₋)·inv_2dx passes a p difference within
         # the GEMMs' bar on to u and v, at most 2·dt·inv_2dx·TOL_GEMM·max|p|
@@ -921,6 +989,8 @@ def main() -> int:
             compare(tag, name, getattr(fk, name), getattr(fp, name), tol,
                     False)
         compare(tag, "p", fk.p, fp.p, TOL_GEMM, True)
+        if params.energy_enabled:
+            compare(tag, "T", fk.T, fp.T, TOL_EXACT, True)
         return ms, counts
 
     # the counters were set to 0 before the entry steps above
@@ -1075,20 +1145,26 @@ def main() -> int:
     launch_counts = {"3d": counts3, "2d": counts2}
     explicit_ms = {}
 
-    def explicit_path(method, shape, n_steps, path_key, wrapper):
+    def explicit_path(method, shape, n_steps, path_key, wrapper,
+                      params=None, field_fn=None):
         """bench.py:run_euler_3d / run_euler_2d / run_rk_3d / run_rk_2d:
         the Taylor-Green field, sources off, ν = 0.01, dt = 1e-5, on the
         kernel path and the plain path — one step from the start, then
         ``n_steps`` once to warm up and once timed with CUDA events.
         Kernel and plain are held against each other after the first
         step and after the timed steps.  The launch counter is set to 0
-        just before the kernel path and read just after it."""
+        just before the kernel path and read just after it.  ``params``
+        and ``field_fn(shape)`` replace the configuration and the start
+        field: phase 33's thermal steps, keyed " thermal" and not
+        profiled."""
+        thermal = params is not None
         nz, ny, nx = shape
         grid = uniform_grid(shape)
-        params = NSParams(source_amplitude_u=0.0, source_amplitude_v=0.0,
-                          mu=0.01)
+        params = params or NSParams(source_amplitude_u=0.0,
+                                    source_amplitude_v=0.0, mu=0.01)
+        field_fn = field_fn or tg_field
         size = f"{nx}^3" if nz > 1 else f"{nx}^2"
-        label = f"phase 10 {method} {size}"
+        label = f"phase {33 if thermal else 10} {method} {size}"
         cells = nx * ny * nz
         firsts, finals, ms = {}, {}, {}
         for path in ("kernel", "plain"):
@@ -1096,8 +1172,8 @@ def main() -> int:
                 wrapper.launches = 0
             stepf = makers[method](grid, params, torch.float32, dev,
                                    plain=path == "plain")
-            firsts[path] = stepf(tg_field(shape), EXPL_DT, 0)[0]
-            f0 = tg_field(shape)
+            firsts[path] = stepf(field_fn(shape), EXPL_DT, 0)[0]
+            f0 = field_fn(shape)
             run_steps(stepf, f0, EXPL_DT, n_steps)
             sync()
             torch.cuda.reset_peak_memory_stats(dev)
@@ -1130,7 +1206,7 @@ def main() -> int:
                 counts = launch_counts.setdefault(path_key, {})
                 counts[wrapper.__name__] = (counts.get(wrapper.__name__, 0)
                                             + n_launch)
-                if do_profile:
+                if do_profile and not thermal:
                     profile_steps(torch, f"phase 5 {method} {size}",
                                   lambda: run_steps(stepf, f2, EXPL_DT,
                                                     PROFILED_STEPS,
@@ -1151,7 +1227,8 @@ def main() -> int:
             compare(f"{label} {n_steps + 1} steps", name,
                     getattr(finals["kernel"], name),
                     getattr(finals["plain"], name), tol_n, True)
-        explicit_ms[f"{method} {size}"] = ms
+        explicit_ms[f"{method} {size}" + (" thermal" if thermal
+                                          else "")] = ms
 
     n3, n2e = (N_EXPL,) * 3, (1, N_2D, N_2D)
     explicit_path("euler", n3, 10, "euler3d", ekm.euler_step)
@@ -2908,6 +2985,446 @@ def main() -> int:
         fail("phase 30 SOR: sweeps differ between the card and the CPU")
     compare("phase 30 SOR card vs CPU", "x", x_sor.cpu(), xc, 1e-12, True)
 
+    # ---- phase 31: the buoyant and thermal kernels against their plain
+    # versions: the buoyant predictor (3D and 2D) and the Euler and RK
+    # kernels with the energy update, buoyancy and mixed thermal faces
+    # (Dirichlet, Neumann and periodic), bit-equal
+    t_phase = time.perf_counter()
+
+    def thermal_params(faces):
+        """Energy, buoyancy and the thermal ``faces`` (BCType names)."""
+        names = ("left", "right", "bottom", "top", "back", "front")
+        return NSParams(
+            alpha=ALPHA_EXPL, beta=BETA, T_ref=T_REF,
+            gravity=(0.5, -9.81, 2.0), thermal_bc=ThermalBCConfig(
+                **{k: BCType[f] for k, f in zip(names, faces)},
+                dirichlet_values=DirichletValues(
+                    left=T_HOT, right=T_COLD, bottom=T_HOT, top=T_COLD,
+                    back=T_HOT, front=T_COLD)))
+
+    def buoyant_check(tag, timed, u, v, w, T, scal, c):
+        """The buoyant predictor (3D or 2D by u's shape) against its plain
+        version on the same inputs, bit-equal; ``tag`` names the phase
+        and the case."""
+        print(f"{tag}: buoyant predictor vs plain", flush=True)
+        three_d = u.shape[0] > 1
+        pw = pkm.predictor_star if three_d else pk2m.predictor_star_2d
+        check("buoy3d" if three_d else "buoy2d", tag, timed, pw,
+              A1_BUOY if three_d else P2_BUOY, SRC if three_d else SRC_2D,
+              lambda: pw(u, v, w, scal, c, T),
+              lambda: pkm.predictor_star_plain(u, v, w, scal, c, T),
+              ("u*", "v*", "w*"), (exact,) * 3,
+              work=((u, v, w, T, scal),
+                    FLOPS_PER_POINT["predictor_star_buoyant"] * u.numel()))
+
+    def dvd_case():
+        """bench.py:dvd_gate's configuration (`:736-776`): the grid, the
+        parameters, α, and the quiescent start with T linear in x (the
+        no-slip walls the march applies leave it as it is)."""
+        nd = N_DVD
+        nu_alpha = 9.81 * DVD_BETA * (T_HOT - T_COLD) / 1e4
+        alpha_d = math.sqrt(nu_alpha / 0.71)
+        params_d = NSParams(
+            dt=DVD_DT, mu=0.71 * alpha_d, alpha=alpha_d, beta=DVD_BETA,
+            T_ref=T_REF, gravity=(0.0, -9.81, 0.0), max_iter=1,
+            source_amplitude_u=0.0, source_amplitude_v=0.0,
+            thermal_bc=ThermalBCConfig(
+                left=BCType.DIRICHLET, right=BCType.DIRICHLET,
+                top=BCType.NEUMANN, bottom=BCType.NEUMANN,
+                dirichlet_values=DirichletValues(left=T_HOT, right=T_COLD)))
+        xd = torch.linspace(0.0, 1.0, nd, device=dev)
+        fd = FlowField.quiescent(nd, nd, pressure=0.0, dtype=torch.float32,
+                                 device=dev)
+        fd = fd.replace(T=(T_HOT - (T_HOT - T_COLD) * xd)[None, None, :]
+                        .expand(1, nd, nd).contiguous())
+        return Grid.uniform(nd, nd), params_d, alpha_d, fd
+
+    buoy_params = NSParams(beta=BETA, T_ref=T_REF, gravity=(0.0, -9.81, 2.0))
+    for shape in ((11, 23, 37), (N_BIG,) * 3, (1, 23, 37), (1, N_2D, N_2D)):
+        nz, ny, nx = shape
+        three_d = nz > 1
+        tag = "x".join(map(str, shape[::-1] if three_d else shape[:0:-1]))
+        grid = uniform_grid(shape)
+        f = noisy(FlowField.initialize(grid, dtype=torch.float32,
+                                       device=dev), SEED)
+        T = f.T + torch.randn(shape, generator=torch.Generator(
+            device=dev).manual_seed(SEED + 1), device=dev)
+        c = pkm.stencil_consts(nz, ny, nx, grid.dx0, grid.dy0, grid.dz0,
+                               grid.xmin, grid.ymin, NSParams().mu, True,
+                               buoy_params)
+        scal = torch.tensor([1e-3, 0.1, 0.05], device=dev)
+        buoyant_check(f"phase 31 {tag}", nx == N_BIG, f.u, f.v, f.w, T,
+                      scal, c)
+        del f, T
+        torch.cuda.empty_cache()
+    # the 2D one where the main path runs it, timed there: the de Vahl
+    # Davis march's first step (phase 34), with the consts and the
+    # scalars (dt, 0, 0) its step builds
+    grid_d, params_d, _, fd0 = dvd_case()
+    consts_d = pk2m.Projection2DKernels(
+        N_DVD, N_DVD, grid_d.dx0, grid_d.dy0, grid_d.xmin, grid_d.ymin,
+        params_d.mu, with_sources=False, emit="rhs", params=params_d).consts
+    scal_d = torch.tensor([DVD_DT, 0.0, 0.0], device=dev)
+    buoyant_check(f"phase 31 {N_DVD}x{N_DVD} de Vahl Davis start", True,
+                  fd0.u, fd0.v, fd0.w, fd0.T, scal_d, consts_d)
+    del fd0
+    for shape in ((11, 23, 37), (N_EXPL,) * 3, (1, 23, 37), (1, N_2D, N_2D)):
+        nz, ny, nx = shape
+        three_d = nz > 1
+        big = nx in (N_EXPL, N_2D)
+        tag = "x".join(map(str, shape[::-1] if three_d else shape[:0:-1]))
+        grid = uniform_grid(shape)
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+
+        def rnd(scale, shape=shape, gen=gen):
+            return scale * torch.randn(shape, generator=gen, device=dev)
+
+        f = FlowField.initialize(grid, dtype=torch.float32, device=dev)
+        rho = f.rho + rnd(0.01)
+        rho[nz // 2, ny // 2, nx // 2] = 1e-12   # the per-point ρ guard
+        f = FlowField(u=f.u + rnd(0.3), v=f.v + rnd(0.3), w=rnd(0.3),
+                      p=f.p + rnd(0.3), rho=rho, T=f.T + rnd(1.0))
+        sy, sx = source_basis(grid, torch.float32, dev)
+        cells = f.u.numel()
+        ew = ekm.euler_step if three_d else e2m.euler2d_step
+        sw = rkm.rk_stage if three_d else rk2m.rk2d_stage
+        q0 = (f.u, f.v, f.w, f.p)
+        st = tuple(x + rnd(0.01) for x in q0)
+        acc = tuple(rnd(5.0) for _ in range(4))
+        for faces_name, faces in THERMAL_FACE_MIXES.items():
+            print(f"phase 31 thermal explicit kernels vs plain at {tag}, "
+                  f"faces {faces_name}", flush=True)
+            timed = big and faces_name == "mixed"
+            th = ekm.ThermalConsts.from_params(thermal_params(faces),
+                                               torch.float32)
+            c = ekm.ExplicitConsts(nz, ny, nx, grid.dx0, grid.dy0,
+                                   grid.dz0, 0.01, 0.1, th)
+            ins = (f.u, f.v, f.w, f.p, f.T, f.rho, sy, sx,
+                   torch.tensor([1e-4, 0.08, 0.04], device=dev))
+            check("euler3d-thermal" if three_d else "euler2d-thermal",
+                  f"{tag} {faces_name}", timed, ew, E3 if three_d else E2,
+                  SRC_E, lambda: ew(*ins, c),
+                  lambda: ekm.euler_step_plain(*ins, c), names6 + maxima4,
+                  (exact,) * 10,
+                  work=(ins, FLOPS_PER_POINT["euler_thermal"] * cells))
+            for label, a, final, fac, mix, wgt in (
+                    ("first", None, False, 5e-5, 0.0, 1.0),
+                    ("mid", acc, False, 5e-5, 0.0, 2.0),
+                    ("final", acc, True, 1e-4 / 6.0, 1.0, 0.0)):
+                sc = torch.tensor([fac, mix, wgt, 0.08, 0.04, 1e-4],
+                                  device=dev)
+                read = (*st, *q0, f.rho, f.T, *(a or ()), sy, sx, sc)
+                outs = (names6 + maxima4 if final else
+                        tuple(f"next {n}" for n in "uvwp")
+                        + tuple(f"acc {n}" for n in "uvwp"))
+                check("rk3d-thermal" if three_d else "rk2d-thermal",
+                      f"{tag} {faces_name} {label}",
+                      timed and label == "final", sw,
+                      RK3 if three_d else RK2, SRC_RK,
+                      lambda: sw(st, q0, f.rho, f.T, a, sy, sx, sc, c,
+                                 final),
+                      lambda: rkm.rk_stage_plain(st, q0, f.rho, f.T, a, sy,
+                                                 sx, sc, c, final),
+                      outs, (exact,) * len(outs),
+                      work=(read, FLOPS_PER_POINT["rk_stage_thermal"]
+                            * cells))
+        del f, rho, q0, st, acc
+        torch.cuda.empty_cache()
+    print(f"phase 31 took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+    # ---- phase 32: bc_refresh ----------------------------------------------
+    # bench.py:run_bc_refresh: run_3d's / run_2d's Taylor-Green field with
+    # the driven-lid hook (_lid_refresh, bench.py:162-168) at dt = 1e-4,
+    # 512³ at HIGHEST and HIGH and 2048² (past the explicit viscous limit,
+    # so kernel and plain are held after one step; the 20 timed steps come
+    # before the clamps, status 0, as in phase 6); the launch counts show
+    # predictor_star, the hook, then poisson_input on the path
+    t_phase = time.perf_counter()
+
+    def lid_refresh(u, v, w, t):
+        """The driven-lid hook; it writes the predictor's own tensors in
+        place (the step hands it fresh ones)."""
+        u[:, 0, :] = 0.0
+        u[:, -1, :] = 1.0
+        v[:, 0, :] = 0.0
+        v[:, -1, :] = 0.0
+        return u, v, w
+
+    def bc_counts(label, wrappers, key):
+        counts = {fn.__name__: fn.launches for fn in wrappers}
+        print(f"{label} launch counts over the main path: {counts}",
+              flush=True)
+        if min(counts.values()) <= 0:
+            fail(f"{label}: a kernel of the bc_refresh path not launched")
+        star = [v for k, v in counts.items() if k.startswith("predictor")]
+        bt = [v for k, v in counts.items() if k.startswith("poisson")]
+        if star != bt:
+            fail(f"{label}: predictor and b~ launches differ")
+        launch_counts[key] = counts
+        return counts
+
+    bc_ms = {}
+    n = N_BIG
+    grid = Grid.uniform(n, n, n, zmin=0.0, zmax=1.0)
+    for prec, wrappers, key in ((None, pkm.WRAPPERS, "bc3d"),
+                                ("high", pkm.WRAPPERS_HIGH, "bc3d-high")):
+        pkm.reset_launch_counts()
+        ms_bc, _ = timed_paths(32, f"{n}^3 bc_refresh {prec or 'highest'}",
+                               grid, params, (n, n, n), 1e-4, TIMED_STEPS,
+                               wrappers, first_step_only=True,
+                               precision=prec, bc_refresh=lid_refresh)
+        bc_counts(f"phase 32 {n}^3 bc_refresh {prec or 'highest'}",
+                  wrappers, key)
+        bc_ms[f"{n}^3 {prec or 'highest'}"] = ms_bc
+    n2 = N_2D
+    pk2m.reset_launch_counts()
+    bc_ms[f"{n2}^2"], _ = timed_paths(
+        32, f"{n2}^2 bc_refresh", Grid.uniform(n2, n2), params,
+        (1, n2, n2), 1e-4, TIMED_STEPS_2D, pk2m.WRAPPERS,
+        first_step_only=True, bc_refresh=lid_refresh)
+    bc_counts(f"phase 32 {n2}^2 bc_refresh", pk2m.WRAPPERS, "bc2d")
+    for key, ms_bc in bc_ms.items():
+        cells = (N_BIG ** 3) if "^3" in key else N_2D ** 2
+        base = {f"{N_BIG}^3 highest": ms3, f"{N_BIG}^3 high": ms3h,
+                f"{N_2D}^2": ms2}[key]
+        print(f"phase 32 bc_refresh {key}: {ms_bc['kernel']:.3f} ms/step "
+              f"({cells / (ms_bc['kernel'] * 1e-3) / 1e6:.1f} MLUPS) "
+              f"against {base['kernel']:.3f} without the hook", flush=True)
+    # the CG step with the hook at 256³ (run_3d's physics): 3 timed steps
+    # on the kernel path, its first step held against the plain path
+    n = N_CG
+    grid_cg = Grid.uniform(n, n, n, zmin=0.0, zmax=1.0)
+    pkm.reset_launch_counts()
+    cgk.lap_dot.launches = cgk.cg_update.launches = 0
+    firsts = {}
+    for path in ("kernel", "plain"):
+        stepf = make_projection_step(grid_cg, params, torch.float32,
+                                     Method.CG, device=dev,
+                                     plain=path == "plain",
+                                     bc_refresh=lid_refresh)
+        firsts[path], r1 = stepf(tg_field((n, n, n)), 1e-4, 0)
+        if path == "plain":
+            break
+        f2 = firsts[path]
+        sync()
+        t0 = time.perf_counter()
+        for i in range(1, 1 + CG_STEPS):
+            f2, r2 = stepf(f2, 1e-4, i)
+            if int(r2.status) != 0:
+                fail(f"phase 32 CG {n}^3 bc_refresh: status "
+                     f"{int(r2.status)}")
+        sync()
+        ms_cgbc = (time.perf_counter() - t0) * 1e3 / CG_STEPS
+        counts = {fn.__name__: fn.launches for fn in pkm.WRAPPERS_RHS}
+        counts.update(lap_dot=cgk.lap_dot.launches,
+                      cg_update=cgk.cg_update.launches)
+        print(f"phase 32 CG {n}^3 bc_refresh kernel path: {ms_cgbc:.2f} "
+              f"ms/step (phase 14 without the hook {cg_ms['kernel']:.2f}), "
+              f"status {int(r2.status)}, {int(stepf.last_poisson.iterations)}"
+              f" iterations in the last solve; launch counts {counts}",
+              flush=True)
+        if min(counts.values()) <= 0:
+            fail("phase 32 CG bc_refresh: a kernel not launched")
+        launch_counts["bc3d-cg"] = counts
+        bc_ms[f"cg {n}^3"] = ms_cgbc
+    for name in "uvw":
+        compare(f"phase 32 CG {n}^3 bc_refresh first step", name,
+                getattr(firsts["kernel"], name),
+                getattr(firsts["plain"], name), TOL_CG_UVW, False)
+    compare(f"phase 32 CG {n}^3 bc_refresh first step", "p",
+            firsts["kernel"].p, firsts["plain"].p, 1e-3, True)
+    del firsts, f2
+    torch.cuda.empty_cache()
+    # examples/pulsatile_inlet_flow.py's channel at 1024×512: sinusoidal
+    # inlet, no-slip walls and a zero-gradient outlet applied before each
+    # step and as the hook, the spectral solve, dt under the viscous limit
+    nxp, nyp = PULSE
+    grid_p = Grid.uniform(nxp, nyp, xmin=0.0, xmax=2.0, ymin=0.0, ymax=1.0)
+    params_p = NSParams(dt=PULSE_DT, mu=0.05, max_iter=1,
+                        source_amplitude_u=0.0, source_amplitude_v=0.0)
+    inlet = InletConfig.time_sinusoidal(1.0, 0.0, frequency=2.0,
+                                        amplitude=0.5, phase=0.0,
+                                        offset=1.0)
+    outlet = OutletConfig.zero_gradient()
+
+    def channel_bcs(u, v, w, t):
+        u, v = apply_noslip(u, v)
+        u, v = apply_inlet(u, v, inlet, time=t, dt=PULSE_DT)
+        u, v = apply_outlet_velocity(u, v, outlet)
+        return u, v, w
+
+    finals = {}
+    for path in ("kernel", "plain"):
+        pk2m.reset_launch_counts()
+        stepf = make_projection_step(grid_p, params_p, torch.float32,
+                                     Method.FFT_DIRECT, device=dev,
+                                     plain=path == "plain",
+                                     bc_refresh=channel_bcs)
+        fc = FlowField.quiescent(nxp, nyp, pressure=0.0,
+                                 dtype=torch.float32, device=dev)
+        worst = torch.zeros((), dtype=torch.int32, device=dev)
+        sync()
+        t0 = time.perf_counter()
+        for i in range(PULSE_STEPS):
+            t_i = torch.full((), i * PULSE_DT, device=dev)
+            u, v, _ = channel_bcs(fc.u, fc.v, fc.w, t_i)
+            fc, rc = stepf(fc.replace(u=u, v=v), PULSE_DT, i)
+            worst = torch.maximum(worst, rc.status.abs())
+        sync()
+        ms_p = (time.perf_counter() - t0) * 1e3 / PULSE_STEPS
+        print(f"phase 32 pulsatile channel {nxp}x{nyp} {path} path: "
+              f"{PULSE_STEPS} steps, {ms_p:.3f} ms/step host wall, worst "
+              f"status {int(worst)}, inlet u at mid-height "
+              f"{float(fc.u[0, nyp // 2, 0]):.4f}", flush=True)
+        if int(worst) != 0 or not bool(fc.is_finite()):
+            fail(f"phase 32 pulsatile channel {path}: a nonzero status")
+        if path == "kernel":
+            bc_counts("phase 32 pulsatile channel", pk2m.WRAPPERS,
+                      "bc2d-channel")
+            bc_ms[f"channel {nxp}x{nyp}"] = ms_p
+        finals[path] = fc
+    for name in "uv":
+        compare(f"phase 32 pulsatile channel {PULSE_STEPS} steps", name,
+                getattr(finals["kernel"], name),
+                getattr(finals["plain"], name), TOL_FIELD, False)
+    compare(f"phase 32 pulsatile channel {PULSE_STEPS} steps", "p",
+            finals["kernel"].p, finals["plain"].p, TOL_GEMM, True)
+    del finals, fc
+    torch.cuda.empty_cache()
+    print(f"phase 32 took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+    # ---- phase 33: buoyancy and the energy equation on the main paths ----
+    # the 512³ spectral step: run_3d's field with T linear in z (hot back,
+    # cold front: Dirichlet), Neumann sides, g = (0, 0, −9.81)
+    t_phase = time.perf_counter()
+    n = N_BIG
+    grid = Grid.uniform(n, n, n, zmin=0.0, zmax=1.0)
+    params_b = NSParams(source_amplitude_u=0.0, source_amplitude_v=0.0,
+                        mu=0.01, alpha=ALPHA_3D, beta=BETA, T_ref=T_REF,
+                        gravity=(0.0, 0.0, -9.81),
+                        thermal_bc=ThermalBCConfig(
+                            left=BCType.NEUMANN, right=BCType.NEUMANN,
+                            bottom=BCType.NEUMANN, top=BCType.NEUMANN,
+                            back=BCType.DIRICHLET, front=BCType.DIRICHLET,
+                            dirichlet_values=DirichletValues(
+                                back=T_HOT, front=T_COLD)))
+
+    def tg_field_t_z(shape):
+        f = tg_field(shape)
+        z = torch.linspace(0.0, 1.0, shape[0], device=dev)
+        return f.replace(T=(T_HOT - (T_HOT - T_COLD) * z)[:, None, None]
+                         .expand(shape).contiguous())
+
+    pkm.reset_launch_counts()
+    ms_b, counts_b = timed_paths(33, f"{n}^3 buoyant + energy", grid,
+                                 params_b, (n, n, n), 1e-4, TIMED_STEPS,
+                                 pkm.WRAPPERS, first_step_only=True,
+                                 field_fn=tg_field_t_z)
+    launch_counts["buoy3d"] = counts_b
+    # the energy post-step alone, at the step's sizes
+    post = thermal_post_step(grid, params_b)
+    fb = tg_field_t_z((n, n, n))
+    ms_post = cuda_ms(lambda: post(fb, torch.full((), 1e-4, device=dev)))
+    del fb
+    torch.cuda.empty_cache()
+    print(f"phase 33 {n}^3 buoyant + energy: {ms_b['kernel']:.3f} ms/step "
+          f"(plain {ms_b['plain']:.3f}; without either {ms3['kernel']:.3f}, "
+          f"phase 4); the energy post-step {ms_post:.3f} ms, "
+          f"{ms_post / ms_b['kernel']:.3f} of the step", flush=True)
+    # the explicit steps at bench.py's sizes with energy, buoyancy and the
+    # mixed thermal faces, from run_euler_3d's field with T linear in x
+
+    def tg_field_t_x(shape):
+        f = tg_field(shape)
+        x = torch.linspace(0.0, 1.0, shape[2], device=dev)
+        return f.replace(T=(T_HOT - (T_HOT - T_COLD) * x)[None, None, :]
+                         .expand(shape).contiguous())
+
+    params_e = thermal_params(THERMAL_FACE_MIXES["mixed"]).replace(
+        source_amplitude_u=0.0, source_amplitude_v=0.0, mu=0.01)
+    n3, n2e = (N_EXPL,) * 3, (1, N_2D, N_2D)
+    for method, shape, n_steps, key, wrapper in (
+            ("euler", n3, 10, "euler3d-thermal", ekm.euler_step),
+            ("rk2", n3, 10, "rk3d-thermal", rkm.rk_stage),
+            ("rk4", n3, 10, "rk3d-thermal", rkm.rk_stage),
+            ("euler", n2e, 20, "euler2d-thermal", e2m.euler2d_step),
+            ("rk2", n2e, 10, "rk2d-thermal", rk2m.rk2d_stage)):
+        explicit_path(method, shape, n_steps, key, wrapper,
+                      params=params_e, field_fn=tg_field_t_x)
+    torch.cuda.empty_cache()
+    print(f"phase 33 took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+    # ---- phase 34: de Vahl Davis Ra = 1e4 at 128² (bench.py:dvd_gate) ----
+    t_phase = time.perf_counter()
+    nd = N_DVD
+    dxd = 1.0 / (nd - 1)
+    grid_d, params_d, alpha_d, fd = dvd_case()
+    if not DVD_DT < dxd * dxd / (4 * alpha_d):
+        fail("phase 34: dt exceeds the thermal stability bound")
+    step_d = make_projection_step(grid_d, params_d, torch.float32,
+                                  Method.FFT_DIRECT, device=dev)
+    noslip = DirichletValues()
+    pk2m.reset_launch_counts()
+    worst = torch.zeros((), dtype=torch.int32, device=dev)
+    prev_ke, steps_done = None, 0
+    sync()
+    t0 = time.perf_counter()
+    while steps_done < DVD_MAX_STEPS:
+        for i in range(steps_done, steps_done + DVD_CHUNK):
+            fd = fd.replace(u=apply_dirichlet_scalar(fd.u, noslip),
+                            v=apply_dirichlet_scalar(fd.v, noslip))
+            fd, rd = step_d(fd, DVD_DT, i)
+            worst = torch.maximum(worst, rd.status.abs())
+        steps_done += DVD_CHUNK
+        ke = float(0.5 * (fd.u.double() ** 2 + fd.v.double() ** 2).sum())
+        if int(worst) != 0:
+            fail(f"phase 34: a nonzero status before step {steps_done}")
+        if prev_ke is not None and abs(ke - prev_ke) / (prev_ke + 1e-10) \
+                < 1e-6 * DVD_CHUNK:
+            break
+        prev_ke = ke
+    wall_d = time.perf_counter() - t0
+    launch_counts["buoy2d"] = {"predictor_star_2d":
+                               pk2m.predictor_star_2d.launches}
+    vel_scale = 1.0 / alpha_d
+    ic = nd // 2
+    u_d = fd.u[0].double().cpu().numpy()
+    v_d = fd.v[0].double().cpu().numpy()
+    T_d = fd.T[0].double().cpu().numpy()
+    umax = float(np.abs(0.5 * (u_d[:, ic - 1] + u_d[:, ic])).max()
+                 * vel_scale)
+    vmax = float(np.abs(0.5 * (v_d[ic - 1, :] + v_d[ic, :])).max()
+                 * vel_scale)
+    Ts = (T_d - T_COLD) / (T_HOT - T_COLD)
+    nu_local = -(-3 * Ts[:, 0] + 4 * Ts[:, 1] - Ts[:, 2]) / (2 * dxd)
+    wts = np.ones(nd)
+    wts[0] = wts[-1] = 0.5
+    nu_avg = float((wts * nu_local).sum() * dxd)
+    dvd = {"steps": steps_done, "ms_per_step": wall_d * 1e3 / steps_done,
+           "u_max": umax, "v_max": vmax, "nu_avg": nu_avg,
+           "predictor_star_2d_launches": pk2m.predictor_star_2d.launches}
+    print(f"phase 34 de Vahl Davis Ra=1e4 {nd}^2: KE-steady after "
+          f"{steps_done} steps (reference record 36000), "
+          f"{dvd['ms_per_step']:.4f} ms/step host wall, u_max* {umax:.3f} "
+          f"(16.178), v_max* {vmax:.3f} (19.617), Nu_avg {nu_avg:.4f} "
+          f"(2.238), worst status {int(worst)}, predictor_star_2d launches "
+          f"{pk2m.predictor_star_2d.launches}", flush=True)
+    for got, want in ((umax, 16.178), (vmax, 19.617), (nu_avg, 2.238)):
+        if not abs(got - want) / want < 0.04:
+            fail(f"phase 34: {got:.4f} not within 4% of {want}")
+    if pk2m.predictor_star_2d.launches != steps_done:
+        fail("phase 34: not the buoyant 2D predictor once a step")
+    # the buoyant predictor against its plain version on the marched
+    # field too (after the launch count was read)
+    buoyant_check(f"phase 34 {nd}x{nd} after the march", False, fd.u,
+                  fd.v, fd.w, fd.T, scal_d, consts_d)
+    del fd
+    print(f"phase 34 took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
     kernels = []
     for (path, name), rec in records.items():
         launches = launch_counts.get(path, {}).get(name)
@@ -2941,6 +3458,9 @@ def main() -> int:
                       "grid_nz3": tag3, "gemm_vs_float64": gemm_truth,
                       "ghia_128_high_rms": rms_high,
                       "fft_direct_512": fft_rec, "sor_33": sor_rec,
+                      "bc_refresh_ms": bc_ms, "buoyant_step_ms_512": ms_b,
+                      "energy_post_step_ms_512": ms_post, "dvd_128": dvd,
+                      "launch_counts": launch_counts,
                       "card": card}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -20,6 +20,7 @@ from cfd_tpu.solvers.ns import NSParams as JParams
 from cfd_tpu.solvers.ns.common import z_constants as j_z_constants
 from cfd_tpu_torch import CFDError, FlowField, Grid, Status
 from cfd_tpu_torch.api import Simulation
+from cfd_tpu_torch.boundary import BCType, ThermalBCConfig
 from cfd_tpu_torch.config import device_of, resolve_dtype
 from cfd_tpu_torch.entry import entry
 from cfd_tpu_torch.interop import field_from_numpy, field_to_numpy
@@ -95,17 +96,21 @@ def _stretched_grid():
 
 
 SPECTRAL = dict(poisson_method=Method.FFT_DIRECT)
+
+
+def _no_bcs(u, v, w, t):
+    return u, v, w
+
+
+def _heat(X, Y, Z, t):
+    return 0.0
+
+
 UNSUPPORTED = {
     # the reference's step has no SOR maker either (`projection.py:51-58`)
     "sor": dict(poisson_method=Method.SOR),
     # 128×16×8 cannot be coarsened ((n − 1) odd), as in the reference
     "multigrid": dict(poisson_method=Method.MULTIGRID),
-    "2d_buoyancy": dict(grid=Grid.uniform(128, 16),
-                        params=NSParams(beta=0.05)),
-    "2d_energy": dict(grid=Grid.uniform(128, 16),
-                      params=NSParams(alpha=1e-3)),
-    "2d_bc_refresh": dict(grid=Grid.uniform(128, 16),
-                          bc_refresh=lambda u, v, w, t: (u, v, w)),
     "2d_gauss_seidel": dict(grid=Grid.uniform(128, 16),
                             poisson_method=Method.GAUSS_SEIDEL),
     # one TF32 pass: the reference routes it to its emit-b̃ kernels
@@ -113,13 +118,26 @@ UNSUPPORTED = {
                                  spectral_precision="default", **SPECTRAL),
     "stretched": dict(grid=_stretched_grid()),
     "consistent": dict(params=NSParams(nonuniform_scheme="consistent")),
-    "energy": dict(params=NSParams(alpha=1e-3)),
-    "buoyancy": dict(params=NSParams(beta=0.05)),
     "source_func": dict(params=NSParams(
         source_func=lambda X, Y, Z, t: (0.0, 0.0, 0.0))),
-    "bc_refresh": dict(bc_refresh=lambda u, v, w, t: (u, v, w)),
     "differentiable": dict(differentiable=True),
     "precision_default": dict(spectral_precision="default", **SPECTRAL),
+    # a heat source (a callable Q) is a later slice, with source_func
+    "heat_source_func": dict(params=NSParams(alpha=1e-3,
+                                             heat_source_func=_heat)),
+    "2d_heat_source_func": dict(grid=Grid.uniform(128, 16),
+                                params=NSParams(alpha=1e-3,
+                                                heat_source_func=_heat)),
+    # the hook does not lift the precision or differentiability gates
+    "bc_refresh_precision_default": dict(
+        bc_refresh=_no_bcs, spectral_precision="default", **SPECTRAL),
+    "2d_bc_refresh_precision_default": dict(
+        grid=Grid.uniform(128, 16), bc_refresh=_no_bcs,
+        spectral_precision="default", **SPECTRAL),
+    "bc_refresh_differentiable": dict(bc_refresh=_no_bcs,
+                                      differentiable=True),
+    "energy_stretched": dict(grid=_stretched_grid(),
+                             params=NSParams(alpha=1e-3)),
 }
 
 
@@ -137,14 +155,17 @@ def test_unsupported_configurations_raise(case):
 EXPLICIT_UNSUPPORTED = {
     "stretched": dict(grid=_stretched_grid()),
     "consistent": dict(params=NSParams(nonuniform_scheme="consistent")),
-    "energy": dict(params=NSParams(alpha=1e-3)),
-    "buoyancy": dict(params=NSParams(beta=0.05)),
-    "2d_energy": dict(grid=Grid.uniform(128, 16),
-                      params=NSParams(alpha=1e-3)),
     "source_func": dict(params=NSParams(
         source_func=lambda X, Y, Z, t: (0.0, 0.0, 0.0))),
     "differentiable": dict(differentiable=True),
     "float64_on_cuda": dict(dtype=torch.float64, device="cuda"),
+    "heat_source_func": dict(params=NSParams(alpha=1e-3,
+                                             heat_source_func=_heat)),
+    "2d_heat_source_func": dict(grid=Grid.uniform(128, 16),
+                                params=NSParams(alpha=1e-3,
+                                                heat_source_func=_heat)),
+    "energy_consistent": dict(params=NSParams(
+        alpha=1e-3, nonuniform_scheme="consistent")),
 }
 
 
@@ -163,6 +184,32 @@ def test_explicit_unsupported_configurations_raise(builder, case):
     with pytest.raises(CFDError) as err:
         builder(grid, params, **kw)
     assert err.value.status == Status.ERROR_UNSUPPORTED
+
+
+INVALID_THERMAL = {
+    "projection_3d": lambda p: make_projection_step(
+        _grid(), p, dtype=torch.float32, device="cpu"),
+    "projection_2d": lambda p: make_projection_step(
+        Grid.uniform(128, 16), p, dtype=torch.float32, device="cpu",
+        poisson_method=Method.FFT_DIRECT),
+    "euler": lambda p: make_euler_step(_grid(), p, torch.float32, "cpu"),
+    "rk2": lambda p: make_rk2_step(Grid.uniform(32, 16), p, torch.float32,
+                                   "cpu"),
+    "rk4": lambda p: make_rk4_step(_grid(), p, torch.float32, "cpu"),
+}
+
+
+@pytest.mark.parametrize("builder", sorted(INVALID_THERMAL))
+def test_invalid_thermal_bc_raises(builder):
+    """With the energy equation on, a thermal face type other than
+    PERIODIC, NEUMANN or DIRICHLET is ERROR_INVALID at build time, as the
+    reference's `validate_thermal_bc` (`energy.py:67-88`); with it off the
+    config is not read."""
+    bad = ThermalBCConfig(top=BCType.NOSLIP)
+    with pytest.raises(CFDError) as err:
+        INVALID_THERMAL[builder](NSParams(alpha=1e-3, thermal_bc=bad))
+    assert err.value.status == Status.ERROR_INVALID
+    INVALID_THERMAL[builder](NSParams(thermal_bc=bad))
 
 
 def _g2():
@@ -273,7 +320,9 @@ def test_grid_matches_reference():
 
 
 def test_params_carry_across():
-    """NSParams keeps the reference's fields and defaults one for one."""
+    """NSParams keeps the reference's fields and defaults one for one; its
+    thermal_bc is converted to the port's config, face by face and value
+    by value, and defaults to the reference's all-periodic config."""
     names = [f.name for f in dataclasses.fields(NSParams)]
     assert names == [f.name for f in dataclasses.fields(JParams)]
     jp = JParams(mu=0.02, source_amplitude_u=0.3, gravity=(0.0, -9.8, 0.0))
@@ -281,9 +330,19 @@ def test_params_carry_across():
     for n in names:
         if n != "thermal_bc":
             assert getattr(tp, n) == getattr(jp, n), n
-    assert tp.thermal_bc is jp.thermal_bc
+
+    def same_thermal(t, j):
+        assert isinstance(t, ThermalBCConfig)
+        for face in ("left", "right", "bottom", "top", "front", "back"):
+            assert int(getattr(t, face)) == int(getattr(j, face)), face
+            assert getattr(t.dirichlet_values, face) == \
+                getattr(j.dirichlet_values, face), face
+
+    same_thermal(tp.thermal_bc, jp.thermal_bc)
     for n in names:
-        if n != "thermal_bc":
+        if n == "thermal_bc":
+            same_thermal(NSParams().thermal_bc, JParams().thermal_bc)
+        else:
             assert getattr(NSParams(), n) == getattr(JParams(), n), n
 
 

@@ -1,11 +1,9 @@
-"""Structured uniform grid (counterpart of `cfd_tpu/core/grid.py`).
+"""Structured grid, uniform or tanh-stretched (counterpart of
+`cfd_tpu/core/grid.py`).
 
 The grid is static host configuration: coordinates and spacings are numpy
 float64 arrays, and solvers read them when they build a step.  Fields on
 the grid are ``(nz, ny, nx)`` tensors with x last, the reference's layout.
-
-Only ``Grid.uniform`` is ported; ``Grid.stretched`` comes with the
-stretched-grid slice.
 """
 
 from __future__ import annotations
@@ -69,6 +67,45 @@ class Grid:
             z = np.linspace(zmin, zmax, nz)
             dz = np.diff(z)
             inv_dz2 = 1.0 / float(dz[0] ** 2)
+        return cls(nx, ny, nz, xmin, xmax, ymin, ymax, zmin, zmax,
+                   x, y, np.diff(x), np.diff(y), z, dz, inv_dz2)
+
+    @classmethod
+    def stretched(cls, nx: int, ny: int, nz: int = 1,
+                  xmin: float = 0.0, xmax: float = 1.0,
+                  ymin: float = 0.0, ymax: float = 1.0,
+                  zmin: float = 0.0, zmax: float = 0.0,
+                  beta: float = 0.0, stretch_axes: str = "xyz") -> "Grid":
+        """Tanh-stretched grid clustering points at both ends of each axis
+        named in ``stretch_axes`` (`grid.py:92-137`, `grid.c:129-160`):
+        x[i] = xmin + L·(1 + tanh(β(2ξ − 1))/tanh(β))/2, ξ = i/(n − 1);
+        the other axes stay uniform.  |β| < 1e-10 gives ``uniform``.  In
+        3D ``inv_dz2`` is taken from the smallest dz."""
+        bad = set(stretch_axes) - set("xyz")
+        if bad or not stretch_axes:
+            raise ValueError(f"stretch_axes must name axes from 'xyz', "
+                             f"got {stretch_axes!r}")
+        if abs(beta) < 1e-10:
+            return cls.uniform(nx, ny, nz, xmin, xmax, ymin, ymax, zmin,
+                               zmax)
+        cls._validate(nx, ny, nz, xmin, xmax, ymin, ymax, zmin, zmax)
+        tb = np.tanh(beta)
+
+        def stretch(n, lo, hi, axis):
+            if axis not in stretch_axes:
+                return np.linspace(lo, hi, n)
+            xi = np.arange(n) / (n - 1)
+            return lo + (hi - lo) * (1.0 + np.tanh(beta * (2.0 * xi - 1.0))
+                                     / tb) / 2.0
+
+        x = stretch(nx, xmin, xmax, "x")
+        y = stretch(ny, ymin, ymax, "y")
+        z = dz = None
+        inv_dz2 = 0.0
+        if nz > 1:
+            z = stretch(nz, zmin, zmax, "z")
+            dz = np.diff(z)
+            inv_dz2 = 1.0 / float(np.min(dz) ** 2)
         return cls(nx, ny, nz, xmin, xmax, ymin, ymax, zmin, zmax,
                    x, y, np.diff(x), np.diff(y), z, dz, inv_dz2)
 

@@ -14,6 +14,13 @@
 // Both launch through cfd_euler_step, which picks the instantiation from
 // nz (1: the 2D kernel) and from whether buoyancy or energy is on.
 //
+// On a stretched grid (x/y; z stays uniform) the spacing parameter kS of
+// explicit_common.cuh selects the derivative provider: parity (per-point
+// forward spacings, the reference C library's stencils) or consistent
+// (the exact nonuniform weights, with its own energy stencils); parity
+// with the energy equation is never launched (cfd_euler_step refuses it,
+// as the reference's builder does, euler_kernels.py:110-113).
+//
 // Per interior point (uniform grid; the 2D instantiation drops every z
 // term, the reference's inv_dz2 = 0 idiom):
 // derivatives clamped to +-100 and each second-derivative term to +-1000
@@ -65,34 +72,39 @@ struct Update {
 
 // The step's update at interior point c = (k, j, i).  kThermal
 // instantiates the buoyant and energy code; without it the kernel is the
-// plain step's, with its register footprint.
-template <bool k3D, bool kThermal>
+// plain step's, with its register footprint.  kS: the spacing provider.
+template <bool k3D, bool kThermal, int kS>
 __device__ __forceinline__ Update euler_update(
     const float* __restrict__ u, const float* __restrict__ v,
     const float* __restrict__ w, const float* __restrict__ p,
     const float* __restrict__ rho, const float* __restrict__ T,
     const float* __restrict__ syv, const float* __restrict__ sxv,
     const float* __restrict__ scal, long long c, long long sy, long long sz,
-    int j, int i, const Coefs& k, const Thermal& th) {
+    int j, int i, const Coefs& k, const Thermal& th, const Stretch& st) {
   const float uc = u[c], vc = v[c], wc = w[c], pc = p[c], r = rho[c];
   Update o = {uc, vc, wc, pc};
   if (!(r > kRhoMin)) return o;  // per-point guard (NaN rho too)
   const float cdt = scal[0], su_eff = scal[1], sv_eff = scal[2];
 
   auto d1x = [&](const float* f) {
-    return clampv((f[c + 1] - f[c - 1]) * k.c2x, kD1);
+    return clampv(
+        d1_at<kS>(f[c - 1], f[c], f[c + 1], k.c2x, st.x, st.nx, i), kD1);
   };
   auto d1y = [&](const float* f) {
-    return clampv((f[c + sy] - f[c - sy]) * k.c2y, kD1);
+    return clampv(
+        d1_at<kS>(f[c - sy], f[c], f[c + sy], k.c2y, st.y, st.ny, j), kD1);
   };
   auto d1z = [&](const float* f) {
     return clampv((f[c + sz] - f[c - sz]) * k.c2z, kD1);
   };
   auto lap = [&](const float* f, float fc) {
-    const float c2 = 2.0f * fc;
-    float l = clampv(((f[c + 1] - c2) + f[c - 1]) * k.cx2, kD2) +
-              clampv(((f[c + sy] - c2) + f[c - sy]) * k.cy2, kD2);
-    if (k3D) l = l + clampv(((f[c + sz] - c2) + f[c - sz]) * k.cz2, kD2);
+    float l =
+        clampv(d2_at<kS>(f[c - 1], fc, f[c + 1], k.cx2, st.x, st.nx, i),
+               kD2) +
+        clampv(d2_at<kS>(f[c - sy], fc, f[c + sy], k.cy2, st.y, st.ny, j),
+               kD2);
+    if (k3D)
+      l = l + clampv(((f[c + sz] - 2.0f * fc) + f[c - sz]) * k.cz2, kD2);
     return l;
   };
 
@@ -133,7 +145,7 @@ __device__ __forceinline__ Update euler_update(
   return o;
 }
 
-template <bool k3D, bool kThermal>
+template <bool k3D, bool kThermal, int kS>
 __global__ void __launch_bounds__(kTileX * kTileY) euler_kernel(
     const float* __restrict__ u, const float* __restrict__ v,
     const float* __restrict__ w, const float* __restrict__ p,
@@ -143,7 +155,7 @@ __global__ void __launch_bounds__(kTileX * kTileY) euler_kernel(
     float* __restrict__ vo, float* __restrict__ wo, float* __restrict__ po,
     float* __restrict__ rhoo, float* __restrict__ To,
     float* __restrict__ partials, int nz, int ny, int nx, Coefs coefs,
-    Thermal th) {
+    Thermal th, Stretch st) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const int j = blockIdx.y * blockDim.y + threadIdx.y;
   const int k = blockIdx.z;
@@ -155,24 +167,26 @@ __global__ void __launch_bounds__(kTileX * kTileY) euler_kernel(
     const int js = wrap_src(j, ny), is = wrap_src(i, nx);
     const long long cs = ks * sz + js * sy + is;
     const bool interior = cs == c;  // interior points are their own source
-    const Update e = euler_update<k3D, kThermal>(
-        u, v, w, p, rho, T, syv, sxv, scal, cs, sy, sz, js, is, coefs, th);
+    const Update e = euler_update<k3D, kThermal, kS>(
+        u, v, w, p, rho, T, syv, sxv, scal, cs, sy, sz, js, is, coefs, th,
+        st);
     const float ou = interior ? e.u : u[c];
     const float ov = interior ? e.v : v[c];
     const float ow = interior ? e.w : w[c];
     float ot;
-    if (kThermal && th.energy) {
+    if (kThermal && kS != kParity && th.energy) {
       int kT, jT, iT;
       if (!thermal_source<k3D>(th, k, j, i, nz, ny, nx, kT, jT, iT, ot)) {
         const long long cT = kT * sz + jT * sy + iT;
         const Update et =
             cT == cs ? e
-                     : euler_update<k3D, kThermal>(u, v, w, p, rho, T, syv,
-                                                   sxv, scal, cT, sy, sz, jT,
-                                                   iT, coefs, th);
-        ot = energy_update<k3D>(T, cT, sy, sz, et.u, et.v, et.w, scal[0],
-                                th.alpha, coefs.c2x, coefs.c2y, coefs.c2z,
-                                coefs.cx2, coefs.cy2, coefs.cz2);
+                     : euler_update<k3D, kThermal, kS>(
+                           u, v, w, p, rho, T, syv, sxv, scal, cT, sy, sz,
+                           jT, iT, coefs, th, st);
+        ot = energy_update<k3D, kS>(T, cT, sy, sz, jT, iT, et.u, et.v, et.w,
+                                    scal[0], th.alpha, coefs.c2x, coefs.c2y,
+                                    coefs.c2z, coefs.cx2, coefs.cy2,
+                                    coefs.cz2, st);
       }
     } else {
       ot = T[cs];
@@ -191,24 +205,37 @@ __global__ void __launch_bounds__(kTileX * kTileY) euler_kernel(
   block_max4(m, partials);
 }
 
-template <bool k3D, bool kThermal>
+template <bool k3D, bool kThermal, int kS>
 int launch_euler(const float* u, const float* v, const float* w,
                  const float* p, const float* T, const float* rho,
                  const float* syv, const float* sxv, const float* scal,
                  float* uo, float* vo, float* wo, float* po, float* rhoo,
                  float* To, float* partials, float* out, int nz, int ny,
-                 int nx, Coefs coefs, const Thermal& th,
+                 int nx, Coefs coefs, const Thermal& th, const Stretch& st,
                  cudaStream_t stream) {
-  euler_kernel<k3D, kThermal><<<grid_of(nz, ny, nx), dim3(kTileX, kTileY),
-                                0, stream>>>(u, v, w, p, T, rho, syv, sxv,
-                                             scal, uo, vo, wo, po, rhoo, To,
-                                             partials, nz, ny, nx, coefs,
-                                             th);
+  euler_kernel<k3D, kThermal, kS><<<grid_of(nz, ny, nx),
+                                    dim3(kTileX, kTileY), 0, stream>>>(
+      u, v, w, p, T, rho, syv, sxv, scal, uo, vo, wo, po, rhoo, To, partials,
+      nz, ny, nx, coefs, th, st);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   reduce_max4_kernel<<<1, kReduceThreads, 0, stream>>>(
       partials, blocks_of(nz, ny, nx), out);
   return (int)cudaGetLastError();
+}
+
+using EulerLaunch = int (*)(const float*, const float*, const float*,
+                            const float*, const float*, const float*,
+                            const float*, const float*, const float*,
+                            float*, float*, float*, float*, float*, float*,
+                            float*, float*, int, int, int, Coefs,
+                            const Thermal&, const Stretch&, cudaStream_t);
+
+template <bool k3D, bool kThermal>
+EulerLaunch pick_spacing(int spacing) {
+  if (spacing == kParity) return launch_euler<k3D, kThermal, kParity>;
+  if (spacing == kConsistent) return launch_euler<k3D, kThermal, kConsistent>;
+  return launch_euler<k3D, kThermal, kUniform>;
 }
 
 }  // namespace
@@ -222,7 +249,8 @@ long long cfd_explicit_partials(int nz, int ny, int nx) {
 
 // thermal_f and thermal_i are host arrays (explicit_common.cuh:
 // thermal_from): alpha, (-beta) g, T_ref, the Dirichlet values; the
-// energy and buoyancy switches, the face types.
+// energy and buoyancy switches, the face types.  spacing is kUniform,
+// kParity or kConsistent, xw and yw its weight rows (null when uniform).
 int cfd_euler_step(const float* u, const float* v, const float* w,
                    const float* p, const float* T, const float* rho,
                    const float* syv, const float* sxv, const float* scal,
@@ -231,17 +259,24 @@ int cfd_euler_step(const float* u, const float* v, const float* w,
                    int nx, float mu, float coef, float c2x, float c2y,
                    float c2z, float cx2, float cy2, float cz2,
                    const float* thermal_f, const int* thermal_i,
+                   const float* xw, const float* yw, int spacing,
                    cudaStream_t stream) {
   const Coefs coefs = {mu, coef, c2x, c2y, c2z, cx2, cy2, cz2};
   const Thermal th = thermal_from(thermal_f, thermal_i);
+  if (spacing == kParity && th.energy)
+    return (int)cudaErrorInvalidValue;  // parity has no stretched energy
+  const Stretch st = {xw, yw, nx, ny};
   const bool thermal = th.energy || th.buoy;
+  EulerLaunch launch;
   if (nz > 1)
-    return (thermal ? launch_euler<true, true> : launch_euler<true, false>)(
-        u, v, w, p, T, rho, syv, sxv, scal, uo, vo, wo, po, rhoo, To,
-        partials, out, nz, ny, nx, coefs, th, stream);
-  return (thermal ? launch_euler<false, true> : launch_euler<false, false>)(
-      u, v, w, p, T, rho, syv, sxv, scal, uo, vo, wo, po, rhoo, To, partials,
-      out, 1, ny, nx, coefs, th, stream);
+    launch = thermal ? pick_spacing<true, true>(spacing)
+                     : pick_spacing<true, false>(spacing);
+  else
+    launch = thermal ? pick_spacing<false, true>(spacing)
+                     : pick_spacing<false, false>(spacing);
+  return launch(u, v, w, p, T, rho, syv, sxv, scal, uo, vo, wo, po, rhoo, To,
+                partials, out, nz > 1 ? nz : 1, ny, nx, coefs, th, st,
+                stream);
 }
 
 }  // extern "C"

@@ -5,6 +5,15 @@
 // geometry, the second pass of the four step maxima, and the energy
 // equation with its thermal faces and the Boussinesq sources.
 //
+// On a stretched grid a spacing template parameter selects the derivative
+// provider (the reference's stretch pins, ops/pallas/stretch.py, here
+// per-axis weight rows, ops/kernels/stretch.py): kUniform the scalar
+// coefficients, kParity per-point 1/(2h) and 1/h^2 from x rows [1/(2dx),
+// 1/dx^2] and y rows (forward spacing, padded by its last entry), and
+// kConsistent the exact 3-point nonuniform weights from rows [wm, wc, wp,
+// lm, lc, lp] (euler_kernels.py:149-197 of the reference).  A warp's x
+// weights are one coalesced load, its y weights one broadcast.
+//
 // Every kernel runs one thread per grid point in 32x8 blocks, one block row
 // of planes per blockIdx.z, and writes per-block maxima of
 // (|u|^2, p, |p|, T) into partials[4 * block + q]; reduce_max4_kernel folds
@@ -44,6 +53,37 @@ __device__ __forceinline__ float min_keep_nan(float a, float b) {
 // nu = min(mu / max(rho, 1e-10), 1)
 __device__ __forceinline__ float viscosity(float mu, float rho) {
   return min_keep_nan(mu / max_keep_nan(rho, kRhoMin), 1.0f);
+}
+
+// Spacing providers (see the top of this file).
+constexpr int kUniform = 0, kParity = 1, kConsistent = 2;
+
+struct Stretch {
+  const float* x;  // rows of nx
+  const float* y;  // rows of ny
+  int nx, ny;
+};
+
+// First derivative at index a of an axis from (f[a-1], f[a], f[a+1]):
+// (fp - fm) * coef (coef the scalar, or row 0 when parity), or
+// (fm wm + fc wc) + fp wp (rows 0-2) when consistent.
+template <int kS>
+__device__ __forceinline__ float d1_at(float fm, float fc, float fp,
+                                       float coef, const float* w, int n,
+                                       int a) {
+  if (kS == kConsistent) return (fm * w[a] + fc * w[n + a]) + fp * w[2 * n + a];
+  return (fp - fm) * (kS == kParity ? w[a] : coef);
+}
+
+// Second derivative: ((fp - 2 fc) + fm) * coef (row 1 when parity), or
+// (fm lm + fc lc) + fp lp (rows 3-5) when consistent.
+template <int kS>
+__device__ __forceinline__ float d2_at(float fm, float fc, float fp,
+                                       float coef, const float* w, int n,
+                                       int a) {
+  if (kS == kConsistent)
+    return (fm * w[3 * n + a] + fc * w[4 * n + a]) + fp * w[5 * n + a];
+  return ((fp - 2.0f * fc) + fm) * (kS == kParity ? w[n + a] : coef);
 }
 
 // The periodic wrap's source index on one axis: face 0 reads n - 2, face
@@ -117,19 +157,39 @@ __device__ __forceinline__ bool thermal_source(const Thermal& th, int k,
 }
 
 // T + cdt * (-(u T_x + v T_y + w T_z) + alpha lap T) at interior point c
-// with the updated velocities (uo, vo, wo) there; unclamped central
-// differences in the reference kernels' order (no z terms in 2D).
-template <bool k3D>
+// = (k, j, i) with the updated velocities (uo, vo, wo) there; unclamped,
+// in the reference kernels' order (no z terms in 2D): central differences
+// on a uniform grid, and on the consistent scheme T_x = (T[i-1] wm +
+// T wc) + T[i+1] wp and lap T one chain of the six x/y terms
+// (euler_kernels.py:319-326).  Parity on a stretched grid has no energy
+// equation (the builder refuses it).
+template <bool k3D, int kS>
 __device__ __forceinline__ float energy_update(
     const float* __restrict__ T, long long c, long long sy, long long sz,
-    float uo, float vo, float wo, float cdt, float alpha, float c2x,
-    float c2y, float c2z, float cx2, float cy2, float cz2) {
+    int j, int i, float uo, float vo, float wo, float cdt, float alpha,
+    float c2x, float c2y, float c2z, float cx2, float cy2, float cz2,
+    const Stretch& st) {
   const float tc = T[c];
   const float xm = T[c - 1], xp = T[c + 1];
   const float ym = T[c - sy], yp = T[c + sy];
   const float t2 = 2.0f * tc;
-  float lap = ((xp - t2) + xm) * cx2 + ((yp - t2) + ym) * cy2;
-  float adv = uo * ((xp - xm) * c2x) + vo * ((yp - ym) * c2y);
+  float lap, adv;
+  if (kS == kConsistent) {
+    const int nx = st.nx, ny = st.ny;
+    const float* wx = st.x;
+    const float* wy = st.y;
+    const float tx = (xm * wx[i] + tc * wx[nx + i]) + xp * wx[2 * nx + i];
+    const float ty = (ym * wy[j] + tc * wy[ny + j]) + yp * wy[2 * ny + j];
+    lap = (((((xm * wx[3 * nx + i] + tc * wx[4 * nx + i]) +
+              xp * wx[5 * nx + i]) +
+             ym * wy[3 * ny + j]) +
+            tc * wy[4 * ny + j]) +
+           yp * wy[5 * ny + j]);
+    adv = uo * tx + vo * ty;
+  } else {
+    lap = ((xp - t2) + xm) * cx2 + ((yp - t2) + ym) * cy2;
+    adv = uo * ((xp - xm) * c2x) + vo * ((yp - ym) * c2y);
+  }
   if (k3D) {
     const float zm = T[c - sz], zp = T[c + sz];
     lap = lap + ((zp - t2) + zm) * cz2;

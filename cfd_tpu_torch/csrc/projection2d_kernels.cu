@@ -35,6 +35,14 @@
 //   the predictor on a two-row-extended window: one extra read of two
 //   fields instead of four times the predictor's flops and reads.
 //
+// The consistent scheme on a stretched grid is the kCons instantiation of
+// the three stencil kernels, which read per-axis weight vectors (x rows
+// [wm, wc, wp, lm, lc, lp, sin(2 pi x)] of length nx, y rows of length ny,
+// ops/kernels/stretch.py) in place of the scalar inverse spacings: the
+// reference runs that step as jnp (projection.py:292-293), so these
+// follow its operators (common.spacing_operators) in the order of the 3D
+// kernels (projection_kernels.cu), without the z terms.
+//
 // NaN must survive the clamps (the step reports DIVERGED from a NaN
 // maximum): the clamp is a select that passes NaN through.
 //
@@ -74,6 +82,45 @@ __device__ __forceinline__ float star2(const float* __restrict__ f, int c,
   return clamp_keep_nan(fc + dt * ((-conv + nu * lap) + src));
 }
 
+struct Weights2 {
+  const float* x;  // 7 rows of nx
+  const float* y;  // 7 rows of ny
+  int nx, ny;
+  __device__ __forceinline__ float wx(int r, int i) const {
+    return x[r * nx + i];
+  }
+  __device__ __forceinline__ float wy(int r, int j) const {
+    return y[r * ny + j];
+  }
+};
+
+// (f[i-1] wm + f wc) + f[i+1] wp along x (d = 1) or y (d = nx).
+__device__ __forceinline__ float d1_cons(const float* __restrict__ f, int c,
+                                         int d, float wm, float wc,
+                                         float wp) {
+  return (f[c - d] * wm + f[c] * wc) + f[c + d] * wp;
+}
+
+// The consistent scheme's star: the Laplacian one chain, x then y.
+__device__ __forceinline__ float star2_cons(const float* __restrict__ f,
+                                            int c, int sy, int j, int i,
+                                            float uc, float vc, float src,
+                                            float dt, float nu,
+                                            const Weights2& wt) {
+  const float fc = f[c];
+  const float xm = f[c - 1], xp = f[c + 1];
+  const float ym = f[c - sy], yp = f[c + sy];
+  const float d1x = (xm * wt.wx(0, i) + fc * wt.wx(1, i)) + xp * wt.wx(2, i);
+  const float d1y = (ym * wt.wy(0, j) + fc * wt.wy(1, j)) + yp * wt.wy(2, j);
+  const float conv = uc * d1x + vc * d1y;
+  const float lap =
+      ((((xm * wt.wx(3, i) + fc * wt.wx(4, i)) + xp * wt.wx(5, i)) +
+        ym * wt.wy(3, j)) +
+       fc * wt.wy(4, j)) +
+      yp * wt.wy(5, j);
+  return clamp_keep_nan(fc + dt * ((-conv + nu * lap) + src));
+}
+
 // With buoyancy (buoy_mask bit c set where g[c] != 0), component c's
 // source also takes bcoef[c] * (T - T_ref), bcoef[c] = (-beta) * g[c]
 // rounded in float32 on the host (projection2d.py:166-176); T is read
@@ -83,6 +130,7 @@ struct Buoyancy2 {
   int mask;
 };
 
+template <bool kCons>
 __global__ void pred_star_2d_kernel(
     const float* __restrict__ u, const float* __restrict__ v,
     const float* __restrict__ w, float* __restrict__ us,
@@ -90,7 +138,7 @@ __global__ void pred_star_2d_kernel(
     const float* __restrict__ scal, const float* __restrict__ T, int ny,
     int nx, float nu, float inv_2dx, float inv_2dy, float inv_dx2,
     float inv_dy2, float xmin, float ymin, float dx, float dy,
-    int with_sources, Buoyancy2 buoy) {
+    int with_sources, Buoyancy2 buoy, Weights2 wt) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const int j = blockIdx.y * blockDim.y + threadIdx.y;
   if (i >= nx || j >= ny) return;
@@ -105,14 +153,25 @@ __global__ void pred_star_2d_kernel(
   const float uc = u[c], vc = v[c];
   float src_u = 0.0f, src_v = 0.0f, src_w = 0.0f;
   if (with_sources) {
-    src_u = su * sinf(kPi * (ymin + (float)j * dy));
-    src_v = sv * sinf(kTwoPi * (xmin + (float)i * dx));
+    if (kCons) {  // true coordinates
+      src_u = su * wt.wy(6, j);
+      src_v = sv * wt.wx(6, i);
+    } else {
+      src_u = su * sinf(kPi * (ymin + (float)j * dy));
+      src_v = sv * sinf(kTwoPi * (xmin + (float)i * dx));
+    }
   }
   if (buoy.mask) {
     const float dT = T[c] - buoy.tref;
     if (buoy.mask & 1) src_u = src_u + buoy.coef[0] * dT;
     if (buoy.mask & 2) src_v = src_v + buoy.coef[1] * dT;
     if (buoy.mask & 4) src_w = src_w + buoy.coef[2] * dT;
+  }
+  if (kCons) {
+    us[c] = star2_cons(u, c, nx, j, i, uc, vc, src_u, dt, nu, wt);
+    vs[c] = star2_cons(v, c, nx, j, i, uc, vc, src_v, dt, nu, wt);
+    ws[c] = star2_cons(w, c, nx, j, i, uc, vc, src_w, dt, nu, wt);
+    return;
   }
   us[c] = star2(u, c, nx, uc, vc, src_u, dt, nu, inv_2dx, inv_2dy, inv_dx2,
                 inv_dy2);
@@ -125,11 +184,15 @@ __global__ void pred_star_2d_kernel(
 // b~ = face_coeff * p - (rho/dt) div u* on the interior, 0 on the shell
 // (projection2d.py:186-191); with emit_rhs the iterative solvers' rhs =
 // (rho/dt) div u* instead (projection2d.py:196-197; p is not read).
+// kCons: the consistent divergence, and face[] = (cxm, cxp, cym, cyp) the
+// face weights at i = 1, nx - 2, j = 1, ny - 2.
+template <bool kCons>
 __global__ void poisson_input_2d_kernel(
     const float* __restrict__ us, const float* __restrict__ vs,
     const float* __restrict__ p, float* __restrict__ bt,
     const float* __restrict__ rod_ptr, int ny, int nx, float inv_2dx,
-    float inv_2dy, float inv_dx2, float inv_dy2, int emit_rhs) {
+    float inv_2dy, float inv_dx2, float inv_dy2, int emit_rhs, Weights2 wt,
+    float4 face) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const int j = blockIdx.y * blockDim.y + threadIdx.y;
   if (i >= nx || j >= ny) return;
@@ -138,24 +201,39 @@ __global__ void poisson_input_2d_kernel(
     bt[c] = 0.0f;
     return;
   }
-  const float div = (us[c + 1] - us[c - 1]) * inv_2dx
-                    + (vs[c + nx] - vs[c - nx]) * inv_2dy;
+  float div;
+  if (kCons) {
+    div = d1_cons(us, c, 1, wt.wx(0, i), wt.wx(1, i), wt.wx(2, i)) +
+          d1_cons(vs, c, nx, wt.wy(0, j), wt.wy(1, j), wt.wy(2, j));
+  } else {
+    div = (us[c + 1] - us[c - 1]) * inv_2dx
+          + (vs[c + nx] - vs[c - nx]) * inv_2dy;
+  }
   if (emit_rhs) {
     bt[c] = (*rod_ptr) * div;
     return;
   }
-  const float cx = inv_dx2 * (float)((i == 1) + (i == nx - 2));
-  const float cy = inv_dy2 * (float)((j == 1) + (j == ny - 2));
-  bt[c] = (cx + cy) * p[c] - (*rod_ptr) * div;
+  float cxy;
+  if (kCons) {
+    cxy = ((face.x * (float)(i == 1) + face.y * (float)(i == nx - 2)) +
+           face.z * (float)(j == 1)) +
+          face.w * (float)(j == ny - 2);
+  } else {
+    cxy = inv_dx2 * (float)((i == 1) + (i == nx - 2)) +
+          inv_dy2 * (float)((j == 1) + (j == ny - 2));
+  }
+  bt[c] = cxy * p[c] - (*rod_ptr) * div;
 }
 
 // Corrector u = clamp(u* - (dt/rho) p_x), v = clamp(v* - (dt/rho) p_y) on
 // the interior; shells pass through from u*, v* (projection2d.py:259-267).
+// kCons: the gradients take the consistent weights.
+template <bool kCons>
 __global__ void corrector_2d_kernel(
     const float* __restrict__ us, const float* __restrict__ vs,
     const float* __restrict__ p, float* __restrict__ u,
     float* __restrict__ v, const float* __restrict__ s_ptr, int ny, int nx,
-    float inv_2dx, float inv_2dy) {
+    float inv_2dx, float inv_2dy, Weights2 wt) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const int j = blockIdx.y * blockDim.y + threadIdx.y;
   if (i >= nx || j >= ny) return;
@@ -163,8 +241,16 @@ __global__ void corrector_2d_kernel(
   float uo = us[c], vo = vs[c];
   if (j > 0 && j < ny - 1 && i > 0 && i < nx - 1) {
     const float s = *s_ptr;
-    uo = clamp_keep_nan(uo - s * ((p[c + 1] - p[c - 1]) * inv_2dx));
-    vo = clamp_keep_nan(vo - s * ((p[c + nx] - p[c - nx]) * inv_2dy));
+    float gx, gy;
+    if (kCons) {
+      gx = d1_cons(p, c, 1, wt.wx(0, i), wt.wx(1, i), wt.wx(2, i));
+      gy = d1_cons(p, c, nx, wt.wy(0, j), wt.wy(1, j), wt.wy(2, j));
+    } else {
+      gx = (p[c + 1] - p[c - 1]) * inv_2dx;
+      gy = (p[c + nx] - p[c - nx]) * inv_2dy;
+    }
+    uo = clamp_keep_nan(uo - s * gx);
+    vo = clamp_keep_nan(vo - s * gy);
   }
   u[c] = uo;
   v[c] = vo;
@@ -186,10 +272,26 @@ int cfd_pred_star_2d(const float* u, const float* v, const float* w,
                      float b0, float b1, float b2, float tref, int buoy_mask,
                      cudaStream_t stream) {
   const Buoyancy2 buoy = {{b0, b1, b2}, tref, buoy_mask};
-  pred_star_2d_kernel<<<stencil_grid_2d(ny, nx), dim3(kTileX, kTileY), 0,
-                        stream>>>(u, v, w, us, vs, ws, scal, T, ny, nx, nu,
-                                  inv_2dx, inv_2dy, inv_dx2, inv_dy2, xmin,
-                                  ymin, dx, dy, with_sources, buoy);
+  pred_star_2d_kernel<false><<<stencil_grid_2d(ny, nx),
+                               dim3(kTileX, kTileY), 0, stream>>>(
+      u, v, w, us, vs, ws, scal, T, ny, nx, nu, inv_2dx, inv_2dy, inv_dx2,
+      inv_dy2, xmin, ymin, dx, dy, with_sources, buoy,
+      Weights2{nullptr, nullptr, nx, ny});
+  return (int)cudaGetLastError();
+}
+
+// The consistent predictor: xw (7 x nx) and yw (7 x ny) weight rows.
+int cfd_pred_star_2d_cons(const float* u, const float* v, const float* w,
+                          float* us, float* vs, float* ws, const float* scal,
+                          const float* T, const float* xw, const float* yw,
+                          int ny, int nx, float nu, int with_sources,
+                          float b0, float b1, float b2, float tref,
+                          int buoy_mask, cudaStream_t stream) {
+  const Buoyancy2 buoy = {{b0, b1, b2}, tref, buoy_mask};
+  pred_star_2d_kernel<true><<<stencil_grid_2d(ny, nx), dim3(kTileX, kTileY),
+                              0, stream>>>(
+      u, v, w, us, vs, ws, scal, T, ny, nx, nu, 0.0f, 0.0f, 0.0f, 0.0f,
+      0.0f, 0.0f, 0.0f, 0.0f, with_sources, buoy, Weights2{xw, yw, nx, ny});
   return (int)cudaGetLastError();
 }
 
@@ -198,19 +300,45 @@ int cfd_poisson_input_2d(const float* us, const float* vs, const float* p,
                          float inv_2dx, float inv_2dy, float inv_dx2,
                          float inv_dy2, int emit_rhs,
                          cudaStream_t stream) {
-  poisson_input_2d_kernel<<<stencil_grid_2d(ny, nx), dim3(kTileX, kTileY),
-                            0, stream>>>(us, vs, p, bt, rod, ny, nx, inv_2dx,
-                                         inv_2dy, inv_dx2, inv_dy2,
-                                         emit_rhs);
+  poisson_input_2d_kernel<false><<<stencil_grid_2d(ny, nx),
+                                   dim3(kTileX, kTileY), 0, stream>>>(
+      us, vs, p, bt, rod, ny, nx, inv_2dx, inv_2dy, inv_dx2, inv_dy2,
+      emit_rhs, Weights2{nullptr, nullptr, nx, ny},
+      make_float4(0.0f, 0.0f, 0.0f, 0.0f));
+  return (int)cudaGetLastError();
+}
+
+// The consistent b~ (face weights cxm, cxp, cym, cyp) or rhs.
+int cfd_poisson_input_2d_cons(const float* us, const float* vs,
+                              const float* p, float* bt, const float* rod,
+                              const float* xw, const float* yw, int ny,
+                              int nx, float cxm, float cxp, float cym,
+                              float cyp, int emit_rhs, cudaStream_t stream) {
+  poisson_input_2d_kernel<true><<<stencil_grid_2d(ny, nx),
+                                  dim3(kTileX, kTileY), 0, stream>>>(
+      us, vs, p, bt, rod, ny, nx, 0.0f, 0.0f, 0.0f, 0.0f, emit_rhs,
+      Weights2{xw, yw, nx, ny}, make_float4(cxm, cxp, cym, cyp));
   return (int)cudaGetLastError();
 }
 
 int cfd_corrector_2d(const float* us, const float* vs, const float* p,
                      float* u, float* v, const float* s, int ny, int nx,
                      float inv_2dx, float inv_2dy, cudaStream_t stream) {
-  corrector_2d_kernel<<<stencil_grid_2d(ny, nx), dim3(kTileX, kTileY), 0,
-                        stream>>>(us, vs, p, u, v, s, ny, nx, inv_2dx,
-                                  inv_2dy);
+  corrector_2d_kernel<false><<<stencil_grid_2d(ny, nx),
+                               dim3(kTileX, kTileY), 0, stream>>>(
+      us, vs, p, u, v, s, ny, nx, inv_2dx, inv_2dy,
+      Weights2{nullptr, nullptr, nx, ny});
+  return (int)cudaGetLastError();
+}
+
+// The consistent corrector: the gradient weights are rows 0-2 of xw, yw.
+int cfd_corrector_2d_cons(const float* us, const float* vs, const float* p,
+                          float* u, float* v, const float* s,
+                          const float* xw, const float* yw, int ny, int nx,
+                          cudaStream_t stream) {
+  corrector_2d_kernel<true><<<stencil_grid_2d(ny, nx), dim3(kTileX, kTileY),
+                              0, stream>>>(us, vs, p, u, v, s, ny, nx, 0.0f,
+                                           0.0f, Weights2{xw, yw, nx, ny});
   return (int)cudaGetLastError();
 }
 

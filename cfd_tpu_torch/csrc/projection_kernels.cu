@@ -20,6 +20,18 @@
 //   A5  corr_all's DST form (the nz = 3 step): the same chain after the
 //       standalone back substitution (tdma.py's make_tdma_z_bwd)
 //
+// The consistent scheme on a stretched grid (nonuniform_scheme=
+// "consistent", projection_kernels.py:594-670 and :735-742) is the kCons
+// instantiation of the same three stencil kernels: instead of the six
+// scalar inverse spacings they read per-axis weight vectors, x rows
+// [wm, wc, wp, lm, lc, lp, sin(2 pi x)] of length nx and y rows of
+// length ny (ops/kernels/stretch.py).  A warp's x weights are one
+// coalesced load and its y weights one broadcast, and both stay in L1
+// across the z-march; the uniform instantiation keeps its registers.  The
+// DST products then carry the generalized eigenbasis of the stretched
+// axes (solvers/poisson/nonuniform.py) in place of the sines; the GEMMs
+// and the Thomas sweeps do not change.
+//
 // At spectral_precision=HIGH the DST products run on the 3xTF32
 // tensor-core GEMM (gemm_3xtf32.cu) instead of sgemm_kernel, the forward
 // sweep writes no t, and the back substitution rebuilds t analytically
@@ -96,6 +108,44 @@ __device__ __forceinline__ float star(const float* __restrict__ f,
   return clamp_keep_nan(fc + dt * ((-conv + nu * lap) + src));
 }
 
+// The consistent scheme's star: f_x = (f[i-1] wm + f wc) + f[i+1] wp (and
+// f_y likewise), the Laplacian one unclamped chain x, then y, then z
+// (projection_kernels.py:601-617), sources from the weight rows (row 6).
+struct Weights {
+  const float* x;  // 7 rows of nx
+  const float* y;  // 7 rows of ny
+  int nx, ny;
+  __device__ __forceinline__ float wx(int r, int i) const {
+    return x[r * nx + i];
+  }
+  __device__ __forceinline__ float wy(int r, int j) const {
+    return y[r * ny + j];
+  }
+};
+
+__device__ __forceinline__ float star_cons(const float* __restrict__ f,
+                                           long long c, long long sy,
+                                           long long sz, int j, int i,
+                                           float uc, float vc, float wc,
+                                           float src, float dt, float nu,
+                                           float inv_2dz, float inv_dz2,
+                                           const Weights& wt) {
+  const float fc = f[c];
+  const float xm = f[c - 1], xp = f[c + 1];
+  const float ym = f[c - sy], yp = f[c + sy];
+  const float zm = f[c - sz], zp = f[c + sz];
+  const float d1x = (xm * wt.wx(0, i) + fc * wt.wx(1, i)) + xp * wt.wx(2, i);
+  const float d1y = (ym * wt.wy(0, j) + fc * wt.wy(1, j)) + yp * wt.wy(2, j);
+  const float conv = (uc * d1x + vc * d1y) + wc * ((zp - zm) * inv_2dz);
+  const float lap =
+      (((((xm * wt.wx(3, i) + fc * wt.wx(4, i)) + xp * wt.wx(5, i)) +
+         ym * wt.wy(3, j)) +
+        fc * wt.wy(4, j)) +
+       yp * wt.wy(5, j)) +
+      ((zp - 2.0f * fc) + zm) * inv_dz2;
+  return clamp_keep_nan(fc + dt * ((-conv + nu * lap) + src));
+}
+
 // With buoyancy (buoy_mask bit c set where g[c] != 0), component c's
 // source also takes bcoef[c] * (T - T_ref), bcoef[c] = (-beta) * g[c]
 // rounded in float32 on the host: the reference kernels' term
@@ -106,6 +156,7 @@ struct Buoyancy {
   int mask;
 };
 
+template <bool kCons>
 __global__ void pred_star_kernel(
     const float* __restrict__ u, const float* __restrict__ v,
     const float* __restrict__ w, float* __restrict__ us,
@@ -113,7 +164,7 @@ __global__ void pred_star_kernel(
     const float* __restrict__ scal, const float* __restrict__ T, int nz,
     int ny, int nx, float nu, float inv_2dx, float inv_2dy, float inv_2dz,
     float inv_dx2, float inv_dy2, float inv_dz2, float xmin, float ymin,
-    float dx, float dy, int with_sources, Buoyancy buoy) {
+    float dx, float dy, int with_sources, Buoyancy buoy, Weights wt) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const int j = blockIdx.y * blockDim.y + threadIdx.y;
   const int k = blockIdx.z;
@@ -131,14 +182,28 @@ __global__ void pred_star_kernel(
   const float uc = u[c], vc = v[c], wc = w[c];
   float src_u = 0.0f, src_v = 0.0f, src_w = 0.0f;
   if (with_sources) {
-    src_u = su * sinf(kPi * (ymin + (float)j * dy));
-    src_v = sv * sinf(kTwoPi * (xmin + (float)i * dx));
+    if (kCons) {  // true coordinates (the pinned source basis)
+      src_u = su * wt.wy(6, j);
+      src_v = sv * wt.wx(6, i);
+    } else {
+      src_u = su * sinf(kPi * (ymin + (float)j * dy));
+      src_v = sv * sinf(kTwoPi * (xmin + (float)i * dx));
+    }
   }
   if (buoy.mask) {
     const float dT = T[c] - buoy.tref;
     if (buoy.mask & 1) src_u = src_u + buoy.coef[0] * dT;
     if (buoy.mask & 2) src_v = src_v + buoy.coef[1] * dT;
     if (buoy.mask & 4) src_w = src_w + buoy.coef[2] * dT;
+  }
+  if (kCons) {
+    us[c] = star_cons(u, c, sy, sz, j, i, uc, vc, wc, src_u, dt, nu,
+                      inv_2dz, inv_dz2, wt);
+    vs[c] = star_cons(v, c, sy, sz, j, i, uc, vc, wc, src_v, dt, nu,
+                      inv_2dz, inv_dz2, wt);
+    ws[c] = star_cons(w, c, sy, sz, j, i, uc, vc, wc, src_w, dt, nu,
+                      inv_2dz, inv_dz2, wt);
+    return;
   }
   us[c] = star(u, c, sy, sz, uc, vc, wc, src_u, dt, nu, inv_2dx, inv_2dy,
                inv_2dz, inv_dx2, inv_dy2, inv_dz2);
@@ -151,12 +216,17 @@ __global__ void pred_star_kernel(
 // b~ = face_coeff * p - (rho/dt) div u* on the interior, 0 on the shell;
 // with emit_rhs the iterative solvers' rhs = (rho/dt) div u* instead
 // (projection_kernels.py:699-701: no face term, no minus; p is not read).
+// kCons: the consistent divergence and the four nonuniform face weights
+// face[] = (cxm, cxp, cym, cyp) at i = 1, nx - 2, j = 1, ny - 2
+// (projection_kernels.py:656-670).
+template <bool kCons>
 __global__ void poisson_input_kernel(
     const float* __restrict__ us, const float* __restrict__ vs,
     const float* __restrict__ ws, const float* __restrict__ p,
     float* __restrict__ bt, const float* __restrict__ rod_ptr, int nz,
     int ny, int nx, float inv_2dx, float inv_2dy, float inv_2dz,
-    float inv_dx2, float inv_dy2, float inv_dz2, int emit_rhs) {
+    float inv_dx2, float inv_dy2, float inv_dz2, int emit_rhs, Weights wt,
+    float4 face) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const int j = blockIdx.y * blockDim.y + threadIdx.y;
   const int k = blockIdx.z;
@@ -168,17 +238,33 @@ __global__ void poisson_input_kernel(
     bt[c] = 0.0f;
     return;
   }
-  const float div = ((us[c + 1] - us[c - 1]) * inv_2dx
-                     + (vs[c + sy] - vs[c - sy]) * inv_2dy)
-                    + (ws[c + sz] - ws[c - sz]) * inv_2dz;
+  float div;
+  if (kCons) {
+    div = (((us[c - 1] * wt.wx(0, i) + us[c] * wt.wx(1, i)) +
+            us[c + 1] * wt.wx(2, i)) +
+           ((vs[c - sy] * wt.wy(0, j) + vs[c] * wt.wy(1, j)) +
+            vs[c + sy] * wt.wy(2, j))) +
+          (ws[c + sz] - ws[c - sz]) * inv_2dz;
+  } else {
+    div = ((us[c + 1] - us[c - 1]) * inv_2dx
+           + (vs[c + sy] - vs[c - sy]) * inv_2dy)
+          + (ws[c + sz] - ws[c - sz]) * inv_2dz;
+  }
   if (emit_rhs) {
     bt[c] = (*rod_ptr) * div;
     return;
   }
-  const float cx = inv_dx2 * (float)((i == 1) + (i == nx - 2));
-  const float cy = inv_dy2 * (float)((j == 1) + (j == ny - 2));
+  float cxy;
+  if (kCons) {
+    cxy = ((face.x * (float)(i == 1) + face.y * (float)(i == nx - 2)) +
+           face.z * (float)(j == 1)) +
+          face.w * (float)(j == ny - 2);
+  } else {
+    cxy = inv_dx2 * (float)((i == 1) + (i == nx - 2)) +
+          inv_dy2 * (float)((j == 1) + (j == ny - 2));
+  }
   const float cz = inv_dz2 * (float)((k == 1) + (k == nz - 2));
-  bt[c] = ((cx + cy) + cz) * p[c] - (*rod_ptr) * div;
+  bt[c] = (cxy + cz) * p[c] - (*rod_ptr) * div;
 }
 
 // Batched row-major C[b] = A[b] (M x K) * B[b] (K x N); a zero batch
@@ -343,13 +429,16 @@ __global__ void tdma_bwd_kernel(const float* __restrict__ d,
 
 // Corrector u = clamp(u* - (dt/rho) grad p) on the interior (shells pass
 // through from u*), plus per-block maxima of |u|^2, p and |p| over the
-// planes k = 1..nz-2 into partials[3 * block + q].
+// planes k = 1..nz-2 into partials[3 * block + q].  kCons: the x and y
+// gradients (p[i-1] wm + p wc) + p[i+1] wp (projection_kernels.py:735-742).
+template <bool kCons>
 __global__ void __launch_bounds__(kTileX * kTileY) corrector_kernel(
     const float* __restrict__ us, const float* __restrict__ vs,
     const float* __restrict__ ws, const float* __restrict__ p,
     float* __restrict__ u, float* __restrict__ v, float* __restrict__ w,
     const float* __restrict__ s_ptr, float* __restrict__ partials, int nz,
-    int ny, int nx, float inv_2dx, float inv_2dy, float inv_2dz) {
+    int ny, int nx, float inv_2dx, float inv_2dy, float inv_2dz,
+    Weights wt) {
   __shared__ float red[3][kTileX * kTileY];
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const int j = blockIdx.y * blockDim.y + threadIdx.y;
@@ -363,8 +452,19 @@ __global__ void __launch_bounds__(kTileX * kTileY) corrector_kernel(
     float uo = us[c], vo = vs[c], wo = ws[c];
     if (zint && j > 0 && j < ny - 1 && i > 0 && i < nx - 1) {
       const float s = *s_ptr;
-      uo = clamp_keep_nan(uo - s * ((p[c + 1] - p[c - 1]) * inv_2dx));
-      vo = clamp_keep_nan(vo - s * ((p[c + sy] - p[c - sy]) * inv_2dy));
+      float gx, gy;
+      if (kCons) {
+        const float pc = p[c];
+        gx = (p[c - 1] * wt.wx(0, i) + pc * wt.wx(1, i)) +
+             p[c + 1] * wt.wx(2, i);
+        gy = (p[c - sy] * wt.wy(0, j) + pc * wt.wy(1, j)) +
+             p[c + sy] * wt.wy(2, j);
+      } else {
+        gx = (p[c + 1] - p[c - 1]) * inv_2dx;
+        gy = (p[c + sy] - p[c - sy]) * inv_2dy;
+      }
+      uo = clamp_keep_nan(uo - s * gx);
+      vo = clamp_keep_nan(vo - s * gy);
       wo = clamp_keep_nan(wo - (s * (p[c + sz] - p[c - sz])) * inv_2dz);
     }
     u[c] = uo;
@@ -449,11 +549,28 @@ int cfd_pred_star(const float* u, const float* v, const float* w, float* us,
                   int with_sources, float b0, float b1, float b2, float tref,
                   int buoy_mask, cudaStream_t stream) {
   const Buoyancy buoy = {{b0, b1, b2}, tref, buoy_mask};
-  pred_star_kernel<<<stencil_grid(nz, ny, nx), dim3(kTileX, kTileY), 0,
-                     stream>>>(u, v, w, us, vs, ws, scal, T, nz, ny, nx, nu,
-                               inv_2dx, inv_2dy, inv_2dz, inv_dx2, inv_dy2,
-                               inv_dz2, xmin, ymin, dx, dy, with_sources,
-                               buoy);
+  pred_star_kernel<false><<<stencil_grid(nz, ny, nx), dim3(kTileX, kTileY),
+                            0, stream>>>(
+      u, v, w, us, vs, ws, scal, T, nz, ny, nx, nu, inv_2dx, inv_2dy,
+      inv_2dz, inv_dx2, inv_dy2, inv_dz2, xmin, ymin, dx, dy, with_sources,
+      buoy, Weights{nullptr, nullptr, nx, ny});
+  return (int)cudaGetLastError();
+}
+
+// The consistent predictor: xw (7 x nx) and yw (7 x ny) weight rows.
+int cfd_pred_star_cons(const float* u, const float* v, const float* w,
+                       float* us, float* vs, float* ws, const float* scal,
+                       const float* T, const float* xw, const float* yw,
+                       int nz, int ny, int nx, float nu, float inv_2dz,
+                       float inv_dz2, int with_sources, float b0, float b1,
+                       float b2, float tref, int buoy_mask,
+                       cudaStream_t stream) {
+  const Buoyancy buoy = {{b0, b1, b2}, tref, buoy_mask};
+  pred_star_kernel<true><<<stencil_grid(nz, ny, nx), dim3(kTileX, kTileY),
+                           0, stream>>>(
+      u, v, w, us, vs, ws, scal, T, nz, ny, nx, nu, 0.0f, 0.0f, inv_2dz,
+      0.0f, 0.0f, inv_dz2, 0.0f, 0.0f, 0.0f, 0.0f, with_sources, buoy,
+      Weights{xw, yw, nx, ny});
   return (int)cudaGetLastError();
 }
 
@@ -462,10 +579,26 @@ int cfd_poisson_input(const float* us, const float* vs, const float* ws,
                       int ny, int nx, float inv_2dx, float inv_2dy,
                       float inv_2dz, float inv_dx2, float inv_dy2,
                       float inv_dz2, int emit_rhs, cudaStream_t stream) {
-  poisson_input_kernel<<<stencil_grid(nz, ny, nx), dim3(kTileX, kTileY), 0,
-                         stream>>>(us, vs, ws, p, bt, rod, nz, ny, nx,
-                                   inv_2dx, inv_2dy, inv_2dz, inv_dx2,
-                                   inv_dy2, inv_dz2, emit_rhs);
+  poisson_input_kernel<false><<<stencil_grid(nz, ny, nx),
+                                dim3(kTileX, kTileY), 0, stream>>>(
+      us, vs, ws, p, bt, rod, nz, ny, nx, inv_2dx, inv_2dy, inv_2dz,
+      inv_dx2, inv_dy2, inv_dz2, emit_rhs, Weights{nullptr, nullptr, nx, ny},
+      make_float4(0.0f, 0.0f, 0.0f, 0.0f));
+  return (int)cudaGetLastError();
+}
+
+// The consistent b~ (face weights cxm, cxp, cym, cyp) or rhs.
+int cfd_poisson_input_cons(const float* us, const float* vs, const float* ws,
+                           const float* p, float* bt, const float* rod,
+                           const float* xw, const float* yw, int nz, int ny,
+                           int nx, float inv_2dz, float inv_dz2, float cxm,
+                           float cxp, float cym, float cyp, int emit_rhs,
+                           cudaStream_t stream) {
+  poisson_input_kernel<true><<<stencil_grid(nz, ny, nx),
+                               dim3(kTileX, kTileY), 0, stream>>>(
+      us, vs, ws, p, bt, rod, nz, ny, nx, 0.0f, 0.0f, inv_2dz, 0.0f, 0.0f,
+      inv_dz2, emit_rhs, Weights{xw, yw, nx, ny},
+      make_float4(cxm, cxp, cym, cyp));
   return (int)cudaGetLastError();
 }
 
@@ -506,20 +639,50 @@ long long cfd_corrector_partials(int nz, int ny, int nx) {
   return (long long)g.x * g.y * g.z;
 }
 
+}  // extern "C"
+
+namespace {
+
+template <bool kCons>
+int launch_corrector(const float* us, const float* vs, const float* ws,
+                     const float* p, float* u, float* v, float* w,
+                     const float* s, float* partials, float* out, int nz,
+                     int ny, int nx, float inv_2dx, float inv_2dy,
+                     float inv_2dz, Weights wt, cudaStream_t stream) {
+  const dim3 grid = stencil_grid(nz, ny, nx);
+  corrector_kernel<kCons><<<grid, dim3(kTileX, kTileY), 0, stream>>>(
+      us, vs, ws, p, u, v, w, s, partials, nz, ny, nx, inv_2dx, inv_2dy,
+      inv_2dz, wt);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  reduce_max3_kernel<<<1, kReduceThreads, 0, stream>>>(
+      partials, (long long)grid.x * grid.y * grid.z, out);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
 int cfd_corrector(const float* us, const float* vs, const float* ws,
                   const float* p, float* u, float* v, float* w,
                   const float* s, float* partials, float* out, int nz,
                   int ny, int nx, float inv_2dx, float inv_2dy,
                   float inv_2dz, cudaStream_t stream) {
-  const dim3 grid = stencil_grid(nz, ny, nx);
-  corrector_kernel<<<grid, dim3(kTileX, kTileY), 0, stream>>>(
-      us, vs, ws, p, u, v, w, s, partials, nz, ny, nx, inv_2dx, inv_2dy,
-      inv_2dz);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  reduce_max3_kernel<<<1, kReduceThreads, 0, stream>>>(
-      partials, cfd_corrector_partials(nz, ny, nx), out);
-  return (int)cudaGetLastError();
+  return launch_corrector<false>(us, vs, ws, p, u, v, w, s, partials, out,
+                                 nz, ny, nx, inv_2dx, inv_2dy, inv_2dz,
+                                 Weights{nullptr, nullptr, nx, ny}, stream);
+}
+
+// The consistent corrector: the gradient weights are rows 0-2 of xw, yw.
+int cfd_corrector_cons(const float* us, const float* vs, const float* ws,
+                       const float* p, float* u, float* v, float* w,
+                       const float* s, float* partials, float* out,
+                       const float* xw, const float* yw, int nz, int ny,
+                       int nx, float inv_2dz, cudaStream_t stream) {
+  return launch_corrector<true>(us, vs, ws, p, u, v, w, s, partials, out,
+                                nz, ny, nx, 0.0f, 0.0f, inv_2dz,
+                                Weights{xw, yw, nx, ny}, stream);
 }
 
 }  // extern "C"

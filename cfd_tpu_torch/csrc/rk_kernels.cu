@@ -34,6 +34,11 @@
 // advected by the FINAL velocities, interior only, then the wrap and the
 // thermal faces (rk_kernels.py:325-360), as in euler_kernels.cu.
 //
+// On a stretched grid the spacing parameter kS (explicit_common.cuh)
+// selects parity or consistent derivatives, with the weights of the point
+// whose RHS is evaluated (rk_kernels.py:206-237 of the reference); parity
+// with the energy equation is never launched.
+//
 // Design.  The TPU kernel took the z-wrap neighbours (planes nz - 2 and 1)
 // from pinned inputs because its streaming window could not see the far
 // end of the array.  Here one thread owns one point and the wrap is an
@@ -76,11 +81,12 @@ struct Rhs {
 };
 
 // k = RHS(stage state) at interior point c = (k, j, i).
-template <bool k3D, bool kThermal>
+template <bool k3D, bool kThermal, int kS>
 __device__ __forceinline__ Rhs rk_rhs(const Fields& f, long long c,
                                       long long sy, long long sz, int k,
                                       int j, int i, int nz, int ny, int nx,
-                                      const Coefs& q, const Thermal& th) {
+                                      const Coefs& q, const Thermal& th,
+                                      const Stretch& st) {
   const long long xl = i == 1 ? c + (nx - 3) : c - 1;
   const long long xr = i == nx - 2 ? c - (nx - 3) : c + 1;
   const long long yd = j == 1 ? c + (ny - 3) * sy : c - sy;
@@ -89,19 +95,19 @@ __device__ __forceinline__ Rhs rk_rhs(const Fields& f, long long c,
   const long long zf = k == nz - 2 ? c - (nz - 3) * sz : c + sz;
 
   auto d1x = [&](const float* g) {
-    return clampv((g[xr] - g[xl]) * q.c2x, kD1);
+    return clampv(d1_at<kS>(g[xl], g[c], g[xr], q.c2x, st.x, st.nx, i), kD1);
   };
   auto d1y = [&](const float* g) {
-    return clampv((g[yu] - g[yd]) * q.c2y, kD1);
+    return clampv(d1_at<kS>(g[yd], g[c], g[yu], q.c2y, st.y, st.ny, j), kD1);
   };
   auto d1z = [&](const float* g) {
     return clampv((g[zf] - g[zb]) * q.c2z, kD1);
   };
   auto lap = [&](const float* g, float gc) {
-    const float c2 = 2.0f * gc;
-    float l = clampv(((g[xr] - c2) + g[xl]) * q.cx2, kD2) +
-              clampv(((g[yu] - c2) + g[yd]) * q.cy2, kD2);
-    if (k3D) l = l + clampv(((g[zf] - c2) + g[zb]) * q.cz2, kD2);
+    float l =
+        clampv(d2_at<kS>(g[xl], gc, g[xr], q.cx2, st.x, st.nx, i), kD2) +
+        clampv(d2_at<kS>(g[yd], gc, g[yu], q.cy2, st.y, st.ny, j), kD2);
+    if (k3D) l = l + clampv(((g[zf] - 2.0f * gc) + g[zb]) * q.cz2, kD2);
     return l;
   };
 
@@ -143,10 +149,10 @@ __device__ __forceinline__ Rhs rk_rhs(const Fields& f, long long c,
 
 // kThermal instantiates the buoyant and energy code; without it the
 // kernel is the plain stage's, with its register footprint.
-template <bool k3D, bool kFinal, bool kThermal>
+template <bool k3D, bool kFinal, bool kThermal, int kS>
 __global__ void __launch_bounds__(kTileX * kTileY) rk_kernel(
     Fields f, Outs out, float* __restrict__ partials, int nz, int ny,
-    int nx, Coefs coefs, Thermal th) {
+    int nx, Coefs coefs, Thermal th, Stretch st) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const int j = blockIdx.y * blockDim.y + threadIdx.y;
   const int k = blockIdx.z;
@@ -162,8 +168,8 @@ __global__ void __launch_bounds__(kTileX * kTileY) rk_kernel(
     const long long e = kFinal ? cs : c;
     Rhs r = {0.0f, 0.0f, 0.0f, 0.0f};
     if (kFinal || cs == c)
-      r = rk_rhs<k3D, kThermal>(f, e, sy, sz, ks, js, is, nz, ny, nx, coefs,
-                                th);
+      r = rk_rhs<k3D, kThermal, kS>(f, e, sy, sz, ks, js, is, nz, ny, nx,
+                                    coefs, th, st);
     const float factor = f.scal[0], acc_mix = f.scal[1];
     const bool acc = f.au != nullptr;
     const float au = acc ? f.au[e] : 0.0f, av = acc ? f.av[e] : 0.0f;
@@ -178,15 +184,15 @@ __global__ void __launch_bounds__(kTileX * kTileY) rk_kernel(
     out.o[3][c] = pn;
     if (kFinal) {
       float ot;
-      if (kThermal && th.energy) {
+      if (kThermal && kS != kParity && th.energy) {
         int kT, jT, iT;
         if (!thermal_source<k3D>(th, k, j, i, nz, ny, nx, kT, jT, iT,
                                  ot)) {
           const long long cT = kT * sz + jT * sy + iT;
           float ut = un, vt = vn, wt = wn;
           if (cT != cs) {  // the final velocities at the T source
-            const Rhs rt = rk_rhs<k3D, kThermal>(f, cT, sy, sz, kT, jT, iT,
-                                                 nz, ny, nx, coefs, th);
+            const Rhs rt = rk_rhs<k3D, kThermal, kS>(
+                f, cT, sy, sz, kT, jT, iT, nz, ny, nx, coefs, th, st);
             const float aut = acc ? f.au[cT] : 0.0f;
             const float avt = acc ? f.av[cT] : 0.0f;
             const float awt = acc ? f.aw[cT] : 0.0f;
@@ -194,9 +200,10 @@ __global__ void __launch_bounds__(kTileX * kTileY) rk_kernel(
             vt = clampv(f.q0v[cT] + factor * (acc_mix * avt + rt.v), kVel);
             wt = clampv(f.q0w[cT] + factor * (acc_mix * awt + rt.w), kVel);
           }
-          ot = energy_update<k3D>(f.T, cT, sy, sz, ut, vt, wt, f.scal[5],
-                                  th.alpha, coefs.c2x, coefs.c2y, coefs.c2z,
-                                  coefs.cx2, coefs.cy2, coefs.cz2);
+          ot = energy_update<k3D, kS>(f.T, cT, sy, sz, jT, iT, ut, vt, wt,
+                                      f.scal[5], th.alpha, coefs.c2x,
+                                      coefs.c2y, coefs.c2z, coefs.cx2,
+                                      coefs.cy2, coefs.cz2, st);
         }
       } else {
         ot = f.T[cs];
@@ -218,23 +225,34 @@ __global__ void __launch_bounds__(kTileX * kTileY) rk_kernel(
   if (kFinal) block_max4(m, partials);
 }
 
-template <bool k3D, bool kThermal>
+template <bool k3D, bool kThermal, int kS>
 int launch_rk(const Fields& f, const Outs& o, float* partials, float* out,
               int nz, int ny, int nx, const Coefs& coefs, const Thermal& th,
-              int final_stage, cudaStream_t stream) {
+              const Stretch& st, int final_stage, cudaStream_t stream) {
   const dim3 grid = grid_of(nz, ny, nx), block(kTileX, kTileY);
   if (!final_stage) {
-    rk_kernel<k3D, false, kThermal><<<grid, block, 0, stream>>>(
-        f, o, partials, nz, ny, nx, coefs, th);
+    rk_kernel<k3D, false, kThermal, kS><<<grid, block, 0, stream>>>(
+        f, o, partials, nz, ny, nx, coefs, th, st);
     return (int)cudaGetLastError();
   }
-  rk_kernel<k3D, true, kThermal><<<grid, block, 0, stream>>>(
-      f, o, partials, nz, ny, nx, coefs, th);
+  rk_kernel<k3D, true, kThermal, kS><<<grid, block, 0, stream>>>(
+      f, o, partials, nz, ny, nx, coefs, th, st);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   reduce_max4_kernel<<<1, kReduceThreads, 0, stream>>>(
       partials, blocks_of(nz, ny, nx), out);
   return (int)cudaGetLastError();
+}
+
+using RkLaunch = int (*)(const Fields&, const Outs&, float*, float*, int,
+                         int, int, const Coefs&, const Thermal&,
+                         const Stretch&, int, cudaStream_t);
+
+template <bool k3D, bool kThermal>
+RkLaunch pick_spacing(int spacing) {
+  if (spacing == kParity) return launch_rk<k3D, kThermal, kParity>;
+  if (spacing == kConsistent) return launch_rk<k3D, kThermal, kConsistent>;
+  return launch_rk<k3D, kThermal, kUniform>;
 }
 
 }  // namespace
@@ -245,12 +263,14 @@ extern "C" {
 // accumulator pointers all null for a zero accumulator), sin(pi y),
 // sin(2 pi x), scal; outs[] as Outs.  partials and out (4 maxima) are read
 // only by the final stage.  thermal_f and thermal_i are host arrays
-// (explicit_common.cuh: thermal_from).
+// (explicit_common.cuh: thermal_from).  spacing is kUniform, kParity or
+// kConsistent, xw and yw its weight rows (null when uniform).
 int cfd_rk_stage(const float* const* in, float* const* outs,
                  float* partials, float* out, int nz, int ny, int nx,
                  float mu, float coef, float c2x, float c2y, float c2z,
                  float cx2, float cy2, float cz2, int final_stage,
                  const float* thermal_f, const int* thermal_i,
+                 const float* xw, const float* yw, int spacing,
                  cudaStream_t stream) {
   const Fields f = {in[0], in[1], in[2],  in[3],  in[4],  in[5],
                     in[6], in[7], in[8],  in[9],  in[10], in[11],
@@ -259,12 +279,19 @@ int cfd_rk_stage(const float* const* in, float* const* outs,
   for (int q = 0; q < 8; ++q) o.o[q] = outs[q];
   const Coefs coefs = {mu, coef, c2x, c2y, c2z, cx2, cy2, cz2};
   const Thermal th = thermal_from(thermal_f, thermal_i);
+  if (spacing == kParity && th.energy)
+    return (int)cudaErrorInvalidValue;  // parity has no stretched energy
+  const Stretch st = {xw, yw, nx, ny};
   const bool thermal = th.energy || th.buoy;
+  RkLaunch launch;
   if (nz > 1)
-    return (thermal ? launch_rk<true, true> : launch_rk<true, false>)(
-        f, o, partials, out, nz, ny, nx, coefs, th, final_stage, stream);
-  return (thermal ? launch_rk<false, true> : launch_rk<false, false>)(
-      f, o, partials, out, 1, ny, nx, coefs, th, final_stage, stream);
+    launch = thermal ? pick_spacing<true, true>(spacing)
+                     : pick_spacing<true, false>(spacing);
+  else
+    launch = thermal ? pick_spacing<false, true>(spacing)
+                     : pick_spacing<false, false>(spacing);
+  return launch(f, o, partials, out, nz > 1 ? nz : 1, ny, nx, coefs, th, st,
+                final_stage, stream);
 }
 
 }  // extern "C"

@@ -25,8 +25,8 @@ def euler2d_step(u, v, w, p, T, rho, sy, sx, scal, c: ExplicitConsts):
     if c.nz != 1:
         raise ValueError("euler2d_step is the 2D kernel (nz == 1)")
     out = launch_euler(c, u, v, w, p, T, rho, sy, sx, scal)
-    euler2d_step.launches += 1
+    native.count_launch(euler2d_step, c.scheme)
     return out
 
 
-euler2d_step.launches = 0
+native.reset_counts(euler2d_step)

@@ -1,9 +1,13 @@
 """The explicit Euler step's fused kernel (counterpart of
 `cfd_tpu/ops/pallas/euler_kernels.py`, E3 ``make_euler_fused``).
 
-Single device, uniform grid, the built-in decaying sources, with or
-without Boussinesq buoyancy and the energy equation with its thermal
-faces (``ExplicitConsts.thermal``).  The TPU kernel (one streaming pass
+Single device, the built-in decaying sources, with or without Boussinesq
+buoyancy and the energy equation with its thermal faces
+(``ExplicitConsts.thermal``), on a uniform grid or a stretched x/y grid
+(``ExplicitConsts.spacing``: the parity scheme's per-point forward
+spacings or the consistent scheme's exact nonuniform weights, as per-axis
+weight rows, `ops.kernels.stretch`; parity has no energy equation there,
+as in the reference, `euler_kernels.py:110-113`).  The TPU kernel (one streaming pass
 on the rolling engine, compute `euler_kernels.py:240-351`) becomes one
 CUDA kernel plus a one-block reduction, ``cfd_euler_step`` in
 ``cfd_tpu_torch/csrc/euler_kernels.cu``: one thread per point, each
@@ -29,6 +33,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 
+import numpy as np
 import torch
 
 from ...boundary.apply import apply_periodic_scalar
@@ -38,9 +43,10 @@ from ...solvers.ns.common import clamp
 from ...solvers.ns.params import (MAX_DERIVATIVE_LIMIT, MAX_DIVERGENCE_LIMIT,
                                   MAX_SECOND_DERIVATIVE_LIMIT,
                                   MAX_VELOCITY_LIMIT, UPDATE_LIMIT)
-from ..stencils import (d2dz2, interior_mask, sx_m, sx_p, sy_m, sy_p, sz_m,
-                        sz_p)
+from ..stencils import (d2dz2, interior_mask, laplacian_chain, sx_m, sx_p,
+                        sy_m, sy_p, sz_m, sz_p, weighted)
 from . import native
+from .stretch import stretch_pins, stretch_pins_consistent
 
 
 @dataclasses.dataclass(frozen=True)
@@ -89,9 +95,37 @@ class ThermalConsts:
         return floats, ints
 
 
+SPACING_KINDS = {None: 0, "parity": 1, "consistent": 2}  # = kS
+
+
+@dataclasses.dataclass(frozen=True)
+class Spacing:
+    """A stretched grid's weights for the explicit kernels: ``scheme``
+    "parity" (x rows [1/(2dx), 1/dx², sin 2πx], y rows likewise,
+    `stretch.stretch_pins`) or "consistent" (rows [wm, wc, wp, lm, lc, lp,
+    src], `stretch.stretch_pins_consistent`), the rows as tensors on the
+    fields' device; the kernels do not read the source rows (their
+    ``sy``/``sx`` inputs hold the same values)."""
+
+    scheme: str
+    xw: torch.Tensor
+    yw: torch.Tensor
+
+    @classmethod
+    def of(cls, stretch, scheme, dtype, device) -> "Spacing":
+        """From the ``(dx, dy, x, y)`` numpy tuple of
+        `solvers.ns.common.stretch_gate`."""
+        np_dt = np.float64 if dtype == torch.float64 else np.float32
+        mk = (stretch_pins_consistent if scheme == "consistent"
+              else stretch_pins)
+        xw, yw = mk(*stretch, np_dt)
+        return cls(scheme, torch.as_tensor(xw, device=device),
+                   torch.as_tensor(yw, device=device))
+
+
 @dataclasses.dataclass(frozen=True)
 class ExplicitConsts:
-    """Constants of one uniform grid for the explicit kernels (the
+    """Constants of one grid for the explicit kernels (the
     reference bakes the same Python floats into its kernels; the CUDA
     kernels take them as float32 arguments).  On a 2D grid (nz == 1) the
     z constants are 0."""
@@ -105,6 +139,52 @@ class ExplicitConsts:
     mu: float
     pressure_coupling: float
     thermal: ThermalConsts = ThermalConsts()
+    # a stretched x/y grid's weights; None on a uniform grid
+    spacing: Spacing = dataclasses.field(default=None, compare=False)
+
+    @property
+    def consistent(self) -> bool:
+        return self.spacing is not None and self.spacing.scheme == "consistent"
+
+    @property
+    def scheme(self):
+        """The launch counter's scheme (`native.count_launch`): None on a
+        uniform grid, else the spacing's."""
+        return None if self.spacing is None else self.spacing.scheme
+
+    def xy_operators(self):
+        """(d1x, d1y, d2x, d2y) of the shifted views ``(f_minus,
+        f_center, f_plus)`` in the kernels' order: (fp − fm)·c and
+        ((fp − 2fc) + fm)·c with scalar coefficients on a uniform grid
+        and per-point ones on the parity scheme; (fm·wm + fc·wc) + fp·wp
+        on the consistent scheme (`stretch.weighted`)."""
+        i2x, i2y, _, ix2, iy2, _ = self.derivs()
+        sp = self.spacing
+        if sp is not None:
+            X = [r.reshape(1, 1, -1) for r in sp.xw]
+            Y = [r.reshape(1, -1, 1) for r in sp.yw]
+        if sp is not None and sp.scheme == "consistent":
+            def lin(w):
+                return lambda fm, fc, fp: weighted(fm, fc, fp, w)
+
+            return lin(X[:3]), lin(Y[:3]), lin(X[3:6]), lin(Y[3:6])
+        if sp is not None:
+            i2x, ix2, i2y, iy2 = X[0], X[1], Y[0], Y[1]
+
+        def first(c):
+            return lambda fm, fc, fp: (fp - fm) * c
+
+        def second(c):
+            return lambda fm, fc, fp: ((fp - 2.0 * fc) + fm) * c
+
+        return first(i2x), first(i2y), second(ix2), second(iy2)
+
+    def kernel_spacing(self):
+        """The C entry points' trailing (xw, yw, spacing kind)."""
+        sp = self.spacing
+        if sp is None:
+            return None, None, 0
+        return native.ptr(sp.xw), native.ptr(sp.yw), SPACING_KINDS[sp.scheme]
 
     def derivs(self):
         """(1/2dx, 1/2dy, 1/2dz, 1/dx², 1/dy², 1/dz²)."""
@@ -124,6 +204,10 @@ def check_inputs(c: ExplicitConsts, fields, sy, sx, scal):
     """(nz, ny, nx) float32 fields, the (ny,) and (nx,) source vectors and
     the scalars, contiguous on one CUDA device."""
     native.check_cuda(*fields, sy, sx, scal)
+    if c.spacing is not None:
+        native.check_cuda(c.spacing.xw, c.spacing.yw)
+        if (c.spacing.xw.shape[-1], c.spacing.yw.shape[-1]) != (c.nx, c.ny):
+            raise ValueError("the spacing rows must be (·, nx) and (·, ny)")
     for f in fields:
         if tuple(f.shape) != (c.nz, c.ny, c.nx):
             raise ValueError(f"expected fields of shape "
@@ -164,13 +248,22 @@ def buoyant_sources(su, sv, T, c: ExplicitConsts):
 
 def energy_update_plain(T, uo, vo, wo, cdt, c: ExplicitConsts):
     """T + cdt·(−(u·T_x + v·T_y + w·T_z) + α∇²T) on the interior with the
-    updated velocities, T on the shell; unclamped central differences in
-    the kernels' order (no z terms on a one-plane field)."""
+    updated velocities, T on the shell; unclamped, in the kernels' order
+    (no z terms on a one-plane field): central differences on a uniform
+    grid; on the consistent scheme T_x = (T[i−1]·wm + T·wc) + T[i+1]·wp
+    and ∇²T one chain of the six x/y terms (`euler_kernels.py:319-326`)."""
     i2x, i2y, i2z, ix2, iy2, iz2 = c.derivs()
     xp, xm, yp, ym = sx_p(T), sx_m(T), sy_p(T), sy_m(T)
     t2 = 2.0 * T
-    lap = ((xp - t2) + xm) * ix2 + ((yp - t2) + ym) * iy2
-    adv = uo * ((xp - xm) * i2x) + vo * ((yp - ym) * i2y)
+    if c.consistent:
+        X = [r.reshape(1, 1, -1) for r in c.spacing.xw]
+        Y = [r.reshape(1, -1, 1) for r in c.spacing.yw]
+        lap = laplacian_chain(xm, T, xp, ym, yp, X[3:6], Y[3:6])
+        adv = (uo * weighted(xm, T, xp, X[:3])
+               + vo * weighted(ym, T, yp, Y[:3]))
+    else:
+        lap = ((xp - t2) + xm) * ix2 + ((yp - t2) + ym) * iy2
+        adv = uo * ((xp - xm) * i2x) + vo * ((yp - ym) * i2y)
     if c.nz > 1:
         zp, zm = sz_p(T), sz_m(T)
         lap = lap + ((zp - t2) + zm) * iz2
@@ -199,8 +292,9 @@ def euler_step_plain(u, v, w, p, T, rho, sy, sx, scal, c: ExplicitConsts):
     plain version of the 2D kernel: on a one-plane field every z term is
     dropped."""
     cdt, su_eff, sv_eff = scal[0], scal[1], scal[2]
-    i2x, i2y, i2z, ix2, iy2, iz2 = c.derivs()
+    _, _, i2z, _, _, iz2 = c.derivs()
     three_d = c.nz > 1
+    dx1, dy1, dx2, dy2 = c.xy_operators()
 
     def d1(a):
         return clamp(a, MAX_DERIVATIVE_LIMIT)
@@ -209,13 +303,11 @@ def euler_step_plain(u, v, w, p, T, rho, sy, sx, scal, c: ExplicitConsts):
         return clamp(a, MAX_SECOND_DERIVATIVE_LIMIT)
 
     def grads(f):
-        return (d1((sx_p(f) - sx_m(f)) * i2x), d1((sy_p(f) - sy_m(f)) * i2y),
+        return (d1(dx1(sx_m(f), f, sx_p(f))), d1(dy1(sy_m(f), f, sy_p(f))),
                 d1((sz_p(f) - sz_m(f)) * i2z) if three_d else None)
 
     def lap(f):
-        c2 = 2.0 * f
-        out = (d2(((sx_p(f) - c2) + sx_m(f)) * ix2)
-               + d2(((sy_p(f) - c2) + sy_m(f)) * iy2))
+        out = (d2(dx2(sx_m(f), f, sx_p(f))) + d2(dy2(sy_m(f), f, sy_p(f))))
         return out + d2(d2dz2(f, iz2)) if three_d else out
 
     du_dx, du_dy, du_dz = grads(u)
@@ -266,19 +358,20 @@ def launch_euler(c: ExplicitConsts, u, v, w, p, T, rho, sy, sx, scal):
     partials, red = maxima_buffers(c, u)
     native.launch("cfd_euler_step", u.device, *map(native.ptr, (
         u, v, w, p, T, rho, sy, sx, scal, *outs, partials, red)),
-        *c.kernel_args(), *c.thermal.kernel_args())
+        *c.kernel_args(), *c.thermal.kernel_args(), *c.kernel_spacing())
     return (*outs, red[0], red[1], red[2], red[3])
 
 
 def euler_step(u, v, w, p, T, rho, sy, sx, scal, c: ExplicitConsts):
-    """E3, the whole 3D Euler step — ``euler_kernel<true, *>`` on CUDA."""
+    """E3, the whole 3D Euler step — ``euler_kernel<true, *, kS>`` on
+    CUDA, counted by spacing kind (`native.count_launch`)."""
     if native.on_cpu(u):
         return euler_step_plain(u, v, w, p, T, rho, sy, sx, scal, c)
     if c.nz < 3:
         raise ValueError("euler_step is the 3D kernel (nz >= 3)")
     out = launch_euler(c, u, v, w, p, T, rho, sy, sx, scal)
-    euler_step.launches += 1
+    native.count_launch(euler_step, c.scheme)
     return out
 
 
-euler_step.launches = 0
+native.reset_counts(euler_step)

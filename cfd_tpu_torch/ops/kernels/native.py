@@ -49,6 +49,11 @@ SIGNATURES = {
     "cfd_tdma_bwd": [_P, _P, _P, _I, _L, _P],
     "cfd_tdma_bwd_analytic": [_P, _P, _P, _I, _L, _P],
     "cfd_corrector": [_P] * 10 + [_I] * 3 + [_F] * 3 + [_P],
+    # ... their consistent-scheme instantiations (weight rows xw, yw)
+    "cfd_pred_star_cons": [_P] * 10 + [_I] * 3 + [_F] * 3 + [_I]
+    + [_F] * 4 + [_I, _P],
+    "cfd_poisson_input_cons": [_P] * 8 + [_I] * 3 + [_F] * 6 + [_I, _P],
+    "cfd_corrector_cons": [_P] * 12 + [_I] * 3 + [_F, _P],
     # gemm_3xtf32.cu (the DST products at spectral_precision="high")
     "cfd_sgemm_3xtf32_batched": [_I] * 3 + [_P, _L, _L, _P, _L, _L, _P, _L,
                                             _L] + [_I, _P],
@@ -57,9 +62,16 @@ SIGNATURES = {
     + [_I, _P],
     "cfd_poisson_input_2d": [_P] * 5 + [_I] * 2 + [_F] * 4 + [_I, _P],
     "cfd_corrector_2d": [_P] * 6 + [_I] * 2 + [_F] * 2 + [_P],
+    "cfd_pred_star_2d_cons": [_P] * 10 + [_I] * 2 + [_F, _I] + [_F] * 4
+    + [_I, _P],
+    "cfd_poisson_input_2d_cons": [_P] * 7 + [_I] * 2 + [_F] * 4 + [_I, _P],
+    "cfd_corrector_2d_cons": [_P] * 8 + [_I] * 2 + [_P],
     # euler_kernels.cu, rk_kernels.cu (explicit steps, 3D and 2D)
-    "cfd_euler_step": [_P] * 17 + [_I] * 3 + [_F] * 8 + [_P, _P, _P],
-    "cfd_rk_stage": [_P] * 4 + [_I] * 3 + [_F] * 8 + [_I, _P, _P, _P],
+    # (the spacing's weight rows and kind before the stream)
+    "cfd_euler_step": [_P] * 17 + [_I] * 3 + [_F] * 8 + [_P, _P]
+    + [_P, _P, _I, _P],
+    "cfd_rk_stage": [_P] * 4 + [_I] * 3 + [_F] * 8 + [_I, _P, _P]
+    + [_P, _P, _I, _P],
     # cg_kernels.cu (the CG pressure solve)
     "cfd_cg_lap_dot": [_P] * 6 + [_I] * 3 + [_F] * 4 + [_P],
     "cfd_cg_update": [_P] * 6 + [_I] * 3 + [_F, _I, _P],
@@ -186,6 +198,20 @@ def launch(name: str, device: torch.device, *args) -> None:
 
 def ptr(t: torch.Tensor) -> int:
     return t.data_ptr()
+
+
+def count_launch(wrapper, scheme=None) -> None:
+    """One launch on ``wrapper``'s counter of a spacing scheme:
+    ``launches`` (a uniform grid, and the parity projection on its
+    first-cell spacings), ``parity_launches`` or ``consistent_launches``
+    (the stretched instantiations)."""
+    name = "launches" if scheme is None else f"{scheme}_launches"
+    setattr(wrapper, name, getattr(wrapper, name) + 1)
+
+
+def reset_counts(*wrappers) -> None:
+    for w in wrappers:
+        w.launches = w.parity_launches = w.consistent_launches = 0
 
 
 def on_cpu(t: torch.Tensor) -> bool:

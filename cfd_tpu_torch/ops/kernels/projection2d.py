@@ -1,7 +1,7 @@
 """The 2D projection step's two fused kernels (counterpart of
 `cfd_tpu/ops/pallas/projection2d.py`, the DST-fused single-device form).
 
-Single device, uniform grid, ``emit="btilde"`` with the x-DST pair
+Single device, ``emit="btilde"`` with the x-DST pair
 (``dst_mats``) or ``emit="rhs"``, with or without Boussinesq buoyancy.
 The reference's TPU kernels on the block-marching engine (`marching2d.py`)
 become chains of CUDA kernels that meet in device memory:
@@ -32,6 +32,12 @@ the x-DST pair's: ``"highest"`` (the SGEMM) or ``"high"`` (the 3xTF32
 tensor-core GEMM), the reference's ``dst_precision``; the Thomas sweeps
 stay fp32.
 
+On a stretched grid the consistent scheme's 2D step (jnp in the
+reference, `projection.py:292-293`) runs the same wrappers on consistent
+`StencilConsts`: they launch the three stencil kernels' ``<true>``
+instantiations on the weight rows (`stretch.stretch_pins_consistent`),
+b̃ with the nonuniform face weights, counted on ``consistent_launches``.
+
 The CG step (``emit="rhs"``) runs pred_bt's rhs form,
 :func:`predictor_star_2d` → :func:`poisson_rhs_2d` ((ρ/dt)∇·u*, the b̃
 kernel with its emit flag set), and the non-DST ``corr``
@@ -61,18 +67,19 @@ import torch
 
 from ...solvers.ns.common import clamp
 from ...solvers.ns.params import PROJ_MAX_VELOCITY as CLAMP  # = kClamp
-from ..stencils import ddx, ddy, interior, set_interior
+from ..stencils import along_x, along_y, ddx, ddy, interior, set_interior
 from . import native, rolling
-from .projection_kernels import (StencilConsts, check_buoyancy_input,
-                                 face_coeff, predictor_star_plain,
-                                 stencil_consts)
+from .projection_kernels import (StencilConsts, _rows, check_buoyancy_input,
+                                 consistent_weights, face_coeff,
+                                 predictor_star_plain, stencil_consts)
 from .rolling import left_dot, right_dot, right_dot_plain
 from .tdma import tdma_z_bwd, tdma_z_fwd
 
 
 def _check(c: StencilConsts, fields, scalars):
-    """(1, ny, nx) float32 fields and float32 scalars on one CUDA device."""
-    native.check_cuda(*fields, *scalars)
+    """(1, ny, nx) float32 fields and float32 scalars on one CUDA device,
+    and the weight rows there on the consistent scheme."""
+    native.check_cuda(*fields, *scalars, *(c.weights or ()))
     for f in fields:
         if tuple(f.shape) != (1, c.ny, c.nx):
             raise ValueError(f"expected fields of shape {(1, c.ny, c.nx)}, "
@@ -85,42 +92,73 @@ def predictor_star_2d(u, v, w, scal, c: StencilConsts, T=None):
     """(u*, v*, w*) = clamp(f + dt(−(u∂x + v∂y)f + ν∇²f + src)) on the
     interior, shells passed through (w is predicted too, convected by u,
     v; with ``c.buoyancy`` ``T`` adds the buoyant sources) —
-    ``pred_star_2d_kernel`` on CUDA.  Its plain version is the 3D one,
-    `projection_kernels.predictor_star_plain`, whose z terms vanish on a
-    one-plane field."""
+    ``pred_star_2d_kernel<false>`` on CUDA, ``<true>`` on the consistent
+    scheme's weight rows (counted by scheme, `native.count_launch`).  Its
+    plain version is the 3D one, `projection_kernels.predictor_star_plain`,
+    whose z terms vanish on a one-plane field."""
     if native.on_cpu(u):
         return predictor_star_plain(u, v, w, scal, c, T)
     _check(c, (u, v, w), (scal,))
     check_buoyancy_input(c, T, (1, c.ny, c.nx))
     us, vs, ws = (torch.empty_like(u) for _ in range(3))
     t_ptr = None if c.buoyancy is None else native.ptr(T)
-    native.launch("cfd_pred_star_2d", u.device, *map(native.ptr, (
-        u, v, w, us, vs, ws, scal)), t_ptr, c.ny, c.nx, c.nu, c.inv_2dx,
-        c.inv_2dy, c.inv_dx2, c.inv_dy2, c.xmin, c.ymin, c.dx, c.dy,
-        int(c.with_sources), *c.buoyancy_args())
-    predictor_star_2d.launches += 1
+    fields = (*map(native.ptr, (u, v, w, us, vs, ws, scal)), t_ptr)
+    if c.consistent:
+        native.launch("cfd_pred_star_2d_cons", u.device, *fields,
+                      *map(native.ptr, c.weights), c.ny, c.nx, c.nu,
+                      int(c.with_sources), *c.buoyancy_args())
+    else:
+        native.launch("cfd_pred_star_2d", u.device, *fields, c.ny, c.nx,
+                      c.nu, c.inv_2dx, c.inv_2dy, c.inv_dx2, c.inv_dy2,
+                      c.xmin, c.ymin, c.dx, c.dy, int(c.with_sources),
+                      *c.buoyancy_args())
+    native.count_launch(predictor_star_2d, c.scheme)
     return us, vs, ws
 
 
 # ---- pred_bt (b): spectral-solve input b̃ --------------------------------
 
+def _grad2d(fx, fy, c: StencilConsts):
+    """(∂x fx, ∂y fy) on the interior: central differences, or the
+    consistent weights on that scheme."""
+    if c.consistent:
+        X, Y = _rows(c, fx)
+        return along_x(fx, X), along_y(fy, Y)
+    return ddx(fx, c.inv_2dx), ddy(fy, c.inv_2dy)
+
+
 def poisson_input_2d_plain(us, vs, p, rod, c: StencilConsts):
     """b̃ = face_coeff·p − (ρ/dt)∇·u* on the interior, zero shell."""
     coeff = interior(face_coeff(c, p.dtype, p.device))
-    div = ddx(us, c.inv_2dx) + ddy(vs, c.inv_2dy)
-    return set_interior(torch.zeros_like(p), coeff * interior(p) - rod * div)
+    dx_u, dy_v = _grad2d(us, vs, c)
+    return set_interior(torch.zeros_like(p),
+                        coeff * interior(p) - rod * (dx_u + dy_v))
+
+
+def _launch_input(us, vs, p, out, rod, c: StencilConsts, emit_rhs):
+    """One ``poisson_input_2d_kernel`` launch, ``<true>`` on the
+    consistent scheme (its b̃ form reads the face weights)."""
+    ptrs = map(native.ptr, (us, vs, p, out, rod))
+    if not c.consistent:
+        native.launch("cfd_poisson_input_2d", us.device, *ptrs, c.ny, c.nx,
+                      c.inv_2dx, c.inv_2dy, c.inv_dx2, c.inv_dy2, emit_rhs)
+        return
+    if not emit_rhs and c.face is None:
+        raise ValueError("the consistent b̃ needs the face weights")
+    native.launch("cfd_poisson_input_2d_cons", us.device, *ptrs,
+                  *map(native.ptr, c.weights), c.ny, c.nx,
+                  *(c.face or (0.0,) * 4), emit_rhs)
 
 
 def poisson_input_2d(us, vs, p, rod, c: StencilConsts):
-    """b̃ — ``poisson_input_2d_kernel`` on CUDA; ``rod`` a 0-d tensor."""
+    """b̃ — ``poisson_input_2d_kernel`` on CUDA (``<true>`` on the
+    consistent scheme, counted by scheme); ``rod`` a 0-d tensor."""
     if native.on_cpu(us):
         return poisson_input_2d_plain(us, vs, p, rod, c)
     _check(c, (us, vs, p), (rod,))
     bt = torch.empty_like(p)
-    native.launch("cfd_poisson_input_2d", p.device, *map(native.ptr, (
-        us, vs, p, bt, rod)), c.ny, c.nx, c.inv_2dx, c.inv_2dy, c.inv_dx2,
-        c.inv_dy2, 0)
-    poisson_input_2d.launches += 1
+    _launch_input(us, vs, p, bt, rod, c, 0)
+    native.count_launch(poisson_input_2d, c.scheme)
     return bt
 
 
@@ -129,20 +167,19 @@ def poisson_input_2d(us, vs, p, rod, c: StencilConsts):
 def poisson_rhs_2d_plain(us, vs, rod, c: StencilConsts):
     """rhs = (ρ/dt)∇·u* on the interior, zero shell
     (`projection2d.py:196-197`)."""
-    div = ddx(us, c.inv_2dx) + ddy(vs, c.inv_2dy)
-    return set_interior(torch.zeros_like(us), rod * div)
+    dx_u, dy_v = _grad2d(us, vs, c)
+    return set_interior(torch.zeros_like(us), rod * (dx_u + dy_v))
 
 
 def poisson_rhs_2d(us, vs, rod, c: StencilConsts):
-    """rhs — ``poisson_input_2d_kernel`` in its emit-rhs form on CUDA."""
+    """rhs — ``poisson_input_2d_kernel`` in its emit-rhs form on CUDA
+    (``<true>`` on the consistent scheme, counted by scheme)."""
     if native.on_cpu(us):
         return poisson_rhs_2d_plain(us, vs, rod, c)
     _check(c, (us, vs), (rod,))
     rhs = torch.empty_like(us)
-    native.launch("cfd_poisson_input_2d", us.device, *map(native.ptr, (
-        us, vs, us, rhs, rod)), c.ny, c.nx, c.inv_2dx, c.inv_2dy,
-        c.inv_dx2, c.inv_dy2, 1)
-    poisson_rhs_2d.launches += 1
+    _launch_input(us, vs, us, rhs, rod, c, 1)
+    native.count_launch(poisson_rhs_2d, c.scheme)
     return rhs
 
 
@@ -151,27 +188,32 @@ def poisson_rhs_2d(us, vs, rod, c: StencilConsts):
 def corrector_2d_plain(us, vs, p, s, c: StencilConsts):
     """u = clamp(u* − s·∂x p), v = clamp(v* − s·∂y p) on the interior
     (shells from u*, v*)."""
-    u = set_interior(us, clamp(interior(us) - s * ddx(p, c.inv_2dx), CLAMP))
-    v = set_interior(vs, clamp(interior(vs) - s * ddy(p, c.inv_2dy), CLAMP))
+    gx, gy = _grad2d(p, p, c)
+    u = set_interior(us, clamp(interior(us) - s * gx, CLAMP))
+    v = set_interior(vs, clamp(interior(vs) - s * gy, CLAMP))
     return u, v
 
 
 def corrector_2d(us, vs, p, s, c: StencilConsts):
-    """(u, v) — ``corrector_2d_kernel`` on CUDA; ``s`` = dt/ρ, 0-d."""
+    """(u, v) — ``corrector_2d_kernel`` on CUDA (``<true>`` on the
+    consistent scheme, counted by scheme); ``s`` = dt/ρ, 0-d."""
     if native.on_cpu(us):
         return corrector_2d_plain(us, vs, p, s, c)
     _check(c, (us, vs, p), (s,))
     u, v = torch.empty_like(us), torch.empty_like(vs)
-    native.launch("cfd_corrector_2d", us.device, *map(native.ptr, (
-        us, vs, p, u, v, s)), c.ny, c.nx, c.inv_2dx, c.inv_2dy)
-    corrector_2d.launches += 1
+    ptrs = map(native.ptr, (us, vs, p, u, v, s))
+    if c.consistent:
+        native.launch("cfd_corrector_2d_cons", us.device, *ptrs,
+                      *map(native.ptr, c.weights), c.ny, c.nx)
+    else:
+        native.launch("cfd_corrector_2d", us.device, *ptrs, c.ny, c.nx,
+                      c.inv_2dx, c.inv_2dy)
+    native.count_launch(corrector_2d, c.scheme)
     return u, v
 
 
-predictor_star_2d.launches = 0
-poisson_input_2d.launches = 0
-poisson_rhs_2d.launches = 0
-corrector_2d.launches = 0
+native.reset_counts(predictor_star_2d, poisson_input_2d, poisson_rhs_2d,
+                    corrector_2d)
 
 # every wrapper that launches a kernel on the 2D main path, for counters
 WRAPPERS = (predictor_star_2d, poisson_input_2d, right_dot, tdma_z_fwd,
@@ -183,9 +225,13 @@ WRAPPERS_HIGH = (predictor_star_2d, poisson_input_2d, tdma_z_fwd,
 # ... and on the 2D CG step's path (the whole-solve kernel counts in
 # vmem_small)
 WRAPPERS_RHS = (predictor_star_2d, poisson_rhs_2d, corrector_2d)
+# (the consistent scheme's 2D steps launch the same wrappers, counted on
+# their ``consistent_launches``; the direct solve's GEMMs count in rolling)
 
 
 def reset_launch_counts() -> None:
+    native.reset_counts(predictor_star_2d, poisson_input_2d, poisson_rhs_2d,
+                        corrector_2d)
     for fn in WRAPPERS + WRAPPERS_RHS:
         fn.launches = 0
     rolling.reset_launch_counts()
@@ -199,7 +245,10 @@ class Projection2DKernels:
     NSParams) brings Boussinesq buoyancy when its β ≠ 0, the coefficients
     rounded to ``dtype``.  ``emit="rhs"``
     (the iterative solvers): pred_bt emits the Poisson right-hand side and
-    ``corr`` takes a physical p.  The default runs the wrappers (kernels
+    ``corr`` takes a physical p.  ``stretch_consistent`` = (dx, dy, x, y)
+    selects the consistent scheme (the ``<true>`` instantiations on the
+    weight rows, built on ``device``), ``face_coeffs`` its b̃ face
+    weights.  The default runs the wrappers (kernels
     on CUDA, plain versions on CPU).  ``plain=True`` is a reference switch
     for checks on the card only: it runs the plain PyTorch versions on a
     CUDA device too, so ``chip_smoke.py`` can hold the kernels against
@@ -208,14 +257,23 @@ class Projection2DKernels:
 
     def __init__(self, ny, nx, dx, dy, xmin, ymin, nu, dst_mats=None,
                  with_sources=True, plain=False, emit="btilde",
-                 precision="highest", params=None, dtype=torch.float32):
+                 precision="highest", params=None, dtype=torch.float32,
+                 stretch_consistent=None, face_coeffs=None, device=None):
         if emit not in ("btilde", "rhs"):
             raise ValueError(f"emit must be 'btilde' or 'rhs', got {emit!r}")
         rolling._check_precision(precision)
         self.emit = emit
         self.precision = precision
+        weights = None
+        self.consistent = stretch_consistent is not None
+        if self.consistent:
+            if device is None:
+                device = (dst_mats[0].device if dst_mats is not None
+                          else "cpu")
+            weights = consistent_weights(*stretch_consistent, dtype, device)
         self.consts = stencil_consts(1, ny, nx, dx, dy, 0.0, xmin, ymin, nu,
-                                     with_sources, params, dtype)
+                                     with_sources, params, dtype, weights,
+                                     face_coeffs)
         if emit == "btilde":
             self.fxt, self.gxt = dst_mats
         if plain:

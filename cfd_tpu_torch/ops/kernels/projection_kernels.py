@@ -2,10 +2,18 @@
 `cfd_tpu/ops/pallas/projection_kernels.py`).
 
 Only the configurations the ported steps run are ported: single device,
-uniform grid, DST-fused with the Thomas forward sweep in the predictor
-(``dst_mats`` + ``tdma_fwd``, nz ≥ 3), with or without Boussinesq
-buoyancy.  The reference's two TPU kernels become two chains of CUDA
-kernels that meet in device memory:
+DST-fused with the Thomas forward sweep in the predictor (``dst_mats`` +
+``tdma_fwd``, nz ≥ 3), with or without Boussinesq buoyancy, on a uniform
+grid (or a stretched one under the parity scheme, on its first-cell
+spacings) or on a stretched grid under the consistent scheme
+(``stretch_consistent``, `projection_kernels.py:118-136`): given
+consistent `StencilConsts`, the stencil wrappers below launch their
+kernels' ``<true>`` instantiations, which read the exact nonuniform
+weights from per-axis rows (`stretch.stretch_pins_consistent`), b̃ with
+the nonuniform face weights, and count them on ``consistent_launches``;
+the DST products carry the generalized eigenbasis
+(`solvers.poisson.nonuniform`).  The reference's two TPU kernels become
+two chains of CUDA kernels that meet in device memory:
 
 * **A1** ``ProjectionKernels.pred_bt`` (`projection_kernels.py:572-722`)
   → :meth:`ProjectionKernels.predictor_poisson_input`:
@@ -68,6 +76,12 @@ Kernel notes (what bounds each on an H100, and what the design does):
 * ``corrector_kernel`` + ``reduce_max3_kernel`` — a two-pass max
   reduction whose combine keeps NaN, and a clamp written as selects that
   keeps NaN, so a NaN anywhere still makes the step report DIVERGED.
+* the ``<true>`` (consistent) instantiations — the same bound, the same
+  fields moved, plus the weight rows (7·(nx + ny) floats, read once into
+  L1: a thread's x weights are coalesced across the warp, its y weights
+  one broadcast); each derivative takes three products where the
+  uniform one takes one.  The uniform instantiations keep their
+  registers.
 """
 
 from __future__ import annotations
@@ -80,9 +94,11 @@ import torch
 from ...solvers.energy import buoyancy_coefficients
 from ...solvers.ns.common import clamp
 from ...solvers.ns.params import PROJ_MAX_VELOCITY as CLAMP  # = kClamp
-from ..stencils import ddx, ddy, ddz, interior, laplacian, set_interior
+from ..stencils import (along_x, along_y, ddx, ddy, ddz, interior, laplacian,
+                        laplacian_interior, set_interior)
 from . import native, rolling
 from .rolling import plane_dot, plane_dot_plain
+from .stretch import stretch_pins_consistent
 from .tdma import (_bwd_coeff_planes, tdma_z_bwd, tdma_z_bwd_analytic,
                    tdma_z_bwd_analytic_reference, tdma_z_bwd_reference,
                    tdma_z_fwd, tdma_z_fwd_d, tdma_z_fwd_d_reference,
@@ -91,7 +107,7 @@ from .tdma import (_bwd_coeff_planes, tdma_z_bwd, tdma_z_bwd_analytic,
 
 @dataclasses.dataclass(frozen=True)
 class StencilConsts:
-    """Compile-time constants of one uniform grid (the reference bakes the
+    """Compile-time constants of one grid (the reference bakes the
     same Python floats into its kernels; the CUDA kernels take them as
     float32 arguments).  On a 2D grid (nz == 1) the z constants are 0."""
 
@@ -109,6 +125,24 @@ class StencilConsts:
     # in the field's dtype (`solvers.energy.buoyancy_coefficients`); None
     # without buoyancy
     buoyancy: tuple = None
+    # the consistent scheme on a stretched grid: (xw, yw), the (7, nx) and
+    # (7, ny) weight rows of `stretch.stretch_pins_consistent` as tensors
+    # on the fields' device, and the b̃ face weights (cxm, cxp, cym, cyp)
+    # (`solvers.poisson.nonuniform.nonuniform_face_coeffs`); None on the
+    # parity scheme, whose constants are dx, dy above
+    weights: tuple = dataclasses.field(default=None, compare=False)
+    face: tuple = None
+
+    @property
+    def consistent(self) -> bool:
+        return self.weights is not None
+
+    @property
+    def scheme(self):
+        """The launch counter's scheme (`native.count_launch`): None on a
+        uniform grid and on the parity scheme (the uniform kernels on
+        dx0, dy0), "consistent" on the weight rows."""
+        return "consistent" if self.consistent else None
 
     @property
     def inv_2dx(self):
@@ -148,23 +182,46 @@ class StencilConsts:
 
 
 def stencil_consts(nz, ny, nx, dx, dy, dz, xmin, ymin, nu, with_sources,
-                   params=None, dtype=torch.float32) -> StencilConsts:
+                   params=None, dtype=torch.float32, weights=None,
+                   face=None) -> StencilConsts:
     """StencilConsts of one grid, with the buoyancy of ``params`` (an
     NSParams; β ≠ 0) in ``dtype``: the components whose gravity is 0 get
-    no term, as in the reference's kernels."""
+    no term, as in the reference's kernels; ``weights`` and ``face`` as
+    in :class:`StencilConsts`."""
     buoy = None
     if params is not None and params.buoyancy_enabled:
         coefs, tref = buoyancy_coefficients(params.beta, params.gravity,
                                             params.T_ref, dtype)
         buoy = (tuple(b if g != 0.0 else None
                       for b, g in zip(coefs, params.gravity)), tref)
+    if face is not None:
+        face = tuple(float(f) for f in face)
     return StencilConsts(nz, ny, nx, dx, dy, dz, xmin, ymin, float(nu),
-                         bool(with_sources), buoy)
+                         bool(with_sources), buoy, weights, face)
+
+
+def consistent_weights(dx, dy, x, y, dtype, device):
+    """(xw, yw): the consistent scheme's (7, nx) and (7, ny) weight rows
+    (`stretch.stretch_pins_consistent`) as ``dtype`` tensors on
+    ``device``."""
+    np_dt = np.float64 if dtype == torch.float64 else np.float32
+    return tuple(torch.as_tensor(a, device=device)
+                 for a in stretch_pins_consistent(dx, dy, x, y, np_dt))
+
+
+def _rows(c: StencilConsts, like):
+    """The consistent weight rows at the interior points (plain
+    versions): 7 x rows broadcasting over (…, nx − 2) and 7 y rows over
+    (…, ny − 2, 1), in ``like``'s dtype."""
+    xw, yw = c.weights
+    return ([r[None, None, :] for r in xw[:, 1:-1].to(like.dtype)],
+            [r[None, :, None] for r in yw[:, 1:-1].to(like.dtype)])
 
 
 def _check(c: StencilConsts, fields, scalars):
-    """(nz, ny, nx) float32 fields and float32 scalars on one CUDA device."""
-    native.check_cuda(*fields, *scalars)
+    """(nz, ny, nx) float32 fields and float32 scalars on one CUDA device,
+    and the weight rows there on the consistent scheme."""
+    native.check_cuda(*fields, *scalars, *(c.weights or ()))
     for f in fields:
         if tuple(f.shape) != (c.nz, c.ny, c.nx):
             raise ValueError(f"expected fields of shape "
@@ -183,14 +240,26 @@ def predictor_star_plain(u, v, w, scal, c: StencilConsts, T=None):
     dt, su, sv = scal[0], scal[1], scal[2]
     i2x, i2y, i2z, ix2, iy2, iz2 = c.derivs()
     uc, vc, wc = interior(u), interior(v), interior(w)
+    if c.consistent:
+        X, Y = _rows(c, u)
+
+        def operators(f):
+            return (along_x(f, X), along_y(f, Y),
+                    laplacian_interior(f, X[3:6], Y[3:6], iz2))
+    else:
+        def operators(f):
+            return ddx(f, i2x), ddy(f, i2y), laplacian(f, ix2, iy2, iz2)
 
     def star(f, src):
-        conv = (uc * ddx(f, i2x) + vc * ddy(f, i2y)) + wc * ddz(f, i2z)
-        s = interior(f) + dt * ((-conv + c.nu * laplacian(f, ix2, iy2, iz2))
-                                + src)
+        fx, fy, lap = operators(f)
+        conv = (uc * fx + vc * fy) + wc * ddz(f, i2z)
+        s = interior(f) + dt * ((-conv + c.nu * lap) + src)
         return set_interior(f, clamp(s, CLAMP))
 
-    if c.with_sources:
+    if c.with_sources and c.consistent:
+        # the default source basis at the true coordinates (weight row 6)
+        src_u, src_v = su * Y[6], sv * X[6]
+    elif c.with_sources:
         jj = torch.arange(1, c.ny - 1, device=u.device).to(u.dtype)
         ii = torch.arange(1, c.nx - 1, device=u.device).to(u.dtype)
         src_u = su * torch.sin(torch.pi * (c.ymin + jj * c.dy))[:, None]
@@ -219,19 +288,26 @@ def check_buoyancy_input(c: StencilConsts, T, shape):
 
 
 def predictor_star(u, v, w, scal, c: StencilConsts, T=None):
-    """(u*, v*, w*) — ``pred_star_kernel`` on CUDA; ``T`` is read with
-    buoyancy only."""
+    """(u*, v*, w*) — ``pred_star_kernel<false>`` on CUDA, ``<true>`` on
+    the consistent scheme's weight rows (counted by scheme,
+    `native.count_launch`); ``T`` is read with buoyancy only."""
     if native.on_cpu(u):
         return predictor_star_plain(u, v, w, scal, c, T)
     _check(c, (u, v, w), (scal,))
     check_buoyancy_input(c, T, (c.nz, c.ny, c.nx))
     us, vs, ws = (torch.empty_like(u) for _ in range(3))
     t_ptr = None if c.buoyancy is None else native.ptr(T)
-    native.launch("cfd_pred_star", u.device, *map(native.ptr, (
-        u, v, w, us, vs, ws, scal)), t_ptr, c.nz, c.ny, c.nx, c.nu,
-        *c.derivs(), c.xmin, c.ymin, c.dx, c.dy, int(c.with_sources),
-        *c.buoyancy_args())
-    predictor_star.launches += 1
+    fields = (*map(native.ptr, (u, v, w, us, vs, ws, scal)), t_ptr)
+    if c.consistent:
+        native.launch("cfd_pred_star_cons", u.device, *fields,
+                      *map(native.ptr, c.weights), c.nz, c.ny, c.nx, c.nu,
+                      c.inv_2dz, c.inv_dz2, int(c.with_sources),
+                      *c.buoyancy_args())
+    else:
+        native.launch("cfd_pred_star", u.device, *fields, c.nz, c.ny, c.nx,
+                      c.nu, *c.derivs(), c.xmin, c.ymin, c.dx, c.dy,
+                      int(c.with_sources), *c.buoyancy_args())
+    native.count_launch(predictor_star, c.scheme)
     return us, vs, ws
 
 
@@ -239,12 +315,24 @@ def predictor_star(u, v, w, scal, c: StencilConsts, T=None):
 
 def face_coeff(c: StencilConsts, dtype, device):
     """(nz, ny, nx) Neumann-mirror face coefficients, in the reference
-    kernel's summation order ((x + y) + z; the z term is 0 in 2D)."""
+    kernel's summation order ((x + y) + z; the z term is 0 in 2D).  On the
+    consistent scheme the x/y term is ((cxm·[i = 1] + cxp·[i = nx − 2])
+    + cym·[j = 1]) + cyp·[j = ny − 2] (`projection_kernels.py:658-668`)."""
     def face(n, inv_d2):
         k = torch.arange(n, device=device)
         return inv_d2 * ((k == 1).to(dtype) + (k == n - 2).to(dtype))
 
-    cxy = face(c.nx, c.inv_dx2)[None, :] + face(c.ny, c.inv_dy2)[:, None]
+    if c.consistent:
+        cxm, cxp, cym, cyp = c.face
+
+        def at(n, q):
+            return (torch.arange(n, device=device) == q).to(dtype)
+
+        cxy = (((cxm * at(c.nx, 1) + cxp * at(c.nx, c.nx - 2))[None, :]
+                + cym * at(c.ny, 1)[:, None]) + cyp * at(c.ny, c.ny - 2)[:, None])
+    else:
+        cxy = (face(c.nx, c.inv_dx2)[None, :]
+               + face(c.ny, c.inv_dy2)[:, None])
     return cxy[None] + face(c.nz, c.inv_dz2)[:, None, None]
 
 
@@ -255,22 +343,41 @@ def poisson_input_plain(us, vs, ws, p, rod, c: StencilConsts):
                         - rod * divergence_star(us, vs, ws, c))
 
 
+def _launch_input(us, vs, ws, p, out, rod, c: StencilConsts, emit_rhs):
+    """One ``poisson_input_kernel`` launch, ``<true>`` on the consistent
+    scheme (its b̃ form reads the face weights)."""
+    ptrs = map(native.ptr, (us, vs, ws, p, out, rod))
+    if not c.consistent:
+        native.launch("cfd_poisson_input", us.device, *ptrs, c.nz, c.ny,
+                      c.nx, *c.derivs(), emit_rhs)
+        return
+    if not emit_rhs and c.face is None:
+        raise ValueError("the consistent b̃ needs the face weights")
+    native.launch("cfd_poisson_input_cons", us.device, *ptrs,
+                  *map(native.ptr, c.weights), c.nz, c.ny, c.nx, c.inv_2dz,
+                  c.inv_dz2, *(c.face or (0.0,) * 4), emit_rhs)
+
+
 def poisson_input(us, vs, ws, p, rod, c: StencilConsts):
-    """b̃ — ``poisson_input_kernel`` on CUDA; ``rod`` a 0-d tensor."""
+    """b̃ — ``poisson_input_kernel`` on CUDA (``<true>`` on the consistent
+    scheme, counted by scheme); ``rod`` a 0-d tensor."""
     if native.on_cpu(us):
         return poisson_input_plain(us, vs, ws, p, rod, c)
     _check(c, (us, vs, ws, p), (rod,))
     bt = torch.empty_like(p)
-    native.launch("cfd_poisson_input", p.device, *map(native.ptr, (
-        us, vs, ws, p, bt, rod)), c.nz, c.ny, c.nx, *c.derivs(), 0)
-    poisson_input.launches += 1
+    _launch_input(us, vs, ws, p, bt, rod, c, 0)
+    native.count_launch(poisson_input, c.scheme)
     return bt
 
 
 # ---- A1 (b), emit="rhs": the iterative solvers' right-hand side ----------
 
 def divergence_star(us, vs, ws, c: StencilConsts):
-    """∇·u* on the interior, in the kernels' order ((x + y) + z)."""
+    """∇·u* on the interior, in the kernels' order ((x + y) + z); the x/y
+    terms take the consistent weights on that scheme."""
+    if c.consistent:
+        X, Y = _rows(c, us)
+        return (along_x(us, X) + along_y(vs, Y)) + ddz(ws, c.inv_2dz)
     return (ddx(us, c.inv_2dx) + ddy(vs, c.inv_2dy)) + ddz(ws, c.inv_2dz)
 
 
@@ -282,14 +389,14 @@ def poisson_rhs_plain(us, vs, ws, rod, c: StencilConsts):
 
 
 def poisson_rhs(us, vs, ws, rod, c: StencilConsts):
-    """rhs — ``poisson_input_kernel`` in its emit-rhs form on CUDA."""
+    """rhs — ``poisson_input_kernel`` in its emit-rhs form on CUDA
+    (``<true>`` on the consistent scheme, counted by scheme)."""
     if native.on_cpu(us):
         return poisson_rhs_plain(us, vs, ws, rod, c)
     _check(c, (us, vs, ws), (rod,))
     rhs = torch.empty_like(us)
-    native.launch("cfd_poisson_input", us.device, *map(native.ptr, (
-        us, vs, ws, us, rhs, rod)), c.nz, c.ny, c.nx, *c.derivs(), 1)
-    poisson_rhs.launches += 1
+    _launch_input(us, vs, ws, us, rhs, rod, c, 1)
+    native.count_launch(poisson_rhs, c.scheme)
     return rhs
 
 
@@ -297,9 +404,15 @@ def poisson_rhs(us, vs, ws, rod, c: StencilConsts):
 
 def corrector_plain(us, vs, ws, p, s, c: StencilConsts):
     """u = clamp(u* − s∇p) on the interior (shells from u*), with the
-    maxima of |u|², p and |p| over planes 1..nz−2 (NaN propagates)."""
-    u = set_interior(us, clamp(interior(us) - s * ddx(p, c.inv_2dx), CLAMP))
-    v = set_interior(vs, clamp(interior(vs) - s * ddy(p, c.inv_2dy), CLAMP))
+    maxima of |u|², p and |p| over planes 1..nz−2 (NaN propagates).  The
+    x/y gradients take the consistent weights on that scheme."""
+    if c.consistent:
+        X, Y = _rows(c, p)
+        gx, gy = along_x(p, X), along_y(p, Y)
+    else:
+        gx, gy = ddx(p, c.inv_2dx), ddy(p, c.inv_2dy)
+    u = set_interior(us, clamp(interior(us) - s * gx, CLAMP))
+    v = set_interior(vs, clamp(interior(vs) - s * gy, CLAMP))
     dpz = p[2:, 1:-1, 1:-1] - p[:-2, 1:-1, 1:-1]
     w = set_interior(ws, clamp(interior(ws) - (s * dpz) * c.inv_2dz, CLAMP))
     zi = slice(1, -1)
@@ -309,7 +422,8 @@ def corrector_plain(us, vs, ws, p, s, c: StencilConsts):
 
 def corrector(us, vs, ws, p, s, c: StencilConsts):
     """(u, v, w, max|u|², max p, max|p|) — ``corrector_kernel`` plus the
-    second-pass ``reduce_max3_kernel`` on CUDA; ``s`` = dt/ρ, 0-d."""
+    second-pass ``reduce_max3_kernel`` on CUDA (``<true>`` on the
+    consistent scheme, counted by scheme); ``s`` = dt/ρ, 0-d."""
     if native.on_cpu(us):
         return corrector_plain(us, vs, ws, p, s, c)
     _check(c, (us, vs, ws, p), (s,))
@@ -317,17 +431,19 @@ def corrector(us, vs, ws, p, s, c: StencilConsts):
     n_part = native.library().cfd_corrector_partials(c.nz, c.ny, c.nx)
     partials = torch.empty(3 * n_part, dtype=us.dtype, device=us.device)
     red = torch.empty(3, dtype=us.dtype, device=us.device)
-    native.launch("cfd_corrector", us.device, *map(native.ptr, (
-        us, vs, ws, p, u, v, w, s, partials, red)), c.nz, c.ny, c.nx,
-        c.inv_2dx, c.inv_2dy, c.inv_2dz)
-    corrector.launches += 1
+    ptrs = map(native.ptr, (us, vs, ws, p, u, v, w, s, partials, red))
+    if c.consistent:
+        native.launch("cfd_corrector_cons", us.device, *ptrs,
+                      *map(native.ptr, c.weights), c.nz, c.ny, c.nx,
+                      c.inv_2dz)
+    else:
+        native.launch("cfd_corrector", us.device, *ptrs, c.nz, c.ny, c.nx,
+                      c.inv_2dx, c.inv_2dy, c.inv_2dz)
+    native.count_launch(corrector, c.scheme)
     return u, v, w, red[0], red[1], red[2]
 
 
-predictor_star.launches = 0
-poisson_input.launches = 0
-poisson_rhs.launches = 0
-corrector.launches = 0
+native.reset_counts(predictor_star, poisson_input, poisson_rhs, corrector)
 
 # every wrapper that launches a kernel on the main path (plane_dot counts
 # its SGEMM launches), for counters
@@ -339,16 +455,20 @@ WRAPPERS_HIGH = (predictor_star, poisson_input, tdma_z_fwd_d,
                  tdma_z_bwd_analytic, corrector)
 # ... and on the CG step's path (the CG kernels count in cg_kernels)
 WRAPPERS_RHS = (predictor_star, poisson_rhs, corrector)
+# (the consistent scheme's steps launch the same wrappers, counted on
+# their ``consistent_launches``)
 
 
 def reset_launch_counts() -> None:
-    for fn in WRAPPERS + WRAPPERS_HIGH + WRAPPERS_RHS:
+    native.reset_counts(predictor_star, poisson_input, poisson_rhs,
+                        corrector)
+    for fn in WRAPPERS + WRAPPERS_HIGH:
         fn.launches = 0
     rolling.reset_launch_counts()
 
 
 class ProjectionKernels:
-    """The two mega kernels for one (uniform grid, dtype, device).
+    """The two mega kernels for one (grid, dtype, device).
 
     ``params`` (an NSParams) brings Boussinesq buoyancy when its β ≠ 0,
     with the coefficients rounded to ``dtype``.
@@ -361,7 +481,14 @@ class ProjectionKernels:
     them, `projection_kernels.py:373-380`; "stored" at nz = 3).
     ``emit="rhs"`` (the iterative solvers, nz ≥ 3): A1 emits the Poisson
     right-hand side and the corrector takes a physical p
-    (:meth:`corrector_diag`, the non-DST ``corr_all``).  The default runs
+    (:meth:`corrector_diag`, the non-DST ``corr_all``).
+    ``stretch_consistent`` = (dx, dy, x, y) numpy arrays selects the
+    consistent scheme (`projection_kernels.py:118-136`): the stencil
+    kernels' ``<true>`` instantiations on the weight rows, built here on
+    ``device`` (default: the mats', else the CPU), with ``face_coeffs``
+    (cxm, cxp, cym, cyp) for b̃, and ``dst_mats`` / ``tdma_fwd`` the
+    generalized eigenbasis pieces (`solvers.poisson.nonuniform.
+    make_nonuniform_fused_pieces`).  The default runs
     the wrappers (kernels on CUDA, plain versions on CPU).  ``plain=True``
     is a reference switch for checks on the card only: it runs the plain
     PyTorch versions on a CUDA device too, so ``chip_smoke.py`` can hold
@@ -371,8 +498,13 @@ class ProjectionKernels:
     def __init__(self, nz, ny, nx, dx, dy, dz, xmin, ymin, nu,
                  dst_mats=None, tdma_fwd=None, with_sources=True,
                  plain=False, emit="btilde", dst_precision="highest",
-                 tdma_bwd="stored", params=None, dtype=torch.float32):
+                 tdma_bwd="stored", params=None, dtype=torch.float32,
+                 stretch_consistent=None, face_coeffs=None, device=None):
         self.emit = emit
+        if stretch_consistent is not None and emit == "btilde" \
+                and face_coeffs is None:
+            raise ValueError("stretch_consistent with emit='btilde' needs "
+                             "face_coeffs")
         rolling._check_precision(dst_precision)
         if tdma_bwd not in ("stored", "analytic"):
             raise ValueError(f"unknown tdma_bwd {tdma_bwd!r}")
@@ -395,8 +527,16 @@ class ProjectionKernels:
                     device=self.mu.device)
         elif emit != "rhs":
             raise ValueError(f"emit must be 'btilde' or 'rhs', got {emit!r}")
+        weights = None
+        self.consistent = stretch_consistent is not None
+        if self.consistent:
+            if device is None:
+                device = (dst_mats[0].device if dst_mats is not None
+                          else "cpu")
+            weights = consistent_weights(*stretch_consistent, dtype, device)
         self.consts = stencil_consts(nz, ny, nx, dx, dy, dz, xmin, ymin, nu,
-                                     with_sources, params, dtype)
+                                     with_sources, params, dtype, weights,
+                                     face_coeffs)
         if plain:
             self._star, self._bt, self._dot = (
                 predictor_star_plain, poisson_input_plain, plane_dot_plain)

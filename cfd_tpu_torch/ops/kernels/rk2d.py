@@ -25,8 +25,8 @@ def rk2d_stage(state, q0, rho, T, acc, sy, sx, scal, c: ExplicitConsts,
     if c.nz != 1:
         raise ValueError("rk2d_stage is the 2D kernel (nz == 1)")
     out = launch_rk(state, q0, rho, T, acc, sy, sx, scal, c, final)
-    rk2d_stage.launches += 1
+    native.count_launch(rk2d_stage, c.scheme)
     return out
 
 
-rk2d_stage.launches = 0
+native.reset_counts(rk2d_stage)

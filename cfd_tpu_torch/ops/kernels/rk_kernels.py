@@ -1,7 +1,8 @@
 """The RK2 / RK4 stage kernel (counterpart of
 `cfd_tpu/ops/pallas/rk_kernels.py`, RK3 ``make_rk_stage``).
 
-Single device, uniform grid, the built-in decaying sources, with or
+Single device, a uniform or stretched x/y grid (``ExplicitConsts.
+spacing``, as in `euler_kernels`), the built-in decaying sources, with or
 without Boussinesq buoyancy (every stage, with the step-start T) and the
 energy equation with its thermal faces (the final stage; T advected by
 the final velocities, `rk_kernels.py:325-360`).  One stage, with
@@ -59,8 +60,9 @@ def momentum_rhs_plain(u, v, w, p, rho, sy, sx, su_eff, sv_eff,
     operation order; zero on the shell, and ×0 where ρ ≤ 1e-10; with
     buoyancy (``c.thermal``) ``T`` adds the buoyant sources.  On a
     one-plane field every z term is dropped."""
-    i2x, i2y, i2z, ix2, iy2, iz2 = c.derivs()
+    _, _, i2z, _, _, iz2 = c.derivs()
     three_d = c.nz > 1
+    dx1, dy1, dx2, dy2 = c.xy_operators()
 
     def d1(a):
         return clamp(a, MAX_DERIVATIVE_LIMIT)
@@ -71,17 +73,16 @@ def momentum_rhs_plain(u, v, w, p, rho, sy, sx, su_eff, sv_eff,
     def terms(f):
         """(∂x f, ∂y f, ∂z f, ∇²f) from the periodic-interior
         neighbours, each derivative and each second-derivative term
-        clamped."""
+        clamped; on a stretched grid with the weights of the point."""
         xl, xr = sx_m_periodic_interior(f), sx_p_periodic_interior(f)
         yd, yu = sy_m_periodic_interior(f), sy_p_periodic_interior(f)
-        c2 = 2.0 * f
-        lap = d2(((xr - c2) + xl) * ix2) + d2(((yu - c2) + yd) * iy2)
+        lap = d2(dx2(xl, f, xr)) + d2(dy2(yd, f, yu))
         dz = None
         if three_d:
             zb, zf = sz_m_periodic_interior(f), sz_p_periodic_interior(f)
             dz = d1((zf - zb) * i2z)
-            lap = lap + d2(((zf - c2) + zb) * iz2)
-        return d1((xr - xl) * i2x), d1((yu - yd) * i2y), dz, lap
+            lap = lap + d2(((zf - 2.0 * f) + zb) * iz2)
+        return d1(dx1(xl, f, xr)), d1(dy1(yd, f, yu)), dz, lap
 
     du_dx, du_dy, du_dz, lap_u = terms(u)
     dv_dx, dv_dy, dv_dz, lap_v = terms(v)
@@ -156,7 +157,8 @@ def launch_rk(state, q0, rho, T, acc, sy, sx, scal, c: ExplicitConsts,
     native.launch("cfd_rk_stage", u.device, ins, out_arr,
                   None if partials is None else native.ptr(partials),
                   None if red is None else native.ptr(red),
-                  *c.kernel_args(), int(final), *c.thermal.kernel_args())
+                  *c.kernel_args(), int(final), *c.thermal.kernel_args(),
+                  *c.kernel_spacing())
     if not final:
         return tuple(outs)
     return (*outs, red[0], red[1], red[2], red[3])
@@ -170,8 +172,8 @@ def rk_stage(state, q0, rho, T, acc, sy, sx, scal, c: ExplicitConsts,
     if c.nz < 3:
         raise ValueError("rk_stage is the 3D kernel (nz >= 3)")
     out = launch_rk(state, q0, rho, T, acc, sy, sx, scal, c, final)
-    rk_stage.launches += 1
+    native.count_launch(rk_stage, c.scheme)
     return out
 
 
-rk_stage.launches = 0
+native.reset_counts(rk_stage)

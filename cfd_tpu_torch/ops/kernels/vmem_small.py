@@ -143,21 +143,31 @@ def _count(n, like):
 # ---- BiCGSTAB ------------------------------------------------------------------
 
 def bicgstab_solve_plain(x0, rhs, c: BiCGConsts, tolerance, abs_tol,
-                         max_iter):
+                         max_iter, problem=None, stats=None):
     """The reference's BiCGSTAB loop (`krylov.py:392-460`,
-    `vmem_small.py:349-416`) as plain tensor code."""
+    `vmem_small.py:349-416`) as plain tensor code.  ``problem``, when
+    given, brings its own operator and inner product (``laplacian``,
+    ``dot_interior``: the consistent scheme's volume-weighted problem,
+    `solvers.poisson.nonuniform`) in place of ``c``'s uniform ones.  The
+    loop reads its stop flag on the host once an iteration; ``stats``, a
+    dict when given, gets those reads as ``"host_syncs"``."""
     ix = stencils.interior_index(x0)
+
+    def lap(q):
+        if problem is not None:
+            return problem.interior(problem.laplacian(q))
+        return stencils.laplacian(q, c.inv_dx2, c.inv_dy2, c.inv_dz2)
 
     def A(q):
         out = torch.zeros_like(q)
-        out[ix] = -stencils.laplacian(q, c.inv_dx2, c.inv_dy2, c.inv_dz2)
+        out[ix] = -lap(q)
         return out
 
-    dot = bicgstab_dot
+    dot = bicgstab_dot if problem is None else problem.dot_interior
 
     x = apply_neumann_scalar(x0)
     r = torch.zeros_like(x)
-    r[ix] = stencils.laplacian(x, c.inv_dx2, c.inv_dy2, c.inv_dz2) - rhs[ix]
+    r[ix] = lap(x) - rhs[ix]
     r_hat = r
     v = p = torch.zeros_like(r)
     init_res = torch.sqrt(dot(r, r))
@@ -201,6 +211,8 @@ def bicgstab_solve_plain(x0, rhs, c: BiCGConsts, tolerance, abs_tol,
         p, v, rho, alpha, omega = p_new, v_new, rho_new, alpha_new, omega_new
         it += 1
         running = not bool(stagnated | converged)
+    if stats is not None:
+        stats["host_syncs"] = 1 + it
     return (apply_neumann_scalar(x), init_res,
             init_res if already else res,
             _count(0 if already else it, x0), stagnated)

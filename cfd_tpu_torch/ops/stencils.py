@@ -184,3 +184,49 @@ def checkerboard_mask(shape, parity, device=None):
     i = torch.arange(nx, device=device)[None, None, :]
     color = ((i + j + k) % 2) == parity
     return color & interior_mask(shape, torch.bool, device)
+
+
+# ---- the consistent scheme's weighted 3-point operators -------------------
+# One copy of the fused kernels' operation order on a stretched grid's
+# weight rows (`ops.kernels.stretch`), shared by every plain version, the
+# energy step and the variable-coefficient Poisson problem
+
+def weighted(fm, fc, fp, w):
+    """(fm·w[0] + fc·w[1]) + fp·w[2]: one consistent 3-point operator of
+    the shifted views (f[i−1], f[i], f[i+1]), ``w`` three weight rows
+    that broadcast over them ((wm, wc, wp) or (lm, lc, lp))."""
+    return (fm * w[0] + fc * w[1]) + fp * w[2]
+
+
+def laplacian_chain(xm, fc, xp, ym, yp, lx, ly):
+    """The consistent x/y Laplacian as one unclamped chain, the three x
+    terms then the three y terms (`projection_kernels.py:602-617`,
+    `euler_kernels.py:319-326`); ``lx``/``ly`` the (lm, lc, lp) rows."""
+    return ((weighted(xm, fc, xp, lx) + ym * ly[0]) + fc * ly[1]) \
+        + yp * ly[2]
+
+
+def along_x(f, w):
+    """:func:`weighted` along x on the interior of an (nz, ny, nx) field
+    (every plane of a one-plane field), ``w`` rows at i = 1..nx−2."""
+    z = _zi(f)
+    return weighted(f[z, _I, _M], f[z, _I, _I], f[z, _I, _P], w)
+
+
+def along_y(f, w):
+    """:func:`weighted` along y on the interior, ``w`` rows at
+    j = 1..ny−2 shaped to broadcast over (…, ny − 2, 1)."""
+    z = _zi(f)
+    return weighted(f[z, _M, _I], f[z, _I, _I], f[z, _P, _I], w)
+
+
+def laplacian_interior(f, lx, ly, inv_dz2):
+    """:func:`laplacian_chain` on the interior, then
+    + ((f[k+1] − 2f) + f[k−1])·inv_dz2 on a 3D field."""
+    z = _zi(f)
+    fc = f[z, _I, _I]
+    lap = laplacian_chain(f[z, _I, _M], fc, f[z, _I, _P], f[z, _M, _I],
+                          f[z, _P, _I], lx, ly)
+    if f.shape[0] == 1:
+        return lap
+    return lap + ((f[_P, _I, _I] - 2.0 * fc) + f[_M, _I, _I]) * inv_dz2

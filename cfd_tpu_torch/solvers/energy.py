@@ -1,6 +1,6 @@
 """Energy equation: explicit temperature advection-diffusion, Boussinesq
 buoyancy and thermal boundary conditions (counterpart of
-`cfd_tpu/solvers/energy.py`, uniform grids).
+`cfd_tpu/solvers/energy.py`).
 
 * :func:`make_energy_step` — T ← T + dt·(−u·∇T + α∇²T) on the interior,
   skipped when α ≤ 0 (`energy_solver.c:37-39`);
@@ -15,8 +15,10 @@ They are plain PyTorch: the reference runs them in jnp outside any Pallas
 kernel in the projection step (`projection.py:624-630`, `:702-708`); the
 explicit integrators fuse the same arithmetic into their kernels
 (`ops.kernels.euler_kernels`, `rk_kernels`).  A heat source
-(``heat_source``, a callable Q) and the stretched-grid branch are not
-ported yet and raise ``CFDError(ERROR_UNSUPPORTED)``.
+(``heat_source``, a callable Q) is not ported yet and raises
+``CFDError(ERROR_UNSUPPORTED)``.  A stretched x/y grid needs
+``scheme="consistent"`` (the exact nonuniform weights), as in the
+reference.
 """
 
 from __future__ import annotations
@@ -27,21 +29,20 @@ import torch
 from ..boundary.types import BCType, ThermalBCConfig
 from ..core.grid import Grid
 from ..core.status import CFDError, Status
-from ..ops.stencils import ddx, ddy, ddz, interior, laplacian, set_interior
+from ..ops.kernels.stretch import triples as consistent_triples
+from ..ops.stencils import (along_x, along_y, ddx, ddy, ddz, interior,
+                            laplacian, laplacian_interior, set_interior)
 
 SUPPORTED_FACES = (BCType.PERIODIC, BCType.NEUMANN, BCType.DIRICHLET)
 
 
 def validate_energy_grid(grid: Grid, scheme: str = "parity") -> None:
-    """The uniform-spacing requirement (`energy_solver.c:55-91`); the
-    consistent scheme's stretched x/y grids are not ported yet."""
+    """The uniform-spacing requirement (`energy_solver.c:55-91`), which
+    ``scheme="consistent"`` lifts for x and y (`energy.py:48-64`)."""
     if grid.nx < 3 or grid.ny < 3:
         raise CFDError(Status.ERROR_INVALID, "energy_solver: grid too small")
-    if not grid.is_uniform("x") or not grid.is_uniform("y"):
-        if scheme == "consistent":
-            raise CFDError(Status.ERROR_UNSUPPORTED,
-                           "energy_solver: the consistent scheme on a "
-                           "stretched grid is not ported yet")
+    if scheme != "consistent" and (not grid.is_uniform("x")
+                                   or not grid.is_uniform("y")):
         raise CFDError(Status.ERROR_UNSUPPORTED,
                        "energy_solver: non-uniform dx/dy not supported "
                        "(opt into NSParams(nonuniform_scheme='consistent'))")
@@ -76,7 +77,11 @@ def make_energy_step(grid: Grid, alpha: float, heat_source=None,
                      scheme: str = "parity"):
     """``step(T, u, v, w, dt, time) -> T``, or None when the energy
     equation is off (α ≤ 0).  The interior takes
-    T + dt·(−(u·T_x + v·T_y + w·T_z) + α∇²T), the shell keeps T."""
+    T + dt·(−(u·T_x + v·T_y + w·T_z) + α∇²T), the shell keeps T.  On a
+    stretched x/y grid (``scheme="consistent"``) the x/y derivatives take
+    the exact nonuniform weights, unclamped, in the reference's order
+    (`energy.py:106-139`): T_x = (T[i−1]·wm + T·wc) + T[i+1]·wp and ∇²T
+    one chain of the six x/y terms, then the z term."""
     if not alpha > 0.0:
         return None
     if heat_source is not None:
@@ -88,6 +93,8 @@ def make_energy_step(grid: Grid, alpha: float, heat_source=None,
     inv_dx2, inv_dy2 = 1.0 / grid.dx0 ** 2, 1.0 / grid.dy0 ** 2
     inv_2dz = 1.0 / (2.0 * grid.dz0) if grid.nz > 1 else 0.0
     inv_dz2 = grid.inv_dz2 if grid.nz > 1 else 0.0
+    if not (grid.is_uniform("x") and grid.is_uniform("y")):
+        return _consistent_energy_step(grid, alpha, inv_2dz, inv_dz2)
 
     def step(T, u, v, w, dt, time=None):
         advection = ((interior(u) * ddx(T, inv_2dx)
@@ -95,6 +102,35 @@ def make_energy_step(grid: Grid, alpha: float, heat_source=None,
                      + interior(w) * ddz(T, inv_2dz))
         diffusion = alpha * laplacian(T, inv_dx2, inv_dy2, inv_dz2)
         return set_interior(T, interior(T) + dt * (-advection + diffusion))
+
+    return step
+
+
+def _consistent_energy_step(grid: Grid, alpha, inv_2dz, inv_dz2):
+    """The stretched-grid energy step (see :func:`make_energy_step`); the
+    weight rows are made once per (dtype, device)."""
+    triples = [a[1:-1] for a in consistent_triples(grid.dx)], \
+        [a[1:-1] for a in consistent_triples(grid.dy)]
+    cache = {}
+
+    def rows(T):
+        key = (T.dtype, T.device)
+        if key not in cache:
+            cache[key] = tuple(
+                [torch.as_tensor(a, dtype=T.dtype, device=T.device)
+                 .reshape(shape) for a in axis]
+                for axis, shape in zip(triples, ((1, 1, -1), (1, -1, 1))))
+        return cache[key]
+
+    def step(T, u, v, w, dt, time=None):
+        X, Y = rows(T)
+        advection = (interior(u) * along_x(T, X[:3])
+                     + interior(v) * along_y(T, Y[:3]))
+        if T.shape[0] > 1:
+            advection = advection + interior(w) * ddz(T, inv_2dz)
+        diffusion = laplacian_interior(T, X[3:], Y[3:], inv_dz2)
+        return set_interior(T, interior(T)
+                            + dt * (-advection + alpha * diffusion))
 
     return step
 

@@ -1,5 +1,5 @@
 """Shared helpers for the NS time integrators (counterpart of
-`cfd_tpu/solvers/ns/common.py`, uniform grids only)."""
+`cfd_tpu/solvers/ns/common.py`)."""
 
 from __future__ import annotations
 
@@ -9,6 +9,8 @@ import torch
 from ...core.field import FlowField
 from ...core.grid import Grid
 from ...core.status import CFDError, Status
+from ...ops.kernels.stretch import stretch_spacing_ok, triples
+from ...ops.stencils import weighted
 from ..energy import thermal_dt_limit  # noqa: F401  (re-exported)
 from .params import (DT_MAX_LIMIT, DT_MIN_LIMIT, SPEED_EPSILON,
                      VELOCITY_EPSILON, NSParams, StepResult)
@@ -26,18 +28,112 @@ def validate_grid_for_solver(grid: Grid, field_shape) -> None:
                        "non-uniform z-spacing not supported")
 
 
-def stretch_gate(grid: Grid):
-    """None when the explicit kernels may run on ``grid`` (uniform x/y
-    with spacing above the 1e-10 guard), else the reason they may not
-    (`common.py:141-162`; the stretched pins are not ported yet).  On a
-    uniform grid the reference's spacing operators (`common.py:74`) reduce
-    to the scalar coefficients 1/(2h) and 1/h² that the explicit kernels
-    take (`euler_kernels.ExplicitConsts.derivs`)."""
-    if not (grid.is_uniform("x") and grid.is_uniform("y")):
-        return "a stretched x/y grid"
-    if min(grid.dx0, grid.dy0) <= 1e-10:
-        return "degenerate grid spacing (|h| <= 1e-10)"
-    return None
+def spacing_arrays(grid: Grid, dtype, device=None):
+    """Per-point inverse spacings broadcastable over (nz, ny, nx)
+    (`common.py:30-46`): entry i holds the forward spacing dx[i], the
+    last entry repeating dx[−1] (only interior points are read); and the
+    |h| ≥ 1e-10 validity mask.  Returns (1/2dx, 1/2dy, 1/dx², 1/dy², ok)."""
+    dx = np.concatenate([grid.dx, grid.dx[-1:]])
+    dy = np.concatenate([grid.dy, grid.dy[-1:]])
+
+    def vec(a):
+        return torch.as_tensor(a, dtype=dtype, device=device)
+
+    ok = ((np.abs(dx)[None, None, :] >= 1e-10)
+          & (np.abs(dy)[None, :, None] >= 1e-10))
+    return (vec(1.0 / (2.0 * dx))[None, None, :],
+            vec(1.0 / (2.0 * dy))[None, :, None],
+            vec(1.0 / (dx * dx))[None, None, :],
+            vec(1.0 / (dy * dy))[None, :, None],
+            torch.as_tensor(ok, device=device))
+
+
+def consistent_triples(spacing):
+    """The exact 3-point nonuniform derivative weights (`common.py:49-71`),
+    one sextuple of length-n float64 numpy arrays (wm, wc, wp, lm, lc, lp):
+    at interior point i with h_m = x[i] − x[i−1], h_p = x[i+1] − x[i] and
+    s = h_m + h_p,
+
+      f'  ≈ wm·f[i−1] + wc·f[i] + wp·f[i+1],
+            wm = −h_p/(h_m·s), wc = (h_p − h_m)/(h_m·h_p), wp = h_m/(h_p·s)
+      f'' ≈ lm·f[i−1] + lc·f[i] + lp·f[i+1],
+            lm = 2/(h_m·s),    lc = −2/(h_m·h_p),          lp = 2/(h_p·s)
+
+    exact for quadratics on any grid.  Edge entries substitute the edge
+    spacing for the missing gap (finite values only)."""
+    return triples(spacing)
+
+
+def spacing_operators(grid: Grid, dtype, scheme: str = "parity",
+                      device=None):
+    """(d1x, d1y, d2x, d2y, spacing_ok) (`common.py:74-131`): x/y
+    derivative operators of the shifted views ``(f_minus, f_center,
+    f_plus)``.  ``"parity"`` is the reference C library's forward-spacing
+    stencil (`spacing_arrays`), ``"consistent"`` the exact nonuniform
+    weights (`consistent_triples`); on a uniform grid both are the parity
+    operators."""
+    if scheme not in ("parity", "consistent"):
+        raise CFDError(Status.ERROR_INVALID,
+                       f"nonuniform_scheme must be 'parity' or "
+                       f"'consistent', got {scheme!r}")
+    inv_2dx, inv_2dy, inv_dx2, inv_dy2, ok = spacing_arrays(grid, dtype,
+                                                            device)
+    if scheme == "parity" or (grid.is_uniform("x") and grid.is_uniform("y")):
+        def d1(c):
+            return lambda fm, fc, fp: (fp - fm) * c
+
+        def d2(c):
+            return lambda fm, fc, fp: (fp - 2.0 * fc + fm) * c
+
+        return d1(inv_2dx), d1(inv_2dy), d2(inv_dx2), d2(inv_dy2), ok
+
+    def rows(spacing, shape):
+        return [torch.as_tensor(a, dtype=dtype, device=device).reshape(shape)
+                for a in consistent_triples(spacing)]
+
+    X, Y = rows(grid.dx, (1, 1, -1)), rows(grid.dy, (1, -1, 1))
+
+    def lin(w):
+        return lambda fm, fc, fp: weighted(fm, fc, fp, w)
+
+    return lin(X[:3]), lin(Y[:3]), lin(X[3:]), lin(Y[3:]), ok
+
+
+def stretch_gate(grid: Grid, params: NSParams):
+    """(stretch, reason) — the spacing gate of the explicit kernels
+    (`common.py:141-162`).  ``stretch`` is the ``(dx, dy, x, y)`` numpy
+    tuple the stretched kernels' weight vectors are built from
+    (`ops.kernels.stretch`), None on uniform x/y; ``reason`` is None when
+    the kernels may run, else why they may not: degenerate spacing, or the
+    energy equation on a stretched grid under the parity scheme (its
+    thermal stencils are invalid off uniform grids,
+    `energy_solver.c:55-91`)."""
+    if grid.is_uniform("x") and grid.is_uniform("y"):
+        if min(grid.dx0, grid.dy0) > 1e-10:
+            return None, None
+        return None, "degenerate grid spacing (|h| <= 1e-10)"
+    if params.energy_enabled and params.nonuniform_scheme != "consistent":
+        return None, ("stretched x/y with the energy equation needs "
+                      "nonuniform_scheme='consistent'")
+    if not stretch_spacing_ok(grid.dx, grid.dy):
+        return None, "stretched spacing below the 1e-10 validity guard"
+    return (grid.dx, grid.dy, grid.x, grid.y), None
+
+
+def stretch_pin_count(grid: Grid, params: NSParams) -> int:
+    """The number of per-point coefficient planes the reference's fused
+    kernels pin for this grid and scheme (`common.py:165-170`): 0 on
+    uniform x/y, 7 consistent, 3 parity.  Here the rows of the x and y
+    weight arrays (`ops.kernels.stretch`)."""
+    if grid.is_uniform("x") and grid.is_uniform("y"):
+        return 0
+    return 7 if params.nonuniform_scheme == "consistent" else 3
+
+
+def stretch_mode(grid: Grid, params: NSParams):
+    """(stretch, fuse_ok) — :func:`stretch_gate` for dispatchers."""
+    stretch, reason = stretch_gate(grid, params)
+    return stretch, reason is None
 
 
 def z_constants(grid: Grid):

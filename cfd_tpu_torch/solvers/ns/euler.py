@@ -14,7 +14,10 @@ euler2d_step` in 2D) with the reference's semantics
 * with ``params.beta != 0`` the Boussinesq sources −β(T − T_ref)·g, with
   ``params.alpha > 0`` the energy equation (T advected by the updated
   velocities) and then the thermal faces of ``params.thermal_bc``, all in
-  the same kernel (`euler.py:176-221`).
+  the same kernel (`euler.py:176-221`);
+* on a stretched x/y grid the parity scheme's per-point forward spacings
+  or the consistent scheme's exact nonuniform weights
+  (``params.nonuniform_scheme``, `common.spacing_operators`).
 
 The step is `_make_fused_euler_step` / `_make_fused_euler2d_step` of the
 reference (`euler.py:226-320`) with both wraps inside the kernel.  It
@@ -33,8 +36,9 @@ from ...core.field import FlowField
 from ...core.grid import Grid
 from ...core.status import CFDError, Status
 from ...ops.kernels.euler2d import euler2d_step
-from ...ops.kernels.euler_kernels import (ExplicitConsts, ThermalConsts,
-                                          euler_step, euler_step_plain)
+from ...ops.kernels.euler_kernels import (ExplicitConsts, Spacing,
+                                          ThermalConsts, euler_step,
+                                          euler_step_plain)
 from ..energy import validate_thermal_bc
 from .common import (iterate_with_divergence_guard, source_basis,
                      step_result, stretch_gate, validate_grid_for_solver)
@@ -42,19 +46,20 @@ from .params import DT_CONSERVATIVE_LIMIT, NSParams, source_amplitudes
 
 
 def check_explicit_slice(name: str, grid: Grid, params: NSParams,
-                         differentiable: bool, dtype, device) -> None:
+                         differentiable: bool, dtype, device):
     """Raise ``CFDError(ERROR_UNSUPPORTED)`` outside the explicit
-    integrators' ported slice; each exclusion is a later slice in
-    ROADMAP.md."""
+    integrators' ported slice (each exclusion is a later slice in
+    ROADMAP.md) and on the configurations the reference refuses; returns
+    `common.stretch_gate`'s ``stretch`` tuple (None on a uniform grid)."""
     def unsupported(what):
         raise CFDError(Status.ERROR_UNSUPPORTED,
                        f"{name} step: {what} is not ported yet")
 
-    reason = stretch_gate(grid)
+    stretch, reason = stretch_gate(grid, params)
     if reason is not None:
-        unsupported(reason)
-    if params.nonuniform_scheme == "consistent":
-        unsupported("the consistent nonuniform scheme")
+        # degenerate spacing, or parity + stretched + energy, which the
+        # reference's energy step refuses (`energy.py:57-61`)
+        raise CFDError(Status.ERROR_UNSUPPORTED, f"{name} step: {reason}")
     if params.heat_source_func is not None:
         unsupported("a heat_source_func")
     if params.source_func is not None:
@@ -63,23 +68,32 @@ def check_explicit_slice(name: str, grid: Grid, params: NSParams,
         unsupported("the differentiable step")
     if device.type == "cuda" and dtype != torch.float32:
         unsupported(f"{dtype} on CUDA (the kernels are float32)")
+    return stretch
 
 
 def explicit_setup(name: str, grid: Grid, params: NSParams, dtype, device,
                    differentiable: bool):
     """Checks shared by the explicit step builders; returns (dtype,
-    device, kernel constants, (sin πy, sin 2πx))."""
+    device, kernel constants, (sin πy, sin 2πx)).  A stretched x/y grid
+    takes the weights of ``params.nonuniform_scheme`` (`ops.kernels.
+    stretch`); the consistent scheme on a uniform grid is the parity step
+    (`common.py:89`)."""
     device = device_of(device)
     dtype = resolve_dtype(dtype, device)
-    check_explicit_slice(name, grid, params, differentiable, dtype, device)
+    stretch = check_explicit_slice(name, grid, params, differentiable, dtype,
+                                   device)
     validate_grid_for_solver(grid, grid.shape)
     if params.energy_enabled:
         validate_thermal_bc(params.thermal_bc, grid)
     device = resolve_device(device)
+    spacing = None
+    if stretch is not None:
+        spacing = Spacing.of(stretch, params.nonuniform_scheme, dtype, device)
     consts = ExplicitConsts(grid.nz, grid.ny, grid.nx, grid.dx0, grid.dy0,
                             grid.dz0, float(params.mu),
                             float(params.pressure_coupling),
-                            ThermalConsts.from_params(params, dtype))
+                            ThermalConsts.from_params(params, dtype),
+                            spacing)
     return dtype, device, consts, source_basis(grid, dtype, device)
 
 
@@ -99,8 +113,12 @@ def explicit_result(m2, pmax, pabs, tmax):
 
 def make_euler_step(grid: Grid, params: NSParams, dtype=None, device=None,
                     differentiable: bool = False, plain: bool = False):
-    """Build ``step(field, dt, iter_idx) -> (field, StepResult)`` on a
-    uniform 3D (nz ≥ 3) or 2D (nz == 1) grid.
+    """Build ``step(field, dt, iter_idx) -> (field, StepResult)`` on a 3D
+    (nz ≥ 3) or 2D (nz == 1) grid, uniform or stretched in x/y (the
+    reference's dispatch through `common.stretch_mode`, `euler.py:75-110`:
+    ``params.nonuniform_scheme`` picks the parity or the consistent
+    weights; parity with the energy equation raises, as the reference's
+    energy step does).
 
     On the card (the default) the step launches the fused Euler kernel;
     with ``device="cpu"`` the same wrapper runs its plain version.

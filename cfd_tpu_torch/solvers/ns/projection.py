@@ -84,6 +84,24 @@ solves read their running flag once per chunk of iterations
 (`poisson.krylov.run_chunked`), the multigrid step's 3D solve its residual
 once per check (`poisson.multigrid`), the whole solves nothing.
 
+On a stretched x/y grid the parity scheme (the default) runs every
+branch above on the first-cell spacings dx0, dy0, as the reference does
+(`projection.py:151-152`, `solver_projection.c:72-75`).  The consistent
+scheme (``nonuniform_scheme="consistent"``, `projection.py:158-253`,
+`:474-542`) runs the stencil kernels' consistent instantiations (the
+`ops.kernels.projection_kernels` and `projection2d` wrappers on
+consistent `StencilConsts`) over the variable-coefficient problem (`poisson.nonuniform`): FFT_DIRECT in 3D
+through the generalized eigenbasis in the DST's place (the same GEMMs,
+the same Thomas sweeps over the eigenvalue sums), in 2D through
+`make_nonuniform_direct` between the predictor's rhs and the corrector
+(the reference's 2D consistent step is jnp); CG and BiCGSTAB through the
+plain loops (`krylov.make_cg` / `make_bicgstab`) over the volume-weighted
+problem, as the reference's jnp solves between its fused kernels; any
+other method raises ``ERROR_UNSUPPORTED`` with the reference's message.
+With ``bc_refresh`` the consistent step keeps its kernels (the reference
+falls back to its jnp body there, `projection.py:484`).  On a uniform
+grid the consistent scheme is the parity step.
+
 Anything outside this slice raises ``CFDError(ERROR_UNSUPPORTED)``; each
 exclusion is a later slice in ROADMAP.md.
 """
@@ -99,12 +117,17 @@ from ...core.status import CFDError, Status
 from ...ops.kernels.projection2d import Projection2DKernels
 from ...ops.kernels.projection_kernels import ProjectionKernels
 from ..poisson.base import Method, PoissonParams, PoissonProblem
-from ..poisson.krylov import (make_bicgstab_fused, make_bicgstab_vmem,
-                              make_cg_fused, make_cg_vmem)
+from ..poisson.krylov import (make_bicgstab, make_bicgstab_fused,
+                              make_bicgstab_vmem, make_cg, make_cg_fused,
+                              make_cg_vmem)
 from ..poisson.multigrid import (make_multigrid, make_multigrid_vmem,
                                  raise_not_coarsenable)
 from ..poisson.stationary import (make_jacobi_vmem, make_redblack_sor_fused,
                                   make_redblack_sor_vmem)
+from ..poisson.nonuniform import (NonuniformPoissonProblem,
+                                  make_nonuniform_direct,
+                                  make_nonuniform_fused_pieces,
+                                  nonuniform_face_coeffs)
 from ..poisson.spectral import make_dst2d_fused_pieces, make_dst_fused_pieces
 from ..energy import apply_thermal_bcs, make_energy_step, validate_thermal_bc
 from .common import (field_status_and_diagnostics, step_result,
@@ -130,9 +153,25 @@ _ITERATIVE = {
 }
 
 
+# the consistent scheme's Krylov solves: the plain loops
+_CONSISTENT_KRYLOV = {Method.CG: make_cg, Method.BICGSTAB: make_bicgstab}
+
+
 def _unsupported(what: str):
     raise CFDError(Status.ERROR_UNSUPPORTED,
                    f"projection step: {what} is not ported yet")
+
+
+# the pressure solves of the consistent scheme (`projection.py:226-253`)
+_CONSISTENT_METHODS = (Method.FFT_DIRECT, Method.CG, Method.BICGSTAB)
+
+
+def is_consistent(grid: Grid, params: NSParams) -> bool:
+    """The consistent scheme's step runs: ``nonuniform_scheme=
+    "consistent"`` on a stretched x/y grid.  On a uniform grid the two
+    schemes coincide and the parity step runs (`projection.py:168-169`)."""
+    return (params.nonuniform_scheme == "consistent"
+            and not (grid.is_uniform("x") and grid.is_uniform("y")))
 
 
 # spectral_precision → the DST products' precision (`ops.kernels.rolling`)
@@ -144,10 +183,12 @@ def _check_slice(grid: Grid, params: NSParams, poisson_method,
     method = Method(poisson_method)
     if method != Method.FFT_DIRECT and (method, True) not in _ITERATIVE:
         _unsupported(f"poisson_method {method.name}")
-    if not grid.is_uniform():
-        _unsupported("a stretched grid")
-    if params.nonuniform_scheme == "consistent":
-        _unsupported("the consistent nonuniform scheme")
+    if is_consistent(grid, params) and method not in _CONSISTENT_METHODS:
+        # the reference's own refusal (`projection.py:249-253`)
+        raise CFDError(
+            Status.ERROR_UNSUPPORTED,
+            f"consistent-scheme projection supports poisson_method "
+            f"FFT_DIRECT/CG/BICGSTAB, got {method.name}")
     if params.heat_source_func is not None:
         _unsupported("a heat_source_func")
     if params.source_func is not None:
@@ -186,7 +227,8 @@ def make_projection_step(grid: Grid, params: NSParams, dtype=None,
                          differentiable: bool = False, bc_refresh=None,
                          plain: bool = False):
     """Build ``step(field, dt, iter_idx) -> (field, StepResult)`` for a 3D
-    (nz ≥ 3) or 2D (nz == 1) uniform grid.
+    (nz ≥ 3) or 2D (nz == 1) grid, uniform or stretched in x/y (the
+    scheme of ``params.nonuniform_scheme``).
 
     ``poisson_method`` is ``Method.CG`` by default, as in the reference,
     or ``BICGSTAB``, ``REDBLACK_SOR``, ``JACOBI`` or ``MULTIGRID`` (2^k+1
@@ -223,8 +265,6 @@ def make_projection_step(grid: Grid, params: NSParams, dtype=None,
         validate_thermal_bc(params.thermal_bc, grid)
     device = resolve_device(device)
 
-    problem = PoissonProblem(grid.nx, grid.ny, grid.nz, grid.dx0,
-                             grid.dy0, grid.dz0)
     with_sources = (params.source_amplitude_u != 0.0
                     or params.source_amplitude_v != 0.0)
     decay_rate = params.source_decay_rate
@@ -232,6 +272,19 @@ def make_projection_step(grid: Grid, params: NSParams, dtype=None,
     post = thermal_post_step(grid, params)
     kernel_kw = dict(with_sources=with_sources, plain=plain, params=params,
                      dtype=dtype)
+    consistent = is_consistent(grid, params)
+    if consistent:
+        problem = NonuniformPoissonProblem.from_grid(grid)
+        kernel_kw.update(stretch_consistent=(grid.dx, grid.dy, grid.x,
+                                             grid.y),
+                         face_coeffs=nonuniform_face_coeffs(problem),
+                         device=device)
+    else:
+        # the parity scheme: uniform spacings from the first cell, on a
+        # stretched grid too (`projection.py:151-152`,
+        # `solver_projection.c:72-75`)
+        problem = PoissonProblem(grid.nx, grid.ny, grid.nz, grid.dx0,
+                                 grid.dy0, grid.dz0)
 
     def scalars(field: FlowField, dt, iter_idx):
         """(dt, su, sv, ρ) as 0-d tensors on the field's device."""
@@ -271,21 +324,34 @@ def make_projection_step(grid: Grid, params: NSParams, dtype=None,
 
     step_kw = dict(scalars=scalars, predict=predict, post=post)
     method = Method(poisson_method)
-    if method != Method.FFT_DIRECT:
+    precision = _PRECISIONS.get(spectral_precision)
+    pparams = poisson_params or PoissonParams()
+    solve = None
+    if consistent and method != Method.FFT_DIRECT:
+        # the plain Krylov loops over the volume-weighted problem, as the
+        # reference's jnp solve between its fused kernels
+        # (`projection.py:237-248`, `:534-540`): no kernel exists for the
+        # variable-coefficient passes
+        solve = _CONSISTENT_KRYLOV[method](problem, pparams, dtype, device)
+    elif consistent and grid.nz == 1:
+        # the 2D direct solve through the eigenbasis (the reference's jnp
+        # step, `projection.py:232-236`)
+        solve = make_nonuniform_direct(problem, pparams, dtype, device,
+                                       precision, plain=plain)
+    elif method != Method.FFT_DIRECT:
         # poisson_params as given: no factory defaults (Jacobi's are the
         # front end's), as in the reference's step
-        pparams = poisson_params or PoissonParams()
         solve = _ITERATIVE[method, grid.nz == 1](problem, pparams, dtype,
                                                  device, plain=plain)
         if solve is None:
             raise_not_coarsenable("multigrid")
+    if solve is not None:
         if grid.nz == 1:
             return _make_iterative_step_2d(grid, params, solve, kernel_kw,
                                            **step_kw)
         return _make_iterative_step_3d(grid, params, solve, kernel_kw,
                                        folded_result, **step_kw)
 
-    precision = _PRECISIONS[spectral_precision]
     if grid.nz == 1:
         fxt, gxt, ysolve = make_dst2d_fused_pieces(
             problem, dtype, device, plain=plain, precision=precision)
@@ -306,8 +372,12 @@ def make_projection_step(grid: Grid, params: NSParams, dtype=None,
         return step_2d
 
     # HIGH takes the analytic-t back substitution, HIGHEST the stored one
-    # (`projection.py:417-432`); ProjectionKernels keeps "stored" at nz = 3
-    mats, tdma_fwd = make_dst_fused_pieces(problem, dtype, device)
+    # (`projection.py:417-432`); ProjectionKernels keeps "stored" at nz = 3.
+    # The consistent scheme's factors are the generalized eigenbasis
+    # (`projection.py:503-521`)
+    pieces = (make_nonuniform_fused_pieces if consistent
+              else make_dst_fused_pieces)
+    mats, tdma_fwd = pieces(problem, dtype, device)
     pk = ProjectionKernels(
         grid.nz, grid.ny, grid.nx, grid.dx0, grid.dy0, grid.dz0,
         grid.xmin, grid.ymin, params.mu, mats, tdma_fwd,

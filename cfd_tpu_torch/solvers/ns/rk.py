@@ -90,8 +90,9 @@ def _make_rk_step(grid: Grid, params: NSParams, order: int, dtype, device,
 
 def make_rk2_step(grid: Grid, params: NSParams, dtype=None, device=None,
                   differentiable: bool = False, plain: bool = False):
-    """Build the RK2 (Heun) ``step(field, dt, iter_idx)`` on a uniform 3D
-    (nz ≥ 3) or 2D grid, on the card by default; ``plain=True`` as in
+    """Build the RK2 (Heun) ``step(field, dt, iter_idx)`` on a 3D (nz ≥ 3)
+    or 2D grid, uniform or stretched in x/y, on the card by default;
+    the stretched weights and ``plain=True`` as in
     `euler.make_euler_step`."""
     return _make_rk_step(grid, params, 2, dtype, device, differentiable,
                          plain)

@@ -140,7 +140,8 @@ def make_cg(problem: PoissonProblem, params: PoissonParams, dtype=None,
             device=None, plain: bool = False):
     """CG / Jacobi-PCG as plain tensor code, the reference's jnp loop
     (`krylov.py:36-117`) step for step; reads the stop flag on the host
-    once per iteration.  It has no kernel: ``dtype``, ``device`` and
+    once per iteration (``solve.host_syncs`` counts the last solve's
+    reads).  It has no kernel: ``dtype``, ``device`` and
     ``plain`` are accepted for the makers' common signature."""
     use_precond = params.preconditioner == Precond.JACOBI
     diag_inv = problem.inv_factor
@@ -151,8 +152,18 @@ def make_cg(problem: PoissonProblem, params: PoissonParams, dtype=None,
     def A(p):
         return problem.zero_boundary(-problem.laplacian(p))
 
+    diag = {}   # a per-point diagonal (the consistent scheme's problem)
+
     def precond(r):
-        return diag_inv * r if use_precond else r
+        if not use_precond:
+            return r
+        if isinstance(diag_inv, float):
+            return diag_inv * r
+        key = (r.dtype, r.device)
+        if key not in diag:
+            diag[key] = torch.as_tensor(diag_inv, dtype=r.dtype,
+                                        device=r.device)
+        return diag[key] * r
 
     def solve(x, rhs):
         x = problem.neumann_bc(x)
@@ -189,6 +200,7 @@ def make_cg(problem: PoissonProblem, params: PoissonParams, dtype=None,
             rho, it = rho_new, it + 1
             res = torch.where(bd1, res, res_new)
             running = not bool(stop)
+        solve.host_syncs = 1 + it   # the start check and one a pass
         dev = x.device
         return _result(problem.neumann_bc(x), init_res, res,
                        torch.tensor(it, dtype=torch.int32, device=dev),
@@ -305,15 +317,22 @@ def make_bicgstab(problem: PoissonProblem, params: PoissonParams,
                   dtype=None, device=None, plain: bool = False):
     """BiCGSTAB as plain tensor code, the reference's jnp loop
     (`krylov.py:384-474`) step for step; reads the stop flag on the host
-    once per iteration.  It has no kernel: ``dtype``, ``device`` and
+    once per iteration (``solve.host_syncs``, as in :func:`make_cg`).  It
+    has no kernel: ``dtype``, ``device`` and
     ``plain`` are accepted for the makers' common signature."""
     c = _bicg_consts(problem, params)
     abs_tol = params.absolute_tolerance
     max_iter = int(params.max_iterations)
+    # a subclass (the consistent scheme's problem) brings its own
+    # operator and inner product, which the loop then takes
+    own = problem if type(problem) is not PoissonProblem else None
 
     def solve(x, rhs):
+        stats = {}
         x_f, init_res, res_f, it_f, stag_f = bicgstab_solve_plain(
-            x, rhs, c, params.tolerance, abs_tol, max_iter)
+            x, rhs, c, params.tolerance, abs_tol, max_iter, problem=own,
+            stats=stats)
+        solve.host_syncs = stats["host_syncs"]
         return _bicgstab_result(x_f, init_res, res_f, it_f, stag_f,
                                 problem.tolerance_for(params, init_res),
                                 abs_tol, init_res < abs_tol, max_iter)

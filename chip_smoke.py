@@ -140,7 +140,28 @@ equation:
 * phase 34: ``bench.py:dvd_gate``, de Vahl Davis Ra = 1e4 at 128² through
   the buoyant 2D step, marched in chunks of 4000 steps to the
   kinetic-energy steady state (at most 80000), u_max*, v_max* and Nu_avg
-  within 4% of 16.178, 19.617 and 2.238, status 0 on every step.
+  within 4% of 16.178, 19.617 and 2.238, status 0 on every step;
+* phase 35: the stretched-grid kernels against their plain versions,
+  bit for bit: the consistent scheme's predictor (± T), b̃, rhs and
+  corrector and the eigenbasis-fused chain at 128×64×16 and 512³
+  (tanh β = 1.5 in x and y), its GEMMs (SGEMM and 3xTF32, 2e-5·max);
+  the parity and consistent Euler and RK kernels (thermal included) at
+  37×23×11, 256³, 37×23 and 2048²; the 2D consistent kernels at 128×32
+  and 2048²;
+* phase 36: ``bench.py:run_3d_consistent(512)`` at HIGHEST and HIGH (5
+  warm-up and 5 timed steps on both paths, ms/step and MLUPS), the
+  float64 true residual of the system one step solved (within twice the
+  uniform step's float32 floor on this smooth rhs) and of the consistent
+  direct solve on ``cg_512``'s rough rhs (bar 1e-3), the consistent CG
+  and BiCGSTAB steps at 128³ (3 steps, iterations, host syncs) and the
+  2D consistent step at 2048²;
+* phase 37: ``bench.py:run_euler_3d(stretched=True)`` in the parity and
+  consistent schemes at 256³, RK2 / RK4 there, the stretched Euler and
+  RK2 steps at 2048², the stretched Poiseuille gate on the card
+  (`tests/validation/test_poiseuille.py:110-165`: 40×32, 500 steps, β =
+  0 / 1.5 / 2.0 below 0.05 / 0.20 / 0.30, uniform below stretched) and
+  ``Simulation.from_grid`` on a stretched grid with the consistent
+  scheme.
 
 It checks status, finiteness, launch counters (set to 0 just before each
 main path and read just after) and kernel-vs-plain agreement; any
@@ -304,6 +325,28 @@ DVD_DT = 5e-4
 DVD_CHUNK = 4000
 DVD_MAX_STEPS = 80000
 
+# Phases 35-37: stretched grids and the consistent scheme
+STRETCH_BETA = 1.5     # bench.py:run_3d_consistent / run_euler_3d
+SRC_STRETCH = "cfd_tpu_torch/csrc/explicit_common.cuh"
+A1_CONS = "cfd_tpu/ops/pallas/projection_kernels.py:594"  # consistent pins
+A1_FACE = "cfd_tpu/ops/pallas/projection_kernels.py:658"  # face coeffs
+A2_CONS = "cfd_tpu/ops/pallas/projection_kernels.py:420"  # grad pins
+A5_CONS = "cfd_tpu/ops/pallas/projection_kernels.py:735"  # corr_all grad
+E3_STRETCH = "cfd_tpu/ops/pallas/euler_kernels.py:104"    # stretch pins
+E2_STRETCH = "cfd_tpu/ops/pallas/euler2d.py:67"
+RK3_STRETCH = "cfd_tpu/ops/pallas/rk_kernels.py:106"
+RK2_STRETCH = "cfd_tpu/ops/pallas/rk2d.py:82"
+# the 2D consistent step: jnp in the reference (projection.py:292-293);
+# the port's kernels replace its predictor / rhs / corrector sweeps there
+P2_CONS = "cfd_tpu/solvers/ns/projection.py:726"
+N_CONS_KRYLOV = 128    # the consistent CG / BiCGSTAB steps
+CONS_RESIDUAL_BAR = 1e-3
+# the consistent step at HIGH against HIGHEST: the reference's bar
+# (tests/math/test_projection_consistent_fused.py:143-162)
+HIGH_P_CONS = 5e-3
+POISEUILLE = (40, 32, 500)
+POISEUILLE_BARS = {0.0: 0.05, 1.5: 0.20, 2.0: 0.30}
+
 # The card's peaks for a kernel's bound (H100 SXM data sheet, at 700 W):
 # device memory 3.35 TB/s, float32 outside the tensor cores 67 TFLOP/s,
 # dense TF32 on the tensor cores 494.7 TFLOP/s (the 3xTF32 GEMM's rate).
@@ -350,7 +393,17 @@ FLOPS_PER_POINT = {"predictor_star": 90, "poisson_input": 12,
                    # dot 2, t 9 and two dots 4, x and r 6 and two dots 4);
                    # a red-black SOR or a Jacobi sweep; a residual check
                    "bicg_iter_2d": 41, "sor_sweep_2d": 11,
-                   "jacobi_sweep_2d": 8, "residual_2d": 10}
+                   "jacobi_sweep_2d": 8, "residual_2d": 10,
+                   # the consistent scheme: each x/y first derivative 5
+                   # (three products, two sums) for 3 of the uniform
+                   # one, each second derivative 5 for 4; the predictor
+                   # takes 9 of each, b̃ 2 first derivatives and the face
+                   # weights (4 products, 4 sums), the corrector 2
+                   "predictor_star_cons": 108, "poisson_input_cons": 20,
+                   "poisson_rhs_cons": 12, "corrector_cons": 24,
+                   "euler_cons": 160, "rk_stage_cons": 180,
+                   "euler_cons_thermal": 205, "rk_stage_cons_thermal":
+                   225}
 
 # Tolerances, kernel against plain version on identical inputs, float32:
 #  * fields (u*, v*, w*, u, v, w): atol 2e-5, the reference's own
@@ -398,8 +451,9 @@ def fail(msg):
 
 def profile_steps(torch, label, run, n_steps):
     """Run ``run()`` (``n_steps`` steps) under torch.profiler; print each
-    device kernel's ms per step, and the device busy time against the
-    CUDA-event span and the host wall time of the run."""
+    device kernel's ms per step, the number of device events (kernels and
+    copies), and the device busy time against the CUDA-event span and the
+    host wall time of the run."""
     from torch.profiler import ProfilerActivity, profile
 
     start = torch.cuda.Event(enable_timing=True)
@@ -415,9 +469,11 @@ def profile_steps(torch, label, run, n_steps):
         wall_ms = (time.perf_counter() - t0) * 1e3
     span_ms = start.elapsed_time(end)
     per_kernel = {}
+    n_events = 0
     for ev in prof.events():
         if ev.device_type.name != "CUDA":
             continue
+        n_events += 1
         name = ev.name[:60]
         per_kernel[name] = (per_kernel.get(name, 0.0)
                             + ev.time_range.elapsed_us() / 1e3)
@@ -426,7 +482,8 @@ def profile_steps(torch, label, run, n_steps):
     busy_ms = sum(per_kernel.values())
     for name, ms in sorted(per_kernel.items(), key=lambda kv: -kv[1]):
         print(f"  profile {ms / n_steps:9.4f} ms/step  {name}", flush=True)
-    print(f"{label} profile over {n_steps} steps: device busy "
+    print(f"{label} profile over {n_steps} steps: {n_events} device "
+          f"events, device busy "
           f"{busy_ms:.3f} ms, CUDA-event span {span_ms:.3f} ms, host wall "
           f"{wall_ms:.3f} ms; idle share {1 - busy_ms / span_ms:.4f} of the "
           f"span, {1 - busy_ms / wall_ms:.4f} of the wall", flush=True)
@@ -480,6 +537,9 @@ def main() -> int:
     from cfd_tpu_torch.solvers.poisson.base import (Method, PoissonParams,
                                                     PoissonProblem,
                                                     PoissonStatus, Precond)
+    from cfd_tpu_torch.solvers.poisson.nonuniform import (
+        NonuniformPoissonProblem, make_nonuniform_direct,
+        make_nonuniform_fused_pieces, nonuniform_face_coeffs)
     from cfd_tpu_torch.solvers.poisson.spectral import (
         make_dst2d_fused_pieces, make_dst_fused_pieces)
 
@@ -546,6 +606,25 @@ def main() -> int:
     def nbytes(ts):
         return sum(t.numel() * t.element_size() for t in ts
                    if torch.is_tensor(t))
+
+    def cons_name(fn):
+        """The record name of a wrapper's consistent instantiation."""
+        return f"{fn.__name__}[consistent]"
+
+    def launches_of(wrappers):
+        """{record name: launches}: a wrapper's ``launches``, or for a
+        (wrapper, scheme) pair its ``<scheme>_launches`` (the stretched
+        instantiations, `native.count_launch`) under the record name
+        ``wrapper[scheme]``."""
+        counts = {}
+        for w in wrappers:
+            fn, scheme = w if isinstance(w, tuple) else (w, None)
+            if scheme is None:
+                counts[fn.__name__] = fn.launches
+            else:
+                counts[f"{fn.__name__}[{scheme}]"] = getattr(
+                    fn, f"{scheme}_launches")
+        return counts
 
     def bound(n_bytes, flops, rate=FP32_FLOPS):
         """(ms, "bytes" or "operations"): the least time the card could
@@ -944,7 +1023,7 @@ def main() -> int:
                 fail(f"{label} {path} path: nonzero status or non-finite "
                      f"fields")
             if path == "kernel":
-                counts = {fn.__name__: fn.launches for fn in wrappers}
+                counts = launches_of(wrappers)
                 print(f"{label} launch counts over the main path: "
                       f"{counts}", flush=True)
                 missing = [k for k, v in counts.items() if v <= 0]
@@ -957,7 +1036,7 @@ def main() -> int:
                 # same call pattern as the timed run: the caller holds
                 # the start field, so the allocator already has every
                 # block
-                profile_steps(torch, f"phase 5 {size}",
+                profile_steps(torch, label,
                               lambda: run_steps(stepf, f2, dt,
                                                 PROFILED_STEPS,
                                                 start_iter=n_steps),
@@ -1146,7 +1225,8 @@ def main() -> int:
     explicit_ms = {}
 
     def explicit_path(method, shape, n_steps, path_key, wrapper,
-                      params=None, field_fn=None):
+                      params=None, field_fn=None, grid=None,
+                      counter="launches", name=None, phase=None):
         """bench.py:run_euler_3d / run_euler_2d / run_rk_3d / run_rk_2d:
         the Taylor-Green field, sources off, ν = 0.01, dt = 1e-5, on the
         kernel path and the plain path — one step from the start, then
@@ -1156,20 +1236,25 @@ def main() -> int:
         just before the kernel path and read just after it.  ``params``
         and ``field_fn(shape)`` replace the configuration and the start
         field: phase 33's thermal steps, keyed " thermal" and not
-        profiled."""
-        thermal = params is not None
+        profiled.  ``grid`` replaces the uniform grid (phase 37's
+        stretched ones), whose kernels count on the wrapper's ``counter``
+        and key the record ``name``."""
+        thermal = params is not None and phase is None
         nz, ny, nx = shape
-        grid = uniform_grid(shape)
+        grid = grid or uniform_grid(shape)
+        name = name or wrapper.__name__
         params = params or NSParams(source_amplitude_u=0.0,
                                     source_amplitude_v=0.0, mu=0.01)
         field_fn = field_fn or tg_field
         size = f"{nx}^3" if nz > 1 else f"{nx}^2"
-        label = f"phase {33 if thermal else 10} {method} {size}"
+        phase = phase or (33 if thermal else 10)
+        label = f"phase {phase} {method} {size}" + (
+            f" {name}" if name != wrapper.__name__ else "")
         cells = nx * ny * nz
         firsts, finals, ms = {}, {}, {}
         for path in ("kernel", "plain"):
             if path == "kernel":
-                wrapper.launches = 0
+                setattr(wrapper, counter, 0)
             stepf = makers[method](grid, params, torch.float32, dev,
                                    plain=path == "plain")
             firsts[path] = stepf(field_fn(shape), EXPL_DT, 0)[0]
@@ -1196,17 +1281,16 @@ def main() -> int:
             if not float(r2.max_velocity) < 100.0:
                 fail(f"{label} {path} path: max|u| reached the clamp")
             if path == "kernel":
-                n_launch = wrapper.launches
+                n_launch = getattr(wrapper, counter)
                 print(f"{label} launch counts over the main path: "
-                      f"{{'{wrapper.__name__}': {n_launch}}} "
+                      f"{{'{name}': {n_launch}}} "
                       f"({n_launch / (2 * n_steps + 1):g} a step)",
                       flush=True)
                 if n_launch <= 0:
-                    fail(f"{wrapper.__name__} not launched on the main path")
+                    fail(f"{name} not launched on the main path")
                 counts = launch_counts.setdefault(path_key, {})
-                counts[wrapper.__name__] = (counts.get(wrapper.__name__, 0)
-                                            + n_launch)
-                if do_profile and not thermal:
+                counts[name] = counts.get(name, 0) + n_launch
+                if do_profile and phase == 10:
                     profile_steps(torch, f"phase 5 {method} {size}",
                                   lambda: run_steps(stepf, f2, EXPL_DT,
                                                     PROFILED_STEPS,
@@ -1214,21 +1298,22 @@ def main() -> int:
                                   PROFILED_STEPS)
             finals[path] = f2
             del f0
-        for name in names6:
-            compare(f"{label} first step", name,
-                    getattr(firsts["kernel"], name),
-                    getattr(firsts["plain"], name), TOL_EXACT, True)
+        for field_name in names6:
+            compare(f"{label} first step", field_name,
+                    getattr(firsts["kernel"], field_name),
+                    getattr(firsts["plain"], field_name), TOL_EXACT, True)
         # 2048² is past the explicit viscous limit (8·ν·dt/dx² = 3.35): a
         # grid-scale mode grows until the ±1000 second-derivative clamps
         # hold it, and it would amplify any rounding difference, so after
         # the timed steps the bar there is looser (1e-3 of max|ref|)
         tol_n = TOL_EXACT if nz > 1 else 1e-3
-        for name in names6:
-            compare(f"{label} {n_steps + 1} steps", name,
-                    getattr(finals["kernel"], name),
-                    getattr(finals["plain"], name), tol_n, True)
+        for field_name in names6:
+            compare(f"{label} {n_steps + 1} steps", field_name,
+                    getattr(finals["kernel"], field_name),
+                    getattr(finals["plain"], field_name), tol_n, True)
         explicit_ms[f"{method} {size}" + (" thermal" if thermal
-                                          else "")] = ms
+                                          else "")
+                    + (f" {name}" if name != wrapper.__name__ else "")] = ms
 
     n3, n2e = (N_EXPL,) * 3, (1, N_2D, N_2D)
     explicit_path("euler", n3, 10, "euler3d", ekm.euler_step)
@@ -2713,7 +2798,7 @@ def main() -> int:
     def high_counts(label, wrappers, gemms):
         """The HIGH path's counts: its wrappers', and the 3xTF32 launches
         of the GEMM wrappers, which must launch no SGEMM there."""
-        counts = {fn.__name__: fn.launches for fn in wrappers}
+        counts = launches_of(wrappers)
         counts.update({f"{g.__name__}[3xtf32]": g.high_launches
                        for g in gemms})
         sgemm = {g.__name__: g.launches for g in gemms}
@@ -2724,7 +2809,8 @@ def main() -> int:
                  f"launched")
         return counts
 
-    def high_vs_highest(label, grid_h, params_h, shape, dt, u_bar):
+    def high_vs_highest(label, grid_h, params_h, shape, dt, u_bar,
+                        p_bar=HIGH_P):
         """One kernel-path step at HIGH against one at HIGHEST from the
         same start, at the reference's HIGH bars times max(1, max|·|),
         u, v, w with what the measured max|Δp| passes on through the
@@ -2744,7 +2830,7 @@ def main() -> int:
             return compare(tag, name, getattr(firsts["high"], name), ref,
                            bar * scale + passed, False)[0]
 
-        dp = held("p", HIGH_P)
+        dp = held("p", p_bar)
         held("u", u_bar, dt / grid_h.dx0 * dp)
         held("v", u_bar, dt / grid_h.dy0 * dp)
         held("w", u_bar, dt / grid_h.dz0 * dp if shape[0] > 1 else 0.0)
@@ -3425,6 +3511,618 @@ def main() -> int:
     print(f"phase 34 took {time.perf_counter() - t_phase:.1f} s",
           flush=True)
 
+    # ---- phase 35: the stretched-grid kernels against their plain versions
+    # the consistent scheme's projection kernels (the <true>
+    # instantiations on the weight rows) and the eigenbasis-fused chain,
+    # the parity and consistent explicit kernels, the 2D consistent
+    # kernels; bit-equal, the GEMMs at 2e-5·max
+    t_phase = time.perf_counter()
+
+    def stretched_grid(shape):
+        nz, ny, nx = shape
+        if nz > 1:
+            return Grid.stretched(nx, ny, nz, zmin=0.0, zmax=1.0,
+                                  beta=STRETCH_BETA, stretch_axes="xy")
+        return Grid.stretched(nx, ny, beta=STRETCH_BETA, stretch_axes="xy")
+
+    def coords(grid):
+        return (grid.dx, grid.dy, grid.x, grid.y)
+
+    def plane_work(x, right, left, factor=1):
+        nz_, ny_, nx_ = x.shape
+        return ((x, right, left),
+                factor * (gemm_flops(nz_ * ny_, nx_, nx_)
+                          + gemm_flops(ny_, nx_, ny_, nz_)))
+
+    def plane_library(x, right, left):
+        return ieee_matmul(lambda: torch.einsum("ij,kjl,lm->kim", left, x,
+                                                right))
+
+    buoy_cons = NSParams(beta=BETA, T_ref=T_REF, gravity=(0.0, -9.81, 2.0))
+    for shape in ((16, 64, 128), (N_BIG,) * 3):
+        nz, ny, nx = shape
+        big = nz == N_BIG
+        tag = "x".join(map(str, shape[::-1])) + " stretched"
+        print(f"phase 35 consistent projection kernels vs plain at {tag}",
+              flush=True)
+        grid = stretched_grid(shape)
+        problem = NonuniformPoissonProblem.from_grid(grid)
+        face = nonuniform_face_coeffs(problem)
+        (fxt, fy, gxt, gy), (mu, w) = make_nonuniform_fused_pieces(
+            problem, torch.float32, dev)
+        f = noisy(FlowField.initialize(grid, dtype=torch.float32,
+                                       device=dev), SEED)
+        T = f.T + torch.randn(shape, generator=torch.Generator(
+            device=dev).manual_seed(SEED + 1), device=dev)
+        dt = torch.full((), 1e-3, device=dev)
+        scal = torch.tensor([1e-3, 0.1, 0.05], device=dev)
+        rod, s = 1.0 / dt, dt / 1.0
+        cells = f.u.numel()
+        weights = pkm.consistent_weights(*coords(grid), torch.float32, dev)
+        xw, yw = weights
+        c, cb = (pkm.stencil_consts(nz, ny, nx, grid.dx0, grid.dy0,
+                                    grid.dz0, grid.xmin, grid.ymin,
+                                    NSParams().mu, True, pb, torch.float32,
+                                    weights, face)
+                 for pb in (None, buoy_cons))
+        us, vs, ws = check(
+            "cons3d", tag, big, pkm.predictor_star, A1_CONS, SRC,
+            lambda: pkm.predictor_star(f.u, f.v, f.w, scal, c),
+            lambda: pkm.predictor_star_plain(f.u, f.v, f.w, scal, c),
+            ("u*", "v*", "w*"), (exact,) * 3,
+            work=((f.u, f.v, f.w, scal, xw, yw),
+                  FLOPS_PER_POINT["predictor_star_cons"] * cells),
+            name=cons_name(pkm.predictor_star))
+        check("cons3d", f"{tag} buoyant", False, pkm.predictor_star,
+              A1_CONS, SRC,
+              lambda: pkm.predictor_star(f.u, f.v, f.w, scal, cb, T),
+              lambda: pkm.predictor_star_plain(f.u, f.v, f.w, scal, cb, T),
+              ("u*", "v*", "w*"), (exact,) * 3,
+              name=cons_name(pkm.predictor_star))
+        bt = check(
+            "cons3d", tag, big, pkm.poisson_input, A1_FACE, SRC,
+            lambda: pkm.poisson_input(us, vs, ws, f.p, rod, c),
+            lambda: pkm.poisson_input_plain(us, vs, ws, f.p, rod, c),
+            ("b~",), (exact,),
+            work=((us, vs, ws, f.p, xw, yw),
+                  FLOPS_PER_POINT["poisson_input_cons"] * cells),
+            name=cons_name(pkm.poisson_input))[0]
+        # the rhs form runs on the main path only in the 128³ Krylov
+        # steps (phase 36), which time it; checked here, not timed
+        check("cons3d-rhs", tag, False, pkm.poisson_rhs, A1_RHS, SRC,
+              lambda: pkm.poisson_rhs(us, vs, ws, rod, c),
+              lambda: pkm.poisson_rhs_plain(us, vs, ws, rod, c),
+              ("rhs",), (exact,), name=cons_name(pkm.poisson_rhs))
+        bhat = check(
+            "cons3d", tag, big, rolling.plane_dot, DOT, SRC,
+            lambda: rolling.plane_dot(bt, fxt, fy),
+            lambda: rolling.plane_dot_plain(bt, fxt, fy),
+            ("forward",), (gemm,), work=plane_work(bt, fxt, fy),
+            library=plane_library(bt, fxt, fy))[0]
+        check("cons3d-high", tag, big, rolling.plane_dot, HP_DOT, SRC_GEMM,
+              lambda: rolling.plane_dot(bt, fxt, fy, "high"),
+              lambda: rolling.plane_dot_plain(bt, fxt, fy, "high"),
+              ("forward",), (gemm,), work=plane_work(bt, fxt, fy, 3),
+              library=plane_library(bt, fxt, fy), name="plane_dot[3xtf32]",
+              rate=TF32_TC_FLOPS)
+        d, t = check(
+            "cons3d", tag, big, tdma.tdma_z_fwd, A1, SRC,
+            lambda: tdma.tdma_z_fwd(bhat, mu, w),
+            lambda: tdma.tdma_z_fwd_reference(bhat, mu, w),
+            ("d'", "t"), (exact, exact),
+            work=((bhat, mu), FLOPS_PER_POINT["tdma_fwd"] * cells))
+        xhat = check(
+            "cons3d", tag, big, tdma.tdma_z_bwd, A2, SRC,
+            lambda: tdma.tdma_z_bwd(d, t),
+            lambda: tdma.tdma_z_bwd_reference(d, t),
+            ("x^",), (exact,),
+            work=((d, t), FLOPS_PER_POINT["tdma_bwd"] * cells))[0]
+        p = check(
+            "cons3d", tag, big, rolling.plane_dot, DOT, SRC,
+            lambda: rolling.plane_dot(xhat, gxt, gy),
+            lambda: rolling.plane_dot_plain(xhat, gxt, gy),
+            ("inverse",), (gemm,), work=plane_work(xhat, gxt, gy),
+            library=plane_library(xhat, gxt, gy))[0]
+        check("cons3d", tag, big, pkm.corrector, A2_CONS, SRC,
+              lambda: pkm.corrector(us, vs, ws, p, s, c),
+              lambda: pkm.corrector_plain(us, vs, ws, p, s, c),
+              ("u", "v", "w", "max|u|^2", "max p", "max|p|"), (exact,) * 6,
+              work=((us, vs, ws, p, xw, yw),
+                    FLOPS_PER_POINT["corrector_cons"] * cells),
+              name=cons_name(pkm.corrector))
+        # the fuse_fwd chain as the step calls it, HIGHEST and HIGH
+        for prec in ("highest", "high"):
+            kw = dict(dst_precision=prec,
+                      tdma_bwd="analytic" if prec == "high" else "stored",
+                      stretch_consistent=coords(grid), face_coeffs=face,
+                      device=dev)
+            kern = pkm.ProjectionKernels(
+                *shape, grid.dx0, grid.dy0, grid.dz0, grid.xmin, grid.ymin,
+                c.nu, (fxt, fy, gxt, gy), (mu, w), **kw)
+            ref = pkm.ProjectionKernels(
+                *shape, grid.dx0, grid.dy0, grid.dz0, grid.xmin, grid.ymin,
+                c.nu, (fxt, fy, gxt, gy), (mu, w), plain=True, **kw)
+            a1k = kern.predictor_poisson_input(f.u, f.v, f.w, f.p, dt,
+                                               scal[1], scal[2], rod)
+            a1p = ref.predictor_poisson_input(f.u, f.v, f.w, f.p, dt,
+                                              scal[1], scal[2], rod)
+            sync()
+            for o, gk, rk, tl in zip(("u*", "v*", "w*", "d'", "t"), a1k,
+                                     a1p, (exact,) * 3 + (gemm, exact)):
+                if rk is not None:
+                    compare(f"{tag} {prec}", f"A1 consistent.{o}", gk, rk,
+                            *tl)
+            a2k = kern.corrector_bwd_diag(*a1p, s)
+            a2p = ref.corrector_bwd_diag(*a1p, s)
+            sync()
+            for o, gk, rk, tl in zip(
+                    ("u", "v", "w", "p", "max|u|^2", "max p", "max|p|"),
+                    a2k, a2p, (fld,) * 3 + (gemm, (TOL_DIAG, True), gemm,
+                                            gemm)):
+                compare(f"{tag} {prec}", f"A2 consistent.{o}", gk, rk, *tl)
+            del kern, ref, a1k, a1p, a2k, a2p
+        del f, T, us, vs, ws, bt, bhat, d, t, xhat, p
+        torch.cuda.empty_cache()
+
+    # the stretched explicit kernels: parity and consistent, each without
+    # and with its thermal terms (parity: buoyancy; consistent: buoyancy
+    # and the energy equation with the mixed faces)
+    for shape in ((11, 23, 37), (N_EXPL,) * 3, (1, 23, 37), (1, N_2D, N_2D)):
+        nz, ny, nx = shape
+        three_d = nz > 1
+        big = nx in (N_EXPL, N_2D)
+        tag = "x".join(map(str, shape[::-1] if three_d else shape[:0:-1]))
+        grid = stretched_grid(shape)
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+
+        def rnd(scale, shape=shape, gen=gen):
+            return scale * torch.randn(shape, generator=gen, device=dev)
+
+        f = FlowField.initialize(grid, dtype=torch.float32, device=dev)
+        u = f.u + rnd(0.3)
+        u[nz // 2, ny // 3, nx // 3] = 150.0     # the clamps
+        rho = f.rho + rnd(0.01)
+        rho[nz // 2, ny // 2, nx // 2] = 1e-12   # the per-point ρ guard
+        f = FlowField(u=u, v=f.v + rnd(0.3), w=rnd(0.3), p=f.p + rnd(0.3),
+                      rho=rho, T=f.T + rnd(1.0))
+        sy, sx = source_basis(grid, torch.float32, dev)
+        cells = f.u.numel()
+        ew = ekm.euler_step if three_d else e2m.euler2d_step
+        sw = rkm.rk_stage if three_d else rk2m.rk2d_stage
+        q0 = (f.u, f.v, f.w, f.p)
+        st = tuple(x + rnd(0.01) for x in q0)
+        acc = tuple(rnd(5.0) for _ in range(4))
+        for scheme in ("parity", "consistent"):
+            spacing = ekm.Spacing.of(coords(grid), scheme, torch.float32,
+                                     dev)
+            dim = "3d" if three_d else "2d"
+            for thermal in (False, True):
+                print(f"phase 35 stretched explicit kernels vs plain at "
+                      f"{tag}, {scheme}{' thermal' if thermal else ''}",
+                      flush=True)
+                if thermal and scheme == "consistent":
+                    th = ekm.ThermalConsts.from_params(
+                        thermal_params(THERMAL_FACE_MIXES["mixed"]),
+                        torch.float32)
+                elif thermal:
+                    th = ekm.ThermalConsts.from_params(buoy_cons,
+                                                       torch.float32)
+                else:
+                    th = ekm.ThermalConsts()
+                c = ekm.ExplicitConsts(nz, ny, nx, grid.dx0, grid.dy0,
+                                       grid.dz0, 0.01, 0.1, th, spacing)
+                timed = big and not thermal
+                kind = "_cons" if scheme == "consistent" else ""
+                ins = (f.u, f.v, f.w, f.p, f.T, f.rho, sy, sx,
+                       torch.tensor([1e-4, 0.08, 0.04], device=dev))
+                check(f"euler{dim}-{scheme}", f"{tag} {scheme}", timed, ew,
+                      E3_STRETCH if three_d else E2_STRETCH, SRC_E,
+                      lambda: ew(*ins, c),
+                      lambda: ekm.euler_step_plain(*ins, c),
+                      names6 + maxima4, (exact,) * 10,
+                      work=(ins + (spacing.xw, spacing.yw),
+                            FLOPS_PER_POINT["euler" + (kind or "")]
+                            * cells),
+                      name=f"{ew.__name__}[{scheme}]")
+                for label, a, final, fac, mix, wgt in (
+                        ("first", None, False, 5e-5, 0.0, 1.0),
+                        ("mid", acc, False, 5e-5, 0.0, 2.0),
+                        ("final", acc, True, 1e-4 / 6.0, 1.0, 0.0)):
+                    sc = torch.tensor([fac, mix, wgt, 0.08, 0.04, 1e-4],
+                                      device=dev)
+                    read = (*st, *q0, f.rho, *(a or ()), sy, sx, sc,
+                            spacing.xw, spacing.yw) + (
+                        (f.T,) if final else ())
+                    outs = (names6 + maxima4 if final else
+                            tuple(f"next {n}" for n in "uvwp")
+                            + tuple(f"acc {n}" for n in "uvwp"))
+                    check(f"rk{dim}-{scheme}",
+                          f"{tag} {scheme} {label}",
+                          timed and label == "mid", sw,
+                          RK3_STRETCH if three_d else RK2_STRETCH, SRC_RK,
+                          lambda: sw(st, q0, f.rho, f.T, a, sy, sx, sc, c,
+                                     final),
+                          lambda: rkm.rk_stage_plain(st, q0, f.rho, f.T, a,
+                                                     sy, sx, sc, c, final),
+                          outs, (exact,) * len(outs),
+                          work=(read, FLOPS_PER_POINT["rk_stage"
+                                                      + (kind or "")]
+                                * cells),
+                          name=f"{sw.__name__}[{scheme}]")
+        del f, u, rho, q0, st, acc
+        torch.cuda.empty_cache()
+
+    # the 2D consistent projection kernels
+    for ny, nx in ((32, 128), (N_2D, N_2D)):
+        big = nx == N_2D
+        tag = f"{nx}x{ny} stretched"
+        print(f"phase 35 2D consistent kernels vs plain at {tag}",
+              flush=True)
+        grid = stretched_grid((1, ny, nx))
+        problem = NonuniformPoissonProblem.from_grid(grid)
+        f = noisy(FlowField.initialize(grid, dtype=torch.float32,
+                                       device=dev), SEED)
+        T = f.T + torch.randn((1, ny, nx), generator=torch.Generator(
+            device=dev).manual_seed(SEED + 1), device=dev)
+        weights = pkm.consistent_weights(*coords(grid), torch.float32, dev)
+        xw, yw = weights
+        c, cb = (pkm.stencil_consts(1, ny, nx, grid.dx0, grid.dy0, 0.0,
+                                    grid.xmin, grid.ymin, NSParams().mu,
+                                    True, pb, torch.float32, weights,
+                                    nonuniform_face_coeffs(problem))
+                 for pb in (None, buoy_cons))
+        scal = torch.tensor([1e-5, 0.1, 0.05], device=dev)
+        rod = torch.tensor(1e5, device=dev)
+        s = torch.tensor(1e-5, device=dev)
+        cells = nx * ny
+        us, vs, ws = check(
+            "cons2d", tag, big, pk2m.predictor_star_2d, P2_CONS, SRC_2D,
+            lambda: pk2m.predictor_star_2d(f.u, f.v, f.w, scal, c),
+            lambda: pkm.predictor_star_plain(f.u, f.v, f.w, scal, c),
+            ("u*", "v*", "w*"), (exact,) * 3,
+            work=((f.u, f.v, f.w, scal, xw, yw),
+                  FLOPS_PER_POINT["predictor_star_cons"] * cells),
+            name=cons_name(pk2m.predictor_star_2d))
+        check("cons2d", f"{tag} buoyant", False, pk2m.predictor_star_2d,
+              P2_CONS, SRC_2D,
+              lambda: pk2m.predictor_star_2d(f.u, f.v, f.w, scal, cb, T),
+              lambda: pkm.predictor_star_plain(f.u, f.v, f.w, scal, cb, T),
+              ("u*", "v*", "w*"), (exact,) * 3,
+              name=cons_name(pk2m.predictor_star_2d))
+        # b̃ (the 2D consistent step solves from the rhs; held, not a row)
+        got = pk2m.poisson_input_2d(us, vs, f.p, rod, c)
+        sync()
+        compare(tag, "poisson_input_2d[consistent].b~", got,
+                pk2m.poisson_input_2d_plain(us, vs, f.p, rod, c), *exact)
+        check("cons2d", tag, big, pk2m.poisson_rhs_2d, P2_CONS, SRC_2D,
+              lambda: pk2m.poisson_rhs_2d(us, vs, rod, c),
+              lambda: pk2m.poisson_rhs_2d_plain(us, vs, rod, c),
+              ("rhs",), (exact,),
+              work=((us, vs, xw, yw),
+                    FLOPS_PER_POINT["poisson_rhs_cons"] * cells),
+              name=cons_name(pk2m.poisson_rhs_2d))
+        check("cons2d", tag, big, pk2m.corrector_2d, P2_CONS, SRC_2D,
+              lambda: pk2m.corrector_2d(us, vs, f.p, s, c),
+              lambda: pk2m.corrector_2d_plain(us, vs, f.p, s, c),
+              ("u", "v"), (exact,) * 2,
+              work=((us, vs, f.p, xw, yw),
+                    FLOPS_PER_POINT["corrector_cons"] * cells),
+              name=cons_name(pk2m.corrector_2d))
+        del f, T, us, vs, ws
+        torch.cuda.empty_cache()
+    print(f"phase 35 took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+    # ---- phase 36: bench.py:run_3d_consistent(512), the Krylov steps ----
+    t_phase = time.perf_counter()
+    n = N_BIG
+    grid_s = stretched_grid((n, n, n))
+    params_c = NSParams(source_amplitude_u=0.0, source_amplitude_v=0.0,
+                        mu=0.01, nonuniform_scheme="consistent")
+    pkm.reset_launch_counts()
+    cons_3d = tuple((fn, "consistent") for fn in (
+        pkm.predictor_star, pkm.poisson_input, pkm.corrector))
+    ms_c, counts_c = timed_paths(
+        36, f"{n}^3 consistent", grid_s, params_c, (n, n, n), 1e-4,
+        TIMED_STEPS, cons_3d + (rolling.plane_dot, tdma.tdma_z_fwd,
+                                tdma.tdma_z_bwd),
+        first_step_only=True)
+    launch_counts["cons3d"] = counts_c
+    pkm.reset_launch_counts()
+    ms_ch, _ = timed_paths(
+        36, f"{n}^3 consistent HIGH", grid_s, params_c, (n, n, n), 1e-4,
+        TIMED_STEPS, cons_3d + (tdma.tdma_z_fwd_d,
+                                tdma.tdma_z_bwd_analytic),
+        first_step_only=True, precision="high")
+    launch_counts["cons3d-high"] = high_counts(
+        f"phase 36 {n}^3 consistent HIGH",
+        cons_3d + (tdma.tdma_z_fwd_d, tdma.tdma_z_bwd_analytic),
+        (rolling.plane_dot,))
+    dp_c = high_vs_highest(f"phase 36 {n}^3 consistent", grid_s, params_c,
+                           (n, n, n), 1e-4, HIGH_U, HIGH_P_CONS)
+
+    # the float64 true residual of the system one kernel-path step solved:
+    # b̃ = face·p₀ − (ρ/dt)∇·u* was solved for p on the interior, so the
+    # Laplacian of p inside p₀'s mirror shells equals (ρ/dt)∇·u* there;
+    # ‖r‖/‖rhs‖ volume-weighted, u* in float64 from the step's start.  On
+    # this smooth rhs float32 rounding sets a floor that grows ~5× a
+    # doubling of n, on a uniform grid alike (CPU runs, float32: 4.3e-6,
+    # 2.4e-5, 1.3e-4 at 32³-128³ stretched, 5.3e-6-1.6e-4 uniform), so the
+    # consistent step is held to twice the uniform step's value at 512³;
+    # and the consistent direct solve on cg_512's rough rhs (phase 13) to
+    # phase 30's bar, 1e-3
+    def step_residual(grid_r, params_r, prec):
+        stepf = make_projection_step(grid_r, params_r, torch.float32,
+                                     Method.FFT_DIRECT, device=dev,
+                                     spectral_precision=prec)
+        f0 = tg_field((n, n, n))
+        p1 = stepf(f0, 1e-4, 0)[0].p.double()
+        w64 = None
+        if not (grid_r.is_uniform("x") and grid_r.is_uniform("y")):
+            w64 = pkm.consistent_weights(*coords(grid_r), torch.float64, dev)
+        c64 = pkm.stencil_consts(n, n, n, grid_r.dx0, grid_r.dy0,
+                                 grid_r.dz0, grid_r.xmin, grid_r.ymin, 0.01,
+                                 False, None, torch.float64, w64)
+        scal = torch.tensor([1e-4, 0.0, 0.0], dtype=torch.float64,
+                            device=dev)
+        us, vs, ws = pkm.predictor_star_plain(f0.u.double(), f0.v.double(),
+                                              f0.w.double(), scal, c64)
+        rhs = pkm.poisson_rhs_plain(us, vs, ws, 1.0 / scal[0], c64)
+        del us, vs, ws
+        prob = NonuniformPoissonProblem.from_grid(grid_r)
+        xh0 = prob.set_interior(prob.neumann_bc(f0.p.double()), p1)
+        del f0, p1
+        r = prob.zero_boundary(prob.laplacian(xh0) - rhs)
+        rel = float(torch.sqrt(prob.dot_interior(r, r)
+                               / prob.dot_interior(rhs, rhs)))
+        del r, rhs, xh0
+        torch.cuda.empty_cache()
+        return rel
+
+    res_c = {"highest": step_residual(grid_s, params_c, None),
+             "high": step_residual(grid_s, params_c, "high"),
+             "uniform_highest": step_residual(
+                 Grid.uniform(n, n, n, zmin=0.0, zmax=1.0),
+                 NSParams(source_amplitude_u=0.0, source_amplitude_v=0.0,
+                          mu=0.01), None)}
+    prob_s = NonuniformPoissonProblem.from_grid(grid_s)
+    rhs_r = prob_s.zero_boundary(torch.randn(
+        (n, n, n), generator=torch.Generator(device=dev).manual_seed(7),
+        device=dev))
+    x_r = make_nonuniform_direct(prob_s, None, torch.float32, dev)(
+        torch.zeros_like(rhs_r), rhs_r).x
+    xd, rd = prob_s.zero_boundary(x_r.double()), rhs_r.double()
+    rd_int = prob_s.zero_boundary(prob_s.laplacian(xd) - rd)
+    res_c["rough_direct"] = float(torch.sqrt(
+        prob_s.dot_interior(rd_int, rd_int) / prob_s.dot_interior(rd, rd)))
+    del rhs_r, x_r, xd, rd, rd_int
+    torch.cuda.empty_cache()
+    print(f"phase 36 {n}^3 consistent: {ms_c['kernel']:.3f} ms/step "
+          f"(plain {ms_c['plain']:.3f}), HIGH {ms_ch['kernel']:.3f} "
+          f"(plain {ms_ch['plain']:.3f}); uniform {ms3['kernel']:.3f} / "
+          f"HIGH {ms3h['kernel']:.3f} (phases 4, 28); HIGH's first-step "
+          f"max|Δp| {dp_c:.3e}", flush=True)
+    print(f"phase 36 {n}^3 float64 true residual ‖r‖/‖rhs‖ "
+          f"(volume-weighted) of one step's system: consistent "
+          f"{res_c['highest']:.3e}, HIGH {res_c['high']:.3e}, the uniform "
+          f"step {res_c['uniform_highest']:.3e} (bar: twice it); the "
+          f"consistent direct solve on cg_512's rough rhs "
+          f"{res_c['rough_direct']:.3e} (bar {CONS_RESIDUAL_BAR:g})",
+          flush=True)
+    if not (max(res_c["highest"], res_c["high"])
+            <= 2.0 * res_c["uniform_highest"]
+            and res_c["rough_direct"] <= CONS_RESIDUAL_BAR):
+        fail("phase 36: a consistent true residual above its bar")
+    torch.cuda.empty_cache()
+
+    # the consistent CG and BiCGSTAB steps at 128³ (run_3d's physics on
+    # the stretched grid): the consistent kernels around the plain Krylov
+    # loops, both paths, 3 steps each from the same start
+    nk = N_CONS_KRYLOV
+    grid_k = stretched_grid((nk,) * 3)
+    krylov_rec = {}
+    for method in (Method.CG, Method.BICGSTAB):
+        out = {}
+        for path in ("kernel", "plain"):
+            if path == "kernel":
+                pkm.reset_launch_counts()
+            stepf = make_projection_step(grid_k, params_c, torch.float32,
+                                         method, device=dev,
+                                         plain=path == "plain")
+            fk = tg_field((nk,) * 3)
+            iters, syncs, statuses = [], [], []
+            sync()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for i in range(3):
+                fk, rk = stepf(fk, 1e-4, i)
+                iters.append(int(stepf.last_poisson.iterations))
+                syncs.append(stepf.poisson_solve.host_syncs)
+                statuses.append(int(rk.status))
+            end.record()
+            sync()
+            ms_k = start.elapsed_time(end) / 3
+            print(f"phase 36 consistent {method.name} step {nk}^3 {path} "
+                  f"path: {ms_k:.2f} ms/step, iterations {iters}, host "
+                  f"syncs {syncs}, statuses {statuses}", flush=True)
+            if max(map(abs, statuses)) != 0 or not bool(fk.is_finite()):
+                fail(f"phase 36 consistent {method.name} {path}: nonzero "
+                     f"status or non-finite")
+            if path == "kernel":
+                counts = launches_of(
+                    (fn, "consistent") for fn in (
+                        pkm.predictor_star, pkm.poisson_rhs, pkm.corrector))
+                print(f"phase 36 consistent {method.name} launch counts "
+                      f"over the main path: {counts}", flush=True)
+                if min(counts.values()) <= 0:
+                    fail(f"phase 36 consistent {method.name}: a kernel "
+                         f"not launched")
+                launch_counts.setdefault("cons3d-rhs", {}).update(
+                    {k: launch_counts.get("cons3d-rhs", {}).get(k, 0) + v
+                     for k, v in counts.items()})
+                if do_profile:
+                    # after the counts: one more step, traced
+                    profile_steps(torch, f"phase 36 consistent "
+                                  f"{method.name} {nk}^3",
+                                  lambda: stepf(fk, 1e-4, 3), 1)
+            out[path] = (fk, ms_k, iters, syncs)
+        # the Krylov loop is the same plain code on both paths and the
+        # kernels are bit-equal, so the two paths take the same iterates
+        if out["kernel"][2] != out["plain"][2]:
+            fail(f"phase 36 consistent {method.name}: iterations differ "
+                 f"between the paths")
+        for name in ("u", "v", "w", "p"):
+            compare(f"phase 36 consistent {method.name} 3 steps", name,
+                    getattr(out["kernel"][0], name),
+                    getattr(out["plain"][0], name), TOL_EXACT, True)
+        krylov_rec[method.name] = {
+            "ms_per_step": out["kernel"][1], "plain_ms": out["plain"][1],
+            "iterations": out["kernel"][2], "host_syncs": out["kernel"][3]}
+        del out
+        torch.cuda.empty_cache()
+
+    # the rhs form of the consistent b̃ kernel runs on the main path only
+    # in these Krylov steps: held bit-equal to its plain version and timed
+    # on their own start field, consts and ρ/dt (the step's first
+    # predictor, as make_projection_step builds it)
+    prob_k = NonuniformPoissonProblem.from_grid(grid_k)
+    pk_k = pkm.ProjectionKernels(
+        nk, nk, nk, grid_k.dx0, grid_k.dy0, grid_k.dz0, grid_k.xmin,
+        grid_k.ymin, params_c.mu, emit="rhs", with_sources=False,
+        params=params_c, stretch_consistent=coords(grid_k),
+        face_coeffs=nonuniform_face_coeffs(prob_k), device=dev)
+    fk = tg_field((nk,) * 3)
+    dt_k = torch.full((), 1e-4, device=dev)
+    zero = torch.zeros((), device=dev)
+    us, vs, ws = pk_k.predictor(fk.u, fk.v, fk.w, dt_k, zero, zero)
+    rod_k = fk.rho[0, 0, 0] / dt_k
+    ck = pk_k.consts
+    check("cons3d-rhs", f"{nk}^3 Krylov start", True, pkm.poisson_rhs,
+          A1_RHS, SRC, lambda: pkm.poisson_rhs(us, vs, ws, rod_k, ck),
+          lambda: pkm.poisson_rhs_plain(us, vs, ws, rod_k, ck),
+          ("rhs",), (exact,),
+          work=((us, vs, ws, *ck.weights),
+                FLOPS_PER_POINT["poisson_rhs_cons"] * us.numel()),
+          name=cons_name(pkm.poisson_rhs))
+    del fk, us, vs, ws, pk_k
+    torch.cuda.empty_cache()
+
+    # the 2D consistent step at 2048² (FFT_DIRECT: the eigenbasis direct
+    # solve between the 2D consistent kernels)
+    grid_2s = stretched_grid((1, n2, n2))
+    pk2m.reset_launch_counts()
+    ms_c2, counts_c2 = timed_paths(
+        36, f"{n2}^2 consistent", grid_2s, params_c, (1, n2, n2), 1e-5,
+        TIMED_STEPS_2D, tuple((fn, "consistent") for fn in (
+            pk2m.predictor_star_2d, pk2m.poisson_rhs_2d,
+            pk2m.corrector_2d)) + (rolling.plane_dot,),
+        first_step_only=True)
+    launch_counts["cons2d"] = counts_c2
+    torch.cuda.empty_cache()
+    print(f"phase 36 took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+    # ---- phase 37: the stretched explicit steps, Poiseuille, the facade --
+    t_phase = time.perf_counter()
+    n3s, n2s = (N_EXPL,) * 3, (1, N_2D, N_2D)
+    expl_params = {
+        scheme: NSParams(source_amplitude_u=0.0, source_amplitude_v=0.0,
+                         mu=0.01, nonuniform_scheme=scheme)
+        for scheme in ("parity", "consistent")}
+    for method, shape, n_steps, wrapper, dim in (
+            ("euler", n3s, 10, ekm.euler_step, "3d"),
+            ("rk2", n3s, 10, rkm.rk_stage, "3d"),
+            ("rk4", n3s, 10, rkm.rk_stage, "3d"),
+            ("euler", n2s, 20, e2m.euler2d_step, "2d"),
+            ("rk2", n2s, 10, rk2m.rk2d_stage, "2d")):
+        kind = "euler" if method == "euler" else "rk"
+        for scheme in ("parity", "consistent"):
+            explicit_path(method, shape, n_steps, f"{kind}{dim}-{scheme}",
+                          wrapper, params=expl_params[scheme],
+                          grid=stretched_grid(shape),
+                          counter=f"{scheme}_launches",
+                          name=f"{wrapper.__name__}[{scheme}]", phase=37)
+    torch.cuda.empty_cache()
+
+    # the stretched Poiseuille channel (the reference's harness,
+    # tests/validation/test_poiseuille.py:110-165) on the card: the
+    # default step (parity, CG: the whole-solve kernel), float32
+    pnx, pny, psteps = POISEUILLE
+    nu_p = 1.0 * 1.0 / 100.0     # U_MAX·HEIGHT / Re, Re = 100
+
+    def analytic_u(y):
+        return 4.0 * (y / 1.0) * (1.0 - y / 1.0)
+
+    poiseuille = {}
+    for beta, bar in POISEUILLE_BARS.items():
+        grid_p = (Grid.stretched(pnx, pny, xmax=4.0, ymax=1.0, beta=beta)
+                  if beta else Grid.uniform(pnx, pny, xmax=4.0, ymax=1.0))
+        dt_p = min(5e-4, 0.25 * float(np.min(grid_p.dy)) ** 2 / nu_p)
+        params_p = NSParams(dt=dt_p, mu=nu_p, max_iter=1,
+                            source_amplitude_u=0.0, source_amplitude_v=0.0)
+        step_p = make_projection_step(grid_p, params_p, torch.float32,
+                                      device=dev)
+        inlet, outlet = InletConfig.parabolic(1.0), OutletConfig.zero_gradient()
+        yy = torch.as_tensor(np.asarray(grid_p.y), dtype=torch.float32,
+                             device=dev)
+        fp_ = FlowField.quiescent(pnx, pny, dtype=torch.float32, device=dev)
+        fp_ = fp_.replace(u=analytic_u(yy)[None, :, None].expand(
+            1, pny, pnx).contiguous())
+        vmem_small.cg_solve.launches = 0
+        worst = torch.zeros((), dtype=torch.int32, device=dev)
+        sync()
+        t0 = time.perf_counter()
+        for i in range(psteps):
+            u_, v_ = apply_noslip(fp_.u, fp_.v)
+            u_, v_ = apply_inlet(u_, v_, inlet)
+            u_, v_ = apply_outlet_velocity(u_, v_, outlet)
+            fp_, rp = step_p(fp_.replace(u=u_, v=v_), dt_p, i)
+            worst = torch.maximum(worst, rp.status.abs())
+        sync()
+        wall = time.perf_counter() - t0
+        u_num = fp_.u[0, 1:-1, -2].double().cpu().numpy()
+        u_ana = analytic_u(np.asarray(grid_p.y))[1:-1]
+        l2 = float(np.sqrt(np.mean((u_num - u_ana) ** 2)))
+        n_cg = vmem_small.cg_solve.launches
+        poiseuille[beta] = {"l2": l2, "ms_per_step": wall * 1e3 / psteps,
+                            "cg_solve_launches": n_cg}
+        print(f"phase 37 Poiseuille {pnx}x{pny} beta={beta}: outlet L2 "
+              f"{l2:.5f} (bar {bar}; reference float64 record: 0.011 / "
+              f"0.126 / 0.188), worst status {int(worst)}, "
+              f"{wall * 1e3 / psteps:.3f} ms a step host wall, cg_solve "
+              f"launches {n_cg}", flush=True)
+        if int(worst) != 0 or not l2 < bar:
+            fail(f"phase 37 Poiseuille beta={beta}: status or L2 bar")
+        if n_cg != psteps:
+            fail("phase 37 Poiseuille: not the whole-solve CG once a step")
+        if float(fp_.u[0, 0].abs().max()) != 0.0 or float(
+                fp_.u[0, -1].abs().max()) != 0.0:
+            fail("phase 37 Poiseuille: the walls are not no-slip")
+    if not (poiseuille[0.0]["l2"] < poiseuille[1.5]["l2"]
+            < poiseuille[2.0]["l2"]):
+        fail("phase 37 Poiseuille: uniform not below stretched")
+
+    # Simulation.from_grid on a stretched grid with the consistent scheme
+    # (the reference's documented use, cfd_tpu/api/simulation.py:70-80)
+    facade_s = {}
+    for solver_type in ("projection", "explicit_euler"):
+        sim = Simulation.from_grid(
+            Grid.stretched(128, 64, beta=STRETCH_BETA, stretch_axes="xy"),
+            solver_type, NSParams(dt=0.001, cfl=0.2, mu=0.01, max_iter=1,
+                                  nonuniform_scheme="consistent"),
+            device=dev)
+        statuses = [int(sim.step()) for _ in range(20)]
+        facade_s[solver_type] = statuses[-1]
+        print(f"phase 37 Simulation.from_grid(stretched 128x64, "
+              f"'{solver_type}', consistent) 20 steps: statuses "
+              f"{sorted(set(statuses))}, finite "
+              f"{bool(sim.field.is_finite())}", flush=True)
+        if max(map(abs, statuses)) != 0 or not bool(sim.field.is_finite()):
+            fail(f"phase 37 facade {solver_type}: a nonzero status")
+    print(f"phase 37 took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
     kernels = []
     for (path, name), rec in records.items():
         launches = launch_counts.get(path, {}).get(name)
@@ -3460,6 +4158,12 @@ def main() -> int:
                       "fft_direct_512": fft_rec, "sor_33": sor_rec,
                       "bc_refresh_ms": bc_ms, "buoyant_step_ms_512": ms_b,
                       "energy_post_step_ms_512": ms_post, "dvd_128": dvd,
+                      "consistent_step_ms_512": ms_c,
+                      "consistent_step_ms_512_high": ms_ch,
+                      "consistent_residual_512": res_c,
+                      "consistent_krylov_128": krylov_rec,
+                      "consistent_step_ms_2d_2048": ms_c2,
+                      "poiseuille_stretched": poiseuille,
                       "launch_counts": launch_counts,
                       "card": card}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -75,10 +75,21 @@ def test_energy_step_unsupported_inputs():
     x[1] += 0.3 * (x[2] - x[1])
     import dataclasses
     stretched = dataclasses.replace(tg, x=x, dx=np.diff(x))
-    for scheme in ("parity", "consistent"):
-        with pytest.raises(CFDError) as err:
-            te.make_energy_step(stretched, 0.02, scheme=scheme)
-        assert err.value.status == Status.ERROR_UNSUPPORTED
+    # the parity scheme on a stretched grid raises, as the reference's
+    with pytest.raises(CFDError) as err:
+        te.make_energy_step(stretched, 0.02, scheme="parity")
+    assert err.value.status == Status.ERROR_UNSUPPORTED
+    # the consistent scheme builds its stretched-grid step, which matches
+    # the reference's (`energy.py:106-139`) within 1e-12
+    jg, _ = _grids(SHAPES["3d"])
+    jstretched = dataclasses.replace(jg, x=x, dx=np.diff(x))
+    arrays = _fields(SHAPES["3d"], 4)
+    got = te.make_energy_step(stretched, 0.02, scheme="consistent")(
+        *(torch.tensor(a) for a in arrays), 1e-3)
+    ref = je.make_energy_step(jstretched, 0.02, scheme="consistent")(
+        *(jnp.asarray(a) for a in arrays), 1e-3, 0.0)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=0,
+                               atol=1e-12 * np.abs(np.asarray(ref)).max())
 
 
 @pytest.mark.parametrize("gravity", [(0.0, -9.81, 0.0), (0.3, 0.0, -2.0)])

@@ -116,8 +116,6 @@ UNSUPPORTED = {
     # one TF32 pass: the reference routes it to its emit-b̃ kernels
     "2d_precision_default": dict(grid=Grid.uniform(128, 16),
                                  spectral_precision="default", **SPECTRAL),
-    "stretched": dict(grid=_stretched_grid()),
-    "consistent": dict(params=NSParams(nonuniform_scheme="consistent")),
     "source_func": dict(params=NSParams(
         source_func=lambda X, Y, Z, t: (0.0, 0.0, 0.0))),
     "differentiable": dict(differentiable=True),
@@ -153,8 +151,6 @@ def test_unsupported_configurations_raise(case):
 
 
 EXPLICIT_UNSUPPORTED = {
-    "stretched": dict(grid=_stretched_grid()),
-    "consistent": dict(params=NSParams(nonuniform_scheme="consistent")),
     "source_func": dict(params=NSParams(
         source_func=lambda X, Y, Z, t: (0.0, 0.0, 0.0))),
     "differentiable": dict(differentiable=True),
@@ -164,8 +160,6 @@ EXPLICIT_UNSUPPORTED = {
     "2d_heat_source_func": dict(grid=Grid.uniform(128, 16),
                                 params=NSParams(alpha=1e-3,
                                                 heat_source_func=_heat)),
-    "energy_consistent": dict(params=NSParams(
-        alpha=1e-3, nonuniform_scheme="consistent")),
 }
 
 
@@ -184,6 +178,105 @@ def test_explicit_unsupported_configurations_raise(builder, case):
     with pytest.raises(CFDError) as err:
         builder(grid, params, **kw)
     assert err.value.status == Status.ERROR_UNSUPPORTED
+
+
+# Configurations the stretched-grid slice made supported (they raised
+# before it): each now builds and matches the reference's step, float64,
+# one step from the same fields — the projection step's CG solve run to
+# 1e-12 in both packages.
+def _j_stretched_grid():
+    g = JGrid.uniform(128, 16, 8, zmin=0.0, zmax=1.0)
+    x = g.x.copy()
+    x[1] += 0.3 * (x[2] - x[1])
+    return dataclasses.replace(g, x=x, dx=np.diff(x))
+
+
+NOW_SUPPORTED = {
+    # sources off: on a stretched grid the reference's jnp step builds
+    # them from the true coordinates and its kernels (and the port) from
+    # index space (test_torch_parity_stretched.py holds both)
+    "stretched": dict(grid=True, params=dict(source_amplitude_u=0.0,
+                                             source_amplitude_v=0.0)),
+    "consistent": dict(params=dict(nonuniform_scheme="consistent")),
+}
+EXPLICIT_NOW_SUPPORTED = {
+    # sources off: on a stretched grid the reference's jnp step builds
+    # them from the true coordinates and its kernels (and the port) from
+    # index space (test_torch_parity_stretched.py holds both)
+    "stretched": dict(grid=True, params=dict(source_amplitude_u=0.0,
+                                             source_amplitude_v=0.0)),
+    "consistent": dict(params=dict(nonuniform_scheme="consistent")),
+    "energy_consistent": dict(params=dict(alpha=1e-3,
+                                          nonuniform_scheme="consistent")),
+}
+
+
+def _step_both(kind, case, builder=None):
+    """One float64 step of the port's and the reference's step for a
+    case of NOW_SUPPORTED (kind "projection") or EXPLICIT_NOW_SUPPORTED
+    (an explicit builder), from the same fields."""
+    import jax
+    from cfd_tpu.solvers.poisson.base import PoissonParams as JPoisson
+    from cfd_tpu_torch.solvers.poisson.base import PoissonParams
+
+    table = NOW_SUPPORTED if kind == "projection" else \
+        EXPLICIT_NOW_SUPPORTED
+    kw = table[case]
+    jg = _j_stretched_grid() if kw.get("grid") else JGrid.uniform(
+        128, 16, 8, zmin=0.0, zmax=1.0)
+    tg = Grid(*(getattr(jg, f.name) for f in dataclasses.fields(jg)))
+    jparams = JParams(**kw.get("params", {}))
+    tparams = NSParams.from_fields(jparams)
+    if kind == "projection":
+        from cfd_tpu.solvers.ns.projection import make_projection_step as jm
+        tight = dict(tolerance=1e-12, max_iterations=3000)
+        jstep = jm(jg, jparams, jnp.float64, use_pallas=False,
+                   poisson_params=JPoisson(**tight))
+        tstep = make_projection_step(tg, tparams, dtype=torch.float64,
+                                     device="cpu",
+                                     poisson_params=PoissonParams(**tight))
+    else:
+        from cfd_tpu.solvers.ns import euler as je
+        from cfd_tpu.solvers.ns import rk as jr
+        jm = {"euler": je.make_euler_step, "rk2": jr.make_rk2_step,
+              "rk4": jr.make_rk4_step}[builder]
+        jstep = jm(jg, jparams, jnp.float64, use_pallas=False)
+        tstep = {"euler": make_euler_step, "rk2": make_rk2_step,
+                 "rk4": make_rk4_step}[builder](tg, tparams, torch.float64,
+                                                "cpu")
+    rng = np.random.default_rng(3)
+    arrays = {n: rng.normal(0.0, 0.1, jg.shape) for n in "uvw"}
+    arrays.update(p=1.0 + rng.normal(0.0, 0.1, jg.shape),
+                  rho=np.ones(jg.shape),
+                  T=300.0 + rng.normal(0.0, 1.0, jg.shape))
+    jf, jres = jax.jit(jstep)(JField(**{n: jnp.asarray(a) for n, a in
+                                        arrays.items()}), 1e-3, 0)
+    tf, tres = tstep(field_from_numpy(arrays, "cpu", torch.float64), 1e-3,
+                     0)
+    assert int(jres.status) == int(tres.status) == 0
+    for n in ("u", "v", "w", "p", "T"):
+        ref = np.asarray(getattr(jf, n))
+        np.testing.assert_allclose(getattr(tf, n).numpy(), ref, rtol=0,
+                                   atol=1e-9 * max(1.0, np.abs(ref).max()),
+                                   err_msg=n)
+
+
+@pytest.mark.parametrize("case", sorted(NOW_SUPPORTED))
+def test_now_supported_configurations_match_reference(case):
+    """The parity scheme on a stretched grid (the dx0 spacings) and the
+    consistent scheme on a uniform grid (the parity step) build and
+    match the reference's step."""
+    _step_both("projection", case)
+
+
+@pytest.mark.parametrize("case", sorted(EXPLICIT_NOW_SUPPORTED))
+@pytest.mark.parametrize("builder", ["euler", "rk2", "rk4"])
+def test_explicit_now_supported_configurations_match_reference(builder,
+                                                                case):
+    """A stretched grid (parity weights), and the consistent scheme on a
+    uniform grid, with and without the energy equation, build and match
+    the reference's step."""
+    _step_both("explicit", case, builder)
 
 
 INVALID_THERMAL = {

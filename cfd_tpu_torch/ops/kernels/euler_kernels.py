@@ -42,7 +42,8 @@ from ...solvers.energy import apply_thermal_bcs, buoyancy_coefficients
 from ...solvers.ns.common import clamp
 from ...solvers.ns.params import (MAX_DERIVATIVE_LIMIT, MAX_DIVERGENCE_LIMIT,
                                   MAX_SECOND_DERIVATIVE_LIMIT,
-                                  MAX_VELOCITY_LIMIT, UPDATE_LIMIT)
+                                  MAX_VELOCITY_LIMIT, UPDATE_LIMIT,
+                                  param_value)
 from ..stencils import (d2dz2, interior_mask, laplacian_chain, sx_m, sx_p,
                         sy_m, sy_p, sz_m, sz_p, weighted)
 from . import native
@@ -64,18 +65,19 @@ class ThermalConsts:
 
     @property
     def energy(self) -> bool:
-        return self.alpha > 0.0
+        return torch.is_tensor(self.alpha) or self.alpha > 0.0
 
     @classmethod
     def from_params(cls, params, dtype) -> "ThermalConsts":
         """From an NSParams: α when the energy equation is on, the
-        buoyancy coefficients rounded to ``dtype`` when β ≠ 0."""
+        buoyancy coefficients rounded to ``dtype`` when β ≠ 0 (a tensor α
+        or β stays a tensor for the plain versions, `params.param_value`)."""
         buoy = None
         if params.buoyancy_enabled:
             buoy = buoyancy_coefficients(params.beta, params.gravity,
                                          params.T_ref, dtype)
-        return cls(float(params.alpha) if params.energy_enabled else 0.0,
-                   buoy, params.thermal_bc)
+        return cls(param_value(params.alpha) if params.energy_enabled
+                   else 0.0, buoy, params.thermal_bc)
 
     def kernel_args(self):
         """The C entry points' two host arrays (explicit_common.cuh:
@@ -85,9 +87,9 @@ class ThermalConsts:
         coefs, tref = self.buoyancy or ((0.0, 0.0, 0.0), 0.0)
         f = self.faces
         v = f.dirichlet_values
-        floats = (ctypes.c_float * 11)(
+        floats = (ctypes.c_float * 11)(*map(float, (
             self.alpha, *coefs, tref, v.left, v.right, v.bottom, v.top,
-            v.back, v.front)
+            v.back, v.front)))
         ints = (ctypes.c_int * 8)(
             int(self.energy), int(self.buoyancy is not None),
             *(int(b) for b in (f.left, f.right, f.bottom, f.top, f.back,
@@ -196,8 +198,8 @@ class ExplicitConsts:
 
     def kernel_args(self):
         """The trailing scalar arguments of the C entry points."""
-        return (self.nz, self.ny, self.nx, self.mu, self.pressure_coupling,
-                *self.derivs())
+        return (self.nz, self.ny, self.nx, float(self.mu),
+                float(self.pressure_coupling), *self.derivs())
 
 
 def check_inputs(c: ExplicitConsts, fields, sy, sx, scal):
@@ -223,10 +225,11 @@ def maxima_buffers(c: ExplicitConsts, like: torch.Tensor):
             torch.empty(4, dtype=like.dtype, device=like.device))
 
 
-def viscosity(mu: float, rho: torch.Tensor) -> torch.Tensor:
+def viscosity(mu, rho: torch.Tensor) -> torch.Tensor:
     """ν = min(μ / max(ρ, 1e-10), 1), a true division (``scalar / tensor``
-    would multiply by a reciprocal)."""
-    mu_t = torch.full((), mu, dtype=rho.dtype, device=rho.device)
+    would multiply by a reciprocal); a tensor μ keeps its gradient."""
+    mu_t = (mu.to(rho.dtype) if torch.is_tensor(mu) else
+            torch.full((), mu, dtype=rho.dtype, device=rho.device))
     return torch.clamp_max(mu_t / torch.clamp_min(rho, 1e-10), 1.0)
 
 

@@ -57,6 +57,9 @@ SIGNATURES = {
     # gemm_3xtf32.cu (the DST products at spectral_precision="high")
     "cfd_sgemm_3xtf32_batched": [_I] * 3 + [_P, _L, _L, _P, _L, _L, _P, _L,
                                             _L] + [_I, _P],
+    # ... its one-pass instantiation (spectral_precision="default")
+    "cfd_sgemm_tf32_batched": [_I] * 3 + [_P, _L, _L, _P, _L, _L, _P, _L,
+                                          _L] + [_I, _P],
     # projection2d_kernels.cu (2D step)
     "cfd_pred_star_2d": [_P] * 8 + [_I] * 2 + [_F] * 9 + [_I] + [_F] * 4
     + [_I, _P],

@@ -30,7 +30,9 @@ make_dst2d_fused_pieces`) runs `tdma.tdma_y_2d` (the 3D z-line Thomas
 kernels on one-row planes) and the rescue products.  ``precision`` sets
 the x-DST pair's: ``"highest"`` (the SGEMM) or ``"high"`` (the 3xTF32
 tensor-core GEMM), the reference's ``dst_precision``; the Thomas sweeps
-stay fp32.
+stay fp32.  ``spectral_precision="default"`` runs the pair without the
+x-DST (the physical b̃ and p, around a transform pipeline at one TF32
+pass).
 
 On a stretched grid the consistent scheme's 2D step (jnp in the
 reference, `projection.py:292-293`) runs the same wrappers on consistent
@@ -105,13 +107,13 @@ def predictor_star_2d(u, v, w, scal, c: StencilConsts, T=None):
     fields = (*map(native.ptr, (u, v, w, us, vs, ws, scal)), t_ptr)
     if c.consistent:
         native.launch("cfd_pred_star_2d_cons", u.device, *fields,
-                      *map(native.ptr, c.weights), c.ny, c.nx, c.nu,
+                      *map(native.ptr, c.weights), c.ny, c.nx, float(c.nu),
                       int(c.with_sources), *c.buoyancy_args())
     else:
         native.launch("cfd_pred_star_2d", u.device, *fields, c.ny, c.nx,
-                      c.nu, c.inv_2dx, c.inv_2dy, c.inv_dx2, c.inv_dy2,
-                      c.xmin, c.ymin, c.dx, c.dy, int(c.with_sources),
-                      *c.buoyancy_args())
+                      float(c.nu), c.inv_2dx, c.inv_2dy, c.inv_dx2,
+                      c.inv_dy2, c.xmin, c.ymin, c.dx, c.dy,
+                      int(c.with_sources), *c.buoyancy_args())
     native.count_launch(predictor_star_2d, c.scheme)
     return us, vs, ws
 
@@ -241,11 +243,15 @@ class Projection2DKernels:
     """The two fused kernels for one (uniform 2D grid, dtype, device).
 
     ``emit="btilde"`` (the spectral step): ``dst_mats`` = (FxT, GxT) from
-    `solvers.poisson.spectral.make_dst2d_fused_pieces`.  ``params`` (an
-    NSParams) brings Boussinesq buoyancy when its β ≠ 0, the coefficients
-    rounded to ``dtype``.  ``emit="rhs"``
-    (the iterative solvers): pred_bt emits the Poisson right-hand side and
-    ``corr`` takes a physical p.  ``stretch_consistent`` = (dx, dy, x, y)
+    `solvers.poisson.spectral.make_dst2d_fused_pieces`; without them the
+    non-DST emit-b̃ form (``bt_only`` with ``bt_dst`` False, the
+    reference's ``spectral_precision=DEFAULT`` step, `projection.py:
+    353-369`): :meth:`poisson_input` returns the physical b̃ and
+    :meth:`corrector` takes the physical p, as with ``emit="rhs"``.
+    ``params`` (an NSParams) brings Boussinesq buoyancy when its β ≠ 0,
+    the coefficients rounded to ``dtype``.  ``emit="rhs"`` (the iterative
+    solvers): pred_bt emits the Poisson right-hand side and ``corr`` takes
+    a physical p.  ``stretch_consistent`` = (dx, dy, x, y)
     selects the consistent scheme (the ``<true>`` instantiations on the
     weight rows, built on ``device``), ``face_coeffs`` its b̃ face
     weights.  The default runs the wrappers (kernels
@@ -274,7 +280,8 @@ class Projection2DKernels:
         self.consts = stencil_consts(1, ny, nx, dx, dy, 0.0, xmin, ymin, nu,
                                      with_sources, params, dtype, weights,
                                      face_coeffs)
-        if emit == "btilde":
+        self.dst = emit == "btilde" and dst_mats is not None
+        if self.dst:
             self.fxt, self.gxt = dst_mats
         if plain:
             self._star, self._bt = (predictor_star_plain,
@@ -294,12 +301,15 @@ class Projection2DKernels:
                           T)
 
     def poisson_input(self, us, vs, p, rho_over_dt):
-        """``bt_only``: b̃·FxT (the x-transformed b̃), or the rhs
-        (ρ/dt)∇·u* with ``emit="rhs"``, from the (refreshed) u*, v*."""
+        """``bt_only``: b̃·FxT (the x-transformed b̃), the physical b̃
+        without ``dst_mats``, or the rhs (ρ/dt)∇·u* with ``emit="rhs"``,
+        from the (refreshed) u*, v*."""
         c = self.consts
         if self.emit == "rhs":
             return self._rhs(us, vs, rho_over_dt, c)
         bt = self._bt(us, vs, p, rho_over_dt, c)
+        if not self.dst:
+            return bt
         return self._dot(bt, self.fxt, self.precision)
 
     def predictor_and_poisson_input(self, u, v, w, p, dt, su, sv,
@@ -312,9 +322,10 @@ class Projection2DKernels:
     def corrector(self, us, vs, xhat, dt_over_rho):
         """corr: (u, v, p) from the y-line solve's x̂ (transform space);
         p = x̂·GxT is the physical pressure with its mirror x-shells.  With
-        ``emit="rhs"`` the non-DST ``corr`` (`projection2d.py:252-270`):
-        ``xhat`` is the physical p, and (u, v) come back."""
-        if self.emit == "rhs":
+        ``emit="rhs"`` or without ``dst_mats`` the non-DST ``corr``
+        (`projection2d.py:252-270`): ``xhat`` is the physical p, and
+        (u, v) come back."""
+        if not self.dst:
             return self._corr(us, vs, xhat, dt_over_rho, self.consts)
         p = self._dot(xhat, self.gxt, self.precision)
         u, v = self._corr(us, vs, p, dt_over_rho, self.consts)

@@ -52,6 +52,13 @@ tensor-core GEMM of ``csrc/gemm_3xtf32.cu``).  ``tdma_bwd`` is
 only where the reverse-march corrector runs (nz ≥ 4) and is demoted to
 "stored" at nz = 3.  The Thomas sweeps are fp32 either way.
 
+The ``spectral_precision="default"`` step runs the non-DST emit-b̃ form
+(A5 ``btilde_k`` with ``bt_dst`` False, A1's emit-b̃ output,
+`projection_kernels.py:466-514`, `:712`): ``emit="btilde"`` without
+``dst_mats``, :func:`poisson_input` alone (the physical b̃ for a
+transform pipeline) and :meth:`ProjectionKernels.corrector_diag` on the
+pipeline's p.
+
 The CG step (``emit="rhs"``, nz ≥ 3) runs A1's rhs form,
 :func:`predictor_star` → :func:`poisson_rhs` ((ρ/dt)∇·u*, the same kernel
 as b̃ with its emit flag set), and A5's non-DST ``corr_all``
@@ -94,6 +101,7 @@ import torch
 from ...solvers.energy import buoyancy_coefficients
 from ...solvers.ns.common import clamp
 from ...solvers.ns.params import PROJ_MAX_VELOCITY as CLAMP  # = kClamp
+from ...solvers.ns.params import param_value
 from ..stencils import (along_x, along_y, ddx, ddy, ddz, interior, laplacian,
                         laplacian_interior, set_interior)
 from . import native, rolling
@@ -178,7 +186,8 @@ class StencilConsts:
             return 0.0, 0.0, 0.0, 0.0, 0
         coefs, tref = self.buoyancy
         mask = sum(1 << q for q, b in enumerate(coefs) if b is not None)
-        return (*(0.0 if b is None else b for b in coefs), tref, mask)
+        return (*(0.0 if b is None else float(b) for b in coefs),
+                float(tref), mask)
 
 
 def stencil_consts(nz, ny, nx, dx, dy, dz, xmin, ymin, nu, with_sources,
@@ -196,8 +205,9 @@ def stencil_consts(nz, ny, nx, dx, dy, dz, xmin, ymin, nu, with_sources,
                       for b, g in zip(coefs, params.gravity)), tref)
     if face is not None:
         face = tuple(float(f) for f in face)
-    return StencilConsts(nz, ny, nx, dx, dy, dz, xmin, ymin, float(nu),
-                         bool(with_sources), buoy, weights, face)
+    return StencilConsts(nz, ny, nx, dx, dy, dz, xmin, ymin,
+                         param_value(nu), bool(with_sources), buoy, weights,
+                         face)
 
 
 def consistent_weights(dx, dy, x, y, dtype, device):
@@ -300,12 +310,13 @@ def predictor_star(u, v, w, scal, c: StencilConsts, T=None):
     fields = (*map(native.ptr, (u, v, w, us, vs, ws, scal)), t_ptr)
     if c.consistent:
         native.launch("cfd_pred_star_cons", u.device, *fields,
-                      *map(native.ptr, c.weights), c.nz, c.ny, c.nx, c.nu,
+                      *map(native.ptr, c.weights), c.nz, c.ny, c.nx,
+                      float(c.nu),
                       c.inv_2dz, c.inv_dz2, int(c.with_sources),
                       *c.buoyancy_args())
     else:
         native.launch("cfd_pred_star", u.device, *fields, c.nz, c.ny, c.nx,
-                      c.nu, *c.derivs(), c.xmin, c.ymin, c.dx, c.dy,
+                      float(c.nu), *c.derivs(), c.xmin, c.ymin, c.dx, c.dy,
                       int(c.with_sources), *c.buoyancy_args())
     native.count_launch(predictor_star, c.scheme)
     return us, vs, ws
@@ -474,7 +485,12 @@ class ProjectionKernels:
     with the coefficients rounded to ``dtype``.
     ``emit="btilde"`` (the spectral step): ``dst_mats`` = (FxT, Fy, GxT,
     Gy) and ``tdma_fwd`` = (mu plane, w) from
-    `solvers.poisson.spectral.make_dst_fused_pieces`; nz ≥ 3.
+    `solvers.poisson.spectral.make_dst_fused_pieces`; nz ≥ 3.  Without
+    ``dst_mats`` it is the non-DST emit-b̃ form (A5 ``btilde_k`` with
+    ``bt_dst`` False, `projection_kernels.py:466-514`, and A1's emit-b̃
+    output, `:712`; the reference's ``spectral_precision=DEFAULT`` step):
+    :meth:`btilde` returns the physical b̃ for a transform pipeline, and
+    :meth:`corrector_diag` takes the physical p.
     ``dst_precision`` is ``"highest"`` or ``"high"``; ``tdma_bwd``
     ``"stored"`` or ``"analytic"`` (its coefficient planes built here
     from the float32 mu plane in float64, as the reference builds
@@ -510,9 +526,12 @@ class ProjectionKernels:
             raise ValueError(f"unknown tdma_bwd {tdma_bwd!r}")
         self.precision = dst_precision
         self.bwd_analytic = False
-        if emit == "btilde":
-            if nz < 3:
-                raise ValueError("the spectral step needs nz >= 3")
+        if emit not in ("btilde", "rhs"):
+            raise ValueError(f"emit must be 'btilde' or 'rhs', got {emit!r}")
+        self.dst = emit == "btilde" and dst_mats is not None
+        if emit == "btilde" and nz < 3:
+            raise ValueError("the spectral step needs nz >= 3")
+        if self.dst:
             self.fxt, self.fy, self.gxt, self.gy = dst_mats
             self.mu, self.w = tdma_fwd
             # the reference's reverse-march corrector, which alone
@@ -525,8 +544,6 @@ class ProjectionKernels:
                 self.coef = torch.as_tensor(
                     _bwd_coeff_planes(mu64, self.w, np_dt),
                     device=self.mu.device)
-        elif emit != "rhs":
-            raise ValueError(f"emit must be 'btilde' or 'rhs', got {emit!r}")
         weights = None
         self.consistent = stretch_consistent is not None
         if self.consistent:
@@ -565,8 +582,11 @@ class ProjectionKernels:
         """A5 ``btilde_k``, the DST + Thomas form (`:466-514`): b̃ =
         face_coeff·p − (ρ/dt)∇·u*, its forward xy DST and the Thomas
         forward sweep along z — (d′, t), t None with the analytic back
-        substitution."""
+        substitution.  Without ``dst_mats``, the non-DST form: the
+        physical b̃ alone (zero shell)."""
         bt = self._bt(us, vs, ws, p, rho_over_dt, self.consts)
+        if not self.dst:
+            return bt
         bhat = self._dot(bt, self.fxt, self.fy, self.precision)
         if self.bwd_analytic:
             return self._fwd_d(bhat, self.mu, self.w), None
@@ -580,11 +600,14 @@ class ProjectionKernels:
     def predictor_poisson_input(self, u, v, w, p, dt, su, sv, rho_over_dt,
                                 T=None):
         """A1: ``btilde(predictor(...))`` — (u*, v*, w*, d′, t), t None
-        with the analytic back substitution; or, with ``emit="rhs"``,
-        ``rhs(predictor(...))`` — (u*, v*, w*, rhs)."""
+        with the analytic back substitution, or (u*, v*, w*, b̃) in the
+        non-DST form; or, with ``emit="rhs"``, ``rhs(predictor(...))`` —
+        (u*, v*, w*, rhs)."""
         us, vs, ws = self.predictor(u, v, w, dt, su, sv, T)
         if self.emit == "rhs":
             return us, vs, ws, self.rhs(us, vs, ws, rho_over_dt)
+        if not self.dst:
+            return us, vs, ws, self.btilde(us, vs, ws, p, rho_over_dt)
         return (us, vs, ws) + self.btilde(us, vs, ws, p, rho_over_dt)
 
     def corrector_diag(self, us, vs, ws, p, dt_over_rho):

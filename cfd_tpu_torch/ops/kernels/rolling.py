@@ -14,11 +14,13 @@ takes a ``precision``, the counterpart of `hp_dot_general`'s
 * ``"highest"`` — IEEE fp32 (``Precision.HIGHEST``): the hand-written
   SGEMM of ``csrc/projection_kernels.cu`` on a CUDA tensor;
 * ``"high"`` — 3xTF32 (``Precision.HIGH``, bf16_3x on the TPU): the
-  hand-written tensor-core GEMM of ``csrc/gemm_3xtf32.cu``.
+  hand-written tensor-core GEMM of ``csrc/gemm_3xtf32.cu``;
+* ``"default"`` — one TF32 pass (``Precision.DEFAULT``, one bf16 pass on
+  the TPU): the same kernel's one-pass instantiation.
 
 On a CPU tensor each runs its plain version.  Each wrapper counts the
-SGEMM launches in ``launches`` and the 3xTF32 launches in
-``high_launches``.
+SGEMM launches in ``launches``, the 3xTF32 launches in ``high_launches``
+and the one-pass TF32 launches in ``default_launches``.
 
 Neither ``plane_masks`` nor the wrapped ``shift_x``/``shift_y`` semantics
 are needed: the plain versions read neighbours by interior slices
@@ -43,6 +45,10 @@ and the 2D `block_dot`, `projection2d.py:97-106`):
   fp32-class accuracy, about 2⁻²² relative, at three tensor-core
   passes.  A 128×128 CTA tile, 2×4 warps of 64×32, two shared-memory
   stages.
+* ``gemm_3xtf32_kernel<1>`` (``"default"``): big·big alone, one
+  tensor-core pass — 2·n⁴ operations, which at 512³ take less time at
+  the TF32 rate than moving the planes: bound by device memory.  Each
+  k-step's product still goes into fresh registers and one IEEE add.
 """
 
 from __future__ import annotations
@@ -54,7 +60,11 @@ import torch
 from . import native
 
 #: the spectral products' precisions, and the entry point of each
-_GEMM = {"highest": "cfd_sgemm_batched", "high": "cfd_sgemm_3xtf32_batched"}
+_GEMM = {"highest": "cfd_sgemm_batched", "high": "cfd_sgemm_3xtf32_batched",
+         "default": "cfd_sgemm_tf32_batched"}
+# the wrappers' counter of each precision's launches
+_COUNTER = {"highest": "launches", "high": "high_launches",
+            "default": "default_launches"}
 PRECISIONS = tuple(_GEMM)
 
 
@@ -76,12 +86,34 @@ def _check_precision(precision: str) -> None:
                          f"{precision!r}")
 
 
+class _RoundTF32(torch.autograd.Function):
+    """The TF32 rounding, its derivative taken as the identity (reverse
+    and forward mode): a differentiable plain step at "default" or
+    "high" differentiates its products as if unrounded."""
+
+    @staticmethod
+    def forward(x):
+        bits = x.contiguous().view(torch.int32)
+        return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad
+
+    @staticmethod
+    def jvp(ctx, tangent):
+        return tangent
+
+
 def tf32_rna(x: torch.Tensor) -> torch.Tensor:
     """float32 ``x`` rounded to TF32 (10 mantissa bits), to nearest with
     ties away from zero — ``cvt.rna.tf32.f32``: half a TF32 ulp added to
     the magnitude bits, the 13 low bits cleared."""
-    bits = x.contiguous().view(torch.int32)
-    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+    return _RoundTF32.apply(x)
 
 
 def matmul_plain(a: torch.Tensor, b: torch.Tensor,
@@ -89,11 +121,16 @@ def matmul_plain(a: torch.Tensor, b: torch.Tensor,
     """Plain version of one product at ``precision``: IEEE fp32 for
     ``"highest"``; for ``"high"`` the 3xTF32 split of the kernel, its
     three products in IEEE fp32 summed as (small·big + big·small) +
-    big·big.  The split is fp32's: other dtypes take the plain product."""
+    big·big; for ``"default"`` the one TF32 pass, tf32(a)·tf32(b) in
+    IEEE fp32 (a product of two TF32 values is exact in fp32, so only the
+    order of the sum differs from the kernel's).  The rounding is fp32's:
+    other dtypes take the plain product."""
     _check_precision(precision)
     with ieee_fp32_matmul():
         if precision == "highest" or a.dtype != torch.float32:
             return torch.matmul(a, b)
+        if precision == "default":
+            return torch.matmul(tf32_rna(a), tf32_rna(b))
         a_big, b_big = tf32_rna(a), tf32_rna(b)
         a_small, b_small = tf32_rna(a - a_big), tf32_rna(b - b_big)
         return ((torch.matmul(a_small, b_big)
@@ -104,10 +141,8 @@ def matmul_plain(a: torch.Tensor, b: torch.Tensor,
 def _gemm(wrapper, precision, device, *args) -> None:
     """Launch the GEMM of ``precision`` and count it on ``wrapper``."""
     native.launch(_GEMM[precision], device, *args)
-    if precision == "high":
-        wrapper.high_launches += 1
-    else:
-        wrapper.launches += 1
+    name = _COUNTER[precision]
+    setattr(wrapper, name, getattr(wrapper, name) + 1)
 
 
 def plane_dot_plain(x: torch.Tensor, right: torch.Tensor,
@@ -210,7 +245,8 @@ WRAPPERS = (plane_dot, right_dot, left_dot)
 
 def reset_launch_counts() -> None:
     for fn in WRAPPERS:
-        fn.launches = fn.high_launches = 0
+        for name in _COUNTER.values():
+            setattr(fn, name, 0)
 
 
 reset_launch_counts()

@@ -61,31 +61,31 @@ def tdma_z_fwd_reference(r: torch.Tensor, mu: torch.Tensor, w: float):
     nz = r.shape[0]
     mu = mu.to(r.dtype)
     b = mu + 2.0 * w
-    d = torch.zeros_like(r)
-    t = torch.zeros_like(r)
-    tc = torch.zeros_like(r[0])
-    dc = torch.zeros_like(r[0])
+    zero = torch.zeros_like(r[0])
+    tc, dc = zero, zero
+    ds, ts = [zero], [zero]
     for k in range(1, nz - 1):
         rec = 1.0 / (b - w * tc)
         tc = w * rec
         dc = (r[k] + w * dc) * rec
-        d[k] = dc
-        t[k] = tc
-    return d, t
+        ds.append(dc)
+        ts.append(tc)
+    # planes gathered and stacked, no write into a preallocated tensor:
+    # autograd and forward-mode AD differentiate through the sweep
+    return torch.stack(ds + [zero]), torch.stack(ts + [zero])
 
 
 def tdma_z_bwd_reference(d: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     """Back substitution of pre-swept (d′, t); returns x with mirror
     z-shells x[0] = x[1], x[nz−1] = x[nz−2]."""
     nz = d.shape[0]
-    x = torch.empty_like(d)
+    xs = [None] * nz
     xc = torch.zeros_like(d[0])
     for k in range(nz - 2, 0, -1):
         xc = d[k] + t[k] * xc
-        x[k] = xc
-    x[0] = x[1]
-    x[nz - 1] = x[nz - 2]
-    return x
+        xs[k] = xc
+    xs[0], xs[nz - 1] = xs[1], xs[nz - 2]
+    return torch.stack(xs)
 
 
 def tdma_z_reference(r: torch.Tensor, mu: torch.Tensor, w: float):
@@ -170,16 +170,15 @@ def tdma_z_bwd_analytic_reference(d: torch.Tensor,
     k = nz−2 down to 1; mirror z-shells."""
     nz = d.shape[0]
     einv, p2 = coef[0].to(d.dtype), coef[1].to(d.dtype)
-    x = torch.empty_like(d)
+    xs = [None] * nz
     xc = torch.zeros_like(d[0])
     for k in range(nz - 2, 0, -1):
         kf = float(k)
         t = einv * torch.expm1(-kf * p2) / torch.expm1(-(kf + 1.0) * p2)
         xc = d[k] + t * xc
-        x[k] = xc
-    x[0] = x[1]
-    x[nz - 1] = x[nz - 2]
-    return x
+        xs[k] = xc
+    xs[0], xs[nz - 1] = xs[1], xs[nz - 2]
+    return torch.stack(xs)
 
 
 def tdma_z_bwd_analytic(d: torch.Tensor, coef: torch.Tensor) -> torch.Tensor:

@@ -139,7 +139,14 @@ def buoyancy_coefficients(beta: float, gravity, T_ref: float, dtype):
     """((−β)·g[c] for c = x, y, z, T_ref), each rounded to ``dtype`` as the
     fused kernels round them (`(-dtype(beta) * dtype(gravity[c]))`,
     `projection_kernels.py:319-321`): the product in float32 for float32
-    fields, in float64 otherwise.  Python floats, exact in ``dtype``."""
+    fields, in float64 otherwise.  Python floats, exact in ``dtype``; a
+    tensor β or T_ref (the differentiable-params pattern) gives 0-d
+    ``dtype`` tensors with the same rounding, through which its gradient
+    flows."""
+    if torch.is_tensor(beta) or torch.is_tensor(T_ref):
+        nb = -torch.as_tensor(beta).to(dtype)
+        return (tuple(nb * float(g) for g in gravity),
+                torch.as_tensor(T_ref).to(dtype))
     np_dt = np.float32 if dtype == torch.float32 else np.float64
     nb = -np_dt(beta)
     return (tuple(float(nb * np_dt(g)) for g in gravity),
@@ -148,8 +155,9 @@ def buoyancy_coefficients(beta: float, gravity, T_ref: float, dtype):
 
 def compute_buoyancy(T, beta: float, T_ref: float, gravity):
     """The Boussinesq momentum sources (−β·(T − T_ref)·g[c]) for the
-    three components, in the reference's order; (0, 0, 0) when β = 0."""
-    if not beta != 0.0:
+    three components, in the reference's order; (0, 0, 0) when β = 0 (a
+    tensor β keeps the term, `NSParams.buoyancy_enabled`)."""
+    if not torch.is_tensor(beta) and not beta != 0.0:
         return 0.0, 0.0, 0.0
     dT = T - T_ref
     return tuple(-beta * dT * g for g in gravity)

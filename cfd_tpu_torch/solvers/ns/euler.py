@@ -22,7 +22,10 @@ euler2d_step` in 2D) with the reference's semantics
 The step is `_make_fused_euler_step` / `_make_fused_euler2d_step` of the
 reference (`euler.py:226-320`) with both wraps inside the kernel.  It
 never reads a device value on the host: the capped dt, the decayed
-source amplitudes and the diagnostics stay 0-d device tensors.
+source amplitudes and the diagnostics stay 0-d device tensors.  The
+plain version is differentiable as it is (tensor μ, α, β included);
+``differentiable=True`` on the card pairs the kernel's value with its
+autograd adjoint (`hybrid.pair_vjp`).
 
 Anything outside this slice raises ``CFDError(ERROR_UNSUPPORTED)``.
 """
@@ -42,11 +45,13 @@ from ...ops.kernels.euler_kernels import (ExplicitConsts, Spacing,
 from ..energy import validate_thermal_bc
 from .common import (iterate_with_divergence_guard, source_basis,
                      step_result, stretch_gate, validate_grid_for_solver)
-from .params import DT_CONSERVATIVE_LIMIT, NSParams, source_amplitudes
+from .hybrid import check_params, pair_vjp
+from .params import (DT_CONSERVATIVE_LIMIT, NSParams, param_value,
+                     source_amplitudes)
 
 
-def check_explicit_slice(name: str, grid: Grid, params: NSParams,
-                         differentiable: bool, dtype, device):
+def check_explicit_slice(name: str, grid: Grid, params: NSParams, dtype,
+                         device):
     """Raise ``CFDError(ERROR_UNSUPPORTED)`` outside the explicit
     integrators' ported slice (each exclusion is a later slice in
     ROADMAP.md) and on the configurations the reference refuses; returns
@@ -64,24 +69,24 @@ def check_explicit_slice(name: str, grid: Grid, params: NSParams,
         unsupported("a heat_source_func")
     if params.source_func is not None:
         unsupported("a custom source_func")
-    if differentiable:
-        unsupported("the differentiable step")
     if device.type == "cuda" and dtype != torch.float32:
         unsupported(f"{dtype} on CUDA (the kernels are float32)")
     return stretch
 
 
 def explicit_setup(name: str, grid: Grid, params: NSParams, dtype, device,
-                   differentiable: bool):
+                   plain: bool):
     """Checks shared by the explicit step builders; returns (dtype,
     device, kernel constants, (sin πy, sin 2πx)).  A stretched x/y grid
     takes the weights of ``params.nonuniform_scheme`` (`ops.kernels.
     stretch`); the consistent scheme on a uniform grid is the parity step
-    (`common.py:89`)."""
+    (`common.py:89`).  A kernel step (on the card, not ``plain``) refuses
+    ``params`` that require grad (`hybrid.check_params`)."""
     device = device_of(device)
     dtype = resolve_dtype(dtype, device)
-    stretch = check_explicit_slice(name, grid, params, differentiable, dtype,
-                                   device)
+    stretch = check_explicit_slice(name, grid, params, dtype, device)
+    if device.type == "cuda" and not plain:
+        check_params(params, f"{name} step")
     validate_grid_for_solver(grid, grid.shape)
     if params.energy_enabled:
         validate_thermal_bc(params.thermal_bc, grid)
@@ -90,8 +95,8 @@ def explicit_setup(name: str, grid: Grid, params: NSParams, dtype, device,
     if stretch is not None:
         spacing = Spacing.of(stretch, params.nonuniform_scheme, dtype, device)
     consts = ExplicitConsts(grid.nz, grid.ny, grid.nx, grid.dx0, grid.dy0,
-                            grid.dz0, float(params.mu),
-                            float(params.pressure_coupling),
+                            grid.dz0, param_value(params.mu),
+                            param_value(params.pressure_coupling),
                             ThermalConsts.from_params(params, dtype),
                             spacing)
     return dtype, device, consts, source_basis(grid, dtype, device)
@@ -122,12 +127,23 @@ def make_euler_step(grid: Grid, params: NSParams, dtype=None, device=None,
 
     On the card (the default) the step launches the fused Euler kernel;
     with ``device="cpu"`` the same wrapper runs its plain version.
-    ``plain=True`` is a reference switch for checks on the card only: it
-    runs the plain version on a CUDA device too, so ``chip_smoke.py`` can
-    hold the kernel step against it and time both.
+    ``plain=True`` runs the plain version on a CUDA device too (so
+    ``chip_smoke.py`` can hold the kernel step against it and time both).
+
+    The plain step is reverse- and forward-mode differentiable as it is,
+    w.r.t. the field, dt and tensor-valued ``params`` fields (μ, α, β).
+    ``differentiable=True`` maps as the reference maps it with
+    ``use_pallas`` (`euler.py:60-66`): on the card (``plain=False``) it
+    builds the hybrid step, the kernel's value and the plain step's
+    adjoint (`hybrid.pair_vjp`; reverse mode, w.r.t. the field and dt);
+    on the CPU or with ``plain=True`` the plain step.
     """
+    if differentiable and not plain and device_of(device).type == "cuda":
+        return pair_vjp(
+            make_euler_step(grid, params, dtype, device),
+            make_euler_step(grid, params, dtype, device, plain=True))
     dtype, device, consts, (sy, sx) = explicit_setup(
-        "explicit Euler", grid, params, dtype, device, differentiable)
+        "explicit Euler", grid, params, dtype, device, plain)
     if plain:
         fused = euler_step_plain
     else:

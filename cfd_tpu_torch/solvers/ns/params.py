@@ -96,11 +96,32 @@ class NSParams:
 
     @property
     def energy_enabled(self) -> bool:
-        return self.alpha > 0.0
+        return _enabled(self.alpha, lambda a: a > 0.0)
 
     @property
     def buoyancy_enabled(self) -> bool:
-        return self.beta != 0.0
+        return _enabled(self.beta, lambda b: b != 0.0)
+
+    def requires_grad(self) -> bool:
+        """Some field is a tensor that requires grad (the
+        differentiable-params pattern: a design gradient w.r.t. μ, α, β)."""
+        return any(torch.is_tensor(getattr(self, f.name))
+                   and getattr(self, f.name).requires_grad
+                   for f in dataclasses.fields(self))
+
+
+def _enabled(value, test) -> bool:
+    """``test(value)``; True for a tensor: a tensor-valued physics
+    parameter keeps its term whatever its value, as the reference's
+    ``static_bool(default=True)`` keeps a traced one (`energy.py:31-45`),
+    so a gradient flows through it."""
+    return True if torch.is_tensor(value) else bool(test(value))
+
+
+def param_value(value):
+    """A physics parameter for the plain versions: a tensor as it is (its
+    gradient flows), anything else as a Python float."""
+    return value if torch.is_tensor(value) else float(value)
 
 
 def source_amplitudes(params: NSParams, t):

@@ -27,8 +27,21 @@ products, stored t) or ``"high"`` (3xTF32 products on the tensor cores
 and, at nz ≥ 4, the analytic-t back substitution: the predictor writes
 no t), the reference's HIGHEST and HIGH (`projection.py:403-432`); the
 2D step takes it for its x-DST pair and its rescue products.
-``"default"`` (one TF32 pass, which the reference routes to its emit-b̃
-kernels) is not ported.
+
+``"default"`` (one TF32 pass on the tensor cores, the reference's
+``lax.Precision.DEFAULT``) takes the reference's emit-b̃ route instead
+(3D `projection.py:403-406`, `:450-472`; 2D `:321-323`, `:353-369`):
+the predictor, the hook, the physical b̃ (A5's ``btilde_k`` without the
+DST, `ProjectionKernels.btilde` on no ``dst_mats``), the transform
+pipeline `spectral.make_fft_btilde_solver(z_mode="auto")` at DEFAULT
+(3D: the xy DST, the Thomas z-stage, the inverse xy DST — nz = 3 too;
+2D: the x DST, the y-line Thomas with its rescue, or the eigen pipeline,
+by the reference's gates), then the corrector with its maxima on the
+physical p (`corrector_diag`) and the face fold; in 2D the corrector on
+p.  The consistent scheme at DEFAULT runs `make_nonuniform_direct` at
+DEFAULT between its rhs and corrector kernels, as the reference's
+DEFAULT falls out of its fused consistent path (`projection.py:
+505-507`).
 
 A 3D CG step (`:600-621`, nz ≥ 3) is the predictor, the rhs
 (ρ/dt)∇·u* (`ProjectionKernels.rhs`, A5's ``divergence``), the CG solve
@@ -102,6 +115,15 @@ With ``bc_refresh`` the consistent step keeps its kernels (the reference
 falls back to its jnp body there, `projection.py:484`).  On a uniform
 grid the consistent scheme is the parity step.
 
+``differentiable=True`` builds, on the card, the hybrid step
+(`hybrid.pair_vjp`: the kernels' value, ``torch.autograd`` of the plain
+differentiable step as the reverse pass — no kernel has a backward
+kernel) and, on the CPU or with ``plain=True``, the plain differentiable
+step: every branch above on the plain versions, an iterative method's
+solve swapped for its adjoint (`poisson.adjoint.make_adjoint_poisson`,
+`projection.py:237-248`, `:272-276`); the spectral chain is
+differentiable as it is.
+
 Anything outside this slice raises ``CFDError(ERROR_UNSUPPORTED)``; each
 exclusion is a later slice in ROADMAP.md.
 """
@@ -116,6 +138,7 @@ from ...core.grid import Grid
 from ...core.status import CFDError, Status
 from ...ops.kernels.projection2d import Projection2DKernels
 from ...ops.kernels.projection_kernels import ProjectionKernels
+from ..poisson.adjoint import make_adjoint_poisson
 from ..poisson.base import Method, PoissonParams, PoissonProblem
 from ..poisson.krylov import (make_bicgstab, make_bicgstab_fused,
                               make_bicgstab_vmem, make_cg, make_cg_fused,
@@ -128,10 +151,12 @@ from ..poisson.nonuniform import (NonuniformPoissonProblem,
                                   make_nonuniform_direct,
                                   make_nonuniform_fused_pieces,
                                   nonuniform_face_coeffs)
-from ..poisson.spectral import make_dst2d_fused_pieces, make_dst_fused_pieces
+from ..poisson.spectral import (make_dst2d_fused_pieces, make_dst_fused_pieces,
+                                make_fft_btilde_solver)
 from ..energy import apply_thermal_bcs, make_energy_step, validate_thermal_bc
 from .common import (field_status_and_diagnostics, step_result,
                      validate_grid_for_solver)
+from .hybrid import check_params, pair_vjp
 from .params import NSParams
 
 
@@ -175,11 +200,12 @@ def is_consistent(grid: Grid, params: NSParams) -> bool:
 
 
 # spectral_precision → the DST products' precision (`ops.kernels.rolling`)
-_PRECISIONS = {None: "highest", "highest": "highest", "high": "high"}
+_PRECISIONS = {None: "highest", "highest": "highest", "high": "high",
+               "default": "default"}
 
 
 def _check_slice(grid: Grid, params: NSParams, poisson_method,
-                 spectral_precision, differentiable, dtype, device):
+                 spectral_precision, dtype, device):
     method = Method(poisson_method)
     if method != Method.FFT_DIRECT and (method, True) not in _ITERATIVE:
         _unsupported(f"poisson_method {method.name}")
@@ -193,12 +219,10 @@ def _check_slice(grid: Grid, params: NSParams, poisson_method,
         _unsupported("a heat_source_func")
     if params.source_func is not None:
         _unsupported("a custom source_func")
-    if differentiable:
-        _unsupported("the differentiable step")
     if method == Method.FFT_DIRECT and spectral_precision not in _PRECISIONS:
         _unsupported(f"spectral_precision={spectral_precision!r} (the "
-                     f"ported ones are 'highest', IEEE fp32, and 'high', "
-                     f"3xTF32)")
+                     f"ported ones are 'highest', IEEE fp32, 'high', "
+                     f"3xTF32, and 'default', one TF32 pass)")
     if device.type == "cuda" and dtype != torch.float32:
         _unsupported(f"{dtype} on CUDA (the kernels are float32)")
 
@@ -235,8 +259,8 @@ def make_projection_step(grid: Grid, params: NSParams, dtype=None,
     grids), with ``poisson_params`` (default ``PoissonParams()``, as
     given — no factory defaults; CG ignores ``Precond.MULTIGRID``, as the
     reference's step does); ``FFT_DIRECT`` is the exact spectral solve.
-    ``spectral_precision`` (None or ``"highest"``, or ``"high"``)
-    applies to the spectral solve only.
+    ``spectral_precision`` (None or ``"highest"``, ``"high"`` or
+    ``"default"``) applies to the spectral solve only.
 
     ``bc_refresh``: an optional ``fn(u*, v*, w*, t_next) -> (u*, v*, w*)``
     run on the predictor's state before the pressure solve, with
@@ -251,15 +275,43 @@ def make_projection_step(grid: Grid, params: NSParams, dtype=None,
     their plain PyTorch versions.  Without a CUDA device the default
     raises (`config.resolve_device`).
 
-    ``plain=True`` is a reference switch for checks on the card only: it
-    runs the plain versions on a CUDA device too, so ``chip_smoke.py`` can
-    hold the kernel step against them and time both.  On the CPU both
-    settings run the same code; callers leave it False.
+    ``plain=True`` runs the plain versions on a CUDA device too, so
+    ``chip_smoke.py`` can hold the kernel step against them and time
+    both.  On the CPU both settings run the same code.
+
+    ``differentiable=True`` maps as the reference maps it with
+    ``use_pallas`` (`projection.py:124-140`): on the card (``plain=False``)
+    the hybrid step — the kernels' value and the plain differentiable
+    step's adjoint (`hybrid.pair_vjp`; reverse mode, w.r.t. the field and
+    dt); on the CPU or with ``plain=True`` the plain differentiable step:
+    the kernels' plain versions, the iterative methods' pressure solve
+    swapped for its adjoint (`poisson.adjoint.make_adjoint_poisson`, one
+    extra solve on the backward pass; the volume-conjugated one on the
+    consistent scheme), FFT_DIRECT's chain as it is (products and Thomas
+    sweeps, differentiable as they are, and the kernels' arithmetic, so
+    the hybrid's value is its own); reverse- and forward-mode
+    differentiable w.r.t. the field, dt and tensor-valued ``params``
+    fields (μ, α, β).  A kernel step refuses ``params`` that require
+    grad.
     """
+    if differentiable and not plain and device_of(device).type == "cuda":
+        # the hybrid step (`projection.py:124-140`): the kernels' value,
+        # the plain differentiable step's adjoint
+        common = dict(dtype=dtype, poisson_method=poisson_method,
+                      poisson_params=poisson_params, device=device,
+                      spectral_precision=spectral_precision,
+                      bc_refresh=bc_refresh)
+        return pair_vjp(
+            make_projection_step(grid, params, **common),
+            make_projection_step(grid, params, differentiable=True,
+                                 plain=True, **common))
     device = device_of(device)
     dtype = resolve_dtype(dtype, device)
-    _check_slice(grid, params, poisson_method, spectral_precision,
-                 differentiable, dtype, device)
+    _check_slice(grid, params, poisson_method, spectral_precision, dtype,
+                 device)
+    if device.type == "cuda" and not plain:
+        check_params(params, "projection step")
+    plain = plain or differentiable
     validate_grid_for_solver(grid, grid.shape)
     if params.energy_enabled:
         validate_thermal_bc(params.thermal_bc, grid)
@@ -327,15 +379,20 @@ def make_projection_step(grid: Grid, params: NSParams, dtype=None,
     precision = _PRECISIONS.get(spectral_precision)
     pparams = poisson_params or PoissonParams()
     solve = None
-    if consistent and method != Method.FFT_DIRECT:
+    if differentiable and method != Method.FFT_DIRECT:
+        # the adjoint solve (`projection.py:237-248`, `:272-276`); the
+        # direct solves below are differentiable as they are
+        solve = make_adjoint_poisson(problem, pparams, method)
+    elif consistent and method != Method.FFT_DIRECT:
         # the plain Krylov loops over the volume-weighted problem, as the
         # reference's jnp solve between its fused kernels
         # (`projection.py:237-248`, `:534-540`): no kernel exists for the
         # variable-coefficient passes
         solve = _CONSISTENT_KRYLOV[method](problem, pparams, dtype, device)
-    elif consistent and grid.nz == 1:
-        # the 2D direct solve through the eigenbasis (the reference's jnp
-        # step, `projection.py:232-236`)
+    elif consistent and (grid.nz == 1 or precision == "default"):
+        # the direct solve through the eigenbasis: the reference's 2D jnp
+        # step (`projection.py:232-236`), and its 3D step at DEFAULT,
+        # which its fused consistent path does not take (`:505-507`)
         solve = make_nonuniform_direct(problem, pparams, dtype, device,
                                        precision, plain=plain)
     elif method != Method.FFT_DIRECT:
@@ -351,6 +408,13 @@ def make_projection_step(grid: Grid, params: NSParams, dtype=None,
                                            **step_kw)
         return _make_iterative_step_3d(grid, params, solve, kernel_kw,
                                        folded_result, **step_kw)
+
+    if precision == "default":
+        # the emit-b̃ route: physical b̃ → transform pipeline → corrector
+        pipeline = make_fft_btilde_solver(problem, pparams, precision,
+                                          z_mode="auto", plain=plain)
+        return _make_btilde_step(grid, params, pipeline, kernel_kw,
+                                 folded_result, **step_kw)
 
     if grid.nz == 1:
         fxt, gxt, ysolve = make_dst2d_fused_pieces(
@@ -445,4 +509,43 @@ def _make_iterative_step_2d(grid, params, solve, kernel_kw, scalars,
             residual=pres.final_residual, poisson_ok=pres.status == 0)
 
     step.poisson_solve, step.last_poisson = solve, None
+    return step
+
+
+def _make_btilde_step(grid, params, pipeline, kernel_kw, folded_result,
+                      scalars, predict, post):
+    """The emit-b̃ step of ``spectral_precision="default"`` (3D
+    `projection.py:584-606` with ``btilde_pipeline``, 2D `:681-692`):
+    predictor → hook → the physical b̃ → ``pipeline`` (the transform
+    solve, no residual: a direct solve) → the corrector on the physical p
+    (in 3D with its maxima and the z-shell face fold) → energy."""
+    if grid.nz == 1:
+        pk2 = Projection2DKernels(
+            grid.ny, grid.nx, grid.dx0, grid.dy0, grid.xmin, grid.ymin,
+            params.mu, **kernel_kw)
+
+        def step_2d(field: FlowField, dt, iter_idx):
+            dt, su, sv, rho0 = scalars(field, dt, iter_idx)
+            us, vs, ws = predict(pk2, field, dt, su, sv, iter_idx)
+            p = pipeline(pk2.poisson_input(us, vs, field.p, rho0 / dt))
+            u, v = pk2.corrector(us, vs, p, dt / rho0)
+            new_field = post(field.replace(u=u, v=v, w=ws, p=p), dt)
+            return new_field, step_result(
+                *field_status_and_diagnostics(new_field))
+
+        return step_2d
+
+    pk = ProjectionKernels(
+        grid.nz, grid.ny, grid.nx, grid.dx0, grid.dy0, grid.dz0,
+        grid.xmin, grid.ymin, params.mu, **kernel_kw)
+
+    def step(field: FlowField, dt, iter_idx):
+        dt, su, sv, rho0 = scalars(field, dt, iter_idx)
+        us, vs, ws = predict(pk, field, dt, su, sv, iter_idx)
+        p = pipeline(pk.btilde(us, vs, ws, field.p, rho0 / dt))
+        u, v, w, m2i, pmaxi, pabsi = pk.corrector_diag(us, vs, ws, p,
+                                                       dt / rho0)
+        new_field = post(field.replace(u=u, v=v, w=w, p=p), dt)
+        return new_field, folded_result(new_field, m2i, pmaxi, pabsi)
+
     return step

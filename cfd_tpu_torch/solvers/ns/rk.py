@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import torch
 
+from ...config import device_of
 from ...core.field import FlowField
 from ...core.grid import Grid
 from ...ops.kernels.rk2d import rk2d_stage
@@ -31,6 +32,7 @@ from ...ops.kernels.rk_kernels import (momentum_rhs_plain, rk_stage,
                                        rk_stage_plain)
 from .common import iterate_with_divergence_guard
 from .euler import as_scalar, explicit_result, explicit_setup
+from .hybrid import pair_vjp
 from .params import NSParams, source_amplitudes
 
 # (dt divisor giving the factor, acc_mix, weight) of each stage
@@ -46,7 +48,7 @@ def make_momentum_rhs(grid: Grid, params: NSParams, dtype=None,
     rho, T, iter_idx, dt) -> (k_u, k_v, k_w, k_p)``, nonzero on interior
     points only, in plain PyTorch."""
     dtype, device, consts, (sy, sx) = explicit_setup(
-        "RK", grid, params, dtype, device, False)
+        "RK", grid, params, dtype, device, True)
 
     def rhs(u, v, w, p, rho, T, iter_idx, dt):
         dt = as_scalar(dt, dtype, u.device)
@@ -59,8 +61,14 @@ def make_momentum_rhs(grid: Grid, params: NSParams, dtype=None,
 
 def _make_rk_step(grid: Grid, params: NSParams, order: int, dtype, device,
                   differentiable: bool, plain: bool):
+    if differentiable and not plain and device_of(device).type == "cuda":
+        # the hybrid step (`rk.py:264-270`): the stage kernels' value, the
+        # plain step's adjoint
+        return pair_vjp(
+            _make_rk_step(grid, params, order, dtype, device, False, False),
+            _make_rk_step(grid, params, order, dtype, device, False, True))
     dtype, device, consts, (sy, sx) = explicit_setup(
-        f"RK{order}", grid, params, dtype, device, differentiable)
+        f"RK{order}", grid, params, dtype, device, plain)
     if plain:
         stage = rk_stage_plain
     else:
@@ -92,7 +100,8 @@ def make_rk2_step(grid: Grid, params: NSParams, dtype=None, device=None,
                   differentiable: bool = False, plain: bool = False):
     """Build the RK2 (Heun) ``step(field, dt, iter_idx)`` on a 3D (nz ≥ 3)
     or 2D grid, uniform or stretched in x/y, on the card by default;
-    the stretched weights and ``plain=True`` as in
+    the stretched weights, ``plain=True`` and ``differentiable=True`` (the
+    hybrid step on the card, the plain step otherwise) as in
     `euler.make_euler_step`."""
     return _make_rk_step(grid, params, 2, dtype, device, differentiable,
                          plain)

@@ -21,11 +21,12 @@ carries its own Neumann shell.
   factors the projection steps' kernels take (`:413-496`, `:237-307`).
 
 The DST and z products run through `ops.kernels.rolling` at the caller's
-precision, ``"highest"`` (IEEE fp32) or ``"high"`` (3xTF32): on a CUDA
-tensor the hand-written SGEMM or 3xTF32 GEMM, on a CPU tensor the plain
-version.  (The reference computes the pipelines' products as jnp
-matmuls outside any Pallas kernel.)  The Thomas stages run the z-line
-kernels of `ops.kernels.tdma`.
+precision, ``"highest"`` (IEEE fp32), ``"high"`` (3xTF32) or
+``"default"`` (one TF32 pass): on a CUDA tensor the hand-written SGEMM,
+3xTF32 GEMM or its one-pass instantiation, on a CPU tensor (or with
+``plain``) the plain version.  (The reference computes the pipelines'
+products as jnp matmuls outside any Pallas kernel.)  The Thomas stages
+run the z-line kernels of `ops.kernels.tdma`.
 
 The reference pads the mode dims to multiples of (8, 128) — 1024 for the
 2D y-stage — for the TPU's tiles, and gates its Thomas stages on those
@@ -203,10 +204,11 @@ def make_dst2d_fused_pieces(problem: PoissonProblem, dtype=None, device=None,
     rows out): `tdma.tdma_y_2d` on every column, then the K lowest x-modes
     (:func:`_tdma2d_rescue_width`) re-solved densely through the y-DST
     pair, s = Fyp·a[:, :K], s /= (λy ⊗ 1 + 1 ⊗ λx[:K]), x[:, :K] = Gyp·s,
-    its two products at ``precision`` (the reference's jnp matmuls at the
-    step's precision).  Without the rescue, f32 Thomas loses about 3
-    digits on the smooth modes.  When K == mx every column is rescued and
-    the Thomas launch is skipped (it would do no useful work).
+    its two products at ``precision`` ("highest", "high" or "default";
+    the reference's jnp matmuls at the step's precision).  Without the
+    rescue, f32 Thomas loses about 3 digits on the smooth modes.  When
+    K == mx every column is rescued and the Thomas launch is skipped (it
+    would do no useful work).
 
     ``plain=True`` runs the plain versions on a CUDA device too (the
     reference switch of `ops.kernels.projection2d.Projection2DKernels`).
@@ -348,38 +350,49 @@ def _make_btilde_pipeline(problem: PoissonProblem, precision: str,
     return pipeline
 
 
-def _make_btilde_pipeline_tdma(problem: PoissonProblem, precision: str):
+def _make_btilde_pipeline_tdma(problem: PoissonProblem, precision: str,
+                               plain: bool = False):
     """The Thomas z-stage transform (`spectral.py:705-768`): the xy DST,
-    the z-line Thomas solve (`tdma.make_tdma_z`, stored), the inverse xy
-    DST — the pieces of :func:`make_dst_fused_pieces` with
-    ``fuse_fwd=False``."""
+    the z-line Thomas solve (`tdma_z_fwd` + `tdma_z_bwd`, stored), the
+    inverse xy DST, on the factors of :func:`make_dst_fused_pieces`; with
+    ``plain`` the plain products and sweeps on any device."""
+    plane_dot = _products(plain)[0]
+
     def build(dt, device):
-        return make_dst_fused_pieces(problem, dt, device, fuse_fwd=False)
+        return make_dst_fused_pieces(problem, dt, device)
 
     pieces = _per_input(build)
 
     def pipeline(btilde):
-        (fxt, fy, gxt, gy), zsolve = pieces(btilde)
-        x = zsolve(rolling.plane_dot(btilde, fxt, fy, precision))
-        return rolling.plane_dot(x, gxt, gy, precision)
+        (fxt, fy, gxt, gy), (mu, w) = pieces(btilde)
+        bhat = plane_dot(btilde, fxt, fy, precision)
+        if plain:
+            x = tdma.tdma_z_reference(bhat, mu, w)
+        else:
+            x = tdma.tdma_z_bwd(*tdma.tdma_z_fwd(bhat, mu, w))
+        return plane_dot(x, gxt, gy, precision)
 
     return pipeline
 
 
-def _make_btilde_pipeline_tdma2d(problem: PoissonProblem, precision: str):
+def _make_btilde_pipeline_tdma2d(problem: PoissonProblem, precision: str,
+                                 plain: bool = False):
     """The Thomas y-stage transform (`spectral.py:133-216`): the x DST,
     the y-line Thomas solve with the dense low-mode rescue, the inverse x
-    DST — the pieces of :func:`make_dst2d_fused_pieces`."""
+    DST — the pieces of :func:`make_dst2d_fused_pieces`; with ``plain``
+    their plain versions on any device."""
+    right_dot = _products(plain)[1]
+
     def build(dt, device):
-        return make_dst2d_fused_pieces(problem, dt, device,
+        return make_dst2d_fused_pieces(problem, dt, device, plain=plain,
                                        precision=precision)
 
     pieces = _per_input(build)
 
     def pipeline(btilde):
         fxt, gxt, ysolve = pieces(btilde)
-        x = ysolve(rolling.right_dot(btilde, fxt, precision))
-        return rolling.right_dot(x, gxt, precision)
+        x = ysolve(right_dot(btilde, fxt, precision))
+        return right_dot(x, gxt, precision)
 
     return pipeline
 
@@ -387,19 +400,23 @@ def _make_btilde_pipeline_tdma2d(problem: PoissonProblem, precision: str):
 def make_fft_btilde_solver(problem: PoissonProblem,
                            params: PoissonParams = None,
                            precision: str = "highest",
-                           z_mode: str = "eigen"):
+                           z_mode: str = "eigen", plain: bool = False):
     """The raw transform ``btilde → x_new`` for fused producers
-    (`spectral.py:853-899`).
+    (`spectral.py:853-899`); the reference's ``spectral_precision=DEFAULT``
+    step runs it with ``z_mode="auto"`` after its emit-b̃ kernels.
 
     ``z_mode``: "eigen" runs every axis as DST products; "tdma" replaces
     the last axis by a Thomas line solve — z in 3D, y in 2D (with the
-    dense rescue of the ill-conditioned low modes); "auto" picks "tdma"
-    where it pays: always in 3D, and in 2D unless every x-mode's y-line
-    needs the rescue (strongly anisotropic grids, dy ≪ dx), where the
-    Thomas stage would do no useful work.  (The reference's second 2D
-    gate, that the 1024-wide mode padding stay under 2×, always holds
-    without the padding.)  ``params`` is accepted for parity and read by
-    nothing, as in the reference.
+    dense rescue of the ill-conditioned low modes); "auto" takes the
+    reference's gates (`spectral.py:871-888`): "tdma" always in 3D, and in
+    2D where both of its profitability gates hold — the x pair's
+    1024-wide mode padding under 2× (ceil(mx, 1024) < 2·mx: square-ish
+    grids from mx > 512) and not every x-mode's y-line in the rescue
+    (strongly anisotropic grids, dy ≪ dx, where the Thomas stage would
+    do no useful work); "eigen" otherwise.  The port pads no mode dim,
+    but the gate keeps the reference's choice of pipeline.  ``params`` is
+    accepted for parity and read by nothing, as in the reference.
+    ``plain`` runs the plain products and sweeps on any device.
     """
     if not spectral_supported(problem):
         raise ValueError("spectral solver needs nz==1 or (nz>=3, dz>0)")
@@ -411,20 +428,22 @@ def make_fft_btilde_solver(problem: PoissonProblem,
         else:
             mx = problem.nx - 2
             lx = _dirichlet_eigenvalues(mx, problem.inv_dx2)
-            sup = tdma_y_supported(problem) and _tdma2d_rescue_width(
-                mx, lx, float(problem.inv_dy2)) < mx
+            sup = (tdma_y_supported(problem)
+                   and _ceil_to(mx, 1024) < 2 * mx
+                   and _tdma2d_rescue_width(
+                       mx, lx, float(problem.inv_dy2)) < mx)
         z_mode = "tdma" if sup else "eigen"
     if z_mode == "tdma":
         if is_3d:
             if not tdma_z_supported(problem):
                 raise ValueError("tdma z_mode unsupported for this problem")
-            return _make_btilde_pipeline_tdma(problem, precision)
+            return _make_btilde_pipeline_tdma(problem, precision, plain)
         if not tdma_y_supported(problem):
             raise ValueError("tdma y-stage unsupported for this problem")
-        return _make_btilde_pipeline_tdma2d(problem, precision)
+        return _make_btilde_pipeline_tdma2d(problem, precision, plain)
     if z_mode != "eigen":
         raise ValueError(f"unknown z_mode {z_mode!r}")
-    return _make_btilde_pipeline(problem, precision)
+    return _make_btilde_pipeline(problem, precision, plain)
 
 
 def make_fft_direct(problem: PoissonProblem, params: PoissonParams,
@@ -440,11 +459,11 @@ def make_fft_direct(problem: PoissonProblem, params: PoissonParams,
     new interior inside the *initial* mirror shell (CG measures its
     recursion residual before the post-loop Neumann refresh), its
     Laplacian minus rhs, the interior L2 norm; without it, 0.
-    ``precision`` is the products' ("highest" or "high").  The products
-    go through the GEMM wrappers (the kernels on a float32 CUDA tensor),
-    or with ``plain`` through their plain versions on any device and
-    dtype — the front end's solve for other dtypes than float32, and its
-    reference switch.
+    ``precision`` is the products' ("highest", "high" or "default").
+    The products go through the GEMM wrappers (the kernels on a float32
+    CUDA tensor), or with ``plain`` through their plain versions on any
+    device and dtype — the front end's solve for other dtypes than
+    float32, and its reference switch.
     """
     if not spectral_supported(problem):
         raise ValueError("spectral solver needs nz==1 or (nz>=3, dz>0)")

@@ -163,6 +163,27 @@ equation:
   ``Simulation.from_grid`` on a stretched grid with the consistent
   scheme.
 
+Then ``spectral_precision="default"`` and the differentiable steps:
+
+* phase 38: the one-pass TF32 GEMM against its plain version at the 512³
+  plane shapes and the 2048² x-DST (``TOL_GEMM``), timed against its bound
+  and ``torch.matmul`` with TF32 on, and its error against float64 beside
+  the 3xTF32 GEMM's and the SGEMM's; the 512³ and 2048² DEFAULT steps
+  (the emit-b̃ route) on both paths, held after one step, with launch
+  counts that show the route (4 TF32 launches a step, no SGEMM, no
+  3xTF32), and one step of each against HIGHEST;
+* phase 39: ``bench.py:run_hybrid_adjoint(128, 10)`` — a 128³ Euler
+  rollout with ``remat="step"`` through the hybrid (kernel forward,
+  autograd adjoint) and the plain differentiable step: forward and
+  value+grad ms, the hybrid's value bit-equal to the kernel rollout, and
+  max|grad_hybrid − grad_plain|;
+* phase 40: ``bench.py:run_adjoint(1024, 50)`` — the 2D Euler rollout's
+  forward ms, grad ms and ratio on the hybrid and the plain path;
+* phase 41: the hybrid projection — FFT_DIRECT at 256³ (5 steps,
+  ``remat="step"``; gradient at rtol 1e-5 / atol 5e-7 of the plain
+  step's) and CG at 128³ (3 steps; relative L2 1e-3), each value
+  bit-equal to the non-differentiable kernel step's rollout.
+
 It checks status, finiteness, launch counters (set to 0 just before each
 main path and read just after) and kernel-vs-plain agreement; any
 failure exits non-zero.  The line before the last is a JSON object
@@ -345,6 +366,13 @@ CONS_RESIDUAL_BAR = 1e-3
 # (tests/math/test_projection_consistent_fused.py:143-162)
 HIGH_P_CONS = 5e-3
 POISEUILLE = (40, 32, 500)
+
+# Phases 38-41: spectral_precision="default" and the differentiable steps
+N_HYBRID = 128         # bench.py:run_hybrid_adjoint(128, 10), the CG hybrid
+HYBRID_STEPS = 10
+N_ADJOINT = 1024       # bench.py:run_adjoint(1024, 50)
+ADJOINT_STEPS = 50
+N_HYBRID_FFT = 256     # the FFT_DIRECT hybrid projection rollout
 POISEUILLE_BARS = {0.0: 0.05, 1.5: 0.20, 2.0: 0.30}
 
 # The card's peaks for a kernel's bound (H100 SXM data sheet, at 700 W):
@@ -428,6 +456,17 @@ TOL_DIAG = 1e-6
 # this multiple of the SGEMM's error there (3xTF32 drops the small·small
 # term, about 2⁻²² relative a product, where fp32 rounds at 2⁻²⁴)
 GEMM_VS_SGEMM = 2.0
+# A step at spectral_precision="default" (one TF32 pass a product) on two
+# paths, or against HIGHEST: each product rounds its operands to TF32, so
+# where two paths' fp32 sums differ in the last bits (the kernel and its
+# plain version sum in other orders) a downstream operand can round to the
+# neighbouring TF32 value, 2⁻¹⁰ of it; the transform pipeline passes that
+# on to p.  A CPU run of the plain step at 128³ with only the GEMMs' sum
+# order changed moved p by 4.1e-4 of max|p|, and DEFAULT differs from
+# HIGHEST by 1.0e-3 there: p is held at 1e-2 of max|p| (about ten TF32
+# ulps), u, v, w at what that passes on through the corrector.  The one
+# GEMM alone is held at TOL_GEMM: its operands are rounded the same way.
+TOL_TF32_STEP = 1e-2
 
 
 # The CG kernels: fields in the plain versions' operation order
@@ -530,7 +569,7 @@ def main() -> int:
     from cfd_tpu_torch.solvers.ns.projection import (make_projection_step,
                                                      thermal_post_step)
     from cfd_tpu_torch.solvers.ns.rk import make_rk2_step, make_rk4_step
-    from cfd_tpu_torch.solvers.ns.rollout import run_steps
+    from cfd_tpu_torch.solvers.ns.rollout import make_rollout, run_steps
     from cfd_tpu_torch.solvers.poisson import frontend, krylov
     from cfd_tpu_torch.solvers.poisson import multigrid as mgs
     from cfd_tpu_torch.solvers.poisson import spectral, stationary
@@ -972,7 +1011,7 @@ def main() -> int:
 
     def timed_paths(phase, size, grid, params, shape, dt, n_steps,
                     wrappers, first_step_only=False, precision=None,
-                    field_fn=None, bc_refresh=None):
+                    field_fn=None, bc_refresh=None, tol_p=TOL_GEMM):
         """Kernel path, then plain path: the first ``n_steps`` steps from
         the start field, as ``bench.py:_time_steps`` times them, once to
         warm up and once timed.  Both runs have one call pattern (the
@@ -981,7 +1020,8 @@ def main() -> int:
         timed window costs tens of ms at 512³.  Kernel and plain are held
         against each other after the timed steps, or with
         ``first_step_only`` after one step, p and what the corrector
-        passes on to u and v at ``TOL_GEMM`` (the GEMMs' bar).
+        passes on to u and v at ``tol_p`` (the GEMMs' bar, or
+        ``TOL_TF32_STEP`` for the one-pass TF32 products).
         ``precision`` is the step's ``spectral_precision``,
         ``bc_refresh`` its hook; ``field_fn(shape)`` makes the start field
         (``tg_field`` by default).  Returns (ms/step, launch counts)."""
@@ -1047,7 +1087,7 @@ def main() -> int:
                 compare(tag, name, getattr(finals["kernel"], name),
                         getattr(finals["plain"], name), TOL_FIELD, False)
             compare(tag, "p", finals["kernel"].p, finals["plain"].p,
-                    TOL_GEMM, True)
+                    tol_p, True)
             if params.energy_enabled:
                 compare(tag, "T", finals["kernel"].T, finals["plain"].T,
                         TOL_EXACT, True)
@@ -1059,7 +1099,7 @@ def main() -> int:
         pmax = float(fp.p.abs().max())
 
         def passed_on(d):
-            return TOL_FIELD + 2.0 * dt / (2.0 * d) * TOL_GEMM * pmax
+            return TOL_FIELD + 2.0 * dt / (2.0 * d) * tol_p * pmax
 
         tol_uv = passed_on(grid.dx0)
         tol_w = passed_on(grid.dz0) if shape[0] > 1 else TOL_FIELD
@@ -1067,7 +1107,7 @@ def main() -> int:
         for name, tol in (("u", tol_uv), ("v", tol_uv), ("w", tol_w)):
             compare(tag, name, getattr(fk, name), getattr(fp, name), tol,
                     False)
-        compare(tag, "p", fk.p, fp.p, TOL_GEMM, True)
+        compare(tag, "p", fk.p, fp.p, tol_p, True)
         if params.energy_enabled:
             compare(tag, "T", fk.T, fp.T, TOL_EXACT, True)
         return ms, counts
@@ -4123,6 +4163,380 @@ def main() -> int:
     print(f"phase 37 took {time.perf_counter() - t_phase:.1f} s",
           flush=True)
 
+    # ---- phase 38: spectral_precision="default" (one TF32 pass) ------------
+    # the one-pass TF32 GEMM against its plain version (TF32-rounded
+    # operands, exact products, IEEE fp32 sums) at the 512³ plane shapes and
+    # the 2048² x-DST, within TOL_GEMM (only the order of the sums differs),
+    # its error against float64 beside the 3xTF32 GEMM's and the SGEMM's;
+    # then the DEFAULT steps (the emit-b̃ route: physical b̃, the Thomas
+    # transform pipeline, the corrector on p) at 512³ and 2048² on both
+    # paths, and one step of each against HIGHEST
+    t_phase = time.perf_counter()
+
+    def tf32_matmul(fn):
+        """``fn`` run with TF32 on: the library call of the one-pass GEMM
+        (timed beside it, never called by the port)."""
+        def run():
+            prev = torch.backends.cuda.matmul.allow_tf32
+            torch.backends.cuda.matmul.allow_tf32 = True
+            try:
+                return fn()
+            finally:
+                torch.backends.cuda.matmul.allow_tf32 = prev
+        return run
+
+    def vs_float64_all(tag, a, b):
+        """``a · b`` at each precision against the float64 product of the
+        same fp32 inputs, max error over max|truth| (printed; the
+        one-pass TF32 keeps about 2⁻¹¹ of each operand)."""
+        truth = a.double() @ b.double()
+        scale = float(truth.abs().max())
+        errs = {}
+        for prec in ("default", "high", "highest"):
+            got = rolling.right_dot(a, b, prec)
+            errs[prec] = float((got.double() - truth).abs().max()) / scale
+            del got
+        print(f"  {tag} vs float64: TF32 {errs['default']:.3e}, 3xTF32 "
+              f"{errs['high']:.3e}, SGEMM {errs['highest']:.3e} of "
+              f"max|truth|", flush=True)
+        gemm_truth[tag] = {"tf32": errs["default"], "3xtf32": errs["high"],
+                           "sgemm": errs["highest"]}
+        del truth
+        torch.cuda.empty_cache()
+
+    n = N_BIG
+    tag = f"{n}x{n}x{n}"
+    print(f"phase 38 the TF32 GEMM vs plain at {tag}", flush=True)
+    f, (fxt, fy, gxt, gy), mu, w, c = make_inputs((n, n, n), SEED)
+    x2 = f.p.view(-1, n)
+    # one launch as the 3D main path makes it: the (nz·ny, nx) × (nx, nx)
+    # product of the forward xy DST
+    check("3d-default", tag, True, rolling.right_dot, HP_DOT, SRC_GEMM,
+          lambda: rolling.right_dot(x2, fxt, "default"),
+          lambda: rolling.right_dot_plain(x2, fxt, "default"),
+          ("x·FxT",), (gemm,), work=((x2, fxt), gemm_flops(n * n, n, n)),
+          library=tf32_matmul(lambda: torch.matmul(x2, fxt)),
+          name="gemm_tf32", rate=TF32_TC_FLOPS)
+    got = rolling.plane_dot(f.p, fxt, fy, "default")
+    ref = rolling.plane_dot_plain(f.p, fxt, fy, "default")
+    sync()
+    compare(f"phase 38 {tag}", "plane_dot[tf32] (both launches)", got, ref,
+            *gemm)
+    del got, ref
+    vs_float64_all(f"phase 38 x·FxT at {tag} (depth {n})", x2, fxt)
+    del f, x2, fxt, fy, gxt, gy, mu
+    torch.cuda.empty_cache()
+    tag = f"{N_2D}x{N_2D}"
+    print(f"phase 38 the 2D TF32 products vs plain at {tag}", flush=True)
+    grid2 = Grid.uniform(N_2D, N_2D)
+    prob2 = PoissonProblem(N_2D, N_2D, 1, grid2.dx0, grid2.dy0)
+    fxt, _, ysolve = make_dst2d_fused_pieces(prob2, torch.float32, dev,
+                                             precision="default")
+    fyp, _, k_res = ysolve.rescue
+    bt = noisy(FlowField.initialize(grid2, dtype=torch.float32,
+                                    device=dev), SEED).p
+    a = check("2d-default", tag, True, rolling.right_dot, HP_DOT, SRC_GEMM,
+              lambda: rolling.right_dot(bt, fxt, "default"),
+              lambda: rolling.right_dot_plain(bt, fxt, "default"),
+              ("forward",), (gemm,),
+              work=((bt, fxt), gemm_flops(N_2D, N_2D, N_2D)),
+              library=tf32_matmul(lambda: torch.matmul(bt, fxt)),
+              name="gemm_tf32", rate=TF32_TC_FLOPS)[0][0]
+    got = rolling.left_dot(fyp, a[:, :k_res], precision="default")
+    ref = rolling.left_dot_plain(fyp, a[:, :k_res], precision="default")
+    sync()
+    compare(f"phase 38 {tag}", "left_dot[tf32] (rescue)", got, ref, *gemm)
+    vs_float64_all(f"phase 38 bt·FxT at {tag} (depth {N_2D})", bt[0], fxt)
+    del bt, a, fxt, fyp, ysolve, got, ref
+    torch.cuda.empty_cache()
+
+    gemms = (rolling.plane_dot, rolling.right_dot, rolling.left_dot)
+
+    def default_counts(label, counts, per_step):
+        """The DEFAULT path's counts (read by ``timed_paths`` right
+        after the timed steps): its wrappers', and the one-pass TF32
+        launches of the GEMM wrappers summed as ``gemm_tf32``, ``per_step``
+        a step (one Thomas forward sweep a step); no SGEMM and no 3xTF32
+        launch (the DST-fused route and the other precisions)."""
+        tf32 = sum(v for k, v in counts.items() if k.endswith("[default]"))
+        counts = {k: v for k, v in counts.items()
+                  if not k.endswith("[default]")}
+        counts["gemm_tf32"] = tf32
+        other = {g.__name__: (g.launches, g.high_launches) for g in gemms}
+        print(f"{label} launch counts over the main path: {counts}; "
+              f"(SGEMM, 3xTF32) launches {other}", flush=True)
+        if (min(counts.values()) <= 0
+                or counts["gemm_tf32"] != per_step * counts["tdma_z_fwd"]
+                or max(max(v) for v in other.values()) != 0):
+            fail(f"{label}: not the emit-b̃ route (TF32 launches "
+                 f"{per_step} a step, no SGEMM or 3xTF32)")
+        return counts
+
+    def default_vs_highest(label, grid_h, params_h, shape, dt):
+        """One kernel-path step at DEFAULT against one at HIGHEST from the
+        same start: p within TOL_TF32_STEP of max|p|, u, v, w within what
+        that passes on through the corrector; returns max|Δp|/max|p| and
+        max|Δu| over u, v, w."""
+        firsts = {}
+        for prec in ("default", None):
+            stepf = make_projection_step(grid_h, params_h, torch.float32,
+                                         Method.FFT_DIRECT, device=dev,
+                                         spectral_precision=prec)
+            firsts[prec] = stepf(tg_field(shape), dt, 0)[0]
+        sync()
+        fd, fh = firsts["default"], firsts[None]
+        pmax = float(fh.p.abs().max())
+        dp = compare(f"{label} DEFAULT vs HIGHEST first step", "p", fd.p,
+                     fh.p, TOL_TF32_STEP, True)[0]
+        p_rel = dp / pmax
+        u_abs = 0.0
+        for k, d in (("u", grid_h.dx0), ("v", grid_h.dy0),
+                     ("w", grid_h.dz0 if shape[0] > 1 else None)):
+            bar = TOL_FIELD + (dt / d * TOL_TF32_STEP * pmax if d else 0.0)
+            u_abs = max(u_abs, compare(
+                f"{label} DEFAULT vs HIGHEST first step", k,
+                getattr(fd, k), getattr(fh, k), bar, False)[0])
+        print(f"{label} DEFAULT vs HIGHEST after one step: max|p - "
+              f"p_HIGHEST|/max|p| {p_rel:.3e}, max|u - u_HIGHEST| "
+              f"{u_abs:.3e} (u, v, w)", flush=True)
+        del firsts, fd, fh
+        torch.cuda.empty_cache()
+        return {"p_rel": p_rel, "u_abs": u_abs}
+
+    grid = Grid.uniform(n, n, n, zmin=0.0, zmax=1.0)
+    params = NSParams(source_amplitude_u=0.0, source_amplitude_v=0.0,
+                      mu=0.01)
+    wr_default = (pkm.predictor_star, pkm.poisson_input, tdma.tdma_z_fwd,
+                  tdma.tdma_z_bwd, pkm.corrector, (rolling.plane_dot,
+                                                   "default"))
+    pkm.reset_launch_counts()
+    ms3d, counts = timed_paths(38, f"{n}^3 DEFAULT", grid, params,
+                               (n, n, n), 1e-4, TIMED_STEPS, wr_default,
+                               first_step_only=True, precision="default",
+                               tol_p=TOL_TF32_STEP)
+    launch_counts["3d-default"] = default_counts(f"phase 38 {n}^3 DEFAULT",
+                                                 counts, 4)
+    torch.cuda.empty_cache()
+    vs_high = {"3d": default_vs_highest(f"phase 38 {n}^3", grid, params,
+                                        (n, n, n), 1e-4)}
+    wr_default_2d = (pk2m.predictor_star_2d, pk2m.poisson_input_2d,
+                     tdma.tdma_z_fwd, tdma.tdma_z_bwd, pk2m.corrector_2d,
+                     (rolling.right_dot, "default"),
+                     (rolling.left_dot, "default"))
+    pk2m.reset_launch_counts()
+    ms2d, counts = timed_paths(38, f"{n2}^2 DEFAULT", Grid.uniform(n2, n2),
+                               params, (1, n2, n2), 1e-5, TIMED_STEPS_2D,
+                               wr_default_2d, first_step_only=True,
+                               precision="default", tol_p=TOL_TF32_STEP)
+    launch_counts["2d-default"] = default_counts(f"phase 38 {n2}^2 DEFAULT",
+                                                 counts, 4)
+    vs_high["2d"] = default_vs_highest(f"phase 38 {n2}^2",
+                                       Grid.uniform(n2, n2), params,
+                                       (1, n2, n2), 1e-5)
+    print(f"phase 38 DEFAULT {n}^3 {ms3d['kernel']:.3f} ms/step (HIGHEST "
+          f"{ms3['kernel']:.3f}, HIGH {ms3h['kernel']:.3f}); {n2}^2 "
+          f"{ms2d['kernel']:.3f} ms/step (HIGHEST {ms2['kernel']:.3f}, "
+          f"HIGH {ms2h['kernel']:.3f})", flush=True)
+    print(f"phase 38 took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+    # ---- phases 39-41: the differentiable steps ---------------------------
+    # a rollout's loss, its value (no graph) and its value and gradient
+    # w.r.t. the initial u, timed on the host clock around a sync, best of
+    # ``reps`` after one warm-up
+
+    def rollout_loss(step, n_steps, f0, dt, names, remat="step"):
+        roll = make_rollout(step, n_steps, remat=remat)
+
+        def loss(u0):
+            out, _ = roll(f0.replace(u=u0), dt)
+            total = 0.0
+            for k in names:
+                total = total + (getattr(out, k) ** 2).sum()
+            return 0.5 * total
+
+        return roll, loss
+
+    def value_and_grad(loss, u0):
+        u = u0.clone().requires_grad_()
+        val = loss(u)
+        (g,) = torch.autograd.grad(val, u)
+        return val.detach(), g
+
+    def host_ms(fn, reps):
+        fn()
+        sync()
+        best = float("inf")
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            sync()
+            best = min(best, time.perf_counter() - t0)
+        return best * 1e3
+
+    def adjoint_rows(label, makers, n_steps, f0, dt, names, reps):
+        """Forward (no graph) and value+grad ms of each step of
+        ``makers`` ({path: step}), their ratio, and the gradients."""
+        rows, grads = {}, {}
+        for path, step in makers.items():
+            _, loss = rollout_loss(step, n_steps, f0, dt, names)
+
+            def fwd():
+                with torch.no_grad():
+                    return loss(f0.u)
+
+            fwd_ms = host_ms(fwd, reps)
+            grad_ms = host_ms(lambda: value_and_grad(loss, f0.u), reps)
+            val, grads[path] = value_and_grad(loss, f0.u)
+            rows[path] = {"forward_ms": fwd_ms, "grad_ms": grad_ms,
+                          "ratio": grad_ms / fwd_ms}
+            print(f"{label} {path}: forward {fwd_ms:.3f} ms, value+grad "
+                  f"{grad_ms:.3f} ms, ratio {grad_ms / fwd_ms:.2f}; loss "
+                  f"{float(val):.6e}, max|grad| "
+                  f"{float(grads[path].abs().max()):.6e}", flush=True)
+            if not bool(torch.isfinite(grads[path]).all()):
+                fail(f"{label} {path}: non-finite gradient")
+        return rows, grads
+
+    def same_fields(label, got, want):
+        """The hybrid rollout's value against the kernel rollout's, bit
+        for bit."""
+        for k in ("u", "v", "w", "p", "rho", "T"):
+            if not torch.equal(getattr(got, k), getattr(want, k)):
+                err = float((getattr(got, k) - getattr(want, k)).abs()
+                            .max())
+                fail(f"{label}: hybrid {k} not bit-equal to the kernel "
+                     f"rollout (max abs {err:.3e})")
+        print(f"{label}: hybrid forward bit-equal to the kernel rollout "
+              f"(u, v, w, p, rho, T)", flush=True)
+
+    # ---- phase 39: bench.py:run_hybrid_adjoint(128, 10) -------------------
+    t_phase = time.perf_counter()
+    nh, steps_h, dt_h = N_HYBRID, HYBRID_STEPS, 5e-5
+    grid_h = Grid.uniform(nh, nh, nh, zmin=0.0, zmax=1.0)
+    params_h = NSParams(source_amplitude_u=0.0, source_amplitude_v=0.0)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    f0 = FlowField.initialize(grid_h, dtype=torch.float32, device=dev)
+    f0 = f0.replace(**{k: 0.2 * torch.randn(grid_h.shape, generator=gen,
+                                            device=dev) for k in "uvw"})
+    hybrid = make_euler_step(grid_h, params_h, torch.float32, dev,
+                             differentiable=True)
+    plain_d = make_euler_step(grid_h, params_h, torch.float32, dev,
+                              differentiable=True, plain=True)
+    native.reset_counts(ekm.euler_step)
+    with torch.no_grad():
+        fh, _ = make_rollout(hybrid, steps_h, remat="step")(f0, dt_h)
+    n_launch = ekm.euler_step.launches
+    fk, _ = run_steps(make_euler_step(grid_h, params_h, torch.float32, dev),
+                      f0, dt_h, steps_h)
+    sync()
+    label = f"phase 39 run_hybrid_adjoint({nh}, {steps_h})"
+    print(f"{label}: euler_step launches over the hybrid rollout "
+          f"{n_launch}", flush=True)
+    if n_launch != steps_h:
+        fail(f"{label}: the hybrid forward did not launch the Euler "
+             f"kernel once a step")
+    same_fields(label, fh, fk)
+    launch_counts["hybrid3d"] = {"euler_step": n_launch}
+    rows39, grads = adjoint_rows(label, {"hybrid": hybrid, "plain": plain_d},
+                                 steps_h, f0, dt_h, "uvw", 3)
+    gdiff = float((grads["hybrid"] - grads["plain"]).abs().max())
+    gscale = float(grads["plain"].abs().max())
+    print(f"{label}: max|grad_hybrid - grad_plain| {gdiff!r} (max|grad| "
+          f"{gscale:.6e}; 0.0 expected: the Euler kernel is bit-equal to "
+          f"its plain version)", flush=True)
+    if not gdiff <= TOL_EXACT * gscale:
+        fail(f"{label}: hybrid gradient off the plain step's")
+    hybrid_rec = {"run_hybrid_adjoint": dict(rows39, grad_max_abs_diff=gdiff)}
+    del f0, fh, fk, grads
+    torch.cuda.empty_cache()
+    print(f"phase 39 took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+    # ---- phase 40: bench.py:run_adjoint(1024, 50) -------------------------
+    t_phase = time.perf_counter()
+    na, steps_a = N_ADJOINT, ADJOINT_STEPS
+    grid_a = Grid.uniform(na, na)
+    f0 = tg_field((1, na, na))
+    makers = {p: make_euler_step(grid_a, params_h, torch.float32, dev,
+                                 differentiable=True, plain=p == "plain")
+              for p in ("hybrid", "plain")}
+    label = f"phase 40 run_adjoint({na}, {steps_a})"
+    rows40, grads = adjoint_rows(label, makers, steps_a, f0, 1e-4, "uv", 2)
+    gdiff = float((grads["hybrid"] - grads["plain"]).abs().max())
+    print(f"{label}: max|grad_hybrid - grad_plain| {gdiff!r}", flush=True)
+    hybrid_rec["run_adjoint"] = dict(rows40, grad_max_abs_diff=gdiff)
+    del f0, grads
+    torch.cuda.empty_cache()
+    print(f"phase 40 took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+    # ---- phase 41: the hybrid projection steps ----------------------------
+    # FFT_DIRECT at 256³ (5 steps, remat="step") and CG at 128³ (3 steps):
+    # the hybrid rollout's value bit-equal to the kernel rollout; its
+    # gradient against the plain differentiable step's — FFT_DIRECT at the
+    # reference's bar (rtol 1e-5, atol 5e-7, tests/solvers/
+    # test_hybrid_vjp.py:124-127), CG at a relative L2 of 1e-3 (the two
+    # forwards differ at the solver's tolerance)
+    t_phase = time.perf_counter()
+    for method, nq, steps_q in ((Method.FFT_DIRECT, N_HYBRID_FFT, 5),
+                                (Method.CG, N_HYBRID, 3)):
+        grid_q = Grid.uniform(nq, nq, nq, zmin=0.0, zmax=1.0)
+        params_q = NSParams(source_amplitude_u=0.0, source_amplitude_v=0.0,
+                            mu=0.01)
+        f0 = tg_field((nq, nq, nq))
+        label = f"phase 41 hybrid {method.name} {nq}^3"
+        kernel_q = make_projection_step(grid_q, params_q, torch.float32,
+                                        method, device=dev)
+        makers = {p: make_projection_step(
+            grid_q, params_q, torch.float32, method, device=dev,
+            differentiable=True, plain=p == "plain")
+            for p in ("hybrid", "plain")}
+        pkm.reset_launch_counts()
+        cgk.lap_dot.launches = cgk.cg_update.launches = 0
+        with torch.no_grad():
+            fh, _ = make_rollout(makers["hybrid"], steps_q,
+                                 remat="step")(f0, 1e-4)
+        wrappers = ((pkm.predictor_star, pkm.poisson_input,
+                     rolling.plane_dot, tdma.tdma_z_fwd, tdma.tdma_z_bwd,
+                     pkm.corrector) if method == Method.FFT_DIRECT else
+                    (pkm.predictor_star, pkm.poisson_rhs, cgk.lap_dot,
+                     cgk.cg_update, pkm.corrector))
+        counts = launches_of(wrappers)
+        print(f"{label}: launch counts over the hybrid forward {counts}",
+              flush=True)
+        if min(counts.values()) <= 0:
+            fail(f"{label}: a kernel of the step not launched")
+        launch_counts[f"hybrid-{method.name.lower()}"] = counts
+        fk, _ = run_steps(kernel_q, f0, 1e-4, steps_q)
+        sync()
+        same_fields(label, fh, fk)
+        rows, grads = adjoint_rows(label, makers, steps_q, f0, 1e-4, "uvw",
+                                   1)
+        gh, gp = grads["hybrid"], grads["plain"]
+        rel_l2 = float((gh - gp).norm() / gp.norm())
+        if method == Method.FFT_DIRECT:
+            excess = float(((gh - gp).abs() - (5e-7 + 1e-5 * gp.abs()))
+                           .max())
+            print(f"{label}: gradient vs the plain step's: max abs "
+                  f"{float((gh - gp).abs().max()):.3e}, relative L2 "
+                  f"{rel_l2:.3e}, largest excess over atol 5e-7 + rtol "
+                  f"1e-5 {excess:.3e} (must be <= 0)", flush=True)
+            if not excess <= 0.0:
+                fail(f"{label}: hybrid gradient outside rtol 1e-5 / atol "
+                     f"5e-7")
+        else:
+            print(f"{label}: gradient vs the plain step's: relative L2 "
+                  f"{rel_l2:.3e} (bar 1e-3)", flush=True)
+            if not rel_l2 <= 1e-3:
+                fail(f"{label}: hybrid gradient off the plain step's")
+        hybrid_rec[f"projection_{method.name.lower()}_{nq}"] = dict(
+            rows, grad_rel_l2=rel_l2)
+        del f0, fh, fk, grads, gh, gp, makers, kernel_q
+        torch.cuda.empty_cache()
+    print(f"phase 41 took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
     kernels = []
     for (path, name), rec in records.items():
         launches = launch_counts.get(path, {}).get(name)
@@ -4164,6 +4578,9 @@ def main() -> int:
                       "consistent_krylov_128": krylov_rec,
                       "consistent_step_ms_2d_2048": ms_c2,
                       "poiseuille_stretched": poiseuille,
+                      "step_ms_default": ms3d, "step_ms_2d_default": ms2d,
+                      "default_vs_highest": vs_high,
+                      "differentiable": hybrid_rec,
                       "launch_counts": launch_counts,
                       "card": card}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -64,8 +64,33 @@ def test_import_loads_no_jax():
     for name in ("cfd_tpu_torch.api.simulation", "cfd_tpu_torch.entry",
                  "cfd_tpu_torch.solvers.ns.euler",
                  "cfd_tpu_torch.solvers.ns.rk",
-                 "cfd_tpu_torch.solvers.ns.solver"):
+                 "cfd_tpu_torch.solvers.ns.solver",
+                 "cfd_tpu_torch.solvers.ns.hybrid",
+                 "cfd_tpu_torch.solvers.ns.rollout",
+                 "cfd_tpu_torch.solvers.poisson.adjoint"):
         assert name in MODULES, name
+
+
+def test_differentiable_exports_match_reference():
+    """The reference's differentiable API under its names:
+    ``solvers.poisson.make_adjoint_poisson``, ``solvers.ns.make_rollout``
+    (with ``REMAT_POLICIES``), ``solvers.ns.hybrid.pair_vjp``, and the
+    same signatures as the reference's."""
+    import inspect
+
+    from cfd_tpu.solvers import ns as jns
+    from cfd_tpu.solvers import poisson as jpoisson
+    from cfd_tpu.solvers.ns import hybrid as jhybrid
+    from cfd_tpu_torch.solvers import ns, poisson
+    from cfd_tpu_torch.solvers.ns import hybrid
+
+    for ours, theirs, name in ((poisson, jpoisson, "make_adjoint_poisson"),
+                               (ns, jns, "make_rollout"),
+                               (hybrid, jhybrid, "pair_vjp")):
+        assert name in getattr(ours, "__all__", [name])
+        assert list(inspect.signature(getattr(ours, name)).parameters) == \
+            list(inspect.signature(getattr(theirs, name)).parameters), name
+    assert ns.REMAT_POLICIES == (None, "none", "step", "sqrt")
 
 
 def test_every_module_imports_without_nvcc_or_triton():
@@ -113,27 +138,14 @@ UNSUPPORTED = {
     "multigrid": dict(poisson_method=Method.MULTIGRID),
     "2d_gauss_seidel": dict(grid=Grid.uniform(128, 16),
                             poisson_method=Method.GAUSS_SEIDEL),
-    # one TF32 pass: the reference routes it to its emit-b̃ kernels
-    "2d_precision_default": dict(grid=Grid.uniform(128, 16),
-                                 spectral_precision="default", **SPECTRAL),
     "source_func": dict(params=NSParams(
         source_func=lambda X, Y, Z, t: (0.0, 0.0, 0.0))),
-    "differentiable": dict(differentiable=True),
-    "precision_default": dict(spectral_precision="default", **SPECTRAL),
     # a heat source (a callable Q) is a later slice, with source_func
     "heat_source_func": dict(params=NSParams(alpha=1e-3,
                                              heat_source_func=_heat)),
     "2d_heat_source_func": dict(grid=Grid.uniform(128, 16),
                                 params=NSParams(alpha=1e-3,
                                                 heat_source_func=_heat)),
-    # the hook does not lift the precision or differentiability gates
-    "bc_refresh_precision_default": dict(
-        bc_refresh=_no_bcs, spectral_precision="default", **SPECTRAL),
-    "2d_bc_refresh_precision_default": dict(
-        grid=Grid.uniform(128, 16), bc_refresh=_no_bcs,
-        spectral_precision="default", **SPECTRAL),
-    "bc_refresh_differentiable": dict(bc_refresh=_no_bcs,
-                                      differentiable=True),
     "energy_stretched": dict(grid=_stretched_grid(),
                              params=NSParams(alpha=1e-3)),
 }
@@ -153,7 +165,6 @@ def test_unsupported_configurations_raise(case):
 EXPLICIT_UNSUPPORTED = {
     "source_func": dict(params=NSParams(
         source_func=lambda X, Y, Z, t: (0.0, 0.0, 0.0))),
-    "differentiable": dict(differentiable=True),
     "float64_on_cuda": dict(dtype=torch.float64, device="cuda"),
     "heat_source_func": dict(params=NSParams(alpha=1e-3,
                                              heat_source_func=_heat)),
@@ -198,6 +209,22 @@ NOW_SUPPORTED = {
     "stretched": dict(grid=True, params=dict(source_amplitude_u=0.0,
                                              source_amplitude_v=0.0)),
     "consistent": dict(params=dict(nonuniform_scheme="consistent")),
+    # spectral_precision="default" (one TF32 pass; the plain product in
+    # float64) takes the reference's emit-b̃ route, in 3D and 2D, with
+    # the bc_refresh hook too
+    "precision_default": dict(step=dict(spectral_precision="default",
+                                        **SPECTRAL)),
+    "2d_precision_default": dict(two_d=True, step=dict(
+        spectral_precision="default", **SPECTRAL)),
+    "bc_refresh_precision_default": dict(step=dict(
+        bc_refresh=_no_bcs, spectral_precision="default", **SPECTRAL)),
+    "2d_bc_refresh_precision_default": dict(two_d=True, step=dict(
+        bc_refresh=_no_bcs, spectral_precision="default", **SPECTRAL)),
+    # the plain differentiable step (the adjoint CG solve), with and
+    # without the hook
+    "differentiable": dict(step=dict(differentiable=True)),
+    "bc_refresh_differentiable": dict(step=dict(bc_refresh=_no_bcs,
+                                                differentiable=True)),
 }
 EXPLICIT_NOW_SUPPORTED = {
     # sources off: on a stretched grid the reference's jnp step builds
@@ -208,6 +235,8 @@ EXPLICIT_NOW_SUPPORTED = {
     "consistent": dict(params=dict(nonuniform_scheme="consistent")),
     "energy_consistent": dict(params=dict(alpha=1e-3,
                                           nonuniform_scheme="consistent")),
+    # the plain differentiable step (on the card: the hybrid)
+    "differentiable": dict(step=dict(differentiable=True)),
 }
 
 
@@ -222,8 +251,20 @@ def _step_both(kind, case, builder=None):
     table = NOW_SUPPORTED if kind == "projection" else \
         EXPLICIT_NOW_SUPPORTED
     kw = table[case]
-    jg = _j_stretched_grid() if kw.get("grid") else JGrid.uniform(
-        128, 16, 8, zmin=0.0, zmax=1.0)
+    if kw.get("grid"):
+        jg = _j_stretched_grid()
+    elif kw.get("two_d"):
+        jg = JGrid.uniform(128, 16)
+    else:
+        jg = JGrid.uniform(128, 16, 8, zmin=0.0, zmax=1.0)
+    step_kw = dict(kw.get("step", {}))
+    j_step_kw = dict(step_kw)
+    if step_kw.get("spectral_precision") == "default":
+        from jax import lax
+        j_step_kw["spectral_precision"] = lax.Precision.DEFAULT
+    if "poisson_method" in step_kw:
+        from cfd_tpu.solvers.poisson.base import Method as JMethod
+        j_step_kw["poisson_method"] = JMethod(int(step_kw["poisson_method"]))
     tg = Grid(*(getattr(jg, f.name) for f in dataclasses.fields(jg)))
     jparams = JParams(**kw.get("params", {}))
     tparams = NSParams.from_fields(jparams)
@@ -231,19 +272,21 @@ def _step_both(kind, case, builder=None):
         from cfd_tpu.solvers.ns.projection import make_projection_step as jm
         tight = dict(tolerance=1e-12, max_iterations=3000)
         jstep = jm(jg, jparams, jnp.float64, use_pallas=False,
-                   poisson_params=JPoisson(**tight))
+                   poisson_params=JPoisson(**tight), **j_step_kw)
         tstep = make_projection_step(tg, tparams, dtype=torch.float64,
                                      device="cpu",
-                                     poisson_params=PoissonParams(**tight))
+                                     poisson_params=PoissonParams(**tight),
+                                     **step_kw)
     else:
         from cfd_tpu.solvers.ns import euler as je
         from cfd_tpu.solvers.ns import rk as jr
         jm = {"euler": je.make_euler_step, "rk2": jr.make_rk2_step,
               "rk4": jr.make_rk4_step}[builder]
-        jstep = jm(jg, jparams, jnp.float64, use_pallas=False)
+        jstep = jm(jg, jparams, jnp.float64, use_pallas=False,
+                   **j_step_kw)
         tstep = {"euler": make_euler_step, "rk2": make_rk2_step,
                  "rk4": make_rk4_step}[builder](tg, tparams, torch.float64,
-                                                "cpu")
+                                                "cpu", **step_kw)
     rng = np.random.default_rng(3)
     arrays = {n: rng.normal(0.0, 0.1, jg.shape) for n in "uvw"}
     arrays.update(p=1.0 + rng.normal(0.0, 0.1, jg.shape),
@@ -263,9 +306,10 @@ def _step_both(kind, case, builder=None):
 
 @pytest.mark.parametrize("case", sorted(NOW_SUPPORTED))
 def test_now_supported_configurations_match_reference(case):
-    """The parity scheme on a stretched grid (the dx0 spacings) and the
-    consistent scheme on a uniform grid (the parity step) build and
-    match the reference's step."""
+    """The parity scheme on a stretched grid (the dx0 spacings), the
+    consistent scheme on a uniform grid (the parity step),
+    ``spectral_precision="default"`` and the differentiable step (with
+    and without ``bc_refresh``) build and match the reference's step."""
     _step_both("projection", case)
 
 
@@ -273,9 +317,9 @@ def test_now_supported_configurations_match_reference(case):
 @pytest.mark.parametrize("builder", ["euler", "rk2", "rk4"])
 def test_explicit_now_supported_configurations_match_reference(builder,
                                                                 case):
-    """A stretched grid (parity weights), and the consistent scheme on a
-    uniform grid, with and without the energy equation, build and match
-    the reference's step."""
+    """A stretched grid (parity weights), the consistent scheme on a
+    uniform grid, with and without the energy equation, and the
+    differentiable step build and match the reference's step."""
     _step_both("explicit", case, builder)
 
 

@@ -103,7 +103,8 @@ def test_3xtf32_plain_is_fp32_class(planes):
 def test_3xtf32_plain_is_the_kernels_sum(planes):
     """The plain version is the split's three IEEE products summed as
     (small·big + big·small) + big·big; in float64 "high" is the plain
-    product (the split is fp32's)."""
+    product (the split is fp32's); a precision the products do not know
+    raises."""
     x, right, _ = planes
     a = x.reshape(-1, 37)
     ab, bb = rolling.tf32_rna(a), rolling.tf32_rna(right)
@@ -113,7 +114,7 @@ def test_3xtf32_plain_is_the_kernels_sum(planes):
     x64, r64 = a.double(), right.double()
     assert torch.equal(rolling.matmul_plain(x64, r64, "high"), x64 @ r64)
     with pytest.raises(ValueError):
-        rolling.plane_dot(x, right, right, precision="default")
+        rolling.plane_dot(x, right, right, precision="fastest")
 
 
 # ---- A4: make_tdma_z, make_tdma_z_bwd --------------------------------------------
@@ -299,13 +300,19 @@ def test_high_kernels_drop_t_and_count_3xtf32():
 
 
 def test_precision_default_is_not_ported():
-    """"default" (one TF32 pass) raises unsupported, in 3D and 2D."""
+    """"default" (one TF32 pass) is ported now, in 3D and 2D: the step
+    builds (`tests/test_torch_precision_default.py` holds it against the
+    reference); a precision the port does not know still raises
+    unsupported."""
     for grid in (Grid.uniform(128, 16, 8, zmin=0.0, zmax=1.0),
                  Grid.uniform(128, 16)):
+        make_projection_step(grid, NSParams(), torch.float32,
+                             Method.FFT_DIRECT, device="cpu",
+                             spectral_precision="default")
         with pytest.raises(CFDError) as err:
             make_projection_step(grid, NSParams(), torch.float32,
                                  Method.FFT_DIRECT, device="cpu",
-                                 spectral_precision="default")
+                                 spectral_precision="fastest")
         assert err.value.status == Status.ERROR_UNSUPPORTED
 
 
@@ -348,12 +355,15 @@ def test_step_nz3_matches_jnp_step_f64():
 def test_simulation_projection_spectral_takes_high():
     """The facade's ``projection_spectral`` solver with
     ``spectral_precision="high"`` steps within the HIGH bars of the same
-    session at HIGHEST (float32, 33², ten steps); "default" raises at
+    session at HIGHEST (float32, 33², ten steps), and with "default" (one
+    TF32 pass) too, within its one-step bars of
+    `test_torch_precision_default.py` (p 4e-3, u, v, w 2e-3 of max(1,
+    max|·|)) after ten steps; a precision the port does not know raises at
     ``init``."""
     from cfd_tpu_torch.api import Simulation
 
     sims = {}
-    for prec in (None, "high"):
+    for prec in (None, "high", "default"):
         sim = Simulation.create(33, 33, solver_type="projection_spectral",
                                 device="cpu", dtype=torch.float32)
         solver = sim.registry.create("projection_spectral")
@@ -364,10 +374,15 @@ def test_simulation_projection_spectral_takes_high():
         sims[prec] = {n: getattr(sim.field, n).numpy() for n in NAMES}
     _assert_close(sims["high"], sims[None], 2e-3, 1e-5,
                   "facade HIGH vs HIGHEST")
+    scale = {n: max(1.0, float(np.abs(sims[None][n]).max())) for n in NAMES}
+    for n in NAMES:
+        bar = (4e-3 if n == "p" else 2e-3) * scale[n]
+        np.testing.assert_allclose(sims["default"][n], sims[None][n],
+                                   rtol=0, atol=bar, err_msg=n)
     solver = Simulation.create(
         33, 33, device="cpu", dtype=torch.float32).registry.create(
         "projection_spectral")
-    solver.spectral_precision = "default"
+    solver.spectral_precision = "fastest"
     with pytest.raises(CFDError) as err:
         solver.init(Grid.uniform(33, 33), NSParams())
     assert err.value.status == Status.ERROR_UNSUPPORTED

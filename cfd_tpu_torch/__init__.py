@@ -14,8 +14,11 @@ lid cavity's boundary conditions (`boundary`); every Poisson method
 through the front end (`solvers.poisson`: ``create_solver``,
 ``poisson_solve``), the spectral solver API (`solvers.poisson.spectral`);
 the explicit integrators; the solver registry and the `Simulation`
-facade.  Its kernels (``csrc/``) run as hand-written CUDA for Hopper on a
-CUDA tensor and as plain PyTorch on the CPU.
+facade; domain decomposition (`parallel`: meshes, shard communicators
+in one process or over ``torch.distributed``, and the z-decomposed
+spectral projection step, also through ``NSSolver(mesh=...)``).  Its
+kernels (``csrc/``) run as hand-written CUDA for Hopper on a CUDA tensor
+and as plain PyTorch on the CPU.
 
 Every constructor takes an explicit ``device``; there is no global device
 state.  CUDA kernels are compiled with ``nvcc`` at first use, never at

@@ -123,3 +123,15 @@ class FlowField:
         """0-d bool tensor: all of u, v, w, p finite (no host sync)."""
         ok = torch.isfinite(self.u).all() & torch.isfinite(self.v).all()
         return ok & torch.isfinite(self.w).all() & torch.isfinite(self.p).all()
+
+    def select(self, keep: torch.Tensor, other: "FlowField") -> "FlowField":
+        """``self`` where the 0-d bool ``keep`` is True, else ``other``
+        (a ``torch.where`` on the device, no host read)."""
+        k = keep.to(self.device)
+        return FlowField(*(torch.where(k, getattr(self, n), getattr(other, n))
+                           for n in FIELD_NAMES))
+
+    def diagnostics(self):
+        """(max |velocity|, max p, max T) as 0-d tensors, for stats."""
+        m2 = torch.amax(self.u * self.u + self.v * self.v + self.w * self.w)
+        return torch.sqrt(m2), torch.amax(self.p), torch.amax(self.T)

@@ -32,6 +32,15 @@
 // axes (solvers/poisson/nonuniform.py) in place of the sines; the GEMMs
 // and the Thomas sweeps do not change.
 //
+// The z-decomposed step (cfd_tpu_torch/parallel/fused.py) runs the
+// predictor and b~ kernels in the global_nz mode of
+// projection_kernels.py:561-567 and :464-510 on a shard's halo-padded
+// block: z_base is the global index of local plane 0 and nz_g the global
+// plane count, so the z-shells and b~'s z face term sit at global planes
+// (z_shell below); one device passes z_base = 0, nz_g = nz.  The Thomas
+// pair runs unchanged on the shard's y-pencil with its rows of mu, and
+// the inverse DST and corrector on its 1-halo x^ block.
+//
 // At spectral_precision=HIGH the DST products run on the 3xTF32
 // tensor-core GEMM (gemm_3xtf32.cu) instead of sgemm_kernel, the forward
 // sweep writes no t, and the back substitution rebuilds t analytically
@@ -85,6 +94,20 @@ __device__ __forceinline__ float clamp_keep_nan(float x) {
 // jnp.maximum semantics: NaN in either argument wins.
 __device__ __forceinline__ float max_keep_nan(float a, float b) {
   return (a > b || a != a) ? a : b;
+}
+
+// The z-shell test of the predictor and b~ kernels.  On one device
+// (z_base = 0, nz_g = nz) it is k == 0 || k == nz - 1.  On a z-decomposed
+// shard's halo-padded block (projection_kernels.py's global_nz mode) local
+// plane k is global plane kg = z_base + k of an nz_g-plane domain: the
+// global shells kg == 0 and kg == nz_g - 1 pass through (or give a zero
+// b~), and so do planes past them, which lie outside the domain (an edge
+// shard's halo planes, received as zeros); the block's own end planes,
+// which have no neighbour in the block, too (the caller trims them).
+__device__ __forceinline__ bool z_shell(int k, int nz, int z_base,
+                                        int nz_g) {
+  const int kg = z_base + k;
+  return k == 0 || k == nz - 1 || kg <= 0 || kg >= nz_g - 1;
 }
 
 // u* = clamp(f + dt * (-(u f_x + v f_y + w f_z) + nu lap f + src)) at an
@@ -164,14 +187,15 @@ __global__ void pred_star_kernel(
     const float* __restrict__ scal, const float* __restrict__ T, int nz,
     int ny, int nx, float nu, float inv_2dx, float inv_2dy, float inv_2dz,
     float inv_dx2, float inv_dy2, float inv_dz2, float xmin, float ymin,
-    float dx, float dy, int with_sources, Buoyancy buoy, Weights wt) {
+    float dx, float dy, int with_sources, Buoyancy buoy, Weights wt,
+    int z_base, int nz_g) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const int j = blockIdx.y * blockDim.y + threadIdx.y;
   const int k = blockIdx.z;
   if (i >= nx || j >= ny) return;
   const long long sy = nx, sz = (long long)ny * nx;
   const long long c = k * sz + j * sy + i;
-  if (k == 0 || k == nz - 1 || j == 0 || j == ny - 1 || i == 0 ||
+  if (z_shell(k, nz, z_base, nz_g) || j == 0 || j == ny - 1 || i == 0 ||
       i == nx - 1) {
     us[c] = u[c];  // caller shells pass through (save/restore idiom)
     vs[c] = v[c];
@@ -226,14 +250,14 @@ __global__ void poisson_input_kernel(
     float* __restrict__ bt, const float* __restrict__ rod_ptr, int nz,
     int ny, int nx, float inv_2dx, float inv_2dy, float inv_2dz,
     float inv_dx2, float inv_dy2, float inv_dz2, int emit_rhs, Weights wt,
-    float4 face) {
+    float4 face, int z_base, int nz_g) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const int j = blockIdx.y * blockDim.y + threadIdx.y;
   const int k = blockIdx.z;
   if (i >= nx || j >= ny) return;
   const long long sy = nx, sz = (long long)ny * nx;
   const long long c = k * sz + j * sy + i;
-  if (k == 0 || k == nz - 1 || j == 0 || j == ny - 1 || i == 0 ||
+  if (z_shell(k, nz, z_base, nz_g) || j == 0 || j == ny - 1 || i == 0 ||
       i == nx - 1) {
     bt[c] = 0.0f;
     return;
@@ -263,7 +287,8 @@ __global__ void poisson_input_kernel(
     cxy = inv_dx2 * (float)((i == 1) + (i == nx - 2)) +
           inv_dy2 * (float)((j == 1) + (j == ny - 2));
   }
-  const float cz = inv_dz2 * (float)((k == 1) + (k == nz - 2));
+  const int kg = z_base + k;  // the global plane (k on one device)
+  const float cz = inv_dz2 * (float)((kg == 1) + (kg == nz_g - 2));
   bt[c] = (cxy + cz) * p[c] - (*rod_ptr) * div;
 }
 
@@ -547,13 +572,13 @@ int cfd_pred_star(const float* u, const float* v, const float* w, float* us,
                   float inv_2dy, float inv_2dz, float inv_dx2, float inv_dy2,
                   float inv_dz2, float xmin, float ymin, float dx, float dy,
                   int with_sources, float b0, float b1, float b2, float tref,
-                  int buoy_mask, cudaStream_t stream) {
+                  int buoy_mask, int z_base, int nz_g, cudaStream_t stream) {
   const Buoyancy buoy = {{b0, b1, b2}, tref, buoy_mask};
   pred_star_kernel<false><<<stencil_grid(nz, ny, nx), dim3(kTileX, kTileY),
                             0, stream>>>(
       u, v, w, us, vs, ws, scal, T, nz, ny, nx, nu, inv_2dx, inv_2dy,
       inv_2dz, inv_dx2, inv_dy2, inv_dz2, xmin, ymin, dx, dy, with_sources,
-      buoy, Weights{nullptr, nullptr, nx, ny});
+      buoy, Weights{nullptr, nullptr, nx, ny}, z_base, nz_g);
   return (int)cudaGetLastError();
 }
 
@@ -563,14 +588,14 @@ int cfd_pred_star_cons(const float* u, const float* v, const float* w,
                        const float* T, const float* xw, const float* yw,
                        int nz, int ny, int nx, float nu, float inv_2dz,
                        float inv_dz2, int with_sources, float b0, float b1,
-                       float b2, float tref, int buoy_mask,
-                       cudaStream_t stream) {
+                       float b2, float tref, int buoy_mask, int z_base,
+                       int nz_g, cudaStream_t stream) {
   const Buoyancy buoy = {{b0, b1, b2}, tref, buoy_mask};
   pred_star_kernel<true><<<stencil_grid(nz, ny, nx), dim3(kTileX, kTileY),
                            0, stream>>>(
       u, v, w, us, vs, ws, scal, T, nz, ny, nx, nu, 0.0f, 0.0f, inv_2dz,
       0.0f, 0.0f, inv_dz2, 0.0f, 0.0f, 0.0f, 0.0f, with_sources, buoy,
-      Weights{xw, yw, nx, ny});
+      Weights{xw, yw, nx, ny}, z_base, nz_g);
   return (int)cudaGetLastError();
 }
 
@@ -578,12 +603,13 @@ int cfd_poisson_input(const float* us, const float* vs, const float* ws,
                       const float* p, float* bt, const float* rod, int nz,
                       int ny, int nx, float inv_2dx, float inv_2dy,
                       float inv_2dz, float inv_dx2, float inv_dy2,
-                      float inv_dz2, int emit_rhs, cudaStream_t stream) {
+                      float inv_dz2, int emit_rhs, int z_base, int nz_g,
+                      cudaStream_t stream) {
   poisson_input_kernel<false><<<stencil_grid(nz, ny, nx),
                                 dim3(kTileX, kTileY), 0, stream>>>(
       us, vs, ws, p, bt, rod, nz, ny, nx, inv_2dx, inv_2dy, inv_2dz,
       inv_dx2, inv_dy2, inv_dz2, emit_rhs, Weights{nullptr, nullptr, nx, ny},
-      make_float4(0.0f, 0.0f, 0.0f, 0.0f));
+      make_float4(0.0f, 0.0f, 0.0f, 0.0f), z_base, nz_g);
   return (int)cudaGetLastError();
 }
 
@@ -593,12 +619,12 @@ int cfd_poisson_input_cons(const float* us, const float* vs, const float* ws,
                            const float* xw, const float* yw, int nz, int ny,
                            int nx, float inv_2dz, float inv_dz2, float cxm,
                            float cxp, float cym, float cyp, int emit_rhs,
-                           cudaStream_t stream) {
+                           int z_base, int nz_g, cudaStream_t stream) {
   poisson_input_kernel<true><<<stencil_grid(nz, ny, nx),
                                dim3(kTileX, kTileY), 0, stream>>>(
       us, vs, ws, p, bt, rod, nz, ny, nx, 0.0f, 0.0f, inv_2dz, 0.0f, 0.0f,
       inv_dz2, emit_rhs, Weights{xw, yw, nx, ny},
-      make_float4(cxm, cxp, cym, cyp));
+      make_float4(cxm, cxp, cym, cyp), z_base, nz_g);
   return (int)cudaGetLastError();
 }
 

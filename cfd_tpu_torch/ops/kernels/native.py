@@ -40,9 +40,11 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
 # argument types of each C entry point, stream last
 SIGNATURES = {
     # projection_kernels.cu (3D step, and the SGEMM both steps use)
+    # (the predictor and b~ take the global plane base and plane count
+    # of a z-decomposed shard's block last: 0 and nz on one device)
     "cfd_pred_star": [_P] * 8 + [_I] * 3 + [_F] * 11 + [_I] + [_F] * 4
-    + [_I, _P],
-    "cfd_poisson_input": [_P] * 6 + [_I] * 3 + [_F] * 6 + [_I, _P],
+    + [_I] * 3 + [_P],
+    "cfd_poisson_input": [_P] * 6 + [_I] * 3 + [_F] * 6 + [_I] * 3 + [_P],
     "cfd_sgemm_batched": [_I] * 3 + [_P, _L, _L, _P, _L, _L, _P, _L, _L]
     + [_I, _P],
     "cfd_tdma_fwd": [_P, _P, _F, _P, _P, _I, _L, _I, _P],
@@ -51,8 +53,9 @@ SIGNATURES = {
     "cfd_corrector": [_P] * 10 + [_I] * 3 + [_F] * 3 + [_P],
     # ... their consistent-scheme instantiations (weight rows xw, yw)
     "cfd_pred_star_cons": [_P] * 10 + [_I] * 3 + [_F] * 3 + [_I]
-    + [_F] * 4 + [_I, _P],
-    "cfd_poisson_input_cons": [_P] * 8 + [_I] * 3 + [_F] * 6 + [_I, _P],
+    + [_F] * 4 + [_I] * 3 + [_P],
+    "cfd_poisson_input_cons": [_P] * 8 + [_I] * 3 + [_F] * 6 + [_I] * 3
+    + [_P],
     "cfd_corrector_cons": [_P] * 12 + [_I] * 3 + [_F, _P],
     # gemm_3xtf32.cu (the DST products at spectral_precision="high")
     "cfd_sgemm_3xtf32_batched": [_I] * 3 + [_P, _L, _L, _P, _L, _L, _P, _L,
@@ -207,7 +210,8 @@ def count_launch(wrapper, scheme=None) -> None:
     """One launch on ``wrapper``'s counter of a spacing scheme:
     ``launches`` (a uniform grid, and the parity projection on its
     first-cell spacings), ``parity_launches`` or ``consistent_launches``
-    (the stretched instantiations)."""
+    (the stretched instantiations), or of a mode: ``global_nz_launches``
+    (a z-decomposed shard's block)."""
     name = "launches" if scheme is None else f"{scheme}_launches"
     setattr(wrapper, name, getattr(wrapper, name) + 1)
 
@@ -215,6 +219,7 @@ def count_launch(wrapper, scheme=None) -> None:
 def reset_counts(*wrappers) -> None:
     for w in wrappers:
         w.launches = w.parity_launches = w.consistent_launches = 0
+        w.global_nz_launches = 0
 
 
 def on_cpu(t: torch.Tensor) -> bool:

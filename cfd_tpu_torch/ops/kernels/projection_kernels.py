@@ -66,6 +66,15 @@ as b̃ with its emit flag set), and A5's non-DST ``corr_all``
 :meth:`ProjectionKernels.corrector_diag`, which is :func:`corrector` on a
 physical p.
 
+The z-decomposed step (`parallel.fused`) runs :func:`predictor_star`
+and :func:`poisson_input` in A1's and A5 ``btilde_k``'s ``global_nz``
+mode (`projection_kernels.py:561-567`, `:464-510`): given ``z_base``
+(the global plane of the block's plane 0) and ``nz_g`` (the global plane
+count) they take a shard's halo-padded block, put the z-shells and b̃'s
+z face term at global planes, and count on ``global_nz_launches``; the
+inverse DST and :func:`corrector` run unchanged on its 1-halo x̂ block
+(A5 ``corr_all``'s sharded form).
+
 Every wrapper below launches its CUDA kernel on a CUDA tensor and runs its
 plain PyTorch version (``*_plain``) on a CPU tensor; its ``launches``
 attribute counts kernel launches.  The CUDA sources are in
@@ -240,13 +249,32 @@ def _check(c: StencilConsts, fields, scalars):
 
 # ---- A1 (a): predictor u*, v*, w* ----------------------------------------
 
-def predictor_star_plain(u, v, w, scal, c: StencilConsts, T=None):
+def _keep_global_shells(out, f, c: StencilConsts, z_base, nz_g):
+    """``out`` with ``f`` on the planes of a z-decomposed shard's block
+    whose global index kg = z_base + k is a global z-shell or lies past
+    one (an edge shard's halo planes): the planes the ``global_nz``
+    kernels pass through (`projection_kernels.py:636-638`, ``kq > 0 &
+    kq < nz_g − 1``); ``out`` itself on one device (``nz_g`` None)."""
+    if nz_g is None:
+        return out
+    kg = z_base + torch.arange(c.nz, device=f.device)
+    shell = ((kg <= 0) | (kg >= nz_g - 1))[:, None, None]
+    return torch.where(shell, f, out)
+
+
+def predictor_star_plain(u, v, w, scal, c: StencilConsts, T=None,
+                         z_base: int = 0, nz_g: int = None):
     """u* = clamp(u + dt(−u·∇u + ν∇²u + src)) on the interior, shells
     passed through; ``scal`` = [dt, su, sv] (source amplitudes with the
     decay folded in); with ``c.buoyancy`` the step-start ``T`` adds
     b[c]·(T − T_ref) to component c's source.  Also the plain version of
     the 2D predictor: on a one-plane field the z terms vanish (the
-    reference's inv_dz2 = 0 idiom), leaving its 2D operation order."""
+    reference's inv_dz2 = 0 idiom), leaving its 2D operation order.
+
+    ``global_nz`` mode (A1's, `projection_kernels.py:561-567`): the fields
+    are a z-decomposed shard's halo-padded block whose local plane k is
+    global plane ``z_base + k`` of an ``nz_g``-plane domain; the global
+    z-shells, and the planes past them, pass through as well."""
     dt, su, sv = scal[0], scal[1], scal[2]
     i2x, i2y, i2z, ix2, iy2, iz2 = c.derivs()
     uc, vc, wc = interior(u), interior(v), interior(w)
@@ -281,7 +309,8 @@ def predictor_star_plain(u, v, w, scal, c: StencilConsts, T=None):
         coefs, tref = c.buoyancy
         dT = interior(T) - tref
         srcs = [s if b is None else s + b * dT for s, b in zip(srcs, coefs)]
-    return star(u, srcs[0]), star(v, srcs[1]), star(w, srcs[2])
+    return tuple(_keep_global_shells(star(f, src), f, c, z_base, nz_g)
+                 for f, src in zip((u, v, w), srcs))
 
 
 def check_buoyancy_input(c: StencilConsts, T, shape):
@@ -297,12 +326,26 @@ def check_buoyancy_input(c: StencilConsts, T, shape):
                          f"{tuple(T.shape)}")
 
 
-def predictor_star(u, v, w, scal, c: StencilConsts, T=None):
+def _counter(c: StencilConsts, nz_g):
+    """The launch counter of a stencil wrapper's call: the scheme's, or
+    ``global_nz`` for a z-decomposed shard's block."""
+    return "global_nz" if nz_g is not None else c.scheme
+
+
+def _z_args(c: StencilConsts, z_base, nz_g):
+    """The kernels' trailing (z_base, nz_g): (0, nz) on one device."""
+    return (0, c.nz) if nz_g is None else (int(z_base), int(nz_g))
+
+
+def predictor_star(u, v, w, scal, c: StencilConsts, T=None,
+                   z_base: int = 0, nz_g: int = None):
     """(u*, v*, w*) — ``pred_star_kernel<false>`` on CUDA, ``<true>`` on
     the consistent scheme's weight rows (counted by scheme,
-    `native.count_launch`); ``T`` is read with buoyancy only."""
+    `native.count_launch`); ``T`` is read with buoyancy only.  With
+    ``nz_g`` the ``global_nz`` mode of :func:`predictor_star_plain`,
+    counted on ``global_nz_launches``."""
     if native.on_cpu(u):
-        return predictor_star_plain(u, v, w, scal, c, T)
+        return predictor_star_plain(u, v, w, scal, c, T, z_base, nz_g)
     _check(c, (u, v, w), (scal,))
     check_buoyancy_input(c, T, (c.nz, c.ny, c.nx))
     us, vs, ws = (torch.empty_like(u) for _ in range(3))
@@ -313,25 +356,30 @@ def predictor_star(u, v, w, scal, c: StencilConsts, T=None):
                       *map(native.ptr, c.weights), c.nz, c.ny, c.nx,
                       float(c.nu),
                       c.inv_2dz, c.inv_dz2, int(c.with_sources),
-                      *c.buoyancy_args())
+                      *c.buoyancy_args(), *_z_args(c, z_base, nz_g))
     else:
         native.launch("cfd_pred_star", u.device, *fields, c.nz, c.ny, c.nx,
                       float(c.nu), *c.derivs(), c.xmin, c.ymin, c.dx, c.dy,
-                      int(c.with_sources), *c.buoyancy_args())
-    native.count_launch(predictor_star, c.scheme)
+                      int(c.with_sources), *c.buoyancy_args(),
+                      *_z_args(c, z_base, nz_g))
+    native.count_launch(predictor_star, _counter(c, nz_g))
     return us, vs, ws
 
 
 # ---- A1 (a'): spectral-solve input b̃ --------------------------------------
 
-def face_coeff(c: StencilConsts, dtype, device):
+def face_coeff(c: StencilConsts, dtype, device, z_base: int = 0,
+               nz_g: int = None):
     """(nz, ny, nx) Neumann-mirror face coefficients, in the reference
     kernel's summation order ((x + y) + z; the z term is 0 in 2D).  On the
     consistent scheme the x/y term is ((cxm·[i = 1] + cxp·[i = nx − 2])
-    + cym·[j = 1]) + cyp·[j = ny − 2] (`projection_kernels.py:658-668`)."""
-    def face(n, inv_d2):
-        k = torch.arange(n, device=device)
-        return inv_d2 * ((k == 1).to(dtype) + (k == n - 2).to(dtype))
+    + cym·[j = 1]) + cyp·[j = ny − 2] (`projection_kernels.py:658-668`).
+    With ``nz_g`` the z term sits at the global planes 1 and nz_g − 2
+    (local plane k is global plane ``z_base + k``, `:487-492`)."""
+    def face(n, inv_d2, base=0, n_g=None):
+        k = base + torch.arange(n, device=device)
+        n_g = n if n_g is None else n_g
+        return inv_d2 * ((k == 1).to(dtype) + (k == n_g - 2).to(dtype))
 
     if c.consistent:
         cxm, cxp, cym, cyp = c.face
@@ -344,40 +392,53 @@ def face_coeff(c: StencilConsts, dtype, device):
     else:
         cxy = (face(c.nx, c.inv_dx2)[None, :]
                + face(c.ny, c.inv_dy2)[:, None])
-    return cxy[None] + face(c.nz, c.inv_dz2)[:, None, None]
+    return cxy[None] + face(c.nz, c.inv_dz2, z_base, nz_g)[:, None, None]
 
 
-def poisson_input_plain(us, vs, ws, p, rod, c: StencilConsts):
-    """b̃ = face_coeff·p − (ρ/dt)∇·u* on the interior, zero shell."""
-    coeff = interior(face_coeff(c, p.dtype, p.device))
-    return set_interior(torch.zeros_like(p), coeff * interior(p)
-                        - rod * divergence_star(us, vs, ws, c))
+def poisson_input_plain(us, vs, ws, p, rod, c: StencilConsts,
+                        z_base: int = 0, nz_g: int = None):
+    """b̃ = face_coeff·p − (ρ/dt)∇·u* on the interior, zero shell.  With
+    ``nz_g`` the ``global_nz`` mode of A5's ``btilde_k``
+    (`projection_kernels.py:464-510`): the fields are a z-decomposed
+    shard's halo-padded block (local plane k = global plane
+    ``z_base + k``), the z face term lands on the global planes 1 and
+    nz_g − 2, and the global z-shells (and the planes past them) are
+    zero."""
+    coeff = interior(face_coeff(c, p.dtype, p.device, z_base, nz_g))
+    bt = set_interior(torch.zeros_like(p), coeff * interior(p)
+                      - rod * divergence_star(us, vs, ws, c))
+    return _keep_global_shells(bt, torch.zeros_like(bt), c, z_base, nz_g)
 
 
-def _launch_input(us, vs, ws, p, out, rod, c: StencilConsts, emit_rhs):
+def _launch_input(us, vs, ws, p, out, rod, c: StencilConsts, emit_rhs,
+                  z_args):
     """One ``poisson_input_kernel`` launch, ``<true>`` on the consistent
-    scheme (its b̃ form reads the face weights)."""
+    scheme (its b̃ form reads the face weights); ``z_args`` the block's
+    (z_base, nz_g)."""
     ptrs = map(native.ptr, (us, vs, ws, p, out, rod))
     if not c.consistent:
         native.launch("cfd_poisson_input", us.device, *ptrs, c.nz, c.ny,
-                      c.nx, *c.derivs(), emit_rhs)
+                      c.nx, *c.derivs(), emit_rhs, *z_args)
         return
     if not emit_rhs and c.face is None:
         raise ValueError("the consistent b̃ needs the face weights")
     native.launch("cfd_poisson_input_cons", us.device, *ptrs,
                   *map(native.ptr, c.weights), c.nz, c.ny, c.nx, c.inv_2dz,
-                  c.inv_dz2, *(c.face or (0.0,) * 4), emit_rhs)
+                  c.inv_dz2, *(c.face or (0.0,) * 4), emit_rhs, *z_args)
 
 
-def poisson_input(us, vs, ws, p, rod, c: StencilConsts):
+def poisson_input(us, vs, ws, p, rod, c: StencilConsts, z_base: int = 0,
+                  nz_g: int = None):
     """b̃ — ``poisson_input_kernel`` on CUDA (``<true>`` on the consistent
-    scheme, counted by scheme); ``rod`` a 0-d tensor."""
+    scheme, counted by scheme); ``rod`` a 0-d tensor.  With ``nz_g`` the
+    ``global_nz`` mode of :func:`poisson_input_plain`, counted on
+    ``global_nz_launches``."""
     if native.on_cpu(us):
-        return poisson_input_plain(us, vs, ws, p, rod, c)
+        return poisson_input_plain(us, vs, ws, p, rod, c, z_base, nz_g)
     _check(c, (us, vs, ws, p), (rod,))
     bt = torch.empty_like(p)
-    _launch_input(us, vs, ws, p, bt, rod, c, 0)
-    native.count_launch(poisson_input, c.scheme)
+    _launch_input(us, vs, ws, p, bt, rod, c, 0, _z_args(c, z_base, nz_g))
+    native.count_launch(poisson_input, _counter(c, nz_g))
     return bt
 
 
@@ -406,7 +467,7 @@ def poisson_rhs(us, vs, ws, rod, c: StencilConsts):
         return poisson_rhs_plain(us, vs, ws, rod, c)
     _check(c, (us, vs, ws), (rod,))
     rhs = torch.empty_like(us)
-    _launch_input(us, vs, ws, us, rhs, rod, c, 1)
+    _launch_input(us, vs, ws, us, rhs, rod, c, 1, _z_args(c, 0, None))
     native.count_launch(poisson_rhs, c.scheme)
     return rhs
 

@@ -18,7 +18,9 @@ the twin of the reference's full solve), and the analytic variant's
 :func:`tdma_z_bwd_analytic` launch the CUDA kernels on a CUDA tensor and
 the plain versions on a CPU tensor.  :func:`make_tdma_z` and
 :func:`make_tdma_z_bwd` are the counterparts of the reference's builders
-(`tdma.py:126`, `:265`), in its two variants:
+(`tdma.py:126`, `:265`); ``make_tdma_z(..., mu=None)`` takes μ at call
+time (the sharded z-solve's y-pencils, each with its rows of μ).  Two
+variants:
 
 * ``"stored"``: the forward sweep writes t beside d′ and the back
   substitution reads it — plain Thomas, bit-equal to the plain loops;
@@ -223,9 +225,28 @@ def make_tdma_z(nz: int, my: int, mx: int, mu, w, dtype=None, device=None,
     out.  ``mu`` is the (my, mx) float64 host plane (the coefficient
     planes derive from it here), ``w`` = 1/dz².  The wrappers launch the
     kernels on a CUDA tensor.  None when nz < 3 (no interior plane), as
-    the reference's builder returns for a shape it does not take."""
+    the reference's builder returns for a shape it does not take.
+
+    ``mu=None`` takes μ at call time instead, ``run(r, mu)`` with ``mu`` an
+    (my, mx) tensor on r's device (`tdma.py:126-137`): the sharded z-solve,
+    where each shard's y-pencil sees its own rows of the eigenvalue plane.
+    The kernels already read μ from device memory, so this is the stored
+    pair with the caller's plane; stored variant only, as in the
+    reference (the analytic variant's planes are built on the host)."""
     if nz < 3:
         return None
+    if mu is None:
+        if variant != "stored":
+            raise ValueError("call-time mu is stored-variant only")
+
+        def run_mu(r, mu_t):
+            if tuple(mu_t.shape) != (my, mx) or tuple(r.shape) != (nz, my,
+                                                                   mx):
+                raise ValueError(f"make_tdma_z: expected r of shape "
+                                 f"{(nz, my, mx)} and mu {(my, mx)}")
+            return tdma_z_bwd(*tdma_z_fwd(r, mu_t, w))
+
+        return run_mu
     mu_t, coef = _build_planes(mu, w, variant, dtype, device)
     if tuple(mu_t.shape) != (my, mx):
         raise ValueError("make_tdma_z: mu must be (my, mx)")

@@ -1,0 +1,63 @@
+"""Sharded solver entry points (counterpart of
+`cfd_tpu/parallel/sharded.py:66-218`).
+
+The reference has two ways to run a step on a mesh: its fused shard_map
+paths (`parallel.fused`) and, for everything else, the single-device jnp
+step under GSPMD placement.  GSPMD has no torch counterpart, so here every
+configuration runs the ported fused path (`fused.
+make_fused_sharded_projection_step`) or raises ``CFDError(
+ERROR_UNSUPPORTED)`` with the reason — as the reference's ``strict=True``
+does; nothing falls back.
+"""
+
+from __future__ import annotations
+
+from ..core.grid import Grid
+from ..core.status import CFDError, Status
+from ..solvers.ns.params import NSParams
+from .fused import (fused_sharded_unsupported_reason,
+                    make_fused_sharded_projection_step)
+from .mesh import Mesh, field_spec, shard_field
+
+_METHODS = ("explicit_euler", "rk2", "rk4", "projection")
+
+
+def make_sharded_raw_step(grid: Grid, params: NSParams, mesh: Mesh,
+                          method: str = "projection", **kw):
+    """``(raw_step, out_spec, place)``: the step on a `mesh.ShardedField`,
+    the placement of its output fields (`mesh.field_spec`) and
+    ``place(field)`` (`mesh.shard_field`).  The port runs its steps
+    eagerly, so the raw step and the step are one function.
+
+    Keywords: ``dtype``, ``poisson_method``, ``poisson_params``,
+    ``spectral_precision`` and ``plain`` go to the builder;
+    ``use_pallas=False`` asks for the reference's GSPMD jnp path, which
+    has no counterpart, and raises."""
+    if method not in _METHODS:
+        raise ValueError(f"unknown method {method!r}")
+    use_pallas = kw.pop("use_pallas", None)
+
+    def unsupported(reason):
+        raise CFDError(Status.ERROR_UNSUPPORTED,
+                       f"sharded {method} unavailable: {reason}")
+
+    if use_pallas is False:
+        unsupported("the GSPMD jnp step (use_pallas=False) has no "
+                    "counterpart in the port")
+    if method != "projection":
+        unsupported(f"the fused sharded {method} step is not ported yet")
+    reason = fused_sharded_unsupported_reason(grid, params, mesh)
+    if reason is not None:
+        unsupported(reason)
+    raw = make_fused_sharded_projection_step(grid, params, mesh, **kw)
+    return (raw, field_spec(mesh, grid.nz > 1, grid.shape),
+            lambda field: shard_field(field, mesh))
+
+
+def make_sharded_step(grid: Grid, params: NSParams, mesh: Mesh,
+                      method: str = "projection", **kw):
+    """``(step, place)``: ``place(field)`` shards the initial state;
+    ``step(field, dt, iter)`` runs one step on it, its output sharded the
+    same way.  Selection and keywords as :func:`make_sharded_raw_step`."""
+    raw, _, place = make_sharded_raw_step(grid, params, mesh, method, **kw)
+    return raw, place

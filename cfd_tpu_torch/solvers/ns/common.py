@@ -6,6 +6,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ...config import device_of, resolve_dtype
 from ...core.field import FlowField
 from ...core.grid import Grid
 from ...core.status import CFDError, Status
@@ -143,16 +144,27 @@ def z_constants(grid: Grid):
     return 0.0, 0.0
 
 
+def runs_plain(dtype, plain: bool = False) -> bool:
+    """A step runs its kernels' plain versions: when asked (``plain=True``)
+    or for any dtype but float32.  This is the reference's own dispatch:
+    it gates only its kernels on float32 and runs its jnp body otherwise
+    (`projection.py:256-292`, `euler.py:75-96`), so a float64 step on the
+    card is the plain step, on the card — the kernels are float32 by
+    design, and no kernel is tried first."""
+    return plain or dtype != torch.float32
+
+
+def kernel_step(dtype, device, plain: bool = False) -> bool:
+    """The step built for ``(dtype, device, plain)`` launches kernels: a
+    CUDA device and not :func:`runs_plain`."""
+    dev = device_of(device)
+    return dev.type == "cuda" and not runs_plain(resolve_dtype(dtype, dev),
+                                                 plain)
+
+
 def clamp(v: torch.Tensor, limit: float) -> torch.Tensor:
     """Clip to ±limit; NaN passes through (as ``jnp.clip``)."""
     return torch.clamp(v, -limit, limit)
-
-
-def field_diagnostics(field: FlowField):
-    """(max |velocity|, max p, max T) for stats."""
-    m2 = torch.amax(field.u * field.u + field.v * field.v
-                    + field.w * field.w)
-    return torch.sqrt(m2), torch.amax(field.p), torch.amax(field.T)
 
 
 def field_status_and_diagnostics(field: FlowField):
@@ -226,13 +238,15 @@ def compute_dt(field: FlowField, grid: Grid, params: NSParams) -> float:
     return max(DT_MIN_LIMIT, min(DT_MAX_LIMIT, dt_stable))
 
 
-def iterate_with_divergence_guard(step_once, field: FlowField, dt,
-                                  max_iter: int):
+def iterate_with_divergence_guard(step_once, field, dt, max_iter: int):
     """Run ``max_iter`` steps, freezing the state once a step fails
     (`common.py:232-254`, the reference's early return on DIVERGED as a
     scan).  A Python loop whose freeze is a ``torch.where`` on the device:
     it never reads a value on the host, so the steps queue back to back.
-    Returns (field, StepResult) with the number of steps applied."""
+    ``field`` is a `FlowField` or a `parallel.mesh.ShardedField`: the loop
+    reads only their ``select`` and ``diagnostics``, so the single-device
+    and the mesh solver share it, as in the reference.  Returns (field,
+    StepResult) with the number of steps applied."""
     dev = field.device
     status = torch.zeros((), dtype=torch.int32, device=dev)
     applied = torch.zeros((), dtype=torch.int32, device=dev)
@@ -240,13 +254,11 @@ def iterate_with_divergence_guard(step_once, field: FlowField, dt,
     for it in range(max_iter):
         new_field, step_res = step_once(field, dt, it)
         keep_new = status == 0
-        field = FlowField(*(torch.where(keep_new, getattr(new_field, n),
-                                        getattr(field, n))
-                            for n in ("u", "v", "w", "p", "rho", "T")))
-        status = torch.where(keep_new, step_res.status, status)
+        field = new_field.select(keep_new, field)
+        status = torch.where(keep_new, step_res.status.to(dev), status)
         applied = applied + keep_new.to(torch.int32)
-        res = torch.where(keep_new, step_res.residual, res)
-    vmax, pmax, tmax = field_diagnostics(field)
+        res = torch.where(keep_new, step_res.residual.to(dev), res)
+    vmax, pmax, tmax = field.diagnostics()
     return field, StepResult(iterations=applied, status=status,
                              residual=res, max_velocity=vmax,
                              max_pressure=pmax, max_temperature=tmax)

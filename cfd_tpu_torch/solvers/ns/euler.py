@@ -43,8 +43,9 @@ from ...ops.kernels.euler_kernels import (ExplicitConsts, Spacing,
                                           ThermalConsts, euler_step,
                                           euler_step_plain)
 from ..energy import validate_thermal_bc
-from .common import (iterate_with_divergence_guard, source_basis,
-                     step_result, stretch_gate, validate_grid_for_solver)
+from .common import (iterate_with_divergence_guard, kernel_step,
+                     runs_plain, source_basis, step_result, stretch_gate,
+                     validate_grid_for_solver)
 from .hybrid import check_params, pair_vjp
 from .params import (DT_CONSERVATIVE_LIMIT, NSParams, param_value,
                      source_amplitudes)
@@ -69,8 +70,6 @@ def check_explicit_slice(name: str, grid: Grid, params: NSParams, dtype,
         unsupported("a heat_source_func")
     if params.source_func is not None:
         unsupported("a custom source_func")
-    if device.type == "cuda" and dtype != torch.float32:
-        unsupported(f"{dtype} on CUDA (the kernels are float32)")
     return stretch
 
 
@@ -85,7 +84,7 @@ def explicit_setup(name: str, grid: Grid, params: NSParams, dtype, device,
     device = device_of(device)
     dtype = resolve_dtype(dtype, device)
     stretch = check_explicit_slice(name, grid, params, dtype, device)
-    if device.type == "cuda" and not plain:
+    if device.type == "cuda" and not runs_plain(dtype, plain):
         check_params(params, f"{name} step")
     validate_grid_for_solver(grid, grid.shape)
     if params.energy_enabled:
@@ -138,13 +137,13 @@ def make_euler_step(grid: Grid, params: NSParams, dtype=None, device=None,
     adjoint (`hybrid.pair_vjp`; reverse mode, w.r.t. the field and dt);
     on the CPU or with ``plain=True`` the plain step.
     """
-    if differentiable and not plain and device_of(device).type == "cuda":
+    if differentiable and kernel_step(dtype, device, plain):
         return pair_vjp(
             make_euler_step(grid, params, dtype, device),
             make_euler_step(grid, params, dtype, device, plain=True))
     dtype, device, consts, (sy, sx) = explicit_setup(
         "explicit Euler", grid, params, dtype, device, plain)
-    if plain:
+    if runs_plain(dtype, plain):
         fused = euler_step_plain
     else:
         fused = euler_step if grid.nz > 1 else euler2d_step

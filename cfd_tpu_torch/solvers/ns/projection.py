@@ -154,8 +154,8 @@ from ..poisson.nonuniform import (NonuniformPoissonProblem,
 from ..poisson.spectral import (make_dst2d_fused_pieces, make_dst_fused_pieces,
                                 make_fft_btilde_solver)
 from ..energy import apply_thermal_bcs, make_energy_step, validate_thermal_bc
-from .common import (field_status_and_diagnostics, step_result,
-                     validate_grid_for_solver)
+from .common import (field_status_and_diagnostics, kernel_step, runs_plain,
+                     step_result, validate_grid_for_solver)
 from .hybrid import check_params, pair_vjp
 from .params import NSParams
 
@@ -205,7 +205,7 @@ _PRECISIONS = {None: "highest", "highest": "highest", "high": "high",
 
 
 def _check_slice(grid: Grid, params: NSParams, poisson_method,
-                 spectral_precision, dtype, device):
+                 spectral_precision):
     method = Method(poisson_method)
     if method != Method.FFT_DIRECT and (method, True) not in _ITERATIVE:
         _unsupported(f"poisson_method {method.name}")
@@ -223,8 +223,6 @@ def _check_slice(grid: Grid, params: NSParams, poisson_method,
         _unsupported(f"spectral_precision={spectral_precision!r} (the "
                      f"ported ones are 'highest', IEEE fp32, 'high', "
                      f"3xTF32, and 'default', one TF32 pass)")
-    if device.type == "cuda" and dtype != torch.float32:
-        _unsupported(f"{dtype} on CUDA (the kernels are float32)")
 
 
 def thermal_post_step(grid: Grid, params: NSParams):
@@ -277,7 +275,11 @@ def make_projection_step(grid: Grid, params: NSParams, dtype=None,
 
     ``plain=True`` runs the plain versions on a CUDA device too, so
     ``chip_smoke.py`` can hold the kernel step against them and time
-    both.  On the CPU both settings run the same code.
+    both.  On the CPU both settings run the same code.  A ``dtype`` other
+    than float32 (float64) always runs the plain step, on the card too:
+    the reference's own dispatch, which gates only its kernels on float32
+    and runs its jnp body otherwise (`projection.py:256-292`), not a
+    fallback (`common.runs_plain`).
 
     ``differentiable=True`` maps as the reference maps it with
     ``use_pallas`` (`projection.py:124-140`): on the card (``plain=False``)
@@ -294,7 +296,7 @@ def make_projection_step(grid: Grid, params: NSParams, dtype=None,
     fields (μ, α, β).  A kernel step refuses ``params`` that require
     grad.
     """
-    if differentiable and not plain and device_of(device).type == "cuda":
+    if differentiable and kernel_step(dtype, device, plain):
         # the hybrid step (`projection.py:124-140`): the kernels' value,
         # the plain differentiable step's adjoint
         common = dict(dtype=dtype, poisson_method=poisson_method,
@@ -307,8 +309,9 @@ def make_projection_step(grid: Grid, params: NSParams, dtype=None,
                                  plain=True, **common))
     device = device_of(device)
     dtype = resolve_dtype(dtype, device)
-    _check_slice(grid, params, poisson_method, spectral_precision, dtype,
-                 device)
+    _check_slice(grid, params, poisson_method, spectral_precision)
+    # float64 (any dtype but float32) runs the plain step, on the card too
+    plain = runs_plain(dtype, plain)
     if device.type == "cuda" and not plain:
         check_params(params, "projection step")
     plain = plain or differentiable

@@ -24,13 +24,12 @@ from __future__ import annotations
 
 import torch
 
-from ...config import device_of
 from ...core.field import FlowField
 from ...core.grid import Grid
 from ...ops.kernels.rk2d import rk2d_stage
 from ...ops.kernels.rk_kernels import (momentum_rhs_plain, rk_stage,
                                        rk_stage_plain)
-from .common import iterate_with_divergence_guard
+from .common import iterate_with_divergence_guard, kernel_step, runs_plain
 from .euler import as_scalar, explicit_result, explicit_setup
 from .hybrid import pair_vjp
 from .params import NSParams, source_amplitudes
@@ -61,7 +60,7 @@ def make_momentum_rhs(grid: Grid, params: NSParams, dtype=None,
 
 def _make_rk_step(grid: Grid, params: NSParams, order: int, dtype, device,
                   differentiable: bool, plain: bool):
-    if differentiable and not plain and device_of(device).type == "cuda":
+    if differentiable and kernel_step(dtype, device, plain):
         # the hybrid step (`rk.py:264-270`): the stage kernels' value, the
         # plain step's adjoint
         return pair_vjp(
@@ -69,7 +68,7 @@ def _make_rk_step(grid: Grid, params: NSParams, order: int, dtype, device,
             _make_rk_step(grid, params, order, dtype, device, False, True))
     dtype, device, consts, (sy, sx) = explicit_setup(
         f"RK{order}", grid, params, dtype, device, plain)
-    if plain:
+    if runs_plain(dtype, plain):
         stage = rk_stage_plain
     else:
         stage = rk_stage if grid.nz > 1 else rk2d_stage

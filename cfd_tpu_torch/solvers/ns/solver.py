@@ -1,15 +1,23 @@
 """The pluggable NSSolver object (counterpart of
-`cfd_tpu/solvers/ns/solver.py`, single device).
+`cfd_tpu/solvers/ns/solver.py`).
 
 One class whose ``init`` builds the step and solve closures for a
 (grid, params) pair on the solver's ``device`` (the card unless set), with
 the reference's lifecycle (create → init → step/solve) and stats.
 Methods: ``explicit_euler``, ``rk2``, ``rk4`` and ``projection``; the
-projection's pressure solve is CG (the default, with ``poisson_params``),
-multigrid (``MULTIGRID``, the registry's ``projection_multigrid``) or the
-spectral direct solve (``FFT_DIRECT``), and any other method raises
-``CFDError(ERROR_UNSUPPORTED)`` at ``init``.  There is no ``mesh``:
-sharding is a later slice.
+projection takes every pressure solve `make_projection_step` builds, as
+the reference's ``init`` hands any method to it (`solver.py:106-111`):
+CG (the default, with ``poisson_params``), BiCGSTAB, Red-Black SOR,
+Jacobi, multigrid (the registry's ``projection_multigrid``) and the
+spectral direct solve (``FFT_DIRECT``).
+
+``mesh`` (a `parallel.mesh.Mesh`) places the solver on a domain
+decomposition (`solver.py:83`, `:97-105`): ``init`` builds the step
+through `parallel.sharded.make_sharded_raw_step`, ``place`` shards a
+field into a `parallel.mesh.ShardedField`, and ``step`` and ``solve``
+run on it.  The ported sharded step is the z-decomposed spectral
+projection (``FFT_DIRECT``); anything else raises
+``CFDError(ERROR_UNSUPPORTED)`` at ``init`` with its reason.
 """
 
 from __future__ import annotations
@@ -79,24 +87,34 @@ class NSSolver:
     spectral_precision: Optional[object] = None
     device: Optional[object] = None
     dtype: Optional[torch.dtype] = None
+    #: multi-device placement (`solver.py:83`): a `parallel.mesh.Mesh`;
+    #: ``init`` then builds the step through
+    #: `parallel.sharded.make_sharded_raw_step`, and ``step`` / ``solve``
+    #: take and return a `parallel.mesh.ShardedField` (``place``)
+    mesh: Optional[object] = None
 
     # bound at init()
     grid: Optional[Grid] = None
     params: Optional[NSParams] = None
     _step_fn: Optional[Callable] = None
     _solve_fn: Optional[Callable] = None
+    _place_fn: Optional[Callable] = None
 
     def init(self, grid: Grid, params: NSParams) -> Status:
         """Build the step/solve closures (mirrors solver_init); raises
         ``CFDError`` outside the ported slice."""
-        if self.method == "projection":
-            method = PoissonMethod(self.poisson_method)
-            if method not in (PoissonMethod.CG, PoissonMethod.MULTIGRID,
-                              PoissonMethod.FFT_DIRECT):
-                raise CFDError(
-                    Status.ERROR_UNSUPPORTED,
-                    f"solver '{self.name}': the {method.name} pressure "
-                    f"solve is not ported yet")
+        self._place_fn = None
+        if self.mesh is not None:
+            from ...parallel.sharded import make_sharded_raw_step
+            kw = {}
+            if self.method == "projection":
+                kw = dict(poisson_method=self.poisson_method,
+                          poisson_params=self.poisson_params,
+                          spectral_precision=self.spectral_precision)
+            step, _, self._place_fn = make_sharded_raw_step(
+                grid, params, self.mesh, self.method, dtype=self.dtype,
+                **kw)
+        elif self.method == "projection":
             step = make_projection_step(
                 grid, params, dtype=self.dtype,
                 poisson_method=self.poisson_method,
@@ -114,12 +132,21 @@ class NSSolver:
         self._step_fn, self._solve_fn = step, solve
         return Status.SUCCESS
 
+    def place(self, field: FlowField):
+        """Shard a single-device field over the solver's mesh (a
+        `parallel.mesh.ShardedField`); the field itself without a mesh."""
+        return field if self._place_fn is None else self._place_fn(field)
+
     def _require_init(self):
         if self._step_fn is None:
             raise CFDError(Status.ERROR_INVALID, "solver not initialized")
 
     def _sync(self):
-        if device_of(self.device).type == "cuda":
+        if self.mesh is not None:
+            for dev in set(self.mesh.devices.flat):
+                if dev.type == "cuda":
+                    torch.cuda.synchronize(dev)
+        elif device_of(self.device).type == "cuda":
             torch.cuda.synchronize(self.device)
 
     def step(self, field: FlowField, dt: Optional[float] = None,

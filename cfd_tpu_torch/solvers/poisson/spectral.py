@@ -18,7 +18,10 @@ carries its own Neumann shell.
   line solve: z in 3D, `:705-768`, y in 2D with the dense low-mode
   rescue, `:133-216`) or "auto";
 * :func:`make_dst_fused_pieces`, :func:`make_dst2d_fused_pieces` — the
-  factors the projection steps' kernels take (`:413-496`, `:237-307`).
+  factors the projection steps' kernels take (`:413-496`, `:237-307`);
+* :func:`make_dst_fused_sharded_pieces` — the z-decomposed step's
+  factors and its cross-shard z-solve (`:499-543`, `:668-702`): two
+  y-pencil ``all_to_all``s around the call-time-μ Thomas solve.
 
 The DST and z products run through `ops.kernels.rolling` at the caller's
 precision, ``"highest"`` (IEEE fp32), ``"high"`` (3xTF32) or
@@ -160,6 +163,84 @@ def make_dst_fused_pieces(problem: PoissonProblem, dtype=None, device=None,
                                         mu, w, dt, device)
     mu_t = torch.as_tensor(mu.astype(np_dt), dtype=dt, device=device)
     return mats_t, (mu_t, w)
+
+
+# ---- the z-decomposed DST-fused pieces ----------------------------------------
+
+def dst_fused_sharded_supported(problem: PoissonProblem,
+                                n_shards: int) -> bool:
+    """The z-sharded DST-fused projection applies (counterpart of
+    `spectral.py:499-511`): a 3D problem, nz and ny divisible by the shard
+    count (the y-pencil transposes) and at least two planes a shard.  The
+    reference's TPU gates (nx % 128, ny % 8, its Thomas kernel's shapes)
+    are not kept: the port's mode dims always equal the grid dims."""
+    P = int(n_shards)
+    return (tdma_z_supported(problem) and P >= 1 and problem.nz % P == 0
+            and problem.ny % P == 0 and problem.nz // P >= 2)
+
+
+def make_dst_fused_sharded_pieces(problem: PoissonProblem, n_shards: int,
+                                  comm, dtype=None, plain: bool = False):
+    """z-sharded twin of :func:`make_dst_fused_pieces` (`spectral.py:
+    514-543`), for the shards ``comm`` holds (`parallel.comm`): the xy
+    DSTs stay per shard (plane-local under z decomposition), and the z
+    line solve is the only cross-shard stage.
+
+    Returns ``(mats, zsolve)``: ``mats`` one (FxT, Fy, GxT, Gy) tuple per
+    local shard, on its device; ``zsolve(bt_blocks) → x̂_blocks`` takes
+    each local shard's (nz/P, ny, nx) xy-transformed b̃ (zero global
+    z-shell planes) and returns x̂ in the same layout, with the mirror
+    global z-shells on the edge shards' owned planes.  ``plain=True`` runs
+    the plain Thomas sweeps on a CUDA device too."""
+    P = int(n_shards)
+    if not dst_fused_sharded_supported(problem, P):
+        raise CFDError(Status.ERROR_UNSUPPORTED,
+                       f"the DST-fused sharded pieces need a 3D problem "
+                       f"with nz and ny divisible by {P} shards and >= 2 "
+                       f"planes a shard (got nz={problem.nz}, "
+                       f"ny={problem.ny})")
+    devices = [torch.device(d) for d in comm.devices]
+    dt = resolve_dtype(dtype, devices[0])
+    np_dt = np.float64 if dt == torch.float64 else np.float32
+    mats, mu, w = _dst_fused_mats(problem, np_dt)
+    per_device = {}
+    for d in devices:
+        if d not in per_device:
+            per_device[d] = tuple(torch.as_tensor(m, dtype=dt, device=d)
+                                  for m in mats)
+    zsolve = _make_sharded_zsolve(mu.astype(np_dt), w, problem.nz,
+                                  problem.ny, problem.nx, P, comm, dt,
+                                  plain)
+    return [per_device[d] for d in devices], zsolve
+
+
+def _make_sharded_zsolve(mu_host, w, nz, ny, nx, P, comm, dtype,
+                         plain: bool = False):
+    """The shared z-line-solve stage of the sharded transform-fused
+    projections (`spectral.py:668-702`): an ``all_to_all`` into
+    (nz, ny/P, nx) y-pencils, the stored Thomas solve with this shard's
+    rows of the (ny, nx) eigenvalue plane ``mu_host`` given at call time
+    (`ops.kernels.tdma.make_tdma_z` with ``mu=None``; the rows cut once,
+    here), and the ``all_to_all`` back."""
+    nyl = ny // P
+    run = tdma.make_tdma_z(nz, nyl, nx, None, w)
+    mu_rows = [torch.as_tensor(mu_host[i * nyl:(i + 1) * nyl], dtype=dtype,
+                               device=d)
+               for i, d in zip(comm.shards, comm.devices)]
+
+    def solve(a, mu_loc):
+        if plain:
+            return tdma.tdma_z_reference(a, mu_loc, w)
+        return run(a, mu_loc)
+
+    def zsolve(bt_blocks):
+        a = (comm.all_to_all(bt_blocks, 1, 0) if P > 1
+             else list(bt_blocks))
+        x = [solve(ai, mi) for ai, mi in zip(a, mu_rows)]
+        return comm.all_to_all(x, 0, 1) if P > 1 else x
+
+    zsolve.mu_rows, zsolve.w = mu_rows, w
+    return zsolve
 
 
 # ---- 2D: x-DST pair, y-line Thomas solve and dense low-mode rescue ----------

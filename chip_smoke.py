@@ -184,6 +184,28 @@ Then ``spectral_precision="default"`` and the differentiable steps:
   step's) and CG at 128³ (3 steps; relative L2 1e-3), each value
   bit-equal to the non-differentiable kernel step's rollout.
 
+Then the z-decomposed step (``cfd_tpu_torch.parallel``), its 4 z-shards
+emulated on the one card (``LocalComm``; one card cannot measure
+scaling):
+
+* phase 42: the ``global_nz`` predictor and b̃ kernels on the first, a
+  middle and the last shard's halo-padded block at 37×23×16 and on the
+  512³/4 slab (132×512×512, 130×512×512), the call-time-μ Thomas pair on
+  a (512, 128, 512) y-pencil with its rows of μ (all bit-equal to their
+  plain versions), the SGEMM / 3xTF32 inverse DST and the corrector on a
+  1-halo x̂ block;
+* phase 43: ``make_sharded_step`` on ``run_3d``'s 512³ configuration at
+  HIGHEST and HIGH, 3 warm-up and 5 timed steps, against the single-device
+  kernel step (HIGHEST at the reference's sharded bar, 2e-6 / 2e-5,
+  0.0 expected; HIGH after one step at its HIGH bars), ms/step and MLUPS
+  of both, and the emulated all_to_alls' and halo pads' ms;
+* phase 44: float64 projection (FFT_DIRECT, CG), Euler and RK2 steps on
+  the card at 33×17×9 against the CPU plain step, 1e-12, no kernel
+  launched;
+* phase 45: ``ProcessGroupComm`` on a one-rank NCCL group against
+  ``LocalComm`` with one shard, bit for bit (it shows the process-group
+  path runs on CUDA, and measures nothing).
+
 It checks status, finiteness, launch counters (set to 0 just before each
 main path and read just after) and kernel-vs-plain agreement; any
 failure exits non-zero.  The line before the last is a JSON object
@@ -374,6 +396,13 @@ N_ADJOINT = 1024       # bench.py:run_adjoint(1024, 50)
 ADJOINT_STEPS = 50
 N_HYBRID_FFT = 256     # the FFT_DIRECT hybrid projection rollout
 POISEUILLE_BARS = {0.0: 0.05, 1.5: 0.20, 2.0: 0.30}
+
+# Phases 42-45: the z-decomposed spectral step (cfd_tpu_torch.parallel)
+SHARDS = 4             # z-shards emulated on the one card (LocalComm)
+A1_SHARD = "cfd_tpu/ops/pallas/projection_kernels.py:561"     # global_nz
+A5_BT_SHARD = "cfd_tpu/ops/pallas/projection_kernels.py:464"  # btilde_k
+A5_CORR_SHARD = "cfd_tpu/ops/pallas/projection_kernels.py:760"  # corr_all
+A4_MU = "cfd_tpu/ops/pallas/tdma.py:126"              # make_tdma_z(mu=None)
 
 # The card's peaks for a kernel's bound (H100 SXM data sheet, at 700 W):
 # device memory 3.35 TB/s, float32 outside the tensor cores 67 TFLOP/s,
@@ -4537,6 +4566,389 @@ def main() -> int:
     print(f"phase 41 took {time.perf_counter() - t_phase:.1f} s",
           flush=True)
 
+    # ---- phase 42: the sharded step's kernels against their plain versions
+    # The global_nz predictor and b~ on the blocks of the first, a middle
+    # and the last of 4 z-shards (2-halo and 1-halo blocks, z_base from
+    # the shard's first plane), at 37x23x16 and on the 512^3/4 slab;
+    # the call-time-mu Thomas pair on a shard's (512, 128, 512) y-pencil
+    # with its rows of mu; the SGEMM / 3xTF32 inverse DST and the
+    # corrector on a middle shard's 1-halo x^ block.  The stencil and
+    # Thomas kernels are held bit for bit (BIT: max|kernel - plain| = 0).
+    t_phase = time.perf_counter()
+    import dataclasses
+
+    from cfd_tpu_torch.parallel import (LocalComm, ProcessGroupComm,
+                                        gather_field, make_mesh,
+                                        make_sharded_step)
+    bit = (0.0, False)
+
+    def zpad(x, k):
+        z = torch.zeros_like(x[:k])
+        return torch.cat([z, x, z])
+
+    for shape in ((16, 23, 37), (N_BIG, N_BIG, N_BIG)):
+        nz_g = shape[0]
+        big = nz_g == N_BIG
+        nzl = nz_g // SHARDS
+        tag = "x".join(map(str, shape[::-1]))
+        print(f"phase 42 global_nz kernels vs plain at {tag} over {SHARDS} "
+              f"z-shards", flush=True)
+        f, (fxt, fy, gxt, gy), mu, w, c = make_inputs(shape, SEED + 42)
+        dt = torch.full((), 1e-3, device=dev)
+        scal = torch.stack([dt, torch.full((), 0.1, device=dev),
+                            torch.full((), 0.05, device=dev)])
+        rod, s = 1.0 / dt, dt / 1.0
+        c_pred = dataclasses.replace(c, nz=nzl + 4)
+        c_bt = dataclasses.replace(c, nz=nzl + 2)
+        u2, v2, w2 = (zpad(x, 2) for x in (f.u, f.v, f.w))
+        p1 = zpad(f.p, 1)
+        for shard in (0, SHARDS // 2, SHARDS - 1):
+            z_off = shard * nzl
+            timed = big and shard == SHARDS // 2
+            stag = f"{tag} shard {shard}"
+            blk = [x[z_off:z_off + nzl + 4] for x in (u2, v2, w2)]
+            cells = blk[0].numel()
+            us, vs, ws = check(
+                "sharded", stag, timed, pkm.predictor_star, A1_SHARD, SRC,
+                lambda: pkm.predictor_star(*blk, scal, c_pred, None,
+                                           z_off - 2, nz_g),
+                lambda: pkm.predictor_star_plain(*blk, scal, c_pred, None,
+                                                 z_off - 2, nz_g),
+                ("u*", "v*", "w*"), (bit,) * 3,
+                work=((*blk, scal),
+                      FLOPS_PER_POINT["predictor_star"] * cells),
+                name="predictor_star[global_nz]")
+            pb = p1[z_off:z_off + nzl + 2]
+            check("sharded", stag, timed, pkm.poisson_input, A5_BT_SHARD,
+                  SRC,
+                  lambda: pkm.poisson_input(us[1:-1], vs[1:-1], ws[1:-1], pb,
+                                            rod, c_bt, z_off - 1, nz_g),
+                  lambda: pkm.poisson_input_plain(us[1:-1], vs[1:-1],
+                                                  ws[1:-1], pb, rod, c_bt,
+                                                  z_off - 1, nz_g),
+                  ("b~",), (bit,),
+                  work=((us[1:-1], vs[1:-1], ws[1:-1], pb),
+                        FLOPS_PER_POINT["poisson_input"] * pb.numel()),
+                  name="poisson_input[global_nz]")
+            del blk, us, vs, ws, pb
+        if big:
+            # the corrector's 1-halo x^ block of a middle shard: the
+            # inverse DST (SGEMM, 3xTF32 at HIGH) and the corrector
+            nb = nzl + 2
+            z0 = (SHARDS // 2) * nzl - 1
+            xb = f.p[z0:z0 + nb]
+            usb, vsb, wsb = (x[z0:z0 + nb] for x in (f.u, f.v, f.w))
+            cb = dataclasses.replace(c, nz=nb)
+            dot_ops = (gemm_flops(nb * N_BIG, N_BIG, N_BIG)
+                       + gemm_flops(N_BIG, N_BIG, N_BIG, nb))
+            pbk = check(
+                "sharded", f"{tag} x^ block", True, rolling.plane_dot,
+                A5_CORR_SHARD, SRC,
+                lambda: rolling.plane_dot(xb, gxt, gy),
+                lambda: rolling.plane_dot_plain(xb, gxt, gy),
+                ("inverse",), (gemm,), work=((xb, gxt, gy), dot_ops),
+                library=ieee_matmul(lambda: torch.einsum(
+                    "ij,kjl,lm->kim", gy, xb, gxt)))[0]
+            check("sharded-high", f"{tag} x^ block", True,
+                  rolling.plane_dot, A5_CORR_SHARD, SRC_GEMM,
+                  lambda: rolling.plane_dot(xb, gxt, gy, "high"),
+                  lambda: rolling.plane_dot_plain(xb, gxt, gy, "high"),
+                  ("inverse",), (gemm,), work=((xb, gxt, gy), 3 * dot_ops),
+                  library=ieee_matmul(lambda: torch.einsum(
+                      "ij,kjl,lm->kim", gy, xb, gxt)),
+                  name="plane_dot[3xtf32]", rate=TF32_TC_FLOPS)
+            check("sharded", f"{tag} x^ block", True, pkm.corrector,
+                  A5_CORR_SHARD, SRC,
+                  lambda: pkm.corrector(usb, vsb, wsb, pbk, s, cb),
+                  lambda: pkm.corrector_plain(usb, vsb, wsb, pbk, s, cb),
+                  ("u", "v", "w", "max|u|^2", "max p", "max|p|"),
+                  (fld,) * 3 + ((TOL_DIAG, True), gemm, gemm),
+                  work=((usb, vsb, wsb, pbk),
+                        FLOPS_PER_POINT["corrector"] * pbk.numel()))
+            del xb, usb, vsb, wsb, pbk
+        del f, u2, v2, w2, p1
+        torch.cuda.empty_cache()
+    # the call-time-mu Thomas pair on the 512^3 z-solve's y-pencils: a
+    # middle shard's (512, 128, 512) slab with its rows of mu
+    n = N_BIG
+    nyl = n // SHARDS
+    prob_s = PoissonProblem(n, n, n, 1.0 / (n - 1), 1.0 / (n - 1),
+                            1.0 / (n - 1))
+    _, zs_probe = spectral.make_dst_fused_sharded_pieces(
+        prob_s, SHARDS, LocalComm([dev] * SHARDS), torch.float32)
+    mu_rows, w_s = zs_probe.mu_rows[SHARDS // 2], zs_probe.w
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    r = torch.randn((n, nyl, n), generator=gen, device=dev)
+    r[0] = 0.0
+    r[-1] = 0.0
+    ptag = f"{n}x{nyl}x{n} pencil"
+    print(f"phase 42 call-time-mu Thomas vs plain at {ptag}", flush=True)
+    d, t = check("sharded", ptag, True, tdma.tdma_z_fwd, A4_MU, SRC,
+                 lambda: tdma.tdma_z_fwd(r, mu_rows, w_s),
+                 lambda: tdma.tdma_z_fwd_reference(r, mu_rows, w_s),
+                 ("d'", "t"), (bit, bit),
+                 work=((r, mu_rows), FLOPS_PER_POINT["tdma_fwd"]
+                       * r.numel()))
+    check("sharded", ptag, True, tdma.tdma_z_bwd, A4_MU, SRC,
+          lambda: tdma.tdma_z_bwd(d, t),
+          lambda: tdma.tdma_z_bwd_reference(d, t), ("x^",), (bit,),
+          work=((d, t), FLOPS_PER_POINT["tdma_bwd"] * d.numel()))
+    run_mu = tdma.make_tdma_z(n, nyl, n, None, w_s)
+    xk, xp = run_mu(r, mu_rows), tdma.tdma_z_reference(r, mu_rows, w_s)
+    sync()
+    compare(ptag, "make_tdma_z(mu=None).x^", xk, xp, *bit)
+    del r, d, t, xk, xp, zs_probe
+    torch.cuda.empty_cache()
+    print(f"phase 42 took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+    # ---- phase 43: the sharded step at full width ---------------------------
+    # make_sharded_step on run_3d's 512^3 configuration over 4 z-shards
+    # emulated on the one card (LocalComm), at HIGHEST and HIGH: 3 warm-up
+    # and 5 timed steps each, against the single-device kernel step from
+    # the same field (phase 4's, timed here in the same way).  One card
+    # cannot measure scaling: what this times is the per-shard kernels at
+    # their shard shapes plus the emulated collectives' copies.
+    t_phase = time.perf_counter()
+    shape = (n, n, n)
+    cells = n ** 3
+    grid = Grid.uniform(n, n, n, zmin=0.0, zmax=1.0)
+    params = NSParams(source_amplitude_u=0.0, source_amplitude_v=0.0,
+                      mu=0.01)
+    mesh4 = make_mesh([dev] * SHARDS, axes=("z",))
+    sharded_rec = {}
+
+    def timed_steps(stepf, f0):
+        run_steps(stepf, f0, 1e-4, 3)
+        sync()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out, res = run_steps(stepf, f0, 1e-4, TIMED_STEPS)
+        end.record()
+        sync()
+        return out, res, start.elapsed_time(end) / TIMED_STEPS
+
+    def sharded_wrappers(high):
+        counts = {"predictor_star[global_nz]":
+                  pkm.predictor_star.global_nz_launches,
+                  "poisson_input[global_nz]":
+                  pkm.poisson_input.global_nz_launches,
+                  "tdma_z_fwd": tdma.tdma_z_fwd.launches,
+                  "tdma_z_bwd": tdma.tdma_z_bwd.launches,
+                  "corrector": pkm.corrector.launches}
+        if high:
+            counts["plane_dot[3xtf32]"] = rolling.plane_dot.high_launches
+        else:
+            counts["plane_dot"] = rolling.plane_dot.launches
+        return counts
+
+    for prec in (None, "high"):
+        label = f"phase 43 sharded {n}^3 over {SHARDS} z-shards " \
+                f"{'HIGH' if prec else 'HIGHEST'}"
+        step_s, place = make_sharded_step(
+            grid, params, mesh4, "projection",
+            poisson_method=Method.FFT_DIRECT, spectral_precision=prec)
+        single = make_projection_step(grid, params, torch.float32,
+                                      Method.FFT_DIRECT, device=dev,
+                                      spectral_precision=prec)
+        f0 = tg_field(shape)
+        fs0 = place(f0)
+        run_steps(step_s, fs0, 1e-4, 3)
+        sync()
+        pkm.reset_launch_counts()
+        tdma.tdma_z_fwd.launches = tdma.tdma_z_bwd.launches = 0
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fs, res_s = run_steps(step_s, fs0, 1e-4, TIMED_STEPS)
+        end.record()
+        sync()
+        ms_s = start.elapsed_time(end) / TIMED_STEPS
+        counts = sharded_wrappers(prec == "high")
+        print(f"{label}: launch counts over the main path {counts}",
+              flush=True)
+        if min(counts.values()) <= 0:
+            fail(f"{label}: a kernel of the sharded step not launched")
+        if prec == "high" and rolling.plane_dot.launches:
+            fail(f"{label}: an SGEMM launched on the HIGH path")
+        launch_counts["sharded-high" if prec else "sharded"] = counts
+        f1, res_1, ms_1 = timed_steps(single, f0)
+        g = gather_field(fs)
+        print(f"{label}: {ms_s:.3f} ms/step, "
+              f"{cells / (ms_s * 1e-3) / 1e6:.1f} MLUPS; single-device "
+              f"kernel step {ms_1:.3f} ms/step, "
+              f"{cells / (ms_1 * 1e-3) / 1e6:.1f} MLUPS; status "
+              f"{int(res_s.status)}, max|u| {float(res_s.max_velocity)!r} "
+              f"(single {float(res_1.max_velocity)!r})", flush=True)
+        if int(res_s.status) != 0 or not bool(g.is_finite()):
+            fail(f"{label}: nonzero status or non-finite fields")
+        diffs = {}
+        if prec is None:
+            # the same arithmetic at every point and mode: expect 0.0;
+            # the bar is the reference's sharded-vs-single-chip one
+            # (tests/parallel/test_fused_sharded.py:83-87)
+            for name, bar in (("u", 2e-6), ("v", 2e-6), ("w", 2e-6),
+                              ("p", 2e-5)):
+                diffs[name] = compare(f"{label} {TIMED_STEPS} steps vs "
+                                      f"single-device", name,
+                                      getattr(g, name), getattr(f1, name),
+                                      bar, False)[0]
+            for a in ("max_velocity", "max_pressure"):
+                diffs[a] = abs(float(getattr(res_s, a))
+                               - float(getattr(res_1, a)))
+            print(f"{label}: max|sharded - single| {diffs} (0.0 expected "
+                  f"at HIGHEST)", flush=True)
+            if not diffs["max_velocity"] <= TOL_DIAG * float(
+                    res_1.max_velocity):
+                fail(f"{label}: diagnostics off the single-device step's")
+        else:
+            # the single-device HIGH step rebuilds t analytically, the
+            # sharded z-solve stores it: held after one step at the
+            # reference's HIGH bars (tests/math/test_mega_kernels.py:
+            # 134-137) times max(1, max|.|), u, v, w with what the p
+            # difference passes on through the corrector
+            g1 = gather_field(step_s(fs0, 1e-4, 0)[0])
+            s1 = single(f0, 1e-4, 0)[0]
+            sync()
+            tag = f"{label} first step vs single-device HIGH"
+
+            def held(name, bar, passed=0.0):
+                ref = getattr(s1, name)
+                scale = max(1.0, float(ref.abs().max()))
+                return compare(tag, name, getattr(g1, name), ref,
+                               bar * scale + passed, False)[0]
+
+            diffs["p"] = dp = held("p", HIGH_P)
+            diffs["u"] = held("u", HIGH_U, 1e-4 / grid.dx0 * dp)
+            diffs["v"] = held("v", HIGH_U, 1e-4 / grid.dy0 * dp)
+            diffs["w"] = held("w", HIGH_U, 1e-4 / grid.dz0 * dp)
+            del g1, s1
+        sharded_rec["highest" if prec is None else "high"] = {
+            "ms": ms_s, "mlups": cells / (ms_s * 1e-3) / 1e6,
+            "single_ms": ms_1, "single_mlups": cells / (ms_1 * 1e-3) / 1e6,
+            "max_abs_diff": diffs}
+        del f0, fs0, fs, g, f1
+        torch.cuda.empty_cache()
+    # the emulated collectives alone, on this step's shapes: the two
+    # y-pencil all_to_alls of the z-solve and the halo pads (2 planes of
+    # u, v, w; 1 plane of x^) by concatenation
+    comm4 = mesh4.comm
+    slabs = [torch.randn((n // SHARDS, n, n), device=dev)
+             for _ in range(SHARDS)]
+    pencils = comm4.all_to_all(slabs, 1, 0)
+    ms_a2a = (cuda_ms(lambda: comm4.all_to_all(slabs, 1, 0))
+              + cuda_ms(lambda: comm4.all_to_all(pencils, 0, 1)))
+
+    def pads():
+        for k in (2, 2, 2, 1):
+            [torch.cat([lo, b, hi]) for b, (lo, hi) in
+             zip(slabs, comm4.halo(slabs, k))]
+
+    ms_pad = cuda_ms(pads)
+    sharded_rec["all_to_all_ms"] = ms_a2a
+    sharded_rec["halo_pad_ms"] = ms_pad
+    print(f"phase 43 the two emulated all_to_alls {ms_a2a:.3f} ms a step "
+          f"(2 x 2 x {n}^3 x 4 bytes moved), the halo pads by "
+          f"concatenation {ms_pad:.3f} ms a step", flush=True)
+    del slabs, pencils
+    torch.cuda.empty_cache()
+    print(f"phase 43 took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+    # ---- phase 44: float64 steps on the card --------------------------------
+    # the plain step, on the card (the reference gates only its kernels on
+    # float32): FFT_DIRECT and CG projection, Euler and RK2 at 33x17x9
+    # against the same step on the CPU, 3 steps, at 1e-12; no kernel
+    # wrapper may launch
+    t_phase = time.perf_counter()
+    g64 = Grid.uniform(33, 17, 9, zmin=0.0, zmax=1.0)
+    rng64 = np.random.default_rng(SEED + 44)
+    f64_cpu = FlowField.initialize(g64, dtype=torch.float64, device="cpu")
+    f64_cpu = f64_cpu.replace(**{
+        k: getattr(f64_cpu, k) + torch.from_numpy(
+            rng64.normal(0.0, 0.05, g64.shape)) for k in "uvwp"})
+    f64_dev = FlowField(*(getattr(f64_cpu, k).to(dev)
+                          for k in ("u", "v", "w", "p", "rho", "T")))
+    f64_makers = {
+        "projection_fft_direct": lambda d: make_projection_step(
+            g64, NSParams(), torch.float64, Method.FFT_DIRECT, device=d),
+        "projection_cg": lambda d: make_projection_step(
+            g64, NSParams(), torch.float64, Method.CG, device=d),
+        "euler": lambda d: make_euler_step(g64, NSParams(), torch.float64,
+                                           d),
+        "rk2": lambda d: make_rk2_step(g64, NSParams(), torch.float64, d)}
+    f64_rec = {}
+    for name, maker in f64_makers.items():
+        pkm.reset_launch_counts()
+        for w_ in (ekm.euler_step, rkm.rk_stage, tdma.tdma_z_fwd,
+                   tdma.tdma_z_bwd, cgk.lap_dot, cgk.cg_update):
+            w_.launches = 0
+        fd, rd = run_steps(maker(dev), f64_dev, 1e-4, 3)
+        sync()
+        touched = sum((pkm.predictor_star.launches, pkm.poisson_input.launches,
+                       pkm.poisson_rhs.launches, pkm.corrector.launches,
+                       rolling.plane_dot.launches, ekm.euler_step.launches,
+                       rkm.rk_stage.launches, tdma.tdma_z_fwd.launches,
+                       tdma.tdma_z_bwd.launches, cgk.lap_dot.launches,
+                       cgk.cg_update.launches))
+        fc, rc = run_steps(maker("cpu"), f64_cpu, 1e-4, 3)
+        err = max(float((getattr(fd, k).cpu() - getattr(fc, k)).abs().max())
+                  for k in "uvwp")
+        f64_rec[name] = {"max_abs_diff": err, "status": int(rd.status),
+                         "kernel_launches": touched}
+        print(f"phase 44 float64 {name} 33x17x9 on {dev} vs cpu, 3 steps: "
+              f"max|diff| {err!r} (bar 1e-12), status {int(rd.status)} / "
+              f"{int(rc.status)}, kernel launches {touched}", flush=True)
+        if fd.u.dtype != torch.float64 or fd.u.device.type != "cuda":
+            fail(f"phase 44 {name}: not a float64 step on the card")
+        if not err <= 1e-12 or int(rd.status) != int(rc.status):
+            fail(f"phase 44 {name}: float64 on the card off the CPU step")
+        if touched:
+            fail(f"phase 44 {name}: a float64 step launched a kernel")
+    print(f"phase 44 took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+    # ---- phase 45: a one-rank NCCL group ------------------------------------
+    # ProcessGroupComm on a one-rank NCCL group (file:// init) against
+    # LocalComm with P = 1, 3 steps at 128x64x16, bit for bit: shows the
+    # process-group path builds and runs on CUDA; it measures nothing
+    # about scaling (one rank exchanges nothing)
+    t_phase = time.perf_counter()
+    import tempfile
+
+    import torch.distributed as dist
+
+    g45 = Grid.uniform(128, 64, 16, zmin=0.0, zmax=1.0)
+    f45 = noisy(FlowField.initialize(g45, dtype=torch.float32, device=dev),
+                SEED + 45)
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/init",
+                                world_size=1, rank=0)
+        try:
+            comm1 = ProcessGroupComm(device=dev)
+            outs = {}
+            for kind, mesh1 in (
+                    ("nccl", make_mesh([dev], axes=("z",), comm=comm1)),
+                    ("local", make_mesh([dev], axes=("z",)))):
+                step1, place1 = make_sharded_step(g45, NSParams(), mesh1)
+                fo, ro = run_steps(step1, place1(f45), 1e-3, 3)
+                outs[kind] = (gather_field(fo), ro)
+            sync()
+        finally:
+            dist.destroy_process_group()
+    gn, gl = (outs[k][0] for k in ("nccl", "local"))
+    nccl_diff = max(float((getattr(gn, k) - getattr(gl, k)).abs().max())
+                    for k in "uvwp")
+    print(f"phase 45 one-rank NCCL group vs LocalComm(P=1) 128x64x16, 3 "
+          f"steps: max|diff| {nccl_diff!r}, status "
+          f"{int(outs['nccl'][1].status)}", flush=True)
+    if nccl_diff != 0.0 or int(outs["nccl"][1].status) != 0:
+        fail("phase 45: the process-group step differs from LocalComm's")
+    del f45, outs, gn, gl
+    print(f"phase 45 took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
     kernels = []
     for (path, name), rec in records.items():
         launches = launch_counts.get(path, {}).get(name)
@@ -4581,6 +4993,9 @@ def main() -> int:
                       "step_ms_default": ms3d, "step_ms_2d_default": ms2d,
                       "default_vs_highest": vs_high,
                       "differentiable": hybrid_rec,
+                      "sharded_step_512": sharded_rec,
+                      "float64_on_cuda": f64_rec,
+                      "nccl_one_rank_max_abs_diff": nccl_diff,
                       "launch_counts": launch_counts,
                       "card": card}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -2,6 +2,7 @@
 imports without nvcc or triton, configurations outside the ported slice
 raise, and state and parameters carry across from the reference."""
 
+import contextlib
 import dataclasses
 import os
 import pkgutil
@@ -24,7 +25,7 @@ from cfd_tpu_torch.boundary import BCType, ThermalBCConfig
 from cfd_tpu_torch.config import device_of, resolve_dtype
 from cfd_tpu_torch.entry import entry
 from cfd_tpu_torch.interop import field_from_numpy, field_to_numpy
-from cfd_tpu_torch.solvers.ns.common import z_constants
+from cfd_tpu_torch.solvers.ns.common import kernel_step, z_constants
 from cfd_tpu_torch.solvers.ns.euler import make_euler_step
 from cfd_tpu_torch.solvers.ns.params import NSParams
 from cfd_tpu_torch.solvers.ns.projection import make_projection_step
@@ -165,7 +166,6 @@ def test_unsupported_configurations_raise(case):
 EXPLICIT_UNSUPPORTED = {
     "source_func": dict(params=NSParams(
         source_func=lambda X, Y, Z, t: (0.0, 0.0, 0.0))),
-    "float64_on_cuda": dict(dtype=torch.float64, device="cuda"),
     "heat_source_func": dict(params=NSParams(alpha=1e-3,
                                              heat_source_func=_heat)),
     "2d_heat_source_func": dict(grid=Grid.uniform(128, 16),
@@ -403,12 +403,25 @@ def test_default_poisson_method_is_cg_in_both_packages():
     assert theirs["poisson_params"].default is None
 
 
-def test_float64_on_cuda_is_refused():
-    """The kernels are float32; the check runs before any device use."""
-    with pytest.raises(CFDError) as err:
-        make_projection_step(_grid(), NSParams(), dtype=torch.float64,
-                             device="cuda")
-    assert err.value.status == Status.ERROR_UNSUPPORTED
+@pytest.mark.parametrize("builder", [make_projection_step, make_euler_step,
+                                     make_rk2_step, make_rk4_step],
+                         ids=["projection", "euler", "rk2", "rk4"])
+def test_float64_on_cuda_builds_the_plain_step(builder):
+    """Repaired fault C2 (these builders raised ``ERROR_UNSUPPORTED`` for
+    float64 on CUDA): a float64 step on the card is the plain step there,
+    the reference's own float32 gate on its kernels.  The step's dispatch
+    says it launches no kernel, and the builder passes its dtype check and
+    reaches the device — on a machine without CUDA, the device check's
+    RuntimeError.  That the float64 step enters no kernel wrapper is
+    `test_torch_solver_repairs.py::test_float64_step_reaches_no_kernel_
+    wrapper`; its values on the card against the CPU are ``chip_smoke.py``
+    phase 44."""
+    assert not kernel_step(torch.float64, "cuda")
+    assert kernel_step(torch.float32, "cuda")
+    expect = (contextlib.nullcontext() if torch.cuda.is_available()
+              else pytest.raises(RuntimeError, match="cuda"))
+    with expect:
+        builder(_grid(), NSParams(), dtype=torch.float64, device="cuda")
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])

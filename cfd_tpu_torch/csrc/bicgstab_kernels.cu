@@ -18,6 +18,13 @@
 //          and the tt breakdown, the effective alpha and omega (zeroed on
 //          breakdown or early exit), the residual, convergence, the omega
 //          breakdown, stagnation and the running flag.
+//   B1s the same three kernels' <true> instantiations + bicg_fold_kernel,
+//       then bicg_pv/st/xr_recur_kernel on the shards' sums
+//       <- BiCGSTABKernels(global_nz=...) (bicgstab_kernels.py:56-130): pv
+//          and st on a z-shard's halo-padded block, outputs masked at
+//          global planes, dots over the owned planes; xr on the owned
+//          block (the reference runs its plain xr on a zero-padded owned
+//          block, parallel/fused_bicgstab.py:229-232).
 //   B2  bicg_solve_kernel
 //       <- make_bicgstab_vmem_solve (cfd_tpu/ops/pallas/vmem_small.py:326):
 //          the whole un-rotated BiCGSTAB loop (:364-404) in one cooperative
@@ -116,36 +123,52 @@ __device__ __forceinline__ float lap7(G g, long long c, int k, int j, int i,
 }
 
 // ---- B1 pv: p', v', <rhat, v'> ---------------------------------------------
+//
+// kSharded (the passes' global_nz mode, bicgstab_kernels.py:56-130): pv and
+// st take a z-shard's halo-padded block of nz = nzl + 2 planes and launch
+// over its owned planes k = 1..nz-2, writing owned-size outputs (plane k to
+// plane k-1; r-hat is read owned-size too); local plane k is global plane
+// kg = z_base + k of nz_g.  The stencil outputs are zero outside the global
+// Dirichlet-0 interior; the work-vector combinations at the neighbours read
+// the halo planes as they are, the neighbour shard's values.  xr is
+// pointwise: its sharded form runs on the owned block (nz = nzl) and skips
+// the global shells only.  One device is the same code with kg = k and
+// nz_g = nz.
 
+template <bool kSharded>
 __global__ void __launch_bounds__(kThreads) bicg_pv_kernel(
     const float* __restrict__ r, const float* __restrict__ p,
     const float* __restrict__ v, const float* __restrict__ rhat,
     float* __restrict__ pn, float* __restrict__ vn,
     const float* __restrict__ st, double* __restrict__ part, int nz, int ny,
-    int nx, float inv_dx2, float inv_dy2, float inv_dz2) {
+    int nx, float inv_dx2, float inv_dy2, float inv_dz2, int z_base,
+    int nz_g) {
   if (st[kRunning] == 0.0f) return;  // uniform: the whole grid returns
   const int i = blockIdx.x * kTileX + threadIdx.x;
   const int j = blockIdx.y * kTileY + threadIdx.y;
-  const int k = blockIdx.z;
+  const int k = kSharded ? blockIdx.z + 1 : blockIdx.z;
+  const int kg = kSharded ? z_base + k : k;
+  const int ng = kSharded ? nz_g : nz;
   double acc = 0.0;
   if (i < nx && j < ny) {
     const long long sy = nx, sz = (long long)ny * nx;
     const long long c = k * sz + j * sy + i;
-    if (inside(k, j, i, nz, ny, nx)) {
+    const long long o = kSharded ? c - sz : c;  // the output's index
+    if (inside(kg, j, i, ng, ny, nx)) {
       const float beta = st[kBeta], omega = st[kOmega];
       // p' at a neighbour: 0 on the shell (the correction space)
       auto pp = [&](long long q, bool in) {
         return in ? r[q] + beta * (p[q] - omega * v[q]) : 0.0f;
       };
       const float pc = pp(c, true);
-      const float a = -lap7(pp, c, k, j, i, nz, ny, nx, sy, sz, inv_dx2,
+      const float a = -lap7(pp, c, kg, j, i, ng, ny, nx, sy, sz, inv_dx2,
                             inv_dy2, inv_dz2, pc);
-      pn[c] = pc;
-      vn[c] = a;
-      acc = (double)rhat[c] * a;
+      pn[o] = pc;
+      vn[o] = a;
+      acc = (double)rhat[o] * a;
     } else {
-      pn[c] = 0.0f;
-      vn[c] = 0.0f;
+      pn[o] = 0.0f;
+      vn[o] = 0.0f;
     }
   }
   const double s =
@@ -154,52 +177,59 @@ __global__ void __launch_bounds__(kThreads) bicg_pv_kernel(
 }
 
 // <rhat, v'>, the rho and rhv breakdowns, alpha = rho / <rhat, v'>
+__device__ __forceinline__ void pv_recur(float rhv, float* st) {
+  const float rho = st[kRho];
+  const bool bd1 = fabsf(rho) < kBreakdown;
+  const bool bd2 = fabsf(rhv) < kBreakdown;
+  st[kRhv] = rhv;
+  st[kBd1] = flag(bd1);
+  st[kAlphaNew] = rho / (bd2 ? 1.0f : rhv);
+  st[kBd] = flag(bd1 || bd2);
+}
+
 __global__ void __launch_bounds__(kFoldThreads) bicg_pv_finalize(
     const double* __restrict__ part, long long n, float* __restrict__ st) {
   if (st[kRunning] == 0.0f) return;
   const float rhv = (float)fold_d<kFoldThreads>(part, n, threadIdx.x);
-  if (threadIdx.x == 0) {
-    const float rho = st[kRho];
-    const bool bd1 = fabsf(rho) < kBreakdown;
-    const bool bd2 = fabsf(rhv) < kBreakdown;
-    st[kRhv] = rhv;
-    st[kBd1] = flag(bd1);
-    st[kAlphaNew] = rho / (bd2 ? 1.0f : rhv);
-    st[kBd] = flag(bd1 || bd2);
-  }
+  if (threadIdx.x == 0) pv_recur(rhv, st);
 }
 
 // ---- B1 st: s, t, <s, s>, <t, s>, <t, t> ------------------------------------
 
+template <bool kSharded>
 __global__ void __launch_bounds__(kThreads) bicg_st_kernel(
     const float* __restrict__ r, const float* __restrict__ vn,
     float* __restrict__ s, float* __restrict__ t,
     const float* __restrict__ st, double* __restrict__ part, int nz, int ny,
-    int nx, float inv_dx2, float inv_dy2, float inv_dz2) {
+    int nx, float inv_dx2, float inv_dy2, float inv_dz2, int z_base,
+    int nz_g) {
   if (st[kRunning] == 0.0f) return;
   const int i = blockIdx.x * kTileX + threadIdx.x;
   const int j = blockIdx.y * kTileY + threadIdx.y;
-  const int k = blockIdx.z;
+  const int k = kSharded ? blockIdx.z + 1 : blockIdx.z;
+  const int kg = kSharded ? z_base + k : k;
+  const int ng = kSharded ? nz_g : nz;
   double ss = 0.0, ts = 0.0, tt = 0.0;
   if (i < nx && j < ny) {
     const long long sy = nx, sz = (long long)ny * nx;
     const long long c = k * sz + j * sy + i;
-    if (inside(k, j, i, nz, ny, nx)) {
+    const long long o = kSharded ? c - sz : c;
+    if (inside(kg, j, i, ng, ny, nx)) {
       const float alpha = st[kAlphaNew];
       auto sv = [&](long long q, bool in) {
         return in ? r[q] - alpha * vn[q] : 0.0f;
       };
       const float sc = sv(c, true);
-      const float tv = -lap7(sv, c, k, j, i, nz, ny, nx, sy, sz, inv_dx2,
+      const float tv = -lap7(sv, c, kg, j, i, ng, ny, nx, sy, sz, inv_dx2,
                              inv_dy2, inv_dz2, sc);
-      s[c] = sc;
-      t[c] = tv;
+      s[o] = sc;
+      t[o] = tv;
       ss = (double)sc * sc;
       ts = (double)tv * sc;
       tt = (double)tv * tv;
     } else {
-      s[c] = 0.0f;
-      t[c] = 0.0f;
+      s[o] = 0.0f;
+      t[o] = 0.0f;
     }
   }
   const int tid = threadIdx.y * kTileX + threadIdx.x;
@@ -217,43 +247,49 @@ __global__ void __launch_bounds__(kThreads) bicg_st_kernel(
 
 // omega = <t, s> / <t, t> with the tt breakdown, the early s-exit, and the
 // alpha and omega the x/r pass applies
+__device__ __forceinline__ void st_recur(float ss, float ts, float tt,
+                                         float* st) {
+  const float s_norm = sqrtf(ss);
+  const bool early = s_norm < st[kTol] || s_norm < st[kAbsTol];
+  const bool bd3 = fabsf(tt) < kBreakdown;
+  const float omega_new = ts / (bd3 ? 1.0f : tt);
+  const bool bd = st[kBd] != 0.0f;
+  st[kSS] = ss;
+  st[kTS] = ts;
+  st[kTT] = tt;
+  st[kEarly] = flag(early);
+  st[kBd3] = flag(bd3);
+  st[kOmegaNew] = omega_new;
+  st[kAlphaEff] = bd ? 0.0f : st[kAlphaNew];
+  st[kOmegaEff] = (bd || early || bd3) ? 0.0f : omega_new;
+}
+
 __global__ void __launch_bounds__(kFoldThreads) bicg_st_finalize(
     const double* __restrict__ part, long long n, float* __restrict__ st) {
   if (st[kRunning] == 0.0f) return;
   const float ss = (float)fold_d<kFoldThreads>(part, n, threadIdx.x);
   const float ts = (float)fold_d<kFoldThreads>(part + n, n, threadIdx.x);
   const float tt = (float)fold_d<kFoldThreads>(part + 2 * n, n, threadIdx.x);
-  if (threadIdx.x == 0) {
-    const float s_norm = sqrtf(ss);
-    const bool early = s_norm < st[kTol] || s_norm < st[kAbsTol];
-    const bool bd3 = fabsf(tt) < kBreakdown;
-    const float omega_new = ts / (bd3 ? 1.0f : tt);
-    const bool bd = st[kBd] != 0.0f;
-    st[kSS] = ss;
-    st[kTS] = ts;
-    st[kTT] = tt;
-    st[kEarly] = flag(early);
-    st[kBd3] = flag(bd3);
-    st[kOmegaNew] = omega_new;
-    st[kAlphaEff] = bd ? 0.0f : st[kAlphaNew];
-    st[kOmegaEff] = (bd || early || bd3) ? 0.0f : omega_new;
-  }
+  if (threadIdx.x == 0) st_recur(ss, ts, tt, st);
 }
 
 // ---- B1 xr: x', r', <r', r'>, <rhat, r'> ------------------------------------
 
+template <bool kSharded>
 __global__ void __launch_bounds__(kThreads) bicg_xr_kernel(
     float* __restrict__ x, float* __restrict__ r,
     const float* __restrict__ pn, const float* __restrict__ s,
     const float* __restrict__ t, const float* __restrict__ rhat,
     const float* __restrict__ st, double* __restrict__ part, int nz, int ny,
-    int nx) {
+    int nx, int z_base, int nz_g) {
   if (st[kRunning] == 0.0f) return;
   const int i = blockIdx.x * kTileX + threadIdx.x;
   const int j = blockIdx.y * kTileY + threadIdx.y;
   const int k = blockIdx.z;
+  const int kg = kSharded ? z_base + k : k;
+  const int ng = kSharded ? nz_g : nz;
   double rr = 0.0, rh = 0.0;
-  if (i < nx && j < ny && inside(k, j, i, nz, ny, nx)) {
+  if (i < nx && j < ny && inside(kg, j, i, ng, ny, nx)) {
     const long long c = (k * (long long)ny + j) * nx + i;
     const float alpha = st[kAlphaEff], omega = st[kOmegaEff];
     const float x2 = (x[c] + alpha * pn[c]) + omega * s[c];
@@ -277,36 +313,75 @@ __global__ void __launch_bounds__(kThreads) bicg_xr_kernel(
 // The rest of the iteration (krylov.py:352-361): residual, convergence
 // every ci iterations, the omega breakdown, stagnation, the running flag,
 // the carried scalars, and the next iteration's beta.
+__device__ __forceinline__ void xr_recur(float rr, float rh, float* st,
+                                         int ci) {
+  const bool bd = st[kBd] != 0.0f, early = st[kEarly] != 0.0f;
+  const bool bd3 = st[kBd3] != 0.0f;
+  const float res_new = bd ? st[kRes] : sqrtf(rr);
+  const int it = (int)st[kIt];
+  const bool conv =
+      early || ((it % ci) == 0 &&
+                (res_new < st[kTol] || res_new < st[kAbsTol]));
+  const float omega_new = st[kOmegaNew];
+  const bool bd4 = fabsf(omega_new) < kBreakdown;
+  const bool stagnated = bd || bd3 || (bd4 && !conv);
+  const float rho_prev = st[kRho], alpha = st[kAlphaNew];
+  st[kRR] = rr;
+  st[kRhatR] = rh;
+  st[kRhoPrev] = rho_prev;
+  st[kRho] = rh;
+  st[kAlpha] = alpha;
+  st[kOmega] = omega_new;
+  st[kBeta] = bicg_beta(rh, rho_prev, alpha, omega_new);
+  st[kIt] = (float)(it + 1);
+  st[kRes] = res_new;
+  st[kStagnated] = flag(stagnated);
+  st[kRunning] = flag(!(stagnated || conv));
+}
+
 __global__ void __launch_bounds__(kFoldThreads) bicg_xr_finalize(
     const double* __restrict__ part, long long n, float* __restrict__ st,
     int ci) {
   if (st[kRunning] == 0.0f) return;
   const float rr = (float)fold_d<kFoldThreads>(part, n, threadIdx.x);
   const float rh = (float)fold_d<kFoldThreads>(part + n, n, threadIdx.x);
-  if (threadIdx.x == 0) {
-    const bool bd = st[kBd] != 0.0f, early = st[kEarly] != 0.0f;
-    const bool bd3 = st[kBd3] != 0.0f;
-    const float res_new = bd ? st[kRes] : sqrtf(rr);
-    const int it = (int)st[kIt];
-    const bool conv =
-        early || ((it % ci) == 0 &&
-                  (res_new < st[kTol] || res_new < st[kAbsTol]));
-    const float omega_new = st[kOmegaNew];
-    const bool bd4 = fabsf(omega_new) < kBreakdown;
-    const bool stagnated = bd || bd3 || (bd4 && !conv);
-    const float rho_prev = st[kRho], alpha = st[kAlphaNew];
-    st[kRR] = rr;
-    st[kRhatR] = rh;
-    st[kRhoPrev] = rho_prev;
-    st[kRho] = rh;
-    st[kAlpha] = alpha;
-    st[kOmega] = omega_new;
-    st[kBeta] = bicg_beta(rh, rho_prev, alpha, omega_new);
-    st[kIt] = (float)(it + 1);
-    st[kRes] = res_new;
-    st[kStagnated] = flag(stagnated);
-    st[kRunning] = flag(!(stagnated || conv));
+  if (threadIdx.x == 0) xr_recur(rr, rh, st, ci);
+}
+
+// ---- the sharded finalize, split in two --------------------------------
+//
+// A shard folds each of its pass's partial regions to one float64 value
+// (its share of the dot over its owned planes); the communicator sums the
+// shards' values in float64 (comm.sum, the reference's lax.psum); the
+// recurrence reads the sums and rounds each to float once, as the
+// one-device finalize rounds its fold.
+
+__global__ void __launch_bounds__(kFoldThreads) bicg_fold_kernel(
+    const double* __restrict__ part, long long n, int n_dots,
+    const float* __restrict__ st, double* __restrict__ out) {
+  if (st[kRunning] == 0.0f) return;
+  for (int q = 0; q < n_dots; ++q) {
+    const double v = fold_d<kFoldThreads>(part + q * n, n, threadIdx.x);
+    if (threadIdx.x == 0) out[q] = v;
   }
+}
+
+__global__ void bicg_pv_recur_kernel(const double* __restrict__ sum,
+                                     float* __restrict__ st) {
+  if (st[kRunning] == 0.0f || threadIdx.x != 0) return;
+  pv_recur((float)sum[0], st);
+}
+
+__global__ void bicg_st_recur_kernel(const double* __restrict__ sum,
+                                     float* __restrict__ st) {
+  if (st[kRunning] == 0.0f || threadIdx.x != 0) return;
+  st_recur((float)sum[0], (float)sum[1], (float)sum[2], st);
+}
+
+__global__ void bicg_xr_recur_kernel(const double* __restrict__ sum,
+                                     float* __restrict__ st, int ci) {
+  if (st[kRunning] == 0.0f || threadIdx.x != 0) return;
+  xr_recur((float)sum[0], (float)sum[1], st, ci);
 }
 
 // ---- B2: the whole solve ----------------------------------------------------
@@ -476,9 +551,9 @@ int cfd_bicg_pv(const float* r, const float* p, const float* v,
                 const float* rhat, float* pn, float* vn, float* st,
                 double* part, int nz, int ny, int nx, float inv_dx2,
                 float inv_dy2, float inv_dz2, cudaStream_t stream) {
-  bicg_pv_kernel<<<tile_grid(nz, ny, nx), dim3(kTileX, kTileY), 0, stream>>>(
-      r, p, v, rhat, pn, vn, st, part, nz, ny, nx, inv_dx2, inv_dy2,
-      inv_dz2);
+  bicg_pv_kernel<false><<<tile_grid(nz, ny, nx), dim3(kTileX, kTileY), 0,
+                          stream>>>(r, p, v, rhat, pn, vn, st, part, nz, ny,
+                                    nx, inv_dx2, inv_dy2, inv_dz2, 0, nz);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   bicg_pv_finalize<<<1, kFoldThreads, 0, stream>>>(
@@ -489,8 +564,9 @@ int cfd_bicg_pv(const float* r, const float* p, const float* v,
 int cfd_bicg_st(const float* r, const float* vn, float* s, float* t,
                 float* st, double* part, int nz, int ny, int nx, float inv_dx2,
                 float inv_dy2, float inv_dz2, cudaStream_t stream) {
-  bicg_st_kernel<<<tile_grid(nz, ny, nx), dim3(kTileX, kTileY), 0, stream>>>(
-      r, vn, s, t, st, part, nz, ny, nx, inv_dx2, inv_dy2, inv_dz2);
+  bicg_st_kernel<false><<<tile_grid(nz, ny, nx), dim3(kTileX, kTileY), 0,
+                          stream>>>(r, vn, s, t, st, part, nz, ny, nx,
+                                    inv_dx2, inv_dy2, inv_dz2, 0, nz);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   bicg_st_finalize<<<1, kFoldThreads, 0, stream>>>(
@@ -501,12 +577,79 @@ int cfd_bicg_st(const float* r, const float* vn, float* s, float* t,
 int cfd_bicg_xr(float* x, float* r, const float* pn, const float* s,
                 const float* t, const float* rhat, float* st, double* part,
                 int nz, int ny, int nx, int ci, cudaStream_t stream) {
-  bicg_xr_kernel<<<tile_grid(nz, ny, nx), dim3(kTileX, kTileY), 0, stream>>>(
-      x, r, pn, s, t, rhat, st, part, nz, ny, nx);
+  bicg_xr_kernel<false><<<tile_grid(nz, ny, nx), dim3(kTileX, kTileY), 0,
+                          stream>>>(x, r, pn, s, t, rhat, st, part, nz, ny,
+                                    nx, 0, nz);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   bicg_xr_finalize<<<1, kFoldThreads, 0, stream>>>(
       part, cfd_bicg_partials(nz, ny, nx), st, ci);
+  return (int)cudaGetLastError();
+}
+
+// The sharded passes: the pass, then the shard's float64 fold of each of
+// its partial regions into out[0..].  pv and st take the (nzl + 2)-plane
+// halo-padded blocks (nz = nzl + 2) and launch over the nzl owned planes;
+// xr takes the nzl-plane owned block.  z_base is the global plane of the
+// block's plane 0, nz_g the global plane count.
+int cfd_bicg_pv_sharded(const float* r, const float* p, const float* v,
+                        const float* rhat, float* pn, float* vn, float* st,
+                        double* part, double* out, int nz, int ny, int nx,
+                        float inv_dx2, float inv_dy2, float inv_dz2,
+                        int z_base, int nz_g, cudaStream_t stream) {
+  bicg_pv_kernel<true><<<tile_grid(nz - 2, ny, nx), dim3(kTileX, kTileY), 0,
+                         stream>>>(r, p, v, rhat, pn, vn, st, part, nz, ny,
+                                   nx, inv_dx2, inv_dy2, inv_dz2, z_base,
+                                   nz_g);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  bicg_fold_kernel<<<1, kFoldThreads, 0, stream>>>(
+      part, cfd_bicg_partials(nz - 2, ny, nx), 1, st, out);
+  return (int)cudaGetLastError();
+}
+
+int cfd_bicg_st_sharded(const float* r, const float* vn, float* s, float* t,
+                        float* st, double* part, double* out, int nz, int ny,
+                        int nx, float inv_dx2, float inv_dy2, float inv_dz2,
+                        int z_base, int nz_g, cudaStream_t stream) {
+  bicg_st_kernel<true><<<tile_grid(nz - 2, ny, nx), dim3(kTileX, kTileY), 0,
+                         stream>>>(r, vn, s, t, st, part, nz, ny, nx,
+                                   inv_dx2, inv_dy2, inv_dz2, z_base, nz_g);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  bicg_fold_kernel<<<1, kFoldThreads, 0, stream>>>(
+      part, cfd_bicg_partials(nz - 2, ny, nx), 3, st, out);
+  return (int)cudaGetLastError();
+}
+
+int cfd_bicg_xr_sharded(float* x, float* r, const float* pn, const float* s,
+                        const float* t, const float* rhat, float* st,
+                        double* part, double* out, int nz, int ny, int nx,
+                        int z_base, int nz_g, cudaStream_t stream) {
+  bicg_xr_kernel<true><<<tile_grid(nz, ny, nx), dim3(kTileX, kTileY), 0,
+                         stream>>>(x, r, pn, s, t, rhat, st, part, nz, ny,
+                                   nx, z_base, nz_g);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  bicg_fold_kernel<<<1, kFoldThreads, 0, stream>>>(
+      part, cfd_bicg_partials(nz, ny, nx), 2, st, out);
+  return (int)cudaGetLastError();
+}
+
+// The recurrences on the shards' summed dots (comm.sum of the folds).
+int cfd_bicg_pv_recur(const double* sum, float* st, cudaStream_t stream) {
+  bicg_pv_recur_kernel<<<1, 32, 0, stream>>>(sum, st);
+  return (int)cudaGetLastError();
+}
+
+int cfd_bicg_st_recur(const double* sum, float* st, cudaStream_t stream) {
+  bicg_st_recur_kernel<<<1, 32, 0, stream>>>(sum, st);
+  return (int)cudaGetLastError();
+}
+
+int cfd_bicg_xr_recur(const double* sum, float* st, int ci,
+                      cudaStream_t stream) {
+  bicg_xr_recur_kernel<<<1, 32, 0, stream>>>(sum, st, ci);
   return (int)cudaGetLastError();
 }
 

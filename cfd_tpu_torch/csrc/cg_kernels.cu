@@ -12,6 +12,14 @@
 //          on the interior (shells untouched), <r, r>; the finalize carries
 //          the rest of the iteration's scalar recurrence
 //          (cfd_tpu/solvers/poisson/krylov.py:174-182).
+//   K1s cg_lap_dot_kernel<true> + cg_fold_kernel, then
+//       cg_lap_dot_recur_kernel on the shards' sum
+//       <- make_lap_dot_sharded (cg_kernels.py:437), global_nz mode: K1 on
+//          a z-shard's halo-padded block, the Dirichlet-0 space and the
+//          shells at global planes, the dot over the owned planes.
+//   K2s cg_update_kernel<true> + cg_fold_kernel, then
+//       cg_update_recur_kernel: K2 on a shard's owned block (the
+//       reference does this update in jnp, parallel/fused_cg.py:216-219).
 //   K3  cg_solve_kernel
 //       <- make_cg_vmem_solve (cfd_tpu/ops/pallas/vmem_small.py:243): the
 //          whole CG/PCG loop in one cooperative launch.
@@ -82,20 +90,33 @@ __device__ __forceinline__ long long tile_block() {
 
 // ---- K1: p', Ap', <p', Ap'> ----------------------------------------------
 
+// kSharded: a z-decomposed shard's halo-padded block of nz = nzl + 2 planes
+// (the TPU kernel make_lap_dot_sharded, cg_kernels.py:437).  The grid
+// covers the owned planes k = 1..nz-2 only and writes them to owned-size
+// outputs (plane k to plane k-1 of pn and ap); local plane k is global
+// plane kg = z_base + k of an nz_g-plane domain, and the Dirichlet-0
+// correction space is the global one, so p' at a halo plane is the
+// neighbour shard's own p' and the global shells give zeros.  One device
+// is the same code with kg = k and nz_g = nz.
+template <bool kSharded>
 __global__ void __launch_bounds__(kThreads) cg_lap_dot_kernel(
     const float* __restrict__ r, const float* __restrict__ p,
     float* __restrict__ pn, float* __restrict__ ap,
     const float* __restrict__ st, float* __restrict__ part, int nz, int ny,
-    int nx, float inv_dx2, float inv_dy2, float inv_dz2, float scale) {
+    int nx, float inv_dx2, float inv_dy2, float inv_dz2, float scale,
+    int z_base, int nz_g) {
   if (st[kRunning] == 0.0f) return;  // uniform: the whole grid returns
   const int i = blockIdx.x * kTileX + threadIdx.x;
   const int j = blockIdx.y * kTileY + threadIdx.y;
-  const int k = blockIdx.z;
+  const int k = kSharded ? blockIdx.z + 1 : blockIdx.z;
+  const int kg = kSharded ? z_base + k : k;
+  const int ng = kSharded ? nz_g : nz;
   float acc = 0.0f;
   if (i < nx && j < ny) {
     const long long sy = nx, sz = (long long)ny * nx;
     const long long c = k * sz + j * sy + i;
-    if (inside(k, j, i, nz, ny, nx)) {
+    const long long o = kSharded ? c - sz : c;  // the output's index
+    if (inside(kg, j, i, ng, ny, nx)) {
       const float beta = st[kBeta];
       // p' at a neighbour: 0 on the shell (the correction space)
       auto pp = [&](long long q, bool in) {
@@ -104,18 +125,18 @@ __global__ void __launch_bounds__(kThreads) cg_lap_dot_kernel(
       const float pc = scale * r[c] + beta * p[c];
       const float xm = pp(c - 1, i > 1), xp = pp(c + 1, i < nx - 2);
       const float ym = pp(c - sy, j > 1), yp = pp(c + sy, j < ny - 2);
-      const float zm = pp(c - sz, k > 1), zp = pp(c + sz, k < nz - 2);
+      const float zm = pp(c - sz, kg > 1), zp = pp(c + sz, kg < ng - 2);
       const float c2 = 2.0f * pc;
       const float lap =
           (((xp - c2) + xm) * inv_dx2 + ((yp - c2) + ym) * inv_dy2) +
           ((zp - c2) + zm) * inv_dz2;
       const float a = -lap;
-      pn[c] = pc;
-      ap[c] = a;
+      pn[o] = pc;
+      ap[o] = a;
       acc = a * pc;
     } else {
-      pn[c] = 0.0f;
-      ap[c] = 0.0f;
+      pn[o] = 0.0f;
+      ap[o] = 0.0f;
     }
   }
   const float s = block_sum<kThreads>(acc, threadIdx.y * kTileX + threadIdx.x);
@@ -123,31 +144,38 @@ __global__ void __launch_bounds__(kThreads) cg_lap_dot_kernel(
 }
 
 // <p', Ap'>, breakdown and alpha = rho / <p', Ap'> (0 on breakdown).
+__device__ __forceinline__ void lap_dot_recur(float pap, float* st) {
+  const bool bd1 = fabsf(pap) < kBreakdown;
+  st[kPAp] = pap;
+  st[kBd1] = bd1 ? 1.0f : 0.0f;
+  st[kAlpha] = bd1 ? 0.0f : st[kRho] / pap;
+}
+
 __global__ void __launch_bounds__(kFoldThreads) cg_lap_dot_finalize(
     const float* __restrict__ part, long long n, float* __restrict__ st) {
   if (st[kRunning] == 0.0f) return;
   const float pap = fold<kFoldThreads>(part, n, threadIdx.x);
-  if (threadIdx.x == 0) {
-    const bool bd1 = fabsf(pap) < kBreakdown;
-    st[kPAp] = pap;
-    st[kBd1] = bd1 ? 1.0f : 0.0f;
-    st[kAlpha] = bd1 ? 0.0f : st[kRho] / pap;
-  }
+  if (threadIdx.x == 0) lap_dot_recur(pap, st);
 }
 
 // ---- K2: x', r', <r', r'> ------------------------------------------------
 
+// kSharded: a shard's owned block (nz = nzl planes, plane k is global
+// plane z_base + k): every owned plane is updated but the global shells.
+template <bool kSharded>
 __global__ void __launch_bounds__(kThreads) cg_update_kernel(
     float* __restrict__ x, float* __restrict__ r,
     const float* __restrict__ pn, const float* __restrict__ ap,
     const float* __restrict__ st, float* __restrict__ part, int nz, int ny,
-    int nx) {
+    int nx, int z_base, int nz_g) {
   if (st[kRunning] == 0.0f) return;
   const int i = blockIdx.x * kTileX + threadIdx.x;
   const int j = blockIdx.y * kTileY + threadIdx.y;
   const int k = blockIdx.z;
+  const int kg = kSharded ? z_base + k : k;
+  const int ng = kSharded ? nz_g : nz;
   float acc = 0.0f;
-  if (i < nx && j < ny && inside(k, j, i, nz, ny, nx)) {
+  if (i < nx && j < ny && inside(kg, j, i, ng, ny, nx)) {
     const long long c = (k * (long long)ny + j) * nx + i;
     const float alpha = st[kAlpha];
     const float x2 = x[c] + alpha * pn[c];
@@ -163,27 +191,59 @@ __global__ void __launch_bounds__(kThreads) cg_update_kernel(
 // The rest of one iteration (krylov.py:174-182): rho, residual, the
 // convergence check every ci iterations, breakdown, beta, the counter and
 // the running flag.
+__device__ __forceinline__ void update_recur(float rr, float* st,
+                                             float scale, int ci) {
+  const float rho = st[kRho];
+  const float rho_new = scale * rr;
+  const float res_new = sqrtf(rr);
+  const int it = (int)st[kIt];
+  const bool conv =
+      (it % ci) == 0 && (res_new < st[kTol] || res_new < st[kAbsTol]);
+  const bool bd1 = st[kBd1] != 0.0f;
+  const bool bd2 = fabsf(rho) < kBreakdown;
+  st[kRR] = rr;
+  st[kRho] = rho_new;
+  st[kBeta] = rho_new / (bd2 ? 1.0f : rho);
+  st[kIt] = (float)(it + 1);
+  if (!bd1) st[kRes] = res_new;
+  st[kRunning] = (conv || bd1 || bd2) ? 0.0f : 1.0f;
+}
+
 __global__ void __launch_bounds__(kFoldThreads) cg_update_finalize(
     const float* __restrict__ part, long long n, float* __restrict__ st,
     float scale, int ci) {
   if (st[kRunning] == 0.0f) return;
   const float rr = fold<kFoldThreads>(part, n, threadIdx.x);
-  if (threadIdx.x == 0) {
-    const float rho = st[kRho];
-    const float rho_new = scale * rr;
-    const float res_new = sqrtf(rr);
-    const int it = (int)st[kIt];
-    const bool conv =
-        (it % ci) == 0 && (res_new < st[kTol] || res_new < st[kAbsTol]);
-    const bool bd1 = st[kBd1] != 0.0f;
-    const bool bd2 = fabsf(rho) < kBreakdown;
-    st[kRR] = rr;
-    st[kRho] = rho_new;
-    st[kBeta] = rho_new / (bd2 ? 1.0f : rho);
-    st[kIt] = (float)(it + 1);
-    if (!bd1) st[kRes] = res_new;
-    st[kRunning] = (conv || bd1 || bd2) ? 0.0f : 1.0f;
-  }
+  if (threadIdx.x == 0) update_recur(rr, st, scale, ci);
+}
+
+// ---- the sharded finalize, split in two --------------------------------
+//
+// A shard folds its own partials to one value (its share of the dot over
+// its owned planes); the shards' values are summed by the communicator
+// (comm.sum, the reference's lax.psum); the recurrence then reads the sum.
+// Every shard keeps its own copy of the state and runs the same
+// recurrence on the same sum.
+
+__global__ void __launch_bounds__(kFoldThreads) cg_fold_kernel(
+    const float* __restrict__ part, long long n,
+    const float* __restrict__ st, float* __restrict__ out) {
+  if (st[kRunning] == 0.0f) return;
+  const float v = fold<kFoldThreads>(part, n, threadIdx.x);
+  if (threadIdx.x == 0) out[0] = v;
+}
+
+__global__ void cg_lap_dot_recur_kernel(const float* __restrict__ sum,
+                                        float* __restrict__ st) {
+  if (st[kRunning] == 0.0f || threadIdx.x != 0) return;
+  lap_dot_recur(sum[0], st);
+}
+
+__global__ void cg_update_recur_kernel(const float* __restrict__ sum,
+                                       float* __restrict__ st, float scale,
+                                       int ci) {
+  if (st[kRunning] == 0.0f || threadIdx.x != 0) return;
+  update_recur(sum[0], st, scale, ci);
 }
 
 // ---- K3: the whole solve ---------------------------------------------------
@@ -345,9 +405,10 @@ int cfd_cg_lap_dot(const float* r, const float* p, float* pn, float* ap,
                    float* st, float* part, int nz, int ny, int nx,
                    float inv_dx2, float inv_dy2, float inv_dz2, float scale,
                    cudaStream_t stream) {
-  cg_lap_dot_kernel<<<tile_grid(nz, ny, nx), dim3(kTileX, kTileY), 0,
-                      stream>>>(r, p, pn, ap, st, part, nz, ny, nx, inv_dx2,
-                                inv_dy2, inv_dz2, scale);
+  cg_lap_dot_kernel<false><<<tile_grid(nz, ny, nx), dim3(kTileX, kTileY),
+                             0, stream>>>(r, p, pn, ap, st, part, nz, ny, nx,
+                                          inv_dx2, inv_dy2, inv_dz2, scale,
+                                          0, nz);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   cg_lap_dot_finalize<<<1, kFoldThreads, 0, stream>>>(
@@ -358,12 +419,60 @@ int cfd_cg_lap_dot(const float* r, const float* p, float* pn, float* ap,
 int cfd_cg_update(float* x, float* r, const float* pn, const float* ap,
                   float* st, float* part, int nz, int ny, int nx, float scale,
                   int ci, cudaStream_t stream) {
-  cg_update_kernel<<<tile_grid(nz, ny, nx), dim3(kTileX, kTileY), 0,
-                     stream>>>(x, r, pn, ap, st, part, nz, ny, nx);
+  cg_update_kernel<false><<<tile_grid(nz, ny, nx), dim3(kTileX, kTileY), 0,
+                            stream>>>(x, r, pn, ap, st, part, nz, ny, nx, 0,
+                                      nz);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   cg_update_finalize<<<1, kFoldThreads, 0, stream>>>(
       part, cfd_cg_partials(nz, ny, nx), st, scale, ci);
+  return (int)cudaGetLastError();
+}
+
+// The sharded passes (make_lap_dot_sharded and the owned-block update):
+// the pass, then the shard's fold of its partials into out[0].  K1 takes
+// the (nzl + 2)-plane halo-padded block (nz = nzl + 2) and launches over
+// its nzl owned planes; K2 the nzl-plane owned block.  z_base is the
+// global plane of the block's plane 0, nz_g the global plane count.
+int cfd_cg_lap_dot_sharded(const float* r, const float* p, float* pn,
+                           float* ap, float* st, float* part, float* out,
+                           int nz, int ny, int nx, float inv_dx2,
+                           float inv_dy2, float inv_dz2, float scale,
+                           int z_base, int nz_g, cudaStream_t stream) {
+  cg_lap_dot_kernel<true><<<tile_grid(nz - 2, ny, nx), dim3(kTileX, kTileY),
+                            0, stream>>>(r, p, pn, ap, st, part, nz, ny, nx,
+                                         inv_dx2, inv_dy2, inv_dz2, scale,
+                                         z_base, nz_g);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  cg_fold_kernel<<<1, kFoldThreads, 0, stream>>>(
+      part, cfd_cg_partials(nz - 2, ny, nx), st, out);
+  return (int)cudaGetLastError();
+}
+
+int cfd_cg_update_sharded(float* x, float* r, const float* pn,
+                          const float* ap, float* st, float* part, float* out,
+                          int nz, int ny, int nx, int z_base, int nz_g,
+                          cudaStream_t stream) {
+  cg_update_kernel<true><<<tile_grid(nz, ny, nx), dim3(kTileX, kTileY), 0,
+                           stream>>>(x, r, pn, ap, st, part, nz, ny, nx,
+                                     z_base, nz_g);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  cg_fold_kernel<<<1, kFoldThreads, 0, stream>>>(
+      part, cfd_cg_partials(nz, ny, nx), st, out);
+  return (int)cudaGetLastError();
+}
+
+// The recurrences on the shards' summed dots (comm.sum of the folds).
+int cfd_cg_lap_dot_recur(const float* sum, float* st, cudaStream_t stream) {
+  cg_lap_dot_recur_kernel<<<1, 32, 0, stream>>>(sum, st);
+  return (int)cudaGetLastError();
+}
+
+int cfd_cg_update_recur(const float* sum, float* st, float scale, int ci,
+                        cudaStream_t stream) {
+  cg_update_recur_kernel<<<1, 32, 0, stream>>>(sum, st, scale, ci);
   return (int)cudaGetLastError();
 }
 

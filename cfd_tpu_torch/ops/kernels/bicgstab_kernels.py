@@ -23,8 +23,22 @@ the recurrence of `krylov.py:328-361`, so the host never reads a scalar
 inside the loop.  Once the running flag is 0 every pass is a no-op.  The
 CUDA source is ``cfd_tpu_torch/csrc/bicgstab_kernels.cu``.
 
-The sharded ``global_nz`` / ``global_ny`` modes (`:51-91`) are later work,
-with the distributed step; ``bicgstab_kernels_supported`` and its
+The sharded ``global_nz`` mode (`:56-130`; z_base, nz_g given; the
+z-decomposed BiCGSTAB of `parallel.fused_bicgstab`): ``pass_pv`` and
+``pass_st`` take a shard's halo-padded blocks of ``c.nz = nzl + 2``
+planes whose plane k is global plane ``z_base + k`` (r̂ owned-size), mask
+their stencil outputs to the global Dirichlet-0 interior while the
+work-vector combinations at the neighbours read the halo planes as they
+are, and return the owned planes with their shares of the dots;
+``pass_xr`` runs on the owned block (``c.nz = nzl``) and skips the global
+shells only — where the reference runs its plain xr on a zero-padded
+owned block (`parallel/fused_bicgstab.py:229-232`), which the one-device
+kernel here would not do: it skips the block's first and last plane, two
+owned planes of every shard.  The shares are float64 sums, rounded to
+float once after the shards are summed.  All three count on
+``global_nz_launches``; the loop runs :class:`ShardBiCGSTABPasses`, the
+finalize split as in `cg_kernels.ShardCGPasses`.  The ``global_ny``
+modes are later work; ``bicgstab_kernels_supported`` and its
 ``nx % 128`` gate are TPU gates, left out.
 """
 
@@ -92,10 +106,21 @@ def _check(c: BiCGConsts, *fields):
                              f"{tuple(f.shape)}")
 
 
-def _partials(c: BiCGConsts, like: torch.Tensor) -> torch.Tensor:
-    """Room for three float64 per-block partials of each pass."""
-    n = native.library().cfd_bicg_partials(c.nz, c.ny, c.nx)
+def _partials(c: BiCGConsts, like: torch.Tensor, nz=None) -> torch.Tensor:
+    """Room for three float64 per-block partials of each pass (over
+    ``nz`` planes, default ``c.nz``)."""
+    n = native.library().cfd_bicg_partials(c.nz if nz is None else nz,
+                                           c.ny, c.nx)
     return torch.empty(3 * n, dtype=torch.float64, device=like.device)
+
+
+def _launch_sharded(name, wrapper, device, ptrs, c: BiCGConsts, z_base,
+                    nz_g, derivs=True):
+    """One sharded pass (the kernel and the shard's fold)."""
+    coef = (c.inv_dx2, c.inv_dy2, c.inv_dz2) if derivs else ()
+    native.launch(name, device, *map(native.ptr, ptrs), c.nz, c.ny, c.nx,
+                  *coef, int(z_base), int(nz_g))
+    native.count_launch(wrapper, "global_nz")
 
 
 def _launch_pv(r, p, v, rhat, pn, vn, st, part, c: BiCGConsts):
@@ -137,6 +162,22 @@ def dot(a, b):
                      * stencils.interior(b).double()).to(a.dtype)
 
 
+def dot64(a, b, mask):
+    """A shard's share of ⟨a, b⟩ over the points of ``mask``, in float64
+    and not rounded (the shards' shares are summed first)."""
+    return torch.sum(torch.where(mask, a.double() * b.double(), 0.0))
+
+
+def _minus_lap_owned(f, mask, c: BiCGConsts):
+    """−∇²f at the owned planes of a halo-padded block (0 outside
+    ``mask``, the block's global interior)."""
+    out = torch.zeros_like(f[1:-1])
+    out[:, 1:-1, 1:-1] = torch.where(
+        mask[stencils.interior_index(f)],
+        -stencils.laplacian(f, c.inv_dx2, c.inv_dy2, c.inv_dz2), 0.0)
+    return out
+
+
 def _minus_lap(f, c: BiCGConsts):
     """−∇²f on the interior, 0 on the shell."""
     out = torch.zeros_like(f)
@@ -147,53 +188,105 @@ def _minus_lap(f, c: BiCGConsts):
 
 # ---- pv ------------------------------------------------------------------
 
-def pass_pv_plain(r, p, v, rhat, beta, omega, c: BiCGConsts):
-    """(p′, v′, ⟨r̂, v′⟩) with zero shells on p′ and v′."""
+def pass_pv_plain(r, p, v, rhat, beta, omega, c: BiCGConsts,
+                  z_base: int = 0, nz_g: int = None):
+    """(p′, v′, ⟨r̂, v′⟩) with zero shells on p′ and v′.  With ``nz_g``
+    the ``global_nz`` mode: r, p, v a shard's halo-padded block, r̂ and
+    the outputs its owned planes, the dot the shard's float64 share."""
+    if nz_g is not None:
+        mask = stencils.global_interior_mask(c.shape, z_base, nz_g,
+                                             r.device)
+        pn = torch.where(mask, r + beta * (p - omega * v),
+                         torch.zeros_like(r))
+        vn = _minus_lap_owned(pn, mask, c)
+        return pn[1:-1], vn, dot64(rhat, vn, mask[1:-1])
     mask = stencils.interior_mask(c.shape, torch.bool, r.device)
     pn = torch.where(mask, r + beta * (p - omega * v), torch.zeros_like(r))
     vn = _minus_lap(pn, c)
     return pn, vn, dot(rhat, vn)
 
 
-def pass_pv(r, p, v, rhat, beta, omega, c: BiCGConsts):
+def pass_pv(r, p, v, rhat, beta, omega, c: BiCGConsts, z_base: int = 0,
+            nz_g: int = None):
     """(p′, v′, ⟨r̂, v′⟩) — ``bicg_pv_kernel`` and its finalize on CUDA;
-    ``beta`` and ``omega`` floats or 0-d tensors."""
+    ``beta`` and ``omega`` floats or 0-d tensors.  With ``nz_g`` the
+    ``global_nz`` mode of :func:`pass_pv_plain`: ``bicg_pv_kernel<true>``
+    and the shard's fold."""
     if native.on_cpu(r):
-        return pass_pv_plain(r, p, v, rhat, beta, omega, c)
+        return pass_pv_plain(r, p, v, rhat, beta, omega, c, z_base, nz_g)
+    st = _one_shot_state(r, {BETA: beta, OMEGA: omega, RHO: 1.0})
+    if nz_g is not None:
+        _check(c, r, p, v)
+        own = (c.nz - 2, c.ny, c.nx)
+        pn, vn = r.new_empty(own), r.new_empty(own)
+        out = torch.empty(1, dtype=torch.float64, device=r.device)
+        _launch_sharded("cfd_bicg_pv_sharded", pass_pv, r.device, (
+            r, p, v, rhat, pn, vn, st, _partials(c, r, c.nz - 2), out), c,
+            z_base, nz_g)
+        return pn, vn, out[0]
     _check(c, r, p, v, rhat)
     pn, vn = torch.empty_like(r), torch.empty_like(r)
-    st = _one_shot_state(r, {BETA: beta, OMEGA: omega, RHO: 1.0})
     _launch_pv(r, p, v, rhat, pn, vn, st, _partials(c, r), c)
     return pn, vn, st[RHV]
 
 
 # ---- st ------------------------------------------------------------------
 
-def pass_st_plain(r, vn, alpha, c: BiCGConsts):
-    """(s, t, ⟨s,s⟩, ⟨t,s⟩, ⟨t,t⟩) with zero shells on s and t."""
+def pass_st_plain(r, vn, alpha, c: BiCGConsts, z_base: int = 0,
+                  nz_g: int = None):
+    """(s, t, ⟨s,s⟩, ⟨t,s⟩, ⟨t,t⟩) with zero shells on s and t.  With
+    ``nz_g`` the ``global_nz`` mode: r and v′ a shard's halo-padded
+    block, s and t its owned planes, the dots the shard's float64
+    shares."""
+    if nz_g is not None:
+        mask = stencils.global_interior_mask(c.shape, z_base, nz_g,
+                                             r.device)
+        s = torch.where(mask, r - alpha * vn, torch.zeros_like(r))
+        t = _minus_lap_owned(s, mask, c)
+        s, own = s[1:-1], mask[1:-1]
+        return s, t, dot64(s, s, own), dot64(t, s, own), dot64(t, t, own)
     mask = stencils.interior_mask(c.shape, torch.bool, r.device)
     s = torch.where(mask, r - alpha * vn, torch.zeros_like(r))
     t = _minus_lap(s, c)
     return s, t, dot(s, s), dot(t, s), dot(t, t)
 
 
-def pass_st(r, vn, alpha, c: BiCGConsts):
+def pass_st(r, vn, alpha, c: BiCGConsts, z_base: int = 0,
+            nz_g: int = None):
     """(s, t, ⟨s,s⟩, ⟨t,s⟩, ⟨t,t⟩) — ``bicg_st_kernel`` and its finalize
-    on CUDA."""
+    on CUDA.  With ``nz_g`` the ``global_nz`` mode of
+    :func:`pass_st_plain`: ``bicg_st_kernel<true>`` and the shard's
+    fold."""
     if native.on_cpu(r):
-        return pass_st_plain(r, vn, alpha, c)
+        return pass_st_plain(r, vn, alpha, c, z_base, nz_g)
     _check(c, r, vn)
-    s, t = torch.empty_like(r), torch.empty_like(r)
     st = _one_shot_state(r, {ALPHA_NEW: alpha})
+    if nz_g is not None:
+        own = (c.nz - 2, c.ny, c.nx)
+        s, t = r.new_empty(own), r.new_empty(own)
+        out = torch.empty(3, dtype=torch.float64, device=r.device)
+        _launch_sharded("cfd_bicg_st_sharded", pass_st, r.device, (
+            r, vn, s, t, st, _partials(c, r, c.nz - 2), out), c, z_base,
+            nz_g)
+        return s, t, out[0], out[1], out[2]
+    s, t = torch.empty_like(r), torch.empty_like(r)
     _launch_st(r, vn, s, t, st, _partials(c, r), c)
     return s, t, st[SS], st[TS], st[TT]
 
 
 # ---- xr ------------------------------------------------------------------
 
-def pass_xr_plain(x, pn, s, t, rhat, alpha, omega, c: BiCGConsts):
+def pass_xr_plain(x, pn, s, t, rhat, alpha, omega, c: BiCGConsts,
+                  z_base: int = 0, nz_g: int = None):
     """(x′, r′, ⟨r′,r′⟩, ⟨r̂,r′⟩): x′ on the interior with x's shell, r′
-    with a zero shell."""
+    with a zero shell.  With ``nz_g`` the owned-block mode: every owned
+    plane but the global shells, the dots the shard's float64 shares."""
+    if nz_g is not None:
+        mask = stencils.global_interior_mask(c.shape, z_base, nz_g,
+                                             x.device)
+        x2 = torch.where(mask, (x + alpha * pn) + omega * s, x)
+        r2 = torch.where(mask, s - omega * t, torch.zeros_like(s))
+        return x2, r2, dot64(r2, r2, mask), dot64(rhat, r2, mask)
     ix = stencils.interior_index(x)
     x2, r2 = x.clone(), torch.zeros_like(s)
     x2[ix] = x[ix] + alpha * pn[ix] + omega * s[ix]
@@ -201,21 +294,29 @@ def pass_xr_plain(x, pn, s, t, rhat, alpha, omega, c: BiCGConsts):
     return x2, r2, dot(r2, r2), dot(rhat, r2)
 
 
-def pass_xr(x, pn, s, t, rhat, alpha, omega, c: BiCGConsts):
+def pass_xr(x, pn, s, t, rhat, alpha, omega, c: BiCGConsts,
+            z_base: int = 0, nz_g: int = None):
     """(x′, r′, ⟨r′,r′⟩, ⟨r̂,r′⟩) — ``bicg_xr_kernel`` and its finalize
-    on CUDA (x′ on a copy of x)."""
+    on CUDA (x′ on a copy of x).  With ``nz_g`` the owned-block mode of
+    :func:`pass_xr_plain`: ``bicg_xr_kernel<true>`` and the shard's
+    fold."""
     if native.on_cpu(x):
-        return pass_xr_plain(x, pn, s, t, rhat, alpha, omega, c)
+        return pass_xr_plain(x, pn, s, t, rhat, alpha, omega, c, z_base,
+                             nz_g)
     _check(c, x, pn, s, t, rhat)
     x2, r2 = x.clone(), torch.zeros_like(s)
     st = _one_shot_state(x, {ALPHA_EFF: alpha, OMEGA_EFF: omega})
+    if nz_g is not None:
+        out = torch.empty(2, dtype=torch.float64, device=x.device)
+        _launch_sharded("cfd_bicg_xr_sharded", pass_xr, x.device, (
+            x2, r2, pn, s, t, rhat, st, _partials(c, x), out), c, z_base,
+            nz_g, derivs=False)
+        return x2, r2, out[0], out[1]
     _launch_xr(x2, r2, pn, s, t, rhat, st, _partials(c, x), c)
     return x2, r2, st[RR], st[RHAT_R]
 
 
-pass_pv.launches = 0
-pass_st.launches = 0
-pass_xr.launches = 0
+native.reset_counts(pass_pv, pass_st, pass_xr)
 WRAPPERS = (pass_pv, pass_st, pass_xr)
 
 
@@ -241,10 +342,6 @@ class BiCGSTABPasses:
             self._part = _partials(self.c, like)
         return self._part
 
-    @staticmethod
-    def _commit(st, new):
-        st.copy_(torch.where(st[RUNNING] > 0, new, st))
-
     def pv(self, r, p, v, rhat, pn, vn, st):
         """pn ← p′, vn ← v′; state: ⟨r̂, v′⟩, breakdowns 1 and 2, α."""
         if not self.plain:
@@ -255,15 +352,7 @@ class BiCGSTABPasses:
                                       self.c)
         pn.copy_(pn_)
         vn.copy_(vn_)
-        bd1 = st[RHO].abs() < BREAKDOWN
-        bd2 = rhv.abs() < BREAKDOWN
-        new = st.clone()
-        new[RHV] = rhv
-        new[BD1] = bd1.to(st.dtype)
-        new[ALPHA_NEW] = st[RHO] / torch.where(bd2, torch.ones_like(rhv),
-                                               rhv)
-        new[BD] = (bd1 | bd2).to(st.dtype)
-        self._commit(st, new)
+        pv_recur_plain(rhv, st)
 
     def st(self, r, vn, s, t, st):
         """s, t ← the st pass; state: the dots, the early s-exit,
@@ -275,20 +364,7 @@ class BiCGSTABPasses:
         s_, t_, ss, ts, tt = pass_st_plain(r, vn, st[ALPHA_NEW], self.c)
         s.copy_(s_)
         t.copy_(t_)
-        s_norm = torch.sqrt(ss)
-        early = (s_norm < st[TOL]) | (s_norm < st[ABS_TOL])
-        bd3 = tt.abs() < BREAKDOWN
-        omega_new = ts / torch.where(bd3, torch.ones_like(tt), tt)
-        bd = st[BD] > 0
-        zero = torch.zeros_like(ss)
-        new = st.clone()
-        new[SS], new[TS], new[TT] = ss, ts, tt
-        new[EARLY] = early.to(st.dtype)
-        new[BD3] = bd3.to(st.dtype)
-        new[OMEGA_NEW] = omega_new
-        new[ALPHA_EFF] = torch.where(bd, zero, st[ALPHA_NEW])
-        new[OMEGA_EFF] = torch.where(bd | early | bd3, zero, omega_new)
-        self._commit(st, new)
+        st_recur_plain(ss, ts, tt, st)
 
     def xr(self, x, r, pn, s, t, rhat, st):
         """x, r ← the update; state: the residual, the convergence check,
@@ -304,20 +380,171 @@ class BiCGSTABPasses:
                                        st[OMEGA_EFF], c)
         x.copy_(torch.where(run, x2, x))
         r.copy_(torch.where(run, r2, r))
-        bd, early, bd3 = st[BD] > 0, st[EARLY] > 0, st[BD3] > 0
-        res_new = torch.where(bd, st[RES], torch.sqrt(rr))
-        check = torch.remainder(st[IT], max(1, int(c.check_interval))) == 0
-        conv = early | (check & ((res_new < st[TOL])
-                                 | (res_new < st[ABS_TOL])))
-        bd4 = st[OMEGA_NEW].abs() < BREAKDOWN
-        stagnated = bd | bd3 | (bd4 & ~conv)
-        new = st.clone()
-        new[RR], new[RHAT_R] = rr, rh
-        new[RHO_PREV], new[RHO] = st[RHO], rh
-        new[ALPHA], new[OMEGA] = st[ALPHA_NEW], st[OMEGA_NEW]
-        new[BETA] = beta_of(rh, st[RHO], st[ALPHA_NEW], st[OMEGA_NEW])
-        new[IT] = st[IT] + 1
-        new[RES] = res_new
-        new[STAGNATED] = stagnated.to(st.dtype)
-        new[RUNNING] = (~(stagnated | conv)).to(st.dtype)
-        self._commit(st, new)
+        xr_recur_plain(rr, rh, st, c)
+
+
+def _commit(st, new):
+    st.copy_(torch.where(st[RUNNING] > 0, new, st))
+
+
+def pv_recur_plain(rhv, st):
+    """pv's finalize recurrence as 0-d tensor operations: ⟨r̂, v′⟩,
+    breakdowns 1 and 2, α; no change once the running flag is 0."""
+    bd1 = st[RHO].abs() < BREAKDOWN
+    bd2 = rhv.abs() < BREAKDOWN
+    new = st.clone()
+    new[RHV] = rhv
+    new[BD1] = bd1.to(st.dtype)
+    new[ALPHA_NEW] = st[RHO] / torch.where(bd2, torch.ones_like(rhv), rhv)
+    new[BD] = (bd1 | bd2).to(st.dtype)
+    _commit(st, new)
+
+
+def st_recur_plain(ss, ts, tt, st):
+    """st's finalize recurrence: the dots, the early s-exit, breakdown 3,
+    ω and the α, ω the x/r pass applies."""
+    s_norm = torch.sqrt(ss)
+    early = (s_norm < st[TOL]) | (s_norm < st[ABS_TOL])
+    bd3 = tt.abs() < BREAKDOWN
+    omega_new = ts / torch.where(bd3, torch.ones_like(tt), tt)
+    bd = st[BD] > 0
+    zero = torch.zeros_like(ss)
+    new = st.clone()
+    new[SS], new[TS], new[TT] = ss, ts, tt
+    new[EARLY] = early.to(st.dtype)
+    new[BD3] = bd3.to(st.dtype)
+    new[OMEGA_NEW] = omega_new
+    new[ALPHA_EFF] = torch.where(bd, zero, st[ALPHA_NEW])
+    new[OMEGA_EFF] = torch.where(bd | early | bd3, zero, omega_new)
+    _commit(st, new)
+
+
+def xr_recur_plain(rr, rh, st, c: BiCGConsts):
+    """xr's finalize recurrence (`krylov.py:350-361`): the residual, the
+    convergence check, breakdown 4, stagnation, the running flag and the
+    carried scalars."""
+    bd, early, bd3 = st[BD] > 0, st[EARLY] > 0, st[BD3] > 0
+    res_new = torch.where(bd, st[RES], torch.sqrt(rr))
+    check = torch.remainder(st[IT], max(1, int(c.check_interval))) == 0
+    conv = early | (check & ((res_new < st[TOL])
+                             | (res_new < st[ABS_TOL])))
+    bd4 = st[OMEGA_NEW].abs() < BREAKDOWN
+    stagnated = bd | bd3 | (bd4 & ~conv)
+    new = st.clone()
+    new[RR], new[RHAT_R] = rr, rh
+    new[RHO_PREV], new[RHO] = st[RHO], rh
+    new[ALPHA], new[OMEGA] = st[ALPHA_NEW], st[OMEGA_NEW]
+    new[BETA] = beta_of(rh, st[RHO], st[ALPHA_NEW], st[OMEGA_NEW])
+    new[IT] = st[IT] + 1
+    new[RES] = res_new
+    new[STAGNATED] = stagnated.to(st.dtype)
+    new[RUNNING] = (~(stagnated | conv)).to(st.dtype)
+    _commit(st, new)
+
+
+class ShardBiCGSTABPasses:
+    """The three passes in their sharded modes for one z-shard, in place
+    on the solver's buffers and the shard's copy of the state, the
+    finalize split as in `cg_kernels.ShardCGPasses`: :meth:`pv`,
+    :meth:`st` and :meth:`xr` return the shard's float64 shares of their
+    dots (1, 3 and 2 values), the caller sums them over the shards
+    (``comm.sum``, float64) and hands the sums to the ``*_recur``
+    methods, which round each to float once.
+
+    ``c`` holds the owned block's constants (``c.nz = nzl``), ``z_off``
+    the shard's first global plane, ``nz_g`` the global plane count.  pv
+    reads the halo-padded r, p, v and the owned r̂, st the halo-padded r
+    and v′; xr updates the owned x and r.  On the CPU, or with
+    ``plain=True``, the plain versions run with the recurrences as 0-d
+    tensor operations."""
+
+    def __init__(self, c: BiCGConsts, z_off: int, nz_g: int, device,
+                 plain: bool = False):
+        self.c, self.z_off, self.nz_g = c, int(z_off), int(nz_g)
+        self.c_pad = dataclasses.replace(c, nz=c.nz + 2)
+        self.plain = plain or torch.device(device).type == "cpu"
+        self._bufs = None
+
+    def _buffers(self, like):
+        """The partials and a float64 fold output for each pass."""
+        if self._bufs is None:
+            self._bufs = (_partials(self.c, like),) + tuple(
+                torch.empty(n, dtype=torch.float64, device=like.device)
+                for n in (1, 3, 2))
+        return self._bufs
+
+    def pv(self, r, p, v, rhat, pn, vn, st):
+        """pn ← p′, vn ← v′ on the owned planes; the shard's
+        (⟨r̂, v′⟩,)."""
+        if not self.plain:
+            _check(self.c_pad, r, p, v)
+            _check(self.c, rhat, pn, vn)
+            part, out, _, _ = self._buffers(r)
+            _launch_sharded("cfd_bicg_pv_sharded", pass_pv, r.device, (
+                r, p, v, rhat, pn, vn, st, part, out), self.c_pad,
+                self.z_off - 1, self.nz_g)
+            return out
+        pn_, vn_, rhv = pass_pv_plain(r, p, v, rhat, st[BETA], st[OMEGA],
+                                      self.c_pad, self.z_off - 1, self.nz_g)
+        pn.copy_(pn_)
+        vn.copy_(vn_)
+        return rhv[None]
+
+    def pv_recur(self, sums, st):
+        if not self.plain:
+            native.launch("cfd_bicg_pv_recur", st.device, native.ptr(sums),
+                          native.ptr(st))
+            return
+        pv_recur_plain(sums[0].to(st.dtype), st)
+
+    def st(self, r, vn, s, t, st):
+        """s, t ← the st pass on the owned planes; the shard's
+        (⟨s,s⟩, ⟨t,s⟩, ⟨t,t⟩)."""
+        if not self.plain:
+            _check(self.c_pad, r, vn)
+            _check(self.c, s, t)
+            part, _, out, _ = self._buffers(r)
+            _launch_sharded("cfd_bicg_st_sharded", pass_st, r.device, (
+                r, vn, s, t, st, part, out), self.c_pad, self.z_off - 1,
+                self.nz_g)
+            return out
+        s_, t_, ss, ts, tt = pass_st_plain(r, vn, st[ALPHA_NEW], self.c_pad,
+                                           self.z_off - 1, self.nz_g)
+        s.copy_(s_)
+        t.copy_(t_)
+        return torch.stack([ss, ts, tt])
+
+    def st_recur(self, sums, st):
+        if not self.plain:
+            native.launch("cfd_bicg_st_recur", st.device, native.ptr(sums),
+                          native.ptr(st))
+            return
+        ss, ts, tt = sums.to(st.dtype)
+        st_recur_plain(ss, ts, tt, st)
+
+    def xr(self, x, r, pn, s, t, rhat, st):
+        """x, r ← the update on the owned block; the shard's
+        (⟨r′,r′⟩, ⟨r̂,r′⟩)."""
+        if not self.plain:
+            _check(self.c, x, r, pn, s, t, rhat)
+            part, _, _, out = self._buffers(x)
+            _launch_sharded("cfd_bicg_xr_sharded", pass_xr, x.device, (
+                x, r, pn, s, t, rhat, st, part, out), self.c, self.z_off,
+                self.nz_g, derivs=False)
+            return out
+        run = st[RUNNING] > 0
+        x2, r2, rr, rh = pass_xr_plain(x, pn, s, t, rhat, st[ALPHA_EFF],
+                                       st[OMEGA_EFF], self.c, self.z_off,
+                                       self.nz_g)
+        x.copy_(torch.where(run, x2, x))
+        r.copy_(torch.where(run, r2, r))
+        return torch.stack([rr, rh])
+
+    def xr_recur(self, sums, st):
+        c = self.c
+        if not self.plain:
+            native.launch("cfd_bicg_xr_recur", st.device, native.ptr(sums),
+                          native.ptr(st), max(1, int(c.check_interval)))
+            return
+        rr, rh = sums.to(st.dtype)
+        xr_recur_plain(rr, rh, st, c)

@@ -82,6 +82,13 @@ SIGNATURES = {
     "cfd_cg_lap_dot": [_P] * 6 + [_I] * 3 + [_F] * 4 + [_P],
     "cfd_cg_update": [_P] * 6 + [_I] * 3 + [_F, _I, _P],
     "cfd_cg_solve": [_P] * 8 + [_I] * 3 + [_F] * 6 + [_I] * 2 + [_P],
+    # ... the sharded passes (a fold output, then the block's global
+    # plane base and count) and the recurrences on the shards' sums
+    "cfd_cg_lap_dot_sharded": [_P] * 7 + [_I] * 3 + [_F] * 4 + [_I] * 2
+    + [_P],
+    "cfd_cg_update_sharded": [_P] * 7 + [_I] * 5 + [_P],
+    "cfd_cg_lap_dot_recur": [_P] * 3,
+    "cfd_cg_update_recur": [_P] * 2 + [_F, _I, _P],
     # mg_kernels.cu, mg_solve.cu (the multigrid pressure solve; the
     # level dims and coefficients of cfd_mg_solve are host arrays)
     "cfd_mg_rb_sweep": [_P] * 3 + [_I] * 3 + [_F] * 4 + [_I, _P],
@@ -91,6 +98,14 @@ SIGNATURES = {
     "cfd_bicg_st": [_P] * 6 + [_I] * 3 + [_F] * 3 + [_P],
     "cfd_bicg_xr": [_P] * 8 + [_I] * 4 + [_P],
     "cfd_bicg_solve": [_P] * 11 + [_I] * 3 + [_F] * 5 + [_I] * 2 + [_P],
+    "cfd_bicg_pv_sharded": [_P] * 9 + [_I] * 3 + [_F] * 3 + [_I] * 2
+    + [_P],
+    "cfd_bicg_st_sharded": [_P] * 7 + [_I] * 3 + [_F] * 3 + [_I] * 2
+    + [_P],
+    "cfd_bicg_xr_sharded": [_P] * 9 + [_I] * 5 + [_P],
+    "cfd_bicg_pv_recur": [_P] * 3,
+    "cfd_bicg_st_recur": [_P] * 3,
+    "cfd_bicg_xr_recur": [_P] * 2 + [_I, _P],
     # rbsor_kernels.cu (the Red-Black SOR and Jacobi pressure solves)
     "cfd_rbsor_sweep": [_P] * 4 + [_I] * 3 + [_F] * 5 + [_I] * 2 + [_P],
     "cfd_stationary_solve": [_P] * 6 + [_I] * 3 + [_F] * 7 + [_I] * 3

@@ -73,7 +73,12 @@ mode (`projection_kernels.py:561-567`, `:464-510`): given ``z_base``
 count) they take a shard's halo-padded block, put the z-shells and b̃'s
 z face term at global planes, and count on ``global_nz_launches``; the
 inverse DST and :func:`corrector` run unchanged on its 1-halo x̂ block
-(A5 ``corr_all``'s sharded form).
+(A5 ``corr_all``'s sharded form).  Its CG and BiCGSTAB steps take
+:func:`poisson_rhs` in the same mode (A5 ``divergence`` with
+``global_nz``) and :func:`corrector` on the 1-halo block of the solved p
+(A5 ``corr_xy`` → ``corr_u`` / ``corr_v`` and ``corr_w``,
+`projection_kernels.py:516-547`: the per-component correction is the
+same arithmetic as ``corr_all``'s, one kernel for the three).
 
 Every wrapper below launches its CUDA kernel on a CUDA tensor and runs its
 plain PyTorch version (``*_plain``) on a CPU tensor; its ``launches``
@@ -453,22 +458,33 @@ def divergence_star(us, vs, ws, c: StencilConsts):
     return (ddx(us, c.inv_2dx) + ddy(vs, c.inv_2dy)) + ddz(ws, c.inv_2dz)
 
 
-def poisson_rhs_plain(us, vs, ws, rod, c: StencilConsts):
+def poisson_rhs_plain(us, vs, ws, rod, c: StencilConsts, z_base: int = 0,
+                      nz_g: int = None):
     """rhs = (ρ/dt)∇·u* on the interior, zero shell
-    (`projection_kernels.py:699-701`: no face term, no minus)."""
-    return set_interior(torch.zeros_like(us),
-                        rod * divergence_star(us, vs, ws, c))
+    (`projection_kernels.py:699-701`: no face term, no minus).  With
+    ``nz_g`` the ``global_nz`` mode of A5's ``divergence``
+    (`projection_kernels.py:340-351`, the z-decomposed CG and BiCGSTAB
+    steps): the fields are a shard's halo-padded block (local plane k =
+    global plane ``z_base + k``), and the global z-shells (and the planes
+    past them) are zero, the reference's ``fix_shell`` of the rhs
+    (`parallel/fused.py:583-585`)."""
+    rhs = set_interior(torch.zeros_like(us),
+                       rod * divergence_star(us, vs, ws, c))
+    return _keep_global_shells(rhs, torch.zeros_like(rhs), c, z_base, nz_g)
 
 
-def poisson_rhs(us, vs, ws, rod, c: StencilConsts):
+def poisson_rhs(us, vs, ws, rod, c: StencilConsts, z_base: int = 0,
+                nz_g: int = None):
     """rhs — ``poisson_input_kernel`` in its emit-rhs form on CUDA
-    (``<true>`` on the consistent scheme, counted by scheme)."""
+    (``<true>`` on the consistent scheme, counted by scheme).  With
+    ``nz_g`` the ``global_nz`` mode of :func:`poisson_rhs_plain`,
+    counted on ``global_nz_launches``."""
     if native.on_cpu(us):
-        return poisson_rhs_plain(us, vs, ws, rod, c)
+        return poisson_rhs_plain(us, vs, ws, rod, c, z_base, nz_g)
     _check(c, (us, vs, ws), (rod,))
     rhs = torch.empty_like(us)
-    _launch_input(us, vs, ws, us, rhs, rod, c, 1, _z_args(c, 0, None))
-    native.count_launch(poisson_rhs, c.scheme)
+    _launch_input(us, vs, ws, us, rhs, rod, c, 1, _z_args(c, z_base, nz_g))
+    native.count_launch(poisson_rhs, _counter(c, nz_g))
     return rhs
 
 

@@ -175,6 +175,18 @@ def interior_mask(shape, dtype=torch.float32, device=None):
     return m
 
 
+def global_interior_mask(shape, z_base: int, nz_g: int, device=None):
+    """The interior of a z-decomposed shard's block as a bool tensor: the
+    in-plane interior of the planes whose global index ``z_base + k``
+    lies in 1..nz_g − 2 (the global Dirichlet-0 correction space of the
+    sharded Krylov passes)."""
+    nz, ny, nx = shape
+    kg = z_base + torch.arange(nz, device=device)
+    m = torch.zeros(shape, dtype=torch.bool, device=device)
+    m[:, 1:-1, 1:-1] = ((kg > 0) & (kg < nz_g - 1))[:, None, None]
+    return m
+
+
 def checkerboard_mask(shape, parity, device=None):
     """The interior points with (i + j + k) % 2 == parity (k = 0 on a 2D
     field), as a bool tensor: red is parity 0, black parity 1."""

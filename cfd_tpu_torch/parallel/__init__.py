@@ -1,7 +1,13 @@
 """Domain decomposition (counterpart of `cfd_tpu/parallel/`): meshes,
-shard communicators and the z-decomposed spectral projection step."""
+shard communicators, the z-decomposed projection steps (spectral, CG,
+BiCGSTAB) and the sharded Krylov solves."""
 
 from .comm import LocalComm, ProcessGroupComm
+from .fused_bicgstab import (bicgstab_fused_sharded_unsupported_reason,
+                             make_bicgstab_fused_sharded,
+                             make_bicgstab_fused_sharded_local)
+from .fused_cg import (cg_fused_sharded_unsupported_reason,
+                       make_cg_fused_sharded, make_cg_fused_sharded_local)
 from .mesh import (Mesh, ShardedField, factor_devices, field_spec,
                    gather_field, make_mesh, replicate, shard_field)
 from .sharded import make_sharded_raw_step, make_sharded_step
@@ -9,4 +15,8 @@ from .sharded import make_sharded_raw_step, make_sharded_step
 __all__ = ["factor_devices", "field_spec", "make_mesh", "replicate",
            "shard_field", "gather_field", "make_sharded_raw_step",
            "make_sharded_step", "Mesh", "ShardedField", "LocalComm",
-           "ProcessGroupComm"]
+           "ProcessGroupComm", "cg_fused_sharded_unsupported_reason",
+           "make_cg_fused_sharded", "make_cg_fused_sharded_local",
+           "bicgstab_fused_sharded_unsupported_reason",
+           "make_bicgstab_fused_sharded",
+           "make_bicgstab_fused_sharded_local"]

@@ -17,7 +17,8 @@ shard.  So the same step runs on both implementations:
 * :class:`ProcessGroupComm` — one shard per rank of a
   ``torch.distributed`` process group: gloo across CPU processes, NCCL
   across cards.  Halos are ``batch_isend_irecv`` pairs, the transposes
-  ``all_to_all``, the maxima ``all_reduce(MAX)`` with a NaN flag beside
+  ``all_to_all``, the sums ``all_reduce(SUM)``, the maxima
+  ``all_reduce(MAX)`` with a NaN flag beside
   (NCCL's and gloo's max drop NaN, and a NaN must still fail the step's
   finiteness check).
 
@@ -30,8 +31,20 @@ The collectives:
 * ``all_to_all(blocks, split_axis, concat_axis)`` — the tiled transpose:
   shard j receives the j-th chunk (along ``split_axis``) of every shard's
   block, concatenated in shard order along ``concat_axis``;
+* ``fill_halo(bufs, n)`` — the same exchange into persistent buffers:
+  each shard's buffer holds ``n`` halo planes a side around its owned
+  planes, and its halo planes are overwritten with its neighbours' owned
+  edge planes; an edge shard's outer halo planes are left as they are
+  (the Krylov solves allocate them zero once and copy only halo planes
+  each iteration, where ``halo`` and a concatenation would copy the
+  whole block);
 * ``max(values)`` — the element-wise maximum over all shards, NaN
   propagating (as ``torch.maximum``);
+* ``sum(values)`` — the element-wise sum over all shards (the Krylov
+  solves' dots, the reference's ``lax.psum``): each shard folds its own
+  partials first, and the shards' values are added in shard order; a
+  sum keeps NaN, so no flag rides along; the dtype is the values' (the
+  BiCGSTAB dots stay float64 through it);
 * ``gather(blocks, device)`` — every shard's block, in shard order, on
   ``device`` (the placement helpers' read-back, not the step's).
 """
@@ -66,10 +79,23 @@ class LocalComm:
         return [torch.cat([c[j].to(dev) for c in chunks], dim=concat_axis)
                 for j, dev in enumerate(self.devices)]
 
+    def fill_halo(self, bufs, n: int):
+        for s, b in enumerate(bufs):
+            if s > 0:
+                b[:n].copy_(bufs[s - 1][-2 * n:-n])
+            if s < self.size - 1:
+                b[-n:].copy_(bufs[s + 1][n:2 * n])
+
     def max(self, values):
         total = values[0]
         for v in values[1:]:
             total = torch.maximum(total, v.to(total.device))
+        return [total.to(dev) for dev in self.devices]
+
+    def sum(self, values):
+        total = values[0]
+        for v in values[1:]:
+            total = total + v.to(total.device)
         return [total.to(dev) for dev in self.devices]
 
     def gather(self, blocks, device):
@@ -123,6 +149,22 @@ class ProcessGroupComm:
                 req.wait()
         return [(lo, hi)]
 
+    def fill_halo(self, bufs, n: int):
+        dist = self._dist
+        (b,) = bufs
+        ops = []
+        if self.rank > 0:
+            left = self._peer(self.rank - 1)
+            ops += [dist.P2POp(dist.isend, b[n:2 * n], left, self.group),
+                    dist.P2POp(dist.irecv, b[:n], left, self.group)]
+        if self.rank < self.size - 1:
+            right = self._peer(self.rank + 1)
+            ops += [dist.P2POp(dist.isend, b[-2 * n:-n], right, self.group),
+                    dist.P2POp(dist.irecv, b[-n:], right, self.group)]
+        if ops:
+            for req in dist.batch_isend_irecv(ops):
+                req.wait()
+
     def all_to_all(self, blocks, split_axis: int, concat_axis: int):
         (b,) = blocks
         ins = [c.contiguous() for c in b.chunk(self.size, dim=split_axis)]
@@ -142,6 +184,13 @@ class ProcessGroupComm:
         out = torch.where(buf[n:] > 0, torch.full_like(flat, torch.nan),
                           buf[:n])
         return [out.reshape(v.shape)]
+
+    def sum(self, values):
+        (v,) = values
+        out = v.clone()
+        self._dist.all_reduce(out, op=self._dist.ReduceOp.SUM,
+                              group=self.group)
+        return [out]
 
     def gather(self, blocks, device):
         (b,) = blocks

@@ -1,6 +1,7 @@
-"""The z-decomposed spectral projection step (counterpart of
-`cfd_tpu/parallel/fused.py`, the uniform z-mesh FFT_DIRECT DST-fused
-variant `local_step_dst`, `:524-557`, and its step wrapper, `:612-645`).
+"""The z-decomposed projection steps (counterpart of
+`cfd_tpu/parallel/fused.py`: the uniform z-mesh FFT_DIRECT DST-fused
+variant `local_step_dst`, `:524-557`, the CG / BiCGSTAB variant
+`local_step`, `:559-610`, and their step wrapper, `:612-645`).
 
 Fields are split along z over the mesh's ``'z'`` axis; x and y stay whole,
 so every in-plane kernel is the single-device one.  Each shard, with
@@ -31,6 +32,17 @@ so every in-plane kernel is the single-device one.  Each shard, with
    planes' maxima are folded in as the single-device step folds its
    faces, and the maxima of all shards with ``comm.max``.
 
+With ``poisson_method`` CG or BiCGSTAB the step is the reference's
+per-component ``local_step``: the same predictor on the 2-halo block
+(where the reference pads one plane and exchanges w* again), the rhs
+(ρ/dt)∇·u* on the 1-halo block in the ``global_nz`` mode of A5's
+``divergence`` (`projection_kernels.poisson_rhs`, zero global shells),
+the sharded Krylov solve warm-started from p (`fused_cg`,
+`fused_bicgstab`), one halo plane of the solved p a side, and the
+corrector on that block as in step 4 (A5 ``corr_xy`` + ``corr_w``); the
+solve's final residual is the step's residual, and a solve that did not
+converge makes the status −7 (`:631-643`).
+
 At "highest" every point and every mode runs the single-device kernels'
 arithmetic, so the step equals the single-device kernel step; "high"
 takes the 3xTF32 products with the stored Thomas solve (the
@@ -58,10 +70,12 @@ from ..solvers.ns.common import runs_plain, step_result, \
     validate_grid_for_solver
 from ..solvers.ns.params import NSParams
 from ..solvers.ns.projection import is_consistent
-from ..solvers.poisson.base import Method, PoissonProblem
+from ..solvers.poisson.base import Method, PoissonParams, PoissonProblem
 from ..solvers.poisson.spectral import (dst_fused_sharded_supported,
                                         make_dst_fused_sharded_pieces)
-from .mesh import Mesh, ShardedField
+from .fused_bicgstab import make_bicgstab_fused_sharded_local
+from .fused_cg import make_cg_fused_sharded_local
+from .mesh import Mesh, ShardedField, mesh_zy_sizes
 
 
 def _mesh_z_size(mesh: Mesh):
@@ -73,27 +87,17 @@ def _mesh_z_size(mesh: Mesh):
     return mesh.shape["z"]
 
 
-def _mesh_zy_sizes(mesh: Mesh):
-    """(Pz, Py) when the mesh spans only 'z' and/or 'y' axes (any other
-    axis of size 1), else None; Py is 1 without a 'y' axis."""
-    if "z" not in mesh.axis_names:
-        return None
-    if any(n not in ("z", "y") and mesh.shape[n] != 1
-           for n in mesh.axis_names):
-        return None
-    return mesh.shape["z"], mesh.shape.get("y", 1)
-
-
 def _not_ported(what: str) -> str:
     return f"{what} is not ported yet"
 
 
 def fused_sharded_unsupported_reason(grid: Grid, params: NSParams,
-                                     mesh: Mesh):
+                                     mesh: Mesh, poisson_method=None):
     """None when the ported sharded step applies, else the reason
     (`fused.py:263-322`, with the reference's texts where it has one).
     The dtype is no reason: float64 runs the same chain on the plain
-    versions."""
+    versions.  The y-pencil divisibility of the spectral solve applies
+    to ``FFT_DIRECT`` (the default) only."""
     if params.source_func is not None:
         return _not_ported("custom source callables use the jnp path, "
                            "which")
@@ -104,7 +108,7 @@ def fused_sharded_unsupported_reason(grid: Grid, params: NSParams,
                            "sharded step")
     if grid.nz <= 2:
         return _not_ported("the fused sharded 2D projection (y-only mesh)")
-    sizes = _mesh_zy_sizes(mesh)
+    sizes = mesh_zy_sizes(mesh)
     if sizes is None:
         return ("fused sharded projection needs a mesh over ('z'[, 'y']) "
                 f"axes (got axes {dict(mesh.shape)})")
@@ -114,6 +118,9 @@ def fused_sharded_unsupported_reason(grid: Grid, params: NSParams,
                 "planes per shard")
     if py > 1:
         return _not_ported("the (z, y)-mesh fused sharded projection")
+    if poisson_method is not None and Method(poisson_method) in (
+            Method.CG, Method.BICGSTAB):
+        return None
     problem = PoissonProblem(grid.nx, grid.ny, grid.nz, grid.dx0, grid.dy0,
                              grid.dz0)
     if not dst_fused_sharded_supported(problem, pz):
@@ -140,29 +147,30 @@ def make_fused_sharded_projection_step(grid: Grid, params: NSParams,
     `mesh.ShardedField` z-sharded over ``mesh`` (`fused.py:325-645`).
 
     ``poisson_method`` None or ``FFT_DIRECT`` (the reference's default
-    here); ``spectral_precision`` None / ``"highest"`` (IEEE fp32 DST
-    products) or ``"high"`` (3xTF32), the per-shard xy transforms only —
-    the z solve stays fp32 and stored.  ``dtype`` defaults to float32 on
-    the card; float64 and ``plain=True`` run the plain versions.
-    ``poisson_params`` is accepted for the builders' common signature (the
-    direct solve reads none)."""
-    del poisson_params
-    reason = fused_sharded_unsupported_reason(grid, params, mesh)
+    here): the DST-fused step; ``spectral_precision`` None /
+    ``"highest"`` (IEEE fp32 DST products) or ``"high"`` (3xTF32), the
+    per-shard xy transforms only — the z solve stays fp32 and stored.
+    ``CG`` or ``BICGSTAB``: the per-component step (`fused.py:559-610`)
+    with the sharded Krylov solve (`fused_cg`, `fused_bicgstab`) on
+    ``poisson_params`` (default ``PoissonParams()``); a failed solve
+    gives status −7 and its final residual is the step's ``residual``;
+    ``step.last_poisson`` holds the first local shard's result of the
+    last solve.
+    ``dtype`` defaults to float32 on the card; float64 and
+    ``plain=True`` run the plain versions."""
+    reason = fused_sharded_unsupported_reason(grid, params, mesh,
+                                              poisson_method)
     if reason is not None:
         _unsupported(reason)
     method = (Method.FFT_DIRECT if poisson_method is None
               else Method(poisson_method))
-    if method in (Method.CG, Method.BICGSTAB):
-        _unsupported(_not_ported(f"the fused sharded {method.name} "
-                                 "pressure solve"))
-    if method != Method.FFT_DIRECT:
+    if method not in (Method.FFT_DIRECT, Method.CG, Method.BICGSTAB):
         _unsupported("fused sharded projection supports FFT_DIRECT, CG and "
-                     f"BICGSTAB pressure solves (got {method})")
+                     f"BICGSTAB pressure solves (got {method.name})")
     if spectral_precision not in _PRECISIONS:
         _unsupported(_not_ported(f"spectral_precision="
                                  f"{spectral_precision!r} on the sharded "
                                  "step"))
-    precision = _PRECISIONS[spectral_precision]
     validate_grid_for_solver(grid, grid.shape)
 
     comm = mesh.comm
@@ -174,18 +182,28 @@ def make_fused_sharded_projection_step(grid: Grid, params: NSParams,
     P = _mesh_z_size(mesh)
     nzl = nz // P
     problem = PoissonProblem(nx, ny, nz, grid.dx0, grid.dy0, grid.dz0)
-    mats, zsolve = make_dst_fused_sharded_pieces(problem, P, comm, dtype,
-                                                 plain=plain)
     with_sources = (params.source_amplitude_u != 0.0
                     or params.source_amplitude_v != 0.0)
     consts = pkm.stencil_consts(nz, ny, nx, grid.dx0, grid.dy0, grid.dz0,
                                 grid.xmin, grid.ymin, params.mu,
                                 with_sources, params, dtype)
+    if method == Method.FFT_DIRECT:
+        mats, zsolve = make_dst_fused_sharded_pieces(problem, P, comm, dtype,
+                                                     plain=plain)
+        pressure = None
+    else:
+        maker = (make_cg_fused_sharded_local if method == Method.CG
+                 else make_bicgstab_fused_sharded_local)
+        pressure = maker(problem, poisson_params or PoissonParams(), comm,
+                         dtype, plain=plain)
+    precision = _PRECISIONS[spectral_precision]
     if plain:
         star, b_in = pkm.predictor_star_plain, pkm.poisson_input_plain
+        rhs_of = pkm.poisson_rhs_plain
         dot, corr = rolling.plane_dot_plain, pkm.corrector_plain
     else:
         star, b_in = pkm.predictor_star, pkm.poisson_input
+        rhs_of = pkm.poisson_rhs
         dot, corr = rolling.plane_dot, pkm.corrector
 
     def block(n):
@@ -209,7 +227,9 @@ def make_fused_sharded_projection_step(grid: Grid, params: NSParams,
         rho0 = torch.where(rho0 < 1e-10, torch.ones_like(rho0), rho0)
         return dt, amp_u * decay, amp_v * decay, rho0
 
-    def step(field: ShardedField, dt, iter_idx):
+    def predict(field, dt, iter_idx):
+        """The shards' step scalars and their predictor blocks (the 2-halo
+        block: w* at the owned planes ± 1 without a second exchange)."""
         blocks = field.blocks
         # ρ₀ is the global field's first point, on shard 0
         rho0 = comm.max([b.rho[0, 0, 0] if s == 0
@@ -219,29 +239,30 @@ def make_fused_sharded_projection_step(grid: Grid, params: NSParams,
                 for b, r in zip(blocks, rho0)]
         u2, v2, w2 = (pad([getattr(b, n) for b in blocks], 2)
                       for n in "uvw")
-        stars, bhat = [], []
-        for s, b, uh, vh, wh, (dts, su, sv, r0), m in zip(
-                comm.shards, blocks, u2, v2, w2, scal, mats):
-            z_off = s * nzl
-            us, vs, ws = star(uh, vh, wh, torch.stack([dts, su, sv]),
-                              c_pred, None, z_off - 2, nz)
-            zero = torch.zeros_like(b.p[:1])
-            p1 = torch.cat([zero, b.p, zero])  # b̃ reads owned planes
-            bt = b_in(us[1:-1], vs[1:-1], ws[1:-1], p1, r0 / dts, c_bt,
-                      z_off - 1, nz)
-            stars.append((us, vs, ws))
-            bhat.append(dot(bt[1:-1], m[0], m[1], precision))
-        xhat = zsolve(bhat)
+        stars = [star(uh, vh, wh, torch.stack([dts, su, sv]), c_pred, None,
+                      s * nzl - 2, nz)
+                 for s, uh, vh, wh, (dts, su, sv, _) in zip(
+                     comm.shards, u2, v2, w2, scal)]
+        return scal, stars
+
+    def halo_block(blocks, halos):
+        """Each shard's owned planes with a halo plane on each side that
+        has a neighbour: an edge shard's block starts (ends) at its global
+        shell plane."""
+        return [torch.cat(([] if s == 0 else [lo]) + [b]
+                          + ([] if s == P - 1 else [hi]))
+                for s, b, (lo, hi) in zip(comm.shards, blocks, halos)]
+
+    def correct(field, pbs, stars, scal, residual=None, ok=None):
+        """The corrector on each shard's 1-halo block of the pressure
+        (``pbs``, :func:`halo_block`'s, in physical space), the maxima
+        folded over the shards, the new field and its StepResult."""
         new_blocks, maxima = [], []
-        for s, b, x, (lo, hi), (us, vs, ws), (dts, _, _, r0), m in zip(
-                comm.shards, blocks, xhat, comm.halo(xhat, 1), stars,
-                scal, mats):
+        for s, b, pb, (us, vs, ws), (dts, _, _, r0) in zip(
+                comm.shards, field.blocks, pbs, stars, scal):
             first, last = s == 0, s == P - 1
             a = 0 if first else 1       # halo planes below the owned ones
             e = 0 if last else 1        # ... and above
-            xb = torch.cat(([] if first else [lo]) + [x]
-                           + ([] if last else [hi]))
-            pb = dot(xb, m[2], m[3], precision)
             sl = slice(2 - a, nzl + 2 + e)
             u, v, w, m2, pmax, pabs = corr(
                 us[sl], vs[sl], ws[sl], pb, dts / r0,
@@ -260,7 +281,36 @@ def make_fused_sharded_projection_step(grid: Grid, params: NSParams,
         m2, pmax, pabs, tmax = comm.max(maxima)[0]
         finite = torch.isfinite(m2) & torch.isfinite(pabs)
         return (field.with_blocks(new_blocks),
-                step_result(finite, torch.sqrt(m2), pmax, tmax))
+                step_result(finite, torch.sqrt(m2), pmax, tmax, residual,
+                            ok))
 
-    return step
+    def step_dst(field: ShardedField, dt, iter_idx):
+        scal, stars = predict(field, dt, iter_idx)
+        bhat = []
+        for s, b, (us, vs, ws), (dts, _, _, r0), m in zip(
+                comm.shards, field.blocks, stars, scal, mats):
+            zero = torch.zeros_like(b.p[:1])
+            p1 = torch.cat([zero, b.p, zero])  # b̃ reads owned planes
+            bt = b_in(us[1:-1], vs[1:-1], ws[1:-1], p1, r0 / dts, c_bt,
+                      s * nzl - 1, nz)
+            bhat.append(dot(bt[1:-1], m[0], m[1], precision))
+        xhat = zsolve(bhat)
+        # the inverse DST of each shard's 1-halo x̂ block, then the
+        # corrector on it
+        pbs = [dot(xb, m[2], m[3], precision) for xb, m in zip(
+            halo_block(xhat, comm.halo(xhat, 1)), mats)]
+        return correct(field, pbs, stars, scal)
 
+    def step_krylov(field: ShardedField, dt, iter_idx):
+        scal, stars = predict(field, dt, iter_idx)
+        rhs = [rhs_of(us[1:-1], vs[1:-1], ws[1:-1], r0 / dts, c_bt,
+                      s * nzl - 1, nz)[1:-1]
+               for s, (us, vs, ws), (dts, _, _, r0) in zip(
+                   comm.shards, stars, scal)]
+        res = pressure([b.p for b in field.blocks], rhs)
+        step_krylov.last_poisson = res[0]
+        ps = [r.x for r in res]
+        return correct(field, halo_block(ps, comm.halo(ps, 1)), stars, scal,
+                       res[0].final_residual, res[0].status == 0)
+
+    return step_dst if pressure is None else step_krylov

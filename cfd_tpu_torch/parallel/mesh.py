@@ -61,6 +61,17 @@ class Mesh:
         return int(self.devices.size)
 
 
+def mesh_zy_sizes(mesh: Mesh):
+    """(Pz, Py) when the mesh spans only 'z' and/or 'y' axes (any other
+    axis of size 1), else None; Py is 1 without a 'y' axis."""
+    if "z" not in mesh.axis_names:
+        return None
+    if any(n not in ("z", "y") and mesh.shape[n] != 1
+           for n in mesh.axis_names):
+        return None
+    return mesh.shape["z"], mesh.shape.get("y", 1)
+
+
 def _cuda_devices():
     resolve_device("cuda")  # raises without a CUDA device
     return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]

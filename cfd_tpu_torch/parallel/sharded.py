@@ -32,10 +32,19 @@ def make_sharded_raw_step(grid: Grid, params: NSParams, mesh: Mesh,
     Keywords: ``dtype``, ``poisson_method``, ``poisson_params``,
     ``spectral_precision`` and ``plain`` go to the builder;
     ``use_pallas=False`` asks for the reference's GSPMD jnp path, which
-    has no counterpart, and raises."""
+    has no counterpart, and raises.  The reference's other keywords are
+    taken (`sharded.py:83-94`): ``strict`` (the port is always strict:
+    what it cannot build raises, nothing falls back), ``use_pallas_cg``
+    (as ``use_pallas``) and ``pallas_interpret`` (the Pallas interpreter
+    switch, which has no meaning here)."""
     if method not in _METHODS:
         raise ValueError(f"unknown method {method!r}")
     use_pallas = kw.pop("use_pallas", None)
+    use_pallas_cg = kw.pop("use_pallas_cg", None)
+    kw.pop("strict", None)
+    kw.pop("pallas_interpret", None)
+    if use_pallas is None:
+        use_pallas = use_pallas_cg
 
     def unsupported(reason):
         raise CFDError(Status.ERROR_UNSUPPORTED,
@@ -46,7 +55,8 @@ def make_sharded_raw_step(grid: Grid, params: NSParams, mesh: Mesh,
                     "counterpart in the port")
     if method != "projection":
         unsupported(f"the fused sharded {method} step is not ported yet")
-    reason = fused_sharded_unsupported_reason(grid, params, mesh)
+    reason = fused_sharded_unsupported_reason(grid, params, mesh,
+                                              kw.get("poisson_method"))
     if reason is not None:
         unsupported(reason)
     raw = make_fused_sharded_projection_step(grid, params, mesh, **kw)

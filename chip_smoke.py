@@ -203,8 +203,32 @@ scaling):
   the card at 33×17×9 against the CPU plain step, 1e-12, no kernel
   launched;
 * phase 45: ``ProcessGroupComm`` on a one-rank NCCL group against
-  ``LocalComm`` with one shard, bit for bit (it shows the process-group
-  path runs on CUDA, and measures nothing).
+  ``LocalComm`` with one shard, the spectral and the CG step, bit for bit
+  (it shows the process-group path runs on CUDA, and measures nothing).
+
+And the z-decomposed CG and BiCGSTAB steps, on the same 4 emulated
+shards:
+
+* phase 46: the sharded Krylov kernels against their plain versions on
+  the first, a middle and the last shard at 37×23×16 and on the 512³/4
+  slab — K1 (``make_lap_dot_sharded``) and the BiCGSTAB pv / st passes
+  on the 130-plane halo-padded block, K2 and xr on the owned block, the
+  ``global_nz`` rhs, the corrector on a 1-halo block of a physical p:
+  fields bit-equal, the shards' shares of the dots at ``TOL_DOT``;
+* phase 47: ``bench.py``'s ``cg_512`` through ``make_cg_fused_sharded``
+  (1221 ± 10% iterations, float64 true residual below 1e-3, host syncs
+  at most one a chunk), ms an iteration beside phase 13's, and one CG
+  iteration's halo exchange by plane copies against concatenation;
+* phase 48: the 512³ CG step (``run_3d``'s physics, tolerance 1e-3) over
+  4 shards against the single-device kernel step, 3 warm-up and 3 timed
+  steps each, at ``TOL_CG_UVW`` and ``close_p``, iterations a step of
+  both;
+* phase 49: phase 25's BiCGSTAB step (128³, its tolerance) over 4 shards
+  against the single-device kernel step, the same way.
+
+On phases 47–49 every kernel wrapper of the path must count launches,
+and each plain version of the path is replaced by a tripwire while it
+runs: none may run.
 
 It checks status, finiteness, launch counters (set to 0 just before each
 main path and read just after) and kernel-vs-plain agreement; any
@@ -217,7 +241,8 @@ PyTorch call computes the same function); the last line is
     python3 chip_smoke.py --profile
 
 adds phase 5: 3 more kernel-path steps of the 512³ and 2048² projection
-steps and of each phase-10 configuration under ``torch.profiler``,
+steps and of each phase-10 configuration, and one step of each path of
+phases 48 and 49, under ``torch.profiler``,
 printing the device time per kernel, the device busy time against the
 CUDA-event span and host wall time of those steps (the device's idle
 share).
@@ -231,6 +256,7 @@ H100: the loop is bound by the host's launches).
 
 from __future__ import annotations
 
+import contextlib
 import importlib.util
 import json
 import math
@@ -403,6 +429,13 @@ A1_SHARD = "cfd_tpu/ops/pallas/projection_kernels.py:561"     # global_nz
 A5_BT_SHARD = "cfd_tpu/ops/pallas/projection_kernels.py:464"  # btilde_k
 A5_CORR_SHARD = "cfd_tpu/ops/pallas/projection_kernels.py:760"  # corr_all
 A4_MU = "cfd_tpu/ops/pallas/tdma.py:126"              # make_tdma_z(mu=None)
+# Phases 46-49: the z-decomposed CG and BiCGSTAB steps
+CG_SHARD = "cfd_tpu/ops/pallas/cg_kernels.py:437"     # make_lap_dot_sharded
+CG_UPD_SHARD = "cfd_tpu/parallel/fused_cg.py:216"     # the owned-block axpy
+B1_SHARD = "cfd_tpu/ops/pallas/bicgstab_kernels.py:56"    # global_nz pv/st
+B1_XR_SHARD = "cfd_tpu/ops/pallas/bicgstab_kernels.py:133"  # xr, owned
+A5_DIV_SHARD = "cfd_tpu/ops/pallas/projection_kernels.py:340"  # divergence
+A5_CORR_XY = "cfd_tpu/ops/pallas/projection_kernels.py:516"    # corr_xy
 
 # The card's peaks for a kernel's bound (H100 SXM data sheet, at 700 W):
 # device memory 3.35 TB/s, float32 outside the tensor cores 67 TFLOP/s,
@@ -4578,8 +4611,8 @@ def main() -> int:
     import dataclasses
 
     from cfd_tpu_torch.parallel import (LocalComm, ProcessGroupComm,
-                                        gather_field, make_mesh,
-                                        make_sharded_step)
+                                        gather_field, make_cg_fused_sharded,
+                                        make_mesh, make_sharded_step)
     bit = (0.0, False)
 
     def zpad(x, k):
@@ -4911,7 +4944,8 @@ def main() -> int:
 
     # ---- phase 45: a one-rank NCCL group ------------------------------------
     # ProcessGroupComm on a one-rank NCCL group (file:// init) against
-    # LocalComm with P = 1, 3 steps at 128x64x16, bit for bit: shows the
+    # LocalComm with P = 1, 3 steps at 128x64x16 of the spectral and the
+    # CG step (its dots through all_reduce(SUM)), bit for bit: shows the
     # process-group path builds and runs on CUDA; it measures nothing
     # about scaling (one rank exchanges nothing)
     t_phase = time.perf_counter()
@@ -4928,25 +4962,364 @@ def main() -> int:
         try:
             comm1 = ProcessGroupComm(device=dev)
             outs = {}
-            for kind, mesh1 in (
-                    ("nccl", make_mesh([dev], axes=("z",), comm=comm1)),
-                    ("local", make_mesh([dev], axes=("z",)))):
-                step1, place1 = make_sharded_step(g45, NSParams(), mesh1)
-                fo, ro = run_steps(step1, place1(f45), 1e-3, 3)
-                outs[kind] = (gather_field(fo), ro)
+            for method in (Method.FFT_DIRECT, Method.CG):
+                for kind, mesh1 in (
+                        ("nccl", make_mesh([dev], axes=("z",), comm=comm1)),
+                        ("local", make_mesh([dev], axes=("z",)))):
+                    step1, place1 = make_sharded_step(
+                        g45, NSParams(), mesh1, poisson_method=method)
+                    fo, ro = run_steps(step1, place1(f45), 1e-3, 3)
+                    outs[method.name, kind] = (gather_field(fo), ro)
             sync()
         finally:
             dist.destroy_process_group()
-    gn, gl = (outs[k][0] for k in ("nccl", "local"))
-    nccl_diff = max(float((getattr(gn, k) - getattr(gl, k)).abs().max())
-                    for k in "uvwp")
-    print(f"phase 45 one-rank NCCL group vs LocalComm(P=1) 128x64x16, 3 "
-          f"steps: max|diff| {nccl_diff!r}, status "
-          f"{int(outs['nccl'][1].status)}", flush=True)
-    if nccl_diff != 0.0 or int(outs["nccl"][1].status) != 0:
-        fail("phase 45: the process-group step differs from LocalComm's")
+    nccl_diff = 0.0
+    for method in ("FFT_DIRECT", "CG"):
+        gn, gl = (outs[method, k][0] for k in ("nccl", "local"))
+        diff = max(float((getattr(gn, k) - getattr(gl, k)).abs().max())
+                   for k in "uvwp")
+        status = int(outs[method, "nccl"][1].status)
+        print(f"phase 45 one-rank NCCL group vs LocalComm(P=1) 128x64x16, "
+              f"{method} step, 3 steps: max|diff| {diff!r}, status "
+              f"{status}", flush=True)
+        if diff != 0.0 or status != 0:
+            fail(f"phase 45: the process-group {method} step differs from "
+                 "LocalComm's")
+        nccl_diff = max(nccl_diff, diff)
     del f45, outs, gn, gl
     print(f"phase 45 took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+    # ---- phase 46: the sharded Krylov kernels against their plain versions
+    # K1 (make_lap_dot_sharded) and the BiCGSTAB pv / st passes on the
+    # halo-padded block of the first, a middle and the last of 4 z-shards
+    # (z_base = z_off - 1), K2 and xr on the owned block, the rhs (A5's
+    # divergence) in its global_nz mode, and the corrector on a 1-halo
+    # block of a physical p (A5 corr_xy / corr_w), at 37x23x16 and on the
+    # 512^3/4 slab: fields bit for bit, the shards' shares of the dots
+    # at TOL_DOT (another summation order)
+    t_phase = time.perf_counter()
+    for shape in ((16, 23, 37), (N_BIG,) * 3):
+        nz_g, ny_, nx_ = shape
+        nzl = nz_g // SHARDS
+        big = nz_g == N_BIG
+        tag = "x".join(map(str, shape[::-1]))
+        print(f"phase 46 sharded Krylov kernels vs plain at {tag} over "
+              f"{SHARDS} z-shards", flush=True)
+        grid, prob = cg_problem(shape)
+        c_own = cgk.CGConsts(nzl, ny_, nx_, prob.inv_dx2, prob.inv_dy2,
+                             prob.inv_dz2)
+        c_pad = dataclasses.replace(c_own, nz=nzl + 2)
+        b_own = bk.BiCGConsts(nzl, ny_, nx_, prob.inv_dx2, prob.inv_dy2,
+                              prob.inv_dz2)
+        b_pad = dataclasses.replace(b_own, nz=nzl + 2)
+        sc_blk = pkm.StencilConsts(nzl + 2, ny_, nx_, grid.dx0, grid.dy0,
+                                   grid.dz0, grid.xmin, grid.ymin, 0.01,
+                                   False)
+        gen = torch.Generator(device=dev).manual_seed(SEED + 46)
+        r, p, v, x = (torch.randn(shape, generator=gen, device=dev)
+                      for _ in range(4))
+        rp, pp_, vp = (zpad(a, 1) for a in (r, p, v))
+        beta = torch.full((), 0.37, device=dev)
+        alpha = torch.full((), 0.61, device=dev)
+        omega = torch.full((), 0.23, device=dev)
+        rod, s_ = torch.full((), 1e4, device=dev), torch.full(
+            (), 1e-4, device=dev)
+        for shard in (0, SHARDS // 2, SHARDS - 1):
+            z_off = shard * nzl
+            timed = big and shard == SHARDS // 2
+            stag = f"{tag} shard {shard}"
+            own = slice(z_off, z_off + nzl)
+            rb, pb, vb = (a[z_off:z_off + nzl + 2] for a in (rp, pp_, vp))
+            xo, ro, po = x[own], r[own], p[own]
+            cells = nzl * ny_ * nx_
+            # timed as the solves launch them: in place, in a running state
+            one = torch.ones((), device=dev)
+            st_cg = cgk.new_state(one, one, 0 * one, 0 * one, one > 0)
+            st_cg[cgk.BETA], st_cg[cgk.ALPHA] = beta, alpha
+            st_b = bk.new_state(one, one, 0 * one, 0 * one, one > 0)
+            st_b[bk.BETA], st_b[bk.OMEGA] = beta, omega
+            st_b[bk.ALPHA_NEW], st_b[bk.ALPHA_EFF] = alpha, alpha
+            st_b[bk.OMEGA_EFF] = omega
+            cg_ops = cgk.ShardCGPasses(c_own, z_off, nz_g, dev)
+            b_ops = bk.ShardBiCGSTABPasses(b_own, z_off, nz_g, dev)
+            t1, t2 = torch.empty_like(ro), torch.empty_like(ro)
+            pn, ap, _ = check(
+                "sharded-cg", stag, timed, cgk.lap_dot, CG_SHARD, SRC_CG,
+                lambda: cgk.lap_dot(rb, pb, beta, c_pad, z_off - 1, nz_g),
+                lambda: cgk.lap_dot_plain(rb, pb, beta, c_pad, z_off - 1,
+                                          nz_g),
+                ("p'", "Ap'", "<p',Ap'>"), (bit, bit, dot),
+                work=((rb, pb), FLOPS_PER_POINT["lap_dot"] * cells),
+                time_fn=lambda: cg_ops.lap_dot(rb, pb, t1, t2, st_cg),
+                name="lap_dot[global_nz]")
+            xt, rt = xo.clone(), ro.clone()
+            check("sharded-cg", stag, timed, cgk.cg_update, CG_UPD_SHARD,
+                  SRC_CG,
+                  lambda: cgk.cg_update(xo, ro, pn, ap, alpha, c_own, z_off,
+                                        nz_g),
+                  lambda: cgk.cg_update_plain(xo, ro, pn, ap, alpha, c_own,
+                                              z_off, nz_g),
+                  ("x'", "r'", "<r',r'>"), (bit, bit, dot),
+                  work=((xo, ro, pn, ap),
+                        FLOPS_PER_POINT["cg_update"] * cells),
+                  time_fn=lambda: cg_ops.update(xt, rt, pn, ap, st_cg),
+                  name="cg_update[global_nz]")
+            check("sharded-bicgstab", stag, timed, bk.pass_pv, B1_SHARD,
+                  SRC_BICG,
+                  lambda: bk.pass_pv(rb, pb, vb, ro, beta, omega, b_pad,
+                                     z_off - 1, nz_g),
+                  lambda: bk.pass_pv_plain(rb, pb, vb, ro, beta, omega,
+                                           b_pad, z_off - 1, nz_g),
+                  ("p'", "v'", "<rhat,v'>"), (bit, bit, dot),
+                  work=((rb, pb, vb, ro), FLOPS_PER_POINT["bicg_pv"] * cells),
+                  time_fn=lambda: b_ops.pv(rb, pb, vb, ro, t1, t2, st_b),
+                  name="pass_pv[global_nz]")
+            sb, tb, *_ = check(
+                "sharded-bicgstab", stag, timed, bk.pass_st, B1_SHARD,
+                SRC_BICG,
+                lambda: bk.pass_st(rb, vb, alpha, b_pad, z_off - 1, nz_g),
+                lambda: bk.pass_st_plain(rb, vb, alpha, b_pad, z_off - 1,
+                                         nz_g),
+                ("s", "t", "<s,s>", "<t,s>", "<t,t>"),
+                (bit, bit, dot, dot, dot),
+                work=((rb, vb), FLOPS_PER_POINT["bicg_st"] * cells),
+                time_fn=lambda: b_ops.st(rb, vb, t1, t2, st_b),
+                name="pass_st[global_nz]")
+            xt, rt = xo.clone(), ro.clone()
+            check("sharded-bicgstab", stag, timed, bk.pass_xr, B1_XR_SHARD,
+                  SRC_BICG,
+                  lambda: bk.pass_xr(xo, po, sb, tb, ro, alpha, omega,
+                                     b_own, z_off, nz_g),
+                  lambda: bk.pass_xr_plain(xo, po, sb, tb, ro, alpha,
+                                           omega, b_own, z_off, nz_g),
+                  ("x'", "r'", "<r,r>", "<rhat,r>"), (bit, bit, dot, dot),
+                  work=((xo, po, sb, tb, ro),
+                        FLOPS_PER_POINT["bicg_xr"] * cells),
+                  time_fn=lambda: b_ops.xr(xt, rt, po, sb, tb, ro, st_b),
+                  name="pass_xr[global_nz]")
+            check("sharded-cg", stag, timed, pkm.poisson_rhs, A5_DIV_SHARD,
+                  SRC,
+                  lambda: pkm.poisson_rhs(rb, pb, vb, rod, sc_blk, z_off - 1,
+                                          nz_g),
+                  lambda: pkm.poisson_rhs_plain(rb, pb, vb, rod, sc_blk,
+                                                z_off - 1, nz_g),
+                  ("rhs",), (bit,),
+                  work=((rb, pb, vb),
+                        FLOPS_PER_POINT["poisson_rhs"] * rb.numel()),
+                  name="poisson_rhs[global_nz]")
+            if shard == SHARDS // 2:
+                check("sharded-cg", stag, timed, pkm.corrector, A5_CORR_XY,
+                      SRC,
+                      lambda: pkm.corrector(rb, pb, vb, rb, s_, sc_blk),
+                      lambda: pkm.corrector_plain(rb, pb, vb, rb, s_,
+                                                  sc_blk),
+                      ("u", "v", "w", "max|u|^2", "max p", "max|p|"),
+                      (bit,) * 6,
+                      work=((rb, pb, vb, rb),
+                            FLOPS_PER_POINT["corrector"] * rb.numel()))
+            del rb, pb, vb, xo, ro, po, xt, rt, pn, ap, sb, tb, t1, t2
+        del r, p, v, x, rp, pp_, vp
+        torch.cuda.empty_cache()
+    print(f"phase 46 took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+    # the plain versions of the sharded Krylov steps' kernels: none may
+    # run on their main paths (each is replaced by a tripwire meanwhile)
+    PLAIN_CG = [(cgk, n) for n in ("lap_dot_plain", "cg_update_plain",
+                                   "lap_dot_recur_plain",
+                                   "update_recur_plain")]
+    PLAIN_BICG = [(bk, n) for n in ("pass_pv_plain", "pass_st_plain",
+                                    "pass_xr_plain", "pv_recur_plain",
+                                    "st_recur_plain", "xr_recur_plain")]
+    PLAIN_STEP = [(pkm, n) for n in ("predictor_star_plain",
+                                     "poisson_rhs_plain", "corrector_plain")]
+
+    @contextlib.contextmanager
+    def no_plain(label, pairs):
+        called = []
+        saved = [(m, n, getattr(m, n)) for m, n in pairs]
+        for m, n, fn in saved:
+            def trip(*a, _n=n, _fn=fn, **k):
+                called.append(_n)
+                return _fn(*a, **k)
+            setattr(m, n, trip)
+        try:
+            yield
+        finally:
+            for m, n, fn in saved:
+                setattr(m, n, fn)
+        if called:
+            fail(f"{label}: plain versions ran on the main path: "
+                 f"{sorted(set(called))}")
+
+    def sharded_counts(wrappers):
+        """{record name: launches}: the global_nz counters of the sharded
+        wrappers, the plain counter of the corrector."""
+        return {(w.__name__ if w is pkm.corrector
+                 else f"{w.__name__}[global_nz]"):
+                (w.launches if w is pkm.corrector else w.global_nz_launches)
+                for w in wrappers}
+
+    # ---- phase 47: bench.py's cg_512 over 4 z-shards ----------------------
+    # phase 13's problem (512^3, tol 1e-6, check_interval 10) through
+    # make_cg_fused_sharded on 4 shards emulated on the one card
+    t_phase = time.perf_counter()
+    n = N_BIG
+    _, prob = cg_problem((n, n, n))
+    pp = PoissonParams(tolerance=1e-6, max_iterations=2000,
+                       check_interval=10)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    rhs = prob.zero_boundary(torch.randn((n, n, n), generator=gen,
+                                         device=dev))
+    x0 = torch.zeros_like(rhs)
+    cg_wrappers = (cgk.lap_dot, cgk.cg_update)
+    make_cg_fused_sharded(prob, PoissonParams(
+        tolerance=0.0, max_iterations=20), mesh4)(x0, rhs)  # warm-up
+    sync()
+    native.reset_counts(*cg_wrappers)
+    solve = make_cg_fused_sharded(prob, pp, mesh4)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with no_plain("phase 47", PLAIN_CG):
+        start.record()
+        res = solve(x0, rhs)
+        end.record()
+        sync()
+    ms_solve = start.elapsed_time(end)
+    n_it, syncs = int(res.iterations), solve.host_syncs
+    counts = sharded_counts(cg_wrappers)
+    xd, rd = prob.zero_boundary(res.x.double()), rhs.double()
+    true_rel = float(prob.interior(prob.laplacian(xd) - rd).norm()
+                     / prob.interior(rd).norm())
+    del xd, rd
+    print(f"phase 47 cg_512 over {SHARDS} z-shards (512^3, tol 1e-6, "
+          f"check_interval 10): {n_it} iterations, status "
+          f"{int(res.status)}, {ms_solve:.1f} ms a solve, "
+          f"{ms_solve / n_it:.4f} ms an iteration (single-device "
+          f"{cg512['ms'] / cg512['iterations']:.4f}, phase 13), {syncs} "
+          f"host syncs (bar {-(-n_it // krylov.CHUNK) + 2}), true relative "
+          f"residual {true_rel:.4e}; launches {counts}", flush=True)
+    if int(res.status) != PoissonStatus.CONVERGED or not true_rel <= 1e-3:
+        fail("phase 47: not converged, or true residual above 1e-3")
+    if abs(n_it - CG_512_ITERS) > 0.1 * CG_512_ITERS:
+        fail(f"phase 47: {n_it} iterations, outside {CG_512_ITERS} ± 10%")
+    if syncs > -(-n_it // krylov.CHUNK) + 2:
+        fail("phase 47: more host syncs than one a chunk")
+    if min(counts.values()) <= 0:
+        fail(f"phase 47: a sharded CG kernel not launched: {counts}")
+    # the halo-plane copies of one iteration alone (r and p', one plane a
+    # side of each shard), against a concatenation of the same blocks
+    bufs = [torch.zeros((n // SHARDS + 2, n, n), device=dev)
+            for _ in range(SHARDS)]
+    ms_fill = cuda_ms(lambda: [mesh4.comm.fill_halo(bufs, 1)
+                               for _ in range(2)])
+    owned = [b[1:-1] for b in bufs]
+    ms_cat = cuda_ms(lambda: [[torch.cat([lo, b, hi]) for b, (lo, hi) in
+                               zip(owned, mesh4.comm.halo(owned, 1))]
+                              for _ in range(2)])
+    print(f"phase 47 halo exchange of r and p' a CG iteration: plane "
+          f"copies {ms_fill:.4f} ms, by concatenation {ms_cat:.4f} ms",
+          flush=True)
+    cg512_sharded = {"iterations": n_it, "ms": ms_solve,
+                     "ms_per_iteration": ms_solve / n_it,
+                     "host_syncs": syncs, "true_rel_residual": true_rel,
+                     "halo_fill_ms": ms_fill, "halo_concat_ms": ms_cat}
+    del rhs, x0, res, solve, bufs, owned
+    torch.cuda.empty_cache()
+    print(f"phase 47 took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+    def krylov_step_pair(label, shape, method, pparams, wrappers, path,
+                         plains):
+        """The sharded step over 4 z-shards and the single-device kernel
+        step, run_3d's physics from the Taylor-Green start: 3 warm-up
+        steps, then 3 timed from the same start; the counters set to 0
+        just before the sharded timed steps and read just after.  Holds
+        the fields at TOL_CG_UVW and close_p; returns the record."""
+        gridk = uniform_grid(shape)
+        f0 = tg_field(shape)
+        step_s, place = make_sharded_step(
+            gridk, params_cg, mesh4, "projection", poisson_method=method,
+            poisson_params=pparams)
+        single = make_projection_step(gridk, params_cg, torch.float32,
+                                      method, poisson_params=pparams,
+                                      device=dev)
+        out = {}
+        for kind, stepf, start_f in (("sharded", step_s, place(f0)),
+                                     ("single", single, f0)):
+            run_steps(stepf, start_f, 1e-4, CG_STEPS)
+            sync()
+            if kind == "sharded":
+                pkm.reset_launch_counts()
+                native.reset_counts(*wrappers)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            guard = (no_plain(label, plains) if kind == "sharded"
+                     else contextlib.nullcontext())
+            with guard:
+                start.record()
+                f, its, stats = start_f, [], []
+                for i in range(CG_STEPS):
+                    f, r = stepf(f, 1e-4, i)
+                    its.append(stepf.last_poisson.iterations)
+                    stats.append(r.status)
+                end.record()
+                sync()
+            ms = start.elapsed_time(end) / CG_STEPS
+            its, stats = [int(t) for t in its], [int(t) for t in stats]
+            out[kind] = (f.gather() if kind == "sharded" else f, its,
+                         stats, ms)
+            print(f"{label} {kind}: {ms:.3f} ms/step, "
+                  f"{math.prod(shape) / (ms * 1e-3) / 1e6:.1f} MLUPS, "
+                  f"iterations a step {its}, {ms / (sum(its) / CG_STEPS):.4f}"
+                  f" ms an iteration, statuses {stats}", flush=True)
+            if any(st != 0 for st in stats) or not bool(out[kind][0]
+                                                        .is_finite()):
+                fail(f"{label} {kind}: nonzero status or non-finite")
+            if kind == "sharded":
+                counts = sharded_counts(wrappers)
+                print(f"{label} launch counts over the main path: {counts}",
+                      flush=True)
+                if min(counts.values()) <= 0:
+                    fail(f"{label}: a kernel of the sharded step not "
+                         f"launched: {counts}")
+                launch_counts[path] = counts
+            if do_profile:
+                profile_steps(torch, f"phase 5 {label} {kind}",
+                              lambda: run_steps(stepf, start_f, 1e-4, 1), 1)
+        fs, f1 = out["sharded"][0], out["single"][0]
+        for name in "uvw":
+            compare(f"{label} {CG_STEPS} steps vs single-device", name,
+                    getattr(fs, name), getattr(f1, name), TOL_CG_UVW, False)
+        close_p(f"{label} {CG_STEPS} steps vs single-device", fs.p, f1.p)
+        return {"ms": out["sharded"][3], "single_ms": out["single"][3],
+                "iterations": out["sharded"][1],
+                "single_iterations": out["single"][1]}
+
+    # ---- phase 48: the 512^3 CG step over 4 z-shards ----------------------
+    t_phase = time.perf_counter()
+    step_wrappers = (pkm.predictor_star, pkm.poisson_rhs, pkm.corrector)
+    cg_step_sharded = krylov_step_pair(
+        f"phase 48 CG step {n}^3 over {SHARDS} z-shards (tolerance 1e-3)",
+        (n, n, n), Method.CG, PoissonParams(tolerance=1e-3),
+        step_wrappers + cg_wrappers, "sharded-cg", PLAIN_CG + PLAIN_STEP)
+    torch.cuda.empty_cache()
+    print(f"phase 48 took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+    # ---- phase 49: the BiCGSTAB step over 4 z-shards -------------------------
+    # phase 25's configuration (128^3, its tolerance) against the
+    # single-device kernel step there
+    t_phase = time.perf_counter()
+    bicg_step_sharded = krylov_step_pair(
+        f"phase 49 BiCGSTAB step {N_BICG_STEP}^3 over {SHARDS} z-shards "
+        f"(tolerance {bicg_step_tol:g})", (N_BICG_STEP,) * 3,
+        Method.BICGSTAB, PoissonParams(tolerance=bicg_step_tol),
+        step_wrappers + tuple(bk.WRAPPERS), "sharded-bicgstab",
+        PLAIN_BICG + PLAIN_STEP)
+    torch.cuda.empty_cache()
+    print(f"phase 49 took {time.perf_counter() - t_phase:.1f} s",
           flush=True)
 
     kernels = []
@@ -4996,6 +5369,9 @@ def main() -> int:
                       "sharded_step_512": sharded_rec,
                       "float64_on_cuda": f64_rec,
                       "nccl_one_rank_max_abs_diff": nccl_diff,
+                      "cg_512_sharded": cg512_sharded,
+                      "cg_step_sharded_512": cg_step_sharded,
+                      "bicgstab_step_sharded_128": bicg_step_sharded,
                       "launch_counts": launch_counts,
                       "card": card}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -7,7 +7,9 @@ comm`, `.mesh`) against the reference's `jax.shard_map` collectives and
   `LocalComm.all_to_all` against ``lax.all_to_all(tiled=True)`` (the
   sharded z-solve's two transposes), inside ``shard_map`` on P = 2, 4, 8
   of the 8 virtual devices: exact.
-* `LocalComm.max` keeps NaN, as ``torch.maximum``.
+* `LocalComm.max` keeps NaN, as ``torch.maximum``; `LocalComm.sum` adds
+  in shard order and keeps NaN and the dtype; `LocalComm.fill_halo` writes
+  ``halo``'s planes into persistent padded buffers.
 * `factor_devices` and `field_spec` equal the reference's; the
   `shard_field` → `gather_field` round trip is exact; `make_mesh` without
   devices takes the CUDA devices and raises without one.
@@ -89,6 +91,42 @@ def test_max_keeps_nan_and_spans_the_shards():
     assert len(out) == 3
     for o in out:
         assert o[0] == 3.0 and torch.isnan(o[1])
+
+
+@pytest.mark.parametrize("n", [1, 2])
+@pytest.mark.parametrize("P", SHARDS)
+def test_fill_halo_matches_halo_into_buffers(P, n):
+    """``fill_halo`` writes the ``halo`` planes into persistent padded
+    buffers; an edge shard's outer halo planes keep what they held."""
+    rng = np.random.default_rng(P + 10 * n)
+    a = rng.normal(size=(4 * P, 3, 5))
+    comm = LocalComm([CPU] * P)
+    blocks = _blocks(a, P)
+    bufs = [torch.cat([torch.full_like(b[:n], 7.0), b,
+                       torch.full_like(b[:n], 7.0)]) for b in blocks]
+    comm.fill_halo(bufs, n)
+    for s, (buf, b, (lo, hi)) in enumerate(zip(bufs, blocks,
+                                               comm.halo(blocks, n))):
+        assert torch.equal(buf[n:-n], b)
+        assert torch.equal(buf[:n], torch.full_like(lo, 7.0) if s == 0
+                           else lo)
+        assert torch.equal(buf[-n:], torch.full_like(hi, 7.0)
+                           if s == P - 1 else hi)
+
+
+def test_sum_adds_in_shard_order_and_keeps_the_dtype():
+    """``sum`` adds the shards' values in shard order (the reference's
+    ``lax.psum`` of per-shard sums), keeps NaN and the values' dtype
+    (the BiCGSTAB shares stay float64)."""
+    comm = LocalComm([CPU] * 3)
+    vals = [torch.tensor([1e16, 1.0], dtype=torch.float64),
+            torch.tensor([1.0, 2.0], dtype=torch.float64),
+            torch.tensor([-1e16, float("nan")], dtype=torch.float64)]
+    out = comm.sum(vals)
+    assert len(out) == 3
+    for o in out:
+        assert o.dtype == torch.float64
+        assert o[0] == (1e16 + 1.0) + -1e16 and torch.isnan(o[1])
 
 
 @pytest.mark.parametrize("n", range(1, 17))

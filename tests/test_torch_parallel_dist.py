@@ -1,8 +1,10 @@
 """The sharded step across processes: `ProcessGroupComm` over a gloo group
 of two CPU processes (``torch.multiprocessing.spawn``, ``file://`` init)
-runs the plain z-decomposed step at 128×16×8 in float64, and the field
-both ranks gather equals the one-process `LocalComm` run bit for bit,
-its diagnostics too.  The workers check that nothing imported JAX (this
+runs the plain z-decomposed step at 128×16×8 in float64 — the spectral
+step, and the CG step, whose solve takes its dots through
+``ProcessGroupComm.sum`` and its halo planes through ``fill_halo`` — and
+the field both ranks gather equals the one-process `LocalComm` run bit
+for bit, its diagnostics too.  The workers check that nothing imported JAX (this
 module imports none), and that the group's max keeps a NaN one rank
 holds (gloo's max alone drops it).  The spawn joins with a 60 s deadline
 and is terminated past it, so it cannot hang the run.
@@ -23,14 +25,15 @@ STEPS = 3
 DEADLINE_S = 60.0
 
 
-def _run(mesh):
-    """3 plain float64 steps of the sharded step on ``mesh``; (gathered
-    field, last StepResult).  One intra-op thread in every process: the
-    CPU GEMMs' blocking, and so their last bits, follow the thread
-    count."""
+def _run(mesh, method=None):
+    """3 plain float64 steps of the sharded step on ``mesh`` (the spectral
+    one, or the ``method`` pressure solve's); (gathered field, last
+    StepResult).  One intra-op thread in every process: the CPU GEMMs'
+    blocking, and so their last bits, follow the thread count."""
     from cfd_tpu_torch import FlowField, Grid
     from cfd_tpu_torch.parallel import gather_field, make_sharded_step
     from cfd_tpu_torch.solvers.ns.params import NSParams
+    from cfd_tpu_torch.solvers.poisson.base import Method
 
     nz, ny, nx = SHAPE
     grid = Grid.uniform(nx, ny, nz, zmin=0.0, zmax=1.0)
@@ -38,8 +41,9 @@ def _run(mesh):
     f = FlowField.initialize(grid, dtype=torch.float64, device="cpu")
     f = f.replace(**{n: torch.from_numpy(rng.normal(0.0, 0.1, SHAPE))
                      for n in "uvwp"})
-    step, place = make_sharded_step(grid, NSParams(), mesh,
-                                    dtype=torch.float64)
+    step, place = make_sharded_step(
+        grid, NSParams(), mesh, dtype=torch.float64,
+        poisson_method=None if method is None else Method[method])
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
     try:
@@ -51,7 +55,7 @@ def _run(mesh):
         torch.set_num_threads(threads)
 
 
-def _worker(rank, init_file, out_prefix):
+def _worker(rank, init_file, out_prefix, method=None):
     import torch.distributed as dist
 
     from cfd_tpu_torch.parallel import ProcessGroupComm, make_mesh
@@ -62,7 +66,8 @@ def _worker(rank, init_file, out_prefix):
         comm = ProcessGroupComm()
         nan_max = comm.max([torch.tensor(
             [float(rank), float("nan") if rank == 1 else 0.0])])[0]
-        g, res = _run(make_mesh([CPU] * WORLD, axes=("z",), comm=comm))
+        g, res = _run(make_mesh([CPU] * WORLD, axes=("z",), comm=comm),
+                      method)
         torch.save({"field": {n: getattr(g, n) for n in "uvwp"},
                     "diag": torch.stack([res.max_velocity,
                                          res.max_pressure]),
@@ -73,11 +78,11 @@ def _worker(rank, init_file, out_prefix):
         dist.destroy_process_group()
 
 
-def test_gloo_ranks_equal_local_comm(tmp_path):
+def _spawn_and_compare(tmp_path, method=None):
     from cfd_tpu_torch.parallel import make_mesh
 
     ctx = mp.spawn(_worker, args=(str(tmp_path / "init"),
-                                  str(tmp_path / "rank")),
+                                  str(tmp_path / "rank"), method),
                    nprocs=WORLD, join=False)
     deadline = time.monotonic() + DEADLINE_S
     while not ctx.join(timeout=max(deadline - time.monotonic(), 0.1)):
@@ -85,7 +90,7 @@ def test_gloo_ranks_equal_local_comm(tmp_path):
             for p in ctx.processes:
                 p.terminate()
             pytest.fail(f"gloo workers still running after {DEADLINE_S} s")
-    ref, res = _run(make_mesh([CPU] * WORLD, axes=("z",)))
+    ref, res = _run(make_mesh([CPU] * WORLD, axes=("z",)), method)
     for rank in range(WORLD):
         out = torch.load(tmp_path / f"rank{rank}.pt")
         assert not out["jax"], "a worker imported JAX"
@@ -95,3 +100,13 @@ def test_gloo_ranks_equal_local_comm(tmp_path):
             assert torch.equal(out["field"][n], getattr(ref, n)), n
         assert torch.equal(out["diag"], torch.stack([res.max_velocity,
                                                      res.max_pressure]))
+
+
+def test_gloo_ranks_equal_local_comm(tmp_path):
+    _spawn_and_compare(tmp_path)
+
+
+def test_gloo_ranks_cg_step_equal_local_comm(tmp_path):
+    """The CG step: its dots summed by ``all_reduce(SUM)`` and its halo
+    planes sent into the ranks' buffers equal ``LocalComm``'s."""
+    _spawn_and_compare(tmp_path, "CG")

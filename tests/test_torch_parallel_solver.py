@@ -5,7 +5,8 @@ z mesh of four CPU shards ``init``s through `make_sharded_raw_step`,
 it — against the reference's ``NSSolver(mesh=…)`` on four virtual devices
 at its sharded bars, atol 5e-6 on u, v, w and 5e-5 on p
 (`tests/parallel/test_fused_sharded.py:58-64`).  Outside the slice (the
-facade's default CG solve) ``init`` raises ``ERROR_UNSUPPORTED``.
+sharded multigrid solve) ``init`` raises ``ERROR_UNSUPPORTED``; the
+default CG solve on a mesh is held in `tests/test_torch_parallel_cg.py`.
 """
 
 import jax
@@ -80,12 +81,13 @@ def test_solver_on_a_mesh_solves_like_the_reference():
 
 def test_solver_on_a_mesh_refuses_what_is_not_ported():
     solver = NSSolver(name="p", method="projection",
+                      poisson_method=Method.MULTIGRID,
                       mesh=make_mesh([CPU] * 2, axes=("z",)))
     grid = grid_from(JGrid.uniform(32, 16, 8, zmin=0.0, zmax=1.0))
     with pytest.raises(CFDError) as err:
-        solver.init(grid, NSParams())        # the default CG solve
+        solver.init(grid, NSParams())     # the sharded multigrid solve
     assert err.value.status == Status.ERROR_UNSUPPORTED
-    assert "CG" in str(err.value)
+    assert "MULTIGRID" in str(err.value)
     plain = NSSolver(name="p", method="projection",
                      poisson_method=Method.FFT_DIRECT, device="cpu")
     plain.init(grid, NSParams())

@@ -8,7 +8,10 @@ shards, and its refusals.
   ``lax.Precision.HIGH``, at the reference's HIGH bars, 2e-3 on p and
   1e-4 on u, v, w (`tests/math/test_mega_kernels.py:134-137`);
 * every configuration outside the slice raises ``ERROR_UNSUPPORTED`` with
-  its reason, through `make_sharded_step` and `make_sharded_raw_step`.
+  its reason, through `make_sharded_step` and `make_sharded_raw_step` (the
+  CG and BiCGSTAB solves are in the slice since the sharded Krylov steps;
+  their cases are the preconditioners the reference's sharded solves
+  refuse).
 """
 
 import jax
@@ -33,7 +36,8 @@ from cfd_tpu_torch.parallel import (gather_field, make_mesh,
                                     make_sharded_raw_step, make_sharded_step)
 from cfd_tpu_torch.solvers.ns.params import NSParams
 from cfd_tpu_torch.solvers.ns.projection import make_projection_step
-from cfd_tpu_torch.solvers.poisson.base import Method
+from cfd_tpu_torch.solvers.poisson.base import (Method, PoissonParams,
+                                                Precond)
 
 from tests.test_torch_parallel_step import assert_close, random_arrays
 
@@ -108,9 +112,15 @@ REFUSALS = {
                         make_mesh([CPU] * 2, axes=("y",)), {}),
                "needs a mesh over"),
     "cg": (lambda: (_uniform(), NSParams(), _zmesh(2),
-                    {"poisson_method": Method.CG}), "CG"),
+                    {"poisson_method": Method.CG,
+                     "poisson_params": PoissonParams(
+                         preconditioner=Precond.MULTIGRID)}),
+           "CG kernel build failed"),
     "bicgstab": (lambda: (_uniform(), NSParams(), _zmesh(2),
-                          {"poisson_method": Method.BICGSTAB}), "BICGSTAB"),
+                          {"poisson_method": Method.BICGSTAB,
+                           "poisson_params": PoissonParams(
+                               preconditioner=Precond.JACOBI)}),
+                 "BiCGSTAB kernel build failed"),
     "multigrid": (lambda: (_uniform(), NSParams(), _zmesh(2),
                            {"poisson_method": Method.MULTIGRID}),
                   "supports FFT_DIRECT, CG and BICGSTAB"),
@@ -154,8 +164,8 @@ def test_outside_the_slice_raises_with_its_reason(case):
 @pytest.mark.parametrize("maker", [make_sharded_step, make_sharded_raw_step],
                          ids=["step", "raw_step"])
 def test_unknown_keyword_raises(maker):
-    """A keyword the sharded builders do not know (the reference's
-    ``strict``, which the port has no use for) is a TypeError, not
-    silently dropped."""
-    with pytest.raises(TypeError, match="strict"):
-        maker(_uniform(), NSParams(), _zmesh(2), "projection", strict=False)
+    """A keyword the sharded builders do not know is a TypeError, not
+    silently dropped (the reference's ``strict``, ``use_pallas_cg`` and
+    ``pallas_interpret`` are known: `tests/test_torch_parallel_cg.py`)."""
+    with pytest.raises(TypeError, match="stirct"):
+        maker(_uniform(), NSParams(), _zmesh(2), "projection", stirct=False)

@@ -20,6 +20,14 @@
 //   K2s cg_update_kernel<true> + cg_fold_kernel, then
 //       cg_update_recur_kernel: K2 on a shard's owned block (the
 //       reference does this update in jnp, parallel/fused_cg.py:216-219).
+//   K1r, K2r  cg_lap_dot_kernel<true, true>, cg_update_kernel<true, true>
+//       <- make_lap_dot_sharded's global_ny mode (cg_kernels.py:469-480)
+//       and the owned-block update on a (z, y)-decomposed shard: every
+//       buffer (x, r, p, p', Ap') is the shard's block padded one plane
+//       and one row a side, the grid covers its owned points, and the
+//       Dirichlet-0 space, the shells and p''s neighbour tests are at the
+//       global plane z_base + k and row y_base + j; the dots take the
+//       owned points only (the halo rows are the neighbours').
 //   K3  cg_solve_kernel
 //       <- make_cg_vmem_solve (cfd_tpu/ops/pallas/vmem_small.py:243): the
 //          whole CG/PCG loop in one cooperative launch.
@@ -83,6 +91,13 @@ __device__ __forceinline__ bool inside(int k, int j, int i, int nz, int ny,
   return k > 0 && k < nz - 1 && j > 0 && j < ny - 1 && i > 0 && i < nx - 1;
 }
 
+// A thread's (k, j) in a pass's block: the grid covers every row of the
+// block, or with kRows its owned rows 1..ny-2 only.
+template <bool kRows>
+__device__ __forceinline__ int tile_row() {
+  return blockIdx.y * kTileY + threadIdx.y + (kRows ? 1 : 0);
+}
+
 __device__ __forceinline__ long long tile_block() {
   return ((long long)blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x +
          blockIdx.x;
@@ -98,25 +113,31 @@ __device__ __forceinline__ long long tile_block() {
 // correction space is the global one, so p' at a halo plane is the
 // neighbour shard's own p' and the global shells give zeros.  One device
 // is the same code with kg = k and nz_g = nz.
-template <bool kSharded>
+// kRows (with kSharded): the (z, y) form, K1r above — the block padded one
+// row a side too, the grid over its owned rows, p' and Ap' written in the
+// padded layout (index c), the rows global (y_base + j of ny_g).
+template <bool kSharded, bool kRows = false>
 __global__ void __launch_bounds__(kThreads) cg_lap_dot_kernel(
     const float* __restrict__ r, const float* __restrict__ p,
     float* __restrict__ pn, float* __restrict__ ap,
     const float* __restrict__ st, float* __restrict__ part, int nz, int ny,
     int nx, float inv_dx2, float inv_dy2, float inv_dz2, float scale,
-    int z_base, int nz_g) {
+    int z_base, int nz_g, int y_base = 0, int ny_g = 0) {
   if (st[kRunning] == 0.0f) return;  // uniform: the whole grid returns
   const int i = blockIdx.x * kTileX + threadIdx.x;
-  const int j = blockIdx.y * kTileY + threadIdx.y;
+  const int j = tile_row<kRows>();
   const int k = kSharded ? blockIdx.z + 1 : blockIdx.z;
   const int kg = kSharded ? z_base + k : k;
   const int ng = kSharded ? nz_g : nz;
+  const int jg = kRows ? y_base + j : j;
+  const int ngy = kRows ? ny_g : ny;
   float acc = 0.0f;
-  if (i < nx && j < ny) {
+  if (i < nx && j < (kRows ? ny - 1 : ny)) {
     const long long sy = nx, sz = (long long)ny * nx;
     const long long c = k * sz + j * sy + i;
-    const long long o = kSharded ? c - sz : c;  // the output's index
-    if (inside(kg, j, i, ng, ny, nx)) {
+    // the output's index: owned-size planes in the z-only form
+    const long long o = (kSharded && !kRows) ? c - sz : c;
+    if (inside(kg, jg, i, ng, ngy, nx)) {
       const float beta = st[kBeta];
       // p' at a neighbour: 0 on the shell (the correction space)
       auto pp = [&](long long q, bool in) {
@@ -124,7 +145,7 @@ __global__ void __launch_bounds__(kThreads) cg_lap_dot_kernel(
       };
       const float pc = scale * r[c] + beta * p[c];
       const float xm = pp(c - 1, i > 1), xp = pp(c + 1, i < nx - 2);
-      const float ym = pp(c - sy, j > 1), yp = pp(c + sy, j < ny - 2);
+      const float ym = pp(c - sy, jg > 1), yp = pp(c + sy, jg < ngy - 2);
       const float zm = pp(c - sz, kg > 1), zp = pp(c + sz, kg < ng - 2);
       const float c2 = 2.0f * pc;
       const float lap =
@@ -162,20 +183,26 @@ __global__ void __launch_bounds__(kFoldThreads) cg_lap_dot_finalize(
 
 // kSharded: a shard's owned block (nz = nzl planes, plane k is global
 // plane z_base + k): every owned plane is updated but the global shells.
-template <bool kSharded>
+// kRows: K2r — every buffer the padded block (nz, ny its padded counts),
+// the grid over its owned planes and rows, global plane z_base + k and
+// row y_base + j.
+template <bool kSharded, bool kRows = false>
 __global__ void __launch_bounds__(kThreads) cg_update_kernel(
     float* __restrict__ x, float* __restrict__ r,
     const float* __restrict__ pn, const float* __restrict__ ap,
     const float* __restrict__ st, float* __restrict__ part, int nz, int ny,
-    int nx, int z_base, int nz_g) {
+    int nx, int z_base, int nz_g, int y_base = 0, int ny_g = 0) {
   if (st[kRunning] == 0.0f) return;
   const int i = blockIdx.x * kTileX + threadIdx.x;
-  const int j = blockIdx.y * kTileY + threadIdx.y;
-  const int k = blockIdx.z;
+  const int j = tile_row<kRows>();
+  const int k = kRows ? blockIdx.z + 1 : blockIdx.z;
   const int kg = kSharded ? z_base + k : k;
   const int ng = kSharded ? nz_g : nz;
+  const int jg = kRows ? y_base + j : j;
+  const int ngy = kRows ? ny_g : ny;
   float acc = 0.0f;
-  if (i < nx && j < ny && inside(kg, j, i, ng, ny, nx)) {
+  if (i < nx && j < (kRows ? ny - 1 : ny) &&
+      inside(kg, jg, i, ng, ngy, nx)) {
     const long long c = (k * (long long)ny + j) * nx + i;
     const float alpha = st[kAlpha];
     const float x2 = x[c] + alpha * pn[c];
@@ -461,6 +488,40 @@ int cfd_cg_update_sharded(float* x, float* r, const float* pn,
   if (err != cudaSuccess) return (int)err;
   cg_fold_kernel<<<1, kFoldThreads, 0, stream>>>(
       part, cfd_cg_partials(nz, ny, nx), st, out);
+  return (int)cudaGetLastError();
+}
+
+// The (z, y) passes, K1r and K2r: every buffer the shard's block padded
+// one plane and one row a side (nz, ny its padded counts), the launch
+// over its owned points, then the fold; z_base, y_base the global plane
+// and row of the block's (0, 0), nz_g, ny_g the global counts.
+int cfd_cg_lap_dot_rows(const float* r, const float* p, float* pn, float* ap,
+                        float* st, float* part, float* out, int nz, int ny,
+                        int nx, float inv_dx2, float inv_dy2, float inv_dz2,
+                        float scale, int z_base, int nz_g, int y_base,
+                        int ny_g, cudaStream_t stream) {
+  cg_lap_dot_kernel<true, true><<<tile_grid(nz - 2, ny - 2, nx),
+                                  dim3(kTileX, kTileY), 0, stream>>>(
+      r, p, pn, ap, st, part, nz, ny, nx, inv_dx2, inv_dy2, inv_dz2, scale,
+      z_base, nz_g, y_base, ny_g);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  cg_fold_kernel<<<1, kFoldThreads, 0, stream>>>(
+      part, cfd_cg_partials(nz - 2, ny - 2, nx), st, out);
+  return (int)cudaGetLastError();
+}
+
+int cfd_cg_update_rows(float* x, float* r, const float* pn, const float* ap,
+                       float* st, float* part, float* out, int nz, int ny,
+                       int nx, int z_base, int nz_g, int y_base, int ny_g,
+                       cudaStream_t stream) {
+  cg_update_kernel<true, true><<<tile_grid(nz - 2, ny - 2, nx),
+                                 dim3(kTileX, kTileY), 0, stream>>>(
+      x, r, pn, ap, st, part, nz, ny, nx, z_base, nz_g, y_base, ny_g);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  cg_fold_kernel<<<1, kFoldThreads, 0, stream>>>(
+      part, cfd_cg_partials(nz - 2, ny - 2, nx), st, out);
   return (int)cudaGetLastError();
 }
 

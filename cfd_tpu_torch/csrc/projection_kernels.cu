@@ -41,6 +41,29 @@
 // pair runs unchanged on the shard's y-pencil with its rows of mu, and
 // the inverse DST and corrector on its 1-halo x^ block.
 //
+// The (z, y)-decomposed step adds the global-row mode (the reference's
+// ProjectionKernels(global_nz, global_ny): rows_cols / interior_mask /
+// source_plane, projection_kernels.py:262-281, the per-component y_off
+// of pred_u/v/w, divergence, btilde_k, corr_u/v/w, :306-312, :343-344,
+// :475-478, :519-520, :536-537), each a kRows / kGlobal instantiation, not
+// a runtime switch (a runtime switch cost the Euler kernel 28%):
+//   pred_star_kernel<false, true>  the y-shell test at the global row
+//       y_base + j of an ny_g-row domain (y_shell below) and the source
+//       sin(pi y) at the global row, on the shard's block padded 2 planes
+//       and 2 rows a side (v* at the owned rows +- 1 and w* at the owned
+//       planes +- 1 for b~, whose stencil reads them, with no second
+//       exchange; the reference pads 4 rows for the TPU's 8-row sublanes);
+//   poisson_input_kernel<false, true>  b~ (or the CG rhs) on the owned
+//       window of that block (h planes and rows in from each side), the y
+//       face term on the global rows 1 and ny_g - 2, written to an
+//       owned-size output with an owned-size p: no copy of a y-sliced view;
+//   corrector_kernel<false, true>  the owned window of a p block padded 1
+//       plane and 1 row a side (the stencil's reach), u*, v*, w* read from
+//       their own hs-padded block, u, v, w and the owned p written
+//       owned-size, the shells (the global z planes and y rows an edge
+//       shard owns) passed through from u*, the maxima over every owned
+//       point, so the shards' maxima fold with comm.max alone.
+//
 // At spectral_precision=HIGH the DST products run on the 3xTF32
 // tensor-core GEMM (gemm_3xtf32.cu) instead of sgemm_kernel, the forward
 // sweep writes no t, and the back substitution rebuilds t analytically
@@ -94,6 +117,20 @@ __device__ __forceinline__ float clamp_keep_nan(float x) {
 // jnp.maximum semantics: NaN in either argument wins.
 __device__ __forceinline__ float max_keep_nan(float a, float b) {
   return (a > b || a != a) ? a : b;
+}
+
+// The y-shell test of the global-row mode (kRows): local row j of a
+// shard's y-padded block is global row jg = y_base + j of an ny_g-row
+// domain; the global shells and the rows past them (an edge shard's halo
+// rows, received as zeros) pass through or give a zero b~, and so do the
+// block's own end rows, which have no neighbour in the block.  One device
+// (kRows false) tests j == 0 || j == ny - 1.
+template <bool kRows>
+__device__ __forceinline__ bool y_shell(int j, int ny, int y_base,
+                                        int ny_g) {
+  if (!kRows) return j == 0 || j == ny - 1;
+  const int jg = y_base + j;
+  return j == 0 || j == ny - 1 || jg <= 0 || jg >= ny_g - 1;
 }
 
 // The z-shell test of the predictor and b~ kernels.  On one device
@@ -179,7 +216,7 @@ struct Buoyancy {
   int mask;
 };
 
-template <bool kCons>
+template <bool kCons, bool kRows>
 __global__ void pred_star_kernel(
     const float* __restrict__ u, const float* __restrict__ v,
     const float* __restrict__ w, float* __restrict__ us,
@@ -188,15 +225,15 @@ __global__ void pred_star_kernel(
     int ny, int nx, float nu, float inv_2dx, float inv_2dy, float inv_2dz,
     float inv_dx2, float inv_dy2, float inv_dz2, float xmin, float ymin,
     float dx, float dy, int with_sources, Buoyancy buoy, Weights wt,
-    int z_base, int nz_g) {
+    int z_base, int nz_g, int y_base, int ny_g) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const int j = blockIdx.y * blockDim.y + threadIdx.y;
   const int k = blockIdx.z;
   if (i >= nx || j >= ny) return;
   const long long sy = nx, sz = (long long)ny * nx;
   const long long c = k * sz + j * sy + i;
-  if (z_shell(k, nz, z_base, nz_g) || j == 0 || j == ny - 1 || i == 0 ||
-      i == nx - 1) {
+  if (z_shell(k, nz, z_base, nz_g) || y_shell<kRows>(j, ny, y_base, ny_g) ||
+      i == 0 || i == nx - 1) {
     us[c] = u[c];  // caller shells pass through (save/restore idiom)
     vs[c] = v[c];
     ws[c] = w[c];
@@ -210,7 +247,8 @@ __global__ void pred_star_kernel(
       src_u = su * wt.wy(6, j);
       src_v = sv * wt.wx(6, i);
     } else {
-      src_u = su * sinf(kPi * (ymin + (float)j * dy));
+      const int jg = kRows ? y_base + j : j;  // the global row
+      src_u = su * sinf(kPi * (ymin + (float)jg * dy));
       src_v = sv * sinf(kTwoPi * (xmin + (float)i * dx));
     }
   }
@@ -242,24 +280,29 @@ __global__ void pred_star_kernel(
 // (projection_kernels.py:699-701: no face term, no minus; p is not read).
 // kCons: the consistent divergence and the four nonuniform face weights
 // face[] = (cxm, cxp, cym, cyp) at i = 1, nx - 2, j = 1, ny - 2
-// (projection_kernels.py:656-670).
-template <bool kCons>
+// (projection_kernels.py:656-670).  kRows: the grid covers the owned
+// window of the (nz, ny, nx) block, h planes and rows in from each side;
+// p and bt are window-sized, the y shells and face rows global.
+template <bool kCons, bool kRows>
 __global__ void poisson_input_kernel(
     const float* __restrict__ us, const float* __restrict__ vs,
     const float* __restrict__ ws, const float* __restrict__ p,
     float* __restrict__ bt, const float* __restrict__ rod_ptr, int nz,
     int ny, int nx, float inv_2dx, float inv_2dy, float inv_2dz,
     float inv_dx2, float inv_dy2, float inv_dz2, int emit_rhs, Weights wt,
-    float4 face, int z_base, int nz_g) {
+    float4 face, int z_base, int nz_g, int y_base, int ny_g, int h) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const int j = blockIdx.y * blockDim.y + threadIdx.y;
-  const int k = blockIdx.z;
-  if (i >= nx || j >= ny) return;
+  const int jw = blockIdx.y * blockDim.y + threadIdx.y;
+  const int kw = blockIdx.z;
+  const int ny_w = kRows ? ny - 2 * h : ny;  // the output's rows
+  if (i >= nx || jw >= ny_w) return;
+  const int j = kRows ? jw + h : jw, k = kRows ? kw + h : kw;
   const long long sy = nx, sz = (long long)ny * nx;
   const long long c = k * sz + j * sy + i;
-  if (z_shell(k, nz, z_base, nz_g) || j == 0 || j == ny - 1 || i == 0 ||
-      i == nx - 1) {
-    bt[c] = 0.0f;
+  const long long o = kRows ? ((long long)kw * ny_w + jw) * nx + i : c;
+  if (z_shell(k, nz, z_base, nz_g) || y_shell<kRows>(j, ny, y_base, ny_g) ||
+      i == 0 || i == nx - 1) {
+    bt[o] = 0.0f;
     return;
   }
   float div;
@@ -275,7 +318,7 @@ __global__ void poisson_input_kernel(
           + (ws[c + sz] - ws[c - sz]) * inv_2dz;
   }
   if (emit_rhs) {
-    bt[c] = (*rod_ptr) * div;
+    bt[o] = (*rod_ptr) * div;
     return;
   }
   float cxy;
@@ -284,12 +327,14 @@ __global__ void poisson_input_kernel(
            face.z * (float)(j == 1)) +
           face.w * (float)(j == ny - 2);
   } else {
+    const int jg = kRows ? y_base + j : j;  // the global row
+    const int ng = kRows ? ny_g : ny;
     cxy = inv_dx2 * (float)((i == 1) + (i == nx - 2)) +
-          inv_dy2 * (float)((j == 1) + (j == ny - 2));
+          inv_dy2 * (float)((jg == 1) + (jg == ng - 2));
   }
   const int kg = z_base + k;  // the global plane (k on one device)
   const float cz = inv_dz2 * (float)((kg == 1) + (kg == nz_g - 2));
-  bt[c] = (cxy + cz) * p[c] - (*rod_ptr) * div;
+  bt[o] = (cxy + cz) * p[o] - (*rod_ptr) * div;
 }
 
 // Batched row-major C[b] = A[b] (M x K) * B[b] (K x N); a zero batch
@@ -456,26 +501,44 @@ __global__ void tdma_bwd_kernel(const float* __restrict__ d,
 // through from u*), plus per-block maxima of |u|^2, p and |p| over the
 // planes k = 1..nz-2 into partials[3 * block + q].  kCons: the x and y
 // gradients (p[i-1] wm + p wc) + p[i+1] wp (projection_kernels.py:735-742).
-template <bool kCons>
+// kGlobal (the (z, y)-decomposed step): p is a shard's block padded one
+// plane and one row a side, local (k, j) the global (z_base + k, y_base +
+// j) of an (nz_g, ny_g) domain; the grid covers its owned window, u*, v*,
+// w* come from their own hs-padded block, u, v, w and the owned p (pout)
+// are written owned-size, and the maxima take every owned point: the
+// global shells an edge shard owns pass through from u*, as the
+// reference's fix_shell does.
+template <bool kCons, bool kGlobal>
 __global__ void __launch_bounds__(kTileX * kTileY) corrector_kernel(
     const float* __restrict__ us, const float* __restrict__ vs,
     const float* __restrict__ ws, const float* __restrict__ p,
     float* __restrict__ u, float* __restrict__ v, float* __restrict__ w,
     const float* __restrict__ s_ptr, float* __restrict__ partials, int nz,
     int ny, int nx, float inv_2dx, float inv_2dy, float inv_2dz,
-    Weights wt) {
+    Weights wt, float* __restrict__ pout, int z_base, int nz_g, int y_base,
+    int ny_g, int hs) {
   __shared__ float red[3][kTileX * kTileY];
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const int j = blockIdx.y * blockDim.y + threadIdx.y;
-  const int k = blockIdx.z;
+  const int jw = blockIdx.y * blockDim.y + threadIdx.y;
+  const int kw = blockIdx.z;
   const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  const int ny_w = kGlobal ? ny - 2 : ny;  // the output's rows
   float m2 = -INFINITY, pm = -INFINITY, pa = -INFINITY;
-  if (i < nx && j < ny) {
+  if (i < nx && jw < ny_w) {
+    const int j = kGlobal ? jw + 1 : jw, k = kGlobal ? kw + 1 : kw;
     const long long sy = nx, sz = (long long)ny * nx;
     const long long c = k * sz + j * sy + i;
-    const bool zint = k > 0 && k < nz - 1;
-    float uo = us[c], vo = vs[c], wo = ws[c];
-    if (zint && j > 0 && j < ny - 1 && i > 0 && i < nx - 1) {
+    // u*'s index (its block hs planes and rows around the owned ones) and
+    // the output's
+    const long long cs =
+        kGlobal ? ((long long)(kw + hs) * (ny_w + 2 * hs) + jw + hs) * nx + i
+                : c;
+    const long long o = kGlobal ? ((long long)kw * ny_w + jw) * nx + i : c;
+    const int kg = kGlobal ? z_base + k : k, jg = kGlobal ? y_base + j : j;
+    const int ngz = kGlobal ? nz_g : nz, ngy = kGlobal ? ny_g : ny;
+    const bool zint = kg > 0 && kg < ngz - 1;
+    float uo = us[cs], vo = vs[cs], wo = ws[cs];
+    if (zint && jg > 0 && jg < ngy - 1 && i > 0 && i < nx - 1) {
       const float s = *s_ptr;
       float gx, gy;
       if (kCons) {
@@ -492,10 +555,11 @@ __global__ void __launch_bounds__(kTileX * kTileY) corrector_kernel(
       vo = clamp_keep_nan(vo - s * gy);
       wo = clamp_keep_nan(wo - (s * (p[c + sz] - p[c - sz])) * inv_2dz);
     }
-    u[c] = uo;
-    v[c] = vo;
-    w[c] = wo;
-    if (zint) {
+    u[o] = uo;
+    v[o] = vo;
+    w[o] = wo;
+    if (kGlobal) pout[o] = p[c];
+    if (kGlobal || zint) {
       const float pc = p[c];
       m2 = (uo * uo + vo * vo) + wo * wo;
       pm = pc;
@@ -574,11 +638,31 @@ int cfd_pred_star(const float* u, const float* v, const float* w, float* us,
                   int with_sources, float b0, float b1, float b2, float tref,
                   int buoy_mask, int z_base, int nz_g, cudaStream_t stream) {
   const Buoyancy buoy = {{b0, b1, b2}, tref, buoy_mask};
-  pred_star_kernel<false><<<stencil_grid(nz, ny, nx), dim3(kTileX, kTileY),
-                            0, stream>>>(
+  pred_star_kernel<false, false><<<stencil_grid(nz, ny, nx),
+                                   dim3(kTileX, kTileY), 0, stream>>>(
       u, v, w, us, vs, ws, scal, T, nz, ny, nx, nu, inv_2dx, inv_2dy,
       inv_2dz, inv_dx2, inv_dy2, inv_dz2, xmin, ymin, dx, dy, with_sources,
-      buoy, Weights{nullptr, nullptr, nx, ny}, z_base, nz_g);
+      buoy, Weights{nullptr, nullptr, nx, ny}, z_base, nz_g, 0, ny);
+  return (int)cudaGetLastError();
+}
+
+// The global-row predictor: a (z, y)-decomposed shard's padded block,
+// y_base the global row of its row 0, ny_g the global row count.
+int cfd_pred_star_rows(const float* u, const float* v, const float* w,
+                       float* us, float* vs, float* ws, const float* scal,
+                       const float* T, int nz, int ny, int nx, float nu,
+                       float inv_2dx, float inv_2dy, float inv_2dz,
+                       float inv_dx2, float inv_dy2, float inv_dz2,
+                       float xmin, float ymin, float dx, float dy,
+                       int with_sources, float b0, float b1, float b2,
+                       float tref, int buoy_mask, int z_base, int nz_g,
+                       int y_base, int ny_g, cudaStream_t stream) {
+  const Buoyancy buoy = {{b0, b1, b2}, tref, buoy_mask};
+  pred_star_kernel<false, true><<<stencil_grid(nz, ny, nx),
+                                  dim3(kTileX, kTileY), 0, stream>>>(
+      u, v, w, us, vs, ws, scal, T, nz, ny, nx, nu, inv_2dx, inv_2dy,
+      inv_2dz, inv_dx2, inv_dy2, inv_dz2, xmin, ymin, dx, dy, with_sources,
+      buoy, Weights{nullptr, nullptr, nx, ny}, z_base, nz_g, y_base, ny_g);
   return (int)cudaGetLastError();
 }
 
@@ -591,11 +675,11 @@ int cfd_pred_star_cons(const float* u, const float* v, const float* w,
                        float b2, float tref, int buoy_mask, int z_base,
                        int nz_g, cudaStream_t stream) {
   const Buoyancy buoy = {{b0, b1, b2}, tref, buoy_mask};
-  pred_star_kernel<true><<<stencil_grid(nz, ny, nx), dim3(kTileX, kTileY),
-                           0, stream>>>(
+  pred_star_kernel<true, false><<<stencil_grid(nz, ny, nx),
+                                  dim3(kTileX, kTileY), 0, stream>>>(
       u, v, w, us, vs, ws, scal, T, nz, ny, nx, nu, 0.0f, 0.0f, inv_2dz,
       0.0f, 0.0f, inv_dz2, 0.0f, 0.0f, 0.0f, 0.0f, with_sources, buoy,
-      Weights{xw, yw, nx, ny}, z_base, nz_g);
+      Weights{xw, yw, nx, ny}, z_base, nz_g, 0, ny);
   return (int)cudaGetLastError();
 }
 
@@ -605,11 +689,30 @@ int cfd_poisson_input(const float* us, const float* vs, const float* ws,
                       float inv_2dz, float inv_dx2, float inv_dy2,
                       float inv_dz2, int emit_rhs, int z_base, int nz_g,
                       cudaStream_t stream) {
-  poisson_input_kernel<false><<<stencil_grid(nz, ny, nx),
-                                dim3(kTileX, kTileY), 0, stream>>>(
+  poisson_input_kernel<false, false><<<stencil_grid(nz, ny, nx),
+                                       dim3(kTileX, kTileY), 0, stream>>>(
       us, vs, ws, p, bt, rod, nz, ny, nx, inv_2dx, inv_2dy, inv_2dz,
       inv_dx2, inv_dy2, inv_dz2, emit_rhs, Weights{nullptr, nullptr, nx, ny},
-      make_float4(0.0f, 0.0f, 0.0f, 0.0f), z_base, nz_g);
+      make_float4(0.0f, 0.0f, 0.0f, 0.0f), z_base, nz_g, 0, ny, 0);
+  return (int)cudaGetLastError();
+}
+
+// The global-row b~ (or rhs): the owned window of a (z, y)-decomposed
+// shard's (nz, ny, nx) block, h planes and rows in from each side, into
+// window-sized bt (p window-sized too; not read for the rhs).
+int cfd_poisson_input_rows(const float* us, const float* vs, const float* ws,
+                           const float* p, float* bt, const float* rod,
+                           int nz, int ny, int nx, float inv_2dx,
+                           float inv_2dy, float inv_2dz, float inv_dx2,
+                           float inv_dy2, float inv_dz2, int emit_rhs,
+                           int z_base, int nz_g, int y_base, int ny_g, int h,
+                           cudaStream_t stream) {
+  poisson_input_kernel<false, true><<<stencil_grid(nz - 2 * h, ny - 2 * h,
+                                                   nx),
+                                      dim3(kTileX, kTileY), 0, stream>>>(
+      us, vs, ws, p, bt, rod, nz, ny, nx, inv_2dx, inv_2dy, inv_2dz,
+      inv_dx2, inv_dy2, inv_dz2, emit_rhs, Weights{nullptr, nullptr, nx, ny},
+      make_float4(0.0f, 0.0f, 0.0f, 0.0f), z_base, nz_g, y_base, ny_g, h);
   return (int)cudaGetLastError();
 }
 
@@ -620,11 +723,11 @@ int cfd_poisson_input_cons(const float* us, const float* vs, const float* ws,
                            int nx, float inv_2dz, float inv_dz2, float cxm,
                            float cxp, float cym, float cyp, int emit_rhs,
                            int z_base, int nz_g, cudaStream_t stream) {
-  poisson_input_kernel<true><<<stencil_grid(nz, ny, nx),
-                               dim3(kTileX, kTileY), 0, stream>>>(
+  poisson_input_kernel<true, false><<<stencil_grid(nz, ny, nx),
+                                      dim3(kTileX, kTileY), 0, stream>>>(
       us, vs, ws, p, bt, rod, nz, ny, nx, 0.0f, 0.0f, inv_2dz, 0.0f, 0.0f,
       inv_dz2, emit_rhs, Weights{xw, yw, nx, ny},
-      make_float4(cxm, cxp, cym, cyp), z_base, nz_g);
+      make_float4(cxm, cxp, cym, cyp), z_base, nz_g, 0, ny, 0);
   return (int)cudaGetLastError();
 }
 
@@ -669,16 +772,20 @@ long long cfd_corrector_partials(int nz, int ny, int nx) {
 
 namespace {
 
-template <bool kCons>
+template <bool kCons, bool kGlobal = false>
 int launch_corrector(const float* us, const float* vs, const float* ws,
                      const float* p, float* u, float* v, float* w,
                      const float* s, float* partials, float* out, int nz,
                      int ny, int nx, float inv_2dx, float inv_2dy,
-                     float inv_2dz, Weights wt, cudaStream_t stream) {
-  const dim3 grid = stencil_grid(nz, ny, nx);
-  corrector_kernel<kCons><<<grid, dim3(kTileX, kTileY), 0, stream>>>(
+                     float inv_2dz, Weights wt, cudaStream_t stream,
+                     float* pout = nullptr, int z_base = 0, int nz_g = 0,
+                     int y_base = 0, int ny_g = 0, int hs = 0) {
+  const dim3 grid = kGlobal ? stencil_grid(nz - 2, ny - 2, nx)
+                            : stencil_grid(nz, ny, nx);
+  corrector_kernel<kCons, kGlobal><<<grid, dim3(kTileX, kTileY), 0,
+                                     stream>>>(
       us, vs, ws, p, u, v, w, s, partials, nz, ny, nx, inv_2dx, inv_2dy,
-      inv_2dz, wt);
+      inv_2dz, wt, pout, z_base, nz_g, y_base, ny_g, hs);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   reduce_max3_kernel<<<1, kReduceThreads, 0, stream>>>(
@@ -698,6 +805,23 @@ int cfd_corrector(const float* us, const float* vs, const float* ws,
   return launch_corrector<false>(us, vs, ws, p, u, v, w, s, partials, out,
                                  nz, ny, nx, inv_2dx, inv_2dy, inv_2dz,
                                  Weights{nullptr, nullptr, nx, ny}, stream);
+}
+
+// The global-row corrector: p a (z, y)-decomposed shard's block padded
+// one plane and one row a side (nz, ny its padded counts), z_base and
+// y_base its global plane and row of local (0, 0), u*, v*, w* padded hs
+// a side; u, v, w, pout owned-size; partials sized for the owned window
+// (cfd_corrector_partials(nz - 2, ny - 2, nx)).
+int cfd_corrector_rows(const float* us, const float* vs, const float* ws,
+                       const float* p, float* u, float* v, float* w,
+                       float* pout, const float* s, float* partials,
+                       float* out, int nz, int ny, int nx, float inv_2dx,
+                       float inv_2dy, float inv_2dz, int z_base, int nz_g,
+                       int y_base, int ny_g, int hs, cudaStream_t stream) {
+  return launch_corrector<false, true>(
+      us, vs, ws, p, u, v, w, s, partials, out, nz, ny, nx, inv_2dx,
+      inv_2dy, inv_2dz, Weights{nullptr, nullptr, nx, ny}, stream, pout,
+      z_base, nz_g, y_base, ny_g, hs);
 }
 
 // The consistent corrector: the gradient weights are rows 0-2 of xw, yw.

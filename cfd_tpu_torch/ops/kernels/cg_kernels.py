@@ -41,6 +41,16 @@ owned plane but the global shells (the reference's jnp axpy,
 The solver loop runs :class:`ShardCGPasses`, whose finalize is split in
 two: each shard folds its partials to one value, the communicator sums
 the shards' values (``comm.sum``), and a recurrence kernel reads the sum.
+
+The (z, y) modes (``y_base``, ``ny_g`` given too; ``make_lap_dot_
+sharded``'s ``global_ny``, `cg_kernels.py:469-480`): every buffer is a
+shard's block padded one plane and one row a side (``c`` its constants,
+plane k and row j the global ``z_base + k`` and ``y_base + j``); K1 masks
+p′ to the global Dirichlet-0 space, writes p′ and Ap′ in the padded
+layout on the owned points and returns the owned points' share of the
+dot; K2 updates the owned points but the global shells.  Both count on
+``global_ny_launches`` (``cg_lap_dot_kernel<true, true>``,
+``cg_update_kernel<true, true>``).
 """
 
 from __future__ import annotations
@@ -127,6 +137,17 @@ def _launch_update_sharded(x, r, pn, ap, st, part, out, c: CGConsts,
     native.count_launch(cg_update, "global_nz")
 
 
+def _launch_rows(name, wrapper, bufs, st, part, out, c: CGConsts, z_base,
+                 nz_g, y_base, ny_g, *consts):
+    """One (z, y) pass on padded blocks, ``consts`` the K1 coefficients
+    (none for K2)."""
+    native.launch(name, bufs[0].device, *map(native.ptr, (*bufs, st, part,
+                                                         out)),
+                  c.nz, c.ny, c.nx, *consts, int(z_base), int(nz_g),
+                  int(y_base), int(ny_g))
+    native.count_launch(wrapper, "global_ny")
+
+
 def _launch_update(x, r, pn, ap, st, part, c: CGConsts):
     native.launch("cfd_cg_update", x.device, *map(native.ptr, (
         x, r, pn, ap, st, part)), c.nz, c.ny, c.nx, c.scale,
@@ -144,13 +165,33 @@ def _one_shot_state(like, slot, value):
 
 # ---- lap_dot ----------------------------------------------------------------
 
+def _owned_rows(mask):
+    """``mask`` without the padded block's end planes and rows."""
+    mask = mask.clone()
+    mask[0] = mask[-1] = False
+    mask[:, 0] = mask[:, -1] = False
+    return mask
+
+
 def lap_dot_plain(r, p, beta, c: CGConsts, z_base: int = 0,
-                  nz_g: int = None):
+                  nz_g: int = None, y_base: int = 0, ny_g: int = None):
     """(p′, Ap′, ⟨p′, Ap′⟩) with zero shells on p′ and Ap′.  With ``nz_g``
     the sharded mode: r and p are a shard's halo-padded block (plane k is
     global plane ``z_base + k``), p′ is masked to the global Dirichlet-0
     space on every plane, and the owned planes of p′ and Ap′ come back
-    with their share of the dot."""
+    with their share of the dot.  With ``ny_g`` too the (z, y) mode: the
+    block is padded one row a side as well (row j global ``y_base + j``)
+    and the owned planes and rows come back."""
+    if ny_g is not None:
+        mask = stencils.global_interior_mask(c.shape, z_base, nz_g,
+                                             r.device, y_base, ny_g)
+        pn = torch.where(mask, c.scale * r + beta * p, torch.zeros_like(r))
+        ap = torch.zeros_like(r)
+        own = stencils.interior_index(ap)
+        ap[own] = torch.where(_owned_rows(mask)[own], -stencils.laplacian(
+            pn, c.inv_dx2, c.inv_dy2, c.inv_dz2), 0.0)
+        pn, ap = pn[1:-1, 1:-1], ap[1:-1, 1:-1]
+        return pn, ap, torch.sum(ap[:, :, 1:-1] * pn[:, :, 1:-1])
     if nz_g is not None:
         mask = stencils.global_interior_mask(c.shape, z_base, nz_g,
                                              r.device)
@@ -170,15 +211,25 @@ def lap_dot_plain(r, p, beta, c: CGConsts, z_base: int = 0,
     return pn, ap, torch.sum(stencils.interior(ap) * stencils.interior(pn))
 
 
-def lap_dot(r, p, beta, c: CGConsts, z_base: int = 0, nz_g: int = None):
+def lap_dot(r, p, beta, c: CGConsts, z_base: int = 0, nz_g: int = None,
+            y_base: int = 0, ny_g: int = None):
     """(p′, Ap′, ⟨p′, Ap′⟩) — ``cg_lap_dot_kernel`` and its finalize on
     CUDA; ``beta`` a float or a 0-d tensor.  With ``nz_g`` the sharded
     mode of :func:`lap_dot_plain`: ``cg_lap_dot_kernel<true>`` and the
-    shard's fold (the dot is the shard's share)."""
+    shard's fold (the dot is the shard's share); with ``ny_g`` too its
+    (z, y) mode, ``cg_lap_dot_kernel<true, true>`` (the owned planes and
+    rows of its padded outputs returned)."""
     if native.on_cpu(r):
-        return lap_dot_plain(r, p, beta, c, z_base, nz_g)
+        return lap_dot_plain(r, p, beta, c, z_base, nz_g, y_base, ny_g)
     _check(c, r, p)
     st = _one_shot_state(r, BETA, beta)
+    if ny_g is not None:
+        pn, ap = torch.empty_like(r), torch.empty_like(r)
+        out = r.new_empty(())
+        _launch_rows("cfd_cg_lap_dot_rows", lap_dot, (r, p, pn, ap), st,
+                     _rows_partials(c, r), out, c, z_base, nz_g, y_base,
+                     ny_g, c.inv_dx2, c.inv_dy2, c.inv_dz2, c.scale)
+        return pn[1:-1, 1:-1], ap[1:-1, 1:-1], out
     if nz_g is not None:
         pn, ap = (r.new_empty((c.nz - 2, c.ny, c.nx)) for _ in range(2))
         out = r.new_empty(())
@@ -194,11 +245,20 @@ def lap_dot(r, p, beta, c: CGConsts, z_base: int = 0, nz_g: int = None):
 # ---- cg_update --------------------------------------------------------------
 
 def cg_update_plain(x, r, pn, ap, alpha, c: CGConsts, z_base: int = 0,
-                    nz_g: int = None):
+                    nz_g: int = None, y_base: int = 0, ny_g: int = None):
     """(x′, r′, ⟨r′, r′⟩): the α-updates on the interior, shells kept.
     With ``nz_g`` the sharded mode: a shard's owned block (plane k is
     global plane ``z_base + k``), every owned plane updated but the
-    global shells, and the shard's share of the dot."""
+    global shells, and the shard's share of the dot.  With ``ny_g`` too
+    the (z, y) mode: every tensor the shard's block padded one plane and
+    one row a side (row j global ``y_base + j``), its owned points
+    updated but the global shells."""
+    if ny_g is not None:
+        mask = _owned_rows(stencils.global_interior_mask(
+            c.shape, z_base, nz_g, x.device, y_base, ny_g))
+        x2 = torch.where(mask, x + alpha * pn, x)
+        r2 = torch.where(mask, r - alpha * ap, r)
+        return x2, r2, torch.sum(torch.where(mask, r2 * r2, 0.0))
     if nz_g is not None:
         mask = stencils.global_interior_mask(c.shape, z_base, nz_g,
                                              x.device)
@@ -213,16 +273,24 @@ def cg_update_plain(x, r, pn, ap, alpha, c: CGConsts, z_base: int = 0,
 
 
 def cg_update(x, r, pn, ap, alpha, c: CGConsts, z_base: int = 0,
-              nz_g: int = None):
+              nz_g: int = None, y_base: int = 0, ny_g: int = None):
     """(x′, r′, ⟨r′, r′⟩) — ``cg_update_kernel`` and its finalize on CUDA
     (on copies of x and r); ``alpha`` a float or a 0-d tensor.  With
     ``nz_g`` the sharded mode of :func:`cg_update_plain`:
-    ``cg_update_kernel<true>`` and the shard's fold."""
+    ``cg_update_kernel<true>`` and the shard's fold; with ``ny_g`` too
+    its (z, y) mode, ``cg_update_kernel<true, true>``."""
     if native.on_cpu(x):
-        return cg_update_plain(x, r, pn, ap, alpha, c, z_base, nz_g)
+        return cg_update_plain(x, r, pn, ap, alpha, c, z_base, nz_g, y_base,
+                               ny_g)
     _check(c, x, r, pn, ap)
     x2, r2 = x.clone(), r.clone()
     st = _one_shot_state(x, ALPHA, alpha)
+    if ny_g is not None:
+        out = x.new_empty(())
+        _launch_rows("cfd_cg_update_rows", cg_update, (x2, r2, pn, ap), st,
+                     _rows_partials(c, x), out, c, z_base, nz_g, y_base,
+                     ny_g)
+        return x2, r2, out
     if nz_g is not None:
         out = x.new_empty(())
         _launch_update_sharded(x2, r2, pn, ap, st, _partials(c, x), out, c,
@@ -230,6 +298,12 @@ def cg_update(x, r, pn, ap, alpha, c: CGConsts, z_base: int = 0,
         return x2, r2, out
     _launch_update(x2, r2, pn, ap, st, _partials(c, x), c)
     return x2, r2, st[RR]
+
+
+def _rows_partials(c: CGConsts, like):
+    """Room for a (z, y) pass's partials: its owned points of the padded
+    block ``c``."""
+    return _partials(dataclasses.replace(c, nz=c.nz - 2, ny=c.ny - 2), like)
 
 
 native.reset_counts(lap_dot, cg_update)
@@ -330,14 +404,20 @@ class ShardCGPasses:
     ``c`` holds the owned block's constants (``c.nz = nzl``), ``z_off``
     the shard's first global plane, ``nz_g`` the global plane count.
     K1 reads the halo-padded r and p (nzl + 2 planes) and writes the
-    owned planes of p′ and Ap′; K2 updates the owned x and r.  On the
+    owned planes of p′ and Ap′; K2 updates the owned x and r.  With
+    ``ny_g`` (and ``y_off`` the shard's first global row) the (z, y)
+    passes: every buffer, x and Ap′ too, is the block padded one plane
+    and one row a side, and both passes take the padded buffers.  On the
     CPU, or with ``plain=True``, the plain versions run with the
     recurrences as 0-d tensor operations."""
 
     def __init__(self, c: CGConsts, z_off: int, nz_g: int, device,
-                 plain: bool = False):
+                 plain: bool = False, y_off: int = 0, ny_g: int = None):
         self.c, self.z_off, self.nz_g = c, int(z_off), int(nz_g)
-        self.c_pad = dataclasses.replace(c, nz=c.nz + 2)
+        self.y_off, self.ny_g = int(y_off), ny_g
+        self.rows = ny_g is not None
+        self.c_pad = dataclasses.replace(
+            c, nz=c.nz + 2, ny=c.ny + 2 if self.rows else c.ny)
         self.plain = plain or torch.device(device).type == "cpu"
         self._bufs = None
 
@@ -352,6 +432,8 @@ class ShardCGPasses:
     def lap_dot(self, r, p, pn, ap, st):
         """pn ← p′, ap ← Ap′ on the owned planes; the shard's
         ⟨p′, Ap′⟩."""
+        if self.rows:
+            return self._lap_dot_rows(r, p, pn, ap, st)
         if not self.plain:
             _check(self.c_pad, r, p)
             _check(self.c, pn, ap)
@@ -365,6 +447,22 @@ class ShardCGPasses:
         ap.copy_(ap_)
         return pap
 
+    def _lap_dot_rows(self, r, p, pn, ap, st):
+        if not self.plain:
+            _check(self.c_pad, r, p, pn, ap)
+            part, out, _ = self._buffers(r)
+            _launch_rows("cfd_cg_lap_dot_rows", lap_dot, (r, p, pn, ap), st,
+                         part, out, self.c_pad, self.z_off - 1, self.nz_g,
+                         self.y_off - 1, self.ny_g, self.c.inv_dx2,
+                         self.c.inv_dy2, self.c.inv_dz2, self.c.scale)
+            return out
+        pn_, ap_, pap = lap_dot_plain(r, p, st[BETA], self.c_pad,
+                                      self.z_off - 1, self.nz_g,
+                                      self.y_off - 1, self.ny_g)
+        pn[1:-1, 1:-1] = pn_
+        ap[1:-1, 1:-1] = ap_
+        return pap
+
     def lap_dot_recur(self, pap, st):
         """The state's α from the shards' summed ⟨p′, Ap′⟩."""
         if not self.plain:
@@ -376,15 +474,22 @@ class ShardCGPasses:
     def update(self, x, r, pn, ap, st):
         """x, r ← the α-updates on the owned block; the shard's
         ⟨r′, r′⟩."""
+        c, base = self.c, (self.z_off, self.nz_g)
+        if self.rows:
+            c, base = self.c_pad, (self.z_off - 1, self.nz_g,
+                                   self.y_off - 1, self.ny_g)
         if not self.plain:
-            _check(self.c, x, r, pn, ap)
+            _check(c, x, r, pn, ap)
             part, _, out = self._buffers(x)
-            _launch_update_sharded(x, r, pn, ap, st, part, out, self.c,
-                                   self.z_off, self.nz_g)
+            if self.rows:
+                _launch_rows("cfd_cg_update_rows", cg_update,
+                             (x, r, pn, ap), st, part, out, c, *base)
+            else:
+                _launch_update_sharded(x, r, pn, ap, st, part, out, c,
+                                       *base)
             return out
         run = st[RUNNING] > 0
-        x2, r2, rr = cg_update_plain(x, r, pn, ap, st[ALPHA], self.c,
-                                     self.z_off, self.nz_g)
+        x2, r2, rr = cg_update_plain(x, r, pn, ap, st[ALPHA], c, *base)
         x.copy_(torch.where(run, x2, x))
         r.copy_(torch.where(run, r2, r))
         return rr

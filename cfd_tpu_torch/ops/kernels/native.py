@@ -51,6 +51,15 @@ SIGNATURES = {
     "cfd_tdma_bwd": [_P, _P, _P, _I, _L, _P],
     "cfd_tdma_bwd_analytic": [_P, _P, _P, _I, _L, _P],
     "cfd_corrector": [_P] * 10 + [_I] * 3 + [_F] * 3 + [_P],
+    # ... their global-row instantiations (a (z, y)-decomposed shard's
+    # block: its global row base and row count after the plane ones; b~'s
+    # window depth h; the corrector's owned p out and u*'s padding hs)
+    "cfd_pred_star_rows": [_P] * 8 + [_I] * 3 + [_F] * 11 + [_I]
+    + [_F] * 4 + [_I] * 5 + [_P],
+    "cfd_poisson_input_rows": [_P] * 6 + [_I] * 3 + [_F] * 6 + [_I] * 6
+    + [_P],
+    "cfd_corrector_rows": [_P] * 11 + [_I] * 3 + [_F] * 3 + [_I] * 5
+    + [_P],
     # ... their consistent-scheme instantiations (weight rows xw, yw)
     "cfd_pred_star_cons": [_P] * 10 + [_I] * 3 + [_F] * 3 + [_I]
     + [_F] * 4 + [_I] * 3 + [_P],
@@ -87,6 +96,10 @@ SIGNATURES = {
     "cfd_cg_lap_dot_sharded": [_P] * 7 + [_I] * 3 + [_F] * 4 + [_I] * 2
     + [_P],
     "cfd_cg_update_sharded": [_P] * 7 + [_I] * 5 + [_P],
+    # ... the (z, y) passes (padded blocks; global row base and count too)
+    "cfd_cg_lap_dot_rows": [_P] * 7 + [_I] * 3 + [_F] * 4 + [_I] * 4
+    + [_P],
+    "cfd_cg_update_rows": [_P] * 7 + [_I] * 7 + [_P],
     "cfd_cg_lap_dot_recur": [_P] * 3,
     "cfd_cg_update_recur": [_P] * 2 + [_F, _I, _P],
     # mg_kernels.cu, mg_solve.cu (the multigrid pressure solve; the
@@ -226,7 +239,8 @@ def count_launch(wrapper, scheme=None) -> None:
     ``launches`` (a uniform grid, and the parity projection on its
     first-cell spacings), ``parity_launches`` or ``consistent_launches``
     (the stretched instantiations), or of a mode: ``global_nz_launches``
-    (a z-decomposed shard's block)."""
+    (a z-decomposed shard's block) or ``global_ny_launches`` (the
+    global-row instantiations, a (z, y)-decomposed shard's block)."""
     name = "launches" if scheme is None else f"{scheme}_launches"
     setattr(wrapper, name, getattr(wrapper, name) + 1)
 
@@ -234,7 +248,7 @@ def count_launch(wrapper, scheme=None) -> None:
 def reset_counts(*wrappers) -> None:
     for w in wrappers:
         w.launches = w.parity_launches = w.consistent_launches = 0
-        w.global_nz_launches = 0
+        w.global_nz_launches = w.global_ny_launches = 0
 
 
 def on_cpu(t: torch.Tensor) -> bool:

@@ -80,6 +80,21 @@ inverse DST and :func:`corrector` run unchanged on its 1-halo x̂ block
 `projection_kernels.py:516-547`: the per-component correction is the
 same arithmetic as ``corr_all``'s, one kernel for the three).
 
+The (z, y)-decomposed step runs the global-row mode
+(``ProjectionKernels(global_nz, global_ny)``: ``rows_cols`` /
+``interior_mask`` / ``source_plane``, `projection_kernels.py:262-281`, and
+the per-component ``y_off``, `:306-312`, `:343-344`, `:475-478`,
+`:519-520`, `:536-537`): given ``y_base`` and ``ny_g`` beside the plane
+ones, :func:`predictor_star` takes the y-shells and the sin(πy) source at
+global rows on a block padded along y too; :func:`poisson_input` and
+:func:`poisson_rhs` compute the owned window ``halo`` planes and rows in
+from the block's sides (b̃'s y face term on the global rows 1 and
+ny_g − 2) into an owned-size output; :func:`corrector_rows` corrects the
+owned window of a p block padded one plane and one row a side and
+returns the owned p beside u, v, w, the maxima over every owned point.
+Each is its kernel's global-row instantiation, counted on
+``global_ny_launches``.
+
 Every wrapper below launches its CUDA kernel on a CUDA tensor and runs its
 plain PyTorch version (``*_plain``) on a CPU tensor; its ``launches``
 attribute counts kernel launches.  The CUDA sources are in
@@ -254,21 +269,56 @@ def _check(c: StencilConsts, fields, scalars):
 
 # ---- A1 (a): predictor u*, v*, w* ----------------------------------------
 
-def _keep_global_shells(out, f, c: StencilConsts, z_base, nz_g):
+def _keep_global_shells(out, f, c: StencilConsts, z_base, nz_g,
+                        y_base: int = 0, ny_g: int = None):
     """``out`` with ``f`` on the planes of a z-decomposed shard's block
     whose global index kg = z_base + k is a global z-shell or lies past
     one (an edge shard's halo planes): the planes the ``global_nz``
     kernels pass through (`projection_kernels.py:636-638`, ``kq > 0 &
-    kq < nz_g − 1``); ``out`` itself on one device (``nz_g`` None)."""
-    if nz_g is None:
+    kq < nz_g − 1``); with ``ny_g`` the rows whose global index
+    y_base + j is a global y-shell or lies past one too (the global-row
+    ``interior_mask``, `:270-273`); ``out`` itself on one device."""
+    if nz_g is None and ny_g is None:
         return out
-    kg = z_base + torch.arange(c.nz, device=f.device)
-    shell = ((kg <= 0) | (kg >= nz_g - 1))[:, None, None]
+    shell = torch.zeros((), dtype=torch.bool, device=f.device)
+    if nz_g is not None:
+        kg = z_base + torch.arange(c.nz, device=f.device)
+        shell = shell | ((kg <= 0) | (kg >= nz_g - 1))[:, None, None]
+    if ny_g is not None:
+        jg = y_base + torch.arange(c.ny, device=f.device)
+        shell = shell | ((jg <= 0) | (jg >= ny_g - 1))[None, :, None]
     return torch.where(shell, f, out)
 
 
+def _window(t, h: int):
+    """The owned window of a block padded ``h`` planes and rows a side
+    (a contiguous copy; the block itself for h = 0)."""
+    if h == 0:
+        return t
+    return t[h:t.shape[0] - h, h:t.shape[1] - h].contiguous()
+
+
+def _pad_window(t, h: int):
+    """``t`` zero-padded ``h`` planes and rows a side."""
+    if h == 0:
+        return t
+    out = t.new_zeros((t.shape[0] + 2 * h, t.shape[1] + 2 * h)
+                      + tuple(t.shape[2:]))
+    out[h:-h, h:-h] = t
+    return out
+
+
+def _no_rows_consistent(c: StencilConsts, ny_g):
+    """The reference refuses the consistent scheme in global-row mode
+    (`projection_kernels.py:209-211`)."""
+    if ny_g is not None and c.consistent:
+        raise ValueError("stretch_consistent does not support y-sharded "
+                         "(global_ny) mode")
+
+
 def predictor_star_plain(u, v, w, scal, c: StencilConsts, T=None,
-                         z_base: int = 0, nz_g: int = None):
+                         z_base: int = 0, nz_g: int = None,
+                         y_base: int = 0, ny_g: int = None):
     """u* = clamp(u + dt(−u·∇u + ν∇²u + src)) on the interior, shells
     passed through; ``scal`` = [dt, su, sv] (source amplitudes with the
     decay folded in); with ``c.buoyancy`` the step-start ``T`` adds
@@ -279,7 +329,10 @@ def predictor_star_plain(u, v, w, scal, c: StencilConsts, T=None,
     ``global_nz`` mode (A1's, `projection_kernels.py:561-567`): the fields
     are a z-decomposed shard's halo-padded block whose local plane k is
     global plane ``z_base + k`` of an ``nz_g``-plane domain; the global
-    z-shells, and the planes past them, pass through as well."""
+    z-shells, and the planes past them, pass through as well.  With
+    ``ny_g`` the global-row mode: local row j is global row ``y_base + j``
+    of an ``ny_g``-row domain, for the y-shells and the sin(πy) source."""
+    _no_rows_consistent(c, ny_g)
     dt, su, sv = scal[0], scal[1], scal[2]
     i2x, i2y, i2z, ix2, iy2, iz2 = c.derivs()
     uc, vc, wc = interior(u), interior(v), interior(w)
@@ -303,7 +356,8 @@ def predictor_star_plain(u, v, w, scal, c: StencilConsts, T=None,
         # the default source basis at the true coordinates (weight row 6)
         src_u, src_v = su * Y[6], sv * X[6]
     elif c.with_sources:
-        jj = torch.arange(1, c.ny - 1, device=u.device).to(u.dtype)
+        jj = (torch.arange(1, c.ny - 1, device=u.device)
+              + (y_base if ny_g is not None else 0)).to(u.dtype)
         ii = torch.arange(1, c.nx - 1, device=u.device).to(u.dtype)
         src_u = su * torch.sin(torch.pi * (c.ymin + jj * c.dy))[:, None]
         src_v = sv * torch.sin(2.0 * torch.pi * (c.xmin + ii * c.dx))[None]
@@ -314,7 +368,8 @@ def predictor_star_plain(u, v, w, scal, c: StencilConsts, T=None,
         coefs, tref = c.buoyancy
         dT = interior(T) - tref
         srcs = [s if b is None else s + b * dT for s, b in zip(srcs, coefs)]
-    return tuple(_keep_global_shells(star(f, src), f, c, z_base, nz_g)
+    return tuple(_keep_global_shells(star(f, src), f, c, z_base, nz_g,
+                                     y_base, ny_g)
                  for f, src in zip((u, v, w), srcs))
 
 
@@ -331,9 +386,12 @@ def check_buoyancy_input(c: StencilConsts, T, shape):
                          f"{tuple(T.shape)}")
 
 
-def _counter(c: StencilConsts, nz_g):
-    """The launch counter of a stencil wrapper's call: the scheme's, or
-    ``global_nz`` for a z-decomposed shard's block."""
+def _counter(c: StencilConsts, nz_g, ny_g=None):
+    """The launch counter of a stencil wrapper's call: the scheme's,
+    ``global_nz`` for a z-decomposed shard's block, ``global_ny`` for a
+    (z, y)-decomposed one's."""
+    if ny_g is not None:
+        return "global_ny"
     return "global_nz" if nz_g is not None else c.scheme
 
 
@@ -343,14 +401,18 @@ def _z_args(c: StencilConsts, z_base, nz_g):
 
 
 def predictor_star(u, v, w, scal, c: StencilConsts, T=None,
-                   z_base: int = 0, nz_g: int = None):
-    """(u*, v*, w*) — ``pred_star_kernel<false>`` on CUDA, ``<true>`` on
-    the consistent scheme's weight rows (counted by scheme,
-    `native.count_launch`); ``T`` is read with buoyancy only.  With
-    ``nz_g`` the ``global_nz`` mode of :func:`predictor_star_plain`,
-    counted on ``global_nz_launches``."""
+                   z_base: int = 0, nz_g: int = None, y_base: int = 0,
+                   ny_g: int = None):
+    """(u*, v*, w*) — ``pred_star_kernel<false, false>`` on CUDA,
+    ``<true, false>`` on the consistent scheme's weight rows (counted by
+    scheme, `native.count_launch`); ``T`` is read with buoyancy only.
+    With ``nz_g`` the ``global_nz`` mode of :func:`predictor_star_plain`,
+    counted on ``global_nz_launches``; with ``ny_g`` the global-row mode,
+    ``<false, true>``, counted on ``global_ny_launches``."""
     if native.on_cpu(u):
-        return predictor_star_plain(u, v, w, scal, c, T, z_base, nz_g)
+        return predictor_star_plain(u, v, w, scal, c, T, z_base, nz_g,
+                                    y_base, ny_g)
+    _no_rows_consistent(c, ny_g)
     _check(c, (u, v, w), (scal,))
     check_buoyancy_input(c, T, (c.nz, c.ny, c.nx))
     us, vs, ws = (torch.empty_like(u) for _ in range(3))
@@ -362,25 +424,31 @@ def predictor_star(u, v, w, scal, c: StencilConsts, T=None,
                       float(c.nu),
                       c.inv_2dz, c.inv_dz2, int(c.with_sources),
                       *c.buoyancy_args(), *_z_args(c, z_base, nz_g))
+    elif ny_g is not None:
+        native.launch("cfd_pred_star_rows", u.device, *fields, c.nz, c.ny,
+                      c.nx, float(c.nu), *c.derivs(), c.xmin, c.ymin, c.dx,
+                      c.dy, int(c.with_sources), *c.buoyancy_args(),
+                      *_z_args(c, z_base, nz_g), int(y_base), int(ny_g))
     else:
         native.launch("cfd_pred_star", u.device, *fields, c.nz, c.ny, c.nx,
                       float(c.nu), *c.derivs(), c.xmin, c.ymin, c.dx, c.dy,
                       int(c.with_sources), *c.buoyancy_args(),
                       *_z_args(c, z_base, nz_g))
-    native.count_launch(predictor_star, _counter(c, nz_g))
+    native.count_launch(predictor_star, _counter(c, nz_g, ny_g))
     return us, vs, ws
 
 
 # ---- A1 (a'): spectral-solve input b̃ --------------------------------------
 
 def face_coeff(c: StencilConsts, dtype, device, z_base: int = 0,
-               nz_g: int = None):
+               nz_g: int = None, y_base: int = 0, ny_g: int = None):
     """(nz, ny, nx) Neumann-mirror face coefficients, in the reference
     kernel's summation order ((x + y) + z; the z term is 0 in 2D).  On the
     consistent scheme the x/y term is ((cxm·[i = 1] + cxp·[i = nx − 2])
     + cym·[j = 1]) + cyp·[j = ny − 2] (`projection_kernels.py:658-668`).
     With ``nz_g`` the z term sits at the global planes 1 and nz_g − 2
-    (local plane k is global plane ``z_base + k``, `:487-492`)."""
+    (local plane k is global plane ``z_base + k``, `:487-492`), with
+    ``ny_g`` the y term at the global rows 1 and ny_g − 2 (`:475-478`)."""
     def face(n, inv_d2, base=0, n_g=None):
         k = base + torch.arange(n, device=device)
         n_g = n if n_g is None else n_g
@@ -396,31 +464,44 @@ def face_coeff(c: StencilConsts, dtype, device, z_base: int = 0,
                 + cym * at(c.ny, 1)[:, None]) + cyp * at(c.ny, c.ny - 2)[:, None])
     else:
         cxy = (face(c.nx, c.inv_dx2)[None, :]
-               + face(c.ny, c.inv_dy2)[:, None])
+               + face(c.ny, c.inv_dy2, y_base, ny_g)[:, None])
     return cxy[None] + face(c.nz, c.inv_dz2, z_base, nz_g)[:, None, None]
 
 
 def poisson_input_plain(us, vs, ws, p, rod, c: StencilConsts,
-                        z_base: int = 0, nz_g: int = None):
+                        z_base: int = 0, nz_g: int = None, y_base: int = 0,
+                        ny_g: int = None, halo: int = 0):
     """b̃ = face_coeff·p − (ρ/dt)∇·u* on the interior, zero shell.  With
     ``nz_g`` the ``global_nz`` mode of A5's ``btilde_k``
     (`projection_kernels.py:464-510`): the fields are a z-decomposed
     shard's halo-padded block (local plane k = global plane
     ``z_base + k``), the z face term lands on the global planes 1 and
     nz_g − 2, and the global z-shells (and the planes past them) are
-    zero."""
-    coeff = interior(face_coeff(c, p.dtype, p.device, z_base, nz_g))
+    zero.  With ``ny_g`` the global-row mode: local row j is global row
+    ``y_base + j`` (the y face term on the global rows 1 and ny_g − 2,
+    zero global y-shells), and b̃ is the owned window ``halo`` planes and
+    rows in from the block's sides, as is ``p``."""
+    _no_rows_consistent(c, ny_g)
+    p = _pad_window(p, halo)
+    coeff = interior(face_coeff(c, p.dtype, p.device, z_base, nz_g, y_base,
+                                ny_g))
     bt = set_interior(torch.zeros_like(p), coeff * interior(p)
                       - rod * divergence_star(us, vs, ws, c))
-    return _keep_global_shells(bt, torch.zeros_like(bt), c, z_base, nz_g)
+    return _window(_keep_global_shells(bt, torch.zeros_like(bt), c, z_base,
+                                       nz_g, y_base, ny_g), halo)
 
 
 def _launch_input(us, vs, ws, p, out, rod, c: StencilConsts, emit_rhs,
-                  z_args):
-    """One ``poisson_input_kernel`` launch, ``<true>`` on the consistent
-    scheme (its b̃ form reads the face weights); ``z_args`` the block's
+                  z_args, y_args=None):
+    """One ``poisson_input_kernel`` launch, ``<true, false>`` on the
+    consistent scheme (its b̃ form reads the face weights), ``<false,
+    true>`` with ``y_args`` = (y_base, ny_g, halo); ``z_args`` the block's
     (z_base, nz_g)."""
     ptrs = map(native.ptr, (us, vs, ws, p, out, rod))
+    if y_args is not None:
+        native.launch("cfd_poisson_input_rows", us.device, *ptrs, c.nz,
+                      c.ny, c.nx, *c.derivs(), emit_rhs, *z_args, *y_args)
+        return
     if not c.consistent:
         native.launch("cfd_poisson_input", us.device, *ptrs, c.nz, c.ny,
                       c.nx, *c.derivs(), emit_rhs, *z_args)
@@ -432,18 +513,47 @@ def _launch_input(us, vs, ws, p, out, rod, c: StencilConsts, emit_rhs,
                   c.inv_dz2, *(c.face or (0.0,) * 4), emit_rhs, *z_args)
 
 
+def _window_shape(c: StencilConsts, halo: int):
+    return (c.nz - 2 * halo, c.ny - 2 * halo, c.nx)
+
+
+def _y_args(c: StencilConsts, y_base, ny_g, halo, *owned):
+    """The global-row launch's (y_base, ny_g, halo), the owned-size
+    tensors checked; None on a block without ``ny_g``."""
+    if ny_g is None:
+        if halo:
+            raise ValueError("an owned window needs the global-row mode "
+                             "(ny_g)")
+        return None
+    _no_rows_consistent(c, ny_g)
+    for t in owned:
+        if tuple(t.shape) != _window_shape(c, halo):
+            raise ValueError(f"expected the owned window "
+                             f"{_window_shape(c, halo)}, got "
+                             f"{tuple(t.shape)}")
+    return int(y_base), int(ny_g), int(halo)
+
+
 def poisson_input(us, vs, ws, p, rod, c: StencilConsts, z_base: int = 0,
-                  nz_g: int = None):
-    """b̃ — ``poisson_input_kernel`` on CUDA (``<true>`` on the consistent
-    scheme, counted by scheme); ``rod`` a 0-d tensor.  With ``nz_g`` the
-    ``global_nz`` mode of :func:`poisson_input_plain`, counted on
-    ``global_nz_launches``."""
+                  nz_g: int = None, y_base: int = 0, ny_g: int = None,
+                  halo: int = 0):
+    """b̃ — ``poisson_input_kernel`` on CUDA (``<true, false>`` on the
+    consistent scheme, counted by scheme); ``rod`` a 0-d tensor.  With
+    ``nz_g`` the ``global_nz`` mode of :func:`poisson_input_plain`,
+    counted on ``global_nz_launches``; with ``ny_g`` the global-row mode
+    on the owned window (``<false, true>``), counted on
+    ``global_ny_launches``."""
     if native.on_cpu(us):
-        return poisson_input_plain(us, vs, ws, p, rod, c, z_base, nz_g)
-    _check(c, (us, vs, ws, p), (rod,))
+        return poisson_input_plain(us, vs, ws, p, rod, c, z_base, nz_g,
+                                   y_base, ny_g, halo)
+    _check(c, (us, vs, ws), (p, rod))
+    y_args = _y_args(c, y_base, ny_g, halo, p)
+    if y_args is None:
+        _check(c, (p,), ())
     bt = torch.empty_like(p)
-    _launch_input(us, vs, ws, p, bt, rod, c, 0, _z_args(c, z_base, nz_g))
-    native.count_launch(poisson_input, _counter(c, nz_g))
+    _launch_input(us, vs, ws, p, bt, rod, c, 0, _z_args(c, z_base, nz_g),
+                  y_args)
+    native.count_launch(poisson_input, _counter(c, nz_g, ny_g))
     return bt
 
 
@@ -459,7 +569,8 @@ def divergence_star(us, vs, ws, c: StencilConsts):
 
 
 def poisson_rhs_plain(us, vs, ws, rod, c: StencilConsts, z_base: int = 0,
-                      nz_g: int = None):
+                      nz_g: int = None, y_base: int = 0, ny_g: int = None,
+                      halo: int = 0):
     """rhs = (ρ/dt)∇·u* on the interior, zero shell
     (`projection_kernels.py:699-701`: no face term, no minus).  With
     ``nz_g`` the ``global_nz`` mode of A5's ``divergence``
@@ -467,24 +578,33 @@ def poisson_rhs_plain(us, vs, ws, rod, c: StencilConsts, z_base: int = 0,
     steps): the fields are a shard's halo-padded block (local plane k =
     global plane ``z_base + k``), and the global z-shells (and the planes
     past them) are zero, the reference's ``fix_shell`` of the rhs
-    (`parallel/fused.py:583-585`)."""
+    (`parallel/fused.py:583-585`).  With ``ny_g`` the global-row mode as
+    :func:`poisson_input_plain`'s: zero global y-shells, the owned
+    window ``halo`` planes and rows in."""
+    _no_rows_consistent(c, ny_g)
     rhs = set_interior(torch.zeros_like(us),
                        rod * divergence_star(us, vs, ws, c))
-    return _keep_global_shells(rhs, torch.zeros_like(rhs), c, z_base, nz_g)
+    return _window(_keep_global_shells(rhs, torch.zeros_like(rhs), c,
+                                       z_base, nz_g, y_base, ny_g), halo)
 
 
 def poisson_rhs(us, vs, ws, rod, c: StencilConsts, z_base: int = 0,
-                nz_g: int = None):
+                nz_g: int = None, y_base: int = 0, ny_g: int = None,
+                halo: int = 0):
     """rhs — ``poisson_input_kernel`` in its emit-rhs form on CUDA
-    (``<true>`` on the consistent scheme, counted by scheme).  With
+    (``<true, false>`` on the consistent scheme, counted by scheme).  With
     ``nz_g`` the ``global_nz`` mode of :func:`poisson_rhs_plain`,
-    counted on ``global_nz_launches``."""
+    counted on ``global_nz_launches``; with ``ny_g`` the global-row mode
+    on the owned window, counted on ``global_ny_launches``."""
     if native.on_cpu(us):
-        return poisson_rhs_plain(us, vs, ws, rod, c, z_base, nz_g)
+        return poisson_rhs_plain(us, vs, ws, rod, c, z_base, nz_g, y_base,
+                                 ny_g, halo)
     _check(c, (us, vs, ws), (rod,))
-    rhs = torch.empty_like(us)
-    _launch_input(us, vs, ws, us, rhs, rod, c, 1, _z_args(c, z_base, nz_g))
-    native.count_launch(poisson_rhs, _counter(c, nz_g))
+    y_args = _y_args(c, y_base, ny_g, halo)
+    rhs = us.new_empty(_window_shape(c, halo))
+    _launch_input(us, vs, ws, us, rhs, rod, c, 1, _z_args(c, z_base, nz_g),
+                  y_args)
+    native.count_launch(poisson_rhs, _counter(c, nz_g, ny_g))
     return rhs
 
 
@@ -531,7 +651,67 @@ def corrector(us, vs, ws, p, s, c: StencilConsts):
     return u, v, w, red[0], red[1], red[2]
 
 
-native.reset_counts(predictor_star, poisson_input, poisson_rhs, corrector)
+def corrector_rows_plain(us, vs, ws, p, s, c: StencilConsts, z_base: int,
+                         nz_g: int, y_base: int, ny_g: int):
+    """The global-row corrector (A5 ``corr_u/v/w`` with ``global_ny``,
+    `projection_kernels.py:516-547`): ``p`` a (z, y)-decomposed shard's
+    block padded one plane and one row a side (``c`` its constants, local
+    (k, j) the global plane ``z_base + k`` and row ``y_base + j``), u*,
+    v*, w* a block around the same owned window padded hs ≥ 1 a side.
+    Returns (u, v, w, p) on the owned window — u = clamp(u* − s∇p) at the
+    global interior, u* on the global shells an edge shard owns — and
+    max|u|², max p, max|p| over every owned point."""
+    _no_rows_consistent(c, ny_g)
+    hs = (us.shape[0] - (c.nz - 2)) // 2
+    if hs < 1:
+        raise ValueError("the corrector's u*, v*, w* need a halo of >= 1")
+    usb, vsb, wsb = (_window(f, hs - 1) for f in (us, vs, ws))
+    gx, gy = ddx(p, c.inv_2dx), ddy(p, c.inv_2dy)
+    dpz = p[2:, 1:-1, 1:-1] - p[:-2, 1:-1, 1:-1]
+    u = set_interior(usb, clamp(interior(usb) - s * gx, CLAMP))
+    v = set_interior(vsb, clamp(interior(vsb) - s * gy, CLAMP))
+    w = set_interior(wsb, clamp(interior(wsb) - (s * dpz) * c.inv_2dz,
+                                CLAMP))
+    u, v, w = (_window(_keep_global_shells(f, fs, c, z_base, nz_g, y_base,
+                                           ny_g), 1)
+               for f, fs in ((u, usb), (v, vsb), (w, wsb)))
+    po = _window(p, 1)
+    m2 = torch.amax((u * u + v * v) + w * w)
+    return u, v, w, po, m2, torch.amax(po), torch.amax(torch.abs(po))
+
+
+def corrector_rows(us, vs, ws, p, s, c: StencilConsts, z_base: int,
+                   nz_g: int, y_base: int, ny_g: int):
+    """(u, v, w, p, max|u|², max p, max|p|) on the owned window —
+    ``corrector_kernel<false, true>`` plus ``reduce_max3_kernel`` on
+    CUDA, counted on ``global_ny_launches``; :func:`corrector_rows_plain`
+    on the CPU.  ``s`` = dt/ρ, 0-d."""
+    if native.on_cpu(us):
+        return corrector_rows_plain(us, vs, ws, p, s, c, z_base, nz_g,
+                                    y_base, ny_g)
+    _no_rows_consistent(c, ny_g)
+    _check(c, (p,), (s,))
+    own = _window_shape(c, 1)
+    hs = (us.shape[0] - own[0]) // 2
+    star = (own[0] + 2 * hs, own[1] + 2 * hs, own[2])
+    native.check_cuda(us, vs, ws, p)
+    if hs < 1 or any(tuple(f.shape) != star for f in (us, vs, ws)):
+        raise ValueError(f"expected u*, v*, w* padded >= 1 around the owned "
+                         f"window {own}, got {tuple(us.shape)}")
+    u, v, w, po = (us.new_empty(own) for _ in range(4))
+    n_part = native.library().cfd_corrector_partials(*own)
+    partials = us.new_empty(3 * n_part)
+    red = us.new_empty(3)
+    native.launch("cfd_corrector_rows", us.device, *map(native.ptr, (
+        us, vs, ws, p, u, v, w, po, s, partials, red)), c.nz, c.ny, c.nx,
+        c.inv_2dx, c.inv_2dy, c.inv_2dz, int(z_base), int(nz_g),
+        int(y_base), int(ny_g), hs)
+    native.count_launch(corrector_rows, "global_ny")
+    return u, v, w, po, red[0], red[1], red[2]
+
+
+native.reset_counts(predictor_star, poisson_input, poisson_rhs, corrector,
+                    corrector_rows)
 
 # every wrapper that launches a kernel on the main path (plane_dot counts
 # its SGEMM launches), for counters
@@ -549,7 +729,7 @@ WRAPPERS_RHS = (predictor_star, poisson_rhs, corrector)
 
 def reset_launch_counts() -> None:
     native.reset_counts(predictor_star, poisson_input, poisson_rhs,
-                        corrector)
+                        corrector, corrector_rows)
     for fn in WRAPPERS + WRAPPERS_HIGH:
         fn.launches = 0
     rolling.reset_launch_counts()

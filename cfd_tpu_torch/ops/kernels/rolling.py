@@ -222,10 +222,24 @@ def left_dot(left: torch.Tensor, x: torch.Tensor, out=None,
              precision: str = "highest") -> torch.Tensor:
     """``left · x`` for a contiguous (m, k) ``left`` and a (k, n) ``x``
     whose rows are contiguous (a column slice of a wider matrix will do);
-    written into ``out`` (an (m, n) row view, in place) when given."""
+    written into ``out`` (an (m, n) row view, in place) when given.  A
+    contiguous (b, k, n) ``x`` is a batch: ``left · x[q]`` for every q
+    into a new (b, m, n) tensor, one launch (``left`` shared, as
+    `plane_dot`'s second product)."""
     _check_precision(precision)
     if native.on_cpu(x):
         return left_dot_plain(left, x, out, precision)
+    if x.dim() == 3:
+        (m, k), (b, _, n) = left.shape, x.shape
+        native.check_cuda(left, x)
+        if x.shape[1] != k or out is not None:
+            raise ValueError(f"left_dot: {tuple(left.shape)} · "
+                             f"{tuple(x.shape)}")
+        out = x.new_empty((b, m, n))
+        _gemm(left_dot, precision, x.device, m, n, k,
+              native.ptr(left), k, 0, native.ptr(x), n, k * n,
+              native.ptr(out), n, m * n, b)
+        return out
     (m, k), n = left.shape, x.shape[1]
     if out is None:
         out = torch.empty((m, n), dtype=x.dtype, device=x.device)

@@ -175,15 +175,23 @@ def interior_mask(shape, dtype=torch.float32, device=None):
     return m
 
 
-def global_interior_mask(shape, z_base: int, nz_g: int, device=None):
+def global_interior_mask(shape, z_base: int, nz_g: int, device=None,
+                         y_base: int = 0, ny_g: int = None):
     """The interior of a z-decomposed shard's block as a bool tensor: the
     in-plane interior of the planes whose global index ``z_base + k``
     lies in 1..nz_g − 2 (the global Dirichlet-0 correction space of the
-    sharded Krylov passes)."""
+    sharded Krylov passes).  With ``ny_g`` (a (z, y)-decomposed shard's
+    block) the rows are global too: row j is in where ``y_base + j`` lies
+    in 1..ny_g − 2."""
     nz, ny, nx = shape
     kg = z_base + torch.arange(nz, device=device)
     m = torch.zeros(shape, dtype=torch.bool, device=device)
-    m[:, 1:-1, 1:-1] = ((kg > 0) & (kg < nz_g - 1))[:, None, None]
+    zin = ((kg > 0) & (kg < nz_g - 1))[:, None, None]
+    if ny_g is None:
+        m[:, 1:-1, 1:-1] = zin
+        return m
+    jg = y_base + torch.arange(ny, device=device)
+    m[:, :, 1:-1] = zin & ((jg > 0) & (jg < ny_g - 1))[None, :, None]
     return m
 
 

@@ -1,6 +1,7 @@
 """Domain decomposition (counterpart of `cfd_tpu/parallel/`): meshes,
 shard communicators, the z-decomposed projection steps (spectral, CG,
-BiCGSTAB) and the sharded Krylov solves."""
+BiCGSTAB), the (z, y)-decomposed ones (spectral, CG) and the sharded
+Krylov solves."""
 
 from .comm import LocalComm, ProcessGroupComm
 from .fused_bicgstab import (bicgstab_fused_sharded_unsupported_reason,

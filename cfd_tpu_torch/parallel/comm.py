@@ -4,10 +4,14 @@
 max-reductions GSPMD inserts for the diagnostics.
 
 A sharded step is written bulk-synchronously over the shards this process
-holds (``comm.shards``, their global indices along the z ring, and
-``comm.devices``): a *local stage* is a loop over those shards, a
-*collective* takes one tensor per local shard and returns one per local
-shard.  So the same step runs on both implementations:
+holds (``comm.shards``, their flat indices, and ``comm.devices``): a
+*local stage* is a loop over those shards, a *collective* takes one
+tensor per local shard and returns one per local shard.  The shards lie
+in C order on a ``(Pz, Py)`` grid (``comm.shape``, set once by the mesh
+with :meth:`set_shape`; ``(size, 1)`` until then): shard ``zi·Py + yi``
+sits at ``comm.coords(s) = (zi, yi)``.  A communicator serves one grid:
+a second mesh over it must have the same one, or ``set_shape`` raises.
+So the same step runs on both implementations:
 
 * :class:`LocalComm` — P shards in one process, on a list of devices (on
   one card all of them ``cuda:0``; on the CPU ``cpu``).  Collectives are
@@ -22,22 +26,33 @@ shard.  So the same step runs on both implementations:
   (NCCL's and gloo's max drop NaN, and a NaN must still fail the step's
   finiteness check).
 
-The collectives:
+The collectives along one mesh axis (``axis`` "z", the default, exchanges
+along dim 0 with the shards ``(zi ± 1, yi)``; "y" along dim 1 with
+``(zi, yi ± 1)``, the reference's ``'z'`` and ``'y'`` ppermute rings and
+``all_to_all`` groups, `fused.py:718-786`):
 
-* ``halo(blocks, n)`` — each shard's ``(lo, hi)``: the last ``n`` planes
-  (dim 0) of its left neighbour and the first ``n`` of its right one; an
-  edge shard receives zero planes where it has no neighbour (the
-  reference's ``fwd``/``bwd`` ppermute pairs, no wrap, `fused.py:488-512`);
-* ``all_to_all(blocks, split_axis, concat_axis)`` — the tiled transpose:
-  shard j receives the j-th chunk (along ``split_axis``) of every shard's
-  block, concatenated in shard order along ``concat_axis``;
-* ``fill_halo(bufs, n)`` — the same exchange into persistent buffers:
-  each shard's buffer holds ``n`` halo planes a side around its owned
-  planes, and its halo planes are overwritten with its neighbours' owned
-  edge planes; an edge shard's outer halo planes are left as they are
-  (the Krylov solves allocate them zero once and copy only halo planes
-  each iteration, where ``halo`` and a concatenation would copy the
-  whole block);
+* ``halo(blocks, n, axis)`` — each shard's ``(lo, hi)``: the last ``n``
+  planes (rows) of its left neighbour and the first ``n`` of its right
+  one; an edge shard receives zeros where it has no neighbour (the
+  reference's ``fwd``/``bwd`` ppermute pairs, no wrap, `fused.py:488-512`).
+  To pad a (z, y) block with its corners, pad y first and then z: the
+  exchanged planes carry their y-halo rows, so the corners arrive from
+  the diagonal shard in two hops (the reference's ``hpad(ypad(x))``);
+* ``all_to_all(blocks, split_axis, concat_axis, axis)`` — the tiled
+  transpose within the group of shards that share the other coordinate:
+  the shard at position j of its group receives the j-th chunk (along
+  ``split_axis``) of every group member's block, concatenated in group
+  order along ``concat_axis``;
+* ``fill_halo(bufs, n, axis)`` — the same exchange into persistent
+  buffers: each shard's buffer holds ``n`` halo planes (rows) a side
+  around its owned ones, and those are overwritten with its neighbours'
+  owned edge planes (rows); an edge shard's outer halo is left as it is
+  (the Krylov solves allocate it zero once and copy only halo planes each
+  iteration, where ``halo`` and a concatenation would copy the whole
+  block).  On a buffer padded along both axes fill "y" first, then "z";
+
+and over every shard:
+
 * ``max(values)`` — the element-wise maximum over all shards, NaN
   propagating (as ``torch.maximum``);
 * ``sum(values)`` — the element-wise sum over all shards (the Krylov
@@ -47,14 +62,97 @@ The collectives:
   BiCGSTAB dots stay float64 through it);
 * ``gather(blocks, device)`` — every shard's block, in shard order, on
   ``device`` (the placement helpers' read-back, not the step's).
+
+`ProcessGroupComm` runs the per-axis ``all_to_all`` on one sub-group per
+row and per column of the grid, made when the grid is set
+(``dist.new_group``, which every rank of the world enters, in the same
+order: so a grid with Pz > 1 and Py > 1 needs a communicator over the
+whole world, and ``make_mesh`` is called on every rank).
 """
 
 from __future__ import annotations
 
 import torch
 
+#: the field dimension each mesh axis splits
+AXIS_DIM = {"z": 0, "y": 1}
 
-class LocalComm:
+
+class _Grid:
+    """The shards' (Pz, Py) layout, C order: what both communicators
+    share."""
+
+    size: int
+    _shape = None
+
+    @property
+    def shape(self) -> tuple:
+        """(Pz, Py): as set by :meth:`set_shape`, else one z ring."""
+        return self._shape or (self.size, 1)
+
+    def set_shape(self, shape) -> None:
+        """Lay the shards out on a (Pz, Py) grid (Pz·Py = size), once: the
+        same grid again is a no-op, another one raises (a mesh built
+        earlier over this communicator would exchange with the wrong
+        shards)."""
+        pz, py = (int(n) for n in shape)
+        if self._shape is not None:
+            if (pz, py) != self._shape:
+                raise ValueError(
+                    f"the communicator is laid out as {self._shape}, not "
+                    f"({pz}, {py}): build one communicator per mesh grid")
+            return
+        if pz * py != self.size:
+            raise ValueError(f"a {pz}x{py} grid of shards needs {pz * py} "
+                             f"shards, the communicator spans {self.size}")
+        self._shape = (pz, py)
+        try:
+            self._laid_out()
+        except Exception:
+            self._shape = None
+            raise
+
+    def _laid_out(self) -> None:
+        """Called once, when the grid is set."""
+
+    def coords(self, s: int):
+        """(zi, yi) of shard ``s``."""
+        return divmod(int(s), self.shape[1])
+
+    def neighbour(self, s: int, axis: str, step: int):
+        """The shard ``step`` (±1) away from ``s`` along ``axis``, or None
+        past the grid's edge (no wrap)."""
+        zi, yi = self.coords(s)
+        if axis == "z":
+            zi += step
+        elif axis == "y":
+            yi += step
+        else:
+            raise ValueError(f"unknown mesh axis {axis!r}")
+        if not (0 <= zi < self.shape[0] and 0 <= yi < self.shape[1]):
+            return None
+        return zi * self.shape[1] + yi
+
+    def axis_group(self, s: int, axis: str):
+        """The shards that share ``s``'s other coordinate, in order along
+        ``axis``."""
+        zi, yi = self.coords(s)
+        pz, py = self.shape
+        if axis == "z":
+            return [z * py + yi for z in range(pz)]
+        if axis == "y":
+            return [zi * py + y for y in range(py)]
+        raise ValueError(f"unknown mesh axis {axis!r}")
+
+
+def _edge(t, dim: int, lo: bool, n: int, skip: int = 0):
+    """``n`` planes (rows) of ``t`` along ``dim``: from the low end, or
+    the high one, ``skip`` in from it."""
+    m = t.shape[dim]
+    return t.narrow(dim, skip if lo else m - skip - n, n)
+
+
+class LocalComm(_Grid):
     """P shards held in this process, shard s on ``devices[s]``."""
 
     def __init__(self, devices):
@@ -64,27 +162,41 @@ class LocalComm:
         self.size = len(self.devices)
         self.shards = list(range(self.size))
 
-    def halo(self, blocks, n: int):
+    def halo(self, blocks, n: int, axis: str = "z"):
+        dim = AXIS_DIM[axis]
         out = []
         for s, (b, dev) in enumerate(zip(blocks, self.devices)):
-            lo = (blocks[s - 1][-n:].to(dev) if s > 0
-                  else torch.zeros_like(b[:n]))
-            hi = (blocks[s + 1][:n].to(dev) if s < self.size - 1
-                  else torch.zeros_like(b[:n]))
+            left, right = (self.neighbour(s, axis, d) for d in (-1, 1))
+            lo = (_edge(blocks[left], dim, False, n).to(dev)
+                  if left is not None
+                  else torch.zeros_like(_edge(b, dim, True, n)))
+            hi = (_edge(blocks[right], dim, True, n).to(dev)
+                  if right is not None
+                  else torch.zeros_like(_edge(b, dim, True, n)))
             out.append((lo, hi))
         return out
 
-    def all_to_all(self, blocks, split_axis: int, concat_axis: int):
-        chunks = [b.chunk(self.size, dim=split_axis) for b in blocks]
-        return [torch.cat([c[j].to(dev) for c in chunks], dim=concat_axis)
-                for j, dev in enumerate(self.devices)]
+    def all_to_all(self, blocks, split_axis: int, concat_axis: int,
+                   axis: str = "z"):
+        out = []
+        for s, dev in enumerate(self.devices):
+            members = self.axis_group(s, axis)
+            j = members.index(s)
+            out.append(torch.cat(
+                [blocks[g].chunk(len(members), dim=split_axis)[j].to(dev)
+                 for g in members], dim=concat_axis))
+        return out
 
-    def fill_halo(self, bufs, n: int):
+    def fill_halo(self, bufs, n: int, axis: str = "z"):
+        dim = AXIS_DIM[axis]
         for s, b in enumerate(bufs):
-            if s > 0:
-                b[:n].copy_(bufs[s - 1][-2 * n:-n])
-            if s < self.size - 1:
-                b[-n:].copy_(bufs[s + 1][n:2 * n])
+            left, right = (self.neighbour(s, axis, d) for d in (-1, 1))
+            if left is not None:
+                _edge(b, dim, True, n).copy_(
+                    _edge(bufs[left], dim, False, n, n))
+            if right is not None:
+                _edge(b, dim, False, n).copy_(
+                    _edge(bufs[right], dim, True, n, n))
 
     def max(self, values):
         total = values[0]
@@ -102,7 +214,7 @@ class LocalComm:
         return [b.to(device) for b in blocks]
 
 
-class ProcessGroupComm:
+class ProcessGroupComm(_Grid):
     """One shard per rank of ``group`` (default: the world), on
     ``device`` (default: ``cuda:<local rank>`` on an NCCL group, the CPU
     on a gloo one).  The group is initialised by the caller
@@ -122,6 +234,39 @@ class ProcessGroupComm:
                 device = torch.device("cuda", torch.cuda.current_device())
         self.devices = [torch.device(device)]
         self.shards = [self.rank]
+        # the one z ring until a grid is set
+        self._axis_groups = {"z": group}
+
+    def _laid_out(self) -> None:
+        """The ``all_to_all`` group of this rank along each axis: the
+        whole group where an axis spans it, none where it spans one
+        shard, else a sub-group — every row's and column's made on every
+        rank, in one order (``dist.new_group`` is entered by every rank
+        of the world, so those need the group to be the world)."""
+        if (1 < self.shape[0] < self.size
+                and self._dist.get_world_size() != self.size):
+            raise ValueError(
+                f"a {self.shape} grid needs row and column groups, made on "
+                f"every rank of the world: its communicator must span the "
+                f"world ({self._dist.get_world_size()} ranks), not "
+                f"{self.size}")
+        self._axis_groups = {}
+        for axis in AXIS_DIM:
+            seen = set()
+            for s in range(self.size):
+                members = tuple(self.axis_group(s, axis))
+                if members in seen:
+                    continue
+                seen.add(members)
+                if len(members) == self.size:
+                    g = self.group
+                elif len(members) == 1:
+                    g = None
+                else:
+                    g = self._dist.new_group(
+                        [self._peer(r) for r in members])
+                if self.rank in members:
+                    self._axis_groups[axis] = g
 
     def _peer(self, r: int) -> int:
         """The global rank of group rank ``r`` (P2POp takes global ranks)."""
@@ -129,47 +274,66 @@ class ProcessGroupComm:
             return r
         return self._dist.get_global_rank(self.group, r)
 
-    def halo(self, blocks, n: int):
+    def _exchange(self, sends, recvs):
+        """P2P pairs: ``sends`` / ``recvs`` lists of (tensor, group
+        rank); receives into non-contiguous views go through a buffer."""
         dist = self._dist
-        (b,) = blocks
-        lo, hi = torch.zeros_like(b[:n]), torch.zeros_like(b[:n])
-        ops = []
-        if self.rank > 0:
-            left = self._peer(self.rank - 1)
-            ops += [dist.P2POp(dist.isend, b[:n].contiguous(), left,
-                               self.group),
-                    dist.P2POp(dist.irecv, lo, left, self.group)]
-        if self.rank < self.size - 1:
-            right = self._peer(self.rank + 1)
-            ops += [dist.P2POp(dist.isend, b[-n:].contiguous(), right,
-                               self.group),
-                    dist.P2POp(dist.irecv, hi, right, self.group)]
+        ops, back = [], []
+        for t, r in sends:
+            ops.append(dist.P2POp(dist.isend, t.contiguous(), self._peer(r),
+                                  self.group))
+        for t, r in recvs:
+            buf = t if t.is_contiguous() else torch.empty_like(
+                t, memory_format=torch.contiguous_format)
+            ops.append(dist.P2POp(dist.irecv, buf, self._peer(r),
+                                  self.group))
+            if buf is not t:
+                back.append((t, buf))
         if ops:
             for req in dist.batch_isend_irecv(ops):
                 req.wait()
+        for t, buf in back:
+            t.copy_(buf)
+
+    def halo(self, blocks, n: int, axis: str = "z"):
+        dim = AXIS_DIM[axis]
+        (b,) = blocks
+        lo = torch.zeros_like(_edge(b, dim, True, n),
+                              memory_format=torch.contiguous_format)
+        hi = torch.zeros_like(lo)
+        left, right = (self.neighbour(self.rank, axis, d) for d in (-1, 1))
+        sends, recvs = [], []
+        if left is not None:
+            sends.append((_edge(b, dim, True, n), left))
+            recvs.append((lo, left))
+        if right is not None:
+            sends.append((_edge(b, dim, False, n), right))
+            recvs.append((hi, right))
+        self._exchange(sends, recvs)
         return [(lo, hi)]
 
-    def fill_halo(self, bufs, n: int):
-        dist = self._dist
+    def fill_halo(self, bufs, n: int, axis: str = "z"):
+        dim = AXIS_DIM[axis]
         (b,) = bufs
-        ops = []
-        if self.rank > 0:
-            left = self._peer(self.rank - 1)
-            ops += [dist.P2POp(dist.isend, b[n:2 * n], left, self.group),
-                    dist.P2POp(dist.irecv, b[:n], left, self.group)]
-        if self.rank < self.size - 1:
-            right = self._peer(self.rank + 1)
-            ops += [dist.P2POp(dist.isend, b[-2 * n:-n], right, self.group),
-                    dist.P2POp(dist.irecv, b[-n:], right, self.group)]
-        if ops:
-            for req in dist.batch_isend_irecv(ops):
-                req.wait()
+        left, right = (self.neighbour(self.rank, axis, d) for d in (-1, 1))
+        sends, recvs = [], []
+        if left is not None:
+            sends.append((_edge(b, dim, True, n, n), left))
+            recvs.append((_edge(b, dim, True, n), left))
+        if right is not None:
+            sends.append((_edge(b, dim, False, n, n), right))
+            recvs.append((_edge(b, dim, False, n), right))
+        self._exchange(sends, recvs)
 
-    def all_to_all(self, blocks, split_axis: int, concat_axis: int):
+    def all_to_all(self, blocks, split_axis: int, concat_axis: int,
+                   axis: str = "z"):
         (b,) = blocks
-        ins = [c.contiguous() for c in b.chunk(self.size, dim=split_axis)]
+        members = self.axis_group(self.rank, axis)
+        if len(members) == 1:
+            return [b]
+        ins = [c.contiguous() for c in b.chunk(len(members), dim=split_axis)]
         outs = [torch.empty_like(c) for c in ins]
-        self._dist.all_to_all(outs, ins, group=self.group)
+        self._dist.all_to_all(outs, ins, group=self._axis_groups[axis])
         return [torch.cat(outs, dim=concat_axis)]
 
     def max(self, values):

@@ -1,7 +1,9 @@
-"""The z-decomposed projection steps (counterpart of
+"""The z- and (z, y)-decomposed projection steps (counterpart of
 `cfd_tpu/parallel/fused.py`: the uniform z-mesh FFT_DIRECT DST-fused
 variant `local_step_dst`, `:524-557`, the CG / BiCGSTAB variant
-`local_step`, `:559-610`, and their step wrapper, `:612-645`).
+`local_step`, `:559-610`, and their step wrapper, `:612-645`; on a
+(Pz, Py) mesh with Py > 1, `_make_fused_sharded_projection_zy_step`,
+`:647-938`).
 
 Fields are split along z over the mesh's ``'z'`` axis; x and y stay whole,
 so every in-plane kernel is the single-device one.  Each shard, with
@@ -51,6 +53,41 @@ concatenation (a copy of each padded field a step).  ``plain=True`` (and
 any dtype but float32, `solvers.ns.common.runs_plain`) runs the same chain
 on the plain versions.
 
+On a (Pz, Py) mesh with Py > 1 (the default `mesh.make_mesh()` of 2, 4, 6
+or 8 cards; Pz = 1 too) each shard owns a (nz/Pz, ny/Py, nx) block at
+global plane ``z_off`` and row ``y_off``, and the step is the reference's
+(z, y) step in its two variants:
+
+1. u, v, w padded two rows a side (``comm.halo(·, 2, "y")``), then two
+   planes a side of the y-padded block (the z ring carries the corners,
+   the reference's ``hpad2(ypad(·))``); the predictor on that block in
+   its global-row mode (``predictor_star(..., z_off − 2, nz, y_off − 2,
+   ny)``): the global z- and y-shells, and the halo past them, pass
+   through.  Two rows, not the reference's four (the TPU's 8-row
+   sublanes): b̃ reads v* at the owned rows ± 1, whose stencil reads the
+   rows ± 2;
+2. FFT_DIRECT (the DST-fused variant, `:806-847`): b̃ on the owned
+   window of that block (``poisson_input(..., halo=2)``: the y face term
+   on the global rows 1 and ny − 2, zero global shells) into an
+   owned-size block, its forward **x-only** DST (``rolling.right_dot``
+   with FxT; rows are split, so only x is row-local), the y/z solve
+   (`solvers.poisson.spectral.make_dst_fused_sharded_zy_pieces`: four
+   per-axis ``all_to_all``s around the dense z stage and the y stage),
+   x̂ padded one row, then one plane, in x-transform space, its inverse x
+   DST (``right_dot`` with GxT, the mirror shells already in place) and
+   the corrector on the owned window of that p block
+   (``corrector_rows``: u*, v*, w* read from the predictor's block,
+   global shells passed through, the maxima over every owned point,
+   folded with ``comm.max``);
+3. CG (the per-component variant, `:849-905`): the rhs on the owned
+   window (``poisson_rhs(..., halo=2)``), the (z, y) CG
+   (`fused_cg`, its K1 and K2 in their (z, y) modes), and the corrector
+   on the solved p padded one row and one plane.
+
+The y/z solve's dense z stage follows the reference (not the z-only
+step's Thomas solve), so the (z, y) FFT_DIRECT step equals the
+single-device step to rounding, not bit for bit.
+
 Every configuration outside this slice raises ``CFDError(
 ERROR_UNSUPPORTED)`` with the reference's reason or "… is not ported yet";
 nothing is sent to another path.
@@ -72,19 +109,12 @@ from ..solvers.ns.params import NSParams
 from ..solvers.ns.projection import is_consistent
 from ..solvers.poisson.base import Method, PoissonParams, PoissonProblem
 from ..solvers.poisson.spectral import (dst_fused_sharded_supported,
-                                        make_dst_fused_sharded_pieces)
+                                        dst_fused_sharded_zy_supported,
+                                        make_dst_fused_sharded_pieces,
+                                        make_dst_fused_sharded_zy_pieces)
 from .fused_bicgstab import make_bicgstab_fused_sharded_local
 from .fused_cg import make_cg_fused_sharded_local
 from .mesh import Mesh, ShardedField, mesh_zy_sizes
-
-
-def _mesh_z_size(mesh: Mesh):
-    """Shard count along 'z' if the mesh is z-only (other axes size 1)."""
-    if "z" not in mesh.axis_names:
-        return None
-    if any(n != "z" and mesh.shape[n] != 1 for n in mesh.axis_names):
-        return None
-    return mesh.shape["z"]
 
 
 def _not_ported(what: str) -> str:
@@ -98,10 +128,15 @@ def fused_sharded_unsupported_reason(grid: Grid, params: NSParams,
     The dtype is no reason: float64 runs the same chain on the plain
     versions.  The y-pencil divisibility of the spectral solve applies
     to ``FFT_DIRECT`` (the default) only."""
+    sizes = mesh_zy_sizes(mesh)
+    zy = sizes is not None and sizes[1] > 1
     if params.source_func is not None:
         return _not_ported("custom source callables use the jnp path, "
                            "which")
     if is_consistent(grid, params):
+        if zy and grid.nz > 2:
+            return ("consistent-scheme fused sharded projection needs a "
+                    "z-only mesh")
         return _not_ported("the consistent-scheme fused sharded projection")
     if params.energy_enabled or params.buoyancy_enabled:
         return _not_ported("the energy equation and buoyancy on the "
@@ -116,10 +151,26 @@ def fused_sharded_unsupported_reason(grid: Grid, params: NSParams,
     if grid.nz % pz != 0 or grid.nz // pz < 2:
         return (f"nz={grid.nz} must be divisible by {pz} shards with >= 2 "
                 "planes per shard")
+    method = (Method.FFT_DIRECT if poisson_method is None
+              else Method(poisson_method))
     if py > 1:
-        return _not_ported("the (z, y)-mesh fused sharded projection")
-    if poisson_method is not None and Method(poisson_method) in (
-            Method.CG, Method.BICGSTAB):
+        if "y" in mesh.axis_names and (mesh.axis_names.index("y")
+                                       < mesh.axis_names.index("z")):
+            return _not_ported("a mesh with its 'y' axis before 'z'")
+        if grid.ny % py != 0 or grid.ny // py < 2:
+            return (f"ny={grid.ny} must be divisible by {py} y-shards with "
+                    ">= 2 rows per shard")
+        if method == Method.BICGSTAB:
+            return _not_ported("the (z, y)-mesh fused sharded BiCGSTAB")
+        if method != Method.FFT_DIRECT:
+            return None
+        problem = PoissonProblem(grid.nx, grid.ny, grid.nz, grid.dx0,
+                                 grid.dy0, grid.dz0)
+        if not dst_fused_sharded_zy_supported(problem, pz, py):
+            return _not_ported(f"the two-axis pencil DST path (nx={grid.nx} "
+                               f"not divisible by {pz} z-shards)")
+        return None
+    if method in (Method.CG, Method.BICGSTAB):
         return None
     problem = PoissonProblem(grid.nx, grid.ny, grid.nz, grid.dx0, grid.dy0,
                              grid.dz0)
@@ -179,14 +230,18 @@ def make_fused_sharded_projection_step(grid: Grid, params: NSParams,
                       else torch.get_default_dtype())
     plain = runs_plain(dtype, plain)
     nz, ny, nx = grid.shape
-    P = _mesh_z_size(mesh)
-    nzl = nz // P
     problem = PoissonProblem(nx, ny, nz, grid.dx0, grid.dy0, grid.dz0)
     with_sources = (params.source_amplitude_u != 0.0
                     or params.source_amplitude_v != 0.0)
     consts = pkm.stencil_consts(nz, ny, nx, grid.dx0, grid.dy0, grid.dz0,
                                 grid.xmin, grid.ymin, params.mu,
                                 with_sources, params, dtype)
+    precision = _PRECISIONS[spectral_precision]
+    P, py = mesh_zy_sizes(mesh)
+    if py > 1:
+        return _make_zy_step(problem, params, mesh, consts, dtype, method,
+                             poisson_params, precision, plain)
+    nzl = nz // P
     if method == Method.FFT_DIRECT:
         mats, zsolve = make_dst_fused_sharded_pieces(problem, P, comm, dtype,
                                                      plain=plain)
@@ -196,7 +251,6 @@ def make_fused_sharded_projection_step(grid: Grid, params: NSParams,
                  else make_bicgstab_fused_sharded_local)
         pressure = maker(problem, poisson_params or PoissonParams(), comm,
                          dtype, plain=plain)
-    precision = _PRECISIONS[spectral_precision]
     if plain:
         star, b_in = pkm.predictor_star_plain, pkm.poisson_input_plain
         rhs_of = pkm.poisson_rhs_plain
@@ -211,8 +265,7 @@ def make_fused_sharded_projection_step(grid: Grid, params: NSParams,
         return dataclasses.replace(consts, nz=n)
 
     c_pred, c_bt = block(nzl + 4), block(nzl + 2)
-    decay_rate = params.source_decay_rate
-    amp_u, amp_v = params.source_amplitude_u, params.source_amplitude_v
+    scalars = _step_scalars(params, comm, dtype)
 
     def pad(blocks, n):
         """Each block with ``n`` halo planes a side (zeros past the
@@ -220,23 +273,11 @@ def make_fused_sharded_projection_step(grid: Grid, params: NSParams,
         return [torch.cat([lo, b, hi]) for b, (lo, hi) in
                 zip(blocks, comm.halo(blocks, n))]
 
-    def shard_scalars(f, dt, iter_idx, rho0):
-        dt = (dt.to(device=f.device, dtype=dtype) if torch.is_tensor(dt)
-              else torch.full((), dt, dtype=dtype, device=f.device))
-        decay = torch.exp((-decay_rate * iter_idx) * dt)
-        rho0 = torch.where(rho0 < 1e-10, torch.ones_like(rho0), rho0)
-        return dt, amp_u * decay, amp_v * decay, rho0
-
     def predict(field, dt, iter_idx):
         """The shards' step scalars and their predictor blocks (the 2-halo
         block: w* at the owned planes ± 1 without a second exchange)."""
         blocks = field.blocks
-        # ρ₀ is the global field's first point, on shard 0
-        rho0 = comm.max([b.rho[0, 0, 0] if s == 0
-                         else torch.full_like(b.rho[0, 0, 0], -torch.inf)
-                         for s, b in zip(comm.shards, blocks)])
-        scal = [shard_scalars(b, dt, iter_idx, r)
-                for b, r in zip(blocks, rho0)]
+        scal = scalars(blocks, dt, iter_idx)
         u2, v2, w2 = (pad([getattr(b, n) for b in blocks], 2)
                       for n in "uvw")
         stars = [star(uh, vh, wh, torch.stack([dts, su, sv]), c_pred, None,
@@ -278,11 +319,7 @@ def make_fused_sharded_projection_step(grid: Grid, params: NSParams,
             new_blocks.append(nb)
             maxima.append(torch.stack([m2, pmax, pabs,
                                        torch.amax(nb.T)]))
-        m2, pmax, pabs, tmax = comm.max(maxima)[0]
-        finite = torch.isfinite(m2) & torch.isfinite(pabs)
-        return (field.with_blocks(new_blocks),
-                step_result(finite, torch.sqrt(m2), pmax, tmax, residual,
-                            ok))
+        return _fold(field, new_blocks, maxima, comm, residual, ok)
 
     def step_dst(field: ShardedField, dt, iter_idx):
         scal, stars = predict(field, dt, iter_idx)
@@ -311,6 +348,134 @@ def make_fused_sharded_projection_step(grid: Grid, params: NSParams,
         step_krylov.last_poisson = res[0]
         ps = [r.x for r in res]
         return correct(field, halo_block(ps, comm.halo(ps, 1)), stars, scal,
+                       res[0].final_residual, res[0].status == 0)
+
+    return step_dst if pressure is None else step_krylov
+
+
+def _step_scalars(params: NSParams, comm, dtype):
+    """``scalars(blocks, dt, iter_idx)``: each local shard's (dt, su, sv,
+    ρ₀) on its device — ρ₀ the global field's first point, on shard 0,
+    replicated with ``comm.max`` (1 where it is below 1e-10), the source
+    amplitudes with their decay (`fused.py:612-645`)."""
+    decay_rate = params.source_decay_rate
+    amp_u, amp_v = params.source_amplitude_u, params.source_amplitude_v
+
+    def shard_scalars(f, dt, iter_idx, rho0):
+        dt = (dt.to(device=f.device, dtype=dtype) if torch.is_tensor(dt)
+              else torch.full((), dt, dtype=dtype, device=f.device))
+        decay = torch.exp((-decay_rate * iter_idx) * dt)
+        rho0 = torch.where(rho0 < 1e-10, torch.ones_like(rho0), rho0)
+        return dt, amp_u * decay, amp_v * decay, rho0
+
+    def scalars(blocks, dt, iter_idx):
+        rho0 = comm.max([b.rho[0, 0, 0] if s == 0
+                         else torch.full_like(b.rho[0, 0, 0], -torch.inf)
+                         for s, b in zip(comm.shards, blocks)])
+        return [shard_scalars(b, dt, iter_idx, r)
+                for b, r in zip(blocks, rho0)]
+
+    return scalars
+
+
+def _fold(field: ShardedField, new_blocks, maxima, comm, residual=None,
+          ok=None):
+    """The new field and its StepResult: the shards' maxima (each a
+    stacked max|u|², max p, max|p|, max T) folded with ``comm.max``."""
+    m2, pmax, pabs, tmax = comm.max(maxima)[0]
+    finite = torch.isfinite(m2) & torch.isfinite(pabs)
+    return (field.with_blocks(new_blocks),
+            step_result(finite, torch.sqrt(m2), pmax, tmax, residual, ok))
+
+
+def _make_zy_step(problem: PoissonProblem, params: NSParams, mesh: Mesh,
+                  consts, dtype, method, poisson_params, precision: str,
+                  plain: bool):
+    """The step on a (Pz, Py) mesh with Py > 1 (`fused.py:647-938`): the
+    FFT_DIRECT DST-fused variant or the CG per-component one, as the
+    module's docstring sets out."""
+    comm = mesh.comm
+    pz, py = comm.shape
+    nz, ny, nx = problem.nz, problem.ny, problem.nx
+    nzl, nyl = nz // pz, ny // py
+    halo = 2                    # the predictor block's planes and rows
+    offs = [(zi * nzl, yi * nyl) for zi, yi in map(comm.coords,
+                                                     comm.shards)]
+    c_pred = dataclasses.replace(consts, nz=nzl + 2 * halo,
+                                 ny=nyl + 2 * halo)
+    c_p = dataclasses.replace(consts, nz=nzl + 2, ny=nyl + 2)
+    if method == Method.FFT_DIRECT:
+        mats, yzsolve = make_dst_fused_sharded_zy_pieces(
+            problem, pz, py, comm, dtype, precision, plain)
+        pressure = None
+    else:
+        pressure = make_cg_fused_sharded_local(
+            problem, poisson_params or PoissonParams(), comm, dtype,
+            plain=plain)
+    if plain:
+        star, b_in = pkm.predictor_star_plain, pkm.poisson_input_plain
+        rhs_of, corr = pkm.poisson_rhs_plain, pkm.corrector_rows_plain
+        right_dot = rolling.right_dot_plain
+    else:
+        star, b_in = pkm.predictor_star, pkm.poisson_input
+        rhs_of, corr = pkm.poisson_rhs, pkm.corrector_rows
+        right_dot = rolling.right_dot
+    scalars = _step_scalars(params, comm, dtype)
+
+    def pad(blocks, n):
+        """Each block with ``n`` halo rows, then ``n`` halo planes, a side
+        (zeros past the global ends; the corners from the diagonal shard
+        in two hops)."""
+        ys = [torch.cat([lo, b, hi], 1) for b, (lo, hi) in
+              zip(blocks, comm.halo(blocks, n, "y"))]
+        return [torch.cat([lo, b, hi]) for b, (lo, hi) in
+                zip(ys, comm.halo(ys, n, "z"))]
+
+    def predict(field, dt, iter_idx):
+        blocks = field.blocks
+        scal = scalars(blocks, dt, iter_idx)
+        u2, v2, w2 = (pad([getattr(b, n) for b in blocks], halo)
+                      for n in "uvw")
+        stars = [star(uh, vh, wh, torch.stack([dts, su, sv]), c_pred, None,
+                      z - halo, nz, y - halo, ny)
+                 for (z, y), uh, vh, wh, (dts, su, sv, _) in zip(
+                     offs, u2, v2, w2, scal)]
+        return scal, stars
+
+    def correct(field, pbs, stars, scal, residual=None, ok=None):
+        """The corrector on the owned window of each shard's p block
+        padded one row and one plane (``pbs``, physical space)."""
+        new_blocks, maxima = [], []
+        for (z, y), b, pb, (us, vs, ws), (dts, _, _, r0) in zip(
+                offs, field.blocks, pbs, stars, scal):
+            u, v, w, p, m2, pmax, pabs = corr(us, vs, ws, pb, dts / r0, c_p,
+                                              z - 1, nz, y - 1, ny)
+            new_blocks.append(b.replace(u=u, v=v, w=w, p=p))
+            maxima.append(torch.stack([m2, pmax, pabs, torch.amax(b.T)]))
+        return _fold(field, new_blocks, maxima, comm, residual, ok)
+
+    def step_dst(field: ShardedField, dt, iter_idx):
+        scal, stars = predict(field, dt, iter_idx)
+        xt = [right_dot(b_in(us, vs, ws, b.p, r0 / dts, c_pred, z - halo,
+                             nz, y - halo, ny, halo), m[0], precision)
+              for (z, y), b, (us, vs, ws), (dts, _, _, r0), m in zip(
+                  offs, field.blocks, stars, scal, mats)]
+        xhat = yzsolve(xt)
+        # x̂ padded in transform space (the y/z solve placed the global
+        # mirror shells), its inverse x DST, then the corrector
+        pbs = [right_dot(xb, m[1], precision)
+               for xb, m in zip(pad(xhat, 1), mats)]
+        return correct(field, pbs, stars, scal)
+
+    def step_krylov(field: ShardedField, dt, iter_idx):
+        scal, stars = predict(field, dt, iter_idx)
+        rhs = [rhs_of(us, vs, ws, r0 / dts, c_pred, z - halo, nz, y - halo,
+                      ny, halo)
+               for (z, y), (us, vs, ws), (dts, _, _, r0) in zip(
+                   offs, stars, scal)]
+        res = pressure([b.p for b in field.blocks], rhs)
+        step_krylov.last_poisson = res[0]
+        return correct(field, pad([r.x for r in res], 1), stars, scal,
                        res[0].final_residual, res[0].status == 0)
 
     return step_dst if pressure is None else step_krylov

@@ -66,8 +66,8 @@ def make_bicgstab_fused_sharded_local(problem: PoissonProblem,
     """The shard-local solve (`fused_bicgstab.py:69-268`):
     ``local_solve(xs, rhss) -> [PoissonResult]``, as
     `fused_cg.make_cg_fused_sharded_local`."""
-    P = comm.size
-    reason = bicgstab_fused_sharded_unsupported_reason(problem, P)
+    P, py = comm.shape
+    reason = bicgstab_fused_sharded_unsupported_reason(problem, P, py=py)
     if reason is not None:
         _unsupported("fused sharded BiCGSTAB", reason)
     if params.preconditioner != Precond.NONE:

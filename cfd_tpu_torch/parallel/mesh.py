@@ -78,23 +78,37 @@ def _cuda_devices():
 
 
 def make_mesh(devices: Optional[Sequence] = None,
-              axes: Tuple[str, ...] = ("z", "y"), comm=None) -> Mesh:
+              axes: Tuple[str, ...] = ("z", "y"), comm=None,
+              shape: Optional[Tuple[int, int]] = None) -> Mesh:
     """A 1D or 2D mesh over ``devices`` (default: every visible CUDA
     device).  ``comm`` defaults to a `comm.LocalComm` over the devices;
     a `comm.ProcessGroupComm` must span as many ranks as there are
-    devices."""
+    devices.  The mesh lays the communicator's shards out on its (Pz,
+    Py) grid (`comm.LocalComm.set_shape`; on a process group that makes
+    the row and column sub-groups, collectively on every rank).  A
+    communicator serves one grid: a second mesh over it with another
+    grid raises, so build a communicator per grid.  A 2D
+    mesh is shaped by `factor_devices` ((1, 2), (2, 2), (2, 3), (2, 4)
+    for 2, 4, 6, 8 devices), or by ``shape`` — e.g. (1, 4), which the
+    reference builds as a ``jax.sharding.Mesh`` by hand."""
     devices = [torch.device(d) for d in
                (devices if devices is not None else _cuda_devices())]
     n = len(devices)
     arr = np.empty(n, dtype=object)
     arr[:] = devices
     if len(axes) != 1:
-        arr = arr.reshape(factor_devices(n))
+        arr = arr.reshape(factor_devices(n) if shape is None else shape)
+    elif shape is not None:
+        raise ValueError("shape is for a 2D mesh")
     comm = LocalComm(devices) if comm is None else comm
     if comm.size != n:
         raise ValueError(f"the communicator spans {comm.size} shards, the "
                          f"mesh {n} devices")
-    return Mesh(arr, tuple(axes), comm)
+    mesh = Mesh(arr, tuple(axes), comm)
+    # the communicator's grid: (Pz, Py) on a mesh over 'z' and / or 'y',
+    # else one ring over every shard
+    comm.set_shape(mesh_zy_sizes(mesh) or (n, 1))
+    return mesh
 
 
 def field_spec(mesh: Mesh, is_3d: bool, shape=None) -> tuple:

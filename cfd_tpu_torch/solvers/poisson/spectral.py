@@ -21,7 +21,10 @@ carries its own Neumann shell.
   factors the projection steps' kernels take (`:413-496`, `:237-307`);
 * :func:`make_dst_fused_sharded_pieces` — the z-decomposed step's
   factors and its cross-shard z-solve (`:499-543`, `:668-702`): two
-  y-pencil ``all_to_all``s around the call-time-μ Thomas solve.
+  y-pencil ``all_to_all``s around the call-time-μ Thomas solve;
+* :func:`make_dst_fused_sharded_zy_pieces` — the (z, y)-decomposed
+  step's x-DST factors and its cross-shard y/z solve (`:545-665`): four
+  per-axis ``all_to_all``s around the dense z stage and the y stage.
 
 The DST and z products run through `ops.kernels.rolling` at the caller's
 precision, ``"highest"`` (IEEE fp32), ``"high"`` (3xTF32) or
@@ -241,6 +244,125 @@ def _make_sharded_zsolve(mu_host, w, nz, ny, nx, P, comm, dtype,
 
     zsolve.mu_rows, zsolve.w = mu_rows, w
     return zsolve
+
+
+# ---- the (z, y)-decomposed DST-fused pieces ---------------------------------
+
+def dst_fused_sharded_zy_supported(problem: PoissonProblem, n_z: int,
+                                   n_y: int) -> bool:
+    """The (z, y)-mesh DST-fused projection applies (counterpart of
+    `spectral.py:545-562`): a 3D problem, nz and ny divisible by the
+    mesh's z and y shard counts with at least two planes and two rows a
+    shard (the predictor's 2-deep halos), and nx divisible by Pz (the
+    x-mode split of the y/z solve's transposes).  The reference's TPU
+    gates (nx % 128, ny % 8, a multiple of 8 rows a shard) are not kept:
+    the port's mode dims equal the grid dims on every grid."""
+    pz, py = int(n_z), int(n_y)
+    return (tdma_z_supported(problem) and pz >= 1 and py >= 1
+            and problem.nz % pz == 0 and problem.ny % py == 0
+            and problem.nz // pz >= 2 and problem.ny // py >= 2
+            and problem.nx % pz == 0)
+
+
+def make_dst_fused_sharded_zy_pieces(problem: PoissonProblem, n_z: int,
+                                     n_y: int, comm, dtype=None,
+                                     precision: str = "highest",
+                                     plain: bool = False):
+    """(z, y)-mesh twin of :func:`make_dst_fused_sharded_pieces`
+    (`spectral.py:565-665`) for the shards ``comm`` holds on its (Pz, Py)
+    grid.  Under y decomposition only the x DST is row-local, so only
+    the x transforms stay in the shards' local stages.  Returns
+    ``(mats_x, yzsolve)``:
+
+    * ``mats_x`` — one (FxT, GxT) pair per local shard, on its device:
+      forward x̃ = b̃·FxT and inverse p = x̂·GxT on every row, the whole
+      xy normalization folded into GxT (the factors of
+      :func:`make_dst_fused_pieces`);
+    * ``yzsolve(bt_blocks) → x̂_blocks`` — the cross-shard stage on each
+      shard's (nz/Pz, ny/Py, nx) x-transform-space block (zero global
+      z-shell planes): four per-axis ``all_to_all``s re-pencil between
+      the dense z stage (Fz, then Gz with the z normalization, the
+      z modes zero-padded to mzp, a multiple of Py) and the y stage (Fy,
+      ÷ λ, Gy).  The output keeps x-transform space and carries the
+      global z and y mirror shells on the edge shards' owned planes and
+      rows.
+
+    The products are the GEMM wrappers' at ``precision`` (``rolling.
+    left_dot``; the reference's XLA einsums at the step's precision), or
+    their plain versions with ``plain``; the eigenvalue sums λ = (λz + λy)
+    + λx are formed once per shard in the working dtype (the padded x
+    and z modes take 1, so 0 / 1 stays 0 there).  The dense z stage
+    follows the reference, not the Thomas solve of the z-only step."""
+    pz, py = int(n_z), int(n_y)
+    if not dst_fused_sharded_zy_supported(problem, pz, py):
+        raise CFDError(Status.ERROR_UNSUPPORTED,
+                       f"the DST-fused (z, y) pieces need a 3D problem with "
+                       f"nz divisible by {pz} and ny by {py} (>= 2 planes "
+                       f"and rows a shard) and nx by {pz} (got "
+                       f"nz={problem.nz}, ny={problem.ny}, "
+                       f"nx={problem.nx})")
+    devices = [torch.device(d) for d in comm.devices]
+    dt = resolve_dtype(dtype, devices[0])
+    np_dt = np.float64 if dt == torch.float64 else np.float32
+    mats, _, _ = _dst_fused_mats(problem, np_dt)
+    nx, ny, nz = problem.nx, problem.ny, problem.nz
+    mx, my, mz = nx - 2, ny - 2, nz - 2
+    mzp = -(-mz // py) * py
+    cx, cz = nx // pz, mzp // py
+    lx = np.ones(nx)
+    lx[:mx] = _dirichlet_eigenvalues(mx, problem.inv_dx2)
+    ly = _dirichlet_eigenvalues(my, problem.inv_dy2)
+    lz = np.ones(mzp)
+    lz[:mz] = _dirichlet_eigenvalues(mz, problem.inv_dz2)
+    host = {
+        "fy": np.pad(_sine_matrix(my), ((0, 0), (1, 1))),         # (my, ny)
+        "gy": _mirror_extended_inverse(my, 1.0),                   # (ny, my)
+        "fz": np.pad(_sine_matrix(mz), ((0, mzp - mz), (1, 1))),  # (mzp, nz)
+        "gz": np.pad(_mirror_extended_inverse(mz, 2.0 / (mz + 1)),
+                     ((0, 0), (0, mzp - mz)))}                     # (nz, mzp)
+
+    def dev(a, d):
+        return torch.as_tensor(np.ascontiguousarray(a).astype(np_dt),
+                               dtype=dt, device=d)
+
+    per_device = {}
+    for d in devices:
+        if d not in per_device:
+            per_device[d] = ({k: dev(v, d) for k, v in host.items()},
+                             (dev(mats[0], d), dev(mats[2], d)))
+    lam = []
+    for s, d in zip(comm.shards, devices):
+        zi, yi = comm.coords(s)
+        vz = dev(lz[yi * cz:(yi + 1) * cz], d)
+        vx = dev(lx[zi * cx:(zi + 1) * cx], d)
+        lam.append((vz[:, None, None] + dev(ly, d)[None, :, None])
+                   + vx[None, None, :])
+    factors = [per_device[d][0] for d in devices]
+    left_dot = _products(plain)[2]
+
+    def z_dot(m, a):
+        """``m · a`` along dim 0 of a (k, ny_, nx_) block."""
+        k, r, c = a.shape
+        return left_dot(m, a.reshape(k, r * c),
+                        precision=precision).reshape(m.shape[0], r, c)
+
+    def a2a(blocks, axis, split, concat):
+        if (pz if axis == "z" else py) == 1:
+            return list(blocks)
+        return comm.all_to_all(blocks, split, concat, axis)
+
+    def yzsolve(bt_blocks):
+        a = a2a(bt_blocks, "z", 2, 0)                      # (nz, nyl, cx)
+        a = [z_dot(f["fz"], b) for f, b in zip(factors, a)]   # (mzp, ...)
+        a = a2a(a, "y", 0, 1)                              # (cz, ny, cx)
+        a = [left_dot(f["gy"], left_dot(f["fy"], b, precision=precision)
+                      / lm, precision=precision)
+             for f, b, lm in zip(factors, a, lam)]         # (cz, ny, cx)
+        a = a2a(a, "y", 1, 0)                              # (mzp, nyl, cx)
+        a = [z_dot(f["gz"], b) for f, b in zip(factors, a)]   # (nz, ...)
+        return a2a(a, "z", 0, 2)                           # (nzl, nyl, nx)
+
+    return [per_device[d][1] for d in devices], yzsolve
 
 
 # ---- 2D: x-DST pair, y-line Thomas solve and dense low-mode rescue ----------

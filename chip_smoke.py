@@ -230,6 +230,33 @@ On phases 47–49 every kernel wrapper of the path must count launches,
 and each plain version of the path is replaced by a tripwire while it
 runs: none may run.
 
+And the (z, y)-decomposed step (``make_mesh`` of 4 shards, the (2, 2)
+mesh every 4-card machine gets, and (1, 4); emulated on the card):
+
+* phase 50: the global-row modes — the predictor (2 planes and 2 rows a
+  side), b̃ and the CG rhs on its owned window, the corrector on the owned
+  window of a 1-padded p block, K1 / K2 on 1-padded blocks — against
+  their plain twins on blocks at the first, a middle and the last shard
+  position of each axis at 37×23×16 and on the four (2, 2) blocks of
+  512³ (fields bit-equal, the dots' shares at ``TOL_DOT``), then the
+  x-DST and z-stage GEMMs (SGEMM and 3xTF32) at a (2, 2) shard's shapes;
+* phase 51: the (2, 2) y/z solve with its x DSTs against the one-device
+  eigen solve (2e-5·max), beside the Thomas one, each stage timed (the
+  four emulated ``all_to_all``s, the z, y and x products);
+* phase 52: the 512³ FFT_DIRECT step over (2, 2) and (1, 4) at HIGHEST
+  and HIGH — the first step held against the float64 step on the card
+  at fixed bars (at HIGHEST; its difference from the single-device
+  step, whose Thomas z solve rounds otherwise, printed) and the
+  single-device HIGH step; 3 warm-up and 5 timed steps beside the
+  single-device step's, the two held against each other after them
+  (with ``--profile`` 3 profiled steps);
+* phase 53: ``cg_512`` over (2, 2) (the single-device count of phase 13,
+  true residual below 1e-3) and the 512³ CG step over (2, 2) against the
+  single-device step (iterations a step within 2, ``TOL_CG_UVW``,
+  ``close_p``).
+
+On phases 52 and 53 the plain twins of the path are tripwires too.
+
 It checks status, finiteness, launch counters (set to 0 just before each
 main path and read just after) and kernel-vs-plain agreement; any
 failure exits non-zero.  The line before the last is a JSON object
@@ -241,8 +268,9 @@ PyTorch call computes the same function); the last line is
     python3 chip_smoke.py --profile
 
 adds phase 5: 3 more kernel-path steps of the 512³ and 2048² projection
-steps and of each phase-10 configuration, and one step of each path of
-phases 48 and 49, under ``torch.profiler``,
+steps, of each phase-10 configuration and of the (2, 2) HIGHEST step of
+phase 52, and one step of each path of phases 48, 49 and 53, under
+``torch.profiler``,
 printing the device time per kernel, the device busy time against the
 CUDA-event span and host wall time of those steps (the device's idle
 share).
@@ -436,6 +464,15 @@ B1_SHARD = "cfd_tpu/ops/pallas/bicgstab_kernels.py:56"    # global_nz pv/st
 B1_XR_SHARD = "cfd_tpu/ops/pallas/bicgstab_kernels.py:133"  # xr, owned
 A5_DIV_SHARD = "cfd_tpu/ops/pallas/projection_kernels.py:340"  # divergence
 A5_CORR_XY = "cfd_tpu/ops/pallas/projection_kernels.py:516"    # corr_xy
+# Phases 50-53: the (z, y)-decomposed step's global-row modes
+A1_ZY = "cfd_tpu/ops/pallas/projection_kernels.py:306"    # pred_u/v/w y_off
+A5_DIV_ZY = "cfd_tpu/ops/pallas/projection_kernels.py:343"  # divergence
+A5_BT_ZY = "cfd_tpu/ops/pallas/projection_kernels.py:475"   # btilde_k
+A5_CORR_ZY = "cfd_tpu/ops/pallas/projection_kernels.py:519"  # corr_u/v/w
+CG_ZY = "cfd_tpu/ops/pallas/cg_kernels.py:483"      # global_ny lap_dot
+CG_UPD_ZY = "cfd_tpu/parallel/fused_cg.py:218"      # the owned-point axpy
+DOT_ZY = "cfd_tpu/ops/pallas/projection_kernels.py:240"  # x-only DST
+YZ_Z = "cfd_tpu/solvers/poisson/spectral.py:645"    # the z-stage einsum
 
 # The card's peaks for a kernel's bound (H100 SXM data sheet, at 700 W):
 # device memory 3.35 TB/s, float32 outside the tensor cores 67 TFLOP/s,
@@ -540,6 +577,20 @@ TOL_TF32_STEP = 1e-2
 # (tests/math/test_pallas_kernels.py:118-120).
 TOL_DOT = 1e-5
 TOL_CG_UVW = 1e-4
+
+# The (z, y) FFT_DIRECT step at HIGHEST (phase 52).  Its dense z stage
+# and the single-device step's Thomas solve round differently, and the
+# single-device float32 step is the further from float64 (on an H100:
+# u 8.9e-5, p 0.127 = 2.1e-4·max|p| after the first 512³ step, where the
+# (z, y) step reads u 4.9e-5, p 1.78e-3 = 2.9e-6·max|p|), so the first
+# step is held against the float64 step at fixed bars about twice those
+# readings: a halo, transpose or shell fault moves u by 1e-2 and more.
+# After the timed steps the two float32 steps are held against each other
+# (they read u 6.9e-5, p 4.1e-5·max|p| after 5 steps).
+TOL_ZY_F64_UVW = 1e-4
+TOL_ZY_F64_P = 1e-5        # of max|p| of the float64 step (614 after one)
+TOL_ZY_DRIFT_UVW = 2e-4
+TOL_ZY_DRIFT_P = 1e-4      # of max|p| of the single-device step
 
 
 PROFILED_STEPS = 3
@@ -5153,12 +5204,14 @@ def main() -> int:
             fail(f"{label}: plain versions ran on the main path: "
                  f"{sorted(set(called))}")
 
-    def sharded_counts(wrappers):
-        """{record name: launches}: the global_nz counters of the sharded
-        wrappers, the plain counter of the corrector."""
+    def sharded_counts(wrappers, mode="global_nz"):
+        """{record name: launches}: the ``mode`` counters (global_nz or
+        global_ny) of the sharded wrappers, the plain counter of the
+        corrector."""
         return {(w.__name__ if w is pkm.corrector
-                 else f"{w.__name__}[global_nz]"):
-                (w.launches if w is pkm.corrector else w.global_nz_launches)
+                 else f"{w.__name__}[{mode}]"):
+                (w.launches if w is pkm.corrector
+                 else getattr(w, f"{mode}_launches"))
                 for w in wrappers}
 
     # ---- phase 47: bench.py's cg_512 over 4 z-shards ----------------------
@@ -5231,24 +5284,31 @@ def main() -> int:
           flush=True)
 
     def krylov_step_pair(label, shape, method, pparams, wrappers, path,
-                         plains):
-        """The sharded step over 4 z-shards and the single-device kernel
-        step, run_3d's physics from the Taylor-Green start: 3 warm-up
-        steps, then 3 timed from the same start; the counters set to 0
-        just before the sharded timed steps and read just after.  Holds
-        the fields at TOL_CG_UVW and close_p; returns the record."""
+                         plains, mesh=None, mode="global_nz"):
+        """The sharded step over ``mesh`` (default 4 z-shards) and the
+        single-device kernel step, run_3d's physics from the Taylor-Green
+        start: 3 warm-up steps, then 3 timed from the same start; the
+        counters (``mode``'s) set to 0 just before the sharded timed steps
+        and read just after.  Holds the fields after the timed steps at
+        TOL_CG_UVW and close_p, and prints the two first (warm-up) steps'
+        difference; returns the record."""
         gridk = uniform_grid(shape)
         f0 = tg_field(shape)
         step_s, place = make_sharded_step(
-            gridk, params_cg, mesh4, "projection", poisson_method=method,
-            poisson_params=pparams)
+            gridk, params_cg, mesh or mesh4, "projection",
+            poisson_method=method, poisson_params=pparams)
         single = make_projection_step(gridk, params_cg, torch.float32,
                                       method, poisson_params=pparams,
                                       device=dev)
-        out = {}
+        out, first = {}, {}
         for kind, stepf, start_f in (("sharded", step_s, place(f0)),
                                      ("single", single, f0)):
-            run_steps(stepf, start_f, 1e-4, CG_STEPS)
+            f_1 = stepf(start_f, 1e-4, 0)[0]
+            g_1 = f_1.gather() if kind == "sharded" else f_1
+            first[kind] = {name: getattr(g_1, name) for name in "uvwp"}
+            del g_1
+            run_steps(stepf, f_1, 1e-4, CG_STEPS - 1, start_iter=1)
+            del f_1
             sync()
             if kind == "sharded":
                 pkm.reset_launch_counts()
@@ -5278,7 +5338,7 @@ def main() -> int:
                                                         .is_finite()):
                 fail(f"{label} {kind}: nonzero status or non-finite")
             if kind == "sharded":
-                counts = sharded_counts(wrappers)
+                counts = sharded_counts(wrappers, mode)
                 print(f"{label} launch counts over the main path: {counts}",
                       flush=True)
                 if min(counts.values()) <= 0:
@@ -5288,6 +5348,12 @@ def main() -> int:
             if do_profile:
                 profile_steps(torch, f"phase 5 {label} {kind}",
                               lambda: run_steps(stepf, start_f, 1e-4, 1), 1)
+        d_1 = {name: float((first["sharded"][name] - first["single"][name])
+                           .abs().max()) for name in "uvwp"}
+        print(f"{label} first step: max|sharded - single-device| {d_1}, "
+              f"max|p| {float(first['single']['p'].abs().max())!r}",
+              flush=True)
+        del first
         fs, f1 = out["sharded"][0], out["single"][0]
         for name in "uvw":
             compare(f"{label} {CG_STEPS} steps vs single-device", name,
@@ -5295,7 +5361,8 @@ def main() -> int:
         close_p(f"{label} {CG_STEPS} steps vs single-device", fs.p, f1.p)
         return {"ms": out["sharded"][3], "single_ms": out["single"][3],
                 "iterations": out["sharded"][1],
-                "single_iterations": out["single"][1]}
+                "single_iterations": out["single"][1],
+                "first_step_max_abs_diff": d_1}
 
     # ---- phase 48: the 512^3 CG step over 4 z-shards ----------------------
     t_phase = time.perf_counter()
@@ -5320,6 +5387,471 @@ def main() -> int:
         PLAIN_BICG + PLAIN_STEP)
     torch.cuda.empty_cache()
     print(f"phase 49 took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+    # ==== the (z, y)-decomposed step (cfd_tpu_torch.parallel on a (Pz, Py)
+    # mesh, its shards emulated on the one card) ===========================
+    # ---- phase 50: the global-row kernel modes against their plain twins --
+    # The predictor (2 planes and 2 rows a side), b~ and the CG rhs on its
+    # owned window, the corrector on the owned window of a 1-padded p
+    # block, and the CG passes K1 / K2 on 1-padded blocks, at 37x23x16 on
+    # blocks of 4 planes and 8 rows at the first, a middle and the last
+    # shard position of each axis (23 rows: the last block overlaps its
+    # neighbour) and on the four (2, 2) blocks of 512^3: fields bit for
+    # bit, the dots' shares at TOL_DOT.  Then the x-DST SGEMM / 3xTF32
+    # GEMM and the y/z solve's z-stage products at the 512^3 (2, 2)
+    # shard's shapes, at the GEMMs' 2e-5·max.
+    t_phase = time.perf_counter()
+    ZY = (2, 2)
+    pad_zy = torch.nn.functional.pad
+
+    def zy_blocks(a, h, shards_, nzl, nyl):
+        """Each shard's block of ``a`` with h planes and h rows a side
+        (zeros past the global ends)."""
+        ap = pad_zy(a, (0, 0, h, h, h, h)) if h else a
+        return [ap[z0:z0 + nzl + 2 * h, y0:y0 + nyl + 2 * h].contiguous()
+                for z0, y0 in shards_]
+
+    for shape in ((16, 23, 37), (N_BIG,) * 3):
+        nz_g, ny_g, nx_ = shape
+        big = nz_g == N_BIG
+        nzl, nyl = (nz_g // ZY[0], ny_g // ZY[1]) if big else (4, 8)
+        shards_ = ([(zi * nzl, yi * nyl) for zi in range(ZY[0])
+                    for yi in range(ZY[1])] if big else
+                   [(0, 0), (8, 8), (nz_g - nzl, ny_g - nyl)])
+        tag = "x".join(map(str, shape[::-1]))
+        print(f"phase 50 global-row kernels vs plain at {tag}, blocks of "
+              f"{nzl} planes x {nyl} rows at {shards_}", flush=True)
+        f, (fxt, fy, gxt, gy), mu, w, c = make_inputs(shape, SEED + 50)
+        grid, prob = cg_problem(shape)
+        dt = torch.full((), 1e-3, device=dev)
+        scal = torch.stack([dt, torch.full((), 0.1, device=dev),
+                            torch.full((), 0.05, device=dev)])
+        rod, s = 1.0 / dt, dt / 1.0
+        c_pred = dataclasses.replace(c, nz=nzl + 4, ny=nyl + 4)
+        c_p = dataclasses.replace(c, nz=nzl + 2, ny=nyl + 2)
+        c_cg = cgk.CGConsts(nzl + 2, nyl + 2, nx_, prob.inv_dx2,
+                            prob.inv_dy2, prob.inv_dz2)
+        beta = torch.full((), 0.37, device=dev)
+        alpha = torch.full((), 0.61, device=dev)
+        for b_i, (z0, y0) in enumerate(shards_):
+            timed = big and b_i == 1
+            stag = f"{tag} block ({z0}, {y0})"
+            u2, v2, w2 = (zy_blocks(x, 2, [(z0, y0)], nzl, nyl)[0]
+                          for x in (f.u, f.v, f.w))
+            po = zy_blocks(f.p, 0, [(z0, y0)], nzl, nyl)[0]
+            p1 = zy_blocks(f.p, 1, [(z0, y0)], nzl, nyl)[0]
+            own_cells = po.numel()
+            zb, yb = (z0 - 2, nz_g, y0 - 2, ny_g), (z0 - 1, nz_g, y0 - 1,
+                                                    ny_g)
+            us, vs, ws = check(
+                "sharded-zy", stag, timed, pkm.predictor_star, A1_ZY, SRC,
+                lambda: pkm.predictor_star(u2, v2, w2, scal, c_pred, None,
+                                           *zb),
+                lambda: pkm.predictor_star_plain(u2, v2, w2, scal, c_pred,
+                                                 None, *zb),
+                ("u*", "v*", "w*"), (bit,) * 3,
+                work=((u2, v2, w2, scal),
+                      FLOPS_PER_POINT["predictor_star"] * u2.numel()),
+                name="predictor_star[global_ny]")
+            win1 = [x[1:-1, 1:-1] for x in (us, vs, ws)]
+            check("sharded-zy", stag, timed, pkm.poisson_input, A5_BT_ZY,
+                  SRC,
+                  lambda: pkm.poisson_input(us, vs, ws, po, rod, c_pred,
+                                            *zb, 2),
+                  lambda: pkm.poisson_input_plain(us, vs, ws, po, rod,
+                                                  c_pred, *zb, 2),
+                  ("b~",), (bit,), work=((*win1, po),
+                                         FLOPS_PER_POINT["poisson_input"]
+                                         * own_cells),
+                  name="poisson_input[global_ny]")
+            check("sharded-zy-cg", stag, timed, pkm.poisson_rhs, A5_DIV_ZY,
+                  SRC,
+                  lambda: pkm.poisson_rhs(us, vs, ws, rod, c_pred, *zb, 2),
+                  lambda: pkm.poisson_rhs_plain(us, vs, ws, rod, c_pred,
+                                                *zb, 2),
+                  ("rhs",), (bit,), work=(win1, FLOPS_PER_POINT[
+                      "poisson_rhs"] * own_cells),
+                  name="poisson_rhs[global_ny]")
+            win2 = [x[2:-2, 2:-2] for x in (us, vs, ws)]
+            for path in ("sharded-zy", "sharded-zy-cg"):
+                check(path, stag, timed, pkm.corrector_rows, A5_CORR_ZY,
+                      SRC,
+                      lambda: pkm.corrector_rows(us, vs, ws, p1, s, c_p,
+                                                 *yb),
+                      lambda: pkm.corrector_rows_plain(us, vs, ws, p1, s,
+                                                       c_p, *yb),
+                      ("u", "v", "w", "p", "max|u|^2", "max p", "max|p|"),
+                      (bit,) * 7, work=((*win2, p1), FLOPS_PER_POINT[
+                          "corrector"] * own_cells),
+                      name="corrector_rows[global_ny]")
+            rb, pb, xb = (zy_blocks(x, 1, [(z0, y0)], nzl, nyl)[0]
+                          for x in (f.u, f.v, f.w))
+            one = torch.ones((), device=dev)
+            st_cg = cgk.new_state(one, one, 0 * one, 0 * one, one > 0)
+            st_cg[cgk.BETA], st_cg[cgk.ALPHA] = beta, alpha
+            cg_ops = cgk.ShardCGPasses(
+                dataclasses.replace(c_cg, nz=nzl, ny=nyl), z0, nz_g, dev,
+                y_off=y0, ny_g=ny_g)
+            t1, t2 = torch.zeros_like(rb), torch.zeros_like(rb)
+            pn, ap, _ = check(
+                "sharded-zy-cg", stag, timed, cgk.lap_dot, CG_ZY, SRC_CG,
+                lambda: cgk.lap_dot(rb, pb, beta, c_cg, *yb),
+                lambda: cgk.lap_dot_plain(rb, pb, beta, c_cg, *yb),
+                ("p'", "Ap'", "<p',Ap'>"), (bit, bit, dot),
+                work=((rb, pb), FLOPS_PER_POINT["lap_dot"] * own_cells),
+                time_fn=lambda: cg_ops.lap_dot(rb, pb, t1, t2, st_cg),
+                name="lap_dot[global_ny]")
+            pnb, apb = torch.zeros_like(rb), torch.zeros_like(rb)
+            pnb[1:-1, 1:-1], apb[1:-1, 1:-1] = pn, ap
+            xt, rt = xb.clone(), rb.clone()
+            check("sharded-zy-cg", stag, timed, cgk.cg_update, CG_UPD_ZY,
+                  SRC_CG,
+                  lambda: cgk.cg_update(xb, rb, pnb, apb, alpha, c_cg, *yb),
+                  lambda: cgk.cg_update_plain(xb, rb, pnb, apb, alpha, c_cg,
+                                              *yb),
+                  ("x'", "r'", "<r',r'>"), (bit, bit, dot),
+                  work=([x[1:-1, 1:-1] for x in (xb, rb, pnb, apb)],
+                        FLOPS_PER_POINT["cg_update"] * own_cells),
+                  time_fn=lambda: cg_ops.update(xt, rt, pnb, apb, st_cg),
+                  name="cg_update[global_ny]")
+            del u2, v2, w2, po, p1, us, vs, ws, win1, win2, rb, pb, xb
+            del pn, ap, pnb, apb, xt, rt, t1, t2
+        if big:
+            # the GEMMs of a (2, 2) shard: the x DSTs on its owned
+            # (256, 256, 512) block, the z stage's (510 x 512) product on
+            # its (512, 256 * 256) pencil
+            gen = torch.Generator(device=dev).manual_seed(SEED + 50)
+            bt = torch.randn((nzl, nyl, nx_), generator=gen, device=dev)
+            pencil = torch.randn((nz_g, nyl * (nx_ // ZY[0])),
+                                 generator=gen, device=dev)
+            mz = nz_g - 2
+            mzp = -(-mz // ZY[1]) * ZY[1]
+            fz = torch.randn((mzp, nz_g), generator=gen, device=dev)
+            x_ops = gemm_flops(nzl * nyl, nx_, nx_)
+            z_ops = gemm_flops(mzp, pencil.shape[1], nz_g)
+            for prec, suffix, src_, rate in (
+                    ("highest", "", SRC, FP32_FLOPS),
+                    ("high", "[3xtf32]", SRC_GEMM, TF32_TC_FLOPS)):
+                path = "sharded-zy" + ("-high" if suffix else "")
+                mult = 3 if suffix else 1
+                check(path, f"{tag} (2, 2) shard", True, rolling.right_dot,
+                      DOT_ZY, src_,
+                      lambda: rolling.right_dot(bt, fxt, prec),
+                      lambda: rolling.right_dot_plain(bt, fxt, prec),
+                      ("x-DST",), (gemm,),
+                      work=((bt, fxt), mult * x_ops),
+                      library=ieee_matmul(lambda: bt @ fxt),
+                      name=f"right_dot{suffix}", rate=rate)
+                check(path, f"{tag} (2, 2) shard", True, rolling.left_dot,
+                      YZ_Z, src_,
+                      lambda: rolling.left_dot(fz, pencil, precision=prec),
+                      lambda: rolling.left_dot_plain(fz, pencil,
+                                                     precision=prec),
+                      ("z stage",), (gemm,),
+                      work=((fz, pencil), mult * z_ops),
+                      library=ieee_matmul(lambda: fz @ pencil),
+                      name=f"left_dot{suffix}", rate=rate)
+            del bt, pencil, fz
+        del f
+        torch.cuda.empty_cache()
+    print(f"phase 50 took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+    # ---- phase 51: the (z, y) y/z solve against the one-device solve -----
+    # The 512^3 (2, 2) pipeline (each shard's x DST, the y/z solve with
+    # its four emulated all_to_alls, the inverse x DST) against the
+    # one-device eigen pipeline (the same dense z stage) at 2e-5·max and,
+    # printed, against the Thomas one; each stage timed.
+    t_phase = time.perf_counter()
+    n = N_BIG
+    prob_zy = PoissonProblem(n, n, n, 1.0 / (n - 1), 1.0 / (n - 1),
+                             1.0 / (n - 1))
+    mesh22 = make_mesh([dev] * 4, shape=ZY)
+    comm22 = mesh22.comm
+    gen = torch.Generator(device=dev).manual_seed(SEED + 51)
+    btg = torch.zeros((n, n, n), device=dev)
+    btg[1:-1, 1:-1, 1:-1] = torch.randn((n - 2,) * 3, generator=gen,
+                                        device=dev)
+    mats_zy, yzsolve = spectral.make_dst_fused_sharded_zy_pieces(
+        prob_zy, *ZY, comm22, torch.float32)
+    nzl, nyl = n // ZY[0], n // ZY[1]
+    offs22 = [(zi * nzl, yi * nyl) for zi, yi in map(comm22.coords,
+                                                     comm22.shards)]
+
+    def zy_pipeline():
+        xt = [rolling.right_dot(btg[z0:z0 + nzl, y0:y0 + nyl].contiguous(),
+                                m[0]) for (z0, y0), m in zip(offs22, mats_zy)]
+        return [rolling.right_dot(xh, m[1])
+                for xh, m in zip(yzsolve(xt), mats_zy)]
+
+    out = torch.empty_like(btg)
+    for (z0, y0), blk in zip(offs22, zy_pipeline()):
+        out[z0:z0 + nzl, y0:y0 + nyl] = blk
+    ref_eig = spectral.make_fft_btilde_solver(prob_zy, z_mode="eigen")(btg)
+    sync()
+    zy_err, _ = compare("phase 51 (2, 2) y/z solve vs one-device eigen",
+                        "x", out, ref_eig, TOL_GEMM, True)
+    del ref_eig
+    ref_td = spectral.make_fft_btilde_solver(prob_zy, z_mode="tdma")(btg)
+    sync()
+    td_err = float((out - ref_td).abs().max())
+    td_scale = float(ref_td.abs().max())
+    del ref_td, out
+    print(f"phase 51 (2, 2) y/z solve vs the one-device Thomas solve: "
+          f"max_abs {td_err:.3e} ({td_err / td_scale:.3e} of max|x|; the "
+          f"dense z stage's rounding)", flush=True)
+    # the stages alone, on the shards' shapes
+    xt = [rolling.right_dot(btg[z0:z0 + nzl, y0:y0 + nyl].contiguous(),
+                            m[0]) for (z0, y0), m in zip(offs22, mats_zy)]
+    a1 = comm22.all_to_all(xt, 2, 0, "z")
+    cx = n // ZY[0]
+    mzp = -(-(n - 2) // ZY[1]) * ZY[1]
+    lhs_z = torch.randn((mzp, n), generator=gen, device=dev)
+    lhs_y = torch.randn((n - 2, n), generator=gen, device=dev)
+    a2 = [rolling.left_dot(lhs_z, a.reshape(n, -1)).reshape(mzp, nyl, cx)
+          for a in a1]
+    a3 = comm22.all_to_all(a2, 0, 1, "y")
+    yz_ms = {
+        "solve_ms": cuda_ms(lambda: yzsolve(xt)),
+        "solve_high_ms": None,
+        "all_to_all_z_ms": cuda_ms(lambda: comm22.all_to_all(xt, 2, 0,
+                                                              "z")),
+        "all_to_all_y_ms": cuda_ms(lambda: comm22.all_to_all(a2, 0, 1,
+                                                              "y")),
+        "z_stage_gemm_ms": cuda_ms(lambda: [rolling.left_dot(
+            lhs_z, a.reshape(n, -1)) for a in a1]),
+        "y_stage_gemm_ms": cuda_ms(lambda: [rolling.left_dot(lhs_y, a)
+                                            for a in a3]),
+        "x_dst_gemm_ms": cuda_ms(lambda: [rolling.right_dot(
+            x, m[0]) for x, m in zip(xt, mats_zy)])}
+    mats_h, yz_high = spectral.make_dst_fused_sharded_zy_pieces(
+        prob_zy, *ZY, comm22, torch.float32, "high")
+    yz_ms["solve_high_ms"] = cuda_ms(lambda: yz_high(xt))
+    yz_ms["max_abs_vs_eigen"] = zy_err
+    yz_ms["max_abs_vs_thomas"] = td_err
+    print(f"phase 51 (2, 2) y/z solve stages (4 shards, ms for all of "
+          f"them): {yz_ms}; a step runs 2 z and 2 y all_to_alls, 2 z and 2 "
+          f"y products and 2 x DSTs", flush=True)
+    del btg, xt, a1, a2, a3, lhs_z, lhs_y, mats_zy, yzsolve, yz_high
+    del mats_h
+    torch.cuda.empty_cache()
+    print(f"phase 51 took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+    # ---- phase 52: the 512^3 FFT_DIRECT step over (2, 2) and (1, 4) ------
+    # make_sharded_step on run_3d's 512^3 configuration, HIGHEST and HIGH,
+    # against the single-device kernel step from the same field.  At
+    # HIGHEST the first step is held against the float64 step on the card
+    # (the plain chain, C2) at TOL_ZY_F64_*; the single-device float32
+    # step's own distance from it and the two float32 steps' difference
+    # are printed.  HIGH is held against the single-device HIGH step at
+    # phase 43's HIGH bars.  Then 3 warm-up and 5 timed steps of each
+    # (CUDA events), the counters set to 0 just before the timed sharded
+    # steps and read just after, with every plain twin of the path a
+    # tripwire; the two steps' difference after the timed steps is held
+    # at TOL_ZY_DRIFT_*.
+    t_phase = time.perf_counter()
+    grid_zy = Grid.uniform(n, n, n, zmin=0.0, zmax=1.0)
+    params_zy = NSParams(source_amplitude_u=0.0, source_amplitude_v=0.0,
+                         mu=0.01)
+    shape_zy, cells_zy = (n, n, n), n ** 3
+    PLAIN_ZY = ([(pkm, nm) for nm in ("predictor_star_plain",
+                                       "poisson_input_plain",
+                                       "poisson_rhs_plain",
+                                       "corrector_rows_plain")]
+                + [(rolling, nm) for nm in ("right_dot_plain",
+                                            "left_dot_plain",
+                                            "matmul_plain")])
+    f0 = tg_field(shape_zy)
+    s64 = make_projection_step(grid_zy, params_zy, torch.float64,
+                               Method.FFT_DIRECT, device=dev)(
+        FlowField(*(getattr(f0, nm).double() for nm in (
+            "u", "v", "w", "p", "rho", "T"))), 1e-4, 0)[0]
+    truth = {nm: getattr(s64, nm) for nm in "uvwp"}
+    del s64, f0
+    torch.cuda.empty_cache()
+
+    def off_truth(fld):
+        return {nm: float((getattr(fld, nm).double() - truth[nm]).abs()
+                          .max()) for nm in "uvwp"}
+
+    zy_rec = {}
+    for mshape in (ZY, (1, 4)):
+        meshz = make_mesh([dev] * 4, shape=mshape)
+        for prec in (None, "high"):
+            label = (f"phase 52 (z, y) {n}^3 over {mshape} "
+                     f"{'HIGH' if prec else 'HIGHEST'}")
+            step_s, place = make_sharded_step(
+                grid_zy, params_zy, meshz, "projection",
+                poisson_method=Method.FFT_DIRECT, spectral_precision=prec)
+            single = make_projection_step(grid_zy, params_zy, torch.float32,
+                                          Method.FFT_DIRECT, device=dev,
+                                          spectral_precision=prec)
+            f0 = tg_field(shape_zy)
+            fs0 = place(f0)
+            g1 = gather_field(step_s(fs0, 1e-4, 0)[0])
+            s1 = single(f0, 1e-4, 0)[0]
+            sync()
+            tag = f"{label} first step"
+            e_zy, e_1 = off_truth(g1), off_truth(s1)
+            diffs = {nm: float((getattr(g1, nm) - getattr(s1, nm)).abs()
+                               .max()) for nm in "uvwp"}
+            print(f"{tag}: max|(z, y) - float64| {e_zy}, max|single-device "
+                  f"- float64| {e_1}, max|(z, y) - single-device| {diffs}",
+                  flush=True)
+            if prec is None:
+                pscale = float(truth["p"].abs().max())
+                for nm in "uvwp":
+                    bar = (TOL_ZY_F64_P * pscale if nm == "p"
+                           else TOL_ZY_F64_UVW)
+                    if not e_zy[nm] <= bar:
+                        fail(f"{tag} {nm}: {e_zy[nm]:.3e} off the float64 "
+                             f"step, above {bar:.3e}")
+            else:
+                def held(name_, bar, passed=0.0):
+                    ref = getattr(s1, name_)
+                    scale = max(1.0, float(ref.abs().max()))
+                    return compare(tag + " vs single-device", name_,
+                                   getattr(g1, name_), ref,
+                                   bar * scale + passed, False)[0]
+
+                dp = held("p", HIGH_P)
+                held("u", HIGH_U, 1e-4 / grid_zy.dx0 * dp)
+                held("v", HIGH_U, 1e-4 / grid_zy.dy0 * dp)
+                held("w", HIGH_U, 1e-4 / grid_zy.dz0 * dp)
+            del g1, s1
+            run_steps(step_s, fs0, 1e-4, 3)
+            sync()
+            pkm.reset_launch_counts()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            with no_plain(label, PLAIN_ZY):
+                start.record()
+                fs, res_s = run_steps(step_s, fs0, 1e-4, TIMED_STEPS)
+                end.record()
+                sync()
+            ms_s = start.elapsed_time(end) / TIMED_STEPS
+            counts = sharded_counts((pkm.predictor_star, pkm.poisson_input,
+                                     pkm.corrector_rows), "global_ny")
+            key = "high_launches" if prec else "launches"
+            sfx = "[3xtf32]" if prec else ""
+            counts[f"right_dot{sfx}"] = getattr(rolling.right_dot, key)
+            counts[f"left_dot{sfx}"] = getattr(rolling.left_dot, key)
+            print(f"{label}: launch counts over the main path {counts}",
+                  flush=True)
+            if min(counts.values()) <= 0:
+                fail(f"{label}: a kernel of the (z, y) step not launched")
+            if prec and (rolling.right_dot.launches
+                         or rolling.left_dot.launches):
+                fail(f"{label}: an SGEMM launched on the HIGH path")
+            path = "sharded-zy-high" if prec else "sharded-zy"
+            if mshape == ZY:
+                launch_counts[path] = counts
+            f1, res_1, ms_1 = timed_steps(single, f0)
+            g = gather_field(fs)
+            drift = {name_: float((getattr(g, name_) - getattr(f1, name_))
+                                  .abs().max()) for name_ in "uvwp"}
+            print(f"{label}: {ms_s:.3f} ms/step, "
+                  f"{cells_zy / (ms_s * 1e-3) / 1e6:.1f} MLUPS; single-device "
+                  f"kernel step {ms_1:.3f} ms/step; status "
+                  f"{int(res_s.status)}, max|u| "
+                  f"{float(res_s.max_velocity)!r} (single "
+                  f"{float(res_1.max_velocity)!r}); max|sharded - single| "
+                  f"after {TIMED_STEPS} steps {drift}", flush=True)
+            if int(res_s.status) != 0 or not bool(g.is_finite()):
+                fail(f"{label}: nonzero status or non-finite fields")
+            p1scale = float(f1.p.abs().max())
+            for nm in "uvwp":
+                bar = (TOL_ZY_DRIFT_P * p1scale if nm == "p"
+                       else TOL_ZY_DRIFT_UVW)
+                if not drift[nm] <= bar:
+                    fail(f"{label} {nm}: {drift[nm]:.3e} from the "
+                         f"single-device step after {TIMED_STEPS} steps, "
+                         f"above {bar:.3e}")
+            if do_profile and prec is None and mshape == ZY:
+                profile_steps(torch, f"phase 5 {label}",
+                              lambda: run_steps(step_s, fs0, 1e-4,
+                                                PROFILED_STEPS),
+                              PROFILED_STEPS)
+            zy_rec[f"{mshape[0]}x{mshape[1]}_"
+                   f"{'high' if prec else 'highest'}"] = {
+                "ms": ms_s, "mlups": cells_zy / (ms_s * 1e-3) / 1e6,
+                "single_ms": ms_1, "first_step_max_abs_diff": diffs,
+                "first_step_off_float64": e_zy,
+                "single_first_step_off_float64": e_1,
+                f"max_abs_diff_after_{TIMED_STEPS}": drift}
+            del f0, fs0, fs, g, f1
+            torch.cuda.empty_cache()
+    del truth
+    zy_rec["yz_solve"] = yz_ms
+    print(f"phase 52 took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+    # ---- phase 53: cg_512 and the 512^3 CG step over (2, 2) --------------
+    t_phase = time.perf_counter()
+    _, prob = cg_problem((n, n, n))
+    pp = PoissonParams(tolerance=1e-6, max_iterations=2000,
+                       check_interval=10)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    rhs = prob.zero_boundary(torch.randn((n, n, n), generator=gen,
+                                         device=dev))
+    x0 = torch.zeros_like(rhs)
+    make_cg_fused_sharded(prob, PoissonParams(
+        tolerance=0.0, max_iterations=20), mesh22)(x0, rhs)  # warm-up
+    sync()
+    native.reset_counts(*cg_wrappers)
+    solve = make_cg_fused_sharded(prob, pp, mesh22)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with no_plain("phase 53", PLAIN_CG):
+        start.record()
+        res = solve(x0, rhs)
+        end.record()
+        sync()
+    ms_solve = start.elapsed_time(end)
+    n_it, syncs = int(res.iterations), solve.host_syncs
+    counts = sharded_counts(cg_wrappers, "global_ny")
+    xd, rd = prob.zero_boundary(res.x.double()), rhs.double()
+    true_rel = float(prob.interior(prob.laplacian(xd) - rd).norm()
+                     / prob.interior(rd).norm())
+    del xd, rd
+    print(f"phase 53 cg_512 over {ZY} (512^3, tol 1e-6, check_interval "
+          f"10): {n_it} iterations (single-device {cg512['iterations']}, "
+          f"phase 13), status {int(res.status)}, {ms_solve:.1f} ms a "
+          f"solve, {ms_solve / n_it:.4f} ms an iteration (single-device "
+          f"{cg512['ms'] / cg512['iterations']:.4f}), {syncs} host syncs, "
+          f"true relative residual {true_rel:.4e}; launches {counts}",
+          flush=True)
+    if int(res.status) != PoissonStatus.CONVERGED or not true_rel <= 1e-3:
+        fail("phase 53: not converged, or true residual above 1e-3")
+    if n_it != cg512["iterations"]:
+        fail(f"phase 53: {n_it} iterations, not the single-device "
+             f"{cg512['iterations']}")
+    if syncs > -(-n_it // krylov.CHUNK) + 2:
+        fail("phase 53: more host syncs than one a chunk")
+    if min(counts.values()) <= 0:
+        fail(f"phase 53: a (z, y) CG kernel not launched: {counts}")
+    cg512_zy = {"iterations": n_it, "ms": ms_solve,
+                "ms_per_iteration": ms_solve / n_it, "host_syncs": syncs,
+                "true_rel_residual": true_rel}
+    del rhs, x0, res, solve
+    torch.cuda.empty_cache()
+    cg_step_zy = krylov_step_pair(
+        f"phase 53 CG step {n}^3 over {ZY} (tolerance 1e-3)", (n, n, n),
+        Method.CG, PoissonParams(tolerance=1e-3),
+        (pkm.predictor_star, pkm.poisson_rhs, pkm.corrector_rows)
+        + cg_wrappers, "sharded-zy-cg",
+        PLAIN_CG + [(pkm, nm) for nm in ("predictor_star_plain",
+                                         "poisson_rhs_plain",
+                                         "corrector_rows_plain")],
+        mesh=mesh22, mode="global_ny")
+    if any(abs(a - b) > 2 for a, b in zip(cg_step_zy["iterations"],
+                                          cg_step_zy["single_iterations"])):
+        fail("phase 53: the (z, y) CG step's iterations a step off the "
+             "single-device step's by more than 2")
+    torch.cuda.empty_cache()
+    print(f"phase 53 took {time.perf_counter() - t_phase:.1f} s",
           flush=True)
 
     kernels = []
@@ -5372,6 +5904,8 @@ def main() -> int:
                       "cg_512_sharded": cg512_sharded,
                       "cg_step_sharded_512": cg_step_sharded,
                       "bicgstab_step_sharded_128": bicg_step_sharded,
+                      "zy_step_512": zy_rec, "cg_512_zy": cg512_zy,
+                      "cg_step_zy_512": cg_step_zy,
                       "launch_counts": launch_counts,
                       "card": card}), flush=True)
     print(json.dumps({"ok": True, "device": {

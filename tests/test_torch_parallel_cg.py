@@ -87,8 +87,10 @@ def test_supported():
     assert "3D" in cg_fused_sharded_unsupported_reason(p2, 8)
     p3 = PoissonProblem(128, 16, 12, 0.01, 0.01, 0.01)
     assert "divisible" in cg_fused_sharded_unsupported_reason(p3, 8)
-    assert "not ported" in cg_fused_sharded_unsupported_reason(prob, 2,
-                                                               py=4)
+    # the (z, y) CG is ported: a y count that divides ny applies, one
+    # that does not is refused
+    assert cg_fused_sharded_unsupported_reason(prob, 2, py=4) is None
+    assert "y-shards" in cg_fused_sharded_unsupported_reason(prob, 2, py=3)
 
 
 @pytest.mark.parametrize("P", [2, 4, 8])
@@ -247,8 +249,9 @@ REFUSALS = {
     "multigrid preconditioner": (
         dict(poisson_params=PoissonParams(preconditioner=Precond.MULTIGRID)),
         _zmesh, "CG kernel build failed"),
-    "zy mesh": ({}, lambda P: make_mesh([CPU] * P, axes=("z", "y")),
-                "(z, y)-mesh"),
+    # a (z, y) mesh whose y count does not divide ny (3 of 16 rows)
+    "zy mesh": ({}, lambda P: make_mesh([CPU] * (P - 1), axes=("z", "y")),
+                "ny=16 must be divisible by 3 y-shards"),
     "nz not divisible": ({}, lambda P: _zmesh(3), "nz=8 must be divisible"),
 }
 

@@ -105,9 +105,11 @@ def _uniform(nx=40, ny=16, nz=8):
 REFUSALS = {
     "2d": (lambda: (Grid.uniform(40, 16), NSParams(), _zmesh(2), {}),
            "2D"),
+    # a (z, y) mesh runs FFT_DIRECT and CG now; BiCGSTAB there stays
     "zy mesh": (lambda: (_uniform(), NSParams(),
-                         make_mesh([CPU] * 4, axes=("z", "y")), {}),
-                "(z, y)-mesh"),
+                         make_mesh([CPU] * 4, axes=("z", "y")),
+                         {"poisson_method": Method.BICGSTAB}),
+                "(z, y)-mesh fused sharded BiCGSTAB is not ported yet"),
     "y mesh": (lambda: (_uniform(), NSParams(),
                         make_mesh([CPU] * 2, axes=("y",)), {}),
                "needs a mesh over"),

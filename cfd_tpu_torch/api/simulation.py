@@ -11,7 +11,11 @@ The same lifecycle and deliberate quirks:
 * ``solve`` runs ``max_iter`` guarded steps and accumulates
   ``current_time += dt·iterations``.
 
-The session lives on the card unless ``device`` says otherwise.  VTK/CSV
+The session lives on the card unless ``device`` says otherwise.  With
+``mesh`` (a `parallel.mesh.Mesh`) it runs on a domain decomposition
+(`simulation.py:65-112` of the reference): every solver bound to the
+session takes the mesh, ``field`` is a `parallel.mesh.ShardedField`, and
+``step`` / ``solve`` run the sharded step and its guarded loop.  VTK/CSV
 outputs and checkpoints raise ``CFDError(ERROR_UNSUPPORTED)``: they come
 with the I/O slice.
 """
@@ -51,6 +55,7 @@ class Simulation:
         self.registry = registry
         self.current_time: float = 0.0
         self.last_stats = NSStats()
+        self.mesh = None  # the domain decomposition; from_grid(mesh=...)
 
     # ---- construction ------------------------------------------------------
 
@@ -61,18 +66,23 @@ class Simulation:
                zmin: float = 0.0, zmax: float = 0.0,
                solver_type: Optional[str] = None,
                params: Optional[NSParams] = None,
-               device=None, dtype=None) -> "Simulation":
+               device=None, dtype=None, mesh=None) -> "Simulation":
         """init_simulation[_with_solver] (`simulation_api.c:24-140`)."""
         grid = Grid.uniform(nx, ny, nz, xmin, xmax, ymin, ymax, zmin, zmax)
         return cls.from_grid(grid, solver_type, params, device=device,
-                             dtype=dtype)
+                             dtype=dtype, mesh=mesh)
 
     @classmethod
     def from_grid(cls, grid: Grid, solver_type: Optional[str] = None,
                   params: Optional[NSParams] = None, device=None,
-                  dtype=None) -> "Simulation":
-        """``create`` for a caller-built grid."""
+                  dtype=None, mesh=None) -> "Simulation":
+        """``create`` for a caller-built grid.  ``mesh``: the session runs
+        on that domain decomposition (the start field is made on the
+        mesh's first device, then placed by the solver); ``device`` is
+        then ignored."""
         cfd_init()      # lazy global init, as init_simulation (`:26`)
+        if mesh is not None:
+            device = mesh.devices.flat[mesh.comm.shards[0]]
         device = device_of(device)
         dtype = resolve_dtype(dtype, device)
         field = FlowField.initialize(grid, dtype=dtype, device=device)
@@ -84,15 +94,21 @@ class Simulation:
         if solver is None:
             raise CFDError(Status.ERROR_NOT_FOUND,
                            f"solver '{name}' not registered")
+        solver.mesh = mesh
         solver.init(grid, params)
-        return cls(grid, field, params, solver, registry)
+        sim = cls(grid, solver.place(field), params, solver, registry)
+        sim.mesh = mesh
+        return sim
 
     # ---- solver management -------------------------------------------------
 
     def set_solver(self, solver: NSSolver) -> None:
-        """simulation_set_solver."""
+        """simulation_set_solver.  The session's mesh carries over to the
+        new solver, and the field is placed again under it."""
+        solver.mesh = self.mesh
         solver.init(self.grid, self.params)
         self.solver = solver
+        self.field = solver.place(self.field)
 
     def set_solver_by_name(self, solver_type: str) -> int:
         """simulation_set_solver_by_name; -1 on unknown name."""

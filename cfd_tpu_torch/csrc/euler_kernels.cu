@@ -12,7 +12,9 @@
 //       -> euler_kernel<false, *> + reduce_max4_kernel
 //
 // Both launch through cfd_euler_step, which picks the instantiation from
-// nz (1: the 2D kernel) and from whether buoyancy or energy is on.
+// nz (1: the 2D kernel) and from whether buoyancy or energy is on.  Their
+// global-row modes (global_ny=, a decomposed shard's block) are
+// euler_rows_kernel<true | false, *> through cfd_euler_step_rows.
 //
 // On a stretched grid (x/y; z stays uniform) the spacing parameter kS of
 // explicit_common.cuh selects the derivative provider: parity (per-point
@@ -224,6 +226,133 @@ int launch_euler(const float* u, const float* v, const float* w,
   return (int)cudaGetLastError();
 }
 
+// The global-row mode of a decomposed shard's block (explicit_common.cuh:
+// Shard; E3 make_euler_fused(global_ny=...), euler_kernels.py:78-86 and
+// :108-118 of the reference, and E2 make_euler2d_fused(global_ny=...),
+// euler2d.py:46-76): one thread per owned point of the halo-padded
+// block, outputs of the owned window's size.  The x wrap and x thermal
+// faces stay in the kernel, an x-face point evaluating the update at its
+// source in its own row; the y-face rows and z-shell planes are passed
+// through (the wrapper wraps p, rho and T there; the velocities passed
+// through are already the step's), so no z or y wrap and no y or z
+// thermal face is applied here.  An owned point off those faces is an
+// interior point of the padded block, so its update is the single-device
+// kernel's arithmetic.  The maxima: |u|^2 over every owned point, p and
+// T off the faces (a wrapped face holds a copy of a value off them; the
+// wrapper folds in its Dirichlet T faces).
+// syv and the spacing's y rows are the block's rows of the global ones.
+template <bool k3D, bool kThermal, int kS>
+__global__ void __launch_bounds__(kTileX * kTileY) euler_rows_kernel(
+    const float* __restrict__ u, const float* __restrict__ v,
+    const float* __restrict__ w, const float* __restrict__ p,
+    const float* __restrict__ T, const float* __restrict__ rho,
+    const float* __restrict__ syv, const float* __restrict__ sxv,
+    const float* __restrict__ scal, float* __restrict__ uo,
+    float* __restrict__ vo, float* __restrict__ wo, float* __restrict__ po,
+    float* __restrict__ rhoo, float* __restrict__ To,
+    float* __restrict__ partials, int nzl, int nyl, int nx, Coefs coefs,
+    Thermal th, Stretch st, Shard sh) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const int j = blockIdx.y * blockDim.y + threadIdx.y;
+  const int k = blockIdx.z;
+  float m[4] = {-INFINITY, -INFINITY, -INFINITY, -INFINITY};
+  if (i < nx && j < nyl) {
+    const int jp = j + sh.hy;
+    const long long sy = nx, sz = (long long)(nyl + 2 * sh.hy) * nx;
+    const long long c = (k + sh.hz) * sz + jp * sy + i;
+    const long long o = ((long long)k * nyl + j) * nx + i;
+    const int jg = sh.y_base + j, kg = sh.z_base + k;
+    const bool face = jg < 1 || jg > sh.ny_g - 2 ||
+                      (k3D && (kg < 1 || kg > sh.nz_g - 2));
+    if (face) {
+      const float ou = u[c], ov = v[c], ow = w[c];
+      uo[o] = ou;
+      vo[o] = ov;
+      wo[o] = ow;
+      po[o] = p[c];
+      rhoo[o] = rho[c];
+      To[o] = T[c];
+      m[0] = (ou * ou + ov * ov) + ow * ow;  // final: the shells pass
+    } else {
+      const int is = wrap_src(i, nx);
+      const long long cs = c - i + is;
+      const Update e = euler_update<k3D, kThermal, kS>(
+          u, v, w, p, rho, T, syv, sxv, scal, cs, sy, sz, jp, is, coefs, th,
+          st);
+      const bool interior = is == i;
+      const float ou = interior ? e.u : u[c];
+      const float ov = interior ? e.v : v[c];
+      const float ow = interior ? e.w : w[c];
+      float ot;
+      if (kThermal && kS != kParity && th.energy) {
+        int kT, jT, iT;
+        if (!thermal_source<false, false>(th, 0, jp, i, 1, 1, nx, kT, jT,
+                                          iT, ot)) {
+          const long long cT = c - i + iT;
+          const Update et =
+              cT == cs ? e
+                       : euler_update<k3D, kThermal, kS>(
+                             u, v, w, p, rho, T, syv, sxv, scal, cT, sy, sz,
+                             jp, iT, coefs, th, st);
+          ot = energy_update<k3D, kS>(T, cT, sy, sz, jp, iT, et.u, et.v,
+                                      et.w, scal[0], th.alpha, coefs.c2x,
+                                      coefs.c2y, coefs.c2z, coefs.cx2,
+                                      coefs.cy2, coefs.cz2, st);
+        }
+      } else {
+        ot = T[cs];
+      }
+      uo[o] = ou;
+      vo[o] = ov;
+      wo[o] = ow;
+      po[o] = e.p;
+      rhoo[o] = rho[cs];
+      To[o] = ot;
+      m[0] = (ou * ou + ov * ov) + ow * ow;
+      m[1] = e.p;
+      m[2] = fabsf(e.p);
+      m[3] = ot;
+    }
+  }
+  block_max4(m, partials);
+}
+
+template <bool k3D, bool kThermal, int kS>
+int launch_euler_rows(const float* u, const float* v, const float* w,
+                      const float* p, const float* T, const float* rho,
+                      const float* syv, const float* sxv, const float* scal,
+                      float* uo, float* vo, float* wo, float* po,
+                      float* rhoo, float* To, float* partials, float* out,
+                      int nzl, int nyl, int nx, Coefs coefs,
+                      const Thermal& th, const Stretch& st, const Shard& sh,
+                      cudaStream_t stream) {
+  euler_rows_kernel<k3D, kThermal, kS><<<grid_of(nzl, nyl, nx),
+                                         dim3(kTileX, kTileY), 0, stream>>>(
+      u, v, w, p, T, rho, syv, sxv, scal, uo, vo, wo, po, rhoo, To, partials,
+      nzl, nyl, nx, coefs, th, st, sh);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  reduce_max4_kernel<<<1, kReduceThreads, 0, stream>>>(
+      partials, blocks_of(nzl, nyl, nx), out);
+  return (int)cudaGetLastError();
+}
+
+using EulerRowsLaunch = int (*)(const float*, const float*, const float*,
+                                const float*, const float*, const float*,
+                                const float*, const float*, const float*,
+                                float*, float*, float*, float*, float*,
+                                float*, float*, float*, int, int, int, Coefs,
+                                const Thermal&, const Stretch&, const Shard&,
+                                cudaStream_t);
+
+template <bool k3D, bool kThermal>
+EulerRowsLaunch pick_rows_spacing(int spacing) {
+  if (spacing == kParity) return launch_euler_rows<k3D, kThermal, kParity>;
+  if (spacing == kConsistent)
+    return launch_euler_rows<k3D, kThermal, kConsistent>;
+  return launch_euler_rows<k3D, kThermal, kUniform>;
+}
+
 using EulerLaunch = int (*)(const float*, const float*, const float*,
                             const float*, const float*, const float*,
                             const float*, const float*, const float*,
@@ -277,6 +406,40 @@ int cfd_euler_step(const float* u, const float* v, const float* w,
   return launch(u, v, w, p, T, rho, syv, sxv, scal, uo, vo, wo, po, rhoo, To,
                 partials, out, nz > 1 ? nz : 1, ny, nx, coefs, th, st,
                 stream);
+}
+
+// The global-row mode (euler_rows_kernel): fields are the shard's
+// halo-padded block of (nzl + 2 hz, nyl + 2 hy, nx) (nzl = 1, hz = 0 on a
+// 2D grid, nz_g = 1), syv and yw the block's rows, outputs (nzl, nyl, nx);
+// partials of cfd_explicit_partials(nzl, nyl, nx).
+int cfd_euler_step_rows(const float* u, const float* v, const float* w,
+                        const float* p, const float* T, const float* rho,
+                        const float* syv, const float* sxv,
+                        const float* scal, float* uo, float* vo, float* wo,
+                        float* po, float* rhoo, float* To, float* partials,
+                        float* out, int nzl, int nyl, int nx, float mu,
+                        float coef, float c2x, float c2y, float c2z,
+                        float cx2, float cy2, float cz2,
+                        const float* thermal_f, const int* thermal_i,
+                        const float* xw, const float* yw, int spacing,
+                        int hz, int hy, int z_base, int nz_g, int y_base,
+                        int ny_g, cudaStream_t stream) {
+  const Coefs coefs = {mu, coef, c2x, c2y, c2z, cx2, cy2, cz2};
+  const Thermal th = thermal_from(thermal_f, thermal_i);
+  if (spacing == kParity && th.energy) return (int)cudaErrorInvalidValue;
+  const Shard sh = {hz, hy, z_base, nz_g, y_base, ny_g};
+  const Stretch st = {xw, yw, nx, nyl + 2 * hy};
+  const bool thermal = th.energy || th.buoy;
+  EulerRowsLaunch launch;
+  if (nz_g > 1)
+    launch = thermal ? pick_rows_spacing<true, true>(spacing)
+                     : pick_rows_spacing<true, false>(spacing);
+  else
+    launch = thermal ? pick_rows_spacing<false, true>(spacing)
+                     : pick_rows_spacing<false, false>(spacing);
+  return launch(u, v, w, p, T, rho, syv, sxv, scal, uo, vo, wo, po, rhoo, To,
+                partials, out, nz_g > 1 ? nzl : 1, nyl, nx, coefs, th, st,
+                sh, stream);
 }
 
 }  // extern "C"

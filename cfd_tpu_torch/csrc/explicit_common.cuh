@@ -140,17 +140,20 @@ __device__ __forceinline__ bool thermal_axis(int a, int n, int lo, int hi,
 // face that owns the point, else the interior point (kT, jT, iT) whose
 // updated T it holds.  A Neumann face reads its neighbour's updated,
 // wrapped value, so a face thread evaluates the update at that point.
-template <bool k3D>
+// kZ / kY false leave that axis's faces out (jT = j): a decomposed
+// shard's wrapper applies them (the sharded modes below).
+template <bool kZ, bool kY = true>
 __device__ __forceinline__ bool thermal_source(const Thermal& th, int k,
                                                int j, int i, int nz, int ny,
                                                int nx, int& kT, int& jT,
                                                int& iT, float& value) {
   kT = k;
-  if (k3D && thermal_axis(k, nz, th.face[4], th.face[5], th.val[4],
-                          th.val[5], kT, value))
+  jT = j;
+  if (kZ && thermal_axis(k, nz, th.face[4], th.face[5], th.val[4],
+                         th.val[5], kT, value))
     return true;
-  if (thermal_axis(j, ny, th.face[2], th.face[3], th.val[2], th.val[3], jT,
-                   value))
+  if (kY && thermal_axis(j, ny, th.face[2], th.face[3], th.val[2],
+                         th.val[3], jT, value))
     return true;
   return thermal_axis(i, nx, th.face[0], th.face[1], th.val[0], th.val[1],
                       iT, value);
@@ -213,6 +216,20 @@ inline Thermal thermal_from(const float* f, const int* i) {
   }
   return th;
 }
+
+// A decomposed shard's block, the sharded modes' geometry
+// (parallel/fused_explicit.py): the input block holds hz planes and hy
+// rows of halo a side around the owned (nzl, nyl) window, and the kernel
+// runs one thread per owned point, its global plane z_base + k and row
+// y_base + j of an nz_g-plane, ny_g-row grid (nz_g 1 in 2D).  The global
+// faces the wrapper rewrites from other shards (the z-shell planes; the
+// y-face rows in the global-row modes) are passed through, and the step
+// maxima skip them: the wrapper folds them in after its fix.
+struct Shard {
+  int hz, hy;
+  int z_base, nz_g;
+  int y_base, ny_g;
+};
 
 inline dim3 grid_of(int nz, int ny, int nx) {
   return dim3((nx + kTileX - 1) / kTileX, (ny + kTileY - 1) / kTileY, nz);

@@ -10,16 +10,27 @@ nz == 1 instantiation of `euler_kernels`' CUDA kernel
 `euler_kernels.euler_step_plain` on a one-plane field.  Fields are
 (1, ny, nx); velocity shells pass through, w's too (the TPU kernel's
 interior mask; the reference's jnp 2D step wraps w's shells instead).
+The global-row mode of a y-decomposed shard's block
+(``make_euler2d_fused(global_ny=...)``) is the 2D instantiation of
+`euler_kernels`' ``euler_rows_kernel``.
 """
 
 from __future__ import annotations
 
 from . import native
-from .euler_kernels import ExplicitConsts, euler_step_plain, launch_euler
+from .euler_kernels import (ExplicitConsts, ShardBlock, _rows,
+                            euler_step_plain, launch_euler)
 
 
-def euler2d_step(u, v, w, p, T, rho, sy, sx, scal, c: ExplicitConsts):
-    """E2, the whole 2D Euler step — ``euler_kernel<false, *>`` on CUDA."""
+def euler2d_step(u, v, w, p, T, rho, sy, sx, scal, c: ExplicitConsts,
+                 shard: ShardBlock = None):
+    """E2, the whole 2D Euler step — ``euler_kernel<false, *>`` on CUDA.
+    With ``shard`` (a y-decomposed shard's block) its global-row mode,
+    ``euler_rows_kernel<false, *>``, counted on ``global_ny_launches``,
+    which returns ``(fields, maxima)`` (`euler_step_rows_plain`)."""
+    if shard is not None:
+        return _rows(euler2d_step, u, v, w, p, T, rho, sy, sx, scal, c,
+                     shard)
     if native.on_cpu(u):
         return euler_step_plain(u, v, w, p, T, rho, sy, sx, scal, c)
     if c.nz != 1:

@@ -16,6 +16,16 @@ faces need no second pass; a thermal face thread evaluates it also at the
 point its T comes from (a Neumann face's neighbour).  The 2D form
 (`euler2d.py`) is the same kernel's nz == 1 instantiation.
 
+The global-row mode of a decomposed shard's block (E3's and E2's
+``global_ny``, `euler_kernels.py:78-86`, `:108-118` of the reference;
+`parallel.fused_explicit`) is ``euler_rows_kernel`` through
+``cfd_euler_step_rows``: ``euler_step(..., shard=ShardBlock(...))`` on
+the halo-padded block, one thread an owned point, owned-size outputs,
+the global faces the step wrapper rewrites passed through, counted on
+``global_ny_launches``; :func:`euler_step_rows_plain` is its plain
+version.  Both return ``(fields, maxima)``: the six owned fields as the
+rows of one (6, nzl, nyl, nx) tensor and the four maxima as one (4,).
+
 :func:`euler_step` launches the kernel on a CUDA tensor and runs
 :func:`euler_step_plain` on a CPU tensor; its ``launches`` attribute
 counts kernel launches.  Both return
@@ -202,6 +212,50 @@ class ExplicitConsts:
                 float(self.pressure_coupling), *self.derivs())
 
 
+@dataclasses.dataclass(frozen=True)
+class ShardBlock:
+    """A decomposed shard's block, the sharded modes' geometry
+    (``csrc/explicit_common.cuh``: ``Shard``): the input fields hold
+    ``hz`` planes and ``hy`` rows of halo a side around the owned window,
+    whose plane 0 and row 0 are the global plane ``z_base`` of an
+    ``nz_g``-plane grid (1 on a 2D grid) and the global row ``y_base``
+    of an ``ny_g``-row one.  ``rows``: the y-face rows are the wrapper's
+    (the global-row modes) — else only the z-shell planes are."""
+
+    hz: int
+    hy: int
+    z_base: int
+    nz_g: int
+    y_base: int
+    ny_g: int
+    rows: bool = True
+
+    def owned(self, c: ExplicitConsts):
+        """(nzl, nyl): the owned window of a block of ``c``'s dims."""
+        return c.nz - 2 * self.hz, c.ny - 2 * self.hy
+
+    def window(self, c: ExplicitConsts):
+        nzl, nyl = self.owned(c)
+        return (slice(self.hz, self.hz + nzl), slice(self.hy, self.hy + nyl))
+
+    def faces(self, c: ExplicitConsts, device) -> torch.Tensor:
+        """(nzl, nyl, 1) bool: the owned points on a global face the
+        wrapper rewrites (z-shell planes; y-face rows when ``rows``)."""
+        nzl, nyl = self.owned(c)
+        out = torch.zeros((nzl, nyl, 1), dtype=torch.bool, device=device)
+        if self.nz_g > 1:
+            kg = self.z_base + torch.arange(nzl, device=device)
+            out |= ((kg < 1) | (kg > self.nz_g - 2))[:, None, None]
+        if self.rows:
+            jg = self.y_base + torch.arange(nyl, device=device)
+            out |= ((jg < 1) | (jg > self.ny_g - 2))[None, :, None]
+        return out
+
+    def args(self):
+        return (self.hz, self.hy, self.z_base, self.nz_g, self.y_base,
+                self.ny_g)
+
+
 def check_inputs(c: ExplicitConsts, fields, sy, sx, scal):
     """(nz, ny, nx) float32 fields, the (ny,) and (nx,) source vectors and
     the scalars, contiguous on one CUDA device."""
@@ -218,9 +272,11 @@ def check_inputs(c: ExplicitConsts, fields, sy, sx, scal):
         raise ValueError("source vectors must be (ny,) and (nx,)")
 
 
-def maxima_buffers(c: ExplicitConsts, like: torch.Tensor):
-    """Per-block partials and the four maxima the kernels write."""
-    n_part = native.library().cfd_explicit_partials(c.nz, c.ny, c.nx)
+def maxima_buffers(c: ExplicitConsts, like: torch.Tensor, dims=None):
+    """Per-block partials and the four maxima the kernels write over
+    ``dims`` (nz, ny) (default ``c``'s; a shard's owned window)."""
+    nz, ny = dims or (c.nz, c.ny)
+    n_part = native.library().cfd_explicit_partials(nz, ny, c.nx)
     return (torch.empty(4 * n_part, dtype=like.dtype, device=like.device),
             torch.empty(4, dtype=like.dtype, device=like.device))
 
@@ -237,6 +293,18 @@ def maxima(u, v, w, p, T):
     """(max|u|², max p, max|p|, max T) over the whole field."""
     m2 = torch.amax((u * u + v * v) + w * w)
     return m2, torch.amax(p), torch.amax(torch.abs(p)), torch.amax(T)
+
+
+def maxima_off(u, v, w, p, T, skip, skip_u=None):
+    """:func:`maxima` over the points where ``skip`` is False (those of
+    |u|² where ``skip_u`` is, when given)."""
+    def off(f, mask=skip):
+        return torch.where(mask, -torch.inf, f)
+
+    m2 = torch.amax(off((u * u + v * v) + w * w,
+                        skip if skip_u is None else skip_u))
+    return m2, torch.amax(off(p)), torch.amax(off(torch.abs(p))), \
+        torch.amax(off(T))
 
 
 def buoyant_sources(su, sv, T, c: ExplicitConsts):
@@ -353,6 +421,45 @@ def euler_step_plain(u, v, w, p, T, rho, sy, sx, scal, c: ExplicitConsts):
             *maxima(uo, vo, wo, po, To))
 
 
+def euler_step_rows_plain(u, v, w, p, T, rho, sy, sx, scal,
+                          c: ExplicitConsts, shard: ShardBlock):
+    """The global-row mode (E3's and E2's ``global_ny``, the reference's
+    `euler_kernels.py:78-86`, `euler2d.py:46-76`) in plain PyTorch: the
+    fields are a shard's block of ``c``'s dims (``sy`` and the spacing's
+    y rows its rows of the global ones), the outputs its owned window.
+    An owned point off the global faces the wrapper rewrites is an
+    interior point of the block, so it takes :func:`euler_step_plain`'s
+    value on the block; a face point passes through.  The maxima: |u|²
+    over every owned point (the velocities passed through are the
+    step's), p and T off the faces (the wrapper's wrapped faces hold
+    copies of values off them).  Returns ``(fields, maxima)``, the
+    stacks of the six owned fields and of the four maxima."""
+    full = euler_step_plain(u, v, w, p, T, rho, sy, sx, scal, c)
+    win = shard.window(c)
+    face = shard.faces(c, u.device)
+    outs = [torch.where(face, a[win], b[win])
+            for a, b in zip((u, v, w, p, rho, T), full[:6])]
+    return torch.stack(outs), torch.stack(maxima_off(
+        *outs[:4], outs[5], face, torch.zeros_like(face)))
+
+
+def launch_euler_rows(c: ExplicitConsts, shard: ShardBlock, u, v, w, p, T,
+                      rho, sy, sx, scal):
+    """One ``cfd_euler_step_rows`` launch; returns ``(fields, maxima)``
+    as :func:`euler_step_rows_plain`."""
+    check_inputs(c, (u, v, w, p, T, rho), sy, sx, scal)
+    nzl, nyl = shard.owned(c)
+    fields = torch.empty((6, nzl, nyl, c.nx), dtype=u.dtype,
+                         device=u.device)
+    partials, red = maxima_buffers(c, u, (nzl, nyl))
+    native.launch("cfd_euler_step_rows", u.device, *map(native.ptr, (
+        u, v, w, p, T, rho, sy, sx, scal, *fields.unbind(), partials,
+        red)),
+        nzl, nyl, c.nx, *c.kernel_args()[3:], *c.thermal.kernel_args(),
+        *c.kernel_spacing(), *shard.args())
+    return fields, red
+
+
 def launch_euler(c: ExplicitConsts, u, v, w, p, T, rho, sy, sx, scal):
     """One ``cfd_euler_step`` launch (the 3D or the 2D instantiation, by
     ``c.nz``); returns the outputs in :func:`euler_step_plain`'s order."""
@@ -365,15 +472,35 @@ def launch_euler(c: ExplicitConsts, u, v, w, p, T, rho, sy, sx, scal):
     return (*outs, red[0], red[1], red[2], red[3])
 
 
-def euler_step(u, v, w, p, T, rho, sy, sx, scal, c: ExplicitConsts):
+def euler_step(u, v, w, p, T, rho, sy, sx, scal, c: ExplicitConsts,
+               shard: ShardBlock = None):
     """E3, the whole 3D Euler step — ``euler_kernel<true, *, kS>`` on
-    CUDA, counted by spacing kind (`native.count_launch`)."""
+    CUDA, counted by spacing kind (`native.count_launch`).  With
+    ``shard`` (a z- or (z, y)-decomposed shard's block) its global-row
+    mode, ``euler_rows_kernel<true, *, kS>``, counted on
+    ``global_ny_launches``, which returns ``(fields, maxima)``
+    (:func:`euler_step_rows_plain`)."""
+    if shard is not None:
+        return _rows(euler_step, u, v, w, p, T, rho, sy, sx, scal, c, shard)
     if native.on_cpu(u):
         return euler_step_plain(u, v, w, p, T, rho, sy, sx, scal, c)
     if c.nz < 3:
         raise ValueError("euler_step is the 3D kernel (nz >= 3)")
     out = launch_euler(c, u, v, w, p, T, rho, sy, sx, scal)
     native.count_launch(euler_step, c.scheme)
+    return out
+
+
+def _rows(wrapper, u, v, w, p, T, rho, sy, sx, scal, c, shard):
+    """A wrapper's global-row mode: the plain version on the CPU, else
+    the launch, counted on ``global_ny_launches``."""
+    if native.on_cpu(u):
+        return euler_step_rows_plain(u, v, w, p, T, rho, sy, sx, scal, c,
+                                     shard)
+    if (c.nz > 1) != (shard.nz_g > 1):
+        raise ValueError("a shard block's dims and its nz_g disagree")
+    out = launch_euler_rows(c, shard, u, v, w, p, T, rho, sy, sx, scal)
+    native.count_launch(wrapper, "global_ny")
     return out
 
 

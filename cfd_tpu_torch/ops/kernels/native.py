@@ -87,6 +87,12 @@ SIGNATURES = {
     + [_P, _P, _I, _P],
     "cfd_rk_stage": [_P] * 4 + [_I] * 3 + [_F] * 8 + [_I, _P, _P]
     + [_P, _P, _I, _P],
+    # ... their sharded modes (a decomposed shard's block: halo planes and
+    # rows, global plane base and count, global row base and count)
+    "cfd_euler_step_rows": [_P] * 17 + [_I] * 3 + [_F] * 8 + [_P, _P]
+    + [_P, _P, _I] + [_I] * 6 + [_P],
+    "cfd_rk_stage_shard": [_P] * 4 + [_I] * 3 + [_F] * 8 + [_I, _P, _P]
+    + [_P, _P, _I] + [_I] * 6 + [_P],
     # cg_kernels.cu (the CG pressure solve)
     "cfd_cg_lap_dot": [_P] * 6 + [_I] * 3 + [_F] * 4 + [_P],
     "cfd_cg_update": [_P] * 6 + [_I] * 3 + [_F, _I, _P],

@@ -26,6 +26,19 @@ one thread per point, the periodic-interior neighbours as index maps (no
 pins), the final stage's faces evaluated at their wrap sources.  The 2D
 form (`rk2d.py`) is the same kernel's nz == 1 instantiation.
 
+On a decomposed shard's block (``rk_stage(..., shard=ShardBlock(...),
+pins=...)``; `parallel.fused_explicit`) the stage is
+``rk_shard_kernel`` through ``cfd_rk_stage_shard``, in the reference's
+``global_nz`` mode (whole rows; the z neighbours of global planes 1 and
+nz − 2 from pin planes; on ``global_nz_launches``) or ``global_nz`` +
+``global_ny`` / 2D ``global_ny`` mode (the y neighbours by global row
+over a periodic 2-row ring; on ``global_ny_launches``);
+:func:`rk_stage_shard_plain` is its plain version.  Both return
+``(fields, maxima)``: the stage's fields as the rows of one tensor
+(a mid stage's eight, next state and accumulator, block-shaped; the
+final stage's six, owned) and, for the final stage, its four maxima as
+one (4,) tensor (None for a mid stage).
+
 :func:`rk_stage` launches the kernel on a CUDA tensor and runs
 :func:`rk_stage_plain` on a CPU tensor; its ``launches`` attribute counts
 kernel launches (mid and final stages alike).  Kernel note: ~13 fields in
@@ -48,21 +61,32 @@ from ..stencils import (interior_mask, sx_m_periodic_interior,
                         sy_p_periodic_interior, sz_m_periodic_interior,
                         sz_p_periodic_interior)
 from . import native
-from .euler_kernels import (ExplicitConsts, buoyant_sources, check_inputs,
-                            energy_update_plain, maxima, maxima_buffers,
-                            thermal_output, viscosity)
+from .euler_kernels import (ExplicitConsts, ShardBlock, buoyant_sources,
+                            check_inputs, energy_update_plain, maxima,
+                            maxima_buffers, maxima_off, thermal_output,
+                            viscosity)
+
+
+def _periodic_interior(f, q):
+    """(y down, y up, z back, z front) periodic-interior neighbours."""
+    return (sy_m_periodic_interior(f), sy_p_periodic_interior(f),
+            sz_m_periodic_interior(f), sz_p_periodic_interior(f))
 
 
 def momentum_rhs_plain(u, v, w, p, rho, sy, sx, su_eff, sv_eff,
-                       c: ExplicitConsts, T=None):
+                       c: ExplicitConsts, T=None, neighbours=None,
+                       interior=None):
     """(k_u, k_v, k_w, k_p): the semi-discrete RHS with periodic-interior
     stencils (`cfd_tpu/solvers/ns/rk.py:52-116`) in the kernel's
     operation order; zero on the shell, and ×0 where ρ ≤ 1e-10; with
     buoyancy (``c.thermal``) ``T`` adds the buoyant sources.  On a
-    one-plane field every z term is dropped."""
+    one-plane field every z term is dropped.  A shard's block gives its
+    own y and z ``neighbours(f, q)`` (q: 0-3 for u, v, w, p) and
+    ``interior`` mask (:func:`shard_neighbours`)."""
     _, _, i2z, _, _, iz2 = c.derivs()
     three_d = c.nz > 1
     dx1, dy1, dx2, dy2 = c.xy_operators()
+    neighbours = neighbours or _periodic_interior
 
     def d1(a):
         return clamp(a, MAX_DERIVATIVE_LIMIT)
@@ -70,24 +94,23 @@ def momentum_rhs_plain(u, v, w, p, rho, sy, sx, su_eff, sv_eff,
     def d2(a):
         return clamp(a, MAX_SECOND_DERIVATIVE_LIMIT)
 
-    def terms(f):
+    def terms(f, q):
         """(∂x f, ∂y f, ∂z f, ∇²f) from the periodic-interior
         neighbours, each derivative and each second-derivative term
         clamped; on a stretched grid with the weights of the point."""
         xl, xr = sx_m_periodic_interior(f), sx_p_periodic_interior(f)
-        yd, yu = sy_m_periodic_interior(f), sy_p_periodic_interior(f)
+        yd, yu, zb, zf = neighbours(f, q)
         lap = d2(dx2(xl, f, xr)) + d2(dy2(yd, f, yu))
         dz = None
         if three_d:
-            zb, zf = sz_m_periodic_interior(f), sz_p_periodic_interior(f)
             dz = d1((zf - zb) * i2z)
             lap = lap + d2(((zf - 2.0 * f) + zb) * iz2)
         return d1(dx1(xl, f, xr)), d1(dy1(yd, f, yu)), dz, lap
 
-    du_dx, du_dy, du_dz, lap_u = terms(u)
-    dv_dx, dv_dy, dv_dz, lap_v = terms(v)
-    dw_dx, dw_dy, dw_dz, lap_w = terms(w)
-    dp_dx, dp_dy, dp_dz, _ = terms(p)
+    du_dx, du_dy, du_dz, lap_u = terms(u, 0)
+    dv_dx, dv_dy, dv_dz, lap_v = terms(v, 1)
+    dw_dx, dw_dy, dw_dz, lap_w = terms(w, 2)
+    dp_dx, dp_dy, dp_dz, _ = terms(p, 3)
     nu = viscosity(c.mu, rho)
     su, sv, sw = buoyant_sources(su_eff * sy[None, :, None],
                                  sv_eff * sx[None, None, :], T, c)
@@ -102,7 +125,8 @@ def momentum_rhs_plain(u, v, w, p, rho, sy, sx, su_eff, sv_eff,
         tw = (tw - w * dw_dz) - dp_dz / rho
         div = div + dw_dz
     ok = (rho > 1e-10).to(u.dtype)
-    interior = interior_mask(u.shape, torch.bool, u.device)
+    if interior is None:
+        interior = interior_mask(u.shape, torch.bool, u.device)
 
     def on_interior(k):
         return torch.where(interior, k * ok, 0.0)
@@ -136,6 +160,126 @@ def rk_stage_plain(state, q0, rho, T, acc, sy, sx, scal, c: ExplicitConsts,
     return (uo, vo, wo, po, rho_o, T_o, *maxima(uo, vo, wo, po, T_o))
 
 
+def shard_neighbours(c: ExplicitConsts, shard: ShardBlock, pins):
+    """``(neighbours, interior)`` of :func:`momentum_rhs_plain` on a
+    shard's block (the sharded modes, ``rk_shard_kernel``): the z
+    neighbours of global planes 1 and nz_g − 2 from ``pins`` (planes of
+    the block's rows: u, v, w, p at global plane nz_g − 2, then at global
+    plane 1), the y neighbours of a global-row block (``shard.rows``) by
+    global row: at global row 1 (ny_g − 2) the row three below (above),
+    which the periodic 2-row halo ring makes global row ny_g − 2 (1);
+    else the block's own periodic-interior rows.  ``interior``: the owned
+    points off the x faces and off the global faces the wrapper rewrites
+    (on a whole-row block, off the y faces too)."""
+    three_d = c.nz > 1
+
+    def neighbours(f, q):
+        kgf = (shard.z_base - shard.hz
+               + torch.arange(c.nz, device=f.device))[:, None, None]
+        jgf = (shard.y_base - shard.hy
+               + torch.arange(c.ny, device=f.device))[None, :, None]
+        if shard.rows:
+            yd = torch.where(jgf == 1, torch.roll(f, 3, -2),
+                             torch.roll(f, 1, -2))
+            yu = torch.where(jgf == shard.ny_g - 2, torch.roll(f, -3, -2),
+                             torch.roll(f, -1, -2))
+        else:
+            yd, yu = sy_m_periodic_interior(f), sy_p_periodic_interior(f)
+        if not three_d:
+            return yd, yu, None, None
+        zb, zf = torch.roll(f, 1, -3), torch.roll(f, -1, -3)
+        if pins is not None:
+            zb = torch.where(kgf == 1, pins[q], zb)
+            zf = torch.where(kgf == shard.nz_g - 2, pins[4 + q], zf)
+        return yd, yu, zb, zf
+
+    def interior(device):
+        inner = torch.zeros((c.nz, c.ny, c.nx), dtype=torch.bool,
+                            device=device)
+        zs, ys = shard.window(c)
+        inner[zs, ys] = ~shard.faces(c, device)
+        inner[..., 0] = inner[..., -1] = False
+        if not shard.rows:
+            inner[:, 0] = inner[:, -1] = False
+        return inner
+
+    return neighbours, interior
+
+
+def rk_stage_shard_plain(state, q0, rho, T, acc, sy, sx, scal,
+                         c: ExplicitConsts, final: bool, shard: ShardBlock,
+                         pins=None):
+    """One stage on a shard's block in plain PyTorch (the reference's
+    ``make_rk_stage(global_nz=, global_ny=)``, `rk_kernels.py:61-125`,
+    and ``make_rk2d_stage(global_ny=)``, `rk2d.py:56-91`): every input
+    the block of ``c``'s dims, ``pins`` as :func:`shard_neighbours`'
+    (None on a shard that holds neither global plane 1 nor nz_g − 2).
+    A mid stage returns ``(fields, None)``, fields the (8, …) block-shaped
+    stack of (next, acc′), of which the owned window is the stage's (the
+    wrapper fills the halos); the final stage ``(fields, maxima)``,
+    fields the (6, …) stack of the owned window of the finished state:
+    off the rewritten global faces the single-device stage's value on
+    the block (its x wrap, and on a whole-row block its y wrap, are the
+    block's own), on them k = 0 at the point itself, ρ and T passed
+    through; maxima the (4,) stack of its maxima off those faces."""
+    nb, interior = shard_neighbours(c, shard, pins)
+    ks = momentum_rhs_plain(*state, rho, sy, sx, scal[3], scal[4], c, T, nb,
+                            interior(state[0].device))
+    factor, acc_mix, weight = scal[0], scal[1], scal[2]
+    accs = (0.0,) * 4 if acc is None else acc
+    nxt = [q + factor * (acc_mix * a + k) for q, a, k in zip(q0, accs, ks)]
+    nxt[:3] = [clamp(f, MAX_VELOCITY_LIMIT) for f in nxt[:3]]
+    if not final:
+        return torch.stack(
+            [*nxt, *(a + weight * k for a, k in zip(accs, ks))]), None
+    T_upd = (energy_update_plain(T, *nxt[:3], scal[5], c)
+             if c.thermal.energy else T)
+    wrapped = [apply_periodic_scalar(f) for f in (*nxt, rho)]
+    wrapped.append(thermal_output(T_upd, c))
+    win = shard.window(c)
+    face = shard.faces(c, T.device)
+    outs = [torch.where(face, a[win], b[win])
+            for a, b in zip((*nxt, rho, T), wrapped)]
+    return torch.stack(outs), torch.stack(maxima_off(*outs[:4], outs[5],
+                                                     face))
+
+
+def launch_rk_shard(state, q0, rho, T, acc, sy, sx, scal, c: ExplicitConsts,
+                    final: bool, shard: ShardBlock, pins):
+    """One ``cfd_rk_stage_shard`` launch; returns ``(fields, maxima)`` as
+    :func:`rk_stage_shard_plain` (a mid stage's halos unwritten)."""
+    check_inputs(c, (*state, *q0, rho, T, *(acc or ())), sy, sx, scal)
+    if pins is not None:
+        native.check_cuda(pins)
+        if tuple(pins.shape) != (8, c.ny, c.nx):
+            raise ValueError("the pins must be (8, ny, nx) block planes")
+    if final and c.thermal.energy and scal.numel() < 6:
+        raise ValueError("the final stage's energy update reads dt, "
+                         "scal[5]")
+    nzl, nyl = shard.owned(c)
+    u = state[0]
+    shape = (nzl, nyl, c.nx) if final else tuple(u.shape)
+    fields = torch.empty((6 if final else 8, *shape), dtype=u.dtype,
+                         device=u.device)
+    partials, red = (maxima_buffers(c, u, (nzl, nyl)) if final
+                     else (None, None))
+    ins = _ptrs((*state, *q0, rho, T, *(acc or (None,) * 4), sy, sx, scal,
+                 pins))
+    out_arr = _ptrs((*fields.unbind(), *(None,) * (8 - len(fields))))
+    native.launch("cfd_rk_stage_shard", u.device, ins, out_arr,
+                  None if partials is None else native.ptr(partials),
+                  None if red is None else native.ptr(red),
+                  nzl, nyl, c.nx, *c.kernel_args()[3:], int(final),
+                  *c.thermal.kernel_args(), *c.kernel_spacing(),
+                  *shard.args())
+    return fields, red
+
+
+def _ptrs(ts):
+    return (ctypes.c_void_p * len(ts))(*(
+        None if t is None else native.ptr(t) for t in ts))
+
+
 def launch_rk(state, q0, rho, T, acc, sy, sx, scal, c: ExplicitConsts,
               final: bool):
     """One ``cfd_rk_stage`` launch (3D or 2D instantiation, by ``c.nz``);
@@ -148,12 +292,8 @@ def launch_rk(state, q0, rho, T, acc, sy, sx, scal, c: ExplicitConsts,
     outs = [torch.empty_like(u) for _ in range(6 if final else 8)]
     partials, red = maxima_buffers(c, u) if final else (None, None)
 
-    def ptrs(ts):
-        return (ctypes.c_void_p * len(ts))(*(
-            None if t is None else native.ptr(t) for t in ts))
-
-    ins = ptrs((*state, *q0, rho, T, *(acc or (None,) * 4), sy, sx, scal))
-    out_arr = ptrs((*outs, *(None,) * (8 - len(outs))))
+    ins = _ptrs((*state, *q0, rho, T, *(acc or (None,) * 4), sy, sx, scal))
+    out_arr = _ptrs((*outs, *(None,) * (8 - len(outs))))
     native.launch("cfd_rk_stage", u.device, ins, out_arr,
                   None if partials is None else native.ptr(partials),
                   None if red is None else native.ptr(red),
@@ -165,14 +305,38 @@ def launch_rk(state, q0, rho, T, acc, sy, sx, scal, c: ExplicitConsts,
 
 
 def rk_stage(state, q0, rho, T, acc, sy, sx, scal, c: ExplicitConsts,
-             final: bool):
-    """RK3, one 3D stage — ``rk_kernel<true, final, *>`` on CUDA."""
+             final: bool, shard: ShardBlock = None, pins=None):
+    """RK3, one 3D stage — ``rk_kernel<true, final, *>`` on CUDA.  With
+    ``shard`` a z-decomposed shard's block: ``global_nz`` (whole rows,
+    ``rk_shard_kernel<true, *, *, *, kZ>``, counted on
+    ``global_nz_launches``) or, with ``shard.rows``, ``global_nz`` +
+    ``global_ny`` (``kRows``, on ``global_ny_launches``), which returns
+    ``(fields, maxima)`` (:func:`rk_stage_shard_plain`)."""
+    if shard is not None:
+        return _shard_stage(rk_stage, state, q0, rho, T, acc, sy, sx, scal,
+                            c, final, shard, pins)
     if native.on_cpu(state[0]):
         return rk_stage_plain(state, q0, rho, T, acc, sy, sx, scal, c, final)
     if c.nz < 3:
         raise ValueError("rk_stage is the 3D kernel (nz >= 3)")
     out = launch_rk(state, q0, rho, T, acc, sy, sx, scal, c, final)
     native.count_launch(rk_stage, c.scheme)
+    return out
+
+
+def _shard_stage(wrapper, state, q0, rho, T, acc, sy, sx, scal, c, final,
+                 shard, pins):
+    """A stage wrapper's sharded mode: the plain version on the CPU, else
+    the launch, counted on ``global_ny_launches`` (a global-row block) or
+    ``global_nz_launches``."""
+    if native.on_cpu(state[0]):
+        return rk_stage_shard_plain(state, q0, rho, T, acc, sy, sx, scal, c,
+                                    final, shard, pins)
+    if (c.nz > 1) != (shard.nz_g > 1) or (c.nz == 1 and not shard.rows):
+        raise ValueError("a shard block's dims and its mode disagree")
+    out = launch_rk_shard(state, q0, rho, T, acc, sy, sx, scal, c, final,
+                          shard, pins)
+    native.count_launch(wrapper, "global_ny" if shard.rows else "global_nz")
     return out
 
 

@@ -27,7 +27,8 @@ So the same step runs on both implementations:
   finiteness check).
 
 The collectives along one mesh axis (``axis`` "z", the default, exchanges
-along dim 0 with the shards ``(zi ± 1, yi)``; "y" along dim 1 with
+along the planes, dim −3, with the shards ``(zi ± 1, yi)``; "y" along the
+rows, dim −2, with
 ``(zi, yi ± 1)``, the reference's ``'z'`` and ``'y'`` ppermute rings and
 ``all_to_all`` groups, `fused.py:718-786`):
 
@@ -43,13 +44,28 @@ along dim 0 with the shards ``(zi ± 1, yi)``; "y" along dim 1 with
   the shard at position j of its group receives the j-th chunk (along
   ``split_axis``) of every group member's block, concatenated in group
   order along ``concat_axis``;
-* ``fill_halo(bufs, n, axis)`` — the same exchange into persistent
-  buffers: each shard's buffer holds ``n`` halo planes (rows) a side
-  around its owned ones, and those are overwritten with its neighbours'
-  owned edge planes (rows); an edge shard's outer halo is left as it is
-  (the Krylov solves allocate it zero once and copy only halo planes each
-  iteration, where ``halo`` and a concatenation would copy the whole
-  block).  On a buffer padded along both axes fill "y" first, then "z";
+* ``fill_halo(bufs, n, axis, wrap=False)`` — the same exchange into
+  persistent buffers: each shard's buffer holds ``n`` halo planes (rows)
+  a side around its owned ones, and those are overwritten with its
+  neighbours' owned edge planes (rows); an edge shard's outer halo is
+  left as it is, or with ``wrap=True`` filled from the opposite edge
+  shard (the periodic ring of the reference's explicit (z, y) steps,
+  ``ypad``, `fused.py:80-107`; on an axis of one shard its own).  The
+  Krylov solves allocate the buffers zero once and copy only halo planes
+  each iteration, where ``halo`` and a concatenation would copy the whole
+  block.  On a buffer padded along both axes fill "y" first, then "z";
+* ``edge_swap(to_first, to_last, axis)`` — the edge-to-edge exchange of
+  the reference's periodic shell wraps (``ppermute [(n−1, 0)]`` and
+  ``[(0, n−1)]``, `fused.py:1209-1236`): the last shard of each group
+  along ``axis`` sends its ``to_first`` to the first, the first its
+  ``to_last`` to the last; each shard gets ``(from_last, from_first)``,
+  None where it is not that edge (an entry a shard does not send may be
+  None; a receive is shaped as the shard's own opposite entry).  The
+  decomposed RK steps' z-wrap pins (global planes nz − 2 and 1 of a
+  stage state) ride it too: the reference sums masked edge planes over
+  'z' with one ``psum`` a stage (`fused.py:1633-1648`), but only the two
+  edge shards read them, so the edge-to-edge pair moves them with less
+  traffic and no reduction;
 
 and over every shard:
 
@@ -74,8 +90,9 @@ from __future__ import annotations
 
 import torch
 
-#: the field dimension each mesh axis splits
-AXIS_DIM = {"z": 0, "y": 1}
+#: the field dimension each mesh axis splits, counted from the end (so a
+#: stack of fields, (n, nz, ny, nx), exchanges as one)
+AXIS_DIM = {"z": -3, "y": -2}
 
 
 class _Grid:
@@ -119,9 +136,9 @@ class _Grid:
         """(zi, yi) of shard ``s``."""
         return divmod(int(s), self.shape[1])
 
-    def neighbour(self, s: int, axis: str, step: int):
-        """The shard ``step`` (±1) away from ``s`` along ``axis``, or None
-        past the grid's edge (no wrap)."""
+    def neighbour(self, s: int, axis: str, step: int, wrap: bool = False):
+        """The shard ``step`` (±1) away from ``s`` along ``axis``: past the
+        grid's edge None, or with ``wrap`` the opposite edge shard."""
         zi, yi = self.coords(s)
         if axis == "z":
             zi += step
@@ -129,9 +146,16 @@ class _Grid:
             yi += step
         else:
             raise ValueError(f"unknown mesh axis {axis!r}")
+        if wrap:
+            zi, yi = zi % self.shape[0], yi % self.shape[1]
         if not (0 <= zi < self.shape[0] and 0 <= yi < self.shape[1]):
             return None
         return zi * self.shape[1] + yi
+
+    def edges(self, s: int, axis: str):
+        """(first, last): the edge shards of ``s``'s group along ``axis``."""
+        members = self.axis_group(s, axis)
+        return members[0], members[-1]
 
     def axis_group(self, s: int, axis: str):
         """The shards that share ``s``'s other coordinate, in order along
@@ -187,16 +211,24 @@ class LocalComm(_Grid):
                  for g in members], dim=concat_axis))
         return out
 
-    def fill_halo(self, bufs, n: int, axis: str = "z"):
+    def fill_halo(self, bufs, n: int, axis: str = "z", wrap: bool = False):
         dim = AXIS_DIM[axis]
         for s, b in enumerate(bufs):
-            left, right = (self.neighbour(s, axis, d) for d in (-1, 1))
+            left, right = (self.neighbour(s, axis, d, wrap) for d in (-1, 1))
             if left is not None:
                 _edge(b, dim, True, n).copy_(
                     _edge(bufs[left], dim, False, n, n))
             if right is not None:
                 _edge(b, dim, False, n).copy_(
                     _edge(bufs[right], dim, True, n, n))
+
+    def edge_swap(self, to_first, to_last, axis: str = "z"):
+        out = []
+        for s, dev in enumerate(self.devices):
+            first, last = self.edges(s, axis)
+            out.append((to_first[last].to(dev) if s == first else None,
+                        to_last[first].to(dev) if s == last else None))
+        return out
 
     def max(self, values):
         total = values[0]
@@ -295,35 +327,63 @@ class ProcessGroupComm(_Grid):
         for t, buf in back:
             t.copy_(buf)
 
+    def _ring(self, lo_dst, hi_dst, lo_src, hi_src, axis, wrap):
+        """Receive ``lo_dst`` from the left neighbour's ``hi_src`` and
+        ``hi_dst`` from the right one's ``lo_src``.  Sends go right, then
+        left, and receives come from the left, then the right, so on a
+        ring of two (where both neighbours are one rank) the messages
+        pair up in that order; a rank that is its own neighbour copies."""
+        left, right = (self.neighbour(self.rank, axis, d, wrap)
+                       for d in (-1, 1))
+        sends, recvs = [], []
+        if right == self.rank:
+            lo_dst.copy_(hi_src)
+            hi_dst.copy_(lo_src)
+            return
+        if right is not None:
+            sends.append((hi_src, right))
+        if left is not None:
+            sends.append((lo_src, left))
+            recvs.append((lo_dst, left))
+        if right is not None:
+            recvs.append((hi_dst, right))
+        self._exchange(sends, recvs)
+
     def halo(self, blocks, n: int, axis: str = "z"):
         dim = AXIS_DIM[axis]
         (b,) = blocks
         lo = torch.zeros_like(_edge(b, dim, True, n),
                               memory_format=torch.contiguous_format)
         hi = torch.zeros_like(lo)
-        left, right = (self.neighbour(self.rank, axis, d) for d in (-1, 1))
-        sends, recvs = [], []
-        if left is not None:
-            sends.append((_edge(b, dim, True, n), left))
-            recvs.append((lo, left))
-        if right is not None:
-            sends.append((_edge(b, dim, False, n), right))
-            recvs.append((hi, right))
-        self._exchange(sends, recvs)
+        self._ring(lo, hi, _edge(b, dim, True, n), _edge(b, dim, False, n),
+                   axis, False)
         return [(lo, hi)]
 
-    def fill_halo(self, bufs, n: int, axis: str = "z"):
+    def fill_halo(self, bufs, n: int, axis: str = "z", wrap: bool = False):
         dim = AXIS_DIM[axis]
         (b,) = bufs
-        left, right = (self.neighbour(self.rank, axis, d) for d in (-1, 1))
-        sends, recvs = [], []
-        if left is not None:
-            sends.append((_edge(b, dim, True, n, n), left))
-            recvs.append((_edge(b, dim, True, n), left))
-        if right is not None:
-            sends.append((_edge(b, dim, False, n, n), right))
-            recvs.append((_edge(b, dim, False, n), right))
+        self._ring(_edge(b, dim, True, n), _edge(b, dim, False, n),
+                   _edge(b, dim, True, n, n), _edge(b, dim, False, n, n),
+                   axis, wrap)
+
+    def edge_swap(self, to_first, to_last, axis: str = "z"):
+        (tf,), (tl,) = to_first, to_last
+        first, last = self.edges(self.rank, axis)
+        if first == last:
+            return [(tf, tl)]
+        sends, recvs, got = [], [], [None, None]
+        if self.rank == last:
+            sends.append((tf, first))
+            got[1] = torch.empty_like(tf,
+                                      memory_format=torch.contiguous_format)
+            recvs.append((got[1], first))
+        if self.rank == first:
+            sends.append((tl, last))
+            got[0] = torch.empty_like(tl,
+                                      memory_format=torch.contiguous_format)
+            recvs.append((got[0], last))
         self._exchange(sends, recvs)
+        return [tuple(got)]
 
     def all_to_all(self, blocks, split_axis: int, concat_axis: int,
                    axis: str = "z"):

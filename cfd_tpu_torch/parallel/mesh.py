@@ -9,7 +9,9 @@ one axis name or None per field dimension, and a placed field is a
 :class:`ShardedField`: the mesh plus the local slab `FlowField`s of the
 shards this process holds.
 
-* :func:`make_mesh` — 1D or (z, y) mesh; the devices default to the
+* :func:`make_mesh` — 1D or (z, y) mesh (a y-only mesh, ``axes=("y",)``,
+  lays its shards out as one row, so its "y" halos find their
+  neighbours); the devices default to the
   visible CUDA devices, and without one it raises, like every entry point
   of the port.  A list such as ``[cuda:0] * 4`` (or ``[cpu] * 4``) gives
   four shards emulated in one process (`comm.LocalComm`); a
@@ -72,6 +74,16 @@ def mesh_zy_sizes(mesh: Mesh):
     return mesh.shape["z"], mesh.shape.get("y", 1)
 
 
+def mesh_y_size(mesh: Mesh):
+    """The shard count along 'y' when the mesh is y-only (every other
+    axis of size 1), else None (`cfd_tpu/parallel/fused.py:58-65`)."""
+    if "y" not in mesh.axis_names:
+        return None
+    if any(n != "y" and mesh.shape[n] != 1 for n in mesh.axis_names):
+        return None
+    return mesh.shape["y"]
+
+
 def _cuda_devices():
     resolve_device("cuda")  # raises without a CUDA device
     return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
@@ -106,8 +118,11 @@ def make_mesh(devices: Optional[Sequence] = None,
                          f"mesh {n} devices")
     mesh = Mesh(arr, tuple(axes), comm)
     # the communicator's grid: (Pz, Py) on a mesh over 'z' and / or 'y',
-    # else one ring over every shard
-    comm.set_shape(mesh_zy_sizes(mesh) or (n, 1))
+    # (1, n) on a y-only one (its "y" exchanges along the row), else one
+    # ring over every shard
+    y_only = mesh_y_size(mesh)
+    comm.set_shape(mesh_zy_sizes(mesh)
+                   or ((1, n) if y_only is not None else (n, 1)))
     return mesh
 
 

@@ -5,9 +5,11 @@ The reference has two ways to run a step on a mesh: its fused shard_map
 paths (`parallel.fused`) and, for everything else, the single-device jnp
 step under GSPMD placement.  GSPMD has no torch counterpart, so here every
 configuration runs the ported fused path (`fused.
-make_fused_sharded_projection_step`) or raises ``CFDError(
-ERROR_UNSUPPORTED)`` with the reason — as the reference's ``strict=True``
-does; nothing falls back.
+make_fused_sharded_projection_step`; `fused_explicit.
+make_fused_sharded_euler_step` and ``make_fused_sharded_rk_step`` for
+``explicit_euler``, ``rk2`` and ``rk4``, `sharded.py:108-135`) or raises
+``CFDError(ERROR_UNSUPPORTED)`` with the reason — as the reference's
+``strict=True`` does; nothing falls back.
 """
 
 from __future__ import annotations
@@ -17,6 +19,10 @@ from ..core.status import CFDError, Status
 from ..solvers.ns.params import NSParams
 from .fused import (fused_sharded_unsupported_reason,
                     make_fused_sharded_projection_step)
+from .fused_explicit import (fused_sharded_euler_unsupported_reason,
+                             fused_sharded_rk_unsupported_reason,
+                             make_fused_sharded_euler_step,
+                             make_fused_sharded_rk_step)
 from .mesh import Mesh, field_spec, shard_field
 
 _METHODS = ("explicit_euler", "rk2", "rk4", "projection")
@@ -53,13 +59,27 @@ def make_sharded_raw_step(grid: Grid, params: NSParams, mesh: Mesh,
     if use_pallas is False:
         unsupported("the GSPMD jnp step (use_pallas=False) has no "
                     "counterpart in the port")
-    if method != "projection":
-        unsupported(f"the fused sharded {method} step is not ported yet")
-    reason = fused_sharded_unsupported_reason(grid, params, mesh,
-                                              kw.get("poisson_method"))
+    if method == "projection":
+        reason = fused_sharded_unsupported_reason(grid, params, mesh,
+                                                  kw.get("poisson_method"))
+    elif method == "explicit_euler":
+        reason = fused_sharded_euler_unsupported_reason(grid, params, mesh)
+    else:
+        reason = fused_sharded_rk_unsupported_reason(grid, params, mesh)
     if reason is not None:
         unsupported(reason)
-    raw = make_fused_sharded_projection_step(grid, params, mesh, **kw)
+    if method == "projection":
+        raw = make_fused_sharded_projection_step(grid, params, mesh, **kw)
+    else:
+        extra = set(kw) - {"dtype", "plain"}
+        if extra:
+            unsupported(f"keywords {sorted(extra)} apply to the projection "
+                        "step")
+        if method == "explicit_euler":
+            raw = make_fused_sharded_euler_step(grid, params, mesh, **kw)
+        else:
+            raw = make_fused_sharded_rk_step(grid, params, mesh,
+                                             int(method[2:]), **kw)
     return (raw, field_spec(mesh, grid.nz > 1, grid.shape),
             lambda field: shard_field(field, mesh))
 

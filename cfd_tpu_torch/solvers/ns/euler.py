@@ -103,9 +103,9 @@ def explicit_setup(name: str, grid: Grid, params: NSParams, dtype, device,
 
 def as_scalar(dt, dtype, device) -> torch.Tensor:
     """``dt`` as a 0-d tensor on the field's device (a fill, not a
-    host-to-device copy, which would synchronise)."""
+    host-to-device copy, which would synchronise; a tensor is moved)."""
     if torch.is_tensor(dt):
-        return dt.to(dtype)
+        return dt.to(device=device, dtype=dtype)
     return torch.full((), dt, dtype=dtype, device=device)
 
 

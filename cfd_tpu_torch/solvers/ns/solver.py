@@ -15,9 +15,10 @@ spectral direct solve (``FFT_DIRECT``).
 decomposition (`solver.py:83`, `:97-105`): ``init`` builds the step
 through `parallel.sharded.make_sharded_raw_step`, ``place`` shards a
 field into a `parallel.mesh.ShardedField`, and ``step`` and ``solve``
-run on it.  The ported sharded step is the z-decomposed spectral
-projection (``FFT_DIRECT``); anything else raises
-``CFDError(ERROR_UNSUPPORTED)`` at ``init`` with its reason.
+run on it.  The ported sharded steps are the z- and (z, y)-decomposed
+projections and the decomposed explicit steps (``explicit_euler``,
+``rk2``, ``rk4`` over z, (z, y) and, on a 2D grid, y meshes); anything
+else raises ``CFDError(ERROR_UNSUPPORTED)`` at ``init`` with its reason.
 """
 
 from __future__ import annotations
@@ -132,9 +133,19 @@ class NSSolver:
         self._step_fn, self._solve_fn = step, solve
         return Status.SUCCESS
 
-    def place(self, field: FlowField):
+    def place(self, field):
         """Shard a single-device field over the solver's mesh (a
-        `parallel.mesh.ShardedField`); the field itself without a mesh."""
+        `parallel.mesh.ShardedField`); the field itself without a mesh.
+        A `ShardedField` already on this mesh passes through; one on
+        another mesh is gathered and placed again (gathered onto the
+        solver's device without a mesh: `NSSolver.set_solver` of a
+        session swaps solvers under a field placed by the last one)."""
+        from ...parallel.mesh import ShardedField
+        if isinstance(field, ShardedField):
+            if self.mesh is not None and field.mesh is self.mesh:
+                return field
+            field = field.gather(None if self.mesh is not None
+                                 else device_of(self.device))
         return field if self._place_fn is None else self._place_fn(field)
 
     def _require_init(self):

@@ -257,6 +257,33 @@ mesh every 4-card machine gets, and (1, 4); emulated on the card):
 
 On phases 52 and 53 the plain twins of the path are tripwires too.
 
+And the decomposed explicit steps (``make_sharded_step(...,
+"explicit_euler" | "rk2" | "rk4")``, emulated shards on the card):
+
+* phase 54: the Euler and RK kernels' sharded modes — E3's and E2's
+  global-row mode, RK3's ``global_nz`` (z pins) and ``global_nz`` +
+  ``global_ny`` modes, RK2's ``global_ny`` mode, Euler and RK's first,
+  mid and final stages — against their plain twins on the first, a
+  middle and the last of 3 blocks at 37×23×15 and 37×23, on every block
+  of 4 z-shards and of (2, 2) at 256³ and of 4 y-shards at 2048²
+  (owned windows bit-equal; one block of each mode timed by its device
+  time);
+* phase 55: ``bench.py``'s 256³ Euler, RK2 and RK4 over 4 z-shards,
+  (2, 2) and (1, 4) against the single-device kernel step (the first
+  step and 12 in all held at ``TOL_SHARDED_EXPLICIT``, expected 0; the
+  maxima held too), 3 warm-up and 5 timed steps of each beside the
+  single-device step's, the plain twins tripwires (with ``--profile``
+  the (2, 2) steps profiled and their halo and pad copies' share);
+* phase 56: the 2048² Euler and RK2 over 4 y-shards the same way, then
+  the buoyant + energy (two face mixes) and tanh-stretched (parity,
+  consistent + energy) Euler / RK2 / RK4 at 48×40×24 over 4z and (2, 2)
+  and 96×64 over 4y, 3 steps, against the single-device steps;
+* phase 57: ``Simulation.create(..., mesh=)`` (Euler on 128×64 over 4y
+  and 64×48×24 over 4z, RK4 over (2, 2), the spectral projection over
+  4z) against the single-device facade after 10 ``step()``s and a
+  ``solve()``, a solver swap keeping the mesh; then the Euler step on a
+  one-rank NCCL ``ProcessGroupComm`` against ``LocalComm``, bit for bit.
+
 It checks status, finiteness, launch counters (set to 0 just before each
 main path and read just after) and kernel-vs-plain agreement; any
 failure exits non-zero.  The line before the last is a JSON object
@@ -474,6 +501,19 @@ CG_UPD_ZY = "cfd_tpu/parallel/fused_cg.py:218"      # the owned-point axpy
 DOT_ZY = "cfd_tpu/ops/pallas/projection_kernels.py:240"  # x-only DST
 YZ_Z = "cfd_tpu/solvers/poisson/spectral.py:645"    # the z-stage einsum
 
+# Phases 54-57: the decomposed explicit steps (cfd_tpu_torch.parallel.
+# fused_explicit) and their kernel modes
+E3_ZY = "cfd_tpu/ops/pallas/euler_kernels.py:108"   # global_ny
+E2_Y = "cfd_tpu/ops/pallas/euler2d.py:75"            # global_ny
+RK3_Z = "cfd_tpu/ops/pallas/rk_kernels.py:183"       # global_nz
+RK3_ZY = "cfd_tpu/ops/pallas/rk_kernels.py:110"      # + global_ny
+RK2_Y = "cfd_tpu/ops/pallas/rk2d.py:90"              # global_ny
+# a decomposed explicit step against the single-device kernel step: the
+# same arithmetic at every point and the same faces, so expected bit for
+# bit; a difference is held at 2e-6 (the reference's own sharded-vs-jnp
+# bar is 5e-6, tests/parallel/test_fused_sharded.py:222-224)
+TOL_SHARDED_EXPLICIT = 2e-6
+
 # The card's peaks for a kernel's bound (H100 SXM data sheet, at 700 W):
 # device memory 3.35 TB/s, float32 outside the tensor cores 67 TFLOP/s,
 # dense TF32 on the tensor cores 494.7 TFLOP/s (the 3xTF32 GEMM's rate).
@@ -605,7 +645,7 @@ def profile_steps(torch, label, run, n_steps):
     """Run ``run()`` (``n_steps`` steps) under torch.profiler; print each
     device kernel's ms per step, the number of device events (kernels and
     copies), and the device busy time against the CUDA-event span and the
-    host wall time of the run."""
+    host wall time of the run.  Returns ({kernel: ms}, busy ms)."""
     from torch.profiler import ProfilerActivity, profile
 
     start = torch.cuda.Event(enable_timing=True)
@@ -626,19 +666,20 @@ def profile_steps(torch, label, run, n_steps):
         if ev.device_type.name != "CUDA":
             continue
         n_events += 1
-        name = ev.name[:60]
-        per_kernel[name] = (per_kernel.get(name, 0.0)
-                            + ev.time_range.elapsed_us() / 1e3)
+        per_kernel[ev.name] = (per_kernel.get(ev.name, 0.0)
+                               + ev.time_range.elapsed_us() / 1e3)
     if not per_kernel:
         fail("profile: the profiler saw no device events")
     busy_ms = sum(per_kernel.values())
     for name, ms in sorted(per_kernel.items(), key=lambda kv: -kv[1]):
-        print(f"  profile {ms / n_steps:9.4f} ms/step  {name}", flush=True)
+        print(f"  profile {ms / n_steps:9.4f} ms/step  {name[:60]}",
+              flush=True)
     print(f"{label} profile over {n_steps} steps: {n_events} device "
           f"events, device busy "
           f"{busy_ms:.3f} ms, CUDA-event span {span_ms:.3f} ms, host wall "
           f"{wall_ms:.3f} ms; idle share {1 - busy_ms / span_ms:.4f} of the "
           f"span, {1 - busy_ms / wall_ms:.4f} of the wall", flush=True)
+    return per_kernel, busy_ms
 
 
 def main() -> int:
@@ -736,6 +777,24 @@ def main() -> int:
         sync()
         return start.elapsed_time(end) / reps
 
+    def device_ms(fn, reps=5):
+        """ms of device time a call of ``fn`` (every kernel and copy it
+        launches, torch.profiler's CUDA events): where a call's host work
+        outlasts its kernels, CUDA events time the host instead."""
+        from torch.profiler import ProfilerActivity, profile
+
+        fn()
+        sync()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            sync()
+        busy = sum(ev.time_range.elapsed_us() for ev in prof.events()
+                   if ev.device_type.name == "CUDA")
+        if busy <= 0:
+            fail("device_ms: the profiler saw no device events")
+        return busy / 1e3 / reps
+
     # (path, wrapper name) -> dict of numbers (512³ / 2048² where measured)
     records = {}
 
@@ -789,7 +848,7 @@ def main() -> int:
 
     def check(path, tag, timed, wrapper, replaces, source, kernel, plain,
               outs, tols, work=None, library=None, time_fn=None, name=None,
-              rate=FP32_FLOPS):
+              rate=FP32_FLOPS, device_time=False):
         """Run ``kernel`` (the wrapper) and ``plain`` on the same inputs,
         compare each output; time both when ``timed``.  ``path`` names the
         main path whose launch count the record takes (the Thomas and
@@ -797,10 +856,17 @@ def main() -> int:
         flops) gives the bound, with every input read once and every
         output written once; ``library`` is one PyTorch call computing the
         same function, timed beside the kernel (the port never calls
-        it); ``time_fn``, when given, is what is timed for the kernel (the
-        launch as the main path makes it).  ``name`` keys the record where
-        the wrapper launches more than one kernel (the GEMMs at each
-        precision); ``rate`` is the operations' peak for the bound."""
+        it); ``work``'s first entry may be the bytes the kernel must
+        read instead, where it reads only part of its inputs (a sharded
+        block's halos); ``work`` may carry a third entry, the bytes the
+        kernel writes, where its outputs hold more than it writes (a
+        sharded mid stage's halos); ``time_fn``, when given, is what is timed
+        for the kernel (the launch as the main path makes it).
+        ``name`` keys the record where the wrapper launches more than one
+        kernel (the GEMMs at each precision); ``rate`` is the
+        operations' peak for the bound; ``device_time`` times kernel and
+        plain by their device time (`device_ms`) and prints the
+        CUDA-event span beside it."""
         name = name or wrapper.__name__
         got = kernel()
         ref = plain()
@@ -817,11 +883,19 @@ def main() -> int:
         if timed:
             rec["ms"] = cuda_ms(time_fn or kernel)
             rec["plain_ms"] = cuda_ms(plain)
+            if device_time:
+                print(f"  {tag} {name}: CUDA-event span kernel "
+                      f"{rec['ms']:.3f} ms, plain {rec['plain_ms']:.3f} "
+                      f"ms (the host's calls)", flush=True)
+                rec["ms"] = device_ms(time_fn or kernel)
+                rec["plain_ms"] = device_ms(plain)
             rec["library_ms"] = None if library is None else \
                 cuda_ms(library)
-            ins, flops = work
+            ins, flops = work[:2]
+            in_bytes = ins if isinstance(ins, int) else nbytes(ins)
+            out_bytes = work[2] if len(work) > 2 else nbytes(got)
             rec["bound_ms"], rec["bound_by"] = bound(
-                nbytes(ins) + nbytes(got), flops, rate)
+                in_bytes + out_bytes, flops, rate)
             print(f"  {tag} {name}: kernel {rec['ms']:.3f} ms, plain "
                   f"{rec['plain_ms']:.3f} ms, library "
                   f"{rec['library_ms']} ms, bound {rec['bound_ms']:.3f} "
@@ -4662,8 +4736,9 @@ def main() -> int:
     import dataclasses
 
     from cfd_tpu_torch.parallel import (LocalComm, ProcessGroupComm,
-                                        gather_field, make_cg_fused_sharded,
-                                        make_mesh, make_sharded_step)
+                                        ShardedField, gather_field,
+                                        make_cg_fused_sharded, make_mesh,
+                                        make_sharded_step, mesh_zy_sizes)
     bit = (0.0, False)
 
     def zpad(x, k):
@@ -5854,6 +5929,508 @@ def main() -> int:
     print(f"phase 53 took {time.perf_counter() - t_phase:.1f} s",
           flush=True)
 
+    # ==== the decomposed explicit steps (cfd_tpu_torch.parallel.
+    # fused_explicit: Euler, RK2 and RK4 over z, (z, y) and 2D y meshes,
+    # the shards emulated on the one card) ================================
+    # ---- phase 54: the explicit kernels' sharded modes against their
+    # plain twins ----------------------------------------------------------
+    # E3's and E2's global-row mode (euler_rows_kernel), RK3's global_nz
+    # (whole rows, z pins) and global_nz + global_ny modes, RK2's global_ny
+    # mode (rk_shard_kernel) on shard blocks cut from one field: at
+    # 37x23x15 (37x23) the first, a middle and the last of a 3-way split
+    # (5 planes, 8 rows; the last y block overlaps its neighbour), then
+    # the 256^3 blocks of 4 z-shards and of (2, 2) and the 2048^2 blocks
+    # of 4 y-shards.  Euler, and RK's first, mid and final stages; the
+    # owned windows bit for bit (a mid stage's halos are the wrapper's).
+    # One block of each mode is timed at the large sizes, by its device
+    # time (a shard's kernel is shorter than its call's host work).
+    t_phase = time.perf_counter()
+    pad_x = torch.nn.functional.pad
+    SB = ekm.ShardBlock
+    explicit_shard_counts = {}
+
+    def ex_block(a, z0, y0, nzl, nyl, hz, hy, ring):
+        """The block of the global ``a`` around owned (z0, y0): hz planes
+        (zeros past the z ends) and hy rows a side (zeros past the y
+        ends, or the periodic ring's rows with ``ring``)."""
+        if hy:
+            a = (torch.cat([a[:, -hy:], a, a[:, :hy]], 1) if ring
+                 else pad_x(a, (0, 0, hy, hy)))
+        if hz:
+            a = pad_x(a, (0, 0, 0, 0, hz, hz))
+        return a[z0:z0 + nzl + 2 * hz, y0:y0 + nyl + 2 * hy].contiguous()
+
+    def ex_field(shape, gen_seed):
+        """Phase 9's inputs: noise on the initial field, one velocity at
+        the clamps and one ρ below the guard."""
+        nz_, ny_, nx_ = shape
+        grid_ = uniform_grid(shape)
+        gen_ = torch.Generator(device=dev).manual_seed(gen_seed)
+
+        def rnd(scale):
+            return scale * torch.randn(shape, generator=gen_, device=dev)
+
+        f_ = FlowField.initialize(grid_, dtype=torch.float32, device=dev)
+        u_ = f_.u + rnd(0.3)
+        u_[nz_ // 2, ny_ // 3, nx_ // 3] = 150.0
+        rho_ = f_.rho + rnd(0.01)
+        rho_[nz_ // 2, ny_ // 2, nx_ // 2] = 1e-12
+        st_ = tuple(x + rnd(0.01) for x in (u_, f_.v, f_.w, f_.p))
+        acc_ = tuple(rnd(5.0) for _ in range(4))
+        return (grid_, FlowField(u=u_, v=f_.v + rnd(0.3), w=rnd(0.3),
+                                 p=f_.p + rnd(0.3), rho=rho_,
+                                 T=f_.T + rnd(1.0)), st_, acc_)
+
+    def mode_check(path, name, tag, timed, wrapper, replaces, source, grid_,
+                   f_, st_, acc_, z0, y0, nzl, nyl, hz, hy, rows, rk):
+        """One block's Euler step (``rk`` False) or RK first / mid / final
+        stages against the plain twin."""
+        three = f_.u.shape[0] > 1
+        nz_g, ny_g, nx_ = f_.u.shape
+        ring = rk and rows
+        sb = SB(hz, hy, z0, nz_g if three else 1, y0, ny_g, rows)
+        c_b = ekm.ExplicitConsts(nzl + 2 * hz if three else 1,
+                                 nyl + 2 * hy, nx_, grid_.dx0, grid_.dy0,
+                                 grid_.dz0, 0.01, 0.1)
+        sy_g, sx_b = source_basis(grid_, torch.float32, dev)
+        sy_b = pad_x(sy_g, (hy, hy))[y0:y0 + nyl + 2 * hy].contiguous()
+        zs, ys = sb.window(c_b)
+
+        def b(a):
+            return ex_block(a, z0, y0, nzl, nyl, hz, hy, ring)
+
+        def flat(o, window=False):
+            """A sharded mode's (fields, maxima) as one tuple; a mid
+            stage's fields cut to the owned window."""
+            fields, m = o
+            if window:
+                return tuple(x[zs, ys] for x in fields.unbind())
+            return (*fields.unbind(), *m.unbind())
+
+        own = nzl * nyl * nx_
+        # the points of a field the kernel must read: its owned ones, and
+        # for a stencil field one halo plane (row) a side, where that side
+        # is not past a global end (the faces pass through) or the halo
+        # is the periodic ring (global row 1 reads its second row)
+        z_sides = sum(not e for e in (z0 == 0, z0 + nzl == nz_g)) \
+            if hz else 0
+        y_sides = sum(ring or not e for e in (y0 == 0, y0 + nyl == ny_g)) \
+            if hy else 0
+        stencil = (nzl * nyl + z_sides * nyl + y_sides * nzl) * nx_
+
+        def read_bytes(n_stencil, n_owned, small):
+            return 4 * (n_stencil * stencil + n_owned * own) + nbytes(small)
+
+        if not rk:
+            ins = tuple(b(getattr(f_, n)) for n in
+                        ("u", "v", "w", "p", "T", "rho")) + (
+                sy_b, sx_b, torch.tensor([1e-4, 0.08, 0.04], device=dev))
+            # u, v, w, p by the stencil; T (no energy equation) and ρ at
+            # owned points
+            check(path, tag, timed, wrapper, replaces, source,
+                  lambda: flat(wrapper(*ins, c_b, sb)),
+                  lambda: flat(ekm.euler_step_rows_plain(*ins, c_b, sb)),
+                  names6 + maxima4, (exact,) * 10,
+                  work=(read_bytes(4, 2, ins[6:]),
+                        FLOPS_PER_POINT["euler"] * own), name=name,
+                  device_time=True)
+            return
+        q0 = tuple(b(getattr(f_, n)) for n in ("u", "v", "w", "p"))
+        st_b = tuple(b(x) for x in st_)
+        acc_b = tuple(b(x) for x in acc_)
+        rho_b, T_b = b(f_.rho), b(f_.T)
+        pins = None
+        if three and (z0 == 0 or z0 + nzl == nz_g):
+            def plane(k):
+                return torch.stack([ex_block(x[k:k + 1], 0, y0, 1, nyl, 0,
+                                             hy, ring)[0] for x in st_])
+            far, near = plane(nz_g - 2), plane(1)
+            pins = torch.cat([far if z0 == 0 else torch.zeros_like(far),
+                              near if z0 + nzl == nz_g
+                              else torch.zeros_like(near)])
+        for label, a, final, fac, mix, wgt in (
+                ("first", None, False, 5e-5, 0.0, 1.0),
+                ("mid", acc_b, False, 5e-5, 0.0, 2.0),
+                ("final", acc_b, True, 1e-4 / 6.0, 1.0, 0.0)):
+            sc = torch.tensor([fac, mix, wgt, 0.08, 0.04, 1e-4], device=dev)
+            kw = {"pins": pins} if three else {}
+
+            def kern(a=a, final=final, sc=sc, kw=kw):
+                return flat(wrapper(st_b, q0, rho_b, T_b, a, sy_b, sx_b, sc,
+                                    c_b, final, sb, **kw), not final)
+
+            def plain(a=a, final=final, sc=sc):
+                return flat(rkm.rk_stage_shard_plain(
+                    st_b, q0, rho_b, T_b, a, sy_b, sx_b, sc, c_b, final, sb,
+                    pins), not final)
+
+            outs = (names6 + maxima4 if final else
+                    tuple(f"next {n}" for n in "uvwp")
+                    + tuple(f"acc {n}" for n in "uvwp"))
+            # the state by the stencil; q0, ρ, the accumulator and (the
+            # final stage's, no energy equation) T at owned points; four
+            # pin planes of owned rows a z edge the block holds
+            n_owned = 5 + (4 if a is not None else 0) + (1 if final else 0)
+            n_pins = 0 if pins is None else 4 * (
+                (z0 == 0) + (z0 + nzl == nz_g))
+            read = read_bytes(4, n_owned, (sy_b, sx_b, sc)) \
+                + 4 * n_pins * nyl * nx_
+            check(path, f"{tag} {label}", timed and label == "mid",
+                  wrapper, replaces, source, kern, plain, outs,
+                  (exact,) * len(outs),
+                  work=(read, FLOPS_PER_POINT["rk_stage"] * own,
+                        8 * 4 * own), name=name, device_time=True)
+
+    for shape, splits, big in (
+            ((15, 23, 37), None, False), ((N_EXPL,) * 3, 4, True),
+            ((1, 23, 37), None, False), ((1, N_2D, N_2D), 4, True)):
+        nz_g, ny_g, nx_ = shape
+        three = nz_g > 1
+        tag = "x".join(map(str, shape[::-1] if three else shape[:0:-1]))
+        grid_, f_, st_, acc_ = ex_field(shape, SEED + 54)
+        if three:
+            zsplit = ([(z, 0) for z in range(0, nz_g, nz_g // 4)] if big
+                      else [(0, 0), (5, 0), (10, 0)])
+            nzl = nz_g // 4 if big else 5
+            zysplit = ([(zi * nz_g // 2, yi * ny_g // 2) for zi in (0, 1)
+                        for yi in (0, 1)] if big
+                       else [(0, 0), (5, 8), (10, 15)])
+            nzl2, nyl2 = (nz_g // 2, ny_g // 2) if big else (5, 8)
+            print(f"phase 54 explicit sharded modes at {tag}: z blocks of "
+                  f"{nzl} planes at {zsplit}, (z, y) blocks of {nzl2} x "
+                  f"{nyl2} at {zysplit}", flush=True)
+            for i, (z0, y0) in enumerate(zsplit):
+                stag = f"{tag} z block {z0}"
+                mode_check("sharded-euler3d", "euler_step[global_ny]", stag,
+                           False, ekm.euler_step, E3_ZY, SRC_E, grid_, f_,
+                           st_, acc_, z0, 0, nzl, ny_g, 1, 0, True, False)
+                mode_check("sharded-rk3d", "rk_stage[global_nz]", stag,
+                           big and i == 1, rkm.rk_stage, RK3_Z, SRC_RK,
+                           grid_, f_, st_, acc_, z0, 0, nzl, ny_g, 1, 0,
+                           False, True)
+            for i, (z0, y0) in enumerate(zysplit):
+                stag = f"{tag} (z, y) block ({z0}, {y0})"
+                mode_check("sharded-euler3d", "euler_step[global_ny]", stag,
+                           big and i == 1, ekm.euler_step, E3_ZY, SRC_E,
+                           grid_, f_, st_, acc_, z0, y0, nzl2, nyl2, 1, 1,
+                           True, False)
+                mode_check("sharded-rk3d-zy", "rk_stage[global_ny]", stag,
+                           big and i == 1, rkm.rk_stage, RK3_ZY, SRC_RK,
+                           grid_, f_, st_, acc_, z0, y0, nzl2, nyl2, 1, 2,
+                           True, True)
+        else:
+            nyl = ny_g // 4 if big else 8
+            ysplit = ([y * nyl for y in range(4)] if big else [0, 8, 15])
+            print(f"phase 54 explicit sharded modes at {tag}: y blocks of "
+                  f"{nyl} rows at {ysplit}", flush=True)
+            for i, y0 in enumerate(ysplit):
+                stag = f"{tag} y block {y0}"
+                mode_check("sharded-euler2d", "euler2d_step[global_ny]",
+                           stag, big and i == 1, e2m.euler2d_step, E2_Y,
+                           SRC_E, grid_, f_, st_, acc_, 0, y0, 1, nyl, 0, 1,
+                           True, False)
+                mode_check("sharded-rk2d", "rk2d_stage[global_ny]", stag,
+                           big and i == 1, rk2m.rk2d_stage, RK2_Y, SRC_RK,
+                           grid_, f_, st_, acc_, 0, y0, 1, nyl, 0, 2, True,
+                           True)
+        del grid_, f_, st_, acc_
+        torch.cuda.empty_cache()
+    print(f"phase 54 took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+    # ---- phase 55: the 256^3 explicit steps over 4 z-shards, (2, 2) and
+    # (1, 4) ---------------------------------------------------------------
+    # bench.py's run_euler_3d / run_rk_3d configurations (phase 10's)
+    # through make_sharded_step on LocalComm over [cuda:0] * 4, against the
+    # single-device kernel step from the same field: the first step, then
+    # 3 warm-up and 5 timed steps of each (CUDA events), the sharded
+    # counters set to 0 just before the timed steps and read just after
+    # (the plain twins tripwires); the fields held after the first step
+    # and after the timed ones at TOL_SHARDED_EXPLICIT (expected 0: the
+    # same arithmetic per point and the same faces), the step maxima
+    # printed beside the single-device ones.
+    t_phase = time.perf_counter()
+    PLAIN_EXPL = [(ekm, "euler_step_rows_plain"), (ekm, "euler_step_plain"),
+                  (rkm, "rk_stage_shard_plain"), (rkm, "rk_stage_plain")]
+    expl_wrappers = {"explicit_euler": (ekm.euler_step, e2m.euler2d_step),
+                     "rk2": (rkm.rk_stage, rk2m.rk2d_stage),
+                     "rk4": (rkm.rk_stage, rk2m.rk2d_stage)}
+    expl_makers = {"explicit_euler": make_euler_step, "rk2": make_rk2_step,
+                   "rk4": make_rk4_step}
+    explicit_sharded = {}
+
+    def timed_run(stepf, f0, n_warm, n_timed, before=None):
+        run_steps(stepf, f0, EXPL_DT, n_warm)
+        sync()
+        if before is not None:
+            before()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out, res = run_steps(stepf, f0, EXPL_DT, n_timed)
+        end.record()
+        sync()
+        return out, res, start.elapsed_time(end) / n_timed
+
+    def held(label, g, ref, tol=TOL_SHARDED_EXPLICIT):
+        diff = {nm: float((getattr(g, nm) - getattr(ref, nm)).abs().max())
+                for nm in names6}
+        worst = max(diff.values())
+        print(f"  {label}: max|sharded - single-device| {worst!r} "
+              f"{'(bit-equal)' if worst == 0.0 else diff}", flush=True)
+        if not worst <= tol:
+            fail(f"{label}: {worst:.3e} from the single-device step, above "
+                 f"{tol:.1e}")
+        return worst
+
+    def maxima_agree(rs, r1):
+        """The step maxima within TOL_SHARDED_EXPLICIT of max(1, |·|)."""
+        return all(abs(float(getattr(rs, k)) - float(getattr(r1, k)))
+                   <= TOL_SHARDED_EXPLICIT * max(1.0, abs(float(
+                       getattr(r1, k))))
+                   for k in ("max_velocity", "max_pressure",
+                             "max_temperature"))
+
+    def sharded_vs_single(label, method, grid_, params_, mesh_, field_fn,
+                          shape, n_warm, n_timed, key, profile=False):
+        """The sharded and the single-device kernel step from one field:
+        held after the first step and after the timed steps; returns the
+        record of ms a step and differences."""
+        three = shape[0] > 1
+        wrapper = expl_wrappers[method][0 if three else 1]
+        mode = ("global_nz" if method != "explicit_euler" and three
+                and mesh_zy_sizes(mesh_)[1] == 1 else "global_ny")
+        single = expl_makers[method](grid_, params_, torch.float32, dev)
+        step_s, place = make_sharded_step(grid_, params_, mesh_, method)
+        f0 = field_fn(shape)
+        d_first = held(f"{label} first step",
+                       gather_field(step_s(place(f0), EXPL_DT, 0)[0]),
+                       single(f0, EXPL_DT, 0)[0])
+        f1, r1, ms1 = timed_run(single, f0, n_warm, n_timed)
+        fs0 = place(f0)
+        counter = f"{mode}_launches"
+        with no_plain(label, PLAIN_EXPL):
+            fs, rs, mss = timed_run(step_s, fs0, n_warm, n_timed,
+                                    lambda: setattr(wrapper, counter, 0))
+        n_launch = getattr(wrapper, counter)
+        name_ = f"{wrapper.__name__}[{mode}]"
+        explicit_shard_counts.setdefault(key, {}).setdefault(name_, 0)
+        explicit_shard_counts[key][name_] += n_launch
+        cells_ = int(np.prod(shape))
+        print(f"{label}: {mss:.4f} ms/step ({cells_ / (mss * 1e-3) / 1e6:.1f}"
+              f" MLUPS) against the single-device kernel step's {ms1:.4f} "
+              f"(ratio {mss / ms1:.3f}); status {int(rs.status)}, max|u| "
+              f"{float(rs.max_velocity)!r} (single "
+              f"{float(r1.max_velocity)!r}), max p "
+              f"{float(rs.max_pressure)!r} (single "
+              f"{float(r1.max_pressure)!r}); {name_} launches "
+              f"{n_launch} over {n_timed} steps", flush=True)
+        if n_launch <= 0:
+            fail(f"{label}: {name_} not launched on the main path")
+        if int(rs.status) != 0 or int(r1.status) != 0:
+            fail(f"{label}: nonzero status")
+        if not maxima_agree(rs, r1):
+            fail(f"{label}: the step maxima differ from the single-device "
+                 "step's")
+        d_timed = held(f"{label} after {1 + 2 * n_warm + n_timed} steps "
+                       f"in all", gather_field(fs), f1)
+        rec = {"ms": mss, "single_ms": ms1, "ratio": mss / ms1,
+               "first_step_max_abs_diff": d_first,
+               "timed_max_abs_diff": d_timed, "launches": n_launch}
+        if profile and do_profile:
+            per, busy = profile_steps(
+                torch, f"phase 5 {label}",
+                lambda: run_steps(step_s, fs0, EXPL_DT, PROFILED_STEPS),
+                PROFILED_STEPS)
+            moves = sum(ms for nm, ms in per.items()
+                        if any(k in nm for k in ("CatArray", "copy_kernel",
+                                                 "Memcpy", "fill_kernel")))
+            rec["halo_pad_copy_share"] = moves / busy
+            print(f"{label}: halo and pad copies (concatenations, plane "
+                  f"and row copies, fills) {moves / PROFILED_STEPS:.4f} "
+                  f"ms/step, {moves / busy:.3f} of the device busy time",
+                  flush=True)
+        del f0, f1, fs0, fs
+        return rec
+
+    params_b = NSParams(source_amplitude_u=0.0, source_amplitude_v=0.0,
+                        mu=0.01)
+    n3e = (N_EXPL,) * 3
+    grid_e = uniform_grid(n3e)
+    meshes55 = {"4z": make_mesh([dev] * 4, axes=("z",)),
+                "2x2": make_mesh([dev] * 4),
+                "1x4": make_mesh([dev] * 4, shape=(1, 4))}
+    for method in ("explicit_euler", "rk2", "rk4"):
+        for mname, mesh_ in meshes55.items():
+            key = ("sharded-euler3d" if method == "explicit_euler" else
+                   "sharded-rk3d" if mname == "4z" else "sharded-rk3d-zy")
+            explicit_sharded[f"{method} {N_EXPL}^3 {mname}"] = \
+                sharded_vs_single(
+                    f"phase 55 {method} {N_EXPL}^3 over {mname}", method,
+                    grid_e, params_b, mesh_, tg_field, n3e, 3, TIMED_STEPS,
+                    key, profile=mname == "2x2")
+        torch.cuda.empty_cache()
+    print(f"phase 55 took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+    # ---- phase 56: the 2048^2 steps over 4 y-shards, and the buoyant,
+    # energy and stretched variants -----------------------------------------
+    # run_euler_2d / run_rk_2d (phase 10's 2048^2 configurations) over 4
+    # y-shards the same way; then, at 48x40x24 (z, (2, 2)) and 96x64 (y),
+    # 3 steps of the buoyant + energy configuration (phase 31's face mix
+    # "mixed" and "neumann_periodic", the default sources on), and of a
+    # tanh-stretched grid in the parity and the consistent scheme (the
+    # consistent one with the energy equation), against the single-device
+    # kernel steps.
+    t_phase = time.perf_counter()
+    mesh_y4 = make_mesh([dev] * 4, axes=("y",))
+    n2d = (1, N_2D, N_2D)
+    grid_2 = uniform_grid(n2d)
+    for method in ("explicit_euler", "rk2"):
+        explicit_sharded[f"{method} {N_2D}^2 4y"] = sharded_vs_single(
+            f"phase 56 {method} {N_2D}^2 over 4y", method, grid_2, params_b,
+            mesh_y4, tg_field, n2d, 3, TIMED_STEPS,
+            "sharded-euler2d" if method == "explicit_euler"
+            else "sharded-rk2d")
+    torch.cuda.empty_cache()
+
+    def variant_field(shape):
+        _, f_, _, _ = ex_field(shape, SEED + 56)
+        return f_.replace(u=f_.u.clamp(-1.0, 1.0),
+                          rho=f_.rho.clamp_min(0.5))
+
+    var3, var2 = (24, 40, 48), (1, 64, 96)
+    variants = []
+    for faces in ("mixed", "neumann_periodic"):
+        variants.append((f"buoyant+energy {faces}",
+                         thermal_params(THERMAL_FACE_MIXES[faces]), None))
+    variants.append(("stretched parity", NSParams(), "parity"))
+    variants.append(("stretched consistent+energy",
+                     dataclasses.replace(
+                         thermal_params(THERMAL_FACE_MIXES["mixed"]),
+                         beta=0.0, nonuniform_scheme="consistent"),
+                     "consistent"))
+    for vname, vparams, scheme in variants:
+        for shape, mname, mesh_ in ((var3, "4z", meshes55["4z"]),
+                                    (var3, "2x2", meshes55["2x2"]),
+                                    (var2, "4y", mesh_y4)):
+            three = shape[0] > 1
+            if scheme is None:
+                grid_v = uniform_grid(shape)
+            elif three:
+                grid_v = Grid.stretched(shape[2], shape[1], shape[0],
+                                        zmin=0.0, zmax=1.0,
+                                        beta=STRETCH_BETA,
+                                        stretch_axes="xy")
+            else:
+                grid_v = Grid.stretched(shape[2], shape[1], 1,
+                                        beta=STRETCH_BETA)
+            for method in ("explicit_euler", "rk2", "rk4"):
+                label = (f"phase 56 {method} {vname} "
+                         f"{'x'.join(map(str, shape[::-1]))} over {mname}")
+                single = expl_makers[method](grid_v, vparams, torch.float32,
+                                             dev)
+                step_s, place = make_sharded_step(grid_v, vparams, mesh_,
+                                                  method)
+                f0 = variant_field(shape)
+                fs, rs = run_steps(step_s, place(f0), EXPL_DT, 3)
+                f1, r1 = run_steps(single, f0, EXPL_DT, 3)
+                sync()
+                if int(rs.status) != 0 or not maxima_agree(rs, r1):
+                    fail(f"{label}: status {int(rs.status)} or the maxima "
+                         "off the single-device step's")
+                explicit_sharded[label[len("phase 56 "):]] = held(
+                    f"{label} 3 steps", gather_field(fs), f1)
+    torch.cuda.empty_cache()
+    print(f"phase 56 took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+    # ---- phase 57: the facade on a mesh; a one-rank NCCL Euler step -------
+    # Simulation.create(..., mesh=) against the single-device facade, 10
+    # step() calls and one solve(): explicit_euler on 128x64 over 4
+    # y-shards and on 64x48x24 over 4 z-shards, rk4 over (2, 2), the
+    # spectral projection over 4 z-shards; then set_solver_by_name keeps
+    # the mesh.  Then the Euler step at 128x64x16 on a one-rank NCCL
+    # ProcessGroupComm against LocalComm with one shard, 3 steps, bit for
+    # bit (the process-group path of halo, edge_swap and max on CUDA).
+    t_phase = time.perf_counter()
+    facade_mesh = {}
+    for nz_, solver_type, mname, mesh_ in (
+            (1, None, "4y", mesh_y4), (24, None, "4z", meshes55["4z"]),
+            (24, "rk4", "2x2", meshes55["2x2"]),
+            (24, "projection_spectral", "4z", meshes55["4z"])):
+        nx_, ny_ = (128, 64) if nz_ == 1 else (64, 48)
+        zmax = 1.0 if nz_ > 1 else 0.0
+        label = (f"phase 57 Simulation.create({nx_}, {ny_}, {nz_}, "
+                 f"{solver_type or 'explicit_euler'}) over {mname}")
+        sims = {kind: Simulation.create(
+            nx_, ny_, nz_, zmax=zmax, solver_type=solver_type,
+            **({"mesh": mesh_} if kind == "mesh" else {"device": dev}))
+            for kind in ("mesh", "single")}
+        statuses = []
+        t0 = time.perf_counter()
+        for _ in range(10):
+            statuses.append(int(sims["mesh"].step()))
+        sims["mesh"].solve()
+        sync()
+        wall = (time.perf_counter() - t0) * 1e3 / 11
+        for _ in range(10):
+            sims["single"].step()
+        sims["single"].solve()
+        sync()
+        g = sims["mesh"].field.gather()
+        bar = 1e-5 if solver_type == "projection_spectral" else \
+            TOL_SHARDED_EXPLICIT
+        facade_mesh[label[len("phase 57 "):]] = held(
+            f"{label} 11 steps", g, sims["single"].field,
+            bar * max(1.0, float(sims["single"].field.p.abs().max())))
+        print(f"{label}: statuses {statuses}, solve status "
+              f"{int(sims['mesh'].last_stats.status)}, {wall:.3f} ms a "
+              f"facade step (host wall, with its sync)", flush=True)
+        if any(statuses) or int(sims["mesh"].last_stats.status) != 0:
+            fail(f"{label}: a facade step failed")
+        if sims["mesh"].current_time != sims["single"].current_time:
+            fail(f"{label}: current_time differs")
+        swap = "rk2" if solver_type != "rk2" else "explicit_euler"
+        sims["mesh"].set_solver_by_name(swap)
+        if sims["mesh"].solver.mesh is not mesh_ or not isinstance(
+                sims["mesh"].field, ShardedField):
+            fail(f"{label}: set_solver lost the mesh")
+        del sims, g
+    torch.cuda.empty_cache()
+    g57 = Grid.uniform(128, 64, 16, zmin=0.0, zmax=1.0)
+    f57 = noisy(FlowField.initialize(g57, dtype=torch.float32, device=dev),
+                SEED + 57)
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/init",
+                                world_size=1, rank=0)
+        try:
+            comm1 = ProcessGroupComm(device=dev)
+            outs57 = {}
+            for kind, mesh1 in (
+                    ("nccl", make_mesh([dev], axes=("z",), comm=comm1)),
+                    ("local", make_mesh([dev], axes=("z",)))):
+                step1, place1 = make_sharded_step(g57, NSParams(), mesh1,
+                                                  "explicit_euler")
+                fo, ro = run_steps(step1, place1(f57), 1e-3, 3)
+                outs57[kind] = (gather_field(fo), ro)
+            sync()
+        finally:
+            dist.destroy_process_group()
+    nccl_euler_diff = max(float((getattr(outs57["nccl"][0], k)
+                                 - getattr(outs57["local"][0], k)).abs()
+                                .max()) for k in names6)
+    print(f"phase 57 one-rank NCCL group vs LocalComm(P=1) 128x64x16, "
+          f"explicit_euler step, 3 steps: max|diff| {nccl_euler_diff!r}, "
+          f"status {int(outs57['nccl'][1].status)}", flush=True)
+    if nccl_euler_diff != 0.0 or int(outs57["nccl"][1].status) != 0:
+        fail("phase 57: the process-group Euler step differs from "
+             "LocalComm's")
+    del f57, outs57
+    launch_counts.update(explicit_shard_counts)
+    print(f"phase 57 took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
     kernels = []
     for (path, name), rec in records.items():
         launches = launch_counts.get(path, {}).get(name)
@@ -5906,6 +6483,9 @@ def main() -> int:
                       "bicgstab_step_sharded_128": bicg_step_sharded,
                       "zy_step_512": zy_rec, "cg_512_zy": cg512_zy,
                       "cg_step_zy_512": cg_step_zy,
+                      "explicit_sharded": explicit_sharded,
+                      "facade_mesh_max_abs_diff": facade_mesh,
+                      "nccl_one_rank_euler_max_abs_diff": nccl_euler_diff,
                       "launch_counts": launch_counts,
                       "card": card}), flush=True)
     print(json.dumps({"ok": True, "device": {

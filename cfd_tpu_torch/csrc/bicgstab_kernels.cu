@@ -25,6 +25,16 @@
 //          global planes, dots over the owned planes; xr on the owned
 //          block (the reference runs its plain xr on a zero-padded owned
 //          block, parallel/fused_bicgstab.py:229-232).
+//   B1r the three kernels' <true, true> instantiations + bicg_fold_kernel
+//       <- BiCGSTABKernels(global_nz=..., global_ny=...)
+//          (bicgstab_kernels.py:56-90): on a (z, y)-decomposed shard every
+//          buffer is its block padded one plane and one row a side, the
+//          launch covers the owned points, the Dirichlet-0 space, the
+//          shells and the neighbour tests are at the global plane and row,
+//          and the dots take the owned points only.  xr skips only the
+//          global shells too: every owned row of an inner y-shard is
+//          updated, where the one-device kernel on the owned block would
+//          skip its first and last rows.
 //   B2  bicg_solve_kernel
 //       <- make_bicgstab_vmem_solve (cfd_tpu/ops/pallas/vmem_small.py:326):
 //          the whole un-rotated BiCGSTAB loop (:364-404) in one cooperative
@@ -99,6 +109,13 @@ __device__ __forceinline__ long long tile_block() {
          blockIdx.x;
 }
 
+// A thread's row in a pass's block: the grid covers every row of the
+// block, or with kRows its owned rows 1..ny-2 only.
+template <bool kRows>
+__device__ __forceinline__ int tile_row() {
+  return blockIdx.y * kTileY + threadIdx.y + (kRows ? 1 : 0);
+}
+
 __device__ __forceinline__ float flag(bool b) { return b ? 1.0f : 0.0f; }
 
 // beta = (rho / rho_prev) (alpha / omega), each divisor 1 on breakdown
@@ -134,34 +151,43 @@ __device__ __forceinline__ float lap7(G g, long long c, int k, int j, int i,
 // pointwise: its sharded form runs on the owned block (nz = nzl) and skips
 // the global shells only.  One device is the same code with kg = k and
 // nz_g = nz.
+// kRows (with kSharded): B1r — every buffer, r-hat, x, s and t too, is the
+// block padded one plane and one row a side (nz, ny its padded counts);
+// the grid covers its owned points, the outputs are written in the padded
+// layout (index c), and the rows are global too (jg = y_base + j of
+// ny_g).  The halo rows of p' and v' are the neighbours' and are filled
+// by the caller.
 
-template <bool kSharded>
+template <bool kSharded, bool kRows = false>
 __global__ void __launch_bounds__(kThreads) bicg_pv_kernel(
     const float* __restrict__ r, const float* __restrict__ p,
     const float* __restrict__ v, const float* __restrict__ rhat,
     float* __restrict__ pn, float* __restrict__ vn,
     const float* __restrict__ st, double* __restrict__ part, int nz, int ny,
     int nx, float inv_dx2, float inv_dy2, float inv_dz2, int z_base,
-    int nz_g) {
+    int nz_g, int y_base = 0, int ny_g = 0) {
   if (st[kRunning] == 0.0f) return;  // uniform: the whole grid returns
   const int i = blockIdx.x * kTileX + threadIdx.x;
-  const int j = blockIdx.y * kTileY + threadIdx.y;
+  const int j = tile_row<kRows>();
   const int k = kSharded ? blockIdx.z + 1 : blockIdx.z;
   const int kg = kSharded ? z_base + k : k;
   const int ng = kSharded ? nz_g : nz;
+  const int jg = kRows ? y_base + j : j;
+  const int ngy = kRows ? ny_g : ny;
   double acc = 0.0;
-  if (i < nx && j < ny) {
+  if (i < nx && j < (kRows ? ny - 1 : ny)) {
     const long long sy = nx, sz = (long long)ny * nx;
     const long long c = k * sz + j * sy + i;
-    const long long o = kSharded ? c - sz : c;  // the output's index
-    if (inside(kg, j, i, ng, ny, nx)) {
+    // the output's index: owned-size planes in the z-only form
+    const long long o = (kSharded && !kRows) ? c - sz : c;
+    if (inside(kg, jg, i, ng, ngy, nx)) {
       const float beta = st[kBeta], omega = st[kOmega];
       // p' at a neighbour: 0 on the shell (the correction space)
       auto pp = [&](long long q, bool in) {
         return in ? r[q] + beta * (p[q] - omega * v[q]) : 0.0f;
       };
       const float pc = pp(c, true);
-      const float a = -lap7(pp, c, kg, j, i, ng, ny, nx, sy, sz, inv_dx2,
+      const float a = -lap7(pp, c, kg, jg, i, ng, ngy, nx, sy, sz, inv_dx2,
                             inv_dy2, inv_dz2, pc);
       pn[o] = pc;
       vn[o] = a;
@@ -196,31 +222,33 @@ __global__ void __launch_bounds__(kFoldThreads) bicg_pv_finalize(
 
 // ---- B1 st: s, t, <s, s>, <t, s>, <t, t> ------------------------------------
 
-template <bool kSharded>
+template <bool kSharded, bool kRows = false>
 __global__ void __launch_bounds__(kThreads) bicg_st_kernel(
     const float* __restrict__ r, const float* __restrict__ vn,
     float* __restrict__ s, float* __restrict__ t,
     const float* __restrict__ st, double* __restrict__ part, int nz, int ny,
     int nx, float inv_dx2, float inv_dy2, float inv_dz2, int z_base,
-    int nz_g) {
+    int nz_g, int y_base = 0, int ny_g = 0) {
   if (st[kRunning] == 0.0f) return;
   const int i = blockIdx.x * kTileX + threadIdx.x;
-  const int j = blockIdx.y * kTileY + threadIdx.y;
+  const int j = tile_row<kRows>();
   const int k = kSharded ? blockIdx.z + 1 : blockIdx.z;
   const int kg = kSharded ? z_base + k : k;
   const int ng = kSharded ? nz_g : nz;
+  const int jg = kRows ? y_base + j : j;
+  const int ngy = kRows ? ny_g : ny;
   double ss = 0.0, ts = 0.0, tt = 0.0;
-  if (i < nx && j < ny) {
+  if (i < nx && j < (kRows ? ny - 1 : ny)) {
     const long long sy = nx, sz = (long long)ny * nx;
     const long long c = k * sz + j * sy + i;
-    const long long o = kSharded ? c - sz : c;
-    if (inside(kg, j, i, ng, ny, nx)) {
+    const long long o = (kSharded && !kRows) ? c - sz : c;
+    if (inside(kg, jg, i, ng, ngy, nx)) {
       const float alpha = st[kAlphaNew];
       auto sv = [&](long long q, bool in) {
         return in ? r[q] - alpha * vn[q] : 0.0f;
       };
       const float sc = sv(c, true);
-      const float tv = -lap7(sv, c, kg, j, i, ng, ny, nx, sy, sz, inv_dx2,
+      const float tv = -lap7(sv, c, kg, jg, i, ng, ngy, nx, sy, sz, inv_dx2,
                              inv_dy2, inv_dz2, sc);
       s[o] = sc;
       t[o] = tv;
@@ -275,21 +303,24 @@ __global__ void __launch_bounds__(kFoldThreads) bicg_st_finalize(
 
 // ---- B1 xr: x', r', <r', r'>, <rhat, r'> ------------------------------------
 
-template <bool kSharded>
+template <bool kSharded, bool kRows = false>
 __global__ void __launch_bounds__(kThreads) bicg_xr_kernel(
     float* __restrict__ x, float* __restrict__ r,
     const float* __restrict__ pn, const float* __restrict__ s,
     const float* __restrict__ t, const float* __restrict__ rhat,
     const float* __restrict__ st, double* __restrict__ part, int nz, int ny,
-    int nx, int z_base, int nz_g) {
+    int nx, int z_base, int nz_g, int y_base = 0, int ny_g = 0) {
   if (st[kRunning] == 0.0f) return;
   const int i = blockIdx.x * kTileX + threadIdx.x;
-  const int j = blockIdx.y * kTileY + threadIdx.y;
-  const int k = blockIdx.z;
+  const int j = tile_row<kRows>();
+  const int k = kRows ? blockIdx.z + 1 : blockIdx.z;
   const int kg = kSharded ? z_base + k : k;
   const int ng = kSharded ? nz_g : nz;
+  const int jg = kRows ? y_base + j : j;
+  const int ngy = kRows ? ny_g : ny;
   double rr = 0.0, rh = 0.0;
-  if (i < nx && j < ny && inside(kg, j, i, ng, ny, nx)) {
+  if (i < nx && j < (kRows ? ny - 1 : ny) &&
+      inside(kg, jg, i, ng, ngy, nx)) {
     const long long c = (k * (long long)ny + j) * nx + i;
     const float alpha = st[kAlphaEff], omega = st[kOmegaEff];
     const float x2 = (x[c] + alpha * pn[c]) + omega * s[c];
@@ -633,6 +664,58 @@ int cfd_bicg_xr_sharded(float* x, float* r, const float* pn, const float* s,
   if (err != cudaSuccess) return (int)err;
   bicg_fold_kernel<<<1, kFoldThreads, 0, stream>>>(
       part, cfd_bicg_partials(nz, ny, nx), 2, st, out);
+  return (int)cudaGetLastError();
+}
+
+// The (z, y) passes, B1r: every buffer the shard's block padded one plane
+// and one row a side (nz, ny its padded counts), the launch over its owned
+// points, then the fold; z_base, y_base the global plane and row of the
+// block's (0, 0), nz_g, ny_g the global counts.
+int cfd_bicg_pv_rows(const float* r, const float* p, const float* v,
+                     const float* rhat, float* pn, float* vn, float* st,
+                     double* part, double* out, int nz, int ny, int nx,
+                     float inv_dx2, float inv_dy2, float inv_dz2, int z_base,
+                     int nz_g, int y_base, int ny_g, cudaStream_t stream) {
+  bicg_pv_kernel<true, true><<<tile_grid(nz - 2, ny - 2, nx),
+                               dim3(kTileX, kTileY), 0, stream>>>(
+      r, p, v, rhat, pn, vn, st, part, nz, ny, nx, inv_dx2, inv_dy2,
+      inv_dz2, z_base, nz_g, y_base, ny_g);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  bicg_fold_kernel<<<1, kFoldThreads, 0, stream>>>(
+      part, cfd_bicg_partials(nz - 2, ny - 2, nx), 1, st, out);
+  return (int)cudaGetLastError();
+}
+
+int cfd_bicg_st_rows(const float* r, const float* vn, float* s, float* t,
+                     float* st, double* part, double* out, int nz, int ny,
+                     int nx, float inv_dx2, float inv_dy2, float inv_dz2,
+                     int z_base, int nz_g, int y_base, int ny_g,
+                     cudaStream_t stream) {
+  bicg_st_kernel<true, true><<<tile_grid(nz - 2, ny - 2, nx),
+                               dim3(kTileX, kTileY), 0, stream>>>(
+      r, vn, s, t, st, part, nz, ny, nx, inv_dx2, inv_dy2, inv_dz2, z_base,
+      nz_g, y_base, ny_g);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  bicg_fold_kernel<<<1, kFoldThreads, 0, stream>>>(
+      part, cfd_bicg_partials(nz - 2, ny - 2, nx), 3, st, out);
+  return (int)cudaGetLastError();
+}
+
+int cfd_bicg_xr_rows(float* x, float* r, const float* pn, const float* s,
+                     const float* t, const float* rhat, float* st,
+                     double* part, double* out, int nz, int ny, int nx,
+                     int z_base, int nz_g, int y_base, int ny_g,
+                     cudaStream_t stream) {
+  bicg_xr_kernel<true, true><<<tile_grid(nz - 2, ny - 2, nx),
+                               dim3(kTileX, kTileY), 0, stream>>>(
+      x, r, pn, s, t, rhat, st, part, nz, ny, nx, z_base, nz_g, y_base,
+      ny_g);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  bicg_fold_kernel<<<1, kFoldThreads, 0, stream>>>(
+      part, cfd_bicg_partials(nz - 2, ny - 2, nx), 2, st, out);
   return (int)cudaGetLastError();
 }
 

@@ -35,6 +35,17 @@
 //   the predictor on a two-row-extended window: one extra read of two
 //   fields instead of four times the predictor's flops and reads.
 //
+// The y-decomposed step (Projection2DKernels(global_ny=...),
+// projection2d.py:46-110, 113-123, 200-216, 252-282) is the kRows
+// instantiation of the three stencil kernels: a shard's rows padded with
+// its neighbours' (2 a side for the predictor, whose u*, v* the b~ kernel
+// reads at the owned rows +- 1; 1 of the pressure for the corrector), the
+// interior masks, b~'s y face term and the sin(pi y) source at the global
+// row y_base + j of an ny_g-row domain, the global y-shells (and the halo
+// rows past them) passed through or zero; b~ and the corrector cover the
+// owned window only and write it owned-size.  The reference pads four
+// rows a side (its 8-row sublane tile); two are what the stencils read.
+//
 // The consistent scheme on a stretched grid is the kCons instantiation of
 // the three stencil kernels, which read per-axis weight vectors (x rows
 // [wm, wc, wp, lm, lc, lp, sin(2 pi x)] of length nx, y rows of length ny,
@@ -130,7 +141,18 @@ struct Buoyancy2 {
   int mask;
 };
 
-template <bool kCons>
+// The y-shell test: the block's own end rows, and with kRows the global
+// y-shells and the rows past them (local row j is global row y_base + j
+// of an ny_g-row domain).
+template <bool kRows>
+__device__ __forceinline__ bool y_shell_2d(int j, int ny, int y_base,
+                                           int ny_g) {
+  if (j == 0 || j == ny - 1) return true;
+  const int jg = y_base + j;
+  return kRows && (jg <= 0 || jg >= ny_g - 1);
+}
+
+template <bool kCons, bool kRows>
 __global__ void pred_star_2d_kernel(
     const float* __restrict__ u, const float* __restrict__ v,
     const float* __restrict__ w, float* __restrict__ us,
@@ -138,12 +160,12 @@ __global__ void pred_star_2d_kernel(
     const float* __restrict__ scal, const float* __restrict__ T, int ny,
     int nx, float nu, float inv_2dx, float inv_2dy, float inv_dx2,
     float inv_dy2, float xmin, float ymin, float dx, float dy,
-    int with_sources, Buoyancy2 buoy, Weights2 wt) {
+    int with_sources, Buoyancy2 buoy, Weights2 wt, int y_base, int ny_g) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const int j = blockIdx.y * blockDim.y + threadIdx.y;
   if (i >= nx || j >= ny) return;
   const int c = j * nx + i;
-  if (j == 0 || j == ny - 1 || i == 0 || i == nx - 1) {
+  if (y_shell_2d<kRows>(j, ny, y_base, ny_g) || i == 0 || i == nx - 1) {
     us[c] = u[c];  // caller shells pass through (save/restore idiom)
     vs[c] = v[c];
     ws[c] = w[c];
@@ -157,7 +179,8 @@ __global__ void pred_star_2d_kernel(
       src_u = su * wt.wy(6, j);
       src_v = sv * wt.wx(6, i);
     } else {
-      src_u = su * sinf(kPi * (ymin + (float)j * dy));
+      const int jg = kRows ? y_base + j : j;  // the global row
+      src_u = su * sinf(kPi * (ymin + (float)jg * dy));
       src_v = sv * sinf(kTwoPi * (xmin + (float)i * dx));
     }
   }
@@ -186,19 +209,24 @@ __global__ void pred_star_2d_kernel(
 // (rho/dt) div u* instead (projection2d.py:196-197; p is not read).
 // kCons: the consistent divergence, and face[] = (cxm, cxp, cym, cyp) the
 // face weights at i = 1, nx - 2, j = 1, ny - 2.
-template <bool kCons>
+// kRows: the grid covers the owned window of the block, h rows in from
+// each side; p and bt are window-sized, the y shells and face rows global.
+template <bool kCons, bool kRows>
 __global__ void poisson_input_2d_kernel(
     const float* __restrict__ us, const float* __restrict__ vs,
     const float* __restrict__ p, float* __restrict__ bt,
     const float* __restrict__ rod_ptr, int ny, int nx, float inv_2dx,
     float inv_2dy, float inv_dx2, float inv_dy2, int emit_rhs, Weights2 wt,
-    float4 face) {
+    float4 face, int y_base, int ny_g, int h) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const int j = blockIdx.y * blockDim.y + threadIdx.y;
-  if (i >= nx || j >= ny) return;
+  const int jw = blockIdx.y * blockDim.y + threadIdx.y;
+  const int ny_w = kRows ? ny - 2 * h : ny;  // the output's rows
+  if (i >= nx || jw >= ny_w) return;
+  const int j = kRows ? jw + h : jw;
   const int c = j * nx + i;
-  if (j == 0 || j == ny - 1 || i == 0 || i == nx - 1) {
-    bt[c] = 0.0f;
+  const int o = kRows ? jw * nx + i : c;  // the output's (and p's) index
+  if (y_shell_2d<kRows>(j, ny, y_base, ny_g) || i == 0 || i == nx - 1) {
+    bt[o] = 0.0f;
     return;
   }
   float div;
@@ -210,7 +238,7 @@ __global__ void poisson_input_2d_kernel(
           + (vs[c + nx] - vs[c - nx]) * inv_2dy;
   }
   if (emit_rhs) {
-    bt[c] = (*rod_ptr) * div;
+    bt[o] = (*rod_ptr) * div;
     return;
   }
   float cxy;
@@ -219,27 +247,42 @@ __global__ void poisson_input_2d_kernel(
            face.z * (float)(j == 1)) +
           face.w * (float)(j == ny - 2);
   } else {
+    const int jg = kRows ? y_base + j : j;  // the global row
+    const int ng = kRows ? ny_g : ny;
     cxy = inv_dx2 * (float)((i == 1) + (i == nx - 2)) +
-          inv_dy2 * (float)((j == 1) + (j == ny - 2));
+          inv_dy2 * (float)((jg == 1) + (jg == ng - 2));
   }
-  bt[c] = cxy * p[c] - (*rod_ptr) * div;
+  bt[o] = cxy * p[o] - (*rod_ptr) * div;
 }
 
 // Corrector u = clamp(u* - (dt/rho) p_x), v = clamp(v* - (dt/rho) p_y) on
 // the interior; shells pass through from u*, v* (projection2d.py:259-267).
 // kCons: the gradients take the consistent weights.
-template <bool kCons>
+// kRows: p is a shard's rows padded one a side (ny its padded count,
+// local row j the global row y_base + j of ny_g); the grid covers its
+// owned rows, u* and v* come from their own block hs rows a side, and u,
+// v and the owned p (pout) are written owned-size; the global y-shells an
+// edge shard owns pass through from u*, v*.
+template <bool kCons, bool kRows>
 __global__ void corrector_2d_kernel(
     const float* __restrict__ us, const float* __restrict__ vs,
     const float* __restrict__ p, float* __restrict__ u,
     float* __restrict__ v, const float* __restrict__ s_ptr, int ny, int nx,
-    float inv_2dx, float inv_2dy, Weights2 wt) {
+    float inv_2dx, float inv_2dy, Weights2 wt, float* __restrict__ pout,
+    int y_base, int ny_g, int hs) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const int j = blockIdx.y * blockDim.y + threadIdx.y;
-  if (i >= nx || j >= ny) return;
+  const int jw = blockIdx.y * blockDim.y + threadIdx.y;
+  const int ny_w = kRows ? ny - 2 : ny;  // the output's rows
+  if (i >= nx || jw >= ny_w) return;
+  const int j = kRows ? jw + 1 : jw;
   const int c = j * nx + i;
-  float uo = us[c], vo = vs[c];
-  if (j > 0 && j < ny - 1 && i > 0 && i < nx - 1) {
+  const int cs = kRows ? (jw + hs) * nx + i : c;  // u*'s index
+  const int o = kRows ? jw * nx + i : c;          // the output's
+  const int jg = kRows ? y_base + j : j;
+  const int ng = kRows ? ny_g : ny;
+  float uo = us[cs], vo = vs[cs];
+  if (kRows) pout[o] = p[c];
+  if (jg > 0 && jg < ng - 1 && i > 0 && i < nx - 1) {
     const float s = *s_ptr;
     float gx, gy;
     if (kCons) {
@@ -252,8 +295,8 @@ __global__ void corrector_2d_kernel(
     uo = clamp_keep_nan(uo - s * gx);
     vo = clamp_keep_nan(vo - s * gy);
   }
-  u[c] = uo;
-  v[c] = vo;
+  u[o] = uo;
+  v[o] = vo;
 }
 
 dim3 stencil_grid_2d(int ny, int nx) {
@@ -272,11 +315,11 @@ int cfd_pred_star_2d(const float* u, const float* v, const float* w,
                      float b0, float b1, float b2, float tref, int buoy_mask,
                      cudaStream_t stream) {
   const Buoyancy2 buoy = {{b0, b1, b2}, tref, buoy_mask};
-  pred_star_2d_kernel<false><<<stencil_grid_2d(ny, nx),
-                               dim3(kTileX, kTileY), 0, stream>>>(
+  pred_star_2d_kernel<false, false><<<stencil_grid_2d(ny, nx),
+                                      dim3(kTileX, kTileY), 0, stream>>>(
       u, v, w, us, vs, ws, scal, T, ny, nx, nu, inv_2dx, inv_2dy, inv_dx2,
       inv_dy2, xmin, ymin, dx, dy, with_sources, buoy,
-      Weights2{nullptr, nullptr, nx, ny});
+      Weights2{nullptr, nullptr, nx, ny}, 0, ny);
   return (int)cudaGetLastError();
 }
 
@@ -288,10 +331,11 @@ int cfd_pred_star_2d_cons(const float* u, const float* v, const float* w,
                           float b0, float b1, float b2, float tref,
                           int buoy_mask, cudaStream_t stream) {
   const Buoyancy2 buoy = {{b0, b1, b2}, tref, buoy_mask};
-  pred_star_2d_kernel<true><<<stencil_grid_2d(ny, nx), dim3(kTileX, kTileY),
-                              0, stream>>>(
+  pred_star_2d_kernel<true, false><<<stencil_grid_2d(ny, nx),
+                                     dim3(kTileX, kTileY), 0, stream>>>(
       u, v, w, us, vs, ws, scal, T, ny, nx, nu, 0.0f, 0.0f, 0.0f, 0.0f,
-      0.0f, 0.0f, 0.0f, 0.0f, with_sources, buoy, Weights2{xw, yw, nx, ny});
+      0.0f, 0.0f, 0.0f, 0.0f, with_sources, buoy, Weights2{xw, yw, nx, ny},
+      0, ny);
   return (int)cudaGetLastError();
 }
 
@@ -300,11 +344,11 @@ int cfd_poisson_input_2d(const float* us, const float* vs, const float* p,
                          float inv_2dx, float inv_2dy, float inv_dx2,
                          float inv_dy2, int emit_rhs,
                          cudaStream_t stream) {
-  poisson_input_2d_kernel<false><<<stencil_grid_2d(ny, nx),
-                                   dim3(kTileX, kTileY), 0, stream>>>(
+  poisson_input_2d_kernel<false, false><<<stencil_grid_2d(ny, nx),
+                                          dim3(kTileX, kTileY), 0, stream>>>(
       us, vs, p, bt, rod, ny, nx, inv_2dx, inv_2dy, inv_dx2, inv_dy2,
       emit_rhs, Weights2{nullptr, nullptr, nx, ny},
-      make_float4(0.0f, 0.0f, 0.0f, 0.0f));
+      make_float4(0.0f, 0.0f, 0.0f, 0.0f), 0, ny, 0);
   return (int)cudaGetLastError();
 }
 
@@ -314,20 +358,20 @@ int cfd_poisson_input_2d_cons(const float* us, const float* vs,
                               const float* xw, const float* yw, int ny,
                               int nx, float cxm, float cxp, float cym,
                               float cyp, int emit_rhs, cudaStream_t stream) {
-  poisson_input_2d_kernel<true><<<stencil_grid_2d(ny, nx),
-                                  dim3(kTileX, kTileY), 0, stream>>>(
+  poisson_input_2d_kernel<true, false><<<stencil_grid_2d(ny, nx),
+                                         dim3(kTileX, kTileY), 0, stream>>>(
       us, vs, p, bt, rod, ny, nx, 0.0f, 0.0f, 0.0f, 0.0f, emit_rhs,
-      Weights2{xw, yw, nx, ny}, make_float4(cxm, cxp, cym, cyp));
+      Weights2{xw, yw, nx, ny}, make_float4(cxm, cxp, cym, cyp), 0, ny, 0);
   return (int)cudaGetLastError();
 }
 
 int cfd_corrector_2d(const float* us, const float* vs, const float* p,
                      float* u, float* v, const float* s, int ny, int nx,
                      float inv_2dx, float inv_2dy, cudaStream_t stream) {
-  corrector_2d_kernel<false><<<stencil_grid_2d(ny, nx),
-                               dim3(kTileX, kTileY), 0, stream>>>(
+  corrector_2d_kernel<false, false><<<stencil_grid_2d(ny, nx),
+                                      dim3(kTileX, kTileY), 0, stream>>>(
       us, vs, p, u, v, s, ny, nx, inv_2dx, inv_2dy,
-      Weights2{nullptr, nullptr, nx, ny});
+      Weights2{nullptr, nullptr, nx, ny}, nullptr, 0, ny, 0);
   return (int)cudaGetLastError();
 }
 
@@ -336,9 +380,59 @@ int cfd_corrector_2d_cons(const float* us, const float* vs, const float* p,
                           float* u, float* v, const float* s,
                           const float* xw, const float* yw, int ny, int nx,
                           cudaStream_t stream) {
-  corrector_2d_kernel<true><<<stencil_grid_2d(ny, nx), dim3(kTileX, kTileY),
-                              0, stream>>>(us, vs, p, u, v, s, ny, nx, 0.0f,
-                                           0.0f, Weights2{xw, yw, nx, ny});
+  corrector_2d_kernel<true, false><<<stencil_grid_2d(ny, nx),
+                                     dim3(kTileX, kTileY), 0, stream>>>(
+      us, vs, p, u, v, s, ny, nx, 0.0f, 0.0f, Weights2{xw, yw, nx, ny},
+      nullptr, 0, ny, 0);
+  return (int)cudaGetLastError();
+}
+
+// The global-row instantiations (a y-decomposed shard's block; y_base
+// the global row of its row 0, ny_g the global row count).  The
+// predictor runs on the whole padded block; b~ on its owned window h rows
+// in (p and bt window-sized); the corrector on the owned rows of a p
+// block padded one row a side, u* and v* padded hs rows a side, u, v and
+// the owned p (pout) owned-size.
+int cfd_pred_star_2d_rows(const float* u, const float* v, const float* w,
+                          float* us, float* vs, float* ws, const float* scal,
+                          const float* T, int ny, int nx, float nu,
+                          float inv_2dx, float inv_2dy, float inv_dx2,
+                          float inv_dy2, float xmin, float ymin, float dx,
+                          float dy, int with_sources, float b0, float b1,
+                          float b2, float tref, int buoy_mask, int y_base,
+                          int ny_g, cudaStream_t stream) {
+  const Buoyancy2 buoy = {{b0, b1, b2}, tref, buoy_mask};
+  pred_star_2d_kernel<false, true><<<stencil_grid_2d(ny, nx),
+                                     dim3(kTileX, kTileY), 0, stream>>>(
+      u, v, w, us, vs, ws, scal, T, ny, nx, nu, inv_2dx, inv_2dy, inv_dx2,
+      inv_dy2, xmin, ymin, dx, dy, with_sources, buoy,
+      Weights2{nullptr, nullptr, nx, ny}, y_base, ny_g);
+  return (int)cudaGetLastError();
+}
+
+int cfd_poisson_input_2d_rows(const float* us, const float* vs,
+                              const float* p, float* bt, const float* rod,
+                              int ny, int nx, float inv_2dx, float inv_2dy,
+                              float inv_dx2, float inv_dy2, int emit_rhs,
+                              int y_base, int ny_g, int h,
+                              cudaStream_t stream) {
+  poisson_input_2d_kernel<false, true><<<stencil_grid_2d(ny - 2 * h, nx),
+                                         dim3(kTileX, kTileY), 0, stream>>>(
+      us, vs, p, bt, rod, ny, nx, inv_2dx, inv_2dy, inv_dx2, inv_dy2,
+      emit_rhs, Weights2{nullptr, nullptr, nx, ny},
+      make_float4(0.0f, 0.0f, 0.0f, 0.0f), y_base, ny_g, h);
+  return (int)cudaGetLastError();
+}
+
+int cfd_corrector_2d_rows(const float* us, const float* vs, const float* p,
+                          float* u, float* v, float* pout, const float* s,
+                          int ny, int nx, float inv_2dx, float inv_2dy,
+                          int y_base, int ny_g, int hs,
+                          cudaStream_t stream) {
+  corrector_2d_kernel<false, true><<<stencil_grid_2d(ny - 2, nx),
+                                     dim3(kTileX, kTileY), 0, stream>>>(
+      us, vs, p, u, v, s, ny, nx, inv_2dx, inv_2dy,
+      Weights2{nullptr, nullptr, nx, ny}, pout, y_base, ny_g, hs);
   return (int)cudaGetLastError();
 }
 

@@ -37,9 +37,22 @@ kernel here would not do: it skips the block's first and last plane, two
 owned planes of every shard.  The shares are float64 sums, rounded to
 float once after the shards are summed.  All three count on
 ``global_nz_launches``; the loop runs :class:`ShardBiCGSTABPasses`, the
-finalize split as in `cg_kernels.ShardCGPasses`.  The ``global_ny``
-modes are later work; ``bicgstab_kernels_supported`` and its
-``nx % 128`` gate are TPU gates, left out.
+finalize split as in `cg_kernels.ShardCGPasses`.
+
+The (z, y) modes (``y_base``, ``ny_g`` given too; ``BiCGSTABKernels(
+global_nz, global_ny)``, `:56-90`): every tensor is a shard's block padded
+one plane and one row a side (``c`` its constants, plane k and row j the
+global ``z_base + k`` and ``y_base + j``, r̂, x, s and t padded too); pv
+and st mask their stencil outputs to the global Dirichlet-0 interior
+while the combinations read the halo rows and planes as they are, and
+xr updates every owned point but the global shells — the first and last
+owned rows of an inner y-shard included, which the one-device kernel on
+the owned block would skip.  The outputs come back as the owned points
+(the functional forms) or are written in the padded layout (the solver
+loop), the dots over the owned points only.  All three count on
+``global_ny_launches`` (``bicg_*_kernel<true, true>``).
+``bicgstab_kernels_supported`` and its ``nx % 128`` gate are TPU gates,
+left out.
 """
 
 from __future__ import annotations
@@ -50,6 +63,7 @@ import torch
 
 from .. import stencils
 from . import native
+from .cg_kernels import _owned_rows
 
 BREAKDOWN = 1e-30  # krylov.BREAKDOWN
 
@@ -114,13 +128,28 @@ def _partials(c: BiCGConsts, like: torch.Tensor, nz=None) -> torch.Tensor:
     return torch.empty(3 * n, dtype=torch.float64, device=like.device)
 
 
-def _launch_sharded(name, wrapper, device, ptrs, c: BiCGConsts, z_base,
-                    nz_g, derivs=True):
-    """One sharded pass (the kernel and the shard's fold)."""
+def _launch_sharded(name, wrapper, device, ptrs, c: BiCGConsts, *base,
+                    derivs=True):
+    """One sharded pass (the kernel and the shard's fold); ``base`` the
+    block's (z_base, nz_g), or (z_base, nz_g, y_base, ny_g) for a (z, y)
+    pass on padded blocks, counted on ``global_ny_launches``."""
     coef = (c.inv_dx2, c.inv_dy2, c.inv_dz2) if derivs else ()
     native.launch(name, device, *map(native.ptr, ptrs), c.nz, c.ny, c.nx,
-                  *coef, int(z_base), int(nz_g))
-    native.count_launch(wrapper, "global_nz")
+                  *coef, *map(int, base))
+    native.count_launch(wrapper, "global_ny" if len(base) == 4
+                        else "global_nz")
+
+
+def _rows_partials(c: BiCGConsts, like):
+    """Room for a (z, y) pass's partials: its owned points of the padded
+    block ``c``."""
+    return _partials(dataclasses.replace(c, nz=c.nz - 2, ny=c.ny - 2), like)
+
+
+def _own(t):
+    """The owned points of a block padded one plane and one row a side
+    (a view)."""
+    return t[1:-1, 1:-1]
 
 
 def _launch_pv(r, p, v, rhat, pn, vn, st, part, c: BiCGConsts):
@@ -178,6 +207,17 @@ def _minus_lap_owned(f, mask, c: BiCGConsts):
     return out
 
 
+def _minus_lap_rows(f, mask, c: BiCGConsts):
+    """−∇²f at the owned points of a block padded one plane and one row
+    a side (0 elsewhere and outside ``mask``, the block's global
+    interior), in the padded layout."""
+    out = torch.zeros_like(f)
+    ix = stencils.interior_index(f)
+    out[ix] = torch.where(_owned_rows(mask)[ix], -stencils.laplacian(
+        f, c.inv_dx2, c.inv_dy2, c.inv_dz2), 0.0)
+    return out
+
+
 def _minus_lap(f, c: BiCGConsts):
     """−∇²f on the interior, 0 on the shell."""
     out = torch.zeros_like(f)
@@ -189,10 +229,20 @@ def _minus_lap(f, c: BiCGConsts):
 # ---- pv ------------------------------------------------------------------
 
 def pass_pv_plain(r, p, v, rhat, beta, omega, c: BiCGConsts,
-                  z_base: int = 0, nz_g: int = None):
+                  z_base: int = 0, nz_g: int = None, y_base: int = 0,
+                  ny_g: int = None):
     """(p′, v′, ⟨r̂, v′⟩) with zero shells on p′ and v′.  With ``nz_g``
     the ``global_nz`` mode: r, p, v a shard's halo-padded block, r̂ and
-    the outputs its owned planes, the dot the shard's float64 share."""
+    the outputs its owned planes, the dot the shard's float64 share.
+    With ``ny_g`` too the (z, y) mode: every tensor the block padded one
+    plane and one row a side, the owned points of p′ and v′ returned."""
+    if ny_g is not None:
+        mask = stencils.global_interior_mask(c.shape, z_base, nz_g,
+                                             r.device, y_base, ny_g)
+        pn = torch.where(mask, r + beta * (p - omega * v),
+                         torch.zeros_like(r))
+        vn = _minus_lap_rows(pn, mask, c)
+        return _own(pn), _own(vn), dot64(rhat, vn, _owned_rows(mask))
     if nz_g is not None:
         mask = stencils.global_interior_mask(c.shape, z_base, nz_g,
                                              r.device)
@@ -207,14 +257,24 @@ def pass_pv_plain(r, p, v, rhat, beta, omega, c: BiCGConsts,
 
 
 def pass_pv(r, p, v, rhat, beta, omega, c: BiCGConsts, z_base: int = 0,
-            nz_g: int = None):
+            nz_g: int = None, y_base: int = 0, ny_g: int = None):
     """(p′, v′, ⟨r̂, v′⟩) — ``bicg_pv_kernel`` and its finalize on CUDA;
     ``beta`` and ``omega`` floats or 0-d tensors.  With ``nz_g`` the
     ``global_nz`` mode of :func:`pass_pv_plain`: ``bicg_pv_kernel<true>``
-    and the shard's fold."""
+    and the shard's fold; with ``ny_g`` too its (z, y) mode,
+    ``bicg_pv_kernel<true, true>``."""
     if native.on_cpu(r):
-        return pass_pv_plain(r, p, v, rhat, beta, omega, c, z_base, nz_g)
+        return pass_pv_plain(r, p, v, rhat, beta, omega, c, z_base, nz_g,
+                             y_base, ny_g)
     st = _one_shot_state(r, {BETA: beta, OMEGA: omega, RHO: 1.0})
+    if ny_g is not None:
+        _check(c, r, p, v, rhat)
+        pn, vn = torch.zeros_like(r), torch.zeros_like(r)
+        out = torch.empty(1, dtype=torch.float64, device=r.device)
+        _launch_sharded("cfd_bicg_pv_rows", pass_pv, r.device, (
+            r, p, v, rhat, pn, vn, st, _rows_partials(c, r), out), c,
+            z_base, nz_g, y_base, ny_g)
+        return _own(pn), _own(vn), out[0]
     if nz_g is not None:
         _check(c, r, p, v)
         own = (c.nz - 2, c.ny, c.nx)
@@ -233,11 +293,20 @@ def pass_pv(r, p, v, rhat, beta, omega, c: BiCGConsts, z_base: int = 0,
 # ---- st ------------------------------------------------------------------
 
 def pass_st_plain(r, vn, alpha, c: BiCGConsts, z_base: int = 0,
-                  nz_g: int = None):
+                  nz_g: int = None, y_base: int = 0, ny_g: int = None):
     """(s, t, ⟨s,s⟩, ⟨t,s⟩, ⟨t,t⟩) with zero shells on s and t.  With
     ``nz_g`` the ``global_nz`` mode: r and v′ a shard's halo-padded
     block, s and t its owned planes, the dots the shard's float64
-    shares."""
+    shares.  With ``ny_g`` too the (z, y) mode: r and v′ padded one plane
+    and one row a side, the owned points of s and t returned."""
+    if ny_g is not None:
+        mask = stencils.global_interior_mask(c.shape, z_base, nz_g,
+                                             r.device, y_base, ny_g)
+        s = torch.where(mask, r - alpha * vn, torch.zeros_like(r))
+        t = _minus_lap_rows(s, mask, c)
+        own = _owned_rows(mask)
+        return (_own(s), _own(t), dot64(s, s, own), dot64(t, s, own),
+                dot64(t, t, own))
     if nz_g is not None:
         mask = stencils.global_interior_mask(c.shape, z_base, nz_g,
                                              r.device)
@@ -252,15 +321,23 @@ def pass_st_plain(r, vn, alpha, c: BiCGConsts, z_base: int = 0,
 
 
 def pass_st(r, vn, alpha, c: BiCGConsts, z_base: int = 0,
-            nz_g: int = None):
+            nz_g: int = None, y_base: int = 0, ny_g: int = None):
     """(s, t, ⟨s,s⟩, ⟨t,s⟩, ⟨t,t⟩) — ``bicg_st_kernel`` and its finalize
     on CUDA.  With ``nz_g`` the ``global_nz`` mode of
     :func:`pass_st_plain`: ``bicg_st_kernel<true>`` and the shard's
-    fold."""
+    fold; with ``ny_g`` too its (z, y) mode, ``bicg_st_kernel<true,
+    true>``."""
     if native.on_cpu(r):
-        return pass_st_plain(r, vn, alpha, c, z_base, nz_g)
+        return pass_st_plain(r, vn, alpha, c, z_base, nz_g, y_base, ny_g)
     _check(c, r, vn)
     st = _one_shot_state(r, {ALPHA_NEW: alpha})
+    if ny_g is not None:
+        s, t = torch.zeros_like(r), torch.zeros_like(r)
+        out = torch.empty(3, dtype=torch.float64, device=r.device)
+        _launch_sharded("cfd_bicg_st_rows", pass_st, r.device, (
+            r, vn, s, t, st, _rows_partials(c, r), out), c, z_base, nz_g,
+            y_base, ny_g)
+        return _own(s), _own(t), out[0], out[1], out[2]
     if nz_g is not None:
         own = (c.nz - 2, c.ny, c.nx)
         s, t = r.new_empty(own), r.new_empty(own)
@@ -277,10 +354,21 @@ def pass_st(r, vn, alpha, c: BiCGConsts, z_base: int = 0,
 # ---- xr ------------------------------------------------------------------
 
 def pass_xr_plain(x, pn, s, t, rhat, alpha, omega, c: BiCGConsts,
-                  z_base: int = 0, nz_g: int = None):
+                  z_base: int = 0, nz_g: int = None, y_base: int = 0,
+                  ny_g: int = None):
     """(x′, r′, ⟨r′,r′⟩, ⟨r̂,r′⟩): x′ on the interior with x's shell, r′
     with a zero shell.  With ``nz_g`` the owned-block mode: every owned
-    plane but the global shells, the dots the shard's float64 shares."""
+    plane but the global shells, the dots the shard's float64 shares.
+    With ``ny_g`` too the (z, y) mode: every tensor padded one plane and
+    one row a side, every owned point updated but the global shells, the
+    owned points of x′ and r′ returned."""
+    if ny_g is not None:
+        mask = _owned_rows(stencils.global_interior_mask(
+            c.shape, z_base, nz_g, x.device, y_base, ny_g))
+        x2 = torch.where(mask, (x + alpha * pn) + omega * s, x)
+        r2 = torch.where(mask, s - omega * t, torch.zeros_like(s))
+        return (_own(x2), _own(r2), dot64(r2, r2, mask),
+                dot64(rhat, r2, mask))
     if nz_g is not None:
         mask = stencils.global_interior_mask(c.shape, z_base, nz_g,
                                              x.device)
@@ -295,17 +383,25 @@ def pass_xr_plain(x, pn, s, t, rhat, alpha, omega, c: BiCGConsts,
 
 
 def pass_xr(x, pn, s, t, rhat, alpha, omega, c: BiCGConsts,
-            z_base: int = 0, nz_g: int = None):
+            z_base: int = 0, nz_g: int = None, y_base: int = 0,
+            ny_g: int = None):
     """(x′, r′, ⟨r′,r′⟩, ⟨r̂,r′⟩) — ``bicg_xr_kernel`` and its finalize
     on CUDA (x′ on a copy of x).  With ``nz_g`` the owned-block mode of
     :func:`pass_xr_plain`: ``bicg_xr_kernel<true>`` and the shard's
-    fold."""
+    fold; with ``ny_g`` too its (z, y) mode, ``bicg_xr_kernel<true,
+    true>``."""
     if native.on_cpu(x):
         return pass_xr_plain(x, pn, s, t, rhat, alpha, omega, c, z_base,
-                             nz_g)
+                             nz_g, y_base, ny_g)
     _check(c, x, pn, s, t, rhat)
     x2, r2 = x.clone(), torch.zeros_like(s)
     st = _one_shot_state(x, {ALPHA_EFF: alpha, OMEGA_EFF: omega})
+    if ny_g is not None:
+        out = torch.empty(2, dtype=torch.float64, device=x.device)
+        _launch_sharded("cfd_bicg_xr_rows", pass_xr, x.device, (
+            x2, r2, pn, s, t, rhat, st, _rows_partials(c, x), out), c,
+            z_base, nz_g, y_base, ny_g, derivs=False)
+        return _own(x2), _own(r2), out[0], out[1]
     if nz_g is not None:
         out = torch.empty(2, dtype=torch.float64, device=x.device)
         _launch_sharded("cfd_bicg_xr_sharded", pass_xr, x.device, (
@@ -454,14 +550,23 @@ class ShardBiCGSTABPasses:
     ``c`` holds the owned block's constants (``c.nz = nzl``), ``z_off``
     the shard's first global plane, ``nz_g`` the global plane count.  pv
     reads the halo-padded r, p, v and the owned r̂, st the halo-padded r
-    and v′; xr updates the owned x and r.  On the CPU, or with
-    ``plain=True``, the plain versions run with the recurrences as 0-d
-    tensor operations."""
+    and v′; xr updates the owned x and r.  With ``ny_g`` (and ``y_off``
+    the shard's first global row) the (z, y) passes: every buffer — x,
+    r̂, s and t too — is the block padded one plane and one row a side,
+    and the passes write the owned points of their padded outputs.  On
+    the CPU, or with ``plain=True``, the plain versions run with the
+    recurrences as 0-d tensor operations."""
 
     def __init__(self, c: BiCGConsts, z_off: int, nz_g: int, device,
-                 plain: bool = False):
+                 plain: bool = False, y_off: int = 0, ny_g: int = None):
         self.c, self.z_off, self.nz_g = c, int(z_off), int(nz_g)
-        self.c_pad = dataclasses.replace(c, nz=c.nz + 2)
+        self.y_off, self.ny_g = int(y_off), ny_g
+        self.rows = ny_g is not None
+        self.c_pad = dataclasses.replace(
+            c, nz=c.nz + 2, ny=c.ny + 2 if self.rows else c.ny)
+        # the padded block's global (plane, row) bases and counts
+        self.base = (self.z_off - 1, self.nz_g) + (
+            (self.y_off - 1, self.ny_g) if self.rows else ())
         self.plain = plain or torch.device(device).type == "cpu"
         self._bufs = None
 
@@ -473,22 +578,34 @@ class ShardBiCGSTABPasses:
                 for n in (1, 3, 2))
         return self._bufs
 
+    def _launch(self, pass_name, wrapper, ptrs, c, base, derivs=True):
+        """Pass ``pass_name``'s sharded entry point: ``cfd_bicg_*_rows``
+        in the (z, y) mode, ``cfd_bicg_*_sharded`` otherwise."""
+        mode = "rows" if self.rows else "sharded"
+        _launch_sharded(f"cfd_bicg_{pass_name}_{mode}", wrapper,
+                        ptrs[0].device, ptrs, c, *base, derivs=derivs)
+
     def pv(self, r, p, v, rhat, pn, vn, st):
-        """pn ← p′, vn ← v′ on the owned planes; the shard's
+        """pn ← p′, vn ← v′ on the owned points; the shard's
         (⟨r̂, v′⟩,)."""
         if not self.plain:
             _check(self.c_pad, r, p, v)
-            _check(self.c, rhat, pn, vn)
+            _check(self.c_pad if self.rows else self.c, rhat, pn, vn)
             part, out, _, _ = self._buffers(r)
-            _launch_sharded("cfd_bicg_pv_sharded", pass_pv, r.device, (
+            self._launch("pv", pass_pv, (
                 r, p, v, rhat, pn, vn, st, part, out), self.c_pad,
-                self.z_off - 1, self.nz_g)
+                self.base)
             return out
         pn_, vn_, rhv = pass_pv_plain(r, p, v, rhat, st[BETA], st[OMEGA],
-                                      self.c_pad, self.z_off - 1, self.nz_g)
-        pn.copy_(pn_)
-        vn.copy_(vn_)
+                                      self.c_pad, *self.base)
+        self._own(pn).copy_(pn_)
+        self._own(vn).copy_(vn_)
         return rhv[None]
+
+    def _own(self, t):
+        """The owned points of a pass output: a padded buffer's in the
+        (z, y) mode, the tensor itself (already owned-size) otherwise."""
+        return _own(t) if self.rows else t
 
     def pv_recur(self, sums, st):
         if not self.plain:
@@ -498,20 +615,19 @@ class ShardBiCGSTABPasses:
         pv_recur_plain(sums[0].to(st.dtype), st)
 
     def st(self, r, vn, s, t, st):
-        """s, t ← the st pass on the owned planes; the shard's
+        """s, t ← the st pass on the owned points; the shard's
         (⟨s,s⟩, ⟨t,s⟩, ⟨t,t⟩)."""
         if not self.plain:
             _check(self.c_pad, r, vn)
-            _check(self.c, s, t)
+            _check(self.c_pad if self.rows else self.c, s, t)
             part, _, out, _ = self._buffers(r)
-            _launch_sharded("cfd_bicg_st_sharded", pass_st, r.device, (
-                r, vn, s, t, st, part, out), self.c_pad, self.z_off - 1,
-                self.nz_g)
+            self._launch("st", pass_st, (
+                r, vn, s, t, st, part, out), self.c_pad, self.base)
             return out
         s_, t_, ss, ts, tt = pass_st_plain(r, vn, st[ALPHA_NEW], self.c_pad,
-                                           self.z_off - 1, self.nz_g)
-        s.copy_(s_)
-        t.copy_(t_)
+                                           *self.base)
+        self._own(s).copy_(s_)
+        self._own(t).copy_(t_)
         return torch.stack([ss, ts, tt])
 
     def st_recur(self, sums, st):
@@ -523,21 +639,23 @@ class ShardBiCGSTABPasses:
         st_recur_plain(ss, ts, tt, st)
 
     def xr(self, x, r, pn, s, t, rhat, st):
-        """x, r ← the update on the owned block; the shard's
+        """x, r ← the update on the owned points; the shard's
         (⟨r′,r′⟩, ⟨r̂,r′⟩)."""
+        c, base = self.c, (self.z_off, self.nz_g)
+        if self.rows:
+            c, base = self.c_pad, self.base
         if not self.plain:
-            _check(self.c, x, r, pn, s, t, rhat)
+            _check(c, x, r, pn, s, t, rhat)
             part, _, _, out = self._buffers(x)
-            _launch_sharded("cfd_bicg_xr_sharded", pass_xr, x.device, (
-                x, r, pn, s, t, rhat, st, part, out), self.c, self.z_off,
-                self.nz_g, derivs=False)
+            self._launch("xr", pass_xr, (
+                x, r, pn, s, t, rhat, st, part, out), c, base, derivs=False)
             return out
         run = st[RUNNING] > 0
         x2, r2, rr, rh = pass_xr_plain(x, pn, s, t, rhat, st[ALPHA_EFF],
-                                       st[OMEGA_EFF], self.c, self.z_off,
-                                       self.nz_g)
-        x.copy_(torch.where(run, x2, x))
-        r.copy_(torch.where(run, r2, r))
+                                       st[OMEGA_EFF], c, *base)
+        xo, ro = self._own(x), self._own(r)
+        xo.copy_(torch.where(run, x2, xo))
+        ro.copy_(torch.where(run, r2, ro))
         return torch.stack([rr, rh])
 
     def xr_recur(self, sums, st):

@@ -81,6 +81,15 @@ SIGNATURES = {
     + [_I, _P],
     "cfd_poisson_input_2d_cons": [_P] * 7 + [_I] * 2 + [_F] * 4 + [_I, _P],
     "cfd_corrector_2d_cons": [_P] * 8 + [_I] * 2 + [_P],
+    # ... their global-row instantiations (a y-decomposed shard's rows:
+    # the global row base and row count; b~'s window depth h; the
+    # corrector's owned p out and u*'s padding hs)
+    "cfd_pred_star_2d_rows": [_P] * 8 + [_I] * 2 + [_F] * 9 + [_I]
+    + [_F] * 4 + [_I] * 3 + [_P],
+    "cfd_poisson_input_2d_rows": [_P] * 5 + [_I] * 2 + [_F] * 4 + [_I] * 4
+    + [_P],
+    "cfd_corrector_2d_rows": [_P] * 7 + [_I] * 2 + [_F] * 2 + [_I] * 3
+    + [_P],
     # euler_kernels.cu, rk_kernels.cu (explicit steps, 3D and 2D)
     # (the spacing's weight rows and kind before the stream)
     "cfd_euler_step": [_P] * 17 + [_I] * 3 + [_F] * 8 + [_P, _P]
@@ -122,6 +131,10 @@ SIGNATURES = {
     "cfd_bicg_st_sharded": [_P] * 7 + [_I] * 3 + [_F] * 3 + [_I] * 2
     + [_P],
     "cfd_bicg_xr_sharded": [_P] * 9 + [_I] * 5 + [_P],
+    # ... the (z, y) passes (padded blocks; global row base and count too)
+    "cfd_bicg_pv_rows": [_P] * 9 + [_I] * 3 + [_F] * 3 + [_I] * 4 + [_P],
+    "cfd_bicg_st_rows": [_P] * 7 + [_I] * 3 + [_F] * 3 + [_I] * 4 + [_P],
+    "cfd_bicg_xr_rows": [_P] * 9 + [_I] * 7 + [_P],
     "cfd_bicg_pv_recur": [_P] * 3,
     "cfd_bicg_st_recur": [_P] * 3,
     "cfd_bicg_xr_recur": [_P] * 2 + [_I, _P],

@@ -45,6 +45,18 @@ The CG step (``emit="rhs"``) runs pred_bt's rhs form,
 kernel with its emit flag set), and the non-DST ``corr``
 (:func:`corrector_2d` on a physical p).
 
+The y-decomposed step (`parallel.fused`, the reference's
+``Projection2DKernels(global_ny=...)``, `projection2d.py:46-110`) runs the
+global-row mode: given ``y_base`` (the global row of the block's row 0)
+and ``ny_g`` (the global row count), :func:`predictor_star_2d` takes a
+shard's rows padded two a side, its y-shells and sin(πy) source at global
+rows; :func:`poisson_input_2d` computes the owned window ``halo`` rows in
+from the block's sides (b̃'s y face term on the global rows 1 and
+ny_g − 2, zero global y-shells) into an owned-size output; the new
+:func:`corrector_2d_rows` corrects the owned rows of a p block padded one
+row a side and returns the owned p beside u and v.  Each is its kernel's
+``<false, true>`` instantiation, counted on ``global_ny_launches``.
+
 Every wrapper below launches its CUDA kernel on a CUDA tensor and runs its
 plain PyTorch version (``*_plain``) on a CPU tensor; its ``launches``
 attribute counts kernel launches.  Fields are (1, ny, nx).  The CUDA
@@ -71,35 +83,61 @@ from ...solvers.ns.common import clamp
 from ...solvers.ns.params import PROJ_MAX_VELOCITY as CLAMP  # = kClamp
 from ..stencils import along_x, along_y, ddx, ddy, interior, set_interior
 from . import native, rolling
-from .projection_kernels import (StencilConsts, _rows, check_buoyancy_input,
-                                 consistent_weights, face_coeff,
-                                 predictor_star_plain, stencil_consts)
+from .projection_kernels import (StencilConsts, _keep_global_shells,
+                                 _no_rows_consistent, _rows,
+                                 check_buoyancy_input, consistent_weights,
+                                 face_coeff, predictor_star_plain,
+                                 stencil_consts)
 from .rolling import left_dot, right_dot, right_dot_plain
 from .tdma import tdma_z_bwd, tdma_z_fwd
 
 
-def _check(c: StencilConsts, fields, scalars):
-    """(1, ny, nx) float32 fields and float32 scalars on one CUDA device,
-    and the weight rows there on the consistent scheme."""
+def _check(c: StencilConsts, fields, scalars, ny=None):
+    """(1, ny, nx) float32 fields (``ny`` default ``c.ny``) and float32
+    scalars on one CUDA device, and the weight rows there on the
+    consistent scheme."""
     native.check_cuda(*fields, *scalars, *(c.weights or ()))
+    shape = (1, c.ny if ny is None else ny, c.nx)
     for f in fields:
-        if tuple(f.shape) != (1, c.ny, c.nx):
-            raise ValueError(f"expected fields of shape {(1, c.ny, c.nx)}, "
-                             f"got {tuple(f.shape)}")
+        if tuple(f.shape) != shape:
+            raise ValueError(f"expected fields of shape {shape}, got "
+                             f"{tuple(f.shape)}")
+
+
+def _row_window(t, h: int):
+    """The owned rows of a (1, ny, nx) block padded ``h`` rows a side (a
+    contiguous copy; the block itself for h = 0)."""
+    if h == 0:
+        return t
+    return t[:, h:t.shape[1] - h].contiguous()
+
+
+def _pad_rows(t, h: int):
+    """``t`` zero-padded ``h`` rows a side."""
+    if h == 0:
+        return t
+    return torch.nn.functional.pad(t, (0, 0, h, h))
 
 
 # ---- pred_bt (a): predictor u*, v*, w* ----------------------------------
 
-def predictor_star_2d(u, v, w, scal, c: StencilConsts, T=None):
+def predictor_star_2d(u, v, w, scal, c: StencilConsts, T=None,
+                      y_base: int = 0, ny_g: int = None):
     """(u*, v*, w*) = clamp(f + dt(−(u∂x + v∂y)f + ν∇²f + src)) on the
     interior, shells passed through (w is predicted too, convected by u,
     v; with ``c.buoyancy`` ``T`` adds the buoyant sources) —
-    ``pred_star_2d_kernel<false>`` on CUDA, ``<true>`` on the consistent
-    scheme's weight rows (counted by scheme, `native.count_launch`).  Its
-    plain version is the 3D one, `projection_kernels.predictor_star_plain`,
-    whose z terms vanish on a one-plane field."""
+    ``pred_star_2d_kernel<false, false>`` on CUDA, ``<true, false>`` on
+    the consistent scheme's weight rows (counted by scheme,
+    `native.count_launch`).  With ``ny_g`` the global-row mode, ``<false,
+    true>``, counted on ``global_ny_launches``: the fields are a shard's
+    rows padded with its neighbours', local row j the global row
+    ``y_base + j``.  Its plain version is the 3D one,
+    `projection_kernels.predictor_star_plain`, whose z terms vanish on a
+    one-plane field."""
     if native.on_cpu(u):
-        return predictor_star_plain(u, v, w, scal, c, T)
+        return predictor_star_plain(u, v, w, scal, c, T, 0, None, y_base,
+                                    ny_g)
+    _no_rows_consistent(c, ny_g)
     _check(c, (u, v, w), (scal,))
     check_buoyancy_input(c, T, (1, c.ny, c.nx))
     us, vs, ws = (torch.empty_like(u) for _ in range(3))
@@ -110,11 +148,16 @@ def predictor_star_2d(u, v, w, scal, c: StencilConsts, T=None):
                       *map(native.ptr, c.weights), c.ny, c.nx, float(c.nu),
                       int(c.with_sources), *c.buoyancy_args())
     else:
-        native.launch("cfd_pred_star_2d", u.device, *fields, c.ny, c.nx,
-                      float(c.nu), c.inv_2dx, c.inv_2dy, c.inv_dx2,
-                      c.inv_dy2, c.xmin, c.ymin, c.dx, c.dy,
-                      int(c.with_sources), *c.buoyancy_args())
-    native.count_launch(predictor_star_2d, c.scheme)
+        uniform = (c.ny, c.nx, float(c.nu), c.inv_2dx, c.inv_2dy,
+                   c.inv_dx2, c.inv_dy2, c.xmin, c.ymin, c.dx, c.dy,
+                   int(c.with_sources), *c.buoyancy_args())
+        if ny_g is None:
+            native.launch("cfd_pred_star_2d", u.device, *fields, *uniform)
+        else:
+            native.launch("cfd_pred_star_2d_rows", u.device, *fields,
+                          *uniform, int(y_base), int(ny_g))
+    native.count_launch(predictor_star_2d,
+                        c.scheme if ny_g is None else "global_ny")
     return us, vs, ws
 
 
@@ -129,21 +172,41 @@ def _grad2d(fx, fy, c: StencilConsts):
     return ddx(fx, c.inv_2dx), ddy(fy, c.inv_2dy)
 
 
-def poisson_input_2d_plain(us, vs, p, rod, c: StencilConsts):
-    """b̃ = face_coeff·p − (ρ/dt)∇·u* on the interior, zero shell."""
-    coeff = interior(face_coeff(c, p.dtype, p.device))
+def poisson_input_2d_plain(us, vs, p, rod, c: StencilConsts,
+                           y_base: int = 0, ny_g: int = None,
+                           halo: int = 0):
+    """b̃ = face_coeff·p − (ρ/dt)∇·u* on the interior, zero shell.  With
+    ``ny_g`` the global-row mode: local row j is global row ``y_base + j``
+    (the y face term on the global rows 1 and ny_g − 2, zero global
+    y-shells), and b̃ is the owned window ``halo`` rows in from the
+    block's sides, as is ``p``."""
+    _no_rows_consistent(c, ny_g)
+    p = _pad_rows(p, halo)
+    coeff = interior(face_coeff(c, p.dtype, p.device, 0, None, y_base,
+                                ny_g))
     dx_u, dy_v = _grad2d(us, vs, c)
-    return set_interior(torch.zeros_like(p),
-                        coeff * interior(p) - rod * (dx_u + dy_v))
+    bt = set_interior(torch.zeros_like(p),
+                      coeff * interior(p) - rod * (dx_u + dy_v))
+    if ny_g is None:
+        return bt
+    return _row_window(_keep_global_shells(bt, torch.zeros_like(bt), c, 0,
+                                           None, y_base, ny_g), halo)
 
 
-def _launch_input(us, vs, p, out, rod, c: StencilConsts, emit_rhs):
-    """One ``poisson_input_2d_kernel`` launch, ``<true>`` on the
-    consistent scheme (its b̃ form reads the face weights)."""
+def _launch_input(us, vs, p, out, rod, c: StencilConsts, emit_rhs,
+                  y_args=None):
+    """One ``poisson_input_2d_kernel`` launch, ``<true, false>`` on the
+    consistent scheme (its b̃ form reads the face weights), ``<false,
+    true>`` with ``y_args`` = (y_base, ny_g, halo)."""
     ptrs = map(native.ptr, (us, vs, p, out, rod))
     if not c.consistent:
-        native.launch("cfd_poisson_input_2d", us.device, *ptrs, c.ny, c.nx,
-                      c.inv_2dx, c.inv_2dy, c.inv_dx2, c.inv_dy2, emit_rhs)
+        derivs = (c.ny, c.nx, c.inv_2dx, c.inv_2dy, c.inv_dx2, c.inv_dy2,
+                  emit_rhs)
+        if y_args is None:
+            native.launch("cfd_poisson_input_2d", us.device, *ptrs, *derivs)
+        else:
+            native.launch("cfd_poisson_input_2d_rows", us.device, *ptrs,
+                          *derivs, *y_args)
         return
     if not emit_rhs and c.face is None:
         raise ValueError("the consistent b̃ needs the face weights")
@@ -152,15 +215,27 @@ def _launch_input(us, vs, p, out, rod, c: StencilConsts, emit_rhs):
                   *(c.face or (0.0,) * 4), emit_rhs)
 
 
-def poisson_input_2d(us, vs, p, rod, c: StencilConsts):
-    """b̃ — ``poisson_input_2d_kernel`` on CUDA (``<true>`` on the
-    consistent scheme, counted by scheme); ``rod`` a 0-d tensor."""
+def poisson_input_2d(us, vs, p, rod, c: StencilConsts, y_base: int = 0,
+                     ny_g: int = None, halo: int = 0):
+    """b̃ — ``poisson_input_2d_kernel`` on CUDA (``<true, false>`` on the
+    consistent scheme, counted by scheme); ``rod`` a 0-d tensor.  With
+    ``ny_g`` the global-row mode of :func:`poisson_input_2d_plain` on the
+    owned window (``<false, true>``), counted on
+    ``global_ny_launches``."""
     if native.on_cpu(us):
-        return poisson_input_2d_plain(us, vs, p, rod, c)
-    _check(c, (us, vs, p), (rod,))
+        return poisson_input_2d_plain(us, vs, p, rod, c, y_base, ny_g, halo)
+    _check(c, (us, vs), (rod,))
+    if ny_g is None:
+        _check(c, (p,), ())
+        y_args = None
+    else:
+        _no_rows_consistent(c, ny_g)
+        _check(c, (p,), (), c.ny - 2 * halo)
+        y_args = (int(y_base), int(ny_g), int(halo))
     bt = torch.empty_like(p)
-    _launch_input(us, vs, p, bt, rod, c, 0)
-    native.count_launch(poisson_input_2d, c.scheme)
+    _launch_input(us, vs, p, bt, rod, c, 0, y_args)
+    native.count_launch(poisson_input_2d,
+                        c.scheme if ny_g is None else "global_ny")
     return bt
 
 
@@ -214,8 +289,55 @@ def corrector_2d(us, vs, p, s, c: StencilConsts):
     return u, v
 
 
+def corrector_2d_rows_plain(us, vs, p, s, c: StencilConsts, y_base: int,
+                            ny_g: int):
+    """The global-row corrector (the reference's ``corr`` with
+    ``global_ny``, `projection2d.py:252-282`): ``p`` a y-decomposed
+    shard's rows padded one a side (``c`` its constants, local row j the
+    global row ``y_base + j``), u*, v* the same owned rows padded
+    hs ≥ 1 a side.  Returns (u, v, p) on the owned rows — u = clamp(u* −
+    s∇p) at the global interior, u* on the global shells an edge shard
+    owns."""
+    _no_rows_consistent(c, ny_g)
+    hs = (us.shape[1] - (c.ny - 2)) // 2
+    if hs < 1:
+        raise ValueError("the corrector's u*, v* need a halo of >= 1")
+    usb, vsb = _row_window(us, hs - 1), _row_window(vs, hs - 1)
+    gx, gy = _grad2d(p, p, c)
+    u = set_interior(usb, clamp(interior(usb) - s * gx, CLAMP))
+    v = set_interior(vsb, clamp(interior(vsb) - s * gy, CLAMP))
+    u, v = (_row_window(_keep_global_shells(f, fs, c, 0, None, y_base,
+                                            ny_g), 1)
+            for f, fs in ((u, usb), (v, vsb)))
+    return u, v, _row_window(p, 1)
+
+
+def corrector_2d_rows(us, vs, p, s, c: StencilConsts, y_base: int,
+                      ny_g: int):
+    """(u, v, p) on the owned rows — ``corrector_2d_kernel<false, true>``
+    on CUDA, counted on ``global_ny_launches``;
+    :func:`corrector_2d_rows_plain` on the CPU.  ``s`` = dt/ρ, 0-d."""
+    if native.on_cpu(us):
+        return corrector_2d_rows_plain(us, vs, p, s, c, y_base, ny_g)
+    _no_rows_consistent(c, ny_g)
+    _check(c, (p,), (s,))
+    own = (1, c.ny - 2, c.nx)
+    hs = (us.shape[1] - own[1]) // 2
+    native.check_cuda(us, vs, p)
+    if hs < 1 or any(tuple(f.shape) != (1, own[1] + 2 * hs, c.nx)
+                     for f in (us, vs)):
+        raise ValueError(f"expected u*, v* padded >= 1 around the owned "
+                         f"rows {own}, got {tuple(us.shape)}")
+    u, v, po = (us.new_empty(own) for _ in range(3))
+    native.launch("cfd_corrector_2d_rows", us.device, *map(native.ptr, (
+        us, vs, p, u, v, po, s)), c.ny, c.nx, c.inv_2dx, c.inv_2dy,
+        int(y_base), int(ny_g), hs)
+    native.count_launch(corrector_2d_rows, "global_ny")
+    return u, v, po
+
+
 native.reset_counts(predictor_star_2d, poisson_input_2d, poisson_rhs_2d,
-                    corrector_2d)
+                    corrector_2d, corrector_2d_rows)
 
 # every wrapper that launches a kernel on the 2D main path, for counters
 WRAPPERS = (predictor_star_2d, poisson_input_2d, right_dot, tdma_z_fwd,
@@ -228,12 +350,15 @@ WRAPPERS_HIGH = (predictor_star_2d, poisson_input_2d, tdma_z_fwd,
 # vmem_small)
 WRAPPERS_RHS = (predictor_star_2d, poisson_rhs_2d, corrector_2d)
 # (the consistent scheme's 2D steps launch the same wrappers, counted on
-# their ``consistent_launches``; the direct solve's GEMMs count in rolling)
+# their ``consistent_launches``; the direct solve's GEMMs count in rolling;
+# the y-decomposed step's global-row launches count on
+# ``global_ny_launches`` of predictor_star_2d, poisson_input_2d and
+# corrector_2d_rows)
 
 
 def reset_launch_counts() -> None:
     native.reset_counts(predictor_star_2d, poisson_input_2d, poisson_rhs_2d,
-                        corrector_2d)
+                        corrector_2d, corrector_2d_rows)
     for fn in WRAPPERS + WRAPPERS_RHS:
         fn.launches = 0
     rolling.reset_launch_counts()

@@ -1,8 +1,9 @@
 """Domain decomposition (counterpart of `cfd_tpu/parallel/`): meshes,
 shard communicators, the z-decomposed projection steps (spectral, CG,
-BiCGSTAB), the (z, y)-decomposed ones (spectral, CG), the decomposed
-explicit steps (Euler, RK2, RK4 over z, (z, y) and 2D y meshes) and the
-sharded Krylov solves."""
+BiCGSTAB), the (z, y)-decomposed ones (spectral, CG, BiCGSTAB), the
+y-decomposed 2D spectral step, the decomposed explicit steps (Euler,
+RK2, RK4 over z, (z, y) and 2D y meshes) and the sharded Krylov
+solves."""
 
 from .comm import LocalComm, ProcessGroupComm
 from .fused_bicgstab import (bicgstab_fused_sharded_unsupported_reason,

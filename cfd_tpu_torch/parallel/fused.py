@@ -1,9 +1,10 @@
-"""The z- and (z, y)-decomposed projection steps (counterpart of
-`cfd_tpu/parallel/fused.py`: the uniform z-mesh FFT_DIRECT DST-fused
+"""The z-, (z, y)- and, in 2D, y-decomposed projection steps (counterpart
+of `cfd_tpu/parallel/fused.py`: the uniform z-mesh FFT_DIRECT DST-fused
 variant `local_step_dst`, `:524-557`, the CG / BiCGSTAB variant
 `local_step`, `:559-610`, and their step wrapper, `:612-645`; on a
 (Pz, Py) mesh with Py > 1, `_make_fused_sharded_projection_zy_step`,
-`:647-938`).
+`:647-938`; on a 2D grid over a y-only mesh,
+`_make_fused_sharded_projection2d_step`, `:940-1088`).
 
 Fields are split along z over the mesh's ``'z'`` axis; x and y stay whole,
 so every in-plane kernel is the single-device one.  Each shard, with
@@ -79,14 +80,40 @@ global plane ``z_off`` and row ``y_off``, and the step is the reference's
    (``corrector_rows``: u*, v*, w* read from the predictor's block,
    global shells passed through, the maxima over every owned point,
    folded with ``comm.max``);
-3. CG (the per-component variant, `:849-905`): the rhs on the owned
-   window (``poisson_rhs(..., halo=2)``), the (z, y) CG
-   (`fused_cg`, its K1 and K2 in their (z, y) modes), and the corrector
-   on the solved p padded one row and one plane.
+3. CG or BiCGSTAB (the per-component variant, `:849-905`): the rhs on
+   the owned window (``poisson_rhs(..., halo=2)``), the (z, y) CG
+   (`fused_cg`, its K1 and K2 in their (z, y) modes) or BiCGSTAB
+   (`fused_bicgstab`, its three passes in their (z, y) modes), and the
+   corrector on the solved p padded one row and one plane; the solve's
+   final residual is the step's residual, a failed solve status −7.
 
 The y/z solve's dense z stage follows the reference (not the z-only
 step's Thomas solve), so the (z, y) FFT_DIRECT step equals the
 single-device step to rounding, not bit for bit.
+
+A 2D grid (nz = 1) runs on a y-only mesh: each shard owns (1, ny/P, nx)
+rows at global row ``y_off``, and the step is the reference's DST-fused
+2D variant, FFT_DIRECT only:
+
+1. u, v, w padded two rows a side (``comm.halo(·, 2, "y")``; the
+   reference's four, its 8-row sublane tile), the predictor on them in
+   its global-row mode (``projection2d.predictor_star_2d(..., y_base=
+   y_off − 2, ny_g=ny)``);
+2. b̃ on the owned rows (``poisson_input_2d(..., halo=2)``: the y face
+   term on the global rows 1 and ny − 2, zero global shells), its
+   forward x DST (``rolling.right_dot`` with FxT);
+3. the y solve (`solvers.poisson.spectral.make_dst2d_fused_sharded_
+   pieces`): an ``all_to_all`` into (ny, nx/P) x-mode slabs, the dense
+   y-eigen solve, the ``all_to_all`` back — where the single-device
+   step runs Thomas + the dense low-mode rescue, so the two equal to
+   rounding;
+4. x̂ padded one row in transform space, its inverse x DST, and the
+   global-row corrector on the owned rows (``corrector_2d_rows``); w is
+   w* (the 2D w correction is zero, `:1050`); the maxima of each owned
+   block, folded with ``comm.max``.
+
+nx must be divisible by the shard count (the slabs); elsewhere the
+reference takes its pencil fallback, which is not ported.
 
 Every configuration outside this slice raises ``CFDError(
 ERROR_UNSUPPORTED)`` with the reference's reason or "… is not ported yet";
@@ -108,13 +135,15 @@ from ..solvers.ns.common import runs_plain, step_result, \
 from ..solvers.ns.params import NSParams
 from ..solvers.ns.projection import is_consistent
 from ..solvers.poisson.base import Method, PoissonParams, PoissonProblem
+from ..ops.kernels import projection2d as p2d
 from ..solvers.poisson.spectral import (dst_fused_sharded_supported,
                                         dst_fused_sharded_zy_supported,
+                                        make_dst2d_fused_sharded_pieces,
                                         make_dst_fused_sharded_pieces,
                                         make_dst_fused_sharded_zy_pieces)
 from .fused_bicgstab import make_bicgstab_fused_sharded_local
 from .fused_cg import make_cg_fused_sharded_local
-from .mesh import Mesh, ShardedField, mesh_zy_sizes
+from .mesh import Mesh, ShardedField, mesh_y_size, mesh_zy_sizes
 
 
 def _not_ported(what: str) -> str:
@@ -141,9 +170,23 @@ def fused_sharded_unsupported_reason(grid: Grid, params: NSParams,
     if params.energy_enabled or params.buoyancy_enabled:
         return _not_ported("the energy equation and buoyancy on the "
                            "sharded step")
+    method = (Method.FFT_DIRECT if poisson_method is None
+              else Method(poisson_method))
     if grid.nz <= 2:
-        return _not_ported("the fused sharded 2D projection (y-only mesh)")
-    sizes = mesh_zy_sizes(mesh)
+        n = mesh_y_size(mesh)
+        if n is None:
+            return ("fused sharded 2D projection needs a y-only mesh "
+                    f"(got axes {dict(mesh.shape)})")
+        if grid.ny % n != 0 or grid.ny // n < 2:
+            return (f"ny={grid.ny} must be divisible by {n} shards with "
+                    ">= 2 rows per shard")
+        if method != Method.FFT_DIRECT:
+            return (f"no fused sharded 2D {method.name} pressure solve "
+                    "(FFT_DIRECT only)")
+        if grid.nx % n != 0:
+            return _not_ported(f"the 2D pencil DST path (nx={grid.nx} not "
+                               f"divisible by {n} shards)")
+        return None
     if sizes is None:
         return ("fused sharded projection needs a mesh over ('z'[, 'y']) "
                 f"axes (got axes {dict(mesh.shape)})")
@@ -151,8 +194,6 @@ def fused_sharded_unsupported_reason(grid: Grid, params: NSParams,
     if grid.nz % pz != 0 or grid.nz // pz < 2:
         return (f"nz={grid.nz} must be divisible by {pz} shards with >= 2 "
                 "planes per shard")
-    method = (Method.FFT_DIRECT if poisson_method is None
-              else Method(poisson_method))
     if py > 1:
         if "y" in mesh.axis_names and (mesh.axis_names.index("y")
                                        < mesh.axis_names.index("z")):
@@ -160,8 +201,6 @@ def fused_sharded_unsupported_reason(grid: Grid, params: NSParams,
         if grid.ny % py != 0 or grid.ny // py < 2:
             return (f"ny={grid.ny} must be divisible by {py} y-shards with "
                     ">= 2 rows per shard")
-        if method == Method.BICGSTAB:
-            return _not_ported("the (z, y)-mesh fused sharded BiCGSTAB")
         if method != Method.FFT_DIRECT:
             return None
         problem = PoissonProblem(grid.nx, grid.ny, grid.nz, grid.dx0,
@@ -237,6 +276,9 @@ def make_fused_sharded_projection_step(grid: Grid, params: NSParams,
                                 grid.xmin, grid.ymin, params.mu,
                                 with_sources, params, dtype)
     precision = _PRECISIONS[spectral_precision]
+    if nz == 1:
+        return _make_2d_step(problem, params, mesh, consts, dtype, precision,
+                             plain)
     P, py = mesh_zy_sizes(mesh)
     if py > 1:
         return _make_zy_step(problem, params, mesh, consts, dtype, method,
@@ -409,9 +451,10 @@ def _make_zy_step(problem: PoissonProblem, params: NSParams, mesh: Mesh,
             problem, pz, py, comm, dtype, precision, plain)
         pressure = None
     else:
-        pressure = make_cg_fused_sharded_local(
-            problem, poisson_params or PoissonParams(), comm, dtype,
-            plain=plain)
+        maker = (make_cg_fused_sharded_local if method == Method.CG
+                 else make_bicgstab_fused_sharded_local)
+        pressure = maker(problem, poisson_params or PoissonParams(), comm,
+                         dtype, plain=plain)
     if plain:
         star, b_in = pkm.predictor_star_plain, pkm.poisson_input_plain
         rhs_of, corr = pkm.poisson_rhs_plain, pkm.corrector_rows_plain
@@ -479,3 +522,65 @@ def _make_zy_step(problem: PoissonProblem, params: NSParams, mesh: Mesh,
                        res[0].final_residual, res[0].status == 0)
 
     return step_dst if pressure is None else step_krylov
+
+
+def _make_2d_step(problem: PoissonProblem, params: NSParams, mesh: Mesh,
+                  consts, dtype, precision: str, plain: bool):
+    """The y-decomposed 2D step (`fused.py:940-1088`), as the module's
+    docstring sets out: FFT_DIRECT, its DST-fused variant, on the
+    global-row modes of the 2D kernels."""
+    comm = mesh.comm
+    P = comm.shape[1]
+    ny, nx = problem.ny, problem.nx
+    nyl = ny // P
+    halo = 2                    # the predictor block's rows
+    offs = [comm.coords(s)[1] * nyl for s in comm.shards]
+    c_pred = dataclasses.replace(consts, ny=nyl + 2 * halo)
+    c_p = dataclasses.replace(consts, ny=nyl + 2)
+    mats, ysolve = make_dst2d_fused_sharded_pieces(problem, P, comm, dtype,
+                                                   precision, plain)
+    if plain:
+        star, b_in = pkm.predictor_star_plain, p2d.poisson_input_2d_plain
+        corr = p2d.corrector_2d_rows_plain
+        right_dot = rolling.right_dot_plain
+    else:
+        star, b_in = p2d.predictor_star_2d, p2d.poisson_input_2d
+        corr, right_dot = p2d.corrector_2d_rows, rolling.right_dot
+    scalars = _step_scalars(params, comm, dtype)
+
+    def pad(blocks, n):
+        """Each (1, nyl, nx) block with ``n`` halo rows a side (zeros
+        past the global ends)."""
+        return [torch.cat([lo, b, hi], 1) for b, (lo, hi) in
+                zip(blocks, comm.halo(blocks, n, "y"))]
+
+    def step(field: ShardedField, dt, iter_idx):
+        blocks = field.blocks
+        scal = scalars(blocks, dt, iter_idx)
+        u2, v2, w2 = (pad([getattr(b, n) for b in blocks], halo)
+                      for n in "uvw")
+        stars = [star(uh, vh, wh, torch.stack([dts, su, sv]), c_pred,
+                      y_base=y - halo, ny_g=ny)
+                 for y, uh, vh, wh, (dts, su, sv, _) in zip(
+                     offs, u2, v2, w2, scal)]
+        # b̃ on the owned rows, its forward x DST, the y solve
+        xhat = ysolve([right_dot(b_in(us, vs, b.p, r0 / dts, c_pred,
+                                      y - halo, ny, halo), m[0], precision)
+                       for y, b, (us, vs, _), (dts, _, _, r0), m in zip(
+                           offs, blocks, stars, scal, mats)])
+        # x̂ padded one row in transform space (the y solve placed the
+        # global mirror shells), its inverse x DST, then the corrector
+        new_blocks, maxima = [], []
+        for y, b, xb, (us, vs, ws), (dts, _, _, r0), m in zip(
+                offs, blocks, pad(xhat, 1), stars, scal, mats):
+            u, v, p = corr(us, vs, right_dot(xb, m[1], precision), dts / r0,
+                           c_p, y - 1, ny)
+            # the w-correction is identically zero in 2D (inv_dz2 = 0)
+            w = ws[:, halo:halo + nyl]
+            new_blocks.append(b.replace(u=u, v=v, w=w, p=p))
+            maxima.append(torch.stack([
+                torch.amax(u ** 2 + v ** 2 + w ** 2), torch.amax(p),
+                torch.amax(torch.abs(p)), torch.amax(b.T)]))
+        return _fold(field, new_blocks, maxima, comm)
+
+    return step

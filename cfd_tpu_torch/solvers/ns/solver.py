@@ -16,7 +16,8 @@ decomposition (`solver.py:83`, `:97-105`): ``init`` builds the step
 through `parallel.sharded.make_sharded_raw_step`, ``place`` shards a
 field into a `parallel.mesh.ShardedField`, and ``step`` and ``solve``
 run on it.  The ported sharded steps are the z- and (z, y)-decomposed
-projections and the decomposed explicit steps (``explicit_euler``,
+projections (FFT_DIRECT, CG, BiCGSTAB), the y-decomposed 2D spectral
+projection and the decomposed explicit steps (``explicit_euler``,
 ``rk2``, ``rk4`` over z, (z, y) and, on a 2D grid, y meshes); anything
 else raises ``CFDError(ERROR_UNSUPPORTED)`` at ``init`` with its reason.
 """

@@ -24,7 +24,10 @@ carries its own Neumann shell.
   y-pencil ``all_to_all``s around the call-time-μ Thomas solve;
 * :func:`make_dst_fused_sharded_zy_pieces` — the (z, y)-decomposed
   step's x-DST factors and its cross-shard y/z solve (`:545-665`): four
-  per-axis ``all_to_all``s around the dense z stage and the y stage.
+  per-axis ``all_to_all``s around the dense z stage and the y stage;
+* :func:`make_dst2d_fused_sharded_pieces` — the y-decomposed 2D step's
+  x-DST factors and its cross-shard y solve (`:326-395`): two
+  ``all_to_all``s around the dense y-eigen solve on x-mode slabs.
 
 The DST and z products run through `ops.kernels.rolling` at the caller's
 precision, ``"highest"`` (IEEE fp32), ``"high"`` (3xTF32) or
@@ -461,6 +464,102 @@ def make_dst2d_fused_pieces(problem: PoissonProblem, dtype=None, device=None,
     # what the stages are called with, for checks of each stage alone
     ysolve.line, ysolve.rescue = (mu, w), (Fyp, Gyp, K)
     return FxT, GxT, ysolve
+
+
+# ---- 2D, y-decomposed: the x-DST pair and the slab y-eigen solve -------------
+
+def dst2d_fused_sharded_supported(problem: PoissonProblem,
+                                  n_shards: int) -> bool:
+    """The y-sharded DST-fused 2D projection applies (counterpart of
+    `spectral.py:309-323`): a 2D problem, ny divisible by the shard count
+    with at least two rows a shard (the predictor's 2-deep halos), and nx
+    divisible by it (the x-mode slabs of the y solve's transposes).  The
+    reference's TPU gates (nx % 1024, a multiple of 8 and >= 24 rows a
+    shard, nx/P % 128) are not kept: the port's mode dims equal the grid
+    dims on every grid.  Where nx is not divisible the reference takes its
+    pencil fallback, which is not ported."""
+    P = int(n_shards)
+    return (dst2d_fused_supported(problem) and P >= 1
+            and problem.ny % P == 0 and problem.ny // P >= 2
+            and problem.nx % P == 0)
+
+
+def make_dst2d_fused_sharded_pieces(problem: PoissonProblem, n_shards: int,
+                                    comm, dtype=None,
+                                    precision: str = "highest",
+                                    plain: bool = False):
+    """y-sharded twin of :func:`make_dst2d_fused_pieces`
+    (`spectral.py:326-395`) for the shards ``comm`` holds on its y axis.
+    The x DST is row-local, so it stays in the shards' local stages; the
+    y line solve is the only cross-shard stage.  Returns ``(mats_x,
+    ysolve)``:
+
+    * ``mats_x`` — one (FxT, GxT) pair per local shard, on its device
+      (forward x̃ = b̃·FxT, inverse p = x̂·GxT with the x normalization
+      and the mirror x-shells folded into GxT), the factors of
+      :func:`make_dst2d_fused_pieces`;
+    * ``ysolve(bt_blocks) → x̂_blocks`` — on each shard's (1, ny/P, nx)
+      x-transformed b̃ (zero global y-shell rows): an ``all_to_all`` over
+      ``"y"`` into (ny, nx/P) x-mode slabs, the dense y-eigen solve
+      s = Fyp·a, s /= (λy ⊗ 1 + 1 ⊗ λx[slab]), x̂ = Gyp·s, and the
+      ``all_to_all`` back; x̂ keeps x-transform space and carries the
+      global mirror y-shells on the edge shards' owned rows.
+
+    The two slab products go through ``rolling.left_dot`` at
+    ``precision`` ("highest": the SGEMM, "high": 3xTF32; the reference's
+    XLA matmuls at the step's precision), or their plain versions with
+    ``plain``.  Unlike the single-device stage (Thomas + dense low-mode
+    rescue) the slab stage is the plain eigen contraction on every
+    column, as the reference's, so a sharded step equals the
+    single-device step to rounding, not bit for bit.  One shard runs the
+    same slab solve (the all_to_all is the identity), where the
+    reference returns its single-device pieces."""
+    P = int(n_shards)
+    if not dst2d_fused_sharded_supported(problem, P):
+        raise CFDError(Status.ERROR_UNSUPPORTED,
+                       f"the DST-fused sharded 2D pieces need a 2D problem "
+                       f"with ny divisible by {P} shards (>= 2 rows a "
+                       f"shard) and nx by {P} (got ny={problem.ny}, "
+                       f"nx={problem.nx})")
+    rolling._check_precision(precision)
+    devices = [torch.device(d) for d in comm.devices]
+    dt = resolve_dtype(dtype, devices[0])
+    np_dt = np.float64 if dt == torch.float64 else np.float32
+    nx, ny = problem.nx, problem.ny
+    mx, my = nx - 2, ny - 2
+    nxl = nx // P
+    lx = _edge_padded(_dirichlet_eigenvalues(mx, problem.inv_dx2), nx)
+    ly = _dirichlet_eigenvalues(my, problem.inv_dy2)
+    host = {"fxt": _padded_forward(mx, nx, np_dt).T,
+            "gxt": _padded_inverse(mx, nx, 2.0 / (mx + 1), np_dt).T,
+            "fy": np.pad(_sine_matrix(my), ((0, 0), (1, 1))),      # (my, ny)
+            "gy": _mirror_extended_inverse(my, 2.0 / (my + 1))}    # (ny, my)
+
+    def dev(a, d):
+        return torch.as_tensor(np.ascontiguousarray(a).astype(np_dt),
+                               dtype=dt, device=d)
+
+    per_device = {}
+    for d in devices:
+        if d not in per_device:
+            per_device[d] = {k: dev(v, d) for k, v in host.items()}
+    factors = [per_device[d] for d in devices]
+    lam = []
+    for s_, d in zip(comm.shards, devices):
+        yi = comm.coords(s_)[1]
+        lam.append(dev(ly, d)[:, None]
+                   + dev(lx[yi * nxl:(yi + 1) * nxl], d)[None, :])
+    left_dot = _products(plain)[2]
+
+    def ysolve(bt_blocks):
+        a = (comm.all_to_all(bt_blocks, 2, 1, "y") if P > 1
+             else list(bt_blocks))                       # (1, ny, nx/P)
+        x = [left_dot(f["gy"], left_dot(f["fy"], b[0], precision=precision)
+                      / lm, precision=precision)[None]
+             for f, b, lm in zip(factors, a, lam)]       # (1, ny, nx/P)
+        return comm.all_to_all(x, 1, 2, "y") if P > 1 else x
+
+    return [(f["fxt"], f["gxt"]) for f in factors], ysolve
 
 
 # ---- the transform pipelines and the direct solver ---------------------------

@@ -284,6 +284,30 @@ And the decomposed explicit steps (``make_sharded_step(...,
   ``solve()``, a solver swap keeping the mesh; then the Euler step on a
   one-rank NCCL ``ProcessGroupComm`` against ``LocalComm``, bit for bit.
 
+And the (z, y) BiCGSTAB step and the y-decomposed 2D projection step
+(emulated shards on the card):
+
+* phase 58: B1r — the BiCGSTAB passes' (z, y) modes on blocks padded one
+  plane and one row a side — on every block of a (4, 3) cover of
+  37×23×16 and of the (2, 2) mesh at 512³; P2r — the 2D predictor, b̃
+  and corrector in their global-row modes — on every one of 4 y-shards'
+  rows at 37×24 and 2048² (fields bit-equal, the dots' shares at
+  ``TOL_DOT``; one block of each timed by its device time); then the 2D
+  step's x-DST and slab y-solve GEMMs at a 2048² 4y shard's shapes;
+* phase 59: ``bench.py:run_2d(2048)``'s step over 4 y-shards at HIGHEST
+  and HIGH — the first HIGHEST step held against the float64 step on the
+  card at ``TOL_2D_F64_*`` (its difference from the single-device step,
+  whose Thomas y solve rounds otherwise, printed), HIGH against the
+  single-device HIGH step; 3 warm-up and 20 timed steps beside the
+  single-device step's (with ``--profile`` 3 profiled steps);
+* phase 60: phase 49's BiCGSTAB step (128³) over (2, 2) and (1, 4)
+  against the single-device kernel step, the same way;
+* phase 61: ``Simulation.create(..., "projection_spectral", mesh=)`` on
+  a 256×128 grid over 4 y-shards, one step against the single-device
+  facade.
+
+On phases 59 and 60 the plain twins of the path are tripwires too.
+
 It checks status, finiteness, launch counters (set to 0 just before each
 main path and read just after) and kernel-vs-plain agreement; any
 failure exits non-zero.  The line before the last is a JSON object
@@ -295,8 +319,9 @@ PyTorch call computes the same function); the last line is
     python3 chip_smoke.py --profile
 
 adds phase 5: 3 more kernel-path steps of the 512³ and 2048² projection
-steps, of each phase-10 configuration and of the (2, 2) HIGHEST step of
-phase 52, and one step of each path of phases 48, 49 and 53, under
+steps, of each phase-10 configuration, of the (2, 2) HIGHEST step of
+phase 52 and of the 4y HIGHEST step of phase 59, and one step of each
+path of phases 48, 49, 53 and 60, under
 ``torch.profiler``,
 printing the device time per kernel, the device busy time against the
 CUDA-event span and host wall time of those steps (the device's idle
@@ -508,6 +533,21 @@ E2_Y = "cfd_tpu/ops/pallas/euler2d.py:75"            # global_ny
 RK3_Z = "cfd_tpu/ops/pallas/rk_kernels.py:183"       # global_nz
 RK3_ZY = "cfd_tpu/ops/pallas/rk_kernels.py:110"      # + global_ny
 RK2_Y = "cfd_tpu/ops/pallas/rk2d.py:90"              # global_ny
+# Phases 58-61: the (z, y) BiCGSTAB step and the y-decomposed 2D step
+B1_ZY = "cfd_tpu/ops/pallas/bicgstab_kernels.py:69"   # global_ny masks
+B1_XR_ZY = "cfd_tpu/parallel/fused_bicgstab.py:229"   # xr, owned block
+YS_2D = "cfd_tpu/solvers/poisson/spectral.py:386"     # slab y-eigen matmuls
+# The 2D step over 4 y-shards at HIGHEST (phase 59): its dense y-eigen
+# solve and the single-device step's Thomas + rescue round differently
+# (the two float32 steps 2.0e-5 apart on u, 1.95e-3 = 1.8e-7·max|p| on p
+# after the first 2048^2 step, on an H100), so the first step is held
+# against the float64 step on the card at fixed bars about twice the
+# readings (u 8.2e-4, p 0.0704 = 6.5e-6·max|p|, the single-device step's
+# distance the same): a halo, transpose or shell fault moves u by 1e-2
+# and more.
+TOL_2D_F64_UVW = 2e-3
+TOL_2D_F64_P = 1.3e-5      # of max|p| of the float64 step (10863)
+
 # a decomposed explicit step against the single-device kernel step: the
 # same arithmetic at every point and the same faces, so expected bit for
 # bit; a difference is held at 2e-6 (the reference's own sharded-vs-jnp
@@ -6431,6 +6471,406 @@ def main() -> int:
     print(f"phase 57 took {time.perf_counter() - t_phase:.1f} s",
           flush=True)
 
+    # ==== the (z, y) BiCGSTAB step and the y-decomposed 2D step ===========
+    # ---- phase 58: the B1r and P2r kernel modes against their plain twins
+    # B1r: the BiCGSTAB passes' (z, y) modes (bicg_*_kernel<true, true>) on
+    # blocks padded one plane and one row a side, at 37x23x16 on every
+    # block of 4 planes x 8 rows of a (4, 3) cover (23 rows: the last y
+    # block overlaps its neighbour) and on the four (2, 2) blocks of 512^3
+    # (258 x 258 x 512 padded); P2r: the 2D kernels' global-row modes
+    # (<false, true>) on the rows of every one of 4 y-shards at 37x24 and
+    # 2048^2 (the predictor's rows padded 2 a side, the corrector's p 1).
+    # Fields bit for bit, the dots' shares at TOL_DOT.  One block of each
+    # mode at the large size is timed by its device time; its bound counts
+    # a stencil field's owned points plus the halo rows and planes it
+    # reads, every other input and output at owned size.  Then the 2D
+    # step's GEMMs at a 2048^2 4y shard's shapes: the x DST on its
+    # (512, 2048) rows, the slab y-solve product on its (2048, 512) x-mode
+    # slab (SGEMM and 3xTF32 at 2e-5·max, torch.matmul beside).
+    t_phase = time.perf_counter()
+    for shape in ((16, 23, 37), (N_BIG,) * 3):
+        nz_g, ny_g, nx_ = shape
+        big = nz_g == N_BIG
+        nzl, nyl = (nz_g // ZY[0], ny_g // ZY[1]) if big else (4, 8)
+        shards_ = ([(zi * nzl, yi * nyl) for zi in range(ZY[0])
+                    for yi in range(ZY[1])] if big else
+                   [(z0, y0) for z0 in range(0, nz_g, nzl)
+                    for y0 in (0, 8, ny_g - nyl)])
+        tag = "x".join(map(str, shape[::-1]))
+        print(f"phase 58 B1r vs plain at {tag}, blocks of {nzl} planes x "
+              f"{nyl} rows at {shards_}", flush=True)
+        grid, prob = cg_problem(shape)
+        b_own = bk.BiCGConsts(nzl, nyl, nx_, prob.inv_dx2, prob.inv_dy2,
+                              prob.inv_dz2)
+        b_pad = dataclasses.replace(b_own, nz=nzl + 2, ny=nyl + 2)
+        gen = torch.Generator(device=dev).manual_seed(SEED + 58)
+        r, p, v, x = (torch.randn(shape, generator=gen, device=dev)
+                      for _ in range(4))
+        beta = torch.full((), 0.37, device=dev)
+        alpha = torch.full((), 0.61, device=dev)
+        omega = torch.full((), 0.23, device=dev)
+        one = torch.ones((), device=dev)
+        for b_i, (z0, y0) in enumerate(shards_):
+            timed = big and b_i == 1
+            stag = f"{tag} block ({z0}, {y0})"
+            rb, pb, vb, xb = (zy_blocks(a, 1, [(z0, y0)], nzl, nyl)[0]
+                              for a in (r, p, v, x))
+            base = (z0 - 1, nz_g, y0 - 1, ny_g)
+            cells, pad_cells = nzl * nyl * nx_, rb.numel()
+            # timed as the solve launches them: in place, a running state
+            st_b = bk.new_state(one, one, 0 * one, 0 * one, one > 0)
+            st_b[bk.BETA], st_b[bk.OMEGA] = beta, omega
+            st_b[bk.ALPHA_NEW], st_b[bk.ALPHA_EFF] = alpha, alpha
+            st_b[bk.OMEGA_EFF] = omega
+            b_ops = bk.ShardBiCGSTABPasses(b_own, z0, nz_g, dev, y_off=y0,
+                                           ny_g=ny_g)
+            t1, t2 = torch.zeros_like(rb), torch.zeros_like(rb)
+            # pv reads r, p, v around the owned points, r^ at them (x's
+            # block stands for r^: any field will do)
+            pn, vn, _ = check(
+                "sharded-zy-bicgstab", stag, timed, bk.pass_pv, B1_ZY,
+                SRC_BICG,
+                lambda: bk.pass_pv(rb, pb, vb, xb, beta, omega, b_pad,
+                                   *base),
+                lambda: bk.pass_pv_plain(rb, pb, vb, xb, beta, omega, b_pad,
+                                         *base),
+                ("p'", "v'", "<rhat,v'>"), (bit, bit, dot),
+                work=(4 * (3 * pad_cells + cells),
+                      FLOPS_PER_POINT["bicg_pv"] * cells),
+                time_fn=lambda: b_ops.pv(rb, pb, vb, xb, t1, t2, st_b),
+                name="pass_pv[global_ny]", device_time=True)
+            s_, t_, *_ = check(
+                "sharded-zy-bicgstab", stag, timed, bk.pass_st, B1_ZY,
+                SRC_BICG,
+                lambda: bk.pass_st(rb, vb, alpha, b_pad, *base),
+                lambda: bk.pass_st_plain(rb, vb, alpha, b_pad, *base),
+                ("s", "t", "<s,s>", "<t,s>", "<t,t>"),
+                (bit, bit, dot, dot, dot),
+                work=(4 * 2 * pad_cells, FLOPS_PER_POINT["bicg_st"] * cells),
+                time_fn=lambda: b_ops.st(rb, vb, t1, t2, st_b),
+                name="pass_st[global_ny]", device_time=True)
+            pnb, sb, tb = (torch.zeros_like(rb) for _ in range(3))
+            pnb[1:-1, 1:-1], sb[1:-1, 1:-1], tb[1:-1, 1:-1] = pn, s_, t_
+            xt, rt = xb.clone(), rb.clone()
+            # xr: every owned point but the global shells (an inner
+            # block's first and last owned rows too)
+            check("sharded-zy-bicgstab", stag, timed, bk.pass_xr, B1_XR_ZY,
+                  SRC_BICG,
+                  lambda: bk.pass_xr(xb, pnb, sb, tb, rb, alpha, omega,
+                                     b_pad, *base),
+                  lambda: bk.pass_xr_plain(xb, pnb, sb, tb, rb, alpha,
+                                           omega, b_pad, *base),
+                  ("x'", "r'", "<r,r>", "<rhat,r>"), (bit, bit, dot, dot),
+                  work=(4 * 5 * cells, FLOPS_PER_POINT["bicg_xr"] * cells),
+                  time_fn=lambda: b_ops.xr(xt, rt, pnb, sb, tb, rb, st_b),
+                  name="pass_xr[global_ny]", device_time=True)
+            del rb, pb, vb, xb, pn, vn, s_, t_, pnb, sb, tb, xt, rt, t1, t2
+        del r, p, v, x
+        torch.cuda.empty_cache()
+    rows_pad = torch.nn.functional.pad
+    for ny2, nx2 in ((24, 37), (N_2D, N_2D)):
+        big = ny2 == N_2D
+        nyl = ny2 // 4
+        tag = f"{nx2}x{ny2}"
+        print(f"phase 58 P2r vs plain at {tag}, 4 y blocks of {nyl} rows",
+              flush=True)
+        grid2 = Grid.uniform(nx2, ny2)
+        c2 = pkm.stencil_consts(1, ny2, nx2, grid2.dx0, grid2.dy0, 0.0,
+                                grid2.xmin, grid2.ymin, NSParams().mu, True,
+                                None, torch.float32)
+        c_pred = dataclasses.replace(c2, ny=nyl + 4)
+        c_p = dataclasses.replace(c2, ny=nyl + 2)
+        gen = torch.Generator(device=dev).manual_seed(SEED + 581)
+        u, v, w, p = (0.1 * torch.randn((1, ny2, nx2), generator=gen,
+                                        device=dev) for _ in range(4))
+        dt = torch.full((), 1e-3, device=dev)
+        scal = torch.stack([dt, torch.full((), 0.1, device=dev),
+                            torch.full((), 0.05, device=dev)])
+        rod, s = 1.0 / dt, dt / 1.0
+
+        def rows_of(a, y0, h):
+            """Rows y0 .. y0 + nyl of ``a`` with h rows a side (zeros
+            past the global ends)."""
+            ap = rows_pad(a, (0, 0, h, h)) if h else a
+            return ap[:, y0:y0 + nyl + 2 * h].contiguous()
+
+        for yi in range(4):
+            y0 = yi * nyl
+            timed = big and yi == 1
+            stag = f"{tag} rows {y0}..{y0 + nyl}"
+            u2, v2, w2 = (rows_of(a, y0, 2) for a in (u, v, w))
+            po, p1 = rows_of(p, y0, 0), rows_of(p, y0, 1)
+            row = 4 * nx2       # the bytes of one float32 row
+            us, vs, ws = check(
+                "sharded-2d", stag, timed, pk2m.predictor_star_2d, P2,
+                SRC_2D,
+                lambda: pk2m.predictor_star_2d(u2, v2, w2, scal, c_pred,
+                                               y_base=y0 - 2, ny_g=ny2),
+                lambda: pkm.predictor_star_plain(u2, v2, w2, scal, c_pred,
+                                                 y_base=y0 - 2, ny_g=ny2),
+                ("u*", "v*", "w*"), (bit,) * 3,
+                work=(3 * row * (nyl + 4),
+                      FLOPS_PER_POINT["predictor_star"] * nx2 * (nyl + 4)),
+                name="predictor_star_2d[global_ny]", device_time=True)
+            check("sharded-2d", stag, timed, pk2m.poisson_input_2d, P2,
+                  SRC_2D,
+                  lambda: pk2m.poisson_input_2d(us, vs, po, rod, c_pred,
+                                                y0 - 2, ny2, 2),
+                  lambda: pk2m.poisson_input_2d_plain(us, vs, po, rod,
+                                                      c_pred, y0 - 2, ny2,
+                                                      2),
+                  ("b~",), (bit,),
+                  work=(row * (3 * nyl + 2),
+                        FLOPS_PER_POINT["poisson_input"] * nx2 * nyl),
+                  name="poisson_input_2d[global_ny]", device_time=True)
+            check("sharded-2d", stag, timed, pk2m.corrector_2d_rows, C2,
+                  SRC_2D,
+                  lambda: pk2m.corrector_2d_rows(us, vs, p1, s, c_p, y0 - 1,
+                                                 ny2),
+                  lambda: pk2m.corrector_2d_rows_plain(us, vs, p1, s, c_p,
+                                                       y0 - 1, ny2),
+                  ("u", "v", "p"), (bit,) * 3,
+                  work=(row * (3 * nyl + 2),
+                        FLOPS_PER_POINT["corrector"] * nx2 * nyl),
+                  name="corrector_2d_rows[global_ny]", device_time=True)
+            del u2, v2, w2, po, p1, us, vs, ws
+        if big:
+            # the GEMMs of a 4y shard: the x DST on its (512, 2048) rows,
+            # the slab y solve's (2046 x 2048) product on its x-mode slab
+            gen = torch.Generator(device=dev).manual_seed(SEED + 582)
+            bt = torch.randn((1, nyl, nx2), generator=gen, device=dev)
+            fxt = torch.randn((nx2, nx2), generator=gen, device=dev)
+            fy = torch.randn((ny2 - 2, ny2), generator=gen, device=dev)
+            slab = torch.randn((ny2, nx2 // 4), generator=gen, device=dev)
+            x_ops = gemm_flops(nyl, nx2, nx2)
+            y_ops = gemm_flops(ny2 - 2, nx2 // 4, ny2)
+            for prec, suffix, src_, rate in (
+                    ("highest", "", SRC, FP32_FLOPS),
+                    ("high", "[3xtf32]", SRC_GEMM, TF32_TC_FLOPS)):
+                path = "sharded-2d" + ("-high" if suffix else "")
+                mult = 3 if suffix else 1
+                check(path, f"{tag} 4y shard", True, rolling.right_dot,
+                      DOT2, src_,
+                      lambda: rolling.right_dot(bt, fxt, prec),
+                      lambda: rolling.right_dot_plain(bt, fxt, prec),
+                      ("x-DST",), (gemm,),
+                      work=((bt, fxt), mult * x_ops),
+                      library=ieee_matmul(lambda: bt @ fxt),
+                      name=f"right_dot{suffix}", rate=rate)
+                check(path, f"{tag} 4y shard", True, rolling.left_dot,
+                      YS_2D, src_,
+                      lambda: rolling.left_dot(fy, slab, precision=prec),
+                      lambda: rolling.left_dot_plain(fy, slab,
+                                                     precision=prec),
+                      ("y slab",), (gemm,),
+                      work=((fy, slab), mult * y_ops),
+                      library=ieee_matmul(lambda: fy @ slab),
+                      name=f"left_dot{suffix}", rate=rate)
+            del bt, fxt, fy, slab
+        del u, v, w, p
+        torch.cuda.empty_cache()
+    print(f"phase 58 took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+    # ---- phase 59: the 2048^2 2D step over 4 y-shards -------------------
+    # bench.py:run_2d(2048)'s configuration (phase 6's) through
+    # make_sharded_step on a y mesh of [cuda:0] * 4, at HIGHEST and HIGH,
+    # against the single-device kernel step from the same field.  The
+    # sharded y solve is a dense eigen contraction where the single-device
+    # step runs Thomas + the low-mode rescue, so the two float32 steps
+    # differ by rounding: at HIGHEST the first step is held against the
+    # float64 step on the card (the plain chain) at TOL_2D_F64_*, the
+    # single-device step's own distance from it and the two float32
+    # steps' difference printed; HIGH is held against the single-device
+    # HIGH step at phase 28's 2D HIGH bars.  Then 3 warm-up and
+    # TIMED_STEPS_2D timed steps of each (CUDA events; the configuration
+    # meets the clamps near step 24, so the timed fields are not held
+    # against each other), the counters set to 0 just before the timed
+    # sharded steps and read just after, every plain twin a tripwire.
+    t_phase = time.perf_counter()
+    grid_2 = Grid.uniform(N_2D, N_2D)
+    params_2 = NSParams(source_amplitude_u=0.0, source_amplitude_v=0.0,
+                        mu=0.01)
+    shape_2, dt_2 = (1, N_2D, N_2D), 1e-5
+    PLAIN_2D = ([(pkm, "predictor_star_plain")]
+                + [(pk2m, nm) for nm in ("predictor_star_plain",
+                                         "poisson_input_2d_plain",
+                                         "corrector_2d_rows_plain")]
+                + [(rolling, nm) for nm in ("right_dot_plain",
+                                            "left_dot_plain",
+                                            "matmul_plain")])
+    f0 = tg_field(shape_2)
+    s64 = make_projection_step(grid_2, params_2, torch.float64,
+                               Method.FFT_DIRECT, device=dev)(
+        FlowField(*(getattr(f0, nm).double() for nm in names6)), dt_2,
+        0)[0]
+    truth2 = {nm: getattr(s64, nm) for nm in "uvwp"}
+    del s64, f0
+
+    def off_truth2(fld):
+        return {nm: float((getattr(fld, nm).double() - truth2[nm]).abs()
+                          .max()) for nm in "uvwp"}
+
+    rec_2d = {}
+    for prec in (None, "high"):
+        label = (f"phase 59 2D {N_2D}^2 over 4y "
+                 f"{'HIGH' if prec else 'HIGHEST'}")
+        step_s, place = make_sharded_step(
+            grid_2, params_2, mesh_y4, "projection",
+            spectral_precision=prec)
+        single = make_projection_step(grid_2, params_2, torch.float32,
+                                      Method.FFT_DIRECT, device=dev,
+                                      spectral_precision=prec)
+        f0 = tg_field(shape_2)
+        fs0 = place(f0)
+        g1 = gather_field(step_s(fs0, dt_2, 0)[0])
+        s1 = single(f0, dt_2, 0)[0]
+        sync()
+        tag = f"{label} first step"
+        e_y, e_1 = off_truth2(g1), off_truth2(s1)
+        diffs = {nm: float((getattr(g1, nm) - getattr(s1, nm)).abs().max())
+                 for nm in "uvwp"}
+        print(f"{tag}: max|4y - float64| {e_y}, max|single-device - "
+              f"float64| {e_1}, max|4y - single-device| {diffs}, max|p| "
+              f"{float(truth2['p'].abs().max())!r}", flush=True)
+        if prec is None:
+            pscale = float(truth2["p"].abs().max())
+            for nm in "uvwp":
+                bar = (TOL_2D_F64_P * pscale if nm == "p"
+                       else TOL_2D_F64_UVW)
+                if not e_y[nm] <= bar:
+                    fail(f"{tag} {nm}: {e_y[nm]:.3e} off the float64 "
+                         f"step, above {bar:.3e}")
+        else:
+            def held_1(name_, bar, passed=0.0):
+                ref = getattr(s1, name_)
+                scale = max(1.0, float(ref.abs().max()))
+                return compare(tag + " vs single-device", name_,
+                               getattr(g1, name_), ref,
+                               bar * scale + passed, False)[0]
+
+            dp = held_1("p", HIGH_P)
+            held_1("u", HIGH_U_2D, dt_2 / grid_2.dx0 * dp)
+            held_1("v", HIGH_U_2D, dt_2 / grid_2.dy0 * dp)
+            held_1("w", HIGH_U_2D)
+        del g1, s1
+        run_steps(step_s, fs0, dt_2, 3)
+        sync()
+        pk2m.reset_launch_counts()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        with no_plain(label, PLAIN_2D):
+            start.record()
+            fs, res_s = run_steps(step_s, fs0, dt_2, TIMED_STEPS_2D)
+            end.record()
+            sync()
+        ms_s = start.elapsed_time(end) / TIMED_STEPS_2D
+        counts = {f"{w_.__name__}[global_ny]": w_.global_ny_launches
+                  for w_ in (pk2m.predictor_star_2d, pk2m.poisson_input_2d,
+                             pk2m.corrector_2d_rows)}
+        key = "high_launches" if prec else "launches"
+        sfx = "[3xtf32]" if prec else ""
+        counts[f"right_dot{sfx}"] = getattr(rolling.right_dot, key)
+        counts[f"left_dot{sfx}"] = getattr(rolling.left_dot, key)
+        print(f"{label}: launch counts over the main path {counts}",
+              flush=True)
+        if min(counts.values()) <= 0:
+            fail(f"{label}: a kernel of the 2D sharded step not launched")
+        if prec and (rolling.right_dot.launches
+                     or rolling.left_dot.launches):
+            fail(f"{label}: an SGEMM launched on the HIGH path")
+        launch_counts["sharded-2d-high" if prec else "sharded-2d"] = counts
+        run_steps(single, f0, dt_2, 3)
+        sync()
+        start.record()
+        f1, res_1 = run_steps(single, f0, dt_2, TIMED_STEPS_2D)
+        end.record()
+        sync()
+        ms_1 = start.elapsed_time(end) / TIMED_STEPS_2D
+        g = gather_field(fs)
+        cells_2 = N_2D * N_2D
+        print(f"{label}: {ms_s:.3f} ms/step, "
+              f"{cells_2 / (ms_s * 1e-3) / 1e6:.1f} MLUPS; single-device "
+              f"kernel step {ms_1:.3f} ms/step; status {int(res_s.status)}, "
+              f"max|u| {float(res_s.max_velocity)!r} (single "
+              f"{float(res_1.max_velocity)!r}) after {TIMED_STEPS_2D} "
+              f"steps", flush=True)
+        if int(res_s.status) != 0 or not bool(g.is_finite()):
+            fail(f"{label}: nonzero status or non-finite fields")
+        if do_profile and prec is None:
+            profile_steps(torch, f"phase 5 {label}",
+                          lambda: run_steps(step_s, fs0, dt_2,
+                                            PROFILED_STEPS),
+                          PROFILED_STEPS)
+        rec_2d["high" if prec else "highest"] = {
+            "ms": ms_s, "mlups": cells_2 / (ms_s * 1e-3) / 1e6,
+            "single_ms": ms_1, "first_step_max_abs_diff": diffs,
+            "first_step_off_float64": e_y,
+            "single_first_step_off_float64": e_1}
+        del f0, fs0, fs, g, f1
+        torch.cuda.empty_cache()
+    del truth2
+    print(f"phase 59 took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+    # ---- phase 60: the 128^3 BiCGSTAB step over (2, 2) and (1, 4) -------
+    # phase 25's / 49's configuration (128^3, its tolerance) through
+    # krylov_step_pair on the (z, y) meshes, against the single-device
+    # kernel step: status, iterations a step, fields at phase 49's bars
+    t_phase = time.perf_counter()
+    bicg_zy = {}
+    for mshape in (ZY, (1, 4)):
+        mesh_b = mesh22 if mshape == ZY else make_mesh([dev] * 4,
+                                                       shape=mshape)
+        bicg_zy[f"{mshape[0]}x{mshape[1]}"] = krylov_step_pair(
+            f"phase 60 BiCGSTAB step {N_BICG_STEP}^3 over {mshape} "
+            f"(tolerance {bicg_step_tol:g})", (N_BICG_STEP,) * 3,
+            Method.BICGSTAB, PoissonParams(tolerance=bicg_step_tol),
+            (pkm.predictor_star, pkm.poisson_rhs, pkm.corrector_rows)
+            + tuple(bk.WRAPPERS), "sharded-zy-bicgstab",
+            PLAIN_BICG + [(pkm, nm) for nm in ("predictor_star_plain",
+                                               "poisson_rhs_plain",
+                                               "corrector_rows_plain")],
+            mesh=mesh_b, mode="global_ny")
+        torch.cuda.empty_cache()
+    print(f"phase 60 took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+    # ---- phase 61: the facade on a 2D y mesh ------------------------------
+    # Simulation.create(256, 128, "projection_spectral", mesh=4y) against
+    # the single-device facade from the same Taylor-Green start, one
+    # step() each: the fields at phase 57's spectral bar, the stats'
+    # maxima beside
+    t_phase = time.perf_counter()
+    label = ("phase 61 Simulation.create(256, 128, projection_spectral) "
+             "over 4y")
+    sims = {kind: Simulation.create(
+        256, 128, solver_type="projection_spectral",
+        **({"mesh": mesh_y4} if kind == "mesh" else {"device": dev}))
+        for kind in ("mesh", "single")}
+    f61 = tg_field((1, 128, 256))
+    sims["mesh"].field = sims["mesh"].solver.place(f61)
+    sims["single"].field = f61
+    st61 = [int(sims[k].step()) for k in ("mesh", "single")]
+    sync()
+    g = sims["mesh"].field.gather()
+    facade_2d = held(f"{label} 1 step", g, sims["single"].field,
+                     1e-5 * max(1.0, float(sims["single"].field.p.abs()
+                                          .max())))
+    s_m, s_1 = sims["mesh"].get_stats(), sims["single"].get_stats()
+    print(f"{label}: statuses {st61}, max|u| {s_m.max_velocity!r} (single "
+          f"{s_1.max_velocity!r}), max p {s_m.max_pressure!r} (single "
+          f"{s_1.max_pressure!r})", flush=True)
+    if any(st61) or not isinstance(sims["mesh"].field, ShardedField):
+        fail(f"{label}: a facade step failed or the field left the mesh")
+    if abs(s_m.max_velocity - s_1.max_velocity) > 1e-5 * max(
+            1.0, s_1.max_velocity):
+        fail(f"{label}: the stats' max|u| differ")
+    del sims, g, f61
+    torch.cuda.empty_cache()
+    print(f"phase 61 took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
     kernels = []
     for (path, name), rec in records.items():
         launches = launch_counts.get(path, {}).get(name)
@@ -6486,6 +6926,9 @@ def main() -> int:
                       "explicit_sharded": explicit_sharded,
                       "facade_mesh_max_abs_diff": facade_mesh,
                       "nccl_one_rank_euler_max_abs_diff": nccl_euler_diff,
+                      "step_2d_4y_2048": rec_2d,
+                      "bicgstab_step_zy_128": bicg_zy,
+                      "facade_2d_4y_max_abs_diff": facade_2d,
                       "launch_counts": launch_counts,
                       "card": card}), flush=True)
     print(json.dumps({"ok": True, "device": {

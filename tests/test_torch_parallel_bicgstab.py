@@ -79,8 +79,10 @@ def test_supported():
     assert "3D" in bicgstab_fused_sharded_unsupported_reason(p2, 8)
     p3 = PoissonProblem(128, 16, 12, 0.01, 0.01, 0.01)
     assert "divisible" in bicgstab_fused_sharded_unsupported_reason(p3, 8)
-    assert "not ported" in bicgstab_fused_sharded_unsupported_reason(
-        prob, 2, py=4)
+    # the (z, y) mesh is in the slice: ny = 16 over 4 y-shards
+    assert bicgstab_fused_sharded_unsupported_reason(prob, 2, py=4) is None
+    assert "y-shards" in bicgstab_fused_sharded_unsupported_reason(
+        prob, 2, py=3)
 
 
 @pytest.mark.parametrize("P", [2, 4, 8])

@@ -16,9 +16,11 @@ shards) against the reference's, and its refusals, on the CPU.
   every 4-card machine gets — builds and steps FFT_DIRECT and CG, and so
   does ``NSSolver(method="projection", mesh=…)``;
 * every (z, y) configuration outside the slice raises
-  ``ERROR_UNSUPPORTED`` with its reason: BiCGSTAB, energy, buoyancy, the
-  consistent scheme, custom sources, ``nx % Pz != 0`` (the two-axis
-  pencil fallback), a y count that does not divide ny, the 2D step.
+  ``ERROR_UNSUPPORTED`` with its reason: a preconditioned BiCGSTAB (the
+  (z, y) BiCGSTAB itself runs, `tests/test_torch_parallel_bicgstab_zy.py`),
+  energy, buoyancy, the consistent scheme, custom sources, ``nx % Pz !=
+  0`` (the two-axis pencil fallback), a y count that does not divide ny,
+  a 2D grid (its step needs a y-only mesh).
 """
 
 import jax
@@ -43,7 +45,8 @@ from cfd_tpu_torch.parallel import (gather_field, make_mesh,
 from cfd_tpu_torch.solvers.ns.params import NSParams
 from cfd_tpu_torch.solvers.ns.projection import make_projection_step
 from cfd_tpu_torch.solvers.ns.solver import NSSolver
-from cfd_tpu_torch.solvers.poisson.base import Method, PoissonParams
+from cfd_tpu_torch.solvers.poisson.base import (Method, PoissonParams,
+                                                Precond)
 
 from tests.test_torch_parallel_step import random_arrays
 
@@ -181,9 +184,13 @@ def _mesh4():
 
 
 REFUSALS = {
+    # BiCGSTAB runs on a (z, y) mesh; a preconditioner is refused there
+    # as on a z mesh (the reference's sharded solve is unpreconditioned)
     "bicgstab": (lambda: (_uniform(), NSParams(), _mesh4(),
-                          {"poisson_method": Method.BICGSTAB}),
-                 "(z, y)-mesh fused sharded BiCGSTAB is not ported yet"),
+                          {"poisson_method": Method.BICGSTAB,
+                           "poisson_params": PoissonParams(
+                               preconditioner=Precond.JACOBI)}),
+                 "BiCGSTAB kernel build failed"),
     "energy": (lambda: (_uniform(), NSParams(alpha=1e-3), _mesh4(), {}),
                "energy equation and buoyancy on the sharded step is not "
                "ported yet"),
@@ -207,7 +214,7 @@ REFUSALS = {
                                   {"poisson_method": Method.CG}),
                          "ny=15 must be divisible by 2 y-shards"),
     "2d": (lambda: (Grid.uniform(24, 16), NSParams(), _mesh4(), {}),
-           "2D projection (y-only mesh) is not ported yet"),
+           "fused sharded 2D projection needs a y-only mesh"),
 }
 
 

@@ -28,6 +28,21 @@ and its VMEM gate are left out: any (nz, ny, nx) with nz == 1 or nz ≥ 3
 runs.  Built with -fmad=false in the plain version's operation order, so
 the kernel matches :func:`rb_sweep_plain` bit for bit.
 
+The sharded modes (the TPU kernel's ``global_nz`` and ``global_ny``,
+`mg_kernels.py:50-91`): ``rb_sweep(..., z_off=, gnz=[, y_off=, gny=])``
+sweeps a shard's block padded with halo planes (and rows) that hold its
+neighbours' x and b — local plane k is global plane ``z_off + k`` of
+``gnz``, local row j global row ``y_off + j`` of ``gny`` (without
+``y_off`` the rows are whole).  A point is updated, and its residual
+formed, inside the global Dirichlet-0 interior and the block's own
+interior only; the checkerboard is keyed on the global index.  So on a
+block with h halo planes (rows) a side the swept x is the single-device
+sweep's from h ≥ 2 in, the residual from h ≥ 3 in (the kernel source
+says why); `parallel.fused_mg` takes h = 4.  The z-only mode counts on
+``rb_sweep.global_nz_launches``, the (z, y) one on
+``global_ny_launches``; :func:`rb_sweep_inplace_plain` takes the same
+keywords.
+
 Restriction and prolongation are plain tensor code, as the reference's
 jnp: full weighting and (bi/tri)linear interpolation with the same
 separable operation order (z, then y, then x).  :func:`v_cycle` is the
@@ -56,13 +71,36 @@ def _order(first: str):
 
 # ---- the sweep ----------------------------------------------------------------
 
-def rb_sweep_plain(x, b, lv, order=("red", "black")):
+def _shard_masks(shape, device, z_off, gnz, y_off=None, gny=None):
+    """(points a sharded sweep may update, their global parity): the
+    block's interior inside the global Dirichlet-0 interior, and
+    (i + jg + kg) % 2, on a shard's halo block of ``shape``."""
+    nz, ny, nx = shape
+    kg = z_off + torch.arange(nz, device=device)[:, None, None]
+    jg = torch.arange(ny, device=device)[None, :, None]
+    if y_off is not None:
+        jg = jg + y_off
+    else:
+        gny = ny
+    i = torch.arange(nx, device=device)[None, None, :]
+    inside = (stencils.interior_mask(shape, torch.bool, device)
+              & (kg > 0) & (kg < gnz - 1) & (jg > 0) & (jg < gny - 1))
+    return inside, (i + jg + kg) % 2
+
+
+def rb_sweep_plain(x, b, lv, order=("red", "black"), shard=None):
     """One red-black GS sweep as plain tensor code (``_rb_sweep``); a new
     tensor.  ``lv`` carries ``shape``, ``inv_dx2``, ``inv_dy2``,
-    ``inv_dz2`` and ``inv_factor``."""
+    ``inv_dz2`` and ``inv_factor``; ``shard`` (z_off, gnz, y_off, gny)
+    sweeps a shard's halo block instead (the module docstring)."""
+    if shard is not None:
+        inside, parity = _shard_masks(x.shape, x.device, *shard)
     for color in order:
-        mask = stencils.checkerboard_mask(lv.shape, _PARITY[color],
-                                          x.device)
+        if shard is None:
+            mask = stencils.checkerboard_mask(lv.shape, _PARITY[color],
+                                              x.device)
+        else:
+            mask = inside & (parity == _PARITY[color])
         nb = ((stencils.sx_p(x) + stencils.sx_m(x)) * lv.inv_dx2
               + (stencils.sy_p(x) + stencils.sy_m(x)) * lv.inv_dy2)
         if x.shape[0] > 1:
@@ -72,48 +110,84 @@ def rb_sweep_plain(x, b, lv, order=("red", "black")):
     return x
 
 
-def residual_plain(x, b, lv):
-    """r = b − A·x on the interior (A = −∇², Dirichlet-0), zero shell."""
+def residual_plain(x, b, lv, shard=None):
+    """r = b − A·x on the interior (A = −∇², Dirichlet-0), zero shell;
+    with ``shard``, zero outside the global interior too."""
     r = torch.zeros_like(b)
     ix = stencils.interior_index(b)
     lap = stencils.laplacian(x, lv.inv_dx2, lv.inv_dy2, lv.inv_dz2)
-    r[ix] = b[ix] - (-lap)
+    if shard is None:
+        r[ix] = b[ix] - (-lap)
+    else:
+        inside = _shard_masks(x.shape, x.device, *shard)[0]
+        r[ix] = torch.where(inside[ix], b[ix] - (-lap), 0.0)
     return r
 
 
-def rb_sweep_inplace_plain(x, b, lv, first="red", residual=None):
+def _shard_of(z_off, gnz, y_off, gny):
+    """The sharded mode's (z_off, gnz, y_off, gny), None on one device."""
+    if z_off is None:
+        if y_off is not None:
+            raise ValueError("y_off needs z_off")
+        return None
+    if gnz is None or (y_off is not None and gny is None):
+        raise ValueError("a sharded sweep needs gnz (and gny with y_off)")
+    return (int(z_off), int(gnz), None if y_off is None else int(y_off),
+            None if y_off is None else int(gny))
+
+
+def rb_sweep_inplace_plain(x, b, lv, first="red", residual=None, *,
+                           z_off=None, gnz=None, y_off=None, gny=None):
     """:func:`rb_sweep`'s contract with the plain version: x updated in
     place, ``residual`` (when given) filled."""
-    x.copy_(rb_sweep_plain(x, b, lv, _order(first)))
+    shard = _shard_of(z_off, gnz, y_off, gny)
+    x.copy_(rb_sweep_plain(x, b, lv, _order(first), shard))
     if residual is not None:
-        residual.copy_(residual_plain(x, b, lv))
+        residual.copy_(residual_plain(x, b, lv, shard))
     return x
 
 
-def rb_sweep(x, b, lv, first="red", residual=None):
+def rb_sweep(x, b, lv, first="red", residual=None, *, z_off=None,
+             gnz=None, y_off=None, gny=None):
     """One red-black sweep of A x = b, IN PLACE on x, starting with the
     ``first`` colour; with ``residual`` (a tensor like x) the post-sweep
-    residual b + ∇²x is written there (zero shell).  On CUDA the colour
-    launches of ``cfd_mg_rb_sweep``; on the CPU the plain version."""
+    residual b + ∇²x is written there (zero shell).  With ``z_off`` and
+    ``gnz`` (and ``y_off``, ``gny``) the sharded modes on a shard's halo
+    block (the module docstring); ``lv`` then gives the coefficients, x
+    the block's shape.  On CUDA the colour launches of
+    ``cfd_mg_rb_sweep`` (``cfd_mg_rb_sweep_shard``); on the CPU the
+    plain version."""
+    shard = _shard_of(z_off, gnz, y_off, gny)
     if native.on_cpu(x):
-        return rb_sweep_inplace_plain(x, b, lv, first, residual)
+        return rb_sweep_inplace_plain(x, b, lv, first, residual,
+                                      z_off=z_off, gnz=gnz, y_off=y_off,
+                                      gny=gny)
     parity = _PARITY[_order(first)[0]]
     outs = (x, b) if residual is None else (x, b, residual)
     native.check_cuda(*outs)
-    nz, ny, nx = lv.shape
-    if nz == 2 or any(tuple(t.shape) != (nz, ny, nx) for t in outs):
-        raise ValueError(f"expected fields of shape {lv.shape} (nz == 1 or "
-                         f"nz >= 3)")
-    native.launch("cfd_mg_rb_sweep", x.device, native.ptr(x),
-                  native.ptr(b),
-                  None if residual is None else native.ptr(residual),
-                  nz, ny, nx, lv.inv_dx2, lv.inv_dy2, lv.inv_dz2,
-                  lv.inv_factor, parity)
-    rb_sweep.launches += 1
+    shape = lv.shape if shard is None else tuple(x.shape)
+    nz, ny, nx = shape
+    if nz == 2 or (shard is not None and nz < 3) \
+            or any(tuple(t.shape) != shape for t in outs):
+        raise ValueError(f"expected fields of shape {shape} (nz == 1 or "
+                         f"nz >= 3; a shard's block nz >= 3)")
+    args = (native.ptr(x), native.ptr(b),
+            None if residual is None else native.ptr(residual),
+            nz, ny, nx, lv.inv_dx2, lv.inv_dy2, lv.inv_dz2, lv.inv_factor,
+            parity)
+    if shard is None:
+        native.launch("cfd_mg_rb_sweep", x.device, *args)
+        native.count_launch(rb_sweep)
+    else:
+        z0, gz, y0, gy = shard
+        native.launch("cfd_mg_rb_sweep_shard", x.device, *args, z0, gz,
+                      0 if y0 is None else y0, 0 if y0 is None else gy)
+        native.count_launch(rb_sweep,
+                            "global_nz" if y0 is None else "global_ny")
     return x
 
 
-rb_sweep.launches = 0
+native.reset_counts(rb_sweep)
 WRAPPERS = (rb_sweep,)
 
 

@@ -120,6 +120,10 @@ SIGNATURES = {
     # mg_kernels.cu, mg_solve.cu (the multigrid pressure solve; the
     # level dims and coefficients of cfd_mg_solve are host arrays)
     "cfd_mg_rb_sweep": [_P] * 3 + [_I] * 3 + [_F] * 4 + [_I, _P],
+    # ... its sharded modes (a shard's halo block: the global plane base
+    # and count, the global row base and count, 0 rows for whole rows)
+    "cfd_mg_rb_sweep_shard": [_P] * 3 + [_I] * 3 + [_F] * 4 + [_I] * 5
+    + [_P],
     "cfd_mg_solve": [_P] * 6 + [_I, _P, _P] + [_F] * 2 + [_I] * 4 + [_P],
     # bicgstab_kernels.cu (the BiCGSTAB pressure solve)
     "cfd_bicg_pv": [_P] * 8 + [_I] * 3 + [_F] * 3 + [_P],

@@ -2,8 +2,9 @@
 shard communicators, the z-decomposed projection steps (spectral, CG,
 BiCGSTAB), the (z, y)-decomposed ones (spectral, CG, BiCGSTAB), the
 y-decomposed 2D spectral step, the decomposed explicit steps (Euler,
-RK2, RK4 over z, (z, y) and 2D y meshes) and the sharded Krylov
-solves."""
+RK2, RK4 over z, (z, y) and 2D y meshes), the projection step with the
+decomposed multigrid pressure solve (z and (z, y) meshes), and the
+sharded Krylov and multigrid solves."""
 
 from .comm import LocalComm, ProcessGroupComm
 from .fused_bicgstab import (bicgstab_fused_sharded_unsupported_reason,
@@ -15,6 +16,8 @@ from .fused_explicit import (fused_sharded_euler_unsupported_reason,
                              fused_sharded_rk_unsupported_reason,
                              make_fused_sharded_euler_step,
                              make_fused_sharded_rk_step)
+from .fused_mg import (make_multigrid_sharded,
+                       mg_fused_sharded_unsupported_reason)
 from .mesh import (Mesh, ShardedField, factor_devices, field_spec,
                    gather_field, make_mesh, mesh_y_size, mesh_zy_sizes,
                    replicate, shard_field)
@@ -31,4 +34,5 @@ __all__ = ["factor_devices", "field_spec", "make_mesh", "replicate",
            "fused_sharded_euler_unsupported_reason",
            "fused_sharded_rk_unsupported_reason",
            "make_fused_sharded_euler_step", "make_fused_sharded_rk_step",
-           "mesh_y_size", "mesh_zy_sizes"]
+           "mesh_y_size", "mesh_zy_sizes", "make_multigrid_sharded",
+           "mg_fused_sharded_unsupported_reason"]

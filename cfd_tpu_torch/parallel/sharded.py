@@ -10,6 +10,14 @@ make_fused_sharded_euler_step` and ``make_fused_sharded_rk_step`` for
 ``explicit_euler``, ``rk2`` and ``rk4``, `sharded.py:108-135`) or raises
 ``CFDError(ERROR_UNSUPPORTED)`` with the reason — as the reference's
 ``strict=True`` does; nothing falls back.
+
+The projection step with the ``MULTIGRID`` pressure solve is the
+reference's `_make_sharded_mg_projection` (`sharded.py:33-63`, dispatched
+at `:146-158` before the fused step's gate): the single-device step on the
+whole field, its pressure solve replaced by the decomposed multigrid
+(`fused_mg.make_multigrid_sharded`) — the one stage that runs on the
+shards.  2^k+1 grids do not divide over the mesh, so their placement
+(`mesh.field_spec`) is replicated and the gather is a copy.
 """
 
 from __future__ import annotations
@@ -17,15 +25,62 @@ from __future__ import annotations
 from ..core.grid import Grid
 from ..core.status import CFDError, Status
 from ..solvers.ns.params import NSParams
+from ..solvers.ns.projection import make_projection_step
+from ..solvers.poisson.base import Method, PoissonParams, PoissonProblem
 from .fused import (fused_sharded_unsupported_reason,
                     make_fused_sharded_projection_step)
 from .fused_explicit import (fused_sharded_euler_unsupported_reason,
                              fused_sharded_rk_unsupported_reason,
                              make_fused_sharded_euler_step,
                              make_fused_sharded_rk_step)
-from .mesh import Mesh, field_spec, shard_field
+from .fused_mg import (make_multigrid_sharded,
+                       mg_fused_sharded_unsupported_reason)
+from .mesh import (Mesh, field_spec, gather_field, mesh_zy_sizes,
+                   shard_field)
 
 _METHODS = ("explicit_euler", "rk2", "rk4", "projection")
+
+
+def _make_sharded_mg_projection(grid: Grid, params: NSParams, mesh: Mesh,
+                                kw, unsupported):
+    """The projection step with the decomposed multigrid pressure solve
+    (`sharded.py:33-63`): ``step(sfield, dt, iter_idx)`` gathers the
+    `ShardedField` on the first local shard's device, runs the
+    single-device MULTIGRID step there with ``poisson_solve_override`` the
+    sharded solve, and places its output again.  On a process group each
+    rank runs its replica of the step, the solve being the collective
+    part.  ``step.poisson_solve`` is the solve, ``step.last_poisson`` the
+    last step's result.  ``unsupported(reason)`` raises."""
+    sizes = mesh_zy_sizes(mesh)
+    if sizes is None:
+        unsupported("fused sharded multigrid needs a mesh over ('z'[, "
+                    f"'y']) axes (got axes {dict(mesh.shape)})")
+    problem = PoissonProblem(grid.nx, grid.ny, grid.nz, grid.dx0,
+                             grid.dy0, grid.dz0)
+    reason = mg_fused_sharded_unsupported_reason(problem, *sizes)
+    if reason is not None:
+        unsupported(reason)
+    extra = set(kw) - {"dtype", "poisson_method", "poisson_params",
+                       "spectral_precision", "plain"}
+    if extra:
+        unsupported(f"keywords {sorted(extra)} do not apply to the sharded "
+                    "multigrid step")
+    pparams = kw.get("poisson_params") or PoissonParams()
+    plain = bool(kw.get("plain", False))
+    mg_solve = make_multigrid_sharded(problem, pparams, mesh, plain=plain)
+    single = make_projection_step(
+        grid, params, kw.get("dtype"), Method.MULTIGRID, pparams,
+        device=mesh.devices.flat[mesh.comm.shards[0]],
+        spectral_precision=kw.get("spectral_precision"), plain=plain,
+        poisson_solve_override=mg_solve)
+
+    def step(sfield, dt, iter_idx):
+        field, result = single(gather_field(sfield), dt, iter_idx)
+        step.last_poisson = single.last_poisson
+        return shard_field(field, mesh), result
+
+    step.poisson_solve, step.last_poisson = mg_solve, None
+    return step
 
 
 def make_sharded_raw_step(grid: Grid, params: NSParams, mesh: Mesh,
@@ -59,6 +114,13 @@ def make_sharded_raw_step(grid: Grid, params: NSParams, mesh: Mesh,
     if use_pallas is False:
         unsupported("the GSPMD jnp step (use_pallas=False) has no "
                     "counterpart in the port")
+    pm = kw.get("poisson_method")
+    if method == "projection" and pm is not None \
+            and Method(pm) == Method.MULTIGRID:
+        raw = _make_sharded_mg_projection(grid, params, mesh, kw,
+                                          unsupported)
+        return (raw, field_spec(mesh, grid.nz > 1, grid.shape),
+                lambda field: shard_field(field, mesh))
     if method == "projection":
         reason = fused_sharded_unsupported_reason(grid, params, mesh,
                                                   kw.get("poisson_method"))

@@ -247,7 +247,7 @@ def make_projection_step(grid: Grid, params: NSParams, dtype=None,
                          poisson_params: PoissonParams = None,
                          device=None, spectral_precision=None,
                          differentiable: bool = False, bc_refresh=None,
-                         plain: bool = False):
+                         plain: bool = False, poisson_solve_override=None):
     """Build ``step(field, dt, iter_idx) -> (field, StepResult)`` for a 3D
     (nz ≥ 3) or 2D (nz == 1) grid, uniform or stretched in x/y (the
     scheme of ``params.nonuniform_scheme``).
@@ -272,6 +272,13 @@ def make_projection_step(grid: Grid, params: NSParams, dtype=None,
     hand-written kernels; with ``device="cpu"`` the same wrappers run
     their plain PyTorch versions.  Without a CUDA device the default
     raises (`config.resolve_device`).
+
+    ``poisson_solve_override``: a ``solve(x, rhs) -> PoissonResult``
+    that replaces the pressure solve the method would build
+    (`projection.py:69`, `:220-225`); the rest of the step is the
+    iterative method's (the rhs kernel, the corrector with its maxima, the
+    energy post-step, ``bc_refresh``, ``last_poisson``).  The sharded
+    dispatch passes the decomposed multigrid solve (`parallel.fused_mg`).
 
     ``plain=True`` runs the plain versions on a CUDA device too, so
     ``chip_smoke.py`` can hold the kernel step against them and time
@@ -382,7 +389,10 @@ def make_projection_step(grid: Grid, params: NSParams, dtype=None,
     precision = _PRECISIONS.get(spectral_precision)
     pparams = poisson_params or PoissonParams()
     solve = None
-    if differentiable and method != Method.FFT_DIRECT:
+    if poisson_solve_override is not None:
+        # the caller's solve wins over every maker below
+        solve = poisson_solve_override
+    elif differentiable and method != Method.FFT_DIRECT:
         # the adjoint solve (`projection.py:237-248`, `:272-276`); the
         # direct solves below are differentiable as they are
         solve = make_adjoint_poisson(problem, pparams, method)

@@ -304,6 +304,22 @@ And the (z, y) BiCGSTAB step and the y-decomposed 2D projection step
   against the single-device kernel step, the same way;
 * phase 61: ``Simulation.create(..., "projection_spectral", mesh=)`` on
   a 256×128 grid over 4 y-shards, one step against the single-device
+  facade;
+* phase 62: the red-black sweep's sharded modes (``rb_sweep(...,
+  z_off, gnz[, y_off, gny])``) on every block of the 513³ field over 4
+  z-shards and over (2, 2) (4 halo planes and rows a side), red-first
+  with the residual, black-first and red-first: bit for bit against the
+  plain twin, and the owned planes and rows against phase 17's
+  single-device sweep of the whole field; one block of each mode timed;
+* phase 63: ``bench.py``'s ``multigrid_513`` through
+  ``make_multigrid_sharded`` over 4z and (2, 2): status 0, the
+  single-device solve's V-cycle count and x bit for bit, the true
+  residual below 1e-3; ms a solve, the coarse levels' share (run on
+  every shard), host syncs and launches;
+* phase 64: phase 20's 257³ multigrid step through ``make_sharded_step
+  (..., MULTIGRID)`` over 4z and (2, 2) against the single-device kernel
+  step at phase 20's bars (ms a step), and ``Simulation.create(65, 65,
+  65, "projection_multigrid", mesh=)`` 3 steps against the single-device
   facade.
 
 On phases 59 and 60 the plain twins of the path are tripwires too.
@@ -6871,6 +6887,274 @@ def main() -> int:
     print(f"phase 61 took {time.perf_counter() - t_phase:.1f} s",
           flush=True)
 
+    # ==== the decomposed multigrid (cfd_tpu_torch.parallel.fused_mg) ======
+    # ---- phase 62: the sweep's sharded modes against their plain twins ----
+    # rb_sweep(..., z_off, gnz[, y_off, gny]) (mg_color_kernel /
+    # mg_residual_kernel <true, false> and <true, true>) on every block of
+    # the 513^3 field over 4 z-shards (138 x 513 x 513: 130 owned planes of
+    # the field padded to 520, 4 halo planes a side) and over (2, 2) (266 x
+    # 266 x 513), red-first with the residual, black-first and red-first:
+    # x and r bit for bit against the plain twin on the same block, and
+    # the owned planes and rows (the residual one plane and row past them
+    # too) bit for bit against phase 17's single-device sweep of the whole
+    # field.  One inner block of each mode is timed by its device time;
+    # the bound counts the owned points' x, b and x_new (the record keeps
+    # the last variant, red-first without the residual) and the halo
+    # planes and rows of x and b it reads.
+    t_phase = time.perf_counter()
+    from cfd_tpu_torch.parallel import make_multigrid_sharded
+    from cfd_tpu_torch.parallel.fused_mg import HALO
+    MG_SWEEP_NZ = "cfd_tpu/ops/pallas/mg_kernels.py:160"   # global planes
+    MG_SWEEP_NY = "cfd_tpu/ops/pallas/mg_kernels.py:114"   # global rows
+    n = N_MG
+    lv = mg_levels((n, n, n))[0]
+    _, prob = cg_problem((n, n, n))
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    x = prob.zero_boundary(torch.randn((n, n, n), generator=gen,
+                                       device=dev))
+    b = torch.randn((n, n, n), generator=gen, device=dev)
+
+    def mg_share(m, shards):
+        return -(-m // (2 * shards)) * 2
+
+    def mg_blocks(a, pz, py):
+        """Each shard's (g0, g0y, block): owned planes (rows) of ``a``
+        padded to even shares, HALO planes (and rows on a (z, y) mesh) a
+        side, zeros past the global ends."""
+        nzl = mg_share(n, pz)
+        nyl, hy = (mg_share(n, py), HALO) if py > 1 else (n, 0)
+        ap = a.new_zeros((nzl * pz + 2 * HALO, nyl * py + 2 * hy, n))
+        ap[HALO:HALO + n, hy:hy + n] = a
+        return [(zi * nzl, yi * nyl,
+                 ap[zi * nzl:(zi + 1) * nzl + 2 * HALO,
+                    yi * nyl:(yi + 1) * nyl + 2 * hy].clone())
+                for zi in range(pz) for yi in range(py)], nzl, nyl, hy
+
+    mg_variants = (("red", True), ("black", False), ("red", False))
+    for first, emit in mg_variants:
+        xs, rs = x.clone(), torch.empty_like(x) if emit else None
+        mgk.rb_sweep(xs, b, lv, first, rs)
+        vtag = f"{first}-first{' +r' if emit else ''}"
+        for (pz, py), mode_name, path, replaces in (
+                ((SHARDS, 1), "global_nz", "sharded-mg", MG_SWEEP_NZ),
+                (ZY, "global_ny", "sharded-mg-zy", MG_SWEEP_NY)):
+            xbl, nzl, nyl, hy = mg_blocks(x, pz, py)
+            bbl = mg_blocks(b, pz, py)[0]
+            print(f"phase 62 rb_sweep[{mode_name}] {vtag} vs plain on the "
+                  f"{len(xbl)} blocks of {n}^3 over ({pz}, {py}), blocks "
+                  f"{tuple(xbl[0][2].shape)}", flush=True)
+            for b_i, ((g0, g0y, xb), (_, _, bb)) in enumerate(zip(xbl,
+                                                                  bbl)):
+                mode = dict(z_off=g0 - HALO, gnz=n)
+                if py > 1:
+                    mode.update(y_off=g0y - hy, gny=n)
+
+                def run(sweep, xb=xb, bb=bb, mode=mode):
+                    xo = xb.clone()
+                    ro = torch.empty_like(xb) if emit else None
+                    sweep(xo, bb, lv, first, ro, **mode)
+                    return (xo, ro) if emit else xo
+
+                owned = nzl * nyl * n
+                halo = xb.numel() - owned
+                # the owned points inside the global interior
+                in_z = max(0, min(g0 + nzl, n - 1) - max(g0, 1))
+                in_y = (max(0, min(g0y + nyl, n - 1) - max(g0y, 1))
+                        if py > 1 else n - 2)
+                timed = b_i == 1 and not emit and first == "red"
+                xt = xb.clone()
+                got = check(
+                    path, f"{n}^3 ({pz}, {py}) block ({g0}, {g0y}) {vtag}",
+                    timed, mgk.rb_sweep, replaces, SRC_MG,
+                    lambda run=run: run(mgk.rb_sweep),
+                    lambda run=run: run(mgk.rb_sweep_inplace_plain),
+                    ("x", "r") if emit else ("x",), (bit, bit)[:1 + emit],
+                    work=(4 * (2 * owned + 2 * halo),
+                          FLOPS_PER_POINT["rb_sweep"] * in_z * in_y
+                          * (n - 2), 4 * owned),
+                    time_fn=lambda xt=xt, bb=bb, mode=mode: mgk.rb_sweep(
+                        xt, bb, lv, first, None, **mode),
+                    name=f"rb_sweep[{mode_name}]", device_time=True)
+                got = got if isinstance(got, tuple) else (got,)
+                z1, z2 = g0, min(g0 + nzl, n)
+                y1, y2 = (g0y, min(g0y + nyl, n)) if py > 1 else (0, n)
+                if z1 >= z2:
+                    continue
+                windows = [(got[0], xs, z1, z2, y1, y2)]
+                if emit:
+                    windows.append((got[1], rs, max(z1 - 1, 0),
+                                    min(z2 + 1, n),
+                                    max(y1 - 1, 0) if py > 1 else 0,
+                                    min(y2 + 1, n) if py > 1 else n))
+                for blk, whole, a1, a2, c1, c2 in windows:
+                    own_ = blk[a1 - g0 + HALO:a2 - g0 + HALO,
+                               c1 - g0y + hy:c2 - g0y + hy]
+                    ref_ = whole[a1:a2, c1:c2]
+                    if not torch.equal(own_, ref_):
+                        fail(f"phase 62 rb_sweep[{mode_name}] {vtag} block "
+                             f"({g0}, {g0y}): the owned planes differ from "
+                             f"the single-device sweep, max "
+                             f"{float((own_ - ref_).abs().max()):.3e}")
+                del got, windows, xt
+            print(f"  the owned planes and rows of every block equal the "
+                  f"single-device sweep bit for bit", flush=True)
+            del xbl, bbl
+        del xs, rs
+        torch.cuda.empty_cache()
+    del x, b
+    torch.cuda.empty_cache()
+    print(f"phase 62 took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+    # ---- phase 63: bench.py's multigrid_513 over 4z and (2, 2) ------------
+    # phase 18's problem (513^3, tol 1e-6, check_interval 10) through
+    # make_multigrid_sharded, against the single-device kernel solve in
+    # this run: status 0, the same V-cycle count, x bit for bit (the
+    # owner-computed restriction), the float64 true residual below 1e-3.
+    # The coarse levels (level 1 down, the single-device V-cycle) run on
+    # every shard, so 4 times on the one card: one coarse V-cycle is timed
+    # alone, by its device time and by its CUDA-event span (host-bound:
+    # its small levels' launches), and its device time on 4 shards is
+    # given as a share of a sharded V-cycle's span.
+    t_phase = time.perf_counter()
+    levels = mg_levels((n, n, n))
+    pp = PoissonParams(tolerance=1e-6, max_iterations=2000,
+                       check_interval=10)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    rhs = prob.zero_boundary(torch.randn((n, n, n), generator=gen,
+                                         device=dev))
+    x0 = torch.zeros_like(rhs)
+    solve = mgs.make_multigrid(prob, pp, device=dev)
+    solve(x0, rhs)                              # warm-up, as the sharded
+    sync()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    one = solve(x0, rhs)
+    end.record()
+    sync()
+    ms_one = start.elapsed_time(end)
+    n_one = int(one.iterations)
+    r_c = torch.randn(levels[1].shape, generator=gen, device=dev)
+    coarse_ms = device_ms(lambda: mgk.v_cycle(levels, 1, r_c, 2, 2, False))
+    coarse_span = cuda_ms(lambda: mgk.v_cycle(levels, 1, r_c, 2, 2, False))
+    print(f"phase 63 single-device multigrid_513: {n_one} V-cycles, "
+          f"{ms_one:.1f} ms a solve; one coarse V-cycle (level 1 down): "
+          f"{coarse_ms:.3f} ms of device time, {coarse_span:.3f} ms of "
+          f"CUDA-event span", flush=True)
+    del r_c
+    mg513_sharded = {}
+    for mshape, mesh_m, mode_name in (((SHARDS, 1), mesh4, "global_nz"),
+                                      (ZY, mesh22, "global_ny")):
+        label = f"phase 63 multigrid_513 over {mshape}"
+        solve = make_multigrid_sharded(prob, pp, mesh_m)
+        solve(x0, rhs)                          # warm-up, same pattern
+        sync()
+        native.reset_counts(mgk.rb_sweep)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        with no_plain(label, [(mgk, "rb_sweep_inplace_plain")]):
+            start.record()
+            res = solve(x0, rhs)
+            end.record()
+            sync()
+        ms_s = start.elapsed_time(end)
+        n_it, syncs = int(res.iterations), solve.host_syncs
+        counts = {"rb_sweep": mgk.rb_sweep.launches,
+                  f"rb_sweep[{mode_name}]": getattr(
+                      mgk.rb_sweep, f"{mode_name}_launches")}
+        xd, rd = prob.zero_boundary(res.x.double()), rhs.double()
+        true_rel = float(prob.interior(prob.laplacian(xd) - rd).norm()
+                         / prob.interior(rd).norm())
+        del xd, rd
+        diff = float((res.x - one.x).abs().max())
+        shards_ = math.prod(mshape)
+        per_cycle = ms_s / max(n_it, 1)
+        print(f"{label}: {n_it} V-cycles (single-device {n_one}), status "
+              f"{int(res.status)}, {ms_s:.1f} ms a solve (single-device "
+              f"{ms_one:.1f}), {per_cycle:.3f} ms a V-cycle (single-device "
+              f"{ms_one / max(n_one, 1):.3f}); the coarse levels' device "
+              f"time on {shards_} shards {shards_ * coarse_ms:.3f} ms, "
+              f"{shards_ * coarse_ms / per_cycle:.3f} of it; {syncs} host "
+              f"syncs, launches {counts}; max|x - single-device x| "
+              f"{diff!r}, true relative residual {true_rel:.4e}",
+              flush=True)
+        if int(res.status) != PoissonStatus.CONVERGED or n_it != n_one \
+                or not true_rel < 1e-3:
+            fail(f"{label}: not converged, another V-cycle count than the "
+                 f"single-device solve, or true residual above 1e-3")
+        if diff != 0.0:
+            fail(f"{label}: x is not the single-device solve's bit for bit")
+        if min(counts.values()) <= 0:
+            fail(f"{label}: a sweep mode not launched: {counts}")
+        mg513_sharded[f"{mshape[0]}x{mshape[1]}"] = {
+            "iterations": n_it, "ms": ms_s, "single_ms": ms_one,
+            "coarse_vcycle_device_ms": coarse_ms,
+            "coarse_vcycle_span_ms": coarse_span,
+            "coarse_device_share": shards_ * coarse_ms / per_cycle,
+            "host_syncs": syncs, "launches": counts,
+            "true_rel_residual": true_rel}
+        del res, solve
+        torch.cuda.empty_cache()
+    del rhs, x0, one, levels
+    torch.cuda.empty_cache()
+    print(f"phase 63 took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+    # ---- phase 64: the 257^3 MG projection step over 4z and (2, 2) --------
+    # phase 20's configuration (run_3d's physics from the Taylor-Green
+    # start, MG_STEP_TOL) through make_sharded_step(..., MULTIGRID) against
+    # the single-device kernel step, as phases 48-49 (krylov_step_pair:
+    # the sharded modes' counters set to 0 just before the timed steps,
+    # the fields at phase 20's bars); then Simulation.create(...,
+    # "projection_multigrid", mesh=) at 65^3 over 4z, 3 steps against the
+    # single-device facade (its solver at MG_STEP_TOL, as phase 21 sets
+    # the facade's).
+    t_phase = time.perf_counter()
+    mg_step_sharded = {}
+    for mshape, mesh_m, mode_name, path in (
+            ((SHARDS, 1), mesh4, "global_nz", "sharded-mg"),
+            (ZY, mesh22, "global_ny", "sharded-mg-zy")):
+        mg_step_sharded[f"{mshape[0]}x{mshape[1]}"] = krylov_step_pair(
+            f"phase 64 MG step {N_MG_STEP}^3 over {mshape} (tolerance "
+            f"{MG_STEP_TOL:g})", (N_MG_STEP,) * 3, Method.MULTIGRID,
+            PoissonParams(tolerance=MG_STEP_TOL), (mgk.rb_sweep,), path,
+            [(mgk, "rb_sweep_inplace_plain")], mesh=mesh_m, mode=mode_name)
+        torch.cuda.empty_cache()
+    label = f"phase 64 Simulation.create({MG_FACADE}^3, projection_multigrid)"
+    sims = {kind: Simulation.create(
+        MG_FACADE, MG_FACADE, MG_FACADE, zmax=1.0,
+        solver_type="projection_multigrid",
+        **({"mesh": mesh4} if kind == "mesh" else {"device": dev}))
+        for kind in ("mesh", "single")}
+    f64_ = tg_field((MG_FACADE,) * 3)
+    for kind, sim in sims.items():
+        solver = sim.registry.create("projection_multigrid")
+        solver.poisson_params = PoissonParams(tolerance=MG_STEP_TOL)
+        sim.set_solver(solver)
+        sim.field = sim.solver.place(f64_)
+    sync()
+    t0 = time.perf_counter()
+    st64 = [int(sims["mesh"].step()) for _ in range(3)]
+    sync()
+    ms_facade = (time.perf_counter() - t0) * 1e3 / 3
+    st64 += [int(sims["single"].step()) for _ in range(3)]
+    g = sims["mesh"].field.gather()
+    print(f"{label} over {SHARDS}z: statuses {st64}, {ms_facade:.3f} ms a "
+          f"step (host clock)", flush=True)
+    if any(st64) or not isinstance(sims["mesh"].field, ShardedField):
+        fail(f"{label}: a facade step failed or the field left the mesh")
+    for name in "uvw":
+        compare(f"{label} 3 steps vs single-device", name, getattr(g, name),
+                getattr(sims["single"].field, name), TOL_CG_UVW, False)
+    close_p(f"{label} 3 steps vs single-device", g.p,
+            sims["single"].field.p)
+    mg_step_sharded["facade_65_ms"] = ms_facade
+    del sims, g, f64_
+    torch.cuda.empty_cache()
+    print(f"phase 64 took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
     kernels = []
     for (path, name), rec in records.items():
         launches = launch_counts.get(path, {}).get(name)
@@ -6929,6 +7213,8 @@ def main() -> int:
                       "step_2d_4y_2048": rec_2d,
                       "bicgstab_step_zy_128": bicg_zy,
                       "facade_2d_4y_max_abs_diff": facade_2d,
+                      "multigrid_513_sharded": mg513_sharded,
+                      "mg_step_sharded_257": mg_step_sharded,
                       "launch_counts": launch_counts,
                       "card": card}), flush=True)
     print(json.dumps({"ok": True, "device": {

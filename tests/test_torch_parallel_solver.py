@@ -5,8 +5,11 @@ z mesh of four CPU shards ``init``s through `make_sharded_raw_step`,
 it — against the reference's ``NSSolver(mesh=…)`` on four virtual devices
 at its sharded bars, atol 5e-6 on u, v, w and 5e-5 on p
 (`tests/parallel/test_fused_sharded.py:58-64`).  Outside the slice (the
-sharded multigrid solve) ``init`` raises ``ERROR_UNSUPPORTED``; the
-default CG solve on a mesh is held in `tests/test_torch_parallel_cg.py`.
+multigrid solve on a grid that is not coarsenable) ``init`` raises
+``ERROR_UNSUPPORTED``, and on a 2^k+1 grid the same solver builds and
+steps; the default CG solve on a mesh is held in
+`tests/test_torch_parallel_cg.py`, the multigrid step against the
+reference in `tests/test_torch_parallel_mg.py`.
 """
 
 import jax
@@ -85,9 +88,16 @@ def test_solver_on_a_mesh_refuses_what_is_not_ported():
                       mesh=make_mesh([CPU] * 2, axes=("z",)))
     grid = grid_from(JGrid.uniform(32, 16, 8, zmin=0.0, zmax=1.0))
     with pytest.raises(CFDError) as err:
-        solver.init(grid, NSParams())     # the sharded multigrid solve
+        solver.init(grid, NSParams())     # not a 2^k+1 grid
     assert err.value.status == Status.ERROR_UNSUPPORTED
-    assert "MULTIGRID" in str(err.value)
+    assert "coarsenable" in str(err.value)
+    coarsenable = grid_from(JGrid.uniform(17, 17, 17, zmin=0.0, zmax=1.0))
+    assert solver.init(coarsenable, NSParams()) == Status.SUCCESS
+    f, stats = solver.step(solver.place(field_from_numpy(
+        random_arrays(coarsenable.shape, seed=3), "cpu", torch.float32)),
+        1e-3)
+    assert isinstance(f, ShardedField)
+    assert stats.status == Status.SUCCESS
     plain = NSSolver(name="p", method="projection",
                      poisson_method=Method.FFT_DIRECT, device="cpu")
     plain.init(grid, NSParams())

@@ -12,7 +12,9 @@ shards, and its refusals.
   CG and BiCGSTAB solves are in the slice since the sharded Krylov steps;
   their cases are the preconditioners the reference's sharded solves
   refuse; a 2D grid runs on a y-only mesh, FFT_DIRECT only, with nx
-  divisible by the shard count and no energy or buoyancy).
+  divisible by the shard count and no energy or buoyancy; the multigrid
+  step takes coarsenable 2^k+1 grids, so its case is a grid that is
+  not).
 """
 
 import jax
@@ -141,9 +143,11 @@ REFUSALS = {
                            "poisson_params": PoissonParams(
                                preconditioner=Precond.JACOBI)}),
                  "BiCGSTAB kernel build failed"),
+    # the sharded multigrid step takes 2^k+1 grids (tests/test_torch_
+    # parallel_mg.py); this one is not coarsenable
     "multigrid": (lambda: (_uniform(), NSParams(), _zmesh(2),
                            {"poisson_method": Method.MULTIGRID}),
-                  "supports FFT_DIRECT, CG and BICGSTAB"),
+                  "coarsenable"),
     "consistent": (lambda: (Grid.stretched(40, 16, 8, zmin=0.0, zmax=1.0,
                                            beta=1.5),
                             NSParams(nonuniform_scheme="consistent"),

@@ -115,6 +115,19 @@ rows at global row ``y_off``, and the step is the reference's DST-fused
 nx must be divisible by the shard count (the slabs); elsewhere the
 reference takes its pencil fallback, which is not ported.
 
+The energy equation and Boussinesq buoyancy (the reference's ``eT``
+predictor input and its GSPMD energy step, `:532`, `:817-818`, `:1031`,
+`:626-634`) run in every family.  With buoyancy the step-start T is
+padded as u, v and w are (two planes and / or two rows a side, in a
+persistent `thermal.HaloBuffers` buffer a shard filled in place with
+``comm.fill_halo``) and read by the predictor's buoyant mode: the
+predictor computes the owned planes (rows) ± 1 too, so T's halo holds
+the neighbours' values there.  With the energy equation the corrector is
+followed by `thermal.make_sharded_thermal_post`'s energy step and thermal
+faces on the new blocks (reading the inner halo of those buffers when
+there are any), and the step's max T is the new T's; with buoyancy
+alone T passes through.
+
 Every configuration outside this slice raises ``CFDError(
 ERROR_UNSUPPORTED)`` with the reference's reason or "… is not ported yet";
 nothing is sent to another path.
@@ -144,6 +157,7 @@ from ..solvers.poisson.spectral import (dst_fused_sharded_supported,
 from .fused_bicgstab import make_bicgstab_fused_sharded_local
 from .fused_cg import make_cg_fused_sharded_local
 from .mesh import Mesh, ShardedField, mesh_y_size, mesh_zy_sizes
+from .thermal import HaloBuffers, make_sharded_thermal_post
 
 
 def _not_ported(what: str) -> str:
@@ -167,9 +181,6 @@ def fused_sharded_unsupported_reason(grid: Grid, params: NSParams,
             return ("consistent-scheme fused sharded projection needs a "
                     "z-only mesh")
         return _not_ported("the consistent-scheme fused sharded projection")
-    if params.energy_enabled or params.buoyancy_enabled:
-        return _not_ported("the energy equation and buoyancy on the "
-                           "sharded step")
     method = (Method.FFT_DIRECT if poisson_method is None
               else Method(poisson_method))
     if grid.nz <= 2:
@@ -247,7 +258,10 @@ def make_fused_sharded_projection_step(grid: Grid, params: NSParams,
     ``step.last_poisson`` holds the first local shard's result of the
     last solve.
     ``dtype`` defaults to float32 on the card; float64 and
-    ``plain=True`` run the plain versions."""
+    ``plain=True`` run the plain versions.  ``params`` may carry the
+    energy equation and buoyancy (a heat source, energy on a stretched
+    grid in the parity scheme and a thermal face the energy step has no
+    rule for raise, the last ``ERROR_INVALID``)."""
     reason = fused_sharded_unsupported_reason(grid, params, mesh,
                                               poisson_method)
     if reason is not None:
@@ -276,13 +290,14 @@ def make_fused_sharded_projection_step(grid: Grid, params: NSParams,
                                 grid.xmin, grid.ymin, params.mu,
                                 with_sources, params, dtype)
     precision = _PRECISIONS[spectral_precision]
+    thermal = _Thermal(grid, params, comm, consts, dtype)
     if nz == 1:
         return _make_2d_step(problem, params, mesh, consts, dtype, precision,
-                             plain)
+                             plain, thermal)
     P, py = mesh_zy_sizes(mesh)
     if py > 1:
         return _make_zy_step(problem, params, mesh, consts, dtype, method,
-                             poisson_params, precision, plain)
+                             poisson_params, precision, plain, thermal)
     nzl = nz // P
     if method == Method.FFT_DIRECT:
         mats, zsolve = make_dst_fused_sharded_pieces(problem, P, comm, dtype,
@@ -322,10 +337,10 @@ def make_fused_sharded_projection_step(grid: Grid, params: NSParams,
         scal = scalars(blocks, dt, iter_idx)
         u2, v2, w2 = (pad([getattr(b, n) for b in blocks], 2)
                       for n in "uvw")
-        stars = [star(uh, vh, wh, torch.stack([dts, su, sv]), c_pred, None,
+        stars = [star(uh, vh, wh, torch.stack([dts, su, sv]), c_pred, th,
                       s * nzl - 2, nz)
-                 for s, uh, vh, wh, (dts, su, sv, _) in zip(
-                     comm.shards, u2, v2, w2, scal)]
+                 for s, uh, vh, wh, th, (dts, su, sv, _) in zip(
+                     comm.shards, u2, v2, w2, thermal.fill(blocks), scal)]
         return scal, stars
 
     def halo_block(blocks, halos):
@@ -339,7 +354,8 @@ def make_fused_sharded_projection_step(grid: Grid, params: NSParams,
     def correct(field, pbs, stars, scal, residual=None, ok=None):
         """The corrector on each shard's 1-halo block of the pressure
         (``pbs``, :func:`halo_block`'s, in physical space), the maxima
-        folded over the shards, the new field and its StepResult."""
+        folded over the shards, the energy post-step, the new field and
+        its StepResult."""
         new_blocks, maxima = [], []
         for s, b, pb, (us, vs, ws), (dts, _, _, r0) in zip(
                 comm.shards, field.blocks, pbs, stars, scal):
@@ -359,9 +375,9 @@ def make_fused_sharded_projection_step(grid: Grid, params: NSParams,
                 pmax = torch.maximum(pmax, torch.amax(nb.p[k]))
                 pabs = torch.maximum(pabs, torch.amax(torch.abs(nb.p[k])))
             new_blocks.append(nb)
-            maxima.append(torch.stack([m2, pmax, pabs,
-                                       torch.amax(nb.T)]))
-        return _fold(field, new_blocks, maxima, comm, residual, ok)
+            maxima.append((m2, pmax, pabs))
+        return _fold(field, *thermal.post(new_blocks, maxima, scal), comm,
+                     residual, ok)
 
     def step_dst(field: ShardedField, dt, iter_idx):
         scal, stars = predict(field, dt, iter_idx)
@@ -420,6 +436,42 @@ def _step_scalars(params: NSParams, comm, dtype):
     return scalars
 
 
+class _Thermal:
+    """The step's temperature: T padded like u, v and w for the buoyant
+    predictor (a persistent `thermal.HaloBuffers` of two halos a side,
+    filled once a step), and the energy post-step on the new blocks
+    (`thermal.make_sharded_thermal_post`, which reads the inner halo of
+    those buffers when there are any).  Without buoyancy the predictor
+    gets no T; without the energy equation T passes through."""
+
+    def __init__(self, grid: Grid, params: NSParams, comm, consts, dtype):
+        self.energy = make_sharded_thermal_post(grid, params, comm, dtype)
+        self.temps = None
+        if consts.buoyancy is not None:
+            pz, py = comm.shape
+            owned = (grid.nz // pz, grid.ny // py, grid.nx)
+            self.temps = HaloBuffers(comm, owned, 2, dtype)
+
+    def fill(self, blocks):
+        """Each shard's T for the predictor: its 2-halo buffer with
+        buoyancy, else None."""
+        if self.temps is None:
+            return [None] * len(blocks)
+        return self.temps.fill([b.T for b in blocks])
+
+    def post(self, blocks, maxima, scal):
+        """The new blocks with the energy post-step's T, and each shard's
+        maxima (max|u|², max p, max|p|) stacked with the max of its new
+        T."""
+        if self.energy is None:
+            tmax = [torch.amax(b.T) for b in blocks]
+        else:
+            ts, tmax = self.energy(blocks, [d for d, *_ in scal],
+                                   self.temps)
+            blocks = [b.replace(T=t) for b, t in zip(blocks, ts)]
+        return blocks, [torch.stack([*m, t]) for m, t in zip(maxima, tmax)]
+
+
 def _fold(field: ShardedField, new_blocks, maxima, comm, residual=None,
           ok=None):
     """The new field and its StepResult: the shards' maxima (each a
@@ -432,7 +484,7 @@ def _fold(field: ShardedField, new_blocks, maxima, comm, residual=None,
 
 def _make_zy_step(problem: PoissonProblem, params: NSParams, mesh: Mesh,
                   consts, dtype, method, poisson_params, precision: str,
-                  plain: bool):
+                  plain: bool, thermal: _Thermal):
     """The step on a (Pz, Py) mesh with Py > 1 (`fused.py:647-938`): the
     FFT_DIRECT DST-fused variant or the CG per-component one, as the
     module's docstring sets out."""
@@ -479,23 +531,25 @@ def _make_zy_step(problem: PoissonProblem, params: NSParams, mesh: Mesh,
         scal = scalars(blocks, dt, iter_idx)
         u2, v2, w2 = (pad([getattr(b, n) for b in blocks], halo)
                       for n in "uvw")
-        stars = [star(uh, vh, wh, torch.stack([dts, su, sv]), c_pred, None,
+        stars = [star(uh, vh, wh, torch.stack([dts, su, sv]), c_pred, th,
                       z - halo, nz, y - halo, ny)
-                 for (z, y), uh, vh, wh, (dts, su, sv, _) in zip(
-                     offs, u2, v2, w2, scal)]
+                 for (z, y), uh, vh, wh, th, (dts, su, sv, _) in zip(
+                     offs, u2, v2, w2, thermal.fill(blocks), scal)]
         return scal, stars
 
     def correct(field, pbs, stars, scal, residual=None, ok=None):
         """The corrector on the owned window of each shard's p block
-        padded one row and one plane (``pbs``, physical space)."""
+        padded one row and one plane (``pbs``, physical space), then the
+        energy post-step."""
         new_blocks, maxima = [], []
         for (z, y), b, pb, (us, vs, ws), (dts, _, _, r0) in zip(
                 offs, field.blocks, pbs, stars, scal):
             u, v, w, p, m2, pmax, pabs = corr(us, vs, ws, pb, dts / r0, c_p,
                                               z - 1, nz, y - 1, ny)
             new_blocks.append(b.replace(u=u, v=v, w=w, p=p))
-            maxima.append(torch.stack([m2, pmax, pabs, torch.amax(b.T)]))
-        return _fold(field, new_blocks, maxima, comm, residual, ok)
+            maxima.append((m2, pmax, pabs))
+        return _fold(field, *thermal.post(new_blocks, maxima, scal), comm,
+                     residual, ok)
 
     def step_dst(field: ShardedField, dt, iter_idx):
         scal, stars = predict(field, dt, iter_idx)
@@ -525,7 +579,8 @@ def _make_zy_step(problem: PoissonProblem, params: NSParams, mesh: Mesh,
 
 
 def _make_2d_step(problem: PoissonProblem, params: NSParams, mesh: Mesh,
-                  consts, dtype, precision: str, plain: bool):
+                  consts, dtype, precision: str, plain: bool,
+                  thermal: _Thermal):
     """The y-decomposed 2D step (`fused.py:940-1088`), as the module's
     docstring sets out: FFT_DIRECT, its DST-fused variant, on the
     global-row modes of the 2D kernels."""
@@ -560,9 +615,9 @@ def _make_2d_step(problem: PoissonProblem, params: NSParams, mesh: Mesh,
         u2, v2, w2 = (pad([getattr(b, n) for b in blocks], halo)
                       for n in "uvw")
         stars = [star(uh, vh, wh, torch.stack([dts, su, sv]), c_pred,
-                      y_base=y - halo, ny_g=ny)
-                 for y, uh, vh, wh, (dts, su, sv, _) in zip(
-                     offs, u2, v2, w2, scal)]
+                      T=th, y_base=y - halo, ny_g=ny)
+                 for y, uh, vh, wh, th, (dts, su, sv, _) in zip(
+                     offs, u2, v2, w2, thermal.fill(blocks), scal)]
         # b̃ on the owned rows, its forward x DST, the y solve
         xhat = ysolve([right_dot(b_in(us, vs, b.p, r0 / dts, c_pred,
                                       y - halo, ny, halo), m[0], precision)
@@ -578,9 +633,8 @@ def _make_2d_step(problem: PoissonProblem, params: NSParams, mesh: Mesh,
             # the w-correction is identically zero in 2D (inv_dz2 = 0)
             w = ws[:, halo:halo + nyl]
             new_blocks.append(b.replace(u=u, v=v, w=w, p=p))
-            maxima.append(torch.stack([
-                torch.amax(u ** 2 + v ** 2 + w ** 2), torch.amax(p),
-                torch.amax(torch.abs(p)), torch.amax(b.T)]))
-        return _fold(field, new_blocks, maxima, comm)
+            maxima.append((torch.amax(u ** 2 + v ** 2 + w ** 2),
+                           torch.amax(p), torch.amax(torch.abs(p))))
+        return _fold(field, *thermal.post(new_blocks, maxima, scal), comm)
 
     return step

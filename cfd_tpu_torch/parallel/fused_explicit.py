@@ -76,7 +76,6 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
-from ..boundary.types import thermal_y_specs, thermal_z_specs
 from ..core.field import FlowField
 from ..core.grid import Grid
 from ..core.status import CFDError, Status
@@ -90,10 +89,8 @@ from ..solvers.ns.euler import as_scalar, explicit_setup
 from ..solvers.ns.params import (DT_CONSERVATIVE_LIMIT, NSParams,
                                  source_amplitudes)
 from ..solvers.ns.rk import _TABLEAUS
-from .comm import AXIS_DIM
 from .mesh import Mesh, ShardedField, mesh_y_size, mesh_zy_sizes
-
-_PERIODIC = ("periodic", "periodic")
+from .thermal import dirichlet_floor, restore_faces, thermal_face_specs
 
 
 def _reason(kind: str, grid: Grid, params: NSParams, mesh: Mesh):
@@ -233,16 +230,11 @@ def _make_step(grid: Grid, params: NSParams, mesh: Mesh, order, dtype,
                              yi == py - 1, block, c,
                              _block_rows(sy, y0 - hy, dims[1]).to(dev),
                              sx.to(dev)))
-    t_specs = {"y": _PERIODIC, "z": _PERIODIC}
-    if params.energy_enabled:
-        t_specs = {"y": thermal_y_specs(params.thermal_bc),
-                   "z": thermal_z_specs(params.thermal_bc)}
+    t_specs = thermal_face_specs(params)
     # the faces the wrapper restores; the Dirichlet T values among them
     # join the step's max T (the kernels' maxima skip those faces)
-    wrapped = (["y"] if rows else []) + (["z"] if three_d else [])
-    t_dirichlet = [float(v) for ax in wrapped for v in t_specs[ax]
-                   if not isinstance(v, str)]
-    t_floor = max(t_dirichlet) if t_dirichlet else None
+    t_floor = dirichlet_floor(t_specs, (["y"] if rows else [])
+                              + (["z"] if three_d else []))
 
     def padded(blocks, wrap: bool):
         """Each shard's fields u, v, w, p, T, ρ as the rows of one
@@ -271,37 +263,10 @@ def _make_step(grid: Grid, params: NSParams, mesh: Mesh, order, dtype,
     def fix(outs, axis: str, first: int):
         """Restore the global faces of ``axis`` on each shard's owned
         outputs (rows u, v, w, p, ρ, T of one buffer, rewritten in place):
-        rows ``first`` on wrap periodically, the opposite edge shard's
-        plane (row) n − 2 or 1 in one copy a side for all of them, T by
-        its thermal faces when they are not periodic.  No source is a face
-        this writes (a one-shard axis has n ≥ 3; a Neumann source is
-        copied first)."""
-        dim, n = AXIS_DIM[axis], (nzl if axis == "z" else nyl)
-        lo, hi = t_specs[axis]
-        top = 6 if "periodic" in (lo, hi) else 5
-        got = comm.edge_swap(
-            [o[first:top].narrow(dim, n - 2, 1) if sh.edge(axis)[1]
-             else None for o, sh in zip(outs, shards)],
-            [o[first:top].narrow(dim, 1, 1) if sh.edge(axis)[0] else None
-             for o, sh in zip(outs, shards)], axis)
-        for o, sh, recv in zip(outs, shards, got):
-            T, writes = o[5], []
-            for side, at, nb, spec in ((0, 0, 1, lo), (1, n - 1, n - 2, hi)):
-                if not sh.edge(axis)[side]:
-                    continue
-                end = 6 if spec == "periodic" else 5
-                writes.append((o[first:end].narrow(dim, at, 1),
-                               recv[side][:end - first]))
-                if spec == "neumann":
-                    writes.append((T.narrow(dim, at, 1),
-                                   T.narrow(dim, nb, 1).clone()))
-                elif spec != "periodic":
-                    writes.append((T.narrow(dim, at, 1), float(spec)))
-            for dst, src in writes:
-                if torch.is_tensor(src):
-                    dst.copy_(src)
-                else:
-                    dst.fill_(src)
+        rows ``first`` on wrap periodically, T by its thermal faces
+        (`thermal.restore_faces`)."""
+        restore_faces(comm, outs, [sh.edge(axis) for sh in shards], axis,
+                      nzl if axis == "z" else nyl, t_specs[axis], first, 5)
 
     def finish(field, outs, maxima):
         """The new field and its StepResult: the shards' maxima folded

@@ -322,7 +322,27 @@ And the (z, y) BiCGSTAB step and the y-decomposed 2D projection step
   65, "projection_multigrid", mesh=)`` 3 steps against the single-device
   facade.
 
-On phases 59 and 60 the plain twins of the path are tripwires too.
+Then the energy equation and buoyancy on the decomposed projection
+steps:
+
+* phase 65: the buoyant predictor's sharded modes (``predictor_star``
+  with T in its ``global_nz`` and global-row modes,
+  ``predictor_star_2d`` with T in its global-row mode) on every block of
+  the 512³ field over 4z and (2, 2) and of the 2048² field over 4y, bit
+  for bit against the plain twin, and the owned window against the
+  single-device buoyant predictor on the whole field; one block of each
+  mode timed;
+* phase 66: phase 33's 512³ buoyant + energy step over 4z (bit-equal to
+  the single-device step) and (2, 2) (against float64 at phase 52's
+  bars, T at the reference's), 3 warm-up and 5 timed steps, the energy
+  post-step on the shards alone; the "mixed" thermal faces (periodic
+  back and front) at 128³ over 4z and (2, 2); the 128³ CG and BiCGSTAB
+  steps with energy and buoyancy over 4z at phase 48 / 49's bars;
+* phase 67: phase 34's de Vahl Davis configuration over 4y for one
+  4000-step chunk beside the single-device step: the first step against
+  float64, Nu_avg after the chunk within 0.5%.
+
+On phases 59, 60 and 66 the plain twins of the path are tripwires too.
 
 It checks status, finiteness, launch counters (set to 0 just before each
 main path and read just after) and kernel-vs-plain agreement; any
@@ -336,8 +356,9 @@ PyTorch call computes the same function); the last line is
 
 adds phase 5: 3 more kernel-path steps of the 512³ and 2048² projection
 steps, of each phase-10 configuration, of the (2, 2) HIGHEST step of
-phase 52 and of the 4y HIGHEST step of phase 59, and one step of each
-path of phases 48, 49, 53 and 60, under
+phase 52, of the 4y HIGHEST step of phase 59 and of the 512³ buoyant
+steps of phase 66, and one step of each path of phases 48, 49, 53, 60
+and 66, under
 ``torch.profiler``,
 printing the device time per kernel, the device busy time against the
 CUDA-event span and host wall time of those steps (the device's idle
@@ -478,6 +499,12 @@ THERMAL_FACE_MIXES = {
                          "NEUMANN", "DIRICHLET")}
 A1_BUOY = "cfd_tpu/ops/pallas/projection_kernels.py:576"  # pred_bt, T halo
 P2_BUOY = "cfd_tpu/ops/pallas/projection2d.py:200"        # pred_bt, T halo
+# Phases 65-67: the buoyant predictor modes on shard blocks and the
+# energy post-step on the decomposed projection steps
+# (the reference pads T as u, v, w: fused.py:532, :817-818, :1031)
+A1_BUOY_SHARD = "cfd_tpu/ops/pallas/projection_kernels.py:577"  # Tw, kg
+A1_BUOY_ZY = "cfd_tpu/ops/pallas/projection_kernels.py:582"  # + y_off
+P2_BUOY_ROWS = "cfd_tpu/ops/pallas/projection2d.py:166"  # bsrc, global rows
 # examples/pulsatile_inlet_flow.py's channel, 1024×512 (ν = 0.05: the
 # viscous number 2ν·dt·(1/dx² + 1/dy²) is 0.52 at dt = 1e-5)
 PULSE = (1024, 512)
@@ -833,14 +860,49 @@ def main() -> int:
         sync()
         return start.elapsed_time(end) / reps
 
+    sleep_rate = []     # torch.cuda._sleep cycles per ms, measured once
+
     def device_ms(fn, reps=5):
         """ms of device time a call of ``fn`` (every kernel and copy it
-        launches, torch.profiler's CUDA events): where a call's host work
-        outlasts its kernels, CUDA events time the host instead."""
-        from torch.profiler import ProfilerActivity, profile
-
+        launches): the calls are queued behind a device-side sleep
+        (``torch.cuda._sleep``) that outlasts the host's enqueueing of
+        them, so the CUDA events around them time the device, not the
+        host's calls, which outlast a shard's kernel.  torch.profiler's
+        CUDA events lost kernels late in a run (on an H100 a 260x260x512
+        buoyant predictor read 0.089 ms where a fresh process profiled
+        0.445 ms a call, the queued span 0.436), so they time only a call
+        that waits on the device itself (the host never gets ahead of
+        it), as they did before."""
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        if not sleep_rate:
+            torch.cuda._sleep(10 ** 6)
+            start.record()
+            torch.cuda._sleep(10 ** 7)
+            end.record()
+            sync()
+            sleep_rate.append(10 ** 7 / start.elapsed_time(end))
         fn()
         sync()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        lead_ms = 2.0 * (time.perf_counter() - t0) * 1e3 + 1.0
+        sync()
+        for _ in range(2):
+            torch.cuda._sleep(int(lead_ms * sleep_rate[0]))
+            start.record()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            end.record()
+            queued_ms = (time.perf_counter() - t0) * 1e3
+            sync()
+            if queued_ms < lead_ms:
+                return start.elapsed_time(end) / reps
+            lead_ms *= 4.0
+        from torch.profiler import ProfilerActivity, profile
+
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
@@ -849,6 +911,8 @@ def main() -> int:
                    if ev.device_type.name == "CUDA")
         if busy <= 0:
             fail("device_ms: the profiler saw no device events")
+        print("  device_ms: the call waits on the device; profiler time",
+              flush=True)
         return busy / 1e3 / reps
 
     # (path, wrapper name) -> dict of numbers (512³ / 2048² where measured)
@@ -3670,7 +3734,7 @@ def main() -> int:
     t_phase = time.perf_counter()
     n = N_BIG
     grid = Grid.uniform(n, n, n, zmin=0.0, zmax=1.0)
-    params_b = NSParams(source_amplitude_u=0.0, source_amplitude_v=0.0,
+    params_buoy = NSParams(source_amplitude_u=0.0, source_amplitude_v=0.0,
                         mu=0.01, alpha=ALPHA_3D, beta=BETA, T_ref=T_REF,
                         gravity=(0.0, 0.0, -9.81),
                         thermal_bc=ThermalBCConfig(
@@ -3688,12 +3752,12 @@ def main() -> int:
 
     pkm.reset_launch_counts()
     ms_b, counts_b = timed_paths(33, f"{n}^3 buoyant + energy", grid,
-                                 params_b, (n, n, n), 1e-4, TIMED_STEPS,
+                                 params_buoy, (n, n, n), 1e-4, TIMED_STEPS,
                                  pkm.WRAPPERS, first_step_only=True,
                                  field_fn=tg_field_t_z)
     launch_counts["buoy3d"] = counts_b
     # the energy post-step alone, at the step's sizes
-    post = thermal_post_step(grid, params_b)
+    post = thermal_post_step(grid, params_buoy)
     fb = tg_field_t_z((n, n, n))
     ms_post = cuda_ms(lambda: post(fb, torch.full((), 1e-4, device=dev)))
     del fb
@@ -3730,6 +3794,17 @@ def main() -> int:
     t_phase = time.perf_counter()
     nd = N_DVD
     dxd = 1.0 / (nd - 1)
+
+    def nu_avg_of(T_field):
+        """The hot wall's average Nusselt number of a de Vahl Davis T
+        field (1, nd, nd): the one-sided second-order wall gradient of
+        the scaled T, trapezoid-averaged along the wall."""
+        Ts = (T_field[0].double().cpu().numpy() - T_COLD) / (T_HOT - T_COLD)
+        nu_local = -(-3 * Ts[:, 0] + 4 * Ts[:, 1] - Ts[:, 2]) / (2 * dxd)
+        wts = np.ones(nd)
+        wts[0] = wts[-1] = 0.5
+        return float((wts * nu_local).sum() * dxd)
+
     grid_d, params_d, alpha_d, fd = dvd_case()
     if not DVD_DT < dxd * dxd / (4 * alpha_d):
         fail("phase 34: dt exceeds the thermal stability bound")
@@ -3767,11 +3842,7 @@ def main() -> int:
                  * vel_scale)
     vmax = float(np.abs(0.5 * (v_d[ic - 1, :] + v_d[ic, :])).max()
                  * vel_scale)
-    Ts = (T_d - T_COLD) / (T_HOT - T_COLD)
-    nu_local = -(-3 * Ts[:, 0] + 4 * Ts[:, 1] - Ts[:, 2]) / (2 * dxd)
-    wts = np.ones(nd)
-    wts[0] = wts[-1] = 0.5
-    nu_avg = float((wts * nu_local).sum() * dxd)
+    nu_avg = nu_avg_of(fd.T)
     dvd = {"steps": steps_done, "ms_per_step": wall_d * 1e3 / steps_done,
            "u_max": umax, "v_max": vmax, "nu_avg": nu_avg,
            "predictor_star_2d_launches": pk2m.predictor_star_2d.launches}
@@ -5414,21 +5485,36 @@ def main() -> int:
     print(f"phase 47 took {time.perf_counter() - t_phase:.1f} s",
           flush=True)
 
+    def t_bar(tag, got, ref):
+        """The reference's T bar: |got - ref| <= 1e-5 + 1e-7·|ref|."""
+        got, ref = got.double(), ref.double()
+        err = float((got - ref).abs().max())
+        excess = float(((got - ref).abs() - 1e-7 * ref.abs()).max())
+        print(f"  {tag} T: max_abs={err:.3e}, excess over rtol 1e-7 "
+              f"{excess:.3e} (bar 1e-5)", flush=True)
+        if not excess <= 1e-5:
+            fail(f"{tag} T: beyond atol 1e-5 + rtol 1e-7")
+        return err
+
     def krylov_step_pair(label, shape, method, pparams, wrappers, path,
-                         plains, mesh=None, mode="global_nz"):
+                         plains, mesh=None, mode="global_nz", params=None,
+                         field_fn=None):
         """The sharded step over ``mesh`` (default 4 z-shards) and the
-        single-device kernel step, run_3d's physics from the Taylor-Green
-        start: 3 warm-up steps, then 3 timed from the same start; the
-        counters (``mode``'s) set to 0 just before the sharded timed steps
-        and read just after.  Holds the fields after the timed steps at
-        TOL_CG_UVW and close_p, and prints the two first (warm-up) steps'
-        difference; returns the record."""
+        single-device kernel step, run_3d's physics (or ``params``) from
+        the Taylor-Green start (or ``field_fn(shape)``): 3 warm-up steps,
+        then 3 timed from the same start; the counters (``mode``'s) set
+        to 0 just before the sharded timed steps and read just after.
+        Holds the fields after the timed steps at TOL_CG_UVW and close_p
+        (T, with the energy equation, at the reference's T bar), and
+        prints the two first (warm-up) steps' difference; returns the
+        record."""
         gridk = uniform_grid(shape)
-        f0 = tg_field(shape)
+        params_k = params or params_cg
+        f0 = (field_fn or tg_field)(shape)
         step_s, place = make_sharded_step(
-            gridk, params_cg, mesh or mesh4, "projection",
+            gridk, params_k, mesh or mesh4, "projection",
             poisson_method=method, poisson_params=pparams)
-        single = make_projection_step(gridk, params_cg, torch.float32,
+        single = make_projection_step(gridk, params_k, torch.float32,
                                       method, poisson_params=pparams,
                                       device=dev)
         out, first = {}, {}
@@ -5490,6 +5576,8 @@ def main() -> int:
             compare(f"{label} {CG_STEPS} steps vs single-device", name,
                     getattr(fs, name), getattr(f1, name), TOL_CG_UVW, False)
         close_p(f"{label} {CG_STEPS} steps vs single-device", fs.p, f1.p)
+        if params_k.energy_enabled:
+            t_bar(f"{label} {CG_STEPS} steps vs single-device", fs.T, f1.T)
         return {"ms": out["sharded"][3], "single_ms": out["single"][3],
                 "iterations": out["sharded"][1],
                 "single_iterations": out["single"][1],
@@ -7155,6 +7243,386 @@ def main() -> int:
     print(f"phase 64 took {time.perf_counter() - t_phase:.1f} s",
           flush=True)
 
+    # ---- phase 65: the buoyant sharded predictor modes against their twins
+    # A1sb, A1rb, P2rb: pred_star_kernel<false, false> with z_base / nz_g,
+    # <false, true> and pred_star_2d_kernel<false, true>, each with its
+    # buoyancy set, on phase 31's buoyant consts (g = (0, -9.81, 2.0): all
+    # three components buoyant) and a seeded noisy T: every block of the
+    # 512^3 field over 4z (132x512x512) and over (2, 2) (260x260x512), and
+    # of the 2048^2 field over 4y (1x516x2048), the fields and T padded as
+    # the steps pad them (2 planes and 2 rows a side, zeros past the
+    # global ends).  Every block bit-equal to its plain twin, its owned
+    # window bit-equal to the single-device buoyant predictor on the whole
+    # field (phase 31's kernel); one middle block of each mode timed by
+    # its device time, its bound 7 block fields (u, v, w, T read, u*, v*,
+    # w* written, each with its halo).
+    t_phase = time.perf_counter()
+    buoy_modes = (
+        ("4z", (N_BIG,) * 3, (SHARDS, 1), "sharded-buoy",
+         "predictor_star[global_nz,buoyant]", A1_BUOY_SHARD, SRC),
+        ("(2, 2)", (N_BIG,) * 3, ZY, "sharded-zy-buoy",
+         "predictor_star[global_ny,buoyant]", A1_BUOY_ZY, SRC),
+        ("4y", (1, N_2D, N_2D), (1, 4), "sharded-2d-buoy",
+         "predictor_star_2d[global_ny,buoyant]", P2_BUOY_ROWS, SRC_2D))
+    for mtag, shape, (pz_, py_), path, rname, replaces, source in buoy_modes:
+        t_mode = time.perf_counter()
+        nz_g, ny_g, nx_ = shape
+        three_d = nz_g > 1
+        nzl, nyl = nz_g // pz_, ny_g // py_
+        hz, hy = (2 if three_d else 0), (2 if py_ > 1 else 0)
+        grid = uniform_grid(shape)
+        f = noisy(FlowField.initialize(grid, dtype=torch.float32,
+                                       device=dev), SEED + 65)
+        T = f.T + torch.randn(shape, generator=torch.Generator(
+            device=dev).manual_seed(SEED + 66), device=dev)
+        c = pkm.stencil_consts(nz_g, ny_g, nx_, grid.dx0, grid.dy0,
+                               grid.dz0, grid.xmin, grid.ymin, NSParams().mu,
+                               True, buoy_params)
+        scal = torch.tensor([1e-3, 0.1, 0.05], device=dev)
+        whole = (pkm.predictor_star(f.u, f.v, f.w, scal, c, T) if three_d
+                 else pk2m.predictor_star_2d(f.u, f.v, f.w, scal, c, T))
+        padded = [torch.nn.functional.pad(a, (0, 0, hy, hy, hz, hz))
+                  for a in (f.u, f.v, f.w, T)]
+        del f, T
+        cb = dataclasses.replace(c, nz=nzl + 2 * hz, ny=nyl + 2 * hy)
+        print(f"phase 65 buoyant predictor over {mtag} at "
+              f"{'x'.join(map(str, shape[::-1]))}: blocks of "
+              f"{nzl + 2 * hz}x{nyl + 2 * hy}x{nx_}", flush=True)
+        for zi in range(pz_):
+            for yi in range(py_):
+                z0, y0 = zi * nzl, yi * nyl
+                blk = [a[z0:z0 + nzl + 2 * hz, y0:y0 + nyl + 2 * hy]
+                       .contiguous() for a in padded]
+                if not three_d:
+                    modes = dict(y_base=y0 - hy, ny_g=ny_g)
+                    kern = pk2m.predictor_star_2d
+                elif py_ > 1:
+                    modes = dict(z_base=z0 - hz, nz_g=nz_g, y_base=y0 - hy,
+                                 ny_g=ny_g)
+                    kern = pkm.predictor_star
+                else:
+                    modes = dict(z_base=z0 - hz, nz_g=nz_g)
+                    kern = pkm.predictor_star
+                timed = (zi, yi) == (pz_ // 2, py_ // 2)
+                stag = f"phase 65 {mtag} block ({z0}, {y0})"
+                outs = check(
+                    path, stag, timed, kern, replaces, source,
+                    lambda: kern(*blk[:3], scal, cb, T=blk[3], **modes),
+                    lambda: pkm.predictor_star_plain(*blk[:3], scal, cb,
+                                                     T=blk[3], **modes),
+                    ("u*", "v*", "w*"), (bit,) * 3,
+                    work=((*blk, scal), FLOPS_PER_POINT[
+                        "predictor_star_buoyant"] * blk[0].numel()),
+                    name=rname, device_time=True)
+                for o, want, nm in zip(outs, whole, ("u*", "v*", "w*")):
+                    compare(f"{stag} owned window vs single-device", nm,
+                            o[hz:hz + nzl, hy:hy + nyl],
+                            want[z0:z0 + nzl, y0:y0 + nyl], *bit)
+                del blk, outs
+        del padded, whole
+        torch.cuda.empty_cache()
+        print(f"phase 65 over {mtag}: {time.perf_counter() - t_mode:.1f} s",
+              flush=True)
+    print(f"phase 65 took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+    # ---- phase 66: the buoyant + energy steps on meshes --------------------
+    # phase 33's 512^3 buoyant + energy step (T linear in z, Dirichlet back
+    # and front, Neumann sides) through make_sharded_step over 4z and
+    # (2, 2), FFT_DIRECT at HIGHEST: the first step against the
+    # single-device kernel step (4z: u, v, w, p, T bit-equal; (2, 2): u,
+    # v, w, p against the float64 step on the card at phase 52's bars, T
+    # against the single-device step at the reference's (z, y) bar, atol
+    # 1e-5 + rtol 1e-7, tests/parallel/test_fused_sharded.py:1032-1035),
+    # then 3 warm-up and 5 timed steps (CUDA events) with the counters set
+    # to 0 just before the timed sharded steps and every plain twin a
+    # tripwire, the fields after them held at phase 43's (4z) and phase
+    # 52's drift bars (T at the reference's); the energy post-step on the
+    # shards alone; the "mixed" thermal faces (periodic back and front:
+    # the z faces cross shards by edge_swap) at 128^3 over 4z and (2, 2),
+    # 3 steps, held the same way; the 128^3 CG and BiCGSTAB steps with
+    # energy and buoyancy over 4z at phase 48 / 49's bars.
+    t_phase = time.perf_counter()
+    from cfd_tpu_torch.parallel.thermal import make_sharded_thermal_post
+
+    PLAIN_Z = [(pkm, nm) for nm in ("predictor_star_plain",
+                                    "poisson_input_plain",
+                                    "corrector_plain")] + [
+        (rolling, "plane_dot_plain"), (tdma, "tdma_z_fwd_reference"),
+        (tdma, "tdma_z_bwd_reference")]
+
+    def thermal_mesh_run(label, grid_t, params_t, field_fn, shape, mesh_t,
+                         exact, n_warm, n_timed, path):
+        """The sharded FFT_DIRECT step against the single-device kernel
+        step from ``field_fn(shape)``, as phase 66's header sets out;
+        returns its record."""
+        if not (params_t.energy_enabled and params_t.buoyancy_enabled):
+            fail(f"{label}: the parameters lack energy or buoyancy")
+        step_s, place = make_sharded_step(grid_t, params_t, mesh_t,
+                                          "projection")
+        single = make_projection_step(grid_t, params_t, torch.float32,
+                                      Method.FFT_DIRECT, device=dev)
+        f0 = field_fn(shape)
+        fs0 = place(f0)
+        g1 = gather_field(step_s(fs0, 1e-4, 0)[0])
+        s1 = single(f0, 1e-4, 0)[0]
+        sync()
+        tag = f"{label} first step"
+        diffs = {nm: float((getattr(g1, nm) - getattr(s1, nm)).abs().max())
+                 for nm in "uvwpT"}
+        print(f"{tag}: max|sharded - single-device| {diffs}", flush=True)
+        rec = {"first_step_max_abs_diff": diffs}
+        if exact:
+            if any(diffs.values()):
+                fail(f"{tag}: not bit-equal to the single-device step")
+        else:
+            s64 = make_projection_step(grid_t, params_t, torch.float64,
+                                       Method.FFT_DIRECT, device=dev)(
+                FlowField(*(getattr(f0, nm).double() for nm in names6)),
+                1e-4, 0)[0]
+            e_s = {nm: float((getattr(g1, nm).double() - getattr(s64, nm))
+                             .abs().max()) for nm in "uvwp"}
+            e_1 = {nm: float((getattr(s1, nm).double() - getattr(s64, nm))
+                             .abs().max()) for nm in "uvwp"}
+            pscale = float(s64.p.abs().max())
+            print(f"{tag}: max|sharded - float64| {e_s}, max|single-device "
+                  f"- float64| {e_1}", flush=True)
+            for nm in "uvwp":
+                bar_ = TOL_ZY_F64_P * pscale if nm == "p" else TOL_ZY_F64_UVW
+                if not e_s[nm] <= bar_:
+                    fail(f"{tag} {nm}: {e_s[nm]:.3e} off the float64 step, "
+                         f"above {bar_:.3e}")
+            t_bar(tag, g1.T, s1.T)
+            rec.update(first_step_off_float64=e_s,
+                       single_first_step_off_float64=e_1)
+            del s64
+        del g1, s1
+        run_steps(step_s, fs0, 1e-4, n_warm)
+        sync()
+        pkm.reset_launch_counts()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        with no_plain(label, PLAIN_Z if exact else PLAIN_ZY):
+            start.record()
+            fs, res_s = run_steps(step_s, fs0, 1e-4, n_timed)
+            end.record()
+            sync()
+        ms_s = start.elapsed_time(end) / n_timed
+        mode = "global_nz" if exact else "global_ny"
+        star_n = getattr(pkm.predictor_star, f"{mode}_launches")
+        counts = {f"predictor_star[{mode},buoyant]": star_n}
+        print(f"{label}: launch counts over the main path {counts}",
+              flush=True)
+        if star_n != len(mesh_t.comm.shards) * n_timed:
+            fail(f"{label}: not the buoyant {mode} predictor once a shard "
+                 f"a step")
+        if path:
+            launch_counts[path] = counts
+        run_steps(single, f0, 1e-4, n_warm)
+        sync()
+        start.record()
+        f1, res_1 = run_steps(single, f0, 1e-4, n_timed)
+        end.record()
+        sync()
+        ms_1 = start.elapsed_time(end) / n_timed
+        g = gather_field(fs)
+        drift = {nm: float((getattr(g, nm) - getattr(f1, nm)).abs().max())
+                 for nm in "uvwpT"}
+        print(f"{label}: {ms_s:.3f} ms/step, single-device kernel step "
+              f"{ms_1:.3f} ms/step; status {int(res_s.status)}, max T "
+              f"{float(res_s.max_temperature)!r} (single "
+              f"{float(res_1.max_temperature)!r}); max|sharded - single| "
+              f"after {n_timed} steps {drift}", flush=True)
+        if int(res_s.status) != 0 or not bool(g.is_finite()):
+            fail(f"{label}: nonzero status or non-finite fields")
+        if not torch.equal(res_s.max_temperature, torch.amax(g.T)):
+            fail(f"{label}: max T is not the new T's")
+        p1scale = float(f1.p.abs().max())
+        for nm in "uvwp":
+            if exact:
+                bar_ = 2e-5 if nm == "p" else 2e-6
+            else:
+                bar_ = (TOL_ZY_DRIFT_P * p1scale if nm == "p"
+                        else TOL_ZY_DRIFT_UVW)
+            if not drift[nm] <= bar_:
+                fail(f"{label} {nm}: {drift[nm]:.3e} from the single-device "
+                     f"step after {n_timed} steps, above {bar_:.3e}")
+        t_bar(f"{label} after {n_timed} steps", g.T, f1.T)
+        rec.update(ms=ms_s, single_ms=ms_1, launches=counts,
+                   **{f"max_abs_diff_after_{n_timed}": drift})
+        if do_profile and path:
+            profile_steps(torch, f"phase 5 {label}",
+                          lambda: run_steps(step_s, fs0, 1e-4,
+                                            PROFILED_STEPS), PROFILED_STEPS)
+        if path:
+            # the energy post-step on the shards alone, on this run's blocks
+            post_s = make_sharded_thermal_post(grid_t, params_t,
+                                               mesh_t.comm, torch.float32)
+            blocks = list(fs.blocks)
+            dts = [torch.full((), 1e-4, device=dev)] * len(blocks)
+            rec["energy_post_ms"] = cuda_ms(lambda: post_s(blocks, dts))
+            print(f"{label}: the energy post-step on the shards "
+                  f"{rec['energy_post_ms']:.3f} ms, "
+                  f"{rec['energy_post_ms'] / ms_s:.3f} of the step (phase "
+                  f"33 on one device: {ms_post:.3f} ms, "
+                  f"{ms_post / ms_b['kernel']:.3f})", flush=True)
+            del blocks
+        del f0, fs0, fs, g, f1
+        torch.cuda.empty_cache()
+        return rec
+
+    buoy_sharded = {}
+    n = N_BIG
+    grid_b = Grid.uniform(n, n, n, zmin=0.0, zmax=1.0)
+    for mname, mesh_t, exact, path in (("4z", mesh4, True, "sharded-buoy"),
+                                       ("2x2", mesh22, False,
+                                        "sharded-zy-buoy")):
+        buoy_sharded[f"{n}_{mname}"] = thermal_mesh_run(
+            f"phase 66 {n}^3 buoyant + energy over {mname}", grid_b,
+            params_buoy, tg_field_t_z, (n, n, n), mesh_t, exact, 3,
+            TIMED_STEPS, path)
+    print(f"phase 66 {n}^3 buoyant + energy: 4z "
+          f"{buoy_sharded[f'{n}_4z']['ms']:.3f} ms/step, (2, 2) "
+          f"{buoy_sharded[f'{n}_2x2']['ms']:.3f} ms/step, single-device "
+          f"{ms_b['kernel']:.3f} (phase 33)", flush=True)
+    nm_ = N_BICG_STEP
+    grid_m = Grid.uniform(nm_, nm_, nm_, zmin=0.0, zmax=1.0)
+    for mname, mesh_t, exact in (("4z", mesh4, True),
+                                 ("2x2", mesh22, False)):
+        buoy_sharded[f"{nm_}_mixed_{mname}"] = thermal_mesh_run(
+            f"phase 66 {nm_}^3 mixed thermal faces over {mname}", grid_m,
+            params_e, tg_field_t_x, (nm_,) * 3, mesh_t, exact, 1, 3, None)
+    for method, pp, wrappers, path, plains in (
+            (Method.CG, PoissonParams(tolerance=1e-3),
+             step_wrappers + cg_wrappers, "sharded-cg-buoy",
+             PLAIN_CG + PLAIN_STEP),
+            (Method.BICGSTAB, PoissonParams(tolerance=bicg_step_tol),
+             step_wrappers + tuple(bk.WRAPPERS), "sharded-bicgstab-buoy",
+             PLAIN_BICG + PLAIN_STEP)):
+        buoy_sharded[f"{method.name.lower()}_{nm_}_4z"] = krylov_step_pair(
+            f"phase 66 {method.name} step {nm_}^3 buoyant + energy over "
+            f"{SHARDS} z-shards (tolerance {pp.tolerance:g})", (nm_,) * 3,
+            method, pp, wrappers, path, plains, params=params_buoy,
+            field_fn=tg_field_t_z)
+        torch.cuda.empty_cache()
+    print(f"phase 66 took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+    # ---- phase 67: the 2D de Vahl Davis chunk over 4y ----------------------
+    # phase 34's configuration (dvd_case: Ra = 1e4 at 128^2, buoyancy, the
+    # energy equation, Dirichlet left and right) through make_sharded_step
+    # on the 4y mesh for one DVD_CHUNK, with phase 34's no-slip walls on
+    # each block (the y walls on the edge shards), beside the single-device
+    # step from the same start: status 0 every step; after the first step
+    # u, v, p against the float64 step on the card at TOL_2D_F64_* (the
+    # dense y solve rounds otherwise than Thomas), T against the
+    # single-device step at 1e-5·(T_HOT - T_COLD); after the chunk both
+    # Nu_avg (phase 34's formula) within 0.5%, the largest differences
+    # printed without a bar (rounding grows along the march).
+    t_phase = time.perf_counter()
+    grid_d, params_d, alpha_d, fd0 = dvd_case()
+    step_s, place = make_sharded_step(grid_d, params_d, mesh_y4,
+                                      "projection")
+    single = make_projection_step(grid_d, params_d, torch.float32,
+                                  Method.FFT_DIRECT, device=dev)
+    y_edges = [mesh_y4.comm.coords(s)[1] for s in mesh_y4.comm.shards]
+    py_d = mesh_y4.comm.shape[1]
+
+    def walls(sf):
+        """Phase 34's no-slip walls on each block: the x walls on every
+        block, the y walls on the edge shards, in place."""
+        for b, yi in zip(sf.blocks, y_edges):
+            for a in (b.u, b.v):
+                a[..., 0] = 0.0
+                a[..., -1] = 0.0
+                if yi == 0:
+                    a[:, 0, :] = 0.0
+                if yi == py_d - 1:
+                    a[:, -1, :] = 0.0
+        return sf
+
+    def march(stepf, f, start, n_steps, sharded):
+        worst = torch.zeros((), dtype=torch.int32, device=dev)
+        for i in range(start, start + n_steps):
+            if sharded:
+                f = walls(f)
+            else:
+                f = f.replace(u=apply_dirichlet_scalar(f.u, noslip),
+                              v=apply_dirichlet_scalar(f.v, noslip))
+            f, r = stepf(f, DVD_DT, i)
+            worst = torch.maximum(worst, r.status.abs())
+        return f, worst
+
+    label = f"phase 67 de Vahl Davis {N_DVD}^2 over 4y"
+    fs1, w_s = march(step_s, place(fd0), 0, 1, True)
+    f1, w_1 = march(single, fd0, 0, 1, False)
+    f64 = FlowField(*(getattr(fd0, nm).double() for nm in names6))
+    f64 = f64.replace(u=apply_dirichlet_scalar(f64.u, noslip),
+                      v=apply_dirichlet_scalar(f64.v, noslip))
+    s64 = make_projection_step(grid_d, params_d, torch.float64,
+                               Method.FFT_DIRECT, device=dev)(
+        f64, DVD_DT, 0)[0]
+    g1 = gather_field(fs1)
+    sync()
+    e_y = {nm: float((getattr(g1, nm).double() - getattr(s64, nm)).abs()
+                     .max()) for nm in "uvp"}
+    e_1 = {nm: float((getattr(f1, nm).double() - getattr(s64, nm)).abs()
+                     .max()) for nm in "uvp"}
+    d_1 = {nm: float((getattr(g1, nm) - getattr(f1, nm)).abs().max())
+           for nm in "uvpT"}
+    print(f"{label} first step: max|4y - float64| {e_y}, max|single-device "
+          f"- float64| {e_1}, max|4y - single-device| {d_1}", flush=True)
+    pscale = float(s64.p.abs().max())
+    for nm in "uvp":
+        bar_ = TOL_2D_F64_P * pscale if nm == "p" else TOL_2D_F64_UVW
+        if not e_y[nm] <= bar_:
+            fail(f"{label} first step {nm}: {e_y[nm]:.3e} off the float64 "
+                 f"step, above {bar_:.3e}")
+    compare(f"{label} first step vs single-device", "T", g1.T, f1.T,
+            1e-5 * (T_HOT - T_COLD), False)
+    del f64, s64, g1
+    pk2m.reset_launch_counts()
+    sync()
+    t0 = time.perf_counter()
+    fs_d, w_s2 = march(step_s, fs1, 1, DVD_CHUNK - 1, True)
+    sync()
+    ms_dvd_s = (time.perf_counter() - t0) * 1e3 / (DVD_CHUNK - 1)
+    n_star = pk2m.predictor_star_2d.global_ny_launches
+    launch_counts["sharded-2d-buoy"] = {
+        "predictor_star_2d[global_ny,buoyant]": n_star}
+    t0 = time.perf_counter()
+    fd_1, w_12 = march(single, f1, 1, DVD_CHUNK - 1, False)
+    sync()
+    ms_dvd_1 = (time.perf_counter() - t0) * 1e3 / (DVD_CHUNK - 1)
+    worst_d = int(torch.stack([w_s, w_s2, w_1, w_12]).max())
+    g_d = gather_field(fs_d)
+    nu_s, nu_1 = nu_avg_of(g_d.T), nu_avg_of(fd_1.T)
+    d_end = {nm: float((getattr(g_d, nm) - getattr(fd_1, nm)).abs().max())
+             for nm in "uvT"}
+    print(f"{label}: {DVD_CHUNK} steps, {ms_dvd_s:.4f} ms/step host wall "
+          f"(single-device {ms_dvd_1:.4f}), worst status {worst_d}, "
+          f"Nu_avg {nu_s:.5f} (single-device {nu_1:.5f}), "
+          f"predictor_star_2d[global_ny] launches {n_star}; max|4y - "
+          f"single-device| after the chunk {d_end}", flush=True)
+    if worst_d != 0 or not bool(g_d.is_finite()):
+        fail(f"{label}: a nonzero status or non-finite fields")
+    if n_star != (DVD_CHUNK - 1) * len(mesh_y4.comm.shards):
+        fail(f"{label}: not the buoyant 2D row predictor once a shard a "
+             f"step")
+    if not abs(nu_s - nu_1) <= 0.005 * abs(nu_1):
+        fail(f"{label}: Nu_avg {nu_s:.5f} not within 0.5% of the "
+             f"single-device {nu_1:.5f}")
+    dvd_4y = {"steps": DVD_CHUNK, "ms_per_step": ms_dvd_s,
+              "single_ms_per_step": ms_dvd_1, "nu_avg": nu_s,
+              "single_nu_avg": nu_1, "first_step_off_float64": e_y,
+              "single_first_step_off_float64": e_1,
+              "first_step_max_abs_diff": d_1,
+              "max_abs_diff_after_chunk": d_end}
+    del fd0, fs1, f1, fs_d, fd_1, g_d
+    torch.cuda.empty_cache()
+    print(f"phase 67 took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
     kernels = []
     for (path, name), rec in records.items():
         launches = launch_counts.get(path, {}).get(name)
@@ -7215,6 +7683,8 @@ def main() -> int:
                       "facade_2d_4y_max_abs_diff": facade_2d,
                       "multigrid_513_sharded": mg513_sharded,
                       "mg_step_sharded_257": mg_step_sharded,
+                      "buoyant_sharded": buoy_sharded,
+                      "dvd_128_4y_chunk": dvd_4y,
                       "launch_counts": launch_counts,
                       "card": card}), flush=True)
     print(json.dumps({"ok": True, "device": {

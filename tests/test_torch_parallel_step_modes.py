@@ -12,9 +12,10 @@ shards, and its refusals.
   CG and BiCGSTAB solves are in the slice since the sharded Krylov steps;
   their cases are the preconditioners the reference's sharded solves
   refuse; a 2D grid runs on a y-only mesh, FFT_DIRECT only, with nx
-  divisible by the shard count and no energy or buoyancy; the multigrid
-  step takes coarsenable 2^k+1 grids, so its case is a grid that is
-  not).
+  divisible by the shard count; the multigrid step takes coarsenable
+  2^k+1 grids, so its case is a grid that is not; energy and buoyancy
+  run, so their cases are a heat source, energy on a stretched grid in
+  the parity scheme and a NOSLIP thermal face, ``ERROR_INVALID``).
 """
 
 import jax
@@ -33,6 +34,7 @@ from cfd_tpu.solvers.ns.projection import \
     make_projection_step as j_make_projection_step
 from cfd_tpu.solvers.poisson.base import Method as JMethod
 from cfd_tpu_torch import Grid, Status
+from cfd_tpu_torch.boundary.types import BCType, ThermalBCConfig
 from cfd_tpu_torch.core.status import CFDError
 from cfd_tpu_torch.interop import field_from_numpy, grid_from
 from cfd_tpu_torch.parallel import (gather_field, make_mesh,
@@ -117,10 +119,14 @@ REFUSALS = {
                            make_mesh([CPU] * 4, axes=("y",)), {}),
                   "2D pencil DST path (nx=42 not divisible by 4 shards) "
                   "is not ported yet"),
-    "2d energy": (lambda: (Grid.uniform(40, 16), NSParams(alpha=1e-3),
-                           make_mesh([CPU] * 4, axes=("y",)), {}),
-                  "energy equation and buoyancy on the sharded step is "
-                  "not ported yet"),
+    # the energy equation and buoyancy run on every mesh
+    # (tests/test_torch_parallel_thermal*.py); a heat source, a
+    # stretched grid in the parity scheme and a face the energy step has
+    # no rule for stay refused
+    "2d energy": (lambda: (Grid.uniform(40, 16), NSParams(
+        alpha=1e-3, heat_source_func=lambda *a: 0.0),
+        make_mesh([CPU] * 4, axes=("y",)), {}),
+        "a heat_source callable is not ported yet"),
     "2d rows": (lambda: (Grid.uniform(40, 6), NSParams(),
                          make_mesh([CPU] * 4, axes=("y",)), {}),
                 "ny=6 must be divisible by 4 shards"),
@@ -152,11 +158,14 @@ REFUSALS = {
                                            beta=1.5),
                             NSParams(nonuniform_scheme="consistent"),
                             _zmesh(2), {}), "consistent"),
-    "energy": (lambda: (_uniform(), NSParams(alpha=1e-3), _zmesh(2), {}),
-               "energy"),
-    "buoyancy": (lambda: (_uniform(), NSParams(beta=3e-3,
-                                               gravity=(0.0, -9.81, 0.0)),
-                          _zmesh(2), {}), "buoyancy"),
+    "energy": (lambda: (Grid.stretched(40, 16, 8, zmin=0.0, zmax=1.0,
+                                       beta=1.5, stretch_axes="xy"),
+                        NSParams(alpha=1e-3), _zmesh(2), {}),
+               "energy_solver: non-uniform dx/dy not supported"),
+    "buoyancy": (lambda: (_uniform(), NSParams(
+        alpha=1e-3, beta=3e-3, gravity=(0.0, -9.81, 0.0),
+        thermal_bc=ThermalBCConfig(top=BCType.NOSLIP)), _zmesh(2), {}),
+        "only PERIODIC, NEUMANN, DIRICHLET are valid", Status.ERROR_INVALID),
     "default precision": (lambda: (_uniform(), NSParams(), _zmesh(2),
                                    {"spectral_precision": "default"}),
                           "spectral_precision='default'"),
@@ -179,13 +188,13 @@ REFUSALS = {
 
 @pytest.mark.parametrize("case", list(REFUSALS))
 def test_outside_the_slice_raises_with_its_reason(case):
-    build, reason = REFUSALS[case]
+    build, reason, *status = REFUSALS[case]
     grid, params, mesh, kw = build()
     method = kw.pop("method", "projection")
     for maker in (make_sharded_step, make_sharded_raw_step):
         with pytest.raises(CFDError) as err:
             maker(grid, params, mesh, method, **dict(kw))
-        assert err.value.status == Status.ERROR_UNSUPPORTED
+        assert err.value.status == (status or [Status.ERROR_UNSUPPORTED])[0]
         assert reason in str(err.value)
 
 

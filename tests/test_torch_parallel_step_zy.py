@@ -18,7 +18,9 @@ shards) against the reference's, and its refusals, on the CPU.
 * every (z, y) configuration outside the slice raises
   ``ERROR_UNSUPPORTED`` with its reason: a preconditioned BiCGSTAB (the
   (z, y) BiCGSTAB itself runs, `tests/test_torch_parallel_bicgstab_zy.py`),
-  energy, buoyancy, the consistent scheme, custom sources, ``nx % Pz !=
+  a heat source, a NOSLIP thermal face (``ERROR_INVALID``; energy and
+  buoyancy run, `tests/test_torch_parallel_thermal*.py`), the consistent
+  scheme, custom sources, ``nx % Pz !=
   0`` (the two-axis pencil fallback), a y count that does not divide ny,
   a 2D grid (its step needs a y-only mesh).
 """
@@ -38,6 +40,7 @@ from cfd_tpu.solvers.ns.projection import \
     make_projection_step as j_make_projection_step
 from cfd_tpu.solvers.poisson.base import Method as JMethod
 from cfd_tpu_torch import Grid, Status
+from cfd_tpu_torch.boundary.types import BCType, ThermalBCConfig
 from cfd_tpu_torch.core.status import CFDError
 from cfd_tpu_torch.interop import field_from_numpy, grid_from
 from cfd_tpu_torch.parallel import (gather_field, make_mesh,
@@ -191,12 +194,15 @@ REFUSALS = {
                            "poisson_params": PoissonParams(
                                preconditioner=Precond.JACOBI)}),
                  "BiCGSTAB kernel build failed"),
-    "energy": (lambda: (_uniform(), NSParams(alpha=1e-3), _mesh4(), {}),
-               "energy equation and buoyancy on the sharded step is not "
-               "ported yet"),
-    "buoyancy": (lambda: (_uniform(), NSParams(beta=3e-3,
-                                               gravity=(0.0, -9.81, 0.0)),
-                          _mesh4(), {}), "buoyancy"),
+    # energy and buoyancy run (tests/test_torch_parallel_thermal*.py);
+    # a heat source and a face the energy step has no rule for do not
+    "energy": (lambda: (_uniform(), NSParams(
+        alpha=1e-3, heat_source_func=lambda *a: 0.0), _mesh4(), {}),
+        "a heat_source callable is not ported yet"),
+    "buoyancy": (lambda: (_uniform(), NSParams(
+        alpha=1e-3, beta=3e-3, gravity=(0.0, -9.81, 0.0),
+        thermal_bc=ThermalBCConfig(back=BCType.NOSLIP)), _mesh4(), {}),
+        "only PERIODIC, NEUMANN, DIRICHLET are valid", Status.ERROR_INVALID),
     "consistent": (lambda: (Grid.stretched(24, 16, 8, zmin=0.0, zmax=1.0,
                                            beta=1.5),
                             NSParams(nonuniform_scheme="consistent"),
@@ -220,10 +226,10 @@ REFUSALS = {
 
 @pytest.mark.parametrize("case", list(REFUSALS))
 def test_zy_outside_the_slice_raises_with_its_reason(case):
-    build, reason = REFUSALS[case]
+    build, reason, *status = REFUSALS[case]
     grid, params, mesh, kw = build()
     for maker in (make_sharded_step, make_sharded_raw_step):
         with pytest.raises(CFDError) as err:
             maker(grid, params, mesh, "projection", **dict(kw))
-        assert err.value.status == Status.ERROR_UNSUPPORTED
+        assert err.value.status == (status or [Status.ERROR_UNSUPPORTED])[0]
         assert reason in str(err.value)

@@ -73,7 +73,12 @@ mode (`projection_kernels.py:561-567`, `:464-510`): given ``z_base``
 count) they take a shard's halo-padded block, put the z-shells and b̃'s
 z face term at global planes, and count on ``global_nz_launches``; the
 inverse DST and :func:`corrector` run unchanged on its 1-halo x̂ block
-(A5 ``corr_all``'s sharded form).  Its CG and BiCGSTAB steps take
+(A5 ``corr_all``'s sharded form).  On the consistent scheme the same
+mode runs on the ``<true, false>`` instantiations, the weight rows being
+z-invariant (the reference composes its consistent pins with
+``global_nz``, `projection_kernels.py:203-211`), counted on
+``global_nz_launches`` too; the corrector on the 1-halo block counts on
+``consistent_launches``.  Its CG and BiCGSTAB steps take
 :func:`poisson_rhs` in the same mode (A5 ``divergence`` with
 ``global_nz``) and :func:`corrector` on the 1-halo block of the solved p
 (A5 ``corr_xy`` → ``corr_u`` / ``corr_v`` and ``corr_w``,

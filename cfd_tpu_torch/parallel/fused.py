@@ -46,13 +46,30 @@ corrector on that block as in step 4 (A5 ``corr_xy`` + ``corr_w``); the
 solve's final residual is the step's residual, and a solve that did not
 converge makes the status −7 (`:631-643`).
 
+On a stretched grid under the consistent scheme (``nonuniform_scheme=
+"consistent"``) the FFT_DIRECT step is the reference's eigenbasis-fused
+sharded variant (`:393-439`): the same chain, each shard's stencil
+constants carrying the consistent weight rows on its device and the b̃
+face weights (the predictor, b̃ and corrector kernels' ``<true, false>``
+instantiations in ``global_nz`` mode), the generalized eigenbasis in
+place of the sines and the z solve over its eigenvalue sums
+(`solvers.poisson.nonuniform.make_nonuniform_fused_sharded_pieces`).  x
+and y stay whole under z decomposition, so the weight rows are the
+single-device ones.  It runs on a z-only mesh and FFT_DIRECT only, as
+in the reference.
+
 At "highest" every point and every mode runs the single-device kernels'
 arithmetic, so the step equals the single-device kernel step; "high"
 takes the 3xTF32 products with the stored Thomas solve (the
-single-device HIGH step rebuilds t analytically).  Halo padding is by
-concatenation (a copy of each padded field a step).  ``plain=True`` (and
-any dtype but float32, `solvers.ns.common.runs_plain`) runs the same chain
-on the plain versions.
+single-device HIGH step rebuilds t analytically); "default" one TF32
+pass a product in every family (the z-only xy transforms, the (z, y)
+x-DSTs and dense y/z stage, the 2D x-DSTs and slab y solve), the
+z-only Thomas solve fp32 and stored as at "high" — the reference's
+``dst_precision=DEFAULT`` chain, not the single-device DEFAULT step's
+emit-b̃ route.  Halo padding is by concatenation (a copy of each padded
+field a step).  ``plain=True`` (and any dtype but float32,
+`solvers.ns.common.runs_plain`) runs the same chain on the plain
+versions.
 
 On a (Pz, Py) mesh with Py > 1 (the default `mesh.make_mesh()` of 2, 4, 6
 or 8 cards; Pz = 1 too) each shard owns a (nz/Pz, ny/Py, nx) block at
@@ -125,12 +142,14 @@ predictor computes the owned planes (rows) ± 1 too, so T's halo holds
 the neighbours' values there.  With the energy equation the corrector is
 followed by `thermal.make_sharded_thermal_post`'s energy step and thermal
 faces on the new blocks (reading the inner halo of those buffers when
-there are any), and the step's max T is the new T's; with buoyancy
-alone T passes through.
+there are any; its consistent stencils on the consistent scheme), and
+the step's max T is the new T's; with buoyancy alone T passes through.
 
 Every configuration outside this slice raises ``CFDError(
-ERROR_UNSUPPORTED)`` with the reference's reason or "… is not ported yet";
-nothing is sent to another path.
+ERROR_UNSUPPORTED)`` with the reference's reason or "… is not ported yet"
+(the consistent scheme on a (z, y) mesh or a 2D grid, or with a Krylov
+or multigrid solve, with the reference's words); nothing is sent to
+another path.
 """
 
 from __future__ import annotations
@@ -148,6 +167,9 @@ from ..solvers.ns.common import runs_plain, step_result, \
 from ..solvers.ns.params import NSParams
 from ..solvers.ns.projection import is_consistent
 from ..solvers.poisson.base import Method, PoissonParams, PoissonProblem
+from ..solvers.poisson.nonuniform import (
+    NonuniformPoissonProblem, make_nonuniform_fused_sharded_pieces,
+    nonuniform_face_coeffs)
 from ..ops.kernels import projection2d as p2d
 from ..solvers.poisson.spectral import (dst_fused_sharded_supported,
                                         dst_fused_sharded_zy_supported,
@@ -177,10 +199,14 @@ def fused_sharded_unsupported_reason(grid: Grid, params: NSParams,
         return _not_ported("custom source callables use the jnp path, "
                            "which")
     if is_consistent(grid, params):
-        if zy and grid.nz > 2:
+        # the eigenbasis-fused step runs on a z-only mesh, where x and y
+        # are whole (`fused.py:272-283`)
+        if grid.nz <= 2:
+            return ("no fused sharded 2D consistent-scheme projection "
+                    "(the 2D marching kernels are uniform-only)")
+        if zy:
             return ("consistent-scheme fused sharded projection needs a "
                     "z-only mesh")
-        return _not_ported("the consistent-scheme fused sharded projection")
     method = (Method.FFT_DIRECT if poisson_method is None
               else Method(poisson_method))
     if grid.nz <= 2:
@@ -230,7 +256,8 @@ def fused_sharded_unsupported_reason(grid: Grid, params: NSParams,
     return None
 
 
-_PRECISIONS = {None: "highest", "highest": "highest", "high": "high"}
+_PRECISIONS = {None: "highest", "highest": "highest", "high": "high",
+               "default": "default"}
 
 
 def _unsupported(reason: str):
@@ -248,9 +275,11 @@ def make_fused_sharded_projection_step(grid: Grid, params: NSParams,
     `mesh.ShardedField` z-sharded over ``mesh`` (`fused.py:325-645`).
 
     ``poisson_method`` None or ``FFT_DIRECT`` (the reference's default
-    here): the DST-fused step; ``spectral_precision`` None /
-    ``"highest"`` (IEEE fp32 DST products) or ``"high"`` (3xTF32), the
-    per-shard xy transforms only — the z solve stays fp32 and stored.
+    here): the DST-fused step, on the consistent scheme the
+    eigenbasis-fused one (z-only mesh); ``spectral_precision`` None /
+    ``"highest"`` (IEEE fp32 products), ``"high"`` (3xTF32) or
+    ``"default"`` (one TF32 pass), the transform products only — the
+    z-only Thomas solve stays fp32 and stored; another name raises.
     ``CG`` or ``BICGSTAB``: the per-component step (`fused.py:559-610`)
     with the sharded Krylov solve (`fused_cg`, `fused_bicgstab`) on
     ``poisson_params`` (default ``PoissonParams()``); a failed solve
@@ -268,13 +297,19 @@ def make_fused_sharded_projection_step(grid: Grid, params: NSParams,
         _unsupported(reason)
     method = (Method.FFT_DIRECT if poisson_method is None
               else Method(poisson_method))
+    consistent = is_consistent(grid, params)
+    if consistent and method != Method.FFT_DIRECT:
+        # no kernel evaluates the variable-coefficient Krylov passes
+        # (`fused.py:414-417`)
+        _unsupported("consistent-scheme fused sharded projection supports "
+                     f"the FFT_DIRECT pressure solve only (got "
+                     f"{method.name})")
     if method not in (Method.FFT_DIRECT, Method.CG, Method.BICGSTAB):
         _unsupported("fused sharded projection supports FFT_DIRECT, CG and "
                      f"BICGSTAB pressure solves (got {method.name})")
     if spectral_precision not in _PRECISIONS:
-        _unsupported(_not_ported(f"spectral_precision="
-                                 f"{spectral_precision!r} on the sharded "
-                                 "step"))
+        _unsupported(f"unknown spectral_precision={spectral_precision!r} "
+                     f"(one of {sorted(k for k in _PRECISIONS if k)})")
     validate_grid_for_solver(grid, grid.shape)
 
     comm = mesh.comm
@@ -286,9 +321,13 @@ def make_fused_sharded_projection_step(grid: Grid, params: NSParams,
     problem = PoissonProblem(nx, ny, nz, grid.dx0, grid.dy0, grid.dz0)
     with_sources = (params.source_amplitude_u != 0.0
                     or params.source_amplitude_v != 0.0)
-    consts = pkm.stencil_consts(nz, ny, nx, grid.dx0, grid.dy0, grid.dz0,
-                                grid.xmin, grid.ymin, params.mu,
-                                with_sources, params, dtype)
+
+    def stencil_consts(weights=None, face=None):
+        return pkm.stencil_consts(nz, ny, nx, grid.dx0, grid.dy0, grid.dz0,
+                                  grid.xmin, grid.ymin, params.mu,
+                                  with_sources, params, dtype, weights, face)
+
+    consts = stencil_consts()
     precision = _PRECISIONS[spectral_precision]
     thermal = _Thermal(grid, params, comm, consts, dtype)
     if nz == 1:
@@ -299,9 +338,23 @@ def make_fused_sharded_projection_step(grid: Grid, params: NSParams,
         return _make_zy_step(problem, params, mesh, consts, dtype, method,
                              poisson_params, precision, plain, thermal)
     nzl = nz // P
+    # each local shard's stencil constants: on the consistent scheme with
+    # its device's weight rows and the b̃ face weights (x and y are whole,
+    # so every shard reads the single-device rows)
+    shard_consts = [consts] * len(devices)
+    pieces = make_dst_fused_sharded_pieces
+    if consistent:
+        problem = NonuniformPoissonProblem.from_grid(grid)
+        face = nonuniform_face_coeffs(problem)
+        on = {}
+        for d in devices:
+            if d not in on:
+                on[d] = stencil_consts(pkm.consistent_weights(
+                    grid.dx, grid.dy, grid.x, grid.y, dtype, d), face)
+        shard_consts = [on[d] for d in devices]
+        pieces = make_nonuniform_fused_sharded_pieces
     if method == Method.FFT_DIRECT:
-        mats, zsolve = make_dst_fused_sharded_pieces(problem, P, comm, dtype,
-                                                     plain=plain)
+        mats, zsolve = pieces(problem, P, comm, dtype, plain=plain)
         pressure = None
     else:
         maker = (make_cg_fused_sharded_local if method == Method.CG
@@ -317,11 +370,12 @@ def make_fused_sharded_projection_step(grid: Grid, params: NSParams,
         rhs_of = pkm.poisson_rhs
         dot, corr = rolling.plane_dot, pkm.corrector
 
-    def block(n):
-        """The stencil constants of an n-plane block."""
-        return dataclasses.replace(consts, nz=n)
+    def block(c, n):
+        """The stencil constants ``c`` of an n-plane block."""
+        return dataclasses.replace(c, nz=n)
 
-    c_pred, c_bt = block(nzl + 4), block(nzl + 2)
+    c_pred = [block(c, nzl + 4) for c in shard_consts]
+    c_bt = [block(c, nzl + 2) for c in shard_consts]
     scalars = _step_scalars(params, comm, dtype)
 
     def pad(blocks, n):
@@ -337,10 +391,11 @@ def make_fused_sharded_projection_step(grid: Grid, params: NSParams,
         scal = scalars(blocks, dt, iter_idx)
         u2, v2, w2 = (pad([getattr(b, n) for b in blocks], 2)
                       for n in "uvw")
-        stars = [star(uh, vh, wh, torch.stack([dts, su, sv]), c_pred, th,
+        stars = [star(uh, vh, wh, torch.stack([dts, su, sv]), c, th,
                       s * nzl - 2, nz)
-                 for s, uh, vh, wh, th, (dts, su, sv, _) in zip(
-                     comm.shards, u2, v2, w2, thermal.fill(blocks), scal)]
+                 for s, uh, vh, wh, th, (dts, su, sv, _), c in zip(
+                     comm.shards, u2, v2, w2, thermal.fill(blocks), scal,
+                     c_pred)]
         return scal, stars
 
     def halo_block(blocks, halos):
@@ -357,15 +412,14 @@ def make_fused_sharded_projection_step(grid: Grid, params: NSParams,
         folded over the shards, the energy post-step, the new field and
         its StepResult."""
         new_blocks, maxima = [], []
-        for s, b, pb, (us, vs, ws), (dts, _, _, r0) in zip(
-                comm.shards, field.blocks, pbs, stars, scal):
+        for s, b, pb, (us, vs, ws), (dts, _, _, r0), c in zip(
+                comm.shards, field.blocks, pbs, stars, scal, shard_consts):
             first, last = s == 0, s == P - 1
             a = 0 if first else 1       # halo planes below the owned ones
             e = 0 if last else 1        # ... and above
             sl = slice(2 - a, nzl + 2 + e)
             u, v, w, m2, pmax, pabs = corr(
-                us[sl], vs[sl], ws[sl], pb, dts / r0,
-                block(nzl + a + e))
+                us[sl], vs[sl], ws[sl], pb, dts / r0, block(c, nzl + a + e))
             own = slice(a, a + nzl)
             nb = b.replace(u=u[own], v=v[own], w=w[own], p=pb[own])
             faces = ([0] if first else []) + ([-1] if last else [])
@@ -382,11 +436,11 @@ def make_fused_sharded_projection_step(grid: Grid, params: NSParams,
     def step_dst(field: ShardedField, dt, iter_idx):
         scal, stars = predict(field, dt, iter_idx)
         bhat = []
-        for s, b, (us, vs, ws), (dts, _, _, r0), m in zip(
-                comm.shards, field.blocks, stars, scal, mats):
+        for s, b, (us, vs, ws), (dts, _, _, r0), m, c in zip(
+                comm.shards, field.blocks, stars, scal, mats, c_bt):
             zero = torch.zeros_like(b.p[:1])
             p1 = torch.cat([zero, b.p, zero])  # b̃ reads owned planes
-            bt = b_in(us[1:-1], vs[1:-1], ws[1:-1], p1, r0 / dts, c_bt,
+            bt = b_in(us[1:-1], vs[1:-1], ws[1:-1], p1, r0 / dts, c,
                       s * nzl - 1, nz)
             bhat.append(dot(bt[1:-1], m[0], m[1], precision))
         xhat = zsolve(bhat)
@@ -398,10 +452,10 @@ def make_fused_sharded_projection_step(grid: Grid, params: NSParams,
 
     def step_krylov(field: ShardedField, dt, iter_idx):
         scal, stars = predict(field, dt, iter_idx)
-        rhs = [rhs_of(us[1:-1], vs[1:-1], ws[1:-1], r0 / dts, c_bt,
+        rhs = [rhs_of(us[1:-1], vs[1:-1], ws[1:-1], r0 / dts, c,
                       s * nzl - 1, nz)[1:-1]
-               for s, (us, vs, ws), (dts, _, _, r0) in zip(
-                   comm.shards, stars, scal)]
+               for s, (us, vs, ws), (dts, _, _, r0), c in zip(
+                   comm.shards, stars, scal, c_bt)]
         res = pressure([b.p for b in field.blocks], rhs)
         step_krylov.last_poisson = res[0]
         ps = [r.x for r in res]

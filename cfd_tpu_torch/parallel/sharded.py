@@ -150,6 +150,11 @@ def make_sharded_step(grid: Grid, params: NSParams, mesh: Mesh,
                       method: str = "projection", **kw):
     """``(step, place)``: ``place(field)`` shards the initial state;
     ``step(field, dt, iter)`` runs one step on it, its output sharded the
-    same way.  Selection and keywords as :func:`make_sharded_raw_step`."""
+    same way.  Selection and keywords as :func:`make_sharded_raw_step`:
+    the projection step on a z-only, (z, y) or (2D) y-only mesh
+    (FFT_DIRECT at ``spectral_precision`` "highest", "high" or
+    "default", CG, BiCGSTAB, MULTIGRID; on a stretched grid under the
+    consistent scheme FFT_DIRECT on a z-only mesh), the explicit steps
+    on those meshes."""
     raw, _, place = make_sharded_raw_step(grid, params, mesh, method, **kw)
     return raw, place

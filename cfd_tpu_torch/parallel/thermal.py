@@ -17,10 +17,14 @@ partition them; here each shard computes its owned block:
    the inner halo of it and exchanges nothing more.
 2. **Interior.** The single-device energy step's ops (`solvers.energy.
    make_energy_step`: ``interior``, ``ddx`` … ``laplacian`` of
-   `ops.stencils`, in the same order) on the owned points of the padded
-   block, then the block's global interior written into a copy of the
-   owned T: the global shells keep T, exactly as ``set_interior`` leaves
-   them on one device.
+   `ops.stencils`, in the same order; on a stretched grid under the
+   consistent scheme ``along_x``, ``along_y`` on the weight rows of
+   `energy._consistent_energy_step` and ``laplacian_interior``) on the
+   owned points of the padded block, then the block's global interior
+   written into a copy of the owned T: the global shells keep T, exactly
+   as ``set_interior`` leaves them on one device.  The consistent
+   projection step runs on a z-only mesh only, so x and y are whole and
+   its weight rows are the single-device ones.
 3. **Faces, in the reference's order** (left, right, bottom, top, back,
    front: the face applied last owns a corner, `solvers/energy.py`
    ``apply_thermal_bcs``), in three stages: the x faces on every shard,
@@ -48,8 +52,11 @@ import torch
 
 from ..boundary.types import BCType, thermal_y_specs, thermal_z_specs
 from ..core.grid import Grid
-from ..ops.stencils import ddx, ddy, ddz, interior, laplacian
-from ..solvers.energy import make_energy_step, validate_thermal_bc
+from ..core.status import CFDError, Status
+from ..ops.stencils import (along_x, along_y, ddx, ddy, ddz, interior,
+                            laplacian, laplacian_interior)
+from ..solvers.energy import (make_energy_step, thermal_weight_rows,
+                              validate_thermal_bc)
 from ..solvers.ns.euler import as_scalar
 from ..solvers.ns.params import NSParams
 from .comm import AXIS_DIM
@@ -190,7 +197,9 @@ def make_sharded_thermal_post(grid: Grid, params: NSParams, comm, dtype):
 
     The energy step's refusals (a heat source; non-uniform dx/dy without
     the consistent scheme) and a thermal face other than PERIODIC,
-    NEUMANN or DIRICHLET (``ERROR_INVALID``) raise here."""
+    NEUMANN or DIRICHLET (``ERROR_INVALID``) raise here; so does the
+    consistent scheme with y split over the mesh (its rows would need a
+    shard's window)."""
     energy_step = make_energy_step(grid, params.alpha,
                                    params.heat_source_func,
                                    scheme=params.nonuniform_scheme)
@@ -207,6 +216,12 @@ def make_sharded_thermal_post(grid: Grid, params: NSParams, comm, dtype):
     inv_dx2, inv_dy2 = 1.0 / grid.dx0 ** 2, 1.0 / grid.dy0 ** 2
     inv_2dz = 1.0 / (2.0 * grid.dz0) if three_d else 0.0
     inv_dz2 = grid.inv_dz2 if three_d else 0.0
+    stretched = not (grid.is_uniform("x") and grid.is_uniform("y"))
+    if stretched and py > 1:
+        raise CFDError(Status.ERROR_UNSUPPORTED,
+                       "the consistent energy step on shards needs whole "
+                       "y rows (a z-only mesh)")
+    rows_of = thermal_weight_rows(grid) if stretched else None
     specs = thermal_face_specs(params)
     # u, v, w at the points of the padded T's interior: the owned rows
     # where y is split, else the interior rows
@@ -236,10 +251,20 @@ def make_sharded_thermal_post(grid: Grid, params: NSParams, comm, dtype):
         for b, buf, d, k in zip(blocks, temps.bufs, dts, keep):
             Tp = temps.inner(buf)
             d = as_scalar(d, dtype, buf.device)
-            advection = ((b.u[:, rows, 1:-1] * ddx(Tp, inv_2dx)
-                          + b.v[:, rows, 1:-1] * ddy(Tp, inv_2dy))
-                         + b.w[:, rows, 1:-1] * ddz(Tp, inv_2dz))
-            diffusion = alpha * laplacian(Tp, inv_dx2, inv_dy2, inv_dz2)
+            u, v, w = (f[:, rows, 1:-1] for f in (b.u, b.v, b.w))
+            if rows_of is None:
+                advection = ((u * ddx(Tp, inv_2dx) + v * ddy(Tp, inv_2dy))
+                             + w * ddz(Tp, inv_2dz))
+                diffusion = alpha * laplacian(Tp, inv_dx2, inv_dy2,
+                                              inv_dz2)
+            else:
+                # `energy._consistent_energy_step`'s ops, in its order
+                X, Y = rows_of(Tp)
+                advection = u * along_x(Tp, X[:3]) + v * along_y(Tp, Y[:3])
+                if three_d:
+                    advection = advection + w * ddz(Tp, inv_2dz)
+                diffusion = alpha * laplacian_interior(Tp, X[3:], Y[3:],
+                                                       inv_dz2)
             T_int = interior(Tp) + d * (-advection + diffusion)
             T = b.T.clone()
             T[:, rows, 1:-1][k] = T_int[k]

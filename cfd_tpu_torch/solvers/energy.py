@@ -106,9 +106,11 @@ def make_energy_step(grid: Grid, alpha: float, heat_source=None,
     return step
 
 
-def _consistent_energy_step(grid: Grid, alpha, inv_2dz, inv_dz2):
-    """The stretched-grid energy step (see :func:`make_energy_step`); the
-    weight rows are made once per (dtype, device)."""
+def thermal_weight_rows(grid: Grid):
+    """``rows(T) -> (X, Y)``: the consistent energy step's interior weight
+    rows, the six x rows (wm, wc, wp, lm, lc, lp) broadcasting over
+    (…, nx − 2) and the six y rows over (…, ny − 2, 1), in T's dtype on
+    T's device, made once per (dtype, device)."""
     triples = [a[1:-1] for a in consistent_triples(grid.dx)], \
         [a[1:-1] for a in consistent_triples(grid.dy)]
     cache = {}
@@ -121,6 +123,14 @@ def _consistent_energy_step(grid: Grid, alpha, inv_2dz, inv_dz2):
                  .reshape(shape) for a in axis]
                 for axis, shape in zip(triples, ((1, 1, -1), (1, -1, 1))))
         return cache[key]
+
+    return rows
+
+
+def _consistent_energy_step(grid: Grid, alpha, inv_2dz, inv_dz2):
+    """The stretched-grid energy step (see :func:`make_energy_step`); the
+    weight rows are made once per (dtype, device)."""
+    rows = thermal_weight_rows(grid)
 
     def step(T, u, v, w, dt, time=None):
         X, Y = rows(T)

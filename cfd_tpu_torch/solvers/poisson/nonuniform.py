@@ -17,8 +17,11 @@ grid's dims for the 3D projection step's kernels, exactly as
 `spectral.make_dst_fused_pieces` pads the sines, and
 :func:`make_nonuniform_direct` is the direct solve of a (x0, rhs) pair.
 
-z stays uniform (the solvers' rule).  The sharded pieces of the reference
-(`nonuniform.py:262-295`) are not ported.
+z stays uniform (the solvers' rule).  :func:`make_nonuniform_fused_sharded_
+pieces` are the z-decomposed twin (`nonuniform.py:262-295`): the same
+factors once per device, and the z line solve over the eigenvalue sums
+across the shards (`spectral._make_sharded_zsolve`), for the
+z-decomposed consistent projection step (`parallel.fused`).
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ from ...core.status import CFDError, Status
 from ...ops.kernels import rolling, tdma
 from ...ops.kernels.stretch import triples
 from ...ops.stencils import along_x, along_y, interior_index
+from . import spectral
 from .base import PoissonParams, PoissonProblem, PoissonResult, PoissonStatus
 
 
@@ -215,6 +219,31 @@ def make_nonuniform_fused_pieces(problem: NonuniformPoissonProblem,
     mats_t = tuple(torch.as_tensor(m, dtype=dt, device=device) for m in mats)
     mu_t = torch.as_tensor(mu.astype(np_dt), dtype=dt, device=device)
     return mats_t, (mu_t, w)
+
+
+def nonuniform_fused_sharded_supported(problem: NonuniformPoissonProblem,
+                                       n_shards: int) -> bool:
+    """The z-sharded eigenbasis pieces apply (`nonuniform.py:262-268`):
+    the uniform DST-fused sharded gate, the factors having the sines'
+    shapes."""
+    return spectral.dst_fused_sharded_supported(problem, n_shards)
+
+
+def make_nonuniform_fused_sharded_pieces(problem: NonuniformPoissonProblem,
+                                         n_shards: int, comm, dtype=None,
+                                         plain: bool = False):
+    """z-sharded twin of :func:`make_nonuniform_fused_pieces`
+    (`nonuniform.py:271-295`), the contract of
+    `spectral.make_dst_fused_sharded_pieces` with the generalized
+    eigenbasis in place of the sines: ``(mats, zsolve)``, ``mats`` one
+    (FxT, Fy, GxT, Gy) tuple per local shard of ``comm``, on its device
+    (the xy transforms stay per shard, plane-local under z
+    decomposition); ``zsolve(bt_blocks) → x̂_blocks`` the y-pencil
+    ``all_to_all``s around the stored Thomas solve over this shard's rows
+    of the eigenvalue-sum plane, ``w = 1/dz²`` (z is uniform).
+    ``plain=True`` runs the plain Thomas sweeps on a CUDA device too."""
+    return spectral._sharded_pieces(_nonuniform_fused_mats, problem,
+                                    n_shards, comm, dtype, plain)
 
 
 def make_nonuniform_direct(problem: NonuniformPoissonProblem,

@@ -198,17 +198,28 @@ def make_dst_fused_sharded_pieces(problem: PoissonProblem, n_shards: int,
     z-shell planes) and returns x̂ in the same layout, with the mirror
     global z-shells on the edge shards' owned planes.  ``plain=True`` runs
     the plain Thomas sweeps on a CUDA device too."""
+    return _sharded_pieces(_dst_fused_mats, problem, n_shards, comm, dtype,
+                           plain)
+
+
+def _sharded_pieces(make_mats, problem: PoissonProblem, n_shards: int, comm,
+                    dtype, plain: bool):
+    """``(mats, zsolve)`` of a z-sharded transform-fused projection from
+    ``make_mats(problem, np_dt) → (mats, mu, w)``: the four factors once
+    per device of ``comm`` (shards on one device share them) and the
+    z line solve over ``mu`` (:func:`_make_sharded_zsolve`).  Raises
+    ``ERROR_UNSUPPORTED`` outside :func:`dst_fused_sharded_supported`."""
     P = int(n_shards)
     if not dst_fused_sharded_supported(problem, P):
         raise CFDError(Status.ERROR_UNSUPPORTED,
-                       f"the DST-fused sharded pieces need a 3D problem "
-                       f"with nz and ny divisible by {P} shards and >= 2 "
-                       f"planes a shard (got nz={problem.nz}, "
+                       f"the transform-fused sharded pieces need a 3D "
+                       f"problem with nz and ny divisible by {P} shards "
+                       f"and >= 2 planes a shard (got nz={problem.nz}, "
                        f"ny={problem.ny})")
     devices = [torch.device(d) for d in comm.devices]
     dt = resolve_dtype(dtype, devices[0])
     np_dt = np.float64 if dt == torch.float64 else np.float32
-    mats, mu, w = _dst_fused_mats(problem, np_dt)
+    mats, mu, w = make_mats(problem, np_dt)
     per_device = {}
     for d in devices:
         if d not in per_device:

@@ -339,10 +339,36 @@ steps:
   back and front) at 128³ over 4z and (2, 2); the 128³ CG and BiCGSTAB
   steps with energy and buoyancy over 4z at phase 48 / 49's bars;
 * phase 67: phase 34's de Vahl Davis configuration over 4y for one
-  4000-step chunk beside the single-device step: the first step against
+  1000-step chunk beside the single-device step: the first step against
   float64, Nu_avg after the chunk within 0.5%.
 
-On phases 59, 60 and 66 the plain twins of the path are tripwires too.
+Then the consistent scheme on the z-decomposed spectral step and
+``spectral_precision="default"`` on every decomposed step:
+
+* phase 68: ``predictor_star`` (with and without T) and
+  ``poisson_input`` in their consistent ``global_nz`` mode and the
+  consistent corrector on the step's 1-halo block, on the first, a
+  middle and the last block of 4 z-shards of a 37×23×16 stretched grid
+  and on every block of the 512³ tanh β = 1.5 grid, bit for bit against
+  the plain twin and, on the owned window, against phase 35's
+  single-device consistent kernel; a middle block of each timed;
+* phase 69: ``run_3d_consistent(512)``'s step over 4z, HIGHEST bit-equal
+  to the single-device consistent step after 1 and 6 steps, HIGH at the
+  HIGH bars, 3 warm-up and 5 timed steps of each beside the
+  single-device step; a buoyant + energy consistent step at 64×48×32
+  over 4z, 3 steps bit-equal to one device; ``Simulation.from_grid`` on
+  a 4z mesh with a consistent grid, one step against the single-device
+  facade;
+* phase 70: the one-pass TF32 GEMM on a shard's x̂ block (and, in
+  phases 50 and 58, on the (2, 2) and 4y shards' x-DST, z-stage and
+  y-slab shapes), then ``spectral_precision="default"`` on the 512³ step
+  over 4z (uniform, bit-equal to the single-device DEFAULT step, and
+  consistent) and (2, 2), at ``TOL_TF32_STEP``, and on the 2048² step
+  over 4y at ``TOL_TF32_4Y``, ms a step beside HIGHEST, every stencil
+  and GEMM of each path counted.
+
+On phases 59, 60, 66, 69 and 70 the plain twins of the path are
+tripwires too.
 
 It checks status, finiteness, launch counters (set to 0 just before each
 main path and read just after) and kernel-vs-plain agreement; any
@@ -505,6 +531,10 @@ P2_BUOY = "cfd_tpu/ops/pallas/projection2d.py:200"        # pred_bt, T halo
 A1_BUOY_SHARD = "cfd_tpu/ops/pallas/projection_kernels.py:577"  # Tw, kg
 A1_BUOY_ZY = "cfd_tpu/ops/pallas/projection_kernels.py:582"  # + y_off
 P2_BUOY_ROWS = "cfd_tpu/ops/pallas/projection2d.py:166"  # bsrc, global rows
+# Phases 68-70: the consistent scheme on the z-decomposed step (the
+# consistent pins composed with global_nz, projection_kernels.py:203-211)
+A1_CONS_SHARD = "cfd_tpu/ops/pallas/projection_kernels.py:590"  # kg, pins
+A5_BT_CONS_SHARD = "cfd_tpu/ops/pallas/projection_kernels.py:658"  # faces
 # examples/pulsatile_inlet_flow.py's channel, 1024×512 (ν = 0.05: the
 # viscous number 2ν·dt·(1/dx² + 1/dy²) is 0.52 at dt = 1e-5)
 PULSE = (1024, 512)
@@ -515,6 +545,9 @@ N_DVD = 128
 DVD_BETA = 0.003333
 DVD_DT = 5e-4
 DVD_CHUNK = 4000
+# phase 67's chunk over 4y, a quarter of phase 34's: the sharded march is
+# host-bound, and the whole run stays near 1000 s beside phases 68-70
+DVD_CHUNK_4Y = 1000
 DVD_MAX_STEPS = 80000
 
 # Phases 35-37: stretched grids and the consistent scheme
@@ -650,6 +683,7 @@ FLOPS_PER_POINT = {"predictor_star": 90, "poisson_input": 12,
                    # takes 9 of each, b̃ 2 first derivatives and the face
                    # weights (4 products, 4 sums), the corrector 2
                    "predictor_star_cons": 108, "poisson_input_cons": 20,
+                   "predictor_star_cons_buoyant": 115,
                    "poisson_rhs_cons": 12, "corrector_cons": 24,
                    "euler_cons": 160, "rk_stage_cons": 180,
                    "euler_cons_thermal": 205, "rk_stage_cons_thermal":
@@ -689,6 +723,11 @@ GEMM_VS_SGEMM = 2.0
 # ulps), u, v, w at what that passes on through the corrector.  The one
 # GEMM alone is held at TOL_GEMM: its operands are rounded the same way.
 TOL_TF32_STEP = 1e-2
+# The 2048^2 DEFAULT step over 4y against the single-device DEFAULT step:
+# p read 3.593e-7 of max|p| in two runs on the H100 (the same products on
+# the same operands, the sums in another order), held at about thirty
+# times that; TOL_TF32_STEP would pass an error 28000 times the reading.
+TOL_TF32_4Y = 1e-5
 
 
 # The CG kernels: fields in the plain versions' operation order
@@ -5416,6 +5455,15 @@ def main() -> int:
                  else getattr(w, f"{mode}_launches"))
                 for w in wrappers}
 
+    # the decomposed steps' GEMMs at each spectral precision: (precision,
+    # record suffix, source, peak rate, passes, library call's matmul
+    # mode), and the suffix of the main path whose counts each record takes
+    GEMM_PRECISIONS = (
+        ("highest", "", SRC, FP32_FLOPS, 1, ieee_matmul),
+        ("high", "[3xtf32]", SRC_GEMM, TF32_TC_FLOPS, 3, ieee_matmul),
+        ("default", "[tf32]", SRC_GEMM, TF32_TC_FLOPS, 1, tf32_matmul))
+    GEMM_PATH = {"highest": "", "high": "-high", "default": "-default"}
+
     # ---- phase 47: bench.py's cg_512 over 4 z-shards ----------------------
     # phase 13's problem (512^3, tol 1e-6, check_interval 10) through
     # make_cg_fused_sharded on 4 shards emulated on the one card
@@ -5749,18 +5797,15 @@ def main() -> int:
             fz = torch.randn((mzp, nz_g), generator=gen, device=dev)
             x_ops = gemm_flops(nzl * nyl, nx_, nx_)
             z_ops = gemm_flops(mzp, pencil.shape[1], nz_g)
-            for prec, suffix, src_, rate in (
-                    ("highest", "", SRC, FP32_FLOPS),
-                    ("high", "[3xtf32]", SRC_GEMM, TF32_TC_FLOPS)):
-                path = "sharded-zy" + ("-high" if suffix else "")
-                mult = 3 if suffix else 1
+            for prec, suffix, src_, rate, mult, lib in GEMM_PRECISIONS:
+                path = "sharded-zy" + GEMM_PATH[prec]
                 check(path, f"{tag} (2, 2) shard", True, rolling.right_dot,
                       DOT_ZY, src_,
                       lambda: rolling.right_dot(bt, fxt, prec),
                       lambda: rolling.right_dot_plain(bt, fxt, prec),
                       ("x-DST",), (gemm,),
                       work=((bt, fxt), mult * x_ops),
-                      library=ieee_matmul(lambda: bt @ fxt),
+                      library=lib(lambda: bt @ fxt),
                       name=f"right_dot{suffix}", rate=rate)
                 check(path, f"{tag} (2, 2) shard", True, rolling.left_dot,
                       YZ_Z, src_,
@@ -5769,7 +5814,7 @@ def main() -> int:
                                                      precision=prec),
                       ("z stage",), (gemm,),
                       work=((fz, pencil), mult * z_ops),
-                      library=ieee_matmul(lambda: fz @ pencil),
+                      library=lib(lambda: fz @ pencil),
                       name=f"left_dot{suffix}", rate=rate)
             del bt, pencil, fz
         del f
@@ -6748,18 +6793,15 @@ def main() -> int:
             slab = torch.randn((ny2, nx2 // 4), generator=gen, device=dev)
             x_ops = gemm_flops(nyl, nx2, nx2)
             y_ops = gemm_flops(ny2 - 2, nx2 // 4, ny2)
-            for prec, suffix, src_, rate in (
-                    ("highest", "", SRC, FP32_FLOPS),
-                    ("high", "[3xtf32]", SRC_GEMM, TF32_TC_FLOPS)):
-                path = "sharded-2d" + ("-high" if suffix else "")
-                mult = 3 if suffix else 1
+            for prec, suffix, src_, rate, mult, lib in GEMM_PRECISIONS:
+                path = "sharded-2d" + GEMM_PATH[prec]
                 check(path, f"{tag} 4y shard", True, rolling.right_dot,
                       DOT2, src_,
                       lambda: rolling.right_dot(bt, fxt, prec),
                       lambda: rolling.right_dot_plain(bt, fxt, prec),
                       ("x-DST",), (gemm,),
                       work=((bt, fxt), mult * x_ops),
-                      library=ieee_matmul(lambda: bt @ fxt),
+                      library=lib(lambda: bt @ fxt),
                       name=f"right_dot{suffix}", rate=rate)
                 check(path, f"{tag} 4y shard", True, rolling.left_dot,
                       YS_2D, src_,
@@ -6768,7 +6810,7 @@ def main() -> int:
                                                      precision=prec),
                       ("y slab",), (gemm,),
                       work=((fy, slab), mult * y_ops),
-                      library=ieee_matmul(lambda: fy @ slab),
+                      library=lib(lambda: fy @ slab),
                       name=f"left_dot{suffix}", rate=rate)
             del bt, fxt, fy, slab
         del u, v, w, p
@@ -7511,7 +7553,7 @@ def main() -> int:
     # ---- phase 67: the 2D de Vahl Davis chunk over 4y ----------------------
     # phase 34's configuration (dvd_case: Ra = 1e4 at 128^2, buoyancy, the
     # energy equation, Dirichlet left and right) through make_sharded_step
-    # on the 4y mesh for one DVD_CHUNK, with phase 34's no-slip walls on
+    # on the 4y mesh for one DVD_CHUNK_4Y, with phase 34's no-slip walls on
     # each block (the y walls on the edge shards), beside the single-device
     # step from the same start: status 0 every step; after the first step
     # u, v, p against the float64 step on the card at TOL_2D_F64_* (the
@@ -7584,35 +7626,35 @@ def main() -> int:
     pk2m.reset_launch_counts()
     sync()
     t0 = time.perf_counter()
-    fs_d, w_s2 = march(step_s, fs1, 1, DVD_CHUNK - 1, True)
+    fs_d, w_s2 = march(step_s, fs1, 1, DVD_CHUNK_4Y - 1, True)
     sync()
-    ms_dvd_s = (time.perf_counter() - t0) * 1e3 / (DVD_CHUNK - 1)
+    ms_dvd_s = (time.perf_counter() - t0) * 1e3 / (DVD_CHUNK_4Y - 1)
     n_star = pk2m.predictor_star_2d.global_ny_launches
     launch_counts["sharded-2d-buoy"] = {
         "predictor_star_2d[global_ny,buoyant]": n_star}
     t0 = time.perf_counter()
-    fd_1, w_12 = march(single, f1, 1, DVD_CHUNK - 1, False)
+    fd_1, w_12 = march(single, f1, 1, DVD_CHUNK_4Y - 1, False)
     sync()
-    ms_dvd_1 = (time.perf_counter() - t0) * 1e3 / (DVD_CHUNK - 1)
+    ms_dvd_1 = (time.perf_counter() - t0) * 1e3 / (DVD_CHUNK_4Y - 1)
     worst_d = int(torch.stack([w_s, w_s2, w_1, w_12]).max())
     g_d = gather_field(fs_d)
     nu_s, nu_1 = nu_avg_of(g_d.T), nu_avg_of(fd_1.T)
     d_end = {nm: float((getattr(g_d, nm) - getattr(fd_1, nm)).abs().max())
              for nm in "uvT"}
-    print(f"{label}: {DVD_CHUNK} steps, {ms_dvd_s:.4f} ms/step host wall "
+    print(f"{label}: {DVD_CHUNK_4Y} steps, {ms_dvd_s:.4f} ms/step host wall "
           f"(single-device {ms_dvd_1:.4f}), worst status {worst_d}, "
           f"Nu_avg {nu_s:.5f} (single-device {nu_1:.5f}), "
           f"predictor_star_2d[global_ny] launches {n_star}; max|4y - "
           f"single-device| after the chunk {d_end}", flush=True)
     if worst_d != 0 or not bool(g_d.is_finite()):
         fail(f"{label}: a nonzero status or non-finite fields")
-    if n_star != (DVD_CHUNK - 1) * len(mesh_y4.comm.shards):
+    if n_star != (DVD_CHUNK_4Y - 1) * len(mesh_y4.comm.shards):
         fail(f"{label}: not the buoyant 2D row predictor once a shard a "
              f"step")
     if not abs(nu_s - nu_1) <= 0.005 * abs(nu_1):
         fail(f"{label}: Nu_avg {nu_s:.5f} not within 0.5% of the "
              f"single-device {nu_1:.5f}")
-    dvd_4y = {"steps": DVD_CHUNK, "ms_per_step": ms_dvd_s,
+    dvd_4y = {"steps": DVD_CHUNK_4Y, "ms_per_step": ms_dvd_s,
               "single_ms_per_step": ms_dvd_1, "nu_avg": nu_s,
               "single_nu_avg": nu_1, "first_step_off_float64": e_y,
               "single_first_step_off_float64": e_1,
@@ -7621,6 +7663,474 @@ def main() -> int:
     del fd0, fs1, f1, fs_d, fd_1, g_d
     torch.cuda.empty_cache()
     print(f"phase 67 took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+    # ==== the consistent scheme on the z-decomposed step; DEFAULT ==========
+    # ---- phase 68: the consistent global_nz kernel modes (row B3) ---------
+    # pred_star_kernel<true, false> and poisson_input_kernel<true, false>
+    # with the block's global plane base (z_base, nz_g) on the consistent
+    # weight rows, the predictor with and without buoyancy (phase 35's
+    # buoyant consts, a seeded noisy T), on the first, a middle and the
+    # last block of 4 z-shards of a 37x23x16 stretched grid and on every
+    # block of the 512^3 tanh beta = 1.5 grid, the fields padded as the
+    # step pads them (2 planes a side for the predictor, 1 for b~, zeros
+    # past the global ends); corrector_kernel<true> on the block the step
+    # gives it (an edge shard's starts or ends at its global shell).
+    # Every block bit-equal to its plain twin, and its owned window (the
+    # predictor's owned planes and the in-domain planes +-1 that b~ reads)
+    # bit-equal to phase 35's single-device consistent kernel on the whole
+    # field; a middle block of each timed by its device time, its bound
+    # 6 block fields (7 with T) over 132x512x512 for the predictor, 5 over
+    # 130x512x512 for b~, the corrector's 7 over its 130-plane block, each
+    # with the weight rows once.
+    t_phase = time.perf_counter()
+    maxima_rel = (TOL_EXACT, True)   # phase 66 rebinds ``exact``
+    for shape in ((16, 23, 37), (N_BIG,) * 3):
+        nz_g, ny, nx = shape
+        big = nz_g == N_BIG
+        nzl = nz_g // SHARDS
+        tag = "x".join(map(str, shape[::-1])) + " stretched"
+        print(f"phase 68 consistent global_nz kernels vs plain at {tag} "
+              f"over {SHARDS} z-shards", flush=True)
+        grid = stretched_grid(shape)
+        problem = NonuniformPoissonProblem.from_grid(grid)
+        weights = pkm.consistent_weights(*coords(grid), torch.float32, dev)
+        c, cb = (pkm.stencil_consts(nz_g, ny, nx, grid.dx0, grid.dy0,
+                                    grid.dz0, grid.xmin, grid.ymin,
+                                    NSParams().mu, True, pb, torch.float32,
+                                    weights, nonuniform_face_coeffs(problem))
+                 for pb in (None, buoy_cons))
+        f = noisy(FlowField.initialize(grid, dtype=torch.float32,
+                                       device=dev), SEED + 68)
+        T = f.T + torch.randn(shape, generator=torch.Generator(
+            device=dev).manual_seed(SEED + 69), device=dev)
+        dt = torch.full((), 1e-3, device=dev)
+        scal = torch.tensor([1e-3, 0.1, 0.05], device=dev)
+        rod, s = 1.0 / dt, dt / 1.0
+        # phase 35's single-device kernels on the whole field
+        whole = {False: pkm.predictor_star(f.u, f.v, f.w, scal, c),
+                 True: pkm.predictor_star(f.u, f.v, f.w, scal, cb, T)}
+        bt_whole = pkm.poisson_input(*whole[False], f.p, rod, c)
+        corr_whole = pkm.corrector(*whole[False], f.p, s, c)[:3]
+        padded = [zpad(x, 2) for x in (f.u, f.v, f.w, T)]
+        p1 = zpad(f.p, 1)
+        for shard in (range(SHARDS) if big
+                      else (0, SHARDS // 2, SHARDS - 1)):
+            z_off = shard * nzl
+            timed = big and shard == SHARDS // 2
+            stag = f"phase 68 {tag} shard {shard}"
+            blk = [x[z_off:z_off + nzl + 4] for x in padded]
+            lo, hi = max(z_off - 1, 0), min(z_off + nzl + 1, nz_g)
+            stars = {}
+            for buoy, cc, path, name in (
+                    (False, c, "sharded-cons",
+                     "predictor_star[consistent,global_nz]"),
+                    (True, cb, "sharded-cons-buoy",
+                     "predictor_star[consistent,global_nz,buoyant]")):
+                c_pred = dataclasses.replace(cc, nz=nzl + 4)
+                Tb = blk[3] if buoy else None
+                ins = (*blk[:3], scal, *weights) + ((Tb,) if buoy else ())
+                outs = check(
+                    path, stag, timed, pkm.predictor_star, A1_CONS_SHARD,
+                    SRC,
+                    lambda: pkm.predictor_star(*blk[:3], scal, c_pred, Tb,
+                                               z_off - 2, nz_g),
+                    lambda: pkm.predictor_star_plain(*blk[:3], scal, c_pred,
+                                                     Tb, z_off - 2, nz_g),
+                    ("u*", "v*", "w*"), (bit,) * 3,
+                    work=(ins, FLOPS_PER_POINT[
+                        "predictor_star_cons_buoyant" if buoy
+                        else "predictor_star_cons"] * blk[0].numel()),
+                    name=name, device_time=True)
+                for o, want, nm in zip(outs, whole[buoy], ("u*", "v*", "w*")):
+                    compare(f"{stag} owned window vs single-device", nm,
+                            o[lo - z_off + 2:hi - z_off + 2], want[lo:hi],
+                            *bit)
+                stars[buoy] = outs
+            us, vs, ws = stars[False]
+            pb = p1[z_off:z_off + nzl + 2]
+            c_bt = dataclasses.replace(c, nz=nzl + 2)
+            bt = check(
+                "sharded-cons", stag, timed, pkm.poisson_input,
+                A5_BT_CONS_SHARD, SRC,
+                lambda: pkm.poisson_input(us[1:-1], vs[1:-1], ws[1:-1], pb,
+                                          rod, c_bt, z_off - 1, nz_g),
+                lambda: pkm.poisson_input_plain(us[1:-1], vs[1:-1],
+                                                ws[1:-1], pb, rod, c_bt,
+                                                z_off - 1, nz_g),
+                ("b~",), (bit,),
+                work=((us[1:-1], vs[1:-1], ws[1:-1], pb, *weights),
+                      FLOPS_PER_POINT["poisson_input_cons"] * pb.numel()),
+                name="poisson_input[consistent,global_nz]",
+                device_time=True)[0]
+            compare(f"{stag} owned window vs single-device", "b~",
+                    bt[1:-1], bt_whole[z_off:z_off + nzl], *bit)
+            a = 0 if shard == 0 else 1
+            e = 0 if shard == SHARDS - 1 else 1
+            sl = slice(2 - a, nzl + 2 + e)
+            usc, vsc, wsc = (x[sl] for x in (us, vs, ws))
+            pc = f.p[z_off - a:z_off + nzl + e]
+            c_corr = dataclasses.replace(c, nz=nzl + a + e)
+            corr = check(
+                "sharded-cons", stag, timed, pkm.corrector, A5_CONS, SRC,
+                lambda: pkm.corrector(usc, vsc, wsc, pc, s, c_corr),
+                lambda: pkm.corrector_plain(usc, vsc, wsc, pc, s, c_corr),
+                ("u", "v", "w", "max|u|^2", "max p", "max|p|"),
+                (bit,) * 3 + (maxima_rel,) * 3,
+                work=((usc, vsc, wsc, pc, *weights),
+                      FLOPS_PER_POINT["corrector_cons"] * pc.numel()),
+                name="corrector[consistent]", device_time=True)
+            for o, want, nm in zip(corr, corr_whole, "uvw"):
+                compare(f"{stag} owned window vs single-device", nm,
+                        o[a:a + nzl], want[z_off:z_off + nzl], *bit)
+            del blk, stars, us, vs, ws, pb, bt, usc, vsc, wsc, pc, corr
+        del f, T, whole, bt_whole, corr_whole, padded, p1
+        torch.cuda.empty_cache()
+    print(f"phase 68 took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+    # ---- phase 69: the consistent step over 4z ----------------------------
+    # bench.py:run_3d_consistent(512)'s step (phase 36) through
+    # make_sharded_step(..., "projection") over 4 z-shards: HIGHEST
+    # bit-equal to the single-device consistent kernel step after 1 step
+    # and after 6; 3 warm-up and 5 timed steps of each (CUDA events), the
+    # counters set to 0 just before the timed sharded steps and every
+    # plain twin a tripwire; HIGH (the sharded chain stores t where the
+    # single-device HIGH step rebuilds it) against the single-device HIGH
+    # step at phase 43's HIGH bars, timed the same way.  The wall cells
+    # lie past the viscous limit (in the reference too), so the step is
+    # held against the single-device step only.  Then a buoyant + energy
+    # consistent step at 64x48x32 stretched (phase 31's "mixed" thermal
+    # faces: periodic back and front cross the shards) over 4z, 3 steps,
+    # bit-equal to the single-device step; and Simulation.from_grid on a
+    # 4z mesh with a consistent stretched grid, one step against the
+    # single-device facade.
+    t_phase = time.perf_counter()
+    n = N_BIG
+    shape, cells = (n, n, n), n ** 3
+    grid_cs = stretched_grid(shape)
+    PLAIN_CONS = PLAIN_Z + [(rolling, "matmul_plain")]
+    cons_rec = {}
+
+    def cons_counts(high):
+        """The consistent sharded step's launch counts: its stencils'
+        global_nz counters, the corrector's consistent one, the Thomas
+        pair and the GEMM of the precision."""
+        counts = {
+            "predictor_star[consistent,global_nz]":
+            pkm.predictor_star.global_nz_launches,
+            "poisson_input[consistent,global_nz]":
+            pkm.poisson_input.global_nz_launches,
+            "corrector[consistent]": pkm.corrector.consistent_launches,
+            "tdma_z_fwd": tdma.tdma_z_fwd.launches,
+            "tdma_z_bwd": tdma.tdma_z_bwd.launches}
+        if high:
+            counts["plane_dot[3xtf32]"] = rolling.plane_dot.high_launches
+        else:
+            counts["plane_dot"] = rolling.plane_dot.launches
+        return counts
+
+    for prec in (None, "high"):
+        label = (f"phase 69 consistent {n}^3 over {SHARDS} z-shards "
+                 f"{'HIGH' if prec else 'HIGHEST'}")
+        step_s, place = make_sharded_step(
+            grid_cs, params_c, mesh4, "projection",
+            poisson_method=Method.FFT_DIRECT, spectral_precision=prec)
+        single = make_projection_step(grid_cs, params_c, torch.float32,
+                                      Method.FFT_DIRECT, device=dev,
+                                      spectral_precision=prec)
+        f0 = tg_field(shape)
+        fs0 = place(f0)
+        run_steps(step_s, fs0, 1e-4, 3)
+        fs1 = step_s(fs0, 1e-4, 0)[0]
+        g1 = gather_field(fs1)
+        s1 = single(f0, 1e-4, 0)[0]
+        sync()
+        tag = f"{label} first step"
+        diffs = {nm: float((getattr(g1, nm) - getattr(s1, nm)).abs().max())
+                 for nm in "uvwp"}
+        print(f"{tag}: max|sharded - single-device| {diffs}", flush=True)
+        if prec is None:
+            if any(diffs.values()):
+                fail(f"{tag}: not bit-equal to the single-device step")
+        else:
+            def held_c(name_, bar, passed=0.0):
+                ref = getattr(s1, name_)
+                scale = max(1.0, float(ref.abs().max()))
+                return compare(tag + " vs single-device HIGH", name_,
+                               getattr(g1, name_), ref,
+                               bar * scale + passed, False)[0]
+
+            dp = held_c("p", HIGH_P)
+            held_c("u", HIGH_U, 1e-4 / float(grid_cs.dx.min()) * dp)
+            held_c("v", HIGH_U, 1e-4 / float(grid_cs.dy.min()) * dp)
+            held_c("w", HIGH_U, 1e-4 / grid_cs.dz0 * dp)
+        del g1
+        sync()
+        pkm.reset_launch_counts()
+        tdma.tdma_z_fwd.launches = tdma.tdma_z_bwd.launches = 0
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        with no_plain(label, PLAIN_CONS):
+            start.record()
+            fs, res_s = run_steps(step_s, fs1, 1e-4, TIMED_STEPS,
+                                  start_iter=1)
+            end.record()
+            sync()
+        ms_s = start.elapsed_time(end) / TIMED_STEPS
+        counts = cons_counts(prec == "high")
+        print(f"{label}: launch counts over the main path {counts}",
+              flush=True)
+        if min(counts.values()) <= 0 or \
+                counts["predictor_star[consistent,global_nz]"] != \
+                SHARDS * TIMED_STEPS:
+            fail(f"{label}: a kernel of the step not launched, or not the "
+                 f"consistent predictor once a shard a step")
+        if prec == "high" and rolling.plane_dot.launches:
+            fail(f"{label}: an SGEMM launched on the HIGH path")
+        launch_counts["sharded-cons-high" if prec else "sharded-cons"] = \
+            counts
+        run_steps(single, s1, 1e-4, 3, start_iter=1)
+        sync()
+        start.record()
+        f6, res_1 = run_steps(single, s1, 1e-4, TIMED_STEPS, start_iter=1)
+        end.record()
+        sync()
+        ms_1 = start.elapsed_time(end) / TIMED_STEPS
+        g = gather_field(fs)
+        drift = {nm: float((getattr(g, nm) - getattr(f6, nm)).abs().max())
+                 for nm in "uvwp"}
+        print(f"{label}: {ms_s:.3f} ms/step, "
+              f"{cells / (ms_s * 1e-3) / 1e6:.1f} MLUPS; single-device "
+              f"kernel step {ms_1:.3f} ms/step, "
+              f"{cells / (ms_1 * 1e-3) / 1e6:.1f} MLUPS; status "
+              f"{int(res_s.status)}; max|sharded - single| after "
+              f"{1 + TIMED_STEPS} steps {drift}", flush=True)
+        if int(res_s.status) != 0 or not bool(g.is_finite()):
+            fail(f"{label}: nonzero status or non-finite fields")
+        if prec is None and any(drift.values()):
+            fail(f"{label}: not bit-equal to the single-device step after "
+                 f"{1 + TIMED_STEPS} steps")
+        if do_profile and prec is None:
+            profile_steps(torch, f"phase 5 {label}",
+                          lambda: run_steps(step_s, fs0, 1e-4,
+                                            PROFILED_STEPS),
+                          PROFILED_STEPS)
+        cons_rec["high" if prec else "highest"] = {
+            "ms": ms_s, "mlups": cells / (ms_s * 1e-3) / 1e6,
+            "single_ms": ms_1, "single_mlups": cells / (ms_1 * 1e-3) / 1e6,
+            "first_step_max_abs_diff": diffs,
+            f"max_abs_diff_after_{1 + TIMED_STEPS}": drift}
+        del f0, fs0, fs1, s1, fs, g, f6
+        torch.cuda.empty_cache()
+
+    # the buoyant + energy consistent step at 64x48x32 over 4z
+    shape_b = (32, 48, 64)
+    grid_cb = stretched_grid(shape_b)
+    params_cb = dataclasses.replace(
+        thermal_params(THERMAL_FACE_MIXES["mixed"]),
+        nonuniform_scheme="consistent", alpha=ALPHA_3D)
+    label = (f"phase 69 consistent buoyant + energy 64x48x32 over {SHARDS} "
+             f"z-shards")
+    step_s, place = make_sharded_step(grid_cb, params_cb, mesh4,
+                                      "projection")
+    single = make_projection_step(grid_cb, params_cb, torch.float32,
+                                  Method.FFT_DIRECT, device=dev)
+    f0 = tg_field_t_x(shape_b)
+    pkm.reset_launch_counts()
+    with no_plain(label, PLAIN_CONS):
+        fs, res_s = run_steps(step_s, place(f0), 1e-4, 3)
+        sync()
+    n_star = pkm.predictor_star.global_nz_launches
+    launch_counts["sharded-cons-buoy"] = {
+        "predictor_star[consistent,global_nz,buoyant]": n_star}
+    f3, res_1 = run_steps(single, f0, 1e-4, 3)
+    g = gather_field(fs)
+    sync()
+    d_b = {nm: float((getattr(g, nm) - getattr(f3, nm)).abs().max())
+           for nm in "uvwpT"}
+    print(f"{label}: status {int(res_s.status)}, max T "
+          f"{float(res_s.max_temperature)!r} (single "
+          f"{float(res_1.max_temperature)!r}), buoyant predictor launches "
+          f"{n_star}; max|sharded - single-device| after 3 steps {d_b}",
+          flush=True)
+    if int(res_s.status) != 0 or not bool(g.is_finite()) or any(
+            d_b.values()) or n_star != 3 * SHARDS:
+        fail(f"{label}: a nonzero status, a difference from the "
+             f"single-device step, or not the buoyant consistent predictor "
+             f"once a shard a step")
+    cons_rec["buoyant_energy_64x48x32_max_abs_diff"] = d_b
+    del f0, fs, f3, g
+
+    # the facade on the 4z mesh with a consistent stretched grid
+    params_f = NSParams(dt=0.001, cfl=0.2, mu=0.01, max_iter=1,
+                        nonuniform_scheme="consistent")
+    label = "phase 69 Simulation.from_grid(64x48x32 consistent) over 4z"
+    sims = {kind: Simulation.from_grid(
+        grid_cb, "projection_spectral", params_f,
+        **({"mesh": mesh4} if kind == "mesh" else {"device": dev}))
+        for kind in ("mesh", "single")}
+    f69 = tg_field(shape_b)
+    sims["mesh"].field = sims["mesh"].solver.place(f69)
+    sims["single"].field = f69
+    st69 = [int(sims[k].step()) for k in ("mesh", "single")]
+    sync()
+    g = sims["mesh"].field.gather()
+    d_f = {nm: float((getattr(g, nm) - getattr(sims["single"].field, nm))
+                     .abs().max()) for nm in "uvwp"}
+    print(f"{label}: statuses {st69}, max|mesh - single-device| {d_f}",
+          flush=True)
+    if any(st69) or any(d_f.values()) or not isinstance(
+            sims["mesh"].field, ShardedField):
+        fail(f"{label}: a facade step failed, differs from the "
+             f"single-device facade, or the field left the mesh")
+    cons_rec["facade_max_abs_diff"] = d_f
+    del sims, g, f69
+    torch.cuda.empty_cache()
+    print(f"phase 69 consistent {n}^3 over 4z: HIGHEST "
+          f"{cons_rec['highest']['ms']:.3f} ms/step (single-device "
+          f"{cons_rec['highest']['single_ms']:.3f}), HIGH "
+          f"{cons_rec['high']['ms']:.3f} (single-device "
+          f"{cons_rec['high']['single_ms']:.3f})", flush=True)
+    print(f"phase 69 took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+    # ---- phase 70: spectral_precision="default" on the decomposed steps --
+    # The one-pass TF32 GEMM on a middle shard's 130x512x512 x^ block
+    # against its plain version (TOL_GEMM), then the DEFAULT steps: the
+    # 512^3 step over 4z (uniform, and consistent on the tanh grid) and
+    # over (2, 2), the 2048^2 step over 4y, each against the single-device
+    # DEFAULT step after one step: the 4z uniform step bit for bit (the
+    # same chain on every point), the 4y step with p within TOL_TF32_4Y of
+    # max|p|, the others within TOL_TF32_STEP (the consistent sharded step
+    # runs the eigenbasis-fused chain at DEFAULT as the reference's does,
+    # the single-device one the emit-b~ route; the (2, 2) step's dense
+    # z stage meets the single-device Thomas solve), u, v, w within what
+    # p's bar passes on through the corrector; then 3 warm-up and 5 (2D:
+    # 20) timed steps, the counters set to 0 just before them and every
+    # plain twin of the path a tripwire, beside the HIGHEST steps' ms of
+    # phases 43, 69, 52 and 59.
+    t_phase = time.perf_counter()
+    def_rec = {}
+    f, (fxt, fy, gxt, gy), mu, w, c = make_inputs(shape, SEED + 70)
+    nb = n // SHARDS + 2
+    xb = f.p[(SHARDS // 2) * (n // SHARDS) - 1:][:nb]
+    check("sharded-default", f"phase 70 {n}x{n}x{nb} x^ block", True,
+          rolling.plane_dot, HP_DOT, SRC_GEMM,
+          lambda: rolling.plane_dot(xb, gxt, gy, "default"),
+          lambda: rolling.plane_dot_plain(xb, gxt, gy, "default"),
+          ("inverse",), (gemm,),
+          work=((xb, gxt, gy), gemm_flops(nb * n, n, n)
+                + gemm_flops(n, n, n, nb)),
+          library=tf32_matmul(lambda: torch.einsum("ij,kjl,lm->kim", gy,
+                                                   xb, gxt)),
+          name="plane_dot[tf32]", rate=TF32_TC_FLOPS)
+    del f, fxt, fy, gxt, gy, mu, xb
+    torch.cuda.empty_cache()
+    grid_u = Grid.uniform(n, n, n, zmin=0.0, zmax=1.0)
+    params_u = NSParams(source_amplitude_u=0.0, source_amplitude_v=0.0,
+                        mu=0.01)
+    grid_2 = Grid.uniform(N_2D, N_2D)
+    gemms_d = (rolling.plane_dot, rolling.right_dot, rolling.left_dot)
+
+    def default_counts(key):
+        """The DEFAULT step's launch counts over its main path: its
+        stencils' block-mode counters, the Thomas pair of the z-only
+        steps and the one-pass TF32 GEMMs it runs."""
+        if key == "4y":
+            counts = {f"{w_.__name__}[global_ny]": w_.global_ny_launches
+                      for w_ in (pk2m.predictor_star_2d,
+                                 pk2m.poisson_input_2d,
+                                 pk2m.corrector_2d_rows)}
+        elif key == "2x2":
+            counts = sharded_counts((pkm.predictor_star, pkm.poisson_input,
+                                     pkm.corrector_rows), "global_ny")
+        else:
+            counts = (sharded_wrappers(False) if key == "4z"
+                      else cons_counts(False))
+            del counts["plane_dot"]
+        dots = (("plane_dot",) if key.startswith("4z")
+                else ("right_dot", "left_dot"))
+        counts.update({f"{d}[tf32]": getattr(rolling, d).default_launches
+                       for d in dots})
+        return counts
+
+    for key, grid_d, params_d, mesh_d, shape_d, dt_d, n_timed, highest, \
+            path, plains in (
+            ("4z", grid_u, params_u, mesh4, shape, 1e-4, TIMED_STEPS,
+             sharded_rec["highest"]["ms"], "sharded-default", PLAIN_Z),
+            ("4z_consistent", grid_cs, params_c, mesh4, shape, 1e-4,
+             TIMED_STEPS, cons_rec["highest"]["ms"], "sharded-cons-default",
+             PLAIN_CONS),
+            ("2x2", grid_u, params_u, mesh22, shape, 1e-4, TIMED_STEPS,
+             zy_rec["2x2_highest"]["ms"], "sharded-zy-default", PLAIN_ZY),
+            ("4y", grid_2, params_u, mesh_y4, (1, N_2D, N_2D), 1e-5,
+             TIMED_STEPS_2D, rec_2d["highest"]["ms"], "sharded-2d-default",
+             PLAIN_2D)):
+        label = f"phase 70 DEFAULT {key}"
+        step_s, place = make_sharded_step(grid_d, params_d, mesh_d,
+                                          "projection",
+                                          spectral_precision="default")
+        single = make_projection_step(grid_d, params_d, torch.float32,
+                                      Method.FFT_DIRECT, device=dev,
+                                      spectral_precision="default")
+        f0 = tg_field(shape_d)
+        fs0 = place(f0)
+        g1 = gather_field(step_s(fs0, dt_d, 0)[0])
+        s1 = single(f0, dt_d, 0)[0]
+        sync()
+        pmax = float(s1.p.abs().max())
+        tag = f"{label} first step vs single-device DEFAULT"
+        tol_p = TOL_TF32_4Y if key == "4y" else TOL_TF32_STEP
+        if key == "4z":
+            tol_p = 0.0
+        dp = compare(tag, "p", g1.p, s1.p, tol_p, True)[0]
+        u_abs = 0.0
+        for k, d in (("u", float(grid_d.dx.min())),
+                     ("v", float(grid_d.dy.min())),
+                     ("w", grid_d.dz0 if shape_d[0] > 1 else None)):
+            bar = 0.0 if key == "4z" else TOL_FIELD + (
+                dt_d / d * tol_p * pmax if d else 0.0)
+            u_abs = max(u_abs, compare(tag, k, getattr(g1, k),
+                                       getattr(s1, k), bar, False)[0])
+        del g1, s1
+        run_steps(step_s, fs0, dt_d, 3)
+        sync()
+        pkm.reset_launch_counts()
+        pk2m.reset_launch_counts()
+        rolling.reset_launch_counts()
+        tdma.tdma_z_fwd.launches = tdma.tdma_z_bwd.launches = 0
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        with no_plain(label, plains):
+            start.record()
+            fs, res_s = run_steps(step_s, fs0, dt_d, n_timed)
+            end.record()
+            sync()
+        ms_s = start.elapsed_time(end) / n_timed
+        counts = default_counts(key)
+        other = {g_.__name__: (g_.launches, g_.high_launches)
+                 for g_ in gemms_d}
+        print(f"{label}: launch counts over the main path {counts}; "
+              f"(SGEMM, 3xTF32) launches {other}", flush=True)
+        if min(counts.values()) <= 0 or max(max(v) for v in
+                                            other.values()) != 0:
+            fail(f"{label}: a kernel of the step not launched, or not the "
+                 f"one-pass TF32 products alone")
+        launch_counts[path] = counts
+        g = gather_field(fs)
+        print(f"{label}: {ms_s:.3f} ms/step (HIGHEST {highest:.3f}, "
+              f"{highest / ms_s:.2f}x); status {int(res_s.status)}; first "
+              f"step max|p - p_single|/max|p| {dp / pmax:.3e}, max|u - "
+              f"u_single| {u_abs:.3e}", flush=True)
+        if int(res_s.status) != 0 or not bool(g.is_finite()):
+            fail(f"{label}: nonzero status or non-finite fields")
+        def_rec[key] = {"ms": ms_s, "highest_ms": highest,
+                        "first_step_p_rel": dp / pmax,
+                        "first_step_u_abs": u_abs}
+        del f0, fs0, fs, g
+        torch.cuda.empty_cache()
+    print(f"phase 70 took {time.perf_counter() - t_phase:.1f} s",
           flush=True)
 
     kernels = []
@@ -7685,6 +8195,8 @@ def main() -> int:
                       "mg_step_sharded_257": mg_step_sharded,
                       "buoyant_sharded": buoy_sharded,
                       "dvd_128_4y_chunk": dvd_4y,
+                      "consistent_sharded_512": cons_rec,
+                      "default_sharded": def_rec,
                       "launch_counts": launch_counts,
                       "card": card}), flush=True)
     print(json.dumps({"ok": True, "device": {

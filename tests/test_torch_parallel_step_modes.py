@@ -15,7 +15,9 @@ shards, and its refusals.
   divisible by the shard count; the multigrid step takes coarsenable
   2^k+1 grids, so its case is a grid that is not; energy and buoyancy
   run, so their cases are a heat source, energy on a stretched grid in
-  the parity scheme and a NOSLIP thermal face, ``ERROR_INVALID``).
+  the parity scheme and a NOSLIP thermal face, ``ERROR_INVALID``; the
+  consistent scheme and ``spectral_precision="default"`` run, so their
+  cases are a consistent CG step and an unknown precision).
 """
 
 import jax
@@ -154,10 +156,14 @@ REFUSALS = {
     "multigrid": (lambda: (_uniform(), NSParams(), _zmesh(2),
                            {"poisson_method": Method.MULTIGRID}),
                   "coarsenable"),
+    # the consistent scheme runs on a z mesh, FFT_DIRECT only
+    # (tests/test_torch_parallel_consistent.py)
     "consistent": (lambda: (Grid.stretched(40, 16, 8, zmin=0.0, zmax=1.0,
                                            beta=1.5),
                             NSParams(nonuniform_scheme="consistent"),
-                            _zmesh(2), {}), "consistent"),
+                            _zmesh(2), {"poisson_method": Method.CG}),
+                   "consistent-scheme fused sharded projection supports "
+                   "the FFT_DIRECT pressure solve only (got CG)"),
     "energy": (lambda: (Grid.stretched(40, 16, 8, zmin=0.0, zmax=1.0,
                                        beta=1.5, stretch_axes="xy"),
                         NSParams(alpha=1e-3), _zmesh(2), {}),
@@ -166,9 +172,11 @@ REFUSALS = {
         alpha=1e-3, beta=3e-3, gravity=(0.0, -9.81, 0.0),
         thermal_bc=ThermalBCConfig(top=BCType.NOSLIP)), _zmesh(2), {}),
         "only PERIODIC, NEUMANN, DIRICHLET are valid", Status.ERROR_INVALID),
+    # "default" runs (tests/test_torch_parallel_precision.py); a name
+    # outside highest / high / default does not
     "default precision": (lambda: (_uniform(), NSParams(), _zmesh(2),
-                                   {"spectral_precision": "default"}),
-                          "spectral_precision='default'"),
+                                   {"spectral_precision": "bf16"}),
+                          "unknown spectral_precision='bf16'"),
     "nz not divisible": (lambda: (_uniform(nz=9), NSParams(), _zmesh(2),
                                   {}), "nz=9 must be divisible"),
     "one plane a shard": (lambda: (_uniform(nz=8), NSParams(), _zmesh(8),

@@ -72,6 +72,14 @@ SIGNATURES = {
     # ... its one-pass instantiation (spectral_precision="default")
     "cfd_sgemm_tf32_batched": [_I] * 3 + [_P, _L, _L, _P, _L, _L, _P, _L,
                                           _L] + [_I, _P],
+    # rescue_gemm.cu (the 2D y-solve's low-mode rescue: A·B [/ lam] at
+    # each precision; lam null for no divide)
+    "cfd_rescue_sgemm": [_I] * 3 + [_P, _L] * 4 + [_P],
+    "cfd_rescue_3xtf32": [_I] * 3 + [_P, _L] * 4 + [_P],
+    "cfd_rescue_tf32": [_I] * 3 + [_P, _L] * 4 + [_P],
+    # ... and the cluster size it takes (passes 0, 3 or 1; M, N, K; no
+    # stream: a query)
+    "cfd_rescue_cluster": [_I] * 4,
     # projection2d_kernels.cu (2D step)
     "cfd_pred_star_2d": [_P] * 8 + [_I] * 2 + [_F] * 9 + [_I] + [_F] * 4
     + [_I, _P],

@@ -88,7 +88,7 @@ from .projection_kernels import (StencilConsts, _keep_global_shells,
                                  check_buoyancy_input, consistent_weights,
                                  face_coeff, predictor_star_plain,
                                  stencil_consts)
-from .rolling import left_dot, right_dot, right_dot_plain
+from .rolling import rescue_dot, right_dot, right_dot_plain
 from .tdma import tdma_z_bwd, tdma_z_fwd
 
 
@@ -341,8 +341,8 @@ native.reset_counts(predictor_star_2d, poisson_input_2d, poisson_rhs_2d,
 
 # every wrapper that launches a kernel on the 2D main path, for counters
 WRAPPERS = (predictor_star_2d, poisson_input_2d, right_dot, tdma_z_fwd,
-            tdma_z_bwd, left_dot, corrector_2d)
-# ... on the HIGH path (right_dot and left_dot count their 3xTF32
+            tdma_z_bwd, rescue_dot, corrector_2d)
+# ... on the HIGH path (right_dot and rescue_dot count their 3xTF32
 # launches in ``high_launches``)
 WRAPPERS_HIGH = (predictor_star_2d, poisson_input_2d, tdma_z_fwd,
                  tdma_z_bwd, corrector_2d)

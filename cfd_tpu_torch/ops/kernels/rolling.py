@@ -7,7 +7,9 @@ not ported as an engine: each kernel that rode it is a CUDA kernel of its
 own (`projection_kernels.py`).  What survives here is :func:`plane_dot` —
 ``left · (x · right)`` on every z-plane, the DST stage pair the mega
 kernels ran in-kernel on the MXU (`plane_dot_rl` riding `hp_dot_general`)
-— and the one-sided :func:`right_dot` / :func:`left_dot`.  Every product
+— the one-sided :func:`right_dot` / :func:`left_dot`, and the 2D
+y-solve's rescue :func:`rescue_dot` (its own kernel,
+``csrc/rescue_gemm.cu``, with the eigenvalue divide fused).  Every product
 takes a ``precision``, the counterpart of `hp_dot_general`'s
 (`rolling.py:42-70`):
 
@@ -181,12 +183,11 @@ def plane_dot(x: torch.Tensor, right: torch.Tensor, left: torch.Tensor,
 # ---- one-sided products ------------------------------------------------------
 #
 # The 2D step's x-DST pair is one product per field, ``x · right`` on every
-# row (the reference's in-kernel `block_dot`, `projection2d.py:97-106`), and
-# its dense low-mode rescue multiplies a thin column slice from the left
-# (`spectral.py:299-303`, jnp matmuls at the step's precision in the
-# reference); the eigen pipeline's z-product is ``left · x`` on the
-# (nz, ny·nx) view.  Each wrapper is one GEMM launch; `left_dot` reads and
-# writes column slices in place through the GEMM's leading dimensions.
+# row (the reference's in-kernel `block_dot`, `projection2d.py:97-106`);
+# the eigen pipeline's y and z products and the decomposed steps' slab
+# products are ``left · x`` (the z one on the (nz, ny·nx) view).  Each
+# wrapper is one GEMM launch; `left_dot` reads and writes column slices in
+# place through the GEMM's leading dimensions.
 
 def right_dot_plain(x: torch.Tensor, right: torch.Tensor,
                     precision: str = "highest") -> torch.Tensor:
@@ -254,7 +255,68 @@ def left_dot(left: torch.Tensor, x: torch.Tensor, out=None,
     return out
 
 
-WRAPPERS = (plane_dot, right_dot, left_dot)
+# ---- the 2D y-solve's low-mode rescue ------------------------------------
+#
+# The two products of the dense rescue (`spectral.py:299-303`): s = Fyp ·
+# a[:, :K] / λ, then x̂[:, :K] = Gyp · s in place.  Thin shapes (K ≤ 128
+# columns, ~n rows, depth n), for which `left_dot`'s 128×128 tiles fill
+# 16 of 132 SMs at 2048²: their own kernel (``csrc/rescue_gemm.cu``)
+# splits the depth across a thread-block cluster and divides by λ in its
+# epilogue, one launch a product at each precision.
+
+_RESCUE = {"highest": "cfd_rescue_sgemm", "high": "cfd_rescue_3xtf32",
+           "default": "cfd_rescue_tf32"}
+
+
+def rescue_dot_plain(left: torch.Tensor, x: torch.Tensor, lam=None,
+                     out=None, precision: str = "highest"):
+    """Plain version: ``matmul_plain(left, x) / lam`` (no divide without
+    ``lam``), copied into ``out`` when given."""
+    res = matmul_plain(left, x, precision)
+    if lam is not None:
+        res = res / lam
+    return res if out is None else out.copy_(res)
+
+
+def rescue_dot(left: torch.Tensor, x: torch.Tensor, lam=None, out=None,
+               precision: str = "highest") -> torch.Tensor:
+    """``(left · x) / lam`` for a contiguous (m, k) ``left``, a (k, n)
+    ``x`` and an (m, n) ``lam`` whose rows are contiguous (column slices
+    will do); no divide without ``lam``.  Written into ``out`` (an (m, n)
+    row view, in place, not overlapping the inputs) when given.  One
+    launch of the rescue GEMM (``cfd_rescue_*``), its K split across a
+    cluster, the divide IEEE ``/`` in its epilogue; counted in
+    ``launches`` / ``high_launches`` / ``default_launches``.  The shapes
+    are checked on every device, the dtype, device and layout on CUDA."""
+    _check_precision(precision)
+    if left.dim() != 2 or x.dim() != 2 or x.shape[0] != left.shape[1] \
+            or (lam is not None and lam.shape != (left.shape[0],
+                                                  x.shape[1])) \
+            or (out is not None and out.shape != (left.shape[0],
+                                                  x.shape[1])):
+        raise ValueError(
+            f"rescue_dot: {tuple(left.shape)} · {tuple(x.shape)} / "
+            f"{None if lam is None else tuple(lam.shape)} -> "
+            f"{None if out is None else tuple(out.shape)}")
+    if native.on_cpu(x):
+        return rescue_dot_plain(left, x, lam, out, precision)
+    (m, k), n = left.shape, x.shape[1]
+    if out is None:
+        out = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    native.check_cuda(left, x, out, *(() if lam is None else (lam,)),
+                      rows=True)
+    if not left.is_contiguous():
+        raise ValueError("rescue_dot: left must be contiguous")
+    native.launch(_RESCUE[precision], x.device, m, n, k, native.ptr(left),
+                  k, native.ptr(x), x.stride(0), native.ptr(out),
+                  out.stride(0), 0 if lam is None else native.ptr(lam),
+                  0 if lam is None else lam.stride(0))
+    name = _COUNTER[precision]
+    setattr(rescue_dot, name, getattr(rescue_dot, name) + 1)
+    return out
+
+
+WRAPPERS = (plane_dot, right_dot, left_dot, rescue_dot)
 
 
 def reset_launch_counts() -> None:

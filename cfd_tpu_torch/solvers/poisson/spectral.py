@@ -422,15 +422,16 @@ def make_dst2d_fused_pieces(problem: PoissonProblem, dtype=None, device=None,
     (:func:`_tdma2d_rescue_width`) re-solved densely through the y-DST
     pair, s = Fyp·a[:, :K], s /= (λy ⊗ 1 + 1 ⊗ λx[:K]), x[:, :K] = Gyp·s,
     its two products at ``precision`` ("highest", "high" or "default";
-    the reference's jnp matmuls at the step's precision).  Without the
+    the reference's jnp matmuls at the step's precision) through
+    `rolling.rescue_dot`, the divide fused into the first.  Without the
     rescue, f32 Thomas loses about 3 digits on the smooth modes.  When
     K == mx every column is rescued and the Thomas launch is skipped (it
     would do no useful work).
 
     ``plain=True`` runs the plain versions on a CUDA device too (the
     reference switch of `ops.kernels.projection2d.Projection2DKernels`).
-    ``ysolve.line`` = (μ, w) and ``ysolve.rescue`` = (Fyp, Gyp, K) are
-    what its stages are called with.
+    ``ysolve.line`` = (μ, w), ``ysolve.rescue`` = (Fyp, Gyp, K) and
+    ``ysolve.lam`` (λ, (my, K)) are what its stages are called with.
     """
     if not dst2d_fused_supported(problem):
         raise CFDError(Status.ERROR_UNSUPPORTED,
@@ -461,19 +462,20 @@ def make_dst2d_fused_pieces(problem: PoissonProblem, dtype=None, device=None,
     lam = dev(ly)[:, None] + dev(lx[:K])[None, :]
     thomas = K < mx
     if plain:
-        line, dot = tdma.tdma_y_2d_reference, rolling.left_dot_plain
+        line, dot = tdma.tdma_y_2d_reference, rolling.rescue_dot_plain
     else:
-        line, dot = tdma.tdma_y_2d, rolling.left_dot
+        line, dot = tdma.tdma_y_2d, rolling.rescue_dot
 
     def ysolve(bt_x):
         a = bt_x[0]                                        # (ny, nx)
         x = line(a, mu, w) if thomas else torch.zeros_like(a)
-        s = dot(Fyp, a[:, :K], precision=precision) / lam  # (my, K)
+        s = dot(Fyp, a[:, :K], lam, precision=precision)   # (my, K)
         dot(Gyp, s, out=x[:, :K], precision=precision)     # (ny, K)
         return x[None]
 
     # what the stages are called with, for checks of each stage alone
     ysolve.line, ysolve.rescue = (mu, w), (Fyp, Gyp, K)
+    ysolve.lam = lam
     return FxT, GxT, ysolve
 
 

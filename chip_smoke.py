@@ -8,8 +8,13 @@ Run from the repository root on a machine with a CUDA card:
 It builds the hand-written CUDA kernels of ``cfd_tpu_torch`` from the
 sources in the checkout and holds every kernel against its plain PyTorch
 version on the card: the 3D kernels at the entry grid 128×64×16 and at
-512³, the 2D kernels at 128×32 and 2048².  Then it drives both main
-paths on the kernel path and the plain path:
+512³, the 2D kernels at 128×32 and 2048², and the 2D y-solve's rescue
+GEMM (``rolling.rescue_dot``) also at the Ghia cavity's 128² (both
+products, two launches bit-identical, the fused divide bit-equal to the
+divide after the product, device-timed beside ``torch.matmul`` and the
+earlier ``left_dot`` + divide path; so again at HIGH in phase 27 and at
+DEFAULT in phase 38).  Then it drives both main paths on the kernel
+path and the plain path:
 
 * 3D: ``cfd_tpu_torch.entry.entry(device="cuda")`` for 3 steps, and the
   512³ Taylor-Green projection step (``bench.py:run_3d``'s configuration)
@@ -97,9 +102,10 @@ Then BiCGSTAB, Red-Black SOR and Jacobi:
 * phase 27: ``spectral_precision="high"``'s kernels against their plain
   versions: the 3xTF32 GEMM (``plane_dot`` at "high") at 37×23×11 and
   512³, timed against its TF32 tensor-core bound and cuBLAS fp32, the
-  no-t forward sweep and the analytic back substitution at 512³, and the
-  2D step's 3xTF32 x-DST and rescue products at 2048²; the 3xTF32 GEMM
-  and the SGEMM against a float64 product at depths 512 and 2048;
+  no-t forward sweep and the analytic back substitution at 512³, the
+  2D step's 3xTF32 x-DST at 2048² and its rescue GEMM at 2048² and 128²;
+  the 3xTF32 GEMM and the SGEMM against a float64 product at depths 512
+  and 2048;
 * phase 28: the 512³ step at HIGH (5 warm-up and 5 timed steps) and the
   2048² step at HIGH (20 and 20), each on both paths and held against
   its HIGHEST step after the first step at the reference's HIGH bars
@@ -168,10 +174,11 @@ Then ``spectral_precision="default"`` and the differentiable steps:
 * phase 38: the one-pass TF32 GEMM against its plain version at the 512³
   plane shapes and the 2048² x-DST (``TOL_GEMM``), timed against its bound
   and ``torch.matmul`` with TF32 on, and its error against float64 beside
-  the 3xTF32 GEMM's and the SGEMM's; the 512³ and 2048² DEFAULT steps
-  (the emit-b̃ route) on both paths, held after one step, with launch
-  counts that show the route (4 TF32 launches a step, no SGEMM, no
-  3xTF32), and one step of each against HIGHEST;
+  the 3xTF32 GEMM's and the SGEMM's; the one-pass rescue GEMM at 2048²
+  and 128²; the 512³ and 2048² DEFAULT steps (the emit-b̃ route) on both
+  paths, held after one step, with launch counts that show the route (4
+  TF32 launches a 3D step, 2 x-DST and 2 rescue launches a 2D step, no
+  SGEMM, no 3xTF32), and one step of each against HIGHEST;
 * phase 39: ``bench.py:run_hybrid_adjoint(128, 10)`` — a 128³ Euler
   rollout with ``remat="step"`` through the hybrid (kernel forward,
   autograd adjoint) and the plain differentiable step: forward and
@@ -423,6 +430,8 @@ C2 = "cfd_tpu/ops/pallas/projection2d.py:252"         # corr_compute
 DOT2 = "cfd_tpu/ops/pallas/projection2d.py:97"        # block_dot
 TDMA2 = "cfd_tpu/ops/pallas/tdma.py:434"              # make_tdma_y_2d
 RESCUE = "cfd_tpu/solvers/poisson/spectral.py:299"    # rescue matmuls
+SRC_RESCUE = "cfd_tpu_torch/csrc/rescue_gemm.cu"
+N_GHIA = 128           # the Ghia cavity's grid: the rescue covers every mode
 EIGEN_Z = "cfd_tpu/solvers/poisson/spectral.py:836"   # eigen z-product
 SRC_E = "cfd_tpu_torch/csrc/euler_kernels.cu"
 SRC_RK = "cfd_tpu_torch/csrc/rk_kernels.cu"
@@ -1095,6 +1104,137 @@ def main() -> int:
                               grid.xmin, grid.ymin, NSParams().mu, True)
         return f, mats, mu, w, c
 
+    # the rescue GEMM (rolling.rescue_dot): its two products at each
+    # precision, (shape, precision) -> the device ms of each, the
+    # library's, the earlier path's (left_dot, then the divide) and the
+    # bounds
+    rescue_rec = {}
+
+    def rescue_checks(path, tag, ysolve, a, prec, name, rate, library,
+                      record, timed=True):
+        """``ysolve``'s two rescue products through `rolling.rescue_dot`
+        at ``prec`` against the plain version (TOL_GEMM): s = Fyp·a[:, :K]
+        / λ, then Gyp·s into x̂'s first K columns in place (the other
+        columns held exactly); each kernel launch twice, bit-identical
+        (the fixed rank order of the cluster's sum), and the fused divide
+        bit-equal to the kernel's product divided after it.  With
+        ``timed``, the device time (`device_ms`: the wrapper's host calls
+        outlast a 128² launch and come near a 2048² one) of both products,
+        of the library call of each (``library`` wraps ``torch.matmul``;
+        it leaves the divide out) and of the earlier path (`left_dot`,
+        then the divide) into ``rescue_rec``; with ``record`` the first
+        product's numbers are record ``name`` of ``path``."""
+        fyp, gyp, k = ysolve.rescue
+        lam, ak = ysolve.lam, a[:, :k]
+        passes = 3 if prec == "high" else 1
+        flops1 = passes * gemm_flops(fyp.shape[0], k, fyp.shape[1])
+        flops2 = passes * gemm_flops(gyp.shape[0], k, gyp.shape[1])
+
+        def kern1():
+            return rolling.rescue_dot(fyp, ak, lam, precision=prec)
+
+        def plain1():
+            return rolling.rescue_dot_plain(fyp, ak, lam, precision=prec)
+
+        sp = check(path, tag, False, rolling.rescue_dot, RESCUE,
+                   SRC_RESCUE, kern1, plain1, ("Fy·a[:, :K]/λ",), (gemm,),
+                   name=name)[0]
+        x0 = torch.randn(a.shape, generator=torch.Generator(
+            device=dev).manual_seed(SEED), device=dev)
+        outk, outp = x0.clone(), x0.clone()
+
+        def kern2():
+            return rolling.rescue_dot(gyp, sp, out=outk[:, :k],
+                                      precision=prec)
+
+        check(path, tag, False, rolling.rescue_dot, RESCUE, SRC_RESCUE,
+              kern2,
+              lambda: rolling.rescue_dot_plain(gyp, sp, out=outp[:, :k],
+                                               precision=prec),
+              ("Gy·s",), (gemm,), name=name)
+        compare(tag, f"{name}.untouched columns", outk[:, k:], x0[:, k:],
+                0.0, False)
+        s1, s2 = kern1(), kern1()
+        s_nolam = rolling.rescue_dot(fyp, ak, precision=prec)
+        o2 = x0.clone()
+        rolling.rescue_dot(gyp, sp, out=o2[:, :k], precision=prec)
+        sync()
+        same = torch.equal(s1, s2) and torch.equal(outk, o2)
+        fused = torch.equal(s_nolam / lam, s1)
+        print(f"  {tag} {name}: two launches bit-identical {same}; fused "
+              f"divide == product / λ bit for bit {fused}", flush=True)
+        if not (same and fused):
+            fail(f"{tag} {name}: launches differ, or the fused divide is "
+                 f"not the divide after the product")
+        if prec == "default":
+            # one TF32 pass keeps the sequential k order: bit-equal to the
+            # one-pass GEMM through left_dot (the 4y step's slab solve)
+            o3 = x0.clone()
+            rolling.left_dot(gyp, sp, out=o3[:, :k], precision=prec)
+            seq = torch.equal(rolling.left_dot(fyp, ak, precision=prec)
+                              / lam, s1) and torch.equal(o3, outk)
+            print(f"  {tag} {name}: bit-equal to left_dot's one-pass "
+                  f"GEMM (then the divide) {seq}", flush=True)
+            if not seq:
+                fail(f"{tag} {name}: the one-pass products left the "
+                     f"sequential k order")
+            del o3
+        if timed:
+            kind = {"highest": 0, "high": 3, "default": 1}[prec]
+            t = {"K": k, "M": fyp.shape[0],
+                 "cluster": native.library().cfd_rescue_cluster(
+                     kind, fyp.shape[0], k, fyp.shape[1]),
+                 "cluster_gy": native.library().cfd_rescue_cluster(
+                     kind, gyp.shape[0], k, gyp.shape[1]),
+                 "ms": device_ms(kern1, reps=20),
+                 "ms_gy": device_ms(kern2, reps=20),
+                 "library_ms": device_ms(library(
+                     lambda: torch.matmul(fyp, ak)), reps=20),
+                 "library_ms_gy": device_ms(library(
+                     lambda: torch.matmul(gyp, sp)), reps=20),
+                 "earlier_ms": device_ms(lambda: rolling.left_dot(
+                     fyp, ak, precision=prec) / lam, reps=20),
+                 "earlier_ms_gy": device_ms(lambda: rolling.left_dot(
+                     gyp, sp, out=outk[:, :k], precision=prec), reps=20)}
+            t["bound_ms"], t["bound_by"] = bound(
+                nbytes((fyp, ak, lam, sp)), flops1, rate)
+            t["bound_ms_gy"] = bound(nbytes((gyp, sp, sp)), flops2,
+                                     rate)[0]
+            rescue_rec[f"{a.shape[1]}x{a.shape[0]} {prec}"] = t
+            print(f"  {tag} {name}: clusters of {t['cluster']} and "
+                  f"{t['cluster_gy']} CTAs; device ms Fy·a/λ {t['ms']:.4f} "
+                  f"(library {t['library_ms']:.4f}, "
+                  f"{t['ms'] / t['library_ms']:.2f}x; earlier left_dot + "
+                  f"divide {t['earlier_ms']:.4f}; bound "
+                  f"{t['bound_ms']:.4f}), Gy·s {t['ms_gy']:.4f} (library "
+                  f"{t['library_ms_gy']:.4f}, "
+                  f"{t['ms_gy'] / t['library_ms_gy']:.2f}x; earlier "
+                  f"{t['earlier_ms_gy']:.4f}; bound "
+                  f"{t['bound_ms_gy']:.4f})", flush=True)
+            if record:
+                records[(path, name)].update(
+                    ms=t["ms"], plain_ms=device_ms(plain1, reps=20),
+                    library_ms=t["library_ms"], bound_ms=t["bound_ms"],
+                    bound_by=t["bound_by"])
+        del sp, x0, outk, outp, s1, s2, s_nolam, o2
+
+    def rescue_ghia(path, prec, name, rate, library):
+        """:func:`rescue_checks` at the Ghia cavity's 128² (K == mx, every
+        mode rescued, no Thomas launch), its errors into ``path``'s
+        record."""
+        grid_g = Grid.uniform(N_GHIA, N_GHIA)
+        prob_g = PoissonProblem(N_GHIA, N_GHIA, 1, grid_g.dx0, grid_g.dy0)
+        fxt_g, _, ysolve_g = make_dst2d_fused_pieces(
+            prob_g, torch.float32, dev, precision=prec)
+        if ysolve_g.rescue[2] != N_GHIA - 2:
+            fail(f"the {N_GHIA}^2 rescue is {ysolve_g.rescue[2]} wide, "
+                 f"not mx")
+        bt_g = noisy(FlowField.initialize(grid_g, dtype=torch.float32,
+                                          device=dev), SEED).p
+        a_g = rolling.right_dot_plain(bt_g, fxt_g, prec)[0]
+        rescue_checks(path, f"{N_GHIA}x{N_GHIA}", ysolve_g, a_g, prec,
+                      name, rate, library, False)
+
     # ---- phase 3: each kernel against its plain version ----------------------
     for shape in ((16, 64, 128), (N_BIG, N_BIG, N_BIG)):
         big = shape[0] == N_BIG
@@ -1203,7 +1343,7 @@ def main() -> int:
                                                    dev)
         ysolve_plain = make_dst2d_fused_pieces(problem, torch.float32, dev,
                                                plain=True)[2]
-        (mu, w), (fyp, gyp, k_res) = ysolve.line, ysolve.rescue
+        mu, w = ysolve.line
         c = pkm.StencilConsts(1, ny, nx, grid.dx0, grid.dy0, 0.0,
                               grid.xmin, grid.ymin, NSParams().mu, True)
         dt = torch.full((), 1e-3, device=dev)
@@ -1249,26 +1389,8 @@ def main() -> int:
             ("x^",), (exact,),
             work=((d, t), FLOPS_PER_POINT["tdma_bwd"] * d.numel()))[0][
                 :, 0, :]
-        srhs = check(
-            "2d", tag, big, rolling.left_dot, RESCUE, SRC,
-            lambda: rolling.left_dot(fyp, a[:, :k_res]),
-            lambda: rolling.left_dot_plain(fyp, a[:, :k_res]),
-            ("Fy·a[:, :K]",), (gemm,),
-            work=((fyp, a[:, :k_res]),
-                  gemm_flops(fyp.shape[0], k_res, fyp.shape[1])),
-            library=ieee_matmul(lambda: torch.matmul(fyp, a[:, :k_res])))[0]
-        # the second rescue product writes x^'s first K columns in place
-        outk, outp = xline.clone(), xline.clone()
-        check("2d", tag, big, rolling.left_dot, RESCUE, SRC,
-              lambda: rolling.left_dot(gyp, srhs, out=outk[:, :k_res]),
-              lambda: rolling.left_dot_plain(gyp, srhs,
-                                             out=outp[:, :k_res]),
-              ("Gy·s",), (gemm,),
-              work=((gyp, srhs),
-                    gemm_flops(gyp.shape[0], k_res, gyp.shape[1])),
-              library=ieee_matmul(lambda: torch.matmul(gyp, srhs)))
-        compare(tag, "left_dot.untouched columns", outk[:, k_res:],
-                outp[:, k_res:], *exact)
+        rescue_checks("2d", tag, ysolve, a, "highest", "rescue_dot",
+                      FP32_FLOPS, ieee_matmul, big, timed=big)
         xk = ysolve(bhat)
         xp = ysolve_plain(bhat)
         sync()
@@ -1305,10 +1427,11 @@ def main() -> int:
         for o, gk, rk, tl in zip(("u", "v", "p"), ck, cp, (fld,) * 2
                                  + (gemm,)):
             compare(tag, f"corr.{o}", gk, rk, *tl)
-        del f, us, vs, ws, bt, bhat, a, d, t, xline, srhs, outk, outp, xk
+        del f, us, vs, ws, bt, bhat, a, d, t, xline, xk
         del xp, p
         del pk, pp, ck, cp
         torch.cuda.empty_cache()
+    rescue_ghia("2d", "highest", "rescue_dot", FP32_FLOPS, ieee_matmul)
 
     # ---- phase 4: the 3D main path -----------------------------------------
     pkm.reset_launch_counts()
@@ -3086,8 +3209,9 @@ def main() -> int:
     # ---- phase 27: the HIGH kernels against their plain versions -------
     # the 3xTF32 GEMM (plane_dot at "high") at 37×23×11 and 512³, the
     # no-t forward sweep and the analytic back substitution at 512³, and
-    # the 2D step's 3xTF32 products (x-DST, rescue) at 2048²; the 3xTF32
-    # GEMM and the SGEMM against a float64 product at depths 512 and 2048
+    # the 2D step's 3xTF32 products (x-DST at 2048², the rescue GEMM at
+    # 2048² and 128²); the 3xTF32 GEMM and the SGEMM against a float64
+    # product at depths 512 and 2048
     gemm_truth = {}
 
     def vs_float64(tag, a, b):
@@ -3157,7 +3281,6 @@ def main() -> int:
     prob2 = PoissonProblem(N_2D, N_2D, 1, grid2.dx0, grid2.dy0)
     fxt, _, ysolve = make_dst2d_fused_pieces(prob2, torch.float32, dev,
                                              precision="high")
-    fyp, _, k_res = ysolve.rescue
     bt = noisy(FlowField.initialize(grid2, dtype=torch.float32,
                                     device=dev), SEED).p
     a = check("2d-high", tag, True, rolling.right_dot, HP_DOT, SRC_GEMM,
@@ -3168,17 +3291,12 @@ def main() -> int:
               library=ieee_matmul(lambda: torch.matmul(bt, fxt)),
               name="right_dot[3xtf32]", rate=TF32_TC_FLOPS)[0][0]
     vs_float64(f"phase 27 bt·FxT at {tag} (depth {N_2D})", bt, fxt)
-    check("2d-high", tag, True, rolling.left_dot, RESCUE, SRC_GEMM,
-          lambda: rolling.left_dot(fyp, a[:, :k_res], precision="high"),
-          lambda: rolling.left_dot_plain(fyp, a[:, :k_res],
-                                         precision="high"),
-          ("Fy·a[:, :K]",), (gemm,),
-          work=((fyp, a[:, :k_res]),
-                3 * gemm_flops(fyp.shape[0], k_res, fyp.shape[1])),
-          library=ieee_matmul(lambda: torch.matmul(fyp, a[:, :k_res])),
-          name="left_dot[3xtf32]", rate=TF32_TC_FLOPS)
-    del bt, a, fxt, fyp, ysolve
+    rescue_checks("2d-high", tag, ysolve, a, "high", "rescue_dot[3xtf32]",
+                  TF32_TC_FLOPS, ieee_matmul, True)
+    del bt, a, fxt, ysolve
     torch.cuda.empty_cache()
+    rescue_ghia("2d-high", "high", "rescue_dot[3xtf32]", TF32_TC_FLOPS,
+                ieee_matmul)
 
     # ---- phase 28: the HIGH steps and the nz = 3 step ---------------------
     def high_counts(label, wrappers, gemms):
@@ -3253,7 +3371,7 @@ def main() -> int:
                           first_step_only=True, precision="high")
     launch_counts["2d-high"] = high_counts(
         f"phase 28 {n2}^2 HIGH", pk2m.WRAPPERS_HIGH,
-        (rolling.right_dot, rolling.left_dot))
+        (rolling.right_dot, rolling.rescue_dot))
     dp2 = high_vs_highest(f"phase 28 {n2}^2", grid_2d, params, (1, n2, n2),
                           1e-5, HIGH_U_2D)
     print(f"phase 28 {n2}^2 HIGH {ms2h['kernel']:.3f} ms/step against "
@@ -3328,12 +3446,14 @@ def main() -> int:
     print(f"phase 29 Ghia at HIGH: rms_u {rms_high[0]:.5f} rms_v "
           f"{rms_high[1]:.5f} against HIGHEST {rms_highest[0]:.5f} / "
           f"{rms_highest[1]:.5f} (phase 7); 3xTF32 launches right_dot "
-          f"{rolling.right_dot.high_launches}, left_dot "
-          f"{rolling.left_dot.high_launches}; SGEMM launches "
-          f"{rolling.right_dot.launches + rolling.left_dot.launches}",
+          f"{rolling.right_dot.high_launches}, rescue_dot "
+          f"{rolling.rescue_dot.high_launches}; SGEMM launches "
+          f"{rolling.right_dot.launches + rolling.rescue_dot.launches}",
           flush=True)
-    if rolling.right_dot.high_launches <= 0 or rolling.right_dot.launches:
-        fail("phase 29: the HIGH cavity did not run the 3xTF32 GEMM")
+    if rolling.right_dot.high_launches <= 0 \
+            or rolling.rescue_dot.high_launches <= 0 \
+            or rolling.right_dot.launches or rolling.rescue_dot.launches:
+        fail("phase 29: the HIGH cavity did not run the 3xTF32 GEMMs")
 
     # ---- phase 30: FFT_DIRECT, SOR and Gauss-Seidel through the front end
     # FFT_DIRECT on cg_512's problem: the kernel solve (float32, the
@@ -4585,7 +4705,6 @@ def main() -> int:
     prob2 = PoissonProblem(N_2D, N_2D, 1, grid2.dx0, grid2.dy0)
     fxt, _, ysolve = make_dst2d_fused_pieces(prob2, torch.float32, dev,
                                              precision="default")
-    fyp, _, k_res = ysolve.rescue
     bt = noisy(FlowField.initialize(grid2, dtype=torch.float32,
                                     device=dev), SEED).p
     a = check("2d-default", tag, True, rolling.right_dot, HP_DOT, SRC_GEMM,
@@ -4595,34 +4714,40 @@ def main() -> int:
               work=((bt, fxt), gemm_flops(N_2D, N_2D, N_2D)),
               library=tf32_matmul(lambda: torch.matmul(bt, fxt)),
               name="gemm_tf32", rate=TF32_TC_FLOPS)[0][0]
-    got = rolling.left_dot(fyp, a[:, :k_res], precision="default")
-    ref = rolling.left_dot_plain(fyp, a[:, :k_res], precision="default")
-    sync()
-    compare(f"phase 38 {tag}", "left_dot[tf32] (rescue)", got, ref, *gemm)
+    rescue_checks("2d-default", tag, ysolve, a, "default",
+                  "rescue_dot[tf32]", TF32_TC_FLOPS, tf32_matmul, True)
     vs_float64_all(f"phase 38 bt·FxT at {tag} (depth {N_2D})", bt[0], fxt)
-    del bt, a, fxt, fyp, ysolve, got, ref
+    del bt, a, fxt, ysolve
     torch.cuda.empty_cache()
+    rescue_ghia("2d-default", "default", "rescue_dot[tf32]", TF32_TC_FLOPS,
+                tf32_matmul)
 
-    gemms = (rolling.plane_dot, rolling.right_dot, rolling.left_dot)
+    gemms = (rolling.plane_dot, rolling.right_dot, rolling.left_dot,
+             rolling.rescue_dot)
 
-    def default_counts(label, counts, per_step):
+    def default_counts(label, counts, per_step, rescues=0):
         """The DEFAULT path's counts (read by ``timed_paths`` right
-        after the timed steps): its wrappers', and the one-pass TF32
-        launches of the GEMM wrappers summed as ``gemm_tf32``, ``per_step``
-        a step (one Thomas forward sweep a step); no SGEMM and no 3xTF32
+        after the timed steps): its wrappers', the one-pass TF32 launches
+        of the DST GEMM wrappers summed as ``gemm_tf32``, ``per_step`` a
+        step (one Thomas forward sweep a step), and the rescue GEMM's as
+        ``rescue_dot[tf32]``, ``rescues`` a step; no SGEMM and no 3xTF32
         launch (the DST-fused route and the other precisions)."""
+        n_rescue = counts.pop("rescue_dot[default]", 0)
         tf32 = sum(v for k, v in counts.items() if k.endswith("[default]"))
         counts = {k: v for k, v in counts.items()
                   if not k.endswith("[default]")}
         counts["gemm_tf32"] = tf32
+        if rescues:
+            counts["rescue_dot[tf32]"] = n_rescue
         other = {g.__name__: (g.launches, g.high_launches) for g in gemms}
         print(f"{label} launch counts over the main path: {counts}; "
               f"(SGEMM, 3xTF32) launches {other}", flush=True)
         if (min(counts.values()) <= 0
                 or counts["gemm_tf32"] != per_step * counts["tdma_z_fwd"]
+                or n_rescue != rescues * counts["tdma_z_fwd"]
                 or max(max(v) for v in other.values()) != 0):
             fail(f"{label}: not the emit-b̃ route (TF32 launches "
-                 f"{per_step} a step, no SGEMM or 3xTF32)")
+                 f"{per_step} + {rescues} a step, no SGEMM or 3xTF32)")
         return counts
 
     def default_vs_highest(label, grid_h, params_h, shape, dt):
@@ -4675,14 +4800,14 @@ def main() -> int:
     wr_default_2d = (pk2m.predictor_star_2d, pk2m.poisson_input_2d,
                      tdma.tdma_z_fwd, tdma.tdma_z_bwd, pk2m.corrector_2d,
                      (rolling.right_dot, "default"),
-                     (rolling.left_dot, "default"))
+                     (rolling.rescue_dot, "default"))
     pk2m.reset_launch_counts()
     ms2d, counts = timed_paths(38, f"{n2}^2 DEFAULT", Grid.uniform(n2, n2),
                                params, (1, n2, n2), 1e-5, TIMED_STEPS_2D,
                                wr_default_2d, first_step_only=True,
                                precision="default", tol_p=TOL_TF32_STEP)
     launch_counts["2d-default"] = default_counts(f"phase 38 {n2}^2 DEFAULT",
-                                                 counts, 4)
+                                                 counts, 2, 2)
     vs_high["2d"] = default_vs_highest(f"phase 38 {n2}^2",
                                        Grid.uniform(n2, n2), params,
                                        (1, n2, n2), 1e-5)
@@ -8197,6 +8322,7 @@ def main() -> int:
                       "dvd_128_4y_chunk": dvd_4y,
                       "consistent_sharded_512": cons_rec,
                       "default_sharded": def_rec,
+                      "rescue": rescue_rec,
                       "launch_counts": launch_counts,
                       "card": card}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -29,16 +29,8 @@
 // fragments live at a time), so two CTAs share an SM.  The shared rows
 // are padded (A by 4, B by 8 floats) so the 32 lanes of a fragment load
 // hit 32 banks.  The split runs on the fragments, as they are loaded.
-// wgmma, TMA and a persistent schedule are later work.
-//
-// The one-pass instantiation (kPasses = 1) is spectral_precision=DEFAULT,
-// the reference's XLA matmuls at lax.Precision.DEFAULT outside Pallas
-// (cfd_tpu/solvers/poisson/spectral.py:705-899), which on the TPU run one
-// bf16 MXU pass; here one TF32 pass: big*big alone, about 2^-11 relative
-// a product.  Each 8-deep k-step still goes into fresh registers and one
-// IEEE add (the rule above), so the sums keep fp32 rounding at any depth.
-// Bound: the bytes at 512^3 (2*n^4 operations at the TF32 rate take
-// 0.278 ms; the planes in and out 0.32 ms at 3.35 TB/s).
+// wgmma, TMA and a persistent schedule are later work (the one-pass
+// DEFAULT GEMM has them: gemm_tf32.cu).
 //
 // Same C interface as cfd_sgemm_batched: row-major C[b] = A[b] (M x K)
 // * B[b] (K x N) with leading dimensions and batch strides (a zero batch
@@ -98,7 +90,6 @@ __device__ __forceinline__ float4 load4(const float* __restrict__ p,
   return v;
 }
 
-template <int kPasses>
 __global__ void __launch_bounds__(kThreads, 2) gemm_3xtf32_kernel(
     int M, int N, int K, const float* __restrict__ A, long long lda,
     long long sA, const float* __restrict__ B, long long ldb, long long sB,
@@ -156,13 +147,8 @@ __global__ void __launch_bounds__(kThreads, 2) gemm_3xtf32_kernel(
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int c = wn + j * 8 + g;
-        if constexpr (kPasses == 3) {
-          split(Bs[s][kk + t][c], bb[j][0], bs[j][0]);
-          split(Bs[s][kk + t + 4][c], bb[j][1], bs[j][1]);
-        } else {
-          bb[j][0] = tf32_rna(Bs[s][kk + t][c]);
-          bb[j][1] = tf32_rna(Bs[s][kk + t + 4][c]);
-        }
+        split(Bs[s][kk + t][c], bb[j][0], bs[j][0]);
+        split(Bs[s][kk + t + 4][c], bb[j][1], bs[j][1]);
       }
       // one m-tile's A fragments at a time keeps the live fragments to
       // 24 registers.  Each tile's step sums small*big, big*small, then
@@ -174,24 +160,15 @@ __global__ void __launch_bounds__(kThreads, 2) gemm_3xtf32_kernel(
       for (int i = 0; i < 4; ++i) {
         uint32_t ab[4], as[4];
         const int r = wm + i * 16 + g;
-        if constexpr (kPasses == 3) {
-          split(As[s][r][kk + t], ab[0], as[0]);
-          split(As[s][r + 8][kk + t], ab[1], as[1]);
-          split(As[s][r][kk + t + 4], ab[2], as[2]);
-          split(As[s][r + 8][kk + t + 4], ab[3], as[3]);
-        } else {
-          ab[0] = tf32_rna(As[s][r][kk + t]);
-          ab[1] = tf32_rna(As[s][r + 8][kk + t]);
-          ab[2] = tf32_rna(As[s][r][kk + t + 4]);
-          ab[3] = tf32_rna(As[s][r + 8][kk + t + 4]);
-        }
+        split(As[s][r][kk + t], ab[0], as[0]);
+        split(As[s][r + 8][kk + t], ab[1], as[1]);
+        split(As[s][r][kk + t + 4], ab[2], as[2]);
+        split(As[s][r + 8][kk + t + 4], ab[3], as[3]);
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           float part[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-          if constexpr (kPasses == 3) {
-            mma_tf32(part, as, bb[j]);
-            mma_tf32(part, ab, bs[j]);
-          }
+          mma_tf32(part, as, bb[j]);
+          mma_tf32(part, ab, bs[j]);
           mma_tf32(part, ab, bb[j]);
 #pragma unroll
           for (int q = 0; q < 4; ++q) acc[i][j][q] += part[q];
@@ -224,7 +201,6 @@ bool aligned4(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
-template <int kPasses>
 int launch_gemm(int M, int N, int K, const float* A, long long lda,
                 long long sA, const float* B, long long ldb, long long sB,
                 float* C, long long ldc, long long sC, int batch,
@@ -232,7 +208,7 @@ int launch_gemm(int M, int N, int K, const float* A, long long lda,
   const int vec = aligned4(A) && aligned4(B) && lda % 4 == 0 &&
                   ldb % 4 == 0 && sA % 4 == 0 && sB % 4 == 0;
   const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM, batch);
-  gemm_3xtf32_kernel<kPasses><<<grid, kThreads, 0, stream>>>(
+  gemm_3xtf32_kernel<<<grid, kThreads, 0, stream>>>(
       M, N, K, A, lda, sA, B, ldb, sB, C, ldc, sC, vec);
   return (int)cudaGetLastError();
 }
@@ -246,18 +222,8 @@ int cfd_sgemm_3xtf32_batched(int M, int N, int K, const float* A,
                              long long ldb, long long sB, float* C,
                              long long ldc, long long sC, int batch,
                              cudaStream_t stream) {
-  return launch_gemm<3>(M, N, K, A, lda, sA, B, ldb, sB, C, ldc, sC,
-                        batch, stream);
-}
-
-// spectral_precision=DEFAULT: the same kernel, one TF32 pass
-int cfd_sgemm_tf32_batched(int M, int N, int K, const float* A,
-                           long long lda, long long sA, const float* B,
-                           long long ldb, long long sB, float* C,
-                           long long ldc, long long sC, int batch,
-                           cudaStream_t stream) {
-  return launch_gemm<1>(M, N, K, A, lda, sA, B, ldb, sB, C, ldc, sC,
-                        batch, stream);
+  return launch_gemm(M, N, K, A, lda, sA, B, ldb, sB, C, ldc, sC, batch,
+                     stream);
 }
 
 }  // extern "C"

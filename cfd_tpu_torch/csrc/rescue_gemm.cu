@@ -11,7 +11,8 @@
 // which the port ran through the general 128x128-tile GEMMs
 // (projection_kernels.cu sgemm_kernel, gemm_3xtf32.cu gemm_3xtf32_kernel)
 // and a separate divide (PERF.md section 6, rows "2D make_tdma_y_2d" and
-// "HIGH").  One kernel, templated on the precision:
+// "HIGH").  One kernel, templated on the precision (the DEFAULT products
+// run the one-pass GEMM, gemm_tf32.cu, whose sum order is K's alone):
 //
 //   kPrec = 0  HIGHEST: IEEE fp32 fmaf on the CUDA cores, k ascending;
 //   kPrec = 3  HIGH: 3xTF32 mma.sync, each operand split into big =
@@ -20,13 +21,11 @@
 //              registers, which one IEEE add takes into the running sum
 //              (the tensor cores do not round their fp32 sums to nearest;
 //              adding every MMA straight into the running sum made the
-//              error grow with the depth of the sum);
-//   kPrec = 1  DEFAULT: big*big alone, one TF32 pass, under the same rule.
+//              error grow with the depth of the sum).
 //
 // Bound, at the rescue's 2048^2 shapes (M = 2046, N = 128, K = 2048,
 // 1.07 GFLOP a product): HIGHEST the fp32 flops at 67 TFLOP/s (0.016 ms);
-// HIGH three TF32 passes at 494.7 TFLOP/s (0.0065 ms); DEFAULT one pass
-// (0.0022 ms) against the bytes, Fyp's 16.8 MB at 3.35 TB/s (0.005 ms).
+// HIGH three TF32 passes at 494.7 TFLOP/s (0.0065 ms).
 //
 // The grid.  The rescue's products are thin: N = K_rescue = 128 columns
 // and M ~ 2046 rows, so the general kernels' 128x128 output tiles gave
@@ -37,15 +36,8 @@
 // (gridDim.z = cluster size), sized from the occupancy queries so that
 // the whole grid is resident at once with as few CTAs as may be on the
 // busiest SM (cluster_size below: 224 CTAs at HIGHEST and 320 at HIGH
-// at 2048^2; 16 and 32 at 128^2).  DEFAULT does not split K (64 CTAs at
-// 2048^2): one TF32 pass rounds s / lam, and then x^, to TF32 for the
-// next product, so a change in the fp32 order of a sum moves p by up to
-// 2^-11 of an operand where it flips a rounding; in the sequential
-// k order of gemm_3xtf32.cu its products stay bit-equal to the
-// decomposed 2D step's dense slab solve (gemm_3xtf32_kernel<1> through
-// left_dot), which chip_smoke.py holds to 1e-5 of max|p|.  Each CTA
-// leaves its partial tile in its own shared memory; after a cluster
-// barrier,
+// at 2048^2; 16 and 32 at 128^2).  Each CTA leaves its partial tile in
+// its own shared memory; after a cluster barrier,
 // cluster rank r sums rows [r*64/cs, (r+1)*64/cs) of the tile over the
 // cluster's partials through distributed shared memory (map_shared_rank)
 // in the fixed rank order 0, 1, .., cs-1, divides by lam[i, j] with IEEE
@@ -60,16 +52,16 @@
 //
 // Inside a CTA (128 threads, k-tiles of 16): HIGHEST gives each thread an
 // 8x8 register tile in two 4-wide halves (rows 32 apart, columns 64
-// apart) so a warp's float4 shared reads are contiguous; the TF32 forms
-// run 2x2 warps of 32x32 on mma.sync.m16n8k8 fragments (the fragment
+// apart) so a warp's float4 shared reads are contiguous; HIGH runs
+// 2x2 warps of 32x32 on mma.sync.m16n8k8 fragments (the fragment
 // layout of gemm_3xtf32.cu).  Both double-buffer shared memory: the next
 // k-tile is loaded into registers while the current one is multiplied,
 // then stored to the other stage, one barrier a k-tile.  Vector (float4)
 // loads only where the operand's base and leading dimension are multiples
 // of 4 floats (Gyp's 2046-float rows take element loads); ragged rows,
 // columns and k are zero-filled on load and masked on store.  wgmma / TMA
-// are later work: at N = 128 with a row-major B the tf32 wgmma needs
-// K-major operands.
+// are later work here: at N = 128 with a row-major B the tf32 wgmma needs
+// K-major operands (gemm_tf32.cu computes C^T = B^T * A^T for that).
 //
 // C interface: row-major C = A (M x K) * B (K x N), [/ lam (M x N)], with
 // leading dimensions; lam null for no divide.  C must not overlap A, B or
@@ -319,7 +311,7 @@ __global__ void __launch_bounds__(kThreads, kPrec == 0 ? 2 : 3)
           make_float4(acc[r][4], acc[r][5], acc[r][6], acc[r][7]);
     }
   } else {
-    // ---- HIGH / DEFAULT: 2x2 warps of 32x32 on mma.sync fragments ----
+    // ---- HIGH: 2x2 warps of 32x32 on mma.sync fragments ----
     // (padded rows put a fragment's 32 lanes on 32 banks: A (20 g + t),
     // B (8 t + g) mod 32 distinct)
     constexpr int kSA = kBK + 4, kSB = BN + 8;
@@ -353,38 +345,24 @@ __global__ void __launch_bounds__(kThreads, kPrec == 0 ? 2 : 3)
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           const float* bc = bs + wn + j * 8 + g;
-          if constexpr (kPrec == 3) {
-            split(bc[(kk + t) * kSB], bb[j][0], bsm[j][0]);
-            split(bc[(kk + t + 4) * kSB], bb[j][1], bsm[j][1]);
-          } else {
-            bb[j][0] = tf32_rna(bc[(kk + t) * kSB]);
-            bb[j][1] = tf32_rna(bc[(kk + t + 4) * kSB]);
-          }
+          split(bc[(kk + t) * kSB], bb[j][0], bsm[j][0]);
+          split(bc[(kk + t + 4) * kSB], bb[j][1], bsm[j][1]);
         }
 #pragma unroll
         for (int i = 0; i < 2; ++i) {
           uint32_t ab[4], asm_[4];
           const float* ar = as + (wm + i * 16 + g) * kSA + kk + t;
-          if constexpr (kPrec == 3) {
-            split(ar[0], ab[0], asm_[0]);
-            split(ar[8 * kSA], ab[1], asm_[1]);
-            split(ar[4], ab[2], asm_[2]);
-            split(ar[8 * kSA + 4], ab[3], asm_[3]);
-          } else {
-            ab[0] = tf32_rna(ar[0]);
-            ab[1] = tf32_rna(ar[8 * kSA]);
-            ab[2] = tf32_rna(ar[4]);
-            ab[3] = tf32_rna(ar[8 * kSA + 4]);
-          }
+          split(ar[0], ab[0], asm_[0]);
+          split(ar[8 * kSA], ab[1], asm_[1]);
+          split(ar[4], ab[2], asm_[2]);
+          split(ar[8 * kSA + 4], ab[3], asm_[3]);
 #pragma unroll
           for (int j = 0; j < 4; ++j) {
             // the k-step's MMAs into fresh registers, small terms first,
             // then one round-to-nearest add into the running sum
             float part[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-            if constexpr (kPrec == 3) {
-              mma_tf32(part, asm_, bb[j]);
-              mma_tf32(part, ab, bsm[j]);
-            }
+            mma_tf32(part, asm_, bb[j]);
+            mma_tf32(part, ab, bsm[j]);
             mma_tf32(part, ab, bb[j]);
 #pragma unroll
             for (int q = 0; q < 4; ++q) acc[i][j][q] += part[q];
@@ -513,11 +491,9 @@ int launch_rescue(int M, int N, int K, const float* A, long long lda,
   constexpr int BN = tile_n<kPrec>();
   const int tn = (N + BN - 1) / BN, tm = (M + kBM - 1) / kBM;
   const int steps = (K + kBK - 1) / kBK;
-  int cs = 1;  // DEFAULT keeps the sequential k order (see the top)
-  if (kPrec != 1) {
-    const int rc = cluster_size<kPrec>(tn, tm, steps, &cs);
-    if (rc != 0) return rc;
-  }
+  int cs = 1;
+  const int rc = cluster_size<kPrec>(tn, tm, steps, &cs);
+  if (rc != 0) return rc;
   const int chunk = (steps + cs - 1) / cs * kBK;
   const int vec_a = aligned4(A) && lda % 4 == 0;
   const int vec_b = aligned4(B) && ldb % 4 == 0;
@@ -551,9 +527,8 @@ int cfd_rescue_3xtf32(int M, int N, int K, const float* A, long long lda,
                           stream);
 }
 
-// the cluster size a launch of precision `passes` (0 HIGHEST, 3 HIGH,
-// 1 DEFAULT) takes for M x N x K on the current device, or a negative
-// CUDA error code
+// the cluster size a launch of precision `passes` (0 HIGHEST, 3 HIGH)
+// takes for M x N x K on the current device, or a negative CUDA error code
 int cfd_rescue_cluster(int passes, int M, int N, int K) {
   const int steps = (K + kBK - 1) / kBK, tm = (M + kBM - 1) / kBM;
   int cs = 0, rc;
@@ -564,16 +539,8 @@ int cfd_rescue_cluster(int passes, int M, int N, int K) {
     rc = cluster_size<3>((N + tile_n<3>() - 1) / tile_n<3>(), tm, steps,
                          &cs);
   else
-    return 1;
+    return -static_cast<int>(cudaErrorInvalidValue);
   return rc != 0 ? -rc : cs;
-}
-
-// spectral_precision=DEFAULT: one TF32 pass
-int cfd_rescue_tf32(int M, int N, int K, const float* A, long long lda,
-                    const float* B, long long ldb, float* C, long long ldc,
-                    const float* lam, long long ldl, cudaStream_t stream) {
-  return launch_rescue<1>(M, N, K, A, lda, B, ldb, C, ldc, lam, ldl,
-                          stream);
 }
 
 }  // extern "C"

@@ -69,15 +69,19 @@ SIGNATURES = {
     # gemm_3xtf32.cu (the DST products at spectral_precision="high")
     "cfd_sgemm_3xtf32_batched": [_I] * 3 + [_P, _L, _L, _P, _L, _L, _P, _L,
                                             _L] + [_I, _P],
-    # ... its one-pass instantiation (spectral_precision="default")
+    # gemm_tf32.cu (every product at spectral_precision="default": the
+    # batched GEMM, the 2D rescue's A·B [/ lam], lam null for no divide)
     "cfd_sgemm_tf32_batched": [_I] * 3 + [_P, _L, _L, _P, _L, _L, _P, _L,
                                           _L] + [_I, _P],
-    # rescue_gemm.cu (the 2D y-solve's low-mode rescue: A·B [/ lam] at
-    # each precision; lam null for no divide)
+    "cfd_rescue_tf32": [_I] * 3 + [_P, _L] * 4 + [_P],
+    # ... and a launch's plan (M, N, K, batch, int[4] out; no stream: a
+    # query)
+    "cfd_gemm_tf32_plan": [_I] * 4 + [_P],
+    # rescue_gemm.cu (the 2D y-solve's low-mode rescue at HIGHEST and
+    # HIGH: A·B [/ lam]; lam null for no divide)
     "cfd_rescue_sgemm": [_I] * 3 + [_P, _L] * 4 + [_P],
     "cfd_rescue_3xtf32": [_I] * 3 + [_P, _L] * 4 + [_P],
-    "cfd_rescue_tf32": [_I] * 3 + [_P, _L] * 4 + [_P],
-    # ... and the cluster size it takes (passes 0, 3 or 1; M, N, K; no
+    # ... and the cluster size it takes (passes 0 or 3; M, N, K; no
     # stream: a query)
     "cfd_rescue_cluster": [_I] * 4,
     # projection2d_kernels.cu (2D step)

@@ -8,28 +8,32 @@ own (`projection_kernels.py`).  What survives here is :func:`plane_dot` —
 ``left · (x · right)`` on every z-plane, the DST stage pair the mega
 kernels ran in-kernel on the MXU (`plane_dot_rl` riding `hp_dot_general`)
 — the one-sided :func:`right_dot` / :func:`left_dot`, and the 2D
-y-solve's rescue :func:`rescue_dot` (its own kernel,
-``csrc/rescue_gemm.cu``, with the eigenvalue divide fused).  Every product
-takes a ``precision``, the counterpart of `hp_dot_general`'s
-(`rolling.py:42-70`):
+y-solve's rescue :func:`rescue_dot` (the eigenvalue divide fused:
+``csrc/rescue_gemm.cu`` at "highest" and "high", ``csrc/gemm_tf32.cu`` at
+"default").  Every product takes a ``precision``, the counterpart of
+`hp_dot_general`'s (`rolling.py:42-70`):
 
 * ``"highest"`` — IEEE fp32 (``Precision.HIGHEST``): the hand-written
   SGEMM of ``csrc/projection_kernels.cu`` on a CUDA tensor;
 * ``"high"`` — 3xTF32 (``Precision.HIGH``, bf16_3x on the TPU): the
   hand-written tensor-core GEMM of ``csrc/gemm_3xtf32.cu``;
 * ``"default"`` — one TF32 pass (``Precision.DEFAULT``, one bf16 pass on
-  the TPU): the same kernel's one-pass instantiation.
+  the TPU): the hand-written wgmma / TMA GEMM of ``csrc/gemm_tf32.cu``,
+  which also runs the rescue's DEFAULT products.
 
 On a CPU tensor each runs its plain version.  Each wrapper counts the
 SGEMM launches in ``launches``, the 3xTF32 launches in ``high_launches``
-and the one-pass TF32 launches in ``default_launches``.
+and the one-pass TF32 launches in ``default_launches``; of those, the
+launches whose operands TMA cannot read (a base, leading dimension or
+batch stride off 16 bytes) and which load them through ``cp.async``
+instead, also in ``default_cp_async_launches``.
 
 Neither ``plane_masks`` nor the wrapped ``shift_x``/``shift_y`` semantics
 are needed: the plain versions read neighbours by interior slices
 (`ops/stencils.py`) and the CUDA kernels read them only at interior
 points.
 
-Kernel notes (both replace the in-kernel MXU dots of
+Kernel notes (each replaces the in-kernel MXU dots of
 `ProjectionKernels.pred_bt` / `corr_bwd`, `projection_kernels.py:226-250`,
 and the 2D `block_dot`, `projection2d.py:97-106`):
 
@@ -47,10 +51,13 @@ and the 2D `block_dot`, `projection2d.py:97-106`):
   fp32-class accuracy, about 2⁻²² relative, at three tensor-core
   passes.  A 128×128 CTA tile, 2×4 warps of 64×32, two shared-memory
   stages.
-* ``gemm_3xtf32_kernel<1>`` (``"default"``): big·big alone, one
-  tensor-core pass — 2·n⁴ operations, which at 512³ take less time at
-  the TF32 rate than moving the planes: bound by device memory.  Each
-  k-step's product still goes into fresh registers and one IEEE add.
+* ``gemm_tf32_kernel`` (``"default"``, ``csrc/gemm_tf32.cu``): one
+  tensor-core pass, ``wgmma`` m64n128k8 fed by TMA — 2·n⁴ operations,
+  which at 512³ take less time at the TF32 rate than moving the planes:
+  bound by device memory.  Its sum order is a function of K alone
+  (:func:`tf32_sum_order`): the tensor core sums chunks of D(K) from
+  zero, the chunks go into an fp32 running sum in ascending order, and a
+  launch may split K across a cluster without changing a bit.
 """
 
 from __future__ import annotations
@@ -67,7 +74,59 @@ _GEMM = {"highest": "cfd_sgemm_batched", "high": "cfd_sgemm_3xtf32_batched",
 # the wrappers' counter of each precision's launches
 _COUNTER = {"highest": "launches", "high": "high_launches",
             "default": "default_launches"}
+# ... and of the one-pass launches that load through cp.async
+CP_ASYNC = "default_cp_async_launches"
 PRECISIONS = tuple(_GEMM)
+
+# The one-pass TF32 GEMM's sum order (`csrc/gemm_tf32.cu`, chunk_plan):
+# k-stages of TF32_STAGE_K, chunks of at most TF32_MAX_CHUNK_STAGES stages,
+# aiming at TF32_MAX_CHUNKS chunks.
+TF32_STAGE_K = 32
+TF32_MAX_CHUNKS = 8
+TF32_MAX_CHUNK_STAGES = 8
+
+
+def tf32_sum_order(k: int):
+    """``(D, chunks)``: the order in which the one-pass TF32 GEMM sums an
+    output element's ``k`` products, a function of ``k`` alone.  The k
+    axis is cut into stages of 32 (the ragged tail zero-filled) and the
+    stages into chunks of D = 32·q, q = min(8, ⌈stages / 8⌉): D(2048) =
+    D(2046) = 256, D(512) = D(510) = 64, D(128) = D(126) = 32, at most 8
+    chunks up to K = 2048; ``chunks`` are the chunks' [k0, k1) within
+    [0, k), ascending.  The tensor core sums each chunk from zero in
+    k-steps of 8; the chunks go into an fp32 running sum in that order,
+    one IEEE add each, whichever launch computes the element (one CTA
+    walking them, or a cluster of one chunk a rank)."""
+    k = int(k)
+    if k < 0:
+        raise ValueError(f"tf32_sum_order: depth {k} < 0")
+    stages = -(-k // TF32_STAGE_K)
+    q = min(TF32_MAX_CHUNK_STAGES, max(1, -(-stages // TF32_MAX_CHUNKS)))
+    d = q * TF32_STAGE_K
+    return d, tuple((k0, min(k, k0 + d)) for k0 in range(0, k, d))
+
+
+def _tma_operands(a: int, lda: int, sa: int, b: int, ldb: int, sb: int,
+                  batch: int) -> bool:
+    """Whether the one-pass GEMM loads A and B by TMA: 16-byte bases,
+    leading dimensions and batch strides (`gemm_tf32.cu`, run_gemm)."""
+    return (a % 16 == 0 and lda % 4 == 0 and b % 16 == 0 and ldb % 4 == 0
+            and (batch == 1 or (sa % 4 == 0 and sb % 4 == 0)))
+
+
+def tf32_plan(m: int, n: int, k: int, batch: int = 1) -> dict:
+    """The one-pass GEMM's plan for an ``m``×``n``×``k`` launch over
+    ``batch`` on the current CUDA device (`cfd_gemm_tf32_plan`): D(K),
+    the cluster size (1, or one chunk a rank), the CTAs and the
+    chunks."""
+    import ctypes
+
+    out = (ctypes.c_int * 4)()
+    rc = native.library().cfd_gemm_tf32_plan(m, n, k, batch, out)
+    if rc != 0:
+        raise RuntimeError(f"cfd_gemm_tf32_plan: CUDA error {rc}")
+    return {"D": out[0], "cluster": out[1], "ctas": out[2],
+            "chunks": out[3]}
 
 
 @contextlib.contextmanager
@@ -140,11 +199,19 @@ def matmul_plain(a: torch.Tensor, b: torch.Tensor,
                 + torch.matmul(a_big, b_big))
 
 
-def _gemm(wrapper, precision, device, *args) -> None:
-    """Launch the GEMM of ``precision`` and count it on ``wrapper``."""
-    native.launch(_GEMM[precision], device, *args)
+def _count(wrapper, precision, tma=True) -> None:
     name = _COUNTER[precision]
     setattr(wrapper, name, getattr(wrapper, name) + 1)
+    if not tma:
+        setattr(wrapper, CP_ASYNC, getattr(wrapper, CP_ASYNC) + 1)
+
+
+def _gemm(wrapper, precision, device, *args) -> None:
+    """Launch the GEMM of ``precision`` and count it on ``wrapper``
+    (args: M, N, K, A, lda, sA, B, ldb, sB, C, ldc, sC, batch)."""
+    native.launch(_GEMM[precision], device, *args)
+    _count(wrapper, precision, precision != "default" or _tma_operands(
+        *args[3:9], args[12]))
 
 
 def plane_dot_plain(x: torch.Tensor, right: torch.Tensor,
@@ -215,43 +282,43 @@ def right_dot(x: torch.Tensor, right: torch.Tensor,
 
 def left_dot_plain(left: torch.Tensor, x: torch.Tensor, out=None,
                    precision: str = "highest"):
-    res = matmul_plain(left, x, precision)
+    # (a constant stored with padded rows multiplies as its packed copy)
+    res = matmul_plain(left.contiguous(), x, precision)
     return res if out is None else out.copy_(res)
 
 
 def left_dot(left: torch.Tensor, x: torch.Tensor, out=None,
              precision: str = "highest") -> torch.Tensor:
-    """``left · x`` for a contiguous (m, k) ``left`` and a (k, n) ``x``
-    whose rows are contiguous (a column slice of a wider matrix will do);
-    written into ``out`` (an (m, n) row view, in place) when given.  A
-    contiguous (b, k, n) ``x`` is a batch: ``left · x[q]`` for every q
-    into a new (b, m, n) tensor, one launch (``left`` shared, as
-    `plane_dot`'s second product)."""
+    """``left · x`` for an (m, k) ``left`` and a (k, n) ``x`` whose rows
+    are contiguous (a column slice of a wider matrix will do, and a
+    constant stored with its rows padded); written into ``out`` (an (m,
+    n) row view, in place) when given.  A contiguous (b, k, n) ``x`` is a
+    batch: ``left · x[q]`` for every q into a new (b, m, n) tensor, one
+    launch (``left`` shared, as `plane_dot`'s second product)."""
     _check_precision(precision)
     if native.on_cpu(x):
         return left_dot_plain(left, x, out, precision)
     if x.dim() == 3:
         (m, k), (b, _, n) = left.shape, x.shape
-        native.check_cuda(left, x)
+        native.check_cuda(left, x, rows=True)
         if x.shape[1] != k or out is not None:
             raise ValueError(f"left_dot: {tuple(left.shape)} · "
                              f"{tuple(x.shape)}")
         out = x.new_empty((b, m, n))
         _gemm(left_dot, precision, x.device, m, n, k,
-              native.ptr(left), k, 0, native.ptr(x), n, k * n,
+              native.ptr(left), left.stride(0), 0, native.ptr(x), n, k * n,
               native.ptr(out), n, m * n, b)
         return out
     (m, k), n = left.shape, x.shape[1]
     if out is None:
         out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     native.check_cuda(left, x, out, rows=True)
-    if x.shape[0] != k or tuple(out.shape) != (m, n) \
-            or not left.is_contiguous():
+    if x.shape[0] != k or tuple(out.shape) != (m, n):
         raise ValueError(f"left_dot: {tuple(left.shape)} · "
                          f"{tuple(x.shape)} -> {tuple(out.shape)}")
     _gemm(left_dot, precision, x.device, m, n, k,
-          native.ptr(left), k, 0, native.ptr(x), x.stride(0), 0,
-          native.ptr(out), out.stride(0), 0, 1)
+          native.ptr(left), left.stride(0), 0, native.ptr(x), x.stride(0),
+          0, native.ptr(out), out.stride(0), 0, 1)
     return out
 
 
@@ -259,10 +326,12 @@ def left_dot(left: torch.Tensor, x: torch.Tensor, out=None,
 #
 # The two products of the dense rescue (`spectral.py:299-303`): s = Fyp ·
 # a[:, :K] / λ, then x̂[:, :K] = Gyp · s in place.  Thin shapes (K ≤ 128
-# columns, ~n rows, depth n), for which `left_dot`'s 128×128 tiles fill
-# 16 of 132 SMs at 2048²: their own kernel (``csrc/rescue_gemm.cu``)
-# splits the depth across a thread-block cluster and divides by λ in its
-# epilogue, one launch a product at each precision.
+# columns, ~n rows, depth n), for which 128×128 output tiles alone fill
+# 16 of 132 SMs at 2048²: the depth is split across a thread-block
+# cluster and the divide by λ is in the epilogue, one launch a product —
+# ``csrc/rescue_gemm.cu`` at "highest" and "high", the one-pass GEMM at
+# "default", whose split leaves the sum order, and so every bit, as
+# `left_dot`'s (`tf32_sum_order`).
 
 _RESCUE = {"highest": "cfd_rescue_sgemm", "high": "cfd_rescue_3xtf32",
            "default": "cfd_rescue_tf32"}
@@ -272,7 +341,7 @@ def rescue_dot_plain(left: torch.Tensor, x: torch.Tensor, lam=None,
                      out=None, precision: str = "highest"):
     """Plain version: ``matmul_plain(left, x) / lam`` (no divide without
     ``lam``), copied into ``out`` when given."""
-    res = matmul_plain(left, x, precision)
+    res = matmul_plain(left.contiguous(), x, precision)
     if lam is not None:
         res = res / lam
     return res if out is None else out.copy_(res)
@@ -280,14 +349,17 @@ def rescue_dot_plain(left: torch.Tensor, x: torch.Tensor, lam=None,
 
 def rescue_dot(left: torch.Tensor, x: torch.Tensor, lam=None, out=None,
                precision: str = "highest") -> torch.Tensor:
-    """``(left · x) / lam`` for a contiguous (m, k) ``left``, a (k, n)
-    ``x`` and an (m, n) ``lam`` whose rows are contiguous (column slices
-    will do); no divide without ``lam``.  Written into ``out`` (an (m, n)
-    row view, in place, not overlapping the inputs) when given.  One
-    launch of the rescue GEMM (``cfd_rescue_*``), its K split across a
-    cluster, the divide IEEE ``/`` in its epilogue; counted in
-    ``launches`` / ``high_launches`` / ``default_launches``.  The shapes
-    are checked on every device, the dtype, device and layout on CUDA."""
+    """``(left · x) / lam`` for an (m, k) ``left``, a (k, n) ``x`` and an
+    (m, n) ``lam`` whose rows are contiguous (column slices will do, and a
+    constant stored with its rows padded); no divide without ``lam``.
+    Written into ``out`` (an (m, n) row view, in place, not overlapping
+    the inputs) when given.  One launch a call, the divide IEEE ``/`` in
+    its epilogue: the rescue GEMM (``csrc/rescue_gemm.cu``, its K split
+    across a cluster) at "highest" and "high", the one-pass GEMM
+    (``csrc/gemm_tf32.cu``) at "default"; counted in ``launches`` /
+    ``high_launches`` / ``default_launches`` (and
+    ``default_cp_async_launches``).  The shapes are checked on every
+    device, the dtype, device and layout on CUDA."""
     _check_precision(precision)
     if left.dim() != 2 or x.dim() != 2 or x.shape[0] != left.shape[1] \
             or (lam is not None and lam.shape != (left.shape[0],
@@ -305,14 +377,14 @@ def rescue_dot(left: torch.Tensor, x: torch.Tensor, lam=None, out=None,
         out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     native.check_cuda(left, x, out, *(() if lam is None else (lam,)),
                       rows=True)
-    if not left.is_contiguous():
-        raise ValueError("rescue_dot: left must be contiguous")
     native.launch(_RESCUE[precision], x.device, m, n, k, native.ptr(left),
-                  k, native.ptr(x), x.stride(0), native.ptr(out),
-                  out.stride(0), 0 if lam is None else native.ptr(lam),
+                  left.stride(0), native.ptr(x), x.stride(0),
+                  native.ptr(out), out.stride(0),
+                  0 if lam is None else native.ptr(lam),
                   0 if lam is None else lam.stride(0))
-    name = _COUNTER[precision]
-    setattr(rescue_dot, name, getattr(rescue_dot, name) + 1)
+    _count(rescue_dot, precision, precision != "default" or _tma_operands(
+        native.ptr(left), left.stride(0), 0, native.ptr(x), x.stride(0), 0,
+        1))
     return out
 
 
@@ -321,7 +393,7 @@ WRAPPERS = (plane_dot, right_dot, left_dot, rescue_dot)
 
 def reset_launch_counts() -> None:
     for fn in WRAPPERS:
-        for name in _COUNTER.values():
+        for name in (*_COUNTER.values(), CP_ASYNC):
             setattr(fn, name, 0)
 
 

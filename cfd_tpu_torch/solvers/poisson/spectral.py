@@ -32,8 +32,9 @@ carries its own Neumann shell.
 The DST and z products run through `ops.kernels.rolling` at the caller's
 precision, ``"highest"`` (IEEE fp32), ``"high"`` (3xTF32) or
 ``"default"`` (one TF32 pass): on a CUDA tensor the hand-written SGEMM,
-3xTF32 GEMM or its one-pass instantiation, on a CPU tensor (or with
-``plain``) the plain version.  (The reference computes the pipelines'
+3xTF32 GEMM or one-pass TF32 GEMM (``csrc/gemm_tf32.cu``, whose factors
+with rows off 16 bytes are stored padded, :func:`_tma_rows`), on a CPU
+tensor (or with ``plain``) the plain version.  (The reference computes the pipelines'
 products as jnp matmuls outside any Pallas kernel.)  The Thomas stages
 run the z-line kernels of `ops.kernels.tdma`.
 
@@ -342,7 +343,8 @@ def make_dst_fused_sharded_zy_pieces(problem: PoissonProblem, n_z: int,
     per_device = {}
     for d in devices:
         if d not in per_device:
-            per_device[d] = ({k: dev(v, d) for k, v in host.items()},
+            per_device[d] = ({k: _tma_rows(dev(v, d), precision)
+                              for k, v in host.items()},
                              (dev(mats[0], d), dev(mats[2], d)))
     lam = []
     for s, d in zip(comm.shards, devices):
@@ -377,6 +379,23 @@ def make_dst_fused_sharded_zy_pieces(problem: PoissonProblem, n_z: int,
         return a2a(a, "z", 0, 2)                           # (nzl, nyl, nx)
 
     return [per_device[d][1] for d in devices], yzsolve
+
+
+def _tma_rows(t: torch.Tensor, precision: str) -> torch.Tensor:
+    """A 2D float32 constant of the one-pass TF32 products, stored with
+    its rows padded to a multiple of 4 floats (16 bytes) and returned as a
+    view of its own shape, so that the one-pass GEMM (`csrc/gemm_tf32.cu`)
+    loads it by TMA: the (ny, my) inverse factors have rows of 2046
+    floats at 2048².  K and every value are unchanged (the plain versions
+    multiply the packed copy); other precisions and dtypes take ``t`` as
+    it is."""
+    r, c = t.shape
+    c4 = -(-c // 4) * 4
+    if precision != "default" or t.dtype != torch.float32 or c4 == c:
+        return t
+    buf = t.new_zeros((r, c4))
+    buf[:, :c] = t
+    return buf[:, :c]
 
 
 # ---- 2D: x-DST pair, y-line Thomas solve and dense low-mode rescue ----------
@@ -457,7 +476,7 @@ def make_dst2d_fused_pieces(problem: PoissonProblem, dtype=None, device=None,
 
     FxT = dev(_padded_forward(mx, nx, np_dt).T)
     GxT = dev(_padded_inverse(mx, nx, 2.0 / (mx + 1), np_dt).T)
-    Fyp, Gyp = dev(Fyp), dev(Gyp)
+    Fyp, Gyp = (_tma_rows(dev(m), precision) for m in (Fyp, Gyp))
     mu = dev(_edge_padded(lx, nx).astype(np_dt))
     lam = dev(ly)[:, None] + dev(lx[:K])[None, :]
     thomas = K < mx
@@ -555,7 +574,9 @@ def make_dst2d_fused_sharded_pieces(problem: PoissonProblem, n_shards: int,
     per_device = {}
     for d in devices:
         if d not in per_device:
-            per_device[d] = {k: dev(v, d) for k, v in host.items()}
+            per_device[d] = {k: _tma_rows(dev(v, d), precision)
+                             if k in ("fy", "gy") else dev(v, d)
+                             for k, v in host.items()}
     factors = [per_device[d] for d in devices]
     lam = []
     for s_, d in zip(comm.shards, devices):

@@ -54,8 +54,8 @@ Then the CG pressure solve, the reference's default projection solver:
   2000 ``step()``s, the whole-solve kernel once a step, the first 10
   held against the plain path (the facade's dt = 0.005 is past the
   viscous limit there, so the clamps are reached near step 40);
-* phase 16: Ghia Re = 100 at 128² with the CG pressure solve (20000
-  steps, about 45 s on an H100).
+* phase 16: Ghia Re = 100 at 128² with the CG pressure solve
+  (``GHIA_SOLVER_STEPS``, 10000 steps, t = 5; about 20 s on an H100).
 
 Then the multigrid pressure solve:
 
@@ -75,7 +75,7 @@ Then the multigrid pressure solve:
   solve, which lies above the default 1e-6; then the CG step on the
   same grid at the same tolerance, timed on the kernel path;
 * phase 21: ``bench.py:run_mg2d_vmem(129)``'s solve, Ghia Re = 100 at
-  129² with the multigrid solve (20000 steps), and 100 steps of
+  129² with the multigrid solve (``GHIA_SOLVER_STEPS``), and 100 steps of
   ``Simulation.create(65, 65, solver_type="projection_multigrid")``
   with its solver at a tolerance above the printed float32 floor, held
   against the plain path at step 10.
@@ -171,14 +171,24 @@ equation:
 
 Then ``spectral_precision="default"`` and the differentiable steps:
 
-* phase 38: the one-pass TF32 GEMM against its plain version at the 512³
-  plane shapes and the 2048² x-DST (``TOL_GEMM``), timed against its bound
-  and ``torch.matmul`` with TF32 on, and its error against float64 beside
-  the 3xTF32 GEMM's and the SGEMM's; the one-pass rescue GEMM at 2048²
-  and 128²; the 512³ and 2048² DEFAULT steps (the emit-b̃ route) on both
+* phase 38: the one-pass TF32 GEMM (``csrc/gemm_tf32.cu``) against its
+  plain version at the 512³ plane shapes, the 2048² x-DST and every
+  DEFAULT depth in use (K = 2048, 2046, 512, 510, 128, 126;
+  ``TOL_GEMM``), on a 37×23×11 field's x- and batched y-products (their
+  cp.async loads, counted) and on the 512×512×3 planes' (by TMA), two
+  launches bit-identical, D(K), the cluster
+  size and the CTAs of each launch printed, timed against its bound and
+  ``torch.matmul`` with TF32 on, and its error against float64 beside the
+  3xTF32 GEMM's and the SGEMM's; its rescue products at 2048² and 128²;
+  the sum-order contract bit for bit: the rescue's s equals
+  ``left_dot(Fy, a)[:, :K] / λ`` and its Gy·s the same columns of the
+  full product, a 512-row slice's x-DST the same rows of the 2048-row
+  one, a 130-plane block's ``plane_dot`` the same planes of the 512-plane
+  one; the 512³ and 2048² DEFAULT steps (the emit-b̃ route) on both
   paths, held after one step, with launch counts that show the route (4
   TF32 launches a 3D step, 2 x-DST and 2 rescue launches a 2D step, no
-  SGEMM, no 3xTF32), and one step of each against HIGHEST;
+  SGEMM, no 3xTF32, none through the cp.async loads), and one step of
+  each against HIGHEST;
 * phase 39: ``bench.py:run_hybrid_adjoint(128, 10)`` — a 128³ Euler
   rollout with ``remat="step"`` through the hybrid (kernel forward,
   autograd adjoint) and the plain differentiable step: forward and
@@ -368,7 +378,7 @@ Then the consistent scheme on the z-decomposed spectral step and
   facade;
 * phase 70: the one-pass TF32 GEMM on a shard's x̂ block (and, in
   phases 50 and 58, on the (2, 2) and 4y shards' x-DST, z-stage and
-  y-slab shapes), then ``spectral_precision="default"`` on the 512³ step
+  y-slab shapes; two launches bit-identical at each), then ``spectral_precision="default"`` on the 512³ step
   over 4z (uniform, bit-equal to the single-device DEFAULT step, and
   consistent) and (2, 2), at ``TOL_TF32_STEP``, and on the 2048² step
   over 4y at ``TOL_TF32_4Y``, ms a step beside HIGHEST, every stencil
@@ -432,6 +442,12 @@ TDMA2 = "cfd_tpu/ops/pallas/tdma.py:434"              # make_tdma_y_2d
 RESCUE = "cfd_tpu/solvers/poisson/spectral.py:299"    # rescue matmuls
 SRC_RESCUE = "cfd_tpu_torch/csrc/rescue_gemm.cu"
 N_GHIA = 128           # the Ghia cavity's grid: the rescue covers every mode
+# The Ghia gates of the CG, multigrid and BiCGSTAB solves (phases 16, 21,
+# 26) run half of phase 7's 20000 steps (t = 5): the cavity is near
+# steady there, and the whole script has to stay well inside its time
+# limit (on an H100 the gates read RMS 0.0019-0.0020 against the 0.10 bar
+# at 20000 steps)
+GHIA_SOLVER_STEPS = 10000
 EIGEN_Z = "cfd_tpu/solvers/poisson/spectral.py:836"   # eigen z-product
 SRC_E = "cfd_tpu_torch/csrc/euler_kernels.cu"
 SRC_RK = "cfd_tpu_torch/csrc/rk_kernels.cu"
@@ -506,6 +522,10 @@ CG_STEPS = 3           # CG step: 3 warm-up and 3 timed steps a path
 FACADE_CHECK = 10
 
 SRC_GEMM = "cfd_tpu_torch/csrc/gemm_3xtf32.cu"
+SRC_GEMM_TF32 = "cfd_tpu_torch/csrc/gemm_tf32.cu"    # every DEFAULT product
+# the depths of the DEFAULT products: the 2048² x-DST and rescue, the
+# 512³ planes and the (2, 2) z stage, the 128² Ghia rescue
+TF32_DEPTHS = (2048, 2046, 512, 510, 128, 126)
 HP_DOT = "cfd_tpu/ops/pallas/rolling.py:42"           # hp_dot_general, HIGH
 A2_ANALYTIC = "cfd_tpu/ops/pallas/projection_kernels.py:404"  # analytic t
 A4_BWD = "cfd_tpu/ops/pallas/tdma.py:265"              # make_tdma_z_bwd
@@ -1016,7 +1036,7 @@ def main() -> int:
 
     def check(path, tag, timed, wrapper, replaces, source, kernel, plain,
               outs, tols, work=None, library=None, time_fn=None, name=None,
-              rate=FP32_FLOPS, device_time=False):
+              rate=FP32_FLOPS, device_time=False, repeat=False):
         """Run ``kernel`` (the wrapper) and ``plain`` on the same inputs,
         compare each output; time both when ``timed``.  ``path`` names the
         main path whose launch count the record takes (the Thomas and
@@ -1032,15 +1052,27 @@ def main() -> int:
         for the kernel (the launch as the main path makes it).
         ``name`` keys the record where the wrapper launches more than one
         kernel (the GEMMs at each precision); ``rate`` is the
-        operations' peak for the bound; ``device_time`` times kernel and
-        plain by their device time (`device_ms`) and prints the
-        CUDA-event span beside it."""
+        operations' peak for the bound; ``device_time`` times kernel,
+        plain and library by their device time (`device_ms`) and prints
+        the kernel's and plain's CUDA-event span beside it; ``repeat``
+        launches the kernel a second time and fails unless its outputs
+        are the first launch's bit for bit."""
         name = name or wrapper.__name__
         got = kernel()
         ref = plain()
         sync()
         got = got if isinstance(got, tuple) else (got,)
         ref = ref if isinstance(ref, tuple) else (ref,)
+        if repeat:
+            again = kernel()
+            again = again if isinstance(again, tuple) else (again,)
+            sync()
+            same = all(torch.equal(a, b) for a, b in zip(got, again))
+            print(f"  {tag} {name}: two launches bit-identical {same}",
+                  flush=True)
+            if not same:
+                fail(f"{tag} {name}: two launches differ")
+            del again
         rec = records.setdefault((path, name), {
             "replaces": replaces, "source": source, "max_abs_err": 0.0,
             "max_rel_err": 0.0})
@@ -1057,8 +1089,8 @@ def main() -> int:
                       f"ms (the host's calls)", flush=True)
                 rec["ms"] = device_ms(time_fn or kernel)
                 rec["plain_ms"] = device_ms(plain)
-            rec["library_ms"] = None if library is None else \
-                cuda_ms(library)
+            rec["library_ms"] = None if library is None else (
+                device_ms(library) if device_time else cuda_ms(library))
             ins, flops = work[:2]
             in_bytes = ins if isinstance(ins, int) else nbytes(ins)
             out_bytes = work[2] if len(work) > 2 else nbytes(got)
@@ -1072,6 +1104,27 @@ def main() -> int:
 
     def gemm_flops(m, n, k, batch=1):
         return 2.0 * m * n * k * batch
+
+    # the one-pass GEMM's plan of each DEFAULT launch checked: tag -> D(K),
+    # cluster size, CTAs, chunks
+    tf32_plans = {}
+
+    def tf32_plan(tag, m, n, k, batch=1):
+        """Print and keep the one-pass GEMM's plan of an m×n×k launch
+        over ``batch`` (`rolling.tf32_plan`: D(K), the cluster size, the
+        CTAs); fail where its chunks are not `rolling.tf32_sum_order`'s,
+        the order the tests hold."""
+        pl = rolling.tf32_plan(m, n, k, batch)
+        tf32_plans[tag] = dict(pl, M=m, N=n, K=k, batch=batch)
+        d, chunks = rolling.tf32_sum_order(k)
+        print(f"  {tag}: one-pass GEMM M={m} N={n} K={k} batch={batch}: "
+              f"D(K)={pl['D']}, {pl['chunks']} chunks, cluster "
+              f"{pl['cluster']}, {pl['ctas']} CTAs", flush=True)
+        if pl["D"] != d or pl["chunks"] != len(chunks):
+            fail(f"{tag}: the kernel's chunks (D={pl['D']}, "
+                 f"{pl['chunks']}) are not tf32_sum_order's ({d}, "
+                 f"{len(chunks)})")
+        return pl
 
     def ieee_matmul(fn):
         """``fn`` run with TF32 off (IEEE fp32, as the SGEMM)."""
@@ -1109,6 +1162,10 @@ def main() -> int:
     # library's, the earlier path's (left_dot, then the divide) and the
     # bounds
     rescue_rec = {}
+    # the sum-order contract's checks, bit for bit: tag -> held; the
+    # one-pass GEMM's error at each DEFAULT depth: K -> max_rel
+    contract = {}
+    tf32_depths = {}
 
     def rescue_checks(path, tag, ysolve, a, prec, name, rate, library,
                       record, timed=True):
@@ -1127,6 +1184,11 @@ def main() -> int:
         fyp, gyp, k = ysolve.rescue
         lam, ak = ysolve.lam, a[:, :k]
         passes = 3 if prec == "high" else 1
+        src = SRC_GEMM_TF32 if prec == "default" else SRC_RESCUE
+        if prec == "default":
+            tf32_plan(f"{tag} rescue Fy·a[:, :K]/λ", fyp.shape[0], k,
+                      fyp.shape[1])
+            tf32_plan(f"{tag} rescue Gy·s", gyp.shape[0], k, gyp.shape[1])
         flops1 = passes * gemm_flops(fyp.shape[0], k, fyp.shape[1])
         flops2 = passes * gemm_flops(gyp.shape[0], k, gyp.shape[1])
 
@@ -1137,7 +1199,7 @@ def main() -> int:
             return rolling.rescue_dot_plain(fyp, ak, lam, precision=prec)
 
         sp = check(path, tag, False, rolling.rescue_dot, RESCUE,
-                   SRC_RESCUE, kern1, plain1, ("Fy·a[:, :K]/λ",), (gemm,),
+                   src, kern1, plain1, ("Fy·a[:, :K]/λ",), (gemm,),
                    name=name)[0]
         x0 = torch.randn(a.shape, generator=torch.Generator(
             device=dev).manual_seed(SEED), device=dev)
@@ -1147,7 +1209,7 @@ def main() -> int:
             return rolling.rescue_dot(gyp, sp, out=outk[:, :k],
                                       precision=prec)
 
-        check(path, tag, False, rolling.rescue_dot, RESCUE, SRC_RESCUE,
+        check(path, tag, False, rolling.rescue_dot, RESCUE, src,
               kern2,
               lambda: rolling.rescue_dot_plain(gyp, sp, out=outp[:, :k],
                                                precision=prec),
@@ -1167,25 +1229,43 @@ def main() -> int:
             fail(f"{tag} {name}: launches differ, or the fused divide is "
                  f"not the divide after the product")
         if prec == "default":
-            # one TF32 pass keeps the sequential k order: bit-equal to the
-            # one-pass GEMM through left_dot (the 4y step's slab solve)
-            o3 = x0.clone()
-            rolling.left_dot(gyp, sp, out=o3[:, :k], precision=prec)
-            seq = torch.equal(rolling.left_dot(fyp, ak, precision=prec)
-                              / lam, s1) and torch.equal(o3, outk)
-            print(f"  {tag} {name}: bit-equal to left_dot's one-pass "
-                  f"GEMM (then the divide) {seq}", flush=True)
-            if not seq:
-                fail(f"{tag} {name}: the one-pass products left the "
-                     f"sequential k order")
-            del o3
+            # the sum-order contract (check (a)): the rescue's launches,
+            # their K split across a cluster, give the bits of the
+            # full-width products through left_dot (the 4y step's slab
+            # solve), whose launches walk the chunks in one CTA or split
+            # them by their own tile count
+            s_full = rolling.left_dot(fyp, a, precision=prec)
+            wide = torch.randn((sp.shape[0], a.shape[1]),
+                               generator=torch.Generator(
+                                   device=dev).manual_seed(SEED + 1),
+                               device=dev)
+            wide[:, :k] = sp
+            x_full = rolling.left_dot(gyp, wide, precision=prec)
+            tf32_plan(f"{tag} left_dot(Fy, a)", fyp.shape[0], a.shape[1],
+                      fyp.shape[1])
+            tf32_plan(f"{tag} left_dot(Gy, s wide)", gyp.shape[0],
+                      a.shape[1], gyp.shape[1])
+            sync()
+            c_s = torch.equal(s_full[:, :k] / lam, s1)
+            c_x = torch.equal(x_full[:, :k], outk[:, :k])
+            print(f"  {tag} {name}: contract (a): s == left_dot(Fy, a)"
+                  f"[:, :K] / λ bit for bit {c_s}; Gy·s == left_dot(Gy, "
+                  f"s wide)[:, :K] bit for bit {c_x}", flush=True)
+            if not (c_s and c_x):
+                fail(f"{tag} {name}: the rescue's products are not the "
+                     f"full-width products' columns (sum-order contract)")
+            contract[f"{tag} (a)"] = c_s and c_x
+            del s_full, wide, x_full
         if timed:
-            kind = {"highest": 0, "high": 3, "default": 1}[prec]
+            if prec == "default":
+                clusters = [rolling.tf32_plan(m_, k, k_)["cluster"]
+                            for m_, k_ in (fyp.shape, gyp.shape)]
+            else:
+                kind = {"highest": 0, "high": 3}[prec]
+                clusters = [native.library().cfd_rescue_cluster(
+                    kind, m_, k, k_) for m_, k_ in (fyp.shape, gyp.shape)]
             t = {"K": k, "M": fyp.shape[0],
-                 "cluster": native.library().cfd_rescue_cluster(
-                     kind, fyp.shape[0], k, fyp.shape[1]),
-                 "cluster_gy": native.library().cfd_rescue_cluster(
-                     kind, gyp.shape[0], k, gyp.shape[1]),
+                 "cluster": clusters[0], "cluster_gy": clusters[1],
                  "ms": device_ms(kern1, reps=20),
                  "ms_gy": device_ms(kern2, reps=20),
                  "library_ms": device_ms(library(
@@ -2175,7 +2255,7 @@ def main() -> int:
 
     # ---- phase 16: Ghia Re = 100 through the CG pressure solve -----------
     vmem_small.cg_solve.launches = 0
-    ghia_gate("phase 16", 128, 100, 5e-4, 20000, 0.10, Method.CG)
+    ghia_gate("phase 16", 128, 100, 5e-4, GHIA_SOLVER_STEPS, 0.10, Method.CG)
     print(f"phase 16 cg_solve launches {vmem_small.cg_solve.launches}",
           flush=True)
 
@@ -2496,7 +2576,8 @@ def main() -> int:
     if abs(mg2d["iterations"] - MG2D_ITERS) > 1:
         fail(f"run_mg2d_vmem(129): outside {MG2D_ITERS} ± 1 V-cycles")
     vmem_mg.mg_solve.launches = 0
-    ghia_gate("phase 21", 129, 100, 5e-4, 20000, 0.10, Method.MULTIGRID)
+    ghia_gate("phase 21", 129, 100, 5e-4, GHIA_SOLVER_STEPS, 0.10,
+              Method.MULTIGRID)
     print(f"phase 21 mg_solve launches {vmem_mg.mg_solve.launches}",
           flush=True)
     sim = Simulation.create(MG_FACADE, MG_FACADE,
@@ -3100,12 +3181,13 @@ def main() -> int:
 
     # ---- phase 26: 2D — Ghia with BiCGSTAB, the stationary cavities ------
     vmem_small.bicgstab_solve.launches = 0
-    ghia_gate("phase 26", 128, 100, 5e-4, 20000, 0.10, Method.BICGSTAB)
+    ghia_gate("phase 26", 128, 100, 5e-4, GHIA_SOLVER_STEPS, 0.10,
+              Method.BICGSTAB)
     launch_counts["bicg2d"] = {
         "bicgstab_solve": vmem_small.bicgstab_solve.launches}
     print(f"phase 26 bicgstab_solve launches "
           f"{vmem_small.bicgstab_solve.launches}", flush=True)
-    if vmem_small.bicgstab_solve.launches != 20000:
+    if vmem_small.bicgstab_solve.launches != GHIA_SOLVER_STEPS:
         fail("phase 26 Ghia: not the whole-solve BiCGSTAB once a step")
 
     def cavity(method, pp, plain, steps=CAVITY_STEPS, nc=128):
@@ -4684,18 +4766,36 @@ def main() -> int:
     x2 = f.p.view(-1, n)
     # one launch as the 3D main path makes it: the (nz·ny, nx) × (nx, nx)
     # product of the forward xy DST
-    check("3d-default", tag, True, rolling.right_dot, HP_DOT, SRC_GEMM,
+    check("3d-default", tag, True, rolling.right_dot, HP_DOT, SRC_GEMM_TF32,
           lambda: rolling.right_dot(x2, fxt, "default"),
           lambda: rolling.right_dot_plain(x2, fxt, "default"),
           ("x·FxT",), (gemm,), work=((x2, fxt), gemm_flops(n * n, n, n)),
           library=tf32_matmul(lambda: torch.matmul(x2, fxt)),
-          name="gemm_tf32", rate=TF32_TC_FLOPS)
+          name="gemm_tf32", rate=TF32_TC_FLOPS, device_time=True,
+          repeat=True)
+    tf32_plan(f"phase 38 {tag} x·FxT", n * n, n, n)
+    tf32_plan(f"phase 38 {tag} Fy·t[k]", n, n, n, n)
     got = rolling.plane_dot(f.p, fxt, fy, "default")
     ref = rolling.plane_dot_plain(f.p, fxt, fy, "default")
     sync()
     compare(f"phase 38 {tag}", "plane_dot[tf32] (both launches)", got, ref,
             *gemm)
-    del got, ref
+    # contract check (c): a 130-plane block (a middle z-shard's x^ block)
+    # gives the bits of those planes of the 512-plane product
+    nb = n // SHARDS + 2
+    z0 = (SHARDS // 2) * (n // SHARDS) - 1
+    tf32_plan(f"phase 38 {nb}-plane block x·FxT", nb * n, n, n)
+    tf32_plan(f"phase 38 {nb}-plane block Fy·t[k]", n, n, n, nb)
+    blk = rolling.plane_dot(f.p[z0:z0 + nb], fxt, fy, "default")
+    sync()
+    contract["(c) plane_dot block"] = torch.equal(blk, got[z0:z0 + nb])
+    print(f"phase 38 contract (c): plane_dot of planes [{z0}, {z0 + nb}) "
+          f"== those planes of the {n}-plane product bit for bit "
+          f"{contract['(c) plane_dot block']}", flush=True)
+    if not contract["(c) plane_dot block"]:
+        fail("phase 38: a plane block's one-pass products differ from the "
+             "whole field's (sum-order contract)")
+    del got, ref, blk
     vs_float64_all(f"phase 38 x·FxT at {tag} (depth {n})", x2, fxt)
     del f, x2, fxt, fy, gxt, gy, mu
     torch.cuda.empty_cache()
@@ -4707,13 +4807,77 @@ def main() -> int:
                                              precision="default")
     bt = noisy(FlowField.initialize(grid2, dtype=torch.float32,
                                     device=dev), SEED).p
-    a = check("2d-default", tag, True, rolling.right_dot, HP_DOT, SRC_GEMM,
+    tf32_plan(f"phase 38 {tag} x-DST", N_2D, N_2D, N_2D)
+    a = check("2d-default", tag, True, rolling.right_dot, HP_DOT,
+              SRC_GEMM_TF32,
               lambda: rolling.right_dot(bt, fxt, "default"),
               lambda: rolling.right_dot_plain(bt, fxt, "default"),
               ("forward",), (gemm,),
               work=((bt, fxt), gemm_flops(N_2D, N_2D, N_2D)),
               library=tf32_matmul(lambda: torch.matmul(bt, fxt)),
-              name="gemm_tf32", rate=TF32_TC_FLOPS)[0][0]
+              name="gemm_tf32", rate=TF32_TC_FLOPS, device_time=True,
+              repeat=True)[0][0]
+    # contract check (b): a 512-row slice's x-DST (a 4y shard's) gives the
+    # bits of those rows of the 2048-row one; then every DEFAULT depth in
+    # use against the plain version, two launches bit-identical
+    rows = N_2D // SHARDS
+    tf32_plan(f"phase 38 {tag} {rows}-row x-DST", rows, N_2D, N_2D)
+    xd = rolling.right_dot(bt[0], fxt, "default")
+    xs = rolling.right_dot(bt[0, rows:2 * rows], fxt, "default")
+    sync()
+    contract["(b) x-DST rows"] = torch.equal(xs, xd[rows:2 * rows])
+    print(f"phase 38 contract (b): the x-DST of rows [{rows}, {2 * rows}) "
+          f"== those rows of the {N_2D}-row x-DST bit for bit "
+          f"{contract['(b) x-DST rows']}", flush=True)
+    if not contract["(b) x-DST rows"]:
+        fail("phase 38: a row slice's one-pass x-DST differs from the "
+             "whole field's (sum-order contract)")
+    del xd, xs
+    for k_ in TF32_DEPTHS:
+        # x[:, :K] (rows N_2D floats apart) · FxT[:K] through left_dot
+        xk, rk = bt[0, :, :k_], fxt[:k_]
+        tf32_plan(f"phase 38 depth {k_}", N_2D, N_2D, k_)
+        kk = rolling.left_dot(xk, rk, precision="default")
+        pk = rolling.left_dot_plain(xk, rk, precision="default")
+        same = torch.equal(kk, rolling.left_dot(xk, rk, precision="default"))
+        sync()
+        err = compare(f"phase 38 depth {k_}", "x[:, :K]·FxT[:K]", kk, pk,
+                      *gemm)[1]
+        tf32_depths[k_] = {"max_rel_err": err, "repeat_bit_identical": same}
+        if not same:
+            fail(f"phase 38 depth {k_}: two launches differ")
+        del kk, pk
+    # the odd shapes, each product held alone (two chained TF32 roundings
+    # on random data part by more than TOL_GEMM, whatever the kernel):
+    # a 37x23x11 field (rows of 37 floats, planes 851 apart: both launches
+    # load through cp.async, counted apart) and the 512x512x3 planes (both
+    # by TMA), against the plain version
+    g_odd = torch.Generator(device=dev).manual_seed(SEED + 38)
+    for shape_ in ((11, 23, 37), N_NZ3):
+        nz_, ny_, nx_ = shape_
+        xo = torch.randn(shape_, generator=g_odd, device=dev)
+        ro = torch.randn((nx_, nx_), generator=g_odd, device=dev)
+        lo = torch.randn((ny_, ny_), generator=g_odd, device=dev)
+        tag_ = "x".join(map(str, shape_[::-1]))
+        tf32_plan(f"phase 38 {tag_} x·right", nz_ * ny_, nx_, nx_)
+        tf32_plan(f"phase 38 {tag_} left·x[k]", ny_, nx_, ny_, nz_)
+        rolling.reset_launch_counts()
+        got_r = rolling.right_dot(xo.view(-1, nx_), ro, "default")
+        got_l = rolling.left_dot(lo, xo, precision="default")
+        sync()
+        n_cp = (rolling.right_dot.default_cp_async_launches
+                + rolling.left_dot.default_cp_async_launches)
+        compare(f"phase 38 {tag_}", "x·right[tf32]", got_r,
+                rolling.right_dot_plain(xo.view(-1, nx_), ro, "default"),
+                *gemm)
+        compare(f"phase 38 {tag_}", "left·x[k][tf32]", got_l,
+                rolling.left_dot_plain(lo, xo, precision="default"), *gemm)
+        print(f"phase 38 {tag_}: one-pass launches through the cp.async "
+              f"loads {n_cp} of 2", flush=True)
+        if n_cp != (2 if nx_ % 4 else 0):
+            fail(f"phase 38 {tag_}: not the expected loads (cp.async for "
+                 f"rows off 16 bytes, TMA otherwise)")
+        del xo, ro, lo, got_r, got_l
     rescue_checks("2d-default", tag, ysolve, a, "default",
                   "rescue_dot[tf32]", TF32_TC_FLOPS, tf32_matmul, True)
     vs_float64_all(f"phase 38 bt·FxT at {tag} (depth {N_2D})", bt[0], fxt)
@@ -4740,14 +4904,18 @@ def main() -> int:
         if rescues:
             counts["rescue_dot[tf32]"] = n_rescue
         other = {g.__name__: (g.launches, g.high_launches) for g in gemms}
+        cp_async = {g.__name__: getattr(g, rolling.CP_ASYNC) for g in gemms}
         print(f"{label} launch counts over the main path: {counts}; "
-              f"(SGEMM, 3xTF32) launches {other}", flush=True)
+              f"(SGEMM, 3xTF32) launches {other}; one-pass launches "
+              f"through the cp.async loads {cp_async}", flush=True)
         if (min(counts.values()) <= 0
                 or counts["gemm_tf32"] != per_step * counts["tdma_z_fwd"]
                 or n_rescue != rescues * counts["tdma_z_fwd"]
-                or max(max(v) for v in other.values()) != 0):
+                or max(max(v) for v in other.values()) != 0
+                or max(cp_async.values()) != 0):
             fail(f"{label}: not the emit-b̃ route (TF32 launches "
-                 f"{per_step} + {rescues} a step, no SGEMM or 3xTF32)")
+                 f"{per_step} + {rescues} a step, every operand by TMA, no "
+                 f"SGEMM or 3xTF32)")
         return counts
 
     def default_vs_highest(label, grid_h, params_h, shape, dt):
@@ -5586,7 +5754,7 @@ def main() -> int:
     GEMM_PRECISIONS = (
         ("highest", "", SRC, FP32_FLOPS, 1, ieee_matmul),
         ("high", "[3xtf32]", SRC_GEMM, TF32_TC_FLOPS, 3, ieee_matmul),
-        ("default", "[tf32]", SRC_GEMM, TF32_TC_FLOPS, 1, tf32_matmul))
+        ("default", "[tf32]", SRC_GEMM_TF32, TF32_TC_FLOPS, 1, tf32_matmul))
     GEMM_PATH = {"highest": "", "high": "-high", "default": "-default"}
 
     # ---- phase 47: bench.py's cg_512 over 4 z-shards ----------------------
@@ -5922,6 +6090,9 @@ def main() -> int:
             fz = torch.randn((mzp, nz_g), generator=gen, device=dev)
             x_ops = gemm_flops(nzl * nyl, nx_, nx_)
             z_ops = gemm_flops(mzp, pencil.shape[1], nz_g)
+            tf32_plan(f"{tag} (2, 2) shard x-DST", nzl * nyl, nx_, nx_)
+            tf32_plan(f"{tag} (2, 2) shard z stage", mzp, pencil.shape[1],
+                      nz_g)
             for prec, suffix, src_, rate, mult, lib in GEMM_PRECISIONS:
                 path = "sharded-zy" + GEMM_PATH[prec]
                 check(path, f"{tag} (2, 2) shard", True, rolling.right_dot,
@@ -5931,7 +6102,9 @@ def main() -> int:
                       ("x-DST",), (gemm,),
                       work=((bt, fxt), mult * x_ops),
                       library=lib(lambda: bt @ fxt),
-                      name=f"right_dot{suffix}", rate=rate)
+                      name=f"right_dot{suffix}", rate=rate,
+                      device_time=prec == "default",
+                      repeat=prec == "default")
                 check(path, f"{tag} (2, 2) shard", True, rolling.left_dot,
                       YZ_Z, src_,
                       lambda: rolling.left_dot(fz, pencil, precision=prec),
@@ -5940,7 +6113,9 @@ def main() -> int:
                       ("z stage",), (gemm,),
                       work=((fz, pencil), mult * z_ops),
                       library=lib(lambda: fz @ pencil),
-                      name=f"left_dot{suffix}", rate=rate)
+                      name=f"left_dot{suffix}", rate=rate,
+                      device_time=prec == "default",
+                      repeat=prec == "default")
             del bt, pencil, fz
         del f
         torch.cuda.empty_cache()
@@ -6918,6 +7093,8 @@ def main() -> int:
             slab = torch.randn((ny2, nx2 // 4), generator=gen, device=dev)
             x_ops = gemm_flops(nyl, nx2, nx2)
             y_ops = gemm_flops(ny2 - 2, nx2 // 4, ny2)
+            tf32_plan(f"{tag} 4y shard x-DST", nyl, nx2, nx2)
+            tf32_plan(f"{tag} 4y shard y slab", ny2 - 2, nx2 // 4, ny2)
             for prec, suffix, src_, rate, mult, lib in GEMM_PRECISIONS:
                 path = "sharded-2d" + GEMM_PATH[prec]
                 check(path, f"{tag} 4y shard", True, rolling.right_dot,
@@ -6927,7 +7104,9 @@ def main() -> int:
                       ("x-DST",), (gemm,),
                       work=((bt, fxt), mult * x_ops),
                       library=lib(lambda: bt @ fxt),
-                      name=f"right_dot{suffix}", rate=rate)
+                      name=f"right_dot{suffix}", rate=rate,
+                      device_time=prec == "default",
+                      repeat=prec == "default")
                 check(path, f"{tag} 4y shard", True, rolling.left_dot,
                       YS_2D, src_,
                       lambda: rolling.left_dot(fy, slab, precision=prec),
@@ -6936,7 +7115,9 @@ def main() -> int:
                       ("y slab",), (gemm,),
                       work=((fy, slab), mult * y_ops),
                       library=lib(lambda: fy @ slab),
-                      name=f"left_dot{suffix}", rate=rate)
+                      name=f"left_dot{suffix}", rate=rate,
+                      device_time=prec == "default",
+                      repeat=prec == "default")
             del bt, fxt, fy, slab
         del u, v, w, p
         torch.cuda.empty_cache()
@@ -8140,8 +8321,10 @@ def main() -> int:
     f, (fxt, fy, gxt, gy), mu, w, c = make_inputs(shape, SEED + 70)
     nb = n // SHARDS + 2
     xb = f.p[(SHARDS // 2) * (n // SHARDS) - 1:][:nb]
+    tf32_plan(f"phase 70 {n}x{n}x{nb} x^ block x·GxT", nb * n, n, n)
+    tf32_plan(f"phase 70 {n}x{n}x{nb} x^ block Gy·t[k]", n, n, n, nb)
     check("sharded-default", f"phase 70 {n}x{n}x{nb} x^ block", True,
-          rolling.plane_dot, HP_DOT, SRC_GEMM,
+          rolling.plane_dot, HP_DOT, SRC_GEMM_TF32,
           lambda: rolling.plane_dot(xb, gxt, gy, "default"),
           lambda: rolling.plane_dot_plain(xb, gxt, gy, "default"),
           ("inverse",), (gemm,),
@@ -8149,7 +8332,8 @@ def main() -> int:
                 + gemm_flops(n, n, n, nb)),
           library=tf32_matmul(lambda: torch.einsum("ij,kjl,lm->kim", gy,
                                                    xb, gxt)),
-          name="plane_dot[tf32]", rate=TF32_TC_FLOPS)
+          name="plane_dot[tf32]", rate=TF32_TC_FLOPS, device_time=True,
+          repeat=True)
     del f, fxt, fy, gxt, gy, mu, xb
     torch.cuda.empty_cache()
     grid_u = Grid.uniform(n, n, n, zmin=0.0, zmax=1.0)
@@ -8236,8 +8420,11 @@ def main() -> int:
         counts = default_counts(key)
         other = {g_.__name__: (g_.launches, g_.high_launches)
                  for g_ in gemms_d}
+        cp_async = {g_.__name__: getattr(g_, rolling.CP_ASYNC)
+                    for g_ in gemms_d}
         print(f"{label}: launch counts over the main path {counts}; "
-              f"(SGEMM, 3xTF32) launches {other}", flush=True)
+              f"(SGEMM, 3xTF32) launches {other}; one-pass launches "
+              f"through the cp.async loads {cp_async}", flush=True)
         if min(counts.values()) <= 0 or max(max(v) for v in
                                             other.values()) != 0:
             fail(f"{label}: a kernel of the step not launched, or not the "
@@ -8323,6 +8510,8 @@ def main() -> int:
                       "consistent_sharded_512": cons_rec,
                       "default_sharded": def_rec,
                       "rescue": rescue_rec,
+                      "tf32_plans": tf32_plans, "tf32_depths": tf32_depths,
+                      "tf32_contract": contract,
                       "launch_counts": launch_counts,
                       "card": card}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -6,7 +6,7 @@
 //       pred_bt_compute)  predictor (Boussinesq buoyancy with T as one
 //       more input), b~, forward x-DST of each block
 //       -> pred_star_2d_kernel, poisson_input_2d_kernel, then the forward
-//          x-DST as one sgemm_kernel launch (projection_kernels.cu)
+//          x-DST as one SGEMM launch (sgemm_fp32.cu)
 //   Projection2DKernels.pred_only / bt_only  (the split pair the
 //       bc_refresh step runs, the caller's hook between them)
 //       -> the same two kernels: the port's pred_bt was already that chain
@@ -15,10 +15,10 @@
 //       -> no kernel here: an (ny, nx) rhs is an (ny, 1, nx) stack of
 //          one-row planes, so projection_kernels.cu's tdma_fwd_kernel and
 //          tdma_bwd_kernel solve it (the dense low-mode rescue that follows
-//          is two sgemm_kernel launches)
+//          is two rescue_gemm.cu launches)
 //   Projection2DKernels.corr      (projection2d.py, corr_compute and its
 //       arrival hook)  inverse x-DST of each arriving block, corrector
-//       -> the inverse x-DST as one sgemm_kernel launch, then
+//       -> the inverse x-DST as one SGEMM launch, then
 //          corrector_2d_kernel
 //
 // The TPU kernels march y-blocks through a VMEM ring and run the x-DST as

@@ -6,16 +6,17 @@
 //   A1  ProjectionKernels.pred_bt   (pred_bt_compute)   predictor, b~,
 //       forward xy DST, Thomas forward sweep; Boussinesq buoyancy with T
 //       as one more input
-//       -> pred_star_kernel, poisson_input_kernel, sgemm_kernel (x2),
-//          tdma_fwd_kernel; with emit="rhs" (the CG step) only the first
-//          two, poisson_input_kernel emitting (rho/dt) div u*
+//       -> pred_star_kernel, poisson_input_kernel, sgemm_fp32_kernel
+//          (x2, sgemm_fp32.cu), tdma_fwd_kernel; with emit="rhs" (the CG
+//          step) only the first two, poisson_input_kernel emitting (rho/dt)
+//          div u*
 //   A5  the per-component family the bc_refresh step runs
 //       (make_predictor -> pred_u/v/w, btilde_k, divergence): the same
 //       kernels, the caller's hook between pred_star_kernel and
 //       poisson_input_kernel
 //   A2  ProjectionKernels.corr_bwd  (corr_bwd_compute)  Thomas back
 //       substitution, inverse xy DST, corrector, three max reductions
-//       -> tdma_bwd_kernel, sgemm_kernel (x2), corrector_kernel,
+//       -> tdma_bwd_kernel, sgemm_fp32_kernel (x2), corrector_kernel,
 //          reduce_max3_kernel
 //   A5  corr_all's DST form (the nz = 3 step): the same chain after the
 //       standalone back substitution (tdma.py's make_tdma_z_bwd)
@@ -65,7 +66,7 @@
 //       point, so the shards' maxima fold with comm.max alone.
 //
 // At spectral_precision=HIGH the DST products run on the 3xTF32
-// tensor-core GEMM (gemm_3xtf32.cu) instead of sgemm_kernel, the forward
+// tensor-core GEMM (gemm_3xtf32.cu) instead of the SGEMM, the forward
 // sweep writes no t, and the back substitution rebuilds t analytically
 // (tdma_bwd_kernel<true>), as the reference's HIGH step does.
 //
@@ -83,8 +84,9 @@
 //   TPU kernel instead read ring garbage at the z-ends and discarded it).
 // * The DST products are dense fp32 GEMMs (2*n^4 flops per product at
 //   n^3), bound by the fp32 FMA rate of the CUDA cores: TF32 would break
-//   the HIGHEST-precision contract.  A shared-memory-tiled SGEMM with an
-//   8x8 register tile per thread keeps the FMA units fed from registers.
+//   the HIGHEST-precision contract.  They run in sgemm_fp32.cu (one fmaf
+//   chain an output element, k ascending; TMA-fed stages, consumer warps
+//   that issue only shared loads and FFMAs).
 // * The Thomas sweeps are sequential in z and independent per (y, x)
 //   mode: one thread per mode marches all planes, so each plane access
 //   is coalesced across a warp.  Bound by memory bandwidth.
@@ -96,8 +98,8 @@
 // NaN).
 //
 // Built with -fmad=false: every multiply and add rounds separately, in the
-// operation order of the plain PyTorch versions; the GEMM uses explicit
-// fmaf.  Every entry point returns cudaGetLastError().
+// operation order of the plain PyTorch versions.  Every entry point
+// returns cudaGetLastError().
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -335,100 +337,6 @@ __global__ void poisson_input_kernel(
   const int kg = z_base + k;  // the global plane (k on one device)
   const float cz = inv_dz2 * (float)((kg == 1) + (kg == nz_g - 2));
   bt[o] = (cxy + cz) * p[o] - (*rod_ptr) * div;
-}
-
-// Batched row-major C[b] = A[b] (M x K) * B[b] (K x N); a zero batch
-// stride shares one matrix across the batch.  128x128 block tile, k-step
-// 8, 256 threads, each thread an 8x8 register tile split into two 4-wide
-// halves 64 apart so the float4 shared-memory reads of a warp are
-// contiguous.  Two shared-memory stages: the next k-tile is loaded from
-// global memory into registers while the current one is multiplied, then
-// stored to the other stage, so one barrier per k-step suffices and the
-// global latency hides under the FMAs.  Accumulates k in ascending order
-// with fmaf.
-constexpr int kBM = 128, kBN = 128, kBK = 8;
-
-__global__ void __launch_bounds__(256) sgemm_kernel(
-    int M, int N, int K, const float* __restrict__ A, long long lda,
-    long long sA, const float* __restrict__ B, long long ldb, long long sB,
-    float* __restrict__ C, long long ldc, long long sC) {
-  __shared__ __align__(16) float As[2][kBK][kBM + 4];
-  __shared__ __align__(16) float Bs[2][kBK][kBN + 4];
-  const long long bz = blockIdx.z;
-  A += bz * sA;
-  B += bz * sB;
-  C += bz * sC;
-  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
-  const int tid = threadIdx.x;
-  const int ty = tid >> 4, tx = tid & 15;
-  const int a_row = tid >> 1, a_k = (tid & 1) * 4;   // A tile: 128 x 8
-  const int b_k = tid >> 5, b_col = (tid & 31) * 4;  // B tile: 8 x 128
-
-  float ra[4], rb[4];  // the k-tile in flight, global -> shared
-  auto load = [&](int k0) {
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int gm = m0 + a_row, gk = k0 + a_k + q;
-      ra[q] = (gm < M && gk < K) ? A[gm * lda + gk] : 0.0f;
-      const int gk2 = k0 + b_k, gn = n0 + b_col + q;
-      rb[q] = (gk2 < K && gn < N) ? B[gk2 * ldb + gn] : 0.0f;
-    }
-  };
-  auto store = [&](int s) {
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      As[s][a_k + q][a_row] = ra[q];
-      Bs[s][b_k][b_col + q] = rb[q];
-    }
-  };
-
-  float acc[8][8];
-#pragma unroll
-  for (int r = 0; r < 8; ++r)
-#pragma unroll
-    for (int q = 0; q < 8; ++q) acc[r][q] = 0.0f;
-
-  load(0);
-  store(0);
-  __syncthreads();
-  int s = 0;
-  for (int k0 = 0; k0 < K; k0 += kBK) {
-    const bool more = k0 + kBK < K;
-    if (more) load(k0 + kBK);
-#pragma unroll
-    for (int kk = 0; kk < kBK; ++kk) {
-      const float4 a_lo =
-          *reinterpret_cast<const float4*>(&As[s][kk][ty * 4]);
-      const float4 a_hi =
-          *reinterpret_cast<const float4*>(&As[s][kk][64 + ty * 4]);
-      const float4 b_lo =
-          *reinterpret_cast<const float4*>(&Bs[s][kk][tx * 4]);
-      const float4 b_hi =
-          *reinterpret_cast<const float4*>(&Bs[s][kk][64 + tx * 4]);
-      const float a[8] = {a_lo.x, a_lo.y, a_lo.z, a_lo.w,
-                          a_hi.x, a_hi.y, a_hi.z, a_hi.w};
-      const float b[8] = {b_lo.x, b_lo.y, b_lo.z, b_lo.w,
-                          b_hi.x, b_hi.y, b_hi.z, b_hi.w};
-#pragma unroll
-      for (int r = 0; r < 8; ++r)
-#pragma unroll
-        for (int q = 0; q < 8; ++q) acc[r][q] = fmaf(a[r], b[q], acc[r][q]);
-    }
-    // the other stage was last read before the previous barrier
-    if (more) store(s ^ 1);
-    __syncthreads();
-    s ^= 1;
-  }
-#pragma unroll
-  for (int r = 0; r < 8; ++r) {
-    const int gm = m0 + (r < 4 ? ty * 4 + r : 64 + ty * 4 + r - 4);
-    if (gm >= M) continue;
-#pragma unroll
-    for (int q = 0; q < 8; ++q) {
-      const int gn = n0 + (q < 4 ? tx * 4 + q : 64 + tx * 4 + q - 4);
-      if (gn < N) C[gm * ldc + gn] = acc[r][q];
-    }
-  }
 }
 
 // Thomas forward sweep along z for every (y, x) mode of the transformed
@@ -728,16 +636,6 @@ int cfd_poisson_input_cons(const float* us, const float* vs, const float* ws,
       us, vs, ws, p, bt, rod, nz, ny, nx, 0.0f, 0.0f, inv_2dz, 0.0f, 0.0f,
       inv_dz2, emit_rhs, Weights{xw, yw, nx, ny},
       make_float4(cxm, cxp, cym, cyp), z_base, nz_g, 0, ny, 0);
-  return (int)cudaGetLastError();
-}
-
-int cfd_sgemm_batched(int M, int N, int K, const float* A, long long lda,
-                      long long sA, const float* B, long long ldb,
-                      long long sB, float* C, long long ldc, long long sC,
-                      int batch, cudaStream_t stream) {
-  const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM, batch);
-  sgemm_kernel<<<grid, 256, 0, stream>>>(M, N, K, A, lda, sA, B, ldb, sB, C,
-                                         ldc, sC);
   return (int)cudaGetLastError();
 }
 

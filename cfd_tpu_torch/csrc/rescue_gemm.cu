@@ -9,7 +9,7 @@
 //     x[:, :K] = Gyp (ny x my) * s    (in place, row stride nx)
 //
 // which the port ran through the general 128x128-tile GEMMs
-// (projection_kernels.cu sgemm_kernel, gemm_3xtf32.cu gemm_3xtf32_kernel)
+// (the SGEMM then in projection_kernels.cu, gemm_3xtf32_kernel)
 // and a separate divide (PERF.md section 6, rows "2D make_tdma_y_2d" and
 // "HIGH").  One kernel, templated on the precision (the DEFAULT products
 // run the one-pass GEMM, gemm_tf32.cu, whose sum order is K's alone):

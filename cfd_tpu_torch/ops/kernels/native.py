@@ -39,14 +39,12 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
 
 # argument types of each C entry point, stream last
 SIGNATURES = {
-    # projection_kernels.cu (3D step, and the SGEMM both steps use)
+    # projection_kernels.cu (3D step)
     # (the predictor and b~ take the global plane base and plane count
     # of a z-decomposed shard's block last: 0 and nz on one device)
     "cfd_pred_star": [_P] * 8 + [_I] * 3 + [_F] * 11 + [_I] + [_F] * 4
     + [_I] * 3 + [_P],
     "cfd_poisson_input": [_P] * 6 + [_I] * 3 + [_F] * 6 + [_I] * 3 + [_P],
-    "cfd_sgemm_batched": [_I] * 3 + [_P, _L, _L, _P, _L, _L, _P, _L, _L]
-    + [_I, _P],
     "cfd_tdma_fwd": [_P, _P, _F, _P, _P, _I, _L, _I, _P],
     "cfd_tdma_bwd": [_P, _P, _P, _I, _L, _P],
     "cfd_tdma_bwd_analytic": [_P, _P, _P, _I, _L, _P],
@@ -66,6 +64,12 @@ SIGNATURES = {
     "cfd_poisson_input_cons": [_P] * 8 + [_I] * 3 + [_F] * 6 + [_I] * 3
     + [_P],
     "cfd_corrector_cons": [_P] * 12 + [_I] * 3 + [_F, _P],
+    # sgemm_fp32.cu (every DST product at spectral_precision="highest",
+    # the 3D and 2D steps' and the decomposed and eigen pipelines'), and
+    # a launch's plan (M, N, K, batch, int[4] out; no stream: a query)
+    "cfd_sgemm_batched": [_I] * 3 + [_P, _L, _L, _P, _L, _L, _P, _L, _L]
+    + [_I, _P],
+    "cfd_sgemm_plan": [_I] * 4 + [_P],
     # gemm_3xtf32.cu (the DST products at spectral_precision="high")
     "cfd_sgemm_3xtf32_batched": [_I] * 3 + [_P, _L, _L, _P, _L, _L, _P, _L,
                                             _L] + [_I, _P],

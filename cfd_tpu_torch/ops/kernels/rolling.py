@@ -14,7 +14,7 @@ y-solve's rescue :func:`rescue_dot` (the eigenvalue divide fused:
 `hp_dot_general`'s (`rolling.py:42-70`):
 
 * ``"highest"`` — IEEE fp32 (``Precision.HIGHEST``): the hand-written
-  SGEMM of ``csrc/projection_kernels.cu`` on a CUDA tensor;
+  SGEMM of ``csrc/sgemm_fp32.cu`` on a CUDA tensor;
 * ``"high"`` — 3xTF32 (``Precision.HIGH``, bf16_3x on the TPU): the
   hand-written tensor-core GEMM of ``csrc/gemm_3xtf32.cu``;
 * ``"default"`` — one TF32 pass (``Precision.DEFAULT``, one bf16 pass on
@@ -23,10 +23,12 @@ y-solve's rescue :func:`rescue_dot` (the eigenvalue divide fused:
 
 On a CPU tensor each runs its plain version.  Each wrapper counts the
 SGEMM launches in ``launches``, the 3xTF32 launches in ``high_launches``
-and the one-pass TF32 launches in ``default_launches``; of those, the
-launches whose operands TMA cannot read (a base, leading dimension or
-batch stride off 16 bytes) and which load them through ``cp.async``
-instead, also in ``default_cp_async_launches``.
+and the one-pass TF32 launches in ``default_launches``; of the SGEMM's
+and the one-pass GEMM's, the launches whose operands TMA cannot read (a
+base, leading dimension or batch stride off 16 bytes) and which load
+them through 4-byte ``cp.async`` copies instead, also in
+``highest_cp_async_launches`` / ``default_cp_async_launches``
+(``<precision>_cp_async_launches``, :data:`CP_ASYNC_COUNTERS`).
 
 Neither ``plane_masks`` nor the wrapped ``shift_x``/``shift_y`` semantics
 are needed: the plain versions read neighbours by interior slices
@@ -37,11 +39,18 @@ Kernel notes (each replaces the in-kernel MXU dots of
 `ProjectionKernels.pred_bt` / `corr_bwd`, `projection_kernels.py:226-250`,
 and the 2D `block_dot`, `projection2d.py:97-106`):
 
-* ``sgemm_kernel`` (``"highest"``): bound by the fp32 FMA rate of the
-  CUDA cores — 2·n⁴ flops per product at n³, no tensor cores because
-  TF32 would break the HIGHEST contract.  Its 128×128 block tile with an
-  8×8 register tile per thread keeps operands in registers (16
-  shared-memory loads per 64 FMAs).
+* ``sgemm_fp32_kernel`` (``"highest"``, ``csrc/sgemm_fp32.cu``): bound
+  by the fp32 FMA rate of the CUDA cores — 2·n⁴ flops per product at
+  n³, no tensor cores because TF32 would break the HIGHEST contract.
+  Its sum order is a contract: every output element is one ``fmaf``
+  chain over k, ascending from zero (``acc = fmaf(a[m][k], b[k][n],
+  acc)``; zero-filled k past K leaves it unchanged), with no split of K,
+  so the tile, the grid and the batch never move a bit.  A producer
+  warp feeds a ring of 32-deep stages by TMA (4-byte ``cp.async`` for
+  operands off 16 bytes); eight consumer warps issue only shared loads
+  and FFMAs on 128×128 or 64×128 tiles (the smaller where it fills the
+  card better, :func:`sgemm_plan`), each thread 8 or 4 rows by 8
+  columns, walking tiles persistently.
 * ``gemm_3xtf32_kernel`` (``"high"``): bound by the TF32 tensor-core
   rate — 3·2·n⁴ operations per product.  Each fp32 operand is split into
   big = rna_tf32(a) and small = rna_tf32(a − big), and each 8-deep
@@ -74,8 +83,10 @@ _GEMM = {"highest": "cfd_sgemm_batched", "high": "cfd_sgemm_3xtf32_batched",
 # the wrappers' counter of each precision's launches
 _COUNTER = {"highest": "launches", "high": "high_launches",
             "default": "default_launches"}
-# ... and of the one-pass launches that load through cp.async
-CP_ASYNC = "default_cp_async_launches"
+# ... and of the launches that load through 4-byte cp.async copies (the
+# SGEMM's and the one-pass GEMM's, whose operands TMA cannot read)
+CP_ASYNC_COUNTERS = {"highest": "highest_cp_async_launches",
+                     "default": "default_cp_async_launches"}
 PRECISIONS = tuple(_GEMM)
 
 # The one-pass TF32 GEMM's sum order (`csrc/gemm_tf32.cu`, chunk_plan):
@@ -108,8 +119,9 @@ def tf32_sum_order(k: int):
 
 def _tma_operands(a: int, lda: int, sa: int, b: int, ldb: int, sb: int,
                   batch: int) -> bool:
-    """Whether the one-pass GEMM loads A and B by TMA: 16-byte bases,
-    leading dimensions and batch strides (`gemm_tf32.cu`, run_gemm)."""
+    """Whether the SGEMM and the one-pass GEMM load A and B by TMA:
+    16-byte bases, leading dimensions and batch strides (`gemm_tf32.cu`,
+    run_gemm; `sgemm_fp32.cu`, cfd_sgemm_batched)."""
     return (a % 16 == 0 and lda % 4 == 0 and b % 16 == 0 and ldb % 4 == 0
             and (batch == 1 or (sa % 4 == 0 and sb % 4 == 0)))
 
@@ -127,6 +139,20 @@ def tf32_plan(m: int, n: int, k: int, batch: int = 1) -> dict:
         raise RuntimeError(f"cfd_gemm_tf32_plan: CUDA error {rc}")
     return {"D": out[0], "cluster": out[1], "ctas": out[2],
             "chunks": out[3]}
+
+
+def sgemm_plan(m: int, n: int, k: int, batch: int = 1) -> dict:
+    """The SGEMM's plan for an ``m``×``n``×``k`` launch over ``batch`` on
+    the current CUDA device (`cfd_sgemm_plan`): the output tile (rows,
+    columns), the persistent CTAs and the tiles they walk.  Its sum
+    order does not depend on the plan."""
+    import ctypes
+
+    out = (ctypes.c_int * 4)()
+    rc = native.library().cfd_sgemm_plan(m, n, k, batch, out)
+    if rc != 0:
+        raise RuntimeError(f"cfd_sgemm_plan: CUDA error {rc}")
+    return {"tile": (out[0], out[1]), "ctas": out[2], "tiles": out[3]}
 
 
 @contextlib.contextmanager
@@ -203,15 +229,16 @@ def _count(wrapper, precision, tma=True) -> None:
     name = _COUNTER[precision]
     setattr(wrapper, name, getattr(wrapper, name) + 1)
     if not tma:
-        setattr(wrapper, CP_ASYNC, getattr(wrapper, CP_ASYNC) + 1)
+        name = CP_ASYNC_COUNTERS[precision]
+        setattr(wrapper, name, getattr(wrapper, name) + 1)
 
 
 def _gemm(wrapper, precision, device, *args) -> None:
     """Launch the GEMM of ``precision`` and count it on ``wrapper``
     (args: M, N, K, A, lda, sA, B, ldb, sB, C, ldc, sC, batch)."""
     native.launch(_GEMM[precision], device, *args)
-    _count(wrapper, precision, precision != "default" or _tma_operands(
-        *args[3:9], args[12]))
+    _count(wrapper, precision, precision not in CP_ASYNC_COUNTERS
+           or _tma_operands(*args[3:9], args[12]))
 
 
 def plane_dot_plain(x: torch.Tensor, right: torch.Tensor,
@@ -393,7 +420,7 @@ WRAPPERS = (plane_dot, right_dot, left_dot, rescue_dot)
 
 def reset_launch_counts() -> None:
     for fn in WRAPPERS:
-        for name in (*_COUNTER.values(), CP_ASYNC):
+        for name in (*_COUNTER.values(), *CP_ASYNC_COUNTERS.values()):
             setattr(fn, name, 0)
 
 

@@ -384,6 +384,23 @@ Then the consistent scheme on the z-decomposed spectral step and
   over 4y at ``TOL_TF32_4Y``, ms a step beside HIGHEST, every stencil
   and GEMM of each path counted.
 
+Then the IEEE fp32 SGEMM (``csrc/sgemm_fp32.cu``, every HIGHEST product):
+
+* phase 71: the SGEMM against its plain version at every launch shape of
+  the HIGHEST main paths (the 4y shard's x-DST and y slab, the 2048²
+  x-DST, the (2, 2) shard's x-DST and z stage, the eigen z-product, the
+  two ``plane_dot`` launches of a 130-plane block and of the 512³
+  planes) and at the small ones (37×23×11, 128×32, 128², K = 2046 and
+  510 through factors stored padded and packed): ``TOL_GEMM``, two
+  launches bit-identical, one launch a call, its plan (tile, CTAs,
+  tiles, TMA or the 4-byte copies), device ms beside its bound and one
+  ``torch.matmul`` (TF32 off) of the same product; the sum-order
+  contract bit for bit (a 512-row slice's x-DST, a 130-plane block's
+  ``plane_dot``, ``left_dot`` into column slices at and off 16 bytes,
+  TMA against the 4-byte copies at K = 2046 and 510).  Phases 4, 6,
+  36, 43, 52 and 59 fail where a HIGHEST step's SGEMM launch took the
+  4-byte copies (``highest_cp_async_launches``).
+
 On phases 59, 60, 66, 69 and 70 the plain twins of the path are
 tripwires too.
 
@@ -420,6 +437,7 @@ import contextlib
 import importlib.util
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -522,6 +540,9 @@ CG_STEPS = 3           # CG step: 3 warm-up and 3 timed steps a path
 FACADE_CHECK = 10
 
 SRC_GEMM = "cfd_tpu_torch/csrc/gemm_3xtf32.cu"
+SRC_SGEMM = "cfd_tpu_torch/csrc/sgemm_fp32.cu"       # every HIGHEST product
+# an instruction's opcode in `cuobjdump -sass` (address, optional predicate)
+SASS_OP = r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)"
 SRC_GEMM_TF32 = "cfd_tpu_torch/csrc/gemm_tf32.cu"    # every DEFAULT product
 # the depths of the DEFAULT products: the 2048² x-DST and rescue, the
 # 512³ planes and the (2, 2) z stage, the 128² Ghia rescue
@@ -1133,6 +1154,18 @@ def main() -> int:
                 return fn()
         return run
 
+    def no_element_loads(label):
+        """Fail where an SGEMM launch of a HIGHEST main path loaded its
+        operands through the 4-byte copies (a factor or slab off 16
+        bytes) since the counters were last set to 0."""
+        n_el = {g_.__name__: g_.highest_cp_async_launches
+                for g_ in (rolling.plane_dot, rolling.right_dot,
+                           rolling.left_dot)}
+        print(f"{label}: SGEMM launches through the 4-byte copies {n_el}",
+              flush=True)
+        if max(n_el.values()) != 0:
+            fail(f"{label}: an SGEMM launch did not load by TMA")
+
     fld = (TOL_FIELD, False)
     exact = (TOL_EXACT, True)
     gemm = (TOL_GEMM, True)
@@ -1354,7 +1387,7 @@ def main() -> int:
             work=((us, vs, ws, f.p), FLOPS_PER_POINT["poisson_input"]
                   * cells))[0]
         bhat = check(
-            "3d", tag, big, rolling.plane_dot, DOT, SRC,
+            "3d", tag, big, rolling.plane_dot, DOT, SRC_SGEMM,
             lambda: rolling.plane_dot(bt, fxt, fy),
             lambda: rolling.plane_dot_plain(bt, fxt, fy),
             ("forward",), (gemm,), work=dot_work(bt, fxt, fy),
@@ -1372,7 +1405,7 @@ def main() -> int:
             ("x^",), (exact,),
             work=((d, t), FLOPS_PER_POINT["tdma_bwd"] * cells))[0]
         p = check(
-            "3d", tag, big, rolling.plane_dot, DOT, SRC,
+            "3d", tag, big, rolling.plane_dot, DOT, SRC_SGEMM,
             lambda: rolling.plane_dot(xhat, gxt, gy),
             lambda: rolling.plane_dot_plain(xhat, gxt, gy),
             ("inverse",), (gemm,), work=dot_work(xhat, gxt, gy),
@@ -1447,7 +1480,7 @@ def main() -> int:
             work=((us, vs, f.p), FLOPS_PER_POINT["poisson_input"]
                   * cells))[0]
         bhat = check(
-            "2d", tag, big, rolling.right_dot, DOT2, SRC,
+            "2d", tag, big, rolling.right_dot, DOT2, SRC_SGEMM,
             lambda: rolling.right_dot(bt, fxt),
             lambda: rolling.right_dot_plain(bt, fxt),
             ("forward",), (gemm,),
@@ -1476,7 +1509,7 @@ def main() -> int:
         sync()
         compare(tag, "ysolve.x^", xk, xp, *gemm)
         p = check(
-            "2d", tag, big, rolling.right_dot, DOT2, SRC,
+            "2d", tag, big, rolling.right_dot, DOT2, SRC_SGEMM,
             lambda: rolling.right_dot(xp, gxt),
             lambda: rolling.right_dot_plain(xp, gxt),
             ("inverse",), (gemm,),
@@ -1664,6 +1697,7 @@ def main() -> int:
     # the counters were set to 0 before the entry steps above
     ms3, counts3 = timed_paths(4, f"{n}^3", grid, params, (n, n, n), 1e-4,
                                TIMED_STEPS, pkm.WRAPPERS)
+    no_element_loads(f"phase 4 {n}^3")
     torch.cuda.empty_cache()
 
     # ---- phase 6: the 2D main path (bench.py:run_2d(2048)) ------------------
@@ -1678,6 +1712,7 @@ def main() -> int:
     ms2, counts2 = timed_paths(6, f"{n2}^2", Grid.uniform(n2, n2), params,
                                (1, n2, n2), 1e-5, TIMED_STEPS_2D,
                                pk2m.WRAPPERS, first_step_only=True)
+    no_element_loads(f"phase 6 {n2}^2")
 
     # ---- phase 7 (and 8): the lid-driven cavity against Ghia's table -------
     spec = importlib.util.spec_from_file_location("ghia_data", GHIA)
@@ -3483,7 +3518,7 @@ def main() -> int:
     bt = pkm.poisson_input_plain(f.u, f.v, f.w, f.p, rod, c)
     print(f"phase 28 nz=3 kernels vs plain at {tag3}", flush=True)
     bhat = check(
-        "nz3", tag3, True, rolling.plane_dot, DOT, SRC,
+        "nz3", tag3, True, rolling.plane_dot, DOT, SRC_SGEMM,
         lambda: rolling.plane_dot(bt, fxt, fy),
         lambda: rolling.plane_dot_plain(bt, fxt, fy), ("forward",),
         (gemm,), work=((bt, fxt, fy),
@@ -3607,7 +3642,7 @@ def main() -> int:
                          device=dev)
     zin = res.x.view(n, -1)
     print(f"phase 30 eigen z-product vs plain at {n}x{n * n}", flush=True)
-    check("fft", f"{n}x{n}x{n}", True, rolling.left_dot, EIGEN_Z, SRC,
+    check("fft", f"{n}x{n}x{n}", True, rolling.left_dot, EIGEN_Z, SRC_SGEMM,
           lambda: rolling.left_dot(fz, zin),
           lambda: rolling.left_dot_plain(fz, zin), ("Fz·x",), (gemm,),
           work=((fz, zin), gemm_flops(n, n * n, n)),
@@ -4189,7 +4224,7 @@ def main() -> int:
               lambda: pkm.poisson_rhs_plain(us, vs, ws, rod, c),
               ("rhs",), (exact,), name=cons_name(pkm.poisson_rhs))
         bhat = check(
-            "cons3d", tag, big, rolling.plane_dot, DOT, SRC,
+            "cons3d", tag, big, rolling.plane_dot, DOT, SRC_SGEMM,
             lambda: rolling.plane_dot(bt, fxt, fy),
             lambda: rolling.plane_dot_plain(bt, fxt, fy),
             ("forward",), (gemm,), work=plane_work(bt, fxt, fy),
@@ -4213,7 +4248,7 @@ def main() -> int:
             ("x^",), (exact,),
             work=((d, t), FLOPS_PER_POINT["tdma_bwd"] * cells))[0]
         p = check(
-            "cons3d", tag, big, rolling.plane_dot, DOT, SRC,
+            "cons3d", tag, big, rolling.plane_dot, DOT, SRC_SGEMM,
             lambda: rolling.plane_dot(xhat, gxt, gy),
             lambda: rolling.plane_dot_plain(xhat, gxt, gy),
             ("inverse",), (gemm,), work=plane_work(xhat, gxt, gy),
@@ -4423,6 +4458,7 @@ def main() -> int:
                                 tdma.tdma_z_bwd),
         first_step_only=True)
     launch_counts["cons3d"] = counts_c
+    no_element_loads(f"phase 36 {n}^3 consistent")
     pkm.reset_launch_counts()
     ms_ch, _ = timed_paths(
         36, f"{n}^3 consistent HIGH", grid_s, params_c, (n, n, n), 1e-4,
@@ -4904,7 +4940,7 @@ def main() -> int:
         if rescues:
             counts["rescue_dot[tf32]"] = n_rescue
         other = {g.__name__: (g.launches, g.high_launches) for g in gemms}
-        cp_async = {g.__name__: getattr(g, rolling.CP_ASYNC) for g in gemms}
+        cp_async = {g.__name__: g.default_cp_async_launches for g in gemms}
         print(f"{label} launch counts over the main path: {counts}; "
               f"(SGEMM, 3xTF32) launches {other}; one-pass launches "
               f"through the cp.async loads {cp_async}", flush=True)
@@ -5261,7 +5297,7 @@ def main() -> int:
                        + gemm_flops(N_BIG, N_BIG, N_BIG, nb))
             pbk = check(
                 "sharded", f"{tag} x^ block", True, rolling.plane_dot,
-                A5_CORR_SHARD, SRC,
+                A5_CORR_SHARD, SRC_SGEMM,
                 lambda: rolling.plane_dot(xb, gxt, gy),
                 lambda: rolling.plane_dot_plain(xb, gxt, gy),
                 ("inverse",), (gemm,), work=((xb, gxt, gy), dot_ops),
@@ -5391,6 +5427,8 @@ def main() -> int:
         if prec == "high" and rolling.plane_dot.launches:
             fail(f"{label}: an SGEMM launched on the HIGH path")
         launch_counts["sharded-high" if prec else "sharded"] = counts
+        if not prec:
+            no_element_loads(label)
         f1, res_1, ms_1 = timed_steps(single, f0)
         g = gather_field(fs)
         print(f"{label}: {ms_s:.3f} ms/step, "
@@ -5752,7 +5790,7 @@ def main() -> int:
     # record suffix, source, peak rate, passes, library call's matmul
     # mode), and the suffix of the main path whose counts each record takes
     GEMM_PRECISIONS = (
-        ("highest", "", SRC, FP32_FLOPS, 1, ieee_matmul),
+        ("highest", "", SRC_SGEMM, FP32_FLOPS, 1, ieee_matmul),
         ("high", "[3xtf32]", SRC_GEMM, TF32_TC_FLOPS, 3, ieee_matmul),
         ("default", "[tf32]", SRC_GEMM_TF32, TF32_TC_FLOPS, 1, tf32_matmul))
     GEMM_PATH = {"highest": "", "high": "-high", "default": "-default"}
@@ -6309,6 +6347,8 @@ def main() -> int:
             if prec and (rolling.right_dot.launches
                          or rolling.left_dot.launches):
                 fail(f"{label}: an SGEMM launched on the HIGH path")
+            if not prec:
+                no_element_loads(label)
             path = "sharded-zy-high" if prec else "sharded-zy"
             if mshape == ZY:
                 launch_counts[path] = counts
@@ -7231,6 +7271,8 @@ def main() -> int:
         if prec and (rolling.right_dot.launches
                      or rolling.left_dot.launches):
             fail(f"{label}: an SGEMM launched on the HIGH path")
+        if not prec:
+            no_element_loads(label)
         launch_counts["sharded-2d-high" if prec else "sharded-2d"] = counts
         run_steps(single, f0, dt_2, 3)
         sync()
@@ -8420,7 +8462,7 @@ def main() -> int:
         counts = default_counts(key)
         other = {g_.__name__: (g_.launches, g_.high_launches)
                  for g_ in gemms_d}
-        cp_async = {g_.__name__: getattr(g_, rolling.CP_ASYNC)
+        cp_async = {g_.__name__: g_.default_cp_async_launches
                     for g_ in gemms_d}
         print(f"{label}: launch counts over the main path {counts}; "
               f"(SGEMM, 3xTF32) launches {other}; one-pass launches "
@@ -8445,6 +8487,255 @@ def main() -> int:
     print(f"phase 70 took {time.perf_counter() - t_phase:.1f} s",
           flush=True)
 
+    # ---- phase 71: the IEEE fp32 SGEMM at every HIGHEST launch shape ------
+    # csrc/sgemm_fp32.cu at each shape the HIGHEST main paths launch (the
+    # 4y shard's x-DST and y slab, the 2048² x-DST, the (2, 2) shard's x-DST
+    # and z stage, the eigen z-product, a 130-plane block's and the 512³
+    # planes' two plane_dot launches) and the small ones the script runs:
+    # the kernel against its plain version at TOL_GEMM, two launches
+    # bit-identical, one SGEMM launch a call, its plan (tile, CTAs, tiles,
+    # loads), device ms beside its bound and one torch.matmul (TF32 off)
+    # of the same product.  Then the sum-order contract bit for bit: a
+    # row slice's x-DST, a plane block's plane_dot and a column slice
+    # written in place are those rows, planes and columns of the whole
+    # product, whichever tile and loads each launch takes.
+    t_phase = time.perf_counter()
+    print("phase 71 the SGEMM vs plain at every HIGHEST launch shape",
+          flush=True)
+    g71 = torch.Generator(device=dev).manual_seed(SEED + 71)
+
+    def rand71(*shape):
+        return torch.randn(shape, generator=g71, device=dev)
+
+    sgemm_rec = {}
+    # records of the table's shapes: (path, record name, the wrapper whose
+    # launches on that main path the record takes)
+    sgemm_alias = []
+
+    def sgemm_case(tag, mnkb, kernel, library, ins, path=None,
+                   counted=None, replaces=DOT, loads=None):
+        """One launch shape: ``kernel`` (one wrapper call, one SGEMM
+        launch of M x N x K over the batch ``mnkb``) against ``library``
+        (one torch.matmul, TF32 off: also the plain version)."""
+        m, n_, k, b = mnkb
+        rolling.reset_launch_counts()
+        got = kernel()
+        sync()
+        n_cp = sum(g_.highest_cp_async_launches for g_ in rolling.WRAPPERS)
+        n_sg = sum(g_.launches for g_ in rolling.WRAPPERS)
+        again = kernel()
+        ref = library()
+        sync()
+        same = torch.equal(got, again)
+        err, rel = compare(f"phase 71 {tag}", "sgemm", got, ref, *gemm)
+        del got, again, ref
+        if not same:
+            fail(f"phase 71 {tag}: two launches differ")
+        if n_sg != 1:
+            fail(f"phase 71 {tag}: {n_sg} SGEMM launches a call, not 1")
+        path_ = "cp.async" if n_cp else "TMA"
+        if loads is not None and path_ != loads:
+            fail(f"phase 71 {tag}: loads by {path_}, expected {loads}")
+        pl = rolling.sgemm_plan(m, n_, k, b)
+        ms = device_ms(kernel)
+        lib_ms = device_ms(library)
+        flops = gemm_flops(m, n_, k, b)
+        b_ms, b_by = bound(nbytes(ins) + 4 * m * n_ * b, flops)
+        print(f"  phase 71 {tag}: M={m} N={n_} K={k} batch={b}: tile "
+              f"{pl['tile'][0]}x{pl['tile'][1]}, {pl['ctas']} CTAs over "
+              f"{pl['tiles']} tiles, loads {path_}; two launches "
+              f"bit-identical {same}; kernel {ms:.4f} ms, torch.matmul "
+              f"{lib_ms:.4f} ms ({ms / lib_ms:.2f}x), bound {b_ms:.4f} ms "
+              f"({b_by}; {flops / ms / 1e9:.1f} TFLOP/s)", flush=True)
+        sgemm_rec[tag] = {"M": m, "N": n_, "K": k, "batch": b,
+                          "plan": pl, "loads": path_, "ms": ms,
+                          "matmul_ms": lib_ms, "bound_ms": b_ms,
+                          "max_rel_err": rel, "repeat_bit_identical": same}
+        if path is not None:
+            name = f"sgemm[{tag}]"
+            records[(path, name)] = {
+                "replaces": replaces, "source": SRC_SGEMM,
+                "max_abs_err": err, "max_rel_err": rel, "ms": ms,
+                "plain_ms": lib_ms, "library_ms": lib_ms, "bound_ms": b_ms,
+                "bound_by": b_by}
+            sgemm_alias.append((path, name, counted))
+        return ms, lib_ms
+
+    # the 4y shard (phase 58's shapes) and the 2048² x-DST
+    nyl, n2 = N_2D // SHARDS, N_2D
+    bt = rand71(nyl, n2)
+    fxt = rand71(n2, n2)
+    fy = rand71(n2 - 2, n2)
+    slab = rand71(n2, n2 // SHARDS)
+    sgemm_case("4y x-DST", (nyl, n2, n2, 1),
+               lambda: rolling.right_dot(bt, fxt),
+               ieee_matmul(lambda: torch.matmul(bt, fxt)), (bt, fxt),
+               "sharded-2d", "right_dot", DOT2, "TMA")
+    sgemm_case("4y y slab", (n2 - 2, n2 // SHARDS, n2, 1),
+               lambda: rolling.left_dot(fy, slab),
+               ieee_matmul(lambda: torch.matmul(fy, slab)), (fy, slab),
+               "sharded-2d", "left_dot", YS_2D, "TMA")
+    x2 = rand71(n2, n2)
+    sgemm_case("2048^2 x-DST", (n2, n2, n2, 1),
+               lambda: rolling.right_dot(x2, fxt),
+               ieee_matmul(lambda: torch.matmul(x2, fxt)), (x2, fxt),
+               "2d", "right_dot", DOT2, "TMA")
+    # contract (b): a 512-row slice's x-DST (another tile) is those rows
+    # of the 2048-row one
+    whole = rolling.right_dot(x2, fxt)
+    part = rolling.right_dot(x2[nyl:2 * nyl], fxt)
+    sync()
+    contract71 = {"(b) x-DST rows": torch.equal(part, whole[nyl:2 * nyl])}
+    # contract (d): left_dot into a column slice (out=) is those columns
+    # of the full product, at a 16-byte offset (TMA) and off it (4-byte
+    # copies, scalar stores)
+    full = rolling.left_dot(fy, x2)
+    for c0, w_ in ((512, 512), (130, 384)):
+        o = torch.full_like(full, float("nan"))
+        rolling.reset_launch_counts()
+        rolling.left_dot(fy, x2[:, c0:c0 + w_], out=o[:, c0:c0 + w_])
+        sync()
+        loads = ("cp.async" if rolling.left_dot.highest_cp_async_launches
+                 else "TMA")
+        key = f"(d) left_dot out=[:, {c0}:{c0 + w_}] ({loads})"
+        contract71[key] = torch.equal(o[:, c0:c0 + w_],
+                                      full[:, c0:c0 + w_])
+        del o
+    del bt, fxt, fy, slab, x2, whole, part, full
+    torch.cuda.empty_cache()
+    # the (2, 2) shard (phase 50's shapes) and the eigen z-product
+    n = N_BIG
+    f512 = rand71(n, n)
+    xb = rand71(n // 2 * n // 2, n)
+    sgemm_case("(2, 2) x-DST", (xb.shape[0], n, n, 1),
+               lambda: rolling.right_dot(xb, f512),
+               ieee_matmul(lambda: torch.matmul(xb, f512)), (xb, f512),
+               "sharded-zy", "right_dot", DOT_ZY, "TMA")
+    fz = rand71(n - 2, n)
+    pencil = rand71(n, n // 2 * n // 2)
+    sgemm_case("(2, 2) z stage", (n - 2, pencil.shape[1], n, 1),
+               lambda: rolling.left_dot(fz, pencil),
+               ieee_matmul(lambda: torch.matmul(fz, pencil)), (fz, pencil),
+               "sharded-zy", "left_dot", YZ_Z, "TMA")
+    del xb, fz, pencil
+    zin = rand71(n, n * n)
+    sgemm_case("eigen z-product", (n, n * n, n, 1),
+               lambda: rolling.left_dot(f512, zin),
+               ieee_matmul(lambda: torch.matmul(f512, zin)), (f512, zin),
+               "fft", "left_dot", EIGEN_Z, "TMA")
+    # the 512³ planes and a 130-plane block: plane_dot's two launches
+    x3 = zin.view(n, n, n)
+    fyl = rand71(n, n)
+    nb = n // SHARDS + 2
+    z0 = (SHARDS // 2) * (n // SHARDS) - 1
+    pair_ms = {}
+    for tag_, xs, path_, rep_ in (
+            (f"{nb}-plane block", x3[z0:z0 + nb], "sharded", A5_CORR_SHARD),
+            ("512^3", x3, "3d", DOT)):
+        nz_ = xs.shape[0]
+        t1 = rolling.right_dot(xs.reshape(-1, n), f512).view(nz_, n, n)
+        ms1, lib1 = sgemm_case(
+            f"{tag_} x·right", (nz_ * n, n, n, 1),
+            lambda: rolling.right_dot(xs.reshape(-1, n), f512),
+            ieee_matmul(lambda: torch.matmul(xs.reshape(-1, n), f512)),
+            (xs, f512), path_, "plane_dot", rep_, "TMA")
+        ms2, lib2 = sgemm_case(
+            f"{tag_} left·t[k]", (n, n, n, nz_),
+            lambda: rolling.left_dot(fyl, t1),
+            ieee_matmul(lambda: torch.matmul(fyl, t1)), (fyl, t1), path_,
+            "plane_dot", rep_, "TMA")
+        pair_ms[tag_] = {"kernel": ms1 + ms2, "matmul": [lib1, lib2]}
+        del t1
+    # the plane_dot records keep the einsum as their library call and
+    # carry the two per-launch torch.matmul figures beside it
+    for key_, tag_ in ((("3d", "plane_dot"), "512^3"),
+                       (("sharded", "plane_dot"), f"{nb}-plane block"),
+                       (("cons3d", "plane_dot"), "512^3")):
+        if key_ in records:
+            records[key_]["library_per_launch_ms"] = pair_ms[tag_]["matmul"]
+    # contract (c): a 130-plane block's plane_dot is those planes of the
+    # 512-plane one
+    whole = rolling.plane_dot(x3, f512, fyl)
+    blk = rolling.plane_dot(x3[z0:z0 + nb], f512, fyl)
+    sync()
+    contract71["(c) plane_dot block"] = torch.equal(blk,
+                                                    whole[z0:z0 + nb])
+    del whole, blk, x3, zin, f512, fyl
+    torch.cuda.empty_cache()
+    # the small shapes the script runs: 37x23x11's products (rows of 37
+    # floats: the 4-byte copies), 128x32 and the 128² Ghia x-DST, and the
+    # depths 2046 and 510 through factors stored padded (TMA) and packed
+    # (the 4-byte copies), which give the same bits
+    xo = rand71(11, 23, 37)
+    ro, lo = rand71(37, 37), rand71(23, 23)
+    sgemm_case("37x23x11 x·right", (253, 37, 37, 1),
+               lambda: rolling.right_dot(xo.view(-1, 37), ro),
+               ieee_matmul(lambda: torch.matmul(xo.view(-1, 37), ro)),
+               (xo, ro), loads="cp.async")
+    sgemm_case("37x23x11 left·x[k]", (23, 37, 23, 11),
+               lambda: rolling.left_dot(lo, xo),
+               ieee_matmul(lambda: torch.matmul(lo, xo)), (lo, xo),
+               loads="cp.async")
+    for rows_ in (32, 128):
+        xs_, rs_ = rand71(rows_, 128), rand71(128, 128)
+        sgemm_case(f"128x{rows_} x-DST", (rows_, 128, 128, 1),
+                   lambda: rolling.right_dot(xs_, rs_),
+                   ieee_matmul(lambda: torch.matmul(xs_, rs_)), (xs_, rs_),
+                   loads="TMA")
+    for k_, m_, n_ in ((2046, 2048, 512), (510, 512, 4096)):
+        lp = spectral._tma_rows(rand71(m_, k_), "highest")
+        lc = lp.contiguous()
+        xk = rand71(k_, n_)
+        sgemm_case(f"K={k_} padded", (m_, n_, k_, 1),
+                   lambda: rolling.left_dot(lp, xk),
+                   ieee_matmul(lambda: torch.matmul(lc, xk)), (lc, xk),
+                   loads="TMA")
+        sgemm_case(f"K={k_} packed", (m_, n_, k_, 1),
+                   lambda: rolling.left_dot(lc, xk),
+                   ieee_matmul(lambda: torch.matmul(lc, xk)), (lc, xk),
+                   loads="cp.async")
+        a_ = rolling.left_dot(lp, xk)
+        b_ = rolling.left_dot(lc, xk)
+        sync()
+        contract71[f"(e) K={k_} TMA == 4-byte copies"] = torch.equal(a_, b_)
+        del lp, lc, xk, a_, b_
+    for key_, ok_ in contract71.items():
+        print(f"phase 71 contract {key_}: bit for bit {ok_}", flush=True)
+    # the mainloop's instruction mix, from the built library's SASS: each
+    # instantiation's span from its first to its last FFMA (the unrolled
+    # 32-deep stage)
+    tool = Path(native._nvcc()).parent / "cuobjdump"
+    sass = subprocess.run(
+        [str(tool), "-sass", str(native.library_path())],
+        capture_output=True, text=True, timeout=300).stdout \
+        if tool.exists() else ""
+    if "sgemm_fp32_kernel" not in sass:
+        print(f"phase 71 SASS: not read ({tool})", flush=True)
+    for fn_ in sass.split("Function : ")[1:]:
+        inst = re.search(r"sgemm_fp32_kernelILi(\d)ELb(\d)", fn_)
+        if not inst:
+            continue
+        ops = re.findall(SASS_OP, fn_)
+        ffma = [i for i, o in enumerate(ops) if o == "FFMA"]
+        loop = ops[ffma[0]:ffma[-1] + 1]
+        mix = {o: loop.count(o) for o in sorted(set(loop))}
+        tag_ = (f"sgemm_fp32_kernel<{inst.group(1)}, "
+                f"{'TMA' if inst.group(2) == '1' else 'cp.async'}>")
+        share = mix["FFMA"] / len(loop)
+        sgemm_rec[f"SASS {tag_}"] = {"mainloop": len(loop),
+                                      "ffma_share": share, "mix": mix}
+        print(f"phase 71 SASS {tag_}: mainloop {len(loop)} instructions, "
+              f"FFMA share {share:.3f}, {mix}", flush=True)
+    if not all(contract71.values()):
+        fail("phase 71: the SGEMM's sum-order contract does not hold "
+             f"{contract71}")
+    print(f"phase 71 took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+    # a phase-71 record takes its wrapper's launches on its main path
+    for path_, name_, counted_ in sgemm_alias:
+        launch_counts[path_][name_] = launch_counts[path_][counted_]
+
     kernels = []
     for (path, name), rec in records.items():
         launches = launch_counts.get(path, {}).get(name)
@@ -8457,6 +8748,10 @@ def main() -> int:
             "max_rel_err": rec["max_rel_err"], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]})
+        if "library_per_launch_ms" in rec:
+            # (plane_dot: one torch.matmul of each of its two launches)
+            kernels[-1]["library_per_launch_ms"] = \
+                rec["library_per_launch_ms"]
     print(json.dumps({"kernels": kernels, "step_ms": ms3,
                       "grid": f"{N_BIG}x{N_BIG}x{N_BIG}", "step_ms_2d": ms2,
                       "grid_2d": f"{n2}x{n2}", "explicit_step_ms":
@@ -8512,6 +8807,8 @@ def main() -> int:
                       "rescue": rescue_rec,
                       "tf32_plans": tf32_plans, "tf32_depths": tf32_depths,
                       "tf32_contract": contract,
+                      "sgemm_shapes": sgemm_rec,
+                      "sgemm_contract": contract71,
                       "launch_counts": launch_counts,
                       "card": card}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -70,9 +70,11 @@ SIGNATURES = {
     "cfd_sgemm_batched": [_I] * 3 + [_P, _L, _L, _P, _L, _L, _P, _L, _L]
     + [_I, _P],
     "cfd_sgemm_plan": [_I] * 4 + [_P],
-    # gemm_3xtf32.cu (the DST products at spectral_precision="high")
+    # gemm_3xtf32.cu (every DST product at spectral_precision="high"),
+    # and a launch's plan (M, N, K, batch, int[5] out; no stream: a query)
     "cfd_sgemm_3xtf32_batched": [_I] * 3 + [_P, _L, _L, _P, _L, _L, _P, _L,
                                             _L] + [_I, _P],
+    "cfd_sgemm_3xtf32_plan": [_I] * 4 + [_P],
     # gemm_tf32.cu (every product at spectral_precision="default": the
     # batched GEMM, the 2D rescue's A·B [/ lam], lam null for no divide)
     "cfd_sgemm_tf32_batched": [_I] * 3 + [_P, _L, _L, _P, _L, _L, _P, _L,

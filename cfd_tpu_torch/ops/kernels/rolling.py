@@ -16,19 +16,20 @@ y-solve's rescue :func:`rescue_dot` (the eigenvalue divide fused:
 * ``"highest"`` — IEEE fp32 (``Precision.HIGHEST``): the hand-written
   SGEMM of ``csrc/sgemm_fp32.cu`` on a CUDA tensor;
 * ``"high"`` — 3xTF32 (``Precision.HIGH``, bf16_3x on the TPU): the
-  hand-written tensor-core GEMM of ``csrc/gemm_3xtf32.cu``;
+  hand-written wgmma / TMA GEMM of ``csrc/gemm_3xtf32.cu``;
 * ``"default"`` — one TF32 pass (``Precision.DEFAULT``, one bf16 pass on
   the TPU): the hand-written wgmma / TMA GEMM of ``csrc/gemm_tf32.cu``,
   which also runs the rescue's DEFAULT products.
 
 On a CPU tensor each runs its plain version.  Each wrapper counts the
 SGEMM launches in ``launches``, the 3xTF32 launches in ``high_launches``
-and the one-pass TF32 launches in ``default_launches``; of the SGEMM's
-and the one-pass GEMM's, the launches whose operands TMA cannot read (a
-base, leading dimension or batch stride off 16 bytes) and which load
-them through 4-byte ``cp.async`` copies instead, also in
-``highest_cp_async_launches`` / ``default_cp_async_launches``
-(``<precision>_cp_async_launches``, :data:`CP_ASYNC_COUNTERS`).
+and the one-pass TF32 launches in ``default_launches``; of each
+precision's GEMM, the launches whose operands TMA cannot read (a base,
+leading dimension or batch stride off 16 bytes) and which load them
+through 4-byte ``cp.async`` copies instead, also in
+``highest_cp_async_launches`` / ``high_cp_async_launches`` /
+``default_cp_async_launches`` (``<precision>_cp_async_launches``,
+:data:`CP_ASYNC_COUNTERS`).
 
 Neither ``plane_masks`` nor the wrapped ``shift_x``/``shift_y`` semantics
 are needed: the plain versions read neighbours by interior slices
@@ -51,15 +52,21 @@ and the 2D `block_dot`, `projection2d.py:97-106`):
   and FFMAs on 128×128 or 64×128 tiles (the smaller where it fills the
   card better, :func:`sgemm_plan`), each thread 8 or 4 rows by 8
   columns, walking tiles persistently.
-* ``gemm_3xtf32_kernel`` (``"high"``): bound by the TF32 tensor-core
-  rate — 3·2·n⁴ operations per product.  Each fp32 operand is split into
-  big = rna_tf32(a) and small = rna_tf32(a − big), and each 8-deep
-  k-step sums small·big, big·small, then big·big in fp32 (``mma.sync``
-  m16n8k8) into fresh registers, which one IEEE add takes into the
-  running sum (the tensor core's fp32 sums do not round to nearest):
-  fp32-class accuracy, about 2⁻²² relative, at three tensor-core
-  passes.  A 128×128 CTA tile, 2×4 warps of 64×32, two shared-memory
-  stages.
+* ``gemm_3xtf32_kernel`` (``"high"``, ``csrc/gemm_3xtf32.cu``): bound
+  by the TF32 tensor-core rate — 3·2·n⁴ operations per product — and,
+  beside it, by shared memory (``wgmma`` reads its shared operand at half
+  the SM's rate).  Each fp32 operand is split once into big =
+  rna_tf32(a) and small = rna_tf32(a − big): A's tile in shared memory
+  by idle producer warps, B's fragments in registers (``wgmma``'s
+  register operand, Cᵀ = Bᵀ·Aᵀ as the one-pass GEMM).  Its sum order is
+  a function of K alone (:func:`high_sum_order`): each 32-deep stage is
+  a chunk that the tensor core sums from zero, small·big and big·small
+  first, then big·big (``wgmma`` m64n128k8 or m64n64k8), and one IEEE
+  add takes it into the running sum (the tensor core's fp32 sums do not
+  round to nearest): fp32-class accuracy, about 2⁻²² relative, at three
+  tensor-core passes.  A TMA-fed ring of stages, persistent CTAs, 128×128
+  or 64×128 tiles by the shape (:func:`high_plan`); 4-byte ``cp.async``
+  copies for operands off 16 bytes.
 * ``gemm_tf32_kernel`` (``"default"``, ``csrc/gemm_tf32.cu``): one
   tensor-core pass, ``wgmma`` m64n128k8 fed by TMA — 2·n⁴ operations,
   which at 512³ take less time at the TF32 rate than moving the planes:
@@ -83,10 +90,9 @@ _GEMM = {"highest": "cfd_sgemm_batched", "high": "cfd_sgemm_3xtf32_batched",
 # the wrappers' counter of each precision's launches
 _COUNTER = {"highest": "launches", "high": "high_launches",
             "default": "default_launches"}
-# ... and of the launches that load through 4-byte cp.async copies (the
-# SGEMM's and the one-pass GEMM's, whose operands TMA cannot read)
-CP_ASYNC_COUNTERS = {"highest": "highest_cp_async_launches",
-                     "default": "default_cp_async_launches"}
+# ... and of the launches that load through 4-byte cp.async copies (each
+# GEMM's, whose operands TMA cannot read)
+CP_ASYNC_COUNTERS = {p: f"{p}_cp_async_launches" for p in _GEMM}
 PRECISIONS = tuple(_GEMM)
 
 # The one-pass TF32 GEMM's sum order (`csrc/gemm_tf32.cu`, chunk_plan):
@@ -117,11 +123,33 @@ def tf32_sum_order(k: int):
     return d, tuple((k0, min(k, k0 + d)) for k0 in range(0, k, d))
 
 
+# The 3xTF32 GEMM's sum order (`csrc/gemm_3xtf32.cu`): k-stages of
+# HIGH_STAGE_K, each one chunk.
+HIGH_STAGE_K = 32
+
+
+def high_sum_order(k: int):
+    """``(D, chunks)``: the order in which the 3xTF32 GEMM sums an
+    output element's ``k`` products, a function of ``k`` alone.  The k
+    axis is cut into stages of 32 (the ragged tail zero-filled) and each
+    stage is a chunk, D = 32 at every depth; ``chunks`` are their [k0,
+    k1) within [0, k), ascending.  The tensor core sums each chunk from
+    zero — its small·big and big·small terms, then its big·big terms —
+    and the chunks go into an fp32 running sum in that order, one IEEE
+    add each, whatever the tile, the CTAs or the load path."""
+    k = int(k)
+    if k < 0:
+        raise ValueError(f"high_sum_order: depth {k} < 0")
+    d = HIGH_STAGE_K
+    return d, tuple((k0, min(k, k0 + d)) for k0 in range(0, k, d))
+
+
 def _tma_operands(a: int, lda: int, sa: int, b: int, ldb: int, sb: int,
                   batch: int) -> bool:
-    """Whether the SGEMM and the one-pass GEMM load A and B by TMA:
-    16-byte bases, leading dimensions and batch strides (`gemm_tf32.cu`,
-    run_gemm; `sgemm_fp32.cu`, cfd_sgemm_batched)."""
+    """Whether the GEMMs load A and B by TMA: 16-byte bases, leading
+    dimensions and batch strides (`gemm_tf32.cu`, run_gemm;
+    `sgemm_fp32.cu`, cfd_sgemm_batched; `gemm_3xtf32.cu`,
+    cfd_sgemm_3xtf32_batched)."""
     return (a % 16 == 0 and lda % 4 == 0 and b % 16 == 0 and ldb % 4 == 0
             and (batch == 1 or (sa % 4 == 0 and sb % 4 == 0)))
 
@@ -153,6 +181,21 @@ def sgemm_plan(m: int, n: int, k: int, batch: int = 1) -> dict:
     if rc != 0:
         raise RuntimeError(f"cfd_sgemm_plan: CUDA error {rc}")
     return {"tile": (out[0], out[1]), "ctas": out[2], "tiles": out[3]}
+
+
+def high_plan(m: int, n: int, k: int, batch: int = 1) -> dict:
+    """The 3xTF32 GEMM's plan for an ``m``×``n``×``k`` launch over
+    ``batch`` on the current CUDA device (`cfd_sgemm_3xtf32_plan`): the
+    output tile (rows, columns), the persistent CTAs, the tiles they walk
+    and D(K).  Its sum order does not depend on the plan."""
+    import ctypes
+
+    out = (ctypes.c_int * 5)()
+    rc = native.library().cfd_sgemm_3xtf32_plan(m, n, k, batch, out)
+    if rc != 0:
+        raise RuntimeError(f"cfd_sgemm_3xtf32_plan: CUDA error {rc}")
+    return {"tile": (out[0], out[1]), "ctas": out[2], "tiles": out[3],
+            "D": out[4]}
 
 
 @contextlib.contextmanager
@@ -237,8 +280,7 @@ def _gemm(wrapper, precision, device, *args) -> None:
     """Launch the GEMM of ``precision`` and count it on ``wrapper``
     (args: M, N, K, A, lda, sA, B, ldb, sB, C, ldc, sC, batch)."""
     native.launch(_GEMM[precision], device, *args)
-    _count(wrapper, precision, precision not in CP_ASYNC_COUNTERS
-           or _tma_operands(*args[3:9], args[12]))
+    _count(wrapper, precision, _tma_operands(*args[3:9], args[12]))
 
 
 def plane_dot_plain(x: torch.Tensor, right: torch.Tensor,

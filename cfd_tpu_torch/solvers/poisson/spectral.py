@@ -32,8 +32,8 @@ carries its own Neumann shell.
 The DST and z products run through `ops.kernels.rolling` at the caller's
 precision, ``"highest"`` (IEEE fp32), ``"high"`` (3xTF32) or
 ``"default"`` (one TF32 pass): on a CUDA tensor the hand-written SGEMM
-(``csrc/sgemm_fp32.cu``), 3xTF32 GEMM or one-pass TF32 GEMM
-(``csrc/gemm_tf32.cu``; for the first and the last, factors with rows
+(``csrc/sgemm_fp32.cu``), 3xTF32 GEMM (``csrc/gemm_3xtf32.cu``) or
+one-pass TF32 GEMM (``csrc/gemm_tf32.cu``; for each, factors with rows
 off 16 bytes are stored padded, :func:`_tma_rows`), on a CPU tensor (or
 with ``plain``) the plain version.  (The reference computes the pipelines'
 products as jnp matmuls outside any Pallas kernel.)  The Thomas stages
@@ -383,17 +383,17 @@ def make_dst_fused_sharded_zy_pieces(problem: PoissonProblem, n_z: int,
 
 
 def _tma_rows(t: torch.Tensor, precision: str) -> torch.Tensor:
-    """A 2D float32 constant of the IEEE fp32 ("highest") or one-pass
-    TF32 ("default") products, stored with its rows padded to a multiple
-    of 4 floats (16 bytes) and returned as a view of its own shape, so
-    that the SGEMM (`csrc/sgemm_fp32.cu`) and the one-pass GEMM
-    (`csrc/gemm_tf32.cu`) load it by TMA: the (ny, my) and (nz, mz)
-    inverse factors have rows of 2046 floats at 2048² and 510 at 512³.
-    K and every value are unchanged (the plain versions multiply the
-    packed copy); "high" and other dtypes take ``t`` as it is."""
+    """A 2D float32 constant of the spectral products, stored with its
+    rows padded to a multiple of 4 floats (16 bytes) and returned as a
+    view of its own shape, so that the GEMM of every precision (the
+    SGEMM, `csrc/sgemm_fp32.cu`; the 3xTF32 GEMM, `csrc/gemm_3xtf32.cu`;
+    the one-pass GEMM, `csrc/gemm_tf32.cu`) loads it by TMA: the (ny, my)
+    and (nz, mz) inverse factors have rows of 2046 floats at 2048² and
+    510 at 512³.  K and every value are unchanged (the plain versions
+    multiply the packed copy); other dtypes take ``t`` as it is."""
     r, c = t.shape
     c4 = -(-c // 4) * 4
-    if precision not in ("highest", "default") \
+    if precision not in ("highest", "high", "default") \
             or t.dtype != torch.float32 or c4 == c:
         return t
     buf = t.new_zeros((r, c4))

@@ -401,6 +401,26 @@ Then the IEEE fp32 SGEMM (``csrc/sgemm_fp32.cu``, every HIGHEST product):
   36, 43, 52 and 59 fail where a HIGHEST step's SGEMM launch took the
   4-byte copies (``highest_cp_async_launches``).
 
+Then the 3xTF32 GEMM (``csrc/gemm_3xtf32.cu``, every HIGH product):
+
+* phase 72: the 3xTF32 GEMM against its plain version at every launch
+  shape of the HIGH main paths (the 4y shard's x-DST and y slab, the
+  2048² x-DST, the (2, 2) shard's x-DST and z stage, the two
+  ``plane_dot`` launches of 512×512×3, of a 130-plane block and of the
+  512³ planes, the 128² cavity's x-DST) and at the small ones
+  (37×23×11, 128×32, K = 2046 and 510 through factors stored padded and
+  packed): ``TOL_GEMM``, its error against a float64 product within
+  ``GEMM_VS_SGEMM`` of the SGEMM's, two launches bit-identical, one
+  launch a call, its plan (tile, CTAs, tiles, D(K) against
+  ``rolling.high_sum_order``, TMA or the 4-byte copies), device ms
+  beside its bound, the SGEMM's launch and one ``torch.matmul`` (TF32
+  off) of the same product; the sum-order contract bit for bit (a
+  512-row slice's x-DST, a 130-plane block's ``plane_dot``,
+  ``left_dot`` into column slices at and off 16 bytes, TMA against the
+  4-byte copies at K = 2046 and 510).  Phases 27–29, 36, 43, 52 and 59
+  fail where a HIGH launch of a main path took the 4-byte copies
+  (``high_cp_async_launches``).
+
 On phases 59, 60, 66, 69 and 70 the plain twins of the path are
 tripwires too.
 
@@ -1154,17 +1174,20 @@ def main() -> int:
                 return fn()
         return run
 
-    def no_element_loads(label):
-        """Fail where an SGEMM launch of a HIGHEST main path loaded its
-        operands through the 4-byte copies (a factor or slab off 16
-        bytes) since the counters were last set to 0."""
-        n_el = {g_.__name__: g_.highest_cp_async_launches
+    def no_element_loads(label, precision="highest"):
+        """Fail where a GEMM launch of a main path at ``precision`` (the
+        SGEMM at "highest", the 3xTF32 GEMM at "high") loaded its operands
+        through the 4-byte copies (a factor or slab off 16 bytes) since
+        the counters were last set to 0."""
+        name = rolling.CP_ASYNC_COUNTERS[precision]
+        n_el = {g_.__name__: getattr(g_, name)
                 for g_ in (rolling.plane_dot, rolling.right_dot,
                            rolling.left_dot)}
-        print(f"{label}: SGEMM launches through the 4-byte copies {n_el}",
+        what = {"highest": "SGEMM", "high": "3xTF32"}[precision]
+        print(f"{label}: {what} launches through the 4-byte copies {n_el}",
               flush=True)
         if max(n_el.values()) != 0:
-            fail(f"{label}: an SGEMM launch did not load by TMA")
+            fail(f"{label}: a {what} launch did not load by TMA")
 
     fld = (TOL_FIELD, False)
     exact = (TOL_EXACT, True)
@@ -3362,6 +3385,7 @@ def main() -> int:
         x = f.p
         dot_ops = 3 * (gemm_flops(nz_ * ny_, nx_, nx_)
                        + gemm_flops(ny_, nx_, ny_, nz_))
+        rolling.reset_launch_counts()
         bhat = check(
             "3d-high", tag, big, rolling.plane_dot, HP_DOT, SRC_GEMM,
             lambda: rolling.plane_dot(x, fxt, fy, "high"),
@@ -3373,6 +3397,7 @@ def main() -> int:
             name="plane_dot[3xtf32]", rate=TF32_TC_FLOPS)[0]
         if not big:
             continue
+        no_element_loads(f"phase 27 plane_dot at {tag}", "high")
         vs_float64(f"phase 27 x·FxT at {tag} (depth {nx_})",
                    x.view(-1, nx_), fxt)
         cells = x.numel()
@@ -3400,6 +3425,7 @@ def main() -> int:
                                              precision="high")
     bt = noisy(FlowField.initialize(grid2, dtype=torch.float32,
                                     device=dev), SEED).p
+    rolling.reset_launch_counts()
     a = check("2d-high", tag, True, rolling.right_dot, HP_DOT, SRC_GEMM,
               lambda: rolling.right_dot(bt, fxt, "high"),
               lambda: rolling.right_dot_plain(bt, fxt, "high"),
@@ -3407,6 +3433,7 @@ def main() -> int:
               work=((bt, fxt), 3 * gemm_flops(N_2D, N_2D, N_2D)),
               library=ieee_matmul(lambda: torch.matmul(bt, fxt)),
               name="right_dot[3xtf32]", rate=TF32_TC_FLOPS)[0][0]
+    no_element_loads(f"phase 27 right_dot at {tag}", "high")
     vs_float64(f"phase 27 bt·FxT at {tag} (depth {N_2D})", bt, fxt)
     rescue_checks("2d-high", tag, ysolve, a, "high", "rescue_dot[3xtf32]",
                   TF32_TC_FLOPS, ieee_matmul, True)
@@ -3475,6 +3502,7 @@ def main() -> int:
     launch_counts["3d-high"] = high_counts(f"phase 28 {n}^3 HIGH",
                                            pkm.WRAPPERS_HIGH,
                                            (rolling.plane_dot,))
+    no_element_loads(f"phase 28 {n}^3 HIGH", "high")
     dp3 = high_vs_highest(f"phase 28 {n}^3", grid, params, (n, n, n), 1e-4,
                           HIGH_U)
     print(f"phase 28 {n}^3 HIGH {ms3h['kernel']:.3f} ms/step against "
@@ -3489,6 +3517,7 @@ def main() -> int:
     launch_counts["2d-high"] = high_counts(
         f"phase 28 {n2}^2 HIGH", pk2m.WRAPPERS_HIGH,
         (rolling.right_dot, rolling.rescue_dot))
+    no_element_loads(f"phase 28 {n2}^2 HIGH", "high")
     dp2 = high_vs_highest(f"phase 28 {n2}^2", grid_2d, params, (1, n2, n2),
                           1e-5, HIGH_U_2D)
     print(f"phase 28 {n2}^2 HIGH {ms2h['kernel']:.3f} ms/step against "
@@ -3512,6 +3541,7 @@ def main() -> int:
                              TIMED_STEPS, nz3_high, precision="high")
     launch_counts["nz3-high"] = high_counts(f"phase 28 {tag3} HIGH",
                                             nz3_high, (rolling.plane_dot,))
+    no_element_loads(f"phase 28 {tag3} HIGH", "high")
     f, (fxt, fy, gxt, gy), mu, w, c = make_inputs(N_NZ3, SEED)
     cells = f.u.numel()
     rod = torch.full((), 1e3, device=dev)
@@ -3571,6 +3601,10 @@ def main() -> int:
             or rolling.rescue_dot.high_launches <= 0 \
             or rolling.right_dot.launches or rolling.rescue_dot.launches:
         fail("phase 29: the HIGH cavity did not run the 3xTF32 GEMMs")
+    no_element_loads("phase 29 Ghia at HIGH", "high")
+    launch_counts["ghia-high"] = {
+        "right_dot[3xtf32]": rolling.right_dot.high_launches,
+        "rescue_dot[3xtf32]": rolling.rescue_dot.high_launches}
 
     # ---- phase 30: FFT_DIRECT, SOR and Gauss-Seidel through the front end
     # FFT_DIRECT on cg_512's problem: the kernel solve (float32, the
@@ -4469,6 +4503,7 @@ def main() -> int:
         f"phase 36 {n}^3 consistent HIGH",
         cons_3d + (tdma.tdma_z_fwd_d, tdma.tdma_z_bwd_analytic),
         (rolling.plane_dot,))
+    no_element_loads(f"phase 36 {n}^3 consistent HIGH", "high")
     dp_c = high_vs_highest(f"phase 36 {n}^3 consistent", grid_s, params_c,
                            (n, n, n), 1e-4, HIGH_U, HIGH_P_CONS)
 
@@ -5427,8 +5462,7 @@ def main() -> int:
         if prec == "high" and rolling.plane_dot.launches:
             fail(f"{label}: an SGEMM launched on the HIGH path")
         launch_counts["sharded-high" if prec else "sharded"] = counts
-        if not prec:
-            no_element_loads(label)
+        no_element_loads(label, prec or "highest")
         f1, res_1, ms_1 = timed_steps(single, f0)
         g = gather_field(fs)
         print(f"{label}: {ms_s:.3f} ms/step, "
@@ -6347,8 +6381,7 @@ def main() -> int:
             if prec and (rolling.right_dot.launches
                          or rolling.left_dot.launches):
                 fail(f"{label}: an SGEMM launched on the HIGH path")
-            if not prec:
-                no_element_loads(label)
+            no_element_loads(label, prec or "highest")
             path = "sharded-zy-high" if prec else "sharded-zy"
             if mshape == ZY:
                 launch_counts[path] = counts
@@ -7271,8 +7304,7 @@ def main() -> int:
         if prec and (rolling.right_dot.launches
                      or rolling.left_dot.launches):
             fail(f"{label}: an SGEMM launched on the HIGH path")
-        if not prec:
-            no_element_loads(label)
+        no_element_loads(label, prec or "highest")
         launch_counts["sharded-2d-high" if prec else "sharded-2d"] = counts
         run_steps(single, f0, dt_2, 3)
         sync()
@@ -8732,8 +8764,258 @@ def main() -> int:
     print(f"phase 71 took {time.perf_counter() - t_phase:.1f} s",
           flush=True)
 
-    # a phase-71 record takes its wrapper's launches on its main path
-    for path_, name_, counted_ in sgemm_alias:
+    # ---- phase 72: the 3xTF32 GEMM at every HIGH launch shape ---------------
+    # csrc/gemm_3xtf32.cu at each shape the HIGH main paths launch (the 4y
+    # shard's x-DST and y slab, the 2048² x-DST, the (2, 2) shard's x-DST
+    # and z stage, the two plane_dot launches of a 130-plane block, of the
+    # 512³ planes — the uniform and the consistent step's — and of
+    # 512×512×3, the 128² cavity's x-DST) and the small ones the script
+    # runs: the kernel against its plain version at TOL_GEMM, its error
+    # against a float64 product of the same inputs within GEMM_VS_SGEMM of
+    # the SGEMM's, two launches bit-identical, one 3xTF32 launch a call,
+    # its plan (tile, CTAs, tiles, D(K) against rolling.high_sum_order,
+    # loads), device ms beside its bound, one torch.matmul (TF32 off) and
+    # the SGEMM's launch of the same product.  Then the sum-order contract
+    # bit for bit: a row slice's x-DST, a plane block's plane_dot and a
+    # column slice written in place are those rows, planes and columns of
+    # the whole product, and the TMA and 4-byte-copy launches agree.
+    t_phase = time.perf_counter()
+    print("phase 72 the 3xTF32 GEMM vs plain at every HIGH launch shape",
+          flush=True)
+    g72 = torch.Generator(device=dev).manual_seed(SEED + 72)
+
+    def rand72(*shape):
+        return torch.randn(shape, generator=g72, device=dev)
+
+    high_rec = {}
+    # records of the main paths' shapes: (path, record name, the wrapper
+    # whose 3xTF32 launches on that main path the record takes)
+    high_alias = []
+
+    def high_case(tag, mnkb, call, ins, paths=(), counted=None,
+                  replaces=DOT, loads="TMA"):
+        """One launch shape: ``call(precision)`` is one wrapper call, at
+        "high" one 3xTF32 launch of M x N x K over the batch ``mnkb``, at
+        "highest" one SGEMM launch; ``ins`` the product's operands (left,
+        right), whose torch.matmul is the library call and, in float64,
+        the truth."""
+        m, n_, k, b = mnkb
+        rolling.reset_launch_counts()
+        got = call("high")
+        sync()
+        n_cp = sum(g_.high_cp_async_launches for g_ in rolling.WRAPPERS)
+        n_hi = sum(g_.high_launches for g_ in rolling.WRAPPERS)
+        n_sg = sum(g_.launches for g_ in rolling.WRAPPERS)
+        again = call("high")
+        plain = rolling.matmul_plain(*ins, "high")
+        sync()
+        same = torch.equal(got, again)
+        del again
+        err, rel = compare(f"phase 72 {tag}", "3xtf32", got, plain, *gemm)
+        del plain
+        # against float64: the 3xTF32 GEMM's error at most GEMM_VS_SGEMM
+        # times the SGEMM's
+        truth = torch.matmul(ins[0].double(), ins[1].double())
+        scale = float(truth.abs().max())
+        e_hi = float((got.double() - truth).abs().max()) / scale
+        del got
+        sg = call("highest")
+        e_sg = float((sg.double() - truth).abs().max()) / scale
+        del sg, truth
+        torch.cuda.empty_cache()
+        if not same:
+            fail(f"phase 72 {tag}: two launches differ")
+        if n_hi != 1 or n_sg != 0:
+            fail(f"phase 72 {tag}: {n_hi} 3xTF32 and {n_sg} SGEMM launches "
+                 f"a call, not 1 and 0")
+        path_ = "cp.async" if n_cp else "TMA"
+        if path_ != loads:
+            fail(f"phase 72 {tag}: loads by {path_}, expected {loads}")
+        if not e_hi <= GEMM_VS_SGEMM * e_sg:
+            fail(f"phase 72 {tag}: error against float64 {e_hi:.3e}, above "
+                 f"{GEMM_VS_SGEMM} x the SGEMM's {e_sg:.3e}")
+        pl = rolling.high_plan(m, n_, k, b)
+        d, chunks = rolling.high_sum_order(k)
+        if pl["D"] != d:
+            fail(f"phase 72 {tag}: the kernel's D(K) {pl['D']} is not "
+                 f"high_sum_order's {d}")
+        ms = device_ms(lambda: call("high"))
+        sg_ms = device_ms(lambda: call("highest"))
+        lib_ms = device_ms(ieee_matmul(lambda: torch.matmul(*ins)))
+        plain_ms = device_ms(lambda: rolling.matmul_plain(*ins, "high"))
+        flops = 3 * gemm_flops(m, n_, k, b)
+        b_ms, b_by = bound(nbytes(ins) + 4 * m * n_ * b, flops,
+                           TF32_TC_FLOPS)
+        print(f"  phase 72 {tag}: M={m} N={n_} K={k} batch={b}: tile "
+              f"{pl['tile'][0]}x{pl['tile'][1]}, {pl['ctas']} CTAs over "
+              f"{pl['tiles']} tiles, D={pl['D']} ({len(chunks)} chunks), "
+              f"loads {path_}; two launches bit-identical {same}; vs "
+              f"float64 {e_hi:.3e} (SGEMM {e_sg:.3e}); kernel {ms:.4f} ms, "
+              f"SGEMM {sg_ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"torch.matmul {lib_ms:.4f} ms ({ms / lib_ms:.2f}x), bound {b_ms:.4f} ms ({b_by}; "
+              f"{flops / ms / 1e9:.1f} TFLOP/s, "
+              f"{100 * flops / ms / 1e9 / (TF32_TC_FLOPS / 1e12):.1f}% of "
+              f"the TF32 peak)", flush=True)
+        high_rec[tag] = {"M": m, "N": n_, "K": k, "batch": b, "plan": pl,
+                         "loads": path_, "ms": ms, "sgemm_ms": sg_ms,
+                         "plain_ms": plain_ms, "matmul_ms": lib_ms,
+                         "bound_ms": b_ms,
+                         "max_rel_err": rel, "vs_float64": e_hi,
+                         "sgemm_vs_float64": e_sg,
+                         "repeat_bit_identical": same}
+        for path in paths:
+            name = f"gemm_3xtf32[{tag}]"
+            records[(path, name)] = {
+                "replaces": replaces, "source": SRC_GEMM,
+                "max_abs_err": err, "max_rel_err": rel, "ms": ms,
+                "plain_ms": plain_ms, "library_ms": lib_ms,
+                "bound_ms": b_ms, "bound_by": b_by}
+            high_alias.append((path, name, counted))
+        return ms, lib_ms
+
+    def right72(x, f):
+        return lambda prec: rolling.right_dot(x, f, prec)
+
+    def left72(f, x, out=None):
+        return lambda prec: rolling.left_dot(f, x, out, prec)
+
+    # the 4y shard and the 2048² x-DST (the 2046-float inverse factor
+    # stored padded, as the spectral pieces store it)
+    nyl, n2 = N_2D // SHARDS, N_2D
+    bt = rand72(nyl, n2)
+    fxt = rand72(n2, n2)
+    fy = spectral._tma_rows(rand72(n2 - 2, n2), "high")
+    slab = rand72(n2, n2 // SHARDS)
+    high_case("4y x-DST", (nyl, n2, n2, 1), right72(bt, fxt), (bt, fxt),
+              ("sharded-2d-high",), "right_dot[3xtf32]", DOT2)
+    high_case("4y y slab", (n2 - 2, n2 // SHARDS, n2, 1), left72(fy, slab),
+              (fy, slab), ("sharded-2d-high",), "left_dot[3xtf32]", YS_2D)
+    x2 = rand72(n2, n2)
+    high_case("2048^2 x-DST", (n2, n2, n2, 1), right72(x2, fxt), (x2, fxt),
+              ("2d-high",), "right_dot[3xtf32]", DOT2)
+    # contract (b): a 512-row slice's x-DST (another tile) is those rows
+    # of the 2048-row one
+    whole = rolling.right_dot(x2, fxt, "high")
+    part = rolling.right_dot(x2[nyl:2 * nyl], fxt, "high")
+    sync()
+    contract72 = {"(b) x-DST rows": torch.equal(part, whole[nyl:2 * nyl])}
+    # contract (d): left_dot into a column slice (out=) is those columns
+    # of the full product, at a 16-byte offset (TMA) and off it (4-byte
+    # copies)
+    full = rolling.left_dot(fy, x2, precision="high")
+    for c0, w_ in ((512, 512), (130, 384)):
+        o = torch.full_like(full, float("nan"))
+        rolling.reset_launch_counts()
+        rolling.left_dot(fy, x2[:, c0:c0 + w_], o[:, c0:c0 + w_], "high")
+        sync()
+        loads = ("cp.async" if rolling.left_dot.high_cp_async_launches
+                 else "TMA")
+        key = f"(d) left_dot out=[:, {c0}:{c0 + w_}] ({loads})"
+        contract72[key] = torch.equal(o[:, c0:c0 + w_],
+                                      full[:, c0:c0 + w_])
+        del o
+    del bt, fxt, fy, slab, x2, whole, part, full
+    torch.cuda.empty_cache()
+    # the (2, 2) shard (the 510-float inverse factor padded)
+    n = N_BIG
+    f512 = rand72(n, n)
+    xb = rand72(n // 2 * n // 2, n)
+    high_case("(2, 2) x-DST", (xb.shape[0], n, n, 1), right72(xb, f512),
+              (xb, f512), ("sharded-zy-high",), "right_dot[3xtf32]",
+              DOT_ZY)
+    del xb
+    fz = spectral._tma_rows(rand72(n - 2, n), "high")
+    pencil = rand72(n, n // 2 * n // 2)
+    high_case("(2, 2) z stage", (n - 2, pencil.shape[1], n, 1),
+              left72(fz, pencil), (fz, pencil), ("sharded-zy-high",),
+              "left_dot[3xtf32]", YZ_Z)
+    del fz, pencil
+    torch.cuda.empty_cache()
+    # the 512³ planes (the uniform and the consistent step's), a 130-plane
+    # block and 512×512×3: plane_dot's two launches
+    x3 = rand72(n, n, n)
+    fyl = rand72(n, n)
+    nb = n // SHARDS + 2
+    z0 = (SHARDS // 2) * (n // SHARDS) - 1
+    pair_ms = {}
+    for tag_, xs, paths_, rep_ in (
+            ("512x512x3", x3[:3], ("nz3-high",), DOT),
+            (f"{nb}-plane block", x3[z0:z0 + nb], ("sharded-high",),
+             A5_CORR_SHARD),
+            ("512^3", x3, ("3d-high", "cons3d-high"), DOT)):
+        nz_ = xs.shape[0]
+        x2d = xs.reshape(-1, n)
+        t1 = rolling.right_dot(x2d, f512, "high").view(nz_, n, n)
+        ms1, lib1 = high_case(f"{tag_} x·right", (nz_ * n, n, n, 1),
+                              right72(x2d, f512), (x2d, f512), paths_,
+                              "plane_dot[3xtf32]", rep_)
+        ms2, lib2 = high_case(f"{tag_} left·t[k]", (n, n, n, nz_),
+                              left72(fyl, t1), (fyl, t1), paths_,
+                              "plane_dot[3xtf32]", rep_)
+        pair_ms[tag_] = {"kernel": ms1 + ms2, "matmul": [lib1, lib2]}
+        del t1, x2d
+        torch.cuda.empty_cache()
+    # the plane_dot records keep the einsum as their library call and
+    # carry the two per-launch torch.matmul figures beside it
+    for key_, tag_ in ((("3d-high", "plane_dot[3xtf32]"), "512^3"),
+                       (("cons3d-high", "plane_dot[3xtf32]"), "512^3"),
+                       (("nz3-high", "plane_dot[3xtf32]"), "512x512x3")):
+        if key_ in records:
+            records[key_]["library_per_launch_ms"] = pair_ms[tag_]["matmul"]
+    # contract (c): a 130-plane block's plane_dot is those planes of the
+    # 512-plane one
+    whole = rolling.plane_dot(x3, f512, fyl, "high")
+    blk = rolling.plane_dot(x3[z0:z0 + nb], f512, fyl, "high")
+    sync()
+    contract72["(c) plane_dot block"] = torch.equal(blk,
+                                                    whole[z0:z0 + nb])
+    del whole, blk, x3, f512, fyl
+    torch.cuda.empty_cache()
+    # the small shapes the script runs: 37x23x11's products (rows of 37
+    # floats: the 4-byte copies), 128x32 and the 128² cavity's x-DST, and
+    # the depths 2046 and 510 through factors stored padded (TMA) and
+    # packed (the 4-byte copies), which give the same bits
+    xo = rand72(11, 23, 37)
+    ro, lo = rand72(37, 37), rand72(23, 23)
+    xo2 = xo.view(-1, 37)
+    high_case("37x23x11 x·right", (253, 37, 37, 1), right72(xo2, ro),
+              (xo2, ro), loads="cp.async")
+    high_case("37x23x11 left·x[k]", (23, 37, 23, 11), left72(lo, xo),
+              (lo, xo), loads="cp.async")
+    for rows_ in (32, 128):
+        xs_, rs_ = rand72(rows_, 128), rand72(128, 128)
+        high_case(f"128x{rows_} x-DST", (rows_, 128, 128, 1),
+                  right72(xs_, rs_), (xs_, rs_),
+                  ("ghia-high",) if rows_ == 128 else (),
+                  "right_dot[3xtf32]", DOT2)
+    for k_, m_, n_ in ((2046, 2048, 512), (510, 512, 4096)):
+        lp = spectral._tma_rows(rand72(m_, k_), "high")
+        lc = lp.contiguous()
+        xk = rand72(k_, n_)
+        high_case(f"K={k_} padded", (m_, n_, k_, 1), left72(lp, xk),
+                  (lc, xk))
+        high_case(f"K={k_} packed", (m_, n_, k_, 1), left72(lc, xk),
+                  (lc, xk), loads="cp.async")
+        a_ = rolling.left_dot(lp, xk, precision="high")
+        b_ = rolling.left_dot(lc, xk, precision="high")
+        sync()
+        contract72[f"(e) K={k_} TMA == 4-byte copies"] = torch.equal(a_, b_)
+        del lp, lc, xk, a_, b_
+    for key_, ok_ in contract72.items():
+        print(f"phase 72 contract {key_}: bit for bit {ok_}", flush=True)
+    if not all(contract72.values()):
+        fail("phase 72: the 3xTF32 GEMM's sum-order contract does not hold "
+             f"{contract72}")
+    for tag_, pm in pair_ms.items():
+        print(f"phase 72 {tag_} plane_dot at HIGH: {pm['kernel']:.4f} ms "
+              f"a transform (two launches), torch.matmul "
+              f"{sum(pm['matmul']):.4f}", flush=True)
+    print(f"phase 72 took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+    # a phase-71 or phase-72 record takes its wrapper's launches on its
+    # main path
+    for path_, name_, counted_ in sgemm_alias + high_alias:
         launch_counts[path_][name_] = launch_counts[path_][counted_]
 
     kernels = []
@@ -8809,6 +9091,8 @@ def main() -> int:
                       "tf32_contract": contract,
                       "sgemm_shapes": sgemm_rec,
                       "sgemm_contract": contract71,
+                      "high_shapes": high_rec,
+                      "high_contract": contract72,
                       "launch_counts": launch_counts,
                       "card": card}), flush=True)
     print(json.dumps({"ok": True, "device": {

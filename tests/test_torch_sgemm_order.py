@@ -37,12 +37,13 @@ SRC = native.CSRC / "sgemm_fp32.cu"
     ("highest", torch.float32, 512, False),     # rows already 16 bytes
     ("highest", torch.float64, 2046, False),    # float64: the plain chain
     ("default", torch.float32, 2046, True),
-    ("high", torch.float32, 2046, False),       # 3xTF32: no TMA loads
+    ("high", torch.float32, 2046, True),        # 3xTF32: TMA loads too
 ])
 def test_tma_rows_pads_highest_factors(precision, dtype, cols, padded):
-    """`_tma_rows` at "highest" (as at "default") stores a float32 factor
-    with rows padded to a multiple of 4 floats and returns a view of its
-    own shape and values; float64 and "high" keep the tensor itself."""
+    """`_tma_rows` at "highest" (as at "high" and "default") stores a
+    float32 factor with rows padded to a multiple of 4 floats and returns
+    a view of its own shape and values; float64 keeps the tensor
+    itself."""
     rng = np.random.default_rng(31)
     t = torch.tensor(rng.normal(size=(6, cols)), dtype=dtype)
     got = spectral._tma_rows(t, precision)
@@ -106,7 +107,7 @@ def test_padding_leaves_highest_steps_bit_equal(monkeypatch, case):
         assert torch.equal(getattr(padded, name), getattr(plain, name)), name
 
 
-@pytest.mark.parametrize("precision", ["highest", "default"])
+@pytest.mark.parametrize("precision", ["highest", "high", "default"])
 def test_cp_async_counters_cpu_and_reset(precision):
     """On the CPU the wrappers run the plain products and count nothing,
     the load-path counters included; `reset_launch_counts` zeroes every
@@ -120,7 +121,8 @@ def test_cp_async_counters_cpu_and_reset(precision):
     rolling.right_dot(x, r, precision)
     rolling.left_dot(lft, x, precision=precision)
     names = ("launches", "high_launches", "default_launches",
-             "highest_cp_async_launches", "default_cp_async_launches")
+             "highest_cp_async_launches", "high_cp_async_launches",
+             "default_cp_async_launches")
     for fn in rolling.WRAPPERS:
         assert all(getattr(fn, n) == 0 for n in names), fn.__name__
     rolling._count(rolling.right_dot, precision, tma=False)
@@ -134,12 +136,12 @@ def test_cp_async_counters_cpu_and_reset(precision):
 
 def test_counter_names_follow_one_scheme():
     """One name a precision and path: ``<precision>_cp_async_launches``
-    for the SGEMM and the one-pass GEMM (the 3xTF32 GEMM has no such
-    path)."""
+    for the SGEMM, the 3xTF32 GEMM and the one-pass GEMM."""
     assert rolling.CP_ASYNC_COUNTERS == {
-        p: f"{p}_cp_async_launches" for p in ("highest", "default")}
+        p: f"{p}_cp_async_launches" for p in ("highest", "high", "default")}
     rolling._count(rolling.left_dot, "high", tma=True)
     assert rolling.left_dot.high_launches == 1
+    assert rolling.left_dot.high_cp_async_launches == 0
     rolling.reset_launch_counts()
 
 

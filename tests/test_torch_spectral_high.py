@@ -299,7 +299,7 @@ def test_high_kernels_drop_t_and_count_3xtf32():
     assert not pk3.bwd_analytic
 
 
-def test_precision_default_is_not_ported():
+def test_precision_default_builds_and_unknown_raises():
     """"default" (one TF32 pass) is ported now, in 3D and 2D: the step
     builds (`tests/test_torch_precision_default.py` holds it against the
     reference); a precision the port does not know still raises

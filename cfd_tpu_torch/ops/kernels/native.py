@@ -49,6 +49,12 @@ SIGNATURES = {
     "cfd_tdma_bwd": [_P, _P, _P, _I, _L, _P],
     "cfd_tdma_bwd_analytic": [_P, _P, _P, _I, _L, _P],
     "cfd_corrector": [_P] * 10 + [_I] * 3 + [_F] * 3 + [_P],
+    # tdma_lines.cu (the 2D step's y-line Thomas solve, one launch: r, w,
+    # the rec and t planes, x, ny, nx, d' in shared memory or not, 16-byte
+    # copies or 4-byte ones), and its dependent-chain probe (mu, w, rows,
+    # int64[4] out, sink)
+    "cfd_tdma_y2d": [_P, _F, _P, _P, _P, _I, _I, _I, _I, _P],
+    "cfd_tdma_y2d_chain": [_P, _F, _I, _P, _P, _P],
     # ... their global-row instantiations (a (z, y)-decomposed shard's
     # block: its global row base and row count after the plane ones; b~'s
     # window depth h; the corrector's owned p out and u*'s padding hs)

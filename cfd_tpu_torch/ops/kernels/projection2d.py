@@ -26,8 +26,9 @@ become chains of CUDA kernels that meet in device memory:
   Returns (u, v, p); w = w* at the caller (inv_dz2 = 0).
 
 The y-line solve between them (`solvers.poisson.spectral.
-make_dst2d_fused_pieces`) runs `tdma.tdma_y_2d` (the 3D z-line Thomas
-kernels on one-row planes) and the rescue products.  ``precision`` sets
+make_dst2d_fused_pieces`) runs `tdma.tdma_y_2d` (both Thomas sweeps in
+one launch of ``tdma_y2d_kernel``, `csrc/tdma_lines.cu`) and the rescue
+products.  ``precision`` sets
 the x-DST pair's: ``"highest"`` (the SGEMM) or ``"high"`` (the 3xTF32
 tensor-core GEMM), the reference's ``dst_precision``; the Thomas sweeps
 stay fp32.  ``spectral_precision="default"`` runs the pair without the
@@ -89,7 +90,7 @@ from .projection_kernels import (StencilConsts, _keep_global_shells,
                                  face_coeff, predictor_star_plain,
                                  stencil_consts)
 from .rolling import rescue_dot, right_dot, right_dot_plain
-from .tdma import tdma_z_bwd, tdma_z_fwd
+from .tdma import tdma_y_2d
 
 
 def _check(c: StencilConsts, fields, scalars, ny=None):
@@ -340,12 +341,12 @@ native.reset_counts(predictor_star_2d, poisson_input_2d, poisson_rhs_2d,
                     corrector_2d, corrector_2d_rows)
 
 # every wrapper that launches a kernel on the 2D main path, for counters
-WRAPPERS = (predictor_star_2d, poisson_input_2d, right_dot, tdma_z_fwd,
-            tdma_z_bwd, rescue_dot, corrector_2d)
+WRAPPERS = (predictor_star_2d, poisson_input_2d, right_dot, tdma_y_2d,
+            rescue_dot, corrector_2d)
 # ... on the HIGH path (right_dot and rescue_dot count their 3xTF32
 # launches in ``high_launches``)
-WRAPPERS_HIGH = (predictor_star_2d, poisson_input_2d, tdma_z_fwd,
-                 tdma_z_bwd, corrector_2d)
+WRAPPERS_HIGH = (predictor_star_2d, poisson_input_2d, tdma_y_2d,
+                 corrector_2d)
 # ... and on the 2D CG step's path (the whole-solve kernel counts in
 # vmem_small)
 WRAPPERS_RHS = (predictor_star_2d, poisson_rhs_2d, corrector_2d)

@@ -1,6 +1,6 @@
 """Line Thomas solves of the spectral pressure paths (counterpart of
-`cfd_tpu/ops/pallas/tdma.py`): z-lines in 3D, and y-lines in 2D on the
-same kernels (at the end).
+`cfd_tpu/ops/pallas/tdma.py`): z-lines in 3D, and y-lines in 2D on a
+kernel of their own (at the end).
 
 After the xy DST the pressure system splits into one tridiagonal per
 (y, x) mode along z:
@@ -287,8 +287,47 @@ def make_tdma_z_bwd(nz: int, my: int, mx: int, mu, w, dtype=None,
 #     (mu_m + 2w)·x_j − w·(x_{j−1} + x_{j+1}) = r_j,   j = 1..ny−2,
 #     x_0 = x_{ny−1} = 0,   w = 1/dy²,   mu_m = λx_m > 0,
 #
-# the 3D recurrence with rows in place of planes: an (ny, nx) rhs is an
-# (ny, 1, nx) stack of one-row planes, so the z-line kernels solve it.
+# the 3D recurrence with rows in place of planes.  On CUDA both sweeps run
+# in one launch of ``tdma_y2d_kernel`` (`csrc/tdma_lines.cu`): a CTA owns
+# a few neighbouring columns, each thread marches its column down and
+# back up with the rows it reads copied ahead into a shared-memory ring,
+# so a row's dependent chain is arithmetic alone.  rec and t come from
+# the planes of :func:`tdma_y2d_planes`, built once with the step's
+# pieces, so the forward row carries no divide.  :func:`tdma_y2d_plan`
+# picks where d′ lives: in shared memory (16 columns a CTA) or, for a
+# column too tall for it, parked in x (32 columns a CTA) — two
+# instantiations of the same kernel — and the copy width: 16 bytes where
+# nx is a multiple of 4, else 4.
+
+# the kernel's ring and CTA widths (`tdma_lines.cu`: kStageRows, kStages,
+# kSmemCols, kGlobalCols, kMaxSmem)
+Y2D_STAGE_ROWS = 32
+Y2D_STAGES = 8
+Y2D_COLS = {"smem": 16, "global": 32}
+Y2D_MAX_SMEM = 232448
+
+
+def tdma_y2d_plan(ny: int, nx: int) -> dict:
+    """The launch of ``tdma_y2d_kernel`` on an (ny, nx) rhs: ``variant``
+    "smem" (d′ in shared memory) where ny − 2 rows of 16 columns and the
+    two rings fit a CTA's 227 KB, else "global" (d′ parked in x);
+    ``cols`` columns a CTA, ``ctas`` CTAs (CTA i owns columns i·cols …
+    i·cols + cols − 1 below nx), ``smem_bytes`` its dynamic shared
+    memory, ``copy`` the bytes a copy moves (16 where nx is a multiple of
+    4 and the arrays are 16-byte aligned, which the wrapper checks, else
+    4)."""
+    if ny < 3 or nx < 1:
+        raise ValueError(f"tdma_y2d_plan: needs ny >= 3 and nx >= 1, got "
+                         f"{(ny, nx)}")
+    rings = 2 * Y2D_STAGE_ROWS * Y2D_STAGES   # rows: r or t, rec or d′
+    variant = "smem" if (rings + ny - 2) * Y2D_COLS["smem"] * 4 \
+        <= Y2D_MAX_SMEM else "global"
+    cols = Y2D_COLS[variant]
+    rows = rings + (ny - 2 if variant == "smem" else 0)
+    return {"variant": variant, "cols": cols, "ctas": -(-nx // cols),
+            "smem_bytes": rows * cols * 4,
+            "copy": 16 if nx % 4 == 0 else 4}
+
 
 def tdma_y_2d_reference(r: torch.Tensor, mu: torch.Tensor, w: float):
     """Both sweeps of the (ny, mx) zero-shell rhs ``r`` with ``mu`` (mx,):
@@ -296,16 +335,93 @@ def tdma_y_2d_reference(r: torch.Tensor, mu: torch.Tensor, w: float):
     return tdma_z_reference(r[:, None, :], mu[None, :], w)[:, 0, :]
 
 
-def tdma_y_2d(r: torch.Tensor, mu: torch.Tensor, w: float) -> torch.Tensor:
-    """The y-line solve through :func:`tdma_z_fwd` and :func:`tdma_z_bwd`
-    (``tdma_fwd_kernel``, ``tdma_bwd_kernel`` on CUDA, which count the
-    launches)."""
+def tdma_y2d_planes(mu: torch.Tensor, w: float, ny: int):
+    """The data-free half of the forward sweep: (rec, t), two (ny, nx)
+    planes with zero shell rows, rec = 1/((mu + 2w) − w·t), t = w·rec for
+    j = 1..ny−2 from a zero t — the recurrence of
+    :func:`tdma_z_fwd_reference`, operation for operation, on mu's device
+    and dtype."""
+    b = mu + 2.0 * w
+    zero = torch.zeros_like(mu)
+    tc, recs, ts = zero, [zero], [zero]
+    for _ in range(1, ny - 1):
+        rec = 1.0 / (b - w * tc)
+        tc = w * rec
+        recs.append(rec)
+        ts.append(tc)
+    return torch.stack(recs + [zero]), torch.stack(ts + [zero])
+
+
+def tdma_y_2d_planes_reference(r: torch.Tensor, rec: torch.Tensor,
+                               t: torch.Tensor, w: float) -> torch.Tensor:
+    """Both sweeps with rec and t read from their planes: d′ = (r + w·d′)·rec
+    going down, x = d′ + t·x going up; mirror y-shells."""
+    ny = r.shape[0]
+    dc = torch.zeros_like(r[0])
+    ds = [dc]
+    for j in range(1, ny - 1):
+        dc = (r[j] + w * dc) * rec[j]
+        ds.append(dc)
+    return tdma_z_bwd_reference(torch.stack(ds + [dc])[:, None, :],
+                                t[:, None, :])[:, 0, :]
+
+
+def tdma_y_2d(r: torch.Tensor, mu: torch.Tensor, w: float,
+              planes=None) -> torch.Tensor:
+    """The y-line solve: x with mirror y-shells — one launch of
+    ``tdma_y2d_kernel`` on CUDA (counted on ``launches``, and those
+    through the 4-byte copies also on ``copy4_launches``), the plain
+    version on a CPU tensor.  ``planes`` = (rec, t) from
+    :func:`tdma_y2d_planes`, which the kernel reads in place of the
+    forward sweep's divide: required on CUDA, optional on the CPU."""
     if tuple(mu.shape) != (r.shape[-1],) or r.dim() != 2 or r.shape[0] < 3:
         raise ValueError("tdma_y_2d: r must be (ny >= 3, nx) and mu (nx,)")
-    return tdma_z_bwd(*tdma_z_fwd(r[:, None, :], mu[None, :], w))[:, 0, :]
+    if planes is not None and any(tuple(p.shape) != tuple(r.shape)
+                                  for p in planes):
+        raise ValueError("tdma_y_2d: the planes must be r's shape")
+    if native.on_cpu(r):
+        if planes is not None:
+            return tdma_y_2d_planes_reference(r, *planes, w)
+        return tdma_y_2d_reference(r, mu, w)
+    native.check_cuda(r, mu, *(planes or ()))
+    if planes is None:
+        raise ValueError("tdma_y_2d: the kernel needs the rec and t planes "
+                         "of tdma_y2d_planes")
+    ny, nx = r.shape
+    plan = tdma_y2d_plan(ny, nx)
+    x = torch.empty_like(r)
+    vec = plan["copy"] == 16 and all(native.ptr(a) % 16 == 0
+                                     for a in (r, x, *planes))
+    native.launch("cfd_tdma_y2d", r.device, native.ptr(r), float(w),
+                  *map(native.ptr, planes), native.ptr(x), ny, nx,
+                  int(plan["variant"] == "smem"), int(vec))
+    tdma_y_2d.launches += 1
+    if not vec:
+        tdma_y_2d.copy4_launches += 1
+    return x
+
+
+def tdma_y2d_chain(mu: float, w: float, device, rows: int = 1 << 16):
+    """The kernel's dependent chain a row, measured on the card: one
+    thread runs ``rows`` rows of each recurrence on registers.  Returns
+    the SM cycles a row of the kernel's forward sweep (rec from its plane:
+    d′ alone), of the back substitution (x = d′ + t·x) and of a forward
+    sweep computing rec (rec → t → d′, what the planes take off the
+    chain), and the SM clock (MHz) of that last run (its cycles over its
+    %globaltimer nanoseconds)."""
+    mu_t = torch.tensor([mu, 1.0], dtype=torch.float32, device=device)
+    out = torch.zeros(4, dtype=torch.int64, device=device)
+    sink = torch.zeros(1, dtype=torch.float32, device=device)
+    native.launch("cfd_tdma_y2d_chain", mu_t.device, native.ptr(mu_t),
+                  float(w), int(rows), native.ptr(out), native.ptr(sink))
+    fwd, bwd, ns, fwd_planes = (int(v) for v in out.cpu())
+    return {"fwd_cycles": fwd / rows, "bwd_cycles": bwd / rows,
+            "fwd_planes_cycles": fwd_planes / rows,
+            "clock_mhz": fwd / ns * 1e3 if ns > 0 else float("nan")}
 
 
 tdma_z_fwd.launches = 0
 tdma_z_fwd_d.launches = 0
 tdma_z_bwd.launches = 0
 tdma_z_bwd_analytic.launches = 0
+tdma_y_2d.launches = tdma_y_2d.copy4_launches = 0

@@ -440,9 +440,11 @@ def make_dst2d_fused_pieces(problem: PoissonProblem, dtype=None, device=None,
     (nx, nx) tensors — the two spare modes get zero F rows and zero G
     columns, as in 3D.  ``ysolve(bt_x) → x̂`` on (1, ny, nx)
     transform-space tensors (zero y-shell rows in, mirror-extended y-shell
-    rows out): `tdma.tdma_y_2d` on every column, then the K lowest x-modes
-    (:func:`_tdma2d_rescue_width`) re-solved densely through the y-DST
-    pair, s = Fyp·a[:, :K], s /= (λy ⊗ 1 + 1 ⊗ λx[:K]), x[:, :K] = Gyp·s,
+    rows out): `tdma.tdma_y_2d` on every column (on the card with the rec
+    and t planes of `tdma.tdma_y2d_planes`, built here once), then the K
+    lowest x-modes (:func:`_tdma2d_rescue_width`) re-solved densely
+    through the y-DST pair, s = Fyp·a[:, :K], s /= (λy ⊗ 1 + 1 ⊗ λx[:K]),
+    x[:, :K] = Gyp·s,
     its two products at ``precision`` ("highest", "high" or "default";
     the reference's jnp matmuls at the step's precision) through
     `rolling.rescue_dot`, the divide fused into the first.  Without the
@@ -452,8 +454,9 @@ def make_dst2d_fused_pieces(problem: PoissonProblem, dtype=None, device=None,
 
     ``plain=True`` runs the plain versions on a CUDA device too (the
     reference switch of `ops.kernels.projection2d.Projection2DKernels`).
-    ``ysolve.line`` = (μ, w), ``ysolve.rescue`` = (Fyp, Gyp, K) and
-    ``ysolve.lam`` (λ, (my, K)) are what its stages are called with.
+    ``ysolve.line`` = (μ, w), ``ysolve.planes`` (the rec and t planes, or
+    None), ``ysolve.rescue`` = (Fyp, Gyp, K) and ``ysolve.lam`` (λ,
+    (my, K)) are what its stages are called with.
     """
     if not dst2d_fused_supported(problem):
         raise CFDError(Status.ERROR_UNSUPPORTED,
@@ -483,6 +486,11 @@ def make_dst2d_fused_pieces(problem: PoissonProblem, dtype=None, device=None,
     mu = dev(_edge_padded(lx, nx).astype(np_dt))
     lam = dev(ly)[:, None] + dev(lx[:K])[None, :]
     thomas = K < mx
+    # the kernel's rec and t planes, built once (they do not depend on the
+    # data): the y-line kernel's forward row then carries no divide
+    planes = None
+    if thomas and not plain and mu.is_cuda and dt == torch.float32:
+        planes = tdma.tdma_y2d_planes(mu, w, ny)
     if plain:
         line, dot = tdma.tdma_y_2d_reference, rolling.rescue_dot_plain
     else:
@@ -490,14 +498,19 @@ def make_dst2d_fused_pieces(problem: PoissonProblem, dtype=None, device=None,
 
     def ysolve(bt_x):
         a = bt_x[0]                                        # (ny, nx)
-        x = line(a, mu, w) if thomas else torch.zeros_like(a)
+        if not thomas:
+            x = torch.zeros_like(a)
+        elif planes is None:
+            x = line(a, mu, w)
+        else:
+            x = line(a, mu, w, planes=planes)
         s = dot(Fyp, a[:, :K], lam, precision=precision)   # (my, K)
         dot(Gyp, s, out=x[:, :K], precision=precision)     # (ny, K)
         return x[None]
 
     # what the stages are called with, for checks of each stage alone
     ysolve.line, ysolve.rescue = (mu, w), (Fyp, Gyp, K)
-    ysolve.lam = lam
+    ysolve.planes, ysolve.lam = planes, lam
     return FxT, GxT, ysolve
 
 

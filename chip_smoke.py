@@ -8,7 +8,12 @@ Run from the repository root on a machine with a CUDA card:
 It builds the hand-written CUDA kernels of ``cfd_tpu_torch`` from the
 sources in the checkout and holds every kernel against its plain PyTorch
 version on the card: the 3D kernels at the entry grid 128×64×16 and at
-512³, the 2D kernels at 128×32 and 2048², and the 2D y-solve's rescue
+512³, the 2D kernels at 128×32 and 2048² (the y-line Thomas kernel,
+``tdma_y2d_kernel``, also at 1024×512, 37×23 and 256×4096, bit for bit
+in the variant its plan picks there: d′ in shared memory, parked in x at
+256×4096; beside its dependent-chain probe and the SM clock that
+``nvidia-smi`` reads while it runs), and the 2D
+y-solve's rescue
 GEMM (``rolling.rescue_dot``) also at the Ghia cavity's 128² (both
 products, two launches bit-identical, the fused divide bit-equal to the
 divide after the product, device-timed beside ``torch.matmul`` and the
@@ -20,7 +25,10 @@ path and the plain path:
   512³ Taylor-Green projection step (``bench.py:run_3d``'s configuration)
   for 5 warm-up and 5 timed steps;
 * 2D: the 2048² Taylor-Green projection step (``bench.py:run_2d(2048)``'s
-  configuration) for 20 warm-up and 20 timed steps;
+  configuration) for 20 warm-up and 20 timed steps (the plain path,
+  held against the kernel path after one step, for ``PLAIN_TIMED_STEPS``
+  of each, as in every phase that holds the paths after one step), its
+  y-line Thomas solve one ``tdma_y2d_kernel`` launch a step;
 
 and the lid-driven cavity at Re = 100 on 128² for 20000 steps on the
 kernel path, graded against Ghia's table (``bench.py:905-907``: RMS of u
@@ -112,8 +120,8 @@ Then BiCGSTAB, Red-Black SOR and Jacobi:
   (the launch counters show 3xTF32 launches and no SGEMM); the nz = 3
   step at 512×512×3 on both paths at HIGHEST and at HIGH, and its
   kernels against their plain versions there;
-* phase 29: Ghia Re = 100 at 128² at HIGH (RMS below 0.10, beside
-  phase 7's HIGHEST values);
+* phase 29: Ghia Re = 100 at 128² at HIGH for ``GHIA_SOLVER_STEPS``
+  (RMS below 0.10, beside phase 7's HIGHEST values);
 * phase 30: FFT_DIRECT through the Poisson front end on ``cg_512``'s
   512³ problem (ms a solve, float64 true residual below 1e-3), held
   against the plain solve on the card and beside the float64 one, and
@@ -137,7 +145,8 @@ equation:
   predictor and b̃ once a step around the hook; the 256³ CG step with the
   hook; and ``examples/pulsatile_inlet_flow.py``'s channel at 1024×512
   (sinusoidal inlet, no-slip walls, zero-gradient outlet, the same BCs as
-  the hook), 300 steps on both paths, status 0 on every step;
+  the hook), ``PULSE_STEPS`` steps on both paths, status 0 on every
+  step;
 * phase 33: the 512³ spectral step with buoyancy and the energy equation
   (T linear in z, Dirichlet back and front, Neumann sides) on both paths,
   with the energy post-step's ms and its share of the step; the Euler,
@@ -460,6 +469,7 @@ import math
 import re
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -468,6 +478,9 @@ N_BIG = 512            # the 3D benchmark grid, 512³
 N_2D = 2048            # the 2D benchmark grid, 2048²
 TIMED_STEPS = 5
 TIMED_STEPS_2D = 20    # bench.py:run_2d times 4 × TIMED_STEPS
+# the plain path's warm-up and timed steps where kernel and plain are held
+# after one step (its timing alone: a 2048² plain step takes ~0.3 s)
+PLAIN_TIMED_STEPS = 3
 SRC = "cfd_tpu_torch/csrc/projection_kernels.cu"
 SRC_2D = "cfd_tpu_torch/csrc/projection2d_kernels.cu"
 A1 = "cfd_tpu/ops/pallas/projection_kernels.py:572"   # pred_bt_compute
@@ -477,14 +490,20 @@ P2 = "cfd_tpu/ops/pallas/projection2d.py:200"         # pred_bt_compute
 C2 = "cfd_tpu/ops/pallas/projection2d.py:252"         # corr_compute
 DOT2 = "cfd_tpu/ops/pallas/projection2d.py:97"        # block_dot
 TDMA2 = "cfd_tpu/ops/pallas/tdma.py:434"              # make_tdma_y_2d
+SRC_TDMA2 = "cfd_tpu_torch/csrc/tdma_lines.cu"      # tdma_y2d_kernel
+# the y-line kernel's shapes beside the 2D loop's, (ny, nx): the 1024×512
+# channel's, a ragged one, and a column too tall for shared memory (the
+# global-d′ variant)
+Y2D_SHAPES = ((512, 1024), (23, 37), (4096, 256))
 RESCUE = "cfd_tpu/solvers/poisson/spectral.py:299"    # rescue matmuls
 SRC_RESCUE = "cfd_tpu_torch/csrc/rescue_gemm.cu"
 N_GHIA = 128           # the Ghia cavity's grid: the rescue covers every mode
 # The Ghia gates of the CG, multigrid and BiCGSTAB solves (phases 16, 21,
-# 26) run half of phase 7's 20000 steps (t = 5): the cavity is near
-# steady there, and the whole script has to stay well inside its time
-# limit (on an H100 the gates read RMS 0.0019-0.0020 against the 0.10 bar
-# at 20000 steps)
+# 26) and the HIGH one (phase 29) run half of phase 7's 20000 steps
+# (t = 5): the cavity is near steady there, and the whole script has to
+# stay well inside its time limit (on an H100 the gates read RMS
+# 0.0019-0.0020 against the 0.10 bar at 20000 steps, 0.009-0.010 at
+# 10000)
 GHIA_SOLVER_STEPS = 10000
 EIGEN_Z = "cfd_tpu/solvers/poisson/spectral.py:836"   # eigen z-product
 SRC_E = "cfd_tpu_torch/csrc/euler_kernels.cu"
@@ -711,6 +730,10 @@ TF32_TC_FLOPS = 494.7e12
 # (adds, multiplies, divides and compares of one point's update)
 FLOPS_PER_POINT = {"predictor_star": 90, "poisson_input": 12,
                    "corrector": 20, "tdma_fwd": 7, "tdma_bwd": 2,
+                   # the 2D y-lines fed rec and t by their planes: the
+                   # forward row's product, sum and product, and the back
+                   # substitution's 2
+                   "tdma_y2d": 5,
                    # the analytic back substitution: two products and a
                    # sum for the exponents, two expm1f (about 10 each),
                    # a product and a quotient, the update's 2
@@ -1192,6 +1215,7 @@ def main() -> int:
     fld = (TOL_FIELD, False)
     exact = (TOL_EXACT, True)
     gemm = (TOL_GEMM, True)
+    bit = (0.0, False)   # bit-equal
 
     def noisy(f, gen_seed):
         g = torch.Generator(device=dev).manual_seed(gen_seed)
@@ -1371,6 +1395,112 @@ def main() -> int:
         rescue_checks(path, f"{N_GHIA}x{N_GHIA}", ysolve_g, a_g, prec,
                       name, rate, library, False)
 
+    y2d_rec = {}     # the y-line kernel: its plan, device ms and chain
+
+    def y2d_line(n_y, n_x):
+        """A zero-shell (ny, nx) rhs from the seed, with the 2D pieces' μ
+        (λx, its two spare modes edge-padded) and w = 1/dy² on the unit
+        square."""
+        prob = PoissonProblem(n_x, n_y, 1, 1.0 / (n_x - 1),
+                              1.0 / (n_y - 1))
+        lx = spectral._dirichlet_eigenvalues(n_x - 2, prob.inv_dx2)
+        mu_ = torch.tensor(spectral._edge_padded(lx, n_x).astype(np.float32),
+                           device=dev)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(SEED)
+        r_ = torch.randn(n_y, n_x, generator=gen, device=dev)
+        r_[0] = 0.0
+        r_[-1] = 0.0
+        return r_, mu_, float(prob.inv_dy2)
+
+    def sm_clock_during(fn, seconds=2.5):
+        """nvidia-smi's SM clock (MHz), read three times while ``fn`` runs
+        back to back on the card (from a second thread); fails where the
+        thread raised or nvidia-smi gave no reading."""
+        stop = time.perf_counter() + seconds
+        raised = []
+
+        def busy():
+            try:
+                while time.perf_counter() < stop:
+                    for _ in range(20):
+                        fn()
+                    sync()
+            except BaseException as exc:  # re-raised after join
+                raised.append(exc)
+
+        worker = threading.Thread(target=busy)
+        worker.start()
+        time.sleep(0.2)
+        reads = []
+        for _ in range(3):
+            out = subprocess.run(
+                ["nvidia-smi", "--query-gpu=clocks.sm",
+                 "--format=csv,noheader,nounits", "-i", "0"],
+                capture_output=True, text=True, timeout=60).stdout
+            reads += [float(v) for v in out.split() if v.isdigit()]
+        worker.join()
+        if raised:
+            raise raised[0]
+        if not reads:
+            fail("phase 3: nvidia-smi read no SM clock beside the y-line "
+                 "kernel")
+        return reads
+
+    def y2d_lines(tag, a, mu, w, timed, planes=None):
+        """``tdma_y_2d`` in the d′ variant its plan picks at this shape,
+        with the rec/t planes (the main path's ``planes``, else built
+        here), against the plain version bit for bit, and the t plane
+        against the plain sweep's t.  ``timed``: its device ms, the chain
+        probe's cycles a row and the SM clock nvidia-smi reads beside the
+        kernel, and its chain floor into the 2D record."""
+        n_y, n_x = a.shape
+        ref = tdma.tdma_y_2d_reference(a, mu, w)
+        if planes is None:
+            planes = tdma.tdma_y2d_planes(mu, w, n_y)
+        t_sweep = tdma.tdma_z_fwd_reference(a[:, None, :], mu[None, :],
+                                            w)[1][:, 0, :]
+        sync()
+        if not torch.equal(planes[1], t_sweep):
+            fail(f"phase 3 {tag}: the t plane is not the sweep's t")
+        del t_sweep
+        plan = tdma.tdma_y2d_plan(n_y, n_x)
+        rec = y2d_rec.setdefault(tag, {"plan": plan})
+
+        def run():
+            return tdma.tdma_y_2d(a, mu, w, planes=planes)
+
+        got = run()
+        sync()
+        compare(f"phase 3 {tag}", f"tdma_y_2d[{plan['variant']}].x^", got,
+                ref, *bit)
+        del got
+        if not timed:
+            return
+        rec["ms"] = device_ms(run, reps=20)
+        chain = tdma.tdma_y2d_chain(float(mu[1]), w, dev)
+        reads = sm_clock_during(run)
+        clock = float(np.median(reads))
+        rows = n_y - 2
+        # the floor of the kernel (rec and t from the planes) and of a
+        # forward sweep computing rec
+        floor = {k: rows * (chain[f] + chain["bwd_cycles"]) / (clock * 1e3)
+                 for k, f in (("chain_ms", "fwd_planes_cycles"),
+                              ("chain_divide_ms", "fwd_cycles"))}
+        rec.update(chain, smi_clocks_sm_mhz=reads, clock_mhz_used=clock,
+                   **floor)
+        records[("2d", "tdma_y_2d")]["chain_ms"] = floor["chain_ms"]
+        print(f"phase 3 y-lines {tag}: device ms {rec['ms']:.4f}; plan "
+              f"{plan}; SM cycles a row: forward "
+              f"{chain['fwd_planes_cycles']:.2f} (rec from its plane), "
+              f"{chain['fwd_cycles']:.2f} (rec computed), backward "
+              f"{chain['bwd_cycles']:.2f} (the probe's clock "
+              f"{chain['clock_mhz']:.0f} MHz); nvidia-smi clocks.sm beside "
+              f"the kernel {reads} MHz; chain floor over {rows} rows at "
+              f"{clock:.0f} MHz {floor['chain_ms']:.4f} ms "
+              f"({floor['chain_divide_ms']:.4f} ms computing rec)",
+              flush=True)
+
     # ---- phase 3: each kernel against its plain version ----------------------
     for shape in ((16, 64, 128), (N_BIG, N_BIG, N_BIG)):
         big = shape[0] == N_BIG
@@ -1510,21 +1640,20 @@ def main() -> int:
             work=((bt, fxt), gemm_flops(ny, fxt.shape[1], nx)),
             library=ieee_matmul(lambda: torch.matmul(bt, fxt)))[0]
         a = bhat[0]
-        # the y-lines as one-row planes: (ny, 1, nx), μ (1, nx)
-        d, t = check(
-            "2d", tag, big, tdma.tdma_z_fwd, TDMA2, SRC,
-            lambda: tdma.tdma_z_fwd(a[:, None, :], mu[None, :], w),
-            lambda: tdma.tdma_z_fwd_reference(a[:, None, :], mu[None, :],
-                                              w),
-            ("d'", "t"), (exact, exact),
-            work=((a, mu), FLOPS_PER_POINT["tdma_fwd"] * a.numel()))
-        xline = check(
-            "2d", tag, big, tdma.tdma_z_bwd, TDMA2, SRC,
-            lambda: tdma.tdma_z_bwd(d, t),
-            lambda: tdma.tdma_z_bwd_reference(d, t),
-            ("x^",), (exact,),
-            work=((d, t), FLOPS_PER_POINT["tdma_bwd"] * d.numel()))[0][
-                :, 0, :]
+        # the y-lines: both sweeps in one launch with the pieces' rec and
+        # t planes (built here where the rescue takes every mode), bit for
+        # bit; the bound counts what make_tdma_y_2d moves, r (and μ) read
+        # and x written: the planes are the design's own bytes
+        pl = ysolve.planes
+        if pl is None:
+            pl = tdma.tdma_y2d_planes(mu, w, a.shape[0])
+        check("2d", tag, big, tdma.tdma_y_2d, TDMA2, SRC_TDMA2,
+              lambda: tdma.tdma_y_2d(a, mu, w, planes=pl),
+              lambda: tdma.tdma_y_2d_reference(a, mu, w),
+              ("x^",), (bit,),
+              work=((a, mu), FLOPS_PER_POINT["tdma_y2d"] * a.numel()),
+              device_time=True, repeat=True)
+        y2d_lines(tag, a, mu, w, big, pl)
         rescue_checks("2d", tag, ysolve, a, "highest", "rescue_dot",
                       FP32_FLOPS, ieee_matmul, big, timed=big)
         xk = ysolve(bhat)
@@ -1563,11 +1692,15 @@ def main() -> int:
         for o, gk, rk, tl in zip(("u", "v", "p"), ck, cp, (fld,) * 2
                                  + (gemm,)):
             compare(tag, f"corr.{o}", gk, rk, *tl)
-        del f, us, vs, ws, bt, bhat, a, d, t, xline, xk
+        del f, us, vs, ws, bt, bhat, a, xk
         del xp, p
         del pk, pp, ck, cp
         torch.cuda.empty_cache()
     rescue_ghia("2d", "highest", "rescue_dot", FP32_FLOPS, ieee_matmul)
+    for n_y, n_x in Y2D_SHAPES:
+        print(f"phase 3 y-lines at {n_x}x{n_y} (nx×ny)", flush=True)
+        y2d_lines(f"{n_x}x{n_y}", *y2d_line(n_y, n_x), False)
+    torch.cuda.empty_cache()
 
     # ---- phase 4: the 3D main path -----------------------------------------
     pkm.reset_launch_counts()
@@ -1633,6 +1766,13 @@ def main() -> int:
         label = f"phase {phase} {size}"
         field_fn = field_fn or tg_field
         finals, firsts, ms, counts = {}, {}, {}, {}
+        # a 2D step solves its y-lines in one tdma_y2d_kernel launch (its
+        # 16-byte copies: nx is a multiple of 4) and launches no z-line
+        # Thomas kernel
+        two_d = shape[0] == 1
+        if two_d:
+            tdma.tdma_z_fwd.launches = tdma.tdma_z_bwd.launches = 0
+            tdma.tdma_y_2d.copy4_launches = 0
         cells = 1
         for m in shape:
             cells *= m
@@ -1645,16 +1785,20 @@ def main() -> int:
             if first_step_only:
                 firsts[path] = stepf(field_fn(shape), dt, 0)[0]
             f0 = field_fn(shape)
-            run_steps(stepf, f0, dt, n_steps)
+            # where the paths are held after one step, the plain path's
+            # steps only time it: PLAIN_TIMED_STEPS of them
+            steps = n_steps if path == "kernel" or not first_step_only \
+                else min(n_steps, PLAIN_TIMED_STEPS)
+            run_steps(stepf, f0, dt, steps)
             sync()
             torch.cuda.reset_peak_memory_stats(dev)
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
-            f2, r2 = run_steps(stepf, f0, dt, n_steps)
+            f2, r2 = run_steps(stepf, f0, dt, steps)
             end.record()
             sync()
-            ms[path] = start.elapsed_time(end) / n_steps
+            ms[path] = start.elapsed_time(end) / steps
             peak_gib = torch.cuda.max_memory_allocated(dev) / 2 ** 30
             mlups = cells / (ms[path] * 1e-3) / 1e6
             finite, vmax, pmax, _ = field_status_and_diagnostics(f2)
@@ -1675,6 +1819,12 @@ def main() -> int:
                 if missing:
                     fail(f"kernels not launched on the main path: "
                          f"{missing}")
+                if two_d and (tdma.tdma_z_fwd.launches
+                              or tdma.tdma_z_bwd.launches
+                              or tdma.tdma_y_2d.copy4_launches):
+                    fail(f"{label}: the 2D step launched the z-line "
+                         f"Thomas kernels, or the y-line kernel through "
+                         f"its 4-byte copies")
             finals[path] = f2
             del f0
             if path == "kernel" and do_profile:
@@ -2697,8 +2847,6 @@ def main() -> int:
     close_p(f"phase 21 facade {FACADE_CHECK} steps", checked.p, fp.p)
 
     # ---- phase 22: the BiCGSTAB and stationary kernels against plain -------
-    bit = (0.0, False)   # bit-equal
-
     def bicg_timing_state(alpha, beta, omega):
         """A running B1 state that never stops (tolerances 0), to time the
         passes as the solve launches them."""
@@ -3588,8 +3736,8 @@ def main() -> int:
 
     # ---- phase 29: Ghia Re = 100 at 128², HIGH ------------------------------
     rolling.reset_launch_counts()
-    rms_high = ghia_gate("phase 29", 128, 100, 5e-4, 20000, 0.10,
-                         precision="high")
+    rms_high = ghia_gate("phase 29", 128, 100, 5e-4, GHIA_SOLVER_STEPS,
+                         0.10, precision="high")
     print(f"phase 29 Ghia at HIGH: rms_u {rms_high[0]:.5f} rms_v "
           f"{rms_high[1]:.5f} against HIGHEST {rms_highest[0]:.5f} / "
           f"{rms_highest[1]:.5f} (phase 7); 3xTF32 launches right_dot "
@@ -4000,6 +4148,7 @@ def main() -> int:
     finals = {}
     for path in ("kernel", "plain"):
         pk2m.reset_launch_counts()
+        tdma.tdma_z_fwd.launches = tdma.tdma_z_bwd.launches = 0
         stepf = make_projection_step(grid_p, params_p, torch.float32,
                                      Method.FFT_DIRECT, device=dev,
                                      plain=path == "plain",
@@ -4025,6 +4174,9 @@ def main() -> int:
         if path == "kernel":
             bc_counts("phase 32 pulsatile channel", pk2m.WRAPPERS,
                       "bc2d-channel")
+            if tdma.tdma_z_fwd.launches or tdma.tdma_z_bwd.launches:
+                fail("phase 32 pulsatile channel: the 2D step launched the "
+                     "z-line Thomas kernels")
             bc_ms[f"channel {nxp}x{nyp}"] = ms_p
         finals[path] = fc
     for name in "uv":
@@ -4964,9 +5116,10 @@ def main() -> int:
         """The DEFAULT path's counts (read by ``timed_paths`` right
         after the timed steps): its wrappers', the one-pass TF32 launches
         of the DST GEMM wrappers summed as ``gemm_tf32``, ``per_step`` a
-        step (one Thomas forward sweep a step), and the rescue GEMM's as
-        ``rescue_dot[tf32]``, ``rescues`` a step; no SGEMM and no 3xTF32
-        launch (the DST-fused route and the other precisions)."""
+        step (one Thomas launch a step: the 3D forward sweep, the 2D
+        y-line kernel), and the rescue GEMM's as ``rescue_dot[tf32]``,
+        ``rescues`` a step; no SGEMM and no 3xTF32 launch (the DST-fused
+        route and the other precisions)."""
         n_rescue = counts.pop("rescue_dot[default]", 0)
         tf32 = sum(v for k, v in counts.items() if k.endswith("[default]"))
         counts = {k: v for k, v in counts.items()
@@ -4979,9 +5132,10 @@ def main() -> int:
         print(f"{label} launch counts over the main path: {counts}; "
               f"(SGEMM, 3xTF32) launches {other}; one-pass launches "
               f"through the cp.async loads {cp_async}", flush=True)
+        steps = counts.get("tdma_y_2d", counts.get("tdma_z_fwd"))
         if (min(counts.values()) <= 0
-                or counts["gemm_tf32"] != per_step * counts["tdma_z_fwd"]
-                or n_rescue != rescues * counts["tdma_z_fwd"]
+                or counts["gemm_tf32"] != per_step * steps
+                or n_rescue != rescues * steps
                 or max(max(v) for v in other.values()) != 0
                 or max(cp_async.values()) != 0):
             fail(f"{label}: not the emit-b̃ route (TF32 launches "
@@ -5037,7 +5191,7 @@ def main() -> int:
     vs_high = {"3d": default_vs_highest(f"phase 38 {n}^3", grid, params,
                                         (n, n, n), 1e-4)}
     wr_default_2d = (pk2m.predictor_star_2d, pk2m.poisson_input_2d,
-                     tdma.tdma_z_fwd, tdma.tdma_z_bwd, pk2m.corrector_2d,
+                     tdma.tdma_y_2d, pk2m.corrector_2d,
                      (rolling.right_dot, "default"),
                      (rolling.rescue_dot, "default"))
     pk2m.reset_launch_counts()
@@ -5269,7 +5423,6 @@ def main() -> int:
                                         ShardedField, gather_field,
                                         make_cg_fused_sharded, make_mesh,
                                         make_sharded_step, mesh_zy_sizes)
-    bit = (0.0, False)
 
     def zpad(x, k):
         z = torch.zeros_like(x[:k])
@@ -8666,17 +8819,18 @@ def main() -> int:
             ("512^3", x3, "3d", DOT)):
         nz_ = xs.shape[0]
         t1 = rolling.right_dot(xs.reshape(-1, n), f512).view(nz_, n, n)
-        ms1, lib1 = sgemm_case(
+        # (ms_r, ms_l: not ms2, the 2048² step's times in the last line)
+        ms_r, lib1 = sgemm_case(
             f"{tag_} x·right", (nz_ * n, n, n, 1),
             lambda: rolling.right_dot(xs.reshape(-1, n), f512),
             ieee_matmul(lambda: torch.matmul(xs.reshape(-1, n), f512)),
             (xs, f512), path_, "plane_dot", rep_, "TMA")
-        ms2, lib2 = sgemm_case(
+        ms_l, lib2 = sgemm_case(
             f"{tag_} left·t[k]", (n, n, n, nz_),
             lambda: rolling.left_dot(fyl, t1),
             ieee_matmul(lambda: torch.matmul(fyl, t1)), (fyl, t1), path_,
             "plane_dot", rep_, "TMA")
-        pair_ms[tag_] = {"kernel": ms1 + ms2, "matmul": [lib1, lib2]}
+        pair_ms[tag_] = {"kernel": ms_r + ms_l, "matmul": [lib1, lib2]}
         del t1
     # the plane_dot records keep the einsum as their library call and
     # carry the two per-launch torch.matmul figures beside it
@@ -8946,13 +9100,13 @@ def main() -> int:
         nz_ = xs.shape[0]
         x2d = xs.reshape(-1, n)
         t1 = rolling.right_dot(x2d, f512, "high").view(nz_, n, n)
-        ms1, lib1 = high_case(f"{tag_} x·right", (nz_ * n, n, n, 1),
-                              right72(x2d, f512), (x2d, f512), paths_,
-                              "plane_dot[3xtf32]", rep_)
-        ms2, lib2 = high_case(f"{tag_} left·t[k]", (n, n, n, nz_),
-                              left72(fyl, t1), (fyl, t1), paths_,
-                              "plane_dot[3xtf32]", rep_)
-        pair_ms[tag_] = {"kernel": ms1 + ms2, "matmul": [lib1, lib2]}
+        ms_r, lib1 = high_case(f"{tag_} x·right", (nz_ * n, n, n, 1),
+                               right72(x2d, f512), (x2d, f512), paths_,
+                               "plane_dot[3xtf32]", rep_)
+        ms_l, lib2 = high_case(f"{tag_} left·t[k]", (n, n, n, nz_),
+                               left72(fyl, t1), (fyl, t1), paths_,
+                               "plane_dot[3xtf32]", rep_)
+        pair_ms[tag_] = {"kernel": ms_r + ms_l, "matmul": [lib1, lib2]}
         del t1, x2d
         torch.cuda.empty_cache()
     # the plane_dot records keep the einsum as their library call and
@@ -9034,6 +9188,10 @@ def main() -> int:
             # (plane_dot: one torch.matmul of each of its two launches)
             kernels[-1]["library_per_launch_ms"] = \
                 rec["library_per_launch_ms"]
+        if "chain_ms" in rec:
+            # (the y-line kernel: its dependent chain's floor, which bounds
+            # it where the bytes do not)
+            kernels[-1]["chain_ms"] = rec["chain_ms"]
     print(json.dumps({"kernels": kernels, "step_ms": ms3,
                       "grid": f"{N_BIG}x{N_BIG}x{N_BIG}", "step_ms_2d": ms2,
                       "grid_2d": f"{n2}x{n2}", "explicit_step_ms":
@@ -9086,7 +9244,7 @@ def main() -> int:
                       "dvd_128_4y_chunk": dvd_4y,
                       "consistent_sharded_512": cons_rec,
                       "default_sharded": def_rec,
-                      "rescue": rescue_rec,
+                      "rescue": rescue_rec, "tdma_y2d": y2d_rec,
                       "tf32_plans": tf32_plans, "tf32_depths": tf32_depths,
                       "tf32_contract": contract,
                       "sgemm_shapes": sgemm_rec,

@@ -58,16 +58,20 @@ def test_tdma_y_2d_matches_pallas_kernel():
                                atol=1e-6 * np.abs(x_ref).max())
 
 
-@pytest.mark.parametrize("shape", [(32, 1024), (24, 200), (3, 5)])
+@pytest.mark.parametrize("shape", [(32, 1024), (24, 200), (3, 5),
+                                   (23, 37), (37, 23)])
 def test_tdma_y_2d_matches_scan_reference(shape):
     """float64 against the reference's `tdma_z_reference` on the same
     lines (rows as planes): agreement to rounding, rtol 1e-12; mirror
-    y-shells."""
+    y-shells.  The wrapper on a CPU tensor is the plain version bit for
+    bit."""
     ny, nx = shape
     r, mu, w = _line_system(ny, nx, 1, np.float64)
     x_ref = np.asarray(jtdma.tdma_z_reference(
         jnp.asarray(r)[:, None, :], jnp.asarray(mu)[None, :], w))[:, 0, :]
     x = tdma.tdma_y_2d_reference(torch.tensor(r), torch.tensor(mu), w)
+    assert torch.equal(tdma.tdma_y_2d(torch.tensor(r), torch.tensor(mu), w),
+                       x)
     np.testing.assert_allclose(x.numpy(), x_ref, rtol=1e-12, atol=0)
     np.testing.assert_array_equal(x[0].numpy(), x[1].numpy())
     np.testing.assert_array_equal(x[-1].numpy(), x[-2].numpy())

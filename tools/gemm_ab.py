@@ -20,17 +20,17 @@ launch ("highest").  ``--check`` also
 holds each launch against the plain version (max error over max|plain|)
 and two launches bit for bit.  One JSON line a root, with the card's name
 and power limit (``nvidia-smi``); ``--out`` appends them to a file.  It
-needs a CUDA device and imports nothing of JAX.
+needs a CUDA device and imports nothing of JAX; the process a root, the
+timer and the command line are ``tools/ab.py``'s.
 """
 
 from __future__ import annotations
 
-import argparse
-import json
 import os
-import subprocess
 import sys
 import time
+
+import ab
 
 # (tag, kind, M, N, K, batch): "right" is x (M x K) . f (K x N); "left" is
 # f (M x K) . x (K x N) per batch; a factor of M or K rows off 16 bytes is
@@ -51,17 +51,6 @@ SHAPES = (
 )
 
 
-def _card() -> str:
-    try:
-        out = subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit",
-             "--format=csv,noheader"], capture_output=True, text=True,
-            timeout=60).stdout.strip()
-        return out.splitlines()[0] if out else "nvidia-smi unavailable"
-    except (OSError, subprocess.SubprocessError):
-        return "nvidia-smi unavailable"
-
-
 def run_root(root: str, check: bool, reps: int = 5) -> dict:
     sys.path.insert(0, os.path.abspath(root))
     import torch
@@ -77,38 +66,7 @@ def run_root(root: str, check: bool, reps: int = 5) -> dict:
     native.library()
     build_s = time.perf_counter() - t0
     gen = torch.Generator(device=dev).manual_seed(72)
-    sleep_rate = []
-
-    def device_ms(fn):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        if not sleep_rate:
-            torch.cuda._sleep(10 ** 6)
-            start.record()
-            torch.cuda._sleep(10 ** 7)
-            end.record()
-            torch.cuda.synchronize()
-            sleep_rate.append(10 ** 7 / start.elapsed_time(end))
-        fn()
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        for _ in range(reps):
-            fn()
-        lead_ms = 2.0 * (time.perf_counter() - t) * 1e3 + 1.0
-        torch.cuda.synchronize()
-        for _ in range(4):
-            torch.cuda._sleep(int(lead_ms * sleep_rate[0]))
-            start.record()
-            t = time.perf_counter()
-            for _ in range(reps):
-                fn()
-            end.record()
-            queued_ms = (time.perf_counter() - t) * 1e3
-            torch.cuda.synchronize()
-            if queued_ms < lead_ms:
-                return start.elapsed_time(end) / reps
-            lead_ms *= 4.0
-        raise SystemExit("gemm_ab: the host did not keep ahead")
+    device_ms = ab.device_timer(reps, "gemm_ab")
 
     rows = {}
     for tag, kind, m, n, k, b in SHAPES:
@@ -152,36 +110,10 @@ def run_root(root: str, check: bool, reps: int = 5) -> dict:
         print(f"  {root} {tag}: {row}", file=sys.stderr, flush=True)
         del x, f
         torch.cuda.empty_cache()
-    return {"root": root, "card": _card(),
+    return {"root": root, "card": ab.smi("name,power.limit"),
             "device": torch.cuda.get_device_name(0), "build_s": build_s,
             "shapes": rows}
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--root", action="append", required=True)
-    ap.add_argument("--check", action="store_true")
-    ap.add_argument("--out")
-    ap.add_argument("--one", help=argparse.SUPPRESS)
-    a = ap.parse_args()
-    if a.one is not None:
-        print(json.dumps(run_root(a.one, a.check)), flush=True)
-        return 0
-    rc = 0
-    for root in a.root:
-        cmd = [sys.executable, os.path.abspath(__file__), "--root", root,
-               "--one", root] + (["--check"] if a.check else [])
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        sys.stderr.write(proc.stderr)
-        line = proc.stdout.strip().splitlines()[-1] if proc.stdout.strip() \
-            else json.dumps({"root": root, "rc": proc.returncode})
-        print(line, flush=True)
-        if a.out:
-            with open(a.out, "a") as fh:
-                fh.write(line + "\n")
-        rc = rc or proc.returncode
-    return rc
-
-
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(ab.main(__doc__, os.path.abspath(__file__), run_root))

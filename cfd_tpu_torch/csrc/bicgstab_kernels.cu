@@ -39,7 +39,12 @@
 //       <- make_bicgstab_vmem_solve (cfd_tpu/ops/pallas/vmem_small.py:326):
 //          the whole un-rotated BiCGSTAB loop (:364-404) in one cooperative
 //          launch, with the early s-exit, breakdowns 1-4, stagnation and
-//          the stats rules of :411-416.
+//          the stats rules of :411-416 (3D volumes, and planes too large
+//          for one cluster).
+//   B2c bicg_solve_cluster_kernel
+//       <- the same, for a 2D plane whose stencil vectors fit one
+//          thread-block cluster (vmem_small.krylov_cluster_plan): the loop
+//          in one cluster launch on cluster_band.cuh's engine.
 //
 // What bounds them on an H100, and what the design does:
 //
@@ -72,6 +77,19 @@
 //   together.  The next rho = <rhat, r> is folded with the x/r update, the
 //   value the un-rotated loop forms at the top of the next iteration.
 //
+// * B2c keeps the plane in one cluster of up to 16 CTAs by bands of rows
+//   (cluster_band.cuh): p and s, which the Laplacians read at their
+//   neighbours, then r, v, rhat, x and t as far as the CTA's 227 KB go,
+//   the rest in device memory.  Three dots an iteration, each one
+//   exchange of partials pushed into every CTA's shared memory and
+//   counted on its mbarrier ({<rhat, v>}, {<s, s>, <t, s>, <t, t>},
+//   {<r, r>, <rhat, r>}), no cluster barrier: the p update opens the v
+//   pass and the s update the t pass (a CTA barrier between), and the
+//   rows a band reads beyond its edges are formed there, p as r + beta
+//   (p - omega v) from the (r, p, v) the neighbour pushed with the last
+//   dot, s as r - alpha v from its r and the v it pushed with the first.
+//   The dots fold in double as B2's.
+//
 // Built with -fmad=false in the plain versions' operation order, so the
 // pass fields match them bit for bit on identical scalars; the dots differ
 // in summation order.  Every entry point returns cudaGetLastError().
@@ -81,6 +99,7 @@
 #include <math.h>
 
 #include "block_reduce.cuh"
+#include "cluster_band.cuh"
 #include "volume.cuh"
 
 namespace cg = cooperative_groups;
@@ -565,6 +584,200 @@ __global__ void __launch_bounds__(kThreads) bicg_solve_kernel(
   }
 }
 
+// ---- B2c: the whole solve in one cluster ------------------------------------
+
+// vectors of the band (cluster_band.cuh), in the order the plan keeps them
+// resident; x not resident lives in x itself, the others in ws's planes
+enum { kVecP = 0, kVecS, kVecR, kVecV, kVecRhat, kVecX, kVecT, kBicgVecs };
+// a halo column: the neighbour's edge (r, p, v) pushed with <r, r> (and
+// <r0, r0>), and its edge v' pushed with <rhat, v'>
+enum { kHaloR = 0, kHaloP, kHaloV, kHaloVNew, kBicgHalo };
+
+// B2's loop on a 2D plane (nz == 1) in the band layout, three dots an
+// iteration.  The p update opens the v pass and the s update the t pass
+// (a CTA barrier between); the rows a band reads beyond its edges are
+// formed there: p as r + beta (p - omega v) from the neighbour's pushed
+// (r, p, v), s as r - alpha v' from its r and its pushed v'.  x0 and rhs
+// are read from device memory once.
+__global__ void __launch_bounds__(kBandMaxThreads, 1)
+    bicg_solve_cluster_kernel(const float* __restrict__ x0,
+                              const float* __restrict__ rhs, float* x,
+                              float* ws, float* stats, int ny, int nx,
+                              float inv_dx2, float inv_dy2, float tolerance,
+                              float abs_tol, int max_iter, int ci, int rmax,
+                              int resident) {
+  extern __shared__ __align__(16) unsigned char band_smem[];
+  const Band b(ny, nx, rmax);
+  const BandSmem sm(band_smem, kBicgHalo, nx);
+  const long long plane = (long long)ny * nx;
+  auto vec = [&](int k) {
+    return band_vec(k, resident, sm, b, k == kVecX ? x : ws + k * plane);
+  };
+  float *p = vec(kVecP), *s = vec(kVecS), *r = vec(kVecR), *v = vec(kVecV),
+        *rhat = vec(kVecRhat), *xv = vec(kVecX), *t = vec(kVecT);
+  BandDots dots;
+  band_init(sm);
+  const BandLinks links(sm, b);
+  const int halo_rpv = halo_bytes(b, 12), halo_v = halo_bytes(b, 4);
+  // an edge point's (r, p, v), or its v', to the neighbour across that edge
+  auto push_rpv = [&](int jl, int i, float rv, float pv, float vv) {
+    for (int to = 0; to < 2; ++to) {
+      if (to == 1 ? (jl != 0 || !b.has_up())
+                  : (jl != b.rows - 1 || !b.has_down()))
+        continue;
+      const uint32_t bar = links.bar[to][dots.slot()];
+      band_push2(links.dst(to, i, kHaloR), rv, pv, bar);
+      band_push(links.dst(to, i, kHaloV), vv, bar);
+    }
+  };
+  auto push_v = [&](int jl, int i, float vv) {
+    if (jl == 0 && b.has_up())
+      band_push(links.dst(1, i, kHaloVNew), vv, links.bar[1][dots.slot()]);
+    if (jl == b.rows - 1 && b.has_down())
+      band_push(links.dst(0, i, kHaloVNew), vv, links.bar[0][dots.slot()]);
+  };
+
+  // x = x0 on the interior, r0 = lap(mirror x0) - rhs, rhat = r0, p = v =
+  // 0, p's and s's shell columns 0; <r0, r0>
+  auto x0m = [&](int j, int i) {
+    return x0[(long long)band_clamp(j, ny) * nx + band_clamp(i, nx)];
+  };
+  double acc = 0.0;
+  band_points(b, [&](int jl, int i, int c) {
+    const int j = b.first + jl;
+    const float xc = x0[(long long)j * nx + i];
+    const float c2 = 2.0f * xc;
+    const float l = ((x0m(j, i + 1) - c2) + x0m(j, i - 1)) * inv_dx2 +
+                    ((x0m(j + 1, i) - c2) + x0m(j - 1, i)) * inv_dy2;
+    const float rv = l - rhs[(long long)j * nx + i];
+    xv[c] = xc;
+    r[c] = rv;
+    rhat[c] = rv;
+    p[c] = 0.0f;
+    v[c] = 0.0f;
+    acc += (double)rv * rv;
+    push_rpv(jl, i, rv, 0.0f, 0.0f);
+  });
+  band_zero_shell(p, b);
+  band_zero_shell(s, b);
+  double got[3] = {acc, 0.0, 0.0};
+  cluster_sum<double, 1>(got, sm, b, dots, halo_rpv);
+  const float rr0 = (float)got[0];
+  const float init_res = sqrtf(rr0);
+  const float tl = tolerance * init_res;
+  const float tol = (tl > abs_tol || tl != tl) ? tl : abs_tol;  // NaN kept
+  const bool already = init_res < abs_tol;
+  // <rhat, r> of the first iteration is <r0, r0>
+  float rho = 1.0f, alpha = 1.0f, omega = 1.0f, res = init_res;
+  float rho_new = rr0;
+  int it = 0, ci_phase = 0;  // ci_phase: it % ci, without a divide
+  bool running = !already, stagnated = false;
+
+  while (running && it < max_iter) {
+    const bool bd1 = fabsf(rho_new) < kBreakdown;
+    const float beta = bicg_beta(rho_new, rho, alpha, omega);
+    // p = r + beta (p - omega v); v = A p, <rhat, v>; the neighbour's edge
+    // p formed as it forms its own from its pushed (r, p, v)
+    band_points(b, [&](int, int, int c) {
+      p[c] = r[c] + beta * (p[c] - omega * v[c]);
+    });
+    __syncthreads();
+    auto p_edge = [&](int side, int i) {
+      const float* h = sm.halo_at(side, i, nx, 0);
+      return h[kHaloR] + beta * (h[kHaloP] - omega * h[kHaloV]);
+    };
+    acc = 0.0;
+    band_points(b, [&](int jl, int i, int c) {
+      const float up = jl == 0 && b.has_up() ? p_edge(0, i) : 0.0f;
+      const float dn = jl == b.rows - 1 && b.has_down() ? p_edge(1, i)
+                                                        : 0.0f;
+      const float a =
+          -band_lap(p, jl, c, b.rows, nx, up, dn, inv_dx2, inv_dy2);
+      v[c] = a;
+      acc += (double)rhat[c] * a;
+      push_v(jl, i, a);
+    });
+    got[0] = acc;
+    cluster_sum<double, 1>(got, sm, b, dots, halo_v);
+    const float rhv = (float)got[0];
+    const bool bd2 = fabsf(rhv) < kBreakdown;
+    const float alpha_new = rho_new / (bd2 ? 1.0f : rhv);
+    // s = r - alpha v; t = A s, <s, s>, <t, s>, <t, t>; the neighbour's edge
+    // s formed from its r and its pushed v
+    band_points(b, [&](int, int, int c) { s[c] = r[c] - alpha_new * v[c]; });
+    __syncthreads();
+    auto s_edge = [&](int side, int i) {
+      const float* h = sm.halo_at(side, i, nx, 0);
+      return h[kHaloR] - alpha_new * h[kHaloVNew];
+    };
+    double ss = 0.0, ts = 0.0, tt = 0.0;
+    band_points(b, [&](int jl, int i, int c) {
+      const float up = jl == 0 && b.has_up() ? s_edge(0, i) : 0.0f;
+      const float dn = jl == b.rows - 1 && b.has_down() ? s_edge(1, i)
+                                                        : 0.0f;
+      const float tv =
+          -band_lap(s, jl, c, b.rows, nx, up, dn, inv_dx2, inv_dy2);
+      const float sv = s[c];
+      t[c] = tv;
+      ss += (double)sv * sv;
+      ts += (double)tv * sv;
+      tt += (double)tv * tv;
+    });
+    got[0] = ss;
+    got[1] = ts;
+    got[2] = tt;
+    cluster_sum<double, 3>(got, sm, b, dots, 0);
+    const float s_norm = sqrtf((float)got[0]);
+    const bool early = s_norm < tol || s_norm < abs_tol;
+    const float tds = (float)got[1], tdt = (float)got[2];
+    const bool bd3 = fabsf(tdt) < kBreakdown;
+    const float omega_new = tds / (bd3 ? 1.0f : tdt);
+    // x and r by the reference's selections (vmem_small.py:391-393);
+    // <r_full, r_full> and <rhat, r_full>; the edge (r, p, v) to the
+    // neighbours
+    const bool bd = bd1 || bd2, partial = early || bd3;
+    double rr = 0.0, rh = 0.0;
+    band_points(b, [&](int jl, int i, int c) {
+      const float pv = p[c];
+      const float xa = xv[c] + alpha_new * pv;
+      const float rf = s[c] - omega_new * t[c];
+      if (!bd) xv[c] = partial ? xa : xa + omega_new * s[c];
+      const bool keep = bd || partial;
+      if (!keep) r[c] = rf;
+      rr += (double)rf * rf;
+      rh += (double)rhat[c] * rf;
+      push_rpv(jl, i, keep ? r[c] : rf, pv, v[c]);
+    });
+    got[0] = rr;
+    got[1] = rh;
+    cluster_sum<double, 2>(got, sm, b, dots, halo_rpv);
+    const float res_full = sqrtf((float)got[0]);
+    res = bd ? res : (partial ? s_norm : res_full);
+    const bool conv =
+        early || (ci_phase == 0 && (res_full < tol || res_full < abs_tol));
+    const bool bd4 = fabsf(omega_new) < kBreakdown;
+    stagnated = bd || bd3 || (bd4 && !conv);
+    running = !(stagnated || conv);
+    rho = rho_new;
+    rho_new = (float)got[1];
+    alpha = alpha_new;
+    omega = omega_new;
+    ++it;
+    if (++ci_phase == ci) ci_phase = 0;
+  }
+
+  // the Neumann mirror of the result into x; no CTA leaves while a push to
+  // it may be in flight
+  band_mirror_out(xv, !((resident >> kVecX) & 1), b, x);
+  cooperative_groups::this_cluster().sync();
+  if (b.q == 0 && threadIdx.x == 0) {
+    stats[0] = init_res;
+    stats[1] = already ? init_res : res;
+    stats[2] = already ? 0.0f : (float)it;
+    stats[3] = flag(stagnated);
+  }
+}
+
 dim3 tile_grid(int nz, int ny, int nx) {
   return dim3((nx + kTileX - 1) / kTileX, (ny + kTileY - 1) / kTileY, nz);
 }
@@ -771,6 +984,27 @@ int cfd_bicg_solve(const float* x0, const float* rhs, float* x, float* r,
       dim3(kThreads), args, 0, stream);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+// B2c: the plan's cluster (cs CTAs of `threads`), rmax rows a resident
+// vector, `resident` the bit mask of the vectors kept in shared memory
+// (kVecP ... kVecT); ws holds the planes of the ones that are not, at
+// their indices (x not resident is x itself).
+int cfd_bicg_solve_cluster(const float* x0, const float* rhs, float* x,
+                           float* ws, float* stats, int ny, int nx,
+                           float inv_dx2, float inv_dy2, float tolerance,
+                           float abs_tol, int max_iter, int ci, int cs,
+                           int threads, int rmax, int resident,
+                           cudaStream_t stream) {
+  const int my = ny - 2;
+  if (ny < 3 || nx < 3 || cs < 1 || cs > my || rmax < (my + cs - 1) / cs ||
+      resident < 0 || resident >= (1 << kBicgVecs))
+    return (int)cudaErrorInvalidValue;
+  const long long smem = band_smem_bytes(
+      kBicgHalo, __builtin_popcount(resident), rmax, nx);
+  return band_launch(bicg_solve_cluster_kernel, cs, threads, smem, stream,
+                     x0, rhs, x, ws, stats, ny, nx, inv_dx2, inv_dy2,
+                     tolerance, abs_tol, max_iter, ci, rmax, resident);
 }
 
 }  // extern "C"

@@ -30,7 +30,12 @@
 //       owned points only (the halo rows are the neighbours').
 //   K3  cg_solve_kernel
 //       <- make_cg_vmem_solve (cfd_tpu/ops/pallas/vmem_small.py:243): the
-//          whole CG/PCG loop in one cooperative launch.
+//          whole CG/PCG loop in one cooperative launch (3D volumes and
+//          planes too large for one cluster).
+//   K3c cg_solve_cluster_kernel
+//       <- the same, for a 2D plane whose vectors fit one thread-block
+//          cluster (vmem_small.krylov_cluster_plan): the whole loop in one
+//          cluster launch on cluster_band.cuh's engine.
 //
 // What bounds them on an H100, and what the design does:
 //
@@ -57,6 +62,16 @@
 //   partial, a barrier, then every block folds the same partials in the
 //   same order, so all blocks agree on every scalar and leave the loop
 //   together; the host launches once per solve.
+// * K3c keeps the plane resident in one cluster of up to 16 CTAs, as the
+//   TPU kernel keeps it in VMEM: p and r (and Ap and x where they fit) in
+//   the CTAs' shared memory by bands of rows, what one CTA needs of
+//   another pushed into its shared memory by st.async and counted on its
+//   mbarrier, each dot one such exchange and no cluster barrier
+//   (cluster_band.cuh).  Two dots an iteration and no pass of its own for
+//   the p update: it opens the next iteration, and the row a band reads
+//   beyond its edge is formed there as scale r + beta p from the edge r
+//   and p the neighbour pushed with the second dot (K1's trick), so no
+//   band waits for a neighbour's update.
 //
 // Shells: p' and Ap' get exact zeros by selection (never a multiply by a
 // mask, which would turn uninitialised NaN into NaN); x and r keep the
@@ -70,6 +85,7 @@
 #include <math.h>
 
 #include "block_reduce.cuh"
+#include "cluster_band.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -415,6 +431,200 @@ __global__ void __launch_bounds__(kThreads) cg_solve_kernel(
   }
 }
 
+// ---- K3c: the whole solve in one cluster ------------------------------------
+
+// vectors of the band (cluster_band.cuh), in the order the plan keeps them
+// resident; x not resident lives in x itself, the others in ws's planes
+enum { kVecP = 0, kVecR, kVecAp, kVecX, kCgVecs };
+// a halo column: the neighbour's edge (r, p), pushed with <r, r>
+constexpr int kCgHalo = 2;
+
+// The recurrence of cg_solve_kernel on a 2D plane (nz == 1) in the band
+// layout, two dots an iteration.  p is updated at the top of the next
+// iteration; the row a band reads beyond its edge is formed there as
+// scale r + beta p from the neighbour's edge r and p pushed with the last
+// dot (p0 as pushed).  x0 and rhs are read from device memory once.
+__global__ void __launch_bounds__(kBandMaxThreads, 1) cg_solve_cluster_kernel(
+    const float* __restrict__ x0, const float* __restrict__ rhs, float* x,
+    float* ws, float* stats, int ny, int nx, float inv_dx2, float inv_dy2,
+    float scale, float tolerance, float abs_tol, int max_iter, int ci,
+    int rmax, int resident) {
+  extern __shared__ __align__(16) unsigned char band_smem[];
+  const Band b(ny, nx, rmax);
+  const BandSmem sm(band_smem, kCgHalo, nx);
+  const long long plane = (long long)ny * nx;
+  float* p = band_vec(kVecP, resident, sm, b, ws);
+  float* r = band_vec(kVecR, resident, sm, b, ws + plane);
+  float* ap = band_vec(kVecAp, resident, sm, b, ws + 2 * plane);
+  float* xv = band_vec(kVecX, resident, sm, b, x);
+  BandDots dots;
+  band_init(sm);
+  const BandLinks links(sm, b);
+  const int halo = halo_bytes(b, 4 * kCgHalo);
+  // an edge point's (r, p) to the neighbour across that edge
+  auto push_edges = [&](int jl, int i, float rv, float pv) {
+    if (jl == 0 && b.has_up())
+      band_push2(links.dst(1, i, 0), rv, pv, links.bar[1][dots.slot()]);
+    if (jl == b.rows - 1 && b.has_down())
+      band_push2(links.dst(0, i, 0), rv, pv, links.bar[0][dots.slot()]);
+  };
+
+  // x = x0 on the interior, r0 = lap(mirror x0) - rhs, p0 = scale r0 (its
+  // shell columns 0), <r0, r0>
+  auto x0m = [&](int j, int i) {
+    return x0[(long long)band_clamp(j, ny) * nx + band_clamp(i, nx)];
+  };
+  float acc = 0.0f;
+  band_points(b, [&](int jl, int i, int c) {
+    const int j = b.first + jl;
+    const float xc = x0[(long long)j * nx + i];
+    const float c2 = 2.0f * xc;
+    const float l = ((x0m(j, i + 1) - c2) + x0m(j, i - 1)) * inv_dx2 +
+                    ((x0m(j + 1, i) - c2) + x0m(j - 1, i)) * inv_dy2;
+    const float rv = l - rhs[(long long)j * nx + i];
+    const float pv = scale * rv;
+    xv[c] = xc;
+    r[c] = rv;
+    p[c] = pv;
+    acc += rv * rv;
+    push_edges(jl, i, rv, pv);
+  });
+  band_zero_shell(p, b);
+  float dot[1] = {acc};
+  cluster_sum<float, 1>(dot, sm, b, dots, halo);
+  const float rr0 = dot[0];
+  const float init_res = sqrtf(rr0);
+  const float t = tolerance * init_res;
+  const float tol = (t > abs_tol || t != t) ? t : abs_tol;  // NaN kept
+  const bool already = init_res < abs_tol;
+  float rho = scale * rr0, res = init_res, beta = 0.0f;
+  int it = 0, ci_phase = 0;  // ci_phase: it % ci, without a divide
+  bool running = !already;
+
+  while (running && it < max_iter) {
+    // p = scale r + beta p (the last iteration's beta)
+    if (it > 0)
+      band_points(b, [&](int, int, int c) {
+        p[c] = scale * r[c] + beta * p[c];
+      });
+    __syncthreads();
+    // Ap = -lap p, <p, Ap>; the neighbour's edge p formed as it forms its
+    // own from the pushed (r, p) (p0 as pushed)
+    auto edge = [&](int side, int i) {
+      const float* h = sm.halo_at(side, i, nx, 0);
+      return it == 0 ? h[1] : scale * h[0] + beta * h[1];
+    };
+    acc = 0.0f;
+    band_points(b, [&](int jl, int i, int c) {
+      const float up = jl == 0 && b.has_up() ? edge(0, i) : 0.0f;
+      const float dn = jl == b.rows - 1 && b.has_down() ? edge(1, i) : 0.0f;
+      const float a =
+          -band_lap(p, jl, c, b.rows, nx, up, dn, inv_dx2, inv_dy2);
+      ap[c] = a;
+      acc += p[c] * a;
+    });
+    dot[0] = acc;
+    cluster_sum<float, 1>(dot, sm, b, dots, 0);
+    const float pap = dot[0];
+    const bool bd1 = fabsf(pap) < kBreakdown;
+    const float alpha = rho / (bd1 ? 1.0f : pap);
+    // x += alpha p, r -= alpha Ap (held on breakdown), <r, r>; the edge
+    // (r, p) to the neighbours
+    acc = 0.0f;
+    band_points(b, [&](int jl, int i, int c) {
+      const float pv = p[c];
+      float rv = r[c];
+      if (!bd1) {
+        xv[c] = xv[c] + alpha * pv;
+        rv = rv - alpha * ap[c];
+        r[c] = rv;
+      }
+      acc += rv * rv;
+      push_edges(jl, i, rv, pv);
+    });
+    dot[0] = acc;
+    cluster_sum<float, 1>(dot, sm, b, dots, halo);
+    const float rr = dot[0];
+    const float rho_new = scale * rr, res_new = sqrtf(rr);
+    const bool conv =
+        ci_phase == 0 && (res_new < tol || res_new < abs_tol);
+    const bool bd2 = fabsf(rho) < kBreakdown;
+    beta = rho_new / (bd2 ? 1.0f : rho);
+    rho = rho_new;
+    ++it;
+    if (++ci_phase == ci) ci_phase = 0;
+    if (!bd1) res = res_new;
+    running = !(conv || bd1 || bd2);
+  }
+
+  // the Neumann mirror of the result into x (every x write came before the
+  // last dot); no CTA leaves while a push to it may be in flight
+  band_mirror_out(xv, !((resident >> kVecX) & 1), b, x);
+  cooperative_groups::this_cluster().sync();
+  if (b.q == 0 && threadIdx.x == 0) {
+    stats[0] = init_res;
+    stats[1] = already ? init_res : res;
+    stats[2] = already ? 0.0f : (float)it;
+    stats[3] = running ? 1.0f : 0.0f;
+  }
+}
+
+// ---- the barrier probe -------------------------------------------------------
+
+// iters barriers in a row; block 0's thread 0 reads the SM clock and
+// %globaltimer around them: out[0] cycles, out[1] nanoseconds.  kKind 0:
+// grid.sync() of a cooperative grid; 1: cluster.sync() of one cluster;
+// 2: a one-value dot of cluster_band.cuh (a cluster's partials pushed to
+// every rank, each rank's mbarrier wait, the rank-order sum).
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+template <int kKind>
+__global__ void barrier_probe_kernel(int iters, long long* out) {
+  namespace cgs = cooperative_groups;
+  extern __shared__ __align__(16) unsigned char band_smem[];
+  if constexpr (kKind == 0) {
+    cgs::this_grid().sync();
+  } else {
+    const Band b(cgs::this_cluster().num_blocks() + 2, 3, 1);
+    const BandSmem sm(band_smem, 0, 3);
+    BandDots dots;
+    band_init(sm);
+    (void)b;
+    (void)dots;
+  }
+  const long long c0 = clock64();
+  const unsigned long long n0 = global_ns();
+  if constexpr (kKind == 2) {
+    const Band b(cgs::this_cluster().num_blocks() + 2, 3, 1);
+    const BandSmem sm(band_smem, 0, 3);
+    BandDots dots;
+    float v[1] = {0.0f};
+    for (int k = 0; k < iters; ++k) {
+      v[0] = 1.0f;
+      cluster_sum<float, 1>(v, sm, b, dots, 0);
+    }
+    if (v[0] != (float)(b.cs * (int)blockDim.x)) out[2] = 1;
+  } else {
+    for (int k = 0; k < iters; ++k) {
+      if constexpr (kKind == 0)
+        cgs::this_grid().sync();
+      else
+        cgs::this_cluster().sync();
+    }
+  }
+  const long long c1 = clock64();
+  const unsigned long long n1 = global_ns();
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    out[0] = c1 - c0;
+    out[1] = (long long)(n1 - n0);
+  }
+  if constexpr (kKind != 0) cgs::this_cluster().sync();
+}
+
 dim3 tile_grid(int nz, int ny, int nx) {
   return dim3((nx + kTileX - 1) / kTileX, (ny + kTileY - 1) / kTileY, nz);
 }
@@ -568,6 +778,48 @@ int cfd_cg_solve(const float* x0, const float* rhs, float* x, float* r,
   cudaError_t err = cudaLaunchCooperativeKernel(
       (const void*)cg_solve_kernel, dim3((unsigned int)nblk), dim3(kThreads),
       args, 0, stream);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// K3c: the plan's cluster (cs CTAs of `threads`), rmax rows a resident
+// vector, `resident` the bit mask of the vectors kept in shared memory
+// (kVecP, kVecR, kVecAp, kVecX); ws holds the planes of p, r and Ap for
+// the ones that are not (x not resident is x itself).
+int cfd_cg_solve_cluster(const float* x0, const float* rhs, float* x,
+                         float* ws, float* stats, int ny, int nx,
+                         float inv_dx2, float inv_dy2, float scale,
+                         float tolerance, float abs_tol, int max_iter, int ci,
+                         int cs, int threads, int rmax, int resident,
+                         cudaStream_t stream) {
+  const int my = ny - 2;
+  if (ny < 3 || nx < 3 || cs < 1 || cs > my || rmax < (my + cs - 1) / cs ||
+      resident < 0 || resident >= (1 << kCgVecs))
+    return (int)cudaErrorInvalidValue;
+  const long long smem =
+      band_smem_bytes(kCgHalo, __builtin_popcount(resident), rmax, nx);
+  return band_launch(cg_solve_cluster_kernel, cs, threads, smem, stream, x0,
+                     rhs, x, ws, stats, ny, nx, inv_dx2, inv_dy2, scale,
+                     tolerance, abs_tol, max_iter, ci, rmax, resident);
+}
+
+// The barrier floor: `iters` barriers of `blocks` CTAs of `threads` each
+// (kind 0: grid.sync() of a cooperative grid; 1: cluster.sync() and 2:
+// cluster_band.cuh's dot, of one cluster); out[0] SM cycles, out[1]
+// nanoseconds of block 0 over them, out[2] 1 if a dot summed wrong.
+int cfd_barrier_probe(int kind, int blocks, int threads, int iters,
+                      long long* out, cudaStream_t stream) {
+  if (kind == 1)
+    return band_launch(barrier_probe_kernel<1>, blocks, threads,
+                       kBandHeader, stream, iters, out);
+  if (kind == 2)
+    return band_launch(barrier_probe_kernel<2>, blocks, threads,
+                       kBandHeader, stream, iters, out);
+  if (kind != 0) return (int)cudaErrorInvalidValue;
+  void* args[] = {&iters, &out};
+  const cudaError_t err = cudaLaunchCooperativeKernel(
+      (const void*)barrier_probe_kernel<0>, dim3((unsigned)blocks),
+      dim3((unsigned)threads), args, 0, stream);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

@@ -130,6 +130,14 @@ SIGNATURES = {
     "cfd_cg_lap_dot": [_P] * 6 + [_I] * 3 + [_F] * 4 + [_P],
     "cfd_cg_update": [_P] * 6 + [_I] * 3 + [_F, _I, _P],
     "cfd_cg_solve": [_P] * 8 + [_I] * 3 + [_F] * 6 + [_I] * 2 + [_P],
+    # ... the whole solve in one cluster (x0, rhs, x, the planes of the
+    # vectors not resident, stats; ny, nx; the coefficients, scale and
+    # tolerances; max_iter, ci; the plan: cluster size, threads, rows a
+    # rank, the resident vectors' mask), and the barrier probe (grid,
+    # cluster or dot, blocks, threads, barriers, int64[3] out)
+    "cfd_cg_solve_cluster": [_P] * 5 + [_I] * 2 + [_F] * 5 + [_I] * 2
+    + [_I] * 4 + [_P],
+    "cfd_barrier_probe": [_I] * 4 + [_P, _P],
     # ... the sharded passes (a fold output, then the block's global
     # plane base and count) and the recurrences on the shards' sums
     "cfd_cg_lap_dot_sharded": [_P] * 7 + [_I] * 3 + [_F] * 4 + [_I] * 2
@@ -154,6 +162,8 @@ SIGNATURES = {
     "cfd_bicg_st": [_P] * 6 + [_I] * 3 + [_F] * 3 + [_P],
     "cfd_bicg_xr": [_P] * 8 + [_I] * 4 + [_P],
     "cfd_bicg_solve": [_P] * 11 + [_I] * 3 + [_F] * 5 + [_I] * 2 + [_P],
+    "cfd_bicg_solve_cluster": [_P] * 5 + [_I] * 2 + [_F] * 4 + [_I] * 2
+    + [_I] * 4 + [_P],
     "cfd_bicg_pv_sharded": [_P] * 9 + [_I] * 3 + [_F] * 3 + [_I] * 2
     + [_P],
     "cfd_bicg_st_sharded": [_P] * 7 + [_I] * 3 + [_F] * 3 + [_I] * 2

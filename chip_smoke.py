@@ -50,8 +50,12 @@ Then the CG pressure solve, the reference's default projection solver:
 * phase 12: the fused CG passes (``lap_dot``, ``cg_update``), A1's rhs
   form and the non-DST corrector against their plain versions at
   37×23×11 and 512³, the 2D rhs form at 37×23 and 100×50, and the
-  whole-solve CG kernel (``cg_solve``) against ``make_cg`` at 100×100
-  (plain and Jacobi) and 512²;
+  whole-solve CG in the form its plan names: the cluster kernel
+  (``cg_solve[cluster]``) bit for bit against its order model, twice, at
+  37×23, 100×50, 100², 128² and 512², beside the grid-wide kernel's time
+  and the barrier probe's latencies, then against ``make_cg`` at 100×100
+  (plain and Jacobi) and 512², the grid-wide kernel (``cg_solve``) at
+  33×17×9 and 700²;
 * phase 13: ``bench.py``'s ``cg_512`` solve (512³, tol 1e-6,
   ``check_interval`` 10) on the kernel path, timed, with its iteration
   count, host syncs and float64 true residual, and 20 fixed iterations
@@ -59,11 +63,13 @@ Then the CG pressure solve, the reference's default projection solver:
 * phase 14: the 3D CG projection step at 256³ (``bench.py:run_3d``'s
   parameters), 3 warm-up and 3 timed steps on both paths;
 * phase 15: ``Simulation.create(100, 50, solver_type="projection")`` for
-  2000 ``step()``s, the whole-solve kernel once a step, the first 10
+  2000 ``step()``s, the cluster CG kernel once a step, the first 10
   held against the plain path (the facade's dt = 0.005 is past the
   viscous limit there, so the clamps are reached near step 40);
 * phase 16: Ghia Re = 100 at 128² with the CG pressure solve
-  (``GHIA_SOLVER_STEPS``, 10000 steps, t = 5; about 20 s on an H100).
+  (``GHIA_SOLVER_STEPS``, 10000 steps, t = 5; about 14 s on an H100),
+  the cluster kernel once a step, then 2 steps of a 700² cavity through
+  the grid-wide kernel.
 
 Then the multigrid pressure solve:
 
@@ -94,7 +100,9 @@ Then BiCGSTAB, Red-Black SOR and Jacobi:
   ``pass_xr``) and the RB-SOR sweep (``rbsor_sweep``) against their plain
   versions at 37×23×11 and 512³ (fields bit-equal; a NaN in x gives a NaN
   residual), and the whole solves (``bicgstab_solve``, ``rbsor_solve``,
-  ``jacobi_solve``) at 100², 64×96 and 33×17×9;
+  ``jacobi_solve``) at 100², 64×96 and 33×17×9 (BiCGSTAB also at 700²,
+  the grid-wide form), and the cluster BiCGSTAB kernel bit for bit
+  against its order model at the planes of phase 12;
 * phase 23: ``bench.py:run_poisson_iters(100)`` through the Poisson front
   end — RB-SOR 2000, CG 400 and BiCGSTAB 150 iterations a solve, the rate
   Δiterations/Δtime between 5 and 105 solves;
@@ -104,7 +112,9 @@ Then BiCGSTAB, Red-Black SOR and Jacobi:
 * phase 25: the BiCGSTAB step at 128³ beside the CG step there, the RB-SOR
   step at 128³ (its float32 floor printed first) and the Jacobi step at
   33³, on both paths;
-* phase 26: Ghia Re = 100 at 128² with the BiCGSTAB solve, the 128² cavity
+* phase 26: Ghia Re = 100 at 128² with the BiCGSTAB solve (the cluster
+  kernel once a step; 2 steps of a 700² cavity, the grid-wide one), the
+  128² cavity
   for 50 steps with RB-SOR and with Jacobi above their printed floors,
   and ``poisson_solve``'s default preset at 100², on both paths;
 * phase 27: ``spectral_precision="high"``'s kernels against their plain
@@ -516,6 +526,16 @@ SRC_CG = "cfd_tpu_torch/csrc/cg_kernels.cu"
 LAP_DOT = "cfd_tpu/ops/pallas/cg_kernels.py:75"       # make_lap_dot_rolling
 CG_UPD = "cfd_tpu/ops/pallas/cg_kernels.py:360"       # make_cg_update
 CG_VMEM = "cfd_tpu/ops/pallas/vmem_small.py:243"      # make_cg_vmem_solve
+# The planes the whole-solve Krylov kernels take in one cluster (the
+# facade's 100×50, the Ghia cavities' 128², run_poisson_iters' 100², a
+# ragged 37×23 and 512²), and the shapes their plan sends to the
+# grid-wide kernels (a 3D volume, a plane past one cluster's shared
+# memory); (nz, ny, nx)
+CLUSTER_PLANES = ((1, 23, 37), (1, 50, 100), (1, 100, 100), (1, 128, 128),
+                  (1, 512, 512))
+GRID_SHAPES = ((9, 17, 33), (1, 700, 700))
+N_GRID_CAVITY = 700     # a 2D cavity past one cluster: the grid-wide form
+GRID_CAVITY_STEPS = 2
 A1_RHS = "cfd_tpu/ops/pallas/projection_kernels.py:699"   # emit="rhs"
 A5_CORR = "cfd_tpu/ops/pallas/projection_kernels.py:724"  # corr_all
 P2_RHS = "cfd_tpu/ops/pallas/projection2d.py:196"     # emit="rhs"
@@ -2230,8 +2250,95 @@ def main() -> int:
               ("rhs",), (exact,),
               work=((us, vs), FLOPS_PER_POINT["poisson_rhs"] * us.numel()))
 
-    # K3, the whole-solve CG, against make_cg (the reference's jnp loop
-    # as plain tensor code), random right-hand side from seed 0, tol 1e-5
+    # K3 in the form its plan names (vmem_small.krylov_cluster_plan): the
+    # cluster kernel (K3c) at every plane of CLUSTER_PLANES, bit for bit
+    # against its order model (x, r0, res, iterations, running) and two
+    # launches bit-identical, each form device-timed there; then both
+    # forms against make_cg (the reference's jnp loop as plain tensor
+    # code), random right-hand side from seed 0, tolerance 1e-5: ±2
+    # iterations, x within TOL_DOT — K3c at 100² (CG and Jacobi PCG) and
+    # 512², the grid-wide K3 at GRID_SHAPES
+    barrier_ns = {}     # (kind, blocks, threads) -> the probe's ns a barrier
+
+    def barrier_floor(kind, blocks, threads):
+        key = (kind, blocks, threads)
+        if key not in barrier_ns:
+            barrier_ns[key] = vmem_small.barrier_probe(kind, blocks,
+                                                       threads, dev)["ns"]
+        return barrier_ns[key]
+
+    def grid_blocks(kind, shape):
+        lib = native.library()
+        return (lib.cfd_cg_solve_blocks if kind == "cg" else
+                lib.cfd_bicg_solve_blocks)(*shape)
+
+    cluster_solves = {}     # "<kind> <tag>" -> the forms' numbers
+
+    def hold_cluster(label, kind, c, x0, rhs, tol, max_iter):
+        """The wrapper at a plane its plan sends to the cluster kernel:
+        bit for bit against the order model and two launches
+        bit-identical; the device ms of the cluster and grid-wide forms
+        on the same input, and the barrier floors (the cluster kernels'
+        dot at the plan's cluster, grid.sync() at the grid-wide kernel's
+        grid)."""
+        cg_kind = kind == "cg"
+        plan = vmem_small.krylov_cluster_plan(c.nz, c.ny, c.nx, kind)
+        if plan["form"] != "cluster":
+            fail(f"{label}: the {kind} plan of {c.shape} is not a cluster")
+        wrap, model, grid_form = (
+            (vmem_small.cg_solve, vmem_small.cg_solve_cluster_ordered,
+             vmem_small.cg_solve_grid) if cg_kind else
+            (vmem_small.bicgstab_solve,
+             vmem_small.bicgstab_solve_cluster_ordered,
+             vmem_small.bicgstab_solve_grid))
+        args = (x0, rhs, c, tol, 0.0, max_iter)
+        got, again, ref = wrap(*args), wrap(*args), model(*args)
+        sync()
+        names = ("x", "r0", "res", "iterations",
+                 "running" if cg_kind else "stagnated")
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        equal = {n: bool(torch.equal(a, b))
+                 for n, a, b in zip(names, got, ref)}
+        n_it = max(int(got[3]), 1)
+        ms_c, ms_g = device_ms(lambda: wrap(*args)), \
+            device_ms(lambda: grid_form(*args))
+        nblk = grid_blocks(kind, c.shape)
+        dot_ns = barrier_floor("dot", plan["cluster"], plan["threads"])
+        sync_ns = barrier_floor("cluster", plan["cluster"], plan["threads"])
+        grid_ns = barrier_floor("grid", nblk, 256)
+        row = {"cluster": plan["cluster"], "threads": plan["threads"],
+               "resident": list(plan["resident"]),
+               "iterations": int(got[3]), "ms": ms_c, "grid_ms": ms_g,
+               "us_per_iteration": ms_c / n_it * 1e3,
+               "grid_us_per_iteration": ms_g / n_it * 1e3,
+               "dot_ns": dot_ns, "cluster_sync_ns": sync_ns,
+               "grid_blocks": nblk, "grid_sync_ns": grid_ns}
+        cluster_solves[f"{kind} {label.split()[-1]}"] = row
+        print(f"  {label} {kind}: plan {plan['cluster']} CTAs x "
+              f"{plan['threads']} threads, {plan['rows']} rows a rank, "
+              f"resident {plan['resident']}, in device memory "
+              f"{plan['device']}; against its order model {equal}; two "
+              f"launches bit-identical {same}; {int(got[3])} iterations: "
+              f"cluster {ms_c:.4f} ms ({row['us_per_iteration']:.3f} us "
+              f"an iteration), grid-wide {ms_g:.4f} ms "
+              f"({row['grid_us_per_iteration']:.3f} us); the dot "
+              f"{dot_ns:.1f} ns, cluster.sync() {sync_ns:.1f} ns at "
+              f"{plan['cluster']} CTAs, grid.sync() {grid_ns:.1f} ns at "
+              f"{nblk} blocks", flush=True)
+        if not same or not all(equal.values()):
+            fail(f"{label}: the cluster {kind} solve is not its order "
+                 f"model bit for bit, or two launches differ")
+        return plan, row
+
+    for shape in CLUSTER_PLANES:
+        tag = f"{shape[2]}x{shape[1]}"
+        _, prob = cg_problem(shape)
+        c = cgk.CGConsts(*shape, prob.inv_dx2, prob.inv_dy2, prob.inv_dz2)
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        rhs = torch.randn(shape, generator=gen, device=dev)
+        hold_cluster(f"phase 12 K3c {tag}", "cg", c, torch.zeros_like(rhs),
+                     rhs, 1e-5, 2000)
+
     def cg_results_agree(tag, got, ref):
         it, it_ref = int(got.iterations), int(ref.iterations)
         st, st_ref = int(got.status), int(ref.status)
@@ -2242,47 +2349,79 @@ def main() -> int:
             fail(f"{tag}: iterations or status differ")
         return compare(tag, "x", got.x, ref.x, TOL_DOT, True)
 
+    def solve_record(path, name, replaces, source, err_rel=(0.0, 0.0)):
+        """The record of a whole solve, its errors the largest yet."""
+        rec = records.setdefault((path, name), {
+            "replaces": replaces, "source": source, "max_abs_err": 0.0,
+            "max_rel_err": 0.0})
+        rec["max_abs_err"] = max(rec["max_abs_err"], err_rel[0])
+        rec["max_rel_err"] = max(rec["max_rel_err"], err_rel[1])
+        return rec
+
     for shape, pc in (((1, 100, 100), Precond.NONE),
                       ((1, 100, 100), Precond.JACOBI),
-                      ((1, 512, 512), Precond.NONE)):
+                      ((1, 512, 512), Precond.NONE),
+                      ((9, 17, 33), Precond.NONE),
+                      ((1, 700, 700), Precond.NONE)):
         big = shape[1] == 512
-        tag = f"{shape[2]}x{shape[1]} {pc.name}"
-        print(f"phase 12 cg_solve (K3) vs make_cg at {tag}", flush=True)
+        plan = vmem_small.krylov_cluster_plan(*shape, "cg")
+        name = "cg_solve[cluster]" if plan["form"] == "cluster" else \
+            "cg_solve"
+        if (shape in GRID_SHAPES) != (plan["form"] == "grid"):
+            fail(f"phase 12: the CG plan of {shape} is {plan['form']}")
+        tag = "x".join(map(str, shape[::-1])) + f" {pc.name}"
+        print(f"phase 12 {name} vs make_cg at {tag}", flush=True)
         _, prob = cg_problem(shape)
         pp = PoissonParams(tolerance=1e-5, preconditioner=pc)
         gen = torch.Generator(device=dev).manual_seed(SEED)
         rhs = torch.randn(shape, generator=gen, device=dev)
         x0 = torch.zeros_like(rhs)
-        kern = krylov.make_cg_vmem(prob, pp, device=dev)
-        plain = krylov.make_cg_vmem(prob, pp, device=dev, plain=True)
-        got = kern(x0, rhs)
+        counts0 = (vmem_small.cg_solve.launches,
+                   vmem_small.cg_solve.cluster_launches)
+        got = krylov.make_cg_vmem(prob, pp, device=dev)(x0, rhs)
+        ran = (vmem_small.cg_solve.launches - counts0[0],
+               vmem_small.cg_solve.cluster_launches - counts0[1])
+        if ran != ((0, 1) if plan["form"] == "cluster" else (1, 0)):
+            fail(f"phase 12 {tag}: not the plan's form {ran}")
         ref = krylov.make_cg(prob, pp)(x0, rhs)
-        err, rel = cg_results_agree(f"{tag} cg_solve", got, ref)
-        rec = records.setdefault(("cg2d", "cg_solve"), {
-            "replaces": CG_VMEM, "source": SRC_CG, "max_abs_err": 0.0,
-            "max_rel_err": 0.0})
-        rec["max_abs_err"] = max(rec["max_abs_err"], err)
-        rec["max_rel_err"] = max(rec["max_rel_err"], rel)
-        ms_k = cuda_ms(lambda: kern(x0, rhs))
+        solve_record("cg2d", name, CG_VMEM, SRC_CG,
+                     cg_results_agree(f"{tag} {name}", got, ref))
         n_it = int(got.iterations)
-        print(f"  {tag} cg_solve: {ms_k:.3f} ms a solve, "
-              f"{ms_k / max(n_it, 1) * 1e3:.2f} us an iteration, "
-              f"{3 * n_it + 2} grid barriers", flush=True)
-        if big:
-            interior = (shape[1] - 2) * (shape[2] - 2)
-            rec["ms"], rec["plain_ms"] = ms_k, cuda_ms(lambda: plain(x0,
-                                                                     rhs))
-            rec["library_ms"] = None
-            rec["bound_ms"], rec["bound_by"] = bound(
-                nbytes((x0, rhs, got.x)),
-                n_it * FLOPS_PER_POINT["cg_iter"] * interior)
-            # its passes move 11 fields an iteration (Ap: p in, Ap out;
-            # updates: x, r, p, Ap in, x, r out; p: r, p in, p out)
-            pass_gb = 11 * n_it * 4 * shape[1] * shape[2] / 1e9
-            print(f"  {tag} cg_solve: plain {rec['plain_ms']:.3f} ms, "
-                  f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}); "
-                  f"its passes move {pass_gb:.3f} GB (L2-resident)",
-                  flush=True)
+        c = cgk.CGConsts(*shape, prob.inv_dx2, prob.inv_dy2, prob.inv_dz2,
+                         1.0, pp.check_interval)
+        args = (x0, rhs, c, pp.tolerance, pp.absolute_tolerance,
+                pp.max_iterations)
+        if not big:
+            if plan["form"] == "grid":
+                ms_g = device_ms(lambda: vmem_small.cg_solve_grid(*args))
+                print(f"  {tag} cg_solve (grid-wide): {ms_g:.4f} ms, "
+                      f"{ms_g / max(n_it, 1) * 1e3:.3f} us an iteration",
+                      flush=True)
+            continue
+        # both forms' records at 512², on this input: device ms, the
+        # plain path's, the bound, the barrier floor (iterations x
+        # barriers an iteration x the probe's latency)
+        n_interior = (shape[1] - 2) * (shape[2] - 2)
+        plain_ms = cuda_ms(lambda: krylov.make_cg_vmem(
+            prob, pp, device=dev, plain=True)(x0, rhs), reps=1)
+        bnd = bound(nbytes((x0, rhs, got.x)),
+                    n_it * FLOPS_PER_POINT["cg_iter"] * n_interior)
+        nblk = grid_blocks("cg", shape)
+        floors = {"cg_solve[cluster]": 2 * barrier_floor(
+            "dot", plan["cluster"], plan["threads"]),
+                  "cg_solve": 3 * barrier_floor("grid", nblk, 256)}
+        for nm, fn in (("cg_solve[cluster]", vmem_small.cg_solve_cluster),
+                       ("cg_solve", vmem_small.cg_solve_grid)):
+            r2 = solve_record("cg2d", nm, CG_VMEM, SRC_CG)
+            r2["ms"] = device_ms(lambda: fn(*args))
+            r2["plain_ms"], r2["library_ms"] = plain_ms, None
+            r2["bound_ms"], r2["bound_by"] = bnd
+            r2["barrier_ms"] = n_it * floors[nm] * 1e-6
+            print(f"  {tag} {nm}: {r2['ms']:.3f} ms a solve "
+                  f"({r2['ms'] / n_it * 1e3:.2f} us an iteration), plain "
+                  f"{plain_ms:.3f} ms, bound {r2['bound_ms']:.4f} ms "
+                  f"({r2['bound_by']}), barrier floor "
+                  f"{r2['barrier_ms']:.4f} ms", flush=True)
 
     # ---- phase 13: the 512³ CG Poisson solve (bench.py's cg_512) -------
     n = N_BIG
@@ -2421,7 +2560,7 @@ def main() -> int:
 
     # ---- phase 15: the facade with the reference's default projection ---
     pk2m.reset_launch_counts()
-    vmem_small.cg_solve.launches = 0
+    vmem_small.cg_solve.launches = vmem_small.cg_solve.cluster_launches = 0
     sim = Simulation.create(100, 50, solver_type="projection", device=dev)
     start_field, checked, clamped = sim.field, None, None
     sync()
@@ -2435,7 +2574,7 @@ def main() -> int:
         if clamped is None and sim.get_stats().max_velocity >= 100.0:
             clamped = i + 1
     wall_cg = (time.perf_counter() - t0) * 1e3
-    n_launch = vmem_small.cg_solve.launches
+    n_launch = vmem_small.cg_solve.cluster_launches
     stats = sim.get_stats()
     print(f"phase 15 Simulation.create(100, 50, solver_type='projection'): "
           f"{FACADE_STEPS} step()s in {wall_cg:.1f} ms host wall "
@@ -2443,11 +2582,12 @@ def main() -> int:
           f"card), last CG iterations "
           f"{int(sim.solver._step_fn.last_poisson.iterations)}, max|u| "
           f"{stats.max_velocity:.6f} (the ±100 clamps reached at step "
-          f"{clamped}), max p {stats.max_pressure:.6f}, cg_solve launches "
-          f"{n_launch}", flush=True)
-    if n_launch != FACADE_STEPS:
-        fail("phase 15 facade: not the whole-solve CG kernel once a step")
-    launch_counts["cg2d"] = {"cg_solve": n_launch,
+          f"{clamped}), max p {stats.max_pressure:.6f}, cg_solve cluster "
+          f"launches {n_launch}, grid-wide {vmem_small.cg_solve.launches}",
+          flush=True)
+    if n_launch != FACADE_STEPS or vmem_small.cg_solve.launches:
+        fail("phase 15 facade: not the cluster CG kernel once a step")
+    launch_counts["cg2d"] = {"cg_solve[cluster]": n_launch,
                              "poisson_rhs_2d": pk2m.poisson_rhs_2d.launches}
     plain_cg = make_projection_step(sim.grid, sim.params, torch.float32,
                                     Method.CG, device=dev, plain=True)
@@ -2462,10 +2602,62 @@ def main() -> int:
     close_p(f"phase 15 facade {FACADE_CHECK} steps", checked.p, fp.p)
 
     # ---- phase 16: Ghia Re = 100 through the CG pressure solve -----------
-    vmem_small.cg_solve.launches = 0
+    def solve_forms(wrapper, label, steps, form):
+        """Fail unless the main path just run launched the whole solve
+        once a step in the plan's ``form``, and no other; returns the
+        count."""
+        counts = {"cluster": wrapper.cluster_launches,
+                  "grid": wrapper.launches}
+        print(f"{label} {wrapper.__name__} launches: cluster "
+              f"{counts['cluster']}, grid-wide {counts['grid']}", flush=True)
+        if counts[form] != steps or sum(counts.values()) != steps:
+            fail(f"{label}: not the {form} form once a step {counts}")
+        return steps
+
+    def grid_cavity(label, method, wrapper):
+        """GRID_CAVITY_STEPS lid-cavity steps at N_GRID_CAVITY², a plane
+        past one cluster's shared memory, the solve at tolerance 1e-4:
+        the main path through the grid-wide whole solve (status 0,
+        finite)."""
+        n = N_GRID_CAVITY
+        if vmem_small.krylov_cluster_plan(
+                1, n, n, "cg" if method == Method.CG else
+                "bicgstab")["form"] != "grid":
+            fail(f"{label}: {n}^2 is not the grid-wide form")
+        stepc = make_projection_step(
+            Grid.uniform(n, n), NSParams(source_amplitude_u=0.0,
+                                         source_amplitude_v=0.0,
+                                         mu=1.0 / 100),
+            torch.float32, method,
+            poisson_params=PoissonParams(tolerance=1e-4), device=dev)
+        lid, wall = DirichletValues(top=1.0), DirichletValues()
+        fc = FlowField.quiescent(n, n, pressure=0.0, dtype=torch.float32,
+                                 device=dev)
+        wrapper.launches = wrapper.cluster_launches = 0
+        for i in range(GRID_CAVITY_STEPS):
+            sync()
+            t0 = time.perf_counter()
+            fc = fc.replace(u=apply_dirichlet_scalar(fc.u, lid),
+                            v=apply_dirichlet_scalar(fc.v, wall),
+                            p=apply_neumann_scalar(fc.p))
+            fc, rc = stepc(fc, 5e-4, i)
+            status = int(rc.status)
+            print(f"{label} {n}^2 cavity step {i}: "
+                  f"{(time.perf_counter() - t0) * 1e3:.3f} ms host wall, "
+                  f"{int(stepc.last_poisson.iterations)} iterations, status "
+                  f"{status}", flush=True)
+            if status != 0:
+                fail(f"{label}: status {status}")
+        if not bool(fc.is_finite()):
+            fail(f"{label}: non-finite field")
+        return solve_forms(wrapper, label, GRID_CAVITY_STEPS, "grid")
+
+    vmem_small.cg_solve.launches = vmem_small.cg_solve.cluster_launches = 0
     ghia_gate("phase 16", 128, 100, 5e-4, GHIA_SOLVER_STEPS, 0.10, Method.CG)
-    print(f"phase 16 cg_solve launches {vmem_small.cg_solve.launches}",
-          flush=True)
+    launch_counts["cg2d"]["cg_solve[cluster]"] += solve_forms(
+        vmem_small.cg_solve, "phase 16", GHIA_SOLVER_STEPS, "cluster")
+    launch_counts["cg2d"]["cg_solve"] = grid_cavity(
+        "phase 16 grid-wide", Method.CG, vmem_small.cg_solve)
 
     # ---- phase 17: the multigrid kernels against their plain versions ----
     def mg_levels(shape):
@@ -2932,14 +3124,6 @@ def main() -> int:
             fail(f"{tag}: iterations or status differ")
         return compare(tag, "x", got.x, ref.x, *x_tol)
 
-    def solve_record(path, name, replaces, source, err_rel):
-        rec = records.setdefault((path, name), {
-            "replaces": replaces, "source": source, "max_abs_err": 0.0,
-            "max_rel_err": 0.0})
-        rec["max_abs_err"] = max(rec["max_abs_err"], err_rel[0])
-        rec["max_rel_err"] = max(rec["max_rel_err"], err_rel[1])
-        return rec
-
     # B2 against its plain version: the reference's BiCGSTAB bars (±3
     # iterations, x within 1e-3·max|x|, tests/math/test_fused_solvers.py:
     # 181-186) on a smooth rhs at tolerance 1e-2 — BiCGSTAB's float32
@@ -2948,7 +3132,7 @@ def main() -> int:
     # reference's own whole-solve bars on a normal rhs at 1e-5; S2
     # bit-equal (the same sweeps and residual folds)
     whole = (("bicgstab_solve", krylov.make_bicgstab_vmem, "bicg2d", B2,
-              SRC_BICG, ((1, 100, 100), (1, 64, 96)),
+              SRC_BICG, ((1, 100, 100), (1, 64, 96)) + GRID_SHAPES,
               PoissonParams(tolerance=1e-2, max_iterations=1000), 3,
               (1e-3, True)),
              ("rbsor_solve", stationary.make_redblack_sor_vmem, "sor2d",
@@ -2975,11 +3159,35 @@ def main() -> int:
                        * torch.sin(math.pi * xx)[None, :])[None] \
                     + 0.005 * rhs
                 x0.zero_()
+            rec_name = name
+            if name == "bicgstab_solve":
+                # B2 in the form its plan names, the record the form's
+                form = vmem_small.krylov_cluster_plan(*shape,
+                                                      "bicgstab")["form"]
+                if (shape in GRID_SHAPES) != (form == "grid"):
+                    fail(f"phase 22: the BiCGSTAB plan of {shape} is {form}")
+                rec_name = name + ("[cluster]" if form == "cluster" else "")
+                fn = vmem_small.bicgstab_solve
+                fn.launches = fn.cluster_launches = 0
             print(f"phase 22 {tag} vs plain", flush=True)
             got = maker(prob, pp, device=dev)(x0, rhs)
+            if name == "bicgstab_solve":
+                solve_forms(fn, f"phase 22 {tag}", 1, form)
             ref = maker(prob, pp, device=dev, plain=True)(x0, rhs)
-            solve_record(path, name, replaces, source,
+            solve_record(path, rec_name, replaces, source,
                          whole_solve_agree(tag, got, ref, tol_it, x_tol))
+    # B2c at every plane of CLUSTER_PLANES bit for bit against its order
+    # model, two launches bit-identical, each form device-timed (a normal
+    # rhs from seed 0, tolerance 1e-5, at most 600 iterations)
+    for shape in CLUSTER_PLANES:
+        tag = f"{shape[2]}x{shape[1]}"
+        _, prob = cg_problem(shape)
+        c = bk.BiCGConsts(*shape, prob.inv_dx2, prob.inv_dy2, prob.inv_dz2)
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        rhs = torch.randn(shape, generator=gen, device=dev)
+        hold_cluster(f"phase 22 B2c {tag}", "bicgstab", c,
+                     torch.zeros_like(rhs), rhs, 1e-5, 600)
+
     # B2 on a normal rhs at 1e-5 (tests/math/test_vmem_small.py:141-162):
     # both converged below tol·r0, at most twice the plain path's
     # iterations, x within 5e-4
@@ -3071,19 +3279,44 @@ def main() -> int:
         if name == "redblack_sor":
             compare(f"phase 23 {name}", "x", k.x, pl.x, *bit)
         # the whole-solve kernels' records: this solve, timed
-        rec_name = {"redblack_sor": "rbsor_solve",
-                    "bicgstab": "bicgstab_solve"}.get(name)
+        if name == "bicgstab":
+            # B2c (the form the plan names here) and the grid-wide B2 on
+            # this input, device-timed; the barrier floor of each
+            c_b = bk.BiCGConsts(1, n, n, (n - 1) ** 2, (n - 1) ** 2, 0.0,
+                                budget)
+            args = (x0_p, rhs_p, c_b, 0.0, 0.0, budget)
+            plan = vmem_small.krylov_cluster_plan(1, n, n, "bicgstab")
+            plain_ms = cuda_ms(
+                lambda: solvers["plain"].solve_result(x0_p, rhs_p), reps=1)
+            for nm, fn, floor in (
+                    ("bicgstab_solve[cluster]",
+                     vmem_small.bicgstab_solve_cluster,
+                     3 * barrier_floor("dot", plan["cluster"],
+                                       plan["threads"])),
+                    ("bicgstab_solve", vmem_small.bicgstab_solve_grid,
+                     5 * barrier_floor("grid", grid_blocks(
+                         "bicgstab", (1, n, n)), 256))):
+                n_b = int(fn(*args)[3])
+                rec = records[("bicg2d", nm)]
+                rec["ms"] = device_ms(lambda: fn(*args))
+                rec["plain_ms"], rec["library_ms"] = plain_ms, None
+                rec["bound_ms"], rec["bound_by"] = bound(
+                    3 * nbytes((rhs_p,)),
+                    n_b * FLOPS_PER_POINT["bicg_iter_2d"] * interior_2d)
+                rec["barrier_ms"] = n_b * floor * 1e-6
+                print(f"  {nm}: {n_b} iterations, {rec['ms']:.4f} ms "
+                      f"({rec['ms'] / max(n_b, 1) * 1e3:.3f} us an "
+                      f"iteration), plain {plain_ms:.3f} ms, barrier floor "
+                      f"{rec['barrier_ms']:.4f} ms", flush=True)
+        rec_name = {"redblack_sor": "rbsor_solve"}.get(name)
         if rec_name is not None:
-            rec = records[("sor2d" if name == "redblack_sor" else "bicg2d",
-                           rec_name)]
+            rec = records[("sor2d", rec_name)]
             rec["ms"] = t2 / POISSON_PAIR[1]
             rec["plain_ms"] = cuda_ms(
                 lambda: solvers["plain"].solve_result(x0_p, rhs_p), reps=1)
             rec["library_ms"] = None
             flops = (budget * FLOPS_PER_POINT["sor_sweep_2d"]
-                     + FLOPS_PER_POINT["residual_2d"]) * interior_2d \
-                if name == "redblack_sor" else \
-                budget * FLOPS_PER_POINT["bicg_iter_2d"] * interior_2d
+                     + FLOPS_PER_POINT["residual_2d"]) * interior_2d
             rec["bound_ms"], rec["bound_by"] = bound(
                 3 * nbytes((rhs_p,)), flops)
     # Jacobi's whole solve on the same 100² input, 2000 sweeps
@@ -3103,8 +3336,9 @@ def main() -> int:
         * interior_2d)
     print(f"phase 23 jacobi_solve 100^2, 2000 sweeps: {rec['ms']:.4f} ms, "
           f"plain {rec['plain_ms']:.3f} ms", flush=True)
-    for name in ("bicgstab_solve", "rbsor_solve", "jacobi_solve"):
-        rec = records[("bicg2d" if name == "bicgstab_solve" else "sor2d",
+    for name in ("bicgstab_solve[cluster]", "bicgstab_solve", "rbsor_solve",
+                 "jacobi_solve"):
+        rec = records[("bicg2d" if name.startswith("bicgstab") else "sor2d",
                        name)]
         print(f"  {name}: bound {rec['bound_ms']:.6f} ms "
               f"({rec['bound_by']})", flush=True)
@@ -3386,15 +3620,15 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- phase 26: 2D — Ghia with BiCGSTAB, the stationary cavities ------
-    vmem_small.bicgstab_solve.launches = 0
+    bw = vmem_small.bicgstab_solve
+    bw.launches = bw.cluster_launches = 0
     ghia_gate("phase 26", 128, 100, 5e-4, GHIA_SOLVER_STEPS, 0.10,
               Method.BICGSTAB)
     launch_counts["bicg2d"] = {
-        "bicgstab_solve": vmem_small.bicgstab_solve.launches}
-    print(f"phase 26 bicgstab_solve launches "
-          f"{vmem_small.bicgstab_solve.launches}", flush=True)
-    if vmem_small.bicgstab_solve.launches != GHIA_SOLVER_STEPS:
-        fail("phase 26 Ghia: not the whole-solve BiCGSTAB once a step")
+        "bicgstab_solve[cluster]": solve_forms(
+            bw, "phase 26", GHIA_SOLVER_STEPS, "cluster"),
+        "bicgstab_solve": grid_cavity("phase 26 grid-wide",
+                                      Method.BICGSTAB, bw)}
 
     def cavity(method, pp, plain, steps=CAVITY_STEPS, nc=128):
         """The lid cavity at Re = 100 (ghia_gate's loop), ``steps`` steps
@@ -4887,7 +5121,8 @@ def main() -> int:
         fp_ = FlowField.quiescent(pnx, pny, dtype=torch.float32, device=dev)
         fp_ = fp_.replace(u=analytic_u(yy)[None, :, None].expand(
             1, pny, pnx).contiguous())
-        vmem_small.cg_solve.launches = 0
+        cw = vmem_small.cg_solve
+        cw.launches = cw.cluster_launches = 0
         worst = torch.zeros((), dtype=torch.int32, device=dev)
         sync()
         t0 = time.perf_counter()
@@ -4902,18 +5137,17 @@ def main() -> int:
         u_num = fp_.u[0, 1:-1, -2].double().cpu().numpy()
         u_ana = analytic_u(np.asarray(grid_p.y))[1:-1]
         l2 = float(np.sqrt(np.mean((u_num - u_ana) ** 2)))
-        n_cg = vmem_small.cg_solve.launches
+        n_cg = vmem_small.cg_solve.cluster_launches
         poiseuille[beta] = {"l2": l2, "ms_per_step": wall * 1e3 / psteps,
-                            "cg_solve_launches": n_cg}
+                            "cg_solve_cluster_launches": n_cg}
         print(f"phase 37 Poiseuille {pnx}x{pny} beta={beta}: outlet L2 "
               f"{l2:.5f} (bar {bar}; reference float64 record: 0.011 / "
               f"0.126 / 0.188), worst status {int(worst)}, "
-              f"{wall * 1e3 / psteps:.3f} ms a step host wall, cg_solve "
-              f"launches {n_cg}", flush=True)
+              f"{wall * 1e3 / psteps:.3f} ms a step host wall", flush=True)
         if int(worst) != 0 or not l2 < bar:
             fail(f"phase 37 Poiseuille beta={beta}: status or L2 bar")
-        if n_cg != psteps:
-            fail("phase 37 Poiseuille: not the whole-solve CG once a step")
+        solve_forms(vmem_small.cg_solve, f"phase 37 Poiseuille beta={beta}",
+                    psteps, "cluster")
         if float(fp_.u[0, 0].abs().max()) != 0.0 or float(
                 fp_.u[0, -1].abs().max()) != 0.0:
             fail("phase 37 Poiseuille: the walls are not no-slip")
@@ -9192,6 +9426,10 @@ def main() -> int:
             # (the y-line kernel: its dependent chain's floor, which bounds
             # it where the bytes do not)
             kernels[-1]["chain_ms"] = rec["chain_ms"]
+        if "barrier_ms" in rec:
+            # (the whole Krylov solves: iterations x barriers an iteration
+            # x the probe's barrier latency, a floor beside bound_ms)
+            kernels[-1]["barrier_ms"] = rec["barrier_ms"]
     print(json.dumps({"kernels": kernels, "step_ms": ms3,
                       "grid": f"{N_BIG}x{N_BIG}x{N_BIG}", "step_ms_2d": ms2,
                       "grid_2d": f"{n2}x{n2}", "explicit_step_ms":
@@ -9245,6 +9483,9 @@ def main() -> int:
                       "consistent_sharded_512": cons_rec,
                       "default_sharded": def_rec,
                       "rescue": rescue_rec, "tdma_y2d": y2d_rec,
+                      "cluster_solves": cluster_solves,
+                      "barrier_ns": {f"{k[0]} {k[1]}x{k[2]}": v
+                                     for k, v in barrier_ns.items()},
                       "tf32_plans": tf32_plans, "tf32_depths": tf32_depths,
                       "tf32_contract": contract,
                       "sgemm_shapes": sgemm_rec,

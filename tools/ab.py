@@ -1,6 +1,6 @@
 """The harness the A/B tools share (``tools/gemm_ab.py``,
-``tools/tdma_ab.py``): one process a checkout, a device timer, and the
-card's name read by ``nvidia-smi``.
+``tools/tdma_ab.py``, ``tools/solve_ab.py``): one process a checkout, a
+device timer, and the card's name read by ``nvidia-smi``.
 
 A tool defines ``run_root(root, check) -> dict``, which imports the
 checkout ``root``'s ``cfd_tpu_torch`` (``sys.path`` first) and measures
